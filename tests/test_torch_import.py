@@ -1,0 +1,95 @@
+"""The port imports torch and never jax, ships its CUDA sources, and
+fails loudly where it cannot build or launch a kernel."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "voxtral_tpu_torch"
+# The three framework-free modules of the JAX package the port reuses.
+REUSED = {"voxtral_tpu", "voxtral_tpu.config", "voxtral_tpu.audio",
+          "voxtral_tpu.tokenizer"}
+
+
+def test_importing_the_port_leaves_jax_out():
+    # A fresh interpreter: this test process already imported jax
+    # (tests/conftest.py).
+    code = ("import sys\n"
+            "import voxtral_tpu_torch, voxtral_tpu_torch.cli\n"
+            "import voxtral_tpu_torch.pipeline, voxtral_tpu_torch.models.voxtral\n"
+            "import voxtral_tpu_torch.ops.w8_kernel, voxtral_tpu_torch.ops.decode_step\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_port_sources_import_no_jax_and_only_the_reused_modules():
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        # The smoke script reaches the reused modules through the port.
+        allowed = set() if path.name == "chip_smoke.py" else REUSED
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            assert top != "jax", f"{path}: imports {mod}"
+            if top == "voxtral_tpu":
+                assert mod in allowed, f"{path}: imports {mod}"
+
+
+def test_cuda_sources_are_shipped():
+    names = {p.name for p in (PKG / "csrc").glob("*.cu*")}
+    assert {"w8_matmul.cu", "decode_step.cu", "w8_common.cuh"} <= names
+    pyproject = (REPO / "pyproject.toml").read_text()
+    assert '"voxtral_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in pyproject
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    from voxtral_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "find_nvcc", lambda: None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+        _build.build()
+    assert "-gencode" in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
+
+
+def test_wrappers_raise_on_a_device_they_cannot_serve():
+    from voxtral_tpu_torch.ops import w8_kernel as k2
+
+    meta = torch.device("meta")
+    xq = torch.zeros((1, 32), dtype=torch.int8, device=meta)
+    codes = torch.zeros((8, 32), dtype=torch.int8, device=meta)
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        k2.w8_matmul(xq, torch.ones((1, 1), device=meta), codes,
+                     torch.ones(8, device=meta))
+
+
+def test_numpy_bf16_round_trip():
+    import ml_dtypes
+    import numpy as np
+
+    from voxtral_tpu_torch.device import to_torch
+
+    a = (np.arange(12, dtype=np.float32) / 7).astype(ml_dtypes.bfloat16)
+    t = to_torch(a)
+    assert t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(t.float().numpy(), a.astype(np.float32))

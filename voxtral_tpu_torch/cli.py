@@ -1,0 +1,131 @@
+"""Transcribe CLI of the port.
+
+Usage:
+    python -m voxtral_tpu_torch.cli --random-weights --dtype w8 --audio x.wav
+
+Ported so far: ``--audio`` (repeatable), ``--random-weights``,
+``--params``, ``--dtype w8``, ``--delay``, ``--max-mel-frames``,
+``--tokenizer`` and ``--device``.  The other flags of
+``voxtral_tpu/cli.py`` are recognised and exit with an error naming the
+ROADMAP item that ports them.  One line of text per audio file on stdout;
+logs on stderr.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+from pathlib import Path
+
+# flag -> (value it takes when unset, ROADMAP item that ports it)
+_NOT_PORTED = {
+    "--audio-list": (None, "queue 1, item 11 (batched multi-file input)"),
+    "--model": (None, "queue 1, item 9 (SafeTensors loader)"),
+    "--gguf": (None, "queue 1, item 9 (GGUF loader)"),
+    "--batch-files": (0, "queue 1, item 11 (batched multi-file decode)"),
+    "--weight-format": (None, "queue 1, item 9 (q4 / q4g formats)"),
+    "--platform": (None, "none: the port takes --device instead"),
+    "--tp": (1, "queue 1, item 12 (parallel)"),
+    "--dp": (1, "queue 1, item 12 (parallel)"),
+    "--timestamps": (False, "queue 1, item 10 (word timestamps)"),
+    "--params-cache": (None, "queue 1, item 9 (parameter cache)"),
+    "--speculative": (0, "queue 1, item 8 (speculative decode)"),
+    "--draft-policy": (None, "queue 1, item 8 (speculative decode)"),
+    "--server": (None, "queue 1, item 11 (serving)"),
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="voxtral-transcribe-torch",
+        description="Transcribe audio with Voxtral Mini 4B Realtime "
+        "(PyTorch + CUDA port)",
+    )
+    p.add_argument("-a", "--audio", action="append", default=[],
+                   help="Path to a WAV file; repeatable")
+    p.add_argument("--random-weights", action="store_true",
+                   help="Random w8 weights at the configuration's shapes "
+                   "(no model download)")
+    p.add_argument("--params",
+                   help="params.json overriding the architecture "
+                   "(with --random-weights)")
+    p.add_argument("--dtype", choices=["bfloat16", "float32", "w8"],
+                   default="w8", help="Weight format; only w8 is ported")
+    p.add_argument("-d", "--delay", type=float, default=6.0,
+                   help="Delay in tokens (1 token = 80 ms); default 6")
+    p.add_argument("--max-mel-frames", type=int, default=3000,
+                   help="Max mel frames per chunk")
+    p.add_argument("--tokenizer", help="Tokenizer JSON path (tekken.json)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda when available, "
+                   "else cpu)")
+    for flag, (default, _) in _NOT_PORTED.items():
+        p.add_argument(flag, nargs="?", const=True, default=default,
+                       help=argparse.SUPPRESS)
+    p.add_argument("-v", "--verbose", action="store_true")
+    return p
+
+
+def _error(msg: str) -> int:
+    print(f"error: {msg}", file=sys.stderr)
+    return 2
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(
+        stream=sys.stderr,
+        level=logging.DEBUG if args.verbose else logging.INFO,
+        format="%(asctime)s %(levelname)s %(message)s",
+    )
+    for flag, (default, item) in _NOT_PORTED.items():
+        if getattr(args, flag[2:].replace("-", "_")) != default:
+            return _error(f"{flag} is not ported to voxtral_tpu_torch yet "
+                          f"(ROADMAP {item})")
+    if args.dtype != "w8":
+        return _error(f"--dtype {args.dtype} is not ported yet (ROADMAP "
+                      "queue 1, item 9); only w8 runs")
+    if not args.random_weights:
+        return _error("loading real weights is not ported yet (ROADMAP "
+                      "queue 1, item 9); pass --random-weights")
+    if not args.audio:
+        return _error("no audio files specified (--audio)")
+    if args.max_mel_frames <= 0:
+        return _error("--max-mel-frames must be greater than 0")
+
+    import torch
+
+    from voxtral_tpu.config import VoxtralConfig
+    from voxtral_tpu.tokenizer import VoxtralTokenizer
+    from voxtral_tpu_torch.models.voxtral import VoxtralModel
+    from voxtral_tpu_torch.pipeline import PipelineConfig, TranscribePipeline
+    from voxtral_tpu_torch.utils.quantize import random_w8_params
+
+    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    cfg = (VoxtralConfig.from_file(args.params) if args.params
+           else VoxtralConfig.voxtral())
+    log = logging.getLogger("voxtral_tpu_torch")
+    log.info("random w8 weights (seed 0) on %s", device)
+    model = VoxtralModel.from_numpy(random_w8_params(cfg), cfg, device)
+    if args.tokenizer:
+        tokenizer = VoxtralTokenizer.from_file(args.tokenizer)
+    else:
+        tokenizer = VoxtralTokenizer(
+            [None] * 131072, {1: "<s>", 32: "[STREAMING_PAD]"}, 131072)
+    pipeline = TranscribePipeline(model, tokenizer, PipelineConfig(
+        delay_tokens=args.delay, max_mel_frames=args.max_mel_frames))
+
+    status = 0
+    for path in args.audio:
+        if not Path(path).exists():
+            print(f"error: audio file not found: {path}", file=sys.stderr)
+            print("")
+            status = 1
+            continue
+        print(pipeline.transcribe_file(path), flush=True)
+    return status
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,376 @@
+// K1 (a): one single-token decode step through every decoder layer, then
+// the final norm and the tied lm_head folded to logits.
+//
+// Port of voxtral_tpu/ops/decode_step_pallas.py::decode_stack_step
+// (kernel body _make_stack_kernel), mode (a): w8 weights, bf16 bounded
+// head-major cache, scalar offset, sliding window, lm fold to logits.
+// The TPU kernel is one pallas_call whose sequential grid carries the
+// residual across layers in VMEM.  CUDA blocks run in no order, so here
+// the step is a fixed sequence of small kernels on one stream, with the
+// residual in a [B, D] f32 buffer in HBM; per layer:
+//
+//   row_quant(norm)      rmsnorm x attn_norm, per-row int8 quant
+//   gemv qkv             W8A8 GEMV (w8_common.cuh)
+//   attn_decode          pair RoPE, GQA attention over the bf16 cache
+//                        slots [max(0, off - window), off) plus the fresh
+//                        token, one block per query head; k_new / v_new
+//   row_quant(plain)     int8 quant of the attention output
+//   gemv wo (+ x)        residual fused into the epilogue
+//   row_quant(norm, ada) rmsnorm x ffn_norm x ADA vector, int8 quant
+//   gemv w13
+//   row_quant(swiglu)    silu(gate) * up, int8 quant
+//   gemv w2 (+ x)
+//
+// then row_quant(final norm) and the lm_head GEMV.  9 launches per layer
+// + 2.  What bounds it on the H100: the int8 weights streamed per step
+// (3.4 GB at full width, lm_head included); the GEMVs read each weight
+// byte once with 16-byte loads, everything else is a few KB per launch.
+// Launch gaps and the unfused epilogues are later work (CUDA graph,
+// persistent kernel).
+//
+// Rounding points follow the JAX kernel: q is scaled in f32 and cast to
+// bf16 for the cache scores; the self score uses the unrounded f32 q and
+// k; softmax weights are cast to bf16 for P.V; the self term uses the
+// f32 v; k_new / v_new are stored as bf16.
+//
+// Bit-for-bit with the plain version (ops/decode_step.py): every float
+// reduction (sum of squares, scores, softmax sum, P.V) accumulates in
+// f64 and rounds once to f32, so its value does not depend on the
+// summation order; the build passes -fmad=false, so each float op
+// rounds on its own as PyTorch's ops do.  Without this, f32 order
+// differences flip int8 activation codes, and over 26 layers of random
+// weights those flips grow to ~8% of the logits.
+#include <cuda_bf16.h>
+#include <math.h>
+
+#include "w8_common.cuh"
+
+namespace vx {
+namespace {
+
+enum QuantMode { kQuantPlain = 0, kQuantNorm = 1, kQuantSwiglu = 2 };
+
+constexpr int kQuantThreads = 1024;
+constexpr int kAttnThreads = 256;
+constexpr int kMaxHeadDim = 256;  // P.V: up to 4 bf16 pairs per lane
+
+__device__ __forceinline__ double warp_sum_d(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Block-wide max / f64 sum; every thread gets the result.  ``red`` holds
+// one value per warp.
+__device__ float block_max(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = (blockDim.x + 31) >> 5;
+  v = warp_max(v);
+  __syncthreads();  // a previous reduction may still read red
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  return warp_max(lane < nw ? red[lane] : -INFINITY);
+}
+
+__device__ double block_sum_d(double v, double* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = (blockDim.x + 31) >> 5;
+  v = warp_sum_d(v);
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  return warp_sum_d(lane < nw ? red[lane] : 0.0);
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// One block per row b: h = f(x[b]) of width K, then xq[b] = int8 codes,
+// sx[b] = max(absmax(h), 1e-8) / 127 with round-half-even of h / sx.
+//   kQuantPlain:  h = x
+//   kQuantNorm:   h = (x * (1 / sqrt(mean(x^2) + eps))) * w   (* ada),
+//                 mean(x^2) summed in f64
+//   kQuantSwiglu: h = (g * sigmoid(g)) * u, g = x[:K], u = x[K:2K]
+// h is recomputed in each pass (the same operations, the same values).
+__global__ void __launch_bounds__(kQuantThreads) row_quant_kernel(
+    const float* __restrict__ x, int ldx, int K, const float* __restrict__ w,
+    const float* __restrict__ ada, float eps, int mode,
+    int8_t* __restrict__ xq, float* __restrict__ sx) {
+  __shared__ float red[32];
+  __shared__ double red_d[32];
+  const int b = blockIdx.x;
+  const float* xr = x + static_cast<size_t>(b) * ldx;
+  float inv = 1.0f;
+  if (mode == kQuantNorm) {
+    double ss = 0.0;
+    for (int k = threadIdx.x; k < K; k += blockDim.x) {
+      const double v = xr[k];
+      ss += v * v;
+    }
+    ss = block_sum_d(ss, red_d);
+    const float var = static_cast<float>(ss / static_cast<double>(K));
+    inv = 1.0f / sqrtf(var + eps);
+  }
+  auto value = [&](int k) -> float {
+    if (mode == kQuantNorm) {
+      float h = (xr[k] * inv) * w[k];
+      if (ada != nullptr) h = h * ada[k];
+      return h;
+    }
+    if (mode == kQuantSwiglu) {
+      const float g = xr[k];
+      const float sig = 1.0f / (1.0f + expf(-g));
+      return (g * sig) * xr[K + k];
+    }
+    return xr[k];
+  };
+  float amax = 0.0f;
+  for (int k = threadIdx.x; k < K; k += blockDim.x)
+    amax = fmaxf(amax, fabsf(value(k)));
+  amax = block_max(amax, red);
+  const float s = fmaxf(amax, 1e-8f) / 127.0f;
+  int8_t* q = xq + static_cast<size_t>(b) * K;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    const float c = fminf(fmaxf(rintf(value(k) / s), -127.0f), 127.0f);
+    q[k] = static_cast<int8_t>(c);
+  }
+  if (threadIdx.x == 0) sx[b] = s;
+}
+
+// One block per (query head h, row b); kv head j = h / G.  qkv
+// [B, nq + 2 nkv] f32 holds the un-roped projections; the cache is
+// head-major [B, n_kv, S, hd] bf16 for this layer.  Scores: one thread
+// per cache slot; P.V: one warp per slot (strided over the warps), a
+// lane per pair of head dims, one coalesced row load per slot.  Dynamic
+// shared memory: the per-warp P.V partial sums (nw x hd doubles), q
+// (scaled f32 and its bf16 rounding), k, v, and the n scores / softmax
+// weights.
+__global__ void __launch_bounds__(kAttnThreads) attn_decode_kernel(
+    const float* __restrict__ qkv, const float* __restrict__ cosv,
+    const float* __restrict__ sinv, const __nv_bfloat16* __restrict__ kc,
+    const __nv_bfloat16* __restrict__ vc, __nv_bfloat16* __restrict__ kn,
+    __nv_bfloat16* __restrict__ vn, float* __restrict__ attn, int S, int lo,
+    int n, int n_heads, int n_kv, int hd, float scale) {
+  extern __shared__ double smem_d[];
+  __shared__ float red[32];
+  __shared__ double red_d[32];
+  __shared__ float self_sh;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int nw = nt >> 5;
+  double* part = smem_d;                                 // [nw * hd]
+  float* qf = reinterpret_cast<float*>(smem_d + nw * hd);  // [hd] scaled q
+  float* qb = qf + hd;                                   // [hd] bf16(q)
+  float* kf = qb + hd;                                   // [hd] roped k
+  float* vf = kf + hd;                                   // [hd] v
+  float* sc = vf + hd;                                   // [n]
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int G = n_heads / n_kv, j = h / G;
+  const int nq = n_heads * hd, nkv = n_kv * hd;
+  const float* row = qkv + static_cast<size_t>(b) * (nq + 2 * nkv);
+  const float* qh = row + static_cast<size_t>(h) * hd;
+  const float* kh = row + nq + static_cast<size_t>(j) * hd;
+  const float* vh = row + nq + nkv + static_cast<size_t>(j) * hd;
+  const size_t kvo = (static_cast<size_t>(b) * n_kv + j) * hd;
+  for (int d = tid; d < hd; d += nt) {
+    const float q = (qh[d] * cosv[d] + qh[d ^ 1] * sinv[d]) * scale;
+    qf[d] = q;
+    qb[d] = round_bf16(q);
+    const float k = kh[d] * cosv[d] + kh[d ^ 1] * sinv[d];
+    kf[d] = k;
+    vf[d] = vh[d];
+    if (h % G == 0) {  // one writer per kv head
+      kn[kvo + d] = __float2bfloat16(k);
+      vn[kvo + d] = __float2bfloat16(vh[d]);
+    }
+  }
+  __syncthreads();
+
+  const size_t head = (static_cast<size_t>(b) * n_kv + j) * S;
+  const __nv_bfloat16* kbase = kc + head * hd;
+  const __nv_bfloat16* vbase = vc + head * hd;
+  // Cache scores: bf16(q) . k over slots lo..lo+n-1, f64 sums.
+  for (int t = tid; t < n; t += nt) {
+    const __nv_bfloat162* kr = reinterpret_cast<const __nv_bfloat162*>(
+        kbase + static_cast<size_t>(lo + t) * hd);
+    double p = 0.0;
+#pragma unroll 8
+    for (int d2 = 0; d2 < hd / 2; ++d2) {
+      const float2 kv = __bfloat1622float2(kr[d2]);
+      p += static_cast<double>(qb[2 * d2]) * kv.x;
+      p += static_cast<double>(qb[2 * d2 + 1]) * kv.y;
+    }
+    sc[t] = static_cast<float>(p);
+  }
+  // Self score: the unrounded f32 q and k.
+  if (warp == 0) {
+    double p = 0.0;
+    for (int d = lane; d < hd; d += 32)
+      p += static_cast<double>(qf[d]) * kf[d];
+    p = warp_sum_d(p);
+    if (lane == 0) self_sh = static_cast<float>(p);
+  }
+  __syncthreads();
+  // Softmax: f32 max, f64 sum, bf16 weights for P.V.
+  const float self_s = self_sh;
+  float m = self_s;
+  for (int t = tid; t < n; t += nt) m = fmaxf(m, sc[t]);
+  m = block_max(m, red);
+  double s = 0.0;
+  for (int t = tid; t < n; t += nt) {
+    const float e = expf(sc[t] - m);
+    s += e;
+    sc[t] = round_bf16(e);
+  }
+  s = block_sum_d(s, red_d);  // its barriers publish the weights too
+  const float e_self = expf(self_s - m);
+  const float den = static_cast<float>(s) + e_self;
+  // P.V over the cache (bf16 weights x bf16 v, f64 sums) + the self term.
+  constexpr int kPairs = kMaxHeadDim / 64;  // bf16 pairs per lane
+  double acc2[kPairs][2];
+#pragma unroll
+  for (int c = 0; c < kPairs; ++c) acc2[c][0] = acc2[c][1] = 0.0;
+#pragma unroll 4
+  for (int t = warp; t < n; t += nw) {
+    const __nv_bfloat162* vr = reinterpret_cast<const __nv_bfloat162*>(
+        vbase + static_cast<size_t>(lo + t) * hd);
+    const double w = sc[t];
+#pragma unroll
+    for (int c = 0; c < kPairs; ++c) {
+      const int d2 = lane + 32 * c;
+      if (d2 < hd / 2) {
+        const float2 v2 = __bfloat1622float2(vr[d2]);
+        acc2[c][0] += w * v2.x;
+        acc2[c][1] += w * v2.y;
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kPairs; ++c) {
+    const int d2 = lane + 32 * c;
+    if (d2 < hd / 2) {
+      part[warp * hd + 2 * d2] = acc2[c][0];
+      part[warp * hd + 2 * d2 + 1] = acc2[c][1];
+    }
+  }
+  __syncthreads();
+  for (int d = tid; d < hd; d += nt) {
+    double acc = 0.0;
+    for (int wi = 0; wi < nw; ++wi) acc += part[wi * hd + d];
+    const float ctx = static_cast<float>(acc) + e_self * vf[d];
+    attn[static_cast<size_t>(b) * nq + static_cast<size_t>(h) * hd + d] =
+        ctx / den;
+  }
+}
+
+inline void row_quant(const float* x, int ldx, int K, const float* w,
+                      const float* ada, float eps, int mode, int B,
+                      int8_t* xq, float* sx, cudaStream_t st) {
+  row_quant_kernel<<<B, kQuantThreads, 0, st>>>(x, ldx, K, w, ada, eps, mode,
+                                                xq, sx);
+}
+
+}  // namespace
+}  // namespace vx
+
+// All pointers are device pointers; lm_codes == NULL skips the lm fold.
+// Layouts: x, xo [B, D] f32; norms / ada [L, D] f32; scales [L, N] f32;
+// cos / sin [hd] f32 (pair-expanded); caches [L, B, n_kv, S, hd] bf16;
+// wqkv [L, nq + 2 nkv, D], wo [L, D, nq], w13 [L, 2F, D], w2 [L, D, F]
+// int8; lm_codes [V, D] int8, lm_scale [V] f32; kn / vn [L, B, n_kv, hd]
+// bf16; logits [B, V] f32.  Scratch: xq [B, max(D, nq, F)] int8, sx [B],
+// qkv [B, nq + 2 nkv], attn [B, nq], up [B, 2F] f32.
+extern "C" int vx_decode_stack_step(
+    const void* x, void* xo, const void* attn_norms, const void* ffn_norms,
+    const void* ada, const void* sqkv, const void* so, const void* s13,
+    const void* s2, const void* cosv, const void* sinv, const void* kc,
+    const void* vc, const void* wqkv, const void* wo, const void* w13,
+    const void* w2, const void* final_norm, const void* lm_codes,
+    const void* lm_scale, void* kn, void* vn, void* logits, void* xq_buf,
+    void* sx_buf, void* qkv_buf, void* attn_buf, void* up_buf, int B, int D,
+    int L, int S, int n_heads, int n_kv, int hd, int F, int V, int off,
+    int window, float eps, float scale, void* stream) {
+  using namespace vx;
+  if (hd > kMaxHeadDim || hd % 2 || n_kv <= 0 || n_heads % n_kv ||
+      off < 0 || off > S)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nq = n_heads * hd, nkv = n_kv * hd, nqkv = nq + 2 * nkv;
+  const int lo = window >= 0 ? (off - window > 0 ? off - window : 0) : 0;
+  const int n = off - lo;
+  const size_t smem = sizeof(double) * (kAttnThreads / 32) * hd +
+                      sizeof(float) * (4 * static_cast<size_t>(hd) + n);
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        attn_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+
+  float* X = static_cast<float*>(xo);
+  int8_t* xq = static_cast<int8_t*>(xq_buf);
+  float* sx = static_cast<float*>(sx_buf);
+  float* qkv = static_cast<float*>(qkv_buf);
+  float* att = static_cast<float*>(attn_buf);
+  float* up = static_cast<float*>(up_buf);
+  const float* an = static_cast<const float*>(attn_norms);
+  const float* fn = static_cast<const float*>(ffn_norms);
+  const float* av = static_cast<const float*>(ada);
+  const int8_t* Wqkv = static_cast<const int8_t*>(wqkv);
+  const int8_t* Wo = static_cast<const int8_t*>(wo);
+  const int8_t* W13 = static_cast<const int8_t*>(w13);
+  const int8_t* W2 = static_cast<const int8_t*>(w2);
+  const float* Sqkv = static_cast<const float*>(sqkv);
+  const float* So = static_cast<const float*>(so);
+  const float* S13 = static_cast<const float*>(s13);
+  const float* S2 = static_cast<const float*>(s2);
+  const __nv_bfloat16* KC = static_cast<const __nv_bfloat16*>(kc);
+  const __nv_bfloat16* VC = static_cast<const __nv_bfloat16*>(vc);
+  __nv_bfloat16* KN = static_cast<__nv_bfloat16*>(kn);
+  __nv_bfloat16* VN = static_cast<__nv_bfloat16*>(vn);
+
+  cudaMemcpyAsync(X, x, sizeof(float) * static_cast<size_t>(B) * D,
+                  cudaMemcpyDeviceToDevice, st);
+  const size_t cache_layer = static_cast<size_t>(B) * n_kv * S * hd;
+  const size_t new_layer = static_cast<size_t>(B) * n_kv * hd;
+  for (int l = 0; l < L; ++l) {
+    row_quant(X, D, D, an + static_cast<size_t>(l) * D, nullptr, eps,
+              kQuantNorm, B, xq, sx, st);
+    launch_w8_gemv(xq, sx, Wqkv + static_cast<size_t>(l) * nqkv * D,
+                   Sqkv + static_cast<size_t>(l) * nqkv, nullptr, qkv, B,
+                   nqkv, D, st);
+    attn_decode_kernel<<<dim3(n_heads, B), kAttnThreads, smem, st>>>(
+        qkv, static_cast<const float*>(cosv), static_cast<const float*>(sinv),
+        KC + l * cache_layer, VC + l * cache_layer, KN + l * new_layer,
+        VN + l * new_layer, att, S, lo, n, n_heads, n_kv, hd, scale);
+    row_quant(att, nq, nq, nullptr, nullptr, eps, kQuantPlain, B, xq, sx, st);
+    launch_w8_gemv(xq, sx, Wo + static_cast<size_t>(l) * D * nq,
+                   So + static_cast<size_t>(l) * D, X, X, B, D, nq, st);
+    row_quant(X, D, D, fn + static_cast<size_t>(l) * D,
+              av + static_cast<size_t>(l) * D, eps, kQuantNorm, B, xq, sx, st);
+    launch_w8_gemv(xq, sx, W13 + static_cast<size_t>(l) * 2 * F * D,
+                   S13 + static_cast<size_t>(l) * 2 * F, nullptr, up, B,
+                   2 * F, D, st);
+    row_quant(up, 2 * F, F, nullptr, nullptr, eps, kQuantSwiglu, B, xq, sx,
+              st);
+    launch_w8_gemv(xq, sx, W2 + static_cast<size_t>(l) * D * F,
+                   S2 + static_cast<size_t>(l) * D, X, X, B, D, F, st);
+  }
+  if (lm_codes != nullptr) {
+    row_quant(X, D, D, static_cast<const float*>(final_norm), nullptr, eps,
+              kQuantNorm, B, xq, sx, st);
+    launch_w8_gemv(xq, sx, static_cast<const int8_t*>(lm_codes),
+                   static_cast<const float*>(lm_scale), nullptr,
+                   static_cast<float*>(logits), B, V, D, st);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

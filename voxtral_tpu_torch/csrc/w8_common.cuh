@@ -1,0 +1,241 @@
+// W8A8 product device code shared by K2 (w8_matmul.cu) and K1
+// (decode_step.cu):
+//
+//   out[m, n] = (float(sum_k xq[m, k] * codes[n, k]) * sx[m]) * scale[n]
+//               (+ resid[m, n])
+//
+// xq [M, K] int8, sx [M] f32, codes [N, K] int8 (row n = output n),
+// scale [N] f32, out / resid [M, N] f32 row-major (resid may alias out).
+// The integer sum is exact in int32 (|sum| <= K * 127^2 < 2^31 for
+// K < 133000).  The epilogue multiplies in the order of the JAX
+// reference (ops/w8.py, w8_pallas.py::_w8_kernel), so kernel and plain
+// versions agree to the last bit.
+//
+// Two paths, both __dp4a (four int8 products per instruction):
+//  * GEMV (M <= 8, decode): one warp per output row n, 16-byte loads of
+//    the weight row; bound by the bytes of weights streamed from HBM.
+//  * GEMM (M > 8: encoder, adapter, prefill): 64 x 64 output tiles,
+//    64-byte K steps through shared memory, 4 x 4 outputs per thread.
+// Everything here has internal linkage, so both translation units may
+// include it.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace vx {
+namespace {
+
+constexpr int kGemvWarps = 8;   // output rows per 256-thread GEMV block
+constexpr int kGemvMaxM = 8;    // activation rows per GEMV launch
+constexpr int kTile = 64;       // GEMM tile (rows, cols, K bytes)
+
+__device__ __forceinline__ int warp_sum_int(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float w8_epilogue(int acc, float sx, float sc) {
+  return (static_cast<float>(acc) * sx) * sc;
+}
+
+template <int M>
+__global__ void __launch_bounds__(256) w8_gemv_kernel(
+    const int8_t* __restrict__ xq, const float* __restrict__ sx,
+    const int8_t* __restrict__ codes, const float* __restrict__ scale,
+    const float* resid, float* out, int N, int K, bool vec) {
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * kGemvWarps + (threadIdx.x >> 5);
+  if (n >= N) return;
+  const int8_t* w = codes + static_cast<size_t>(n) * K;
+  int acc[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) acc[m] = 0;
+  if (vec) {
+    // K % 16 == 0 and 16-byte aligned rows: one int4 (16 weights) per
+    // lane per iteration, neighbouring lanes on neighbouring addresses.
+    const int4* w4 = reinterpret_cast<const int4*>(w);
+    const int nv = K >> 4;
+    for (int i = lane; i < nv; i += 32) {
+      const int4 wv = __ldg(w4 + i);
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const int4 xv = __ldg(
+            reinterpret_cast<const int4*>(xq + static_cast<size_t>(m) * K) + i);
+        int a = acc[m];
+        a = __dp4a(wv.x, xv.x, a);
+        a = __dp4a(wv.y, xv.y, a);
+        a = __dp4a(wv.z, xv.z, a);
+        a = __dp4a(wv.w, xv.w, a);
+        acc[m] = a;
+      }
+    }
+  } else {
+    for (int k = lane; k < K; k += 32) {
+      const int wv = w[k];
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+        acc[m] += wv * static_cast<int>(xq[static_cast<size_t>(m) * K + k]);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < M; ++m) acc[m] = warp_sum_int(acc[m]);
+  if (lane == 0) {
+    const float sc = scale[n];
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      float y = w8_epilogue(acc[m], sx[m], sc);
+      const size_t o = static_cast<size_t>(m) * N + n;
+      if (resid != nullptr) y = resid[o] + y;
+      out[o] = y;
+    }
+  }
+}
+
+// 16 bytes of row r starting at byte k, packed into 4 words (zeros past
+// the matrix edge), written to shared memory.
+__device__ __forceinline__ void load_chunk16(const int8_t* __restrict__ src,
+                                             int rows, int K, int r, int k,
+                                             bool vec, int* dst) {
+  if (vec && r < rows && k < K) {  // vec: K % 16 == 0, chunk fully inside
+    const int4 v =
+        __ldg(reinterpret_cast<const int4*>(src + static_cast<size_t>(r) * K + k));
+    dst[0] = v.x;
+    dst[1] = v.y;
+    dst[2] = v.z;
+    dst[3] = v.w;
+    return;
+  }
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    uint32_t packed = 0u;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int kk = k + 4 * w + b;
+      const uint32_t byte =
+          (r < rows && kk < K)
+              ? static_cast<uint32_t>(static_cast<uint8_t>(
+                    src[static_cast<size_t>(r) * K + kk]))
+              : 0u;
+      packed |= byte << (8 * b);
+    }
+    dst[w] = static_cast<int>(packed);
+  }
+}
+
+__global__ void __launch_bounds__(256) w8_gemm_kernel(
+    const int8_t* __restrict__ xq, const float* __restrict__ sx,
+    const int8_t* __restrict__ codes, const float* __restrict__ scale,
+    const float* resid, float* out, int M, int N, int K, bool vec) {
+  // Rows of 16 words (64 bytes) padded to 17 so the column reads of the
+  // inner loop fall on distinct banks.
+  __shared__ int As[kTile][17];
+  __shared__ int Bs[kTile][17];
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+  const int lr = tid >> 2, lw = (tid & 3) * 4;  // loader row, word offset
+  int acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+
+  for (int k0 = 0; k0 < K; k0 += kTile) {
+    load_chunk16(xq, M, K, m0 + lr, k0 + lw * 4, vec, &As[lr][lw]);
+    load_chunk16(codes, N, K, n0 + lr, k0 + lw * 4, vec, &Bs[lr][lw]);
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk) {
+      int a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[ty + 16 * i][kk];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[tx + 16 * j][kk];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty + 16 * i;
+    if (m >= M) continue;
+    const float s = sx[m];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (n >= N) continue;
+      float y = w8_epilogue(acc[i][j], s, scale[n]);
+      const size_t o = static_cast<size_t>(m) * N + n;
+      if (resid != nullptr) y = resid[o] + y;
+      out[o] = y;
+    }
+  }
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0u;
+}
+
+// GEMV over activation rows in groups of kGemvMaxM (the weights are
+// streamed once per group).
+inline void launch_w8_gemv(const int8_t* xq, const float* sx,
+                           const int8_t* codes, const float* scale,
+                           const float* resid, float* out, int M, int N,
+                           int K, cudaStream_t st) {
+  const bool vec = (K % 16 == 0) && aligned16(xq) && aligned16(codes);
+  const dim3 grid((N + kGemvWarps - 1) / kGemvWarps);
+  const dim3 block(32 * kGemvWarps);
+  for (int m0 = 0; m0 < M; m0 += kGemvMaxM) {
+    const int mr = (M - m0 < kGemvMaxM) ? (M - m0) : kGemvMaxM;
+    const int8_t* x = xq + static_cast<size_t>(m0) * K;
+    const float* s = sx + m0;
+    const float* r = resid ? resid + static_cast<size_t>(m0) * N : nullptr;
+    float* o = out + static_cast<size_t>(m0) * N;
+    switch (mr) {
+#define VX_GEMV_CASE(MM)                                                   \
+  case MM:                                                                 \
+    w8_gemv_kernel<MM><<<grid, block, 0, st>>>(x, s, codes, scale, r, o, N, \
+                                               K, vec);                    \
+    break;
+      VX_GEMV_CASE(1)
+      VX_GEMV_CASE(2)
+      VX_GEMV_CASE(3)
+      VX_GEMV_CASE(4)
+      VX_GEMV_CASE(5)
+      VX_GEMV_CASE(6)
+      VX_GEMV_CASE(7)
+      VX_GEMV_CASE(8)
+#undef VX_GEMV_CASE
+      default:
+        break;
+    }
+  }
+}
+
+inline void launch_w8_gemm(const int8_t* xq, const float* sx,
+                           const int8_t* codes, const float* scale,
+                           const float* resid, float* out, int M, int N,
+                           int K, cudaStream_t st) {
+  const bool vec = (K % 16 == 0) && aligned16(xq) && aligned16(codes);
+  const dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
+  w8_gemm_kernel<<<grid, 256, 0, st>>>(xq, sx, codes, scale, resid, out, M,
+                                       N, K, vec);
+}
+
+inline void launch_w8_matmul(const int8_t* xq, const float* sx,
+                             const int8_t* codes, const float* scale,
+                             const float* resid, float* out, int M, int N,
+                             int K, cudaStream_t st) {
+  if (M <= kGemvMaxM)
+    launch_w8_gemv(xq, sx, codes, scale, resid, out, M, N, K, st);
+  else
+    launch_w8_gemm(xq, sx, codes, scale, resid, out, M, N, K, st);
+}
+
+}  // namespace
+}  // namespace vx

@@ -1,0 +1,83 @@
+"""Language-model decoder (port of ``voxtral_tpu/models/decoder.py``):
+26-layer GQA 32Q/8KV with ADA t-conditioning and a tied lm_head.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from voxtral_tpu.config import LanguageModelConfig
+from voxtral_tpu_torch.models.layers import (
+    AttentionSpec,
+    KVCache,
+    decoder_block_with_cache,
+    layer_params,
+    n_stacked,
+    rms_norm,
+    rope_tables,
+)
+from voxtral_tpu_torch.ops.w8 import w8_dequant_rows, w8_matmul
+
+Params = dict[str, Any]
+
+
+def decoder_spec(cfg: LanguageModelConfig) -> AttentionSpec:
+    return AttentionSpec(
+        n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim,
+        sliding_window=cfg.sliding_window,
+        causal=cfg.causal,
+    )
+
+
+def _w8_table(params: Params) -> dict:
+    emb = params["tok_embeddings"]
+    if not (isinstance(emb, dict) and "w8" in emb):
+        raise NotImplementedError(
+            "only w8 embedding tables are ported (ROADMAP queue 1, item 9)")
+    return emb["w8"]
+
+
+def embed_tokens(params: Params, token_ids: torch.Tensor) -> torch.Tensor:
+    """[B, S] int -> [B, S, d_model] bf16 embeddings of the w8 table."""
+    return w8_dequant_rows(_w8_table(params), token_ids)
+
+
+def lm_head(params: Params, hidden: torch.Tensor, mm=None) -> torch.Tensor:
+    """Tied embeddings: logits = hidden @ E^T in f32."""
+    return w8_matmul(hidden, _w8_table(params), mm=mm)
+
+
+def decoder_forward_hidden_with_cache(
+    params: Params, hidden: torch.Tensor, t_embed: torch.Tensor,
+    cache: KVCache, cfg: LanguageModelConfig,
+    rope: Optional[tuple[torch.Tensor, torch.Tensor]] = None, mm=None,
+) -> tuple[torch.Tensor, KVCache]:
+    """Forward over hidden [B, S, d_model] appending at ``cache.length``.
+
+    Returns (final-normed hidden, cache); the cache arrays are written
+    in place.
+    """
+    spec = decoder_spec(cfg)
+    if rope is None:
+        rope = rope_tables(cfg.head_dim, cache.max_seq, cfg.rope_theta,
+                           device=hidden.device)
+    cos, sin = rope
+    offset = cache.length
+    layers = params["layers"]
+    x = hidden
+    for l in range(n_stacked(layers)):
+        x, _, _ = decoder_block_with_cache(
+            x, t_embed, layer_params(layers, l), spec, cos, sin,
+            cache.k[l], cache.v[l], offset, cfg.norm_eps, mm)
+    cache = KVCache(cache.k, cache.v, offset + hidden.shape[1])
+    return rms_norm(x, params["norm"], cfg.norm_eps), cache
+
+
+def create_cache(cfg: LanguageModelConfig, batch: int, max_seq: int,
+                 dtype=torch.bfloat16, device=None) -> KVCache:
+    return KVCache.create(cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
+                          cfg.head_dim, dtype, device)
