@@ -12,15 +12,23 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              on the card, at the main path's shapes, with its time beside
              the plain version's:
              K2 w8_matmul (W8A8 GEMM), K1 decode_stack_step (one full
-             26-layer decode step + lm_head).
+             26-layer decode step + lm_head) in mode (a) at one row,
+             mode (b) spec=8 at 1 and 8 streams (8 and 64 rows, distinct
+             per-stream offsets) and mode (c) (an offset per row, spec=1,
+             4 rows).
 4. main    — Voxtral Mini 4B at full width with random w8 weights (seed
              0): TranscribePipeline.transcribe_samples on a 16 s chirp,
-             through the kernels (launch counters reset just before, read
-             just after), then the same pipeline through the plain
-             versions; the greedy tokens must be identical.
+             through the kernels, sequential and then speculative
+             (PipelineConfig(speculative=8), draft "ngram" and "pad"),
+             each run with the launch counters reset just before and read
+             just after; then the same pipelines through the plain
+             versions.  Tokens must be identical (near-tie rule), and
+             every speculative pass is one K1 launch.  Then three mels
+             (x, 0.9 x, 1.1 x) through transcribe_streaming_batch with
+             speculative=4 against the sequential batch.
 5. numbers — RTF, decode ms/token, the weight-stream bandwidth of the
-             decode step, peak GPU memory, each beside the card name and
-             power limit.
+             decode step, passes and tokens per pass, peak GPU memory,
+             each beside the card name and power limit.
 
 The script imports the port (``voxtral_tpu_torch``) only, and fails if
 ``jax`` was loaded by the end of the run.
@@ -58,6 +66,13 @@ KV_RTOL = 2 ** -8
 # a near-tie: the plain path's top-2 logit margin there below this (the
 # logits of this model span about +-3.5; a few f32 ulps of drift).
 MARGIN_TIE = 1e-3
+# Speculative against sequential tokens: the spec step reads the fresh
+# rows i < j as f32 where the sequential step reads them back from the
+# bf16 cache, so their logits differ by bf16-rounding amounts (the JAX
+# test allows 2e-3 relative, tests/test_spec_decode.py); with logits of
+# about +-3.5 a flip is a near-tie below 2e-3 x 3.5 ~ 1e-2.
+SPEC_MARGIN_TIE = 1e-2
+SPEC_K = 8
 
 
 def fail(msg: str) -> None:
@@ -199,6 +214,79 @@ def check_k1(model, dev, card):
     return worst, ms, plain_ms, nbytes
 
 
+def check_k1_rows(model, dev, card, offs, spec, iters, plain_iters):
+    """One K1 step over len(offs) streams x ``spec`` rows with distinct
+    per-stream offsets (an int32 device vector) and per-row RoPE, cache
+    S = 240 + spec - 1, against the plain version -> (max abs err, ms,
+    plain ms)."""
+    import torch
+
+    from voxtral_tpu_torch.ops import decode_step as k1
+
+    cfg = model.config.language_model
+    fused = model.fused_decode
+    dec = model.params["decoder"]
+    L, D, hd = cfg.n_layers, cfg.dim, cfg.head_dim
+    S, bc = 240 + spec - 1, len(offs)
+    gen = torch.Generator(device=dev).manual_seed(2 + bc * spec)
+    shape = (L, bc, cfg.n_kv_heads, S, hd)
+    kc = (torch.randn(shape, device=dev, generator=gen) * 0.5).bfloat16()
+    vc = (torch.randn(shape, device=dev, generator=gen) * 0.5).bfloat16()
+    x = torch.randn((bc * spec, D), device=dev, generator=gen)
+    off = torch.tensor(offs, dtype=torch.int32, device=dev)
+    pos = (off[:, None] + torch.arange(spec, device=dev)).reshape(-1)
+    c, s = k1.rope_pair_vectors(pos, hd, cfg.rope_theta, device=dev)
+    ada = k1.ada_vectors(dec, model.t_embed(6.0))
+    emb = dec["tok_embeddings"]["w8"]
+    args = (x, off, fused["attn_norm"], fused["ffn_norm"], ada,
+            fused["sqkv"], fused["so"], fused["s13"], fused["s2"], c, s,
+            kc, vc, fused["wqkv"], fused["wo"], fused["w13"], fused["w2"],
+            dec["norm"].float(), emb["codes"], emb["scale"])
+    kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=hd,
+              eps=cfg.norm_eps, window=cfg.sliding_window, spec=spec)
+    tag = f"K1 decode_stack_step spec={spec} streams={bc} rows={bc * spec}"
+    got = k1.decode_stack_step(*args, **kw)
+    torch.cuda.synchronize()
+    ref = k1.decode_stack_step_plain(*args, **kw)
+    worst = 0.0
+    for name, g, r, tol in zip(("x_out", "k_new", "v_new", "logits"), got,
+                               ref, (K1_RTOL, KV_RTOL, KV_RTOL, K1_RTOL)):
+        g, r = g.float(), r.float()
+        err = (g - r).abs().max().item()
+        rel = err / r.abs().max().item()
+        print(f"{tag} {name}: max_abs_err {err:.3e} ({rel:.3e} of max, "
+              f"bit-equal {torch.equal(g, r)})", flush=True)
+        if not rel <= tol:
+            fail(f"{tag} {name}: error {rel:.3e} of max > {tol}")
+        worst = max(worst, err)
+    if got[3].argmax(-1).tolist() != ref[3].argmax(-1).tolist():
+        fail(f"{tag}: argmax differs from the plain version")
+    ms, plain_ms = in_turns(lambda: k1.decode_stack_step(*args, **kw),
+                            lambda: k1.decode_stack_step_plain(*args, **kw),
+                            iters, plain_iters)
+    nbytes = step_weight_bytes(fused, emb)
+    print(f"{tag} S={S} offsets {offs[0]}..{offs[-1]}: kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms; weights {nbytes / 1e9:.4f} GB/pass -> "
+          f"{nbytes / ms / 1e6:.1f} GB/s [{card}]", flush=True)
+    return worst, ms, plain_ms
+
+
+def first_divergence(name, got, ref, margins, tie):
+    """Fail unless ``got`` equals ``ref`` or first differs where the
+    reference's top-2 margin is below ``tie``; -> tokens identical."""
+    if got.tolist() == ref.tolist():
+        return True
+    i = int(np.nonzero(got != ref)[0][0])
+    margin = float(margins[i])
+    print(f"{name}: first token divergence at position {i}: {got[i]} vs "
+          f"{ref[i]}, reference top-2 margin {margin:.3e} (tie threshold "
+          f"{tie})", flush=True)
+    if not margin < tie:
+        fail(f"{name}: tokens diverge at a margin above the near-tie "
+             "threshold")
+    return False
+
+
 def step_weight_bytes(fused, emb) -> int:
     """Bytes of weights one decode step streams, from the shapes: int8
     codes + f32 row scales of the four stacks and the lm table, plus the
@@ -223,7 +311,7 @@ def main() -> int:
     from voxtral_tpu_torch.ops import _build
     from voxtral_tpu_torch.ops import decode_step as k1
     from voxtral_tpu_torch.ops import w8_kernel as k2
-    from voxtral_tpu_torch.pipeline import TranscribePipeline
+    from voxtral_tpu_torch.pipeline import PipelineConfig, TranscribePipeline
     from voxtral_tpu_torch.utils.quantize import random_w8_params
 
     dev = torch.device("cuda:0")
@@ -253,6 +341,14 @@ def main() -> int:
     # -- 3. kernels vs plain -------------------------------------------------
     k2_err, k2_times = check_k2(dev, card)
     k1_err, k1_ms, k1_plain_ms, step_bytes = check_k1(model, dev, card)
+    spec8 = check_k1_rows(model, dev, card, [235], SPEC_K, 20, 2)
+    spread = [150 + round(i * 85 / 7) for i in range(8)]  # 150 .. 235
+    spec64 = check_k1_rows(model, dev, card, spread, SPEC_K, 10, 1)
+    rows4 = check_k1_rows(model, dev, card, [60, 120, 180, 235], 1, 20, 2)
+    k1_err = max(k1_err, spec8[0], spec64[0], rows4[0])
+    print(f"K1 step ms [{card}]: 1 row {k1_ms:.3f}, spec={SPEC_K} 8 rows "
+          f"{spec8[1]:.3f}, 64 rows {spec64[1]:.3f}; 4 rows with per-row "
+          f"offsets {rows4[1]:.3f}", flush=True)
 
     # -- 4. main path --------------------------------------------------------
     sig = chirp()
@@ -300,25 +396,77 @@ def main() -> int:
 
     plain.record_margins = True
     plain_tokens = plain_pipe._chunk_tokens(sig, SR)[0]
-    if not np.isfinite(plain.last_margins).all():
+    seq_margins = plain.last_margins[0].copy()
+    if not np.isfinite(seq_margins).all():
         fail("non-finite logits on the plain path")
-    same = tokens.tolist() == plain_tokens.tolist()
-    if not same:
-        i = int(np.nonzero(tokens != plain_tokens)[0][0])
-        margin = float(plain.last_margins[0, i])
-        print(f"first token divergence at position {i}: kernel "
-              f"{tokens[i]} plain {plain_tokens[i]}, plain top-2 margin "
-              f"{margin:.3e} (tie threshold {MARGIN_TIE})", flush=True)
-        if not margin < MARGIN_TIE:
-            fail("kernel and plain tokens diverge at a margin above the "
-                 "near-tie threshold")
+    same = first_divergence("sequential kernel vs plain", tokens,
+                            plain_tokens, seq_margins, MARGIN_TIE)
     print(f"tokens kernel == plain: {same} ({len(set(tokens.tolist()))} "
-          f"distinct; min plain top-2 margin "
-          f"{float(plain.last_margins.min()):.3e})", flush=True)
+          f"distinct; min plain top-2 margin {float(seq_margins.min()):.3e})",
+          flush=True)
+
+    # -- 4b. main path, speculative -----------------------------------------
+    spec_runs = {}
+    for draft in ("ngram", "pad"):
+        pcfg = PipelineConfig(speculative=SPEC_K, draft=draft)
+        spipe = TranscribePipeline(model, tok, pcfg)
+        spipe.transcribe_samples(sig, SR)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        k2.w8_matmul.launches = 0
+        k1.decode_stack_step.launches = 0
+        t0 = time.perf_counter()
+        spipe.transcribe_samples(sig, SR)
+        torch.cuda.synchronize()
+        s_wall = time.perf_counter() - t0
+        s_k2 = k2.w8_matmul.launches
+        s_k1 = k1.decode_stack_step.launches
+        passes = model.last_spec_passes
+        s_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        tag = f"speculative K={SPEC_K} draft={draft}"
+        if s_k1 != passes or passes < 1:
+            fail(f"{tag}: K1 launches {s_k1} != passes {passes}")
+        if s_k2 < min_k2:
+            fail(f"{tag}: K2 launches {s_k2} < {min_k2}")
+        s_tokens = spipe._chunk_tokens(sig, SR)[0]
+        if len(s_tokens) != n_tok:
+            fail(f"{tag}: {len(s_tokens)} tokens != {n_tok}")
+        same_seq = first_divergence(f"{tag} vs sequential kernel", s_tokens,
+                                    tokens, seq_margins, SPEC_MARGIN_TIE)
+        plain.record_margins = True
+        p_tokens = TranscribePipeline(plain, tok, pcfg)._chunk_tokens(
+            sig, SR)[0]
+        if not np.isfinite(plain.last_margins).all():
+            fail(f"{tag}: non-finite logits on the plain path")
+        same_plain = first_divergence(f"{tag} kernel vs plain", s_tokens,
+                                      p_tokens, plain.last_margins[0],
+                                      MARGIN_TIE)
+        spec_runs[draft] = dict(wall=s_wall, k1=s_k1, k2=s_k2,
+                                passes=passes, peak=s_peak)
+        print(f"{tag}: launch counts K2 w8_matmul {s_k2}, K1 "
+              f"decode_stack_step {s_k1} = passes {passes} "
+              f"({n_steps / passes:.3f} decode tokens per pass); tokens == "
+              f"sequential kernel: {same_seq}, == spec plain: {same_plain}",
+              flush=True)
+
+    # -- 4c. batched speculative --------------------------------------------
+    mel = pipe.mel.compute_log_batch(padded)
+    mel3 = np.concatenate([mel, mel * 0.9, mel * 1.1], axis=0)
+    model.record_margins = True
+    b_seq = model.transcribe_streaming_batch(mel3)
+    b_margins = model.last_margins
+    model.record_margins = False
+    b_spec = model.transcribe_streaming_batch(mel3, speculative=4)
+    b_same = [first_divergence(f"batched speculative=4 row {r}", b_spec[r],
+                               b_seq[r], b_margins[r], SPEC_MARGIN_TIE)
+              for r in range(3)]
+    print(f"batched speculative=4, 3 rows (x, 0.9x, 1.1x): tokens == "
+          f"sequential batch per row {b_same}, {model.last_spec_passes} "
+          f"passes for {n_steps} decode positions", flush=True)
 
     # -- 5. numbers ----------------------------------------------------------
     t0 = time.perf_counter()
-    mel = pipe.mel.compute_log_batch(padded)
+    pipe.mel.compute_log_batch(padded)
     with torch.no_grad():
         model.encode_audio(mel)
     torch.cuda.synchronize()
@@ -335,23 +483,47 @@ def main() -> int:
           flush=True)
     print(f"peak GPU memory (max_memory_allocated) in the main-path run: "
           f"{peak_gb:.3f} GB [{card}]", flush=True)
+    for draft, run in spec_runs.items():
+        w = run["wall"]
+        print(f"speculative K={SPEC_K} draft={draft}: RTF "
+              f"{w / AUDIO_SECS:.5f} ({w * 1e3:.1f} ms), decode "
+              f"{(w - enc_s) * 1e3 / n_tok:.3f} ms/token, {run['passes']} "
+              f"passes, {n_steps / run['passes']:.3f} decode tokens per "
+              f"pass, peak GPU memory {run['peak']:.3f} GB [{card}]",
+              flush=True)
+        per_pass = (w - enc_s) * 1e3 / run["passes"]
+        print(f"speculative K={SPEC_K} draft={draft}: {per_pass:.3f} ms per "
+              f"pass end to end (prefill included) against a {spec8[1]:.3f}"
+              f" ms K1 spec step: {per_pass - spec8[1]:.3f} ms of host work,"
+              f" loop-exit sync and other device work per pass [{card}]",
+              flush=True)
 
     jax_mods = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
     if jax_mods:
         fail(f"the port imported jax: {sorted(jax_mods)[:5]}")
+
+    def launches_by_path(key):
+        return {"sequential": k1_launches if key == "k1" else k2_launches,
+                **{f"speculative_{d}": r[key] for d, r in spec_runs.items()}}
 
     lm_shape = (1, 3072, 131072)
     record = {"kernels": [
         {"name": "w8_matmul", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/w8_matmul.cu",
          "replaces": "voxtral_tpu/ops/w8_pallas.py:51",
-         "launches": k2_launches, "max_abs_err": k2_err,
+         "launches": k2_launches + sum(r["k2"] for r in spec_runs.values()),
+         "launches_by_path": launches_by_path("k2"),
+         "max_abs_err": k2_err,
          "ms": k2_times[lm_shape][0], "plain_ms": k2_times[lm_shape][1]},
         {"name": "decode_stack_step", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/decode_step.cu",
          "replaces": "voxtral_tpu/ops/decode_step_pallas.py:1654",
-         "launches": k1_launches, "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "modes": ["a", "b", "c"],
+         "launches": k1_launches + sum(r["k1"] for r in spec_runs.values()),
+         "launches_by_path": launches_by_path("k1"),
+         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
+         "spec_ms": spec8[1], "spec_plain_ms": spec8[2],
+         "spec64_ms": spec64[1], "spec64_plain_ms": spec64[2]},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

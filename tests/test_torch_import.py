@@ -72,6 +72,55 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     assert "--use_fast_math" not in _build.NVCC_FLAGS
 
 
+FAKE_NVCC = """#!{python}
+import sys
+from pathlib import Path
+args = sys.argv[1:]
+out = Path(args[args.index("-o") + 1])
+with open(out.parent.parent / "calls.log", "a") as log:
+    log.write(" ".join(args) + "\\n")
+if any(a.endswith("bad.cu") for a in args):
+    sys.exit("bad.cu: error: expected a ';'")
+out.write_text("built")
+"""
+
+
+def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
+    """One nvcc per source (-c), then one link; a refused source raises
+    with the compiler's message."""
+    from voxtral_tpu_torch.ops import _build
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC.format(python=sys.executable))
+    nvcc.chmod(0o755)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("a.cu", "b.cu", "common.cuh"):
+        (csrc / name).write_text(f"// {name}\n")
+    build_dir = tmp_path / "build"
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", build_dir)
+
+    lib, seconds = _build.build()
+    assert lib.parent == build_dir and lib.read_text() == "built"
+    assert seconds > 0
+    calls = (build_dir / "calls.log").read_text().splitlines()
+    assert len(calls) == 3
+    assert sorted(c.split()[-1].rsplit("/", 1)[-1] for c in calls[:2]) == [
+        "a.cu", "b.cu"]
+    assert all(" -c " in c and "sm_90a" in c for c in calls[:2])
+    assert calls[2].startswith("-shared -o")
+    assert _build.build() == (lib, 0.0)  # cached by the sources' hash
+    # The objects lived in a temporary directory that is gone.
+    assert sorted(p.name for p in build_dir.iterdir()) == sorted(
+        [lib.name, "calls.log"])
+
+    (csrc / "bad.cu").write_text("int x\n")
+    with pytest.raises(_build.KernelBuildError, match="expected a ';'"):
+        _build.build()
+
+
 def test_wrappers_raise_on_a_device_they_cannot_serve():
     from voxtral_tpu_torch.ops import w8_kernel as k2
 

@@ -269,14 +269,21 @@ def test_too_short_mel_returns_empty(setup):
 
 
 def test_unported_options_raise(setup):
+    """Speculative decode and sampling are ported: a bad draft policy
+    raises as in JAX, and sampling with ``speculative`` rides the
+    sequential loop."""
     from voxtral_tpu_torch.models.voxtral import VoxtralModel
 
     cfg, _, _, tp, mel = setup
     model = VoxtralModel(tp, cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.transcribe_streaming(mel, temperature=0.7)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.transcribe_streaming(mel, speculative=4)
+    with pytest.raises(ValueError, match="draft policy"):
+        model.transcribe_streaming(mel, speculative=4, draft="oracle")
+    with pytest.raises(ValueError, match="draft policy"):
+        model.transcribe_streaming_batch(mel, draft="oracle")
+    toks = model.transcribe_streaming(mel, temperature=0.7, top_k=4,
+                                      speculative=4)
+    assert model.last_spec_passes == 0
+    assert toks.shape == model.transcribe_streaming(mel).shape
 
 
 def test_model_turns_tf32_off(setup):

@@ -130,7 +130,7 @@ def test_cli_help(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--speculative", "4"], ["--tp", "2"], ["--timestamps"],
+    ["--batch-files", "8"], ["--tp", "2"], ["--timestamps"],
     ["--gguf", "m.gguf"], ["--server", "http://localhost:1"],
     ["--dtype", "bfloat16"], [],
 ])
@@ -152,3 +152,47 @@ def test_cli_random_weights_end_to_end(wav, capsys):
     assert rc == 1  # the missing file
     assert "audio file not found: missing.wav" in out.err
     assert len(out.out.splitlines()) == 2
+
+
+def test_pipeline_speculative_gives_the_sequential_text(tree, wav):
+    from voxtral_tpu_torch.models.voxtral import VoxtralModel
+    from voxtral_tpu_torch.pipeline import PipelineConfig, TranscribePipeline
+
+    model = VoxtralModel.from_numpy(tree, tiny_config(), "cpu")
+    tok = VoxtralTokenizer.from_json(tekken_json())
+    seq = TranscribePipeline(model, tok).transcribe_file(wav)
+    assert seq.strip()
+    for draft in ("ngram", "pad"):
+        spec = TranscribePipeline(
+            model, tok, PipelineConfig(speculative=4, draft=draft))
+        assert spec.transcribe_file(wav) == seq
+        assert model.last_spec_passes >= 1
+
+
+def test_cli_speculative_end_to_end(wav, capsys):
+    from voxtral_tpu_torch import cli
+
+    argv = ["--random-weights", "--device", "cpu",
+            "--params", "tests/fixtures/params_tiny.json",
+            "--audio", str(wav)]
+    assert cli.main(argv) == 0
+    seq = capsys.readouterr().out
+    rc = cli.main([*argv, "--speculative", "4", "--draft-policy", "pad"])
+    assert rc == 0
+    assert capsys.readouterr().out == seq
+    assert len(seq.splitlines()) == 1
+
+
+def test_cli_without_a_card_needs_device_cpu(wav, capsys, monkeypatch):
+    """--device defaults to cuda: no card, no silent CPU fallback."""
+    import torch
+
+    from voxtral_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc = cli.main(["--random-weights", "--audio", str(wav)])
+    assert rc == 2
+    err = capsys.readouterr().err
+    assert "no CUDA device" in err and "--device cpu" in err
+    assert cli.main(["--random-weights", "--device", "tpu9",
+                     "--audio", str(wav)]) == 2

@@ -137,7 +137,9 @@ def test_w8_linear_matches_jax_xla_path():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(1, 3072, 4096), (5, 32, 3072),
-                                   (38, 3072, 4096), (200, 1280, 200)])
+                                   (38, 3072, 4096), (200, 1280, 200),
+                                   (17, 4096, 72), (64, 3072, 1000),
+                                   (12, 96, 40)])
 def test_w8_matmul_kernel_matches_plain_on_card(m, k, n):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")

@@ -9,7 +9,8 @@ its module names so each counterpart is easy to find:
     models/         — layers, encoder, adapter, decoder, full model
     ops/            — w8 helpers and the hand-written Hopper kernels
                       (csrc/*.cu, built with nvcc at first use)
-    pipeline, cli   — one-shot file transcription
+    pipeline, cli   — one-shot file transcription (sequential, sampled
+                      or speculative decode)
 
 It imports ``torch`` and never ``jax``.  Three framework-free modules of
 the JAX package are reused as they are: ``voxtral_tpu.config``,

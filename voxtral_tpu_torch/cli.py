@@ -2,10 +2,15 @@
 
 Usage:
     python -m voxtral_tpu_torch.cli --random-weights --dtype w8 --audio x.wav
+    python -m voxtral_tpu_torch.cli --random-weights --speculative 8 \
+        --draft-policy ngram --audio x.wav
 
 Ported so far: ``--audio`` (repeatable), ``--random-weights``,
 ``--params``, ``--dtype w8``, ``--delay``, ``--max-mel-frames``,
-``--tokenizer`` and ``--device``.  The other flags of
+``--tokenizer``, ``--speculative``, ``--draft-policy`` and ``--device``
+(default ``cuda``; without a card it exits with an error, and the CPU
+runs the kernels' plain versions only when asked for with ``--device
+cpu``).  The other flags of
 ``voxtral_tpu/cli.py`` are recognised and exit with an error naming the
 ROADMAP item that ports them.  One line of text per audio file on stdout;
 logs on stderr.
@@ -30,8 +35,6 @@ _NOT_PORTED = {
     "--dp": (1, "queue 1, item 12 (parallel)"),
     "--timestamps": (False, "queue 1, item 10 (word timestamps)"),
     "--params-cache": (None, "queue 1, item 9 (parameter cache)"),
-    "--speculative": (0, "queue 1, item 8 (speculative decode)"),
-    "--draft-policy": (None, "queue 1, item 8 (speculative decode)"),
     "--server": (None, "queue 1, item 11 (serving)"),
 }
 
@@ -57,9 +60,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-mel-frames", type=int, default=3000,
                    help="Max mel frames per chunk")
     p.add_argument("--tokenizer", help="Tokenizer JSON path (tekken.json)")
-    p.add_argument("--device", default=None,
-                   help="torch device (default: cuda when available, "
-                   "else cpu)")
+    p.add_argument("--speculative", type=int, default=0, metavar="K",
+                   help="Verify K drafted tokens per decode weight pass "
+                   "(greedy; the same tokens, fewer passes when drafts "
+                   "hit)")
+    p.add_argument("--draft-policy", choices=["ngram", "pad"],
+                   default="ngram",
+                   help="Speculative draft source: ngram = bigram table "
+                   "trained on the device by every pass; pad = constant "
+                   "[STREAMING_PAD] drafts")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the plain "
+                   "PyTorch versions of the kernels)")
     for flag, (default, _) in _NOT_PORTED.items():
         p.add_argument(flag, nargs="?", const=True, default=default,
                        help=argparse.SUPPRESS)
@@ -93,6 +105,8 @@ def main(argv: list[str] | None = None) -> int:
         return _error("no audio files specified (--audio)")
     if args.max_mel_frames <= 0:
         return _error("--max-mel-frames must be greater than 0")
+    if args.speculative < 0:
+        return _error("--speculative must be >= 0")
 
     import torch
 
@@ -102,7 +116,14 @@ def main(argv: list[str] | None = None) -> int:
     from voxtral_tpu_torch.pipeline import PipelineConfig, TranscribePipeline
     from voxtral_tpu_torch.utils.quantize import random_w8_params
 
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    try:
+        device = torch.device(args.device)
+    except RuntimeError as exc:
+        return _error(f"--device {args.device}: {exc}")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        return _error(f"--device {args.device}: no CUDA device is available "
+                      "(torch.cuda.is_available() is False); pass --device "
+                      "cpu to run the plain PyTorch versions on the CPU")
     cfg = (VoxtralConfig.from_file(args.params) if args.params
            else VoxtralConfig.voxtral())
     log = logging.getLogger("voxtral_tpu_torch")
@@ -114,7 +135,8 @@ def main(argv: list[str] | None = None) -> int:
         tokenizer = VoxtralTokenizer(
             [None] * 131072, {1: "<s>", 32: "[STREAMING_PAD]"}, 131072)
     pipeline = TranscribePipeline(model, tokenizer, PipelineConfig(
-        delay_tokens=args.delay, max_mel_frames=args.max_mel_frames))
+        delay_tokens=args.delay, max_mel_frames=args.max_mel_frames,
+        speculative=args.speculative, draft=args.draft_policy))
 
     status = 0
     for path in args.audio:

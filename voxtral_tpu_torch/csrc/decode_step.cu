@@ -1,9 +1,18 @@
-// K1 (a): one single-token decode step through every decoder layer, then
-// the final norm and the tied lm_head folded to logits.
+// K1: one decode step through every decoder layer, then the final norm
+// and the tied lm_head folded to logits.
 //
 // Port of voxtral_tpu/ops/decode_step_pallas.py::decode_stack_step
-// (kernel body _make_stack_kernel), mode (a): w8 weights, bf16 bounded
-// head-major cache, scalar offset, sliding window, lm fold to logits.
+// (kernel body _make_stack_kernel) in its modes
+//   (a) w8 weights, bf16 bounded head-major cache, scalar offset,
+//       sliding window, lm fold to logits;
+//   (b) spec = K: B = Bc x K rows ordered (stream b, draft slot j); the
+//       K rows of a stream share its cache row, row j's query sits at
+//       offs[b] + j and also attends the fresh K/V of rows i < j
+//       (_make_stack_kernel's spec branch, :783-986) -- K drafted tokens
+//       verified in one pass over the weights;
+//   (c) per-stream offsets as an int32 device vector and per-row RoPE
+//       vectors (build_valid, :1005-1043), read by each attention block
+//       itself, so the host launches a step without reading an offset.
 // The TPU kernel is one pallas_call whose sequential grid carries the
 // residual across layers in VMEM.  CUDA blocks run in no order, so here
 // the step is a fixed sequence of small kernels on one stream, with the
@@ -11,9 +20,10 @@
 //
 //   row_quant(norm)      rmsnorm x attn_norm, per-row int8 quant
 //   gemv qkv             W8A8 GEMV (w8_common.cuh)
-//   attn_decode          pair RoPE, GQA attention over the bf16 cache
-//                        slots [max(0, off - window), off) plus the fresh
-//                        token, one block per query head; k_new / v_new
+//   attn_step            pair RoPE, GQA attention over the bf16 cache
+//                        slots [max(0, off + j - window), off), the fresh
+//                        rows i < j of the stream and the row itself, one
+//                        block per (row, query head); k_new / v_new
 //   row_quant(plain)     int8 quant of the attention output
 //   gemv wo (+ x)        residual fused into the epilogue
 //   row_quant(norm, ada) rmsnorm x ffn_norm x ADA vector, int8 quant
@@ -24,14 +34,16 @@
 // then row_quant(final norm) and the lm_head GEMV.  9 launches per layer
 // + 2.  What bounds it on the H100: the int8 weights streamed per step
 // (3.4 GB at full width, lm_head included); the GEMVs read each weight
-// byte once with 16-byte loads, everything else is a few KB per launch.
-// Launch gaps and the unfused epilogues are later work (CUDA graph,
-// persistent kernel).
+// byte once with 16-byte loads for up to 64 rows (spec: 8 streams x
+// K = 8), everything else is a few KB per launch.  Launch gaps and the
+// unfused epilogues are later work (CUDA graph, persistent kernel).
 //
 // Rounding points follow the JAX kernel: q is scaled in f32 and cast to
-// bf16 for the cache scores; the self score uses the unrounded f32 q and
-// k; softmax weights are cast to bf16 for P.V; the self term uses the
-// f32 v; k_new / v_new are stored as bf16.
+// bf16 for the cache scores; the self score and the fresh scores use the
+// unrounded f32 q and k; the cache's softmax weights are cast to bf16
+// for P.V; the fresh terms e_i * v_i and the self term use the f32 v;
+// the softmax denominator is the cache sum, then each e_i, then e_self;
+// k_new / v_new are stored as bf16.
 //
 // Bit-for-bit with the plain version (ops/decode_step.py): every float
 // reduction (sum of squares, scores, softmax sum, P.V) accumulates in
@@ -145,20 +157,35 @@ __global__ void __launch_bounds__(kQuantThreads) row_quant_kernel(
   if (threadIdx.x == 0) sx[b] = s;
 }
 
-// One block per (query head h, row b); kv head j = h / G.  qkv
-// [B, nq + 2 nkv] f32 holds the un-roped projections; the cache is
-// head-major [B, n_kv, S, hd] bf16 for this layer.  Scores: one thread
-// per cache slot; P.V: one warp per slot (strided over the warps), a
-// lane per pair of head dims, one coalesced row load per slot.  Dynamic
-// shared memory: the per-warp P.V partial sums (nw x hd doubles), q
-// (scaled f32 and its bf16 rounding), k, v, and the n scores / softmax
-// weights.
-__global__ void __launch_bounds__(kAttnThreads) attn_decode_kernel(
+// One block per (query head h, row r); kv head jh = h / G.  Row r is
+// draft slot j = r % spec of stream b = r / spec (spec = 1: one row per
+// stream, the sequential step).  qkv [B, nq + 2 nkv] f32 holds the
+// un-roped projections of every row; the cache is head-major
+// [Bc, n_kv, S, hd] bf16 for this layer, one row per stream.  The query
+// of row r sits at position off + j, off = offs[b] (read on the device;
+// offs == NULL: the scalar off0 for every stream).  It attends
+//   * the cache slots [max(0, off + j - window), min(off, S));
+//   * the fresh K/V of rows i < j of its stream (j - i <= window), k_i
+//     RoPE'd with row i's vectors, in f32 (JAX: _make_stack_kernel's
+//     spec branch);
+//   * itself.
+// cos / sin: row r's vectors at cosv + r * rope_stride (rope_stride 0:
+// one [hd] pair for every row).  Scores: one thread per cache slot;
+// fresh scores: one warp per fresh row; P.V: one warp per slot (strided
+// over the warps), a lane per pair of head dims, one coalesced row load
+// per slot.  Dynamic shared memory: the per-warp P.V partial sums
+// (nw x hd doubles), q (scaled f32 and its bf16 rounding), k, v, the
+// spec fresh scores / weights and up to ``span`` cache scores / softmax
+// weights (span = the most slots a row can see, sized on the host from
+// S and the window, so no host offset is needed).
+__global__ void __launch_bounds__(kAttnThreads) attn_step_kernel(
     const float* __restrict__ qkv, const float* __restrict__ cosv,
-    const float* __restrict__ sinv, const __nv_bfloat16* __restrict__ kc,
-    const __nv_bfloat16* __restrict__ vc, __nv_bfloat16* __restrict__ kn,
-    __nv_bfloat16* __restrict__ vn, float* __restrict__ attn, int S, int lo,
-    int n, int n_heads, int n_kv, int hd, float scale) {
+    const float* __restrict__ sinv, int rope_stride,
+    const int* __restrict__ offs, int off0, int spec,
+    const __nv_bfloat16* __restrict__ kc, const __nv_bfloat16* __restrict__ vc,
+    __nv_bfloat16* __restrict__ kn, __nv_bfloat16* __restrict__ vn,
+    float* __restrict__ attn, int S, int window, int n_heads, int n_kv,
+    int hd, float scale) {
   extern __shared__ double smem_d[];
   __shared__ float red[32];
   __shared__ double red_d[32];
@@ -171,20 +198,27 @@ __global__ void __launch_bounds__(kAttnThreads) attn_decode_kernel(
   float* qb = qf + hd;                                   // [hd] bf16(q)
   float* kf = qb + hd;                                   // [hd] roped k
   float* vf = kf + hd;                                   // [hd] v
-  float* sc = vf + hd;                                   // [n]
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int G = n_heads / n_kv, j = h / G;
-  const int nq = n_heads * hd, nkv = n_kv * hd;
-  const float* row = qkv + static_cast<size_t>(b) * (nq + 2 * nkv);
+  float* fs = vf + hd;                                   // [spec] fresh
+  float* sc = fs + spec;                                 // [span]
+  const int h = blockIdx.x, r = blockIdx.y;
+  const int b = r / spec, j = r - b * spec;
+  const int G = n_heads / n_kv, jh = h / G;
+  const int nq = n_heads * hd, nkv = n_kv * hd, ld = nq + 2 * nkv;
+  const int off = offs != nullptr ? offs[b] : off0;
+  const int lo = window >= 0 ? max(0, off + j - window) : 0;
+  const int n = max(min(off, S) - lo, 0);
+  const float* row = qkv + static_cast<size_t>(r) * ld;
   const float* qh = row + static_cast<size_t>(h) * hd;
-  const float* kh = row + nq + static_cast<size_t>(j) * hd;
-  const float* vh = row + nq + nkv + static_cast<size_t>(j) * hd;
-  const size_t kvo = (static_cast<size_t>(b) * n_kv + j) * hd;
+  const float* kh = row + nq + static_cast<size_t>(jh) * hd;
+  const float* vh = row + nq + nkv + static_cast<size_t>(jh) * hd;
+  const float* cr = cosv + static_cast<size_t>(r) * rope_stride;
+  const float* sr = sinv + static_cast<size_t>(r) * rope_stride;
+  const size_t kvo = (static_cast<size_t>(r) * n_kv + jh) * hd;
   for (int d = tid; d < hd; d += nt) {
-    const float q = (qh[d] * cosv[d] + qh[d ^ 1] * sinv[d]) * scale;
+    const float q = (qh[d] * cr[d] + qh[d ^ 1] * sr[d]) * scale;
     qf[d] = q;
     qb[d] = round_bf16(q);
-    const float k = kh[d] * cosv[d] + kh[d ^ 1] * sinv[d];
+    const float k = kh[d] * cr[d] + kh[d ^ 1] * sr[d];
     kf[d] = k;
     vf[d] = vh[d];
     if (h % G == 0) {  // one writer per kv head
@@ -194,7 +228,7 @@ __global__ void __launch_bounds__(kAttnThreads) attn_decode_kernel(
   }
   __syncthreads();
 
-  const size_t head = (static_cast<size_t>(b) * n_kv + j) * S;
+  const size_t head = (static_cast<size_t>(b) * n_kv + jh) * S;
   const __nv_bfloat16* kbase = kc + head * hd;
   const __nv_bfloat16* vbase = vc + head * hd;
   // Cache scores: bf16(q) . k over slots lo..lo+n-1, f64 sums.
@@ -210,6 +244,24 @@ __global__ void __launch_bounds__(kAttnThreads) attn_decode_kernel(
     }
     sc[t] = static_cast<float>(p);
   }
+  // Fresh scores: the unrounded f32 q against k_i of rows i < j, RoPE'd
+  // with row i's vectors; -inf past the window (never weighted).
+  for (int i = warp; i < j; i += nw) {
+    const int ri = r - j + i;
+    const float* ki = qkv + static_cast<size_t>(ri) * ld + nq +
+                      static_cast<size_t>(jh) * hd;
+    const float* ci = cosv + static_cast<size_t>(ri) * rope_stride;
+    const float* si = sinv + static_cast<size_t>(ri) * rope_stride;
+    double p = 0.0;
+    for (int d = lane; d < hd; d += 32) {
+      const float k = ki[d] * ci[d] + ki[d ^ 1] * si[d];
+      p += static_cast<double>(qf[d]) * k;
+    }
+    p = warp_sum_d(p);
+    if (lane == 0)
+      fs[i] = (window < 0 || j - i <= window) ? static_cast<float>(p)
+                                              : -INFINITY;
+  }
   // Self score: the unrounded f32 q and k.
   if (warp == 0) {
     double p = 0.0;
@@ -219,10 +271,13 @@ __global__ void __launch_bounds__(kAttnThreads) attn_decode_kernel(
     if (lane == 0) self_sh = static_cast<float>(p);
   }
   __syncthreads();
-  // Softmax: f32 max, f64 sum, bf16 weights for P.V.
+  // Softmax: f32 max over cache, self and fresh scores; f64 sum of the
+  // cache weights, then the fresh weights and the self weight added in
+  // f32 in that order; bf16 cache weights for P.V.
   const float self_s = self_sh;
   float m = self_s;
   for (int t = tid; t < n; t += nt) m = fmaxf(m, sc[t]);
+  for (int i = tid; i < j; i += nt) m = fmaxf(m, fs[i]);
   m = block_max(m, red);
   double s = 0.0;
   for (int t = tid; t < n; t += nt) {
@@ -230,10 +285,17 @@ __global__ void __launch_bounds__(kAttnThreads) attn_decode_kernel(
     s += e;
     sc[t] = round_bf16(e);
   }
-  s = block_sum_d(s, red_d);  // its barriers publish the weights too
+  s = block_sum_d(s, red_d);  // its barriers order the fs reads above
+  for (int i = tid; i < j; i += nt) fs[i] = expf(fs[i] - m);  // e_i
+  __syncthreads();
+  auto fresh = [&](int i) { return window < 0 || j - i <= window; };
   const float e_self = expf(self_s - m);
-  const float den = static_cast<float>(s) + e_self;
-  // P.V over the cache (bf16 weights x bf16 v, f64 sums) + the self term.
+  float den = static_cast<float>(s);
+  for (int i = 0; i < j; ++i)
+    if (fresh(i)) den = den + fs[i];
+  den = den + e_self;
+  // P.V over the cache (bf16 weights x bf16 v, f64 sums), then the
+  // fresh terms e_i * v_i and the self term, in f32.
   constexpr int kPairs = kMaxHeadDim / 64;  // bf16 pairs per lane
   double acc2[kPairs][2];
 #pragma unroll
@@ -265,8 +327,15 @@ __global__ void __launch_bounds__(kAttnThreads) attn_decode_kernel(
   for (int d = tid; d < hd; d += nt) {
     double acc = 0.0;
     for (int wi = 0; wi < nw; ++wi) acc += part[wi * hd + d];
-    const float ctx = static_cast<float>(acc) + e_self * vf[d];
-    attn[static_cast<size_t>(b) * nq + static_cast<size_t>(h) * hd + d] =
+    float ctx = static_cast<float>(acc);
+    for (int i = 0; i < j; ++i) {
+      if (!fresh(i)) continue;
+      const float vi = qkv[static_cast<size_t>(r - j + i) * ld + nq + nkv +
+                           static_cast<size_t>(jh) * hd + d];
+      ctx = ctx + fs[i] * vi;
+    }
+    ctx = ctx + e_self * vf[d];
+    attn[static_cast<size_t>(r) * nq + static_cast<size_t>(h) * hd + d] =
         ctx / den;
   }
 }
@@ -282,12 +351,16 @@ inline void row_quant(const float* x, int ldx, int K, const float* w,
 }  // namespace vx
 
 // All pointers are device pointers; lm_codes == NULL skips the lm fold.
+// B rows = Bc streams x spec draft rows, ordered (stream, slot).
 // Layouts: x, xo [B, D] f32; norms / ada [L, D] f32; scales [L, N] f32;
-// cos / sin [hd] f32 (pair-expanded); caches [L, B, n_kv, S, hd] bf16;
-// wqkv [L, nq + 2 nkv, D], wo [L, D, nq], w13 [L, 2F, D], w2 [L, D, F]
-// int8; lm_codes [V, D] int8, lm_scale [V] f32; kn / vn [L, B, n_kv, hd]
-// bf16; logits [B, V] f32.  Scratch: xq [B, max(D, nq, F)] int8, sx [B],
-// qkv [B, nq + 2 nkv], attn [B, nq], up [B, 2F] f32.
+// cos / sin [hd] (rope_stride 0) or [B, hd] (rope_stride hd) f32,
+// pair-expanded; offs [Bc] int32 or NULL (then off0 for every stream);
+// caches [L, Bc, n_kv, S, hd] bf16; wqkv [L, nq + 2 nkv, D], wo [L, D, nq],
+// w13 [L, 2F, D], w2 [L, D, F] int8; lm_codes [V, D] int8, lm_scale [V]
+// f32; kn / vn [L, B, n_kv, hd] bf16; logits [B, V] f32.  Scratch:
+// xq [B, max(D, nq, F)] int8, sx [B], qkv [B, nq + 2 nkv], attn [B, nq],
+// up [B, 2F] f32.  window < 0: no lower bound.  The host reads no offset:
+// a pass launches without a device-to-host copy.
 extern "C" int vx_decode_stack_step(
     const void* x, void* xo, const void* attn_norms, const void* ffn_norms,
     const void* ada, const void* sqkv, const void* so, const void* s13,
@@ -295,23 +368,25 @@ extern "C" int vx_decode_stack_step(
     const void* vc, const void* wqkv, const void* wo, const void* w13,
     const void* w2, const void* final_norm, const void* lm_codes,
     const void* lm_scale, void* kn, void* vn, void* logits, void* xq_buf,
-    void* sx_buf, void* qkv_buf, void* attn_buf, void* up_buf, int B, int D,
-    int L, int S, int n_heads, int n_kv, int hd, int F, int V, int off,
-    int window, float eps, float scale, void* stream) {
+    void* sx_buf, void* qkv_buf, void* attn_buf, void* up_buf,
+    const void* offs, int B, int D, int L, int S, int n_heads, int n_kv,
+    int hd, int F, int V, int off0, int spec, int rope_stride, int window,
+    float eps, float scale, void* stream) {
   using namespace vx;
   if (hd > kMaxHeadDim || hd % 2 || n_kv <= 0 || n_heads % n_kv ||
-      off < 0 || off > S)
+      spec < 1 || B % spec || (offs == nullptr && (off0 < 0 || off0 > S)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nq = n_heads * hd, nkv = n_kv * hd, nqkv = nq + 2 * nkv;
-  const int lo = window >= 0 ? (off - window > 0 ? off - window : 0) : 0;
-  const int n = off - lo;
-  const size_t smem = sizeof(double) * (kAttnThreads / 32) * hd +
-                      sizeof(float) * (4 * static_cast<size_t>(hd) + n);
+  const int Bc = B / spec;
+  const int span = (window >= 0 && window < S) ? window : S;
+  const size_t smem =
+      sizeof(double) * (kAttnThreads / 32) * hd +
+      sizeof(float) * (4 * static_cast<size_t>(hd) + spec + span);
   if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        attn_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        attn_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
@@ -340,7 +415,7 @@ extern "C" int vx_decode_stack_step(
 
   cudaMemcpyAsync(X, x, sizeof(float) * static_cast<size_t>(B) * D,
                   cudaMemcpyDeviceToDevice, st);
-  const size_t cache_layer = static_cast<size_t>(B) * n_kv * S * hd;
+  const size_t cache_layer = static_cast<size_t>(Bc) * n_kv * S * hd;
   const size_t new_layer = static_cast<size_t>(B) * n_kv * hd;
   for (int l = 0; l < L; ++l) {
     row_quant(X, D, D, an + static_cast<size_t>(l) * D, nullptr, eps,
@@ -348,10 +423,11 @@ extern "C" int vx_decode_stack_step(
     launch_w8_gemv(xq, sx, Wqkv + static_cast<size_t>(l) * nqkv * D,
                    Sqkv + static_cast<size_t>(l) * nqkv, nullptr, qkv, B,
                    nqkv, D, st);
-    attn_decode_kernel<<<dim3(n_heads, B), kAttnThreads, smem, st>>>(
+    attn_step_kernel<<<dim3(n_heads, B), kAttnThreads, smem, st>>>(
         qkv, static_cast<const float*>(cosv), static_cast<const float*>(sinv),
+        rope_stride, static_cast<const int*>(offs), off0, spec,
         KC + l * cache_layer, VC + l * cache_layer, KN + l * new_layer,
-        VN + l * new_layer, att, S, lo, n, n_heads, n_kv, hd, scale);
+        VN + l * new_layer, att, S, window, n_heads, n_kv, hd, scale);
     row_quant(att, nq, nq, nullptr, nullptr, eps, kQuantPlain, B, xq, sx, st);
     launch_w8_gemv(xq, sx, Wo + static_cast<size_t>(l) * D * nq,
                    So + static_cast<size_t>(l) * D, X, X, B, D, nq, st);

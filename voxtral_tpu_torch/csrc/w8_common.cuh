@@ -11,11 +11,19 @@
 // reference (ops/w8.py, w8_pallas.py::_w8_kernel), so kernel and plain
 // versions agree to the last bit.
 //
-// Two paths, both __dp4a (four int8 products per instruction):
-//  * GEMV (M <= 8, decode): one warp per output row n, 16-byte loads of
-//    the weight row; bound by the bytes of weights streamed from HBM.
-//  * GEMM (M > 8: encoder, adapter, prefill): 64 x 64 output tiles,
-//    64-byte K steps through shared memory, 4 x 4 outputs per thread.
+// Three paths:
+//  * GEMV, M <= 8 (decode): one warp per output row n, 16-byte loads of
+//    the weight row, __dp4a (four int8 products per instruction); bound
+//    by the bytes of weights streamed from HBM.
+//  * GEMV, 8 < M <= 64 (speculative decode: streams x K draft rows;
+//    prefill): one warp per 8 output rows, int8 tensor-core
+//    mma.m16n8k32 over up to four 16-row tiles of activations, so ONE
+//    pass over the weights serves all M rows.  At M = 64 a dp4a GEMV
+//    would do 64 integer products per weight byte on the CUDA cores
+//    (~3.7 ms of dp4a instructions per 3.4 GB decode step); the tensor cores
+//    keep it a weight stream.
+//  * GEMM (M > 64: encoder, adapter): 64 x 64 output tiles, 64-byte K
+//    steps through shared memory, 4 x 4 dp4a outputs per thread.
 // Everything here has internal linkage, so both translation units may
 // include it.
 #pragma once
@@ -27,7 +35,9 @@ namespace vx {
 namespace {
 
 constexpr int kGemvWarps = 8;   // output rows per 256-thread GEMV block
-constexpr int kGemvMaxM = 8;    // activation rows per GEMV launch
+constexpr int kDp4aMaxM = 8;    // activation rows of the dp4a GEMV
+constexpr int kGemvMaxM = 64;   // activation rows served by one weight pass
+constexpr int kMmaWarps = 4;    // n8 tiles per 128-thread mma GEMV block
 constexpr int kTile = 64;       // GEMM tile (rows, cols, K bytes)
 
 __device__ __forceinline__ int warp_sum_int(int v) {
@@ -91,6 +101,91 @@ __global__ void __launch_bounds__(256) w8_gemv_kernel(
       out[o] = y;
     }
   }
+}
+
+// D += A . B for one m16n8k32 int8 tile (exact int32 accumulation).
+// a0..a3: the A fragment (rows g, g + 8; two groups of 4 K bytes),
+// b0, b1: the B fragment (column g), as PTX lays them out for
+// mma.m16n8k32 .s8 (g = lane / 4).
+__device__ __forceinline__ void mma_s8(int (&d)[4], int a0, int a1, int a2,
+                                       int a3, int b0, int b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// GEMV over M <= 16 * MT activation rows: one warp per 8 output rows
+// n0..n0+7.  The K axis is walked in 64-byte steps; lane (g, t) (g =
+// lane / 4, t = lane % 4) loads 16 bytes at k = 64 s + 16 t of weight row
+// n0 + g and of activation rows 16 i + g and 16 i + g + 8, and feeds them
+// to two m16n8k32 products.  Which real k a fragment slot holds only has
+// to agree between A and B (a dot product is order-free), so each lane's
+// 16 contiguous bytes fill its two 4-byte slots of two products, and
+// every weight byte is read once with a 16-byte load.  The int32 sums
+// are exact, so the result equals the dp4a paths' bit for bit.  Needs
+// K % 64 == 0 and 16-byte aligned rows; rows past M read zeros and are
+// not written.
+template <int MT>
+__global__ void __launch_bounds__(32 * kMmaWarps) w8_gemv_mma_kernel(
+    const int8_t* __restrict__ xq, const float* __restrict__ sx,
+    const int8_t* __restrict__ codes, const float* __restrict__ scale,
+    const float* resid, float* out, int M, int N, int K) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = (blockIdx.x * kMmaWarps + (threadIdx.x >> 5)) * 8;
+  if (n0 >= N) return;  // whole warps leave together
+  const int n = n0 + g;
+  const int4 zero = make_int4(0, 0, 0, 0);
+  const int4* w4 = reinterpret_cast<const int4*>(
+      codes + static_cast<size_t>(n < N ? n : N - 1) * K);
+  const int4* x4[MT][2];
+  bool xin[MT][2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = 16 * i + 8 * h + g;
+      xin[i][h] = m < M;
+      x4[i][h] = reinterpret_cast<const int4*>(
+          xq + static_cast<size_t>(m < M ? m : 0) * K);
+    }
+  int acc[MT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0;
+  const int nv = K >> 4;  // 16-byte chunks per row; nv % 4 == 0
+#pragma unroll 4
+  for (int c = t; c < nv; c += 4) {  // the same trip count on every lane
+    const int4 w = n < N ? __ldg(w4 + c) : zero;
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int4 lo = xin[i][0] ? __ldg(x4[i][0] + c) : zero;
+      const int4 hi = xin[i][1] ? __ldg(x4[i][1] + c) : zero;
+      mma_s8(acc[i], lo.x, hi.x, lo.y, hi.y, w.x, w.y);
+      mma_s8(acc[i], lo.z, hi.z, lo.w, hi.w, w.z, w.w);
+    }
+  }
+  // Accumulator layout: acc[i][2 h + e] = row 16 i + 8 h + g,
+  // column n0 + 2 t + e.
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = 16 * i + 8 * h + g;
+      if (m >= M) continue;
+      const float s = sx[m];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int nn = n0 + 2 * t + e;
+        if (nn >= N) continue;
+        float y = w8_epilogue(acc[i][2 * h + e], s, scale[nn]);
+        const size_t o = static_cast<size_t>(m) * N + nn;
+        if (resid != nullptr) y = resid[o] + y;
+        out[o] = y;
+      }
+    }
 }
 
 // 16 bytes of row r starting at byte k, packed into 4 words (zeros past
@@ -181,17 +276,38 @@ inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0u;
 }
 
-// GEMV over activation rows in groups of kGemvMaxM (the weights are
-// streamed once per group).
+// GEMV: up to kGemvMaxM activation rows per pass over the weights
+// (dp4a up to 8 rows, int8 mma above).  Shapes the mma path does not
+// take (K % 64 != 0, unaligned rows) and M > kGemvMaxM run the dp4a
+// GEMV in groups of 8 rows, one weight pass per group.
 inline void launch_w8_gemv(const int8_t* xq, const float* sx,
                            const int8_t* codes, const float* scale,
                            const float* resid, float* out, int M, int N,
                            int K, cudaStream_t st) {
   const bool vec = (K % 16 == 0) && aligned16(xq) && aligned16(codes);
+  if (M > kDp4aMaxM && M <= kGemvMaxM && vec && K % 64 == 0) {
+    const dim3 grid((N + 8 * kMmaWarps - 1) / (8 * kMmaWarps));
+    const dim3 block(32 * kMmaWarps);
+    switch ((M + 15) / 16) {
+#define VX_MMA_CASE(MT)                                                 \
+  case MT:                                                              \
+    w8_gemv_mma_kernel<MT><<<grid, block, 0, st>>>(xq, sx, codes, scale, \
+                                                   resid, out, M, N, K); \
+    break;
+      VX_MMA_CASE(1)
+      VX_MMA_CASE(2)
+      VX_MMA_CASE(3)
+      VX_MMA_CASE(4)
+#undef VX_MMA_CASE
+      default:
+        break;
+    }
+    return;
+  }
   const dim3 grid((N + kGemvWarps - 1) / kGemvWarps);
   const dim3 block(32 * kGemvWarps);
-  for (int m0 = 0; m0 < M; m0 += kGemvMaxM) {
-    const int mr = (M - m0 < kGemvMaxM) ? (M - m0) : kGemvMaxM;
+  for (int m0 = 0; m0 < M; m0 += kDp4aMaxM) {
+    const int mr = (M - m0 < kDp4aMaxM) ? (M - m0) : kDp4aMaxM;
     const int8_t* x = xq + static_cast<size_t>(m0) * K;
     const float* s = sx + m0;
     const float* r = resid ? resid + static_cast<size_t>(m0) * N : nullptr;

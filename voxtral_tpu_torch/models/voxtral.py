@@ -1,5 +1,5 @@
-"""Complete Voxtral Realtime model, sequential greedy decode
-(port of the w8 fused route of ``voxtral_tpu/models/voxtral.py``).
+"""Complete Voxtral Realtime model: greedy, sampled and speculative
+decode (port of the w8 fused route of ``voxtral_tpu/models/voxtral.py``).
 
 Behaviour kept from the reference:
 
@@ -7,12 +7,18 @@ Behaviour kept from the reference:
   generated token comes from position 37's logits;
 * per-step input = ``audio_embeds[pos] + embed(prev_token)``;
 * greedy argmax (first index of the maximum, as ``jnp.argmax``) at every
-  position up to the audio length.
+  position up to the audio length, or temperature / top-k sampling;
+* speculative decode (``speculative=K >= 2``, greedy): each pass drafts
+  K tokens per row (bigram table or ``[STREAMING_PAD]``), verifies them
+  in one K1 ``spec=K`` step and keeps the exact-greedy prefix, so the
+  tokens are the sequential ones for any draft.
 
-The decode loop is a Python loop over positions on the model's device:
-one K1 stack step (``ops/decode_step.py``) per token, the K/V append in
-place, the argmax fed back without a host round trip; the tokens reach
-the host once per call.
+The sequential decode loop is a Python loop over positions on the
+model's device: one K1 stack step (``ops/decode_step.py``) per token,
+the K/V append in place, the argmax fed back without a host round trip;
+the tokens reach the host once per call.  The speculative loop runs on
+the device too, apart from one small device-to-host copy per pass that
+decides whether another pass is needed.
 """
 
 from __future__ import annotations
@@ -52,9 +58,83 @@ def make_prefix_ids() -> np.ndarray:
                     dtype=np.int32)
 
 
-def select_token(logits: torch.Tensor) -> torch.Tensor:
-    """Greedy argmax over the vocab -> int32 [B] (first index on ties)."""
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+# ---------------------------------------------------------------------------
+# Speculative-decode helpers
+# ---------------------------------------------------------------------------
+
+
+def ngram_table_init(vocab: int, draft_token: int = STREAMING_PAD,
+                     device=None) -> torch.Tensor:
+    """Bigram draft table [vocab] int32: entry t = the most recently
+    verified continuation of token t, first the ``draft_token`` fallback
+    (so an untrained table drafts as the pad policy).  Lives on the
+    device; drafting is K - 1 gathers, training one scatter per pass."""
+    return torch.full((vocab,), draft_token, dtype=torch.int32,
+                      device=device)
+
+
+def ngram_drafts(table: torch.Tensor, prev: torch.Tensor,
+                 K: int) -> torch.Tensor:
+    """Chained bigram drafts: d0 = prev, d_{j+1} = table[d_j].
+    ``prev`` [] or [B] -> drafts [K] or [B, K]."""
+    d = [prev]
+    for _ in range(K - 1):
+        d.append(table[d[-1].long()])
+    return torch.stack(d, dim=-1)
+
+
+def ngram_train(table: torch.Tensor, drafts: torch.Tensor, y: torch.Tensor,
+                live: torch.Tensor) -> None:
+    """Train the table in place on one pass: table[drafts[b, j]] = y[b, j]
+    for the live rows (``live`` [B] bool); dead rows write nothing.
+
+    Where several writes hit one entry, the write with the highest flat
+    index b * K + j wins (JAX's scatter leaves that order undefined).
+    Every write to an entry stores the winner's value, so the scatter's
+    own order cannot matter, and nothing is read back to the host.
+    """
+    tgt = drafts.reshape(-1).long()
+    val = y.reshape(-1).to(table.dtype)
+    flat = torch.arange(tgt.numel(), device=tgt.device)
+    prio = torch.where(live[:, None].expand_as(drafts).reshape(-1), flat, -1)
+    best = torch.full(table.shape, -1, dtype=flat.dtype, device=tgt.device)
+    best.scatter_reduce_(0, tgt, prio, reduce="amax")
+    win = best[tgt]
+    table.scatter_(0, tgt, torch.where(win >= 0, val[win.clamp(min=0)],
+                                       table[tgt]))
+
+
+def append_rows(cache: torch.Tensor, new: torch.Tensor, offs: torch.Tensor,
+                rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-row cache append, in place: write ``new[:, i]`` [L, H, hd] at
+    slot ``offs[i]`` along the S axis of cache row ``rows[i]`` (default
+    ``i``) of ``cache`` [L, Bc, H, S, hd].  Returns ``cache``."""
+    if rows is None:
+        rows = torch.arange(new.shape[1], device=new.device)
+    cache[:, rows, :, offs.long()] = new.permute(1, 0, 2, 3).to(cache.dtype)
+    return cache
+
+
+def select_token(logits: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 temperature: float = 0.0, top_k: int = 0) -> torch.Tensor:
+    """Greedy argmax (first index on ties), or temperature / top-k
+    sampling when temperature > 0, drawn from ``generator``.
+    logits [B, V] -> int32 [B]."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    lg = logits.float() / temperature
+    if top_k > 0:
+        kth = torch.topk(lg, top_k, dim=-1).values[..., -1:]
+        lg = torch.where(lg < kth, float("-inf"), lg)
+    probs = torch.softmax(lg, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
+        torch.int32)
+
+
+def check_draft(draft: str) -> None:
+    if draft not in ("pad", "ngram"):
+        raise ValueError(f"draft policy must be pad|ngram, got {draft!r}")
 
 
 def encode_audio_fn(params: Params, mel: torch.Tensor, cfg: VoxtralConfig,
@@ -69,15 +149,25 @@ def encode_audio_fn(params: Params, mel: torch.Tensor, cfg: VoxtralConfig,
 def transcribe_streaming_fn(params: Params, mel: torch.Tensor,
                             t_embed: torch.Tensor, cfg: VoxtralConfig,
                             fused: Params, mm=None, step=None,
-                            margins: Optional[list] = None) -> torch.Tensor:
-    """Greedy transcription of a batch of mels -> int32 [B, S - 38].
+                            margins: Optional[list] = None, *,
+                            temperature: float = 0.0, top_k: int = 0,
+                            seed: int = 0, speculative: int = 0,
+                            draft: str = "ngram",
+                            passes: Optional[list] = None) -> torch.Tensor:
+    """Transcription of a batch of mels -> int32 [B, S - 38].
 
     ``fused``: the stacks of :func:`ops.decode_step.fuse_decode_weights`.
     ``mm`` / ``step``: the W8A8 GEMM and the decode step (the kernel
     wrappers by default; their plain versions run the same path without
-    the kernels).  ``margins``, when a list, receives the top-2 logit
-    margin [B] of every position (diagnostics for near-tie flips).
+    the kernels).  ``temperature`` > 0 samples (top-k when ``top_k`` > 0)
+    from a generator seeded with ``seed``.  ``speculative=K >= 2``
+    (greedy only, and at least one decode position) verifies K drafted
+    tokens per pass with ``draft`` "ngram" or "pad"; sampling rides the
+    sequential loop.  ``margins``, when a list, receives the top-2 logit
+    margin [B] of every position (diagnostics for near-tie flips);
+    ``passes``, when a list, receives the number of speculative passes.
     """
+    check_draft(draft)
     step = step or k1.decode_stack_step
     lm_cfg = cfg.language_model
     dev = mel.device
@@ -96,44 +186,140 @@ def transcribe_streaming_fn(params: Params, mel: torch.Tensor,
         dec, prefix_inputs, t_embed, cache, lm_cfg, rope, mm=mm)
     logits = lm_head(dec, hidden[:, -1, :], mm=mm)  # [B, V]
 
+    gen = None
+    if temperature > 0.0:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     n_steps = seq_len - PREFIX_LEN - 1
-    tokens = torch.empty((batch, n_steps + 1), dtype=torch.int32, device=dev)
-    token = select_token(logits)
-    tokens[:, 0] = token
+    token = select_token(logits, gen, temperature, top_k)
     if margins is not None:
         margins.append(_top2_margin(logits))
 
     ada_vecs = k1.ada_vectors(dec, t_embed, mm)
-    # Head-major copy of the prefilled cache for the step: [L, B, Hkv, S, hd].
-    k_cache = cache.k.permute(0, 1, 3, 2, 4).contiguous()
-    v_cache = cache.v.permute(0, 1, 3, 2, 4).contiguous()
+    emb = dec["tok_embeddings"]["w8"]
+    step_kw = dict(
+        final_norm=dec["norm"].float(), lm_codes=emb["codes"],
+        lm_scale=emb["scale"], n_heads=lm_cfg.n_heads,
+        n_kv=lm_cfg.n_kv_heads, head_dim=lm_cfg.head_dim,
+        eps=lm_cfg.norm_eps, window=lm_cfg.sliding_window)
+
+    def run_step(x, off, cos, sin, k_cache, v_cache, spec=1):
+        return step(x, off, fused["attn_norm"], fused["ffn_norm"], ada_vecs,
+                    fused["sqkv"], fused["so"], fused["s13"], fused["s2"],
+                    cos, sin, k_cache, v_cache, fused["wqkv"], fused["wo"],
+                    fused["w13"], fused["w2"], spec=spec, **step_kw)
+
+    K = speculative
+    spec = K >= 2 and temperature <= 0.0 and n_steps >= 1
+    # Head-major copy of the prefilled cache for the step: [L, B, Hkv, S,
+    # hd]; the speculative loop's last pass appends K rows at slots up to
+    # seq_len + K - 2, so its copy has a K - 1 slot tail.
+    L, _, _, n_kv, hd = cache.k.shape
+    slots = seq_len + (K - 1 if spec else 0)
+    k_cache = torch.zeros((L, batch, n_kv, slots, hd), dtype=cache.k.dtype,
+                          device=dev)
+    v_cache = torch.zeros_like(k_cache)
+    k_cache[:, :, :, :seq_len] = cache.k.permute(0, 1, 3, 2, 4)
+    v_cache[:, :, :, :seq_len] = cache.v.permute(0, 1, 3, 2, 4)
     del cache
     cos_t, sin_t = k1.rope_pair_vectors(
-        torch.arange(seq_len, device=dev), lm_cfg.head_dim, lm_cfg.rope_theta)
-    emb = dec["tok_embeddings"]["w8"]
-    final_norm = dec["norm"].float()
+        torch.arange(slots, device=dev), lm_cfg.head_dim, lm_cfg.rope_theta)
+    if spec:
+        return _spec_decode(run_step, dec, audio_embeds, token, k_cache,
+                            v_cache, cos_t, sin_t, K, draft == "ngram",
+                            lm_cfg.vocab_size, margins, passes)
+
+    tokens = torch.empty((batch, n_steps + 1), dtype=torch.int32, device=dev)
+    tokens[:, 0] = token
     for i in range(n_steps):
         off = PREFIX_LEN + i
         text = embed_tokens(dec, token.long()[:, None])  # [B, 1, D]
         x = (audio_embeds[:, off:off + 1, :] + text)[:, 0, :].float()
-        _, k_new, v_new, logits = step(
-            x, off, fused["attn_norm"], fused["ffn_norm"], ada_vecs,
-            fused["sqkv"], fused["so"], fused["s13"], fused["s2"],
-            cos_t[off], sin_t[off], k_cache, v_cache,
-            fused["wqkv"], fused["wo"], fused["w13"], fused["w2"],
-            final_norm=final_norm, lm_codes=emb["codes"],
-            lm_scale=emb["scale"], n_heads=lm_cfg.n_heads,
-            n_kv=lm_cfg.n_kv_heads, head_dim=lm_cfg.head_dim,
-            eps=lm_cfg.norm_eps, window=lm_cfg.sliding_window)
+        _, k_new, v_new, logits = run_step(x, off, cos_t[off], sin_t[off],
+                                           k_cache, v_cache)
         # The step reads slots < off only, so appending in place at off
         # leaves its inputs as they were.
         k_cache[:, :, :, off] = k_new
         v_cache[:, :, :, off] = v_new
-        token = select_token(logits)
+        token = select_token(logits, gen, temperature, top_k)
         tokens[:, i + 1] = token
         if margins is not None:
             margins.append(_top2_margin(logits))
     return tokens
+
+
+def _spec_decode(run_step, dec: Params, audio_embeds: torch.Tensor,
+                 first: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, cos_t: torch.Tensor,
+                 sin_t: torch.Tensor, K: int, ngram: bool, vocab: int,
+                 margins: Optional[list],
+                 passes: Optional[list]) -> torch.Tensor:
+    """The speculative loop of :func:`transcribe_streaming_fn` (JAX
+    ``spec_body``): per pass, draft K tokens per row, verify them in one
+    ``spec=K`` step, keep the exact-greedy prefix, append all K fresh
+    K/V rows, train the bigram table.  Each row advances by its own
+    accepted count; finished rows ride along with their position frozen
+    and write only past their last token.  -> int32 [B, n_steps + 1]."""
+    dev = audio_embeds.device
+    batch, seq_len, dim = audio_embeds.shape
+    n_steps = seq_len - PREFIX_LEN - 1
+    # Input row of generated index i = audio_embeds[PREFIX_LEN + i] +
+    # embed(token_i); K copies of the last row keep every slice of a
+    # pass (finished rows included) in bounds.
+    inputs = audio_embeds[:, PREFIX_LEN:PREFIX_LEN + n_steps, :]
+    inputs = torch.cat([inputs, inputs[:, -1:].expand(-1, K, -1)], dim=1)
+    rows = torch.arange(batch, device=dev)
+    stream = rows.repeat_interleave(K)  # the stream of each step row
+    slot = torch.arange(K, device=dev)
+    pos = torch.zeros((batch,), dtype=torch.long, device=dev)
+    prev = first
+    toks = torch.zeros((batch, n_steps + K), dtype=torch.int32, device=dev)
+    marg = (torch.zeros((batch, n_steps + K), device=dev)
+            if margins is not None else None)
+    table = ngram_table_init(vocab, device=dev) if ngram else None
+    pad = torch.full((batch, K - 1), STREAMING_PAD, dtype=torch.int32,
+                     device=dev)
+    n_pass = 0
+    # JAX's while_loop tests any(pos < n_steps) on the device; here the
+    # host reads that one bool per pass (a small device-to-host copy,
+    # which waits for the pass to finish).
+    while bool((pos < n_steps).any()):
+        offs = PREFIX_LEN + pos  # [B] absolute position of slot 0
+        drafts = (ngram_drafts(table, prev, K) if ngram
+                  else torch.cat([prev[:, None], pad], dim=1))
+        idx = pos[:, None] + slot  # [B, K] generated indices
+        text = embed_tokens(dec, drafts.long())  # [B, K, D]
+        x = (inputs[rows[:, None], idx] + text).reshape(batch * K, dim)
+        at = (offs[:, None] + slot).reshape(-1)  # per-row positions
+        _, k_new, v_new, logits = run_step(
+            x.float(), offs.to(torch.int32), cos_t[at], sin_t[at],
+            k_cache, v_cache, spec=K)
+        y = select_token(logits).reshape(batch, K)
+        # Exact-greedy acceptance: y[:, j] is valid iff every earlier
+        # draft matched its verified token; y[:, 0] always is.
+        match = (y[:, :K - 1] == drafts[:, 1:]).to(torch.int32)
+        n_acc = 1 + torch.cumprod(match, dim=1).sum(dim=1)
+        live = pos < n_steps
+        adv = torch.where(live, torch.minimum(n_acc, n_steps - pos), 0)
+        # Append all K fresh rows at offs + j, in place: the step read
+        # slots < offs only, rows past the accepted count stay invisible
+        # (masked by the offsets) until later appends overwrite them.
+        append_rows(k_cache, k_new, at, stream)
+        append_rows(v_cache, v_new, at, stream)
+        toks.scatter_(1, idx, y)
+        if marg is not None:
+            marg.scatter_(1, idx, _top2_margin(logits).reshape(batch, K))
+        picked = y.gather(1, (adv - 1).clamp(0, K - 1)[:, None])[:, 0]
+        prev = torch.where(adv > 0, picked, prev)
+        if ngram:
+            ngram_train(table, drafts, y, live)
+        pos = pos + adv
+        n_pass += 1
+    if passes is not None:
+        passes.append(n_pass)
+    if margins is not None:
+        margins.extend(marg[:, :n_steps].unbind(dim=1))
+    return torch.cat([first[:, None], toks[:, :n_steps]], dim=1)
 
 
 def _top2_margin(logits: torch.Tensor) -> torch.Tensor:
@@ -147,7 +333,8 @@ def _not_ported(what: str, item: str):
 
 
 class VoxtralModel:
-    """Parameter tree + config on one device, sequential greedy decode.
+    """Parameter tree + config on one device: greedy, sampled and
+    speculative decode.
 
     ``params``: the port's tensor tree (see ``convert.params_from_numpy``)
     with w8 decoder layers.  ``kernels=False`` runs the same path through
@@ -177,6 +364,8 @@ class VoxtralModel:
         # in ``last_margins`` ([B, S - 38] numpy).
         self.record_margins = False
         self.last_margins: Optional[np.ndarray] = None
+        # Speculative passes of the last call (0: sequential decode).
+        self.last_spec_passes = 0
 
     @classmethod
     def from_numpy(cls, tree: Params, config: Optional[VoxtralConfig] = None,
@@ -207,27 +396,43 @@ class VoxtralModel:
 
     def transcribe_streaming(self, mel, delay_tokens: float = 6.0,
                              temperature: float = 0.0, top_k: int = 0,
-                             speculative: int = 0) -> np.ndarray:
-        """One mel chunk [1, n_mels, T] -> int32 tokens after the prefix."""
-        if temperature > 0.0 or top_k > 0:
-            _not_ported("temperature / top-k sampling",
-                        "ROADMAP queue 1, item 8")
-        return self.transcribe_streaming_batch(
-            mel, delay_tokens, speculative=speculative)[0]
+                             seed: int = 0, speculative: int = 0,
+                             draft: str = "ngram") -> np.ndarray:
+        """One mel chunk [1, n_mels, T] -> int32 tokens after the prefix.
+
+        Greedy by default; ``temperature`` > 0 samples (top-k when
+        ``top_k`` > 0) from a generator seeded with ``seed``.
+        ``speculative=K >= 2`` (greedy only) verifies K drafted tokens
+        per pass (``draft`` "ngram" or "pad"): the same tokens, fewer
+        passes when the drafts hit.
+        """
+        return self._transcribe(mel, delay_tokens, temperature=temperature,
+                                top_k=top_k, seed=seed,
+                                speculative=speculative, draft=draft)[0]
 
     def transcribe_streaming_batch(self, mel_batch, delay_tokens: float = 6.0,
-                                   speculative: int = 0) -> np.ndarray:
-        """B equal-length mel chunks [B, n_mels, T] -> int32 [B, S - 38]."""
-        if speculative >= 2:
-            _not_ported("speculative decode", "ROADMAP queue 1, item 8")
-        mel = self._cast_mel(mel_batch)
+                                   speculative: int = 0,
+                                   draft: str = "ngram") -> np.ndarray:
+        """B equal-length mel chunks [B, n_mels, T] -> int32 [B, S - 38],
+        greedy (speculative with ``speculative=K >= 2``)."""
+        return self._transcribe(mel_batch, delay_tokens,
+                                speculative=speculative, draft=draft)
+
+    def _transcribe(self, mel, delay_tokens: float, **kw) -> np.ndarray:
+        check_draft(kw["draft"])
+        mel = self._cast_mel(mel)
+        self.last_spec_passes = 0
         if self.decoder_seq_len(mel.shape[-1]) < PREFIX_LEN + 1:
             return np.zeros((mel.shape[0], 0), dtype=np.int32)
         margins = [] if self.record_margins else None
+        passes: list = []
         with torch.no_grad():
             tokens = transcribe_streaming_fn(
                 self.params, mel, self.t_embed(delay_tokens), self.config,
-                self.fused_decode, self._mm, self._step, margins)
+                self.fused_decode, self._mm, self._step, margins,
+                passes=passes, **kw)
+        if passes:
+            self.last_spec_passes = passes[0]
         if margins is not None:
             self.last_margins = torch.stack(margins, dim=1).cpu().numpy()
         return tokens.cpu().numpy()

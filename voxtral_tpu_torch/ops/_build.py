@@ -1,11 +1,14 @@
 """Build and load the hand-written CUDA kernels.
 
 All of ``voxtral_tpu_torch/csrc/*.cu`` is compiled at first use, by
-``nvcc`` alone, into one shared library with a plain C interface:
+``nvcc`` alone, one process per source, all started together:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC -o _build/libvoxtral_kernels-<hash>.so
-         csrc/*.cu
+         -Xcompiler -fPIC -c -o <source>.o csrc/<source>.cu
+
+then linked into one shared library with a plain C interface
+
+    nvcc -shared -o _build/libvoxtral_kernels-<hash>.so *.o
 
 and loaded with ``ctypes``.  The library name carries a hash of the
 sources, so an edited source rebuilds and an unchanged one loads at once.
@@ -39,7 +42,7 @@ BUILD_DIR = PKG_DIR / "_build"
 # versions bit for bit).  Never --use_fast_math.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
 ]
 
 
@@ -87,22 +90,32 @@ def build() -> tuple[Path, float]:
     if not srcs:
         raise KernelBuildError(f"no CUDA sources under {CSRC_DIR}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Build under a temporary name, then rename: a concurrent loader never
-    # sees a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp,
-           *map(str, srcs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, seconds
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in srcs]
+        procs = [
+            (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True))
+            for cmd in ([nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c",
+                         "-o", str(obj), str(src)]
+                        for src, obj in zip(srcs, objs))]
+        outs = [(cmd, proc, proc.communicate()[0]) for cmd, proc in procs]
+        failed = [f"nvcc failed (exit {proc.returncode}):\n"
+                  f"{' '.join(cmd)}\n{out}"
+                  for cmd, proc, out in outs if proc.returncode != 0]
+        if failed:
+            raise KernelBuildError("\n".join(failed))
+        # Link under a temporary name, then rename: a concurrent loader
+        # never sees a half-written library.
+        so = Path(tmp) / "lib.so"
+        cmd = [nvcc, "-shared", "-o", str(so), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc link failed (exit {proc.returncode}):\n"
+                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+        os.replace(so, lib)
+    return lib, time.perf_counter() - t0
 
 
 @functools.lru_cache(maxsize=1)

@@ -1,17 +1,23 @@
-"""K1 (a): the whole single-token decode step, hand-written CUDA for Hopper.
+"""K1: the whole decode step, hand-written CUDA for Hopper.
 
 Replaces ``voxtral_tpu/ops/decode_step_pallas.py::decode_stack_step``
-(kernel body ``_make_stack_kernel``) in its mode (a): w8 weights, bf16
-bounded head-major cache, scalar offset, sliding window, final norm +
-tied lm_head folded into logits.  Source: ``csrc/decode_step.cu``.
+(kernel body ``_make_stack_kernel``) in its modes (a) w8 weights, bf16
+bounded head-major cache, sliding window, final norm + tied lm_head
+folded into logits; (b) ``spec=K`` speculative verification, K draft
+rows per stream in one pass over the weights; (c) per-stream offsets
+(an int32 device vector) and per-row RoPE vectors.  Source:
+``csrc/decode_step.cu``.
 
 What bounds it on the H100: the int8 weights streamed once per step —
 26 layers of wqkv / wo / w13 / w2 plus the 131072 x 3072 lm table, about
-3.4 GB at full width.  The simple design: a fixed sequence of kernels on
+3.4 GB at full width, shared by every row of the step (up to 64 rows
+per weight pass).  The simple design: a fixed sequence of kernels on
 the current stream (row norm + int8 quant, W8A8 GEMV with 16-byte loads
-and ``__dp4a``, one RoPE + GQA attention block per (row, query head),
-residual adds fused into the GEMV epilogue) — 9 launches per layer + 2,
-no cross-block carry.  One call of the wrapper is one step and counts as
+— ``__dp4a`` up to 8 rows, int8 tensor-core ``mma`` up to 64 — one RoPE
++ GQA attention block per (row, query head), residual adds fused into
+the GEMV epilogue) — 9 launches per layer + 2, no cross-block carry.
+The attention blocks read the offsets on the device, so a step launches
+without a host sync.  One call of the wrapper is one step and counts as
 one launch in ``decode_stack_step.launches``.
 
 Also here, the host-side preparation the JAX module holds beside the
@@ -121,24 +127,89 @@ def _sum64(t: torch.Tensor) -> torch.Tensor:
 
 
 def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    """(x * (1 / sqrt(mean(x^2) + eps))) * w, mean(x^2) in f64."""
+    """(x * (1 / sqrt(mean(x^2) + eps))) * w, mean(x^2) in f64.  The
+    count divides as a tensor: a true division on every device (CUDA
+    PyTorch turns a division by a Python scalar into a multiplication by
+    its reciprocal)."""
     xd = x.double()
-    var = ((xd * xd).sum(dim=-1, keepdim=True) / x.shape[-1]).float()
+    ss = (xd * xd).sum(dim=-1, keepdim=True)
+    var = (ss / torch.full_like(ss, x.shape[-1])).float()
     return x * (1.0 / torch.sqrt(var + eps)) * w
 
 
+def _spec_streams(rows: int, cache_rows: int, spec: int) -> int:
+    """The stream count Bc = rows / spec; ValueError as the JAX wrapper."""
+    if spec < 1:
+        raise ValueError(f"spec must be >= 1, got {spec}")
+    if rows % spec:
+        raise ValueError(f"spec={spec} must divide the row count {rows}")
+    if cache_rows != rows // spec:
+        raise ValueError(
+            f"cache rows {cache_rows} != streams {rows // spec} (= B/spec)")
+    return rows // spec
+
+
+def _attention_plain(q, k, v, k_cache, v_cache, offs, window, spec, n_kv,
+                     scale):
+    """One layer's attention, as the JAX kernel's spec branch computes it
+    (spec = 1 is the sequential step): q [B, H, hd], k / v [B, Hkv, hd]
+    RoPE'd f32; caches [Bc, Hkv, S, hd]; offs [Bc] int.  -> [B, H * hd]."""
+    B, n_heads, hd = q.shape
+    Bc, S = B // spec, k_cache.shape[2]
+    groups = n_heads // n_kv
+    qS = q.reshape(Bc, spec, n_heads, hd)
+    kS = k.reshape(Bc, spec, n_kv, hd)
+    vS = v.reshape(Bc, spec, n_kv, hd)
+    kc = k_cache.reshape(Bc * n_kv, S, hd).double()
+    vc = v_cache.reshape(Bc * n_kv, S, hd).double()
+    pos = torch.arange(S, device=q.device)
+    off = offs.reshape(Bc, 1)
+
+    def fresh(t, i):  # [Bc, spec, Hkv, hd] -> row i's [Bc * Hkv, 1, hd]
+        return t[:, i].reshape(Bc * n_kv, 1, hd)
+
+    rows = []
+    for j in range(spec):
+        qj = qS[:, j].reshape(Bc * n_kv, groups, hd) * scale
+        sj = (qj.to(k_cache.dtype).double() @ kc.transpose(1, 2)).float()
+        valid = pos < off
+        if window is not None:
+            valid &= (off + j - pos) <= window
+        valid = valid.repeat_interleave(n_kv, dim=0)[:, None, :]
+        sj = torch.where(valid, sj, float("-inf"))
+        prevs = [(i, _sum64(qj.double() * fresh(kS, i).double()))
+                 for i in range(j) if window is None or j - i <= window]
+        s_self = _sum64(qj.double() * fresh(kS, j).double())
+        m = torch.maximum(sj.amax(-1), s_self)
+        for _, si in prevs:
+            m = torch.maximum(m, si)
+        e_cache = torch.exp(sj - m[..., None])
+        denom = _sum64(e_cache)
+        ctx = (e_cache.to(v_cache.dtype).double() @ vc).float()
+        for i, si in prevs:
+            e_i = torch.exp(si - m)
+            denom = denom + e_i
+            ctx = ctx + e_i[..., None] * fresh(vS, i)
+        e_self = torch.exp(s_self - m)
+        denom = denom + e_self
+        ctx = ctx + e_self[..., None] * fresh(vS, j)
+        rows.append((ctx / denom[..., None]).reshape(Bc, n_heads * hd))
+    return torch.stack(rows, dim=1).reshape(B, n_heads * hd)
+
+
 def decode_stack_step_plain(
-    x, offset: int,
+    x, offset,
     attn_norms, ffn_norms, ada_vecs,
     sqkv, so, s13, s2, cos_p, sin_p,
     k_cache, v_cache,
     wqkv, wo, w13, w2,
     final_norm=None, lm_codes=None, lm_scale=None,
     *, n_heads: int, n_kv: int, head_dim: int, eps: float,
-    window: Optional[int] = None,
+    window: Optional[int] = None, spec: int = 1,
 ):
     """Plain PyTorch version of the kernel, step by step as the JAX
-    kernel computes it.  Returns (x_out [B, D] f32, k_new, v_new
+    kernel computes it (its spec branch for ``spec > 1``: one pass, not
+    K sequential steps).  Returns (x_out [B, D] f32, k_new, v_new
     [L, B, Hkv, hd] cache dtype[, logits [B, V] f32]).
 
     Float reductions (sum of squares, scores, softmax sum, P.V) run in
@@ -146,16 +217,14 @@ def decode_stack_step_plain(
     for bit whatever order each sums in.
     """
     B, D = x.shape
-    L, _, _, S, _ = k_cache.shape
+    L = k_cache.shape[0]
+    Bc = _spec_streams(B, k_cache.shape[1], spec)
     nq, nkv = n_heads * head_dim, n_kv * head_dim
-    groups = n_heads // n_kv
-    scale = head_dim ** -0.5
     hidden = w2.shape[2]
     c, s = cos_p.float(), sin_p.float()
-    pos = torch.arange(S, device=x.device)
-    valid = pos < offset
-    if window is not None:
-        valid &= (offset - pos) <= window
+    if c.dim() == 2:  # per-row [B, hd] -> [B, 1, hd] against the heads
+        c, s = c[:, None], s[:, None]
+    offs = torch.as_tensor(offset, device=x.device).reshape(-1).expand(Bc)
     x = x.float()
     k_new, v_new = [], []
     for l in range(L):
@@ -168,20 +237,8 @@ def decode_stack_step_plain(
         k = k * c + _rope_swap(k) * s
         k_new.append(k.to(k_cache.dtype))
         v_new.append(v.to(v_cache.dtype))
-
-        qg = q.reshape(B * n_kv, groups, head_dim) * scale
-        kc = k_cache[l].reshape(B * n_kv, S, head_dim).double()
-        vc = v_cache[l].reshape(B * n_kv, S, head_dim).double()
-        scores = (qg.to(k_cache.dtype).double() @ kc.transpose(1, 2)).float()
-        scores = torch.where(valid, scores, float("-inf"))
-        self_s = _sum64(qg.double() * k.reshape(B * n_kv, 1, head_dim).double())
-        m = torch.maximum(scores.amax(-1), self_s)
-        e_cache = torch.exp(scores - m[..., None])
-        e_self = torch.exp(self_s - m)
-        denom = _sum64(e_cache) + e_self
-        ctx = (e_cache.to(v_cache.dtype).double() @ vc).float()
-        ctx = ctx + e_self[..., None] * v.reshape(B * n_kv, 1, head_dim)
-        attn = (ctx / denom[..., None]).reshape(B, nq)
+        attn = _attention_plain(q, k, v, k_cache[l], v_cache[l], offs,
+                                window, spec, n_kv, head_dim ** -0.5)
         x = x + w8_matmul_plain(*_quant(attn), wo[l], so[l])
 
         h = _rms(x, ffn_norms[l].float(), eps) * ada_vecs[l].float()
@@ -207,23 +264,28 @@ def _require(cond: bool, msg: str) -> None:
 
 
 def decode_stack_step(
-    x, offset: int,
+    x, offset,
     attn_norms, ffn_norms, ada_vecs,
     sqkv, so, s13, s2, cos_p, sin_p,
     k_cache, v_cache,
     wqkv, wo, w13, w2,
     final_norm=None, lm_codes=None, lm_scale=None,
     *, n_heads: int, n_kv: int, head_dim: int, eps: float,
-    window: Optional[int] = None,
+    window: Optional[int] = None, spec: int = 1,
 ):
-    """All decoder layers of one single-token step (+ lm fold).
+    """All decoder layers of one decode step (+ lm fold).
 
-    x [B, D] f32; ``offset`` int = cache slots already written (the
-    query's position); caches head-major [L, B, Hkv, S, hd] bf16 (read
-    at slots < offset only); fused w8 stacks from
-    :func:`fuse_decode_weights`; ``window`` = sliding window (None: no
-    lower bound).  Returns (x_out, k_new, v_new[, logits]) like
-    :func:`decode_stack_step_plain`; the caller appends k_new / v_new.
+    x [B, D] f32, B = Bc streams x ``spec`` rows ordered (stream b, draft
+    slot j); ``offset`` = cache slots already written per stream: an int
+    (every stream) or an int32 tensor [Bc] on x's device; cos_p / sin_p
+    [hd] (every row) or per row [B, hd] (row (b, j) at offs[b] + j);
+    caches head-major [L, Bc, Hkv, S, hd] bf16 (read at slots < offs[b]
+    only); fused w8 stacks from :func:`fuse_decode_weights`; ``window`` =
+    sliding window (None: no lower bound).  ``spec=K > 1`` verifies K
+    drafted tokens per stream: row j also attends the fresh K/V of rows
+    i < j of its stream.  Returns (x_out, k_new, v_new[, logits]) like
+    :func:`decode_stack_step_plain`, k_new / v_new [L, B, Hkv, hd]; the
+    caller appends them.
 
     CPU tensors take the plain version; CUDA tensors launch the kernels
     or raise.
@@ -232,7 +294,7 @@ def decode_stack_step(
             cos_p, sin_p, k_cache, v_cache, wqkv, wo, w13, w2,
             final_norm, lm_codes, lm_scale)
     kw = dict(n_heads=n_heads, n_kv=n_kv, head_dim=head_dim, eps=eps,
-              window=window)
+              window=window, spec=spec)
     dev = x.device
     if dev.type == "cpu":
         return decode_stack_step_plain(*args, **kw)
@@ -241,15 +303,26 @@ def decode_stack_step(
 
     B, D = x.shape
     L, Bc, Hkv, S, hd = k_cache.shape
+    Bc = _spec_streams(B, Bc, spec)
     nq, nkvd = n_heads * head_dim, n_kv * head_dim
     F = w2.shape[2]
+    offs = None
+    if isinstance(offset, torch.Tensor):
+        _require(offset.dtype == torch.int32 and offset.shape == (Bc,)
+                 and offset.device == dev and offset.is_contiguous(),
+                 f"an offset tensor must be contiguous int32 ({Bc},) on "
+                 f"{dev}, got {offset.dtype} {tuple(offset.shape)} on "
+                 f"{offset.device}")
+        offs, offset = offset, 0
     _require(isinstance(offset, int) and 0 <= offset <= S,
-             f"offset must be an int in [0, {S}], got {offset!r}")
-    _require(Bc == B and Hkv == n_kv and hd == head_dim,
-             f"cache {tuple(k_cache.shape)} does not match B={B}, "
-             f"n_kv={n_kv}, head_dim={head_dim}")
+             f"offset must be an int in [0, {S}] or a tensor, got "
+             f"{offset!r}")
+    _require(Hkv == n_kv and hd == head_dim,
+             f"cache {tuple(k_cache.shape)} does not match n_kv={n_kv}, "
+             f"head_dim={head_dim}")
     _require(head_dim % 2 == 0 and head_dim <= 256 and n_heads % n_kv == 0,
              "head_dim must be even and <= 256, n_kv must divide n_heads")
+    rope_shape = (head_dim,) if cos_p.dim() == 1 else (B, head_dim)
     expect = {
         "x": (x, torch.float32, (B, D)),
         "attn_norms": (attn_norms, torch.float32, (L, D)),
@@ -259,10 +332,10 @@ def decode_stack_step(
         "so": (so, torch.float32, (L, D)),
         "s13": (s13, torch.float32, (L, 2 * F)),
         "s2": (s2, torch.float32, (L, D)),
-        "cos_p": (cos_p, torch.float32, (head_dim,)),
-        "sin_p": (sin_p, torch.float32, (head_dim,)),
-        "k_cache": (k_cache, torch.bfloat16, (L, B, n_kv, S, head_dim)),
-        "v_cache": (v_cache, torch.bfloat16, (L, B, n_kv, S, head_dim)),
+        "cos_p": (cos_p, torch.float32, rope_shape),
+        "sin_p": (sin_p, torch.float32, rope_shape),
+        "k_cache": (k_cache, torch.bfloat16, (L, Bc, n_kv, S, head_dim)),
+        "v_cache": (v_cache, torch.bfloat16, (L, Bc, n_kv, S, head_dim)),
         "wqkv": (wqkv, torch.int8, (L, nq + 2 * nkvd, D)),
         "wo": (wo, torch.int8, (L, D, nq)),
         "w13": (w13, torch.int8, (L, 2 * F, D)),
@@ -297,7 +370,7 @@ def decode_stack_step(
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    fn = kernel_fn("vx_decode_stack_step", [_P] * 28 + [_I] * 11
+    fn = kernel_fn("vx_decode_stack_step", [_P] * 29 + [_I] * 13
                    + [_F, _F, _P])
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = fn(
@@ -307,7 +380,8 @@ def decode_stack_step(
         ptr(final_norm), ptr(lm_codes), ptr(lm_scale),
         ptr(k_new), ptr(v_new), ptr(logits),
         ptr(xq_buf), ptr(sx_buf), ptr(qkv_buf), ptr(attn_buf), ptr(up_buf),
-        B, D, L, S, n_heads, n_kv, head_dim, F, V, offset,
+        ptr(offs), B, D, L, S, n_heads, n_kv, head_dim, F, V, offset, spec,
+        0 if cos_p.dim() == 1 else head_dim,
         -1 if window is None else int(window), eps, head_dim ** -0.5,
         stream)
     check(code, "decode_stack_step")

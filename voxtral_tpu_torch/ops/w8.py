@@ -35,11 +35,13 @@ def quantize_activations(x: torch.Tensor):
 
     ``round(x / sx)`` with a true division and round-half-to-even
     (``torch.round``); ``sx = max(absmax, 1e-8) / 127``.  Multiplying by
-    a reciprocal instead would move the ties.
+    a reciprocal instead would move the ties.  PyTorch's CUDA division by
+    a Python scalar multiplies by the scalar's reciprocal, so the 127
+    comes as a tensor, which every device divides by exactly.
     """
     xf = x.float()
     absmax = xf.abs().amax(dim=-1, keepdim=True)
-    sx = torch.clamp(absmax, min=1e-8) / 127.0
+    sx = torch.clamp(absmax, min=1e-8) / torch.full_like(absmax, 127.0)
     xq = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
     return xq, sx
 

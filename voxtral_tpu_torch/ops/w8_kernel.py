@@ -10,12 +10,15 @@ first-token lm_head; here it runs every w8 linear of the model (encoder,
 adapter, prefill, ADA vectors, lm_head), since CUDA PyTorch has no
 int8 x int8 -> int32 matmul.  Source: ``csrc/w8_matmul.cu``.
 
-What bounds it on the H100: at decode shapes (M <= 8) the bytes of int8
+What bounds it on the H100: at decode shapes (M <= 64) the bytes of int8
 weights streamed from HBM (the 131072 x 3072 lm_head is 403 MB per
-call); the kernel is a warp-per-output-row GEMV with 16-byte loads and
-``__dp4a``.  At encoder shapes (M in the hundreds) the integer dot rate:
-the kernel is a 64 x 64 shared-memory tiled ``__dp4a`` GEMM.  Tensor
-cores (``mma.sync`` s8 / ``wgmma``) are later work.
+call); the kernel is a GEMV that reads each weight byte once with
+16-byte loads — a warp per output row with ``__dp4a`` up to 8 rows, a
+warp per 8 output rows with int8 tensor-core ``mma.sync`` above (the
+38-row prefill, speculative rows).  At encoder shapes (M in the
+hundreds) the integer dot rate: the kernel is a 64 x 64 shared-memory
+tiled ``__dp4a`` GEMM; tensor cores there (``mma.sync`` / ``wgmma``)
+are later work.
 """
 
 from __future__ import annotations

@@ -58,6 +58,11 @@ class PipelineConfig:
     # JAX pipeline's constants were measured on a TPU; none has been
     # measured on the card yet.
     merge_cost: Optional[MergeCost] = None
+    # Speculative K-token decode (greedy, K >= 2): each decode pass
+    # verifies K drafted tokens per chunk row in one weight pass, with
+    # the same tokens as sequential decode; draft "ngram" or "pad".
+    speculative: int = 0
+    draft: str = "ngram"
 
 
 class TranscribePipeline:
@@ -135,7 +140,8 @@ class TranscribePipeline:
                 [self.mel.compute_log_batch(padded[i].samples) for i in idxs],
                 axis=0)
             batch_tokens = self.model.transcribe_streaming_batch(
-                mels, delay_tokens=self.pcfg.delay_tokens)
+                mels, delay_tokens=self.pcfg.delay_tokens,
+                speculative=self.pcfg.speculative, draft=self.pcfg.draft)
             for i, toks in zip(idxs, batch_tokens):
                 chunk_tokens[i] = toks[:tok_counts[i]]
         return chunk_tokens
