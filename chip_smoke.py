@@ -8,30 +8,50 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 1. device  — needs ``torch.cuda.is_available()``; prints the card's name
              and power limit as nvidia-smi reports them.
 2. build   — nvcc builds voxtral_tpu_torch/csrc/*.cu for sm_90a.
-3. kernels — each hand-written kernel against its plain PyTorch version
-             on the card, at the main path's shapes, with its time beside
-             the plain version's:
-             K2 w8_matmul (W8A8 GEMM), K1 decode_stack_step (one full
-             26-layer decode step + lm_head) in mode (a) at one row,
-             mode (b) spec=8 at 1 and 8 streams (8 and 64 rows, distinct
-             per-stream offsets) and mode (c) (an offset per row, spec=1,
-             4 rows).
-4. main    — Voxtral Mini 4B at full width with random w8 weights (seed
-             0): TranscribePipeline.transcribe_samples on a 16 s chirp,
-             through the kernels, sequential and then speculative
-             (PipelineConfig(speculative=8), draft "ngram" and "pad"),
-             each run with the launch counters reset just before and read
-             just after; then the same pipelines through the plain
-             versions.  Tokens must be identical (near-tie rule), and
-             every speculative pass is one K1 launch.  Then three mels
-             (x, 0.9 x, 1.1 x) through transcribe_streaming_batch with
-             speculative=4 against the sequential batch.
-5. numbers — RTF, decode ms/token, the weight-stream bandwidth of the
-             decode step, passes and tokens per pass, peak GPU memory,
-             each beside the card name and power limit.
+3. w8      — Voxtral Mini 4B at full width with random w8 weights (seed
+             0).  Kernels against their plain PyTorch versions on the
+             card, at the main path's shapes, each time beside the plain
+             version's and the card's bound: K2 w8_matmul (W8A8 GEMM;
+             ``torch._int_mm`` timed beside it where it takes the shape),
+             K1 decode_stack_step (26 layers + lm fold) in mode (a) at one
+             row, mode (b) spec=8 at 1 and 8 streams (8 and 64 rows,
+             distinct per-stream offsets) and mode (c) (an offset per
+             row, 4 rows).  Main path: TranscribePipeline.
+             transcribe_samples on a 16 s chirp, sequential and
+             speculative (PipelineConfig(speculative=8), draft "ngram"
+             and "pad"), each run with the launch counters set to 0 just
+             before and read just after, tokens held against the same
+             pipelines through the plain versions (near-tie rule), every
+             speculative pass one K1 launch; then three mels (x, 0.9 x,
+             1.1 x) with speculative=4 against the sequential batch.
+4. K3      — q4_matmul (packed Q4_0 dequant + matmul) against its plain
+             version at every shape of the q4 path (decoder linears and
+             the lm_head) at M = 1 and M = 8.
+5. q4g     — full-width random Q4_0 weights, unpacked (codes + f16 group
+             scales): K1 mode (h) against its plain version at 1 row,
+             spec=8 at 8 and 64 rows and mode (c) at 4 rows; the main
+             path sequential and with speculative=8 + ngram drafts
+             (tokens == plain path; spec == sequential; K1 launches ==
+             steps, then passes).
+6. q4      — the same weights nibble-packed: the per-op decode step, K3
+             on every decoder linear and the lm_head (K3 launches ==
+             183 per step x steps + 1); tokens == the plain path.
+7. gguf    — a small-config GGUF and tekken.json written with the port's
+             write_gguf; ``python -m voxtral_tpu_torch.cli --gguf ...
+             --weight-format {q4,q4g,w8}`` on the card, each exiting 0
+             with the library path's text.
+8. numbers — RTF, decode ms/token, the weight stream per decode step
+             against its bound, passes, peak GPU memory, each beside the
+             card name and power limit.
+
+The full-width q4 / q4g trees tile ONE quantized random layer per stack
+(as random_w8_params tiles its codes): quantizing 4 billion normal
+draws on the host takes minutes.  The 131072 x 3072 token table is drawn
+as random Q4_0 codes and scales directly, for the same reason.
 
 The script imports the port (``voxtral_tpu_torch``) only, and fails if
-``jax`` was loaded by the end of the run.
+``jax`` or any module of the JAX package ``voxtral_tpu`` was loaded by
+the end of the run.
 
 The second-to-last line of stdout is the kernels' JSON record, the last
 line ``{"ok": true, "device": {...}}``.
@@ -42,17 +62,29 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
 AUDIO_SECS = 16.0
 SR = 16000
 
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense int8 ops/s and
+# bf16 FLOP/s.  A bound is the larger of bytes / HBM rate and operations
+# / the rate of their type.
+HBM_BPS = 3.35e12
+INT8_OPS = 1979e12
+BF16_FLOPS = 989e12
+
 # K2: the int32 sum is exact and both versions apply (z * sx) * scale in
 # f32, so they must agree to the last bit; the bound is the one the port
 # promises, 1e-6 relative.
 K2_RTOL = 1e-6
+# K3: kernel and plain version multiply the same bf16 operands exactly
+# and sum in f64, rounded once: bit for bit; the bound 1e-6 relative.
+K3_RTOL = 1e-6
 # K1: kernel and plain version accumulate every float reduction in f64
 # and round once to f32, and the kernels are built without FMA
 # contraction, so they agree bit for bit unless a libm routine (expf,
@@ -113,14 +145,51 @@ def in_turns(kernel_fn, plain_fn, iters: int, plain_iters: int):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def bound(nbytes: float, ops: float, peak_ops: float):
+    """(bound ms, "bytes" or "operations") on the H100's peaks."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
 def chirp() -> np.ndarray:
     """The 16 s speech-band chirp of bench.py."""
     t = np.arange(int(AUDIO_SECS * SR)) / SR
     return (0.5 * np.sin(2 * np.pi * (200 + 150 * t) * t)).astype(np.float32)
 
 
+def compare(tag, got, ref, tols):
+    """Fail unless each output is within its tolerance (share of the
+    largest value) of the plain version's; -> worst abs error."""
+    import torch
+
+    worst = 0.0
+    for name, g, r, tol in zip(("x_out", "k_new", "v_new", "logits"), got,
+                               ref, tols):
+        g, r = g.float(), r.float()
+        err = (g - r).abs().max().item()
+        rel = err / r.abs().max().item()
+        print(f"{tag} {name}: max_abs_err {err:.3e} ({rel:.3e} of max, "
+              f"bit-equal {torch.equal(g, r)})", flush=True)
+        if not rel <= tol:
+            fail(f"{tag} {name}: error {rel:.3e} of max > {tol}")
+        worst = max(worst, err)
+    if got[3].argmax(-1).tolist() != ref[3].argmax(-1).tolist():
+        fail(f"{tag}: argmax differs from the plain version")
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# Kernel checks
+# ---------------------------------------------------------------------------
+
+
 def check_k2(dev, card):
-    """K2 at the main path's shapes -> (max abs err, ms, plain ms)."""
+    """K2 at the main path's shapes -> (max abs err, {shape: (ms, plain
+    ms, library ms or None)})."""
     import torch
 
     from voxtral_tpu_torch.ops import w8_kernel as k2
@@ -151,124 +220,176 @@ def check_k2(dev, card):
         ms, plain_ms = in_turns(lambda: k2.w8_matmul(xq, sx, codes, scale),
                                 lambda: k2.w8_matmul_plain(xq, sx, codes,
                                                            scale), 20, 3)
-        times[(m, k, n)] = (ms, plain_ms)
+        # The library call computing the same function: cuBLAS's int8 GEMM
+        # (torch._int_mm, exact int32) + the same f32 epilogue.  It
+        # refuses M <= 16 (and K or N not % 8).
+        try:
+            lib_ms = cuda_ms(lambda: torch._int_mm(xq, codes.T).float()
+                             * sx * scale, 20)
+            lib = f"{lib_ms:.4f} ms"
+        except (RuntimeError, NotImplementedError) as exc:
+            lib_ms = None
+            lib = f"refused ({str(exc).splitlines()[0][:80]})"
+        out = m * n * 4
+        b_ms, b_by = bound(nbytes(xq, sx, codes, scale) + out, 2 * m * n * k,
+                           INT8_OPS)
+        times[(m, k, n)] = (ms, plain_ms, lib_ms, b_ms, b_by)
         gbs = (m * k + n * k) / ms / 1e6
         print(f"K2 w8_matmul M={m} K={k} N={n}: max_abs_err {err:.3e} "
               f"(bit-equal {torch.equal(got, ref)}), kernel {ms:.4f} ms "
-              f"({gbs:.1f} GB/s of int8 operands), plain {plain_ms:.4f} ms "
-              f"[{card}]", flush=True)
+              f"({gbs:.1f} GB/s of int8 operands), plain {plain_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}), torch._int_mm {lib} [{card}]",
+              flush=True)
     return worst, times
 
 
-def check_k1(model, dev, card):
-    """One full decode step (26 layers + lm_head) on the model's fused
-    weights, cache S=240 at offset 235, against the plain version."""
+# q4 path shapes (N, K): wq, wk / wv, wo, w1 / w3, w2, lm_head.
+K3_SHAPES = [(4096, 3072), (1024, 3072), (3072, 4096), (9216, 3072),
+             (3072, 9216), (131072, 3072)]
+
+
+def check_k3(dev, card):
+    """K3 at every shape of the q4 path, M = 1 and 8 -> (max abs err,
+    {(M, N, K): (ms, plain ms, bound ms, bound by)})."""
     import torch
 
-    from voxtral_tpu_torch.ops import decode_step as k1
+    from voxtral_tpu_torch.ops import q4_kernel as k3
 
-    cfg = model.config.language_model
-    fused = model.fused_decode
+    gen = torch.Generator(device=dev).manual_seed(3)
+    worst, times = 0.0, {}
+    for n, k in K3_SHAPES:
+        # Any int32 is a valid word of eight nibbles.
+        packed = torch.randint(-2 ** 31, 2 ** 31, (k // 8, n),
+                               dtype=torch.int32, device=dev, generator=gen)
+        sign = torch.randint(0, 2, (k // 32, n), device=dev,
+                             generator=gen) * 2 - 1
+        scales = ((torch.rand((k // 32, n), device=dev, generator=gen)
+                   * 4e-3 + 1e-3) * sign).to(torch.bfloat16)
+        for m in (1, 8):
+            x = torch.randn((m, k), device=dev, generator=gen)
+            got = k3.q4_matmul_packed(x, packed, scales)
+            torch.cuda.synchronize()
+            ref = k3.q4_matmul_plain(x, packed, scales)
+            err = (got - ref).abs().max().item()
+            rel = err / ref.abs().max().item()
+            if not rel <= K3_RTOL:
+                fail(f"K3 q4_matmul M={m} N={n} K={k}: error {rel:.3e} of "
+                     f"max > {K3_RTOL}")
+            worst = max(worst, err)
+            ms, plain_ms = in_turns(
+                lambda: k3.q4_matmul_packed(x, packed, scales),
+                lambda: k3.q4_matmul_plain(x, packed, scales), 20, 2)
+            b_ms, b_by = bound(nbytes(x, packed, scales) + m * n * 4,
+                               2 * m * n * k, BF16_FLOPS)
+            times[(m, n, k)] = (ms, plain_ms, b_ms, b_by)
+            print(f"K3 q4_matmul M={m} N={n} K={k}: max_abs_err {err:.3e} "
+                  f"(bit-equal {torch.equal(got, ref)}), kernel {ms:.4f} ms "
+                  f"({nbytes(packed, scales) / ms / 1e6:.1f} GB/s of "
+                  f"weights), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}; {100 * b_ms / ms:.1f} % of it) [{card}]",
+                  flush=True)
+    return worst, times
+
+
+def lm_fold(model):
+    """(final norm, lm codes, lm scale) of the model's K1 lm fold."""
     dec = model.params["decoder"]
-    L, D, hd = cfg.n_layers, cfg.dim, cfg.head_dim
-    S, off = 240, 235
-    gen = torch.Generator(device=dev).manual_seed(1)
-    shape = (L, 1, cfg.n_kv_heads, S, hd)
-    kc = (torch.randn(shape, device=dev, generator=gen) * 0.5).bfloat16()
-    vc = (torch.randn(shape, device=dev, generator=gen) * 0.5).bfloat16()
-    x = torch.randn((1, D), device=dev, generator=gen)
-    ada = k1.ada_vectors(dec, model.t_embed(6.0))
-    c, s = k1.rope_pair_vectors(off, hd, cfg.rope_theta, device=dev)
+    if model.decode_route == "q4g":
+        f = model.fused_decode
+        return dec["norm"].float(), f["lm_codes"], f["lm_scale"]
     emb = dec["tok_embeddings"]["w8"]
-    args = (x, off, fused["attn_norm"], fused["ffn_norm"], ada,
-            fused["sqkv"], fused["so"], fused["s13"], fused["s2"], c, s,
-            kc, vc, fused["wqkv"], fused["wo"], fused["w13"], fused["w2"],
-            dec["norm"].float(), emb["codes"], emb["scale"])
-    kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=hd,
-              eps=cfg.norm_eps, window=cfg.sliding_window)
-    got = k1.decode_stack_step(*args, **kw)
-    torch.cuda.synchronize()
-    ref = k1.decode_stack_step_plain(*args, **kw)
-    worst = 0.0
-    for name, g, r, tol in zip(("x_out", "k_new", "v_new", "logits"), got,
-                               ref, (K1_RTOL, KV_RTOL, KV_RTOL, K1_RTOL)):
-        g, r = g.float(), r.float()
-        err = (g - r).abs().max().item()
-        rel = err / r.abs().max().item()
-        print(f"K1 decode_stack_step {name}: max_abs_err {err:.3e} "
-              f"({rel:.3e} of max, bit-equal {torch.equal(g, r)})",
-              flush=True)
-        if not rel <= tol:
-            fail(f"K1 decode_stack_step {name}: error {rel:.3e} of max > "
-                 f"{tol}")
-        worst = max(worst, err)
-    if got[3].argmax(-1).tolist() != ref[3].argmax(-1).tolist():
-        fail("K1 decode_stack_step: argmax differs from the plain version")
-    ms, plain_ms = in_turns(lambda: k1.decode_stack_step(*args, **kw),
-                            lambda: k1.decode_stack_step_plain(*args, **kw),
-                            20, 2)
-    nbytes = step_weight_bytes(fused, emb)
-    print(f"K1 decode_stack_step L={L} S={S} offset={off}: kernel {ms:.3f} "
-          f"ms, plain {plain_ms:.3f} ms; weights {nbytes / 1e9:.4f} GB/step "
-          f"-> {nbytes / ms / 1e6:.1f} GB/s [{card}]", flush=True)
-    return worst, ms, plain_ms, nbytes
+    return dec["norm"].float(), emb["codes"], emb["scale"]
 
 
-def check_k1_rows(model, dev, card, offs, spec, iters, plain_iters):
-    """One K1 step over len(offs) streams x ``spec`` rows with distinct
-    per-stream offsets (an int32 device vector) and per-row RoPE, cache
-    S = 240 + spec - 1, against the plain version -> (max abs err, ms,
-    plain ms)."""
+def step_weight_bytes(model) -> int:
+    """Bytes of weights one K1 step streams, from the shapes: codes and
+    scales of the four stacks and of the lm table, plus the norms."""
+    fused = model.fused_decode
+    keys = ("wqkv", "sqkv", "wo", "so", "w13", "s13", "w2", "s2",
+            "attn_norm", "ffn_norm")
+    return nbytes(*(fused[k] for k in keys), *lm_fold(model)[1:])
+
+
+def check_k1(model, dev, card, offs, spec, iters, plain_iters):
+    """One K1 step (26 layers + lm fold) on the model's fused weights
+    over len(offs) streams x ``spec`` rows against the plain version.
+    ``offs`` an int: mode (a), one stream at that scalar offset, cache
+    S = 240; a list: an int32 device offset per stream and RoPE per row,
+    cache S = 240 + spec - 1.  -> (max abs err, ms, plain ms, bound ms,
+    bound by)."""
     import torch
 
     from voxtral_tpu_torch.ops import decode_step as k1
 
     cfg = model.config.language_model
     fused = model.fused_decode
-    dec = model.params["decoder"]
     L, D, hd = cfg.n_layers, cfg.dim, cfg.head_dim
-    S, bc = 240 + spec - 1, len(offs)
-    gen = torch.Generator(device=dev).manual_seed(2 + bc * spec)
+    scalar = isinstance(offs, int)
+    offl = [offs] if scalar else offs
+    S, bc = 240 + spec - 1, len(offl)
+    gen = torch.Generator(device=dev).manual_seed(1 if scalar
+                                                  else 2 + bc * spec)
     shape = (L, bc, cfg.n_kv_heads, S, hd)
     kc = (torch.randn(shape, device=dev, generator=gen) * 0.5).bfloat16()
     vc = (torch.randn(shape, device=dev, generator=gen) * 0.5).bfloat16()
     x = torch.randn((bc * spec, D), device=dev, generator=gen)
-    off = torch.tensor(offs, dtype=torch.int32, device=dev)
-    pos = (off[:, None] + torch.arange(spec, device=dev)).reshape(-1)
-    c, s = k1.rope_pair_vectors(pos, hd, cfg.rope_theta, device=dev)
-    ada = k1.ada_vectors(dec, model.t_embed(6.0))
-    emb = dec["tok_embeddings"]["w8"]
+    off = torch.tensor(offl, dtype=torch.int32, device=dev)
+    if scalar:
+        c, s = k1.rope_pair_vectors(offs, hd, cfg.rope_theta, device=dev)
+        off = offs
+    else:
+        pos = (off[:, None] + torch.arange(spec, device=dev)).reshape(-1)
+        c, s = k1.rope_pair_vectors(pos, hd, cfg.rope_theta, device=dev)
+    ada = k1.ada_vectors(model.params["decoder"], model.t_embed(6.0))
     args = (x, off, fused["attn_norm"], fused["ffn_norm"], ada,
             fused["sqkv"], fused["so"], fused["s13"], fused["s2"], c, s,
             kc, vc, fused["wqkv"], fused["wo"], fused["w13"], fused["w2"],
-            dec["norm"].float(), emb["codes"], emb["scale"])
+            *lm_fold(model))
     kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=hd,
               eps=cfg.norm_eps, window=cfg.sliding_window, spec=spec)
-    tag = f"K1 decode_stack_step spec={spec} streams={bc} rows={bc * spec}"
+    tag = (f"K1 decode_stack_step [{model.decode_route}] spec={spec} "
+           f"streams={bc} rows={bc * spec}")
     got = k1.decode_stack_step(*args, **kw)
     torch.cuda.synchronize()
     ref = k1.decode_stack_step_plain(*args, **kw)
-    worst = 0.0
-    for name, g, r, tol in zip(("x_out", "k_new", "v_new", "logits"), got,
-                               ref, (K1_RTOL, KV_RTOL, KV_RTOL, K1_RTOL)):
-        g, r = g.float(), r.float()
-        err = (g - r).abs().max().item()
-        rel = err / r.abs().max().item()
-        print(f"{tag} {name}: max_abs_err {err:.3e} ({rel:.3e} of max, "
-              f"bit-equal {torch.equal(g, r)})", flush=True)
-        if not rel <= tol:
-            fail(f"{tag} {name}: error {rel:.3e} of max > {tol}")
-        worst = max(worst, err)
-    if got[3].argmax(-1).tolist() != ref[3].argmax(-1).tolist():
-        fail(f"{tag}: argmax differs from the plain version")
+    worst = compare(tag, got, ref, (K1_RTOL, KV_RTOL, KV_RTOL, K1_RTOL))
     ms, plain_ms = in_turns(lambda: k1.decode_stack_step(*args, **kw),
                             lambda: k1.decode_stack_step_plain(*args, **kw),
                             iters, plain_iters)
-    nbytes = step_weight_bytes(fused, emb)
-    print(f"{tag} S={S} offsets {offs[0]}..{offs[-1]}: kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms; weights {nbytes / 1e9:.4f} GB/pass -> "
-          f"{nbytes / ms / 1e6:.1f} GB/s [{card}]", flush=True)
-    return worst, ms, plain_ms
+    wbytes = step_weight_bytes(model)
+    # What the step must move: its weights once, the cache slots below
+    # each stream's offset, x in and out, k/v new, logits out.
+    n_vocab = lm_fold(model)[1].shape[0]
+    kv_read = sum(2 * L * cfg.n_kv_heads * o * hd * 2 for o in offl)
+    moved = (wbytes + kv_read + 2 * nbytes(x) + 2 * nbytes(got[1])
+             + bc * spec * n_vocab * 4)
+    n_weights = sum(fused[k].numel() for k in ("wqkv", "wo", "w13", "w2"))
+    b_ms, b_by = bound(moved, 2 * bc * spec * (n_weights + n_vocab * D),
+                       INT8_OPS)
+    print(f"{tag} S={S} offsets {offl[0]}..{offl[-1]}: kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms; weights {wbytes / 1e9:.4f} GB/pass -> "
+          f"{wbytes / ms / 1e6:.1f} GB/s; bound {b_ms:.4f} ms ({b_by}; "
+          f"{100 * b_ms / ms:.1f} % of it) [{card}]", flush=True)
+    return worst, ms, plain_ms, b_ms, b_by
+
+
+def check_k1_modes(model, dev, card):
+    """K1 at 1 row (mode a), spec=8 at 8 and 64 rows (b), 4 rows (c)."""
+    one = check_k1(model, dev, card, 235, 1, 20, 2)
+    spec8 = check_k1(model, dev, card, [235], SPEC_K, 20, 2)
+    spread = [150 + round(i * 85 / 7) for i in range(8)]  # 150 .. 235
+    spec64 = check_k1(model, dev, card, spread, SPEC_K, 10, 1)
+    rows4 = check_k1(model, dev, card, [60, 120, 180, 235], 1, 20, 2)
+    print(f"K1 step ms [{model.decode_route}] [{card}]: 1 row {one[1]:.3f}, "
+          f"spec={SPEC_K} 8 rows {spec8[1]:.3f}, 64 rows {spec64[1]:.3f}; 4 "
+          f"rows with per-row offsets {rows4[1]:.3f}", flush=True)
+    return {"one": one, "spec8": spec8, "spec64": spec64, "rows4": rows4,
+            "err": max(one[0], spec8[0], spec64[0], rows4[0])}
+
+
+# ---------------------------------------------------------------------------
+# Main-path runs
+# ---------------------------------------------------------------------------
 
 
 def first_divergence(name, got, ref, margins, tie):
@@ -287,50 +408,67 @@ def first_divergence(name, got, ref, margins, tie):
     return False
 
 
-def step_weight_bytes(fused, emb) -> int:
-    """Bytes of weights one decode step streams, from the shapes: int8
-    codes + f32 row scales of the four stacks and the lm table, plus the
-    norm vectors."""
-    keys = ("wqkv", "sqkv", "wo", "so", "w13", "s13", "w2", "s2",
-            "attn_norm", "ffn_norm")
-    total = sum(fused[k].numel() * fused[k].element_size() for k in keys)
-    return total + sum(t.numel() * t.element_size()
-                       for t in (emb["codes"], emb["scale"]))
-
-
-def main() -> int:
+def counted_run(pipe, sig, dev):
+    """transcribe_samples once after a warm-up, with every kernel's
+    launch counter set to 0 just before and read just after ->
+    (wall s, {kernel: launches}, peak GB)."""
     import torch
 
-    # -- 1. device -----------------------------------------------------------
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is False: this smoke run needs an "
-             "NVIDIA GPU (there is no CPU fallback)")
-    from voxtral_tpu_torch import VoxtralConfig, VoxtralTokenizer
+    from voxtral_tpu_torch.ops import decode_step as k1
+    from voxtral_tpu_torch.ops import q4_kernel as k3
+    from voxtral_tpu_torch.ops import w8_kernel as k2
+
+    counters = {"w8_matmul": k2.w8_matmul,
+                "decode_stack_step": k1.decode_stack_step,
+                "q4_matmul": k3.q4_matmul_packed}
+    pipe.transcribe_samples(sig, SR)  # warm-up (cuBLAS / cuDNN handles)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    pipe.transcribe_samples(sig, SR)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    return wall, launches, torch.cuda.max_memory_allocated(dev) / 1e9
+
+
+def plain_tokens(plain, tok, sig, pcfg=None):
+    """The plain path's tokens and top-2 margins for the chirp."""
+    from voxtral_tpu_torch.pipeline import TranscribePipeline
+
+    plain.record_margins = True
+    toks = TranscribePipeline(plain, tok, pcfg)._chunk_tokens(sig, SR)[0]
+    margins = plain.last_margins[0].copy()
+    if not np.isfinite(margins).all():
+        fail("non-finite logits on the plain path")
+    return toks, margins
+
+
+def encode_seconds(pipe, model, padded) -> float:
+    """Host mel + encoder + adapter, end to end."""
+    import torch
+
+    t0 = time.perf_counter()
+    mel = pipe.mel.compute_log_batch(padded)
+    with torch.no_grad():
+        model.encode_audio(mel)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def run_w8(cfg, dev, card, sig, tok):
+    """Phase 3: the w8 model, its kernel checks and main path."""
+    import torch
+
     from voxtral_tpu_torch.convert import params_from_numpy
     from voxtral_tpu_torch.models.voxtral import PREFIX_LEN, VoxtralModel
-    from voxtral_tpu_torch.ops import _build
-    from voxtral_tpu_torch.ops import decode_step as k1
-    from voxtral_tpu_torch.ops import w8_kernel as k2
     from voxtral_tpu_torch.pipeline import PipelineConfig, TranscribePipeline
     from voxtral_tpu_torch.utils.quantize import random_w8_params
 
-    dev = torch.device("cuda:0")
-    card = card_line()
-    print(card, flush=True)  # name, power limit: nvidia-smi's own line
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}", flush=True)
-
-    # -- 2. build ------------------------------------------------------------
-    lib, build_s = _build.build()
-    _build.library()
-    print(f"build: {build_s:.2f} s ({lib.name})", flush=True)
-
-    # Full-width random w8 model, built once on the host, moved once.
-    cfg = VoxtralConfig.voxtral()
     t0 = time.perf_counter()
-    tree = random_w8_params(cfg, seed=0)
-    params = params_from_numpy(tree, dev)
-    del tree
+    params = params_from_numpy(random_w8_params(cfg, seed=0), dev)
     model = VoxtralModel(params, cfg, dev)
     plain = VoxtralModel(params, cfg, dev, kernels=False)
     plain.fused_decode = model.fused_decode  # the same stacks, not a copy
@@ -338,38 +476,11 @@ def main() -> int:
     print(f"random w8 weights (seed 0) built and moved: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    # -- 3. kernels vs plain -------------------------------------------------
     k2_err, k2_times = check_k2(dev, card)
-    k1_err, k1_ms, k1_plain_ms, step_bytes = check_k1(model, dev, card)
-    spec8 = check_k1_rows(model, dev, card, [235], SPEC_K, 20, 2)
-    spread = [150 + round(i * 85 / 7) for i in range(8)]  # 150 .. 235
-    spec64 = check_k1_rows(model, dev, card, spread, SPEC_K, 10, 1)
-    rows4 = check_k1_rows(model, dev, card, [60, 120, 180, 235], 1, 20, 2)
-    k1_err = max(k1_err, spec8[0], spec64[0], rows4[0])
-    print(f"K1 step ms [{card}]: 1 row {k1_ms:.3f}, spec={SPEC_K} 8 rows "
-          f"{spec8[1]:.3f}, 64 rows {spec64[1]:.3f}; 4 rows with per-row "
-          f"offsets {rows4[1]:.3f}", flush=True)
+    k1w = check_k1_modes(model, dev, card)
 
-    # -- 4. main path --------------------------------------------------------
-    sig = chirp()
-    tok = VoxtralTokenizer([None] * 131072, {}, 131072)
     pipe = TranscribePipeline(model, tok)
-    plain_pipe = TranscribePipeline(plain, tok)
-    pipe.transcribe_samples(sig, SR)  # warm-up (cuBLAS / cuDNN handles)
-    torch.cuda.synchronize()
-
-    torch.cuda.reset_peak_memory_stats(dev)
-    k2.w8_matmul.launches = 0
-    k1.decode_stack_step.launches = 0
-    t0 = time.perf_counter()
-    pipe.transcribe_samples(sig, SR)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    k2_launches = k2.w8_matmul.launches
-    k1_launches = k1.decode_stack_step.launches
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-
-    # Token-level checks (same pipeline and input, outside the counted run).
+    wall, launches, peak_gb = counted_run(pipe, sig, dev)
     chunks = pipe._chunk_tokens(sig, SR)
     if len(chunks) != 1:
         fail(f"16 s should be one chunk, got {len(chunks)}")
@@ -383,73 +494,53 @@ def main() -> int:
           f"{len(tokens)} tokens, {n_steps} decode steps", flush=True)
     if len(tokens) != n_tok:
         fail(f"token count {len(tokens)} != decoder_seq_len - 38 = {n_tok}")
-    if k1_launches != n_steps:
-        fail(f"K1 launches {k1_launches} != decode steps {n_steps}")
+    if launches["decode_stack_step"] != n_steps:
+        fail(f"K1 launches {launches['decode_stack_step']} != decode steps "
+             f"{n_steps}")
     e, lm = cfg.audio_encoder, cfg.language_model
     min_k2 = e.n_layers * 7 + 2 + lm.n_layers * 9
-    if k2_launches < min_k2:
-        fail(f"K2 launches {k2_launches} < encoder + adapter + prefill "
-             f"linears {min_k2}")
-    print(f"launch counts in the main-path run: K2 w8_matmul {k2_launches} "
-          f"(encoder + adapter + prefill linears: {min_k2}), "
-          f"K1 decode_stack_step {k1_launches}", flush=True)
-
-    plain.record_margins = True
-    plain_tokens = plain_pipe._chunk_tokens(sig, SR)[0]
-    seq_margins = plain.last_margins[0].copy()
-    if not np.isfinite(seq_margins).all():
-        fail("non-finite logits on the plain path")
-    same = first_divergence("sequential kernel vs plain", tokens,
-                            plain_tokens, seq_margins, MARGIN_TIE)
+    if launches["w8_matmul"] < min_k2:
+        fail(f"K2 launches {launches['w8_matmul']} < encoder + adapter + "
+             f"prefill linears {min_k2}")
+    print(f"launch counts in the w8 main-path run: K2 w8_matmul "
+          f"{launches['w8_matmul']} (encoder + adapter + prefill linears: "
+          f"{min_k2}), K1 decode_stack_step {launches['decode_stack_step']}",
+          flush=True)
+    p_tokens, seq_margins = plain_tokens(plain, tok, sig)
+    same = first_divergence("w8 sequential kernel vs plain", tokens,
+                            p_tokens, seq_margins, MARGIN_TIE)
     print(f"tokens kernel == plain: {same} ({len(set(tokens.tolist()))} "
           f"distinct; min plain top-2 margin {float(seq_margins.min()):.3e})",
           flush=True)
 
-    # -- 4b. main path, speculative -----------------------------------------
     spec_runs = {}
     for draft in ("ngram", "pad"):
         pcfg = PipelineConfig(speculative=SPEC_K, draft=draft)
         spipe = TranscribePipeline(model, tok, pcfg)
-        spipe.transcribe_samples(sig, SR)  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        k2.w8_matmul.launches = 0
-        k1.decode_stack_step.launches = 0
-        t0 = time.perf_counter()
-        spipe.transcribe_samples(sig, SR)
-        torch.cuda.synchronize()
-        s_wall = time.perf_counter() - t0
-        s_k2 = k2.w8_matmul.launches
-        s_k1 = k1.decode_stack_step.launches
+        s_wall, s_launch, s_peak = counted_run(spipe, sig, dev)
         passes = model.last_spec_passes
-        s_peak = torch.cuda.max_memory_allocated(dev) / 1e9
-        tag = f"speculative K={SPEC_K} draft={draft}"
-        if s_k1 != passes or passes < 1:
-            fail(f"{tag}: K1 launches {s_k1} != passes {passes}")
-        if s_k2 < min_k2:
-            fail(f"{tag}: K2 launches {s_k2} < {min_k2}")
+        tag = f"w8 speculative K={SPEC_K} draft={draft}"
+        if s_launch["decode_stack_step"] != passes or passes < 1:
+            fail(f"{tag}: K1 launches {s_launch['decode_stack_step']} != "
+                 f"passes {passes}")
+        if s_launch["w8_matmul"] < min_k2:
+            fail(f"{tag}: K2 launches {s_launch['w8_matmul']} < {min_k2}")
         s_tokens = spipe._chunk_tokens(sig, SR)[0]
         if len(s_tokens) != n_tok:
             fail(f"{tag}: {len(s_tokens)} tokens != {n_tok}")
         same_seq = first_divergence(f"{tag} vs sequential kernel", s_tokens,
                                     tokens, seq_margins, SPEC_MARGIN_TIE)
-        plain.record_margins = True
-        p_tokens = TranscribePipeline(plain, tok, pcfg)._chunk_tokens(
-            sig, SR)[0]
-        if not np.isfinite(plain.last_margins).all():
-            fail(f"{tag}: non-finite logits on the plain path")
+        ps_tokens, ps_margins = plain_tokens(plain, tok, sig, pcfg)
         same_plain = first_divergence(f"{tag} kernel vs plain", s_tokens,
-                                      p_tokens, plain.last_margins[0],
-                                      MARGIN_TIE)
-        spec_runs[draft] = dict(wall=s_wall, k1=s_k1, k2=s_k2,
+                                      ps_tokens, ps_margins, MARGIN_TIE)
+        spec_runs[draft] = dict(wall=s_wall, launches=s_launch,
                                 passes=passes, peak=s_peak)
-        print(f"{tag}: launch counts K2 w8_matmul {s_k2}, K1 "
-              f"decode_stack_step {s_k1} = passes {passes} "
-              f"({n_steps / passes:.3f} decode tokens per pass); tokens == "
-              f"sequential kernel: {same_seq}, == spec plain: {same_plain}",
-              flush=True)
+        print(f"{tag}: launch counts K2 w8_matmul {s_launch['w8_matmul']}, "
+              f"K1 decode_stack_step {s_launch['decode_stack_step']} = "
+              f"passes {passes} ({n_steps / passes:.3f} decode tokens per "
+              f"pass); tokens == sequential kernel: {same_seq}, == spec "
+              f"plain: {same_plain}", flush=True)
 
-    # -- 4c. batched speculative --------------------------------------------
     mel = pipe.mel.compute_log_batch(padded)
     mel3 = np.concatenate([mel, mel * 0.9, mel * 1.1], axis=0)
     model.record_margins = True
@@ -464,66 +555,531 @@ def main() -> int:
           f"sequential batch per row {b_same}, {model.last_spec_passes} "
           f"passes for {n_steps} decode positions", flush=True)
 
-    # -- 5. numbers ----------------------------------------------------------
-    t0 = time.perf_counter()
-    pipe.mel.compute_log_batch(padded)
-    with torch.no_grad():
-        model.encode_audio(mel)
-    torch.cuda.synchronize()
-    enc_s = time.perf_counter() - t0
-    decode_ms_tok = (wall - enc_s) * 1e3 / n_tok
-    print(f"RTF {wall / AUDIO_SECS:.5f} ({wall * 1e3:.1f} ms for "
-          f"{AUDIO_SECS:.0f} s audio, transcribe_samples end to end) "
-          f"[{card}]", flush=True)
-    print(f"decode stage {decode_ms_tok:.3f} ms/token (end-to-end time minus "
-          f"mel + encoder + adapter {enc_s * 1e3:.1f} ms, over {n_tok} "
-          f"tokens, prefill included) [{card}]", flush=True)
-    print(f"decode step weight stream: {step_bytes / 1e9:.4f} GB/step / "
-          f"{k1_ms:.3f} ms = {step_bytes / k1_ms / 1e6:.1f} GB/s [{card}]",
+    enc_s = encode_seconds(pipe, model, padded)
+    step_bytes = step_weight_bytes(model)
+    report("w8", wall, enc_s, n_tok, peak_gb, card)
+    print(f"w8 decode step weight stream: {step_bytes / 1e9:.4f} GB/step / "
+          f"{k1w['one'][1]:.3f} ms = {step_bytes / k1w['one'][1] / 1e6:.1f} "
+          f"GB/s; bound {step_bytes / HBM_BPS * 1e3:.4f} ms [{card}]",
           flush=True)
-    print(f"peak GPU memory (max_memory_allocated) in the main-path run: "
-          f"{peak_gb:.3f} GB [{card}]", flush=True)
     for draft, run in spec_runs.items():
-        w = run["wall"]
-        print(f"speculative K={SPEC_K} draft={draft}: RTF "
-              f"{w / AUDIO_SECS:.5f} ({w * 1e3:.1f} ms), decode "
-              f"{(w - enc_s) * 1e3 / n_tok:.3f} ms/token, {run['passes']} "
-              f"passes, {n_steps / run['passes']:.3f} decode tokens per "
-              f"pass, peak GPU memory {run['peak']:.3f} GB [{card}]",
-              flush=True)
-        per_pass = (w - enc_s) * 1e3 / run["passes"]
-        print(f"speculative K={SPEC_K} draft={draft}: {per_pass:.3f} ms per "
-              f"pass end to end (prefill included) against a {spec8[1]:.3f}"
-              f" ms K1 spec step: {per_pass - spec8[1]:.3f} ms of host work,"
-              f" loop-exit sync and other device work per pass [{card}]",
-              flush=True)
+        report(f"w8 speculative K={SPEC_K} draft={draft}", run["wall"],
+               enc_s, n_tok, run["peak"], card, run["passes"], n_steps,
+               k1w["spec8"][1])
+    return dict(k2_err=k2_err, k2_times=k2_times, k1=k1w,
+                launches=launches, spec_runs=spec_runs, n_tok=n_tok,
+                n_steps=n_steps)
 
-    jax_mods = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
-    if jax_mods:
-        fail(f"the port imported jax: {sorted(jax_mods)[:5]}")
 
-    def launches_by_path(key):
-        return {"sequential": k1_launches if key == "k1" else k2_launches,
-                **{f"speculative_{d}": r[key] for d, r in spec_runs.items()}}
+def report(tag, wall, enc_s, n_tok, peak, card, passes=None, n_steps=None,
+           spec_step_ms=None):
+    print(f"{tag}: RTF {wall / AUDIO_SECS:.5f} ({wall * 1e3:.1f} ms for "
+          f"{AUDIO_SECS:.0f} s audio, transcribe_samples end to end), decode "
+          f"stage {(wall - enc_s) * 1e3 / n_tok:.3f} ms/token (minus mel + "
+          f"encoder + adapter {enc_s * 1e3:.1f} ms, over {n_tok} tokens, "
+          f"prefill included), peak GPU memory {peak:.3f} GB [{card}]",
+          flush=True)
+    if passes:
+        per_pass = (wall - enc_s) * 1e3 / passes
+        print(f"{tag}: {passes} passes, {n_steps / passes:.3f} decode tokens "
+              f"per pass, {per_pass:.3f} ms per pass end to end (prefill "
+              f"included) against a {spec_step_ms:.3f} ms K1 spec step "
+              f"[{card}]", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Full-width Q4_0 trees
+# ---------------------------------------------------------------------------
+
+
+def random_q4_tree(cfg, seed: int = 0) -> dict:
+    """random_q4_params(cfg, pack=False)'s tree at full width, built in
+    seconds: each stack tiles one quantized random layer; the token table
+    is random Q4_0 codes (-8..7) and f16 scales drawn directly."""
+    import ml_dtypes
+
+    from voxtral_tpu_torch.ops.q4 import quantize_to_q4_params
+
+    rng = np.random.default_rng(seed)
+    e, l, a = cfg.audio_encoder, cfg.language_model, cfg.adapter
+    tc = cfg.ada_rms_norm_t_cond_dim or 32
+    bf16 = np.dtype(ml_dtypes.bfloat16)
+
+    def q4(n, k, layers=0):
+        w = rng.standard_normal((n, k), dtype=np.float32) * 0.02
+        leaf = quantize_to_q4_params(w)["q4"]
+        if layers:
+            leaf = {key: np.ascontiguousarray(
+                np.broadcast_to(v, (layers, *v.shape)))
+                for key, v in leaf.items()}
+        return {"q4": leaf}
+
+    def dense(*shape):
+        return (rng.standard_normal(shape, dtype=np.float32) * 0.02).astype(
+            bf16)
+
+    def zeros(*shape):
+        return np.zeros(shape, bf16)
+
+    def ones(*shape):
+        return np.ones(shape, bf16)
+
+    qd_e, E = e.n_heads * e.head_dim, e.n_layers
+    qd, kvd, L = l.n_heads * l.head_dim, l.n_kv_heads * l.head_dim, l.n_layers
+    table = {"q4": {
+        "codes": rng.integers(-8, 8, size=(l.vocab_size, l.dim),
+                              dtype=np.int8),
+        "scales": (rng.random((l.vocab_size, l.dim // 32), dtype=np.float32)
+                   * 4e-3 + 1e-3).astype(np.float16)}}
+    return {
+        "encoder": {
+            "conv": {"conv1": dense(e.dim, 128, 3), "conv1_b": zeros(e.dim),
+                     "conv2": dense(e.dim, e.dim, 3), "conv2_b": zeros(e.dim)},
+            "layers": {
+                "attention_norm": ones(E, e.dim),
+                "attention": {"wq": q4(qd_e, e.dim, E), "wq_b": zeros(E, qd_e),
+                              "wk": q4(qd_e, e.dim, E),
+                              "wv": q4(qd_e, e.dim, E), "wv_b": zeros(E, qd_e),
+                              "wo": q4(e.dim, qd_e, E), "wo_b": zeros(E, e.dim)},
+                "ffn_norm": ones(E, e.dim),
+                "ffn": {"w1": q4(e.hidden_dim, e.dim, E),
+                        "w2": q4(e.dim, e.hidden_dim, E),
+                        "w2_b": zeros(E, e.dim),
+                        "w3": q4(e.hidden_dim, e.dim, E)},
+            },
+            "norm": ones(e.dim),
+        },
+        "decoder": {
+            "tok_embeddings": table,
+            "layers": {
+                "ada": {"w0": q4(tc, l.dim, L), "w2": q4(l.dim, tc, L)},
+                "attention_norm": ones(L, l.dim),
+                "attention": {"wq": q4(qd, l.dim, L), "wk": q4(kvd, l.dim, L),
+                              "wv": q4(kvd, l.dim, L), "wo": q4(l.dim, qd, L)},
+                "ffn_norm": ones(L, l.dim),
+                "ffn": {"w1": q4(l.hidden_dim, l.dim, L),
+                        "w2": q4(l.dim, l.hidden_dim, L),
+                        "w3": q4(l.hidden_dim, l.dim, L)},
+            },
+            "norm": ones(l.dim),
+        },
+        "adapter": {"w1": q4(a.output_dim, a.input_dim),
+                    "w2": q4(a.output_dim, a.output_dim)},
+    }
+
+
+def pack_device(codes):
+    """ops.q4_kernel.pack_codes on the device: int8 [..., N, K] ->
+    int32 [..., K/8, N]."""
+    import torch
+
+    *lead, n, k = codes.shape
+    c = (codes.to(torch.int64) + 8).transpose(-1, -2).reshape(
+        *lead, k // 8, 8, n)
+    shifts = (4 * torch.arange(8, device=codes.device)).view(8, 1)
+    words = (c << shifts).sum(dim=-2)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
+        torch.int32)
+
+
+def packed_tree(tree):
+    """The q4 (packed) form of an unpacked q4 tensor tree, as
+    random_q4_params(pack=True) and the GGUF loader store it: leaves
+    whose shape K3 takes (K % 256 == 0, N % 128 == 0) nibble-packed with
+    bf16 scales; the others unchanged."""
+    import torch
+
+    if not isinstance(tree, dict):
+        return tree
+    q = tree.get("q4")
+    if q is not None and "codes" in q:
+        n, k = q["codes"].shape[-2:]
+        if k % 256 == 0 and n % 128 == 0:
+            return {"q4": {
+                "codes_packed": pack_device(q["codes"]),
+                "scales_t": q["scales"].transpose(-1, -2).to(
+                    torch.bfloat16).contiguous()}}
+    return {key: packed_tree(v) for key, v in tree.items()}
+
+
+def check_pack_device(dev):
+    """pack_device and the scale transpose agree with the host helpers."""
+    import torch
+
+    from voxtral_tpu_torch.device import to_torch
+    from voxtral_tpu_torch.ops.q4_kernel import pack_codes, transpose_scales
+
+    rng = np.random.default_rng(9)
+    codes = rng.integers(-8, 8, size=(256, 512), dtype=np.int8)
+    scales = (rng.random((256, 16), dtype=np.float32) * 0.01).astype(
+        np.float16)
+    got = packed_tree({"q4": {"codes": to_torch(codes, dev),
+                              "scales": to_torch(scales, dev)}})["q4"]
+    if not (torch.equal(got["codes_packed"].cpu(),
+                        torch.from_numpy(pack_codes(codes)))
+            and torch.equal(got["scales_t"].cpu().view(torch.int16),
+                            to_torch(transpose_scales(scales), "cpu")
+                            .view(torch.int16))):
+        fail("device packing differs from ops.q4_kernel.pack_codes")
+
+
+def run_q4g(tree, cfg, dev, card, sig, tok, n_tok):
+    """Phase 5: q4g weights — K1 mode (h) checks and the main path."""
+    import torch
+
+    from voxtral_tpu_torch.convert import params_from_numpy
+    from voxtral_tpu_torch.models.voxtral import VoxtralModel
+    from voxtral_tpu_torch.pipeline import PipelineConfig, TranscribePipeline
+
+    params = params_from_numpy(tree, dev)
+    model = VoxtralModel(params, cfg, dev)
+    if model.decode_route != "q4g":
+        fail(f"unpacked q4 weights route to {model.decode_route}, not q4g")
+    plain = VoxtralModel(params, cfg, dev, kernels=False)
+    plain.fused_decode = model.fused_decode
+    torch.cuda.synchronize()
+    k1h = check_k1_modes(model, dev, card)
+
+    pipe = TranscribePipeline(model, tok)
+    wall, launches, peak = counted_run(pipe, sig, dev)
+    tokens = pipe._chunk_tokens(sig, SR)[0]
+    n_steps = n_tok - 1
+    if len(tokens) != n_tok:
+        fail(f"q4g: {len(tokens)} tokens != {n_tok}")
+    if launches["decode_stack_step"] != n_steps:
+        fail(f"q4g: K1 launches {launches['decode_stack_step']} != decode "
+             f"steps {n_steps}")
+    p_tokens, margins = plain_tokens(plain, tok, sig)
+    same = first_divergence("q4g sequential kernel vs plain", tokens,
+                            p_tokens, margins, MARGIN_TIE)
+    print(f"q4g main path: launch counts {launches}; tokens kernel == plain:"
+          f" {same} ({len(set(tokens.tolist()))} distinct; min plain top-2 "
+          f"margin {float(margins.min()):.3e})", flush=True)
+
+    pcfg = PipelineConfig(speculative=SPEC_K, draft="ngram")
+    spipe = TranscribePipeline(model, tok, pcfg)
+    s_wall, s_launch, s_peak = counted_run(spipe, sig, dev)
+    passes = model.last_spec_passes
+    if s_launch["decode_stack_step"] != passes or passes < 1:
+        fail(f"q4g spec: K1 launches {s_launch['decode_stack_step']} != "
+             f"passes {passes}")
+    s_tokens = spipe._chunk_tokens(sig, SR)[0]
+    same_seq = first_divergence("q4g speculative vs sequential", s_tokens,
+                                tokens, margins, SPEC_MARGIN_TIE)
+    ps_tokens, ps_margins = plain_tokens(plain, tok, sig, pcfg)
+    same_plain = first_divergence("q4g speculative kernel vs plain",
+                                  s_tokens, ps_tokens, ps_margins, MARGIN_TIE)
+    print(f"q4g speculative K={SPEC_K} draft=ngram: launch counts {s_launch}"
+          f", {passes} passes; tokens == sequential: {same_seq}, == spec "
+          f"plain: {same_plain}", flush=True)
+
+    padded = pipe.padded_chunks(sig, SR)[0].samples
+    enc_s = encode_seconds(pipe, model, padded)
+    step_bytes = step_weight_bytes(model)
+    report("q4g", wall, enc_s, n_tok, peak, card)
+    report(f"q4g speculative K={SPEC_K} draft=ngram", s_wall, enc_s, n_tok,
+           s_peak, card, passes, n_steps, k1h["spec8"][1])
+    print(f"q4g decode step weight stream: {step_bytes / 1e9:.4f} GB/step / "
+          f"{k1h['one'][1]:.3f} ms = {step_bytes / k1h['one'][1] / 1e6:.1f} "
+          f"GB/s; bound {step_bytes / HBM_BPS * 1e3:.4f} ms [{card}]",
+          flush=True)
+    return dict(k1=k1h, launches=launches, spec_launches=s_launch,
+                passes=passes)
+
+
+def run_q4(tree, cfg, dev, card, sig, tok, n_tok):
+    """Phase 6: packed q4 weights — the per-op step on K3."""
+    import torch
+
+    from voxtral_tpu_torch.convert import params_from_numpy
+    from voxtral_tpu_torch.models.voxtral import VoxtralModel
+    from voxtral_tpu_torch.pipeline import TranscribePipeline
+
+    params = packed_tree(params_from_numpy(tree, dev))
+    torch.cuda.empty_cache()
+    model = VoxtralModel(params, cfg, dev)
+    if model.decode_route != "per_op":
+        fail(f"packed q4 weights route to {model.decode_route}, not per_op")
+    plain = VoxtralModel(params, cfg, dev, kernels=False)
+    lm = cfg.language_model
+    pipe = TranscribePipeline(model, tok)
+    wall, launches, peak = counted_run(pipe, sig, dev)
+    tokens = pipe._chunk_tokens(sig, SR)[0]
+    n_steps = n_tok - 1
+    per_step = 7 * lm.n_layers + 1  # decoder linears + the lm_head
+    expect = per_step * n_steps + 1  # + the first-token lm_head
+    if len(tokens) != n_tok:
+        fail(f"q4: {len(tokens)} tokens != {n_tok}")
+    if launches["q4_matmul"] != expect:
+        fail(f"q4: K3 launches {launches['q4_matmul']} != {per_step} x "
+             f"{n_steps} steps + 1 = {expect}")
+    p_tokens, margins = plain_tokens(plain, tok, sig)
+    same = first_divergence("q4 sequential kernel vs plain", tokens,
+                            p_tokens, margins, MARGIN_TIE)
+    print(f"q4 main path: launch counts {launches} (K3: {per_step} per step "
+          f"x {n_steps} + 1 = {expect}); tokens kernel == plain: {same} "
+          f"({len(set(tokens.tolist()))} distinct; min plain top-2 margin "
+          f"{float(margins.min()):.3e})", flush=True)
+    padded = pipe.padded_chunks(sig, SR)[0].samples
+    enc_s = encode_seconds(pipe, model, padded)
+    report("q4", wall, enc_s, n_tok, peak, card)
+    dec = params["decoder"]
+    leaves = [dec["layers"][g][w]["q4"] for g, ws in (
+        ("attention", ("wq", "wk", "wv", "wo")),
+        ("ffn", ("w1", "w2", "w3"))) for w in ws]
+    leaves.append(dec["tok_embeddings"]["q4"])
+    step_bytes = nbytes(*(t for q in leaves for t in q.values()))
+    step_ms = (wall - enc_s) * 1e3 / n_tok
+    print(f"q4 decode step weight stream: {step_bytes / 1e9:.4f} GB/step "
+          f"(packed codes + bf16 scales, lm_head included) / {step_ms:.3f} "
+          f"ms per token end to end = {step_bytes / step_ms / 1e6:.1f} GB/s;"
+          f" bound {step_bytes / HBM_BPS * 1e3:.4f} ms [{card}]", flush=True)
+    return dict(launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# GGUF entry
+# ---------------------------------------------------------------------------
+
+
+def small_gguf(directory: Path):
+    """A small-config Q4_0 GGUF (decoder widths % 256, so K3 and mode (h)
+    take it), its params.json and a synthetic tekken.json, written with
+    the port's write_gguf -> (gguf, tokenizer, params, wav) paths."""
+    import base64
+
+    from voxtral_tpu_torch.audio import AudioBuffer, save_wav
+    from voxtral_tpu_torch.config import (
+        AdapterConfig,
+        AudioEncoderConfig,
+        AudioInputConfig,
+        LanguageModelConfig,
+        VoxtralConfig,
+    )
+    from voxtral_tpu_torch.loaders import names as N
+    from voxtral_tpu_torch.loaders.gguf import GGML_F32, GGML_Q4_0, write_gguf
+    from voxtral_tpu_torch.ops.q4 import quantize_q4_0
+
+    cfg = VoxtralConfig(
+        audio_encoder=AudioEncoderConfig(
+            dim=64, n_layers=2, n_heads=2, n_kv_heads=2, head_dim=32,
+            hidden_dim=128, sliding_window=64),
+        language_model=LanguageModelConfig(
+            dim=256, n_layers=2, n_heads=4, n_kv_heads=2, head_dim=64,
+            hidden_dim=512, vocab_size=4096, sliding_window=64),
+        adapter=AdapterConfig(input_dim=256, hidden_dim=256, output_dim=256),
+        audio=AudioInputConfig(), ada_rms_norm_t_cond_dim=32,
+        downsample_factor=4)
+    e, l = cfg.audio_encoder, cfg.language_model
+    rng = np.random.default_rng(5)
+
+    def w(*shape):
+        return (rng.standard_normal(shape, dtype=np.float32)
+                * np.float32(2.0 / np.sqrt(shape[-1])))
+
+    def v(n):
+        return rng.standard_normal(n, dtype=np.float32)
+
+    t = {}
+    cv = N.conv_names()
+    t.update({cv["conv1_weight"]: w(e.dim, 128, 3), cv["conv1_bias"]: v(e.dim),
+              cv["conv2_weight"]: w(e.dim, e.dim, 3),
+              cv["conv2_bias"]: v(e.dim), N.ENCODER_FINAL_NORM: v(e.dim)})
+    qd = e.n_heads * e.head_dim
+    for i in range(e.n_layers):
+        nm = N.encoder_layer_names(i)
+        t.update({nm["attention_norm"]: v(e.dim), nm["wq_weight"]: w(qd, e.dim),
+                  nm["wq_bias"]: v(qd), nm["wk_weight"]: w(qd, e.dim),
+                  nm["wv_weight"]: w(qd, e.dim), nm["wv_bias"]: v(qd),
+                  nm["wo_weight"]: w(e.dim, qd), nm["wo_bias"]: v(e.dim),
+                  nm["ffn_norm"]: v(e.dim), nm["w1_weight"]: w(e.hidden_dim, e.dim),
+                  nm["w2_weight"]: w(e.dim, e.hidden_dim),
+                  nm["w2_bias"]: v(e.dim),
+                  nm["w3_weight"]: w(e.hidden_dim, e.dim)})
+    t[N.TOK_EMBEDDINGS] = w(l.vocab_size, l.dim)
+    t[N.FINAL_NORM] = np.abs(v(l.dim)) * np.float32(4.0) + np.float32(1.0)
+    qd, kvd = l.n_heads * l.head_dim, l.n_kv_heads * l.head_dim
+    for i in range(l.n_layers):
+        nm = N.decoder_layer_names(i)
+        t.update({nm["ada_norm_down"]: w(cfg.ada_rms_norm_t_cond_dim, l.dim),
+                  nm["ada_norm_up"]: w(l.dim, cfg.ada_rms_norm_t_cond_dim),
+                  nm["attention_norm"]: v(l.dim), nm["wq_weight"]: w(qd, l.dim),
+                  nm["wk_weight"]: w(kvd, l.dim), nm["wv_weight"]: w(kvd, l.dim),
+                  nm["wo_weight"]: w(l.dim, qd), nm["ffn_norm"]: v(l.dim),
+                  nm["w1_weight"]: w(l.hidden_dim, l.dim),
+                  nm["w2_weight"]: w(l.dim, l.hidden_dim),
+                  nm["w3_weight"]: w(l.hidden_dim, l.dim)})
+    an = N.adapter_names()
+    t[an["linear1_weight"]] = w(cfg.adapter.output_dim, cfg.adapter.input_dim)
+    t[an["linear2_weight"]] = w(cfg.adapter.output_dim,
+                                cfg.adapter.output_dim)
+    tensors = {}
+    for name, arr in t.items():
+        if arr.ndim == 2 and arr.shape[-1] % 32 == 0:
+            tensors[name] = (arr.shape, GGML_Q4_0, quantize_q4_0(arr))
+        else:
+            tensors[name] = (arr.shape, GGML_F32, arr.tobytes())
+    gguf = directory / "small_q4.gguf"
+    with open(gguf, "wb") as f:
+        write_gguf(f, tensors)
+    params = directory / "params.json"
+    params.write_text(cfg.to_params_json())
+    vocab = [{"rank": r, "token_str": s, "is_control": True}
+             for r, s in [(0, "<unk>"), (1, "<s>"), (32, "[STREAMING_PAD]"),
+                          (33, "[STREAMING_WORD]")]]
+    vocab += [{"rank": 1000 + len(vocab),
+               "token_bytes": base64.b64encode(f"w{i} ".encode()).decode(),
+               "is_control": False} for i in range(l.vocab_size - 1000)]
+    tokenizer = directory / "tekken.json"
+    tokenizer.write_text(json.dumps({
+        "config": {"default_vocab_size": 131072,
+                   "default_num_special_tokens": 1000}, "vocab": vocab}))
+    tt = np.arange(int(1.5 * 22050)) / 22050
+    wav = directory / "tone.wav"
+    save_wav(AudioBuffer((0.4 * np.sin(2 * np.pi * 440 * tt)
+                          + 0.2 * np.sin(2 * np.pi * 1320 * tt)).astype(
+        np.float32), 22050), wav)
+    return gguf, tokenizer, params, wav
+
+
+def run_gguf_cli(dev, card):
+    """Phase 7: the CLI on a GGUF for each weight format, against the
+    library path on the same file."""
+    from voxtral_tpu_torch.config import VoxtralConfig
+    from voxtral_tpu_torch.pipeline import TranscribePipeline
+
+    with tempfile.TemporaryDirectory() as tmp:
+        gguf, tokenizer, params, wav = small_gguf(Path(tmp))
+        cfg = VoxtralConfig.from_file(params)
+        for fmt in ("q4", "q4g", "w8"):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "voxtral_tpu_torch.cli", "--gguf",
+                 str(gguf), "--tokenizer", str(tokenizer), "--params",
+                 str(params), "--weight-format", fmt, "--audio", str(wav)],
+                capture_output=True, text=True, timeout=300,
+                cwd=Path(__file__).resolve().parent)
+            secs = time.perf_counter() - t0
+            if proc.returncode != 0:
+                fail(f"CLI --gguf --weight-format {fmt} exited "
+                     f"{proc.returncode}: {proc.stderr[-2000:]}")
+            lib = TranscribePipeline.from_gguf(
+                gguf, tokenizer, config=cfg, weight_format=fmt,
+                device=dev).transcribe_file(wav)
+            if proc.stdout != lib + "\n":
+                fail(f"CLI --weight-format {fmt} printed {proc.stdout!r}, "
+                     f"the library path {lib!r}")
+            print(f"gguf CLI --weight-format {fmt}: exit 0 in {secs:.1f} s, "
+                  f"text == library path ({len(lib.split())} words) "
+                  f"[{card}]", flush=True)
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    import torch
+
+    # -- 1. device -----------------------------------------------------------
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke run needs an "
+             "NVIDIA GPU (there is no CPU fallback)")
+    from voxtral_tpu_torch import VoxtralConfig, VoxtralTokenizer
+    from voxtral_tpu_torch.ops import _build
+
+    dev = torch.device("cuda:0")
+    card = card_line()
+    print(card, flush=True)  # name, power limit: nvidia-smi's own line
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    # -- 2. build ------------------------------------------------------------
+    lib, build_s = _build.build()
+    _build.library()
+    print(f"build: {build_s:.2f} s ({lib.name})", flush=True)
+
+    cfg = VoxtralConfig.voxtral()
+    sig = chirp()
+    tok = VoxtralTokenizer([None] * 131072, {}, 131072)
+
+    # -- 3. w8 ---------------------------------------------------------------
+    w8 = run_w8(cfg, dev, card, sig, tok)
+    torch.cuda.empty_cache()
+
+    # -- 4. K3 ---------------------------------------------------------------
+    k3_err, k3_times = check_k3(dev, card)
+
+    # -- 5, 6. q4g and q4 ------------------------------------------------------
+    check_pack_device(dev)
+    t0 = time.perf_counter()
+    tree = random_q4_tree(cfg, seed=0)
+    print(f"random Q4_0 weights (seed 0, one layer tiled per stack) built: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    q4g = run_q4g(tree, cfg, dev, card, sig, tok, w8["n_tok"])
+    torch.cuda.empty_cache()
+    q4 = run_q4(tree, cfg, dev, card, sig, tok, w8["n_tok"])
+    del tree
+    torch.cuda.empty_cache()
+
+    # -- 7. gguf -------------------------------------------------------------
+    run_gguf_cli(dev, card)
+
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "voxtral_tpu"))
+    if loaded:
+        fail(f"the run loaded jax or the JAX package: {loaded[:5]}")
+
+    # -- 8. record -----------------------------------------------------------
+    runs = {"w8_sequential": w8["launches"],
+            **{f"w8_speculative_{d}": r["launches"]
+               for d, r in w8["spec_runs"].items()},
+            "q4g_sequential": q4g["launches"],
+            "q4g_speculative_ngram": q4g["spec_launches"],
+            "q4_sequential": q4["launches"]}
+
+    def launches(name):
+        by = {path: c[name] for path, c in runs.items() if c[name]}
+        return sum(by.values()), by
 
     lm_shape = (1, 3072, 131072)
+    k2t = w8["k2_times"][lm_shape]
+    k1a, k1h = w8["k1"], q4g["k1"]
+    k3t = k3_times[(1, 131072, 3072)]
     record = {"kernels": [
         {"name": "w8_matmul", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/w8_matmul.cu",
          "replaces": "voxtral_tpu/ops/w8_pallas.py:51",
-         "launches": k2_launches + sum(r["k2"] for r in spec_runs.values()),
-         "launches_by_path": launches_by_path("k2"),
-         "max_abs_err": k2_err,
-         "ms": k2_times[lm_shape][0], "plain_ms": k2_times[lm_shape][1]},
+         "launches": launches("w8_matmul")[0],
+         "launches_by_path": launches("w8_matmul")[1],
+         "max_abs_err": w8["k2_err"], "ms": k2t[0], "plain_ms": k2t[1],
+         "bound_ms": k2t[3], "bound_by": k2t[4], "library_ms": k2t[2],
+         "library": "torch._int_mm + epilogue (refuses M <= 16)",
+         "prefill_ms": w8["k2_times"][(38, 3072, 4096)][0],
+         "prefill_library_ms": w8["k2_times"][(38, 3072, 4096)][2]},
         {"name": "decode_stack_step", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/decode_step.cu",
          "replaces": "voxtral_tpu/ops/decode_step_pallas.py:1654",
-         "modes": ["a", "b", "c"],
-         "launches": k1_launches + sum(r["k1"] for r in spec_runs.values()),
-         "launches_by_path": launches_by_path("k1"),
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
-         "spec_ms": spec8[1], "spec_plain_ms": spec8[2],
-         "spec64_ms": spec64[1], "spec64_plain_ms": spec64[2]},
+         "modes": ["a", "b", "c", "h"],
+         "launches": launches("decode_stack_step")[0],
+         "launches_by_path": launches("decode_stack_step")[1],
+         "max_abs_err": max(k1a["err"], k1h["err"]),
+         "ms": k1a["one"][1], "plain_ms": k1a["one"][2],
+         "bound_ms": k1a["one"][3], "bound_by": k1a["one"][4],
+         "library_ms": None,
+         "spec_ms": k1a["spec8"][1], "spec_plain_ms": k1a["spec8"][2],
+         "spec64_ms": k1a["spec64"][1], "spec64_plain_ms": k1a["spec64"][2],
+         "h_ms": k1h["one"][1], "h_plain_ms": k1h["one"][2],
+         "h_bound_ms": k1h["one"][3], "h_spec_ms": k1h["spec8"][1],
+         "h_spec64_ms": k1h["spec64"][1], "h_rows4_ms": k1h["rows4"][1]},
+        {"name": "q4_matmul", "route": "cuda",
+         "source": "voxtral_tpu_torch/csrc/q4_matmul.cu",
+         "replaces": "voxtral_tpu/ops/q4_pallas.py:150",
+         "launches": launches("q4_matmul")[0],
+         "launches_by_path": launches("q4_matmul")[1],
+         "max_abs_err": k3_err, "ms": k3t[0], "plain_ms": k3t[1],
+         "bound_ms": k3t[2], "bound_by": k3t[3], "library_ms": None,
+         "shapes_ms": {f"{m}x{n}x{k}": round(t[0], 5)
+                       for (m, n, k), t in k3_times.items()}},
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

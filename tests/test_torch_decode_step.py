@@ -24,9 +24,17 @@ import torch
 
 from voxtral_tpu.ops import decode_step_pallas as jdsp
 from voxtral_tpu.ops.w8 import quantize_w8_rowwise as jax_quantize_w8
-from voxtral_tpu_torch.convert import params_from_numpy
-from voxtral_tpu_torch.device import to_torch
+from voxtral_tpu_torch import convert, device
 from voxtral_tpu_torch.ops import decode_step as tdsp
+
+
+# The port's entry points default to the card: these tests name the CPU.
+def params_from_numpy(tree, dev="cpu"):
+    return convert.params_from_numpy(tree, dev)
+
+
+def to_torch(a, dev="cpu"):
+    return device.to_torch(a, dev)
 
 L, B, S, D = 3, 2, 16, 256
 N_HEADS, N_KV, HEAD_DIM, HIDDEN = 8, 2, 32, 512
@@ -327,6 +335,280 @@ def test_decode_stack_step_spec_kernel_matches_plain_on_card(inputs, offs,
             to_torch(kc, dev), to_torch(vc, dev), tf["wqkv"], tf["wo"],
             tf["w13"], tf["w2"], to_torch(final_norm, dev),
             to_torch(lm["codes"], dev), to_torch(lm["scale"], dev))
+    kw = dict(n_heads=N_HEADS, n_kv=N_KV, head_dim=HEAD_DIM, eps=EPS,
+              window=8, spec=spec)
+    got = tdsp.decode_stack_step(*args, **kw)
+    ref = tdsp.decode_stack_step_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        r = r.float()
+        torch.testing.assert_close(g.float(), r, rtol=0,
+                                   atol=max(X_RTOL, KV_RTOL if g.dtype
+                                            == torch.bfloat16 else 0)
+                                   * r.abs().max().item())
+    assert torch.equal(got[3].argmax(-1), ref[3].argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# Mode (h): g32 (q4g) weights — int8 codes with f16 group scales
+# ---------------------------------------------------------------------------
+#
+# The geometry above qualifies (D, n_heads * head_dim and HIDDEN are
+# multiples of 128, as scripts/q4_error_report.py::error_cfg).  Both sides
+# quantize the activations with the same formula and take exact group
+# dots; JAX sums z_g * s_g in f32 over the groups, the port in f64
+# rounded once, so an output differs by f32 summation order — and a
+# one-ulp difference can move an int8 activation code of the next
+# layer.  Tolerance: 1e-5 of the largest value for x_out and the logits
+# (G32_RTOL; measured below 4e-7), one bf16 ulp for k/v; argmax equal.
+
+G32_RTOL = 1e-5
+
+
+def _q4_stack(rng, n, k):
+    from voxtral_tpu.ops.q4 import quantize_q4_0, repack_q4_0
+
+    per = [repack_q4_0(quantize_q4_0((rng.normal(size=(n, k)) * 0.05)
+                                     .astype(np.float32)), (n, k))
+           for _ in range(L)]
+    return {"q4": {key: np.stack([p[key] for p in per]) for key in per[0]}}
+
+
+def build_q4g_params():
+    """numpy q4g decoder params (unpacked q4 leaves, a q4 table)."""
+    from voxtral_tpu.ops.q4 import quantize_q4_0, repack_q4_0
+
+    rng = np.random.default_rng(11)
+    nq, nkv = N_HEADS * HEAD_DIM, N_KV * HEAD_DIM
+    table = (rng.normal(size=(V, D)) * 0.05).astype(np.float32)
+    return {
+        "tok_embeddings": {"q4": repack_q4_0(quantize_q4_0(table), (V, D))},
+        "layers": {
+            "ada": {"w0": _q4_stack(rng, T_COND, D),
+                    "w2": _w8_stack(rng, D, T_COND)},
+            "attention_norm": (1.0 + rng.normal(size=(L, D)) * 0.1).astype(np.float32),
+            "attention": {"wq": _q4_stack(rng, nq, D),
+                          "wk": _q4_stack(rng, nkv, D),
+                          "wv": _q4_stack(rng, nkv, D),
+                          "wo": _q4_stack(rng, D, nq)},
+            "ffn_norm": (1.0 + rng.normal(size=(L, D)) * 0.1).astype(np.float32),
+            "ffn": {"w1": _q4_stack(rng, HIDDEN, D),
+                    "w2": _q4_stack(rng, D, HIDDEN),
+                    "w3": _q4_stack(rng, HIDDEN, D)},
+        },
+        "norm": (1.0 + rng.normal(size=(D,)) * 0.1).astype(np.float32),
+    }
+
+
+@pytest.fixture(scope="module")
+def q4g_params():
+    return build_q4g_params()
+
+
+def test_fuse_decode_weights_q4g_matches_jax(q4g_params):
+    """The port keeps the w8 code layout [L, N, K] and f16 scales
+    [L, N, K/32]; JAX's Mosaic layouts hold the same values."""
+    jf = jdsp.fuse_decode_weights_q4g(
+        jax.tree_util.tree_map(jnp.asarray, q4g_params))
+    tf = tdsp.fuse_decode_weights_q4g(params_from_numpy(q4g_params))
+    assert set(tf) == set(jf)
+
+    def codes(a):  # [..., SB, N, 128] -> [..., N, K]
+        a = np.swapaxes(np.asarray(a), -3, -2)
+        return a.reshape(*a.shape[:-2], -1)
+
+    def scales(a):  # [..., 4 SB, 1, N] r-major -> [..., N, K/32]
+        a = np.asarray(a)[..., 0, :]
+        *lead, g, n = a.shape
+        a = a.reshape(*lead, 4, g // 4, n)
+        return np.moveaxis(a, (-3, -2, -1), (-1, -2, -3)).reshape(*lead, n, g)
+
+    for name in ("wqkv", "wo", "w13", "w2", "lm_codes"):
+        np.testing.assert_array_equal(tf[name].numpy(), codes(jf[name]),
+                                      err_msg=name)
+    for name in ("sqkv", "so", "s13", "s2", "lm_scale"):
+        assert tf[name].dtype == torch.float16
+        np.testing.assert_array_equal(tf[name].float().numpy(),
+                                      scales(jf[name]), err_msg=name)
+    for name in ("attn_norm", "ffn_norm"):
+        np.testing.assert_array_equal(tf[name].numpy(), np.asarray(jf[name]))
+
+
+def test_megakernel_mode_and_q4g_geometry_match_jax(q4g_params):
+    from voxtral_tpu.config import LanguageModelConfig
+    from voxtral_tpu.ops.q4 import quantize_q4_0, repack_q4_0
+    from voxtral_tpu.ops.q4_pallas import pack_codes, transpose_scales
+
+    w8 = build_inputs()[0]
+    packed = jax.tree_util.tree_map(lambda a: a, q4g_params)
+    leaf = repack_q4_0(quantize_q4_0(np.ones((256, 256), np.float32)),
+                       (256, 256))
+    packed["layers"]["attention"]["wq"] = {"q4": {
+        "codes_packed": pack_codes(leaf["codes"])[None],
+        "scales_t": transpose_scales(leaf["scales"])[None]}}
+    trees = {"w8": w8, "q4g": q4g_params, "packed": packed}
+    for name, tree in trees.items():
+        for hd in (HEAD_DIM, 33):
+            got = tdsp.megakernel_mode(params_from_numpy(tree), hd)
+            ref = jdsp.megakernel_mode(
+                jax.tree_util.tree_map(jnp.asarray, tree), hd)
+            assert got == ref, (name, hd)
+    assert tdsp.megakernel_mode(params_from_numpy(q4g_params), 32) == "q4g"
+    for dims in ((256, 8, 32, 512), (192, 4, 48, 384), (256, 8, 32, 320)):
+        d, h, hd, f = dims
+        lm = LanguageModelConfig(dim=d, n_heads=h, n_kv_heads=2, head_dim=hd,
+                                 hidden_dim=f)
+        assert tdsp.q4g_geometry_ok(lm) == jdsp.q4g_geometry_ok(lm), dims
+
+
+def _g32_jax_and_port(q4g_params, inputs, offs, spec, window):
+    """(JAX interpret-mode outputs, port outputs) of one g32 step with the
+    g32 lm fold; offs None: mode (a), a scalar offset."""
+    _, t_embed, k_cache, v_cache, _, _, _ = inputs
+    offsets = [7] if offs is None else offs
+    bc = len(offsets)
+    idx = np.arange(bc) % B
+    kc, vc = k_cache[:, idx], v_cache[:, idx]
+    rng = np.random.default_rng(17 + bc * spec)
+    x = (rng.normal(size=(bc * spec, D)) * 0.5).astype(np.float32)
+    pos = (np.asarray(offsets)[:, None] + np.arange(spec)[None]).reshape(-1)
+    cos, sin = jax.vmap(lambda q: jdsp.rope_pair_vectors(
+        q, HEAD_DIM, theta=1e6))(jnp.asarray(pos, jnp.int32))
+    cos, sin = np.asarray(cos), np.asarray(sin)
+    if offs is None:
+        cos, sin = cos[0], sin[0]
+    jtree = jax.tree_util.tree_map(jnp.asarray, q4g_params)
+    jf = jdsp.fuse_decode_weights_q4g(jtree)
+    adav = jdsp.ada_vectors(jtree, jnp.asarray(t_embed))
+    kw = dict(n_heads=N_HEADS, n_kv=N_KV, head_dim=HEAD_DIM, eps=EPS,
+              window=window)
+    joff = (jnp.asarray(offsets[0], jnp.int32) if offs is None
+            else jnp.asarray(offs, jnp.int32))
+    ref = jdsp.decode_stack_step(
+        jnp.asarray(x), joff, jf["attn_norm"], jf["ffn_norm"], adav,
+        jf["sqkv"], jf["so"], jf["s13"], jf["s2"], jnp.asarray(cos),
+        jnp.asarray(sin), jnp.asarray(kc), jnp.asarray(vc),
+        jf["wqkv"], jf["wo"], jf["w13"], jf["w2"],
+        final_norm=jtree["norm"], lm_codes=jf["lm_codes"],
+        lm_scale=jf["lm_scale"], interpret=True, spec=spec, **kw)
+    tp = params_from_numpy(q4g_params)
+    tf = tdsp.fuse_decode_weights_q4g(tp)
+    toff = (offsets[0] if offs is None
+            else torch.tensor(offs, dtype=torch.int32))
+    got = tdsp.decode_stack_step(
+        to_torch(x), toff, tf["attn_norm"], tf["ffn_norm"],
+        to_torch(np.asarray(adav)), tf["sqkv"], tf["so"], tf["s13"],
+        tf["s2"], to_torch(cos), to_torch(sin), to_torch(kc), to_torch(vc),
+        tf["wqkv"], tf["wo"], tf["w13"], tf["w2"],
+        final_norm=tp["norm"], lm_codes=tf["lm_codes"],
+        lm_scale=tf["lm_scale"], spec=spec, **kw)
+    return ref, got
+
+
+@pytest.mark.parametrize("offs,spec,window", [
+    (None, 1, None),      # mode (a): one row per stream, scalar offset
+    (None, 1, 4),         # the window's lower bound binds
+    ([5, 11], 3, None),   # mode (b): spec = 3, per-stream offsets
+    ([3, 12], 1, 8),      # mode (c): an offset and RoPE pair per row
+])
+def test_decode_stack_step_g32_plain_matches_jax(q4g_params, inputs, offs,
+                                                 spec, window):
+    (jx, jk, jv, jlog), (tx, tk, tv, tlog) = _g32_jax_and_port(
+        q4g_params, inputs, offs, spec, window)
+    rows = (1 if offs is None else len(offs)) * spec
+    assert tx.shape == (rows, D) and tlog.shape == (rows, V)
+    jx, jlog = np.asarray(jx), np.asarray(jlog)
+    np.testing.assert_allclose(tx.numpy(), jx, rtol=0,
+                               atol=G32_RTOL * np.abs(jx).max())
+    np.testing.assert_allclose(tlog.numpy(), jlog, rtol=0,
+                               atol=G32_RTOL * np.abs(jlog).max())
+    for g, r in ((tk, jk), (tv, jv)):
+        r = np.asarray(r.astype(jnp.float32))
+        np.testing.assert_allclose(g.float().numpy(), r, rtol=0,
+                                   atol=KV_RTOL * np.abs(r).max())
+    np.testing.assert_array_equal(tlog.argmax(-1).numpy(), jlog.argmax(-1))
+
+
+def test_g32_matmul_plain_matches_q4g_matmul_a8(q4g_params):
+    """The step's group-32 GEMV (f64 group sum) against the f32 reference
+    of ops/q4.py on the same quantized rows."""
+    from voxtral_tpu_torch.ops.q4 import q4g_matmul_a8
+    from voxtral_tpu_torch.ops.w8 import quantize_activations
+
+    leaf = params_from_numpy(q4g_params)["tok_embeddings"]["q4"]
+    x = to_torch((np.random.default_rng(3).normal(size=(3, D))).astype(
+        np.float32))
+    got = tdsp.g32_matmul_plain(*quantize_activations(x), leaf["codes"],
+                                leaf["scales"])
+    ref = q4g_matmul_a8(x, leaf["codes"], leaf["scales"])
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=1e-6 * ref.abs().max().item())
+
+
+def test_decode_stack_step_g32_guards(q4g_params, inputs):
+    _, _, k_cache, v_cache, x, _, _ = inputs
+    tp = params_from_numpy(q4g_params)
+    tf = tdsp.fuse_decode_weights_q4g(tp)
+    c, s = tdsp.rope_pair_vectors(3, HEAD_DIM)
+    kw = dict(n_heads=N_HEADS, n_kv=N_KV, head_dim=HEAD_DIM, eps=EPS)
+
+    def step(**over):
+        a = dict(tf, **over)
+        return tdsp.decode_stack_step(
+            to_torch(x), 3, a["attn_norm"], a["ffn_norm"], torch.ones((L, D)),
+            a["sqkv"], a["so"], a["s13"], a["s2"], c, s, to_torch(k_cache),
+            to_torch(v_cache), a["wqkv"], a["wo"], a["w13"], a["w2"],
+            final_norm=tp["norm"], lm_codes=a["lm_codes"],
+            lm_scale=a["lm_scale"], **kw)
+
+    with pytest.raises(ValueError, match="must be int8 codes"):
+        step(wo=tf["wo"].float())
+    with pytest.raises(ValueError, match="group-scale stacks"):
+        step(so=tf["so"][:, :, :-1])
+    with pytest.raises(ValueError, match="g32 lm fold needs"):
+        step(lm_scale=tf["lm_scale"][:, 0])
+    with pytest.raises(ValueError, match="must match the weight mode"):
+        step(lm_codes=tf["lm_codes"].float())
+    with pytest.raises(ValueError, match="unpacked q4 leaves"):
+        packed = {"q4": {"codes_packed": torch.zeros((L, 32, 256),
+                                                     dtype=torch.int32)}}
+        tdsp.fuse_decode_weights_q4g(
+            {"layers": dict(tp["layers"], attention=dict(
+                tp["layers"]["attention"], wq=packed))})
+    assert step()[0].shape == (B, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offs,spec", [
+    ([7, 9], 1),                           # mode (a): the dp4a g32 GEMV
+    ([5, 11], 3),                          # 6 rows
+    ([2, 7, 9, 13], 4),                    # 16 rows: the g32 mma GEMV
+    ([1, 3, 4, 6, 8, 10, 12, 14], 8),      # 64 rows: four mma row tiles
+    ([3, 12, 0, 16], 1),                   # mode (c)
+])
+def test_decode_stack_step_g32_kernel_matches_plain_on_card(q4g_params,
+                                                            inputs, offs,
+                                                            spec):
+    """Mode (h) on the card against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    _, t_embed, k_cache, v_cache, _, _, _ = inputs
+    dev = torch.device("cuda")
+    bc = len(offs)
+    idx = np.arange(bc) % B
+    rng = np.random.default_rng(bc * spec)
+    x = (rng.normal(size=(bc * spec, D)) * 0.5).astype(np.float32)
+    off = torch.tensor(offs, dtype=torch.int32, device=dev)
+    pos = (off[:, None] + torch.arange(spec, device=dev)).reshape(-1)
+    c, s = tdsp.rope_pair_vectors(pos, HEAD_DIM, device=dev)
+    tp = params_from_numpy(q4g_params, dev)
+    tf = tdsp.fuse_decode_weights_q4g(tp)
+    ada = tdsp.ada_vectors(tp, to_torch(t_embed, dev))
+    args = (to_torch(x, dev), off, tf["attn_norm"], tf["ffn_norm"], ada,
+            tf["sqkv"], tf["so"], tf["s13"], tf["s2"], c, s,
+            to_torch(k_cache[:, idx], dev), to_torch(v_cache[:, idx], dev),
+            tf["wqkv"], tf["wo"], tf["w13"], tf["w2"], tp["norm"].float(),
+            tf["lm_codes"], tf["lm_scale"])
     kw = dict(n_heads=N_HEADS, n_kv=N_KV, head_dim=HEAD_DIM, eps=EPS,
               window=8, spec=spec)
     got = tdsp.decode_stack_step(*args, **kw)

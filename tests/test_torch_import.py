@@ -1,5 +1,6 @@
-"""The port imports torch and never jax, ships its CUDA sources, and
-fails loudly where it cannot build or launch a kernel."""
+"""The port imports torch and never jax, imports nothing of the JAX
+package, ships its CUDA sources, runs on the card unless asked for the
+CPU, and fails loudly where it cannot build or launch a kernel."""
 
 import ast
 import subprocess
@@ -11,19 +12,28 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "voxtral_tpu_torch"
-# The three framework-free modules of the JAX package the port reuses.
-REUSED = {"voxtral_tpu", "voxtral_tpu.config", "voxtral_tpu.audio",
-          "voxtral_tpu.tokenizer"}
 
 
 def test_importing_the_port_leaves_jax_out():
     # A fresh interpreter: this test process already imported jax
-    # (tests/conftest.py).
+    # (tests/conftest.py).  Importing every module of the port and
+    # running a tiny transcribe on the CPU loads neither jax nor any
+    # module of the JAX package voxtral_tpu.
     code = ("import sys\n"
+            "import numpy as np\n"
             "import voxtral_tpu_torch, voxtral_tpu_torch.cli\n"
             "import voxtral_tpu_torch.pipeline, voxtral_tpu_torch.models.voxtral\n"
             "import voxtral_tpu_torch.ops.w8_kernel, voxtral_tpu_torch.ops.decode_step\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+            "import voxtral_tpu_torch.ops.q4_kernel, voxtral_tpu_torch.loaders.gguf_loader\n"
+            "from voxtral_tpu_torch import VoxtralConfig\n"
+            "from voxtral_tpu_torch.models.voxtral import VoxtralModel\n"
+            "from voxtral_tpu_torch.utils.quantize import random_w8_params\n"
+            "cfg = VoxtralConfig.from_file('tests/fixtures/params_tiny.json')\n"
+            "model = VoxtralModel.from_numpy(random_w8_params(cfg), cfg, 'cpu')\n"
+            "toks = model.transcribe_streaming(np.zeros((1, 128, 640), np.float32))\n"
+            "assert toks.shape == (2,), toks.shape\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+            "             or m == 'voxtral_tpu' or m.startswith('voxtral_tpu.'))\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
@@ -41,21 +51,38 @@ def _imported_modules(path: Path):
 
 
 def test_port_sources_import_no_jax_and_only_the_reused_modules():
+    """Nothing of jax and nothing of the JAX package voxtral_tpu, in the
+    package and in chip_smoke.py: the port keeps its own copies."""
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 10
+    assert len(files) > 20
     for path in files:
-        # The smoke script reaches the reused modules through the port.
-        allowed = set() if path.name == "chip_smoke.py" else REUSED
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            assert top != "jax", f"{path}: imports {mod}"
-            if top == "voxtral_tpu":
-                assert mod in allowed, f"{path}: imports {mod}"
+            assert top not in ("jax", "voxtral_tpu"), f"{path}: imports {mod}"
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """No device means cuda; without a card that raises, naming
+    device="cpu" — there is no silent CPU fallback."""
+    from voxtral_tpu_torch.convert import params_from_numpy
+    from voxtral_tpu_torch.device import resolve_device, to_torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        to_torch([1.0])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy({"a": [1.0]})
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None) == torch.device("cuda")
 
 
 def test_cuda_sources_are_shipped():
     names = {p.name for p in (PKG / "csrc").glob("*.cu*")}
-    assert {"w8_matmul.cu", "decode_step.cu", "w8_common.cuh"} <= names
+    assert {"w8_matmul.cu", "decode_step.cu", "w8_common.cuh",
+            "q4_matmul.cu"} <= names
     pyproject = (REPO / "pyproject.toml").read_text()
     assert '"voxtral_tpu_torch" = ["csrc/*.cu", "csrc/*.cuh"]' in pyproject
 
@@ -139,6 +166,6 @@ def test_numpy_bf16_round_trip():
     from voxtral_tpu_torch.device import to_torch
 
     a = (np.arange(12, dtype=np.float32) / 7).astype(ml_dtypes.bfloat16)
-    t = to_torch(a)
+    t = to_torch(a, "cpu")
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.float().numpy(), a.astype(np.float32))

@@ -131,7 +131,7 @@ def test_cli_help(capsys):
 
 @pytest.mark.parametrize("argv", [
     ["--batch-files", "8"], ["--tp", "2"], ["--timestamps"],
-    ["--gguf", "m.gguf"], ["--server", "http://localhost:1"],
+    ["--params-cache", "d"], ["--server", "http://localhost:1"],
     ["--dtype", "bfloat16"], [],
 ])
 def test_cli_refuses_what_is_not_ported(argv, capsys, wav):

@@ -127,7 +127,7 @@ def test_w8_linear_matches_jax_xla_path():
                                    jax.tree_util.tree_map(jnp.asarray, w),
                                    prefer_pallas=False))
     got = tw8.w8_matmul(torch.from_numpy(x),
-                        {k: to_torch(v) for k, v in w.items()})
+                        {k: to_torch(v, "cpu") for k, v in w.items()})
     assert got.shape == (2, 3, 96)
     # XLA computes sx as absmax * f32(1/127) under jit (a division by a
     # constant becomes a multiply); the port divides by 127 as written,

@@ -3,24 +3,28 @@
 The JAX package ``voxtral_tpu`` stays the reference; this package mirrors
 its module names so each counterpart is easy to find:
 
-    device          — explicit device handling, numpy <-> torch, TF32 off
+    config, tokenizer, audio/
+                    — the port's own copies of the JAX package's
+                      framework-free modules (numpy log-mel only)
+    device          — explicit device handling (``cuda`` unless the
+                      caller passes ``"cpu"``), numpy <-> torch, TF32 off
     convert         — the JAX package's numpy parameter tree -> tensors
-    utils/quantize  — numpy random / rowwise-int8 parameter builders
+    loaders/        — GGUF reader / writer and the Q4_0 GGUF loader
+    utils/quantize  — numpy random / rowwise-int8 / Q4_0 parameter trees
     models/         — layers, encoder, adapter, decoder, full model
-    ops/            — w8 helpers and the hand-written Hopper kernels
-                      (csrc/*.cu, built with nvcc at first use)
+    ops/            — w8 and q4 helpers and the hand-written Hopper
+                      kernels (csrc/*.cu, built with nvcc at first use)
     pipeline, cli   — one-shot file transcription (sequential, sampled
-                      or speculative decode)
+                      or speculative decode; random w8 or GGUF weights)
 
-It imports ``torch`` and never ``jax``.  Three framework-free modules of
-the JAX package are reused as they are: ``voxtral_tpu.config``,
-``voxtral_tpu.audio`` and ``voxtral_tpu.tokenizer``; the two names a
-caller needs from them to build a pipeline are re-exported here.
+It imports ``torch`` and never ``jax``, and nothing of the JAX package
+``voxtral_tpu``: the framework-free modules it needs are copied here.
+The two names a caller needs to build a pipeline are re-exported.
 """
 
 __version__ = "0.1.0"
 
-from voxtral_tpu.config import VoxtralConfig
-from voxtral_tpu.tokenizer import VoxtralTokenizer
+from voxtral_tpu_torch.config import VoxtralConfig
+from voxtral_tpu_torch.tokenizer import VoxtralTokenizer
 
 __all__ = ["VoxtralConfig", "VoxtralTokenizer", "__version__"]

@@ -4,13 +4,17 @@ Usage:
     python -m voxtral_tpu_torch.cli --random-weights --dtype w8 --audio x.wav
     python -m voxtral_tpu_torch.cli --random-weights --speculative 8 \
         --draft-policy ngram --audio x.wav
+    python -m voxtral_tpu_torch.cli --gguf model.gguf --tokenizer \
+        tekken.json --weight-format q4g --audio x.wav
 
 Ported so far: ``--audio`` (repeatable), ``--random-weights``,
-``--params``, ``--dtype w8``, ``--delay``, ``--max-mel-frames``,
-``--tokenizer``, ``--speculative``, ``--draft-policy`` and ``--device``
-(default ``cuda``; without a card it exits with an error, and the CPU
-runs the kernels' plain versions only when asked for with ``--device
-cpu``).  The other flags of
+``--gguf`` with ``--weight-format {q4,q4g,w8}`` (default w8, as in the
+JAX CLI; a ``params.json`` beside the file or ``--params`` sets the
+architecture), ``--params``, ``--dtype w8``, ``--delay``,
+``--max-mel-frames``, ``--tokenizer``, ``--speculative``,
+``--draft-policy`` and ``--device`` (default ``cuda``; without a card it
+exits with an error, and the CPU runs the kernels' plain versions only
+when asked for with ``--device cpu``).  The other flags of
 ``voxtral_tpu/cli.py`` are recognised and exit with an error naming the
 ROADMAP item that ports them.  One line of text per audio file on stdout;
 logs on stderr.
@@ -27,9 +31,7 @@ from pathlib import Path
 _NOT_PORTED = {
     "--audio-list": (None, "queue 1, item 11 (batched multi-file input)"),
     "--model": (None, "queue 1, item 9 (SafeTensors loader)"),
-    "--gguf": (None, "queue 1, item 9 (GGUF loader)"),
     "--batch-files": (0, "queue 1, item 11 (batched multi-file decode)"),
-    "--weight-format": (None, "queue 1, item 9 (q4 / q4g formats)"),
     "--platform": (None, "none: the port takes --device instead"),
     "--tp": (1, "queue 1, item 12 (parallel)"),
     "--dp": (1, "queue 1, item 12 (parallel)"),
@@ -50,9 +52,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--random-weights", action="store_true",
                    help="Random w8 weights at the configuration's shapes "
                    "(no model download)")
+    p.add_argument("--gguf", metavar="PATH",
+                   help="Q4_0 GGUF checkpoint (needs --tokenizer)")
+    p.add_argument("--weight-format", choices=["q4", "q4g", "w8"],
+                   default="w8",
+                   help="GGUF path: q4 keeps packed int4 (per-op decode, "
+                   "the K3 kernel); q4g keeps exact Q4_0 codes + f16 group "
+                   "scales (the fused step in group-32 mode); w8 "
+                   "requantizes to rowwise int8 at load (default)")
     p.add_argument("--params",
                    help="params.json overriding the architecture "
-                   "(with --random-weights)")
+                   "(with --random-weights or --gguf)")
     p.add_argument("--dtype", choices=["bfloat16", "float32", "w8"],
                    default="w8", help="Weight format; only w8 is ported")
     p.add_argument("-d", "--delay", type=float, default=6.0,
@@ -98,9 +108,12 @@ def main(argv: list[str] | None = None) -> int:
     if args.dtype != "w8":
         return _error(f"--dtype {args.dtype} is not ported yet (ROADMAP "
                       "queue 1, item 9); only w8 runs")
-    if not args.random_weights:
-        return _error("loading real weights is not ported yet (ROADMAP "
-                      "queue 1, item 9); pass --random-weights")
+    if args.gguf and not (args.tokenizer or args.random_weights):
+        return _error("--gguf requires --tokenizer")
+    if not (args.random_weights or args.gguf):
+        return _error("loading SafeTensors weights (--model) is not ported "
+                      "yet (ROADMAP queue 1, item 9); pass --random-weights "
+                      "or --gguf")
     if not args.audio:
         return _error("no audio files specified (--audio)")
     if args.max_mel_frames <= 0:
@@ -110,11 +123,8 @@ def main(argv: list[str] | None = None) -> int:
 
     import torch
 
-    from voxtral_tpu.config import VoxtralConfig
-    from voxtral_tpu.tokenizer import VoxtralTokenizer
-    from voxtral_tpu_torch.models.voxtral import VoxtralModel
+    from voxtral_tpu_torch.config import VoxtralConfig
     from voxtral_tpu_torch.pipeline import PipelineConfig, TranscribePipeline
-    from voxtral_tpu_torch.utils.quantize import random_w8_params
 
     try:
         device = torch.device(args.device)
@@ -124,19 +134,35 @@ def main(argv: list[str] | None = None) -> int:
         return _error(f"--device {args.device}: no CUDA device is available "
                       "(torch.cuda.is_available() is False); pass --device "
                       "cpu to run the plain PyTorch versions on the CPU")
-    cfg = (VoxtralConfig.from_file(args.params) if args.params
-           else VoxtralConfig.voxtral())
-    log = logging.getLogger("voxtral_tpu_torch")
-    log.info("random w8 weights (seed 0) on %s", device)
-    model = VoxtralModel.from_numpy(random_w8_params(cfg), cfg, device)
-    if args.tokenizer:
-        tokenizer = VoxtralTokenizer.from_file(args.tokenizer)
-    else:
-        tokenizer = VoxtralTokenizer(
-            [None] * 131072, {1: "<s>", 32: "[STREAMING_PAD]"}, 131072)
-    pipeline = TranscribePipeline(model, tokenizer, PipelineConfig(
+    pcfg = PipelineConfig(
         delay_tokens=args.delay, max_mel_frames=args.max_mel_frames,
-        speculative=args.speculative, draft=args.draft_policy))
+        speculative=args.speculative, draft=args.draft_policy)
+    log = logging.getLogger("voxtral_tpu_torch")
+    if args.random_weights:
+        from voxtral_tpu_torch.models.voxtral import VoxtralModel
+        from voxtral_tpu_torch.tokenizer import VoxtralTokenizer
+        from voxtral_tpu_torch.utils.quantize import random_w8_params
+
+        cfg = (VoxtralConfig.from_file(args.params) if args.params
+               else VoxtralConfig.voxtral())
+        log.info("random w8 weights (seed 0) on %s", device)
+        model = VoxtralModel.from_numpy(random_w8_params(cfg), cfg, device)
+        if args.tokenizer:
+            tokenizer = VoxtralTokenizer.from_file(args.tokenizer)
+        else:
+            tokenizer = VoxtralTokenizer(
+                [None] * 131072, {1: "<s>", 32: "[STREAMING_PAD]"}, 131072)
+        pipeline = TranscribePipeline(model, tokenizer, pcfg)
+    else:
+        if not Path(args.gguf).exists():
+            return _error(f"GGUF file not found: {args.gguf}")
+        cfg = VoxtralConfig.from_file(args.params) if args.params else None
+        try:
+            pipeline = TranscribePipeline.from_gguf(
+                args.gguf, args.tokenizer, pcfg, config=cfg,
+                weight_format=args.weight_format, device=device)
+        except (ValueError, EOFError, KeyError) as exc:
+            return _error(f"failed to load GGUF model: {exc}")
 
     status = 0
     for path in args.audio:

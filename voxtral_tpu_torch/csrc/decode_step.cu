@@ -13,13 +13,20 @@
 //   (c) per-stream offsets as an int32 device vector and per-row RoPE
 //       vectors (build_valid, :1005-1043), read by each attention block
 //       itself, so the host launches a step without reading an offset.
+//   (h) g32 (q4g) weights: int8 codes (Q4_0 nibble - 8) with f16 group
+//       scales [N, K/32] in place of the w8 row scales, for the four
+//       stacks and the lm fold (_g32_mask_codes / _g32_matmul_tile,
+//       :84-123): the group-32 GEMVs of w8_common.cuh.  The JAX layouts
+//       [L, SB, N, 128] / [L, 4 SB, 1, N] f32 exist for Mosaic; here the
+//       codes keep the w8 layout [L, N, K] and the scales stay f16
+//       (1.0625 instead of 1.125 bytes per weight, the same values).
 // The TPU kernel is one pallas_call whose sequential grid carries the
 // residual across layers in VMEM.  CUDA blocks run in no order, so here
 // the step is a fixed sequence of small kernels on one stream, with the
 // residual in a [B, D] f32 buffer in HBM; per layer:
 //
 //   row_quant(norm)      rmsnorm x attn_norm, per-row int8 quant
-//   gemv qkv             W8A8 GEMV (w8_common.cuh)
+//   gemv qkv             W8A8 or g32 GEMV (w8_common.cuh)
 //   attn_step            pair RoPE, GQA attention over the bf16 cache
 //                        slots [max(0, off + j - window), off), the fresh
 //                        rows i < j of the stream and the row itself, one
@@ -352,7 +359,8 @@ inline void row_quant(const float* x, int ldx, int K, const float* w,
 
 // All pointers are device pointers; lm_codes == NULL skips the lm fold.
 // B rows = Bc streams x spec draft rows, ordered (stream, slot).
-// Layouts: x, xo [B, D] f32; norms / ada [L, D] f32; scales [L, N] f32;
+// Layouts: x, xo [B, D] f32; norms / ada [L, D] f32; scales [L, N] f32
+// (g32: [L, N, K/32] f16, lm_scale [V, D/32] f16);
 // cos / sin [hd] (rope_stride 0) or [B, hd] (rope_stride hd) f32,
 // pair-expanded; offs [Bc] int32 or NULL (then off0 for every stream);
 // caches [L, Bc, n_kv, S, hd] bf16; wqkv [L, nq + 2 nkv, D], wo [L, D, nq],
@@ -371,10 +379,12 @@ extern "C" int vx_decode_stack_step(
     void* sx_buf, void* qkv_buf, void* attn_buf, void* up_buf,
     const void* offs, int B, int D, int L, int S, int n_heads, int n_kv,
     int hd, int F, int V, int off0, int spec, int rope_stride, int window,
-    float eps, float scale, void* stream) {
+    int g32, float eps, float scale, void* stream) {
   using namespace vx;
   if (hd > kMaxHeadDim || hd % 2 || n_kv <= 0 || n_heads % n_kv ||
       spec < 1 || B % spec || (offs == nullptr && (off0 < 0 || off0 > S)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (g32 && (D % 32 || (n_heads * hd) % 32 || F % 32))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nq = n_heads * hd, nkv = n_kv * hd, nqkv = nq + 2 * nkv;
@@ -404,10 +414,25 @@ extern "C" int vx_decode_stack_step(
   const int8_t* Wo = static_cast<const int8_t*>(wo);
   const int8_t* W13 = static_cast<const int8_t*>(w13);
   const int8_t* W2 = static_cast<const int8_t*>(w2);
-  const float* Sqkv = static_cast<const float*>(sqkv);
-  const float* So = static_cast<const float*>(so);
-  const float* S13 = static_cast<const float*>(s13);
-  const float* S2 = static_cast<const float*>(s2);
+  // One linear of the step on the rows quantized in xq / sx: W8A8 (row
+  // scales [N] f32) or g32 (group scales [N, K/32] f16, mode (h)).
+  auto gemv = [&](const int8_t* W, const void* Sc, const float* resid,
+                  float* out, int N, int K) {
+    if (g32)
+      launch_g32_gemv(xq, sx, W, static_cast<const __half*>(Sc), resid, out,
+                      B, N, K, st);
+    else
+      launch_w8_gemv(xq, sx, W, static_cast<const float*>(Sc), resid, out, B,
+                     N, K, st);
+  };
+  // Layer l's scales of an [L, N] (w8) or [L, N, K/32] (g32) stack.
+  auto layer_scales = [&](const void* base, int l, int N,
+                          int K) -> const void* {
+    if (g32)
+      return static_cast<const __half*>(base) +
+             static_cast<size_t>(l) * N * (K / 32);
+    return static_cast<const float*>(base) + static_cast<size_t>(l) * N;
+  };
   const __nv_bfloat16* KC = static_cast<const __nv_bfloat16*>(kc);
   const __nv_bfloat16* VC = static_cast<const __nv_bfloat16*>(vc);
   __nv_bfloat16* KN = static_cast<__nv_bfloat16*>(kn);
@@ -420,33 +445,30 @@ extern "C" int vx_decode_stack_step(
   for (int l = 0; l < L; ++l) {
     row_quant(X, D, D, an + static_cast<size_t>(l) * D, nullptr, eps,
               kQuantNorm, B, xq, sx, st);
-    launch_w8_gemv(xq, sx, Wqkv + static_cast<size_t>(l) * nqkv * D,
-                   Sqkv + static_cast<size_t>(l) * nqkv, nullptr, qkv, B,
-                   nqkv, D, st);
+    gemv(Wqkv + static_cast<size_t>(l) * nqkv * D,
+         layer_scales(sqkv, l, nqkv, D), nullptr, qkv, nqkv, D);
     attn_step_kernel<<<dim3(n_heads, B), kAttnThreads, smem, st>>>(
         qkv, static_cast<const float*>(cosv), static_cast<const float*>(sinv),
         rope_stride, static_cast<const int*>(offs), off0, spec,
         KC + l * cache_layer, VC + l * cache_layer, KN + l * new_layer,
         VN + l * new_layer, att, S, window, n_heads, n_kv, hd, scale);
     row_quant(att, nq, nq, nullptr, nullptr, eps, kQuantPlain, B, xq, sx, st);
-    launch_w8_gemv(xq, sx, Wo + static_cast<size_t>(l) * D * nq,
-                   So + static_cast<size_t>(l) * D, X, X, B, D, nq, st);
+    gemv(Wo + static_cast<size_t>(l) * D * nq, layer_scales(so, l, D, nq), X,
+         X, D, nq);
     row_quant(X, D, D, fn + static_cast<size_t>(l) * D,
               av + static_cast<size_t>(l) * D, eps, kQuantNorm, B, xq, sx, st);
-    launch_w8_gemv(xq, sx, W13 + static_cast<size_t>(l) * 2 * F * D,
-                   S13 + static_cast<size_t>(l) * 2 * F, nullptr, up, B,
-                   2 * F, D, st);
+    gemv(W13 + static_cast<size_t>(l) * 2 * F * D,
+         layer_scales(s13, l, 2 * F, D), nullptr, up, 2 * F, D);
     row_quant(up, 2 * F, F, nullptr, nullptr, eps, kQuantSwiglu, B, xq, sx,
               st);
-    launch_w8_gemv(xq, sx, W2 + static_cast<size_t>(l) * D * F,
-                   S2 + static_cast<size_t>(l) * D, X, X, B, D, F, st);
+    gemv(W2 + static_cast<size_t>(l) * D * F, layer_scales(s2, l, D, F), X, X,
+         D, F);
   }
   if (lm_codes != nullptr) {
     row_quant(X, D, D, static_cast<const float*>(final_norm), nullptr, eps,
               kQuantNorm, B, xq, sx, st);
-    launch_w8_gemv(xq, sx, static_cast<const int8_t*>(lm_codes),
-                   static_cast<const float*>(lm_scale), nullptr,
-                   static_cast<float*>(logits), B, V, D, st);
+    gemv(static_cast<const int8_t*>(lm_codes), lm_scale, nullptr,
+         static_cast<float*>(logits), V, D);
   }
   return static_cast<int>(cudaGetLastError());
 }

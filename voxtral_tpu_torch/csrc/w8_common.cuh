@@ -24,10 +24,21 @@
 //    keep it a weight stream.
 //  * GEMM (M > 64: encoder, adapter): 64 x 64 output tiles, 64-byte K
 //    steps through shared memory, 4 x 4 dp4a outputs per thread.
+//
+// K1 mode (h) (q4g weights) runs the same GEMVs on group-32 codes: codes
+// [N, K] int8 (the Q4_0 nibble - 8), f16 group scales [N, K/32], and
+//
+//   out[m, n] = (float(sum_g z_g[m, n] * s[n, g]) * sx[m]) (+ resid)
+//
+// with z_g the exact int32 dot over group g (32 k) and the sum over the
+// groups in f64 (each z_g * s exact), rounded once: the order of the JAX
+// kernel's _g32_matmul_tile (the group sum, then * sx).  Needs K % 32 == 0
+// and 16-byte aligned rows.
 // Everything here has internal linkage, so both translation units may
 // include it.
 #pragma once
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -327,6 +338,196 @@ inline void launch_w8_gemv(const int8_t* xq, const float* sx,
       VX_GEMV_CASE(7)
       VX_GEMV_CASE(8)
 #undef VX_GEMV_CASE
+      default:
+        break;
+    }
+  }
+}
+
+__device__ __forceinline__ double warp_sum_f64(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// g32 GEMV, M <= 8: one warp per output row n, 16-byte loads as in
+// w8_gemv_kernel.  A lane's 16 bytes are half a group: the two lanes of
+// a group add their int32 partials (a shuffle) before the scale, so each
+// group's dot is exact.  The loop runs the same trip count on every
+// lane (the shuffle needs the whole warp).
+template <int M>
+__global__ void __launch_bounds__(256) g32_gemv_kernel(
+    const int8_t* __restrict__ xq, const float* __restrict__ sx,
+    const int8_t* __restrict__ codes, const __half* __restrict__ gscale,
+    const float* resid, float* out, int N, int K) {
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * kGemvWarps + (threadIdx.x >> 5);
+  if (n >= N) return;  // whole warps leave together
+  const int4* w4 = reinterpret_cast<const int4*>(codes + static_cast<size_t>(n) * K);
+  const __half* sr = gscale + static_cast<size_t>(n) * (K / 32);
+  const int4 zero = make_int4(0, 0, 0, 0);
+  double acc[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) acc[m] = 0.0;
+  const int nv = K >> 4;  // 16-byte chunks, two per group
+  for (int base = 0; base < nv; base += 32) {
+    const int i = base + lane;
+    const bool in = i < nv;  // nv is even: both lanes of a group agree
+    const int4 wv = in ? __ldg(w4 + i) : zero;
+    const double s = in ? static_cast<double>(__half2float(sr[i >> 1])) : 0.0;
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int4 xv =
+          in ? __ldg(reinterpret_cast<const int4*>(xq + static_cast<size_t>(m) * K) + i)
+             : zero;
+      int a = 0;
+      a = __dp4a(wv.x, xv.x, a);
+      a = __dp4a(wv.y, xv.y, a);
+      a = __dp4a(wv.z, xv.z, a);
+      a = __dp4a(wv.w, xv.w, a);
+      a += __shfl_xor_sync(0xffffffffu, a, 1);  // the group's exact dot
+      if ((lane & 1) == 0) acc[m] += static_cast<double>(a) * s;
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < M; ++m) acc[m] = warp_sum_f64(acc[m]);
+  if (lane == 0) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      float y = static_cast<float>(acc[m]) * sx[m];
+      const size_t o = static_cast<size_t>(m) * N + n;
+      if (resid != nullptr) y = resid[o] + y;
+      out[o] = y;
+    }
+  }
+}
+
+// g32 GEMV over M <= 16 * MT rows with int8 tensor-core mma, one warp per
+// 8 output rows as in w8_gemv_mma_kernel, but each m16n8k32 product is
+// exactly one group: lane (g, t) loads the 8 bytes at 32 grp + 8 t of
+// weight row n0 + g and of activation rows 16 i + g, 16 i + g + 8, so a
+// product's 32 k slots are the group's 32 bytes.  Its int32 fragment
+// (fresh each group) takes the group's scale before the f64 sum.
+template <int MT>
+__global__ void __launch_bounds__(32 * kMmaWarps) g32_gemv_mma_kernel(
+    const int8_t* __restrict__ xq, const float* __restrict__ sx,
+    const int8_t* __restrict__ codes, const __half* __restrict__ gscale,
+    const float* resid, float* out, int M, int N, int K) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = (blockIdx.x * kMmaWarps + (threadIdx.x >> 5)) * 8;
+  if (n0 >= N) return;  // whole warps leave together
+  const int n = n0 + g;
+  const int G = K / 32;
+  const int2 zero = make_int2(0, 0);
+  const int2* w2 = reinterpret_cast<const int2*>(
+      codes + static_cast<size_t>(n < N ? n : N - 1) * K);
+  // The two output columns of this lane's fragment, n0 + 2t + e.
+  const __half* s0 = gscale + static_cast<size_t>(min(n0 + 2 * t, N - 1)) * G;
+  const __half* s1 =
+      gscale + static_cast<size_t>(min(n0 + 2 * t + 1, N - 1)) * G;
+  const int2* x2[MT][2];
+  bool xin[MT][2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = 16 * i + 8 * h + g;
+      xin[i][h] = m < M;
+      x2[i][h] = reinterpret_cast<const int2*>(
+          xq + static_cast<size_t>(m < M ? m : 0) * K);
+    }
+  double acc[MT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0;
+  for (int grp = 0; grp < G; ++grp) {
+    const int c = 4 * grp + t;  // int2 index of bytes 32 grp + 8 t
+    const int2 w = n < N ? __ldg(w2 + c) : zero;
+    const double sc0 = __half2float(s0[grp]);
+    const double sc1 = __half2float(s1[grp]);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int2 lo = xin[i][0] ? __ldg(x2[i][0] + c) : zero;
+      const int2 hi = xin[i][1] ? __ldg(x2[i][1] + c) : zero;
+      int d[4] = {0, 0, 0, 0};
+      mma_s8(d, lo.x, hi.x, lo.y, hi.y, w.x, w.y);
+      acc[i][0] += static_cast<double>(d[0]) * sc0;
+      acc[i][1] += static_cast<double>(d[1]) * sc1;
+      acc[i][2] += static_cast<double>(d[2]) * sc0;
+      acc[i][3] += static_cast<double>(d[3]) * sc1;
+    }
+  }
+  // Fragment layout: acc[i][2 h + e] = row 16 i + 8 h + g, column
+  // n0 + 2 t + e.
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = 16 * i + 8 * h + g;
+      if (m >= M) continue;
+      const float s = sx[m];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int nn = n0 + 2 * t + e;
+        if (nn >= N) continue;
+        float y = static_cast<float>(acc[i][2 * h + e]) * s;
+        const size_t o = static_cast<size_t>(m) * N + nn;
+        if (resid != nullptr) y = resid[o] + y;
+        out[o] = y;
+      }
+    }
+}
+
+// g32 GEMV: the row counts of launch_w8_gemv (mma for 8 < M <= 64, dp4a
+// in groups of 8 rows otherwise).  Needs K % 32 == 0, aligned rows.
+inline void launch_g32_gemv(const int8_t* xq, const float* sx,
+                            const int8_t* codes, const __half* gscale,
+                            const float* resid, float* out, int M, int N,
+                            int K, cudaStream_t st) {
+  if (M > kDp4aMaxM && M <= kGemvMaxM) {
+    const dim3 grid((N + 8 * kMmaWarps - 1) / (8 * kMmaWarps));
+    const dim3 block(32 * kMmaWarps);
+    switch ((M + 15) / 16) {
+#define VX_G32_MMA_CASE(MT)                                             \
+  case MT:                                                              \
+    g32_gemv_mma_kernel<MT><<<grid, block, 0, st>>>(xq, sx, codes, gscale, \
+                                                    resid, out, M, N, K); \
+    break;
+      VX_G32_MMA_CASE(1)
+      VX_G32_MMA_CASE(2)
+      VX_G32_MMA_CASE(3)
+      VX_G32_MMA_CASE(4)
+#undef VX_G32_MMA_CASE
+      default:
+        break;
+    }
+    return;
+  }
+  const dim3 grid((N + kGemvWarps - 1) / kGemvWarps);
+  const dim3 block(32 * kGemvWarps);
+  for (int m0 = 0; m0 < M; m0 += kDp4aMaxM) {
+    const int mr = (M - m0 < kDp4aMaxM) ? (M - m0) : kDp4aMaxM;
+    const int8_t* x = xq + static_cast<size_t>(m0) * K;
+    const float* s = sx + m0;
+    const float* r = resid ? resid + static_cast<size_t>(m0) * N : nullptr;
+    float* o = out + static_cast<size_t>(m0) * N;
+    switch (mr) {
+#define VX_G32_CASE(MM)                                                    \
+  case MM:                                                                 \
+    g32_gemv_kernel<MM><<<grid, block, 0, st>>>(x, s, codes, gscale, r, o, \
+                                                N, K);                     \
+    break;
+      VX_G32_CASE(1)
+      VX_G32_CASE(2)
+      VX_G32_CASE(3)
+      VX_G32_CASE(4)
+      VX_G32_CASE(5)
+      VX_G32_CASE(6)
+      VX_G32_CASE(7)
+      VX_G32_CASE(8)
+#undef VX_G32_CASE
       default:
         break;
     }

@@ -1,7 +1,9 @@
 """Explicit device handling and dtype helpers.
 
 Every function of the port takes its device as an argument; nothing here
-sets a global default device.  The one process-wide setting the port
+sets a global default device.  An entry point given no device runs on
+the card (``cuda``); the CPU runs the kernels' plain versions only when
+the caller passes ``"cpu"``.  The one process-wide setting the port
 makes is :func:`disable_tf32`: float32 matmuls and convolutions run in
 full float32, as the JAX reference computes them.
 """
@@ -17,8 +19,17 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike) -> torch.device:
-    """``None`` means the CPU; anything else is passed to ``torch.device``."""
-    return torch.device("cpu") if device is None else torch.device(device)
+    """``None`` means the card (``cuda``); anything else is passed to
+    ``torch.device``.  Without a card, ``None`` raises: there is no
+    silent CPU fallback."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available (torch.cuda.is_available() is "
+            "False); pass device=\"cpu\" to run the plain PyTorch versions "
+            "of the kernels on the CPU")
+    return torch.device("cuda")
 
 
 def disable_tf32() -> None:

@@ -8,7 +8,7 @@ from typing import Any, Optional
 
 import torch
 
-from voxtral_tpu.config import LanguageModelConfig
+from voxtral_tpu_torch.config import LanguageModelConfig
 from voxtral_tpu_torch.models.layers import (
     AttentionSpec,
     KVCache,
@@ -18,6 +18,7 @@ from voxtral_tpu_torch.models.layers import (
     rms_norm,
     rope_tables,
 )
+from voxtral_tpu_torch.ops.q4 import q4_dequant_rows, q4_matmul
 from voxtral_tpu_torch.ops.w8 import w8_dequant_rows, w8_matmul
 
 Params = dict[str, Any]
@@ -33,22 +34,31 @@ def decoder_spec(cfg: LanguageModelConfig) -> AttentionSpec:
     )
 
 
-def _w8_table(params: Params) -> dict:
+def _quantized_table(params: Params) -> dict:
     emb = params["tok_embeddings"]
-    if not (isinstance(emb, dict) and "w8" in emb):
+    if not (isinstance(emb, dict) and ("w8" in emb or "q4" in emb)):
         raise NotImplementedError(
-            "only w8 embedding tables are ported (ROADMAP queue 1, item 9)")
-    return emb["w8"]
+            "only w8 and q4 embedding tables are ported (ROADMAP queue 1, "
+            "item 9)")
+    return emb
 
 
 def embed_tokens(params: Params, token_ids: torch.Tensor) -> torch.Tensor:
-    """[B, S] int -> [B, S, d_model] bf16 embeddings of the w8 table."""
-    return w8_dequant_rows(_w8_table(params), token_ids)
+    """[B, S] int -> [B, S, d_model] bf16 embeddings of the w8 or q4
+    table (gathered and dequantized on the device)."""
+    emb = _quantized_table(params)
+    if "q4" in emb:
+        return q4_dequant_rows(emb["q4"], token_ids)
+    return w8_dequant_rows(emb["w8"], token_ids)
 
 
 def lm_head(params: Params, hidden: torch.Tensor, mm=None) -> torch.Tensor:
-    """Tied embeddings: logits = hidden @ E^T in f32."""
-    return w8_matmul(hidden, _w8_table(params), mm=mm)
+    """Tied embeddings: logits = hidden @ E^T in f32.  ``mm`` as in
+    :func:`voxtral_tpu_torch.models.layers.linear`."""
+    emb = _quantized_table(params)
+    if "q4" in emb:
+        return q4_matmul(hidden, emb["q4"], mm=mm and mm.q4)
+    return w8_matmul(hidden, emb["w8"], mm=mm and mm.w8)
 
 
 def decoder_forward_hidden_with_cache(

@@ -11,7 +11,7 @@ from typing import Any
 
 import torch
 
-from voxtral_tpu.config import AudioEncoderConfig
+from voxtral_tpu_torch.config import AudioEncoderConfig
 from voxtral_tpu_torch.models.layers import (
     AttentionSpec,
     conv_downsample,

@@ -6,8 +6,10 @@ points so the two can be held against each other:
 * parameters are nested dicts; per-layer stacks carry a leading layer
   axis (:func:`layer_params` slices one layer);
 * dense linear weights are [in, out]; w8 leaves ``{"w8": {codes, scale}}``
-  are [out, in] and go through the W8A8 GEMM (``mm``, see
-  :func:`voxtral_tpu_torch.ops.w8.w8_matmul`);
+  are [out, in] and go through the W8A8 GEMM (see
+  :func:`voxtral_tpu_torch.ops.w8.w8_matmul`), q4 leaves ``{"q4": ...}``
+  through the q4 dispatch (:func:`voxtral_tpu_torch.ops.q4.q4_matmul`);
+  ``mm`` (a :class:`Matmuls`) picks the kernels or their plain versions;
 * matmuls accumulate in f32 and round back to the input dtype; norms,
   RoPE, softmax and GELU compute in f32;
 * RoPE rotates interleaved pairs (θ = 1e6); attention masks are banded
@@ -24,9 +26,26 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
+from voxtral_tpu_torch.ops.q4 import Q4MatmulFn, q4_matmul
+from voxtral_tpu_torch.ops.q4_kernel import q4_matmul_plain
 from voxtral_tpu_torch.ops.w8 import W8MatmulFn, w8_matmul
+from voxtral_tpu_torch.ops.w8_kernel import w8_matmul_plain
 
 Params = dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class Matmuls:
+    """The kernels a model's quantized linears run: the W8A8 GEMM (K2)
+    and the packed-q4 matmul (K3).  ``None`` fields (and ``mm=None``
+    everywhere) mean the kernel wrappers; :data:`PLAIN` runs the same
+    model through their plain versions."""
+
+    w8: Optional[W8MatmulFn] = None
+    q4: Optional[Q4MatmulFn] = None
+
+
+PLAIN = Matmuls(w8=w8_matmul_plain, q4=q4_matmul_plain)
 
 
 def layer_params(tree, l: int):
@@ -49,17 +68,22 @@ def n_stacked(tree) -> int:
 
 
 def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
-           mm: Optional[W8MatmulFn] = None) -> torch.Tensor:
+           mm: Optional[Matmuls] = None) -> torch.Tensor:
     """y = x @ w (+ b), accumulated in f32, returned in x's dtype.
 
-    ``w`` is a dense [in, out] tensor or a w8 dict (see ops/w8.py).
+    ``w`` is a dense [in, out] tensor, a w8 dict (see ops/w8.py) or a q4
+    dict (see ops/q4.py).
     """
     if isinstance(w, dict):
-        if "w8" not in w:
+        mm = mm or Matmuls()
+        if "w8" in w:
+            y = w8_matmul(x, w["w8"], mm=mm.w8)
+        elif "q4" in w:
+            y = q4_matmul(x, w["q4"], mm=mm.q4)
+        else:
             raise NotImplementedError(
                 f"weight format {sorted(w)} is not ported yet "
                 "(ROADMAP queue 1, item 9)")
-        y = w8_matmul(x, w["w8"], mm=mm)
     else:
         y = x.float() @ w.float()
     if b is not None:

@@ -1,5 +1,17 @@
 """Complete Voxtral Realtime model: greedy, sampled and speculative
-decode (port of the w8 fused route of ``voxtral_tpu/models/voxtral.py``).
+decode (port of the quantized routes of ``voxtral_tpu/models/voxtral.py``).
+
+Weight routes, as the JAX model picks them (``megakernel_mode``):
+
+* w8 leaves -> the fused step, K1 modes (a)-(c);
+* unpacked q4 leaves (``q4g``) with ``q4g_geometry_ok`` -> the fused
+  step in mode (h), the tied lm_head folded in when the table is q4g;
+* packed q4 leaves (``q4``), or q4g at other geometries -> the per-op
+  step: ``decoder_forward_hidden_with_cache`` per position, every
+  decoder linear and the lm_head through ``ops.q4.q4_matmul`` (K3 for
+  packed leaves); speculative decode rides the sequential loop there,
+  as JAX gates it on the fused step;
+* dense weights -> not ported yet (ROADMAP queue 1, item 9).
 
 Behaviour kept from the reference:
 
@@ -13,7 +25,7 @@ Behaviour kept from the reference:
   in one K1 ``spec=K`` step and keeps the exact-greedy prefix, so the
   tokens are the sequential ones for any draft.
 
-The sequential decode loop is a Python loop over positions on the
+The fused sequential decode loop is a Python loop over positions on the
 model's device: one K1 stack step (``ops/decode_step.py``) per token,
 the K/V append in place, the argmax fed back without a host round trip;
 the tokens reach the host once per call.  The speculative loop runs on
@@ -28,8 +40,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from voxtral_tpu.config import VoxtralConfig
-from voxtral_tpu.tokenizer import BOS_TOKEN, STREAMING_PAD
+from voxtral_tpu_torch.config import VoxtralConfig
+from voxtral_tpu_torch.tokenizer import BOS_TOKEN, STREAMING_PAD
 from voxtral_tpu_torch.device import DeviceLike, disable_tf32, resolve_device
 from voxtral_tpu_torch.models.adapter import (
     adapter_forward,
@@ -42,10 +54,9 @@ from voxtral_tpu_torch.models.decoder import (
     lm_head,
 )
 from voxtral_tpu_torch.models.encoder import encoder_forward
-from voxtral_tpu_torch.models.layers import rope_tables
+from voxtral_tpu_torch.models.layers import PLAIN, rms_norm, rope_tables
 from voxtral_tpu_torch.models.time_embedding import time_embedding
 from voxtral_tpu_torch.ops import decode_step as k1
-from voxtral_tpu_torch.ops import w8_kernel as k2
 
 Params = dict[str, Any]
 
@@ -148,7 +159,7 @@ def encode_audio_fn(params: Params, mel: torch.Tensor, cfg: VoxtralConfig,
 
 def transcribe_streaming_fn(params: Params, mel: torch.Tensor,
                             t_embed: torch.Tensor, cfg: VoxtralConfig,
-                            fused: Params, mm=None, step=None,
+                            fused: Optional[Params], mm=None, step=None,
                             margins: Optional[list] = None, *,
                             temperature: float = 0.0, top_k: int = 0,
                             seed: int = 0, speculative: int = 0,
@@ -156,11 +167,13 @@ def transcribe_streaming_fn(params: Params, mel: torch.Tensor,
                             passes: Optional[list] = None) -> torch.Tensor:
     """Transcription of a batch of mels -> int32 [B, S - 38].
 
-    ``fused``: the stacks of :func:`ops.decode_step.fuse_decode_weights`.
-    ``mm`` / ``step``: the W8A8 GEMM and the decode step (the kernel
-    wrappers by default; their plain versions run the same path without
-    the kernels).  ``temperature`` > 0 samples (top-k when ``top_k`` > 0)
-    from a generator seeded with ``seed``.  ``speculative=K >= 2``
+    ``fused``: the stacks of :func:`ops.decode_step.fuse_decode_weights`
+    or ``fuse_decode_weights_q4g`` (the K1 step), or None (the per-op
+    step).  ``mm`` / ``step``: the linears' kernels (a
+    :class:`~voxtral_tpu_torch.models.layers.Matmuls`) and the decode
+    step (the kernel wrappers by default; their plain versions run the
+    same path without the kernels).  ``temperature`` > 0 samples (top-k
+    when ``top_k`` > 0) from a generator seeded with ``seed``.  ``speculative=K >= 2``
     (greedy only, and at least one decode position) verifies K drafted
     tokens per pass with ``draft`` "ngram" or "pad"; sampling rides the
     sequential loop.  ``margins``, when a list, receives the top-2 logit
@@ -195,19 +208,29 @@ def transcribe_streaming_fn(params: Params, mel: torch.Tensor,
     if margins is not None:
         margins.append(_top2_margin(logits))
 
+    if fused is None:
+        return _per_op_decode(dec, audio_embeds, t_embed, token, cache,
+                              rope, lm_cfg, mm, gen, temperature, top_k,
+                              margins)
+
     ada_vecs = k1.ada_vectors(dec, t_embed, mm)
-    emb = dec["tok_embeddings"]["w8"]
-    step_kw = dict(
-        final_norm=dec["norm"].float(), lm_codes=emb["codes"],
-        lm_scale=emb["scale"], n_heads=lm_cfg.n_heads,
-        n_kv=lm_cfg.n_kv_heads, head_dim=lm_cfg.head_dim,
-        eps=lm_cfg.norm_eps, window=lm_cfg.sliding_window)
+    step_kw = dict(n_heads=lm_cfg.n_heads, n_kv=lm_cfg.n_kv_heads,
+                   head_dim=lm_cfg.head_dim, eps=lm_cfg.norm_eps,
+                   window=lm_cfg.sliding_window)
+    lm_kw = _lm_fold(dec, fused)
 
     def run_step(x, off, cos, sin, k_cache, v_cache, spec=1):
-        return step(x, off, fused["attn_norm"], fused["ffn_norm"], ada_vecs,
-                    fused["sqkv"], fused["so"], fused["s13"], fused["s2"],
-                    cos, sin, k_cache, v_cache, fused["wqkv"], fused["wo"],
-                    fused["w13"], fused["w2"], spec=spec, **step_kw)
+        out = step(x, off, fused["attn_norm"], fused["ffn_norm"], ada_vecs,
+                   fused["sqkv"], fused["so"], fused["s13"], fused["s2"],
+                   cos, sin, k_cache, v_cache, fused["wqkv"], fused["wo"],
+                   fused["w13"], fused["w2"], spec=spec, **lm_kw, **step_kw)
+        if lm_kw:
+            return out
+        # No lm fold (a q4g stack over another table): the final norm and
+        # the lm_head run after the step, as in JAX.
+        x_out, k_new, v_new = out
+        hidden = rms_norm(x_out, dec["norm"], lm_cfg.norm_eps)
+        return x_out, k_new, v_new, lm_head(dec, hidden, mm=mm)
 
     K = speculative
     spec = K >= 2 and temperature <= 0.0 and n_steps >= 1
@@ -241,6 +264,48 @@ def transcribe_streaming_fn(params: Params, mel: torch.Tensor,
         # leaves its inputs as they were.
         k_cache[:, :, :, off] = k_new
         v_cache[:, :, :, off] = v_new
+        token = select_token(logits, gen, temperature, top_k)
+        tokens[:, i + 1] = token
+        if margins is not None:
+            margins.append(_top2_margin(logits))
+    return tokens
+
+
+def _lm_fold(dec: Params, fused: Params) -> dict:
+    """The step's lm-fold arguments: the w8 table (row scales) or the
+    q4g table (group scales, from ``fuse_decode_weights_q4g``); none
+    when a q4g stack sits over a table it cannot fold."""
+    fold = dict(final_norm=dec["norm"].float())
+    if fused["sqkv"].dim() == 3:  # g32 stacks
+        if "lm_codes" not in fused:
+            return {}
+        return dict(fold, lm_codes=fused["lm_codes"],
+                    lm_scale=fused["lm_scale"])
+    emb = dec["tok_embeddings"]["w8"]
+    return dict(fold, lm_codes=emb["codes"], lm_scale=emb["scale"])
+
+
+def _per_op_decode(dec: Params, audio_embeds: torch.Tensor,
+                   t_embed: torch.Tensor, first: torch.Tensor, cache,
+                   rope, lm_cfg, mm, gen, temperature: float, top_k: int,
+                   margins: Optional[list]) -> torch.Tensor:
+    """The per-op sequential loop (JAX ``transcribe_streaming_fn``'s
+    ``else`` step, ``models/voxtral.py:547-563``): per position, the
+    decoder layers op by op over the prefilled [L, B, S, Hkv, hd] cache,
+    then the lm_head.  -> int32 [B, n_steps + 1]."""
+    batch, seq_len = audio_embeds.shape[0], audio_embeds.shape[1]
+    n_steps = seq_len - PREFIX_LEN - 1
+    tokens = torch.empty((batch, n_steps + 1), dtype=torch.int32,
+                         device=audio_embeds.device)
+    tokens[:, 0] = first
+    token = first
+    for i in range(n_steps):
+        off = PREFIX_LEN + i
+        text = embed_tokens(dec, token.long()[:, None])  # [B, 1, D]
+        hidden, cache = decoder_forward_hidden_with_cache(
+            dec, audio_embeds[:, off:off + 1, :] + text, t_embed, cache,
+            lm_cfg, rope, mm=mm)
+        logits = lm_head(dec, hidden[:, 0, :], mm=mm)
         token = select_token(logits, gen, temperature, top_k)
         tokens[:, i + 1] = token
         if margins is not None:
@@ -327,6 +392,15 @@ def _top2_margin(logits: torch.Tensor) -> torch.Tensor:
     return top[:, 0] - top[:, 1]
 
 
+def _quantized_layers(dec: Params) -> bool:
+    """Every decoder linear is a w8 or q4 leaf (the per-op step's
+    formats)."""
+    lyr = dec["layers"]
+    leaves = [*lyr["attention"].values(), *lyr["ffn"].values()]
+    return all(isinstance(w, dict) and ("w8" in w or "q4" in w)
+               for w in leaves)
+
+
 def _not_ported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported to voxtral_tpu_torch yet ({item})")
@@ -337,13 +411,15 @@ class VoxtralModel:
     speculative decode.
 
     ``params``: the port's tensor tree (see ``convert.params_from_numpy``)
-    with w8 decoder layers.  ``kernels=False`` runs the same path through
+    with w8 or q4 (packed or unpacked) decoder layers; the route follows
+    the JAX model (module docstring).  ``device``: where the tree lives
+    (``None``: the card).  ``kernels=False`` runs the same path through
     the plain PyTorch versions of the kernels (for comparison on the
     card; on the CPU the kernel wrappers take the plain versions anyway).
     """
 
-    # The w8 model computes the encoder, adapter and prefill in bf16, as
-    # the JAX w8 model does, and keeps a bf16 KV cache (K1's format).
+    # The quantized models compute the encoder, adapter and prefill in
+    # bf16, as the JAX models do, and keep a bf16 KV cache (K1's format).
     compute_dtype = torch.bfloat16
 
     def __init__(self, params: Params, config: Optional[VoxtralConfig] = None,
@@ -352,12 +428,24 @@ class VoxtralModel:
         self.device = resolve_device(device)
         self.params = params
         self.config = config or VoxtralConfig.voxtral()
-        wq = params["decoder"]["layers"]["attention"]["wq"]
-        if not (isinstance(wq, dict) and "w8" in wq):
-            _not_ported("decoding with dense, q4 or q4g weights",
+        lm = self.config.language_model
+        dec = params["decoder"]
+        mode = k1.megakernel_mode(dec, lm.head_dim)
+        # Which decode route runs: "w8" / "q4g" (the fused K1 step) or
+        # "per_op" (the decoder layers op by op).
+        if mode == "w8":
+            self.fused_decode = k1.fuse_decode_weights(dec)
+            self.decode_route = "w8"
+        elif mode == "q4g" and k1.q4g_geometry_ok(lm):
+            self.fused_decode = k1.fuse_decode_weights_q4g(dec)
+            self.decode_route = "q4g"
+        elif _quantized_layers(dec):
+            self.fused_decode = None
+            self.decode_route = "per_op"
+        else:
+            _not_ported("decoding with dense (bf16 / f32) weights",
                         "ROADMAP queue 1, item 9")
-        self.fused_decode = k1.fuse_decode_weights(params["decoder"])
-        self._mm = None if kernels else k2.w8_matmul_plain
+        self._mm = None if kernels else PLAIN
         self._step = k1.decode_stack_step if kernels \
             else k1.decode_stack_step_plain
         # Set to True to keep the top-2 logit margins of the last call
@@ -370,9 +458,11 @@ class VoxtralModel:
     @classmethod
     def from_numpy(cls, tree: Params, config: Optional[VoxtralConfig] = None,
                    device: DeviceLike = None, **kw) -> "VoxtralModel":
-        """Model from the JAX package's numpy parameter tree."""
+        """Model from the JAX package's numpy parameter tree, moved to
+        ``device`` (``None``: the card)."""
         from voxtral_tpu_torch.convert import params_from_numpy
 
+        device = resolve_device(device)
         return cls(params_from_numpy(tree, device), config, device, **kw)
 
     # -- API ----------------------------------------------------------------

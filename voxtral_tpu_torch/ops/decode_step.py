@@ -5,13 +5,18 @@ Replaces ``voxtral_tpu/ops/decode_step_pallas.py::decode_stack_step``
 bounded head-major cache, sliding window, final norm + tied lm_head
 folded into logits; (b) ``spec=K`` speculative verification, K draft
 rows per stream in one pass over the weights; (c) per-stream offsets
-(an int32 device vector) and per-row RoPE vectors.  Source:
+(an int32 device vector) and per-row RoPE vectors; (h) g32 (q4g)
+weights — int8 codes = Q4_0 nibble - 8 with their f16 group scales
+[L, N, K/32] in place of the row scales (the JAX ``[L, SB, N, 128]`` /
+``[L, 4 SB, 1, N]`` f32 layouts exist for Mosaic; the port keeps the w8
+code layout and the exact f16 scales, 1.0625 bytes per weight), for
+the stacks and the lm fold, combinable with (b) and (c).  Source:
 ``csrc/decode_step.cu``.
 
 What bounds it on the H100: the int8 weights streamed once per step —
 26 layers of wqkv / wo / w13 / w2 plus the 131072 x 3072 lm table, about
-3.4 GB at full width, shared by every row of the step (up to 64 rows
-per weight pass).  The simple design: a fixed sequence of kernels on
+3.4 GB at full width (3.64 GB with g32 scales), shared by every row of
+the step (up to 64 rows per weight pass).  The simple design: a fixed sequence of kernels on
 the current stream (row norm + int8 quant, W8A8 GEMV with 16-byte loads
 — ``__dp4a`` up to 8 rows, int8 tensor-core ``mma`` up to 64 — one RoPE
 + GQA attention block per (row, query head), residual adds fused into
@@ -21,8 +26,9 @@ without a host sync.  One call of the wrapper is one step and counts as
 one launch in ``decode_stack_step.launches``.
 
 Also here, the host-side preparation the JAX module holds beside the
-kernel: :func:`fuse_decode_weights`, :func:`ada_vectors` and
-:func:`rope_pair_vectors`.
+kernel: :func:`fuse_decode_weights`, :func:`fuse_decode_weights_q4g`,
+:func:`megakernel_mode`, :func:`q4g_geometry_ok`, :func:`ada_vectors`
+and :func:`rope_pair_vectors`.
 """
 
 from __future__ import annotations
@@ -70,6 +76,88 @@ def fuse_decode_weights(decoder_params: Params) -> Params:
         "attn_norm": lyr["attention_norm"].float(),
         "ffn_norm": lyr["ffn_norm"].float(),
     }
+
+
+def fuse_decode_weights_q4g(decoder_params: Params) -> Params:
+    """The step's g32 (mode (h)) stacks from unpacked q4 decoder params.
+
+    The unpacked leaves ({"codes": int8 [L, N, K], "scales": f16
+    [L, N, K/32]}) are the exact group-32 re-encoding of Q4_0, so the
+    step computes with Q4_0's own weights.  Returns wqkv / wo / w13 / w2
+    int8 [L, N, K] with f16 group-scale stacks sqkv / so / s13 / s2
+    [L, N, K/32], the f32 norm stacks, and lm_codes [V, D] / lm_scale
+    [V, D/32] when the token-embedding table is an unpacked q4 leaf (the
+    tied lm_head folds into the step).
+    """
+    lyr = decoder_params["layers"]
+    att, ffn = lyr["attention"], lyr["ffn"]
+
+    def parts(leaf):
+        q4 = leaf["q4"]
+        if "codes" not in q4:
+            raise ValueError(
+                "q4g fusing needs unpacked q4 leaves (codes + f16 scales); "
+                "packed codes carry bf16-rounded scales and stay per-op "
+                "(load with weight_format=\"q4g\")")
+        return q4["codes"], q4["scales"]
+
+    def codes(*leaves):
+        return torch.cat([parts(x)[0] for x in leaves], dim=1).contiguous()
+
+    def scales(*leaves):
+        return torch.cat([parts(x)[1] for x in leaves],
+                         dim=1).to(torch.float16).contiguous()
+
+    out = {
+        "wqkv": codes(att["wq"], att["wk"], att["wv"]),
+        "sqkv": scales(att["wq"], att["wk"], att["wv"]),
+        "wo": codes(att["wo"]), "so": scales(att["wo"]),
+        "w13": codes(ffn["w1"], ffn["w3"]),
+        "s13": scales(ffn["w1"], ffn["w3"]),
+        "w2": codes(ffn["w2"]), "s2": scales(ffn["w2"]),
+        "attn_norm": lyr["attention_norm"].float(),
+        "ffn_norm": lyr["ffn_norm"].float(),
+    }
+    emb = decoder_params.get("tok_embeddings")
+    if isinstance(emb, dict) and "q4" in emb and "codes" in emb["q4"]:
+        out["lm_codes"] = emb["q4"]["codes"].contiguous()
+        out["lm_scale"] = emb["q4"]["scales"].to(torch.float16).contiguous()
+    return out
+
+
+def q4g_geometry_ok(lm_cfg) -> bool:
+    """g32 mode needs every streamed contraction dim % 128 == 0 (the JAX
+    gate, kept so both packages route the same models to mode (h))."""
+    nq = lm_cfg.n_heads * lm_cfg.head_dim
+    return not (lm_cfg.dim % 128 or nq % 128 or lm_cfg.hidden_dim % 128)
+
+
+def megakernel_mode(decoder_params: Params, head_dim: int):
+    """Which stack-step weight mode this model supports, as the JAX
+    function decides it: "w8" (rowwise-int8 leaves), "q4g" (unpacked q4
+    leaves), "bf16" (dense bf16 leaves; not ported yet), or None (packed
+    q4 leaves, odd head_dim — the per-op decode step)."""
+    if head_dim % 2:
+        return None
+    lyr = decoder_params.get("layers", {})
+    att, ffn = lyr.get("attention", {}), lyr.get("ffn", {})
+    wq, w1 = att.get("wq"), ffn.get("w1")
+    if wq is None or w1 is None:
+        return None
+    if isinstance(wq, dict):
+        if "w8" in wq and isinstance(w1, dict) and "w8" in w1:
+            return "w8"
+        if "nt" in wq and isinstance(w1, dict) and "nt" in w1:
+            return "bf16"
+        if ("q4" in wq and isinstance(w1, dict) and "q4" in w1
+                and "codes" in wq["q4"] and "codes" in w1["q4"]
+                and wq["q4"]["codes"].shape[-1] % 128 == 0
+                and w1["q4"]["codes"].shape[-1] % 128 == 0):
+            return "q4g"
+        return None
+    if wq.dtype == torch.bfloat16 and not isinstance(w1, dict):
+        return "bf16"
+    return None
 
 
 def ada_vectors(decoder_params: Params, t_embed: torch.Tensor,
@@ -135,6 +223,34 @@ def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     ss = (xd * xd).sum(dim=-1, keepdim=True)
     var = (ss / torch.full_like(ss, x.shape[-1])).float()
     return x * (1.0 / torch.sqrt(var + eps)) * w
+
+
+def g32_matmul_plain(xq: torch.Tensor, sx: torch.Tensor, codes: torch.Tensor,
+                     scales: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernel's group-32 GEMV: xq [M, K] int8, sx
+    [M, 1], codes [N, K] int8, scales [N, K/32] f16 -> [M, N] f32 =
+    float(sum_g z_g * s_g) * sx, the exact group dots z_g and the sum
+    over the groups in f64 (rounded once, as the kernel)."""
+    m, k = xq.shape
+    n, g = codes.shape[0], k // 32
+    xg = xq.double().reshape(m, g, 32).transpose(0, 1)  # [G, M, 32]
+    out = []
+    for n0 in range(0, n, _G32_CHUNK):  # bounds the [G, M, chunk] product
+        cg = codes[n0:n0 + _G32_CHUNK].double().reshape(-1, g, 32)
+        z = torch.bmm(xg, cg.permute(1, 2, 0))  # [G, M, chunk], exact
+        s = scales[n0:n0 + _G32_CHUNK].double().T[:, None, :]
+        out.append((z * s).sum(dim=0).float())
+    return torch.cat(out, dim=1) * sx.reshape(-1, 1).float()
+
+
+_G32_CHUNK = 8192
+
+
+def _matmul_plain(xq, sx, codes, scales):
+    """The step's GEMV: W8A8 (scales [N]) or group-32 (scales [N, K/32])."""
+    if scales.dim() == 2:
+        return g32_matmul_plain(xq, sx, codes, scales)
+    return w8_matmul_plain(xq, sx, codes, scales)
 
 
 def _spec_streams(rows: int, cache_rows: int, spec: int) -> int:
@@ -212,13 +328,16 @@ def decode_stack_step_plain(
     K sequential steps).  Returns (x_out [B, D] f32, k_new, v_new
     [L, B, Hkv, hd] cache dtype[, logits [B, V] f32]).
 
-    Float reductions (sum of squares, scores, softmax sum, P.V) run in
-    f64 and round once to f32, as the CUDA kernel does: both agree bit
-    for bit whatever order each sums in.
+    Float reductions (sum of squares, scores, softmax sum, P.V, the g32
+    group sums) run in f64 and round once to f32, as the CUDA kernel
+    does: both agree bit for bit whatever order each sums in.  Mode (h):
+    g32 scale stacks [L, N, K/32] (and an lm scale [V, D/32]) select
+    the group-32 GEMV.
     """
     B, D = x.shape
     L = k_cache.shape[0]
     Bc = _spec_streams(B, k_cache.shape[1], spec)
+    _g32_mode(wqkv, wo, w13, w2, sqkv, so, s13, s2, lm_codes, lm_scale)
     nq, nkv = n_heads * head_dim, n_kv * head_dim
     hidden = w2.shape[2]
     c, s = cos_p.float(), sin_p.float()
@@ -229,7 +348,7 @@ def decode_stack_step_plain(
     k_new, v_new = [], []
     for l in range(L):
         h = _rms(x, attn_norms[l].float(), eps)
-        qkv = w8_matmul_plain(*_quant(h), wqkv[l], sqkv[l])
+        qkv = _matmul_plain(*_quant(h), wqkv[l], sqkv[l])
         q = qkv[:, :nq].reshape(B, n_heads, head_dim)
         k = qkv[:, nq:nq + nkv].reshape(B, n_kv, head_dim)
         v = qkv[:, nq + nkv:].reshape(B, n_kv, head_dim)
@@ -239,18 +358,18 @@ def decode_stack_step_plain(
         v_new.append(v.to(v_cache.dtype))
         attn = _attention_plain(q, k, v, k_cache[l], v_cache[l], offs,
                                 window, spec, n_kv, head_dim ** -0.5)
-        x = x + w8_matmul_plain(*_quant(attn), wo[l], so[l])
+        x = x + _matmul_plain(*_quant(attn), wo[l], so[l])
 
         h = _rms(x, ffn_norms[l].float(), eps) * ada_vecs[l].float()
-        up = w8_matmul_plain(*_quant(h), w13[l], s13[l])
+        up = _matmul_plain(*_quant(h), w13[l], s13[l])
         gate, upv = up[:, :hidden], up[:, hidden:]
         hmid = gate * (1.0 / (1.0 + torch.exp(-gate))) * upv
-        x = x + w8_matmul_plain(*_quant(hmid), w2[l], s2[l])
+        x = x + _matmul_plain(*_quant(hmid), w2[l], s2[l])
     out = (x, torch.stack(k_new), torch.stack(v_new))
     if lm_codes is None:
         return out
     h = _rms(x, final_norm.float(), eps)
-    return (*out, w8_matmul_plain(*_quant(h), lm_codes, lm_scale))
+    return (*out, _matmul_plain(*_quant(h), lm_codes, lm_scale))
 
 
 # ---------------------------------------------------------------------------
@@ -261,6 +380,32 @@ def decode_stack_step_plain(
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"decode_stack_step: {msg}")
+
+
+def _g32_mode(wqkv, wo, w13, w2, sqkv, so, s13, s2, lm_codes,
+              lm_scale) -> bool:
+    """True for mode (h): g32 scale stacks [L, N, K/32].  ValueError as
+    the JAX wrapper's guards (``decode_step_pallas.py:1415-1428``,
+    ``:1464-1468``) for what g32 mode cannot take."""
+    wg = sqkv is not None and sqkv.dim() == 3
+    if not wg:
+        return False
+    if any(w.dtype != torch.int8 for w in (wqkv, wo, w13, w2)):
+        raise ValueError("g32 stack weights must be int8 codes")
+    for w, s in ((wqkv, sqkv), (wo, so), (w13, s13), (w2, s2)):
+        if s is None or s.dim() != 3 or w.shape[2] % 32 or tuple(
+                s.shape) != (*w.shape[:2], w.shape[2] // 32):
+            raise ValueError("g32 mode needs [L, N, K/32] group-scale "
+                             "stacks (fuse_decode_weights_q4g)")
+    if lm_codes is not None:
+        if lm_codes.dtype != torch.int8:
+            raise ValueError("lm_codes dtype must match the weight mode")
+        if (lm_codes.dim() != 2 or lm_scale is None or lm_scale.dim() != 2
+                or tuple(lm_scale.shape) != (lm_codes.shape[0],
+                                             lm_codes.shape[1] // 32)):
+            raise ValueError("g32 lm fold needs codes [V, D] + scales "
+                             "[V, D/32] (fuse_decode_weights_q4g)")
+    return True
 
 
 def decode_stack_step(
@@ -283,7 +428,8 @@ def decode_stack_step(
     only); fused w8 stacks from :func:`fuse_decode_weights`; ``window`` =
     sliding window (None: no lower bound).  ``spec=K > 1`` verifies K
     drafted tokens per stream: row j also attends the fresh K/V of rows
-    i < j of its stream.  Returns (x_out, k_new, v_new[, logits]) like
+    i < j of its stream.  g32 stacks from :func:`fuse_decode_weights_q4g`
+    select mode (h).  Returns (x_out, k_new, v_new[, logits]) like
     :func:`decode_stack_step_plain`, k_new / v_new [L, B, Hkv, hd]; the
     caller appends them.
 
@@ -304,6 +450,8 @@ def decode_stack_step(
     B, D = x.shape
     L, Bc, Hkv, S, hd = k_cache.shape
     Bc = _spec_streams(B, Bc, spec)
+    g32 = _g32_mode(wqkv, wo, w13, w2, sqkv, so, s13, s2, lm_codes,
+                    lm_scale)
     nq, nkvd = n_heads * head_dim, n_kv * head_dim
     F = w2.shape[2]
     offs = None
@@ -323,15 +471,21 @@ def decode_stack_step(
     _require(head_dim % 2 == 0 and head_dim <= 256 and n_heads % n_kv == 0,
              "head_dim must be even and <= 256, n_kv must divide n_heads")
     rope_shape = (head_dim,) if cos_p.dim() == 1 else (B, head_dim)
+    # Row scales [L, N] f32 (w8) or group scales [L, N, K/32] f16 (g32).
+    sdt = torch.float16 if g32 else torch.float32
+
+    def sshape(n, k):
+        return (L, n, k // 32) if g32 else (L, n)
+
     expect = {
         "x": (x, torch.float32, (B, D)),
         "attn_norms": (attn_norms, torch.float32, (L, D)),
         "ffn_norms": (ffn_norms, torch.float32, (L, D)),
         "ada_vecs": (ada_vecs, torch.float32, (L, D)),
-        "sqkv": (sqkv, torch.float32, (L, nq + 2 * nkvd)),
-        "so": (so, torch.float32, (L, D)),
-        "s13": (s13, torch.float32, (L, 2 * F)),
-        "s2": (s2, torch.float32, (L, D)),
+        "sqkv": (sqkv, sdt, sshape(nq + 2 * nkvd, D)),
+        "so": (so, sdt, sshape(D, nq)),
+        "s13": (s13, sdt, sshape(2 * F, D)),
+        "s2": (s2, sdt, sshape(D, F)),
         "cos_p": (cos_p, torch.float32, rope_shape),
         "sin_p": (sin_p, torch.float32, rope_shape),
         "k_cache": (k_cache, torch.bfloat16, (L, Bc, n_kv, S, head_dim)),
@@ -346,7 +500,8 @@ def decode_stack_step(
         V = lm_codes.shape[0]
         expect["final_norm"] = (final_norm, torch.float32, (D,))
         expect["lm_codes"] = (lm_codes, torch.int8, (V, D))
-        expect["lm_scale"] = (lm_scale, torch.float32, (V,))
+        expect["lm_scale"] = (lm_scale, sdt,
+                              (V, D // 32) if g32 else (V,))
     for name, (t, dtype, shape) in expect.items():
         _require(t is not None and t.dtype == dtype
                  and tuple(t.shape) == shape,
@@ -370,7 +525,7 @@ def decode_stack_step(
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    fn = kernel_fn("vx_decode_stack_step", [_P] * 29 + [_I] * 13
+    fn = kernel_fn("vx_decode_stack_step", [_P] * 29 + [_I] * 14
                    + [_F, _F, _P])
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = fn(
@@ -382,8 +537,8 @@ def decode_stack_step(
         ptr(xq_buf), ptr(sx_buf), ptr(qkv_buf), ptr(attn_buf), ptr(up_buf),
         ptr(offs), B, D, L, S, n_heads, n_kv, head_dim, F, V, offset, spec,
         0 if cos_p.dim() == 1 else head_dim,
-        -1 if window is None else int(window), eps, head_dim ** -0.5,
-        stream)
+        -1 if window is None else int(window), int(g32), eps,
+        head_dim ** -0.5, stream)
     check(code, "decode_stack_step")
     decode_stack_step.launches += 1
     out = (x_out, k_new, v_new)

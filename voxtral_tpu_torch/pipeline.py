@@ -7,28 +7,35 @@ model transcribe (chunks of one padded length decode as one batch) ->
 decode tokens (control tokens filtered) -> join chunk texts.
 
 The log-mel always runs on the host here: the port has no device mel
-yet (ROADMAP queue 1, item 10).
+yet (ROADMAP queue 1, item 10).  Models come from a parameter tree
+(``VoxtralModel``) or from a Q4_0 GGUF file (:meth:`TranscribePipeline.
+from_gguf`, weight formats q4 / q4g / w8).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import time
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
-from voxtral_tpu.audio import (
+from voxtral_tpu_torch.audio import (
     AudioBuffer,
     ChunkConfig,
     MelSpectrogram,
     PadConfig,
     chunk_audio,
+    load_wav,
     pad_audio,
     resample_to_16k,
 )
-from voxtral_tpu.tokenizer import VoxtralTokenizer
+from voxtral_tpu_torch.config import VoxtralConfig
+from voxtral_tpu_torch.device import DeviceLike, resolve_device
 from voxtral_tpu_torch.models.voxtral import PREFIX_LEN, VoxtralModel
+from voxtral_tpu_torch.tokenizer import VoxtralTokenizer
 
 log = logging.getLogger("voxtral_tpu_torch")
 
@@ -78,6 +85,46 @@ class TranscribePipeline:
         self.chunk_config = ChunkConfig.voxtral().with_max_frames(
             self.pcfg.max_mel_frames)
 
+    @classmethod
+    def from_gguf(
+        cls,
+        gguf_path,
+        tokenizer_path,
+        pipeline_config: Optional[PipelineConfig] = None,
+        config: Optional[VoxtralConfig] = None,
+        weight_format: str = "q4",
+        device: DeviceLike = None,
+        params_cache=None,
+    ) -> "TranscribePipeline":
+        """Q4_0 GGUF path (JAX ``TranscribePipeline.from_gguf``).
+
+        Architecture config: explicit ``config`` > a ``params.json`` next
+        to the GGUF file > production defaults.  ``weight_format``: "q4"
+        (packed, per-op decode on K3), "q4g" (exact Q4_0, K1 mode (h)) or
+        "w8" (requantized at load).  ``device``: ``None`` is the card.
+        """
+        from voxtral_tpu_torch.loaders.gguf_loader import Q4ModelLoader
+
+        if params_cache:
+            raise NotImplementedError(
+                "params_cache is not ported to voxtral_tpu_torch yet "
+                "(ROADMAP queue 1, item 9)")
+        device = resolve_device(device)
+        gguf_path = Path(gguf_path)
+        if config is None:
+            sidecar = gguf_path.parent / "params.json"
+            if sidecar.exists():
+                config = VoxtralConfig.from_file(sidecar)
+                log.info("using architecture config from %s", sidecar)
+        t0 = time.time()
+        loader = Q4ModelLoader.from_file(gguf_path, cfg=config,
+                                         weight_format=weight_format)
+        model = VoxtralModel(loader.load(device), loader.cfg, device)
+        log.info("loaded GGUF Q4 weights (%s) in %.1fs on %s", weight_format,
+                 time.time() - t0, device)
+        return cls(model, VoxtralTokenizer.from_file(tokenizer_path),
+                   pipeline_config)
+
     def transcribe_samples(self, samples: np.ndarray,
                            sample_rate: int = 16000) -> str:
         """Transcribe a mono float32 sample buffer."""
@@ -89,8 +136,6 @@ class TranscribePipeline:
         return " ".join(texts)
 
     def transcribe_file(self, path) -> str:
-        from voxtral_tpu.audio import load_wav
-
         audio = load_wav(path)
         return self.transcribe_samples(audio.samples, audio.sample_rate)
 

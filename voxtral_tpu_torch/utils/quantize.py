@@ -1,7 +1,8 @@
-"""Host-side (numpy) builders of w8 parameter trees.
+"""Host-side (numpy) construction of w8 and Q4_0 parameter trees.
 
-numpy copies of ``voxtral_tpu/utils/quantize.py::random_w8_params`` and
-``::quantize_params_w8`` (that module reaches jax through ``ops/q4.py``).
+numpy copies of ``voxtral_tpu/utils/quantize.py``'s
+``random_w8_params``, ``quantize_params_w8``, ``random_q4_params`` and
+``quantize_params_q4`` (the port imports nothing of the JAX package).
 The trees are the JAX package's own format — numpy leaves,
 ``{"w8": {"codes", "scale"}}`` dicts, bfloat16 ``ml_dtypes`` arrays and
 ``[L, ...]`` stacks — so one tree feeds both packages
@@ -14,6 +15,8 @@ from typing import Any
 
 import numpy as np
 
+from voxtral_tpu_torch.ops.q4 import quantize_q4_0, repack_q4_0
+from voxtral_tpu_torch.ops.q4_kernel import pack_codes, transpose_scales
 from voxtral_tpu_torch.ops.w8 import quantize_w8_rowwise
 
 Params = dict[str, Any]
@@ -25,6 +28,23 @@ _LINEAR_KEYS = {
     "ada": {"w0", "w2"},
     "adapter": {"w1", "w2"},
 }
+
+
+def _quantize_matrix(w_nk: np.ndarray, pack: bool = True) -> dict:
+    """[N, K] f32 -> q4 leaf (packed where K3 takes the shape: K % 256
+    == 0 and N % 128 == 0), or None when K % 32 != 0 (kept dense).
+
+    ``pack=False`` keeps the unpacked {codes, f16 scales} form (q4g)."""
+    n, k = w_nk.shape
+    if k % 32 != 0:
+        return None
+    q4 = repack_q4_0(quantize_q4_0(w_nk), (n, k))
+    if pack and k % 256 == 0 and n % 128 == 0:
+        q4 = {
+            "codes_packed": pack_codes(q4["codes"]),
+            "scales_t": transpose_scales(q4["scales"]),
+        }
+    return {"q4": q4}
 
 
 def _rand_w8(rng, *shape) -> dict:
@@ -145,6 +165,133 @@ def quantize_params_w8(params: Params) -> Params:
                     }}
                 else:
                     out[key] = q_matrix(w.T)
+            else:
+                out[key] = val
+        return out
+
+    return {
+        "encoder": walk(params["encoder"], "encoder"),
+        "decoder": walk(params["decoder"], "decoder"),
+        "adapter": walk(params["adapter"], "adapter"),
+    }
+
+
+def random_q4_params(cfg, seed: int = 0, pack: bool = True) -> Params:
+    """Random production-shape Q4_0 params, built on the host: every
+    linear quantized from normal(0, 0.02) draws, one draw per layer
+    (the JAX package's draw order, so the trees are equal).  ``pack``
+    as in :func:`_quantize_matrix`."""
+    import ml_dtypes
+
+    rng = np.random.default_rng(seed)
+    e, l, a = cfg.audio_encoder, cfg.language_model, cfg.adapter
+    tc = cfg.ada_rms_norm_t_cond_dim or 32
+    bf16 = np.dtype(ml_dtypes.bfloat16)
+
+    def rand_q4(n, k):
+        return _quantize_matrix(
+            rng.normal(size=(n, k)).astype(np.float32) * 0.02, pack=pack)
+
+    def rand_q4_stack(n_layers, n, k):
+        qs = [rand_q4(n, k) for _ in range(n_layers)]
+        return {"q4": {kk: np.stack([q["q4"][kk] for q in qs])
+                       for kk in qs[0]["q4"]}}
+
+    def rand_dense(*shape):
+        return (rng.normal(size=shape).astype(np.float32) * 0.02).astype(bf16)
+
+    qd_e = e.n_heads * e.head_dim
+    encoder = {
+        "conv": {
+            "conv1": rand_dense(e.dim, 128, 3), "conv1_b": np.zeros(e.dim, bf16),
+            "conv2": rand_dense(e.dim, e.dim, 3), "conv2_b": np.zeros(e.dim, bf16),
+        },
+        "layers": {
+            "attention_norm": np.ones((e.n_layers, e.dim), bf16),
+            "attention": {
+                "wq": rand_q4_stack(e.n_layers, qd_e, e.dim),
+                "wq_b": np.zeros((e.n_layers, qd_e), bf16),
+                "wk": rand_q4_stack(e.n_layers, qd_e, e.dim),
+                "wv": rand_q4_stack(e.n_layers, qd_e, e.dim),
+                "wv_b": np.zeros((e.n_layers, qd_e), bf16),
+                "wo": rand_q4_stack(e.n_layers, e.dim, qd_e),
+                "wo_b": np.zeros((e.n_layers, e.dim), bf16),
+            },
+            "ffn_norm": np.ones((e.n_layers, e.dim), bf16),
+            "ffn": {
+                "w1": rand_q4_stack(e.n_layers, e.hidden_dim, e.dim),
+                "w2": rand_q4_stack(e.n_layers, e.dim, e.hidden_dim),
+                "w2_b": np.zeros((e.n_layers, e.dim), bf16),
+                "w3": rand_q4_stack(e.n_layers, e.hidden_dim, e.dim),
+            },
+        },
+        "norm": np.ones(e.dim, bf16),
+    }
+    qd = l.n_heads * l.head_dim
+    kvd = l.n_kv_heads * l.head_dim
+    decoder = {
+        "tok_embeddings": rand_q4(l.vocab_size, l.dim),
+        "layers": {
+            "ada": {
+                "w0": rand_q4_stack(l.n_layers, tc, l.dim),
+                "w2": rand_q4_stack(l.n_layers, l.dim, tc),
+            },
+            "attention_norm": np.ones((l.n_layers, l.dim), bf16),
+            "attention": {
+                "wq": rand_q4_stack(l.n_layers, qd, l.dim),
+                "wk": rand_q4_stack(l.n_layers, kvd, l.dim),
+                "wv": rand_q4_stack(l.n_layers, kvd, l.dim),
+                "wo": rand_q4_stack(l.n_layers, l.dim, qd),
+            },
+            "ffn_norm": np.ones((l.n_layers, l.dim), bf16),
+            "ffn": {
+                "w1": rand_q4_stack(l.n_layers, l.hidden_dim, l.dim),
+                "w2": rand_q4_stack(l.n_layers, l.dim, l.hidden_dim),
+                "w3": rand_q4_stack(l.n_layers, l.hidden_dim, l.dim),
+            },
+        },
+        "norm": np.ones(l.dim, bf16),
+    }
+    adapter = {
+        "w1": rand_q4(a.output_dim, a.input_dim),
+        "w2": rand_q4(a.output_dim, a.output_dim),
+    }
+    return {"encoder": encoder, "decoder": decoder, "adapter": adapter}
+
+
+def quantize_params_q4(params: Params, pack: bool = True) -> Params:
+    """Quantize a dense numpy tree's attention / FFN / ADA / adapter
+    linears and tok_embeddings to Q4_0 (norms, biases and the conv stay
+    dense, as the GGUF export keeps them).  ``pack`` as in
+    :func:`_quantize_matrix`; a matrix whose K is not a multiple of 32
+    stays dense."""
+
+    def walk(node, parent_key: str):
+        if not isinstance(node, dict):
+            return node
+        out = {}
+        for key, val in node.items():
+            if isinstance(val, dict):
+                out[key] = walk(val, key)
+            elif key == "tok_embeddings":
+                q = _quantize_matrix(np.asarray(val, dtype=np.float32),
+                                     pack=pack)  # [V, D]: K = D
+                out[key] = q if q is not None else val
+            elif (key in _LINEAR_KEYS.get(parent_key, set())
+                  and getattr(val, "ndim", 0) >= 2):
+                w = np.asarray(val, dtype=np.float32)
+                if w.ndim == 3:  # [L, in, out] -> per-layer [out, in]
+                    qs = [_quantize_matrix(w[i].T, pack=pack)
+                          for i in range(w.shape[0])]
+                    if any(q is None for q in qs):
+                        out[key] = val
+                    else:
+                        out[key] = {"q4": {
+                            kk: np.stack([q["q4"][kk] for q in qs])
+                            for kk in qs[0]["q4"]}}
+                else:
+                    q = _quantize_matrix(w.T, pack=pack)
+                    out[key] = q if q is not None else val
             else:
                 out[key] = val
         return out
