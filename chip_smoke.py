@@ -40,9 +40,30 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              write_gguf; ``python -m voxtral_tpu_torch.cli --gguf ...
              --weight-format {q4,q4g,w8}`` on the card, each exiting 0
              with the library path's text.
-8. numbers — RTF, decode ms/token, the weight stream per decode step
-             against its bound, passes, peak GPU memory, each beside the
-             card name and power limit.
+8. stream  — live sessions (voxtral_tpu_torch.StreamingSession), each
+             right after the one-shot phase whose model it reuses.  8a
+             (w8): K1 mode (d), the head+ring mask, against its plain
+             version at full width (S = 8238, ring (38, 8200), before and
+             after the wrap, the head outside the window, spec=8 rows
+             straddling the ring's end), timed with the window full and
+             at a short history; a 45 s chirp fed in ragged pieces to a
+             bounded (120 s) and an unbounded session, tokens against
+             the same sessions through the plain versions, bounded
+             against unbounded and the unbounded session against the
+             one-shot path (near-tie rules), speculative=8 with pad and
+             ngram drafts against sequential; a session restored 2P
+             positions short of the decoder ring's wrap runs 6 steps
+             through it, kernels against plain.  8b (q4g): K1 (d) in g32
+             and the unbounded session, sequential and speculative.  8c
+             (q4): a short bounded session on the per-op step (K3 launch
+             count).  Every session runs with the launch counters set to
+             0 just before and read just after (K1 launches == positions
+             after the first step, or == passes).
+9. numbers — RTF, decode ms/token, the weight stream per decode step
+             against its bound, passes, peak GPU memory, the sessions'
+             step ms and step RTF against the step's bound, time to first
+             text, tokens per pass, cache bytes, each beside the card
+             name and power limit.
 
 The full-width q4 / q4g trees tile ONE quantized random layer per stack
 (as random_w8_params tiles its codes): quantizing 4 billion normal
@@ -104,6 +125,14 @@ MARGIN_TIE = 1e-3
 # test allows 2e-3 relative, tests/test_spec_decode.py); with logits of
 # about +-3.5 a flip is a near-tie below 2e-3 x 3.5 ~ 1e-2.
 SPEC_MARGIN_TIE = 1e-2
+# Bounded against unbounded sessions, and a session against the one-shot
+# path: the plain attention of the encoder (and of the per-op first step)
+# sums its f32 scores and weights over caches of another length (and,
+# once the encoder ring wraps, in another slot order), so its
+# bf16-rounded output may move by one bf16 ulp (2^-8 relative), which
+# the bf16 layers after it carry to the logits: as for spec against
+# sequential, a flip is a near-tie below 1e-2.
+LAYOUT_MARGIN_TIE = 1e-2
 SPEC_K = 8
 
 
@@ -568,7 +597,7 @@ def run_w8(cfg, dev, card, sig, tok):
                k1w["spec8"][1])
     return dict(k2_err=k2_err, k2_times=k2_times, k1=k1w,
                 launches=launches, spec_runs=spec_runs, n_tok=n_tok,
-                n_steps=n_steps)
+                n_steps=n_steps, model=model, plain=plain)
 
 
 def report(tag, wall, enc_s, n_tok, peak, card, passes=None, n_steps=None,
@@ -784,7 +813,7 @@ def run_q4g(tree, cfg, dev, card, sig, tok, n_tok):
           f"GB/s; bound {step_bytes / HBM_BPS * 1e3:.4f} ms [{card}]",
           flush=True)
     return dict(k1=k1h, launches=launches, spec_launches=s_launch,
-                passes=passes)
+                passes=passes, model=model, plain=plain)
 
 
 def run_q4(tree, cfg, dev, card, sig, tok, n_tok):
@@ -834,7 +863,443 @@ def run_q4(tree, cfg, dev, card, sig, tok, n_tok):
           f"(packed codes + bf16 scales, lm_head included) / {step_ms:.3f} "
           f"ms per token end to end = {step_bytes / step_ms / 1e6:.1f} GB/s;"
           f" bound {step_bytes / HBM_BPS * 1e3:.4f} ms [{card}]", flush=True)
-    return dict(launches=launches)
+    return dict(launches=launches, model=model, plain=plain)
+
+
+# ---------------------------------------------------------------------------
+# Streaming sessions
+# ---------------------------------------------------------------------------
+
+STREAM_SECS = 45.0     # w8: past the encoder ring's wrap (~38 s)
+Q4G_STREAM_SECS = 20.0
+Q4_STREAM_SECS = 8.0
+P_STEP = 8             # decoder positions per steady step (1.28 s)
+# K1 mode (d) at full width: (offset, spec) — before any wrap, the last
+# slot before it, wrapped, wrapped with the head outside the window, and
+# spec rows straddling the ring's end / far past it.
+RING_CASES = [(100, 1), (8237, 1), (8241, 1), (16000, 1), (8234, SPEC_K),
+              (16000, SPEC_K)]
+
+
+def stream_signal(secs: float) -> np.ndarray:
+    """A slow speech-band chirp (200 Hz + 60 Hz/s), peak 0.95."""
+    t = np.arange(int(secs * SR)) / SR
+    sig = np.sin(2 * np.pi * (200 + 60 * t) * t)
+    return (0.95 * sig / np.abs(sig).max()).astype(np.float32)
+
+
+def ragged_pieces(sig: np.ndarray, seed: int = 4) -> list:
+    """0.16 s pieces, every seventh of an odd size (1 .. 6000 samples)."""
+    rng = np.random.default_rng(seed)
+    sizes = [int(rng.integers(1, 6000)) if i % 7 == 3 else 2560
+             for i in range(len(sig) // 1000 + 8)]
+    cuts = np.cumsum(sizes)
+    return np.split(sig, cuts[cuts < len(sig)])
+
+
+def ring_geometry(lm):
+    """The unbounded session's decoder ring (38, window + P) and S."""
+    from voxtral_tpu_torch.models.voxtral import PREFIX_LEN
+
+    ring = (PREFIX_LEN, lm.sliding_window + P_STEP)
+    return ring, sum(ring)
+
+
+def check_k1_ring(model, dev, card):
+    """K1 mode (d) against its plain version at full width: a head+ring
+    cache of S = 8238 slots, ring (38, 8200), window 8192, at every
+    RING_CASES entry (bit-equal within K1_RTOL / KV_RTOL); timed at
+    offset 16000 (window full) and 100, and spec=8 at 16000.
+    -> (max abs err, {(off, spec): (ms, plain ms, bound ms, bound by)})."""
+    import torch
+
+    from voxtral_tpu_torch.ops import decode_step as k1
+
+    cfg = model.config.language_model
+    fused = model.fused_decode
+    L, D, hd, n_kv = cfg.n_layers, cfg.dim, cfg.head_dim, cfg.n_kv_heads
+    ring, S = ring_geometry(cfg)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    shape = (L, 1, n_kv, S, hd)
+    kc = (torch.randn(shape, device=dev, generator=gen) * 0.5).bfloat16()
+    vc = (torch.randn(shape, device=dev, generator=gen) * 0.5).bfloat16()
+    ada = k1.ada_vectors(model.params["decoder"], model.t_embed(6.0))
+    wbytes = step_weight_bytes(model)
+    n_vocab = lm_fold(model)[1].shape[0]
+    n_weights = sum(fused[k].numel() for k in ("wqkv", "wo", "w13", "w2"))
+    timed = {(16000, 1), (100, 1), (16000, SPEC_K)}
+    worst, times = 0.0, {}
+    for off, spec in RING_CASES:
+        x = torch.randn((spec, D), device=dev, generator=gen)
+        c, s = k1.rope_pair_vectors(
+            off + torch.arange(spec, device=dev), hd, cfg.rope_theta)
+        offset = off
+        if spec == 1:
+            c, s = c[0].contiguous(), s[0].contiguous()
+        else:
+            offset = torch.tensor([off], dtype=torch.int32, device=dev)
+        args = (x, offset, fused["attn_norm"], fused["ffn_norm"], ada,
+                fused["sqkv"], fused["so"], fused["s13"], fused["s2"], c, s,
+                kc, vc, fused["wqkv"], fused["wo"], fused["w13"],
+                fused["w2"], *lm_fold(model))
+        kw = dict(n_heads=cfg.n_heads, n_kv=n_kv, head_dim=hd,
+                  eps=cfg.norm_eps, window=cfg.sliding_window, spec=spec,
+                  ring=ring)
+        tag = (f"K1 mode (d) [{model.decode_route}] ring={ring} S={S} "
+               f"offset={off} spec={spec}")
+        got = k1.decode_stack_step(*args, **kw)
+        torch.cuda.synchronize()
+        ref = k1.decode_stack_step_plain(*args, **kw)
+        worst = max(worst, compare(tag, got, ref,
+                                   (K1_RTOL, KV_RTOL, KV_RTOL, K1_RTOL)))
+        if (off, spec) not in timed:
+            continue
+        ms, plain_ms = in_turns(lambda: k1.decode_stack_step(*args, **kw),
+                                lambda: k1.decode_stack_step_plain(*args,
+                                                                   **kw),
+                                20, 2)
+        # The cache slots this step must read: written and within the
+        # window of row 0 (the later spec rows see a subset of them).
+        p_abs, written = k1.cache_visibility(
+            S, torch.tensor([off], device=dev), ring)
+        seen = int((written & (off - p_abs <= cfg.sliding_window)).sum())
+        kv_read = 2 * L * n_kv * seen * hd * 2
+        moved = (wbytes + kv_read + 2 * nbytes(x) + 2 * nbytes(got[1])
+                 + spec * n_vocab * 4)
+        b_ms, b_by = bound(moved, 2 * spec * (n_weights + n_vocab * D),
+                           INT8_OPS)
+        times[(off, spec)] = (ms, plain_ms, b_ms, b_by)
+        print(f"{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+              f"{seen} cache slots read ({kv_read / 1e9:.4f} GB) + weights "
+              f"{wbytes / 1e9:.4f} GB; bound {b_ms:.4f} ms ({b_by}; "
+              f"{100 * b_ms / ms:.1f} % of it) [{card}]", flush=True)
+    del kc, vc
+    return worst, times
+
+
+def stream_counters():
+    from voxtral_tpu_torch.ops import decode_step as k1
+    from voxtral_tpu_torch.ops import q4_kernel as k3
+    from voxtral_tpu_torch.ops import w8_kernel as k2
+
+    return {"w8_matmul": k2.w8_matmul, "decode_stack_step": k1.decode_stack_step,
+            "q4_matmul": k3.q4_matmul_packed}
+
+
+def stream_run(model, pieces, dev, **kw) -> dict:
+    """One StreamingSession over ``pieces`` then finish(), each feed
+    timed to a synchronize, with every launch counter set to 0 just
+    before and read just after.  A feed that ran the first step gives
+    the time to first text; a feed that advanced by exactly P positions
+    one steady step's time."""
+    import torch
+
+    from voxtral_tpu_torch.streaming import StreamingSession
+
+    counters = stream_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    t_start = time.perf_counter()
+    ses = StreamingSession(model, step_positions=P_STEP, **kw)
+    first_ms, step_ms, encode_ms = None, [], []
+    steady_inputs = ses._steady_inputs
+
+    def timed_inputs(mel_win):
+        # The encode half of a steady step (conv, encoder, adapter; the
+        # host mel ran just before), timed between two synchronizes.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = steady_inputs(mel_win)
+        torch.cuda.synchronize()
+        encode_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    ses._steady_inputs = timed_inputs
+    for piece in pieces:
+        done = ses.positions_done
+        t0 = time.perf_counter()
+        ses.feed(piece)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        if done == 0 and ses.positions_done:
+            first_ms = dt
+        elif ses.positions_done - done == P_STEP:
+            step_ms.append(dt)
+    ses.finish()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    # The wrapper refers back to the session: drop it, so the session and
+    # its caches go when the last reference does, not at a later GC pass.
+    del ses._steady_inputs
+    launches = {name: fn.launches for name, fn in counters.items()}
+    # Numbers only: a run keeps no session, so its caches go with it.
+    out = dict(positions=ses.positions_done, spec=ses.spec_metrics(),
+               max_enc=ses._max_enc, tokens=np.asarray(ses.tokens), wall=wall,
+               first_ms=first_ms, step_ms=step_ms, encode_ms=encode_ms,
+               launches=launches,
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               cache_gb=ses.cache_bytes / 1e9,
+               margins=np.asarray(ses.margins) if ses.margins else None)
+    if out["margins"] is not None and not np.isfinite(out["margins"]).all():
+        fail("non-finite logits in a streaming session")
+    if len(ses.tokens) != ses.positions_done - 38:
+        fail(f"session tokens {len(ses.tokens)} != positions "
+             f"{ses.positions_done} - 38")
+    return out
+
+
+def plain_stream(plain, pieces, dev, **kw) -> dict:
+    """stream_run on the plain-path model, with top-2 margins."""
+    plain.record_margins = True
+    try:
+        return stream_run(plain, pieces, dev, **kw)
+    finally:
+        plain.record_margins = False
+
+
+def check_stream_launches(tag, run, route):
+    """K1 launches == positions decoded after the first step (one per
+    position sequentially, one per pass speculatively)."""
+    if route == "per_op":
+        return
+    steady = run["positions"] - 38 - P_STEP
+    k1n = run["launches"]["decode_stack_step"]
+    metrics = run["spec"]
+    expect = metrics["passes"] if metrics else steady
+    if k1n != expect or k1n < 1:
+        fail(f"{tag}: K1 launches {k1n} != {'passes' if metrics else 'positions'}"
+             f" {expect}")
+
+
+def stream_step_bound(model, window_full: bool) -> tuple:
+    """(GB, ms) one steady step must move at least: the encoder and
+    adapter weights once, the decoder's K1 weights P times, and with the
+    window full P reads of its 8192 cached positions."""
+    def tree_bytes(t):
+        return (sum(tree_bytes(v) for v in t.values()) if isinstance(t, dict)
+                else nbytes(t))
+
+    cfg = model.config.language_model
+    gb = (tree_bytes(model.params["encoder"])
+          + tree_bytes(model.params["adapter"])
+          + P_STEP * step_weight_bytes(model))
+    if window_full:
+        gb += P_STEP * 2 * cfg.n_layers * cfg.n_kv_heads * \
+            cfg.sliding_window * cfg.head_dim * 2
+    return gb / 1e9, gb / HBM_BPS * 1e3
+
+
+def report_stream(tag, run, card, model=None):
+    steps = np.asarray(run["step_ms"])
+    line = (f"{tag}: {run['positions']} positions, "
+            f"{len(steps)} steady steps of {P_STEP} positions: median "
+            f"{np.median(steps):.2f} ms, max {steps.max():.2f} ms, step RTF "
+            f"{np.median(steps) / (P_STEP * 160):.5f} (median / 1280 ms); "
+            f"of which conv + encoder + adapter median "
+            f"{np.median(run['encode_ms']):.2f} ms; "
+            f"time to first text {run['first_ms']:.1f} ms; cache "
+            f"{run['cache_gb']:.4f} GB allocated, peak GPU memory "
+            f"{run['peak_gb']:.3f} GB; launches {run['launches']}")
+    if model is not None:
+        gb, b_ms = stream_step_bound(model, False)
+        gb_full, b_full = stream_step_bound(model, True)
+        line += (f"; step bound {b_ms:.3f} ms ({gb:.2f} GB), {b_full:.3f} "
+                 f"ms with the window full ({gb_full:.2f} GB)")
+    print(f"{line} [{card}]", flush=True)
+
+
+def run_stream_wrap(model, plain, dev, card):
+    """A decoder-ring wrap at full width, without 22 minutes of audio: a
+    session restored from a state 2P positions short of 38 + 8200, its
+    caches random bf16, runs 6 steady steps through the wrap, with the
+    kernels and through the plain versions -> (same, k1 launches)."""
+    import torch
+
+    from voxtral_tpu_torch.streaming import MEL_HOP, StreamingSession
+    from voxtral_tpu_torch.streaming import _mel_frames_needed
+
+    lm, enc = model.config.language_model, model.config.audio_encoder
+    ring, S = ring_geometry(lm)
+    p0 = S - 2 * P_STEP
+    n_steps = 6
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def rand(*shape):
+        return (torch.randn(shape, device=dev, generator=gen) * 0.5
+                ).bfloat16()
+
+    enc_s = 4 * 38 + (-(-(enc.sliding_window + 4 * P_STEP)
+                        // (4 * P_STEP))) * 4 * P_STEP
+    base = MEL_HOP * (16 * p0 - 8)
+    n = _mel_frames_needed(16 * (p0 + n_steps * P_STEP) + 8) - base
+    state = {
+        "version": 1, "P": P_STEP, "unbounded": True, "max_dec": S,
+        "delay_tokens": 6.0, "samples": stream_signal(n / SR + 0.01)[:n],
+        "samples_base": base, "positions_done": p0,
+        "tokens": np.full(p0 - 38, 32, np.int32), "text": "",
+        "finished": False, "prev_token": 1007,
+        "prev_audio": rand(1, 1, lm.dim).float(),
+        "enc_k": rand(enc.n_layers, 1, enc_s, enc.n_kv_heads, enc.head_dim),
+        "enc_v": rand(enc.n_layers, 1, enc_s, enc.n_kv_heads, enc.head_dim),
+        "enc_len": 4 * p0,
+        "dec_k": rand(lm.n_layers, 1, S, lm.n_kv_heads, lm.head_dim),
+        "dec_v": rand(lm.n_layers, 1, S, lm.n_kv_heads, lm.head_dim),
+        "dec_len": p0, "endpoint_mark": 0,
+    }
+    out = {}
+    for name, m in (("kernel", model), ("plain", plain)):
+        m.record_margins = name == "plain"
+        counters = stream_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        ses = StreamingSession.restore(m, state)
+        ses.feed(np.zeros(0, np.float32))
+        torch.cuda.synchronize()
+        m.record_margins = False
+        if ses.positions_done != p0 + n_steps * P_STEP:
+            fail(f"ring wrap: {ses.positions_done} positions done, expected "
+                 f"{p0 + n_steps * P_STEP}")
+        out[name] = (np.asarray(ses.tokens[p0 - 38:]), ses.margins,
+                     {n: fn.launches for n, fn in counters.items()})
+    del state
+    toks, _, launches = out["kernel"]
+    ptoks, margins, _ = out["plain"]
+    k1n = launches["decode_stack_step"]
+    if k1n != n_steps * P_STEP:
+        fail(f"ring wrap: K1 launches {k1n} != {n_steps * P_STEP}")
+    same = first_divergence("ring wrap kernel vs plain", toks, ptoks,
+                            np.asarray(margins), MARGIN_TIE)
+    print(f"decoder ring wrap at full width: positions {p0} -> "
+          f"{p0 + n_steps * P_STEP} through slot {S} (ring {ring}), "
+          f"{n_steps} steps, K1 launches {k1n}; tokens kernel == plain: "
+          f"{same} ({len(set(toks.tolist()))} distinct, min plain top-2 "
+          f"margin {min(margins):.3e}) [{card}]", flush=True)
+    return same, launches
+
+
+def run_stream_w8(model, plain, dev, card, tok):
+    """Phase 8a: K1 mode (d) checks and the w8 sessions (45 s)."""
+    import torch
+
+    from voxtral_tpu_torch.pipeline import PipelineConfig, TranscribePipeline
+
+    k1_err, k1_times = check_k1_ring(model, dev, card)
+    torch.cuda.empty_cache()
+    sig = stream_signal(STREAM_SECS)
+    pieces = ragged_pieces(sig)
+    runs = {}
+    for name, kw in (("bounded", dict(max_duration_s=120)),
+                     ("unbounded", dict(unbounded=True))):
+        run = stream_run(model, pieces, dev, **kw)
+        check_stream_launches(f"w8 {name}", run, "w8")
+        if run["launches"]["w8_matmul"] < 1:
+            fail(f"w8 {name} session: no K2 launch")
+        ref = plain_stream(plain, pieces, dev, **kw)
+        same = first_divergence(f"w8 {name} session kernel vs plain",
+                                run["tokens"], ref["tokens"],
+                                ref["margins"], MARGIN_TIE)
+        runs[name] = dict(run=run, plain=ref, same=same)
+        report_stream(f"w8 {name} session", run, card, model)
+        print(f"w8 {name} session: tokens kernel == plain: {same} "
+              f"({len(set(run['tokens'].tolist()))} distinct, min plain "
+              f"top-2 margin {ref['margins'].min():.3e}); plain path "
+              f"{ref['wall']:.1f} s [{card}]", flush=True)
+    unb = runs["unbounded"]["run"]
+    if not 4 * unb["positions"] > unb["max_enc"]:
+        fail("the unbounded w8 session never wrapped its encoder ring")
+    b_tok, u_tok = (runs[n]["run"]["tokens"] for n in ("bounded", "unbounded"))
+    same_bu = first_divergence("w8 bounded vs unbounded session", b_tok, u_tok,
+                               runs["unbounded"]["plain"]["margins"],
+                               LAYOUT_MARGIN_TIE)
+    # The one-shot path on the same audio, in one chunk.
+    model.record_margins = True
+    pipe = TranscribePipeline(model, tok, PipelineConfig(
+        max_mel_frames=int(STREAM_SECS * 100) + 2000, peak_normalize=None))
+    one = pipe._chunk_tokens(sig, SR)
+    one_margins = model.last_margins[0]
+    model.record_margins = False
+    if len(one) != 1:
+        fail(f"one-shot: {len(one)} chunks, expected 1")
+    n = min(len(one[0]), len(u_tok))
+    agree = float((one[0][:n] == u_tok[:n]).mean())
+    same_one = first_divergence("w8 unbounded session vs one-shot",
+                                u_tok[:n], one[0][:n], one_margins[:n],
+                                LAYOUT_MARGIN_TIE)
+    print(f"w8 sessions: bounded == unbounded tokens: {same_bu}; unbounded "
+          f"session vs one-shot transcribe_samples over {n} positions: "
+          f"identical {same_one}, agreement rate {agree:.4f} [{card}]",
+          flush=True)
+    spec = {}
+    for draft in ("pad", "ngram"):
+        run = stream_run(model, pieces, dev, unbounded=True,
+                         speculative=SPEC_K, draft=draft)
+        check_stream_launches(f"w8 spec {draft}", run, "w8")
+        m = run["spec"]
+        same = first_divergence(f"w8 unbounded speculative={SPEC_K} {draft} "
+                                "vs sequential", run["tokens"], u_tok,
+                                runs["unbounded"]["plain"]["margins"],
+                                SPEC_MARGIN_TIE)
+        spec[draft] = dict(run=run, metrics=m, same=same)
+        report_stream(f"w8 unbounded speculative={SPEC_K} draft={draft} "
+                      "session", run, card)
+        print(f"w8 speculative={SPEC_K} draft={draft} session: {m}; tokens "
+              f"== sequential: {same} [{card}]", flush=True)
+    _, wrap_launches = run_stream_wrap(model, plain, dev, card)
+    return dict(k1_err=k1_err, k1_times=k1_times, runs=runs, spec=spec,
+                wrap_launches=wrap_launches)
+
+
+def run_stream_q4g(model, plain, dev, card):
+    """Phase 8b: the q4g unbounded session, sequential and spec (pad)."""
+    k1_err, k1_times = check_k1_ring(model, dev, card)
+    pieces = ragged_pieces(stream_signal(Q4G_STREAM_SECS), seed=5)
+    run = stream_run(model, pieces, dev, unbounded=True)
+    check_stream_launches("q4g unbounded", run, "q4g")
+    ref = plain_stream(plain, pieces, dev, unbounded=True)
+    same = first_divergence("q4g unbounded session kernel vs plain",
+                            run["tokens"], ref["tokens"], ref["margins"],
+                            MARGIN_TIE)
+    report_stream("q4g unbounded session", run, card, model)
+    spec = stream_run(model, pieces, dev, unbounded=True,
+                      speculative=SPEC_K, draft="pad")
+    check_stream_launches("q4g spec pad", spec, "q4g")
+    same_spec = first_divergence(f"q4g speculative={SPEC_K} pad vs "
+                                 "sequential", spec["tokens"], run["tokens"],
+                                 ref["margins"], SPEC_MARGIN_TIE)
+    report_stream(f"q4g unbounded speculative={SPEC_K} draft=pad session",
+                  spec, card)
+    print(f"q4g sessions: kernel == plain {same}, spec == sequential "
+          f"{same_spec}, {spec['spec']} [{card}]",
+          flush=True)
+    return dict(k1_err=k1_err, k1_times=k1_times, run=run, spec=spec)
+
+
+def run_stream_q4(model, plain, dev, card):
+    """Phase 8c: a short bounded packed-q4 session, the per-op step on
+    K3.  K3 launches: 1 (the first token's lm_head; the 38-row prefill
+    dequantizes) + 183 per per-op position (the 7 x 26 decoder linears
+    and the lm_head at one row) + 2 per steady step (the adapter's two
+    linears at P = 8 rows; the encoder's 32-row matmuls dequantize)."""
+    pieces = ragged_pieces(stream_signal(Q4_STREAM_SECS), seed=6)
+    lm = model.config.language_model
+    run = stream_run(model, pieces, dev, max_duration_s=Q4_STREAM_SECS + 4)
+    per_pos = 7 * lm.n_layers + 1
+    steady = (run["positions"] - 38 - P_STEP) // P_STEP
+    expect = 1 + per_pos * (P_STEP - 1) + steady * (per_pos * P_STEP + 2)
+    if run["launches"]["q4_matmul"] != expect:
+        fail(f"q4 session: K3 launches {run['launches']['q4_matmul']} != "
+             f"{expect}")
+    ref = plain_stream(plain, pieces, dev, max_duration_s=Q4_STREAM_SECS + 4)
+    same = first_divergence("q4 bounded session kernel vs plain",
+                            run["tokens"], ref["tokens"], ref["margins"],
+                            MARGIN_TIE)
+    report_stream("q4 bounded session (per-op, K3)", run, card)
+    print(f"q4 session: K3 launches {expect} = 1 + {per_pos} x "
+          f"{P_STEP - 1} + {steady} steps x ({per_pos} x {P_STEP} + 2); "
+          f"tokens kernel == plain {same} [{card}]", flush=True)
+    return dict(run=run)
 
 
 # ---------------------------------------------------------------------------
@@ -1002,22 +1467,25 @@ def main() -> int:
     sig = chirp()
     tok = VoxtralTokenizer([None] * 131072, {}, 131072)
 
-    # -- 3. w8 ---------------------------------------------------------------
+    # -- 3. w8, then its streaming sessions (8a) ---------------------------------
     w8 = run_w8(cfg, dev, card, sig, tok)
+    st_w8 = run_stream_w8(w8.pop("model"), w8.pop("plain"), dev, card, tok)
     torch.cuda.empty_cache()
 
     # -- 4. K3 ---------------------------------------------------------------
     k3_err, k3_times = check_k3(dev, card)
 
-    # -- 5, 6. q4g and q4 ------------------------------------------------------
+    # -- 5, 6. q4g and q4, each then its sessions (8b, 8c) -----------------
     check_pack_device(dev)
     t0 = time.perf_counter()
     tree = random_q4_tree(cfg, seed=0)
     print(f"random Q4_0 weights (seed 0, one layer tiled per stack) built: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     q4g = run_q4g(tree, cfg, dev, card, sig, tok, w8["n_tok"])
+    st_q4g = run_stream_q4g(q4g.pop("model"), q4g.pop("plain"), dev, card)
     torch.cuda.empty_cache()
     q4 = run_q4(tree, cfg, dev, card, sig, tok, w8["n_tok"])
+    st_q4 = run_stream_q4(q4.pop("model"), q4.pop("plain"), dev, card)
     del tree
     torch.cuda.empty_cache()
 
@@ -1029,13 +1497,21 @@ def main() -> int:
     if loaded:
         fail(f"the run loaded jax or the JAX package: {loaded[:5]}")
 
-    # -- 8. record -----------------------------------------------------------
+    # -- 9. record -----------------------------------------------------------
     runs = {"w8_sequential": w8["launches"],
             **{f"w8_speculative_{d}": r["launches"]
                for d, r in w8["spec_runs"].items()},
             "q4g_sequential": q4g["launches"],
             "q4g_speculative_ngram": q4g["spec_launches"],
-            "q4_sequential": q4["launches"]}
+            "q4_sequential": q4["launches"],
+            **{f"w8_stream_{n}": r["run"]["launches"]
+               for n, r in st_w8["runs"].items()},
+            **{f"w8_stream_speculative_{d}": r["run"]["launches"]
+               for d, r in st_w8["spec"].items()},
+            "w8_stream_ring_wrap": st_w8["wrap_launches"],
+            "q4g_stream_unbounded": st_q4g["run"]["launches"],
+            "q4g_stream_speculative_pad": st_q4g["spec"]["launches"],
+            "q4_stream_bounded": st_q4["run"]["launches"]}
 
     def launches(name):
         by = {path: c[name] for path, c in runs.items() if c[name]}
@@ -1044,6 +1520,7 @@ def main() -> int:
     lm_shape = (1, 3072, 131072)
     k2t = w8["k2_times"][lm_shape]
     k1a, k1h = w8["k1"], q4g["k1"]
+    d_t, hd_t = st_w8["k1_times"], st_q4g["k1_times"]
     k3t = k3_times[(1, 131072, 3072)]
     record = {"kernels": [
         {"name": "w8_matmul", "route": "cuda",
@@ -1059,10 +1536,11 @@ def main() -> int:
         {"name": "decode_stack_step", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/decode_step.cu",
          "replaces": "voxtral_tpu/ops/decode_step_pallas.py:1654",
-         "modes": ["a", "b", "c", "h"],
+         "modes": ["a", "b", "c", "d", "h"],
          "launches": launches("decode_stack_step")[0],
          "launches_by_path": launches("decode_stack_step")[1],
-         "max_abs_err": max(k1a["err"], k1h["err"]),
+         "max_abs_err": max(k1a["err"], k1h["err"], st_w8["k1_err"],
+                            st_q4g["k1_err"]),
          "ms": k1a["one"][1], "plain_ms": k1a["one"][2],
          "bound_ms": k1a["one"][3], "bound_by": k1a["one"][4],
          "library_ms": None,
@@ -1070,7 +1548,14 @@ def main() -> int:
          "spec64_ms": k1a["spec64"][1], "spec64_plain_ms": k1a["spec64"][2],
          "h_ms": k1h["one"][1], "h_plain_ms": k1h["one"][2],
          "h_bound_ms": k1h["one"][3], "h_spec_ms": k1h["spec8"][1],
-         "h_spec64_ms": k1h["spec64"][1], "h_rows4_ms": k1h["rows4"][1]},
+         "h_spec64_ms": k1h["spec64"][1], "h_rows4_ms": k1h["rows4"][1],
+         "d_ms": d_t[(16000, 1)][0], "d_plain_ms": d_t[(16000, 1)][1],
+         "d_bound_ms": d_t[(16000, 1)][2],
+         "d_spec_ms": d_t[(16000, SPEC_K)][0],
+         "d_short_ms": d_t[(100, 1)][0],
+         "d_short_bound_ms": d_t[(100, 1)][2],
+         "h_d_ms": hd_t[(16000, 1)][0], "h_d_plain_ms": hd_t[(16000, 1)][1],
+         "h_d_bound_ms": hd_t[(16000, 1)][2]},
         {"name": "q4_matmul", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/q4_matmul.cu",
          "replaces": "voxtral_tpu/ops/q4_pallas.py:150",

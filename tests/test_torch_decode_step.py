@@ -5,7 +5,8 @@ decode_stack_step`` (Pallas, interpret mode, lm fold to logits) and
 ``voxtral_tpu_torch.ops.decode_step.decode_stack_step`` (on the CPU: its
 plain PyTorch version).  Production layout: bf16 head-major caches, w8
 weights, sliding window; mode (a) a scalar offset, (b) ``spec=K`` draft
-rows per stream, (c) per-stream offset vectors and per-row RoPE.
+rows per stream, (c) per-stream offset vectors and per-row RoPE, (d) the
+head+ring cache mask (``ring=``), (h) g32 weights.
 
 Tolerances: both sides quantize the activations with the same formula
 and contract int8 codes exactly, so what is left is float32 summation
@@ -177,7 +178,7 @@ def _rows_inputs(inputs, offs, spec, seed=5):
             np.asarray(cos), np.asarray(sin), lm, final_norm)
 
 
-def _jax_and_port(inputs, offs, spec, window):
+def _jax_and_port(inputs, offs, spec, window, ring=None):
     """(JAX interpret-mode outputs, port outputs) of one spec step."""
     (params, t_embed, kc, vc, x, cos, sin, lm,
      final_norm) = _rows_inputs(inputs, offs, spec)
@@ -192,7 +193,8 @@ def _jax_and_port(inputs, offs, spec, window):
         jnp.asarray(sin), jnp.asarray(kc), jnp.asarray(vc),
         jf["wqkv"], jf["wo"], jf["w13"], jf["w2"],
         final_norm=jnp.asarray(final_norm), lm_codes=jnp.asarray(lm["codes"]),
-        lm_scale=jnp.asarray(lm["scale"]), interpret=True, spec=spec, **kw)
+        lm_scale=jnp.asarray(lm["scale"]), interpret=True, spec=spec,
+        ring=ring, **kw)
     tf = tdsp.fuse_decode_weights(params_from_numpy(params))
     got = tdsp.decode_stack_step(
         to_torch(x), torch.tensor(offs, dtype=torch.int32), tf["attn_norm"],
@@ -200,7 +202,7 @@ def _jax_and_port(inputs, offs, spec, window):
         tf["s13"], tf["s2"], to_torch(cos), to_torch(sin), to_torch(kc),
         to_torch(vc), tf["wqkv"], tf["wo"], tf["w13"], tf["w2"],
         final_norm=to_torch(final_norm), lm_codes=to_torch(lm["codes"]),
-        lm_scale=to_torch(lm["scale"]), spec=spec, **kw)
+        lm_scale=to_torch(lm["scale"]), spec=spec, ring=ring, **kw)
     return ref, got
 
 
@@ -461,7 +463,7 @@ def test_megakernel_mode_and_q4g_geometry_match_jax(q4g_params):
         assert tdsp.q4g_geometry_ok(lm) == jdsp.q4g_geometry_ok(lm), dims
 
 
-def _g32_jax_and_port(q4g_params, inputs, offs, spec, window):
+def _g32_jax_and_port(q4g_params, inputs, offs, spec, window, ring=None):
     """(JAX interpret-mode outputs, port outputs) of one g32 step with the
     g32 lm fold; offs None: mode (a), a scalar offset."""
     _, t_embed, k_cache, v_cache, _, _, _ = inputs
@@ -490,7 +492,7 @@ def _g32_jax_and_port(q4g_params, inputs, offs, spec, window):
         jnp.asarray(sin), jnp.asarray(kc), jnp.asarray(vc),
         jf["wqkv"], jf["wo"], jf["w13"], jf["w2"],
         final_norm=jtree["norm"], lm_codes=jf["lm_codes"],
-        lm_scale=jf["lm_scale"], interpret=True, spec=spec, **kw)
+        lm_scale=jf["lm_scale"], interpret=True, spec=spec, ring=ring, **kw)
     tp = params_from_numpy(q4g_params)
     tf = tdsp.fuse_decode_weights_q4g(tp)
     toff = (offsets[0] if offs is None
@@ -501,7 +503,7 @@ def _g32_jax_and_port(q4g_params, inputs, offs, spec, window):
         tf["s2"], to_torch(cos), to_torch(sin), to_torch(kc), to_torch(vc),
         tf["wqkv"], tf["wo"], tf["w13"], tf["w2"],
         final_norm=tp["norm"], lm_codes=tf["lm_codes"],
-        lm_scale=tf["lm_scale"], spec=spec, **kw)
+        lm_scale=tf["lm_scale"], spec=spec, ring=ring, **kw)
     return ref, got
 
 
@@ -611,6 +613,140 @@ def test_decode_stack_step_g32_kernel_matches_plain_on_card(q4g_params,
             tf["lm_codes"], tf["lm_scale"])
     kw = dict(n_heads=N_HEADS, n_kv=N_KV, head_dim=HEAD_DIM, eps=EPS,
               window=8, spec=spec)
+    got = tdsp.decode_stack_step(*args, **kw)
+    ref = tdsp.decode_stack_step_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        r = r.float()
+        torch.testing.assert_close(g.float(), r, rtol=0,
+                                   atol=max(X_RTOL, KV_RTOL if g.dtype
+                                            == torch.bfloat16 else 0)
+                                   * r.abs().max().item())
+    assert torch.equal(got[3].argmax(-1), ref[3].argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# Mode (d): the head+ring cache of an unbounded stream
+# ---------------------------------------------------------------------------
+#
+# S = 16 slots as (head, size) = (3, 13), window 8: slots [0, 3) hold
+# positions [0, 3) for good, ring slot r the largest 3 + r + 13 c below
+# the offset.  Offsets before the wrap (10), after it (20) and far past
+# it, where the head has left the window (40); spec rows at 14 + j
+# straddle the ring's end (their appends land at slots 14, 15, 3).
+# Tolerances as above.
+
+RING = (3, 13)
+
+
+@pytest.mark.parametrize("offs,spec", [
+    ([10, 20], 1),     # before / after the wrap, one offset per stream
+    ([40, 20], 1),     # the head outside the window
+    ([14, 27], 3),     # spec rows straddling the ring's end
+    ([40, 10], 3),
+])
+def test_decode_stack_step_ring_plain_matches_jax(inputs, offs, spec):
+    ref, got = _jax_and_port(inputs, offs, spec, 8, RING)
+    _assert_close_to_jax(ref, got, len(offs) * spec)
+
+
+@pytest.mark.parametrize("offs,spec", [(None, 1), ([14, 40], 3)])
+def test_decode_stack_step_g32_ring_plain_matches_jax(q4g_params, inputs,
+                                                      offs, spec):
+    """Mode (d) x (h): g32 weights over a head+ring cache (the scalar
+    offset 7 of mode (a) sits before the wrap)."""
+    ref, got = _g32_jax_and_port(q4g_params, inputs, offs, spec, 8, RING)
+    rows = (1 if offs is None else len(offs)) * spec
+    jx, jk, jv, jlog = ref
+    tx, tk, tv, tlog = got
+    assert tx.shape == (rows, D)
+    for g, r, tol in ((tx, jx, G32_RTOL), (tlog, jlog, G32_RTOL),
+                      (tk, jk, KV_RTOL), (tv, jv, KV_RTOL)):
+        r = np.asarray(jnp.asarray(r).astype(jnp.float32))
+        np.testing.assert_allclose(g.float().numpy(), r, rtol=0,
+                                   atol=tol * np.abs(r).max())
+    np.testing.assert_array_equal(tlog.argmax(-1).numpy(),
+                                  np.asarray(jlog).argmax(-1))
+
+
+def test_cache_visibility_ring_matches_layers():
+    """The step's slot mask equals layers.ring_k_positions on the ring's
+    written slots, and a slot past head + size is never visible."""
+    from voxtral_tpu_torch.models.layers import ring_k_positions
+
+    head, size = RING
+    for off in (0, 2, 3, 10, 16, 17, 29, 40):
+        p_abs, written = tdsp.cache_visibility(
+            head + size + 2, torch.tensor([off]), RING)
+        p_ref, v_ref = ring_k_positions(head, size, off)
+        assert written[0, :head + size].tolist() == v_ref.tolist()
+        assert not written[0, head + size:].any()
+        assert (p_abs[0, :head + size][v_ref] == p_ref[v_ref]).all()
+
+
+def test_decode_stack_step_ring_guards(inputs):
+    """Ring offsets may pass S; a ring that does not fit S, or a cache
+    whose score buffer outgrows shared memory, raises with the cause."""
+    params, _, k_cache, v_cache, x, _, _ = inputs
+    tf = tdsp.fuse_decode_weights(params_from_numpy(params))
+    c, s = tdsp.rope_pair_vectors(100, HEAD_DIM)
+    kw = dict(n_heads=N_HEADS, n_kv=N_KV, head_dim=HEAD_DIM, eps=EPS,
+              window=8)
+    args = (to_torch(x), 100, tf["attn_norm"], tf["ffn_norm"],
+            torch.ones((L, D)), tf["sqkv"], tf["so"], tf["s13"], tf["s2"],
+            c, s, to_torch(k_cache), to_torch(v_cache), tf["wqkv"],
+            tf["wo"], tf["w13"], tf["w2"])
+    assert tdsp.decode_stack_step(*args, ring=RING, **kw)[0].shape == (B, D)
+    with pytest.raises(ValueError, match="does not fit"):
+        tdsp.check_geometry(S, HEAD_DIM, 8, 1, (3, 14))
+    with pytest.raises(ValueError, match="shared memory"):
+        tdsp.check_geometry(60000, HEAD_DIM, 59000, 1, (38, 59000))
+    tdsp.check_geometry(8238, 128, 8192, 8, (38, 8200))  # the session's
+    tdsp.check_geometry(60000, 128, 8192, 1)  # bounded: the window's span
+
+
+def _ring_card_args(inputs, offs, spec, g32_params=None):
+    """Card inputs for one mode (d) step: per-stream offsets, RoPE per
+    row, ring caches of len(offs) streams."""
+    dev = torch.device("cuda")
+    _, t_embed, k_cache, v_cache, _, lm, final_norm = inputs
+    bc = len(offs)
+    idx = np.arange(bc) % B
+    rng = np.random.default_rng(31 + bc * spec)
+    x = (rng.normal(size=(bc * spec, D)) * 0.5).astype(np.float32)
+    off = torch.tensor(offs, dtype=torch.int32, device=dev)
+    pos = (off[:, None] + torch.arange(spec, device=dev)).reshape(-1)
+    c, s = tdsp.rope_pair_vectors(pos, HEAD_DIM, device=dev)
+    if g32_params is None:
+        tp = params_from_numpy(inputs[0], dev)
+        tf = tdsp.fuse_decode_weights(tp)
+        fold = (to_torch(final_norm, dev), to_torch(lm["codes"], dev),
+                to_torch(lm["scale"], dev))
+    else:
+        tp = params_from_numpy(g32_params, dev)
+        tf = tdsp.fuse_decode_weights_q4g(tp)
+        fold = (tp["norm"].float(), tf["lm_codes"], tf["lm_scale"])
+    ada = tdsp.ada_vectors(tp, to_torch(t_embed, dev))
+    return (to_torch(x, dev), off, tf["attn_norm"], tf["ffn_norm"], ada,
+            tf["sqkv"], tf["so"], tf["s13"], tf["s2"], c, s,
+            to_torch(k_cache[:, idx], dev), to_torch(v_cache[:, idx], dev),
+            tf["wqkv"], tf["wo"], tf["w13"], tf["w2"], *fold)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["w8", "g32"])
+@pytest.mark.parametrize("offs,spec", [([10, 20], 1), ([40, 14], 1),
+                                       ([14, 27], 3), ([40, 10, 3, 16], 4)])
+def test_decode_stack_step_ring_kernel_matches_plain_on_card(
+        q4g_params, inputs, weights, offs, spec):
+    """Mode (d) on the card: bit-equal to the plain version (both sum in
+    f64 and round once; tolerance as above)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    args = _ring_card_args(inputs, offs, spec,
+                           q4g_params if weights == "g32" else None)
+    kw = dict(n_heads=N_HEADS, n_kv=N_KV, head_dim=HEAD_DIM, eps=EPS,
+              window=8, spec=spec, ring=RING)
     got = tdsp.decode_stack_step(*args, **kw)
     ref = tdsp.decode_stack_step_plain(*args, **kw)
     torch.cuda.synchronize()

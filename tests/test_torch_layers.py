@@ -195,3 +195,83 @@ def test_linear_rejects_unported_formats():
     # q4 leaves are ported; the bf16 stack layout {"nt": w} is not yet.
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tl.linear(torch.zeros(1, 4), {"nt": torch.zeros(4, 4)})
+
+
+# ---------------------------------------------------------------------------
+# Head+ring caches (the unbounded stream's layout)
+# ---------------------------------------------------------------------------
+
+RING = (3, 8)  # (head, size): slots [0, 3) permanent, a ring of 8 slots
+
+
+def test_ring_slot_and_k_positions_match_jax():
+    """Exact, over a grid of offsets before, at and after the wraps."""
+    head, size = RING
+    for off in range(0, 40):
+        assert tl.ring_slot(off, head, size) == int(
+            jl.ring_slot(jnp.asarray(off), head, size))
+        got = tl.ring_slot(torch.tensor([off, off + 1]), head, size)
+        ref = jl.ring_slot(jnp.asarray([off, off + 1]), head, size)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+        p, valid = tl.ring_k_positions(head, size, off)
+        jp, jvalid = jl.ring_k_positions(head, size, jnp.asarray(off))
+        np.testing.assert_array_equal(valid.numpy(), np.asarray(jvalid))
+        # Positions of unwritten slots are meaningless (masked): compare
+        # the written ones.
+        np.testing.assert_array_equal(p.numpy()[valid.numpy()],
+                                      np.asarray(jp)[np.asarray(jvalid)])
+
+
+@pytest.mark.parametrize("chunks", [[3, 1, 2, 1, 1, 2, 1, 1, 1],
+                                    [3, 2, 2, 2, 2, 2, 2, 2]])
+def test_attention_with_cache_ring_matches_jax(chunks):
+    """Incremental writes into a head+ring cache (each write within one
+    region, as the callers align them), f32: the outputs and the cache
+    after every write against JAX, 1e-5 of the largest value."""
+    rng = np.random.default_rng(6)
+    p = _block_params(rng, HKV, biases=True)["attention"]
+    spec = dict(n_heads=H, n_kv_heads=HKV, head_dim=HD, sliding_window=5)
+    head, size = RING
+    jc, js = jl.rope_tables(HD, 64, 1e6)
+    tc, ts = tl.rope_tables(HD, 64, 1e6)
+    jk = jnp.zeros((1, head + size, HKV, HD), jnp.float32)
+    jv = jnp.zeros_like(jk)
+    tk = torch.zeros((1, head + size, HKV, HD))
+    tv = torch.zeros_like(tk)
+    jp, tp = _as(p, lambda a: _j(a, "float32")), _as(p, lambda a: _t(
+        a, "float32"))
+    off = 0
+    for n in chunks:
+        x = rng.normal(size=(1, n, D))
+        ref, jk, jv = jl.attention_with_cache(
+            _j(x, "float32"), jp, jl.AttentionSpec(**spec), jc, js, jk, jv,
+            jnp.asarray(off, jnp.int32), ring=RING)
+        got, tk, tv = tl.attention_with_cache(
+            _t(x, "float32"), tp, tl.AttentionSpec(**spec), tc, ts, tk, tv,
+            off, ring=RING)
+        _close(got, ref, "float32")
+        _close(tk, jk, "float32")
+        _close(tv, jv, "float32")
+        off += n
+    assert off > head + size  # the ring wrapped
+
+
+def test_attention_with_cache_pos_base_matches_jax():
+    """A bounded cache whose slot 0 sits at absolute position 10."""
+    rng = np.random.default_rng(7)
+    p = _block_params(rng, HKV, biases=False)["attention"]
+    spec = dict(n_heads=H, n_kv_heads=HKV, head_dim=HD, sliding_window=4)
+    jc, js = jl.rope_tables(HD, 64, 1e6)
+    tc, ts = tl.rope_tables(HD, 64, 1e6)
+    kc = rng.normal(size=(1, S, HKV, HD)) * (np.arange(S) < 5)[
+        None, :, None, None]
+    x = rng.normal(size=(1, 3, D))
+    ref, _, _ = jl.attention_with_cache(
+        _j(x, "float32"), _as(p, lambda a: _j(a, "float32")),
+        jl.AttentionSpec(**spec), jc, js, _j(kc, "float32"),
+        _j(kc, "float32"), jnp.asarray(5, jnp.int32), pos_base=10)
+    got, _, _ = tl.attention_with_cache(
+        _t(x, "float32"), _as(p, lambda a: _t(a, "float32")),
+        tl.AttentionSpec(**spec), tc, ts, _t(kc, "float32"),
+        _t(kc, "float32"), 5, pos_base=10)
+    _close(got, ref, "float32")

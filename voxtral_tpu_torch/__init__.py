@@ -16,15 +16,21 @@ its module names so each counterpart is easy to find:
                       kernels (csrc/*.cu, built with nvcc at first use)
     pipeline, cli   — one-shot file transcription (sequential, sampled
                       or speculative decode; random w8 or GGUF weights)
+    streaming       — the solo live session (bounded or head+ring
+                      caches, sequential or speculative, checkpoints)
+    utils/hbm       — device-memory admission
 
 It imports ``torch`` and never ``jax``, and nothing of the JAX package
 ``voxtral_tpu``: the framework-free modules it needs are copied here.
-The two names a caller needs to build a pipeline are re-exported.
+The names a caller needs to build a pipeline or a live session are
+re-exported.
 """
 
 __version__ = "0.1.0"
 
 from voxtral_tpu_torch.config import VoxtralConfig
+from voxtral_tpu_torch.streaming import StreamingSession
 from voxtral_tpu_torch.tokenizer import VoxtralTokenizer
 
-__all__ = ["VoxtralConfig", "VoxtralTokenizer", "__version__"]
+__all__ = ["StreamingSession", "VoxtralConfig", "VoxtralTokenizer",
+           "__version__"]

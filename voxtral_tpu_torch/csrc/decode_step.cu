@@ -13,6 +13,16 @@
 //   (c) per-stream offsets as an int32 device vector and per-row RoPE
 //       vectors (build_valid, :1005-1043), read by each attention block
 //       itself, so the host launches a step without reading an offset.
+//   (d) head+ring cache (ring_size > 0), the unbounded stream's: slots
+//       [0, head) hold positions [0, head) for good, ring slot r holds
+//       the largest position head + r + size * c below the offset
+//       (build_valid's ring branch, :1020-1042; spec rows :813-829).
+//       The block walks all S slots in slot order, computes each slot's
+//       (absolute position, written) exactly as build_valid and as the
+//       plain version does, and scores / loads only the visible ones
+//       (written, and within the window of the row's absolute query
+//       position); the score buffer holds S floats.  Combines with every
+//       other mode: the mask reads offs[b] per stream.
 //   (h) g32 (q4g) weights: int8 codes (Q4_0 nibble - 8) with f16 group
 //       scales [N, K/32] in place of the w8 row scales, for the four
 //       stacks and the lm fold (_g32_mask_codes / _g32_matmul_tile,
@@ -112,6 +122,25 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
+// Mode (d): is head+ring cache slot ``slot`` visible to draft row j of a
+// stream at offset ``off``?  Written (a head slot below the offset, or
+// ring slot r < off - head; slots past head + size never are), and its
+// absolute position within the window of the query at off + j.
+__device__ __forceinline__ bool ring_visible(int slot, int off, int j,
+                                             int window, int head, int size) {
+  bool written;
+  int p_abs;
+  if (slot < head) {
+    written = slot < off;
+    p_abs = slot;
+  } else {
+    const int r = slot - head, wr = off - head;
+    written = r < size && r < wr;
+    p_abs = head + r + size * (max(wr - 1 - r, 0) / size);
+  }
+  return written && (window < 0 || off + j - p_abs <= window);
+}
+
 // One block per row b: h = f(x[b]) of width K, then xq[b] = int8 codes,
 // sx[b] = max(absmax(h), 1e-8) / 127 with round-half-even of h / sx.
 //   kQuantPlain:  h = x
@@ -184,15 +213,16 @@ __global__ void __launch_bounds__(kQuantThreads) row_quant_kernel(
 // (nw x hd doubles), q (scaled f32 and its bf16 rounding), k, v, the
 // spec fresh scores / weights and up to ``span`` cache scores / softmax
 // weights (span = the most slots a row can see, sized on the host from
-// S and the window, so no host offset is needed).
+// S and the window, so no host offset is needed; S in mode (d), whose
+// walk covers every slot and skips the invisible ones).
 __global__ void __launch_bounds__(kAttnThreads) attn_step_kernel(
     const float* __restrict__ qkv, const float* __restrict__ cosv,
     const float* __restrict__ sinv, int rope_stride,
     const int* __restrict__ offs, int off0, int spec,
     const __nv_bfloat16* __restrict__ kc, const __nv_bfloat16* __restrict__ vc,
     __nv_bfloat16* __restrict__ kn, __nv_bfloat16* __restrict__ vn,
-    float* __restrict__ attn, int S, int window, int n_heads, int n_kv,
-    int hd, float scale) {
+    float* __restrict__ attn, int S, int window, int ring_head,
+    int ring_size, int n_heads, int n_kv, int hd, float scale) {
   extern __shared__ double smem_d[];
   __shared__ float red[32];
   __shared__ double red_d[32];
@@ -212,8 +242,13 @@ __global__ void __launch_bounds__(kAttnThreads) attn_step_kernel(
   const int G = n_heads / n_kv, jh = h / G;
   const int nq = n_heads * hd, nkv = n_kv * hd, ld = nq + 2 * nkv;
   const int off = offs != nullptr ? offs[b] : off0;
-  const int lo = window >= 0 ? max(0, off + j - window) : 0;
-  const int n = max(min(off, S) - lo, 0);
+  const bool ring = ring_size > 0;
+  const int lo = ring ? 0 : (window >= 0 ? max(0, off + j - window) : 0);
+  const int n = ring ? S : max(min(off, S) - lo, 0);
+  auto visible = [&](int t) {
+    return !ring ||
+           ring_visible(lo + t, off, j, window, ring_head, ring_size);
+  };
   const float* row = qkv + static_cast<size_t>(r) * ld;
   const float* qh = row + static_cast<size_t>(h) * hd;
   const float* kh = row + nq + static_cast<size_t>(jh) * hd;
@@ -238,8 +273,13 @@ __global__ void __launch_bounds__(kAttnThreads) attn_step_kernel(
   const size_t head = (static_cast<size_t>(b) * n_kv + jh) * S;
   const __nv_bfloat16* kbase = kc + head * hd;
   const __nv_bfloat16* vbase = vc + head * hd;
-  // Cache scores: bf16(q) . k over slots lo..lo+n-1, f64 sums.
+  // Cache scores: bf16(q) . k over slots lo..lo+n-1, f64 sums; -inf for
+  // a slot the ring mask hides (weight 0, never loaded).
   for (int t = tid; t < n; t += nt) {
+    if (!visible(t)) {
+      sc[t] = -INFINITY;
+      continue;
+    }
     const __nv_bfloat162* kr = reinterpret_cast<const __nv_bfloat162*>(
         kbase + static_cast<size_t>(lo + t) * hd);
     double p = 0.0;
@@ -309,6 +349,7 @@ __global__ void __launch_bounds__(kAttnThreads) attn_step_kernel(
   for (int c = 0; c < kPairs; ++c) acc2[c][0] = acc2[c][1] = 0.0;
 #pragma unroll 4
   for (int t = warp; t < n; t += nw) {
+    if (!visible(t)) continue;  // weight 0: adds nothing
     const __nv_bfloat162* vr = reinterpret_cast<const __nv_bfloat162*>(
         vbase + static_cast<size_t>(lo + t) * hd);
     const double w = sc[t];
@@ -367,8 +408,10 @@ inline void row_quant(const float* x, int ldx, int K, const float* w,
 // w13 [L, 2F, D], w2 [L, D, F] int8; lm_codes [V, D] int8, lm_scale [V]
 // f32; kn / vn [L, B, n_kv, hd] bf16; logits [B, V] f32.  Scratch:
 // xq [B, max(D, nq, F)] int8, sx [B], qkv [B, nq + 2 nkv], attn [B, nq],
-// up [B, 2F] f32.  window < 0: no lower bound.  The host reads no offset:
-// a pass launches without a device-to-host copy.
+// up [B, 2F] f32.  window < 0: no lower bound.  ring_size > 0: mode (d),
+// the caches are head+ring buffers of ring_head + ring_size <= S slots
+// and the offsets absolute positions.  The host reads no offset: a pass
+// launches without a device-to-host copy.
 extern "C" int vx_decode_stack_step(
     const void* x, void* xo, const void* attn_norms, const void* ffn_norms,
     const void* ada, const void* sqkv, const void* so, const void* s13,
@@ -379,17 +422,21 @@ extern "C" int vx_decode_stack_step(
     void* sx_buf, void* qkv_buf, void* attn_buf, void* up_buf,
     const void* offs, int B, int D, int L, int S, int n_heads, int n_kv,
     int hd, int F, int V, int off0, int spec, int rope_stride, int window,
-    int g32, float eps, float scale, void* stream) {
+    int g32, int ring_head, int ring_size, float eps, float scale,
+    void* stream) {
   using namespace vx;
+  const bool ring = ring_size > 0;
   if (hd > kMaxHeadDim || hd % 2 || n_kv <= 0 || n_heads % n_kv ||
-      spec < 1 || B % spec || (offs == nullptr && (off0 < 0 || off0 > S)))
+      spec < 1 || B % spec ||
+      (offs == nullptr && (off0 < 0 || (!ring && off0 > S))) ||
+      (ring && (ring_head < 0 || ring_head + ring_size > S)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (g32 && (D % 32 || (n_heads * hd) % 32 || F % 32))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nq = n_heads * hd, nkv = n_kv * hd, nqkv = nq + 2 * nkv;
   const int Bc = B / spec;
-  const int span = (window >= 0 && window < S) ? window : S;
+  const int span = (!ring && window >= 0 && window < S) ? window : S;
   const size_t smem =
       sizeof(double) * (kAttnThreads / 32) * hd +
       sizeof(float) * (4 * static_cast<size_t>(hd) + spec + span);
@@ -451,7 +498,8 @@ extern "C" int vx_decode_stack_step(
         qkv, static_cast<const float*>(cosv), static_cast<const float*>(sinv),
         rope_stride, static_cast<const int*>(offs), off0, spec,
         KC + l * cache_layer, VC + l * cache_layer, KN + l * new_layer,
-        VN + l * new_layer, att, S, window, n_heads, n_kv, hd, scale);
+        VN + l * new_layer, att, S, window, ring_head, ring_size, n_heads,
+        n_kv, hd, scale);
     row_quant(att, nq, nq, nullptr, nullptr, eps, kQuantPlain, B, xq, sx, st);
     gemv(Wo + static_cast<size_t>(l) * D * nq, layer_scales(so, l, D, nq), X,
          X, D, nq);

@@ -23,6 +23,9 @@ from voxtral_tpu_torch.ops.w8 import w8_dequant_rows, w8_matmul
 
 Params = dict[str, Any]
 
+# RoPE table length of the decoder (the reference builds 16384).
+DECODER_ROPE_MAX_SEQ = 16384
+
 
 def decoder_spec(cfg: LanguageModelConfig) -> AttentionSpec:
     return AttentionSpec(
@@ -65,9 +68,12 @@ def decoder_forward_hidden_with_cache(
     params: Params, hidden: torch.Tensor, t_embed: torch.Tensor,
     cache: KVCache, cfg: LanguageModelConfig,
     rope: Optional[tuple[torch.Tensor, torch.Tensor]] = None, mm=None,
+    pos_base: int = 0, ring: Optional[tuple[int, int]] = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Forward over hidden [B, S, d_model] appending at ``cache.length``.
 
+    ``pos_base``: absolute position of cache slot 0; ``ring``: (head,
+    size) head+ring cache layout (see ``layers.attention_with_cache``).
     Returns (final-normed hidden, cache); the cache arrays are written
     in place.
     """
@@ -82,7 +88,7 @@ def decoder_forward_hidden_with_cache(
     for l in range(n_stacked(layers)):
         x, _, _ = decoder_block_with_cache(
             x, t_embed, layer_params(layers, l), spec, cos, sin,
-            cache.k[l], cache.v[l], offset, cfg.norm_eps, mm)
+            cache.k[l], cache.v[l], offset, cfg.norm_eps, mm, pos_base, ring)
     cache = KVCache(cache.k, cache.v, offset + hidden.shape[1])
     return rms_norm(x, params["norm"], cfg.norm_eps), cache
 

@@ -260,16 +260,53 @@ def cache_update_layer(k_cache, v_cache, k_new, v_new, offset: int):
     return k_cache, v_cache
 
 
-def attention_with_cache(x, p: Params, spec: AttentionSpec, cos, sin,
-                         k_cache, v_cache, offset: int, mm=None):
-    """Append this block's K/V to the cache at ``offset``, attend over
-    everything written so far (bounded, non-ring cache).
+def ring_slot(offset, head: int, size: int):
+    """Physical slot of absolute position ``offset`` (an int or an int
+    tensor) in a head+ring cache: slots [0, head) hold positions
+    [0, head) for good; slots [head, head + size) hold position
+    p >= head at head + (p - head) % size."""
+    if isinstance(offset, torch.Tensor):
+        return torch.where(offset < head, offset,
+                           head + torch.remainder(offset - head, size))
+    return offset if offset < head else head + (offset - head) % size
 
-    x [B, S, d_model]; k_cache/v_cache [B, max_seq, Hkv, D].
+
+def ring_k_positions(head: int, size: int, written, device=None):
+    """(absolute position, validity) per slot of a head+ring cache after
+    ``written`` positions were appended, each [head + size].
+
+    Ring slot r was last written by the largest p = head + r + size * c
+    below ``written``; unwritten slots get a negative position and
+    valid = False.
+    """
+    j = torch.arange(head + size, device=device)
+    in_head = j < head
+    r = j - head
+    wr = written - head
+    cycles = torch.div(wr - 1 - r, size, rounding_mode="floor")
+    p = torch.where(in_head, j, head + r + size * cycles)
+    valid = torch.where(in_head, j < written, r < wr)
+    return p, valid
+
+
+def attention_with_cache(x, p: Params, spec: AttentionSpec, cos, sin,
+                         k_cache, v_cache, offset: int, mm=None,
+                         pos_base: int = 0,
+                         ring: Optional[tuple[int, int]] = None):
+    """Append this block's K/V to the cache at ``offset``, attend over
+    everything written so far.
+
+    x [B, S, d_model]; k_cache/v_cache [B, max_seq, Hkv, D]; ``offset``
+    = positions appended so far.  ``pos_base``: absolute position of
+    slot 0 (RoPE and the band mask see absolute positions).  ``ring``:
+    ``(head, size)`` makes the cache a head+ring buffer of head + size
+    slots (positions < head permanent, later ones wrap modulo size);
+    a write must fit one region, as the callers align it, and
+    ``pos_base`` stays 0.
     """
     b, s, _ = x.shape
     dev = x.device
-    positions = offset + torch.arange(s, device=dev)
+    positions = pos_base + offset + torch.arange(s, device=dev)
     q = linear(x, p["wq"], p.get("wq_b"), mm).reshape(
         b, s, spec.n_heads, spec.head_dim)
     k = linear(x, p["wk"], p.get("wk_b"), mm).reshape(
@@ -278,11 +315,16 @@ def attention_with_cache(x, p: Params, spec: AttentionSpec, cos, sin,
         b, s, spec.n_kv_heads, spec.head_dim)
     q = apply_rope(q, cos, sin, positions)
     k = apply_rope(k, cos, sin, positions)
-    k_cache, v_cache = cache_update_layer(k_cache, v_cache, k, v, offset)
-    max_seq = k_cache.shape[1]
-    slots = torch.arange(max_seq, device=dev)
-    out = _sdpa(q, k_cache, v_cache, spec, positions, slots,
-                slots < offset + s)
+    if ring is None:
+        k_cache, v_cache = cache_update_layer(k_cache, v_cache, k, v, offset)
+        slots = torch.arange(k_cache.shape[1], device=dev)
+        k_pos, k_valid = pos_base + slots, slots < offset + s
+    else:
+        head, size = ring
+        k_cache, v_cache = cache_update_layer(
+            k_cache, v_cache, k, v, ring_slot(offset, head, size))
+        k_pos, k_valid = ring_k_positions(head, size, offset + s, dev)
+    out = _sdpa(q, k_cache, v_cache, spec, positions, k_pos, k_valid)
     out = out.reshape(b, s, spec.n_heads * spec.head_dim)
     return linear(out, p["wo"], p.get("wo_b"), mm), k_cache, v_cache
 
@@ -323,11 +365,14 @@ def encoder_block(x, p: Params, spec: AttentionSpec, cos, sin, positions,
 
 def decoder_block_with_cache(x, t_embed, p: Params, spec: AttentionSpec, cos,
                              sin, k_cache, v_cache, offset: int, eps: float,
-                             mm=None):
-    """Decoder layer with KV cache; ADA modulation after ffn_norm."""
+                             mm=None, pos_base: int = 0,
+                             ring: Optional[tuple[int, int]] = None):
+    """Decoder layer with KV cache; ADA modulation after ffn_norm.
+    ``pos_base`` / ``ring`` as in :func:`attention_with_cache`."""
     h = rms_norm(x, p["attention_norm"], eps)
     attn_out, k_cache, v_cache = attention_with_cache(
-        h, p["attention"], spec, cos, sin, k_cache, v_cache, offset, mm)
+        h, p["attention"], spec, cos, sin, k_cache, v_cache, offset, mm,
+        pos_base, ring)
     x = x + attn_out
     h = rms_norm(x, p["ffn_norm"], eps)
     h = ada_modulate(h, t_embed, p["ada"], mm)

@@ -119,7 +119,9 @@ def append_rows(cache: torch.Tensor, new: torch.Tensor, offs: torch.Tensor,
                 rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-row cache append, in place: write ``new[:, i]`` [L, H, hd] at
     slot ``offs[i]`` along the S axis of cache row ``rows[i]`` (default
-    ``i``) of ``cache`` [L, Bc, H, S, hd].  Returns ``cache``."""
+    ``i``) of ``cache`` [L, Bc, H, S, hd].  Returns ``cache``.  On a
+    head+ring cache the caller passes the mapped slots
+    (``layers.ring_slot``)."""
     if rows is None:
         rows = torch.arange(new.shape[1], device=new.device)
     cache[:, rows, :, offs.long()] = new.permute(1, 0, 2, 3).to(cache.dtype)
@@ -206,32 +208,15 @@ def transcribe_streaming_fn(params: Params, mel: torch.Tensor,
     n_steps = seq_len - PREFIX_LEN - 1
     token = select_token(logits, gen, temperature, top_k)
     if margins is not None:
-        margins.append(_top2_margin(logits))
+        margins.append(top2_margin(logits))
 
     if fused is None:
         return _per_op_decode(dec, audio_embeds, t_embed, token, cache,
                               rope, lm_cfg, mm, gen, temperature, top_k,
                               margins)
 
-    ada_vecs = k1.ada_vectors(dec, t_embed, mm)
-    step_kw = dict(n_heads=lm_cfg.n_heads, n_kv=lm_cfg.n_kv_heads,
-                   head_dim=lm_cfg.head_dim, eps=lm_cfg.norm_eps,
-                   window=lm_cfg.sliding_window)
-    lm_kw = _lm_fold(dec, fused)
-
-    def run_step(x, off, cos, sin, k_cache, v_cache, spec=1):
-        out = step(x, off, fused["attn_norm"], fused["ffn_norm"], ada_vecs,
-                   fused["sqkv"], fused["so"], fused["s13"], fused["s2"],
-                   cos, sin, k_cache, v_cache, fused["wqkv"], fused["wo"],
-                   fused["w13"], fused["w2"], spec=spec, **lm_kw, **step_kw)
-        if lm_kw:
-            return out
-        # No lm fold (a q4g stack over another table): the final norm and
-        # the lm_head run after the step, as in JAX.
-        x_out, k_new, v_new = out
-        hidden = rms_norm(x_out, dec["norm"], lm_cfg.norm_eps)
-        return x_out, k_new, v_new, lm_head(dec, hidden, mm=mm)
-
+    run_step = fused_step_fn(dec, fused, k1.ada_vectors(dec, t_embed, mm),
+                             lm_cfg, mm, step)
     K = speculative
     spec = K >= 2 and temperature <= 0.0 and n_steps >= 1
     # Head-major copy of the prefilled cache for the step: [L, B, Hkv, S,
@@ -267,8 +252,37 @@ def transcribe_streaming_fn(params: Params, mel: torch.Tensor,
         token = select_token(logits, gen, temperature, top_k)
         tokens[:, i + 1] = token
         if margins is not None:
-            margins.append(_top2_margin(logits))
+            margins.append(top2_margin(logits))
     return tokens
+
+
+def fused_step_fn(dec: Params, fused: Params, ada_vecs: torch.Tensor, lm_cfg,
+                  mm=None, step=None):
+    """The K1 step with the model's stacks bound: ``run(x, off, cos, sin,
+    k_cache, v_cache, spec=1, ring=None) -> (x_out, k_new, v_new,
+    logits)``.  ``step``: the kernel wrapper (default) or its plain
+    version; ``ring``: the head+ring cache layout (mode (d))."""
+    step = step or k1.decode_stack_step
+    step_kw = dict(n_heads=lm_cfg.n_heads, n_kv=lm_cfg.n_kv_heads,
+                   head_dim=lm_cfg.head_dim, eps=lm_cfg.norm_eps,
+                   window=lm_cfg.sliding_window)
+    lm_kw = _lm_fold(dec, fused)
+
+    def run_step(x, off, cos, sin, k_cache, v_cache, spec=1, ring=None):
+        out = step(x, off, fused["attn_norm"], fused["ffn_norm"], ada_vecs,
+                   fused["sqkv"], fused["so"], fused["s13"], fused["s2"],
+                   cos, sin, k_cache, v_cache, fused["wqkv"], fused["wo"],
+                   fused["w13"], fused["w2"], spec=spec, ring=ring, **lm_kw,
+                   **step_kw)
+        if lm_kw:
+            return out
+        # No lm fold (a q4g stack over another table): the final norm and
+        # the lm_head run after the step, as in JAX.
+        x_out, k_new, v_new = out
+        hidden = rms_norm(x_out, dec["norm"], lm_cfg.norm_eps)
+        return x_out, k_new, v_new, lm_head(dec, hidden, mm=mm)
+
+    return run_step
 
 
 def _lm_fold(dec: Params, fused: Params) -> dict:
@@ -309,7 +323,7 @@ def _per_op_decode(dec: Params, audio_embeds: torch.Tensor,
         token = select_token(logits, gen, temperature, top_k)
         tokens[:, i + 1] = token
         if margins is not None:
-            margins.append(_top2_margin(logits))
+            margins.append(top2_margin(logits))
     return tokens
 
 
@@ -373,7 +387,7 @@ def _spec_decode(run_step, dec: Params, audio_embeds: torch.Tensor,
         append_rows(v_cache, v_new, at, stream)
         toks.scatter_(1, idx, y)
         if marg is not None:
-            marg.scatter_(1, idx, _top2_margin(logits).reshape(batch, K))
+            marg.scatter_(1, idx, top2_margin(logits).reshape(batch, K))
         picked = y.gather(1, (adv - 1).clamp(0, K - 1)[:, None])[:, 0]
         prev = torch.where(adv > 0, picked, prev)
         if ngram:
@@ -387,7 +401,7 @@ def _spec_decode(run_step, dec: Params, audio_embeds: torch.Tensor,
     return torch.cat([first[:, None], toks[:, :n_steps]], dim=1)
 
 
-def _top2_margin(logits: torch.Tensor) -> torch.Tensor:
+def top2_margin(logits: torch.Tensor) -> torch.Tensor:
     top = torch.topk(logits.float(), 2, dim=-1).values
     return top[:, 0] - top[:, 1]
 

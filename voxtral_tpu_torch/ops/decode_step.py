@@ -10,7 +10,13 @@ weights — int8 codes = Q4_0 nibble - 8 with their f16 group scales
 [L, N, K/32] in place of the row scales (the JAX ``[L, SB, N, 128]`` /
 ``[L, 4 SB, 1, N]`` f32 layouts exist for Mosaic; the port keeps the w8
 code layout and the exact f16 scales, 1.0625 bytes per weight), for
-the stacks and the lm fold, combinable with (b) and (c).  Source:
+the stacks and the lm fold, combinable with (b) and (c); (d) the
+head+ring cache of an unbounded stream (``ring=(head, size)``): slots
+[0, head) hold positions [0, head) for good, ring slot r the largest
+position head + r + size * c below the offset; the attention walks all
+S slots in slot order and masks each by its absolute position, as the
+JAX ``build_valid`` (``decode_step_pallas.py:1020-1042``, spec rows
+``:813-829``), combinable with every other mode.  Source:
 ``csrc/decode_step.cu``.
 
 What bounds it on the H100: the int8 weights streamed once per step —
@@ -265,11 +271,36 @@ def _spec_streams(rows: int, cache_rows: int, spec: int) -> int:
     return rows // spec
 
 
+def cache_visibility(S: int, offs: torch.Tensor,
+                     ring: Optional[tuple[int, int]] = None):
+    """(absolute position, written) of each cache slot per stream, as the
+    JAX kernel's ``build_valid``: offs [Bc] -> two [Bc, S] tensors.
+    Bounded cache: slot t holds position t, written below the offset.
+    Head+ring (head, size): slots below head hold their own position;
+    ring slot r holds the largest head + r + size * c below the offset
+    and is written once r < offset - head (slots past head + size never
+    are).  The window test on the absolute position is the caller's."""
+    pos = torch.arange(S, device=offs.device)
+    off = offs.reshape(-1, 1).long()
+    if ring is None:
+        return pos.expand(off.shape[0], S), pos < off
+    head, size = ring
+    r = pos - head
+    wr = off - head
+    cycles = torch.div(torch.clamp(wr - 1 - r, min=0), size,
+                       rounding_mode="floor")
+    in_head = pos < head
+    p_abs = torch.where(in_head, pos, head + r + size * cycles)
+    written = (in_head & (pos < off)) | (~in_head & (r < size) & (r < wr))
+    return p_abs, written
+
+
 def _attention_plain(q, k, v, k_cache, v_cache, offs, window, spec, n_kv,
-                     scale):
+                     scale, ring=None):
     """One layer's attention, as the JAX kernel's spec branch computes it
     (spec = 1 is the sequential step): q [B, H, hd], k / v [B, Hkv, hd]
-    RoPE'd f32; caches [Bc, Hkv, S, hd]; offs [Bc] int.  -> [B, H * hd]."""
+    RoPE'd f32; caches [Bc, Hkv, S, hd]; offs [Bc] int; ``ring`` the
+    head+ring layout (mode (d)) or None.  -> [B, H * hd]."""
     B, n_heads, hd = q.shape
     Bc, S = B // spec, k_cache.shape[2]
     groups = n_heads // n_kv
@@ -278,8 +309,8 @@ def _attention_plain(q, k, v, k_cache, v_cache, offs, window, spec, n_kv,
     vS = v.reshape(Bc, spec, n_kv, hd)
     kc = k_cache.reshape(Bc * n_kv, S, hd).double()
     vc = v_cache.reshape(Bc * n_kv, S, hd).double()
-    pos = torch.arange(S, device=q.device)
-    off = offs.reshape(Bc, 1)
+    p_abs, written = cache_visibility(S, offs, ring)
+    off = offs.reshape(Bc, 1).long()
 
     def fresh(t, i):  # [Bc, spec, Hkv, hd] -> row i's [Bc * Hkv, 1, hd]
         return t[:, i].reshape(Bc * n_kv, 1, hd)
@@ -288,9 +319,9 @@ def _attention_plain(q, k, v, k_cache, v_cache, offs, window, spec, n_kv,
     for j in range(spec):
         qj = qS[:, j].reshape(Bc * n_kv, groups, hd) * scale
         sj = (qj.to(k_cache.dtype).double() @ kc.transpose(1, 2)).float()
-        valid = pos < off
+        valid = written
         if window is not None:
-            valid &= (off + j - pos) <= window
+            valid = valid & ((off + j - p_abs) <= window)
         valid = valid.repeat_interleave(n_kv, dim=0)[:, None, :]
         sj = torch.where(valid, sj, float("-inf"))
         prevs = [(i, _sum64(qj.double() * fresh(kS, i).double()))
@@ -322,6 +353,7 @@ def decode_stack_step_plain(
     final_norm=None, lm_codes=None, lm_scale=None,
     *, n_heads: int, n_kv: int, head_dim: int, eps: float,
     window: Optional[int] = None, spec: int = 1,
+    ring: Optional[tuple[int, int]] = None,
 ):
     """Plain PyTorch version of the kernel, step by step as the JAX
     kernel computes it (its spec branch for ``spec > 1``: one pass, not
@@ -332,7 +364,8 @@ def decode_stack_step_plain(
     group sums) run in f64 and round once to f32, as the CUDA kernel
     does: both agree bit for bit whatever order each sums in.  Mode (h):
     g32 scale stacks [L, N, K/32] (and an lm scale [V, D/32]) select
-    the group-32 GEMV.
+    the group-32 GEMV.  ``ring`` (mode (d)): the cache is a head+ring
+    buffer, masked per slot by :func:`cache_visibility`.
     """
     B, D = x.shape
     L = k_cache.shape[0]
@@ -357,7 +390,7 @@ def decode_stack_step_plain(
         k_new.append(k.to(k_cache.dtype))
         v_new.append(v.to(v_cache.dtype))
         attn = _attention_plain(q, k, v, k_cache[l], v_cache[l], offs,
-                                window, spec, n_kv, head_dim ** -0.5)
+                                window, spec, n_kv, head_dim ** -0.5, ring)
         x = x + _matmul_plain(*_quant(attn), wo[l], so[l])
 
         h = _rms(x, ffn_norms[l].float(), eps) * ada_vecs[l].float()
@@ -380,6 +413,40 @@ def decode_stack_step_plain(
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"decode_stack_step: {msg}")
+
+
+# The attention block's shape (csrc/decode_step.cu): 256 threads, and a
+# block may hold 227 KB of dynamic shared memory on the H100.
+ATTN_THREADS = 256
+SMEM_LIMIT = 227 * 1024
+
+
+def attn_smem_bytes(S: int, head_dim: int, window: Optional[int] = None,
+                    spec: int = 1,
+                    ring: Optional[tuple[int, int]] = None) -> int:
+    """Shared memory of one attention block, as the host entry sizes it:
+    the per-warp P.V partials (f64), q, bf16(q), k, v, the spec fresh
+    scores and one score per cache slot a row may walk (the window on a
+    bounded cache, all S slots on a head+ring cache)."""
+    span = S if ring is not None or window is None or window >= S else window
+    return 8 * (ATTN_THREADS // 32) * head_dim + 4 * (4 * head_dim + spec
+                                                      + span)
+
+
+def check_geometry(S: int, head_dim: int, window: Optional[int] = None,
+                   spec: int = 1,
+                   ring: Optional[tuple[int, int]] = None) -> None:
+    """ValueError naming the cause when the kernel cannot take a cache of
+    S slots (its score buffer lives in one block's shared memory)."""
+    need = attn_smem_bytes(S, head_dim, window, spec, ring)
+    _require(need <= SMEM_LIMIT,
+             f"a cache of {S} slots (window {window}, ring {ring}, "
+             f"spec={spec}) needs {need} bytes of shared memory per "
+             f"attention block, above the {SMEM_LIMIT} a block may hold")
+    if ring is not None:
+        head, size = ring
+        _require(head >= 0 and size >= 1 and head + size <= S,
+                 f"ring {ring} does not fit a cache of {S} slots")
 
 
 def _g32_mode(wqkv, wo, w13, w2, sqkv, so, s13, s2, lm_codes,
@@ -417,6 +484,7 @@ def decode_stack_step(
     final_norm=None, lm_codes=None, lm_scale=None,
     *, n_heads: int, n_kv: int, head_dim: int, eps: float,
     window: Optional[int] = None, spec: int = 1,
+    ring: Optional[tuple[int, int]] = None,
 ):
     """All decoder layers of one decode step (+ lm fold).
 
@@ -429,7 +497,10 @@ def decode_stack_step(
     sliding window (None: no lower bound).  ``spec=K > 1`` verifies K
     drafted tokens per stream: row j also attends the fresh K/V of rows
     i < j of its stream.  g32 stacks from :func:`fuse_decode_weights_q4g`
-    select mode (h).  Returns (x_out, k_new, v_new[, logits]) like
+    select mode (h).  ``ring=(head, size)`` (mode (d)): the caches are
+    head+ring buffers and ``offset`` the absolute position (any
+    non-negative int or tensor; slots by :func:`cache_visibility`).
+    Returns (x_out, k_new, v_new[, logits]) like
     :func:`decode_stack_step_plain`, k_new / v_new [L, B, Hkv, hd]; the
     caller appends them.
 
@@ -440,7 +511,7 @@ def decode_stack_step(
             cos_p, sin_p, k_cache, v_cache, wqkv, wo, w13, w2,
             final_norm, lm_codes, lm_scale)
     kw = dict(n_heads=n_heads, n_kv=n_kv, head_dim=head_dim, eps=eps,
-              window=window, spec=spec)
+              window=window, spec=spec, ring=ring)
     dev = x.device
     if dev.type == "cpu":
         return decode_stack_step_plain(*args, **kw)
@@ -462,9 +533,11 @@ def decode_stack_step(
                  f"{dev}, got {offset.dtype} {tuple(offset.shape)} on "
                  f"{offset.device}")
         offs, offset = offset, 0
-    _require(isinstance(offset, int) and 0 <= offset <= S,
-             f"offset must be an int in [0, {S}] or a tensor, got "
+    hi = S if ring is None else 2 ** 31 - 1
+    _require(isinstance(offset, int) and 0 <= offset <= hi,
+             f"offset must be an int in [0, {hi}] or a tensor, got "
              f"{offset!r}")
+    check_geometry(S, head_dim, window, spec, ring)
     _require(Hkv == n_kv and hd == head_dim,
              f"cache {tuple(k_cache.shape)} does not match n_kv={n_kv}, "
              f"head_dim={head_dim}")
@@ -525,7 +598,8 @@ def decode_stack_step(
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    fn = kernel_fn("vx_decode_stack_step", [_P] * 29 + [_I] * 14
+    ring_head, ring_size = ring if ring is not None else (0, 0)
+    fn = kernel_fn("vx_decode_stack_step", [_P] * 29 + [_I] * 16
                    + [_F, _F, _P])
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = fn(
@@ -537,8 +611,8 @@ def decode_stack_step(
         ptr(xq_buf), ptr(sx_buf), ptr(qkv_buf), ptr(attn_buf), ptr(up_buf),
         ptr(offs), B, D, L, S, n_heads, n_kv, head_dim, F, V, offset, spec,
         0 if cos_p.dim() == 1 else head_dim,
-        -1 if window is None else int(window), int(g32), eps,
-        head_dim ** -0.5, stream)
+        -1 if window is None else int(window), int(g32), ring_head,
+        ring_size, eps, head_dim ** -0.5, stream)
     check(code, "decode_stack_step")
     decode_stack_step.launches += 1
     out = (x_out, k_new, v_new)
