@@ -125,14 +125,20 @@ MARGIN_TIE = 1e-3
 # test allows 2e-3 relative, tests/test_spec_decode.py); with logits of
 # about +-3.5 a flip is a near-tie below 2e-3 x 3.5 ~ 1e-2.
 SPEC_MARGIN_TIE = 1e-2
-# Bounded against unbounded sessions, and a session against the one-shot
-# path: the plain attention of the encoder (and of the per-op first step)
-# sums its f32 scores and weights over caches of another length (and,
-# once the encoder ring wraps, in another slot order), so its
-# bf16-rounded output may move by one bf16 ulp (2^-8 relative), which
-# the bf16 layers after it carry to the logits: as for spec against
-# sequential, a flip is a near-tie below 1e-2.
-LAYOUT_MARGIN_TIE = 1e-2
+# Two cache layouts (bounded and head+ring) of one encoder attention
+# layer at full width: the same visible keys in another slot order,
+# beside another count of masked slots (exact zeros), so the f32 sums
+# round otherwise and the bf16 output moves by at most an ulp either way.
+LAYOUT_LAYER_RTOL = 2 ** -7
+# Sessions of two layouts (or a session and the one-shot path) carry
+# such roundings through 58 layers of random weights, which amplify
+# them: measured against a pair of bounded sessions that differ in their
+# cache length alone (the noise a layout change makes without any ring).
+# The head+ring session may differ from the bounded one by at most this
+# factor times that noise, in audio embeds and in logits; a token flip
+# between layouts is accepted only at a top-2 margin below twice the
+# noise's largest logit difference.
+LAYOUT_NOISE_FACTOR = 3.0
 SPEC_K = 8
 
 
@@ -225,9 +231,19 @@ def check_k2(dev, card):
 
     # (M, K, N): lm_head after prefill; prefill wq; encoder w1 and w2
     # (608 positions for 16 s); adapter w1 (152 positions); ADA w0 / w2.
+    # Then the live session's: a steady step's encoder at its 32 new
+    # frames (wq / wk / wv, wo, w1 / w3, w2) and adapter at P = 8 rows
+    # (w1, w2); the first step's encoder head (152 frames) and adapter
+    # (38 rows); its per-op decoder at one row (wq, wk / wv, wo, w1 / w3,
+    # w2).
     shapes = [(1, 3072, 131072), (38, 3072, 4096), (608, 1280, 5120),
               (608, 5120, 1280), (152, 5120, 3072), (1, 3072, 32),
-              (1, 32, 3072)]
+              (1, 32, 3072),
+              (32, 1280, 2048), (32, 2048, 1280), (32, 1280, 5120),
+              (32, 5120, 1280), (8, 5120, 3072), (8, 3072, 3072),
+              (152, 1280, 5120), (38, 5120, 3072), (1, 3072, 4096),
+              (1, 3072, 1024), (1, 4096, 3072), (1, 3072, 9216),
+              (1, 9216, 3072)]
     gen = torch.Generator(device=dev).manual_seed(0)
     worst, times = 0.0, {}
     for m, k, n in shapes:
@@ -272,9 +288,10 @@ def check_k2(dev, card):
     return worst, times
 
 
-# q4 path shapes (N, K): wq, wk / wv, wo, w1 / w3, w2, lm_head.
+# q4 path shapes (N, K): wq, wk / wv, wo, w1 / w3, w2, lm_head; the live
+# session's adapter w1 and w2 (at P = 8 rows).
 K3_SHAPES = [(4096, 3072), (1024, 3072), (3072, 4096), (9216, 3072),
-             (3072, 9216), (131072, 3072)]
+             (3072, 9216), (131072, 3072), (3072, 5120), (3072, 3072)]
 
 
 def check_k3(dev, card):
@@ -905,6 +922,88 @@ def ring_geometry(lm):
     return ring, sum(ring)
 
 
+def enc_ring_geometry(enc):
+    """The unbounded session's encoder ring: a head of 4 x 38 frames and
+    the window rounded up to the 4P-frame write granule."""
+    gran = 4 * P_STEP
+    return 4 * 38, -(-(enc.sliding_window + gran) // gran) * gran
+
+
+def check_enc_ring_layer(model, dev, card):
+    """The session's encoder head+ring layout at full width, one layer
+    deep: ``attention_with_cache`` over 4P new frames at offsets before,
+    just past and well past the ring's wrap, in the bounded layout
+    (position p at slot p of a 120 s cache) and the head+ring one, both
+    caches holding the same random K/V at every position the layout
+    keeps.  Dense random bf16 weights, so the linears are the same f32
+    matmuls on both sides.  The ring write must land at ring_slot
+    (exact) and the outputs agree within LAYOUT_LAYER_RTOL of the
+    largest.  -> worst error, as a share of the largest output."""
+    import torch
+
+    from voxtral_tpu_torch.models.encoder import encoder_spec
+    from voxtral_tpu_torch.models.layers import (
+        attention_with_cache,
+        ring_slot,
+        rope_tables,
+    )
+
+    enc = model.config.audio_encoder
+    spec = encoder_spec(enc)
+    D, hd = enc.dim, enc.head_dim
+    head, size = ring = enc_ring_geometry(enc)
+    n_new = 4 * P_STEP
+    s_bounded = 4 * (int(120 * 6.25) + 38 + 2 * P_STEP)
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, device=dev, generator=gen) * scale
+                ).bfloat16()
+
+    nq, nkv = enc.n_heads * hd, enc.n_kv_heads * hd
+    p = {"wq": rand(D, nq, scale=D ** -0.5), "wk": rand(D, nkv, scale=D ** -0.5),
+         "wv": rand(D, nkv, scale=D ** -0.5), "wo": rand(nq, D, scale=nq ** -0.5)}
+    cos, sin = rope_tables(hd, 4096, enc.rope_theta, device=dev)
+    worst = 0.0
+    for off in (head + 14 * n_new, head + 26 * n_new, head + 42 * n_new):
+        kv_shape = (1, off, enc.n_kv_heads, hd)
+        k_all, v_all = rand(*kv_shape), rand(*kv_shape)
+        kb = torch.zeros((1, s_bounded) + kv_shape[2:], dtype=torch.bfloat16,
+                         device=dev)
+        vb = torch.zeros_like(kb)
+        kb[:, :off], vb[:, :off] = k_all, v_all
+        kr = torch.zeros((1, head + size) + kv_shape[2:],
+                         dtype=torch.bfloat16, device=dev)
+        vr = torch.zeros_like(kr)
+        pos = torch.arange(off, device=dev)
+        kept = pos[(pos < head) | (pos >= max(head, off - size))]
+        kr[:, ring_slot(kept, head, size)] = k_all[:, kept]
+        vr[:, ring_slot(kept, head, size)] = v_all[:, kept]
+        x = rand(1, n_new, D)
+        out_b, kb, vb = attention_with_cache(x, p, spec, cos, sin, kb, vb, off)
+        out_r, kr, vr = attention_with_cache(x, p, spec, cos, sin, kr, vr, off,
+                                             ring=ring)
+        slots = ring_slot(torch.arange(off, off + n_new, device=dev), head,
+                          size)
+        writes = (torch.equal(kr[:, slots], kb[:, off:off + n_new])
+                  and torch.equal(vr[:, slots], vb[:, off:off + n_new]))
+        err = ((out_r.float() - out_b.float()).abs().max()
+               / out_b.float().abs().max()).item()
+        worst = max(worst, err)
+        print(f"encoder ring layout, one layer at full width, offset {off} "
+              f"(ring {ring}, bounded {s_bounded} slots): ring writes "
+              f"exact {writes}; output error {err:.3e} of max (bit-equal "
+              f"{torch.equal(out_r, out_b)}; bound {LAYOUT_LAYER_RTOL}) "
+              f"[{card}]", flush=True)
+        if not writes:
+            fail(f"encoder ring layout at offset {off}: the new K/V did not "
+                 "land at their ring slots")
+        if not err <= LAYOUT_LAYER_RTOL:
+            fail(f"encoder ring layout at offset {off}: output error "
+                 f"{err:.3e} of max > {LAYOUT_LAYER_RTOL}")
+    return worst
+
+
 def check_k1_ring(model, dev, card):
     """K1 mode (d) against its plain version at full width: a head+ring
     cache of S = 8238 slots, ring (38, 8200), window 8192, at every
@@ -913,6 +1012,7 @@ def check_k1_ring(model, dev, card):
     -> (max abs err, {(off, spec): (ms, plain ms, bound ms, bound by)})."""
     import torch
 
+    from voxtral_tpu_torch.models.layers import ring_k_positions
     from voxtral_tpu_torch.ops import decode_step as k1
 
     cfg = model.config.language_model
@@ -960,8 +1060,7 @@ def check_k1_ring(model, dev, card):
                                 20, 2)
         # The cache slots this step must read: written and within the
         # window of row 0 (the later spec rows see a subset of them).
-        p_abs, written = k1.cache_visibility(
-            S, torch.tensor([off], device=dev), ring)
+        p_abs, written = ring_k_positions(*ring, off, device=dev)
         seen = int((written & (off - p_abs <= cfg.sliding_window)).sum())
         kv_read = 2 * L * n_kv * seen * hd * 2
         moved = (wbytes + kv_read + 2 * nbytes(x) + 2 * nbytes(got[1])
@@ -986,12 +1085,14 @@ def stream_counters():
             "q4_matmul": k3.q4_matmul_packed}
 
 
-def stream_run(model, pieces, dev, **kw) -> dict:
+def stream_run(model, pieces, dev, keep=False, **kw) -> dict:
     """One StreamingSession over ``pieces`` then finish(), each feed
     timed to a synchronize, with every launch counter set to 0 just
     before and read just after.  A feed that ran the first step gives
     the time to first text; a feed that advanced by exactly P positions
-    one steady step's time."""
+    one steady step's time.  ``keep`` (a sequential session) also keeps
+    each position's logits [n, V] and audio embed [n, D] on the device,
+    as ``kept``."""
     import torch
 
     from voxtral_tpu_torch.streaming import StreamingSession
@@ -1017,6 +1118,21 @@ def stream_run(model, pieces, dev, **kw) -> dict:
         return out
 
     ses._steady_inputs = timed_inputs
+    logits_kept, embeds_kept = [], []
+    if keep:
+        record, encode = ses._record, ses._encode
+
+        def kept_record(out, tokens, logits):
+            logits_kept.append(logits.float().reshape(-1, logits.shape[-1])
+                               .clone())
+            record(out, tokens, logits)
+
+        def kept_encode(x):
+            audio = encode(x)
+            embeds_kept.append(audio[0].float().clone())
+            return audio
+
+        ses._record, ses._encode = kept_record, kept_encode
     for piece in pieces:
         done = ses.positions_done
         t0 = time.perf_counter()
@@ -1033,6 +1149,8 @@ def stream_run(model, pieces, dev, **kw) -> dict:
     # The wrapper refers back to the session: drop it, so the session and
     # its caches go when the last reference does, not at a later GC pass.
     del ses._steady_inputs
+    if keep:
+        del ses._record, ses._encode
     launches = {name: fn.launches for name, fn in counters.items()}
     # Numbers only: a run keeps no session, so its caches go with it.
     out = dict(positions=ses.positions_done, spec=ses.spec_metrics(),
@@ -1042,6 +1160,8 @@ def stream_run(model, pieces, dev, **kw) -> dict:
                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
                cache_gb=ses.cache_bytes / 1e9,
                margins=np.asarray(ses.margins) if ses.margins else None)
+    if keep:
+        out["kept"] = (torch.cat(logits_kept), torch.cat(embeds_kept))
     if out["margins"] is not None and not np.isfinite(out["margins"]).all():
         fail("non-finite logits in a streaming session")
     if len(ses.tokens) != ses.positions_done - 38:
@@ -1130,8 +1250,7 @@ def run_stream_wrap(model, plain, dev, card):
         return (torch.randn(shape, device=dev, generator=gen) * 0.5
                 ).bfloat16()
 
-    enc_s = 4 * 38 + (-(-(enc.sliding_window + 4 * P_STEP)
-                        // (4 * P_STEP))) * 4 * P_STEP
+    enc_s = sum(enc_ring_geometry(enc))
     base = MEL_HOP * (16 * p0 - 8)
     n = _mel_frames_needed(16 * (p0 + n_steps * P_STEP) + 8) - base
     state = {
@@ -1179,6 +1298,70 @@ def run_stream_wrap(model, plain, dev, card):
     return same, launches
 
 
+def layout_witness(model, pieces, dev, card):
+    """Sessions of two cache layouts, position by position, on the kernel
+    model: a bounded 120 s session against a bounded 60 s one (the cache
+    length alone: the noise) and against the unbounded one (head+ring).
+    For each pair, the relative L2 difference of the audio embeds (which
+    no token feeds) over the whole stream, and the largest logit
+    difference up to and with the first token where the pair parts
+    (after it their inputs differ).  Fail unless the head+ring pair
+    stays within LAYOUT_NOISE_FACTOR of the noise in both.  -> the tie
+    threshold for token flips between layouts."""
+    import torch
+
+    runs = {name: stream_run(model, pieces, dev, keep=True, **kw)
+            for name, kw in (("bounded", dict(max_duration_s=120)),
+                             ("bounded 60 s", dict(max_duration_s=60)),
+                             ("unbounded", dict(unbounded=True)))}
+    ref_log, ref_emb = runs["bounded"].pop("kept")
+    ref_tok = runs["bounded"]["tokens"]
+    wrap = runs["unbounded"]["max_enc"] // 4  # first position past the wrap
+    diff = {}
+    for name in ("bounded 60 s", "unbounded"):
+        log, emb = runs[name].pop("kept")
+        tok = runs[name]["tokens"]
+        parted = np.nonzero(tok != ref_tok)[0]
+        n = int(parted[0]) + 1 if len(parted) else len(tok)
+        d_log = (log[:n] - ref_log[:n]).abs().amax(-1).cpu().numpy()
+        rel = ((emb - ref_emb).norm(dim=-1)
+               / ref_emb.norm(dim=-1)).cpu().numpy()
+        margin = None
+        if len(parted):
+            top2 = ref_log[n - 1].topk(2).values
+            margin = float(top2[0] - top2[1])
+        diff[name] = (float(rel.max()), float(d_log.max()))
+        print(f"layouts, bounded 120 s vs {name} session: audio embeds "
+              f"bit-identical at {int((rel == 0).sum())} of {len(rel)} "
+              f"positions, relative L2 difference median "
+              f"{float(np.median(rel)):.3e}, max {float(rel[:wrap].max()):.3e} "
+              f"before position {wrap} and "
+              f"{float(rel[wrap:].max(initial=0)):.3e} from it; logits over "
+              f"{n} tokens: largest difference {float(d_log.max()):.3e} "
+              f"(median {float(np.median(d_log)):.3e}, at token 0 "
+              f"{float(d_log[0]):.3e}; logits span "
+              f"+-{float(ref_log[:n].abs().max()):.3f}); tokens "
+              + (f"part at token {n - 1} (bounded top-2 margin {margin:.3e})"
+                 if margin is not None else "identical")
+              + f" [{card}]", flush=True)
+        del log, emb
+    del ref_log, ref_emb, runs
+    torch.cuda.empty_cache()
+    (n_emb, n_log), (r_emb, r_log) = diff["bounded 60 s"], diff["unbounded"]
+
+    def ratio(r, n):
+        return r / n if n else (0.0 if r == 0 else float("inf"))
+
+    print(f"layouts: head+ring / cache-length noise = {ratio(r_emb, n_emb):.3f}"
+          f" (embeds), {ratio(r_log, n_log):.3f} (logits); bound "
+          f"{LAYOUT_NOISE_FACTOR} [{card}]", flush=True)
+    if not (r_emb <= LAYOUT_NOISE_FACTOR * n_emb
+            and r_log <= LAYOUT_NOISE_FACTOR * n_log):
+        fail("the head+ring session moved embeds or logits by more than "
+             f"{LAYOUT_NOISE_FACTOR} x what a cache-length change alone does")
+    return 2 * n_log
+
+
 def run_stream_w8(model, plain, dev, card, tok):
     """Phase 8a: K1 mode (d) checks and the w8 sessions (45 s)."""
     import torch
@@ -1186,6 +1369,7 @@ def run_stream_w8(model, plain, dev, card, tok):
     from voxtral_tpu_torch.pipeline import PipelineConfig, TranscribePipeline
 
     k1_err, k1_times = check_k1_ring(model, dev, card)
+    check_enc_ring_layer(model, dev, card)
     torch.cuda.empty_cache()
     sig = stream_signal(STREAM_SECS)
     pieces = ragged_pieces(sig)
@@ -1209,10 +1393,11 @@ def run_stream_w8(model, plain, dev, card, tok):
     unb = runs["unbounded"]["run"]
     if not 4 * unb["positions"] > unb["max_enc"]:
         fail("the unbounded w8 session never wrapped its encoder ring")
+    layout_tie = layout_witness(model, pieces, dev, card)
     b_tok, u_tok = (runs[n]["run"]["tokens"] for n in ("bounded", "unbounded"))
     same_bu = first_divergence("w8 bounded vs unbounded session", b_tok, u_tok,
                                runs["unbounded"]["plain"]["margins"],
-                               LAYOUT_MARGIN_TIE)
+                               layout_tie)
     # The one-shot path on the same audio, in one chunk.
     model.record_margins = True
     pipe = TranscribePipeline(model, tok, PipelineConfig(
@@ -1226,7 +1411,7 @@ def run_stream_w8(model, plain, dev, card, tok):
     agree = float((one[0][:n] == u_tok[:n]).mean())
     same_one = first_divergence("w8 unbounded session vs one-shot",
                                 u_tok[:n], one[0][:n], one_margins[:n],
-                                LAYOUT_MARGIN_TIE)
+                                layout_tie)
     print(f"w8 sessions: bounded == unbounded tokens: {same_bu}; unbounded "
           f"session vs one-shot transcribe_samples over {n} positions: "
           f"identical {same_one}, agreement rate {agree:.4f} [{card}]",

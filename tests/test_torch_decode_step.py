@@ -669,21 +669,6 @@ def test_decode_stack_step_g32_ring_plain_matches_jax(q4g_params, inputs,
                                   np.asarray(jlog).argmax(-1))
 
 
-def test_cache_visibility_ring_matches_layers():
-    """The step's slot mask equals layers.ring_k_positions on the ring's
-    written slots, and a slot past head + size is never visible."""
-    from voxtral_tpu_torch.models.layers import ring_k_positions
-
-    head, size = RING
-    for off in (0, 2, 3, 10, 16, 17, 29, 40):
-        p_abs, written = tdsp.cache_visibility(
-            head + size + 2, torch.tensor([off]), RING)
-        p_ref, v_ref = ring_k_positions(head, size, off)
-        assert written[0, :head + size].tolist() == v_ref.tolist()
-        assert not written[0, head + size:].any()
-        assert (p_abs[0, :head + size][v_ref] == p_ref[v_ref]).all()
-
-
 def test_decode_stack_step_ring_guards(inputs):
     """Ring offsets may pass S; a ring that does not fit S, or a cache
     whose score buffer outgrows shared memory, raises with the cause."""

@@ -222,6 +222,22 @@ def test_ring_slot_and_k_positions_match_jax():
                                       np.asarray(jp)[np.asarray(jvalid)])
 
 
+def test_ring_k_positions_per_stream_and_padded():
+    """Per-stream offsets [Bc, 1] give each stream's row of the scalar
+    result, as the decode step reads them, and the slots a longer cache
+    holds past head + size are never valid (exact)."""
+    head, size = RING
+    offs = [0, 2, 3, 10, 11, 12, 29, 40]
+    p, valid = tl.ring_k_positions(head, size, torch.tensor(offs)[:, None],
+                                   slots=head + size + 2)
+    assert p.shape == valid.shape == (len(offs), head + size + 2)
+    assert not valid[:, head + size:].any()
+    for b, off in enumerate(offs):
+        p_ref, v_ref = tl.ring_k_positions(head, size, off)
+        assert valid[b, :head + size].tolist() == v_ref.tolist()
+        assert (p[b, :head + size][v_ref] == p_ref[v_ref]).all()
+
+
 @pytest.mark.parametrize("chunks", [[3, 1, 2, 1, 1, 2, 1, 1, 1],
                                     [3, 2, 2, 2, 2, 2, 2, 2]])
 def test_attention_with_cache_ring_matches_jax(chunks):

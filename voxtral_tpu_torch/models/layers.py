@@ -271,21 +271,27 @@ def ring_slot(offset, head: int, size: int):
     return offset if offset < head else head + (offset - head) % size
 
 
-def ring_k_positions(head: int, size: int, written, device=None):
+def ring_k_positions(head: int, size: int, written, device=None,
+                     slots: Optional[int] = None):
     """(absolute position, validity) per slot of a head+ring cache after
-    ``written`` positions were appended, each [head + size].
+    ``written`` positions were appended, each [slots] (default head +
+    size).
 
     Ring slot r was last written by the largest p = head + r + size * c
-    below ``written``; unwritten slots get a negative position and
-    valid = False.
+    below ``written``; unwritten slots get a meaningless position and
+    valid = False, as do slots past head + size of a longer cache.
+    ``written`` an int, or an int tensor that broadcasts against the slot
+    axis (per-stream offsets [Bc, 1] give [Bc, slots]).
     """
-    j = torch.arange(head + size, device=device)
+    if isinstance(written, torch.Tensor):
+        written, device = written.long(), written.device
+    j = torch.arange(head + size if slots is None else slots, device=device)
     in_head = j < head
     r = j - head
     wr = written - head
     cycles = torch.div(wr - 1 - r, size, rounding_mode="floor")
     p = torch.where(in_head, j, head + r + size * cycles)
-    valid = torch.where(in_head, j < written, r < wr)
+    valid = torch.where(in_head, j < written, (r < size) & (r < wr))
     return p, valid
 
 

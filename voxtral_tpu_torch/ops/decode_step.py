@@ -44,6 +44,7 @@ from typing import Optional
 
 import torch
 
+from voxtral_tpu_torch.models.layers import ring_k_positions
 from voxtral_tpu_torch.ops._build import check, kernel_fn
 from voxtral_tpu_torch.ops.w8 import quantize_activations as _quant
 from voxtral_tpu_torch.ops.w8_kernel import w8_matmul_plain
@@ -271,30 +272,6 @@ def _spec_streams(rows: int, cache_rows: int, spec: int) -> int:
     return rows // spec
 
 
-def cache_visibility(S: int, offs: torch.Tensor,
-                     ring: Optional[tuple[int, int]] = None):
-    """(absolute position, written) of each cache slot per stream, as the
-    JAX kernel's ``build_valid``: offs [Bc] -> two [Bc, S] tensors.
-    Bounded cache: slot t holds position t, written below the offset.
-    Head+ring (head, size): slots below head hold their own position;
-    ring slot r holds the largest head + r + size * c below the offset
-    and is written once r < offset - head (slots past head + size never
-    are).  The window test on the absolute position is the caller's."""
-    pos = torch.arange(S, device=offs.device)
-    off = offs.reshape(-1, 1).long()
-    if ring is None:
-        return pos.expand(off.shape[0], S), pos < off
-    head, size = ring
-    r = pos - head
-    wr = off - head
-    cycles = torch.div(torch.clamp(wr - 1 - r, min=0), size,
-                       rounding_mode="floor")
-    in_head = pos < head
-    p_abs = torch.where(in_head, pos, head + r + size * cycles)
-    written = (in_head & (pos < off)) | (~in_head & (r < size) & (r < wr))
-    return p_abs, written
-
-
 def _attention_plain(q, k, v, k_cache, v_cache, offs, window, spec, n_kv,
                      scale, ring=None):
     """One layer's attention, as the JAX kernel's spec branch computes it
@@ -309,8 +286,12 @@ def _attention_plain(q, k, v, k_cache, v_cache, offs, window, spec, n_kv,
     vS = v.reshape(Bc, spec, n_kv, hd)
     kc = k_cache.reshape(Bc * n_kv, S, hd).double()
     vc = v_cache.reshape(Bc * n_kv, S, hd).double()
-    p_abs, written = cache_visibility(S, offs, ring)
     off = offs.reshape(Bc, 1).long()
+    if ring is None:
+        p_abs = torch.arange(S, device=off.device)
+        written = p_abs < off
+    else:
+        p_abs, written = ring_k_positions(*ring, off, slots=S)
 
     def fresh(t, i):  # [Bc, spec, Hkv, hd] -> row i's [Bc * Hkv, 1, hd]
         return t[:, i].reshape(Bc * n_kv, 1, hd)
@@ -365,7 +346,8 @@ def decode_stack_step_plain(
     does: both agree bit for bit whatever order each sums in.  Mode (h):
     g32 scale stacks [L, N, K/32] (and an lm scale [V, D/32]) select
     the group-32 GEMV.  ``ring`` (mode (d)): the cache is a head+ring
-    buffer, masked per slot by :func:`cache_visibility`.
+    buffer, masked per slot by
+    :func:`~voxtral_tpu_torch.models.layers.ring_k_positions`.
     """
     B, D = x.shape
     L = k_cache.shape[0]
@@ -499,7 +481,7 @@ def decode_stack_step(
     i < j of its stream.  g32 stacks from :func:`fuse_decode_weights_q4g`
     select mode (h).  ``ring=(head, size)`` (mode (d)): the caches are
     head+ring buffers and ``offset`` the absolute position (any
-    non-negative int or tensor; slots by :func:`cache_visibility`).
+    non-negative int or tensor; slots by ``layers.ring_k_positions``).
     Returns (x_out, k_new, v_new[, logits]) like
     :func:`decode_stack_step_plain`, k_new / v_new [L, B, Hkv, hd]; the
     caller appends them.
