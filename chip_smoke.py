@@ -21,8 +21,10 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              speculative (PipelineConfig(speculative=8), draft "ngram"
              and "pad"), each run with the launch counters set to 0 just
              before and read just after, tokens held against the same
-             pipelines through the plain versions (near-tie rule), every
-             speculative pass one K1 launch; then three mels (x, 0.9 x,
+             pipelines through the plain versions (near-tie rule; the
+             pad-draft pair on the chirp's first 4 s, a pass per token
+             being slow through the plain versions), every speculative
+             pass one K1 launch; then three mels (x, 0.9 x,
              1.1 x) with speculative=4 against the sequential batch.
 4. K3      — q4_matmul (packed Q4_0 dequant + matmul) against its plain
              version at every shape of the q4 path (decoder linears and
@@ -48,7 +50,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              straddling the ring's end), timed with the window full and
              at a short history; a 45 s chirp fed in ragged pieces to a
              bounded (120 s) and an unbounded session, tokens against
-             the same sessions through the plain versions, bounded
+             the same sessions through the plain versions (over the
+             first 15 s bounded and 38 s unbounded, past the encoder
+             ring's wrap: the streams are causal), bounded
              against unbounded and the unbounded session against the
              one-shot path (near-tie rules), speculative=8 with pad and
              ngram drafts against sequential; a session restored 2P
@@ -59,6 +63,36 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              count).  Every session runs with the launch counters set to
              0 just before and read just after (K1 launches == positions
              after the first step, or == passes).
+10. pools  — pooled sessions (voxtral_tpu_torch.StreamPool), each after
+             the session phase of its model.  10a (w8): K1 alone at full
+             width in the pool's modes, bit-equal to plain and timed
+             beside its bound: (c) x (d) at four streams in four ring
+             phases (offsets 100 / 8237 / 8241 / 16000, S = 8238), mode
+             (e) int8 KV on the same rows and with spec=8 (32 rows), mode
+             (f) ``cache_chunk=512`` bounded (S = 1536, its third chunk
+             dead and NaN-poisoned) and on the grown ring (S = 8704),
+             bf16 and int8.  Then pools, each through the kernels and
+             through the plain versions (those stopped after some ticks
+             and held as a prefix), tokens equal slot by slot: B = 4
+             unbounded with bf16 and with int8 caches (four 14 s chirps
+             started a step apart, one finished half way and a fresh
+             session attached to its slot; step ms by ready rows, the
+             aggregate step RTF, the step's bound, cache bytes against
+             the formula, peak memory); speculative=8 pools, pad and
+             ngram drafts on both cache types, against the sequential
+             pool over its first 8 ticks; four slots restored at four
+             ring phases with their windows full (synthetic checkpoints),
+             4 steps together, on both cache types; the chunked rung forced by replacing
+             ``_fused_plan``, bounded and unbounded; a pooled stream
+             against a solo session under the layout control; slot_state
+             -> solo session -> an int8 pool; last, K1 alone against
+             plain at every cache geometry those pools handed it (sizes
+             read off the pools' tensors: bf16 spec=8 at four ring
+             streams, two-stream rings, the bounded chunked cache, ...).
+             K2 is held at every pool size's row counts.  10b (q4g): K1
+             (e) on g32 weights, a B = 2 int8 pool and its geometry.  10c (q4): the generic pool, B = 2,
+             on the per-op step (K3).  Every pool runs with the launch
+             counters set to 0 just before and read just after.
 9. numbers — RTF, decode ms/token, the weight stream per decode step
              against its bound, passes, peak GPU memory, the sessions'
              step ms and step RTF against the step's bound, time to first
@@ -80,6 +114,7 @@ line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -90,6 +125,7 @@ from pathlib import Path
 import numpy as np
 
 AUDIO_SECS = 16.0
+PAD_PLAIN_SECS = 4.0  # the plain-path pad-draft speculative run (w8)
 SR = 16000
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense int8 ops/s and
@@ -145,6 +181,17 @@ SPEC_K = 8
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     raise SystemExit(1)
+
+
+def release() -> None:
+    """Free what the finished phase held on the card.  A pool and its
+    unfinished sessions refer to each other, so dropping the names leaves
+    their caches to the cycle collector: run it, then return the freed
+    blocks, or the next phase's peak memory counts them."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def card_line() -> str:
@@ -222,7 +269,19 @@ def compare(tag, got, ref, tols):
 # ---------------------------------------------------------------------------
 
 
-def check_k2(dev, card):
+def pool_k2_shapes(cfg, streams: int) -> list:
+    """(M, K, N) of a pooled step's K2 launches at ``streams`` slots: the
+    encoder's linears (wq / wk / wv, wo, w1 / w3, w2) at streams x 4P
+    rows and the adapter's two at streams x P."""
+    e, a = cfg.audio_encoder, cfg.adapter
+    qd = e.n_heads * e.head_dim
+    me, ma = streams * 4 * P_STEP, streams * P_STEP
+    return [(me, e.dim, qd), (me, qd, e.dim), (me, e.dim, e.hidden_dim),
+            (me, e.hidden_dim, e.dim), (ma, a.input_dim, a.output_dim),
+            (ma, a.output_dim, a.output_dim)]
+
+
+def check_k2(cfg, dev, card):
     """K2 at the main path's shapes -> (max abs err, {shape: (ms, plain
     ms, library ms or None)})."""
     import torch
@@ -235,7 +294,8 @@ def check_k2(dev, card):
     # frames (wq / wk / wv, wo, w1 / w3, w2) and adapter at P = 8 rows
     # (w1, w2); the first step's encoder head (152 frames) and adapter
     # (38 rows); its per-op decoder at one row (wq, wk / wv, wo, w1 / w3,
-    # w2).
+    # w2).  Then the pooled step's, for every pool size this script
+    # builds (``make_pool`` refuses another).
     shapes = [(1, 3072, 131072), (38, 3072, 4096), (608, 1280, 5120),
               (608, 5120, 1280), (152, 5120, 3072), (1, 3072, 32),
               (1, 32, 3072),
@@ -244,6 +304,9 @@ def check_k2(dev, card):
               (152, 1280, 5120), (38, 5120, 3072), (1, 3072, 4096),
               (1, 3072, 1024), (1, 4096, 3072), (1, 3072, 9216),
               (1, 9216, 3072)]
+    for streams in POOL_STREAMS:
+        shapes += [sh for sh in pool_k2_shapes(cfg, streams)
+                   if sh not in shapes]
     gen = torch.Generator(device=dev).manual_seed(0)
     worst, times = 0.0, {}
     for m, k, n in shapes:
@@ -457,7 +520,9 @@ def first_divergence(name, got, ref, margins, tie):
 def counted_run(pipe, sig, dev):
     """transcribe_samples once after a warm-up, with every kernel's
     launch counter set to 0 just before and read just after ->
-    (wall s, {kernel: launches}, peak GB)."""
+    (wall s, {kernel: launches}, peak GB, the chunks' tokens).  The
+    warm-up (cuBLAS / cuDNN handles) is the same path one level down,
+    where the tokens can be read."""
     import torch
 
     from voxtral_tpu_torch.ops import decode_step as k1
@@ -467,7 +532,7 @@ def counted_run(pipe, sig, dev):
     counters = {"w8_matmul": k2.w8_matmul,
                 "decode_stack_step": k1.decode_stack_step,
                 "q4_matmul": k3.q4_matmul_packed}
-    pipe.transcribe_samples(sig, SR)  # warm-up (cuBLAS / cuDNN handles)
+    chunks = pipe._chunk_tokens(sig, SR)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     for fn in counters.values():
@@ -477,7 +542,8 @@ def counted_run(pipe, sig, dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
-    return wall, launches, torch.cuda.max_memory_allocated(dev) / 1e9
+    return (wall, launches, torch.cuda.max_memory_allocated(dev) / 1e9,
+            chunks)
 
 
 def plain_tokens(plain, tok, sig, pcfg=None):
@@ -522,12 +588,11 @@ def run_w8(cfg, dev, card, sig, tok):
     print(f"random w8 weights (seed 0) built and moved: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    k2_err, k2_times = check_k2(dev, card)
+    k2_err, k2_times = check_k2(cfg, dev, card)
     k1w = check_k1_modes(model, dev, card)
 
     pipe = TranscribePipeline(model, tok)
-    wall, launches, peak_gb = counted_run(pipe, sig, dev)
-    chunks = pipe._chunk_tokens(sig, SR)
+    wall, launches, peak_gb, chunks = counted_run(pipe, sig, dev)
     if len(chunks) != 1:
         fail(f"16 s should be one chunk, got {len(chunks)}")
     tokens = chunks[0]
@@ -563,7 +628,7 @@ def run_w8(cfg, dev, card, sig, tok):
     for draft in ("ngram", "pad"):
         pcfg = PipelineConfig(speculative=SPEC_K, draft=draft)
         spipe = TranscribePipeline(model, tok, pcfg)
-        s_wall, s_launch, s_peak = counted_run(spipe, sig, dev)
+        s_wall, s_launch, s_peak, s_chunks = counted_run(spipe, sig, dev)
         passes = model.last_spec_passes
         tag = f"w8 speculative K={SPEC_K} draft={draft}"
         if s_launch["decode_stack_step"] != passes or passes < 1:
@@ -571,13 +636,21 @@ def run_w8(cfg, dev, card, sig, tok):
                  f"passes {passes}")
         if s_launch["w8_matmul"] < min_k2:
             fail(f"{tag}: K2 launches {s_launch['w8_matmul']} < {min_k2}")
-        s_tokens = spipe._chunk_tokens(sig, SR)[0]
+        s_tokens = s_chunks[0]
         if len(s_tokens) != n_tok:
             fail(f"{tag}: {len(s_tokens)} tokens != {n_tok}")
         same_seq = first_divergence(f"{tag} vs sequential kernel", s_tokens,
                                     tokens, seq_margins, SPEC_MARGIN_TIE)
-        ps_tokens, ps_margins = plain_tokens(plain, tok, sig, pcfg)
-        same_plain = first_divergence(f"{tag} kernel vs plain", s_tokens,
+        # Pad drafts take a pass per token, 0.26 s each through the plain
+        # versions: that pair runs on the chirp's first PAD_PLAIN_SECS.
+        part = sig if draft == "ngram" else sig[:int(PAD_PLAIN_SECS * SR)]
+        k_tokens = (s_tokens if draft == "ngram"
+                    else spipe._chunk_tokens(part, SR)[0])
+        ps_tokens, ps_margins = plain_tokens(plain, tok, part, pcfg)
+        if len(k_tokens) != len(ps_tokens) or len(k_tokens) < 2 * SPEC_K:
+            fail(f"{tag}: {len(k_tokens)} kernel tokens against "
+                 f"{len(ps_tokens)} plain ones")
+        same_plain = first_divergence(f"{tag} kernel vs plain", k_tokens,
                                       ps_tokens, ps_margins, MARGIN_TIE)
         spec_runs[draft] = dict(wall=s_wall, launches=s_launch,
                                 passes=passes, peak=s_peak)
@@ -585,7 +658,8 @@ def run_w8(cfg, dev, card, sig, tok):
               f"K1 decode_stack_step {s_launch['decode_stack_step']} = "
               f"passes {passes} ({n_steps / passes:.3f} decode tokens per "
               f"pass); tokens == sequential kernel: {same_seq}, == spec "
-              f"plain: {same_plain}", flush=True)
+              f"plain over {len(part) / SR:.0f} s ({len(k_tokens)} tokens): "
+              f"{same_plain}", flush=True)
 
     mel = pipe.mel.compute_log_batch(padded)
     mel3 = np.concatenate([mel, mel * 0.9, mel * 1.1], axis=0)
@@ -787,8 +861,8 @@ def run_q4g(tree, cfg, dev, card, sig, tok, n_tok):
     k1h = check_k1_modes(model, dev, card)
 
     pipe = TranscribePipeline(model, tok)
-    wall, launches, peak = counted_run(pipe, sig, dev)
-    tokens = pipe._chunk_tokens(sig, SR)[0]
+    wall, launches, peak, chunks = counted_run(pipe, sig, dev)
+    tokens = chunks[0]
     n_steps = n_tok - 1
     if len(tokens) != n_tok:
         fail(f"q4g: {len(tokens)} tokens != {n_tok}")
@@ -804,12 +878,12 @@ def run_q4g(tree, cfg, dev, card, sig, tok, n_tok):
 
     pcfg = PipelineConfig(speculative=SPEC_K, draft="ngram")
     spipe = TranscribePipeline(model, tok, pcfg)
-    s_wall, s_launch, s_peak = counted_run(spipe, sig, dev)
+    s_wall, s_launch, s_peak, s_chunks = counted_run(spipe, sig, dev)
     passes = model.last_spec_passes
     if s_launch["decode_stack_step"] != passes or passes < 1:
         fail(f"q4g spec: K1 launches {s_launch['decode_stack_step']} != "
              f"passes {passes}")
-    s_tokens = spipe._chunk_tokens(sig, SR)[0]
+    s_tokens = s_chunks[0]
     same_seq = first_divergence("q4g speculative vs sequential", s_tokens,
                                 tokens, margins, SPEC_MARGIN_TIE)
     ps_tokens, ps_margins = plain_tokens(plain, tok, sig, pcfg)
@@ -849,8 +923,8 @@ def run_q4(tree, cfg, dev, card, sig, tok, n_tok):
     plain = VoxtralModel(params, cfg, dev, kernels=False)
     lm = cfg.language_model
     pipe = TranscribePipeline(model, tok)
-    wall, launches, peak = counted_run(pipe, sig, dev)
-    tokens = pipe._chunk_tokens(sig, SR)[0]
+    wall, launches, peak, chunks = counted_run(pipe, sig, dev)
+    tokens = chunks[0]
     n_steps = n_tok - 1
     per_step = 7 * lm.n_layers + 1  # decoder linears + the lm_head
     expect = per_step * n_steps + 1  # + the first-token lm_head
@@ -888,6 +962,9 @@ def run_q4(tree, cfg, dev, card, sig, tok, n_tok):
 # ---------------------------------------------------------------------------
 
 STREAM_SECS = 45.0     # w8: past the encoder ring's wrap (~38 s)
+# How far the plain-path w8 sessions run: the unbounded one past the
+# encoder ring's wrap.
+PLAIN_BOUNDED_SECS, PLAIN_UNBOUNDED_SECS = 15.0, 38.0
 Q4G_STREAM_SECS = 20.0
 Q4_STREAM_SECS = 8.0
 P_STEP = 8             # decoder positions per steady step (1.28 s)
@@ -1085,10 +1162,11 @@ def stream_counters():
             "q4_matmul": k3.q4_matmul_packed}
 
 
-def stream_run(model, pieces, dev, keep=False, **kw) -> dict:
-    """One StreamingSession over ``pieces`` then finish(), each feed
-    timed to a synchronize, with every launch counter set to 0 just
-    before and read just after.  A feed that ran the first step gives
+def stream_run(model, pieces, dev, keep=False, finish=True, **kw) -> dict:
+    """One StreamingSession over ``pieces`` then finish() (unless
+    ``finish`` is False: the tokens are then a prefix of the whole
+    stream's), each feed timed to a synchronize, with every launch
+    counter set to 0 just before and read just after.  A feed that ran the first step gives
     the time to first text; a feed that advanced by exactly P positions
     one steady step's time.  ``keep`` (a sequential session) also keeps
     each position's logits [n, V] and audio embed [n, D] on the device,
@@ -1143,7 +1221,8 @@ def stream_run(model, pieces, dev, keep=False, **kw) -> dict:
             first_ms = dt
         elif ses.positions_done - done == P_STEP:
             step_ms.append(dt)
-    ses.finish()
+    if finish:
+        ses.finish()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
     # The wrapper refers back to the session: drop it, so the session and
@@ -1170,8 +1249,15 @@ def stream_run(model, pieces, dev, keep=False, **kw) -> dict:
     return out
 
 
-def plain_stream(plain, pieces, dev, **kw) -> dict:
-    """stream_run on the plain-path model, with top-2 margins."""
+def plain_stream(plain, pieces, dev, secs=None, **kw) -> dict:
+    """stream_run on the plain-path model, with top-2 margins; with
+    ``secs``, over the pieces that end within that much audio and
+    without finish(): a causal stream's tokens up to there are the whole
+    stream's, and the plain versions are many times slower."""
+    if secs is not None:
+        ends = np.cumsum([len(p) for p in pieces])
+        pieces = pieces[:int(np.searchsorted(ends, secs * SR, "right"))]
+        kw["finish"] = False
     plain.record_margins = True
     try:
         return stream_run(plain, pieces, dev, **kw)
@@ -1230,32 +1316,35 @@ def report_stream(tag, run, card, model=None):
     print(f"{line} [{card}]", flush=True)
 
 
-def run_stream_wrap(model, plain, dev, card):
-    """A decoder-ring wrap at full width, without 22 minutes of audio: a
-    session restored from a state 2P positions short of 38 + 8200, its
-    caches random bf16, runs 6 steady steps through the wrap, with the
-    kernels and through the plain versions -> (same, k1 launches)."""
+def restored_samples(p0: int, n_steps: int) -> tuple:
+    """(first sample, count) of the audio a stream restored at ``p0``
+    positions needs for ``n_steps`` more steady steps."""
+    from voxtral_tpu_torch.streaming import MEL_HOP, _mel_frames_needed
+
+    base = MEL_HOP * (16 * p0 - 8)
+    return base, _mel_frames_needed(16 * (p0 + n_steps * P_STEP) + 8) - base
+
+
+def restored_state(cfg, dev, p0: int, n_steps: int, gen, signal) -> dict:
+    """A checkpoint of an unbounded stream at ``p0`` positions without the
+    audio that leads there: random bf16 caches (on the card), a random
+    last audio embed, and the samples ``n_steps`` more steps need
+    (``signal(secs)`` makes them).  What ``StreamingSession.restore``
+    takes, solo or into a pool's slot."""
     import torch
 
-    from voxtral_tpu_torch.streaming import MEL_HOP, StreamingSession
-    from voxtral_tpu_torch.streaming import _mel_frames_needed
-
-    lm, enc = model.config.language_model, model.config.audio_encoder
-    ring, S = ring_geometry(lm)
-    p0 = S - 2 * P_STEP
-    n_steps = 6
-    gen = torch.Generator(device=dev).manual_seed(11)
+    lm, enc = cfg.language_model, cfg.audio_encoder
+    _, S = ring_geometry(lm)
 
     def rand(*shape):
         return (torch.randn(shape, device=dev, generator=gen) * 0.5
                 ).bfloat16()
 
     enc_s = sum(enc_ring_geometry(enc))
-    base = MEL_HOP * (16 * p0 - 8)
-    n = _mel_frames_needed(16 * (p0 + n_steps * P_STEP) + 8) - base
-    state = {
+    base, n = restored_samples(p0, n_steps)
+    return {
         "version": 1, "P": P_STEP, "unbounded": True, "max_dec": S,
-        "delay_tokens": 6.0, "samples": stream_signal(n / SR + 0.01)[:n],
+        "delay_tokens": 6.0, "samples": signal(n / SR + 0.01)[:n],
         "samples_base": base, "positions_done": p0,
         "tokens": np.full(p0 - 38, 32, np.int32), "text": "",
         "finished": False, "prev_token": 1007,
@@ -1267,6 +1356,23 @@ def run_stream_wrap(model, plain, dev, card):
         "dec_v": rand(lm.n_layers, 1, S, lm.n_kv_heads, lm.head_dim),
         "dec_len": p0, "endpoint_mark": 0,
     }
+
+
+def run_stream_wrap(model, plain, dev, card):
+    """A decoder-ring wrap at full width, without 22 minutes of audio: a
+    session restored from a state 2P positions short of 38 + 8200, its
+    caches random bf16, runs 6 steady steps through the wrap, with the
+    kernels and through the plain versions -> (same, k1 launches)."""
+    import torch
+
+    from voxtral_tpu_torch.streaming import StreamingSession
+
+    ring, S = ring_geometry(model.config.language_model)
+    p0 = S - 2 * P_STEP
+    n_steps = 6
+    gen = torch.Generator(device=dev).manual_seed(11)
+    state = restored_state(model.config, dev, p0, n_steps, gen,
+                           stream_signal)
     out = {}
     for name, m in (("kernel", model), ("plain", plain)):
         m.record_margins = name == "plain"
@@ -1298,22 +1404,23 @@ def run_stream_wrap(model, plain, dev, card):
     return same, launches
 
 
-def layout_witness(model, pieces, dev, card):
+def layout_witness(model, pieces, dev, card, bounded, unbounded):
     """Sessions of two cache layouts, position by position, on the kernel
-    model: a bounded 120 s session against a bounded 60 s one (the cache
-    length alone: the noise) and against the unbounded one (head+ring).
+    model: the ``bounded`` 120 s session (a ``stream_run(keep=True)``)
+    against a bounded 60 s one run here (the cache length alone: the
+    noise) and against the ``unbounded`` one (head+ring).
     For each pair, the relative L2 difference of the audio embeds (which
     no token feeds) over the whole stream, and the largest logit
     difference up to and with the first token where the pair parts
     (after it their inputs differ).  Fail unless the head+ring pair
-    stays within LAYOUT_NOISE_FACTOR of the noise in both.  -> the tie
-    threshold for token flips between layouts."""
+    stays within LAYOUT_NOISE_FACTOR of the noise in both.  -> (the tie
+    threshold for token flips between layouts, the noise pair's (embeds,
+    logits) differences)."""
     import torch
 
-    runs = {name: stream_run(model, pieces, dev, keep=True, **kw)
-            for name, kw in (("bounded", dict(max_duration_s=120)),
-                             ("bounded 60 s", dict(max_duration_s=60)),
-                             ("unbounded", dict(unbounded=True)))}
+    runs = {"bounded": bounded, "unbounded": unbounded,
+            "bounded 60 s": stream_run(model, pieces, dev, keep=True,
+                                       max_duration_s=60)}
     ref_log, ref_emb = runs["bounded"].pop("kept")
     ref_tok = runs["bounded"]["tokens"]
     wrap = runs["unbounded"]["max_enc"] // 4  # first position past the wrap
@@ -1359,7 +1466,7 @@ def layout_witness(model, pieces, dev, card):
             and r_log <= LAYOUT_NOISE_FACTOR * n_log):
         fail("the head+ring session moved embeds or logits by more than "
              f"{LAYOUT_NOISE_FACTOR} x what a cache-length change alone does")
-    return 2 * n_log
+    return 2 * n_log, (n_emb, n_log)
 
 
 def run_stream_w8(model, plain, dev, card, tok):
@@ -1374,29 +1481,48 @@ def run_stream_w8(model, plain, dev, card, tok):
     sig = stream_signal(STREAM_SECS)
     pieces = ragged_pieces(sig)
     runs = {}
-    for name, kw in (("bounded", dict(max_duration_s=120)),
-                     ("unbounded", dict(unbounded=True))):
-        run = stream_run(model, pieces, dev, **kw)
+    # The plain sessions stop early, the unbounded one once past the
+    # encoder ring's wrap; the kernel sessions keep their margins too
+    # (they judge the comparisons between layouts and with the
+    # speculative sessions).
+    for name, kw, plain_secs in (
+            ("bounded", dict(max_duration_s=120), PLAIN_BOUNDED_SECS),
+            ("unbounded", dict(unbounded=True), PLAIN_UNBOUNDED_SECS)):
+        model.record_margins = True
+        try:
+            run = stream_run(model, pieces, dev, keep=True, **kw)
+        finally:
+            model.record_margins = False
         check_stream_launches(f"w8 {name}", run, "w8")
         if run["launches"]["w8_matmul"] < 1:
             fail(f"w8 {name} session: no K2 launch")
-        ref = plain_stream(plain, pieces, dev, **kw)
+        ref = plain_stream(plain, pieces, dev, secs=plain_secs, **kw)
+        n = len(ref["tokens"])
+        if not P_STEP < n <= len(run["tokens"]):
+            fail(f"w8 {name} session: the plain path gave {n} tokens")
         same = first_divergence(f"w8 {name} session kernel vs plain",
-                                run["tokens"], ref["tokens"],
+                                run["tokens"][:n], ref["tokens"],
                                 ref["margins"], MARGIN_TIE)
+        gap = float(np.abs(run["margins"][:n] - ref["margins"]).max())
+        if same and not gap <= MARGIN_TIE:
+            fail(f"w8 {name} session: top-2 margins of the kernel and plain "
+                 f"paths differ by {gap:.3e}")
         runs[name] = dict(run=run, plain=ref, same=same)
         report_stream(f"w8 {name} session", run, card, model)
-        print(f"w8 {name} session: tokens kernel == plain: {same} "
+        print(f"w8 {name} session: tokens kernel == plain over the first "
+              f"{n} of {len(run['tokens'])}: {same} "
               f"({len(set(run['tokens'].tolist()))} distinct, min plain "
               f"top-2 margin {ref['margins'].min():.3e}); plain path "
               f"{ref['wall']:.1f} s [{card}]", flush=True)
-    unb = runs["unbounded"]["run"]
-    if not 4 * unb["positions"] > unb["max_enc"]:
-        fail("the unbounded w8 session never wrapped its encoder ring")
-    layout_tie = layout_witness(model, pieces, dev, card)
+    unb, unb_plain = (runs["unbounded"][k] for k in ("run", "plain"))
+    if not (4 * unb["positions"] > unb["max_enc"]
+            and 4 * unb_plain["positions"] > unb_plain["max_enc"] + 8 * P_STEP):
+        fail("an unbounded w8 session never wrapped its encoder ring")
+    layout_tie, layout_noise = layout_witness(
+        model, pieces, dev, card, runs["bounded"]["run"], unb)
     b_tok, u_tok = (runs[n]["run"]["tokens"] for n in ("bounded", "unbounded"))
     same_bu = first_divergence("w8 bounded vs unbounded session", b_tok, u_tok,
-                               runs["unbounded"]["plain"]["margins"],
+                               unb["margins"],
                                layout_tie)
     # The one-shot path on the same audio, in one chunk.
     model.record_margins = True
@@ -1424,7 +1550,7 @@ def run_stream_w8(model, plain, dev, card, tok):
         m = run["spec"]
         same = first_divergence(f"w8 unbounded speculative={SPEC_K} {draft} "
                                 "vs sequential", run["tokens"], u_tok,
-                                runs["unbounded"]["plain"]["margins"],
+                                unb["margins"],
                                 SPEC_MARGIN_TIE)
         spec[draft] = dict(run=run, metrics=m, same=same)
         report_stream(f"w8 unbounded speculative={SPEC_K} draft={draft} "
@@ -1433,7 +1559,7 @@ def run_stream_w8(model, plain, dev, card, tok):
               f"== sequential: {same} [{card}]", flush=True)
     _, wrap_launches = run_stream_wrap(model, plain, dev, card)
     return dict(k1_err=k1_err, k1_times=k1_times, runs=runs, spec=spec,
-                wrap_launches=wrap_launches)
+                wrap_launches=wrap_launches, layout_noise=layout_noise)
 
 
 def run_stream_q4g(model, plain, dev, card):
@@ -1485,6 +1611,739 @@ def run_stream_q4(model, plain, dev, card):
           f"{P_STEP - 1} + {steady} steps x ({per_pos} x {P_STEP} + 2); "
           f"tokens kernel == plain {same} [{card}]", flush=True)
     return dict(run=run)
+
+
+# ---------------------------------------------------------------------------
+# Pooled streaming (StreamPool)
+# ---------------------------------------------------------------------------
+
+POOL_SECS = 14.0       # each stream of the B = 4 pools
+POOL_SHORT_SECS = 9.0  # the chunked, checkpoint and q4g pools
+POOL_Q4_SECS = 4.0     # the packed-q4 generic pool (per-op, slow)
+TICK = 2560 * P_STEP   # samples of one steady step (1.28 s)
+POOL_OFFS = [100, 8237, 8241, 16000]  # four streams, four ring phases
+POOL_STREAMS = (4, 2)  # the pool sizes of this script (K2 is held at them)
+# How many ticks the slower side of a pair of pool runs takes (the plain
+# path; a speculative pool beside its sequential twin): the streams are
+# causal, so its tokens are held as a prefix of the full run's.
+B4_PLAIN_TICKS = 8     # of 15: every ready count, the detach and attach
+B4_SPEC_TICKS = 8
+SHORT_PLAIN_TICKS = 4  # of the short pools' 9
+# Every decoder-cache geometry a pool of this run handed to K1, by the
+# model's decode route: {route: {(streams, S, ring, chunk, int8, spec,
+# reach)}}, ``reach`` the offsets' bound.  K1 alone is held against its
+# plain version at each (``check_k1_pool_geometries``).
+POOL_GEOMETRIES: dict = {}
+
+
+def pool_signal(secs: float, i: int) -> np.ndarray:
+    """Stream i's chirp: 200 + 40 i Hz rising 60 + 10 i Hz/s, peak 0.95."""
+    t = np.arange(int(secs * SR)) / SR
+    sig = np.sin(2 * np.pi * (200 + 40 * i + (60 + 10 * i) * t) * t)
+    return (0.95 * sig / np.abs(sig).max()).astype(np.float32)
+
+
+def make_pool(model, streams: int, **kw):
+    """A StreamPool of one of POOL_STREAMS sizes, its K1 geometry noted
+    in POOL_GEOMETRIES."""
+    from voxtral_tpu_torch.streaming import StreamPool
+
+    if streams not in POOL_STREAMS:
+        fail(f"a pool of {streams} streams: K2 is held at {POOL_STREAMS}")
+    pool = StreamPool(model, max_streams=streams, step_positions=P_STEP, **kw)
+    if pool._fused is not None:
+        _, bc, _, n_slots, _ = pool.dec_k.shape
+        POOL_GEOMETRIES.setdefault(model.decode_route, set()).add(
+            (bc, n_slots, pool._dec_ring, pool._cache_chunk, pool.cache_int8,
+             max(1, pool.speculative), pool.max_dec))
+    return pool
+
+
+def kv_step_case(model, dev, card, tag, S, offs, spec, ring, int8, chunk,
+                 dead=None, iters=10, timed=True):
+    """One K1 step at full width over len(offs) streams x spec rows in a
+    cache mode of this slice -- per-row ring phases ((c) x (d)), int8 KV
+    (e), the chunked walk (f) -- against the plain version, timed in
+    turns, with its bound: the weights, and of the cache only the slots
+    some row sees (int8: codes and their scales).  ``dead``: a slot slice
+    holding NaN, which must not be read.  -> (max abs err, ms, plain ms,
+    bound ms, bound by); only the error when not ``timed``."""
+    import torch
+
+    from voxtral_tpu_torch.models.layers import ring_k_positions
+    from voxtral_tpu_torch.ops import decode_step as k1
+
+    cfg = model.config.language_model
+    fused = model.fused_decode
+    L, D, hd, n_kv = cfg.n_layers, cfg.dim, cfg.head_dim, cfg.n_kv_heads
+    bc = len(offs)
+    gen = torch.Generator(device=dev).manual_seed(17 + bc * spec + S)
+    shape = (L, bc, n_kv, S, hd)
+    kc = (torch.randn(shape, device=dev, generator=gen) * 0.5).bfloat16()
+    vc = (torch.randn(shape, device=dev, generator=gen) * 0.5).bfloat16()
+    kw = dict(n_heads=cfg.n_heads, n_kv=n_kv, head_dim=hd, eps=cfg.norm_eps,
+              window=cfg.sliding_window, spec=spec, ring=ring,
+              cache_chunk=chunk)
+    if int8:
+        kc, ks = k1.quantize_kv(kc)
+        vc, vs = k1.quantize_kv(vc)
+        if dead is not None:
+            ks[:, :, :, dead] = float("nan")
+            vs[:, :, :, dead] = float("nan")
+        kw.update(k_scales=ks, v_scales=vs)
+    elif dead is not None:
+        kc[:, :, :, dead] = float("nan")
+        vc[:, :, :, dead] = float("nan")
+    x = torch.randn((bc * spec, D), device=dev, generator=gen)
+    off = torch.tensor(offs, dtype=torch.int32, device=dev)
+    pos = (off[:, None] + torch.arange(spec, device=dev)).reshape(-1)
+    c, s = k1.rope_pair_vectors(pos, hd, cfg.rope_theta)
+    ada = k1.ada_vectors(model.params["decoder"], model.t_embed(6.0))
+    args = (x, off, fused["attn_norm"], fused["ffn_norm"], ada,
+            fused["sqkv"], fused["so"], fused["s13"], fused["s2"], c, s,
+            kc, vc, fused["wqkv"], fused["wo"], fused["w13"], fused["w2"],
+            *lm_fold(model))
+    tag = (f"K1 {tag} [{model.decode_route}] S={S} ring={ring} "
+           f"offsets={offs} spec={spec} cache_chunk={chunk}")
+    got = k1.decode_stack_step(*args, **kw)
+    torch.cuda.synchronize()
+    ref = k1.decode_stack_step_plain(*args, **kw)
+    if not all(torch.isfinite(r.float()).all() for r in ref):
+        fail(f"{tag}: the plain version read a poisoned slot")
+    worst = compare(tag, got, ref, (K1_RTOL, KV_RTOL, KV_RTOL, K1_RTOL))
+    if not timed:
+        del kc, vc, kw, args
+        torch.cuda.empty_cache()
+        return (worst,)
+    ms, plain_ms = in_turns(lambda: k1.decode_stack_step(*args, **kw),
+                            lambda: k1.decode_stack_step_plain(*args, **kw),
+                            iters, 1)
+    # Slots the step must read: per stream, those its first row sees.
+    seen = 0
+    for o in offs:
+        if ring is None:
+            seen += min(o, S) - max(0, o - cfg.sliding_window)
+        else:
+            p_abs, written = ring_k_positions(*ring, o, device=dev, slots=S)
+            seen += int((written & (o - p_abs <= cfg.sliding_window)).sum())
+    per_slot = hd * (1 if int8 else 2) + (4 if int8 else 0)
+    kv_read = 2 * L * n_kv * seen * per_slot
+    n_vocab = lm_fold(model)[1].shape[0]
+    wbytes = step_weight_bytes(model)
+    moved = (wbytes + kv_read + 2 * nbytes(x) + 2 * nbytes(got[1])
+             + bc * spec * n_vocab * 4)
+    n_weights = sum(fused[k].numel() for k in ("wqkv", "wo", "w13", "w2"))
+    b_ms, b_by = bound(moved, 2 * bc * spec * (n_weights + n_vocab * D),
+                       INT8_OPS)
+    print(f"{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; {seen} cache "
+          f"slots read ({kv_read / 1e9:.4f} GB) + weights "
+          f"{wbytes / 1e9:.4f} GB; bound {b_ms:.4f} ms ({b_by}; "
+          f"{100 * b_ms / ms:.1f} % of it) [{card}]", flush=True)
+    del kc, vc, kw, args
+    torch.cuda.empty_cache()
+    return worst, ms, plain_ms, b_ms, b_by
+
+
+def check_k1_pool_modes(model, dev, card):
+    """K1 alone in this slice's modes at full width -> {name: case},
+    "err" and "held" (the geometries covered)."""
+    ring, S = ring_geometry(model.config.language_model)
+    grown = (ring[0], 8704 - ring[0])  # the ring grown to 17 chunks of 512
+    dead = slice(1024, 1536)           # the third chunk of 1536 slots
+    cases = {
+        "cd": ("(c) x (d) bf16", S, POOL_OFFS, 1, ring, False, None),
+        "e": ("(e) int8 KV", S, POOL_OFFS, 1, ring, True, None),
+        "e_spec": ("(e) x (b) int8 KV", S, [100, 8234, 8241, 16000], SPEC_K,
+                   ring, True, None),
+        "f_bounded": ("(f) bf16", 1536, [7, 700], 1, None, False, 512, dead),
+        "f_bounded_int8": ("(f) x (e)", 1536, [7, 700], 1, None, True, 512,
+                           dead),
+        "f_ring": ("(f) bf16", 8704, [100, 16000], 1, grown, False, 512),
+        "f_ring_int8": ("(f) x (e)", 8704, [100, 16000], 1, grown, True, 512),
+    }
+    out = {name: kv_step_case(model, dev, card, *case)
+           for name, case in cases.items()}
+    out["err"] = max(v[0] for v in out.values())
+    # (streams, S, ring, chunk, int8, spec) of each, as POOL_GEOMETRIES
+    # keys them.
+    out["held"] = {(len(c[2]), c[1], c[4], c[6], c[5], c[3])
+                   for c in cases.values()}
+    return out
+
+
+def check_k1_pool_geometries(model, dev, card, held=()) -> float:
+    """K1 alone against its plain version at every geometry the pools of
+    this model handed it (POOL_GEOMETRIES: streams, slots, ring, chunk,
+    cache type and spec rows read off the pools' own tensors), but those
+    in ``held`` (streams, S, ring, chunk, int8, spec), which a timed case
+    covered.  Offsets: on a ring, the last slot before the wrap (spec
+    rows straddling it), far past it, before any wrap and just wrapped;
+    bounded, a stream's first and last reachable positions.  A chunked
+    geometry is held with both cache types.  -> the worst abs error."""
+    worst, done = 0.0, set(held)
+    for geom in sorted(POOL_GEOMETRIES.get(model.decode_route, ()), key=str):
+        bc, S, ring, chunk, int8, spec, reach = geom
+        if ring is None:
+            hi = reach - spec
+            offs = [7, hi, hi // 2, 100]
+        else:
+            end = sum(ring)
+            offs = [end - 1 - (3 if spec > 1 else 0), 16000, 100, end + 3]
+        offs = (offs * bc)[:bc]
+        for i8 in ((int8, not int8) if chunk else (int8,)):
+            key = (bc, S, ring, chunk, i8, spec)
+            if key in done:
+                continue
+            done.add(key)
+            tag = (f"pool geometry {'int8' if i8 else 'bf16'} cache, "
+                   f"{bc} streams x {spec}")
+            worst = max(worst, kv_step_case(
+                model, dev, card, tag, S, offs, spec, ring, i8, chunk,
+                timed=False)[0])
+    return worst
+
+
+def pool_counters_reset(dev):
+    import torch
+
+    counters = stream_counters()
+    release()  # an earlier run's pool and unfinished sessions are a cycle
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def pool_run(model, dev, signals, replace=None, max_ticks=None,
+             **pool_kw) -> dict:
+    """One StreamPool run: stream i starts at tick i (a tick is one steady
+    step of audio, fed in two uneven pieces) and the pool is pumped once
+    per tick, timed to a synchronize.  ``replace`` = (i, tick, signal):
+    stream i is finished (and detached) at that tick and a fresh session
+    with ``signal`` takes its slot.  ``max_ticks`` stops the run there,
+    its live streams unfinished: their tokens are a prefix of the full
+    run's.  Launch counters are set to 0 just before and read just after.
+    -> tokens per session (in order of attachment), pump times by ready
+    rows, launches, memory."""
+    import torch
+
+    from voxtral_tpu_torch.streaming import StreamingSession
+
+    counters = pool_counters_reset(dev)
+    t_start = time.perf_counter()
+    pool = make_pool(model, len(signals), **pool_kw)
+    rng = np.random.default_rng(8)
+    live, done = [], []      # [session, signal, samples fed]
+    queue = list(enumerate(signals))
+    steps: dict = {}         # ready rows -> [pump ms]
+    tick = 0
+
+    def attach(signal):
+        entry = [StreamingSession(model, pool=pool), signal, 0]
+        done.append(entry[0])  # every session, in order of attachment
+        return entry
+
+    while (queue or live) and tick != max_ticks:
+        if queue and queue[0][0] <= tick:
+            live.append(attach(queue.pop(0)[1]))
+        if replace is not None and tick == replace[1]:
+            live[replace[0]][0].finish()
+            live[replace[0]] = attach(replace[2])
+            replace = None
+        before = [e[0].positions_done for e in live]
+        for e in live:
+            cut = int(rng.integers(1, TICK))
+            for lo, hi in ((0, cut), (cut, TICK)):
+                e[0].feed(e[1][e[2] + lo:e[2] + hi], pump=False)
+            e[2] += TICK
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pool.pump()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        moved = [e[0].positions_done - b for e, b in zip(live, before)]
+        if moved and all(m in (0, P_STEP) for m in moved) and any(moved):
+            steps.setdefault(sum(m > 0 for m in moved), []).append(dt)
+        for e in [e for e in live if e[2] >= len(e[1])]:
+            e[0].finish()
+            live.remove(e)
+        tick += 1
+    if queue or replace is not None:
+        fail(f"a pool run of {tick} ticks attached only {len(done)} sessions")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    for ses in done:
+        if len(ses.tokens) != ses.positions_done - 38 or ses.overrun:
+            fail(f"pooled session: {len(ses.tokens)} tokens for "
+                 f"{ses.positions_done} positions (overrun {ses.overrun})")
+        if ses.margins and not np.isfinite(ses.margins).all():
+            fail("non-finite logits in a pooled session")
+    tensors = [pool.enc_k, pool.enc_v, pool.dec_k, pool.dec_v, pool.dec_ks,
+               pool.dec_vs]
+    if pool._init_dec_zero is not None:
+        tensors += [pool._init_dec_zero.k, pool._init_dec_zero.v]
+    return dict(
+        tokens=[np.asarray(s.tokens) for s in done],
+        margins=[np.asarray(s.margins) for s in done],
+        positions=[s.positions_done for s in done], steps=steps, wall=wall,
+        launches={n: fn.launches for n, fn in counters.items()},
+        spec=pool.spec_metrics(), cache_bytes=pool.cache_bytes,
+        allocated=nbytes(*tensors), int8=pool.cache_int8,
+        chunk=pool._cache_chunk, slots=pool.dec_k.shape[3],
+        ring=pool._dec_ring, fused=pool._fused is not None,
+        peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+
+
+def margin_gap(run, ref) -> float:
+    """Largest difference of the top-2 logit margins of two runs, stream
+    by stream, up to each stream's first differing token: 0 when the
+    logits' two largest values agree bit for bit.  Random weights emit
+    few distinct tokens, so this says more than equal tokens do."""
+    gap = 0.0
+    for g, r, mg, mr in zip(run["tokens"], ref["tokens"], run["margins"],
+                            ref["margins"]):
+        n = min(len(g), len(r))
+        differ = np.nonzero(g[:n] != r[:n])[0]
+        n = int(differ[0]) if len(differ) else n
+        if n:
+            gap = max(gap, float(np.abs(mg[:n] - mr[:n]).max()))
+    return gap
+
+
+def held_to(tag, run, ref, margins, tie) -> bool:
+    """Fail unless each session's tokens in ``run`` agree with ``ref``'s
+    (near-tie rule on ``margins``) over the shorter of the two, which
+    must have taken its first step; -> tokens identical."""
+    if len(run["tokens"]) != len(ref["tokens"]):
+        fail(f"{tag}: {len(run['tokens'])} sessions against "
+             f"{len(ref['tokens'])}")
+    same = []
+    for i, (g, r, m) in enumerate(zip(run["tokens"], ref["tokens"], margins)):
+        n = min(len(g), len(r))
+        if n < P_STEP:
+            fail(f"{tag} stream {i}: only {n} tokens to compare")
+        same.append(first_divergence(f"{tag} stream {i}", g[:n], r[:n], m,
+                                     tie))
+    return all(same)
+
+
+def pool_pair(tag, model, plain, dev, card, signals, tie=MARGIN_TIE,
+              plain_ticks=None, **kw):
+    """The same pool run through the kernels and through their plain
+    versions (those for ``plain_ticks`` ticks), both keeping top-2
+    margins: tokens equal, slot by slot, up to a near-tie of the plain
+    path, and the margins within ``tie``."""
+    model.record_margins = plain.record_margins = True
+    try:
+        run = pool_run(model, dev, signals, **kw)
+        ref = pool_run(plain, dev, signals, max_ticks=plain_ticks, **kw)
+    finally:
+        model.record_margins = plain.record_margins = False
+    same = held_to(f"{tag} kernel vs plain", run, ref, ref["margins"], tie)
+    gap = margin_gap(run, ref)
+    if not gap <= tie:
+        fail(f"{tag}: top-2 margins of the kernel and plain paths differ by "
+             f"{gap:.3e} > {tie}")
+    if run["cache_bytes"] != run["allocated"]:
+        fail(f"{tag}: the pool allocated {run['allocated']} bytes of caches, "
+             f"its admission counted {run['cache_bytes']}")
+    k1n, k2n = (run["launches"][k] for k in ("decode_stack_step", "w8_matmul"))
+    if run["fused"] and k1n < 1:
+        fail(f"{tag}: a fused pool launched K1 no time")
+    distinct = len(set(np.concatenate(run["tokens"]).tolist()))
+    print(f"{tag}: {len(run['tokens'])} sessions, positions "
+          f"{run['positions']}, decoder cache {run['slots']} slots "
+          f"(int8 {run['int8']}, chunk {run['chunk']}, ring {run['ring']}); "
+          f"tokens kernel == plain: {same} ({distinct} distinct; top-2 "
+          f"margins differ by at most {gap:.3e}); launches "
+          f"{run['launches']}; caches {run['cache_bytes'] / 1e9:.4f} GB "
+          f"(allocated == counted), peak GPU memory {run['peak_gb']:.3f} GB; "
+          f"kernel path {run['wall']:.1f} s, plain path {ref['wall']:.1f} s "
+          f"(positions {ref['positions']}) [{card}]", flush=True)
+    return dict(run=run, plain=ref, same=same)
+
+
+def pool_step_bound(model, ready: int, int8: bool, window_full: bool):
+    """(GB, ms) a pooled step must move at least: the encoder and adapter
+    weights once, K1's weights P times, and with the window full P reads
+    of each ready row's 8192 cached positions (codes + scales if int8)."""
+    gb, _ = stream_step_bound(model, False)
+    nb = gb * 1e9
+    if window_full:
+        cfg = model.config.language_model
+        per_slot = cfg.head_dim * (1 if int8 else 2) + (4 if int8 else 0)
+        nb += ready * P_STEP * 2 * cfg.n_layers * cfg.n_kv_heads \
+            * cfg.sliding_window * per_slot
+    return nb / 1e9, nb / HBM_BPS * 1e3
+
+
+def report_pool(tag, run, card, model):
+    """Pool step ms by ready rows, the aggregate step RTF (step ms over
+    ready x 1280 ms of audio) and the step's bound."""
+    for ready in sorted(run["steps"]):
+        ms = np.asarray(run["steps"][ready])
+        gb, b_ms = pool_step_bound(model, ready, run["int8"], False)
+        gbf, b_full = pool_step_bound(model, ready, run["int8"], True)
+        print(f"{tag}: pool step at {ready} ready rows: {len(ms)} steps, "
+              f"median {np.median(ms):.2f} ms, max {ms.max():.2f} ms, "
+              f"aggregate step RTF "
+              f"{np.median(ms) / (ready * P_STEP * 160):.5f} (median / "
+              f"({ready} x 1280 ms)); step bound {b_ms:.3f} ms ({gb:.2f} GB), "
+              f"{b_full:.3f} ms with every window full ({gbf:.2f} GB) "
+              f"[{card}]", flush=True)
+
+
+def expected_pool_bytes(cfg, B: int, int8: bool, s_dec: int, s_enc: int):
+    """The pool's cache bytes from the configuration: encoder K and V of
+    B slots, the head-major decoder caches (bf16, or int8 codes + f32
+    scales) and the shared bf16 init slot."""
+    enc, lm = cfg.audio_encoder, cfg.language_model
+    e = 2 * enc.n_layers * B * s_enc * enc.n_kv_heads * enc.head_dim * 2
+    per = 2 * lm.n_layers * lm.n_kv_heads * s_dec
+    d = per * B * (lm.head_dim * (1 if int8 else 2) + (4 if int8 else 0))
+    return e + d + per * lm.head_dim * 2
+
+
+def force_chunked():
+    """Replace streaming._fused_plan so that the pools' resident rungs
+    are refused (as the JAX package's own test forces the chunked rung);
+    -> the function that restores it."""
+    import voxtral_tpu_torch.streaming as streaming
+
+    orig = streaming._fused_plan
+
+    def chunk_only(model, batch, cache_s, itemsize=None, chunk=None, **kw):
+        if chunk is None:
+            return None
+        return orig(model, batch, cache_s, itemsize=itemsize, chunk=chunk,
+                    **kw)
+
+    streaming._fused_plan = chunk_only
+
+    def restore():
+        streaming._fused_plan = orig
+
+    return restore
+
+
+def pool_vs_solo(model, dev, card, noise):
+    """A pooled stream against a solo session on the same audio, under
+    the layout rule (two layouts of one stream are held to a control,
+    not to equal tokens): slot 0 of a 4-slot unbounded pool, its encoder
+    pass batched over 4 rows, may move audio embeds and logits at most
+    LAYOUT_NOISE_FACTOR times what a cache-length change alone does
+    (``noise`` = that control's (embeds, logits), from the session
+    phase)."""
+    import torch
+
+    import voxtral_tpu_torch.streaming as streaming
+    from voxtral_tpu_torch.streaming import StreamingSession
+
+    sig = pool_signal(POOL_SHORT_SECS, 0)
+    pieces = ragged_pieces(sig, seed=9)
+    solo = stream_run(model, pieces, dev, keep=True, unbounded=True)
+    s_log, s_emb = solo.pop("kept")
+    counters = pool_counters_reset(dev)
+    pool = make_pool(model, 4, unbounded=True, kv_dtype="model")
+    ses = StreamingSession(model, pool=pool)
+    logits, embeds = [], []
+    encode, run_step = streaming._encode, pool._run_step
+
+    def kept_encode(m, x, cache, rope, ring):
+        audio, cache = encode(m, x, cache, rope, ring)
+        embeds.append(audio[0].float().clone())
+        return audio, cache
+
+    def kept_step(*a, **kw):
+        out = run_step(*a, **kw)
+        logits.append(out[3][:1].float().clone())
+        return out
+
+    streaming._encode, pool._run_step = kept_encode, kept_step
+    try:
+        for piece in pieces:
+            ses.feed(piece)
+        ses.finish()
+    finally:
+        streaming._encode = encode
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in counters.items()}
+    p_tok, s_tok = np.asarray(ses.tokens), solo["tokens"]
+    p_emb, p_log = torch.cat(embeds), torch.cat(logits)
+    if p_emb.shape != s_emb.shape or len(p_tok) != len(s_tok):
+        fail(f"pool vs solo: {tuple(p_emb.shape)} embeds, {len(p_tok)} "
+             f"tokens against {tuple(s_emb.shape)}, {len(s_tok)}")
+    # The pool's K1 logits start after the first step's P tokens.
+    s_log = s_log[P_STEP:]
+    parted = np.nonzero(p_tok != s_tok)[0]
+    n = (max(int(parted[0]) + 1 - P_STEP, 0) if len(parted)
+         else len(p_log))
+    rel = float(((p_emb - s_emb).norm(dim=-1) / s_emb.norm(dim=-1)).max())
+    d_log = (float((p_log[:n] - s_log[:n]).abs().max()) if n else 0.0)
+    print(f"pooled stream (slot 0 of 4, unbounded bf16) vs solo session, "
+          f"{len(p_tok)} tokens: audio embeds relative L2 difference max "
+          f"{rel:.3e} (control {noise[0]:.3e}), logits over {n} K1 steps "
+          f"largest difference {d_log:.3e} (control {noise[1]:.3e}); tokens "
+          + (f"part at token {int(parted[0])}" if len(parted)
+             else "identical")
+          + f"; bound {LAYOUT_NOISE_FACTOR} x the control [{card}]",
+          flush=True)
+    if not (rel <= LAYOUT_NOISE_FACTOR * noise[0]
+            and d_log <= LAYOUT_NOISE_FACTOR * noise[1]):
+        fail("the pooled stream moved embeds or logits by more than "
+             f"{LAYOUT_NOISE_FACTOR} x what a cache-length change alone does")
+    return launches
+
+
+def pool_checkpoint_chain(model, plain, dev, card):
+    """slot_state -> solo session -> another (int8) pool, a few steps
+    each, with the kernels and through the plain versions: the chains'
+    tokens agree (near-tie rule on the plain path's margins)."""
+    import torch
+
+    from voxtral_tpu_torch.streaming import StreamingSession
+
+    sig = pool_signal(POOL_SHORT_SECS, 1)
+    cuts = [3 * TICK, 5 * TICK]  # of the stream's 7 ticks
+    out = {}
+    for name, m in (("kernel", model), ("plain", plain)):
+        m.record_margins = name == "plain"
+        counters = pool_counters_reset(dev)
+        first = StreamingSession(m, pool=make_pool(
+            m, 2, unbounded=True, kv_dtype="model"))
+        first.feed(sig[:cuts[0]])
+        solo = StreamingSession.restore(m, first.state_dict())
+        solo.feed(sig[cuts[0]:cuts[1]])
+        margins = list(solo.margins)
+        last = StreamingSession.restore(
+            m, solo.state_dict(), pool=make_pool(m, 2, unbounded=True,
+                                                 kv_dtype="int8"))
+        if not last._pool.cache_int8:
+            fail("checkpoint chain: the second pool is not int8")
+        last.feed(sig[cuts[1]:])
+        last.finish()
+        torch.cuda.synchronize()
+        m.record_margins = False
+        hops = (first.positions_done, solo.positions_done,
+                last.positions_done)
+        if not hops[0] < hops[1] < hops[2] or \
+                len(last.tokens) != hops[2] - 38:
+            fail(f"checkpoint chain: positions {hops}, {len(last.tokens)} "
+                 "tokens")
+        out[name] = (np.asarray(last.tokens), hops, first.margins + margins
+                     + last.margins,
+                     {n: fn.launches for n, fn in counters.items()})
+    toks, hops, _, launches = out["kernel"]
+    ptoks, _, margins, _ = out["plain"]
+    same = first_divergence("checkpoint chain kernel vs plain", toks, ptoks,
+                            np.asarray(margins), MARGIN_TIE)
+    print(f"checkpoint chain bf16 pool -> solo session -> int8 pool: "
+          f"positions {hops[0]} -> {hops[1]} -> {hops[2]}, {len(toks)} "
+          f"tokens; kernel == plain: {same}; launches {launches} [{card}]",
+          flush=True)
+    return launches
+
+
+def pool_ring_phases(model, plain, dev, card):
+    """Four pooled streams at four ring phases with their windows (all
+    but) full, without the audio that leads there: slots restored from
+    synthetic checkpoints (random bf16 caches) 2P positions short of the
+    decoder ring's wrap, just past it, far past it and near the RoPE
+    table's end, then 4 steps together through the kernels and the first
+    2 of them through the plain versions, with bf16 and with int8 caches.
+    The pool's own path to K1 (c) x (d) and (e) at full windows, and the
+    pooled step's time there.  -> {kv_dtype: (launches, step ms)}."""
+    import torch
+
+    from voxtral_tpu_torch.streaming import StreamingSession
+
+    _, S = ring_geometry(model.config.language_model)
+    n_steps, plain_steps = 4, 2
+    # On the streams' grid of 38 + 8 k positions (the encoder ring's
+    # writes are aligned to it).
+    starts = [S - 2 * P_STEP, S + P_STEP, 38 + 8 * 1496, 38 + 8 * 2035]
+    gen = torch.Generator(device=dev).manual_seed(23)
+    states = [restored_state(model.config, dev, p0, n_steps, gen,
+                             lambda secs, i=i: pool_signal(secs, i))
+              for i, p0 in enumerate(starts)]
+    out = {}
+    for kv in ("model", "int8"):
+        res = {}
+        for name, m, n in (("kernel", model, n_steps),
+                           ("plain", plain, plain_steps)):
+            m.record_margins = True
+            counters = pool_counters_reset(dev)
+            pool = make_pool(m, 4, unbounded=True, kv_dtype=kv)
+            cut = [restored_samples(p0, n)[1] for p0 in starts]
+            sessions = [StreamingSession.restore(
+                m, dict(st, samples=st["samples"][:c]), pool=pool)
+                for st, c in zip(states, cut)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pool.pump()
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3 / n
+            m.record_margins = False
+            for ses, p0 in zip(sessions, starts):
+                if ses.positions_done != p0 + n * P_STEP:
+                    fail(f"ring phases: a slot at {ses.positions_done}, "
+                         f"expected {p0 + n * P_STEP}")
+            res[name] = dict(
+                tokens=[np.asarray(s.tokens[p0 - 38:])
+                        for s, p0 in zip(sessions, starts)],
+                margins=[np.asarray(s.margins) for s in sessions],
+                launches={n: fn.launches for n, fn in counters.items()},
+                step_ms=step_ms)
+            del pool, sessions
+            release()
+        run, ref = res["kernel"], res["plain"]
+        same = held_to(f"ring phases kv_dtype={kv} kernel vs plain", run, ref,
+                       ref["margins"], MARGIN_TIE)
+        gap = margin_gap(run, ref)
+        k1n = run["launches"]["decode_stack_step"]
+        if k1n != n_steps * P_STEP:
+            fail(f"ring phases kv_dtype={kv}: K1 launches {k1n} != "
+                 f"{n_steps * P_STEP}")
+        if not gap <= MARGIN_TIE:
+            fail(f"ring phases kv_dtype={kv}: top-2 margins differ by "
+                 f"{gap:.3e}")
+        distinct = len(set(np.concatenate(run["tokens"]).tolist()))
+        gb, b_ms = pool_step_bound(model, 4, kv == "int8", True)
+        print(f"w8 pool B=4 at ring phases {starts} (windows full), "
+              f"kv_dtype={kv}: {n_steps} steps of 4 ready rows, "
+              f"{run['step_ms']:.2f} ms per step (plain path, "
+              f"{plain_steps} steps: {ref['step_ms']:.1f} ms), aggregate "
+              f"step RTF "
+              f"{run['step_ms'] / (4 * P_STEP * 160):.5f}; step bound "
+              f"{b_ms:.3f} ms ({gb:.2f} GB); tokens kernel == plain: {same} "
+              f"over the plain path's {4 * plain_steps * P_STEP} ({distinct} "
+              f"distinct of {4 * n_steps * P_STEP}; top-2 margins differ by "
+              f"at most {gap:.3e}); K1 launches {k1n} [{card}]",
+              flush=True)
+        out[kv] = (run["launches"], run["step_ms"])
+    return out
+
+
+def run_pools_w8(model, plain, dev, card, layout_noise):
+    """Phase 10a: K1 in this slice's modes, then the w8 pools."""
+    import torch
+
+    k1 = check_k1_pool_modes(model, dev, card)
+    cfg = model.config
+    signals = [pool_signal(POOL_SECS, i) for i in range(4)]
+    replace = (1, 6, pool_signal(POOL_SECS / 2, 4))
+    runs, paths = {}, {}
+    for kv in ("model", "int8"):
+        tag = f"w8 pool B=4 unbounded kv_dtype={kv}"
+        pair = pool_pair(tag, model, plain, dev, card, signals,
+                         plain_ticks=B4_PLAIN_TICKS, replace=replace,
+                         unbounded=True, kv_dtype=kv)
+        run = pair["run"]
+        if run["int8"] != (kv == "int8") or run["chunk"] is not None:
+            fail(f"{tag}: the ladder picked int8 {run['int8']}, chunk "
+                 f"{run['chunk']}")
+        want = expected_pool_bytes(cfg, 4, run["int8"], run["slots"],
+                                   sum(enc_ring_geometry(cfg.audio_encoder)))
+        if run["cache_bytes"] != want:
+            fail(f"{tag}: caches {run['cache_bytes']} bytes, the formula "
+                 f"gives {want}")
+        report_pool(tag, run, card, model)
+        runs[kv] = pair
+        paths[f"w8_pool_unbounded_{kv}"] = run["launches"]
+    # The int8 pool against the bf16 pool: no token rule across cache
+    # types; how far the streams sit apart.
+    agree, first = [], []
+    for a, b in zip(runs["int8"]["run"]["tokens"],
+                    runs["model"]["run"]["tokens"]):
+        n = min(len(a), len(b))
+        differ = np.nonzero(a[:n] != b[:n])[0]
+        agree.append(round(float((a[:n] == b[:n]).mean()), 4))
+        first.append(int(differ[0]) if len(differ) else -1)
+    gap = margin_gap(runs["int8"]["run"], runs["model"]["run"])
+    print(f"w8 pool int8 vs bf16 caches: token agreement per stream "
+          f"{agree}, first parting at token {first} (-1: none); top-2 "
+          f"margins up to there differ by at most {gap:.3e} [{card}]",
+          flush=True)
+
+    spec = {}
+    for kv in ("model", "int8"):
+        seq = runs[kv]
+        for draft in ("pad", "ngram"):
+            tag = f"w8 pool B=4 speculative={SPEC_K} {draft} kv_dtype={kv}"
+            run = pool_run(model, dev, signals, replace=replace,
+                           max_ticks=B4_SPEC_TICKS, unbounded=True,
+                           kv_dtype=kv, speculative=SPEC_K, draft=draft)
+            m = run["spec"]
+            # The sequential kernel pool's own margins judge a flip: it
+            # ran to the end (its plain twin stops earlier).
+            same = held_to(f"{tag} vs sequential", run, seq["run"],
+                           seq["run"]["margins"], SPEC_MARGIN_TIE)
+            if run["launches"]["decode_stack_step"] != m["passes"]:
+                fail(f"{tag}: K1 launches "
+                     f"{run['launches']['decode_stack_step']} != passes "
+                     f"{m['passes']}")
+            print(f"{tag}: {B4_SPEC_TICKS} ticks, positions "
+                  f"{run['positions']}: {m}; tokens == sequential pool: "
+                  f"{same}; launches {run['launches']}; {run['wall']:.1f} s "
+                  f"[{card}]", flush=True)
+            spec[(draft, kv)] = dict(run=run, same=same)
+            paths[f"w8_pool_speculative_{draft}_{kv}"] = run["launches"]
+
+    restore = force_chunked()
+    try:
+        short = [pool_signal(POOL_SHORT_SECS, i) for i in (5, 6)]
+        for name, kw in (("bounded", dict(max_duration_s=120)),
+                         ("unbounded", dict(unbounded=True))):
+            tag = f"w8 pool B=2 chunked {name}"
+            pair = pool_pair(tag, model, plain, dev, card, short,
+                             plain_ticks=SHORT_PLAIN_TICKS, **kw)
+            run = pair["run"]
+            if run["chunk"] != 512 or not run["int8"] or run["slots"] % 512:
+                fail(f"{tag}: the forced rung gave chunk {run['chunk']}, "
+                     f"int8 {run['int8']}, {run['slots']} slots")
+            report_pool(tag, run, card, model)
+            paths[f"w8_pool_chunked_{name}"] = run["launches"]
+    finally:
+        restore()
+    phases = pool_ring_phases(model, plain, dev, card)
+    for kv, (launches, _) in phases.items():
+        paths[f"w8_pool_ring_phases_{kv}"] = launches
+    paths["w8_pool_vs_solo"] = pool_vs_solo(model, dev, card, layout_noise)
+    paths["w8_pool_checkpoint_chain"] = pool_checkpoint_chain(model, plain,
+                                                              dev, card)
+    release()
+    k1["err"] = max(k1["err"], check_k1_pool_geometries(model, dev, card,
+                                                        k1["held"]))
+    return dict(k1=k1, runs=runs, spec=spec, paths=paths, phases=phases)
+
+
+def run_pools_q4g(model, plain, dev, card):
+    """Phase 10b: K1 (e) on g32 weights, and a short q4g pool, B = 2."""
+    ring, S = ring_geometry(model.config.language_model)
+    e_g32 = kv_step_case(model, dev, card, "(e) x (h) int8 KV", S, POOL_OFFS,
+                         1, ring, True, None)
+    short = [pool_signal(POOL_SHORT_SECS, i) for i in (2, 3)]
+    pair = pool_pair("q4g pool B=2 unbounded kv_dtype=int8", model, plain,
+                     dev, card, short, plain_ticks=SHORT_PLAIN_TICKS,
+                     unbounded=True, kv_dtype="int8")
+    report_pool("q4g pool B=2", pair["run"], card, model)
+    release()
+    err = max(e_g32[0], check_k1_pool_geometries(model, dev, card))
+    return dict(e_g32=e_g32, err=err, launches=pair["run"]["launches"])
+
+
+def run_pools_q4(model, plain, dev, card):
+    """Phase 10c: the generic pool (packed q4, per-op, K3), B = 2, very
+    short: each ready slot takes the solo step on its cache views."""
+    short = [pool_signal(POOL_Q4_SECS, i) for i in (2, 3)]
+    pair = pool_pair("q4 generic pool B=2 bounded", model, plain, dev, card,
+                     short, plain_ticks=3, max_duration_s=POOL_Q4_SECS + 4)
+    run = pair["run"]
+    if run["fused"] or run["launches"]["decode_stack_step"] or \
+            run["launches"]["q4_matmul"] < 1:
+        fail(f"q4 generic pool: launches {run['launches']}")
+    return dict(launches=run["launches"])
 
 
 # ---------------------------------------------------------------------------
@@ -1601,25 +2460,37 @@ def run_gguf_cli(dev, card):
     with tempfile.TemporaryDirectory() as tmp:
         gguf, tokenizer, params, wav = small_gguf(Path(tmp))
         cfg = VoxtralConfig.from_file(params)
-        for fmt in ("q4", "q4g", "w8"):
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-m", "voxtral_tpu_torch.cli", "--gguf",
-                 str(gguf), "--tokenizer", str(tokenizer), "--params",
-                 str(params), "--weight-format", fmt, "--audio", str(wav)],
-                capture_output=True, text=True, timeout=300,
-                cwd=Path(__file__).resolve().parent)
-            secs = time.perf_counter() - t0
-            if proc.returncode != 0:
+        # The three processes side by side (most of each is the
+        # interpreter's start and the CUDA context).
+        t0 = time.perf_counter()
+        procs = {fmt: subprocess.Popen(
+            [sys.executable, "-m", "voxtral_tpu_torch.cli", "--gguf",
+             str(gguf), "--tokenizer", str(tokenizer), "--params",
+             str(params), "--weight-format", fmt, "--audio", str(wav)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=Path(__file__).resolve().parent)
+            for fmt in ("q4", "q4g", "w8")}
+        try:
+            outs = {fmt: (*p.communicate(timeout=300), p.returncode,
+                          time.perf_counter() - t0)
+                    for fmt, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for fmt, (stdout, stderr, returncode, secs) in outs.items():
+            if returncode != 0:
                 fail(f"CLI --gguf --weight-format {fmt} exited "
-                     f"{proc.returncode}: {proc.stderr[-2000:]}")
+                     f"{returncode}: {stderr[-2000:]}")
             lib = TranscribePipeline.from_gguf(
                 gguf, tokenizer, config=cfg, weight_format=fmt,
                 device=dev).transcribe_file(wav)
-            if proc.stdout != lib + "\n":
-                fail(f"CLI --weight-format {fmt} printed {proc.stdout!r}, "
+            if stdout != lib + "\n":
+                fail(f"CLI --weight-format {fmt} printed {stdout!r}, "
                      f"the library path {lib!r}")
-            print(f"gguf CLI --weight-format {fmt}: exit 0 in {secs:.1f} s, "
+            print(f"gguf CLI --weight-format {fmt}: exit 0 within {secs:.1f} s"
+                  f" of the three starting together, "
                   f"text == library path ({len(lib.split())} words) "
                   f"[{card}]", flush=True)
 
@@ -1651,14 +2522,31 @@ def main() -> int:
     cfg = VoxtralConfig.voxtral()
     sig = chirp()
     tok = VoxtralTokenizer([None] * 131072, {}, 131072)
+    t_run = t_phase = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        print(f"phase {name}: {now - t_phase:.1f} s ({now - t_run:.1f} s "
+              f"since the build) [{card}]", flush=True)
+        t_phase = now
 
     # -- 3. w8, then its streaming sessions (8a) ---------------------------------
     w8 = run_w8(cfg, dev, card, sig, tok)
-    st_w8 = run_stream_w8(w8.pop("model"), w8.pop("plain"), dev, card, tok)
-    torch.cuda.empty_cache()
+    w8_model, w8_plain = w8.pop("model"), w8.pop("plain")
+    phase_done("w8 one-shot")
+    st_w8 = run_stream_w8(w8_model, w8_plain, dev, card, tok)
+    release()
+    phase_done("w8 sessions")
+    pl_w8 = run_pools_w8(w8_model, w8_plain, dev, card,
+                         st_w8["layout_noise"])
+    del w8_model, w8_plain
+    release()
+    phase_done("w8 pools")
 
     # -- 4. K3 ---------------------------------------------------------------
     k3_err, k3_times = check_k3(dev, card)
+    phase_done("K3")
 
     # -- 5, 6. q4g and q4, each then its sessions (8b, 8c) -----------------
     check_pack_device(dev)
@@ -1667,15 +2555,27 @@ def main() -> int:
     print(f"random Q4_0 weights (seed 0, one layer tiled per stack) built: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     q4g = run_q4g(tree, cfg, dev, card, sig, tok, w8["n_tok"])
-    st_q4g = run_stream_q4g(q4g.pop("model"), q4g.pop("plain"), dev, card)
-    torch.cuda.empty_cache()
+    q4g_model, q4g_plain = q4g.pop("model"), q4g.pop("plain")
+    phase_done("q4g one-shot")
+    st_q4g = run_stream_q4g(q4g_model, q4g_plain, dev, card)
+    phase_done("q4g sessions")
+    pl_q4g = run_pools_q4g(q4g_model, q4g_plain, dev, card)
+    del q4g_model, q4g_plain
+    release()
+    phase_done("q4g pool")
     q4 = run_q4(tree, cfg, dev, card, sig, tok, w8["n_tok"])
-    st_q4 = run_stream_q4(q4.pop("model"), q4.pop("plain"), dev, card)
-    del tree
-    torch.cuda.empty_cache()
+    q4_model, q4_plain = q4.pop("model"), q4.pop("plain")
+    phase_done("q4 one-shot")
+    st_q4 = run_stream_q4(q4_model, q4_plain, dev, card)
+    phase_done("q4 session")
+    pl_q4 = run_pools_q4(q4_model, q4_plain, dev, card)
+    phase_done("q4 pool")
+    del tree, q4_model, q4_plain
+    release()
 
     # -- 7. gguf -------------------------------------------------------------
     run_gguf_cli(dev, card)
+    phase_done("gguf")
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "voxtral_tpu"))
@@ -1696,7 +2596,15 @@ def main() -> int:
             "w8_stream_ring_wrap": st_w8["wrap_launches"],
             "q4g_stream_unbounded": st_q4g["run"]["launches"],
             "q4g_stream_speculative_pad": st_q4g["spec"]["launches"],
-            "q4_stream_bounded": st_q4["run"]["launches"]}
+            "q4_stream_bounded": st_q4["run"]["launches"],
+            **pl_w8["paths"],
+            "q4g_pool_unbounded_int8": pl_q4g["launches"],
+            "q4_pool_generic": pl_q4["launches"]}
+    for path in ("w8_pool_unbounded_int8", "w8_pool_chunked_bounded",
+                 "w8_pool_chunked_unbounded", "w8_pool_speculative_ngram_int8",
+                 "q4g_pool_unbounded_int8"):
+        if runs[path]["decode_stack_step"] < 1:
+            fail(f"{path}: K1 (modes (e) / (f)) was launched no time")
 
     def launches(name):
         by = {path: c[name] for path, c in runs.items() if c[name]}
@@ -1707,6 +2615,7 @@ def main() -> int:
     k1a, k1h = w8["k1"], q4g["k1"]
     d_t, hd_t = st_w8["k1_times"], st_q4g["k1_times"]
     k3t = k3_times[(1, 131072, 3072)]
+    pk = pl_w8["k1"]
     record = {"kernels": [
         {"name": "w8_matmul", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/w8_matmul.cu",
@@ -1721,11 +2630,11 @@ def main() -> int:
         {"name": "decode_stack_step", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/decode_step.cu",
          "replaces": "voxtral_tpu/ops/decode_step_pallas.py:1654",
-         "modes": ["a", "b", "c", "d", "h"],
+         "modes": ["a", "b", "c", "d", "e", "f", "h"],
          "launches": launches("decode_stack_step")[0],
          "launches_by_path": launches("decode_stack_step")[1],
          "max_abs_err": max(k1a["err"], k1h["err"], st_w8["k1_err"],
-                            st_q4g["k1_err"]),
+                            st_q4g["k1_err"], pk["err"], pl_q4g["err"]),
          "ms": k1a["one"][1], "plain_ms": k1a["one"][2],
          "bound_ms": k1a["one"][3], "bound_by": k1a["one"][4],
          "library_ms": None,
@@ -1740,7 +2649,27 @@ def main() -> int:
          "d_short_ms": d_t[(100, 1)][0],
          "d_short_bound_ms": d_t[(100, 1)][2],
          "h_d_ms": hd_t[(16000, 1)][0], "h_d_plain_ms": hd_t[(16000, 1)][1],
-         "h_d_bound_ms": hd_t[(16000, 1)][2]},
+         "h_d_bound_ms": hd_t[(16000, 1)][2],
+         # This slice's modes, 4 streams at four ring phases (S = 8238)
+         # unless said otherwise: kernel, plain, bound.
+         "cd_ms": pk["cd"][1], "cd_plain_ms": pk["cd"][2],
+         "cd_bound_ms": pk["cd"][3],
+         "e_ms": pk["e"][1], "e_plain_ms": pk["e"][2],
+         "e_bound_ms": pk["e"][3], "e_bound_by": pk["e"][4],
+         "e_spec_ms": pk["e_spec"][1], "e_spec_plain_ms": pk["e_spec"][2],
+         "e_spec_bound_ms": pk["e_spec"][3],
+         "e_h_ms": pl_q4g["e_g32"][1], "e_h_plain_ms": pl_q4g["e_g32"][2],
+         "e_h_bound_ms": pl_q4g["e_g32"][3],
+         "f_ms": pk["f_ring"][1], "f_plain_ms": pk["f_ring"][2],
+         "f_bound_ms": pk["f_ring"][3], "f_bound_by": pk["f_ring"][4],
+         "f_int8_ms": pk["f_ring_int8"][1],
+         "f_int8_plain_ms": pk["f_ring_int8"][2],
+         "f_int8_bound_ms": pk["f_ring_int8"][3],
+         "f_bounded_ms": pk["f_bounded"][1],
+         "f_bounded_plain_ms": pk["f_bounded"][2],
+         "f_bounded_bound_ms": pk["f_bounded"][3],
+         "f_bounded_int8_ms": pk["f_bounded_int8"][1],
+         "f_bounded_int8_bound_ms": pk["f_bounded_int8"][3]},
         {"name": "q4_matmul", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/q4_matmul.cu",
          "replaces": "voxtral_tpu/ops/q4_pallas.py:150",

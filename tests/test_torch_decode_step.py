@@ -742,3 +742,212 @@ def test_decode_stack_step_ring_kernel_matches_plain_on_card(
                                             == torch.bfloat16 else 0)
                                    * r.abs().max().item())
     assert torch.equal(got[3].argmax(-1), ref[3].argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# Modes (e) and (f): the int8 KV cache and the chunked cache
+# ---------------------------------------------------------------------------
+#
+# The int8 caches are JAX's ``quantize_kv`` of the bf16 caches above, the
+# same codes and scales on both sides.  Every dot of mode (e) is an
+# integer sum, so both sides agree exactly unless a float that feeds a
+# rounding (q / sq, e * vs / se) differs in its last bits and lands on
+# the other side of a half: one code of 127 flips by one, which moves a
+# score by |k| sq ks (about 1e-2 of it) and an output by about 1e-3 of
+# its largest value.  No flip occurs on these seeds, so the tolerance is
+# mode (a)'s: 1e-5 of the largest value (f32 summation order).
+# Mode (f) sums per chunk against a running max on both sides, the same
+# tolerance.  Dead chunks are poisoned (NaN values and scales): a chunk
+# outside [c_lo, n_used) must not be read.
+
+
+def test_quantize_kv_matches_jax():
+    rng = np.random.default_rng(4)
+    v = (rng.normal(size=(3, 2, 5, 32)) * 0.4).astype(np.float32)
+    v[0, 0, 0] = 0.0            # the 1e-8 floor
+    v[1, 1, 2, :] = 0.5         # ties at +-127
+    for dt in (jnp.float32, jnp.bfloat16):
+        jq, js = jdsp.quantize_kv(jnp.asarray(v).astype(dt))
+        tv = to_torch(v)
+        if dt == jnp.bfloat16:
+            tv = tv.to(torch.bfloat16)
+        tq, ts = tdsp.quantize_kv(tv)
+        assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+        np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+def _kv_jax_and_port(inputs, offs, spec, window, ring=None, int8=False,
+                     chunk=None, dead=None, poison=np.nan):
+    """(JAX interpret-mode outputs, port outputs) of one step over int8
+    and / or chunked caches.  ``dead``: a slot slice poisoned on both
+    sides with ``poison``: NaN for chunks that must not be read, a large
+    finite value for masked slots of a chunk that is."""
+    (params, t_embed, kc, vc, x, cos, sin, lm,
+     final_norm) = _rows_inputs(inputs, offs, spec)
+    kc, vc = jnp.asarray(kc), jnp.asarray(vc)
+    scales = {}
+    if int8:
+        kc, ks = jdsp.quantize_kv(kc)
+        vc, vs = jdsp.quantize_kv(vc)
+        if dead is not None:
+            ks = ks.at[:, :, :, dead].set(poison)
+            vs = vs.at[:, :, :, dead].set(poison)
+            kc = kc.at[:, :, :, dead].set(127)
+            vc = vc.at[:, :, :, dead].set(127)
+        scales = dict(k_scales=ks, v_scales=vs)
+    elif dead is not None:
+        kc = kc.at[:, :, :, dead].set(poison)
+        vc = vc.at[:, :, :, dead].set(poison)
+    jtree, jf = _jax_fused(params)
+    adav = jdsp.ada_vectors(jtree, jnp.asarray(t_embed))
+    kw = dict(n_heads=N_HEADS, n_kv=N_KV, head_dim=HEAD_DIM, eps=EPS,
+              window=window, spec=spec, ring=ring, cache_chunk=chunk)
+    ref = jdsp.decode_stack_step(
+        jnp.asarray(x), jnp.asarray(offs, jnp.int32),
+        jf["attn_norm"], jf["ffn_norm"], adav,
+        jf["sqkv"], jf["so"], jf["s13"], jf["s2"], jnp.asarray(cos),
+        jnp.asarray(sin), kc, vc, jf["wqkv"], jf["wo"], jf["w13"], jf["w2"],
+        final_norm=jnp.asarray(final_norm), lm_codes=jnp.asarray(lm["codes"]),
+        lm_scale=jnp.asarray(lm["scale"]), interpret=True, **scales, **kw)
+    tf = tdsp.fuse_decode_weights(params_from_numpy(params))
+
+    def cache(a):
+        a = np.asarray(a) if a.dtype == jnp.int8 else np.asarray(
+            a.astype(jnp.float32))
+        t = to_torch(a)
+        return t if t.dtype == torch.int8 else t.to(torch.bfloat16)
+
+    tscales = {k: to_torch(np.asarray(v)) for k, v in scales.items()}
+    got = tdsp.decode_stack_step(
+        to_torch(x), torch.tensor(offs, dtype=torch.int32), tf["attn_norm"],
+        tf["ffn_norm"], to_torch(np.asarray(adav)), tf["sqkv"], tf["so"],
+        tf["s13"], tf["s2"], to_torch(cos), to_torch(sin), cache(kc),
+        cache(vc), tf["wqkv"], tf["wo"], tf["w13"], tf["w2"],
+        final_norm=to_torch(final_norm), lm_codes=to_torch(lm["codes"]),
+        lm_scale=to_torch(lm["scale"]), **tscales, **kw)
+    return ref, got
+
+
+@pytest.mark.parametrize("offs,spec,window,ring", [
+    ([7, 7], 1, None, None),      # sequential, no window
+    ([3, 12], 1, 8, None),        # per-row offsets, the window binds
+    ([0, 16], 1, 8, None),        # an empty and a full cache
+    ([10, 20], 1, 8, RING),       # ring, before / after the wrap
+    ([40, 14], 1, 8, RING),       # the head outside the window
+    ([5, 11], 3, None, None),     # (e) x (b): spec rows, one requant group
+    ([5, 11], 2, 1, None),        # the window drops fresh rows
+    ([14, 27], 3, 8, RING),       # spec rows straddling the ring's end
+])
+def test_decode_stack_step_int8_kv_plain_matches_jax(inputs, offs, spec,
+                                                     window, ring):
+    ref, got = _kv_jax_and_port(inputs, offs, spec, window, ring, int8=True)
+    _assert_close_to_jax(ref, got, len(offs) * spec)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("offs,window,ring,chunk,dead", [
+    ([7, 5], 8, None, 8, slice(8, 16)),     # the trailing chunk is dead
+    ([15, 14], 4, None, 4, slice(0, 8)),    # leading chunks below the band
+    ([16, 3], 8, None, 8, None),            # both chunks, one row in each
+    ([13, 9], 8, (4, 8), 8, slice(12, 16)),  # ring padded past head + size
+    ([40, 5], 8, (4, 8), 4, slice(12, 16)),  # ... its last chunk is dead
+    ([5, 3], 8, (4, 8), 4, slice(8, 16)),    # ring, filled to 5 of 12
+])
+def test_decode_stack_step_chunked_plain_matches_jax(inputs, int8, offs,
+                                                     window, ring, chunk,
+                                                     dead):
+    # Slots [12, 16) of the first ring case share a live chunk: masked,
+    # not skipped, so their poison is finite (0 * NaN would spread).
+    poison = 1e3 if ring is not None and chunk == 8 else np.nan
+    ref, got = _kv_jax_and_port(inputs, offs, 1, window, ring, int8=int8,
+                                chunk=chunk, dead=dead, poison=poison)
+    assert np.isfinite(np.asarray(ref[3])).all()
+    _assert_close_to_jax(ref, got, len(offs))
+
+
+def test_decode_stack_step_kv_mode_guards(inputs):
+    params, _, k_cache, v_cache, x, _, _ = inputs
+    tf = tdsp.fuse_decode_weights(params_from_numpy(params))
+    c, s = tdsp.rope_pair_vectors(3, HEAD_DIM)
+    kw = dict(n_heads=N_HEADS, n_kv=N_KV, head_dim=HEAD_DIM, eps=EPS)
+    kq, ks = tdsp.quantize_kv(to_torch(k_cache))
+    vq, vs = tdsp.quantize_kv(to_torch(v_cache))
+
+    def step(rows=B, kc=kq, vc=vq, **over):
+        return tdsp.decode_stack_step(
+            torch.zeros((rows, D)), 3, tf["attn_norm"], tf["ffn_norm"],
+            torch.ones((L, D)), tf["sqkv"], tf["so"], tf["s13"], tf["s2"],
+            c, s, kc, vc, tf["wqkv"], tf["wo"], tf["w13"], tf["w2"],
+            **dict(kw, **over))
+
+    with pytest.raises(ValueError, match="cache_chunk unsupported"):
+        step(2 * B, k_scales=ks, v_scales=vs, spec=2, cache_chunk=8)
+    with pytest.raises(ValueError, match="must divide S"):
+        step(k_scales=ks, v_scales=vs, cache_chunk=5)
+    with pytest.raises(ValueError, match="needs k_scales/v_scales"):
+        step()
+    with pytest.raises(ValueError, match="need int8 caches"):
+        step(kc=to_torch(k_cache), vc=to_torch(v_cache), k_scales=ks,
+             v_scales=vs)
+    out = step(k_scales=ks, v_scales=vs, cache_chunk=8)
+    assert out[1].dtype == torch.bfloat16  # k_new comes back bf16
+    # Mode (f) needs the chunk's scores in shared memory, not S's.
+    with pytest.raises(ValueError, match="shared memory"):
+        tdsp.check_geometry(512 * 200, 128, 8192, 1, (38, 512 * 200 - 38))
+    tdsp.check_geometry(512 * 200, 128, 8192, 1, (38, 512 * 200 - 38),
+                        cache_chunk=512, kv_int8=True)
+    with pytest.raises(ValueError, match="cache_chunk unsupported"):
+        tdsp.check_geometry(1024, 128, 8192, 8, None, cache_chunk=512)
+    assert (tdsp.attn_smem_bytes(8704, 128, 8192, 1, (38, 8666), 512, True)
+            == 8 * 8 * 128 + 4 * (4 * 128 + 2 + 512))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["w8", "g32"])
+@pytest.mark.parametrize("offs,spec,ring,int8,chunk,dead", [
+    ([7, 7], 1, None, True, None, None),            # (e)
+    ([3, 12, 0, 16], 1, None, True, None, None),    # (e) x (c)
+    ([10, 20, 40, 14], 1, RING, True, None, None),  # (e) x (d)
+    ([5, 11], 3, None, True, None, None),           # (e) x (b)
+    ([14, 27, 40, 10], 4, RING, True, None, None),  # 16 rows, ring
+    ([7, 5], 1, None, False, 8, slice(8, 16)),      # (f) bf16, a dead chunk
+    ([7, 5], 1, None, True, 8, slice(8, 16)),       # (f) int8
+    ([15, 14, 13, 12], 1, None, True, 4, slice(0, 4)),
+    ([13, 9], 1, (4, 8), False, 8, None),           # (f) ring, padded S
+    ([40, 5], 1, (4, 8), True, 4, slice(12, 16)),
+])
+def test_decode_stack_step_kv_kernel_matches_plain_on_card(
+        q4g_params, inputs, weights, offs, spec, ring, int8, chunk, dead):
+    """Modes (e), (e) x (b) and (f) on the card: bit-equal to the plain
+    version (integer dots; f64 sums rounded once), under the tolerance of
+    the other modes.  Dead chunks hold NaN."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    args = list(_ring_card_args(inputs, offs, spec,
+                                q4g_params if weights == "g32" else None))
+    kw = dict(n_heads=N_HEADS, n_kv=N_KV, head_dim=HEAD_DIM, eps=EPS,
+              window=8, spec=spec, ring=ring, cache_chunk=chunk)
+    kc, vc = args[11], args[12]
+    if int8:
+        (kc, ks), (vc, vs) = tdsp.quantize_kv(kc), tdsp.quantize_kv(vc)
+        if dead is not None:
+            ks[:, :, :, dead] = float("nan")
+            vs[:, :, :, dead] = float("nan")
+        kw.update(k_scales=ks, v_scales=vs)
+    elif dead is not None:
+        kc, vc = kc.clone(), vc.clone()
+        kc[:, :, :, dead] = float("nan")
+        vc[:, :, :, dead] = float("nan")
+    args[11], args[12] = kc, vc
+    got = tdsp.decode_stack_step(*args, **kw)
+    ref = tdsp.decode_stack_step_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        r = r.float()
+        assert torch.isfinite(r).all()
+        torch.testing.assert_close(g.float(), r, rtol=0,
+                                   atol=max(X_RTOL, KV_RTOL if g.dtype
+                                            == torch.bfloat16 else 0)
+                                   * r.abs().max().item())
+    assert torch.equal(got[3].argmax(-1), ref[3].argmax(-1))

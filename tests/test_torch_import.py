@@ -17,8 +17,8 @@ PKG = REPO / "voxtral_tpu_torch"
 def test_importing_the_port_leaves_jax_out():
     # A fresh interpreter: this test process already imported jax
     # (tests/conftest.py).  Importing every module of the port and
-    # running a tiny transcribe on the CPU loads neither jax nor any
-    # module of the JAX package voxtral_tpu.
+    # running a tiny transcribe and a tiny pool on the CPU loads neither
+    # jax nor any module of the JAX package voxtral_tpu.
     code = ("import sys\n"
             "import numpy as np\n"
             "import voxtral_tpu_torch, voxtral_tpu_torch.cli\n"
@@ -32,6 +32,13 @@ def test_importing_the_port_leaves_jax_out():
             "model = VoxtralModel.from_numpy(random_w8_params(cfg), cfg, 'cpu')\n"
             "toks = model.transcribe_streaming(np.zeros((1, 128, 640), np.float32))\n"
             "assert toks.shape == (2,), toks.shape\n"
+            "from voxtral_tpu_torch import StreamPool, StreamingSession\n"
+            "pool = StreamPool(model, max_streams=2, max_duration_s=10,\n"
+            "                  kv_dtype='int8')\n"
+            "ses = StreamingSession(model, pool=pool)\n"
+            "ses.feed(np.zeros(16000 * 3, np.float32))\n"
+            "ses.finish()\n"
+            "assert len(ses.tokens) == ses.positions_done - 38 > 8\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "             or m == 'voxtral_tpu' or m.startswith('voxtral_tpu.'))\n"
             "assert not bad, bad\n")

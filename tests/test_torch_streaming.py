@@ -323,8 +323,14 @@ def test_words_endpoint_utf8_and_finish(w8):
 
 def test_session_guards(w8):
     cfg, tree, _, model, _, _ = w8
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StreamingSession(model, pool=object())
+    from voxtral_tpu_torch.streaming import StreamPool
+
+    pool = StreamPool(model, max_streams=1, max_duration_s=30)
+    with pytest.raises(ValueError, match="the pool's on a pooled session"):
+        StreamingSession(model, pool=pool, speculative=4)
+    with pytest.raises(ValueError, match="need an unbounded pool"):
+        StreamingSession(model, pool=pool, unbounded=True)
+    assert pool.free_slots == 1  # a refused session takes no slot
     with pytest.raises(ValueError, match="must be <= step_positions"):
         StreamingSession(model, step_positions=4, speculative=8)
     with pytest.raises(ValueError, match="draft policy"):

@@ -16,8 +16,10 @@ its module names so each counterpart is easy to find:
                       kernels (csrc/*.cu, built with nvcc at first use)
     pipeline, cli   — one-shot file transcription (sequential, sampled
                       or speculative decode; random w8 or GGUF weights)
-    streaming       — the solo live session (bounded or head+ring
-                      caches, sequential or speculative, checkpoints)
+    streaming       — the live session (bounded or head+ring caches,
+                      sequential or speculative, checkpoints) and the
+                      pool that steps several sessions as one batch
+                      (bf16 or int8 caches, resident or chunked)
     utils/hbm       — device-memory admission
 
 It imports ``torch`` and never ``jax``, and nothing of the JAX package
@@ -29,8 +31,8 @@ re-exported.
 __version__ = "0.1.0"
 
 from voxtral_tpu_torch.config import VoxtralConfig
-from voxtral_tpu_torch.streaming import StreamingSession
+from voxtral_tpu_torch.streaming import StreamingSession, StreamPool
 from voxtral_tpu_torch.tokenizer import VoxtralTokenizer
 
-__all__ = ["StreamingSession", "VoxtralConfig", "VoxtralTokenizer",
-           "__version__"]
+__all__ = ["StreamPool", "StreamingSession", "VoxtralConfig",
+           "VoxtralTokenizer", "__version__"]

@@ -70,8 +70,10 @@ def encoder_layers_with_cache(
     x [B, S_new, d_model], appending K/V at ``cache.length`` (the
     streaming path runs the conv over an overlapping window outside).
     ``ring``: (head, size) head+ring cache layout (see
-    ``layers.attention_with_cache``).  Returns (normed hidden, cache);
-    the cache arrays are written in place."""
+    ``layers.attention_with_cache``).  ``cache.length`` an int tensor
+    [B] (the pooled step): every row appends at its own length, in one
+    batched pass, so a linear sees B * S_new rows.  Returns (normed
+    hidden, cache); the cache arrays are written in place."""
     spec = encoder_spec(cfg)
     if rope is None:
         rope = rope_tables(cfg.head_dim, cache.max_seq, cfg.rope_theta,

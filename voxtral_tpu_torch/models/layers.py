@@ -141,10 +141,13 @@ def rope_tables(head_dim: int, max_seq: int, theta: float = 1_000_000.0,
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
-    """Interleaved-pair RoPE; x [B, S, H, D], positions [S]."""
+    """Interleaved-pair RoPE; x [B, S, H, D], positions [S] (every row)
+    or [B, S] (per row)."""
     b, s, h, d = x.shape
-    c = cos[positions][None, :, None, :]
-    si = sin[positions][None, :, None, :]
+    c, si = cos[positions], sin[positions]
+    if positions.dim() == 1:
+        c, si = c[None], si[None]
+    c, si = c[:, :, None, :], si[:, :, None, :]
     xf = x.float().reshape(b, s, h, d // 2, 2)
     xr, xi = xf[..., 0], xf[..., 1]
     out = torch.stack([xr * c - xi * si, xr * si + xi * c], dim=-1)
@@ -171,9 +174,10 @@ class AttentionSpec:
 
 def _band_mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor,
                     window: Optional[int], causal: bool) -> torch.Tensor:
-    """Additive f32 bias [Sq, Sk]: 0 where allowed, -inf elsewhere;
-    allowed = (k <= q) & (q - k <= window)."""
-    diff = q_pos[:, None] - k_pos[None, :]
+    """Additive f32 bias [Sq, Sk] ([B, Sq, Sk] for per-row positions
+    [B, Sq] / [B, Sk]): 0 where allowed, -inf elsewhere; allowed =
+    (k <= q) & (q - k <= window)."""
+    diff = q_pos[..., :, None] - k_pos[..., None, :]
     allowed = torch.ones(diff.shape, dtype=torch.bool, device=diff.device)
     if causal:
         allowed &= diff >= 0
@@ -188,7 +192,9 @@ def _sdpa(q, k, v, spec: AttentionSpec, q_pos, k_pos,
     """Grouped scaled-dot-product attention, scores and softmax in f32.
 
     q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] -> [B, Sq, Hq, D] in q's dtype.
-    ``k_valid`` [Sk] masks cache slots not written yet.
+    ``k_valid`` [Sk] masks cache slots not written yet.  ``q_pos`` /
+    ``k_pos`` / ``k_valid`` may carry a leading batch axis: each row
+    then has its own positions and its own mask.
     """
     b, sq, hq, d = q.shape
     groups = hq // spec.n_kv_heads
@@ -197,7 +203,9 @@ def _sdpa(q, k, v, spec: AttentionSpec, q_pos, k_pos,
     scores = scores * spec.scale
     bias = _band_mask_bias(q_pos, k_pos, spec.sliding_window, spec.causal)
     if k_valid is not None:
-        bias = torch.where(k_valid[None, :], bias, float("-inf"))
+        bias = torch.where(k_valid[..., None, :], bias, float("-inf"))
+    if bias.dim() == 3:  # per row: against [B, Hkv, G, Sq, Sk]
+        bias = bias[:, None, None]
     probs = torch.softmax(scores + bias, dim=-1)
     out = torch.einsum("bigst,btid->bsigd", probs.to(v.dtype).float(),
                        v.float())
@@ -296,7 +304,7 @@ def ring_k_positions(head: int, size: int, written, device=None,
 
 
 def attention_with_cache(x, p: Params, spec: AttentionSpec, cos, sin,
-                         k_cache, v_cache, offset: int, mm=None,
+                         k_cache, v_cache, offset, mm=None,
                          pos_base: int = 0,
                          ring: Optional[tuple[int, int]] = None):
     """Append this block's K/V to the cache at ``offset``, attend over
@@ -308,10 +316,16 @@ def attention_with_cache(x, p: Params, spec: AttentionSpec, cos, sin,
     ``(head, size)`` makes the cache a head+ring buffer of head + size
     slots (positions < head permanent, later ones wrap modulo size);
     a write must fit one region, as the callers align it, and
-    ``pos_base`` stays 0.
+    ``pos_base`` stays 0.  ``offset`` an int tensor [B] (the pooled
+    step): each row appends at its own offset, with its own RoPE
+    positions, band mask and (ring) write slots, in one batched pass
+    (JAX vmaps the batch-1 function over the slots).
     """
     b, s, _ = x.shape
     dev = x.device
+    rows = isinstance(offset, torch.Tensor)
+    if rows:
+        offset = offset.long()[:, None]  # [B, 1] against the S axis
     positions = pos_base + offset + torch.arange(s, device=dev)
     q = linear(x, p["wq"], p.get("wq_b"), mm).reshape(
         b, s, spec.n_heads, spec.head_dim)
@@ -319,6 +333,24 @@ def attention_with_cache(x, p: Params, spec: AttentionSpec, cos, sin,
         b, s, spec.n_kv_heads, spec.head_dim)
     v = linear(x, p["wv"], p.get("wv_b"), mm).reshape(
         b, s, spec.n_kv_heads, spec.head_dim)
+    if rows:
+        # A row past its table's end (a parked stream) reads the last
+        # entry, as a JAX gather clamps; its output is discarded.
+        at = positions.clamp(max=cos.shape[0] - 1)
+        q, k = apply_rope(q, cos, sin, at), apply_rope(k, cos, sin, at)
+        first = offset if ring is None else ring_slot(offset, *ring)
+        write = first + torch.arange(s, device=dev)  # [B, S] slots
+        batch = torch.arange(b, device=dev)[:, None]
+        k_cache[batch, write] = k.to(k_cache.dtype)
+        v_cache[batch, write] = v.to(v_cache.dtype)
+        if ring is None:
+            slots = torch.arange(k_cache.shape[1], device=dev)
+            k_pos, k_valid = pos_base + slots, slots < offset + s
+        else:
+            k_pos, k_valid = ring_k_positions(*ring, offset + s)
+        out = _sdpa(q, k_cache, v_cache, spec, positions, k_pos, k_valid)
+        out = out.reshape(b, s, spec.n_heads * spec.head_dim)
+        return linear(out, p["wo"], p.get("wo_b"), mm), k_cache, v_cache
     q = apply_rope(q, cos, sin, positions)
     k = apply_rope(k, cos, sin, positions)
     if ring is None:

@@ -128,6 +128,18 @@ def append_rows(cache: torch.Tensor, new: torch.Tensor, offs: torch.Tensor,
     return cache
 
 
+def append_scales(arr: torch.Tensor, new: torch.Tensor, offs: torch.Tensor,
+                  rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-row scale append beside :func:`append_rows` on an int8 cache,
+    in place: write ``new[:, i]`` [L, H] at slot ``offs[i]`` along the S
+    axis of row ``rows[i]`` (default ``i``) of ``arr`` [L, Bc, H, S] (JAX
+    ``streaming._append_scales``).  Returns ``arr``."""
+    if rows is None:
+        rows = torch.arange(new.shape[1], device=new.device)
+    arr[:, rows, :, offs.long()] = new.permute(1, 0, 2).to(arr.dtype)
+    return arr
+
+
 def select_token(logits: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
                  temperature: float = 0.0, top_k: int = 0) -> torch.Tensor:
@@ -259,21 +271,24 @@ def transcribe_streaming_fn(params: Params, mel: torch.Tensor,
 def fused_step_fn(dec: Params, fused: Params, ada_vecs: torch.Tensor, lm_cfg,
                   mm=None, step=None):
     """The K1 step with the model's stacks bound: ``run(x, off, cos, sin,
-    k_cache, v_cache, spec=1, ring=None) -> (x_out, k_new, v_new,
-    logits)``.  ``step``: the kernel wrapper (default) or its plain
-    version; ``ring``: the head+ring cache layout (mode (d))."""
+    k_cache, v_cache, spec=1, ring=None, **cache_kw) -> (x_out, k_new,
+    v_new, logits)``.  ``step``: the kernel wrapper (default) or its plain
+    version; ``ring``: the head+ring cache layout (mode (d));
+    ``cache_kw``: ``k_scales`` / ``v_scales`` (mode (e)) and
+    ``cache_chunk`` (mode (f))."""
     step = step or k1.decode_stack_step
     step_kw = dict(n_heads=lm_cfg.n_heads, n_kv=lm_cfg.n_kv_heads,
                    head_dim=lm_cfg.head_dim, eps=lm_cfg.norm_eps,
                    window=lm_cfg.sliding_window)
     lm_kw = _lm_fold(dec, fused)
 
-    def run_step(x, off, cos, sin, k_cache, v_cache, spec=1, ring=None):
+    def run_step(x, off, cos, sin, k_cache, v_cache, spec=1, ring=None,
+                 **cache_kw):
         out = step(x, off, fused["attn_norm"], fused["ffn_norm"], ada_vecs,
                    fused["sqkv"], fused["so"], fused["s13"], fused["s2"],
                    cos, sin, k_cache, v_cache, fused["wqkv"], fused["wo"],
                    fused["w13"], fused["w2"], spec=spec, ring=ring, **lm_kw,
-                   **step_kw)
+                   **cache_kw, **step_kw)
         if lm_kw:
             return out
         # No lm fold (a q4g stack over another table): the final norm and

@@ -16,7 +16,14 @@ head+ring cache of an unbounded stream (``ring=(head, size)``): slots
 position head + r + size * c below the offset; the attention walks all
 S slots in slot order and masks each by its absolute position, as the
 JAX ``build_valid`` (``decode_step_pallas.py:1020-1042``, spec rows
-``:813-829``), combinable with every other mode.  Source:
+``:813-829``), combinable with every other mode; (e) the int8 KV cache
+(``k_scales`` / ``v_scales``: int8 codes with one f32 scale per cached
+vector, ``scores_of`` / ``ctx_of`` ``:1045-1080`` and the spec branch's
+fresh-row roundtrip ``:831-929``): integer score and P.V dots, the
+softmax weights requantized in one group per row; (f) the chunked cache
+(``cache_chunk=Sc``, ``:1085-1180``): an online softmax over the chunks
+some row of the batch can see, in slot order, so the score buffer holds
+Sc floats and shared memory no longer bounds S.  Source:
 ``csrc/decode_step.cu``.
 
 What bounds it on the H100: the int8 weights streamed once per step —
@@ -31,10 +38,14 @@ The attention blocks read the offsets on the device, so a step launches
 without a host sync.  One call of the wrapper is one step and counts as
 one launch in ``decode_stack_step.launches``.
 
+With a full window the attention reads as many bytes as the weights at
+four streams (0.87 GB of bf16 cache per stream and step); mode (e)
+halves them (int8 codes + 1/32 of that in scales).
+
 Also here, the host-side preparation the JAX module holds beside the
 kernel: :func:`fuse_decode_weights`, :func:`fuse_decode_weights_q4g`,
-:func:`megakernel_mode`, :func:`q4g_geometry_ok`, :func:`ada_vectors`
-and :func:`rope_pair_vectors`.
+:func:`megakernel_mode`, :func:`q4g_geometry_ok`, :func:`ada_vectors`,
+:func:`rope_pair_vectors` and :func:`quantize_kv`.
 """
 
 from __future__ import annotations
@@ -206,6 +217,26 @@ def rope_pair_vectors(position, head_dim: int, theta: float = 1_000_000.0,
     return c, s
 
 
+def _absmax_codes(t: torch.Tensor, floor: float):
+    """Per-vector symmetric int8 quantization over the last axis:
+    s = max(absmax, floor) / 127 (a true division: by a tensor, since
+    CUDA PyTorch multiplies by the reciprocal of a Python scalar) and
+    the codes clip(round_half_even(t / s), -127, 127) as floats.
+    -> (codes, s [..., 1])."""
+    a = t.abs().amax(dim=-1, keepdim=True)
+    s = torch.clamp(a, min=floor) / torch.full_like(a, 127.0)
+    return torch.clamp(torch.round(t / s), -127, 127), s
+
+
+def quantize_kv(vecs: torch.Tensor):
+    """Per-vector int8 quantization of K / V rows for the int8 cache
+    (mode (e)): vecs [..., hd] -> (codes int8 [..., hd], scales f32
+    [...]).  Used for the prefilled cache and for k_new / v_new at each
+    append (JAX ``quantize_kv``)."""
+    q, s = _absmax_codes(vecs.float(), 1e-8)
+    return q.to(torch.int8), s[..., 0]
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch version
 # ---------------------------------------------------------------------------
@@ -272,15 +303,32 @@ def _spec_streams(rows: int, cache_rows: int, spec: int) -> int:
     return rows // spec
 
 
+def _chunk_range(offs, S: int, window, ring, chunk: int):
+    """Chunks [c_lo, n_used) a chunked step walks: those some row of the
+    batch can see (JAX ``:1106-1119``).  Reads the offsets' min and max
+    (the plain version only; the kernel reads them on the device)."""
+    mn, mx = int(offs.min()), int(offs.max())
+    if ring is None:
+        used = mx
+        lo_pos = max(mn - window, 0) if window is not None else 0
+    else:
+        used, lo_pos = min(mx, ring[0] + ring[1]), 0
+    return lo_pos // chunk, min(-(-used // chunk), S // chunk)
+
+
 def _attention_plain(q, k, v, k_cache, v_cache, offs, window, spec, n_kv,
-                     scale, ring=None):
-    """One layer's attention, as the JAX kernel's spec branch computes it
-    (spec = 1 is the sequential step): q [B, H, hd], k / v [B, Hkv, hd]
-    RoPE'd f32; caches [Bc, Hkv, S, hd]; offs [Bc] int; ``ring`` the
-    head+ring layout (mode (d)) or None.  -> [B, H * hd]."""
+                     scale, ring=None, k_scales=None, v_scales=None,
+                     cache_chunk=None):
+    """One layer's attention, as the JAX kernel computes it (its spec
+    branch for spec > 1): q [B, H, hd], k / v [B, Hkv, hd] RoPE'd f32;
+    caches [Bc, Hkv, S, hd] bf16, or int8 with ``k_scales`` / ``v_scales``
+    [Bc, Hkv, S] (mode (e)); offs [Bc] int; ``ring`` the head+ring layout
+    (mode (d)) or None; ``cache_chunk`` the online softmax over chunks
+    (mode (f), spec = 1).  -> [B, H * hd]."""
     B, n_heads, hd = q.shape
     Bc, S = B // spec, k_cache.shape[2]
     groups = n_heads // n_kv
+    int8 = k_scales is not None
     qS = q.reshape(Bc, spec, n_heads, hd)
     kS = k.reshape(Bc, spec, n_kv, hd)
     vS = v.reshape(Bc, spec, n_kv, hd)
@@ -292,32 +340,103 @@ def _attention_plain(q, k, v, k_cache, v_cache, offs, window, spec, n_kv,
         written = p_abs < off
     else:
         p_abs, written = ring_k_positions(*ring, off, slots=S)
+    if int8:
+        ks = k_scales.reshape(Bc * n_kv, S)
+        vs = v_scales.reshape(Bc * n_kv, S)
+        # Fresh rows read as the sequential step reads them back from the
+        # int8 cache: through bf16 and the per-vector quantization.
+        kqf, ksf = _absmax_codes(kS.to(torch.bfloat16).float(), 1e-8)
+        vqf, vsf = _absmax_codes(vS.to(torch.bfloat16).float(), 1e-8)
 
-    def fresh(t, i):  # [Bc, spec, Hkv, hd] -> row i's [Bc * Hkv, 1, hd]
-        return t[:, i].reshape(Bc * n_kv, 1, hd)
+    def fresh(t, i):  # [Bc, spec, Hkv, n] -> row i's [Bc * Hkv, 1, n]
+        return t[:, i].reshape(Bc * n_kv, 1, t.shape[-1])
+
+    def scores_of(qj, qq, sq, sl, valid):
+        """Masked scores of the cache slots ``sl`` [Bc * Hkv, G, n]."""
+        if int8:
+            z = (qq.double() @ kc[:, sl].transpose(1, 2)).float()
+            sj = z * sq * ks[:, None, sl]
+        else:
+            sj = (qj.to(k_cache.dtype).double()
+                  @ kc[:, sl].transpose(1, 2)).float()
+        return torch.where(valid[:, None, sl], sj, float("-inf"))
+
+    def requant(e_w, extra=()):
+        """(codes, se) of softmax weights x v scales, one group per row
+        over ``e_w``'s slots and the ``extra`` [Bc * Hkv, G] weights."""
+        ea = e_w.abs().amax(dim=-1, keepdim=True)
+        for ew_i in extra:
+            ea = torch.maximum(ea, ew_i.abs()[..., None])
+        se = torch.clamp(ea, min=1e-30) / torch.full_like(ea, 127.0)
+        return torch.clamp(torch.round(e_w / se), -127, 127), se
+
+    def ctx_of(e, sl, extra=()):
+        """Softmax weights x V over the slots ``sl`` -> (ctx, se)."""
+        if int8:
+            eq, se = requant(e * vs[:, None, sl], extra)
+            return (eq.double() @ vc[:, sl]).float() * se, se
+        return (e.to(v_cache.dtype).double() @ vc[:, sl]).float(), None
 
     rows = []
     for j in range(spec):
         qj = qS[:, j].reshape(Bc * n_kv, groups, hd) * scale
-        sj = (qj.to(k_cache.dtype).double() @ kc.transpose(1, 2)).float()
+        qq, sq = _absmax_codes(qj, 1e-8) if int8 else (None, None)
         valid = written
         if window is not None:
             valid = valid & ((off + j - p_abs) <= window)
-        valid = valid.repeat_interleave(n_kv, dim=0)[:, None, :]
-        sj = torch.where(valid, sj, float("-inf"))
-        prevs = [(i, _sum64(qj.double() * fresh(kS, i).double()))
-                 for i in range(j) if window is None or j - i <= window]
+        valid = valid.repeat_interleave(n_kv, dim=0)
         s_self = _sum64(qj.double() * fresh(kS, j).double())
+        if cache_chunk:
+            m = torch.full_like(s_self, -1e30)
+            denom = torch.zeros_like(s_self)
+            ctx = torch.zeros_like(qj)
+            for c in range(*_chunk_range(offs, S, window, ring,
+                                         cache_chunk)):
+                sl = slice(c * cache_chunk, (c + 1) * cache_chunk)
+                sj = scores_of(qj, qq, sq, sl, valid)
+                m_new = torch.maximum(m, sj.amax(-1))
+                alpha = torch.exp(m - m_new)
+                e = torch.exp(sj - m_new[..., None])
+                denom = denom * alpha + _sum64(e)
+                ctx = ctx * alpha[..., None] + ctx_of(e, sl)[0]
+                m = m_new
+            m_f = torch.maximum(m, s_self)
+            alpha = torch.exp(m - m_f)
+            e_self = torch.exp(s_self - m_f)
+            denom = denom * alpha + e_self
+            ctx = ctx * alpha[..., None] + e_self[..., None] * fresh(vS, j)
+            rows.append((ctx / denom[..., None]).reshape(Bc, n_heads * hd))
+            continue
+        sj = scores_of(qj, qq, sq, slice(None), valid)
+        prevs = []
+        for i in range(j):
+            if window is not None and j - i > window:
+                continue
+            if int8:
+                z = _sum64(qq.double() * fresh(kqf, i).double())
+                si = z * sq[..., 0] * fresh(ksf, i)[..., 0]
+            else:
+                si = _sum64(qj.double() * fresh(kS, i).double())
+            prevs.append((i, si))
         m = torch.maximum(sj.amax(-1), s_self)
         for _, si in prevs:
             m = torch.maximum(m, si)
         e_cache = torch.exp(sj - m[..., None])
         denom = _sum64(e_cache)
-        ctx = (e_cache.to(v_cache.dtype).double() @ vc).float()
-        for i, si in prevs:
-            e_i = torch.exp(si - m)
-            denom = denom + e_i
-            ctx = ctx + e_i[..., None] * fresh(vS, i)
+        e_fresh = [(i, torch.exp(si - m)) for i, si in prevs]
+        if int8:
+            # One requant group over the cache slots and the fresh rows.
+            ew = [e_i * fresh(vsf, i)[..., 0] for i, e_i in e_fresh]
+            ctx, se = ctx_of(e_cache, slice(None), ew)
+            for (i, e_i), ew_i in zip(e_fresh, ew):
+                denom = denom + e_i
+                eqi = torch.clamp(torch.round(ew_i / se[..., 0]), -127, 127)
+                ctx = ctx + eqi[..., None] * fresh(vqf, i) * se
+        else:
+            ctx, _ = ctx_of(e_cache, slice(None))
+            for i, e_i in e_fresh:
+                denom = denom + e_i
+                ctx = ctx + e_i[..., None] * fresh(vS, i)
         e_self = torch.exp(s_self - m)
         denom = denom + e_self
         ctx = ctx + e_self[..., None] * fresh(vS, j)
@@ -332,9 +451,11 @@ def decode_stack_step_plain(
     k_cache, v_cache,
     wqkv, wo, w13, w2,
     final_norm=None, lm_codes=None, lm_scale=None,
+    k_scales=None, v_scales=None,
     *, n_heads: int, n_kv: int, head_dim: int, eps: float,
     window: Optional[int] = None, spec: int = 1,
     ring: Optional[tuple[int, int]] = None,
+    cache_chunk: Optional[int] = None,
 ):
     """Plain PyTorch version of the kernel, step by step as the JAX
     kernel computes it (its spec branch for ``spec > 1``: one pass, not
@@ -348,10 +469,17 @@ def decode_stack_step_plain(
     the group-32 GEMV.  ``ring`` (mode (d)): the cache is a head+ring
     buffer, masked per slot by
     :func:`~voxtral_tpu_torch.models.layers.ring_k_positions`.
+    ``k_scales`` / ``v_scales`` (mode (e)): int8 caches, integer score
+    and P.V dots (exact), k_new / v_new still bf16.  ``cache_chunk``
+    (mode (f)): the online softmax over chunks; it reads the offsets'
+    min and max on the host, which the kernel does on the device.
     """
     B, D = x.shape
-    L = k_cache.shape[0]
+    L, S = k_cache.shape[0], k_cache.shape[3]
     Bc = _spec_streams(B, k_cache.shape[1], spec)
+    _check_cache_mode(k_cache, v_cache, k_scales, v_scales, cache_chunk,
+                      spec, S)
+    new_dtype = torch.bfloat16 if k_scales is not None else k_cache.dtype
     _g32_mode(wqkv, wo, w13, w2, sqkv, so, s13, s2, lm_codes, lm_scale)
     nq, nkv = n_heads * head_dim, n_kv * head_dim
     hidden = w2.shape[2]
@@ -369,10 +497,13 @@ def decode_stack_step_plain(
         v = qkv[:, nq + nkv:].reshape(B, n_kv, head_dim)
         q = q * c + _rope_swap(q) * s
         k = k * c + _rope_swap(k) * s
-        k_new.append(k.to(k_cache.dtype))
-        v_new.append(v.to(v_cache.dtype))
-        attn = _attention_plain(q, k, v, k_cache[l], v_cache[l], offs,
-                                window, spec, n_kv, head_dim ** -0.5, ring)
+        k_new.append(k.to(new_dtype))
+        v_new.append(v.to(new_dtype))
+        attn = _attention_plain(
+            q, k, v, k_cache[l], v_cache[l], offs, window, spec, n_kv,
+            head_dim ** -0.5, ring,
+            None if k_scales is None else k_scales[l],
+            None if v_scales is None else v_scales[l], cache_chunk)
         x = x + _matmul_plain(*_quant(attn), wo[l], so[l])
 
         h = _rms(x, ffn_norms[l].float(), eps) * ada_vecs[l].float()
@@ -405,30 +536,72 @@ SMEM_LIMIT = 227 * 1024
 
 def attn_smem_bytes(S: int, head_dim: int, window: Optional[int] = None,
                     spec: int = 1,
-                    ring: Optional[tuple[int, int]] = None) -> int:
+                    ring: Optional[tuple[int, int]] = None,
+                    cache_chunk: Optional[int] = None,
+                    kv_int8: bool = False) -> int:
     """Shared memory of one attention block, as the host entry sizes it:
-    the per-warp P.V partials (f64), q, bf16(q), k, v, the spec fresh
-    scores and one score per cache slot a row may walk (the window on a
-    bounded cache, all S slots on a head+ring cache)."""
-    span = S if ring is not None or window is None or window >= S else window
-    return 8 * (ATTN_THREADS // 32) * head_dim + 4 * (4 * head_dim + spec
+    the per-warp P.V partials (f64), q, bf16(q) (or its int8 codes), k,
+    v, the spec fresh scores (and fresh v scales in the int8 / chunked
+    kernel) and one score per cache slot a pass may hold: the chunk in
+    mode (f), else the window on a bounded cache and all S slots on a
+    head+ring cache."""
+    if cache_chunk:
+        span = cache_chunk
+    else:
+        span = (S if ring is not None or window is None or window >= S
+                else window)
+    fresh = (2 if cache_chunk or kv_int8 else 1) * spec
+    return 8 * (ATTN_THREADS // 32) * head_dim + 4 * (4 * head_dim + fresh
                                                       + span)
+
+
+def _check_chunk(S: int, cache_chunk: Optional[int], spec: int) -> None:
+    """Mode (f)'s guards (``decode_step_pallas.py:1404-1405``,
+    ``:1449-1451``): no spec, and the chunk divides S."""
+    if cache_chunk is None:
+        return
+    if spec > 1:
+        raise ValueError("speculative decode + cache_chunk unsupported")
+    if cache_chunk < 1 or S % cache_chunk:
+        raise ValueError(
+            f"cache_chunk {cache_chunk} must divide S {S} (pad the cache)")
 
 
 def check_geometry(S: int, head_dim: int, window: Optional[int] = None,
                    spec: int = 1,
-                   ring: Optional[tuple[int, int]] = None) -> None:
+                   ring: Optional[tuple[int, int]] = None,
+                   cache_chunk: Optional[int] = None,
+                   kv_int8: bool = False) -> None:
     """ValueError naming the cause when the kernel cannot take a cache of
-    S slots (its score buffer lives in one block's shared memory)."""
-    need = attn_smem_bytes(S, head_dim, window, spec, ring)
+    S slots: its score buffer lives in one block's shared memory (S or
+    the window's floats; ``cache_chunk`` floats in mode (f), whatever
+    S)."""
+    _check_chunk(S, cache_chunk, spec)
+    need = attn_smem_bytes(S, head_dim, window, spec, ring, cache_chunk,
+                           kv_int8)
     _require(need <= SMEM_LIMIT,
              f"a cache of {S} slots (window {window}, ring {ring}, "
-             f"spec={spec}) needs {need} bytes of shared memory per "
-             f"attention block, above the {SMEM_LIMIT} a block may hold")
+             f"spec={spec}, cache_chunk={cache_chunk}) needs {need} bytes "
+             f"of shared memory per attention block, above the "
+             f"{SMEM_LIMIT} a block may hold")
     if ring is not None:
         head, size = ring
         _require(head >= 0 and size >= 1 and head + size <= S,
                  f"ring {ring} does not fit a cache of {S} slots")
+
+
+def _check_cache_mode(k_cache, v_cache, k_scales, v_scales, cache_chunk,
+                      spec: int, S: int) -> None:
+    """The JAX wrapper's guards for modes (f) and (e)
+    (``decode_step_pallas.py:1480-1482`` for the latter)."""
+    _check_chunk(S, cache_chunk, spec)
+    int8 = k_cache.dtype == torch.int8
+    if int8 != (v_cache.dtype == torch.int8):
+        raise ValueError("k_cache and v_cache must share a dtype")
+    if int8 and (k_scales is None or v_scales is None):
+        raise ValueError("int8 KV cache needs k_scales/v_scales")
+    if not int8 and (k_scales is not None or v_scales is not None):
+        raise ValueError("k_scales/v_scales need int8 caches")
 
 
 def _g32_mode(wqkv, wo, w13, w2, sqkv, so, s13, s2, lm_codes,
@@ -464,9 +637,11 @@ def decode_stack_step(
     k_cache, v_cache,
     wqkv, wo, w13, w2,
     final_norm=None, lm_codes=None, lm_scale=None,
+    k_scales=None, v_scales=None,
     *, n_heads: int, n_kv: int, head_dim: int, eps: float,
     window: Optional[int] = None, spec: int = 1,
     ring: Optional[tuple[int, int]] = None,
+    cache_chunk: Optional[int] = None,
 ):
     """All decoder layers of one decode step (+ lm fold).
 
@@ -482,6 +657,12 @@ def decode_stack_step(
     select mode (h).  ``ring=(head, size)`` (mode (d)): the caches are
     head+ring buffers and ``offset`` the absolute position (any
     non-negative int or tensor; slots by ``layers.ring_k_positions``).
+    int8 caches with ``k_scales`` / ``v_scales`` [L, Bc, Hkv, S] f32
+    (mode (e)): the caller quantizes k_new / v_new (bf16) with
+    :func:`quantize_kv` and appends codes and scales.
+    ``cache_chunk=Sc`` (mode (f); Sc divides S, spec = 1): the attention
+    walks the cache in chunks of Sc slots, so S is not bounded by shared
+    memory.
     Returns (x_out, k_new, v_new[, logits]) like
     :func:`decode_stack_step_plain`, k_new / v_new [L, B, Hkv, hd]; the
     caller appends them.
@@ -491,9 +672,9 @@ def decode_stack_step(
     """
     args = (x, offset, attn_norms, ffn_norms, ada_vecs, sqkv, so, s13, s2,
             cos_p, sin_p, k_cache, v_cache, wqkv, wo, w13, w2,
-            final_norm, lm_codes, lm_scale)
+            final_norm, lm_codes, lm_scale, k_scales, v_scales)
     kw = dict(n_heads=n_heads, n_kv=n_kv, head_dim=head_dim, eps=eps,
-              window=window, spec=spec, ring=ring)
+              window=window, spec=spec, ring=ring, cache_chunk=cache_chunk)
     dev = x.device
     if dev.type == "cpu":
         return decode_stack_step_plain(*args, **kw)
@@ -519,13 +700,19 @@ def decode_stack_step(
     _require(isinstance(offset, int) and 0 <= offset <= hi,
              f"offset must be an int in [0, {hi}] or a tensor, got "
              f"{offset!r}")
-    check_geometry(S, head_dim, window, spec, ring)
+    _check_cache_mode(k_cache, v_cache, k_scales, v_scales, cache_chunk,
+                      spec, S)
+    kv_int8 = k_scales is not None
+    check_geometry(S, head_dim, window, spec, ring, cache_chunk, kv_int8)
+    _require(not kv_int8 or head_dim % 4 == 0,
+             "the int8 cache needs head_dim % 4 == 0")
     _require(Hkv == n_kv and hd == head_dim,
              f"cache {tuple(k_cache.shape)} does not match n_kv={n_kv}, "
              f"head_dim={head_dim}")
     _require(head_dim % 2 == 0 and head_dim <= 256 and n_heads % n_kv == 0,
              "head_dim must be even and <= 256, n_kv must divide n_heads")
     rope_shape = (head_dim,) if cos_p.dim() == 1 else (B, head_dim)
+    cache_dtype = torch.int8 if kv_int8 else torch.bfloat16
     # Row scales [L, N] f32 (w8) or group scales [L, N, K/32] f16 (g32).
     sdt = torch.float16 if g32 else torch.float32
 
@@ -543,13 +730,16 @@ def decode_stack_step(
         "s2": (s2, sdt, sshape(D, F)),
         "cos_p": (cos_p, torch.float32, rope_shape),
         "sin_p": (sin_p, torch.float32, rope_shape),
-        "k_cache": (k_cache, torch.bfloat16, (L, Bc, n_kv, S, head_dim)),
-        "v_cache": (v_cache, torch.bfloat16, (L, Bc, n_kv, S, head_dim)),
+        "k_cache": (k_cache, cache_dtype, (L, Bc, n_kv, S, head_dim)),
+        "v_cache": (v_cache, cache_dtype, (L, Bc, n_kv, S, head_dim)),
         "wqkv": (wqkv, torch.int8, (L, nq + 2 * nkvd, D)),
         "wo": (wo, torch.int8, (L, D, nq)),
         "w13": (w13, torch.int8, (L, 2 * F, D)),
         "w2": (w2, torch.int8, (L, D, F)),
     }
+    if kv_int8:
+        expect["k_scales"] = (k_scales, torch.float32, (L, Bc, n_kv, S))
+        expect["v_scales"] = (v_scales, torch.float32, (L, Bc, n_kv, S))
     V = 0
     if lm_codes is not None:
         V = lm_codes.shape[0]
@@ -581,7 +771,7 @@ def decode_stack_step(
         return None if t is None else t.data_ptr()
 
     ring_head, ring_size = ring if ring is not None else (0, 0)
-    fn = kernel_fn("vx_decode_stack_step", [_P] * 29 + [_I] * 16
+    fn = kernel_fn("vx_decode_stack_step", [_P] * 31 + [_I] * 17
                    + [_F, _F, _P])
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = fn(
@@ -591,10 +781,10 @@ def decode_stack_step(
         ptr(final_norm), ptr(lm_codes), ptr(lm_scale),
         ptr(k_new), ptr(v_new), ptr(logits),
         ptr(xq_buf), ptr(sx_buf), ptr(qkv_buf), ptr(attn_buf), ptr(up_buf),
-        ptr(offs), B, D, L, S, n_heads, n_kv, head_dim, F, V, offset, spec,
-        0 if cos_p.dim() == 1 else head_dim,
+        ptr(offs), ptr(k_scales), ptr(v_scales), B, D, L, S, n_heads, n_kv,
+        head_dim, F, V, offset, spec, 0 if cos_p.dim() == 1 else head_dim,
         -1 if window is None else int(window), int(g32), ring_head,
-        ring_size, eps, head_dim ** -0.5, stream)
+        ring_size, int(cache_chunk or 0), eps, head_dim ** -0.5, stream)
     check(code, "decode_stack_step")
     decode_stack_step.launches += 1
     out = (x_out, k_new, v_new)

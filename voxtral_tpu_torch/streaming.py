@@ -1,5 +1,6 @@
-"""Real-time incremental transcription: the solo live session (port of
-``voxtral_tpu/streaming.py::StreamingSession``).
+"""Real-time incremental transcription: the live session and the pool
+that batches sessions (port of ``voxtral_tpu/streaming.py``:
+``StreamingSession`` and ``StreamPool``).
 
 Audio is fed in pieces of any size; text comes back with the model's
 native delay.  Each step recomputes the conv over an overlapping mel
@@ -28,11 +29,22 @@ loops on the model's device; tokens reach the host once per
 one bool to decide whether another is needed.  ``unbounded=True`` lays
 both caches out as head+ring buffers (a permanent 38-position prefix
 head and a ring covering the sliding window), so a session runs until
-the RoPE table ends (16384 decoder positions, ~43 min).
+the RoPE table ends (16384 decoder positions of 160 ms, ~43.7 min).
+
+:class:`StreamPool` steps up to ``max_streams`` sessions together: one
+batched encoder pass (every linear sees B x 4P rows) and P K1 steps with
+per-row offsets, RoPE and ring phases, so the streams share each pass
+over the weights.  Its decoder caches are head-major [L, B, Hkv, S, hd],
+bf16 or int8 with per-vector scales (K1 mode (e)), resident or walked in
+chunks of ``CACHE_CHUNK`` slots (mode (f)), as the ladder of
+``kv_dtype`` selects; ``speculative=K`` verifies K drafts per slot and
+pass.  A pool on a model with fused weights runs K1 and nothing else: a
+geometry no rung admits raises in the constructor.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -65,8 +77,8 @@ from voxtral_tpu_torch.models.layers import (
 from voxtral_tpu_torch.models.voxtral import (
     PREFIX_LEN,
     VoxtralModel,
-    _not_ported,
     append_rows,
+    append_scales,
     check_draft,
     fused_step_fn,
     make_prefix_ids,
@@ -78,11 +90,14 @@ from voxtral_tpu_torch.models.voxtral import (
 )
 from voxtral_tpu_torch.ops import decode_step as k1
 from voxtral_tpu_torch.tokenizer import STREAMING_PAD, VoxtralTokenizer
-from voxtral_tpu_torch.utils.hbm import check_hbm
+from voxtral_tpu_torch.utils.hbm import HBMBudgetError, check_hbm
 
 MEL_HOP = 160
 MEL_MARGIN = 4  # STFT frames of margin so window-interior frames are exact
 SAMPLES_PER_POSITION = 2560  # 16 mel frames
+# Chunk of the pool's chunked cache rungs (K1 mode (f), ``cache_chunk=``):
+# such a cache rounds up to a multiple of it.
+CACHE_CHUNK = 512
 
 
 def _mel_frames_needed(last_frame: int) -> int:
@@ -98,9 +113,826 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+# ---------------------------------------------------------------------------
+# Steps shared by the solo session and the pool's slots
+# ---------------------------------------------------------------------------
+
+
+def _conv(model: VoxtralModel, mel: np.ndarray) -> torch.Tensor:
+    """Conv downsampler over mel windows [B, n_mels, W] -> [B, W / 4, D]."""
+    mel = model._cast_mel(mel)
+    return conv_downsample(mel, model.params["encoder"]["conv"]).transpose(
+        1, 2)
+
+
+def _encode(model: VoxtralModel, x: torch.Tensor, cache: KVCache, rope,
+            ring):
+    """Encoder layers over new conv frames x [B, n, D] (appended to the
+    encoder cache, per row when ``cache.length`` is a tensor) + adapter
+    -> (audio embeds [B, n / 4, D], cache)."""
+    cfg, params = model.config, model.params
+    hidden, cache = encoder_layers_with_cache(
+        params["encoder"], x, cache, cfg.audio_encoder, rope, ring=ring,
+        mm=model._mm)
+    audio = adapter_forward(
+        params["adapter"],
+        reshape_encoder_output(hidden, cfg.downsample_factor), model._mm)
+    return audio, cache
+
+
+def _decode_per_op(model: VoxtralModel, inputs: torch.Tensor,
+                   prev: torch.Tensor, cache: KVCache, t_embed, rope, ring,
+                   record):
+    """Greedy decode of len(inputs) positions, the decoder op by op over
+    a position-major cache (JAX ``_decode_scan``); inputs [1, n, D] are
+    the audio embeds of input positions.  ``record(tokens, logits)``
+    queues each token; -> (the last token, cache)."""
+    dec, lm = model.params["decoder"], model.config.language_model
+    for i in range(inputs.shape[1]):
+        text = embed_tokens(dec, prev.long()[:, None])
+        hidden, cache = decoder_forward_hidden_with_cache(
+            dec, inputs[:, i:i + 1] + text, t_embed, cache, lm, rope,
+            model._mm, ring=ring)
+        logits = lm_head(dec, hidden[:, 0], mm=model._mm)
+        prev = select_token(logits)
+        record(prev, logits)
+    return prev, cache
+
+
+def _init_step(model: VoxtralModel, P: int, mel0: np.ndarray, t_embed,
+               encode, ring_head: Optional[int], dec_cache: KVCache, dec_rope,
+               dec_ring, record):
+    """The first step of a stream, solo or in a pool's slot: encoder
+    frames [0, 4 n), the 38-position prefill, the first token and
+    positions 39 .. n - 1 (n = 38 + P); mel0 covers frames
+    [0, 16 n + 8) so the last conv frame has its lookahead.
+    ``encode(x)`` appends conv frames to the stream's encoder cache and
+    returns their audio embeds; ``ring_head`` the encoder ring's head
+    (None: bounded).  The decoder cache is batch-1 and position-major,
+    written in place.  -> (last token, last audio embed, dec_cache)."""
+    n = PREFIX_LEN + P
+    dec = model.params["decoder"]
+    x = _conv(model, mel0)[:, :4 * n]
+    if ring_head is None:
+        audio = encode(x)
+    else:
+        # A ring write must fit one region: the first 4 x 38 frames fill
+        # the permanent head, the rest start the ring (two cached calls
+        # compute what one does).
+        audio = torch.cat([encode(x[:, :ring_head]),
+                           encode(x[:, ring_head:])], dim=1)
+    prefix = torch.as_tensor(make_prefix_ids(), device=x.device).long()
+    hidden, dec_cache = decoder_forward_hidden_with_cache(
+        dec, audio[:, :PREFIX_LEN] + embed_tokens(dec, prefix[None]),
+        t_embed, dec_cache, model.config.language_model, dec_rope,
+        model._mm, ring=dec_ring)
+    logits = lm_head(dec, hidden[:, -1], mm=model._mm)
+    first = select_token(logits)
+    record(first, logits)
+    last, dec_cache = _decode_per_op(model, audio[:, PREFIX_LEN:-1], first,
+                                     dec_cache, t_embed, dec_rope, dec_ring,
+                                     record)
+    return last, audio[:, -1:], dec_cache
+
+
+# ---------------------------------------------------------------------------
+# The pool
+# ---------------------------------------------------------------------------
+
+
+def _rung_refusal(model: VoxtralModel, batch: int, cache_s: int,
+                  itemsize: Optional[int], chunk: Optional[int],
+                  spec: int) -> Optional[str]:
+    """Why K1 cannot run ``batch`` rows over ``cache_s``-slot caches of
+    this kind, or None: the attention block's shared memory
+    (``check_geometry``; a chunked walk holds ``chunk`` scores, a
+    resident one up to ``cache_s``) and the card's memory for the rung's
+    decoder caches, scale planes and init slot (``check_hbm``)."""
+    lm = model.config.language_model
+    streams = batch // spec
+    per_slot = lm.n_layers * lm.n_kv_heads * cache_s
+    nbytes = 2 * per_slot * (
+        streams * (lm.head_dim * (itemsize or 2)
+                   + (4 if itemsize == 1 else 0))
+        + lm.head_dim * 2)
+    try:
+        k1.check_geometry(cache_s, lm.head_dim, None, spec, None, chunk,
+                          itemsize == 1)
+        check_hbm(model, nbytes, f"a pool of {streams} streams", streams)
+    except (ValueError, HBMBudgetError) as e:
+        return str(e)
+    return None
+
+
+def _fused_plan(model: VoxtralModel, batch: int, cache_s: int,
+                itemsize: Optional[int] = None, chunk: Optional[int] = None,
+                spec: int = 1):
+    """K1 decode plan ({"w": the fused stacks}) for ``batch`` rows and a
+    ``cache_s``-slot cache; refused, the reason (a str,
+    :func:`_rung_refusal`); None when the model carries no fused
+    weights.  ``itemsize=1`` evaluates the int8 KV cache, ``chunk`` the
+    chunked walk.  The pool's ladder asks it rung by rung; a test forces
+    a rung by replacing it (a replacement may refuse with None)."""
+    if model.fused_decode is None:
+        return None
+    why = _rung_refusal(model, batch, cache_s, itemsize, chunk, spec)
+    return why if why else {"w": model.fused_decode}
+
+
+def _ring_remap(src: np.ndarray, head: int, src_size: int, dst_size: int,
+                written: int) -> np.ndarray:
+    """Re-lay a head+ring cache onto another ring size.
+
+    ``src`` is [L, 1, head + src_size, H, hd].  Position p >= head lives
+    at slot head + (p - head) % size.  Only the last min(src_size,
+    dst_size) positions survive: both rings cover the window + P, so
+    every position a later query can reach is kept; older target slots
+    stay zero and lie outside every window."""
+    out_shape = list(src.shape)
+    out_shape[2] = head + dst_size
+    dst = np.zeros(out_shape, src.dtype)
+    dst[:, :, :head] = src[:, :, :head]
+    lo = max(head, written - min(src_size, dst_size))
+    ps = np.arange(lo, written)
+    if ps.size:
+        dst[:, :, head + (ps - head) % dst_size] = \
+            src[:, :, head + (ps - head) % src_size]
+    return dst
+
+
+def _host_f32(a) -> np.ndarray:
+    """A checkpoint array (numpy f32 / bf16, or a tensor) as f32 numpy."""
+    if not isinstance(a, torch.Tensor):
+        a = to_torch(np.asarray(a), "cpu")
+    return a.detach().float().cpu().numpy()
+
+
+class StreamPool:
+    """Steps concurrent streaming sessions together (port of the JAX
+    ``StreamPool``, single device).
+
+    The pool owns the caches of ``max_streams`` slots; sessions attach
+    to free slots (``StreamingSession(model, pool=pool)``) and their
+    steady steps run as one batch: the encoder over B windows at once,
+    then P decode positions.  A slot that is not ready rides the pass
+    masked: bounded, its cache writes go to the sacrificial slots past
+    ``max_dec`` / ``max_enc``; unbounded, to its own next slots (not yet
+    valid, or already outside the window, and overwritten by its next
+    real step); its tokens are dropped and its feedback state kept.
+
+    With fused weights (w8, q4g) the decode half is K1 with per-row
+    offsets and RoPE (mode (c)), per-row ring phases (d), int8 KV (e)
+    and / or the chunked cache (f) as ``kv_dtype`` and the ladder pick
+    them; the decoder caches are head-major [L, B, Hkv, S, hd].  No rung
+    admitted is an error, not a fall-back.  Models without fused weights
+    (packed q4) take the per-op step slot by slot.
+    """
+
+    def __init__(
+        self,
+        model: VoxtralModel,
+        max_streams: int = 4,
+        step_positions: int = 8,
+        max_duration_s: float = 120.0,
+        delay_tokens: float = 6.0,
+        unbounded: bool = False,
+        kv_dtype: str = "auto",
+        speculative: int = 0,
+        draft_token: int = STREAMING_PAD,
+        draft: str = "pad",
+    ):
+        """``kv_dtype``: "model" (bf16 caches), "int8" (per-vector int8
+        codes + f32 scales: half the cache bytes K1 reads and the card
+        holds) or "auto" (bf16 if a rung admits it, else int8); each
+        tries the resident cache first, then the chunked one
+        (``CACHE_CHUNK`` slots a chunk, the cache rounded up to it).
+        ``speculative=K >= 2``: every pass verifies K drafted tokens per
+        slot (K1 ``spec=K``; rows (slot, draft) share the slot's cache),
+        each slot advancing by its own accepted count; exact greedy
+        tokens; resident rungs only (a chunked walk requantizes per
+        chunk, which the fresh rows cannot join).  ``unbounded=True``:
+        head+ring caches, a slot runs until the RoPE table ends."""
+        check_draft(draft)
+        self.model = model
+        self.cfg = model.config
+        self.B = max_streams
+        self.P = step_positions
+        self.max_duration_s = max_duration_s
+        self.delay_tokens = delay_tokens
+        self.unbounded = unbounded
+        self.speculative = int(speculative or 0)
+        self._draft_token = int(draft_token)
+        self.draft = draft
+        if self.speculative > self.P:
+            raise ValueError(
+                f"speculative={self.speculative} must be <= "
+                f"step_positions={self.P}")
+        lm, enc = self.cfg.language_model, self.cfg.audio_encoder
+        dev = model.device
+        if unbounded:
+            gran = 4 * self.P
+            self._dec_ring = (PREFIX_LEN, lm.sliding_window + self.P)
+            self._enc_ring = (4 * PREFIX_LEN,
+                              -(-(enc.sliding_window + gran) // gran) * gran)
+            self.max_dec = DECODER_ROPE_MAX_SEQ  # the RoPE table's bound
+            s_dec, s_enc = sum(self._dec_ring), sum(self._enc_ring)
+            rope_positions = DECODER_ROPE_MAX_SEQ
+        else:
+            self._dec_ring = self._enc_ring = None
+            self.max_dec = (int(max_duration_s * 6.25) + PREFIX_LEN
+                            + 2 * self.P)
+            # One write granule of sacrificial slots for masked steps;
+            # a speculative pass can overshoot by up to 2K - 2 more (a
+            # slot that finished keeps appending at its frozen position
+            # + the draft offsets until every slot reaches P).
+            s_dec = self.max_dec + self.P + 2 * self.speculative
+            s_enc = 4 * self.max_dec + 4 * self.P
+            rope_positions = self.max_dec
+        self.max_enc = 4 * self.max_dec
+
+        # The cache ladder, each rung (itemsize, chunk): resident first,
+        # then chunked (shared memory no longer bounds S).
+        spec = max(1, self.speculative)
+        if kv_dtype not in ("auto", "model", "int8"):
+            raise ValueError(
+                f"kv_dtype must be 'auto', 'model' or 'int8', got "
+                f"{kv_dtype!r}")
+        if spec > 1:
+            ladder = {"model": [(None, None)], "int8": [(1, None)],
+                      "auto": [(None, None), (1, None)]}[kv_dtype]
+        else:
+            ladder = {"int8": [(1, None), (1, CACHE_CHUNK)],
+                      "model": [(None, None), (None, CACHE_CHUNK)],
+                      "auto": [(None, None), (1, None),
+                               (1, CACHE_CHUNK)]}[kv_dtype]
+        self.cache_int8 = False
+        self._cache_chunk = None
+        self._fused = None
+        if model.fused_decode is None:
+            if spec > 1:
+                raise ValueError(
+                    "speculative pools need the fused K1 step (w8 or q4g "
+                    f"weights); this model decodes {model.decode_route}")
+        else:
+            refused = []
+            for item, chunk in ladder:
+                s_try = s_dec if chunk is None else -(-s_dec // chunk) * chunk
+                plan = _fused_plan(model, self.B * spec, s_try, itemsize=item,
+                                   chunk=chunk, spec=spec)
+                if isinstance(plan, dict):
+                    self._fused = plan
+                    self.cache_int8 = item == 1
+                    self._cache_chunk = chunk
+                    s_dec = s_try
+                    if chunk is not None and unbounded:
+                        # The ring grows to the padded S: a ring above
+                        # window + P is fine (the window bound masks the
+                        # older entries).
+                        self._dec_ring = (PREFIX_LEN, s_dec - PREFIX_LEN)
+                    break
+                refused.append(
+                    f"{'int8' if item == 1 else 'bf16'} cache, "
+                    f"{'resident' if chunk is None else f'chunks of {chunk}'}"
+                    f", {s_try} slots: {plan or 'refused by _fused_plan'}")
+            if self._fused is None:
+                # No per-op fall-back for a model with fused weights.
+                raise ValueError(
+                    f"StreamPool(max_streams={self.B}, unbounded="
+                    f"{unbounded}, kv_dtype={kv_dtype!r}, speculative="
+                    f"{self.speculative}): K1 can take no rung of the "
+                    "cache ladder -- " + "; ".join(refused))
+        self._s_dec, self._s_enc = s_dec, s_enc
+
+        # Admission from the exact shapes allocated below.
+        cds = 2  # bf16
+        shape_e = (enc.n_layers, self.B, s_enc, enc.n_kv_heads, enc.head_dim)
+        cache_bytes = 2 * math.prod(shape_e) * cds
+        per_slot = 2 * lm.n_layers * lm.n_kv_heads * s_dec
+        if self._fused is not None:
+            cache_bytes += per_slot * self.B * lm.head_dim * (
+                1 if self.cache_int8 else cds)
+            if self.cache_int8:
+                cache_bytes += per_slot * self.B * 4
+            cache_bytes += per_slot * lm.head_dim * cds  # the init slot
+        else:
+            cache_bytes += per_slot * self.B * lm.head_dim * cds
+        self.cache_bytes = cache_bytes
+        check_hbm(model, cache_bytes,
+                  f"StreamPool(max_streams={self.B}, unbounded={unbounded}, "
+                  f"kv_dtype={kv_dtype!r})", rows=self.B)
+
+        cdt = torch.bfloat16
+        # Encoder caches [L, B, S, H, hd]: a slot is the batch-1 view
+        # [:, b:b + 1] (JAX keeps [B, L, 1, S, H, hd] and vmaps).
+        self.enc_k = torch.zeros(shape_e, dtype=cdt, device=dev)
+        self.enc_v = torch.zeros(shape_e, dtype=cdt, device=dev)
+        self.dec_ks = self.dec_vs = None
+        self._init_dec_zero = None
+        if self._fused is not None:
+            shape_f = (lm.n_layers, self.B, lm.n_kv_heads, s_dec, lm.head_dim)
+            fdt = torch.int8 if self.cache_int8 else cdt
+            self.dec_k = torch.zeros(shape_f, dtype=fdt, device=dev)
+            self.dec_v = torch.zeros(shape_f, dtype=fdt, device=dev)
+            if self.cache_int8:
+                self.dec_ks = torch.zeros(shape_f[:4], device=dev)
+                self.dec_vs = torch.zeros(shape_f[:4], device=dev)
+            # The position-major cache every slot's init step runs in:
+            # an init writes slots [0, 38 + P) and reads nothing it did
+            # not write, so the slot is shared and the rest stays zero.
+            self._init_dec_zero = create_cache(lm, 1, s_dec, cdt, dev)
+            with torch.no_grad():
+                ada = k1.ada_vectors(model.params["decoder"],
+                                     model.t_embed(delay_tokens), model._mm)
+            self._run_step = fused_step_fn(
+                model.params["decoder"], self._fused["w"], ada, lm,
+                model._mm, model._step)
+        else:
+            shape_d = (self.B, lm.n_layers, 1, s_dec, lm.n_kv_heads,
+                       lm.head_dim)
+            self.dec_k = torch.zeros(shape_d, dtype=cdt, device=dev)
+            self.dec_v = torch.zeros(shape_d, dtype=cdt, device=dev)
+        self.prev_tok = torch.zeros(self.B, dtype=torch.int32, device=dev)
+        self.prev_audio = torch.zeros((self.B, 1, lm.dim),
+                                      dtype=model.compute_dtype, device=dev)
+        self._enc_rope = rope_tables(enc.head_dim, 4 * rope_positions,
+                                     enc.rope_theta, device=dev)
+        self._dec_rope = rope_tables(lm.head_dim, rope_positions,
+                                     lm.rope_theta, device=dev)
+        self._t_embed = model.t_embed(delay_tokens)
+        # One bigram draft table shared by the slots (streams of one pool
+        # mostly speak one language; exactness never depends on a draft).
+        self._draft_table = None
+        self._spec_stats = None
+        if spec > 1:
+            self._spec_stats = torch.zeros(2, dtype=torch.int64, device=dev)
+            if draft == "ngram":
+                self._draft_table = ngram_table_init(
+                    lm.vocab_size, self._draft_token, device=dev)
+        self.sessions: list[Optional["StreamingSession"]] = [None] * self.B
+
+    # -- slots ---------------------------------------------------------------
+
+    def attach(self, session: "StreamingSession") -> int:
+        for b in range(self.B):
+            if self.sessions[b] is None:
+                self.sessions[b] = session
+                return b
+        raise RuntimeError(f"stream pool full ({self.B} slots)")
+
+    def detach(self, slot: int) -> None:
+        self.sessions[slot] = None
+
+    @property
+    def free_slots(self) -> int:
+        return sum(1 for s in self.sessions if s is None)
+
+    def _recorder(self):
+        """(record(tokens, logits), result() -> (tokens, margins or None))
+        for steps that emit one token at a time."""
+        toks, marg = [], []
+        keep = self.model.record_margins
+
+        def record(t, logits):
+            toks.append(t.reshape(-1))
+            if keep:
+                marg.append(top2_margin(logits).reshape(-1))
+
+        return record, lambda: (torch.cat(toks),
+                                torch.cat(marg) if keep else None)
+
+    def _enc_slot(self, b: int, length: int) -> KVCache:
+        return KVCache(self.enc_k[:, b:b + 1], self.enc_v[:, b:b + 1], length)
+
+    # -- slot checkpoints ----------------------------------------------------
+
+    def _solo_geometry(self) -> tuple[int, int]:
+        """(solo max_dec, solo decoder ring size) a checkpoint of this
+        pool is laid out for: what ``StreamingSession.__init__`` builds
+        (the pool's ring may be chunk-grown, its bounded caches carry
+        the sacrificial granule)."""
+        if self.unbounded:
+            ring = self.cfg.language_model.sliding_window + self.P
+            return PREFIX_LEN + ring, ring
+        return self.max_dec, 0
+
+    def slot_state(self, sess: "StreamingSession") -> dict:
+        """Snapshot of one pooled session in the solo layout
+        (position-major caches, solo geometry), so
+        ``StreamingSession.restore`` rebuilds it solo or in another
+        pool, in either package.  int8 caches are dequantized on the way
+        out; the requantization on the way into an int8 pool is exact
+        (each vector's largest element maps to +-127, so scale and codes
+        come back)."""
+        b = sess._slot
+        p0 = sess._positions_done
+        solo_max_dec, solo_ring = self._solo_geometry()
+        enc_k = _to_numpy(self.enc_k[:, b:b + 1])  # [L, 1, s_enc, H, hd]
+        enc_v = _to_numpy(self.enc_v[:, b:b + 1])
+        if self._fused is not None:
+            km, vm = self.dec_k[:, b].float(), self.dec_v[:, b].float()
+            if self.cache_int8:
+                km = km * self.dec_ks[:, b][..., None]
+                vm = vm * self.dec_vs[:, b][..., None]
+            dk = _to_numpy(km.transpose(1, 2)[:, None])  # [L, 1, S, H, hd]
+            dv = _to_numpy(vm.transpose(1, 2)[:, None])
+        else:
+            dk, dv = _to_numpy(self.dec_k[b]), _to_numpy(self.dec_v[b])
+        if self.unbounded:
+            if self._dec_ring[1] != solo_ring:
+                dk = _ring_remap(dk, PREFIX_LEN, self._dec_ring[1],
+                                 solo_ring, p0)
+                dv = _ring_remap(dv, PREFIX_LEN, self._dec_ring[1],
+                                 solo_ring, p0)
+        else:
+            dk, dv = dk[:, :, :solo_max_dec], dv[:, :, :solo_max_dec]
+            enc_k = enc_k[:, :, :4 * solo_max_dec]
+            enc_v = enc_v[:, :, :4 * solo_max_dec]
+        return {
+            "version": StreamingSession.CHECKPOINT_VERSION,
+            "P": self.P,
+            "unbounded": self.unbounded,
+            "max_dec": solo_max_dec,
+            "delay_tokens": self.delay_tokens,
+            "samples": np.asarray(sess._samples, np.float32),
+            "samples_base": sess._samples_base,
+            "positions_done": p0,
+            "tokens": np.asarray(sess.tokens, np.int32),
+            "text": sess._text,
+            "finished": sess._finished,
+            "prev_token": int(self.prev_tok[b]),
+            "prev_audio": _to_numpy(self.prev_audio[b][None]),
+            "enc_k": enc_k,
+            "enc_v": enc_v,
+            "enc_len": 4 * p0,
+            "dec_k": dk,
+            "dec_v": dv,
+            "dec_len": p0,
+            "endpoint_mark": sess._endpoint_mark,
+        }
+
+    def write_slot(self, b: int, state: dict) -> None:
+        """Load a solo-layout checkpoint into slot ``b`` (the inverse of
+        :meth:`slot_state`)."""
+        p0 = int(state["positions_done"])
+        dev = self.model.device
+        _, solo_ring = self._solo_geometry()
+        dk, dv = _host_f32(state["dec_k"]), _host_f32(state["dec_v"])
+        enc_k, enc_v = _host_f32(state["enc_k"]), _host_f32(state["enc_v"])
+        if self.unbounded:
+            if self._dec_ring[1] != solo_ring:
+                dk = _ring_remap(dk, PREFIX_LEN, solo_ring,
+                                 self._dec_ring[1], p0)
+                dv = _ring_remap(dv, PREFIX_LEN, solo_ring,
+                                 self._dec_ring[1], p0)
+        else:
+            def pad(a, slots):  # the sacrificial slots, zero
+                width = [(0, 0)] * a.ndim
+                width[2] = (0, slots - a.shape[2])
+                return np.pad(a, width)
+
+            dk, dv = pad(dk, self._s_dec), pad(dv, self._s_dec)
+            enc_k, enc_v = pad(enc_k, self._s_enc), pad(enc_v, self._s_enc)
+
+        def dev16(a):
+            return to_torch(a, dev).to(torch.bfloat16)
+
+        if self._fused is not None:
+            self._write_fused_slot(b, to_torch(dk, dev)[:, 0],
+                                   to_torch(dv, dev)[:, 0])
+        else:
+            self.dec_k[b], self.dec_v[b] = dev16(dk), dev16(dv)
+        self.enc_k[:, b:b + 1] = dev16(enc_k)
+        self.enc_v[:, b:b + 1] = dev16(enc_v)
+        self.prev_tok[b] = int(state["prev_token"])
+        self.prev_audio[b] = to_torch(_host_f32(state["prev_audio"]),
+                                      dev).to(self.model.compute_dtype)[0]
+
+    def _write_fused_slot(self, b: int, k: torch.Tensor,
+                          v: torch.Tensor) -> None:
+        """Position-major k / v [L, n, H, hd] (n <= S) into slot ``b``'s
+        head-major share of the fused caches, quantized per vector when
+        the caches are int8; slots past n are zeroed."""
+        n = k.shape[1]
+        km, vm = k.transpose(1, 2), v.transpose(1, 2)  # [L, H, n, hd]
+        for cache in (self.dec_k, self.dec_v, self.dec_ks, self.dec_vs):
+            if cache is not None:
+                cache[:, b, :, n:] = 0
+        if self.cache_int8:
+            (kq, ks), (vq, vs) = k1.quantize_kv(km), k1.quantize_kv(vm)
+            self.dec_k[:, b, :, :n], self.dec_v[:, b, :, :n] = kq, vq
+            self.dec_ks[:, b, :, :n], self.dec_vs[:, b, :, :n] = ks, vs
+        else:
+            self.dec_k[:, b, :, :n] = km.to(self.dec_k.dtype)
+            self.dec_v[:, b, :, :n] = vm.to(self.dec_v.dtype)
+
+    # -- steps ---------------------------------------------------------------
+
+    def _slot_init(self, b: int, sess: "StreamingSession",
+                   pending: list) -> None:
+        """The solo session's first step on slot ``b``: the encoder into
+        the slot's cache views, the decoder into the shared init slot
+        (fused pools), whose first 38 + P rows then move head-major into
+        the slot, quantized when the caches are int8."""
+        need = PREFIX_LEN + self.P
+        mel0 = sess._mel_window(0, 16 * need + 8)
+        if self._fused is not None:
+            dec0 = KVCache(self._init_dec_zero.k, self._init_dec_zero.v, 0)
+        else:
+            dec0 = KVCache(self.dec_k[b], self.dec_v[b], 0)
+        self.enc_k[:, b] = 0
+        self.enc_v[:, b] = 0
+        record, result = self._recorder()
+        enc = [self._enc_slot(b, 0)]
+
+        def encode(x):
+            audio, enc[0] = _encode(self.model, x, enc[0], self._enc_rope,
+                                    self._enc_ring)
+            return audio
+
+        last, prev_audio, dec_cache = _init_step(
+            self.model, self.P, mel0, self._t_embed, encode,
+            self._enc_ring and self._enc_ring[0], dec0, self._dec_rope,
+            self._dec_ring, record)
+        if self._fused is not None:
+            # The init wrote slots [0, need) in both layouts (a ring's
+            # head, then the start of its body).
+            self._write_fused_slot(b, dec_cache.k[:, 0, :need],
+                                   dec_cache.v[:, 0, :need])
+        else:
+            self.dec_k[b, :, :, need:] = 0
+            self.dec_v[b, :, :, need:] = 0
+        self.prev_tok[b] = last[0]
+        self.prev_audio[b] = prev_audio[0]
+        pending.append((sess, *result()))
+        sess._positions_done = need
+
+    def pump(self) -> None:
+        """Run every step that has audio, batching across the ready
+        sessions, until none can advance.  Token fetches are deferred to
+        the end (the next step's inputs live on the device), and they
+        happen even when a step raises: the positions of the finished
+        steps already advanced.  With ``model.record_margins`` the
+        sessions also get each token's top-2 logit margin."""
+        # (session, tokens, top-2 margins or None) on the device, in order
+        pending: list = []
+        try:
+            with torch.no_grad():
+                self._pump_loop(pending)
+        finally:
+            if pending:
+                flat = torch.cat([t for _, t, _ in pending]).tolist()
+                marg = (torch.cat([m for _, _, m in pending]).tolist()
+                        if pending[0][2] is not None else None)
+                at = 0
+                for sess, t, _ in pending:
+                    sess.tokens.extend(flat[at:at + t.numel()])
+                    if marg is not None:
+                        sess.margins.extend(marg[at:at + t.numel()])
+                    at += t.numel()
+
+    def _pump_loop(self, pending: list) -> None:
+        dev = self.model.device
+        while True:
+            progressed = False
+            for b, sess in enumerate(self.sessions):
+                if (sess is not None and sess._positions_done == 0
+                        and sess._available_positions()
+                        >= PREFIX_LEN + self.P):
+                    self._slot_init(b, sess, pending)
+                    progressed = True
+
+            ready = [False] * self.B
+            for b, sess in enumerate(self.sessions):
+                if sess is None or sess._positions_done == 0:
+                    continue
+                if sess._positions_done + self.P > self.max_dec:
+                    # Mark, do not raise: one overlong stream must not
+                    # stall the others.
+                    sess.overrun = True
+                    continue
+                if (sess._available_positions()
+                        >= sess._positions_done + self.P):
+                    ready[b] = True
+            if not any(ready):
+                if not progressed:
+                    return
+                continue
+
+            if self._fused is None:
+                self._pool_step(ready, pending)
+            else:
+                n_mels = self.cfg.audio.num_mel_bins
+                mel_wins = np.zeros((self.B, n_mels, 16 * self.P + 8),
+                                    np.float32)
+                if self.unbounded:
+                    # No sacrificial slots in a ring: a masked row writes
+                    # at its own next slots.
+                    done = [s._positions_done if s is not None else 0
+                            for s in self.sessions]
+                else:
+                    done = [self.max_dec] * self.B  # the sacrificial slots
+                for b, sess in enumerate(self.sessions):
+                    if ready[b]:
+                        p0 = sess._positions_done
+                        mel_wins[b] = sess._mel_window(
+                            16 * p0 - MEL_MARGIN,
+                            16 * (p0 + self.P) + MEL_MARGIN)[0]
+                        done[b] = p0
+                dec_len = torch.tensor(done, dtype=torch.int32, device=dev)
+                step = (self._pool_step_spec if self.speculative > 1
+                        else self._pool_step_fused)
+                tokens, margins = step(
+                    mel_wins, torch.tensor(ready, device=dev), dec_len)
+                for b, sess in enumerate(self.sessions):
+                    if ready[b]:
+                        pending.append((sess, tokens[b], None if margins
+                                        is None else margins[b]))
+            for b, sess in enumerate(self.sessions):
+                if ready[b]:
+                    sess._positions_done += self.P
+                    if self.unbounded:
+                        sess._trim_samples()
+
+    def _pool_step(self, ready: list, pending: list) -> None:
+        """The generic step, for a model without fused weights (packed
+        q4): each ready slot takes the solo per-op step on its own cache
+        views.  A Python loop over the slots, here and only here: the
+        per-op decoder is launch-bound at one row and has no batched
+        form in either package's kernels (JAX vmaps the same step)."""
+        for b, sess in enumerate(self.sessions):
+            if not ready[b]:
+                continue
+            p0 = sess._positions_done
+            mel = sess._mel_window(16 * p0 - MEL_MARGIN,
+                                   16 * (p0 + self.P) + MEL_MARGIN)
+            audio, _ = _encode(
+                self.model, _conv(self.model, mel)[:, 1:1 + 4 * self.P],
+                self._enc_slot(b, 4 * p0), self._enc_rope, self._enc_ring)
+            inputs = torch.cat([self.prev_audio[b:b + 1], audio[:, :-1]],
+                               dim=1)
+            record, result = self._recorder()
+            last, _ = _decode_per_op(
+                self.model, inputs, self.prev_tok[b:b + 1],
+                KVCache(self.dec_k[b], self.dec_v[b], p0), self._t_embed,
+                self._dec_rope, self._dec_ring, record)
+            self.prev_tok[b] = last[0]
+            self.prev_audio[b] = audio[0, -1:]
+            pending.append((sess, *result()))
+
+    def _encode_windows(self, mel_wins: np.ndarray, ready: torch.Tensor,
+                        dec_len: torch.Tensor) -> torch.Tensor:
+        """The encode half of a fused step: B windows in one batched pass
+        (per-row cache lengths and ring phases), the P decoder inputs
+        per slot [B, P, D]; ready slots' last embed is kept for the next
+        step."""
+        x = _conv(self.model, mel_wins)[:, 1:1 + 4 * self.P]
+        audio, _ = _encode(
+            self.model, x, KVCache(self.enc_k, self.enc_v, 4 * dec_len),
+            self._enc_rope, self._enc_ring)
+        inputs = torch.cat([self.prev_audio, audio[:, :-1]], dim=1)
+        self.prev_audio = torch.where(ready[:, None, None], audio[:, -1:],
+                                      self.prev_audio)
+        return inputs
+
+    def _cache_kw(self) -> dict:
+        kw = {}
+        if self.cache_int8:
+            kw.update(k_scales=self.dec_ks, v_scales=self.dec_vs)
+        if self._cache_chunk is not None:
+            kw.update(cache_chunk=self._cache_chunk)
+        return kw
+
+    def _append(self, k_new: torch.Tensor, v_new: torch.Tensor,
+                slots: torch.Tensor,
+                rows: Optional[torch.Tensor] = None) -> None:
+        """Fresh K / V rows [L, n, H, hd] into the fused caches at
+        ``slots`` of cache rows ``rows``, quantized per vector (codes and
+        scales) when the caches are int8."""
+        if not self.cache_int8:
+            append_rows(self.dec_k, k_new, slots, rows)
+            append_rows(self.dec_v, v_new, slots, rows)
+            return
+        (kq, ks), (vq, vs) = k1.quantize_kv(k_new), k1.quantize_kv(v_new)
+        append_rows(self.dec_k, kq, slots, rows)
+        append_rows(self.dec_v, vq, slots, rows)
+        append_scales(self.dec_ks, ks, slots, rows)
+        append_scales(self.dec_vs, vs, slots, rows)
+
+    def _slots(self, positions: torch.Tensor) -> torch.Tensor:
+        if self._dec_ring is None:
+            return positions
+        return ring_slot(positions, *self._dec_ring)
+
+    def _pool_step_fused(self, mel_wins: np.ndarray, ready: torch.Tensor,
+                         dec_len: torch.Tensor) -> torch.Tensor:
+        """One pooled step: the batched encoder, then P K1 steps over all
+        B rows, each row at its own offset, RoPE position and ring
+        phase.  -> (tokens [B, P], top-2 margins [B, P] or None); a
+        masked row's are dropped by the caller."""
+        dec, lm = self.model.params["decoder"], self.cfg.language_model
+        inputs = self._encode_windows(mel_wins, ready, dec_len)
+        prev = self.prev_tok
+        tokens, margins = [], []
+        for i in range(self.P):
+            offs = dec_len + i  # [B] absolute positions
+            text = embed_tokens(dec, prev.long()[:, None])[:, 0]
+            x = (inputs[:, i] + text).float()
+            cos, sin = k1.rope_pair_vectors(offs, lm.head_dim, lm.rope_theta)
+            _, k_new, v_new, logits = self._run_step(
+                x, offs, cos, sin, self.dec_k, self.dec_v,
+                ring=self._dec_ring, **self._cache_kw())
+            # The step reads visible slots only, and a row's slot(offs)
+            # is not one, so the append in place is safe.
+            self._append(k_new, v_new, self._slots(offs.long()))
+            prev = select_token(logits)
+            tokens.append(prev)
+            if self.model.record_margins:
+                margins.append(top2_margin(logits))
+        self.prev_tok = torch.where(ready, prev, self.prev_tok)
+        return (torch.stack(tokens, dim=1),
+                torch.stack(margins, dim=1) if margins else None)
+
+    def _pool_step_spec(self, mel_wins: np.ndarray, ready: torch.Tensor,
+                        dec_len: torch.Tensor) -> torch.Tensor:
+        """One pooled speculative step: K1 ``spec=K`` passes until every
+        ready slot has decoded P positions.  Each pass verifies K drafts
+        per slot; a slot advances by its own accepted count.  Slots that
+        finished, or are not ready, ride the passes with their position
+        frozen: their appends land at their own later positions (masked
+        by the offsets, overwritten by the next true append) and their
+        tokens in the buffer's K spare columns or, not ready, nowhere
+        that is read.  The host reads one bool per pass.  -> (tokens
+        [B, P], top-2 margins [B, P] or None)."""
+        dec, lm = self.model.params["decoder"], self.cfg.language_model
+        dev = ready.device
+        B, P, K = self.B, self.P, self.speculative
+        inputs = self._encode_windows(mel_wins, ready, dec_len)
+        # K copies of the last row keep every K-row slice in bounds.
+        inputs = torch.cat([inputs, inputs[:, -1:].expand(-1, K, -1)], dim=1)
+        rows = torch.arange(B, device=dev)
+        stream = rows.repeat_interleave(K)  # the cache row of a step row
+        slot = torch.arange(K, device=dev)
+        pos = torch.zeros(B, dtype=torch.long, device=dev)
+        prev = self.prev_tok
+        toks = torch.zeros((B, P + K), dtype=torch.int32, device=dev)
+        marg = (torch.zeros((B, P + K), device=dev)
+                if self.model.record_margins else None)
+        pad = torch.full((B, K - 1), self._draft_token, dtype=torch.int32,
+                         device=dev)
+        table = self._draft_table
+        while bool((ready & (pos < P)).any()):
+            offs = dec_len.long() + pos  # [B] per-slot absolute positions
+            drafts = (ngram_drafts(table, prev, K) if table is not None
+                      else torch.cat([prev[:, None], pad], dim=1))
+            idx = pos[:, None] + slot  # [B, K]
+            text = embed_tokens(dec, drafts.long())
+            x = (inputs[rows[:, None], idx] + text).reshape(B * K, -1)
+            at = (offs[:, None] + slot).reshape(-1)
+            cos, sin = k1.rope_pair_vectors(at, lm.head_dim, lm.rope_theta)
+            _, k_new, v_new, logits = self._run_step(
+                x.float(), offs.to(torch.int32), cos, sin, self.dec_k,
+                self.dec_v, spec=K, ring=self._dec_ring, **self._cache_kw())
+            y = select_token(logits).reshape(B, K)
+            match = (y[:, :K - 1] == drafts[:, 1:]).to(torch.int32)
+            n_acc = 1 + torch.cumprod(match, dim=1).sum(dim=1)
+            live = ready & (pos < P)
+            adv = torch.where(live, torch.minimum(n_acc, P - pos), 0)
+            # All K fresh rows of every slot go in, at offs + j.
+            self._append(k_new, v_new, self._slots(at), stream)
+            toks.scatter_(1, idx, y)
+            if marg is not None:
+                marg.scatter_(1, idx, top2_margin(logits).reshape(B, K))
+            picked = y.gather(1, (adv - 1).clamp(0, K - 1)[:, None])[:, 0]
+            prev = torch.where(adv > 0, picked, prev)
+            if table is not None:
+                # Live slots only: a masked slot's y comes from no audio.
+                ngram_train(table, drafts, y, live)
+            self._spec_stats += torch.stack([torch.ones_like(adv[0]),
+                                             adv.sum()])
+            pos = pos + adv
+        self.prev_tok = torch.where(ready, prev, self.prev_tok)
+        return toks[:, :P], None if marg is None else marg[:, :P]
+
+    def spec_metrics(self) -> Optional[dict]:
+        """The pool's speculative counters (one host read; None when
+        spec is off): ``accepted_rows`` sums the slots' advances, so
+        ``tokens_per_pass`` is the pool's aggregate (up to ready slots
+        x K)."""
+        if self.speculative <= 1:
+            return None
+        passes, accepted = self._spec_stats.tolist()
+        return {
+            "passes": passes,
+            "accepted_rows": accepted,
+            "tokens_per_pass": round(accepted / max(1, passes), 3),
+            "draft": self.draft,
+        }
+
+
 class StreamingSession:
-    """Incremental transcription over a live 16 kHz mono stream (solo:
-    one session, batch 1, on the model's device)."""
+    """Incremental transcription over a live 16 kHz mono stream, on the
+    model's device: solo (batch 1, its own caches) or, with ``pool=``,
+    in a slot of a :class:`StreamPool`, which steps it with the others."""
 
     CHECKPOINT_VERSION = 1
 
@@ -125,10 +957,10 @@ class StreamingSession:
         needs the fused route and K <= ``step_positions``.  Raises
         ValueError when K1 cannot take the cache geometry and
         :class:`~voxtral_tpu_torch.utils.hbm.HBMBudgetError` when the
-        caches would not fit the card."""
-        if pool is not None:
-            _not_ported("StreamPool (pooled streaming sessions)",
-                        "ROADMAP queue 1, item 10")
+        caches would not fit the card.  ``pool=``: the session takes a
+        free slot of the pool and its geometry, step size and delay; the
+        pool owns the caches and decodes (speculative is then the
+        pool's)."""
         check_draft(draft)
         self.model = model
         self.tokenizer = tokenizer
@@ -141,6 +973,40 @@ class StreamingSession:
         self.speculative = int(speculative or 0)
         self._draft_token = int(draft_token)
         self.draft = draft
+        self._pool = pool
+        self._slot: Optional[int] = None
+        # The audio buffer starts with the 76-token silence left pad
+        # (= exactly the 38-position prefill).
+        self._samples = np.zeros(self.pad_config.left_pad_samples(),
+                                 np.float32)
+        self._samples_base = 0  # samples trimmed from the buffer's head
+        self._positions_done = 0
+        self.tokens: list[int] = []
+        # Top-2 logit margin per token when ``model.record_margins`` is
+        # set (diagnostics for near-tie flips).
+        self.margins: list[float] = []
+        self._text = ""
+        self._finished = False
+        self._endpoint_mark = 0
+        self.overrun = False  # pooled: the stream outran the pool's caches
+        if pool is not None:
+            if speculative:
+                raise ValueError(
+                    "speculative decode is the pool's on a pooled session "
+                    "(StreamPool(speculative=K)), not the session's")
+            if unbounded and not pool.unbounded:
+                raise ValueError(
+                    "unbounded pooled sessions need an unbounded pool "
+                    "(StreamPool(unbounded=True))")
+            self.unbounded = pool.unbounded
+            self.P = pool.P
+            self._max_dec = pool.max_dec
+            # The pool's time embedding drives the decode, so its delay
+            # is the session's (word timestamps, checkpoints).
+            self._delay_tokens = pool.delay_tokens
+            self._fused = False  # the pool decodes
+            self._slot = pool.attach(self)
+            return
         lm, enc = self.cfg.language_model, self.cfg.audio_encoder
         dev = model.device
         if unbounded:
@@ -207,42 +1073,18 @@ class StreamingSession:
                 self._draft_table = ngram_table_init(
                     lm.vocab_size, self._draft_token, device=dev)
 
-        # The audio buffer starts with the 76-token silence left pad
-        # (= exactly the 38-position prefill).
-        self._samples = np.zeros(self.pad_config.left_pad_samples(),
-                                 np.float32)
-        self._samples_base = 0  # samples trimmed from the buffer's head
-        self._positions_done = 0
         self._prev_token = torch.zeros(1, dtype=torch.int32, device=dev)
         self._prev_audio = torch.zeros((1, 1, lm.dim),
                                        dtype=model.compute_dtype, device=dev)
-        self.tokens: list[int] = []
-        # Top-2 logit margin per token when ``model.record_margins`` is
-        # set (diagnostics for near-tie flips).
-        self.margins: list[float] = []
-        self._text = ""
-        self._finished = False
-        self._endpoint_mark = 0
 
     # -- steps ---------------------------------------------------------------
 
     def _encode(self, x: torch.Tensor) -> torch.Tensor:
         """Encoder layers over new conv frames x [1, n, D] (appended to
         the encoder cache) + adapter -> audio embeds [1, n / 4, D]."""
-        cfg, params = self.cfg, self.model.params
-        hidden, self.enc_cache = encoder_layers_with_cache(
-            params["encoder"], x, self.enc_cache, cfg.audio_encoder,
-            self._enc_rope, ring=self._enc_ring, mm=self.model._mm)
-        return adapter_forward(
-            params["adapter"],
-            reshape_encoder_output(hidden, cfg.downsample_factor),
-            self.model._mm)
-
-    def _conv(self, mel: np.ndarray) -> torch.Tensor:
-        """Conv downsampler over a mel window -> [1, W / 4, D]."""
-        mel = self.model._cast_mel(mel)
-        return conv_downsample(
-            mel, self.model.params["encoder"]["conv"]).transpose(1, 2)
+        audio, self.enc_cache = _encode(self.model, x, self.enc_cache,
+                                        self._enc_rope, self._enc_ring)
+        return audio
 
     def _record(self, out: list, tokens: torch.Tensor,
                 logits: torch.Tensor) -> None:
@@ -253,49 +1095,21 @@ class StreamingSession:
 
     def _decode_per_op(self, inputs: torch.Tensor, prev: torch.Tensor,
                        out: list):
-        """Greedy decode of len(inputs) positions, the decoder op by op
-        over the position-major cache (JAX ``_decode_scan``); inputs
-        [1, n, D] are the audio embeds of input positions.  Queues each
+        """:func:`_decode_per_op` over this session's cache; queues each
         token on ``out``; -> the last token."""
-        dec, lm = self.model.params["decoder"], self.cfg.language_model
-        for i in range(inputs.shape[1]):
-            text = embed_tokens(dec, prev.long()[:, None])
-            hidden, self.dec_cache = decoder_forward_hidden_with_cache(
-                dec, inputs[:, i:i + 1] + text, self._t_embed,
-                self.dec_cache, lm, self._dec_rope, self.model._mm,
-                ring=self._dec_ring)
-            logits = lm_head(dec, hidden[:, 0], mm=self.model._mm)
-            prev = select_token(logits)
-            self._record(out, prev, logits)
+        prev, self.dec_cache = _decode_per_op(
+            self.model, inputs, prev, self.dec_cache, self._t_embed,
+            self._dec_rope, self._dec_ring,
+            lambda t, lg: self._record(out, t, lg))
         return prev
 
     def _init_step(self, mel0: np.ndarray, out: list) -> None:
-        """Encoder frames [0, 4 n), the 38-position prefill, the first
-        token and positions 39 .. n - 1 (n = 38 + P); mel0 covers frames
-        [0, 16 n + 8) so the last conv frame has its lookahead."""
-        n = PREFIX_LEN + self.P
-        dec = self.model.params["decoder"]
-        x = self._conv(mel0)[:, :4 * n]
-        if self._enc_ring is None:
-            audio = self._encode(x)
-        else:
-            # A ring write must fit one region: the first 4 x 38 frames
-            # fill the permanent head, the rest start the ring (two
-            # cached calls compute what one does).
-            head = self._enc_ring[0]
-            audio = torch.cat([self._encode(x[:, :head]),
-                               self._encode(x[:, head:])], dim=1)
-        prefix = torch.as_tensor(make_prefix_ids(), device=x.device).long()
-        hidden, self.dec_cache = decoder_forward_hidden_with_cache(
-            dec, audio[:, :PREFIX_LEN] + embed_tokens(dec, prefix[None]),
-            self._t_embed, self.dec_cache, self.cfg.language_model,
-            self._dec_rope, self.model._mm, ring=self._dec_ring)
-        logits = lm_head(dec, hidden[:, -1], mm=self.model._mm)
-        first = select_token(logits)
-        self._record(out, first, logits)
-        self._prev_token = self._decode_per_op(audio[:, PREFIX_LEN:-1],
-                                               first, out)
-        self._prev_audio = audio[:, -1:]
+        """:func:`_init_step` on this session's caches."""
+        self._prev_token, self._prev_audio, self.dec_cache = _init_step(
+            self.model, self.P, mel0, self._t_embed, self._encode,
+            self._enc_ring and self._enc_ring[0], self.dec_cache,
+            self._dec_rope, self._dec_ring,
+            lambda t, lg: self._record(out, t, lg))
         if self._fused:
             # K1 reads a head-major cache: [L, 1, S, H, hd] -> [L, 1, H,
             # S, hd], once.
@@ -307,7 +1121,8 @@ class StreamingSession:
     def _steady_inputs(self, mel_win: np.ndarray) -> torch.Tensor:
         """Encode the step's 4P frames -> the decoder's P audio inputs
         (the previous step's last embed, then all but this step's last)."""
-        audio = self._encode(self._conv(mel_win)[:, 1:1 + 4 * self.P])
+        audio = self._encode(
+            _conv(self.model, mel_win)[:, 1:1 + 4 * self.P])
         inputs = torch.cat([self._prev_audio, audio[:, :-1]], dim=1)
         self._prev_audio = audio[:, -1:]
         return inputs
@@ -427,6 +1242,9 @@ class StreamingSession:
         return max(0, (max_frame - 8) // 16)
 
     def _run_ready_steps(self) -> None:
+        if self._pool is not None:
+            self._pool.pump()
+            return
         # Deferred fetches: a backlogged session runs its catch-up steps
         # back to back on the device and reads the tokens once.
         pending: list = []
@@ -536,6 +1354,9 @@ class StreamingSession:
         self._samples = np.concatenate([self._samples,
                                         np.zeros(pad, np.float32)])
         self._run_ready_steps()
+        if self._pool is not None and self._slot is not None:
+            self._pool.detach(self._slot)
+            self._slot = None
         return self._emit()
 
     @property
@@ -596,7 +1417,11 @@ class StreamingSession:
     # exactly).
 
     def state_dict(self) -> dict:
-        """Portable snapshot of the live session (host numpy)."""
+        """Portable snapshot of the live session (host numpy); a pooled
+        session's slot comes out in the solo layout
+        (:meth:`StreamPool.slot_state`)."""
+        if self._pool is not None:
+            return self._pool.slot_state(self)
         dk, dv = self.dec_cache.k, self.dec_cache.v
         if self._fused and self._positions_done > 0:
             dk, dv = dk.transpose(2, 3), dv.transpose(2, 3)  # head-major
@@ -636,14 +1461,34 @@ class StreamingSession:
         """Rebuild a live session from a :meth:`state_dict` (of either
         package) on ``model``, whose architecture must match; its decode
         route may differ (the caches are re-laid-out on entry).  Arrays
-        may be numpy (f32 or bf16) or tensors."""
-        if pool is not None:
-            _not_ported("StreamPool (pooled streaming sessions)",
-                        "ROADMAP queue 1, item 10")
+        may be numpy (f32 or bf16) or tensors.  ``pool=``: the session
+        takes a slot of that pool and the caches go into the pool's
+        (quantized anew when they are int8)."""
         if int(state["version"]) != cls.CHECKPOINT_VERSION:
             raise ValueError(
                 f"unsupported checkpoint version {state['version']}")
         P = int(state["P"])
+        if pool is not None:
+            unbounded = bool(state["unbounded"])
+            if pool.P != P or pool.unbounded != unbounded:
+                raise ValueError(
+                    f"pool geometry mismatch: checkpoint P={P} "
+                    f"unbounded={unbounded}, pool P={pool.P} "
+                    f"unbounded={pool.unbounded}")
+            if pool._solo_geometry()[0] != int(state["max_dec"]):
+                raise ValueError(
+                    f"cache geometry mismatch: checkpoint max_dec="
+                    f"{state['max_dec']}, pool normalizes to "
+                    f"{pool._solo_geometry()[0]}")
+            if float(pool.delay_tokens) != float(state["delay_tokens"]):
+                raise ValueError(
+                    f"delay_tokens mismatch: checkpoint "
+                    f"{state['delay_tokens']}, pool {pool.delay_tokens} "
+                    "(the pool's time embedding would change the output)")
+            s = cls(model, tokenizer, pool=pool)
+            s._load_host_state(state)
+            pool.write_slot(s._slot, state)
+            return s
         # __init__ derives max_dec = int(mds * 6.25) + ...; the +0.5
         # keeps int() from landing one position short under float error.
         mds = (int(state["max_dec"]) - PREFIX_LEN - 2 * P + 0.5) / 6.25
@@ -657,13 +1502,7 @@ class StreamingSession:
                 f"{state['max_dec']}, rebuilt {s._max_dec} (the "
                 "architecture differs from the checkpointed model)")
         dev = model.device
-        s._samples = np.asarray(state["samples"], np.float32)
-        s._samples_base = int(state["samples_base"])
-        s._positions_done = int(state["positions_done"])
-        s.tokens = [int(t) for t in np.asarray(state["tokens"])]
-        s._text = str(state["text"])
-        s._finished = bool(state["finished"])
-        s._endpoint_mark = int(state["endpoint_mark"])
+        s._load_host_state(state)
         s._prev_token = torch.tensor([int(state["prev_token"])],
                                      dtype=torch.int32, device=dev)
 
@@ -682,11 +1521,22 @@ class StreamingSession:
         s.dec_cache = KVCache(dk, dv, int(state["dec_len"]))
         return s
 
+    def _load_host_state(self, state: dict) -> None:
+        """The host side of a checkpoint: samples, positions, tokens."""
+        self._samples = np.asarray(state["samples"], np.float32)
+        self._samples_base = int(state["samples_base"])
+        self._positions_done = int(state["positions_done"])
+        self.tokens = [int(t) for t in np.asarray(state["tokens"])]
+        self._text = str(state["text"])
+        self._finished = bool(state["finished"])
+        self._endpoint_mark = int(state["endpoint_mark"])
+
     @classmethod
     def load(cls, model: VoxtralModel, path,
              tokenizer: Optional[VoxtralTokenizer] = None,
              pool=None) -> "StreamingSession":
-        """Restore from a :meth:`save` file (of either package)."""
+        """Restore from a :meth:`save` file (of either package), solo or
+        into a slot of ``pool``."""
         with np.load(path, allow_pickle=False) as z:
             state = {k: z[k] for k in z.files}
         for k in ("version", "P", "unbounded", "max_dec", "delay_tokens",
