@@ -37,11 +37,12 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              steps, then passes).
 6. q4      — the same weights nibble-packed: the per-op decode step, K3
              on every decoder linear and the lm_head (K3 launches ==
-             183 per step x steps + 1); tokens == the plain path.
+             183 per step x steps + 1), on the chirp's first 4 s;
+             tokens == the plain path.
 7. gguf    — a small-config GGUF and tekken.json written with the port's
              write_gguf; ``python -m voxtral_tpu_torch.cli --gguf ...
              --weight-format {q4,q4g,w8}`` on the card, each exiting 0
-             with the library path's text.
+             with the library path's text; beside them, phase 11b.
 8. stream  — live sessions (voxtral_tpu_torch.StreamingSession), each
              right after the one-shot phase whose model it reuses.  8a
              (w8): K1 mode (d), the head+ring mask, against its plain
@@ -51,7 +52,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              at a short history; a 45 s chirp fed in ragged pieces to a
              bounded (120 s) and an unbounded session, tokens against
              the same sessions through the plain versions (over the
-             first 15 s bounded and 38 s unbounded, past the encoder
+             first 10 s bounded and 38 s unbounded, past the encoder
              ring's wrap: the streams are causal), bounded
              against unbounded and the unbounded session against the
              one-shot path (near-tie rules), speculative=8 with pad and
@@ -93,6 +94,29 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              (e) on g32 weights, a B = 2 int8 pool and its geometry.  10c (q4): the generic pool, B = 2,
              on the per-op step (K3).  Every pool runs with the launch
              counters set to 0 just before and read just after.
+11. dense  — after the w8 pools: random dense weights at full width,
+             built on the card (seed 0, DENSE_SCALE).  11a (bf16): the
+             fuse is memory-neutral (memory_allocated after the build
+             within 1 % of the tree's bytes) and admission counts the
+             tree; the dense bf16 linear (cuBLAS bf16 GEMM, f32 sums)
+             timed beside the same product on f32 copies; K1 mode (g)
+             against its plain version, bit-equal and timed beside its
+             bound, at 1, 8 and 64 rows, 4 rows (c), under (d) at offset
+             16000 (S = 8238), (e) at four ring phases and (f) bounded
+             (S = 1536); the 16 s chirp sequential and with
+             speculative=8 + ngram drafts (K1 launches == steps, then
+             passes; spec == sequential; kernel == plain over 4 s); an
+             unbounded session (kernel == plain over 6 s); B = 2 pools
+             with bf16 and int8 caches (kernel == plain), the int8 pool
+             held against the bf16 one (each stream at least five
+             distinct tokens), K1 at every geometry they handed it.
+             11b (run with phase 7's processes): ``python -m
+             voxtral_tpu_torch.cli --model DIR --dtype {bfloat16,w8}`` on
+             a small SafeTensors directory the script writes (the GGUF's
+             model, random dense weights), each exiting 0 with the
+             library path's text.  11c
+             (f32): the per-op step on the chirp's first 4 s (no kernel
+             launched), RTF and peak memory.
 9. numbers — RTF, decode ms/token, the weight stream per decode step
              against its bound, passes, peak GPU memory, the sessions'
              step ms and step RTF against the step's bound, time to first
@@ -125,7 +149,9 @@ from pathlib import Path
 import numpy as np
 
 AUDIO_SECS = 16.0
-PAD_PLAIN_SECS = 4.0  # the plain-path pad-draft speculative run (w8)
+PAD_PLAIN_SECS = 3.0  # the plain-path pad-draft speculative run (w8)
+Q4G_PLAIN_SECS = 8.0  # the q4g plain paths (sequential, spec), a prefix
+Q4_SECS = 4.0         # the packed-q4 one-shot (per-op, host-bound)
 SR = 16000
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense int8 ops/s and
@@ -401,22 +427,46 @@ def check_k3(dev, card):
 
 
 def lm_fold(model):
-    """(final norm, lm codes, lm scale) of the model's K1 lm fold."""
+    """(final norm, lm codes, lm scale) of the model's K1 lm fold: the
+    w8 or g32 table, or the dense bf16 table (no scale) in mode (g)."""
     dec = model.params["decoder"]
     if model.decode_route == "q4g":
         f = model.fused_decode
         return dec["norm"].float(), f["lm_codes"], f["lm_scale"]
+    if model.decode_route == "bf16":
+        return dec["norm"].float(), dec["tok_embeddings"], None
     emb = dec["tok_embeddings"]["w8"]
     return dec["norm"].float(), emb["codes"], emb["scale"]
 
 
+def stack_tensors(fused) -> list:
+    """The four weight stacks of a fused dict, mode (g)'s segments
+    (wq / wk / wv, w1 / w3) one by one."""
+    out = []
+    for key in ("wqkv", "wo", "w13", "w2"):
+        w = fused[key]
+        out += list(w) if isinstance(w, tuple) else [w]
+    return out
+
+
+def n_stack_weights(model) -> int:
+    return sum(t.numel() for t in stack_tensors(model.fused_decode))
+
+
+def weight_ops_peak(model) -> float:
+    """The peak rate of the step's products: bf16 in mode (g), int8
+    otherwise."""
+    return BF16_FLOPS if model.decode_route == "bf16" else INT8_OPS
+
+
 def step_weight_bytes(model) -> int:
-    """Bytes of weights one K1 step streams, from the shapes: codes and
-    scales of the four stacks and of the lm table, plus the norms."""
+    """Bytes of weights one K1 step streams, from the shapes: codes (or
+    bf16 weights) and scales of the four stacks and of the lm table,
+    plus the norms."""
     fused = model.fused_decode
-    keys = ("wqkv", "sqkv", "wo", "so", "w13", "s13", "w2", "s2",
-            "attn_norm", "ffn_norm")
-    return nbytes(*(fused[k] for k in keys), *lm_fold(model)[1:])
+    keys = ("sqkv", "so", "s13", "s2", "attn_norm", "ffn_norm")
+    return nbytes(*stack_tensors(fused), *(fused[k] for k in keys),
+                  *lm_fold(model)[1:])
 
 
 def check_k1(model, dev, card, offs, spec, iters, plain_iters):
@@ -472,9 +522,9 @@ def check_k1(model, dev, card, offs, spec, iters, plain_iters):
     kv_read = sum(2 * L * cfg.n_kv_heads * o * hd * 2 for o in offl)
     moved = (wbytes + kv_read + 2 * nbytes(x) + 2 * nbytes(got[1])
              + bc * spec * n_vocab * 4)
-    n_weights = sum(fused[k].numel() for k in ("wqkv", "wo", "w13", "w2"))
+    n_weights = n_stack_weights(model)
     b_ms, b_by = bound(moved, 2 * bc * spec * (n_weights + n_vocab * D),
-                       INT8_OPS)
+                       weight_ops_peak(model))
     print(f"{tag} S={S} offsets {offl[0]}..{offl[-1]}: kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms; weights {wbytes / 1e9:.4f} GB/pass -> "
           f"{wbytes / ms / 1e6:.1f} GB/s; bound {b_ms:.4f} ms ({b_by}; "
@@ -484,11 +534,11 @@ def check_k1(model, dev, card, offs, spec, iters, plain_iters):
 
 def check_k1_modes(model, dev, card):
     """K1 at 1 row (mode a), spec=8 at 8 and 64 rows (b), 4 rows (c)."""
-    one = check_k1(model, dev, card, 235, 1, 20, 2)
-    spec8 = check_k1(model, dev, card, [235], SPEC_K, 20, 2)
+    one = check_k1(model, dev, card, 235, 1, 20, 1)
+    spec8 = check_k1(model, dev, card, [235], SPEC_K, 20, 1)
     spread = [150 + round(i * 85 / 7) for i in range(8)]  # 150 .. 235
     spec64 = check_k1(model, dev, card, spread, SPEC_K, 10, 1)
-    rows4 = check_k1(model, dev, card, [60, 120, 180, 235], 1, 20, 2)
+    rows4 = check_k1(model, dev, card, [60, 120, 180, 235], 1, 20, 1)
     print(f"K1 step ms [{model.decode_route}] [{card}]: 1 row {one[1]:.3f}, "
           f"spec={SPEC_K} 8 rows {spec8[1]:.3f}, 64 rows {spec64[1]:.3f}; 4 "
           f"rows with per-row offsets {rows4[1]:.3f}", flush=True)
@@ -692,9 +742,9 @@ def run_w8(cfg, dev, card, sig, tok):
 
 
 def report(tag, wall, enc_s, n_tok, peak, card, passes=None, n_steps=None,
-           spec_step_ms=None):
-    print(f"{tag}: RTF {wall / AUDIO_SECS:.5f} ({wall * 1e3:.1f} ms for "
-          f"{AUDIO_SECS:.0f} s audio, transcribe_samples end to end), decode "
+           spec_step_ms=None, secs=AUDIO_SECS):
+    print(f"{tag}: RTF {wall / secs:.5f} ({wall * 1e3:.1f} ms for "
+          f"{secs:.0f} s audio, transcribe_samples end to end), decode "
           f"stage {(wall - enc_s) * 1e3 / n_tok:.3f} ms/token (minus mel + "
           f"encoder + adapter {enc_s * 1e3:.1f} ms, over {n_tok} tokens, "
           f"prefill included), peak GPU memory {peak:.3f} GB [{card}]",
@@ -869,12 +919,21 @@ def run_q4g(tree, cfg, dev, card, sig, tok, n_tok):
     if launches["decode_stack_step"] != n_steps:
         fail(f"q4g: K1 launches {launches['decode_stack_step']} != decode "
              f"steps {n_steps}")
-    p_tokens, margins = plain_tokens(plain, tok, sig)
-    same = first_divergence("q4g sequential kernel vs plain", tokens,
-                            p_tokens, margins, MARGIN_TIE)
-    print(f"q4g main path: launch counts {launches}; tokens kernel == plain:"
-          f" {same} ({len(set(tokens.tolist()))} distinct; min plain top-2 "
-          f"margin {float(margins.min()):.3e})", flush=True)
+    # The kernel path's own margins judge speculative against
+    # sequential; the plain paths run the chirp's first Q4G_PLAIN_SECS.
+    model.record_margins = True
+    pipe._chunk_tokens(sig, SR)
+    margins = model.last_margins[0].copy()
+    model.record_margins = False
+    part = sig[:int(Q4G_PLAIN_SECS * SR)]
+    p_tokens, p_margins = plain_tokens(plain, tok, part)
+    same = first_divergence("q4g sequential kernel vs plain",
+                            pipe._chunk_tokens(part, SR)[0], p_tokens,
+                            p_margins, MARGIN_TIE)
+    print(f"q4g main path: launch counts {launches}; tokens kernel == plain "
+          f"over {Q4G_PLAIN_SECS:.0f} s ({len(p_tokens)} tokens): {same} "
+          f"({len(set(tokens.tolist()))} distinct; min plain top-2 margin "
+          f"{float(p_margins.min()):.3e})", flush=True)
 
     pcfg = PipelineConfig(speculative=SPEC_K, draft="ngram")
     spipe = TranscribePipeline(model, tok, pcfg)
@@ -886,9 +945,10 @@ def run_q4g(tree, cfg, dev, card, sig, tok, n_tok):
     s_tokens = s_chunks[0]
     same_seq = first_divergence("q4g speculative vs sequential", s_tokens,
                                 tokens, margins, SPEC_MARGIN_TIE)
-    ps_tokens, ps_margins = plain_tokens(plain, tok, sig, pcfg)
+    ps_tokens, ps_margins = plain_tokens(plain, tok, part, pcfg)
     same_plain = first_divergence("q4g speculative kernel vs plain",
-                                  s_tokens, ps_tokens, ps_margins, MARGIN_TIE)
+                                  spipe._chunk_tokens(part, SR)[0],
+                                  ps_tokens, ps_margins, MARGIN_TIE)
     print(f"q4g speculative K={SPEC_K} draft=ngram: launch counts {s_launch}"
           f", {passes} passes; tokens == sequential: {same_seq}, == spec "
           f"plain: {same_plain}", flush=True)
@@ -907,8 +967,10 @@ def run_q4g(tree, cfg, dev, card, sig, tok, n_tok):
                 passes=passes, model=model, plain=plain)
 
 
-def run_q4(tree, cfg, dev, card, sig, tok, n_tok):
-    """Phase 6: packed q4 weights — the per-op step on K3."""
+def run_q4(tree, cfg, dev, card, sig, tok):
+    """Phase 6: packed q4 weights — the per-op step on K3, on the
+    chirp's first Q4_SECS (the per-op step is host-bound: a longer clip
+    holds nothing more)."""
     import torch
 
     from voxtral_tpu_torch.convert import params_from_numpy
@@ -923,8 +985,11 @@ def run_q4(tree, cfg, dev, card, sig, tok, n_tok):
     plain = VoxtralModel(params, cfg, dev, kernels=False)
     lm = cfg.language_model
     pipe = TranscribePipeline(model, tok)
+    sig = sig[:int(Q4_SECS * SR)]
     wall, launches, peak, chunks = counted_run(pipe, sig, dev)
     tokens = chunks[0]
+    padded = pipe.padded_chunks(sig, SR)[0].samples
+    n_tok = model.decoder_seq_len(pipe.mel.num_frames(len(padded))) - 38
     n_steps = n_tok - 1
     per_step = 7 * lm.n_layers + 1  # decoder linears + the lm_head
     expect = per_step * n_steps + 1  # + the first-token lm_head
@@ -940,9 +1005,8 @@ def run_q4(tree, cfg, dev, card, sig, tok, n_tok):
           f"x {n_steps} + 1 = {expect}); tokens kernel == plain: {same} "
           f"({len(set(tokens.tolist()))} distinct; min plain top-2 margin "
           f"{float(margins.min()):.3e})", flush=True)
-    padded = pipe.padded_chunks(sig, SR)[0].samples
     enc_s = encode_seconds(pipe, model, padded)
-    report("q4", wall, enc_s, n_tok, peak, card)
+    report("q4", wall, enc_s, n_tok, peak, card, secs=Q4_SECS)
     dec = params["decoder"]
     leaves = [dec["layers"][g][w]["q4"] for g, ws in (
         ("attention", ("wq", "wk", "wv", "wo")),
@@ -964,9 +1028,11 @@ def run_q4(tree, cfg, dev, card, sig, tok, n_tok):
 STREAM_SECS = 45.0     # w8: past the encoder ring's wrap (~38 s)
 # How far the plain-path w8 sessions run: the unbounded one past the
 # encoder ring's wrap.
-PLAIN_BOUNDED_SECS, PLAIN_UNBOUNDED_SECS = 15.0, 38.0
+PLAIN_BOUNDED_SECS, PLAIN_UNBOUNDED_SECS = 10.0, 38.0
 Q4G_STREAM_SECS = 20.0
+Q4G_PLAIN_STREAM_SECS = 10.0  # the q4g session's plain twin, as a prefix
 Q4_STREAM_SECS = 8.0
+Q4_PLAIN_STREAM_SECS = 5.0  # the q4 session's plain twin, as a prefix
 P_STEP = 8             # decoder positions per steady step (1.28 s)
 # K1 mode (d) at full width: (offset, spec) — before any wrap, the last
 # slot before it, wrapped, wrapped with the head outside the window, and
@@ -1103,7 +1169,7 @@ def check_k1_ring(model, dev, card):
     ada = k1.ada_vectors(model.params["decoder"], model.t_embed(6.0))
     wbytes = step_weight_bytes(model)
     n_vocab = lm_fold(model)[1].shape[0]
-    n_weights = sum(fused[k].numel() for k in ("wqkv", "wo", "w13", "w2"))
+    n_weights = n_stack_weights(model)
     timed = {(16000, 1), (100, 1), (16000, SPEC_K)}
     worst, times = 0.0, {}
     for off, spec in RING_CASES:
@@ -1143,7 +1209,7 @@ def check_k1_ring(model, dev, card):
         moved = (wbytes + kv_read + 2 * nbytes(x) + 2 * nbytes(got[1])
                  + spec * n_vocab * 4)
         b_ms, b_by = bound(moved, 2 * spec * (n_weights + n_vocab * D),
-                           INT8_OPS)
+                           weight_ops_peak(model))
         times[(off, spec)] = (ms, plain_ms, b_ms, b_by)
         print(f"{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
               f"{seen} cache slots read ({kv_read / 1e9:.4f} GB) + weights "
@@ -1566,11 +1632,19 @@ def run_stream_q4g(model, plain, dev, card):
     """Phase 8b: the q4g unbounded session, sequential and spec (pad)."""
     k1_err, k1_times = check_k1_ring(model, dev, card)
     pieces = ragged_pieces(stream_signal(Q4G_STREAM_SECS), seed=5)
-    run = stream_run(model, pieces, dev, unbounded=True)
+    model.record_margins = True  # they judge spec against sequential
+    try:
+        run = stream_run(model, pieces, dev, unbounded=True)
+    finally:
+        model.record_margins = False
     check_stream_launches("q4g unbounded", run, "q4g")
-    ref = plain_stream(plain, pieces, dev, unbounded=True)
+    ref = plain_stream(plain, pieces, dev, secs=Q4G_PLAIN_STREAM_SECS,
+                       unbounded=True)
+    n = len(ref["tokens"])
+    if n < P_STEP:
+        fail(f"q4g plain session: only {n} tokens")
     same = first_divergence("q4g unbounded session kernel vs plain",
-                            run["tokens"], ref["tokens"], ref["margins"],
+                            run["tokens"][:n], ref["tokens"], ref["margins"],
                             MARGIN_TIE)
     report_stream("q4g unbounded session", run, card, model)
     spec = stream_run(model, pieces, dev, unbounded=True,
@@ -1578,7 +1652,7 @@ def run_stream_q4g(model, plain, dev, card):
     check_stream_launches("q4g spec pad", spec, "q4g")
     same_spec = first_divergence(f"q4g speculative={SPEC_K} pad vs "
                                  "sequential", spec["tokens"], run["tokens"],
-                                 ref["margins"], SPEC_MARGIN_TIE)
+                                 run["margins"], SPEC_MARGIN_TIE)
     report_stream(f"q4g unbounded speculative={SPEC_K} draft=pad session",
                   spec, card)
     print(f"q4g sessions: kernel == plain {same}, spec == sequential "
@@ -1602,9 +1676,13 @@ def run_stream_q4(model, plain, dev, card):
     if run["launches"]["q4_matmul"] != expect:
         fail(f"q4 session: K3 launches {run['launches']['q4_matmul']} != "
              f"{expect}")
-    ref = plain_stream(plain, pieces, dev, max_duration_s=Q4_STREAM_SECS + 4)
+    ref = plain_stream(plain, pieces, dev, secs=Q4_PLAIN_STREAM_SECS,
+                       max_duration_s=Q4_STREAM_SECS + 4)
+    n = len(ref["tokens"])
+    if n < P_STEP:
+        fail(f"q4 plain session: only {n} tokens")
     same = first_divergence("q4 bounded session kernel vs plain",
-                            run["tokens"], ref["tokens"], ref["margins"],
+                            run["tokens"][:n], ref["tokens"], ref["margins"],
                             MARGIN_TIE)
     report_stream("q4 bounded session (per-op, K3)", run, card)
     print(f"q4 session: K3 launches {expect} = 1 + {per_pos} x "
@@ -1628,7 +1706,7 @@ POOL_STREAMS = (4, 2)  # the pool sizes of this script (K2 is held at them)
 # causal, so its tokens are held as a prefix of the full run's.
 B4_PLAIN_TICKS = 8     # of 15: every ready count, the detach and attach
 B4_SPEC_TICKS = 8
-SHORT_PLAIN_TICKS = 4  # of the short pools' 9
+SHORT_PLAIN_TICKS = 3  # of the short pools' 9
 # Every decoder-cache geometry a pool of this run handed to K1, by the
 # model's decode route: {route: {(streams, S, ring, chunk, int8, spec,
 # reach)}}, ``reach`` the offsets' bound.  K1 alone is held against its
@@ -1732,9 +1810,9 @@ def kv_step_case(model, dev, card, tag, S, offs, spec, ring, int8, chunk,
     wbytes = step_weight_bytes(model)
     moved = (wbytes + kv_read + 2 * nbytes(x) + 2 * nbytes(got[1])
              + bc * spec * n_vocab * 4)
-    n_weights = sum(fused[k].numel() for k in ("wqkv", "wo", "w13", "w2"))
+    n_weights = n_stack_weights(model)
     b_ms, b_by = bound(moved, 2 * bc * spec * (n_weights + n_vocab * D),
-                       INT8_OPS)
+                       weight_ops_peak(model))
     print(f"{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; {seen} cache "
           f"slots read ({kv_read / 1e9:.4f} GB) + weights "
           f"{wbytes / 1e9:.4f} GB; bound {b_ms:.4f} ms ({b_by}; "
@@ -2452,47 +2530,319 @@ def small_gguf(directory: Path):
 
 
 def run_gguf_cli(dev, card):
-    """Phase 7: the CLI on a GGUF for each weight format, against the
-    library path on the same file."""
+    """Phase 7: the CLI on a GGUF for each weight format, and with
+    ``--model`` on a SafeTensors directory of the same small model for
+    ``--dtype bfloat16`` and ``w8`` (phase 11b), each against the library
+    path on the same files."""
+    import torch
+
     from voxtral_tpu_torch.config import VoxtralConfig
+    from voxtral_tpu_torch.loaders.safetensors_loader import (
+        checkpoint_tensors,
+        save_safetensors,
+    )
     from voxtral_tpu_torch.pipeline import TranscribePipeline
+    from voxtral_tpu_torch.utils.quantize import random_dense_params
 
     with tempfile.TemporaryDirectory() as tmp:
         gguf, tokenizer, params, wav = small_gguf(Path(tmp))
         cfg = VoxtralConfig.from_file(params)
-        # The three processes side by side (most of each is the
+        # The model directory: params.json and tekken.json beside the
+        # GGUF, and a dense f32 checkpoint of random weights.
+        save_safetensors(checkpoint_tensors(
+            random_dense_params(cfg, 5, torch.float32, "cpu", scale=0.1),
+            cfg), Path(tmp) / "consolidated.safetensors")
+        cli = [sys.executable, "-m", "voxtral_tpu_torch.cli"]
+        argvs = {("--weight-format", fmt): [
+            *cli, "--gguf", str(gguf), "--tokenizer", str(tokenizer),
+            "--params", str(params), "--weight-format", fmt, "--audio",
+            str(wav)] for fmt in ("q4", "q4g", "w8")}
+        argvs.update({("--model --dtype", dt): [
+            *cli, "--model", tmp, "--dtype", dt, "--audio", str(wav)]
+            for dt in ("bfloat16", "w8")})
+        # The five processes side by side (most of each is the
         # interpreter's start and the CUDA context).
         t0 = time.perf_counter()
-        procs = {fmt: subprocess.Popen(
-            [sys.executable, "-m", "voxtral_tpu_torch.cli", "--gguf",
-             str(gguf), "--tokenizer", str(tokenizer), "--params",
-             str(params), "--weight-format", fmt, "--audio", str(wav)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        procs = {key: subprocess.Popen(
+            argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             cwd=Path(__file__).resolve().parent)
-            for fmt in ("q4", "q4g", "w8")}
+            for key, argv in argvs.items()}
         try:
-            outs = {fmt: (*p.communicate(timeout=300), p.returncode,
+            outs = {key: (*p.communicate(timeout=300), p.returncode,
                           time.perf_counter() - t0)
-                    for fmt, p in procs.items()}
+                    for key, p in procs.items()}
         finally:
             for p in procs.values():
                 if p.poll() is None:
                     p.kill()
                     p.wait()
-        for fmt, (stdout, stderr, returncode, secs) in outs.items():
+        for (flag, fmt), (stdout, stderr, returncode, secs) in outs.items():
             if returncode != 0:
-                fail(f"CLI --gguf --weight-format {fmt} exited "
-                     f"{returncode}: {stderr[-2000:]}")
-            lib = TranscribePipeline.from_gguf(
-                gguf, tokenizer, config=cfg, weight_format=fmt,
-                device=dev).transcribe_file(wav)
+                fail(f"CLI {flag} {fmt} exited {returncode}: "
+                     f"{stderr[-2000:]}")
+            if flag == "--weight-format":
+                pipe = TranscribePipeline.from_gguf(
+                    gguf, tokenizer, config=cfg, weight_format=fmt,
+                    device=dev)
+            else:
+                pipe = TranscribePipeline.from_model_dir(tmp, fmt,
+                                                         device=dev)
+            lib = pipe.transcribe_file(wav)
             if stdout != lib + "\n":
-                fail(f"CLI --weight-format {fmt} printed {stdout!r}, "
-                     f"the library path {lib!r}")
-            print(f"gguf CLI --weight-format {fmt}: exit 0 within {secs:.1f} s"
-                  f" of the three starting together, "
-                  f"text == library path ({len(lib.split())} words) "
-                  f"[{card}]", flush=True)
+                fail(f"CLI {flag} {fmt} printed {stdout!r}, the library "
+                     f"path {lib!r}")
+            print(f"CLI {flag} {fmt}: exit 0 within {secs:.1f} s of the "
+                  f"five starting together, one line, text == library path "
+                  f"({len(lib.split())} words; route "
+                  f"{pipe.model.decode_route}) [{card}]", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Dense weights (bf16 on K1 mode (g), f32 on the per-op step)
+# ---------------------------------------------------------------------------
+
+# The dense random tree draws its weights with this standard deviation
+# (JAX's init_random: 0.02, whose streams emit two or three distinct
+# tokens on this run's chirps): at 0.03 each pooled stream emits more
+# than five, which the int8-against-bf16 cache check needs to say
+# anything (ROADMAP §3).
+DENSE_SCALE = 0.03
+DENSE_PLAIN_SECS = 4.0         # the bf16 plain one-shot, held as a prefix
+DENSE_STREAM_SECS = 10.0       # the bf16 unbounded session
+DENSE_PLAIN_STREAM_SECS = 6.0  # ... and its plain twin, held as a prefix
+F32_SECS = 4.0                 # the f32 one-shot (per-op, host-bound)
+MIN_DISTINCT = 5               # tokens per stream of the int8 / bf16 pools
+
+
+def check_dense_linear(dev, card) -> dict:
+    """The dense bf16 linear (``models.layers.dense_matmul``): cuBLAS's
+    bf16 GEMM, f32 sums rounded once to bf16, against the same product on
+    f32 copies of both operands, at the one-shot's encoder and adapter
+    shapes -> {shape: (bf16 GEMM ms, f32-copy ms)}."""
+    import torch
+
+    from voxtral_tpu_torch.models.layers import dense_matmul
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    for m, k, n in ((608, 1280, 5120), (608, 5120, 1280), (152, 5120, 3072),
+                    (32, 1280, 5120)):
+        x = torch.randn((m, k), device=dev, generator=gen).bfloat16()
+        w = (torch.randn((k, n), device=dev, generator=gen) * 0.03).bfloat16()
+        got = dense_matmul(x, w)
+        ref = (x.float() @ w.float()).bfloat16()
+        err = (got.float() - ref.float()).abs().max().item()
+        rel = err / ref.float().abs().max().item()
+        if not rel <= KV_RTOL:
+            fail(f"dense bf16 linear {m}x{k}x{n}: {rel:.3e} of max from the "
+                 "f32 product > one bf16 ulp")
+        ms, f32_ms = in_turns(lambda: dense_matmul(x, w),
+                              lambda: (x.float() @ w.float()).bfloat16(),
+                              20, 20)
+        out[(m, k, n)] = (ms, f32_ms)
+        print(f"dense bf16 linear M={m} K={k} N={n}: bf16 GEMM (f32 sums) "
+              f"{ms:.4f} ms, on f32 copies {f32_ms:.4f} ms; outputs within "
+              f"{rel:.2e} of max (bit-equal {torch.equal(got, ref)}) "
+              f"[{card}]", flush=True)
+    return out
+
+
+def int8_against_bf16(runs, card) -> dict:
+    """The int8-cache pool held against the bf16-cache pool on the dense
+    tree: each stream emits at least MIN_DISTINCT distinct tokens; the
+    two agree over each slot's first step (its per-op init, bf16 in
+    both); up to their first parting their top-2 margins differ by some
+    amount g, and they part only where the bf16 pool's margin is below
+    2 g (the int8 cache moves the logits by about g; a parting at a
+    larger margin would be a fault, not a tie)."""
+    out = {"agree": [], "first": [], "gap": [], "distinct": []}
+    for a, b, ma, mb in zip(runs["int8"]["tokens"], runs["model"]["tokens"],
+                            runs["int8"]["margins"], runs["model"]["margins"]):
+        n = min(len(a), len(b))
+        distinct = len(set(b.tolist()))
+        if distinct < MIN_DISTINCT or len(set(a.tolist())) < MIN_DISTINCT:
+            fail(f"dense pools: a stream emits {distinct} distinct tokens "
+                 f"(int8: {len(set(a.tolist()))}) < {MIN_DISTINCT}")
+        differ = np.nonzero(a[:n] != b[:n])[0]
+        first = int(differ[0]) if len(differ) else n
+        gap = float(np.abs(ma[:first] - mb[:first]).max()) if first else 0.0
+        if first < P_STEP:
+            fail(f"dense pools: int8 and bf16 caches part at token {first}, "
+                 "inside the first step (no cache read there)")
+        if first < n and not float(mb[first]) < 2 * gap:
+            fail(f"dense pools: int8 and bf16 caches part at token {first} "
+                 f"at a bf16 margin {float(mb[first]):.3e} >= 2 x the "
+                 f"margin gap before it ({gap:.3e})")
+        out["agree"].append(round(float((a[:n] == b[:n]).mean()), 4))
+        out["first"].append(first if first < n else -1)
+        out["gap"].append(gap)
+        out["distinct"].append(distinct)
+    print(f"dense pools, int8 vs bf16 caches (weight scale {DENSE_SCALE}): "
+          f"distinct tokens per stream {out['distinct']}; token agreement "
+          f"{out['agree']}, first parting {out['first']} (-1: none), each "
+          f"at a bf16 margin below twice the top-2 margin gap before it "
+          f"({[f'{g:.3e}' for g in out['gap']]}) [{card}]", flush=True)
+    return out
+
+
+def run_dense(cfg, dev, card, sig, tok):
+    """Phase 11: dense weights.  11a: bf16 on K1 mode (g) (memory-neutral
+    fuse, K1 (g) alone, one-shot, an unbounded session, B = 2 pools on
+    both cache types); 11c: f32 on the per-op step.  (11b, ``--model``
+    through the CLI, runs beside the GGUF CLI in phase 7.)"""
+    import torch
+
+    from voxtral_tpu_torch.models.voxtral import VoxtralModel
+    from voxtral_tpu_torch.pipeline import PipelineConfig, TranscribePipeline
+    from voxtral_tpu_torch.utils.hbm import model_hbm_bytes, tree_unique_bytes
+    from voxtral_tpu_torch.utils.quantize import random_dense_params
+
+    release()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    params = random_dense_params(cfg, 0, torch.bfloat16, dev,
+                                 scale=DENSE_SCALE)
+    tree_b = tree_unique_bytes(params)
+    model = VoxtralModel(params, cfg, dev)
+    torch.cuda.synchronize()
+    built = torch.cuda.memory_allocated(dev) - base
+    if model.decode_route != "bf16":
+        fail(f"dense bf16 weights route to {model.decode_route}")
+    if not abs(built - tree_b) <= 0.01 * tree_b:
+        fail(f"the bf16 fuse is not memory-neutral: {built} bytes allocated "
+             f"for a {tree_b}-byte tree")
+    # Admission counts the tree and the fused dict's f32 norm stacks.
+    if not 0 <= model_hbm_bytes(model) - tree_b <= 0.01 * tree_b:
+        fail(f"admission counts {model_hbm_bytes(model)} bytes of weights, "
+             f"the tree holds {tree_b}")
+    print(f"random bf16 dense weights (seed 0, scale {DENSE_SCALE}) built on "
+          f"the card and fused: {time.perf_counter() - t0:.1f} s; tree "
+          f"{tree_b / 1e9:.4f} GB, memory_allocated after the build "
+          f"{built / 1e9:.4f} GB ({100 * (built - tree_b) / tree_b:+.3f} %),"
+          f" admission counts {model_hbm_bytes(model) / 1e9:.4f} GB [{card}]",
+          flush=True)
+    plain = VoxtralModel(params, cfg, dev, kernels=False)
+    plain.fused_decode = model.fused_decode
+    linear = check_dense_linear(dev, card)
+
+    k1g = check_k1_modes(model, dev, card)
+    ring, S = ring_geometry(cfg.language_model)
+    k1g["d"] = kv_step_case(model, dev, card, "(g) x (d)", S, [16000], 1,
+                            ring, False, None)
+    k1g["e"] = kv_step_case(model, dev, card, "(g) x (e) x (c)", S,
+                            POOL_OFFS, 1, ring, True, None)
+    k1g["f"] = kv_step_case(model, dev, card, "(g) x (f)", 1536, [7, 700],
+                            1, None, False, 512, slice(1024, 1536))
+    k1g["err"] = max(k1g["err"], *(k1g[m][0] for m in "def"))
+
+    pipe = TranscribePipeline(model, tok)
+    wall, launches, peak, chunks = counted_run(pipe, sig, dev)
+    tokens = chunks[0]
+    n_tok = len(tokens)
+    n_steps = n_tok - 1
+    if launches["decode_stack_step"] != n_steps or launches["w8_matmul"]:
+        fail(f"bf16 one-shot: launches {launches}, {n_steps} decode steps")
+    model.record_margins = True
+    pipe._chunk_tokens(sig, SR)
+    margins = model.last_margins[0].copy()
+    model.record_margins = False
+    pcfg = PipelineConfig(speculative=SPEC_K, draft="ngram")
+    spipe = TranscribePipeline(model, tok, pcfg)
+    s_wall, s_launch, s_peak, s_chunks = counted_run(spipe, sig, dev)
+    passes = model.last_spec_passes
+    if s_launch["decode_stack_step"] != passes or passes < 1:
+        fail(f"bf16 speculative: K1 launches {s_launch['decode_stack_step']} "
+             f"!= passes {passes}")
+    same_seq = first_divergence("bf16 speculative vs sequential",
+                                s_chunks[0], tokens, margins,
+                                SPEC_MARGIN_TIE)
+    part = sig[:int(DENSE_PLAIN_SECS * SR)]
+    k_part = pipe._chunk_tokens(part, SR)[0]
+    p_part, p_margins = plain_tokens(plain, tok, part)
+    same_plain = first_divergence("bf16 sequential kernel vs plain", k_part,
+                                  p_part, p_margins, MARGIN_TIE)
+    print(f"bf16 main path: launch counts {launches}; {n_tok} tokens "
+          f"({len(set(tokens.tolist()))} distinct); speculative K={SPEC_K} "
+          f"ngram: {passes} passes, tokens == sequential {same_seq}; "
+          f"sequential kernel == plain over {DENSE_PLAIN_SECS:.0f} s "
+          f"({len(k_part)} tokens): {same_plain} [{card}]", flush=True)
+    padded = pipe.padded_chunks(sig, SR)[0].samples
+    enc_s = encode_seconds(pipe, model, padded)
+    report("bf16", wall, enc_s, n_tok, peak, card)
+    report(f"bf16 speculative K={SPEC_K} draft=ngram", s_wall, enc_s, n_tok,
+           s_peak, card, passes, n_steps, k1g["spec8"][1])
+    step_bytes = step_weight_bytes(model)
+    print(f"bf16 decode step weight stream: {step_bytes / 1e9:.4f} GB/step / "
+          f"{k1g['one'][1]:.3f} ms = {step_bytes / k1g['one'][1] / 1e6:.1f} "
+          f"GB/s; bound {step_bytes / HBM_BPS * 1e3:.4f} ms [{card}]",
+          flush=True)
+
+    pieces = ragged_pieces(stream_signal(DENSE_STREAM_SECS))
+    st = stream_run(model, pieces, dev, unbounded=True)
+    check_stream_launches("bf16 unbounded session", st, "bf16")
+    st_ref = plain_stream(plain, pieces, dev, secs=DENSE_PLAIN_STREAM_SECS,
+                          unbounded=True)
+    n = len(st_ref["tokens"])
+    if n < P_STEP:
+        fail(f"bf16 plain session: only {n} tokens")
+    st_same = first_divergence("bf16 session kernel vs plain",
+                               st["tokens"][:n], st_ref["tokens"],
+                               st_ref["margins"], MARGIN_TIE)
+    print(f"bf16 unbounded session: tokens kernel == plain over "
+          f"{DENSE_PLAIN_STREAM_SECS:.0f} s ({n} tokens): {st_same} [{card}]",
+          flush=True)
+    report_stream("bf16 session unbounded", st, card, model)
+
+    short = [pool_signal(POOL_SHORT_SECS, i) for i in (5, 6)]
+    pools, paths = {}, {}
+    for kv in ("model", "int8"):
+        tag = f"bf16 pool B=2 unbounded kv_dtype={kv}"
+        pair = pool_pair(tag, model, plain, dev, card, short,
+                         plain_ticks=SHORT_PLAIN_TICKS, unbounded=True,
+                         kv_dtype=kv)
+        if pair["run"]["int8"] != (kv == "int8"):
+            fail(f"{tag}: the ladder picked int8 {pair['run']['int8']}")
+        report_pool(tag, pair["run"], card, model)
+        pools[kv] = pair["run"]
+        paths[f"bf16_pool_unbounded_{kv}"] = pair["run"]["launches"]
+    kv_check = int8_against_bf16(pools, card)
+    release()
+    k1g["err"] = max(k1g["err"], check_k1_pool_geometries(model, dev, card))
+    del model, plain, params, pipe, spipe
+    release()
+
+    base = torch.cuda.memory_allocated(dev)
+    params = random_dense_params(cfg, 0, torch.float32, dev,
+                                 scale=DENSE_SCALE)
+    f32_b = tree_unique_bytes(params)
+    model = VoxtralModel(params, cfg, dev)
+    if model.decode_route != "per_op" or model.cache_dtype != torch.float32:
+        fail(f"f32 weights route to {model.decode_route}, cache "
+             f"{model.cache_dtype}")
+    clip = sig[:int(F32_SECS * SR)]
+    pipe = TranscribePipeline(model, tok)
+    f_wall, f_launch, f_peak, f_chunks = counted_run(pipe, clip, dev)
+    if any(f_launch.values()):
+        fail(f"f32 one-shot launched a kernel: {f_launch}")
+    padded = pipe.padded_chunks(clip, SR)[0].samples
+    f_tok = model.decoder_seq_len(pipe.mel.num_frames(len(padded))) - 38
+    if len(f_chunks[0]) != f_tok:
+        fail(f"f32: {len(f_chunks[0])} tokens != {f_tok}")
+    print(f"f32 dense weights: tree {f32_b / 1e9:.4f} GB, allocated "
+          f"{(torch.cuda.memory_allocated(dev) - base) / 1e9:.4f} GB; "
+          f"{f_tok} tokens ({len(set(f_chunks[0].tolist()))} distinct) "
+          f"[{card}]", flush=True)
+    report("f32 (per-op)", f_wall, encode_seconds(pipe, model, padded), f_tok,
+           f_peak, card, secs=F32_SECS)
+    del model, params, pipe
+    release()
+    runs = {"bf16_sequential": launches,
+            "bf16_speculative_ngram": s_launch,
+            "bf16_stream_unbounded": st["launches"], **paths,
+            "f32_sequential": f_launch}
+    return dict(k1=k1g, runs=runs, linear=linear, kv_check=kv_check,
+                tree_bytes=tree_b, built_bytes=built)
 
 
 # ---------------------------------------------------------------------------
@@ -2544,6 +2894,10 @@ def main() -> int:
     release()
     phase_done("w8 pools")
 
+    # -- 11. dense weights (bf16 on K1 (g), the CLI's --model, f32) ---------
+    dense = run_dense(cfg, dev, card, sig, tok)
+    phase_done("dense")
+
     # -- 4. K3 ---------------------------------------------------------------
     k3_err, k3_times = check_k3(dev, card)
     phase_done("K3")
@@ -2563,7 +2917,7 @@ def main() -> int:
     del q4g_model, q4g_plain
     release()
     phase_done("q4g pool")
-    q4 = run_q4(tree, cfg, dev, card, sig, tok, w8["n_tok"])
+    q4 = run_q4(tree, cfg, dev, card, sig, tok)
     q4_model, q4_plain = q4.pop("model"), q4.pop("plain")
     phase_done("q4 one-shot")
     st_q4 = run_stream_q4(q4_model, q4_plain, dev, card)
@@ -2599,12 +2953,14 @@ def main() -> int:
             "q4_stream_bounded": st_q4["run"]["launches"],
             **pl_w8["paths"],
             "q4g_pool_unbounded_int8": pl_q4g["launches"],
-            "q4_pool_generic": pl_q4["launches"]}
+            "q4_pool_generic": pl_q4["launches"], **dense["runs"]}
     for path in ("w8_pool_unbounded_int8", "w8_pool_chunked_bounded",
                  "w8_pool_chunked_unbounded", "w8_pool_speculative_ngram_int8",
-                 "q4g_pool_unbounded_int8"):
+                 "q4g_pool_unbounded_int8", "bf16_sequential",
+                 "bf16_speculative_ngram", "bf16_stream_unbounded",
+                 "bf16_pool_unbounded_model", "bf16_pool_unbounded_int8"):
         if runs[path]["decode_stack_step"] < 1:
-            fail(f"{path}: K1 (modes (e) / (f)) was launched no time")
+            fail(f"{path}: K1 (modes (e) / (f) / (g)) was launched no time")
 
     def launches(name):
         by = {path: c[name] for path, c in runs.items() if c[name]}
@@ -2616,6 +2972,7 @@ def main() -> int:
     d_t, hd_t = st_w8["k1_times"], st_q4g["k1_times"]
     k3t = k3_times[(1, 131072, 3072)]
     pk = pl_w8["k1"]
+    kg = dense["k1"]
     record = {"kernels": [
         {"name": "w8_matmul", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/w8_matmul.cu",
@@ -2630,11 +2987,12 @@ def main() -> int:
         {"name": "decode_stack_step", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/decode_step.cu",
          "replaces": "voxtral_tpu/ops/decode_step_pallas.py:1654",
-         "modes": ["a", "b", "c", "d", "e", "f", "h"],
+         "modes": ["a", "b", "c", "d", "e", "f", "g", "h"],
          "launches": launches("decode_stack_step")[0],
          "launches_by_path": launches("decode_stack_step")[1],
          "max_abs_err": max(k1a["err"], k1h["err"], st_w8["k1_err"],
-                            st_q4g["k1_err"], pk["err"], pl_q4g["err"]),
+                            st_q4g["k1_err"], pk["err"], pl_q4g["err"],
+                            kg["err"]),
          "ms": k1a["one"][1], "plain_ms": k1a["one"][2],
          "bound_ms": k1a["one"][3], "bound_by": k1a["one"][4],
          "library_ms": None,
@@ -2669,7 +3027,20 @@ def main() -> int:
          "f_bounded_plain_ms": pk["f_bounded"][2],
          "f_bounded_bound_ms": pk["f_bounded"][3],
          "f_bounded_int8_ms": pk["f_bounded_int8"][1],
-         "f_bounded_int8_bound_ms": pk["f_bounded_int8"][3]},
+         "f_bounded_int8_bound_ms": pk["f_bounded_int8"][3],
+         # Mode (g), bf16 weights: 1 row (a), spec=8 at 8 and 64 rows,
+         # 4 rows (c); under (d) at offset 16000 (S = 8238), (e) at the
+         # four ring phases, (f) bounded S = 1536.
+         "g_ms": kg["one"][1], "g_plain_ms": kg["one"][2],
+         "g_bound_ms": kg["one"][3], "g_bound_by": kg["one"][4],
+         "g_spec_ms": kg["spec8"][1], "g_spec_plain_ms": kg["spec8"][2],
+         "g_spec64_ms": kg["spec64"][1], "g_rows4_ms": kg["rows4"][1],
+         "g_d_ms": kg["d"][1], "g_d_plain_ms": kg["d"][2],
+         "g_d_bound_ms": kg["d"][3],
+         "g_e_ms": kg["e"][1], "g_e_plain_ms": kg["e"][2],
+         "g_e_bound_ms": kg["e"][3],
+         "g_f_ms": kg["f"][1], "g_f_plain_ms": kg["f"][2],
+         "g_f_bound_ms": kg["f"][3]},
         {"name": "q4_matmul", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/q4_matmul.cu",
          "replaces": "voxtral_tpu/ops/q4_pallas.py:150",

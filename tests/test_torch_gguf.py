@@ -245,11 +245,18 @@ def test_from_gguf_reads_the_sidecar_params_json(gguf_file, tmp_path):
     wav = tmp_path / "tone.wav"
     save_wav(AudioBuffer((0.4 * np.sin(2 * np.pi * 440 * t)).astype(
         np.float32), 16000), wav)
-    assert isinstance(pipe.transcribe_file(wav), str)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TranscribePipeline.from_gguf(path, path.parent / "tekken.json",
-                                     config=_port_cfg(cfg), device="cpu",
-                                     params_cache=tmp_path)
+    text = pipe.transcribe_file(wav)
+    assert isinstance(text, str)
+    # params_cache: the first load builds and saves the converted tree,
+    # the second reads it back; both give the same text.
+    cache = tmp_path / "cache"
+    for _ in range(2):
+        cached = TranscribePipeline.from_gguf(
+            path, path.parent / "tekken.json", config=_port_cfg(cfg),
+            weight_format="q4g", device="cpu", params_cache=cache)
+        assert cached.model.decode_route == "q4g"
+        assert cached.transcribe_file(wav) == text
+    assert len(list(cache.glob("*.json"))) == 1
 
 
 def test_cli_gguf_end_to_end(gguf_file, tmp_path, capsys):

@@ -25,6 +25,8 @@ def test_importing_the_port_leaves_jax_out():
             "import voxtral_tpu_torch.pipeline, voxtral_tpu_torch.models.voxtral\n"
             "import voxtral_tpu_torch.ops.w8_kernel, voxtral_tpu_torch.ops.decode_step\n"
             "import voxtral_tpu_torch.ops.q4_kernel, voxtral_tpu_torch.loaders.gguf_loader\n"
+            "import voxtral_tpu_torch.loaders.safetensors_loader, voxtral_tpu_torch.hub\n"
+            "import voxtral_tpu_torch.loaders.param_cache\n"
             "from voxtral_tpu_torch import VoxtralConfig\n"
             "from voxtral_tpu_torch.models.voxtral import VoxtralModel\n"
             "from voxtral_tpu_torch.utils.quantize import random_w8_params\n"

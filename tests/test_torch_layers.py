@@ -192,9 +192,10 @@ def test_kv_cache_and_band_mask():
 
 
 def test_linear_rejects_unported_formats():
-    # q4 leaves are ported; the bf16 stack layout {"nt": w} is not yet.
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.linear(torch.zeros(1, 4), {"nt": torch.zeros(4, 4)})
+    # Dense, {"nt": w}, w8 and q4 leaves are ported; any other dict is
+    # refused by name.
+    with pytest.raises(ValueError, match="unknown weight format"):
+        tl.linear(torch.zeros(1, 4), {"zz": torch.zeros(4, 4)})
 
 
 # ---------------------------------------------------------------------------

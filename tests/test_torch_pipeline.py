@@ -131,8 +131,8 @@ def test_cli_help(capsys):
 
 @pytest.mark.parametrize("argv", [
     ["--batch-files", "8"], ["--tp", "2"], ["--timestamps"],
-    ["--params-cache", "d"], ["--server", "http://localhost:1"],
-    ["--dtype", "bfloat16"], [],
+    ["--audio-list", "list.txt"], ["--server", "http://localhost:1"],
+    ["--dp", "2"], ["--platform", "cpu"],
 ])
 def test_cli_refuses_what_is_not_ported(argv, capsys, wav):
     from voxtral_tpu_torch import cli

@@ -3,7 +3,7 @@
 The port's own copy of the numpy log-mel of ``voxtral_tpu/audio/mel.py``
 (the port imports nothing of the JAX package).  The JAX module's
 on-device mel and its native C++ backend are not copied: the device
-mel is a later slice of the port (ROADMAP queue 1, item 10).
+mel is a later slice of the port (ROADMAP queue 1, item 10c).
 
 Behavioral contract mirrors the reference (``voxtral-mini-realtime-rs/src/audio/mel.rs``):
 

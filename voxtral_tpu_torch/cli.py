@@ -1,17 +1,24 @@
 """Transcribe CLI of the port.
 
 Usage:
+    python -m voxtral_tpu_torch.cli --model DIR --dtype bfloat16 --audio x.wav
+    python -m voxtral_tpu_torch.cli --model DIR --dtype w8 \
+        --params-cache cache/ --audio x.wav
     python -m voxtral_tpu_torch.cli --random-weights --dtype w8 --audio x.wav
     python -m voxtral_tpu_torch.cli --random-weights --speculative 8 \
         --draft-policy ngram --audio x.wav
     python -m voxtral_tpu_torch.cli --gguf model.gguf --tokenizer \
         tekken.json --weight-format q4g --audio x.wav
 
-Ported so far: ``--audio`` (repeatable), ``--random-weights``,
+Ported so far: ``--audio`` (repeatable), ``--model DIR`` (a SafeTensors
+model directory: consolidated.safetensors, params.json, tekken.json),
+``--dtype {bfloat16,float32,w8}`` (default bfloat16, as in the JAX CLI;
+with ``--model`` or ``--random-weights``), ``--random-weights``,
 ``--gguf`` with ``--weight-format {q4,q4g,w8}`` (default w8, as in the
 JAX CLI; a ``params.json`` beside the file or ``--params`` sets the
-architecture), ``--params``, ``--dtype w8``, ``--delay``,
-``--max-mel-frames``, ``--tokenizer``, ``--speculative``,
+architecture), ``--params``, ``--params-cache DIR`` (the converted tree
+of ``--model --dtype w8`` and of ``--gguf``, cached on disk),
+``--delay``, ``--max-mel-frames``, ``--tokenizer``, ``--speculative``,
 ``--draft-policy`` and ``--device`` (default ``cuda``; without a card it
 exits with an error, and the CPU runs the kernels' plain versions only
 when asked for with ``--device cpu``).  The other flags of
@@ -29,15 +36,13 @@ from pathlib import Path
 
 # flag -> (value it takes when unset, ROADMAP item that ports it)
 _NOT_PORTED = {
-    "--audio-list": (None, "queue 1, item 11 (batched multi-file input)"),
-    "--model": (None, "queue 1, item 9 (SafeTensors loader)"),
-    "--batch-files": (0, "queue 1, item 11 (batched multi-file decode)"),
+    "--audio-list": (None, "queue 1, item 11a (batched multi-file input)"),
+    "--batch-files": (0, "queue 1, item 11a (batched multi-file decode)"),
     "--platform": (None, "none: the port takes --device instead"),
     "--tp": (1, "queue 1, item 12 (parallel)"),
     "--dp": (1, "queue 1, item 12 (parallel)"),
-    "--timestamps": (False, "queue 1, item 10 (word timestamps)"),
-    "--params-cache": (None, "queue 1, item 9 (parameter cache)"),
-    "--server": (None, "queue 1, item 11 (serving)"),
+    "--timestamps": (False, "queue 1, item 11a (word timestamps)"),
+    "--server": (None, "queue 1, item 11b (serving)"),
 }
 
 
@@ -49,9 +54,12 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("-a", "--audio", action="append", default=[],
                    help="Path to a WAV file; repeatable")
+    p.add_argument("--model", metavar="DIR",
+                   help="SafeTensors model directory "
+                   "(consolidated.safetensors, params.json, tekken.json)")
     p.add_argument("--random-weights", action="store_true",
-                   help="Random w8 weights at the configuration's shapes "
-                   "(no model download)")
+                   help="Random weights at the configuration's shapes, in "
+                   "--dtype (no model download)")
     p.add_argument("--gguf", metavar="PATH",
                    help="Q4_0 GGUF checkpoint (needs --tokenizer)")
     p.add_argument("--weight-format", choices=["q4", "q4g", "w8"],
@@ -64,7 +72,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="params.json overriding the architecture "
                    "(with --random-weights or --gguf)")
     p.add_argument("--dtype", choices=["bfloat16", "float32", "w8"],
-                   default="w8", help="Weight format; only w8 is ported")
+                   default="bfloat16",
+                   help="--model / --random-weights weights: bfloat16 (the "
+                   "fused step with bf16 weights), float32 (the per-op "
+                   "step in f32) or w8 (rowwise int8, requantized at load)")
+    p.add_argument("--params-cache", metavar="DIR",
+                   help="Directory caching converted weight trees (--model "
+                   "--dtype w8, --gguf): the first load pays the "
+                   "requantization / repack, later loads read the cache")
     p.add_argument("-d", "--delay", type=float, default=6.0,
                    help="Delay in tokens (1 token = 80 ms); default 6")
     p.add_argument("--max-mel-frames", type=int, default=3000,
@@ -105,15 +120,11 @@ def main(argv: list[str] | None = None) -> int:
         if getattr(args, flag[2:].replace("-", "_")) != default:
             return _error(f"{flag} is not ported to voxtral_tpu_torch yet "
                           f"(ROADMAP {item})")
-    if args.dtype != "w8":
-        return _error(f"--dtype {args.dtype} is not ported yet (ROADMAP "
-                      "queue 1, item 9); only w8 runs")
     if args.gguf and not (args.tokenizer or args.random_weights):
         return _error("--gguf requires --tokenizer")
-    if not (args.random_weights or args.gguf):
-        return _error("loading SafeTensors weights (--model) is not ported "
-                      "yet (ROADMAP queue 1, item 9); pass --random-weights "
-                      "or --gguf")
+    if not (args.random_weights or args.gguf or args.model):
+        return _error("no weights: pass --model DIR, --random-weights or "
+                      "--gguf PATH")
     if not args.audio:
         return _error("no audio files specified (--audio)")
     if args.max_mel_frames <= 0:
@@ -141,28 +152,49 @@ def main(argv: list[str] | None = None) -> int:
     if args.random_weights:
         from voxtral_tpu_torch.models.voxtral import VoxtralModel
         from voxtral_tpu_torch.tokenizer import VoxtralTokenizer
-        from voxtral_tpu_torch.utils.quantize import random_w8_params
+        from voxtral_tpu_torch.utils.quantize import (
+            random_dense_params,
+            random_w8_params,
+        )
 
         cfg = (VoxtralConfig.from_file(args.params) if args.params
                else VoxtralConfig.voxtral())
-        log.info("random w8 weights (seed 0) on %s", device)
-        model = VoxtralModel.from_numpy(random_w8_params(cfg), cfg, device)
+        log.info("random %s weights (seed 0) on %s", args.dtype, device)
+        if args.dtype == "w8":
+            model = VoxtralModel.from_numpy(random_w8_params(cfg), cfg,
+                                            device)
+        else:
+            dtype = getattr(torch, args.dtype)
+            model = VoxtralModel(random_dense_params(cfg, 0, dtype, device),
+                                 cfg, device)
         if args.tokenizer:
             tokenizer = VoxtralTokenizer.from_file(args.tokenizer)
         else:
             tokenizer = VoxtralTokenizer(
                 [None] * 131072, {1: "<s>", 32: "[STREAMING_PAD]"}, 131072)
         pipeline = TranscribePipeline(model, tokenizer, pcfg)
-    else:
+    elif args.gguf:
         if not Path(args.gguf).exists():
             return _error(f"GGUF file not found: {args.gguf}")
         cfg = VoxtralConfig.from_file(args.params) if args.params else None
         try:
             pipeline = TranscribePipeline.from_gguf(
                 args.gguf, args.tokenizer, pcfg, config=cfg,
-                weight_format=args.weight_format, device=device)
+                weight_format=args.weight_format, device=device,
+                params_cache=args.params_cache)
         except (ValueError, EOFError, KeyError) as exc:
             return _error(f"failed to load GGUF model: {exc}")
+    else:
+        model_dir = Path(args.model)
+        if not (model_dir / "consolidated.safetensors").exists():
+            return _error(f"model not found at {model_dir} (expected "
+                          "consolidated.safetensors)")
+        try:
+            pipeline = TranscribePipeline.from_model_dir(
+                model_dir, args.dtype, pcfg, params_cache=args.params_cache,
+                device=device)
+        except (FileNotFoundError, ValueError, KeyError) as exc:
+            return _error(f"failed to load the model directory: {exc}")
 
     status = 0
     for path in args.audio:

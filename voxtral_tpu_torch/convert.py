@@ -1,8 +1,9 @@
 """The JAX package's numpy parameter tree -> the port's tensors.
 
 The tree keeps its structure: nested dicts whose leaves are numpy arrays
-(``{"w8": {"codes", "scale"}}`` dicts, bfloat16 ``ml_dtypes`` arrays,
-``[L, ...]`` stacks).  Each leaf becomes a tensor on ``device`` with the
+(``{"w8": {"codes", "scale"}}``, ``{"q4": ...}`` and ``{"nt": w}``
+dicts, dense bfloat16 ``ml_dtypes`` and float32 arrays, ``[L, ...]``
+stacks).  Each leaf becomes a tensor on ``device`` with the
 same dtype, so the two packages run on the same numbers.
 """
 

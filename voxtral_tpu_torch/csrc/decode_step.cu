@@ -37,6 +37,15 @@
 //       (__dp4a) times sq * ks[t], the softmax weights times vs[t] are
 //       requantized in one group per row (cache slots and fresh rows
 //       together) and P.V is an integer dot again: attn_kv_kernel<true>.
+//   (g) bf16 weights (wfmt 2; wq8=False, :558, :667-677, :742-752, the
+//       lm fold :1274-1281): the dense {"nt": w} leaves of
+//       fuse_decode_weights_bf16, [L, N, K] bf16, streamed as they are
+//       (the qkv phase in up to three segments wq / wk / wv, the FFN's in
+//       w1 / w3), no scales.  row_quant writes the norm / ADA / SwiGLU row
+//       as bf16 instead of int8 codes, and the bf16 GEMV of bf16_gemv.cuh
+//       sums the exact bf16 x bf16 products in f64.  The attention
+//       kernels are the same, so (g) combines with (b)-(f).  Bytes: 2 per
+//       weight, 6.86 GB per step at full width with the lm table.
 //   (f) chunked cache (chunk = Sc > 0, spec = 1; :1085-1180): an online
 //       softmax over chunks of Sc slots in slot order, carrying
 //       (m, denom, ctx); only the chunks c_lo .. n_used - 1 that some
@@ -66,7 +75,8 @@
 //   row_quant(swiglu)    silu(gate) * up, int8 quant
 //   gemv w2 (+ x)
 //
-// then row_quant(final norm) and the lm_head GEMV.  9 launches per layer
+// then row_quant(final norm) and the lm_head GEMV (mode (g): bf16 rows and
+// the bf16 GEMV in the same places).  9 launches per layer
 // + 2.  What bounds it on the H100: the int8 weights streamed per step
 // (3.4 GB at full width, lm_head included); the GEMVs read each weight
 // byte once with 16-byte loads for up to 64 rows (spec: 8 streams x
@@ -92,12 +102,15 @@
 
 #include <type_traits>
 
+#include "bf16_gemv.cuh"
 #include "w8_common.cuh"
 
 namespace vx {
 namespace {
 
 enum QuantMode { kQuantPlain = 0, kQuantNorm = 1, kQuantSwiglu = 2 };
+// The weight format of the host entry's ``wfmt``.
+enum WeightFormat { kW8 = 0, kG32 = 1, kBf16 = 2 };
 
 constexpr int kQuantThreads = 1024;
 constexpr int kAttnThreads = 256;
@@ -200,7 +213,8 @@ __device__ __forceinline__ void rope_row(
 }
 
 // One block per row b: h = f(x[b]) of width K, then xq[b] = int8 codes,
-// sx[b] = max(absmax(h), 1e-8) / 127 with round-half-even of h / sx.
+// sx[b] = max(absmax(h), 1e-8) / 127 with round-half-even of h / sx; or,
+// with ``xb`` (mode (g)), xb[b] = bf16(h) and no quantization.
 //   kQuantPlain:  h = x
 //   kQuantNorm:   h = (x * (1 / sqrt(mean(x^2) + eps))) * w   (* ada),
 //                 mean(x^2) summed in f64
@@ -209,7 +223,8 @@ __device__ __forceinline__ void rope_row(
 __global__ void __launch_bounds__(kQuantThreads) row_quant_kernel(
     const float* __restrict__ x, int ldx, int K, const float* __restrict__ w,
     const float* __restrict__ ada, float eps, int mode,
-    int8_t* __restrict__ xq, float* __restrict__ sx) {
+    int8_t* __restrict__ xq, float* __restrict__ sx,
+    __nv_bfloat16* __restrict__ xb) {
   __shared__ float red[32];
   __shared__ double red_d[32];
   const int b = blockIdx.x;
@@ -238,6 +253,12 @@ __global__ void __launch_bounds__(kQuantThreads) row_quant_kernel(
     }
     return xr[k];
   };
+  if (xb != nullptr) {
+    __nv_bfloat16* o = xb + static_cast<size_t>(b) * K;
+    for (int k = threadIdx.x; k < K; k += blockDim.x)
+      o[k] = __float2bfloat16(value(k));
+    return;
+  }
   float amax = 0.0f;
   for (int k = threadIdx.x; k < K; k += blockDim.x)
     amax = fmaxf(amax, fabsf(value(k)));
@@ -784,9 +805,10 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kv_kernel(
 
 inline void row_quant(const float* x, int ldx, int K, const float* w,
                       const float* ada, float eps, int mode, int B,
-                      int8_t* xq, float* sx, cudaStream_t st) {
+                      int8_t* xq, float* sx, __nv_bfloat16* xb,
+                      cudaStream_t st) {
   row_quant_kernel<<<B, kQuantThreads, 0, st>>>(x, ldx, K, w, ada, eps, mode,
-                                                xq, sx);
+                                                xq, sx, xb);
 }
 
 }  // namespace
@@ -794,14 +816,19 @@ inline void row_quant(const float* x, int ldx, int K, const float* w,
 
 // All pointers are device pointers; lm_codes == NULL skips the lm fold.
 // B rows = Bc streams x spec draft rows, ordered (stream, slot).
+// wfmt: kW8, kG32 (mode (h)) or kBf16 (mode (g)).
 // Layouts: x, xo [B, D] f32; norms / ada [L, D] f32; scales [L, N] f32
-// (g32: [L, N, K/32] f16, lm_scale [V, D/32] f16);
+// (g32: [L, N, K/32] f16, lm_scale [V, D/32] f16; bf16: unused, NULL);
 // cos / sin [hd] (rope_stride 0) or [B, hd] (rope_stride hd) f32,
 // pair-expanded; offs [Bc] int32 or NULL (then off0 for every stream);
 // caches [L, Bc, n_kv, S, hd] bf16 (int8 in mode (e)); wqkv [L, nq + 2 nkv, D], wo [L, D, nq],
 // w13 [L, 2F, D], w2 [L, D, F] int8; lm_codes [V, D] int8, lm_scale [V]
-// f32; kn / vn [L, B, n_kv, hd] bf16; logits [B, V] f32.  Scratch:
-// xq [B, max(D, nq, F)] int8, sx [B], qkv [B, nq + 2 nkv], attn [B, nq],
+// f32; kn / vn [L, B, n_kv, hd] bf16; logits [B, V] f32.  Mode (g): the
+// four stacks and lm_codes are bf16, and the qkv stack may come in three
+// segments wqkv [L, nqkv_a, D], wqkv_b [L, nqkv_b, D], wqkv_c (the rest)
+// and w13 in two, w13 [L, F, D] and w13_b [L, F, D] (NULL: one stack).
+// Scratch: xq [B, max(D, nq, F)] int8 (bf16 in mode (g)), sx [B],
+// qkv [B, nq + 2 nkv], attn [B, nq],
 // up [B, 2F] f32.  window < 0: no lower bound.  ring_size > 0: mode (d),
 // the caches are head+ring buffers of ring_head + ring_size <= S slots
 // and the offsets absolute positions.  k_scales / v_scales != NULL: mode
@@ -817,10 +844,12 @@ extern "C" int vx_decode_stack_step(
     const void* w2, const void* final_norm, const void* lm_codes,
     const void* lm_scale, void* kn, void* vn, void* logits, void* xq_buf,
     void* sx_buf, void* qkv_buf, void* attn_buf, void* up_buf,
-    const void* offs, const void* k_scales, const void* v_scales, int B,
-    int D, int L, int S, int n_heads, int n_kv, int hd, int F, int V,
-    int off0, int spec, int rope_stride, int window, int g32, int ring_head,
-    int ring_size, int chunk, float eps, float scale, void* stream) {
+    const void* offs, const void* k_scales, const void* v_scales,
+    const void* wqkv_b, const void* wqkv_c, const void* w13_b, int B, int D,
+    int L, int S, int n_heads, int n_kv, int hd, int F, int V, int off0,
+    int spec, int rope_stride, int window, int wfmt, int nqkv_a, int nqkv_b,
+    int ring_head, int ring_size, int chunk, float eps, float scale,
+    void* stream) {
   using namespace vx;
   const bool ring = ring_size > 0;
   if (hd > kMaxHeadDim || hd % 2 || n_kv <= 0 || n_heads % n_kv ||
@@ -828,7 +857,9 @@ extern "C" int vx_decode_stack_step(
       (offs == nullptr && (off0 < 0 || (!ring && off0 > S))) ||
       (ring && (ring_head < 0 || ring_head + ring_size > S)))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (g32 && (D % 32 || (n_heads * hd) % 32 || F % 32))
+  const bool g32 = wfmt == kG32, bf16 = wfmt == kBf16;
+  if ((wfmt != kW8 && !g32 && !bf16) ||
+      (g32 && (D % 32 || (n_heads * hd) % 32 || F % 32)))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool kv8 = k_scales != nullptr;
   if ((kv8 && (v_scales == nullptr || hd % 4)) ||
@@ -837,6 +868,13 @@ extern "C" int vx_decode_stack_step(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nq = n_heads * hd, nkv = n_kv * hd, nqkv = nq + 2 * nkv;
   const int Bc = B / spec;
+  if (bf16) {  // the qkv segments: nqkv_a, nqkv_b and the rest of the rows
+    const int rest = nqkv - nqkv_a - nqkv_b;
+    if (nqkv_a <= 0 || nqkv_b < 0 || rest < 0 ||
+        (nqkv_b > 0) != (wqkv_b != nullptr) ||
+        (rest > 0) != (wqkv_c != nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   // attn_step_kernel for the bf16 cache at once; attn_kv_kernel for an
   // int8 cache and / or a chunked walk (it holds spec more floats).
   const bool kv_kernel = kv8 || chunk > 0;
@@ -864,6 +902,8 @@ extern "C" int vx_decode_stack_step(
 
   float* X = static_cast<float*>(xo);
   int8_t* xq = static_cast<int8_t*>(xq_buf);
+  // Mode (g): the rows go to the GEMVs as bf16, in the same scratch.
+  __nv_bfloat16* xb = bf16 ? static_cast<__nv_bfloat16*>(xq_buf) : nullptr;
   float* sx = static_cast<float*>(sx_buf);
   float* qkv = static_cast<float*>(qkv_buf);
   float* att = static_cast<float*>(attn_buf);
@@ -871,14 +911,35 @@ extern "C" int vx_decode_stack_step(
   const float* an = static_cast<const float*>(attn_norms);
   const float* fn = static_cast<const float*>(ffn_norms);
   const float* av = static_cast<const float*>(ada);
-  const int8_t* Wqkv = static_cast<const int8_t*>(wqkv);
-  const int8_t* Wo = static_cast<const int8_t*>(wo);
-  const int8_t* W13 = static_cast<const int8_t*>(w13);
-  const int8_t* W2 = static_cast<const int8_t*>(w2);
+  // Layer l of an [L, N, K] stack of 1-byte (w8 / g32) or 2-byte (bf16)
+  // weights.
+  const size_t wsize = bf16 ? 2 : 1;
+  auto wlayer = [&](const void* base, int l, int N, int K) -> const void* {
+    if (base == nullptr) return nullptr;
+    return static_cast<const char*>(base) +
+           wsize * static_cast<size_t>(l) * N * K;
+  };
+  // Mode (g): one linear of layer l over up to three [L, n_i, K] bf16
+  // segments (n0, n1 rows; the last takes the rest of N).
+  auto gemv_bf = [&](const void* s0, const void* s1, const void* s2, int n0,
+                     int n1, int l, const float* resid, float* out, int N,
+                     int K) {
+    BfSegs sg;
+    sg.n0 = n0;
+    sg.n1 = n1;
+    sg.w[0] = static_cast<const __nv_bfloat16*>(wlayer(s0, l, n0, K));
+    sg.w[1] = static_cast<const __nv_bfloat16*>(wlayer(s1, l, n1, K));
+    sg.w[2] = static_cast<const __nv_bfloat16*>(
+        wlayer(s2, l, N - n0 - n1, K));
+    launch_bf16_gemv(xb, sg, resid, out, B, N, K, st);
+  };
+  const int qa = bf16 ? nqkv_a : nqkv, qb = bf16 ? nqkv_b : 0;
+  const int fa = (bf16 && w13_b != nullptr) ? F : 2 * F;
   // One linear of the step on the rows quantized in xq / sx: W8A8 (row
   // scales [N] f32) or g32 (group scales [N, K/32] f16, mode (h)).
-  auto gemv = [&](const int8_t* W, const void* Sc, const float* resid,
+  auto gemv = [&](const void* Wv, const void* Sc, const float* resid,
                   float* out, int N, int K) {
+    const int8_t* W = static_cast<const int8_t*>(Wv);
     if (g32)
       launch_g32_gemv(xq, sx, W, static_cast<const __half*>(Sc), resid, out,
                       B, N, K, st);
@@ -905,9 +966,12 @@ extern "C" int vx_decode_stack_step(
   const size_t new_layer = static_cast<size_t>(B) * n_kv * hd;
   for (int l = 0; l < L; ++l) {
     row_quant(X, D, D, an + static_cast<size_t>(l) * D, nullptr, eps,
-              kQuantNorm, B, xq, sx, st);
-    gemv(Wqkv + static_cast<size_t>(l) * nqkv * D,
-         layer_scales(sqkv, l, nqkv, D), nullptr, qkv, nqkv, D);
+              kQuantNorm, B, xq, sx, xb, st);
+    if (bf16)
+      gemv_bf(wqkv, wqkv_b, wqkv_c, qa, qb, l, nullptr, qkv, nqkv, D);
+    else
+      gemv(wlayer(wqkv, l, nqkv, D), layer_scales(sqkv, l, nqkv, D), nullptr,
+           qkv, nqkv, D);
     const float* cs = static_cast<const float*>(cosv);
     const float* sn = static_cast<const float*>(sinv);
     const int* of = static_cast<const int*>(offs);
@@ -934,23 +998,35 @@ extern "C" int vx_decode_stack_step(
           VN + l * new_layer, att, S, window, ring_head, ring_size, chunk,
           n_heads, n_kv, hd, scale);
     }
-    row_quant(att, nq, nq, nullptr, nullptr, eps, kQuantPlain, B, xq, sx, st);
-    gemv(Wo + static_cast<size_t>(l) * D * nq, layer_scales(so, l, D, nq), X,
-         X, D, nq);
-    row_quant(X, D, D, fn + static_cast<size_t>(l) * D,
-              av + static_cast<size_t>(l) * D, eps, kQuantNorm, B, xq, sx, st);
-    gemv(W13 + static_cast<size_t>(l) * 2 * F * D,
-         layer_scales(s13, l, 2 * F, D), nullptr, up, 2 * F, D);
-    row_quant(up, 2 * F, F, nullptr, nullptr, eps, kQuantSwiglu, B, xq, sx,
+    row_quant(att, nq, nq, nullptr, nullptr, eps, kQuantPlain, B, xq, sx, xb,
               st);
-    gemv(W2 + static_cast<size_t>(l) * D * F, layer_scales(s2, l, D, F), X, X,
-         D, F);
+    if (bf16)
+      gemv_bf(wo, nullptr, nullptr, D, 0, l, X, X, D, nq);
+    else
+      gemv(wlayer(wo, l, D, nq), layer_scales(so, l, D, nq), X, X, D, nq);
+    row_quant(X, D, D, fn + static_cast<size_t>(l) * D,
+              av + static_cast<size_t>(l) * D, eps, kQuantNorm, B, xq, sx, xb,
+              st);
+    if (bf16)
+      gemv_bf(w13, w13_b, nullptr, fa, 2 * F - fa, l, nullptr, up, 2 * F, D);
+    else
+      gemv(wlayer(w13, l, 2 * F, D), layer_scales(s13, l, 2 * F, D), nullptr,
+           up, 2 * F, D);
+    row_quant(up, 2 * F, F, nullptr, nullptr, eps, kQuantSwiglu, B, xq, sx, xb,
+              st);
+    if (bf16)
+      gemv_bf(w2, nullptr, nullptr, D, 0, l, X, X, D, F);
+    else
+      gemv(wlayer(w2, l, D, F), layer_scales(s2, l, D, F), X, X, D, F);
   }
   if (lm_codes != nullptr) {
     row_quant(X, D, D, static_cast<const float*>(final_norm), nullptr, eps,
-              kQuantNorm, B, xq, sx, st);
-    gemv(static_cast<const int8_t*>(lm_codes), lm_scale, nullptr,
-         static_cast<float*>(logits), V, D);
+              kQuantNorm, B, xq, sx, xb, st);
+    if (bf16)
+      gemv_bf(lm_codes, nullptr, nullptr, V, 0, 0, nullptr,
+              static_cast<float*>(logits), V, D);
+    else
+      gemv(lm_codes, lm_scale, nullptr, static_cast<float*>(logits), V, D);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,7 +5,8 @@ sets a global default device.  An entry point given no device runs on
 the card (``cuda``); the CPU runs the kernels' plain versions only when
 the caller passes ``"cpu"``.  The one process-wide setting the port
 makes is :func:`disable_tf32`: float32 matmuls and convolutions run in
-full float32, as the JAX reference computes them.
+full float32, and bfloat16 matmuls sum in full float32, as the JAX
+reference computes them.
 """
 
 from __future__ import annotations
@@ -33,15 +34,21 @@ def resolve_device(device: DeviceLike) -> torch.device:
 
 
 def disable_tf32() -> None:
-    """Turn both TF32 switches off.
+    """Turn both TF32 switches and cuBLAS's reduced-precision bf16 sums
+    off.
 
     A float32 matmul on the card runs in full float32 by default, but a
     float32 convolution goes through cuDNN in TF32 (about three decimal
     digits).  ``conv_downsample`` runs in float32, so both switches are
-    set here, in one place.
+    set here, in one place.  A bf16 x bf16 GEMM may sum in reduced
+    precision by default; the dense linears (``models.layers.linear``)
+    take cuBLAS's bf16 GEMM as the JAX reference's ``dot`` with
+    ``preferred_element_type=f32`` followed by one rounding to bf16, so
+    its sums must be float32 too.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def _bf16_numpy_dtype():

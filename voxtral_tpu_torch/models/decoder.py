@@ -37,28 +37,33 @@ def decoder_spec(cfg: LanguageModelConfig) -> AttentionSpec:
     )
 
 
-def _quantized_table(params: Params) -> dict:
-    emb = params["tok_embeddings"]
-    if not (isinstance(emb, dict) and ("w8" in emb or "q4" in emb)):
-        raise NotImplementedError(
-            "only w8 and q4 embedding tables are ported (ROADMAP queue 1, "
-            "item 9)")
-    return emb
-
-
 def embed_tokens(params: Params, token_ids: torch.Tensor) -> torch.Tensor:
-    """[B, S] int -> [B, S, d_model] bf16 embeddings of the w8 or q4
-    table (gathered and dequantized on the device)."""
-    emb = _quantized_table(params)
+    """[B, S] int -> [B, S, d_model] embeddings: rows of a dense table in
+    its dtype, or of the w8 / q4 table gathered and dequantized on the
+    device (bf16)."""
+    emb = params["tok_embeddings"]
+    if not isinstance(emb, dict):
+        return emb[token_ids.long()]
     if "q4" in emb:
         return q4_dequant_rows(emb["q4"], token_ids)
     return w8_dequant_rows(emb["w8"], token_ids)
 
 
+# Vocab rows per f32 product of the dense lm_head: bounds its f32 copy of
+# the table (131072 x 3072 bf16 would take 1.6 GB at once).
+LM_ROWS = 16384
+
+
 def lm_head(params: Params, hidden: torch.Tensor, mm=None) -> torch.Tensor:
     """Tied embeddings: logits = hidden @ E^T in f32.  ``mm`` as in
-    :func:`voxtral_tpu_torch.models.layers.linear`."""
-    emb = _quantized_table(params)
+    :func:`voxtral_tpu_torch.models.layers.linear`.  A dense table sums
+    its products in f32 (JAX's einsum with ``preferred_element_type=
+    f32``), over vocab blocks of :data:`LM_ROWS` rows."""
+    emb = params["tok_embeddings"]
+    if not isinstance(emb, dict):
+        h = hidden.float()
+        return torch.cat([h @ emb[v:v + LM_ROWS].float().mT
+                          for v in range(0, emb.shape[0], LM_ROWS)], dim=-1)
     if "q4" in emb:
         return q4_matmul(hidden, emb["q4"], mm=mm and mm.q4)
     return w8_matmul(hidden, emb["w8"], mm=mm and mm.w8)

@@ -5,11 +5,14 @@ points so the two can be held against each other:
 
 * parameters are nested dicts; per-layer stacks carry a leading layer
   axis (:func:`layer_params` slices one layer);
-* dense linear weights are [in, out]; w8 leaves ``{"w8": {codes, scale}}``
-  are [out, in] and go through the W8A8 GEMM (see
-  :func:`voxtral_tpu_torch.ops.w8.w8_matmul`), q4 leaves ``{"q4": ...}``
-  through the q4 dispatch (:func:`voxtral_tpu_torch.ops.q4.q4_matmul`);
-  ``mm`` (a :class:`Matmuls`) picks the kernels or their plain versions;
+* dense linear weights are [in, out] (bf16 or f32), ``{"nt": w}``
+  leaves dense [out, in] (the layout K1 streams in mode (g), shared with
+  its fused stacks; see ``ops.decode_step.fuse_decode_weights_bf16``);
+  w8 leaves ``{"w8": {codes, scale}}`` are [out, in] and go through the
+  W8A8 GEMM (see :func:`voxtral_tpu_torch.ops.w8.w8_matmul`), q4 leaves
+  ``{"q4": ...}`` through the q4 dispatch
+  (:func:`voxtral_tpu_torch.ops.q4.q4_matmul`); ``mm`` (a
+  :class:`Matmuls`) picks the kernels or their plain versions;
 * matmuls accumulate in f32 and round back to the input dtype; norms,
   RoPE, softmax and GELU compute in f32;
 * RoPE rotates interleaved pairs (θ = 1e6); attention masks are banded
@@ -71,8 +74,9 @@ def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
            mm: Optional[Matmuls] = None) -> torch.Tensor:
     """y = x @ w (+ b), accumulated in f32, returned in x's dtype.
 
-    ``w`` is a dense [in, out] tensor, a w8 dict (see ops/w8.py) or a q4
-    dict (see ops/q4.py).
+    ``w`` is a dense [in, out] tensor, ``{"nt": w}`` (dense [out, in],
+    contracted as ``x @ w.mT`` without a transposed copy), a w8 dict
+    (see ops/w8.py) or a q4 dict (see ops/q4.py).
     """
     if isinstance(w, dict):
         mm = mm or Matmuls()
@@ -80,12 +84,32 @@ def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
             y = w8_matmul(x, w["w8"], mm=mm.w8)
         elif "q4" in w:
             y = q4_matmul(x, w["q4"], mm=mm.q4)
+        elif "nt" in w:
+            return dense_matmul(x, w["nt"].mT, b)
         else:
-            raise NotImplementedError(
-                f"weight format {sorted(w)} is not ported yet "
-                "(ROADMAP queue 1, item 9)")
+            raise ValueError(f"unknown weight format {sorted(w)}")
     else:
-        y = x.float() @ w.float()
+        return dense_matmul(x, w, b)
+    if b is not None:
+        y = y + b.float()
+    return y.to(x.dtype)
+
+
+def dense_matmul(x: torch.Tensor, w: torch.Tensor,
+                 b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x @ w (+ b) for a dense [in, out] matrix (or a transposed view),
+    the products summed in f32 and rounded once to x's dtype, as JAX's
+    ``dot(..., preferred_element_type=f32)`` and ``astype``.
+
+    bf16 x and bf16 w without a bias: one bf16 GEMM (cuBLAS sums in f32:
+    :func:`~voxtral_tpu_torch.device.disable_tf32` turns its
+    reduced-precision bf16 sums off) whose output rounds once to bf16,
+    with no f32 copy of the weight.  Otherwise (f32 models, a bias to add
+    before the rounding, mixed dtypes) the operands go to f32.
+    """
+    if b is None and x.dtype == w.dtype == torch.bfloat16:
+        return torch.matmul(x, w)
+    y = torch.matmul(x.float(), w.float())
     if b is not None:
         y = y + b.float()
     return y.to(x.dtype)

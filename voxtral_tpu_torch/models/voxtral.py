@@ -1,17 +1,22 @@
 """Complete Voxtral Realtime model: greedy, sampled and speculative
-decode (port of the quantized routes of ``voxtral_tpu/models/voxtral.py``).
+decode (port of ``voxtral_tpu/models/voxtral.py``, single device).
 
 Weight routes, as the JAX model picks them (``megakernel_mode``):
 
 * w8 leaves -> the fused step, K1 modes (a)-(c);
 * unpacked q4 leaves (``q4g``) with ``q4g_geometry_ok`` -> the fused
   step in mode (h), the tied lm_head folded in when the table is q4g;
-* packed q4 leaves (``q4``), or q4g at other geometries -> the per-op
-  step: ``decoder_forward_hidden_with_cache`` per position, every
-  decoder linear and the lm_head through ``ops.q4.q4_matmul`` (K3 for
-  packed leaves); speculative decode rides the sequential loop there,
-  as JAX gates it on the fused step;
-* dense weights -> not ported yet (ROADMAP queue 1, item 9).
+* dense bf16 leaves -> the fused step in mode (g): the decoder's
+  attention and FFN leaves are rewritten once to ``{"nt": w}`` and
+  shared with K1's stacks (``fuse_decode_weights_bf16``), the dense
+  table folded in as the lm_head;
+* packed q4 leaves (``q4``), q4g at other geometries and dense f32
+  leaves -> the per-op step: ``decoder_forward_hidden_with_cache`` per
+  position, every decoder linear and the lm_head through
+  ``models.layers.linear`` / ``decoder.lm_head`` (K3 for packed
+  leaves; f32 models compute and cache in f32, as JAX's XLA step);
+  speculative decode rides the sequential loop there, as JAX gates it
+  on the fused step.
 
 Behaviour kept from the reference:
 
@@ -206,7 +211,9 @@ def transcribe_streaming_fn(params: Params, mel: torch.Tensor,
     prefix_inputs = (audio_embeds[:, :PREFIX_LEN, :]
                      + embed_tokens(dec, prefix_ids[None].expand(batch, -1)))
 
-    cache = create_cache(lm_cfg, batch, seq_len, device=dev)
+    # The cache takes the compute dtype (bf16; f32 for f32 models).
+    cache = create_cache(lm_cfg, batch, seq_len, audio_embeds.dtype,
+                         device=dev)
     rope = rope_tables(lm_cfg.head_dim, seq_len, lm_cfg.rope_theta, device=dev)
     # Prefill: fills cache positions 0..37, predicts the token at 38.
     hidden, cache = decoder_forward_hidden_with_cache(
@@ -301,17 +308,20 @@ def fused_step_fn(dec: Params, fused: Params, ada_vecs: torch.Tensor, lm_cfg,
 
 
 def _lm_fold(dec: Params, fused: Params) -> dict:
-    """The step's lm-fold arguments: the w8 table (row scales) or the
-    q4g table (group scales, from ``fuse_decode_weights_q4g``); none
-    when a q4g stack sits over a table it cannot fold."""
+    """The step's lm-fold arguments: the w8 table (row scales), the q4g
+    table (group scales, from ``fuse_decode_weights_q4g``) or the dense
+    table in bf16 (mode (g), no scale); none when a q4g stack sits over a
+    table it cannot fold."""
     fold = dict(final_norm=dec["norm"].float())
+    emb = dec["tok_embeddings"]
+    if fused["sqkv"] is None:  # mode (g): dense bf16 stacks
+        return dict(fold, lm_codes=emb.to(torch.bfloat16), lm_scale=None)
     if fused["sqkv"].dim() == 3:  # g32 stacks
         if "lm_codes" not in fused:
             return {}
         return dict(fold, lm_codes=fused["lm_codes"],
                     lm_scale=fused["lm_scale"])
-    emb = dec["tok_embeddings"]["w8"]
-    return dict(fold, lm_codes=emb["codes"], lm_scale=emb["scale"])
+    return dict(fold, lm_codes=emb["w8"]["codes"], lm_scale=emb["w8"]["scale"])
 
 
 def _per_op_decode(dec: Params, audio_embeds: torch.Tensor,
@@ -421,35 +431,19 @@ def top2_margin(logits: torch.Tensor) -> torch.Tensor:
     return top[:, 0] - top[:, 1]
 
 
-def _quantized_layers(dec: Params) -> bool:
-    """Every decoder linear is a w8 or q4 leaf (the per-op step's
-    formats)."""
-    lyr = dec["layers"]
-    leaves = [*lyr["attention"].values(), *lyr["ffn"].values()]
-    return all(isinstance(w, dict) and ("w8" in w or "q4" in w)
-               for w in leaves)
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to voxtral_tpu_torch yet ({item})")
-
-
 class VoxtralModel:
     """Parameter tree + config on one device: greedy, sampled and
     speculative decode.
 
     ``params``: the port's tensor tree (see ``convert.params_from_numpy``)
-    with w8 or q4 (packed or unpacked) decoder layers; the route follows
-    the JAX model (module docstring).  ``device``: where the tree lives
+    with w8, q4 (packed or unpacked) or dense (bf16 / f32) decoder
+    layers; the route follows the JAX model (module docstring).  A dense
+    bf16 tree's decoder leaves are rewritten in place to ``{"nt": w}``
+    (memory-neutral, as JAX does).  ``device``: where the tree lives
     (``None``: the card).  ``kernels=False`` runs the same path through
     the plain PyTorch versions of the kernels (for comparison on the
     card; on the CPU the kernel wrappers take the plain versions anyway).
     """
-
-    # The quantized models compute the encoder, adapter and prefill in
-    # bf16, as the JAX models do, and keep a bf16 KV cache (K1's format).
-    compute_dtype = torch.bfloat16
 
     def __init__(self, params: Params, config: Optional[VoxtralConfig] = None,
                  device: DeviceLike = None, *, kernels: bool = True):
@@ -459,21 +453,27 @@ class VoxtralModel:
         self.config = config or VoxtralConfig.voxtral()
         lm = self.config.language_model
         dec = params["decoder"]
+        # The encoder, adapter and prefill compute in the dense weights'
+        # dtype, bf16 on the quantized routes; the KV cache takes it (f32
+        # models keep an f32 cache; K1's routes a bf16 one), as JAX does.
+        w1 = params["adapter"]["w1"]
+        self.compute_dtype = (torch.bfloat16 if isinstance(w1, dict)
+                              else w1.dtype)
+        self.cache_dtype = self.compute_dtype
         mode = k1.megakernel_mode(dec, lm.head_dim)
-        # Which decode route runs: "w8" / "q4g" (the fused K1 step) or
-        # "per_op" (the decoder layers op by op).
+        # Which decode route runs: "w8" / "q4g" / "bf16" (the fused K1
+        # step) or "per_op" (the decoder layers op by op).
+        self.fused_decode = None
+        self.decode_route = "per_op"
         if mode == "w8":
             self.fused_decode = k1.fuse_decode_weights(dec)
             self.decode_route = "w8"
         elif mode == "q4g" and k1.q4g_geometry_ok(lm):
             self.fused_decode = k1.fuse_decode_weights_q4g(dec)
             self.decode_route = "q4g"
-        elif _quantized_layers(dec):
-            self.fused_decode = None
-            self.decode_route = "per_op"
-        else:
-            _not_ported("decoding with dense (bf16 / f32) weights",
-                        "ROADMAP queue 1, item 9")
+        elif mode == "bf16":
+            self.fused_decode = k1.fuse_decode_weights_bf16(dec)
+            self.decode_route = "bf16"
         self._mm = None if kernels else PLAIN
         self._step = k1.decode_stack_step if kernels \
             else k1.decode_stack_step_plain

@@ -23,13 +23,20 @@ fresh-row roundtrip ``:831-929``): integer score and P.V dots, the
 softmax weights requantized in one group per row; (f) the chunked cache
 (``cache_chunk=Sc``, ``:1085-1180``): an online softmax over the chunks
 some row of the batch can see, in slot order, so the score buffer holds
-Sc floats and shared memory no longer bounds S.  Source:
-``csrc/decode_step.cu``.
+Sc floats and shared memory no longer bounds S; (g) bf16 weights
+(``wq8=False``, ``:558``, ``:667-677``, ``:742-752``, the lm fold
+``:1274-1281``): the dense ``{"nt": w}`` leaves of
+:func:`fuse_decode_weights_bf16` streamed as they are (the qkv stack as
+the segments (wq, wk, wv), the FFN's as (w1, w3)), each linear's input
+row cast to bf16 instead of quantized, bf16 x bf16 products summed in
+f32 (here f64, rounded once) with no scales, the folded lm_head over
+the dense bf16 table; combinable with every cache mode.  Source:
+``csrc/decode_step.cu`` (the GEMV of mode (g): ``csrc/bf16_gemv.cuh``).
 
 What bounds it on the H100: the int8 weights streamed once per step —
 26 layers of wqkv / wo / w13 / w2 plus the 131072 x 3072 lm table, about
-3.4 GB at full width (3.64 GB with g32 scales), shared by every row of
-the step (up to 64 rows per weight pass).  The simple design: a fixed sequence of kernels on
+3.4 GB at full width (3.64 GB with g32 scales, 6.86 GB of bf16 in mode
+(g)), shared by every row of the step (up to 64 rows per weight pass).  The simple design: a fixed sequence of kernels on
 the current stream (row norm + int8 quant, W8A8 GEMV with 16-byte loads
 — ``__dp4a`` up to 8 rows, int8 tensor-core ``mma`` up to 64 — one RoPE
 + GQA attention block per (row, query head), residual adds fused into
@@ -44,7 +51,7 @@ halves them (int8 codes + 1/32 of that in scales).
 
 Also here, the host-side preparation the JAX module holds beside the
 kernel: :func:`fuse_decode_weights`, :func:`fuse_decode_weights_q4g`,
-:func:`megakernel_mode`, :func:`q4g_geometry_ok`, :func:`ada_vectors`,
+:func:`fuse_decode_weights_bf16`, :func:`megakernel_mode`, :func:`q4g_geometry_ok`, :func:`ada_vectors`,
 :func:`rope_pair_vectors` and :func:`quantize_kv`.
 """
 
@@ -143,6 +150,43 @@ def fuse_decode_weights_q4g(decoder_params: Params) -> Params:
     return out
 
 
+def fuse_decode_weights_bf16(decoder_params: Params) -> Params:
+    """The step's mode (g) stacks from dense decoder params, memory-
+    neutrally (JAX ``fuse_decode_weights_bf16``).
+
+    Each dense [L, K, N] leaf of the attention and the FFN is transposed
+    once to the kernel's [L, N, K] bf16 layout and replaces the original
+    in ``decoder_params`` as ``{"nt": w}``, which the prefill's linears
+    contract directly (``models.layers.linear``), so the decoder weights
+    exist once: the original is freed leaf by leaf, and the peak extra
+    memory is one transposed leaf.  The returned dict references the same
+    tensors: ``wqkv`` = (wq, wk, wv), ``w13`` = (w1, w3), ``wo``, ``w2``;
+    the scale keys are None (dense weights carry no scales); the f32 norm
+    stacks.  Leaves already rewritten are taken as they are.
+    """
+    lyr = decoder_params["layers"]
+    att, ffn = lyr["attention"], lyr["ffn"]
+
+    def nt(leaves, name):
+        w = leaves[name]
+        if isinstance(w, dict):  # already rewritten
+            return w["nt"]
+        wt = w.transpose(1, 2).to(torch.bfloat16).contiguous()
+        leaves[name] = {"nt": wt}  # drops the tree's [L, K, N] original
+        return wt
+
+    wqkv = (nt(att, "wq"), nt(att, "wk"), nt(att, "wv"))
+    wo = nt(att, "wo")
+    w13 = (nt(ffn, "w1"), nt(ffn, "w3"))
+    w2 = nt(ffn, "w2")
+    return {
+        "wqkv": wqkv, "sqkv": None, "wo": wo, "so": None,
+        "w13": w13, "s13": None, "w2": w2, "s2": None,
+        "attn_norm": lyr["attention_norm"].float(),
+        "ffn_norm": lyr["ffn_norm"].float(),
+    }
+
+
 def q4g_geometry_ok(lm_cfg) -> bool:
     """g32 mode needs every streamed contraction dim % 128 == 0 (the JAX
     gate, kept so both packages route the same models to mode (h))."""
@@ -153,8 +197,9 @@ def q4g_geometry_ok(lm_cfg) -> bool:
 def megakernel_mode(decoder_params: Params, head_dim: int):
     """Which stack-step weight mode this model supports, as the JAX
     function decides it: "w8" (rowwise-int8 leaves), "q4g" (unpacked q4
-    leaves), "bf16" (dense bf16 leaves; not ported yet), or None (packed
-    q4 leaves, odd head_dim — the per-op decode step)."""
+    leaves), "bf16" (dense bf16 leaves, or ``{"nt": w}`` leaves already
+    rewritten: mode (g)), or None (packed q4 leaves, dense f32 leaves,
+    odd head_dim — the per-op decode step)."""
     if head_dim % 2:
         return None
     lyr = decoder_params.get("layers", {})
@@ -284,11 +329,38 @@ def g32_matmul_plain(xq: torch.Tensor, sx: torch.Tensor, codes: torch.Tensor,
 _G32_CHUNK = 8192
 
 
-def _matmul_plain(xq, sx, codes, scales):
-    """The step's GEMV: W8A8 (scales [N]) or group-32 (scales [N, K/32])."""
-    if scales.dim() == 2:
-        return g32_matmul_plain(xq, sx, codes, scales)
-    return w8_matmul_plain(xq, sx, codes, scales)
+def bf16_matmul_plain(xb: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain version of mode (g)'s GEMV: xb [M, K] bf16, w [N, K] bf16 ->
+    [M, N] f32, the exact bf16 x bf16 products summed in f64 and rounded
+    once (as the kernel), over blocks of output rows (bounds the f64 copy
+    of the weights)."""
+    xd = xb.double()
+    return torch.cat([(xd @ w[n0:n0 + _G32_CHUNK].double().T).float()
+                      for n0 in range(0, w.shape[0], _G32_CHUNK)], dim=1)
+
+
+def _segs(w) -> tuple:
+    """A stack as its tuple of segments (mode (g) may split qkv / w13)."""
+    return w if isinstance(w, tuple) else (w,)
+
+
+def _layer(w, l: int):
+    """Layer l of a stack or of each of its segments."""
+    return tuple(t[l] for t in w) if isinstance(w, tuple) else w[l]
+
+
+def _linear_plain(h, w, scales, fmt: str) -> torch.Tensor:
+    """One streamed linear of the step on rows h [M, K] f32 -> [M, N] f32:
+    W8A8 (row scales [N]), group-32 (scales [N, K/32]) or, in mode (g),
+    h cast to bf16 against the dense bf16 segments."""
+    if fmt == "bf16":
+        xb = h.to(torch.bfloat16)
+        return torch.cat([bf16_matmul_plain(xb, t) for t in _segs(w)],
+                         dim=1)
+    xq, sx = _quant(h)
+    if fmt == "g32":
+        return g32_matmul_plain(xq, sx, w, scales)
+    return w8_matmul_plain(xq, sx, w, scales)
 
 
 def _spec_streams(rows: int, cache_rows: int, spec: int) -> int:
@@ -463,10 +535,12 @@ def decode_stack_step_plain(
     [L, B, Hkv, hd] cache dtype[, logits [B, V] f32]).
 
     Float reductions (sum of squares, scores, softmax sum, P.V, the g32
-    group sums) run in f64 and round once to f32, as the CUDA kernel
-    does: both agree bit for bit whatever order each sums in.  Mode (h):
-    g32 scale stacks [L, N, K/32] (and an lm scale [V, D/32]) select
-    the group-32 GEMV.  ``ring`` (mode (d)): the cache is a head+ring
+    group sums, the bf16 dots) run in f64 and round once to f32, as the
+    CUDA kernel does: both agree bit for bit whatever order each sums in.
+    Mode (h): g32 scale stacks [L, N, K/32] (and an lm scale [V, D/32])
+    select the group-32 GEMV.  Mode (g): bf16 stacks (or tuples of bf16
+    segments, :func:`fuse_decode_weights_bf16`) and a bf16 lm table, the
+    scales None.  ``ring`` (mode (d)): the cache is a head+ring
     buffer, masked per slot by
     :func:`~voxtral_tpu_torch.models.layers.ring_k_positions`.
     ``k_scales`` / ``v_scales`` (mode (e)): int8 caches, integer score
@@ -480,9 +554,10 @@ def decode_stack_step_plain(
     _check_cache_mode(k_cache, v_cache, k_scales, v_scales, cache_chunk,
                       spec, S)
     new_dtype = torch.bfloat16 if k_scales is not None else k_cache.dtype
-    _g32_mode(wqkv, wo, w13, w2, sqkv, so, s13, s2, lm_codes, lm_scale)
+    fmt = _weight_format(wqkv, wo, w13, w2, sqkv, so, s13, s2, lm_codes,
+                         lm_scale)
     nq, nkv = n_heads * head_dim, n_kv * head_dim
-    hidden = w2.shape[2]
+    hidden = _segs(w2)[0].shape[2]
     c, s = cos_p.float(), sin_p.float()
     if c.dim() == 2:  # per-row [B, hd] -> [B, 1, hd] against the heads
         c, s = c[:, None], s[:, None]
@@ -490,8 +565,12 @@ def decode_stack_step_plain(
     x = x.float()
     k_new, v_new = [], []
     for l in range(L):
+        def lin(h, w, sc):
+            return _linear_plain(h, _layer(w, l), None if sc is None
+                                 else sc[l], fmt)
+
         h = _rms(x, attn_norms[l].float(), eps)
-        qkv = _matmul_plain(*_quant(h), wqkv[l], sqkv[l])
+        qkv = lin(h, wqkv, sqkv)
         q = qkv[:, :nq].reshape(B, n_heads, head_dim)
         k = qkv[:, nq:nq + nkv].reshape(B, n_kv, head_dim)
         v = qkv[:, nq + nkv:].reshape(B, n_kv, head_dim)
@@ -504,18 +583,18 @@ def decode_stack_step_plain(
             head_dim ** -0.5, ring,
             None if k_scales is None else k_scales[l],
             None if v_scales is None else v_scales[l], cache_chunk)
-        x = x + _matmul_plain(*_quant(attn), wo[l], so[l])
+        x = x + lin(attn, wo, so)
 
         h = _rms(x, ffn_norms[l].float(), eps) * ada_vecs[l].float()
-        up = _matmul_plain(*_quant(h), w13[l], s13[l])
+        up = lin(h, w13, s13)
         gate, upv = up[:, :hidden], up[:, hidden:]
         hmid = gate * (1.0 / (1.0 + torch.exp(-gate))) * upv
-        x = x + _matmul_plain(*_quant(hmid), w2[l], s2[l])
+        x = x + lin(hmid, w2, s2)
     out = (x, torch.stack(k_new), torch.stack(v_new))
     if lm_codes is None:
         return out
     h = _rms(x, final_norm.float(), eps)
-    return (*out, _matmul_plain(*_quant(h), lm_codes, lm_scale))
+    return (*out, _linear_plain(h, lm_codes, lm_scale, fmt))
 
 
 # ---------------------------------------------------------------------------
@@ -604,6 +683,30 @@ def _check_cache_mode(k_cache, v_cache, k_scales, v_scales, cache_chunk,
         raise ValueError("k_scales/v_scales need int8 caches")
 
 
+def _weight_format(wqkv, wo, w13, w2, sqkv, so, s13, s2, lm_codes,
+                   lm_scale) -> str:
+    """"w8", "g32" (mode (h)) or "bf16" (mode (g)) from the stacks;
+    ValueError as the JAX wrapper's guards (``decode_step_pallas.py:
+    1405-1480``) for what a mode cannot take."""
+    segs = [_segs(w) for w in (wqkv, wo, w13, w2)]
+    if segs[0][0].dtype == torch.bfloat16:
+        if any(t.dtype != torch.bfloat16 for sg in segs for t in sg):
+            raise ValueError("bf16 weight mode needs bf16 stacks")
+        if (len(segs[0]) > 3 or len(segs[1]) != 1 or len(segs[2]) > 2
+                or len(segs[3]) != 1):
+            raise ValueError("bf16 weight mode streams qkv in up to three "
+                             "segments, w13 in up to two, wo and w2 whole")
+        if lm_codes is not None and lm_codes.dtype == torch.int8:
+            raise ValueError("lm_codes dtype must match the weight mode")
+        return "bf16"
+    if any(len(sg) > 1 for sg in segs):
+        raise ValueError("segmented stacks need the bf16 weight mode")
+    if lm_codes is not None and lm_codes.dtype != torch.int8:
+        raise ValueError("lm_codes dtype must match the weight mode")
+    return "g32" if _g32_mode(wqkv, wo, w13, w2, sqkv, so, s13, s2,
+                              lm_codes, lm_scale) else "w8"
+
+
 def _g32_mode(wqkv, wo, w13, w2, sqkv, so, s13, s2, lm_codes,
               lm_scale) -> bool:
     """True for mode (h): g32 scale stacks [L, N, K/32].  ValueError as
@@ -654,7 +757,10 @@ def decode_stack_step(
     sliding window (None: no lower bound).  ``spec=K > 1`` verifies K
     drafted tokens per stream: row j also attends the fresh K/V of rows
     i < j of its stream.  g32 stacks from :func:`fuse_decode_weights_q4g`
-    select mode (h).  ``ring=(head, size)`` (mode (d)): the caches are
+    select mode (h); bf16 stacks (``wqkv`` and ``w13`` may be tuples of
+    segments) with a bf16 lm table and no scales, from
+    :func:`fuse_decode_weights_bf16`, mode (g).  ``ring=(head, size)``
+    (mode (d)): the caches are
     head+ring buffers and ``offset`` the absolute position (any
     non-negative int or tensor; slots by ``layers.ring_k_positions``).
     int8 caches with ``k_scales`` / ``v_scales`` [L, Bc, Hkv, S] f32
@@ -684,10 +790,11 @@ def decode_stack_step(
     B, D = x.shape
     L, Bc, Hkv, S, hd = k_cache.shape
     Bc = _spec_streams(B, Bc, spec)
-    g32 = _g32_mode(wqkv, wo, w13, w2, sqkv, so, s13, s2, lm_codes,
-                    lm_scale)
+    fmt = _weight_format(wqkv, wo, w13, w2, sqkv, so, s13, s2, lm_codes,
+                         lm_scale)
+    g32, bf16 = fmt == "g32", fmt == "bf16"
     nq, nkvd = n_heads * head_dim, n_kv * head_dim
-    F = w2.shape[2]
+    F = _segs(w2)[0].shape[2]
     offs = None
     if isinstance(offset, torch.Tensor):
         _require(offset.dtype == torch.int32 and offset.shape == (Bc,)
@@ -713,8 +820,10 @@ def decode_stack_step(
              "head_dim must be even and <= 256, n_kv must divide n_heads")
     rope_shape = (head_dim,) if cos_p.dim() == 1 else (B, head_dim)
     cache_dtype = torch.int8 if kv_int8 else torch.bfloat16
-    # Row scales [L, N] f32 (w8) or group scales [L, N, K/32] f16 (g32).
+    # Row scales [L, N] f32 (w8) or group scales [L, N, K/32] f16 (g32);
+    # mode (g) has none.
     sdt = torch.float16 if g32 else torch.float32
+    wdt = torch.bfloat16 if bf16 else torch.int8
 
     def sshape(n, k):
         return (L, n, k // 32) if g32 else (L, n)
@@ -724,19 +833,35 @@ def decode_stack_step(
         "attn_norms": (attn_norms, torch.float32, (L, D)),
         "ffn_norms": (ffn_norms, torch.float32, (L, D)),
         "ada_vecs": (ada_vecs, torch.float32, (L, D)),
-        "sqkv": (sqkv, sdt, sshape(nq + 2 * nkvd, D)),
-        "so": (so, sdt, sshape(D, nq)),
-        "s13": (s13, sdt, sshape(2 * F, D)),
-        "s2": (s2, sdt, sshape(D, F)),
         "cos_p": (cos_p, torch.float32, rope_shape),
         "sin_p": (sin_p, torch.float32, rope_shape),
         "k_cache": (k_cache, cache_dtype, (L, Bc, n_kv, S, head_dim)),
         "v_cache": (v_cache, cache_dtype, (L, Bc, n_kv, S, head_dim)),
-        "wqkv": (wqkv, torch.int8, (L, nq + 2 * nkvd, D)),
-        "wo": (wo, torch.int8, (L, D, nq)),
-        "w13": (w13, torch.int8, (L, 2 * F, D)),
-        "w2": (w2, torch.int8, (L, D, F)),
+        "wo": (_segs(wo)[0], wdt, (L, D, nq)),
+        "w2": (_segs(w2)[0], wdt, (L, D, F)),
     }
+    qkv_segs, w13_segs = _segs(wqkv), _segs(w13)
+    if bf16:
+        # The segments' rows add up to the stack's; two w13 segments are
+        # w1 and w3, F rows each.
+        for name, sg, n in (("wqkv", qkv_segs, nq + 2 * nkvd),
+                            ("w13", w13_segs, 2 * F)):
+            rows = [t.shape[1] if t.dim() == 3 else -1 for t in sg]
+            _require(sum(rows) == n and all(r > 0 for r in rows)
+                     and (name == "wqkv" or len(sg) == 1 or rows[0] == F),
+                     f"{name} segments of {rows} rows do not make the "
+                     f"{n} rows of the stack")
+            for i, t in enumerate(sg):
+                expect[f"{name}[{i}]"] = (t, wdt, (L, t.shape[1], D))
+    else:
+        expect.update({
+            "sqkv": (sqkv, sdt, sshape(nq + 2 * nkvd, D)),
+            "so": (so, sdt, sshape(D, nq)),
+            "s13": (s13, sdt, sshape(2 * F, D)),
+            "s2": (s2, sdt, sshape(D, F)),
+            "wqkv": (wqkv, wdt, (L, nq + 2 * nkvd, D)),
+            "w13": (w13, wdt, (L, 2 * F, D)),
+        })
     if kv_int8:
         expect["k_scales"] = (k_scales, torch.float32, (L, Bc, n_kv, S))
         expect["v_scales"] = (v_scales, torch.float32, (L, Bc, n_kv, S))
@@ -744,9 +869,10 @@ def decode_stack_step(
     if lm_codes is not None:
         V = lm_codes.shape[0]
         expect["final_norm"] = (final_norm, torch.float32, (D,))
-        expect["lm_codes"] = (lm_codes, torch.int8, (V, D))
-        expect["lm_scale"] = (lm_scale, sdt,
-                              (V, D // 32) if g32 else (V,))
+        expect["lm_codes"] = (lm_codes, wdt, (V, D))
+        if not bf16:  # a dense table carries no scale
+            expect["lm_scale"] = (lm_scale, sdt,
+                                  (V, D // 32) if g32 else (V,))
     for name, (t, dtype, shape) in expect.items():
         _require(t is not None and t.dtype == dtype
                  and tuple(t.shape) == shape,
@@ -761,7 +887,8 @@ def decode_stack_step(
                         device=dev)
     v_new = torch.empty_like(k_new)
     logits = torch.empty((B, V), **f32) if V else None
-    xq_buf = torch.empty((B, max(D, nq, F)), dtype=torch.int8, device=dev)
+    # The GEMVs' input rows: int8 codes, or bf16 in mode (g).
+    xq_buf = torch.empty((B, max(D, nq, F)), dtype=wdt, device=dev)
     sx_buf = torch.empty((B,), **f32)
     qkv_buf = torch.empty((B, nq + 2 * nkvd), **f32)
     attn_buf = torch.empty((B, nq), **f32)
@@ -770,21 +897,31 @@ def decode_stack_step(
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    def seg(sg, i):
+        return sg[i] if i < len(sg) else None
+
     ring_head, ring_size = ring if ring is not None else (0, 0)
-    fn = kernel_fn("vx_decode_stack_step", [_P] * 31 + [_I] * 17
+    fn = kernel_fn("vx_decode_stack_step", [_P] * 34 + [_I] * 19
                    + [_F, _F, _P])
     stream = torch.cuda.current_stream(dev).cuda_stream
+    qkv_b = seg(qkv_segs, 1)
     code = fn(
         ptr(x), ptr(x_out), ptr(attn_norms), ptr(ffn_norms), ptr(ada_vecs),
-        ptr(sqkv), ptr(so), ptr(s13), ptr(s2), ptr(cos_p), ptr(sin_p),
-        ptr(k_cache), ptr(v_cache), ptr(wqkv), ptr(wo), ptr(w13), ptr(w2),
-        ptr(final_norm), ptr(lm_codes), ptr(lm_scale),
+        ptr(None if bf16 else sqkv), ptr(None if bf16 else so),
+        ptr(None if bf16 else s13), ptr(None if bf16 else s2), ptr(cos_p),
+        ptr(sin_p), ptr(k_cache), ptr(v_cache), ptr(qkv_segs[0]),
+        ptr(_segs(wo)[0]), ptr(w13_segs[0]), ptr(_segs(w2)[0]),
+        ptr(final_norm), ptr(lm_codes), ptr(None if bf16 else lm_scale),
         ptr(k_new), ptr(v_new), ptr(logits),
         ptr(xq_buf), ptr(sx_buf), ptr(qkv_buf), ptr(attn_buf), ptr(up_buf),
-        ptr(offs), ptr(k_scales), ptr(v_scales), B, D, L, S, n_heads, n_kv,
-        head_dim, F, V, offset, spec, 0 if cos_p.dim() == 1 else head_dim,
-        -1 if window is None else int(window), int(g32), ring_head,
-        ring_size, int(cache_chunk or 0), eps, head_dim ** -0.5, stream)
+        ptr(offs), ptr(k_scales), ptr(v_scales), ptr(qkv_b),
+        ptr(seg(qkv_segs, 2)), ptr(seg(w13_segs, 1)), B, D, L, S, n_heads,
+        n_kv, head_dim, F, V, offset, spec,
+        0 if cos_p.dim() == 1 else head_dim,
+        -1 if window is None else int(window),
+        {"w8": 0, "g32": 1, "bf16": 2}[fmt], qkv_segs[0].shape[1],
+        0 if qkv_b is None else qkv_b.shape[1], ring_head, ring_size,
+        int(cache_chunk or 0), eps, head_dim ** -0.5, stream)
     check(code, "decode_stack_step")
     decode_stack_step.launches += 1
     out = (x_out, k_new, v_new)

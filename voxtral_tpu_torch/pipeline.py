@@ -7,9 +7,12 @@ model transcribe (chunks of one padded length decode as one batch) ->
 decode tokens (control tokens filtered) -> join chunk texts.
 
 The log-mel always runs on the host here: the port has no device mel
-yet (ROADMAP queue 1, item 10).  Models come from a parameter tree
-(``VoxtralModel``) or from a Q4_0 GGUF file (:meth:`TranscribePipeline.
-from_gguf`, weight formats q4 / q4g / w8).
+yet (ROADMAP queue 1, item 10c).  Models come from a parameter tree
+(``VoxtralModel``), a SafeTensors model directory
+(:meth:`TranscribePipeline.from_model_dir`, bf16 / f32 / w8) or a Q4_0
+GGUF file (:meth:`TranscribePipeline.from_gguf`, q4 / q4g / w8); the
+converted trees of the w8 and GGUF loads may be cached on disk
+(``params_cache``, the JAX package's format).
 """
 
 from __future__ import annotations
@@ -86,6 +89,60 @@ class TranscribePipeline:
             self.pcfg.max_mel_frames)
 
     @classmethod
+    def from_model_dir(
+        cls,
+        model_dir,
+        dtype: str = "bfloat16",
+        pipeline_config: Optional[PipelineConfig] = None,
+        params_cache=None,
+        device: DeviceLike = None,
+    ) -> "TranscribePipeline":
+        """SafeTensors path (JAX ``TranscribePipeline.from_model_dir``): a
+        directory with consolidated.safetensors, params.json and
+        tekken.json (``hub.ModelPaths.from_dir``).  ``dtype``: "bfloat16"
+        or "float32" (the dense tree, read straight to the device), or
+        "w8" (requantized to rowwise int8 at load, on the host).
+        ``params_cache``: a directory caching the w8 tree, so a warm
+        start skips the requantization; dense dtypes bypass it, as in
+        JAX.  ``device``: ``None`` is the card."""
+        from voxtral_tpu_torch.hub import ModelPaths
+        from voxtral_tpu_torch.loaders.safetensors_loader import (
+            load_voxtral_params,
+        )
+
+        if dtype not in ("bfloat16", "float32", "w8"):
+            raise ValueError(
+                f"dtype must be bfloat16, float32 or w8, got {dtype!r}")
+        device = resolve_device(device)
+        paths = ModelPaths.from_dir(model_dir)
+        cfg = VoxtralConfig.from_file(paths.params)
+        t0 = time.time()
+        if dtype == "w8":
+            from voxtral_tpu_torch.convert import params_from_numpy
+            from voxtral_tpu_torch.utils.quantize import quantize_params_w8
+
+            def build():
+                return quantize_params_w8(load_voxtral_params(
+                    paths.weights, cfg, "float32", to_device=False))
+
+            if params_cache:
+                from voxtral_tpu_torch.loaders.param_cache import (
+                    load_or_build,
+                )
+
+                params = load_or_build(params_cache, paths.weights, "w8",
+                                       build, device)
+            else:
+                params = params_from_numpy(build(), device)
+        else:
+            params = load_voxtral_params(paths.weights, cfg, dtype,
+                                         device=device)
+        log.info("loaded safetensors weights (%s) in %.1fs on %s", dtype,
+                 time.time() - t0, device)
+        return cls(VoxtralModel(params, cfg, device),
+                   VoxtralTokenizer.from_file(paths.tekken), pipeline_config)
+
+    @classmethod
     def from_gguf(
         cls,
         gguf_path,
@@ -101,14 +158,12 @@ class TranscribePipeline:
         Architecture config: explicit ``config`` > a ``params.json`` next
         to the GGUF file > production defaults.  ``weight_format``: "q4"
         (packed, per-op decode on K3), "q4g" (exact Q4_0, K1 mode (h)) or
-        "w8" (requantized at load).  ``device``: ``None`` is the card.
+        "w8" (requantized at load).  ``params_cache``: a directory caching
+        the repacked / requantized tree, so a warm start skips the
+        conversion.  ``device``: ``None`` is the card.
         """
         from voxtral_tpu_torch.loaders.gguf_loader import Q4ModelLoader
 
-        if params_cache:
-            raise NotImplementedError(
-                "params_cache is not ported to voxtral_tpu_torch yet "
-                "(ROADMAP queue 1, item 9)")
         device = resolve_device(device)
         gguf_path = Path(gguf_path)
         if config is None:
@@ -117,9 +172,25 @@ class TranscribePipeline:
                 config = VoxtralConfig.from_file(sidecar)
                 log.info("using architecture config from %s", sidecar)
         t0 = time.time()
-        loader = Q4ModelLoader.from_file(gguf_path, cfg=config,
-                                         weight_format=weight_format)
-        model = VoxtralModel(loader.load(device), loader.cfg, device)
+        if params_cache:
+            from voxtral_tpu_torch.loaders.param_cache import load_or_build
+
+            loader = [None]
+
+            def build():
+                loader[0] = Q4ModelLoader.from_file(
+                    gguf_path, cfg=config, weight_format=weight_format)
+                return loader[0].load_numpy()
+
+            params = load_or_build(params_cache, gguf_path, weight_format,
+                                   build, device)
+            cfg = loader[0].cfg if loader[0] else (
+                config or VoxtralConfig.voxtral())
+            model = VoxtralModel(params, cfg, device)
+        else:
+            loader = Q4ModelLoader.from_file(gguf_path, cfg=config,
+                                             weight_format=weight_format)
+            model = VoxtralModel(loader.load(device), loader.cfg, device)
         log.info("loaded GGUF Q4 weights (%s) in %.1fs on %s", weight_format,
                  time.time() - t0, device)
         return cls(model, VoxtralTokenizer.from_file(tokenizer_path),

@@ -16,10 +16,12 @@ input equals the one-shot computation.  Step layout (P =
 The 76-token silence left pad is prepended (it covers the 38-position
 prefill).  Routes follow the model's (``VoxtralModel.decode_route``):
 
-* "w8" / "q4g": steady steps decode through the K1 stack step, its
-  head+ring mask (mode (d)) on unbounded sessions, its ``spec=K`` mode
-  (b) with a device-resident offset when ``speculative=K``;
-* "per_op" (packed q4): the decoder op by op, K3 on every linear.
+* "w8" / "q4g" / "bf16": steady steps decode through the K1 stack step
+  (weight modes a / h / g), its head+ring mask (mode (d)) on unbounded
+  sessions, its ``spec=K`` mode (b) with a device-resident offset when
+  ``speculative=K``;
+* "per_op" (packed q4, dense f32): the decoder op by op, K3 on every
+  packed linear; f32 models keep f32 caches, as JAX's.
 
 The first step (encoder frames [0, 4 (38 + P)), the prefill, the first
 token and the P - 1 positions after it) runs the decoder op by op on
@@ -371,8 +373,8 @@ class StreamPool:
         if model.fused_decode is None:
             if spec > 1:
                 raise ValueError(
-                    "speculative pools need the fused K1 step (w8 or q4g "
-                    f"weights); this model decodes {model.decode_route}")
+                    "speculative pools need the fused K1 step (w8, q4g or "
+                    f"bf16 weights); this model decodes {model.decode_route}")
         else:
             refused = []
             for item, chunk in ladder:
@@ -403,8 +405,11 @@ class StreamPool:
                     "cache ladder -- " + "; ".join(refused))
         self._s_dec, self._s_enc = s_dec, s_enc
 
-        # Admission from the exact shapes allocated below.
-        cds = 2  # bf16
+        # Admission from the exact shapes allocated below.  The caches take
+        # the model's cache dtype (bf16; f32 on an f32 model's generic
+        # pool).
+        cdt = model.cache_dtype
+        cds = torch.empty((), dtype=cdt).element_size()
         shape_e = (enc.n_layers, self.B, s_enc, enc.n_kv_heads, enc.head_dim)
         cache_bytes = 2 * math.prod(shape_e) * cds
         per_slot = 2 * lm.n_layers * lm.n_kv_heads * s_dec
@@ -421,7 +426,6 @@ class StreamPool:
                   f"StreamPool(max_streams={self.B}, unbounded={unbounded}, "
                   f"kv_dtype={kv_dtype!r})", rows=self.B)
 
-        cdt = torch.bfloat16
         # Encoder caches [L, B, S, H, hd]: a slot is the batch-1 view
         # [:, b:b + 1] (JAX keeps [B, L, 1, S, H, hd] and vmaps).
         self.enc_k = torch.zeros(shape_e, dtype=cdt, device=dev)
@@ -594,7 +598,7 @@ class StreamPool:
             enc_k, enc_v = pad(enc_k, self._s_enc), pad(enc_v, self._s_enc)
 
         def dev16(a):
-            return to_torch(a, dev).to(torch.bfloat16)
+            return to_torch(a, dev).to(self.model.cache_dtype)
 
         if self._fused is not None:
             self._write_fused_slot(b, to_torch(dk, dev)[:, 0],
@@ -1031,8 +1035,8 @@ class StreamingSession:
         if self.speculative > 1:
             if not self._fused:
                 raise ValueError(
-                    "speculative decode needs the fused K1 step (w8 or q4g "
-                    f"weights); this model decodes {model.decode_route}")
+                    "speculative decode needs the fused K1 step (w8, q4g or "
+                    f"bf16 weights); this model decodes {model.decode_route}")
             if self.speculative > self.P:
                 raise ValueError(
                     f"speculative={self.speculative} must be <= "
@@ -1041,8 +1045,9 @@ class StreamingSession:
             # No per-op fallback: a geometry K1 cannot take is an error.
             k1.check_geometry(self._max_dec, lm.head_dim, lm.sliding_window,
                               max(1, self.speculative), self._dec_ring)
-        cache_dtype = torch.bfloat16
-        self.cache_bytes = 2 * 2 * (
+        cache_dtype = model.cache_dtype  # bf16; f32 on an f32 model
+        itemsize = torch.empty((), dtype=cache_dtype).element_size()
+        self.cache_bytes = 2 * itemsize * (
             enc.n_layers * self._max_enc * enc.n_kv_heads * enc.head_dim
             + lm.n_layers * self._max_dec * lm.n_kv_heads * lm.head_dim)
         check_hbm(model, self.cache_bytes,
@@ -1509,7 +1514,7 @@ class StreamingSession:
         def cache(a):  # numpy (f32 or bf16) or a tensor
             if not isinstance(a, torch.Tensor):
                 a = to_torch(np.asarray(a), dev)
-            return a.to(dev, torch.bfloat16, copy=True)
+            return a.to(dev, model.cache_dtype, copy=True)
 
         s._prev_audio = cache(state["prev_audio"]).to(model.compute_dtype)
         s.enc_cache = KVCache(cache(state["enc_k"]), cache(state["enc_v"]),

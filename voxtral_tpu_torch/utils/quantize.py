@@ -1,12 +1,18 @@
-"""Host-side (numpy) construction of w8 and Q4_0 parameter trees.
+"""Construction of random and quantized parameter trees.
 
-numpy copies of ``voxtral_tpu/utils/quantize.py``'s
+Host-side (numpy) copies of ``voxtral_tpu/utils/quantize.py``'s
 ``random_w8_params``, ``quantize_params_w8``, ``random_q4_params`` and
 ``quantize_params_q4`` (the port imports nothing of the JAX package).
-The trees are the JAX package's own format — numpy leaves,
+Those trees are the JAX package's own format — numpy leaves,
 ``{"w8": {"codes", "scale"}}`` dicts, bfloat16 ``ml_dtypes`` arrays and
 ``[L, ...]`` stacks — so one tree feeds both packages
 (:func:`voxtral_tpu_torch.convert.params_from_numpy` moves it to torch).
+
+:func:`random_dense_params`, the counterpart of JAX's
+``VoxtralModel.init_random``, builds its dense tree on the device from a
+seeded ``torch.Generator`` instead: 4.3 billion normal draws take
+minutes in numpy.  Its values are not ``jax.random``'s; tests carry the
+JAX tree across through numpy.
 """
 
 from __future__ import annotations
@@ -14,7 +20,9 @@ from __future__ import annotations
 from typing import Any
 
 import numpy as np
+import torch
 
+from voxtral_tpu_torch.device import DeviceLike, resolve_device
 from voxtral_tpu_torch.ops.q4 import quantize_q4_0, repack_q4_0
 from voxtral_tpu_torch.ops.q4_kernel import pack_codes, transpose_scales
 from voxtral_tpu_torch.ops.w8 import quantize_w8_rowwise
@@ -132,6 +140,76 @@ def random_w8_params(cfg, seed: int = 0) -> Params:
         "w1": _rand_w8(rng, a.output_dim, a.input_dim),
         "w2": _rand_w8(rng, a.output_dim, a.output_dim),
     }
+    return {"encoder": encoder, "decoder": decoder, "adapter": adapter}
+
+
+def random_dense_params(cfg, seed: int = 0, dtype=torch.bfloat16,
+                        device: DeviceLike = None,
+                        scale: float = 0.02) -> Params:
+    """Random dense weights at the configuration's shapes, built on
+    ``device`` (``None``: the card): the layout and the draws' law of
+    JAX's ``init_encoder_params`` / ``init_decoder_params`` /
+    ``init_adapter_params`` (normal(0, ``scale``) linears [in, out] and
+    conv kernels, zero biases, unit norms; JAX draws with 0.02), in
+    ``dtype`` (bf16 or f32).
+    Every draw comes from one ``torch.Generator`` seeded with ``seed``,
+    a layer (or 16384 table rows) at a time, so the f32 draws never
+    outgrow one layer."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    e, lm, a = cfg.audio_encoder, cfg.language_model, cfg.adapter
+    tc = cfg.ada_rms_norm_t_cond_dim or 32
+
+    def init(*shape):
+        out = torch.empty(shape, dtype=dtype, device=dev)
+        step = 16384 if len(shape) == 2 else 1
+        for i in range(0, shape[0], step):
+            part = out[i:i + step]
+            part.copy_(torch.randn(part.shape, generator=gen, device=dev)
+                       * scale)
+        return out
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=dev)
+
+    L, d, f = e.n_layers, e.dim, e.hidden_dim
+    q = e.n_heads * e.head_dim
+    encoder = {
+        "conv": {"conv1": init(d, 128, 3), "conv1_b": zeros(d),
+                 "conv2": init(d, d, 3), "conv2_b": zeros(d)},
+        "layers": {
+            "attention_norm": ones(L, d),
+            "attention": {"wq": init(L, d, q), "wq_b": zeros(L, q),
+                          "wk": init(L, d, q), "wv": init(L, d, q),
+                          "wv_b": zeros(L, q), "wo": init(L, q, d),
+                          "wo_b": zeros(L, d)},
+            "ffn_norm": ones(L, d),
+            "ffn": {"w1": init(L, d, f), "w2": init(L, f, d),
+                    "w2_b": zeros(L, d), "w3": init(L, d, f)},
+        },
+        "norm": ones(d),
+    }
+    L, d, f = lm.n_layers, lm.dim, lm.hidden_dim
+    nq, nkv = lm.n_heads * lm.head_dim, lm.n_kv_heads * lm.head_dim
+    decoder = {
+        "tok_embeddings": init(lm.vocab_size, d),
+        "layers": {
+            "ada": {"w0": init(L, d, tc), "w2": init(L, tc, d)},
+            "attention_norm": ones(L, d),
+            "attention": {"wq": init(L, d, nq), "wk": init(L, d, nkv),
+                          "wv": init(L, d, nkv), "wo": init(L, nq, d)},
+            "ffn_norm": ones(L, d),
+            "ffn": {"w1": init(L, d, f), "w2": init(L, f, d),
+                    "w3": init(L, d, f)},
+        },
+        "norm": ones(d),
+    }
+    adapter = {"w1": init(a.input_dim, lm.dim),
+               "w2": init(lm.dim, a.output_dim)}
     return {"encoder": encoder, "decoder": decoder, "adapter": adapter}
 
 
