@@ -21,9 +21,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              speculative (PipelineConfig(speculative=8), draft "ngram"
              and "pad"), each run with the launch counters set to 0 just
              before and read just after, tokens held against the same
-             pipelines through the plain versions (near-tie rule; the
-             pad-draft pair on the chirp's first 4 s, a pass per token
-             being slow through the plain versions), every speculative
+             pipelines through the plain versions on the chirp's first
+             8 s (near-tie rule; the pad-draft pair on its first 3 s, a
+             pass per token being slow there), every speculative
              pass one K1 launch; then three mels (x, 0.9 x,
              1.1 x) with speculative=4 against the sequential batch.
 4. K3      — q4_matmul (packed Q4_0 dequant + matmul) against its plain
@@ -49,15 +49,16 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              version at full width (S = 8238, ring (38, 8200), before and
              after the wrap, the head outside the window, spec=8 rows
              straddling the ring's end), timed with the window full and
-             at a short history; a 45 s chirp fed in ragged pieces to a
+             at a short history; a 40 s chirp fed in ragged pieces to a
              bounded (120 s) and an unbounded session, tokens against
              the same sessions through the plain versions (over the
-             first 10 s bounded and 38 s unbounded, past the encoder
-             ring's wrap: the streams are causal), bounded
+             first 8 s of each, and the unbounded one from its kernel
+             twin's checkpoint at 28 s to 38 s, past the encoder ring's
+             wrap: the streams are causal), bounded
              against unbounded and the unbounded session against the
              one-shot path (near-tie rules), speculative=8 with pad and
              ngram drafts against sequential; a session restored 2P
-             positions short of the decoder ring's wrap runs 6 steps
+             positions short of the decoder ring's wrap runs 4 steps
              through it, kernels against plain.  8b (q4g): K1 (d) in g32
              and the unbounded session, sequential and speculative.  8c
              (q4): a short bounded session on the per-op step (K3 launch
@@ -76,12 +77,15 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              through the plain versions (those stopped after some ticks
              and held as a prefix), tokens equal slot by slot: B = 4
              unbounded with bf16 and with int8 caches (four 14 s chirps
-             started a step apart, one finished half way and a fresh
+             started a step apart, one finished at tick 6 and a fresh
              session attached to its slot; step ms by ready rows, the
              aggregate step RTF, the step's bound, cache bytes against
              the formula, peak memory); speculative=8 pools, pad and
              ngram drafts on both cache types, against the sequential
-             pool over its first 8 ticks; four slots restored at four
+             pool over its first 8 ticks, and an ngram pool with all
+             four chirps started in one tick and every slot live for 8
+             ticks against the sequential pool of that start (tokens
+             per pass); four slots restored at four
              ring phases with their windows full (synthetic checkpoints),
              4 steps together, on both cache types; the chunked rung forced by replacing
              ``_fused_plan``, bounded and unbounded; a pooled stream
@@ -117,6 +121,27 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              library path's text.  11c
              (f32): the per-op step on the chirp's first 4 s (no kernel
              launched), RTF and peak memory.
+12. batched — after the w8 sessions, on their model: K7
+             decode_layer_step alone against its plain version at full
+             width (layers 0 and 25, 1 and 8 rows, S = 151 at offsets 40
+             and 150, and S = 8400 at offset 8300 with the window full),
+             bit for bit, timed beside its bound; the merge cost
+             measured (the one-shot decode loop's ms per position at 1,
+             2, 4, 8 rows of the 16 s chirp, fitted to c0 + c1 B; the
+             encode half per position) beside pipeline.DEFAULT_MERGE_COST;
+             TranscribePipeline.transcribe_samples_batched on eight
+             chirps of 4-16 s (batch_size=8), tokens and texts held to
+             each buffer alone, aggregate tok/s beside one at a time, the
+             plain side on three 2 s buffers in one batch; the same batch
+             on the per-layer route (oneshot_plan replaced): K7 launches
+             == 26 x steps, no K1, tokens == the stack route's, decode
+             memory below the stack route's; the route's step ms at 1
+             and 8 rows; oneshot_plan's rungs on this card in rows of
+             30 s chunks; a 40 s file at max_mel_frames=1500 (15 / 15 /
+             10 s) under the measured cost, a forced merge and none,
+             held to each chunk alone.  Phase 7 also runs the CLI's
+             --audio-list with --batch-files 4 and --timestamps on the
+             --model directory.
 9. numbers — RTF, decode ms/token, the weight stream per decode step
              against its bound, passes, peak GPU memory, the sessions'
              step ms and step RTF against the step's bound, time to first
@@ -149,6 +174,7 @@ from pathlib import Path
 import numpy as np
 
 AUDIO_SECS = 16.0
+W8_PLAIN_SECS = 8.0   # the w8 plain-path one-shot runs (sequential, ngram)
 PAD_PLAIN_SECS = 3.0  # the plain-path pad-draft speculative run (w8)
 Q4G_PLAIN_SECS = 8.0  # the q4g plain paths (sequential, spec), a prefix
 Q4_SECS = 4.0         # the packed-q4 one-shot (per-op, host-bound)
@@ -242,6 +268,26 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, reps: int = 20, iters: int = 10) -> float:
+    """Device ms per call of ``fn`` with the host out of the way: ``reps``
+    calls captured in one CUDA graph, the graph replayed ``iters`` times
+    (for a wrapper whose host work outlasts its kernels)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = cuda_ms(graph.replay, iters) / reps
+    del graph
+    return ms
 
 
 def in_turns(kernel_fn, plain_fn, iters: int, plain_iters: int):
@@ -575,13 +621,7 @@ def counted_run(pipe, sig, dev):
     where the tokens can be read."""
     import torch
 
-    from voxtral_tpu_torch.ops import decode_step as k1
-    from voxtral_tpu_torch.ops import q4_kernel as k3
-    from voxtral_tpu_torch.ops import w8_kernel as k2
-
-    counters = {"w8_matmul": k2.w8_matmul,
-                "decode_stack_step": k1.decode_stack_step,
-                "q4_matmul": k3.q4_matmul_packed}
+    counters = stream_counters()
     chunks = pipe._chunk_tokens(sig, SR)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -642,7 +682,14 @@ def run_w8(cfg, dev, card, sig, tok):
     k1w = check_k1_modes(model, dev, card)
 
     pipe = TranscribePipeline(model, tok)
-    wall, launches, peak_gb, chunks = counted_run(pipe, sig, dev)
+    # The kernel path's margins judge near-ties against the speculative
+    # runs (bit-equal to the plain path's where both ran).
+    model.record_margins = True
+    try:
+        wall, launches, peak_gb, chunks = counted_run(pipe, sig, dev)
+        seq_margins = model.last_margins[0].copy()
+    finally:
+        model.record_margins = False
     if len(chunks) != 1:
         fail(f"16 s should be one chunk, got {len(chunks)}")
     tokens = chunks[0]
@@ -667,12 +714,18 @@ def run_w8(cfg, dev, card, sig, tok):
           f"{launches['w8_matmul']} (encoder + adapter + prefill linears: "
           f"{min_k2}), K1 decode_stack_step {launches['decode_stack_step']}",
           flush=True)
-    p_tokens, seq_margins = plain_tokens(plain, tok, sig)
-    same = first_divergence("w8 sequential kernel vs plain", tokens,
-                            p_tokens, seq_margins, MARGIN_TIE)
-    print(f"tokens kernel == plain: {same} ({len(set(tokens.tolist()))} "
-          f"distinct; min plain top-2 margin {float(seq_margins.min()):.3e})",
-          flush=True)
+    # The plain versions take ~0.1 s a step: the pairs run on the chirp's
+    # first W8_PLAIN_SECS (PAD_PLAIN_SECS with pad drafts, a pass per
+    # token).
+    head = sig[:int(W8_PLAIN_SECS * SR)]
+    k_head = pipe._chunk_tokens(head, SR)[0]
+    p_tokens, p_margins = plain_tokens(plain, tok, head)
+    same = first_divergence("w8 sequential kernel vs plain", k_head,
+                            p_tokens, p_margins, MARGIN_TIE)
+    print(f"tokens kernel == plain over the first {W8_PLAIN_SECS:.0f} s "
+          f"({len(k_head)} tokens): {same} ({len(set(tokens.tolist()))} "
+          f"distinct over 16 s; min plain top-2 margin "
+          f"{float(p_margins.min()):.3e})", flush=True)
 
     spec_runs = {}
     for draft in ("ngram", "pad"):
@@ -691,11 +744,9 @@ def run_w8(cfg, dev, card, sig, tok):
             fail(f"{tag}: {len(s_tokens)} tokens != {n_tok}")
         same_seq = first_divergence(f"{tag} vs sequential kernel", s_tokens,
                                     tokens, seq_margins, SPEC_MARGIN_TIE)
-        # Pad drafts take a pass per token, 0.26 s each through the plain
-        # versions: that pair runs on the chirp's first PAD_PLAIN_SECS.
-        part = sig if draft == "ngram" else sig[:int(PAD_PLAIN_SECS * SR)]
-        k_tokens = (s_tokens if draft == "ngram"
-                    else spipe._chunk_tokens(part, SR)[0])
+        part = sig[:int((W8_PLAIN_SECS if draft == "ngram"
+                         else PAD_PLAIN_SECS) * SR)]
+        k_tokens = spipe._chunk_tokens(part, SR)[0]
         ps_tokens, ps_margins = plain_tokens(plain, tok, part, pcfg)
         if len(k_tokens) != len(ps_tokens) or len(k_tokens) < 2 * SPEC_K:
             fail(f"{tag}: {len(k_tokens)} kernel tokens against "
@@ -1025,10 +1076,13 @@ def run_q4(tree, cfg, dev, card, sig, tok):
 # Streaming sessions
 # ---------------------------------------------------------------------------
 
-STREAM_SECS = 45.0     # w8: past the encoder ring's wrap (~38 s)
-# How far the plain-path w8 sessions run: the unbounded one past the
-# encoder ring's wrap.
-PLAIN_BOUNDED_SECS, PLAIN_UNBOUNDED_SECS = 10.0, 38.0
+STREAM_SECS = 40.0     # w8: past the encoder ring's wrap (~32 s)
+# How far the plain-path w8 sessions run from the start (their first
+# steps), and the unbounded one's second stretch, restored from the
+# kernel session's checkpoint at WRAP_FROM_SECS, through the encoder
+# ring's wrap to PLAIN_WRAP_SECS.
+PLAIN_BOUNDED_SECS = PLAIN_UNBOUNDED_SECS = 8.0
+WRAP_FROM_SECS, PLAIN_WRAP_SECS = 28.0, 38.0
 Q4G_STREAM_SECS = 20.0
 Q4G_PLAIN_STREAM_SECS = 10.0  # the q4g session's plain twin, as a prefix
 Q4_STREAM_SECS = 8.0
@@ -1225,10 +1279,12 @@ def stream_counters():
     from voxtral_tpu_torch.ops import w8_kernel as k2
 
     return {"w8_matmul": k2.w8_matmul, "decode_stack_step": k1.decode_stack_step,
+            "decode_layer_step": k1.decode_layer_step,
             "q4_matmul": k3.q4_matmul_packed}
 
 
-def stream_run(model, pieces, dev, keep=False, finish=True, **kw) -> dict:
+def stream_run(model, pieces, dev, keep=False, finish=True,
+               snapshot_secs=None, **kw) -> dict:
     """One StreamingSession over ``pieces`` then finish() (unless
     ``finish`` is False: the tokens are then a prefix of the whole
     stream's), each feed timed to a synchronize, with every launch
@@ -1236,7 +1292,9 @@ def stream_run(model, pieces, dev, keep=False, finish=True, **kw) -> dict:
     the time to first text; a feed that advanced by exactly P positions
     one steady step's time.  ``keep`` (a sequential session) also keeps
     each position's logits [n, V] and audio embed [n, D] on the device,
-    as ``kept``."""
+    as ``kept``.  ``snapshot_secs``: the session's state_dict after the
+    first piece that ends past that much audio, and the count of pieces
+    fed, as ``snapshot``."""
     import torch
 
     from voxtral_tpu_torch.streaming import StreamingSession
@@ -1277,7 +1335,8 @@ def stream_run(model, pieces, dev, keep=False, finish=True, **kw) -> dict:
             return audio
 
         ses._record, ses._encode = kept_record, kept_encode
-    for piece in pieces:
+    snapshot, fed = None, 0
+    for i, piece in enumerate(pieces):
         done = ses.positions_done
         t0 = time.perf_counter()
         ses.feed(piece)
@@ -1287,6 +1346,9 @@ def stream_run(model, pieces, dev, keep=False, finish=True, **kw) -> dict:
             first_ms = dt
         elif ses.positions_done - done == P_STEP:
             step_ms.append(dt)
+        fed += len(piece)
+        if snapshot is None and snapshot_secs and fed >= snapshot_secs * SR:
+            snapshot = (ses.state_dict(), i + 1)
     if finish:
         ses.finish()
     torch.cuda.synchronize()
@@ -1307,6 +1369,8 @@ def stream_run(model, pieces, dev, keep=False, finish=True, **kw) -> dict:
                margins=np.asarray(ses.margins) if ses.margins else None)
     if keep:
         out["kept"] = (torch.cat(logits_kept), torch.cat(embeds_kept))
+    if snapshot_secs:
+        out["snapshot"] = snapshot
     if out["margins"] is not None and not np.isfinite(out["margins"]).all():
         fail("non-finite logits in a streaming session")
     if len(ses.tokens) != ses.positions_done - 38:
@@ -1329,6 +1393,37 @@ def plain_stream(plain, pieces, dev, secs=None, **kw) -> dict:
         return stream_run(plain, pieces, dev, **kw)
     finally:
         plain.record_margins = False
+
+
+def plain_stream_from(plain, snapshot, pieces, dev, secs) -> dict:
+    """The plain path from a kernel session's checkpoint (``snapshot``,
+    stream_run's: the state and the pieces it had taken) over the pieces
+    that end within ``secs`` of audio, with top-2 margins -> tokens (the
+    checkpoint's, then the plain path's own from index ``first``), their
+    margins, positions and the encoder ring's size."""
+    import torch
+
+    from voxtral_tpu_torch.streaming import StreamingSession
+
+    state, start = snapshot
+    ends = np.cumsum([len(p) for p in pieces])
+    stop = int(np.searchsorted(ends, secs * SR, "right"))
+    plain.record_margins = True
+    try:
+        ses = StreamingSession.restore(plain, state)
+        t0 = time.perf_counter()
+        for piece in pieces[start:stop]:
+            ses.feed(piece)
+        torch.cuda.synchronize()
+    finally:
+        plain.record_margins = False
+    out = dict(tokens=np.asarray(ses.tokens), margins=np.asarray(ses.margins),
+               first=len(state["tokens"]), positions=ses.positions_done,
+               max_enc=ses._max_enc, wall=time.perf_counter() - t0)
+    if len(out["margins"]) != len(out["tokens"]) - out["first"]:
+        fail(f"restored plain session: {len(out['margins'])} margins for "
+             f"{len(out['tokens']) - out['first']} new tokens")
+    return out
 
 
 def check_stream_launches(tag, run, route):
@@ -1427,7 +1522,7 @@ def restored_state(cfg, dev, p0: int, n_steps: int, gen, signal) -> dict:
 def run_stream_wrap(model, plain, dev, card):
     """A decoder-ring wrap at full width, without 22 minutes of audio: a
     session restored from a state 2P positions short of 38 + 8200, its
-    caches random bf16, runs 6 steady steps through the wrap, with the
+    caches random bf16, runs 4 steady steps through the wrap, with the
     kernels and through the plain versions -> (same, k1 launches)."""
     import torch
 
@@ -1435,7 +1530,7 @@ def run_stream_wrap(model, plain, dev, card):
 
     ring, S = ring_geometry(model.config.language_model)
     p0 = S - 2 * P_STEP
-    n_steps = 6
+    n_steps = 4
     gen = torch.Generator(device=dev).manual_seed(11)
     state = restored_state(model.config, dev, p0, n_steps, gen,
                            stream_signal)
@@ -1536,7 +1631,7 @@ def layout_witness(model, pieces, dev, card, bounded, unbounded):
 
 
 def run_stream_w8(model, plain, dev, card, tok):
-    """Phase 8a: K1 mode (d) checks and the w8 sessions (45 s)."""
+    """Phase 8a: K1 mode (d) checks and the w8 sessions (40 s)."""
     import torch
 
     from voxtral_tpu_torch.pipeline import PipelineConfig, TranscribePipeline
@@ -1547,16 +1642,19 @@ def run_stream_w8(model, plain, dev, card, tok):
     sig = stream_signal(STREAM_SECS)
     pieces = ragged_pieces(sig)
     runs = {}
-    # The plain sessions stop early, the unbounded one once past the
-    # encoder ring's wrap; the kernel sessions keep their margins too
-    # (they judge the comparisons between layouts and with the
-    # speculative sessions).
+    # The plain sessions stop early (their first steps); the unbounded
+    # one has a second stretch, restored from the kernel session's
+    # checkpoint before the encoder ring's wrap and run past it.  The
+    # kernel sessions keep their margins too (they judge the comparisons
+    # between layouts and with the speculative sessions).
     for name, kw, plain_secs in (
             ("bounded", dict(max_duration_s=120), PLAIN_BOUNDED_SECS),
             ("unbounded", dict(unbounded=True), PLAIN_UNBOUNDED_SECS)):
         model.record_margins = True
         try:
-            run = stream_run(model, pieces, dev, keep=True, **kw)
+            run = stream_run(model, pieces, dev, keep=True,
+                             snapshot_secs=(WRAP_FROM_SECS if kw.get(
+                                 "unbounded") else None), **kw)
         finally:
             model.record_margins = False
         check_stream_launches(f"w8 {name}", run, "w8")
@@ -1580,10 +1678,28 @@ def run_stream_w8(model, plain, dev, card, tok):
               f"({len(set(run['tokens'].tolist()))} distinct, min plain "
               f"top-2 margin {ref['margins'].min():.3e}); plain path "
               f"{ref['wall']:.1f} s [{card}]", flush=True)
-    unb, unb_plain = (runs["unbounded"][k] for k in ("run", "plain"))
+    unb = runs["unbounded"]["run"]
+    wrap = plain_stream_from(plain, unb.pop("snapshot"), pieces, dev,
+                             PLAIN_WRAP_SECS)
+    lo, hi = wrap["first"], len(wrap["tokens"])
     if not (4 * unb["positions"] > unb["max_enc"]
-            and 4 * unb_plain["positions"] > unb_plain["max_enc"] + 8 * P_STEP):
-        fail("an unbounded w8 session never wrapped its encoder ring")
+            and 4 * wrap["positions"] > wrap["max_enc"] + 8 * P_STEP
+            and hi <= len(unb["tokens"])
+            and (wrap["tokens"][:lo] == unb["tokens"][:lo]).all()):
+        fail("an unbounded w8 session never wrapped its encoder ring, or "
+             "the plain path's restored stretch does not continue the "
+             "kernel session")
+    same_wrap = first_divergence(
+        "w8 unbounded session kernel vs plain through the encoder wrap",
+        unb["tokens"][lo:hi], wrap["tokens"][lo:], wrap["margins"],
+        MARGIN_TIE)
+    print(f"w8 unbounded session, plain path restored from the kernel "
+          f"session at token {lo} ({WRAP_FROM_SECS:.0f} s) to "
+          f"{PLAIN_WRAP_SECS:.0f} s, through the encoder ring's wrap "
+          f"(position {wrap['max_enc'] // 4}): tokens kernel == plain over "
+          f"{hi - lo}: {same_wrap} (min plain top-2 margin "
+          f"{wrap['margins'].min():.3e}); plain path {wrap['wall']:.1f} s "
+          f"[{card}]", flush=True)
     layout_tie, layout_noise = layout_witness(
         model, pieces, dev, card, runs["bounded"]["run"], unb)
     b_tok, u_tok = (runs[n]["run"]["tokens"] for n in ("bounded", "unbounded"))
@@ -1705,6 +1821,7 @@ POOL_STREAMS = (4, 2)  # the pool sizes of this script (K2 is held at them)
 # path; a speculative pool beside its sequential twin): the streams are
 # causal, so its tokens are held as a prefix of the full run's.
 B4_PLAIN_TICKS = 8     # of 15: every ready count, the detach and attach
+B4_REPLACE_TICK = 6    # stream 1 finishes, a fresh session takes its slot
 B4_SPEC_TICKS = 8
 SHORT_PLAIN_TICKS = 3  # of the short pools' 9
 # Every decoder-cache geometry a pool of this run handed to K1, by the
@@ -1894,10 +2011,10 @@ def pool_counters_reset(dev):
 
 
 def pool_run(model, dev, signals, replace=None, max_ticks=None,
-             **pool_kw) -> dict:
-    """One StreamPool run: stream i starts at tick i (a tick is one steady
-    step of audio, fed in two uneven pieces) and the pool is pumped once
-    per tick, timed to a synchronize.  ``replace`` = (i, tick, signal):
+             together=False, **pool_kw) -> dict:
+    """One StreamPool run: stream i starts at tick i (at tick 0 with
+    ``together``; a tick is one steady step of audio, fed in two uneven
+    pieces) and the pool is pumped once per tick, timed to a synchronize.  ``replace`` = (i, tick, signal):
     stream i is finished (and detached) at that tick and a fresh session
     with ``signal`` takes its slot.  ``max_ticks`` stops the run there,
     its live streams unfinished: their tokens are a prefix of the full
@@ -1913,7 +2030,7 @@ def pool_run(model, dev, signals, replace=None, max_ticks=None,
     pool = make_pool(model, len(signals), **pool_kw)
     rng = np.random.default_rng(8)
     live, done = [], []      # [session, signal, samples fed]
-    queue = list(enumerate(signals))
+    queue = [(0 if together else i, sig) for i, sig in enumerate(signals)]
     steps: dict = {}         # ready rows -> [pump ms]
     tick = 0
 
@@ -1923,7 +2040,7 @@ def pool_run(model, dev, signals, replace=None, max_ticks=None,
         return entry
 
     while (queue or live) and tick != max_ticks:
-        if queue and queue[0][0] <= tick:
+        while queue and queue[0][0] <= tick:
             live.append(attach(queue.pop(0)[1]))
         if replace is not None and tick == replace[1]:
             live[replace[0]][0].finish()
@@ -2229,7 +2346,8 @@ def pool_ring_phases(model, plain, dev, card):
     synthetic checkpoints (random bf16 caches) 2P positions short of the
     decoder ring's wrap, just past it, far past it and near the RoPE
     table's end, then 4 steps together through the kernels and the first
-    2 of them through the plain versions, with bf16 and with int8 caches.
+    first of them through the plain versions, with bf16 and with int8
+    caches.
     The pool's own path to K1 (c) x (d) and (e) at full windows, and the
     pooled step's time there.  -> {kv_dtype: (launches, step ms)}."""
     import torch
@@ -2237,7 +2355,7 @@ def pool_ring_phases(model, plain, dev, card):
     from voxtral_tpu_torch.streaming import StreamingSession
 
     _, S = ring_geometry(model.config.language_model)
-    n_steps, plain_steps = 4, 2
+    n_steps, plain_steps = 4, 1
     # On the streams' grid of 38 + 8 k positions (the encoder ring's
     # writes are aligned to it).
     starts = [S - 2 * P_STEP, S + P_STEP, 38 + 8 * 1496, 38 + 8 * 2035]
@@ -2303,6 +2421,34 @@ def pool_ring_phases(model, plain, dev, card):
     return out
 
 
+def pool_all_live(model, dev, card, signals):
+    """Pooled speculative decode with every slot live: four chirps
+    started in the same tick, none detached, B4_SPEC_TICKS ticks of a
+    bf16-cache ngram pool, held to the sequential kernel pool with the
+    same start -> the speculative run."""
+    tag = f"w8 pool B=4 speculative={SPEC_K} ngram, every slot live"
+    model.record_margins = True
+    try:
+        seq = pool_run(model, dev, signals, max_ticks=B4_SPEC_TICKS,
+                       together=True, unbounded=True, kv_dtype="model")
+    finally:
+        model.record_margins = False
+    run = pool_run(model, dev, signals, max_ticks=B4_SPEC_TICKS,
+                   together=True, unbounded=True, kv_dtype="model",
+                   speculative=SPEC_K, draft="ngram")
+    m = run["spec"]
+    same = held_to(f"{tag} vs sequential", run, seq, seq["margins"],
+                   SPEC_MARGIN_TIE)
+    if run["launches"]["decode_stack_step"] != m["passes"]:
+        fail(f"{tag}: K1 launches {run['launches']['decode_stack_step']} "
+             f"!= passes {m['passes']}")
+    print(f"{tag}: {B4_SPEC_TICKS} ticks, positions {run['positions']}: "
+          f"{m} (predicted 20-28 tokens per pass); tokens == sequential "
+          f"pool with the same start: {same}; sequential {seq['wall']:.1f} "
+          f"s, speculative {run['wall']:.1f} s [{card}]", flush=True)
+    return run
+
+
 def run_pools_w8(model, plain, dev, card, layout_noise):
     """Phase 10a: K1 in this slice's modes, then the w8 pools."""
     import torch
@@ -2310,7 +2456,7 @@ def run_pools_w8(model, plain, dev, card, layout_noise):
     k1 = check_k1_pool_modes(model, dev, card)
     cfg = model.config
     signals = [pool_signal(POOL_SECS, i) for i in range(4)]
-    replace = (1, 6, pool_signal(POOL_SECS / 2, 4))
+    replace = (1, B4_REPLACE_TICK, pool_signal(POOL_SECS / 2, 4))
     runs, paths = {}, {}
     for kv in ("model", "int8"):
         tag = f"w8 pool B=4 unbounded kv_dtype={kv}"
@@ -2367,6 +2513,9 @@ def run_pools_w8(model, plain, dev, card, layout_noise):
                   f"[{card}]", flush=True)
             spec[(draft, kv)] = dict(run=run, same=same)
             paths[f"w8_pool_speculative_{draft}_{kv}"] = run["launches"]
+
+    spec["all_live"] = pool_all_live(model, dev, card, signals)
+    paths["w8_pool_speculative_ngram_all_live"] = spec["all_live"]["launches"]
 
     restore = force_chunked()
     try:
@@ -2532,10 +2681,12 @@ def small_gguf(directory: Path):
 def run_gguf_cli(dev, card):
     """Phase 7: the CLI on a GGUF for each weight format, and with
     ``--model`` on a SafeTensors directory of the same small model for
-    ``--dtype bfloat16`` and ``w8`` (phase 11b), each against the library
-    path on the same files."""
+    ``--dtype bfloat16`` and ``w8`` (phase 11b), and ``--audio-list`` with
+    ``--batch-files 4`` and ``--timestamps`` there (phase 12), each
+    against the library path on the same files."""
     import torch
 
+    from voxtral_tpu_torch.audio import AudioBuffer, save_wav
     from voxtral_tpu_torch.config import VoxtralConfig
     from voxtral_tpu_torch.loaders.safetensors_loader import (
         checkpoint_tensors,
@@ -2560,7 +2711,23 @@ def run_gguf_cli(dev, card):
         argvs.update({("--model --dtype", dt): [
             *cli, "--model", tmp, "--dtype", dt, "--audio", str(wav)]
             for dt in ("bfloat16", "w8")})
-        # The five processes side by side (most of each is the
+        # The batched one-shot flags (phase 12) on the same directory: a
+        # list of three files, two of one length (one batch), and the
+        # word timestamps of one.
+        wavs = [wav, Path(tmp) / "tone2.wav", Path(tmp) / "tone3.wav"]
+        for path, secs, hz in ((wavs[1], 2.5, 330.0), (wavs[2], 1.5, 550.0)):
+            tt = np.arange(int(secs * SR)) / SR
+            save_wav(AudioBuffer((0.5 * np.sin(2 * np.pi * hz * tt)).astype(
+                np.float32), SR), path)
+        listing = Path(tmp) / "files.txt"
+        listing.write_text("".join(f"{w}\n" for w in wavs))
+        argvs[("--audio-list --batch-files 4", "w8")] = [
+            *cli, "--model", tmp, "--dtype", "w8", "--audio-list",
+            str(listing), "--batch-files", "4"]
+        argvs[("--timestamps", "w8")] = [
+            *cli, "--model", tmp, "--dtype", "w8", "--timestamps", "--audio",
+            str(wav)]
+        # The seven processes side by side (most of each is the
         # interpreter's start and the CUDA context).
         t0 = time.perf_counter()
         procs = {key: subprocess.Popen(
@@ -2587,13 +2754,20 @@ def run_gguf_cli(dev, card):
             else:
                 pipe = TranscribePipeline.from_model_dir(tmp, fmt,
                                                          device=dev)
-            lib = pipe.transcribe_file(wav)
-            if stdout != lib + "\n":
+            if flag == "--audio-list --batch-files 4":
+                lines = pipe.transcribe_files_batched(wavs, batch_size=4)
+            elif flag == "--timestamps":
+                lines = [json.dumps({"file": str(wav),
+                                     **pipe.transcribe_file_words(wav)})]
+            else:
+                lines = [pipe.transcribe_file(wav)]
+            lib = "".join(f"{line}\n" for line in lines)
+            if stdout != lib:
                 fail(f"CLI {flag} {fmt} printed {stdout!r}, the library "
                      f"path {lib!r}")
             print(f"CLI {flag} {fmt}: exit 0 within {secs:.1f} s of the "
-                  f"five starting together, one line, text == library path "
-                  f"({len(lib.split())} words; route "
+                  f"{len(procs)} starting together, {len(lines)} line(s) == "
+                  f"library path ({len(lib.split())} words; route "
                   f"{pipe.model.decode_route}) [{card}]", flush=True)
 
 
@@ -2846,6 +3020,385 @@ def run_dense(cfg, dev, card, sig, tok):
 
 
 # ---------------------------------------------------------------------------
+# Batched one-shot (w8): K7, the per-layer route, the merge cost
+# ---------------------------------------------------------------------------
+
+# K7 alone at full width: (layer, rows, cache slots S, offset).  S = 151
+# is a 16 s chunk's positions; the last case has the window full.
+K7_CASES = ([(layer, rows, 151, off) for layer in (0, 25) for rows in (1, 8)
+             for off in (40, 150)] + [(25, 1, 8400, 8300)])
+K7_TIMED = ((25, 1, 151, 150), (25, 8, 151, 150), (25, 1, 8400, 8300))
+BATCH_SECS = (4.0, 6.0, 8.0, 8.0, 10.0, 12.0, 14.0, 16.0)
+BATCH_PLAIN_SECS = 2.0   # the plain side: three buffers of this length
+MERGE_SECS = 40.0        # chunks of 15 / 15 / 10 s at MERGE_MEL_FRAMES
+MERGE_MEL_FRAMES = 1500
+FIT_ROWS = (1, 2, 4, 8)  # the merge cost's decode fit
+CHUNK_30S_SECS = 30.0    # the chunk whose rows the memory rungs are told in
+
+
+def text_tokenizer():
+    """Control ids 1 / 32 / 33 and "w<i> " for every text id, so a text
+    says as much as its tokens."""
+    from voxtral_tpu_torch.tokenizer import VoxtralTokenizer
+
+    return VoxtralTokenizer(
+        [f"w{i} ".encode() for i in range(131072 - 1000)],
+        {1: "<s>", 32: "[STREAMING_PAD]", 33: "[STREAMING_WORD]"}, 131072)
+
+
+def check_k7(model, dev, card):
+    """K7 alone against its plain version at K7_CASES, bit for bit, timed
+    at K7_TIMED beside its bound: called from the host (the wrapper's
+    checks and allocations included) and replayed from a CUDA graph (the
+    device alone) -> (max abs err, {(rows, S, offset): (device ms, plain
+    ms, bound ms, bound by, host-called ms)})."""
+    import torch
+
+    from voxtral_tpu_torch.ops import decode_step as k1
+
+    cfg = model.config.language_model
+    fused = model.fused_decode
+    D, hd, n_kv = cfg.dim, cfg.head_dim, cfg.n_kv_heads
+    ada = k1.ada_vectors(model.params["decoder"], model.t_embed(6.0))
+    kw = dict(n_heads=cfg.n_heads, n_kv=n_kv, head_dim=hd, eps=cfg.norm_eps,
+              window=cfg.sliding_window)
+    stacks = [fused[k] for k in ("wqkv", "wo", "w13", "w2")]
+    worst, times = 0.0, {}
+    for case in K7_CASES:
+        layer, rows, S, off = case
+        gen = torch.Generator(device=dev).manual_seed(11 + layer + rows + off)
+        kc = (torch.randn((rows, S, n_kv, hd), device=dev, generator=gen)
+              * 0.5).bfloat16()
+        vc = (torch.randn((rows, S, n_kv, hd), device=dev, generator=gen)
+              * 0.5).bfloat16()
+        x = torch.randn((rows, D), device=dev, generator=gen)
+        c, s = k1.rope_pair_vectors(off, hd, cfg.rope_theta, device=dev)
+        small = (fused["attn_norm"][layer], fused["ffn_norm"][layer],
+                 ada[layer], fused["sqkv"][layer], fused["so"][layer],
+                 fused["s13"][layer], fused["s2"][layer], c, s)
+        args = (x, layer, off, *small, kc, vc, *stacks)
+        got = k1.decode_layer_step(*args, **kw)
+        torch.cuda.synchronize()
+        ref = k1.decode_layer_step_plain(*args, **kw)
+        err = max((g.float() - r.float()).abs().max().item()
+                  for g, r in zip(got, ref))
+        tag = (f"K7 decode_layer_step layer={layer} rows={rows} S={S} "
+               f"offset={off}")
+        if not err == 0.0:
+            fail(f"{tag}: max_abs_err {err:.3e}: not bit-equal to the plain "
+                 "version")
+        line = f"{tag}: max_abs_err {err:.3e} (bit-equal)"
+        if case in K7_TIMED:
+            eager_ms, plain_ms = in_turns(
+                lambda: k1.decode_layer_step(*args, **kw),
+                lambda: k1.decode_layer_step_plain(*args, **kw), 50, 2)
+            ms = graph_ms(lambda: k1.decode_layer_step(*args, **kw))
+            wbytes = nbytes(*(w[layer] for w in stacks))
+            visible = min(off, S) - max(0, off - cfg.sliding_window)
+            moved = (wbytes + nbytes(*small) + 2 * nbytes(x)
+                     + 2 * rows * visible * n_kv * hd * 2
+                     + 2 * nbytes(got[1]))
+            b_ms, b_by = bound(moved, 2 * rows * sum(
+                w[layer].numel() for w in stacks), INT8_OPS)
+            times[(rows, S, off)] = (ms, plain_ms, b_ms, b_by, eager_ms)
+            line += (f"; kernel {ms:.4f} ms on the device (CUDA graph; "
+                     f"{wbytes / ms / 1e6:.1f} GB/s of {wbytes / 1e6:.2f} MB "
+                     f"weights), {eager_ms:.4f} ms called from the host, "
+                     f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                     f"{100 * b_ms / ms:.1f} % of it)")
+        print(f"{line} [{card}]", flush=True)
+    return worst, times
+
+
+def measure_merge_cost(model, dev, card, tok):
+    """The merge cost on this card: the one-shot decode loop's wall ms per
+    position at FIT_ROWS rows of the 16 s chirp (the model's decode log),
+    fitted to c0 + c1 B, and the host mel + encoder + adapter per decoder
+    position of that chirp -> (MergeCost, {rows: ms per position})."""
+    from voxtral_tpu_torch.pipeline import (
+        DEFAULT_MERGE_COST,
+        MergeCost,
+        TranscribePipeline,
+    )
+
+    pipe = TranscribePipeline(model, tok)
+    padded = pipe.padded_chunks(chirp(), SR)[0].samples
+    mel = pipe.mel.compute_log_batch(padded)
+    per_pos = {}
+    model.measure_decode = True
+    try:
+        for rows in FIT_ROWS:
+            model.transcribe_streaming_batch(np.repeat(mel, rows, axis=0))
+            rec = model.decode_log[-1]
+            if rec["route"] != "stack":
+                fail(f"merge cost fit at {rows} rows: route {rec['route']}")
+            per_pos[rows] = rec["seconds"] * 1e3 / rec["steps"]
+    finally:
+        model.measure_decode = False
+    c1, c0 = np.polyfit(list(per_pos), list(per_pos.values()), 1)
+    seq = model.decoder_seq_len(pipe.mel.num_frames(len(padded)))
+    enc = encode_seconds(pipe, model, padded) * 1e3 / seq
+    cost = MergeCost(c0_ms=float(c0), c1_ms=float(c1), enc_per_pos_ms=enc)
+    print("merge cost: one-shot decode loop ms per position at rows "
+          + ", ".join(f"{b}: {ms:.4f}" for b, ms in per_pos.items())
+          + f"; fit c0 {c0:.4f} ms + c1 {c1:.4f} ms x rows; host mel + "
+          f"encoder + adapter {enc:.4f} ms per decoder position ({seq} "
+          f"positions); measured {cost} against the default "
+          f"{DEFAULT_MERGE_COST} [{card}]", flush=True)
+    return cost, per_pos
+
+
+def forced_layer_route():
+    """Replace ``models.voxtral.oneshot_plan`` with a plan that takes the
+    per-layer route (K7) -> a function restoring it."""
+    from voxtral_tpu_torch.models import voxtral as vx
+
+    orig = vx.oneshot_plan
+    vx.oneshot_plan = lambda model, batch, seq_len, spec=1: (
+        "layer", "forced by chip_smoke.py")
+
+    def restore():
+        vx.oneshot_plan = orig
+
+    return restore
+
+
+def batched_run(pipe, bufs, dev):
+    """pipe.transcribe_samples_batched(bufs, 8) once, the launch counters
+    set to 0 just before and read just after, the model's decode log on
+    -> (texts, per-buffer chunk tokens, wall s, launches, decode log)."""
+    import torch
+
+    counters = stream_counters()
+    seen = []
+    text_of = pipe._text
+    pipe._text = lambda chunks: (seen.append(chunks), text_of(chunks))[1]
+    pipe.model.measure_decode, pipe.model.decode_log = True, []
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    try:
+        t0 = time.perf_counter()
+        texts = pipe.transcribe_samples_batched(
+            [(b, SR) for b in bufs], batch_size=8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+    finally:
+        del pipe._text
+        pipe.model.measure_decode = False
+    return texts, seen, wall, launches, pipe.model.decode_log
+
+
+def run_batched_w8(model, plain, dev, card, layout_tie):
+    """Phase 12: K7 at full width, the merge cost, the batched one-shot
+    path on eight chirps (stack route, then the per-layer route forced),
+    its plain side, the merge on a 40 s file."""
+    import torch
+
+    from voxtral_tpu_torch.models import voxtral as vx
+    from voxtral_tpu_torch.pipeline import (
+        MergeCost,
+        PipelineConfig,
+        TranscribePipeline,
+    )
+    from voxtral_tpu_torch.utils import hbm
+
+    k7_err, k7_times = check_k7(model, dev, card)
+    tok = text_tokenizer()
+    cost, per_pos = measure_merge_cost(model, dev, card, tok)
+    cfg = model.config.language_model
+    pipe = TranscribePipeline(model, tok)
+    bufs = [pool_signal(secs, i) for i, secs in enumerate(BATCH_SECS)]
+
+    # Each buffer alone (transcribe_samples' own path), keeping margins.
+    solo, margins, solo_wall = [], [], 0.0
+    model.record_margins = True
+    try:
+        for b in bufs:
+            t0 = time.perf_counter()
+            solo.append(pipe._chunk_tokens(b, SR)[0])
+            solo_wall += time.perf_counter() - t0
+            margins.append(model.last_margins[0].copy())
+    finally:
+        model.record_margins = False
+    n_tok = sum(len(t) for t in solo)
+
+    texts, seen, wall, launches, log = batched_run(pipe, bufs, dev)
+    tag = "w8 transcribe_samples_batched (8 chirps, batch_size=8)"
+    steps = sum(r["steps"] for r in log)
+    if launches["decode_stack_step"] != steps or any(
+            r["route"] != "stack" for r in log):
+        fail(f"{tag}: K1 launches {launches['decode_stack_step']} for "
+             f"{steps} decode steps, routes {[r['route'] for r in log]}")
+    # A buffer that shared its batch is held under the layout rule (the
+    # batch changes the encoder's summation order, ROADMAP §3); one that
+    # decoded alone under the kernel near-tie rule.
+    lengths = [len(pipe.padded_chunks(b, SR)[0].samples) for b in bufs]
+    same = []
+    for i, (chunks, ref, m) in enumerate(zip(seen, solo, margins)):
+        if len(chunks) != 1 or len(chunks[0]) != len(ref):
+            fail(f"{tag} buffer {i}: {[len(c) for c in chunks]} tokens, "
+                 f"alone {len(ref)}")
+        tie = MARGIN_TIE if lengths.count(lengths[i]) == 1 else layout_tie
+        same.append(first_divergence(f"{tag} buffer {i} vs alone",
+                                     chunks[0], ref, m, tie))
+        if same[-1] and texts[i] != pipe._text([ref]):
+            fail(f"{tag} buffer {i}: text differs from the buffer alone")
+    print(f"{tag}: {len(log)} dispatches of rows "
+          f"{[r['rows'] for r in log]} ({steps} decode steps, K1 launches "
+          f"{launches['decode_stack_step']}, K2 {launches['w8_matmul']}); "
+          f"tokens and texts == each buffer alone: {same}; {n_tok} tokens, "
+          f"aggregate {n_tok / wall:.1f} tok/s ({wall:.3f} s) against "
+          f"{n_tok / solo_wall:.1f} tok/s one buffer at a time "
+          f"({solo_wall:.3f} s), end to end [{card}]", flush=True)
+
+    # The plain side, on three short buffers of one length (one batch).
+    short = [(pool_signal(BATCH_PLAIN_SECS, 8 + i), SR) for i in range(3)]
+    k_short = pipe.batched_chunk_tokens(short, batch_size=8)
+    plain.record_margins = True
+    try:
+        p_short = TranscribePipeline(plain, tok).batched_chunk_tokens(
+            short, batch_size=8)
+        p_margins = plain.last_margins
+    finally:
+        plain.record_margins = False
+    p_same = [first_divergence(f"{tag} plain side buffer {i}", k[0], p[0],
+                               p_margins[i], MARGIN_TIE)
+              for i, (k, p) in enumerate(zip(k_short, p_short))]
+    print(f"{tag}: three {BATCH_PLAIN_SECS:.0f} s buffers in one batch, "
+          f"tokens kernel == plain: {p_same} ({len(p_short[0][0])} tokens "
+          f"each) [{card}]", flush=True)
+
+    # The per-layer route forced on the same batch.
+    restore = forced_layer_route()
+    try:
+        l_texts, l_seen, l_wall, l_launch, l_log = batched_run(pipe, bufs,
+                                                               dev)
+    finally:
+        restore()
+    ltag = f"{tag} on the per-layer route (forced)"
+    l_steps = sum(r["steps"] for r in l_log)
+    if (l_launch["decode_layer_step"] != cfg.n_layers * l_steps
+            or l_launch["decode_stack_step"] != 0
+            or any(r["route"] != "layer" for r in l_log)):
+        fail(f"{ltag}: K7 launches {l_launch['decode_layer_step']} for "
+             f"{l_steps} steps x {cfg.n_layers} layers, K1 "
+             f"{l_launch['decode_stack_step']}")
+    # K7 keeps the scaled q and the softmax weights in f32 where K1
+    # rounds them to bf16: a rounding of the attention's operands, held
+    # under the layout rule (2 x the control's logit noise).
+    l_same = [first_divergence(f"{ltag} buffer {i} vs the stack route",
+                               lc[0], c[0], m, layout_tie)
+              for i, (lc, c, m) in enumerate(zip(l_seen, seen, margins))]
+    extra = [(r["rows"], r.get("extra_bytes", 0), lr.get("extra_bytes", 0))
+             for r, lr in zip(log, l_log)]
+    if not all(le < se for _, se, le in extra):
+        fail(f"{ltag}: decode memory above its start not below the stack "
+             f"route's: {extra}")
+    print(f"{ltag}: K7 launches {l_launch['decode_layer_step']} = "
+          f"{cfg.n_layers} x {l_steps} steps, K1 0, K2 "
+          f"{l_launch['w8_matmul']}; tokens == stack route: {l_same}; "
+          f"texts == stack route: {l_texts == texts}; {l_wall:.3f} s "
+          f"against {wall:.3f} s; decode memory above its start per "
+          "dispatch (rows: stack / layer MB) "
+          + ", ".join(f"{b}: {se / 1e6:.1f} / {le / 1e6:.1f}"
+                      for b, se, le in extra) + f" [{card}]", flush=True)
+
+    # The layer route's step: at 1 row from the dispatches above, at 8
+    # rows on the 16 s chirp, beside the stack route's (the fit's runs).
+    solo_l = [r for r in l_log if r["rows"] == 1]
+    layer_ms = {1: sum(r["seconds"] for r in solo_l) * 1e3
+                / sum(r["steps"] for r in solo_l)}
+    chirp_mel = pipe.mel.compute_log_batch(
+        pipe.padded_chunks(chirp(), SR)[0].samples)
+    restore = forced_layer_route()
+    model.measure_decode = True
+    try:
+        model.transcribe_streaming_batch(np.repeat(chirp_mel, 8, 0))
+        rec = model.decode_log[-1]
+        layer_ms[8] = rec["seconds"] * 1e3 / rec["steps"]
+    finally:
+        restore()
+        model.measure_decode = False
+    print("per-layer route: ms per decode step at 1 row (the eight chirps' "
+          f"one-row batches) {layer_ms[1]:.3f}, at 8 rows (16 s chirp) "
+          f"{layer_ms[8]:.3f}, against the stack route's {per_pos[1]:.3f} / "
+          f"{per_pos[8]:.3f} (decode loop wall) [{card}]", flush=True)
+
+    # The memory rungs in rows of 30 s chunks, check_hbm's own numbers.
+    seq30 = model.decoder_seq_len(pipe.mel.num_frames(len(pipe.padded_chunks(
+        pool_signal(CHUNK_30S_SECS, 0), SR)[0].samples)))
+    room = (hbm.device_hbm_budget(dev) - hbm.model_hbm_bytes(model)
+            - hbm.WORKSPACE_BYTES)
+    row = vx.oneshot_cache_bytes(model, 1, seq30)
+    rows_stack, rows_layer = room // (2 * row), room // row
+    plan = vx.oneshot_plan(model, rows_stack + 1, seq30)
+    if vx.oneshot_plan(model, rows_stack, seq30)[0] != "stack" \
+            or plan[0] != "layer":
+        fail(f"oneshot_plan at {rows_stack} / {rows_stack + 1} rows of "
+             f"{seq30} positions: not stack / layer ({plan[1][:200]})")
+    print(f"oneshot_plan on this card, 30 s chunks ({seq30} positions, "
+          f"{row / 1e6:.2f} MB of bf16 cache per row and copy): the stack "
+          f"route up to {rows_stack} rows, the per-layer route up to "
+          f"{rows_layer} (budget {hbm.device_hbm_budget(dev) / 1e9:.3f} GB, "
+          f"weights {hbm.model_hbm_bytes(model) / 1e9:.3f} GB, workspace "
+          f"{hbm.WORKSPACE_BYTES / 1e9:.3f} GB) [{card}]", flush=True)
+
+    # A 40 s file in chunks of 15 / 15 / 10 s, merged or not, held to each
+    # chunk decoded alone (layout rule: padding and batch move the
+    # encoder's summation order).
+    sig = stream_signal(MERGE_SECS)
+    runs = {}
+    for name, mc in (("forced", MergeCost(1.0, 0.0, 0.0)), ("never", None)):
+        mp = TranscribePipeline(model, tok, PipelineConfig(
+            max_mel_frames=MERGE_MEL_FRAMES, merge_cost=mc))
+        model.measure_decode, model.decode_log = True, []
+        try:
+            runs[name] = (mp._chunk_tokens(sig, SR),
+                          [r["rows"] for r in model.decode_log])
+        finally:
+            model.measure_decode = False
+    raw, padded = mp._chunks(sig, SR)
+    alone, alone_margins = [], []
+    model.record_margins = True
+    try:
+        for p in padded:
+            alone.append(model.transcribe_streaming(
+                mp.mel.compute_log_batch(p.samples))[:mp._token_count(p)])
+            alone_margins.append(model.last_margins[0].copy())
+    finally:
+        model.record_margins = False
+    if runs["forced"][1] != [len(padded)] or len(runs["never"][1]) < 2:
+        fail(f"40 s file: dispatched rows {runs['forced'][1]} merged, "
+             f"{runs['never'][1]} unmerged")
+    counts = [mp._token_count(p) for p in padded]
+    groups: dict = {}
+    for i, p in enumerate(padded):
+        groups.setdefault(len(p.samples), []).append(i)
+    merges = TranscribePipeline(model, tok, PipelineConfig(
+        max_mel_frames=MERGE_MEL_FRAMES, merge_cost=cost))._merge_wins(
+            groups, counts)
+    m_same = {}
+    for name, (chunks, _) in runs.items():
+        m_same[name] = [first_divergence(
+            f"40 s file, merge {name}, chunk {i} vs alone", c, a, m,
+            layout_tie) for i, (c, a, m) in enumerate(zip(chunks, alone,
+                                                          alone_margins))]
+    print(f"40 s file at max_mel_frames={MERGE_MEL_FRAMES}: chunks of "
+          f"{[round(len(c.samples) / SR, 2) for c in raw]} s, "
+          f"{[round(len(p.samples) / SR, 2) for p in padded]} s padded, "
+          f"{[len(a) for a in alone]} tokens; the measured cost "
+          f"{'merges them' if merges else 'keeps them apart'} (dispatched rows "
+          f"merged {runs['forced'][1]}, apart {runs['never'][1]}); tokens "
+          f"== each chunk alone: {m_same} [{card}]", flush=True)
+    return dict(k7_err=k7_err, k7_times=k7_times, launches=launches,
+                layer_launches=l_launch, cost=cost, per_pos=per_pos,
+                layer_ms=layer_ms, rows_stack=rows_stack,
+                rows_layer=rows_layer)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2888,6 +3441,10 @@ def main() -> int:
     st_w8 = run_stream_w8(w8_model, w8_plain, dev, card, tok)
     release()
     phase_done("w8 sessions")
+    batched = run_batched_w8(w8_model, w8_plain, dev, card,
+                             2 * st_w8["layout_noise"][1])
+    release()
+    phase_done("batched one-shot (w8)")
     pl_w8 = run_pools_w8(w8_model, w8_plain, dev, card,
                          st_w8["layout_noise"])
     del w8_model, w8_plain
@@ -2953,7 +3510,9 @@ def main() -> int:
             "q4_stream_bounded": st_q4["run"]["launches"],
             **pl_w8["paths"],
             "q4g_pool_unbounded_int8": pl_q4g["launches"],
-            "q4_pool_generic": pl_q4["launches"], **dense["runs"]}
+            "q4_pool_generic": pl_q4["launches"], **dense["runs"],
+            "w8_batched": batched["launches"],
+            "w8_batched_layer_route": batched["layer_launches"]}
     for path in ("w8_pool_unbounded_int8", "w8_pool_chunked_bounded",
                  "w8_pool_chunked_unbounded", "w8_pool_speculative_ngram_int8",
                  "q4g_pool_unbounded_int8", "bf16_sequential",
@@ -2962,8 +3521,11 @@ def main() -> int:
         if runs[path]["decode_stack_step"] < 1:
             fail(f"{path}: K1 (modes (e) / (f) / (g)) was launched no time")
 
+    if runs["w8_batched_layer_route"]["decode_layer_step"] < 1:
+        fail("w8_batched_layer_route: K7 was launched no time")
+
     def launches(name):
-        by = {path: c[name] for path, c in runs.items() if c[name]}
+        by = {path: c[name] for path, c in runs.items() if c.get(name)}
         return sum(by.values()), by
 
     lm_shape = (1, 3072, 131072)
@@ -2973,6 +3535,9 @@ def main() -> int:
     k3t = k3_times[(1, 131072, 3072)]
     pk = pl_w8["k1"]
     kg = dense["k1"]
+    k7t = batched["k7_times"][(1, 151, 150)]
+    k7t8 = batched["k7_times"][(8, 151, 150)]
+    k7tw = batched["k7_times"][(1, 8400, 8300)]
     record = {"kernels": [
         {"name": "w8_matmul", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/w8_matmul.cu",
@@ -3041,6 +3606,18 @@ def main() -> int:
          "g_e_bound_ms": kg["e"][3],
          "g_f_ms": kg["f"][1], "g_f_plain_ms": kg["f"][2],
          "g_f_bound_ms": kg["f"][3]},
+        {"name": "decode_layer_step", "route": "cuda",
+         "source": "voxtral_tpu_torch/csrc/decode_layer.cu",
+         "replaces": "voxtral_tpu/ops/decode_step_pallas.py:348",
+         "launches": launches("decode_layer_step")[0],
+         "launches_by_path": launches("decode_layer_step")[1],
+         "max_abs_err": batched["k7_err"], "ms": k7t[0], "plain_ms": k7t[1],
+         "bound_ms": k7t[2], "bound_by": k7t[3], "library_ms": None,
+         "host_called_ms": k7t[4], "rows8_ms": k7t8[0],
+         "rows8_plain_ms": k7t8[1],
+         "rows8_bound_ms": k7t8[2], "window_full_ms": k7tw[0],
+         "window_full_plain_ms": k7tw[1], "window_full_bound_ms": k7tw[2],
+         "route_step_ms": batched["layer_ms"]},
         {"name": "q4_matmul", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/q4_matmul.cu",
          "replaces": "voxtral_tpu/ops/q4_pallas.py:150",

@@ -93,7 +93,8 @@ def test_pipeline_chunks_and_buckets(tree):
     cfg = tiny_config()
     model = VoxtralModel.from_numpy(tree, cfg, "cpu")
     pipe = TranscribePipeline(model, VoxtralTokenizer.from_json(tekken_json()),
-                              PipelineConfig(max_mel_frames=200))
+                              PipelineConfig(max_mel_frames=200,
+                                             merge_cost=None))
     sig = np.sin(np.arange(int(4.5 * 16000)) * 0.05).astype(np.float32)
     chunks = pipe._chunk_tokens(sig, 16000)
     assert len(chunks) == 3  # 450 mel frames at 200 per chunk
@@ -130,16 +131,25 @@ def test_cli_help(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--batch-files", "8"], ["--tp", "2"], ["--timestamps"],
-    ["--audio-list", "list.txt"], ["--server", "http://localhost:1"],
-    ["--dp", "2"], ["--platform", "cpu"],
+    ["--batch-files", "8", "--timestamps"], ["--tp", "2"],
+    ["--timestamps", "--tp", "2"], ["--audio-list", "list.txt"],
+    ["--server", "http://localhost:1"], ["--dp", "2"], ["--platform", "cpu"],
 ])
 def test_cli_refuses_what_is_not_ported(argv, capsys, wav):
+    """Flags not ported exit 2 naming their ROADMAP item; the ported
+    batch flags refuse what the JAX CLI refuses (``--timestamps`` with
+    ``--batch-files``, ``--audio`` with ``--audio-list``), also exit 2."""
     from voxtral_tpu_torch import cli
 
     rc = cli.main(["--audio", str(wav), *argv])
     assert rc == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    if any(flag in argv for flag in cli._NOT_PORTED):
+        assert "ROADMAP" in err
+    elif "--audio-list" in argv:
+        assert "--audio conflicts with --audio-list" in err
+    else:
+        assert "--timestamps is per-file" in err
 
 
 def test_cli_random_weights_end_to_end(wav, capsys):

@@ -9,8 +9,15 @@ Usage:
         --draft-policy ngram --audio x.wav
     python -m voxtral_tpu_torch.cli --gguf model.gguf --tokenizer \
         tekken.json --weight-format q4g --audio x.wav
+    python -m voxtral_tpu_torch.cli --model DIR --dtype w8 \
+        --audio-list files.txt --batch-files 8
+    python -m voxtral_tpu_torch.cli --model DIR --timestamps --audio x.wav
 
-Ported so far: ``--audio`` (repeatable), ``--model DIR`` (a SafeTensors
+Ported so far: ``--audio`` (repeatable) or ``--audio-list FILE`` (one
+path per line; the two conflict), ``--batch-files N`` (decode the files
+in batches of up to N rows, one text line per file in order),
+``--timestamps`` (one JSON line per file, ``{"file", "text", "words"}``;
+per file, so not with ``--batch-files``), ``--model DIR`` (a SafeTensors
 model directory: consolidated.safetensors, params.json, tekken.json),
 ``--dtype {bfloat16,float32,w8}`` (default bfloat16, as in the JAX CLI;
 with ``--model`` or ``--random-weights``), ``--random-weights``,
@@ -23,25 +30,24 @@ of ``--model --dtype w8`` and of ``--gguf``, cached on disk),
 exits with an error, and the CPU runs the kernels' plain versions only
 when asked for with ``--device cpu``).  The other flags of
 ``voxtral_tpu/cli.py`` are recognised and exit with an error naming the
-ROADMAP item that ports them.  One line of text per audio file on stdout;
-logs on stderr.
+ROADMAP item that ports them.  One line of text per audio file on stdout
+(a missing file prints an empty line and the exit code is 1); logs on
+stderr.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import sys
 from pathlib import Path
 
 # flag -> (value it takes when unset, ROADMAP item that ports it)
 _NOT_PORTED = {
-    "--audio-list": (None, "queue 1, item 11a (batched multi-file input)"),
-    "--batch-files": (0, "queue 1, item 11a (batched multi-file decode)"),
     "--platform": (None, "none: the port takes --device instead"),
     "--tp": (1, "queue 1, item 12 (parallel)"),
     "--dp": (1, "queue 1, item 12 (parallel)"),
-    "--timestamps": (False, "queue 1, item 11a (word timestamps)"),
     "--server": (None, "queue 1, item 11b (serving)"),
 }
 
@@ -54,6 +60,15 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("-a", "--audio", action="append", default=[],
                    help="Path to a WAV file; repeatable")
+    p.add_argument("--audio-list", metavar="FILE",
+                   help="Text file with one WAV path per line (instead of "
+                   "--audio)")
+    p.add_argument("--batch-files", type=int, default=0, metavar="N",
+                   help="Decode the files in batches of up to N rows (files "
+                   "of one padded length share each decode step)")
+    p.add_argument("--timestamps", action="store_true",
+                   help="One JSON line per file with word-level start / end "
+                   "times: {\"file\", \"text\", \"words\"}")
     p.add_argument("--model", metavar="DIR",
                    help="SafeTensors model directory "
                    "(consolidated.safetensors, params.json, tekken.json)")
@@ -120,13 +135,25 @@ def main(argv: list[str] | None = None) -> int:
         if getattr(args, flag[2:].replace("-", "_")) != default:
             return _error(f"{flag} is not ported to voxtral_tpu_torch yet "
                           f"(ROADMAP {item})")
+    audio_paths = args.audio
+    if args.audio_list:
+        if args.audio:
+            return _error("--audio conflicts with --audio-list")
+        list_path = Path(args.audio_list)
+        if not list_path.exists():
+            return _error(f"audio list not found: {list_path}")
+        audio_paths = [line.strip()
+                       for line in list_path.read_text().splitlines()
+                       if line.strip()]
+    if args.timestamps and args.batch_files > 0:
+        return _error("--timestamps is per-file (drop --batch-files)")
     if args.gguf and not (args.tokenizer or args.random_weights):
         return _error("--gguf requires --tokenizer")
     if not (args.random_weights or args.gguf or args.model):
         return _error("no weights: pass --model DIR, --random-weights or "
                       "--gguf PATH")
-    if not args.audio:
-        return _error("no audio files specified (--audio)")
+    if not audio_paths:
+        return _error("no audio files specified (--audio or --audio-list)")
     if args.max_mel_frames <= 0:
         return _error("--max-mel-frames must be greater than 0")
     if args.speculative < 0:
@@ -196,14 +223,34 @@ def main(argv: list[str] | None = None) -> int:
         except (FileNotFoundError, ValueError, KeyError) as exc:
             return _error(f"failed to load the model directory: {exc}")
 
+    if args.batch_files > 0:
+        present = [p for p in audio_paths if Path(p).exists()]
+        for path in audio_paths:
+            if path not in present:
+                print(f"error: audio file not found: {path}", file=sys.stderr)
+        try:
+            texts = dict(zip(present, pipeline.transcribe_files_batched(
+                present, batch_size=args.batch_files)))
+        except Exception as exc:  # reported, as the JAX CLI does
+            print(f"error: batched transcription failed: {exc}",
+                  file=sys.stderr)
+            return 1
+        for path in audio_paths:
+            print(texts.get(path, ""), flush=True)
+        return 0 if len(present) == len(audio_paths) else 1
+
     status = 0
-    for path in args.audio:
+    for path in audio_paths:
         if not Path(path).exists():
             print(f"error: audio file not found: {path}", file=sys.stderr)
             print("")
             status = 1
             continue
-        print(pipeline.transcribe_file(path), flush=True)
+        if args.timestamps:
+            result = pipeline.transcribe_file_words(path)
+            print(json.dumps({"file": str(path), **result}), flush=True)
+        else:
+            print(pipeline.transcribe_file(path), flush=True)
     return status
 
 

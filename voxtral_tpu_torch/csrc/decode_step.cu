@@ -103,63 +103,14 @@
 #include <type_traits>
 
 #include "bf16_gemv.cuh"
+#include "decode_common.cuh"
 #include "w8_common.cuh"
 
 namespace vx {
 namespace {
 
-enum QuantMode { kQuantPlain = 0, kQuantNorm = 1, kQuantSwiglu = 2 };
 // The weight format of the host entry's ``wfmt``.
 enum WeightFormat { kW8 = 0, kG32 = 1, kBf16 = 2 };
-
-constexpr int kQuantThreads = 1024;
-constexpr int kAttnThreads = 256;
-constexpr int kMaxHeadDim = 256;  // P.V: up to 4 bf16 pairs per lane
-
-__device__ __forceinline__ double warp_sum_d(double v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ int warp_sum_i(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Block-wide max / f64 sum; every thread gets the result.  ``red`` holds
-// one value per warp.
-__device__ float block_max(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = (blockDim.x + 31) >> 5;
-  v = warp_max(v);
-  __syncthreads();  // a previous reduction may still read red
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  return warp_max(lane < nw ? red[lane] : -INFINITY);
-}
-
-__device__ double block_sum_d(double v, double* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = (blockDim.x + 31) >> 5;
-  v = warp_sum_d(v);
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  return warp_sum_d(lane < nw ? red[lane] : 0.0);
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
 
 // Mode (d): is head+ring cache slot ``slot`` visible to draft row j of a
 // stream at offset ``off``?  Written (a head slot below the offset, or
@@ -178,98 +129,6 @@ __device__ __forceinline__ bool ring_visible(int slot, int off, int j,
     p_abs = head + r + size * (max(wr - 1 - r, 0) / size);
   }
   return written && (window < 0 || off + j - p_abs <= window);
-}
-
-// The prologue of an attention block for row r, query head h (kv head
-// jh): pair RoPE of q (scaled) and k with row r's vectors into shared
-// memory (qf, kf; qb = bf16(q) when given), v into vf, and k_new / v_new
-// as bf16 (one writer per kv head).  The caller synchronizes.
-__device__ __forceinline__ void rope_row(
-    const float* __restrict__ qkv, const float* __restrict__ cosv,
-    const float* __restrict__ sinv, int rope_stride, int r, int h, int jh,
-    int G, int n_heads, int n_kv, int hd, float scale, float* qf, float* qb,
-    float* kf, float* vf, __nv_bfloat16* __restrict__ kn,
-    __nv_bfloat16* __restrict__ vn) {
-  const int nq = n_heads * hd, nkv = n_kv * hd, ld = nq + 2 * nkv;
-  const float* row = qkv + static_cast<size_t>(r) * ld;
-  const float* qh = row + static_cast<size_t>(h) * hd;
-  const float* kh = row + nq + static_cast<size_t>(jh) * hd;
-  const float* vh = row + nq + nkv + static_cast<size_t>(jh) * hd;
-  const float* cr = cosv + static_cast<size_t>(r) * rope_stride;
-  const float* sr = sinv + static_cast<size_t>(r) * rope_stride;
-  const size_t kvo = (static_cast<size_t>(r) * n_kv + jh) * hd;
-  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
-    const float q = (qh[d] * cr[d] + qh[d ^ 1] * sr[d]) * scale;
-    qf[d] = q;
-    if (qb != nullptr) qb[d] = round_bf16(q);
-    const float k = kh[d] * cr[d] + kh[d ^ 1] * sr[d];
-    kf[d] = k;
-    vf[d] = vh[d];
-    if (h % G == 0) {  // one writer per kv head
-      kn[kvo + d] = __float2bfloat16(k);
-      vn[kvo + d] = __float2bfloat16(vh[d]);
-    }
-  }
-}
-
-// One block per row b: h = f(x[b]) of width K, then xq[b] = int8 codes,
-// sx[b] = max(absmax(h), 1e-8) / 127 with round-half-even of h / sx; or,
-// with ``xb`` (mode (g)), xb[b] = bf16(h) and no quantization.
-//   kQuantPlain:  h = x
-//   kQuantNorm:   h = (x * (1 / sqrt(mean(x^2) + eps))) * w   (* ada),
-//                 mean(x^2) summed in f64
-//   kQuantSwiglu: h = (g * sigmoid(g)) * u, g = x[:K], u = x[K:2K]
-// h is recomputed in each pass (the same operations, the same values).
-__global__ void __launch_bounds__(kQuantThreads) row_quant_kernel(
-    const float* __restrict__ x, int ldx, int K, const float* __restrict__ w,
-    const float* __restrict__ ada, float eps, int mode,
-    int8_t* __restrict__ xq, float* __restrict__ sx,
-    __nv_bfloat16* __restrict__ xb) {
-  __shared__ float red[32];
-  __shared__ double red_d[32];
-  const int b = blockIdx.x;
-  const float* xr = x + static_cast<size_t>(b) * ldx;
-  float inv = 1.0f;
-  if (mode == kQuantNorm) {
-    double ss = 0.0;
-    for (int k = threadIdx.x; k < K; k += blockDim.x) {
-      const double v = xr[k];
-      ss += v * v;
-    }
-    ss = block_sum_d(ss, red_d);
-    const float var = static_cast<float>(ss / static_cast<double>(K));
-    inv = 1.0f / sqrtf(var + eps);
-  }
-  auto value = [&](int k) -> float {
-    if (mode == kQuantNorm) {
-      float h = (xr[k] * inv) * w[k];
-      if (ada != nullptr) h = h * ada[k];
-      return h;
-    }
-    if (mode == kQuantSwiglu) {
-      const float g = xr[k];
-      const float sig = 1.0f / (1.0f + expf(-g));
-      return (g * sig) * xr[K + k];
-    }
-    return xr[k];
-  };
-  if (xb != nullptr) {
-    __nv_bfloat16* o = xb + static_cast<size_t>(b) * K;
-    for (int k = threadIdx.x; k < K; k += blockDim.x)
-      o[k] = __float2bfloat16(value(k));
-    return;
-  }
-  float amax = 0.0f;
-  for (int k = threadIdx.x; k < K; k += blockDim.x)
-    amax = fmaxf(amax, fabsf(value(k)));
-  amax = block_max(amax, red);
-  const float s = fmaxf(amax, 1e-8f) / 127.0f;
-  int8_t* q = xq + static_cast<size_t>(b) * K;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    const float c = fminf(fmaxf(rintf(value(k) / s), -127.0f), 127.0f);
-    q[k] = static_cast<int8_t>(c);
-  }
-  if (threadIdx.x == 0) sx[b] = s;
 }
 
 // One block per (query head h, row r); kv head jh = h / G.  Row r is
@@ -801,14 +660,6 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kv_kernel(
     ctx = ctx + e_self * vf[d];
     out[d] = ctx / den;
   }
-}
-
-inline void row_quant(const float* x, int ldx, int K, const float* w,
-                      const float* ada, float eps, int mode, int B,
-                      int8_t* xq, float* sx, __nv_bfloat16* xb,
-                      cudaStream_t st) {
-  row_quant_kernel<<<B, kQuantThreads, 0, st>>>(x, ldx, K, w, ada, eps, mode,
-                                                xq, sx, xb);
 }
 
 }  // namespace

@@ -10,13 +10,21 @@ Weight routes, as the JAX model picks them (``megakernel_mode``):
   attention and FFN leaves are rewritten once to ``{"nt": w}`` and
   shared with K1's stacks (``fuse_decode_weights_bf16``), the dense
   table folded in as the lm_head;
+* a one-shot batch whose geometry K1 refuses (``check_geometry``), or
+  whose prefill cache and K1's head-major copy of it would not fit the
+  card together (``utils.hbm.check_hbm``), on w8 leaves -> the
+  per-layer route: K7 (``ops.decode_step.decode_layer_step``) once per
+  layer and position in the position-major prefill cache itself, then
+  the final norm and the lm_head through K2 (:func:`oneshot_plan`; JAX
+  takes this route when its stack kernel's VMEM budget refuses a merged
+  batch, ``models/voxtral.py:291-322``, ``:518-546``);
 * packed q4 leaves (``q4``), q4g at other geometries and dense f32
-  leaves -> the per-op step: ``decoder_forward_hidden_with_cache`` per
+  leaves, and q4g / bf16 batches K1 refuses -> the per-op step: ``decoder_forward_hidden_with_cache`` per
   position, every decoder linear and the lm_head through
   ``models.layers.linear`` / ``decoder.lm_head`` (K3 for packed
   leaves; f32 models compute and cache in f32, as JAX's XLA step);
-  speculative decode rides the sequential loop there, as JAX gates it
-  on the fused step.
+  speculative decode rides the sequential loop there and on the
+  per-layer route, as JAX gates it on the stack kernel.
 
 Behaviour kept from the reference:
 
@@ -40,6 +48,8 @@ decides whether another pass is needed.
 
 from __future__ import annotations
 
+import logging
+import time
 from typing import Any, Optional
 
 import numpy as np
@@ -59,11 +69,19 @@ from voxtral_tpu_torch.models.decoder import (
     lm_head,
 )
 from voxtral_tpu_torch.models.encoder import encoder_forward
-from voxtral_tpu_torch.models.layers import PLAIN, rms_norm, rope_tables
+from voxtral_tpu_torch.models.layers import (
+    PLAIN,
+    cache_update_layer,
+    rms_norm,
+    rope_tables,
+)
 from voxtral_tpu_torch.models.time_embedding import time_embedding
 from voxtral_tpu_torch.ops import decode_step as k1
+from voxtral_tpu_torch.utils.hbm import HBMBudgetError, check_hbm
 
 Params = dict[str, Any]
+
+log = logging.getLogger("voxtral_tpu_torch")
 
 PREFIX_LEN = 38
 
@@ -183,21 +201,33 @@ def transcribe_streaming_fn(params: Params, mel: torch.Tensor,
                             temperature: float = 0.0, top_k: int = 0,
                             seed: int = 0, speculative: int = 0,
                             draft: str = "ngram",
-                            passes: Optional[list] = None) -> torch.Tensor:
+                            passes: Optional[list] = None,
+                            route: str = "stack", layer_step=None,
+                            decode_stats: Optional[dict] = None
+                            ) -> torch.Tensor:
     """Transcription of a batch of mels -> int32 [B, S - 38].
 
     ``fused``: the stacks of :func:`ops.decode_step.fuse_decode_weights`
     or ``fuse_decode_weights_q4g`` (the K1 step), or None (the per-op
-    step).  ``mm`` / ``step``: the linears' kernels (a
-    :class:`~voxtral_tpu_torch.models.layers.Matmuls`) and the decode
-    step (the kernel wrappers by default; their plain versions run the
-    same path without the kernels).  ``temperature`` > 0 samples (top-k
-    when ``top_k`` > 0) from a generator seeded with ``seed``.  ``speculative=K >= 2``
-    (greedy only, and at least one decode position) verifies K drafted
-    tokens per pass with ``draft`` "ngram" or "pad"; sampling rides the
+    step).  ``route`` (with fused stacks): "stack", the K1 step over a
+    head-major copy of the prefill cache, or "layer", K7 per layer in the
+    prefill cache itself (w8 stacks; :func:`oneshot_plan` picks it).
+    ``mm`` / ``step`` / ``layer_step``: the linears' kernels (a
+    :class:`~voxtral_tpu_torch.models.layers.Matmuls`), the K1 step and
+    the K7 layer step (the kernel wrappers by default; their plain
+    versions run the same path without the kernels).  ``temperature`` > 0
+    samples (top-k when ``top_k`` > 0) from a generator seeded with
+    ``seed``.  ``speculative=K >= 2`` (greedy only, at least one decode
+    position, the stack route) verifies K drafted tokens per pass with
+    ``draft`` "ngram" or "pad"; sampling and the other routes ride the
     sequential loop.  ``margins``, when a list, receives the top-2 logit
     margin [B] of every position (diagnostics for near-tie flips);
-    ``passes``, when a list, receives the number of speculative passes.
+    ``passes``, when a list, receives the number of speculative passes;
+    ``decode_stats``, when a dict, receives "seconds", the wall time of
+    everything after the first token (the decode loop, the stack route's
+    cache copy included, synchronized at both ends), and on the card
+    "extra_bytes", the most memory allocated in that time above what was
+    allocated when it began (the peak statistics are reset there).
     """
     check_draft(draft)
     step = step or k1.decode_stack_step
@@ -224,38 +254,92 @@ def transcribe_streaming_fn(params: Params, mel: torch.Tensor,
     if temperature > 0.0:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-    n_steps = seq_len - PREFIX_LEN - 1
     token = select_token(logits, gen, temperature, top_k)
     if margins is not None:
         margins.append(top2_margin(logits))
+    if decode_stats is not None:
+        base = _decode_mark(dev)
+        t0 = _clock(dev)
 
     if fused is None:
-        return _per_op_decode(dec, audio_embeds, t_embed, token, cache,
-                              rope, lm_cfg, mm, gen, temperature, top_k,
-                              margins)
+        tokens = _per_op_decode(dec, audio_embeds, t_embed, token, cache,
+                                rope, lm_cfg, mm, gen, temperature, top_k,
+                                margins)
+    elif route == "layer":
+        tokens = _layer_decode(layer_step or k1.decode_layer_step, dec,
+                               fused, k1.ada_vectors(dec, t_embed, mm),
+                               audio_embeds, token, cache, lm_cfg, mm, gen,
+                               temperature, top_k, margins)
+    else:
+        K = speculative
+        spec = K >= 2 and temperature <= 0.0 and seq_len - PREFIX_LEN > 1
+        k_cache, v_cache = _head_major(cache, seq_len + (K - 1 if spec
+                                                         else 0))
+        del cache  # K1 reads the copy: the prefill cache goes now
+        tokens = _stack_decode(
+            fused_step_fn(dec, fused, k1.ada_vectors(dec, t_embed, mm),
+                          lm_cfg, mm, step),
+            dec, audio_embeds, token, k_cache, v_cache, lm_cfg, gen,
+            temperature, top_k, K if spec else 0, draft, margins, passes)
+    if decode_stats is not None:
+        decode_stats["seconds"] = _clock(dev) - t0
+        if dev.type == "cuda":
+            decode_stats["extra_bytes"] = (
+                torch.cuda.max_memory_allocated(dev) - base)
+    return tokens
 
-    run_step = fused_step_fn(dec, fused, k1.ada_vectors(dec, t_embed, mm),
-                             lm_cfg, mm, step)
-    K = speculative
-    spec = K >= 2 and temperature <= 0.0 and n_steps >= 1
-    # Head-major copy of the prefilled cache for the step: [L, B, Hkv, S,
-    # hd]; the speculative loop's last pass appends K rows at slots up to
-    # seq_len + K - 2, so its copy has a K - 1 slot tail.
-    L, _, _, n_kv, hd = cache.k.shape
-    slots = seq_len + (K - 1 if spec else 0)
+
+def _clock(dev) -> float:
+    """Host seconds after the device's queued work has finished."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter()
+
+
+def _decode_mark(dev) -> int:
+    """Bytes allocated on the card now, the peak statistics reset to it
+    (0 on the CPU)."""
+    if dev.type != "cuda":
+        return 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def _head_major(cache, slots: int):
+    """Head-major copies [L, B, Hkv, slots, hd] of the prefilled
+    position-major cache [L, B, S, Hkv, hd] for K1; slots past S (the
+    speculative loop's K - 1 slot tail) are zero."""
+    L, batch, S, n_kv, hd = cache.k.shape
     k_cache = torch.zeros((L, batch, n_kv, slots, hd), dtype=cache.k.dtype,
-                          device=dev)
+                          device=cache.k.device)
     v_cache = torch.zeros_like(k_cache)
-    k_cache[:, :, :, :seq_len] = cache.k.permute(0, 1, 3, 2, 4)
-    v_cache[:, :, :, :seq_len] = cache.v.permute(0, 1, 3, 2, 4)
-    del cache
+    k_cache[:, :, :, :S] = cache.k.permute(0, 1, 3, 2, 4)
+    v_cache[:, :, :, :S] = cache.v.permute(0, 1, 3, 2, 4)
+    return k_cache, v_cache
+
+
+def _stack_decode(run_step, dec: Params, audio_embeds: torch.Tensor,
+                  first: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, lm_cfg, gen, temperature: float,
+                  top_k: int, K: int, draft: str, margins: Optional[list],
+                  passes: Optional[list]) -> torch.Tensor:
+    """The K1 route of :func:`transcribe_streaming_fn` on the head-major
+    caches (:func:`_head_major`; a K - 1 slot tail when ``K`` >= 2 runs
+    the speculative loop, whose last pass appends K rows at slots up to
+    seq_len + K - 2): one K1 step per position, or the speculative loop.
+    -> int32 [B, n_steps + 1]."""
+    dev = audio_embeds.device
+    batch, seq_len = audio_embeds.shape[0], audio_embeds.shape[1]
+    n_steps = seq_len - PREFIX_LEN - 1
     cos_t, sin_t = k1.rope_pair_vectors(
-        torch.arange(slots, device=dev), lm_cfg.head_dim, lm_cfg.rope_theta)
-    if spec:
-        return _spec_decode(run_step, dec, audio_embeds, token, k_cache,
+        torch.arange(k_cache.shape[3], device=dev), lm_cfg.head_dim,
+        lm_cfg.rope_theta)
+    if K >= 2:
+        return _spec_decode(run_step, dec, audio_embeds, first, k_cache,
                             v_cache, cos_t, sin_t, K, draft == "ngram",
                             lm_cfg.vocab_size, margins, passes)
 
+    token = first
     tokens = torch.empty((batch, n_steps + 1), dtype=torch.int32, device=dev)
     tokens[:, 0] = token
     for i in range(n_steps):
@@ -268,6 +352,56 @@ def transcribe_streaming_fn(params: Params, mel: torch.Tensor,
         # leaves its inputs as they were.
         k_cache[:, :, :, off] = k_new
         v_cache[:, :, :, off] = v_new
+        token = select_token(logits, gen, temperature, top_k)
+        tokens[:, i + 1] = token
+        if margins is not None:
+            margins.append(top2_margin(logits))
+    return tokens
+
+
+def _layer_decode(layer_step, dec: Params, fused: Params,
+                  ada_vecs: torch.Tensor, audio_embeds: torch.Tensor,
+                  first: torch.Tensor, cache, lm_cfg, mm, gen,
+                  temperature: float, top_k: int,
+                  margins: Optional[list]) -> torch.Tensor:
+    """The per-layer route (JAX ``layer_body``, ``models/voxtral.py:
+    518-546``): per position, one K7 call per layer on the position-major
+    prefill cache [L, B, S, Hkv, hd], each followed by its append; then
+    the final norm and the lm_head (K2: K7 folds no lm_head).
+    -> int32 [B, n_steps + 1]."""
+    batch, seq_len = audio_embeds.shape[0], audio_embeds.shape[1]
+    n_steps = seq_len - PREFIX_LEN - 1
+    kw = dict(n_heads=lm_cfg.n_heads, n_kv=lm_cfg.n_kv_heads,
+              head_dim=lm_cfg.head_dim, eps=lm_cfg.norm_eps,
+              window=lm_cfg.sliding_window)
+    cos_t, sin_t = k1.rope_pair_vectors(
+        torch.arange(seq_len, device=audio_embeds.device), lm_cfg.head_dim,
+        lm_cfg.rope_theta)
+    # Each layer's own vectors and cache views, cut once.
+    per_layer = [
+        (fused["attn_norm"][l], fused["ffn_norm"][l], ada_vecs[l],
+         fused["sqkv"][l], fused["so"][l], fused["s13"][l], fused["s2"][l])
+        for l in range(cache.k.shape[0])]
+    caches = list(zip(cache.k, cache.v))
+    stacks = (fused["wqkv"], fused["wo"], fused["w13"], fused["w2"])
+    tokens = torch.empty((batch, n_steps + 1), dtype=torch.int32,
+                         device=audio_embeds.device)
+    tokens[:, 0] = first
+    token = first
+    for i in range(n_steps):
+        off = PREFIX_LEN + i
+        text = embed_tokens(dec, token.long()[:, None])  # [B, 1, D]
+        x = (audio_embeds[:, off:off + 1, :] + text)[:, 0, :].float()
+        cos, sin = cos_t[off], sin_t[off]
+        for l, (vecs, (k_l, v_l)) in enumerate(zip(per_layer, caches)):
+            x, k_new, v_new = layer_step(x, l, off, *vecs, cos, sin, k_l,
+                                         v_l, *stacks, **kw)
+            # K7 reads slots < off only: the append in place at off
+            # leaves its inputs as they were.
+            cache_update_layer(k_l, v_l, k_new[:, None], v_new[:, None],
+                               off)
+        logits = lm_head(dec, rms_norm(x, dec["norm"], lm_cfg.norm_eps),
+                         mm=mm)
         token = select_token(logits, gen, temperature, top_k)
         tokens[:, i + 1] = token
         if margins is not None:
@@ -431,6 +565,60 @@ def top2_margin(logits: torch.Tensor) -> torch.Tensor:
     return top[:, 0] - top[:, 1]
 
 
+def oneshot_cache_bytes(model, batch: int, slots: int) -> int:
+    """Bytes of one decoder K + V cache of ``batch`` rows x ``slots``
+    positions in the model's cache dtype."""
+    lm = model.config.language_model
+    item = torch.empty((), dtype=model.cache_dtype).element_size()
+    return (2 * lm.n_layers * batch * slots * lm.n_kv_heads * lm.head_dim
+            * item)
+
+
+def oneshot_plan(model, batch: int, seq_len: int, spec: int = 1):
+    """The decode route of a one-shot batch -> (route, reason).
+
+    The port's counterpart of JAX's VMEM gate (``models/voxtral.py:
+    291-322``), a ladder of rungs:
+
+    * "stack": K1, when ``check_geometry`` takes the cache (``seq_len``
+      slots, plus ``spec - 1`` for a speculative batch) and ``check_hbm``
+      admits the prefill cache together with K1's head-major copy of it;
+    * "layer": K7 on the prefill cache itself (one copy), when K1 is
+      refused, for w8 stacks (JAX's K7 is w8-only);
+    * "per_op": a model without fused stacks, or q4g / bf16 stacks K1
+      refuses, when one copy fits.
+
+    ``reason`` names each refusal on the way.  When even one copy does
+    not fit, the last rung's exception is raised with every refusal.  No
+    argument selects a rung: tests force one by replacing this function.
+    """
+    one = oneshot_cache_bytes(model, batch, seq_len)
+    what = f"a one-shot batch of {batch} rows x {seq_len} positions"
+    if model.fused_decode is None:
+        check_hbm(model, one, what, batch)
+        return "per_op", f"{model.decode_route} weights have no fused step"
+    lm = model.config.language_model
+    slots = seq_len + (spec - 1 if spec > 1 else 0)
+    try:
+        k1.check_geometry(slots, lm.head_dim, lm.sliding_window, spec)
+        check_hbm(model, one + oneshot_cache_bytes(model, batch, slots),
+                  f"{what}, prefill cache + K1's head-major copy", batch)
+        return "stack", "K1 takes the geometry and both cache copies fit"
+    except (ValueError, HBMBudgetError) as exc:
+        refused = [f"stack (K1): {exc}"]
+    route = "layer" if model.decode_route == "w8" else "per_op"
+    try:
+        if route == "layer":
+            k1.check_layer_geometry(seq_len, lm.head_dim, lm.sliding_window)
+        check_hbm(model, one, f"{what}, prefill cache", batch)
+    except (ValueError, HBMBudgetError) as exc:
+        refused.append(f"{route} ({'K7' if route == 'layer' else 'no K1'}): "
+                       f"{exc}")
+        raise type(exc)("no decode route takes " + what + " -- "
+                        + "; ".join(refused)) from exc
+    return route, "; ".join(refused)
+
+
 class VoxtralModel:
     """Parameter tree + config on one device: greedy, sampled and
     speculative decode.
@@ -477,6 +665,19 @@ class VoxtralModel:
         self._mm = None if kernels else PLAIN
         self._step = k1.decode_stack_step if kernels \
             else k1.decode_stack_step_plain
+        self._layer_step = k1.decode_layer_step if kernels \
+            else k1.decode_layer_step_plain
+        # The route of the last one-shot call ("stack", "layer" or
+        # "per_op", :func:`oneshot_plan`) and why.
+        self.last_decode_route: Optional[str] = None
+        self.last_route_reason = ""
+        # Set to True to append one record per one-shot call to
+        # ``decode_log``: route, rows, positions, decode steps, the decode
+        # loop's wall seconds (synchronized at both ends: measuring costs
+        # two synchronizations per call) and, on the card, the memory it
+        # allocated above its start ("extra_bytes").
+        self.measure_decode = False
+        self.decode_log: list[dict] = []
         # Set to True to keep the top-2 logit margins of the last call
         # in ``last_margins`` ([B, S - 38] numpy).
         self.record_margins = False
@@ -537,21 +738,60 @@ class VoxtralModel:
         return self._transcribe(mel_batch, delay_tokens,
                                 speculative=speculative, draft=draft)
 
+    def transcribe_streaming_batch_async(self, mel_batch,
+                                         delay_tokens: float = 6.0,
+                                         speculative: int = 0,
+                                         draft: str = "ngram"):
+        """:meth:`transcribe_streaming_batch` without the fetch: the
+        tokens as an int32 tensor [B, S - 38] on the model's device (a
+        numpy zeros array [B, 0] for a mel too short to decode); fetch
+        with ``np.asarray(t.cpu())``.  The kernels are queued on the
+        current stream; the speculative loop still reads one bool per
+        pass."""
+        tokens = self._transcribe_device(mel_batch, delay_tokens,
+                                         speculative=speculative,
+                                         draft=draft)
+        if tokens is None:
+            return np.zeros((mel_batch.shape[0], 0), dtype=np.int32)
+        return tokens
+
     def _transcribe(self, mel, delay_tokens: float, **kw) -> np.ndarray:
+        tokens = self._transcribe_device(mel, delay_tokens, **kw)
+        if tokens is None:
+            return np.zeros((mel.shape[0], 0), dtype=np.int32)
+        return tokens.cpu().numpy()
+
+    def _transcribe_device(self, mel, delay_tokens: float, **kw):
         check_draft(kw["draft"])
         mel = self._cast_mel(mel)
         self.last_spec_passes = 0
-        if self.decoder_seq_len(mel.shape[-1]) < PREFIX_LEN + 1:
-            return np.zeros((mel.shape[0], 0), dtype=np.int32)
+        seq = self.decoder_seq_len(mel.shape[-1])
+        if seq < PREFIX_LEN + 1:
+            return None
+        spec = kw.get("speculative", 0)
+        greedy = kw.get("temperature", 0.0) <= 0.0
+        route, why = oneshot_plan(self, mel.shape[0], seq,
+                                  spec if spec >= 2 and greedy else 1)
+        self.last_decode_route, self.last_route_reason = route, why
+        (log.info if route == "layer" or (route == "per_op"
+                                          and self.fused_decode is not None)
+         else log.debug)("one-shot decode of %d rows x %d positions: %s "
+                         "route (%s)", mel.shape[0], seq, route, why)
         margins = [] if self.record_margins else None
         passes: list = []
+        stats: Optional[dict] = {} if self.measure_decode else None
         with torch.no_grad():
             tokens = transcribe_streaming_fn(
                 self.params, mel, self.t_embed(delay_tokens), self.config,
-                self.fused_decode, self._mm, self._step, margins,
-                passes=passes, **kw)
+                None if route == "per_op" else self.fused_decode, self._mm,
+                self._step, margins, passes=passes, route=route,
+                layer_step=self._layer_step, decode_stats=stats, **kw)
         if passes:
             self.last_spec_passes = passes[0]
+        if stats is not None:
+            self.decode_log.append(dict(route=route, rows=mel.shape[0],
+                                        positions=seq,
+                                        steps=seq - PREFIX_LEN - 1, **stats))
         if margins is not None:
             self.last_margins = torch.stack(margins, dim=1).cpu().numpy()
-        return tokens.cpu().numpy()
+        return tokens

@@ -130,7 +130,14 @@ def kernel_fn(name: str, argtypes: Sequence):
 
     Pointers and the stream are ``c_void_p`` (a bare Python int would be
     cut to 32 bits); every entry point returns a ``cudaError_t`` as int.
+    The signature is set once per process (a wrapper asks for its entry
+    point at every launch).
     """
+    return _entry(name, tuple(argtypes))
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str, argtypes: tuple):
     fn = getattr(library(), name)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int

@@ -49,8 +49,12 @@ With a full window the attention reads as many bytes as the weights at
 four streams (0.87 GB of bf16 cache per stream and step); mode (e)
 halves them (int8 codes + 1/32 of that in scales).
 
-Also here, the host-side preparation the JAX module holds beside the
-kernel: :func:`fuse_decode_weights`, :func:`fuse_decode_weights_q4g`,
+Also here, K7 (:func:`decode_layer_step`, ``csrc/decode_layer.cu``): one
+decoder layer of the w8 step over the position-major prefill cache
+[B, S, Hkv, hd] with a scalar offset (JAX ``decode_layer_step``), which
+the one-shot path's per-layer route calls once per layer and position
+(``models.voxtral.oneshot_plan``); and the host-side preparation the JAX
+module holds beside the kernels: :func:`fuse_decode_weights`, :func:`fuse_decode_weights_q4g`,
 :func:`fuse_decode_weights_bf16`, :func:`megakernel_mode`, :func:`q4g_geometry_ok`, :func:`ada_vectors`,
 :func:`rope_pair_vectors` and :func:`quantize_kv`.
 """
@@ -929,3 +933,208 @@ def decode_stack_step(
 
 
 decode_stack_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7: one decoder layer over the position-major cache
+# ---------------------------------------------------------------------------
+
+
+def _layer_attention_plain(q, k, v, k_cache, v_cache, offset: int, window,
+                           n_kv: int, scale: float) -> torch.Tensor:
+    """K7's attention (JAX ``_make_kernel``): q [B, H, hd], k / v [B, Hkv,
+    hd] RoPE'd f32; caches position-major [B, S, Hkv, hd] bf16 (slots <
+    ``offset`` within the window visible).  The scaled q stays f32 and
+    the softmax weights f32 (K1 rounds both to bf16).  -> [B, H * hd]."""
+    B, n_heads, hd = q.shape
+    S = k_cache.shape[1]
+    qg = (q * scale).reshape(B, n_kv, n_heads // n_kv, hd)
+    kc = k_cache.permute(0, 2, 1, 3).double()  # [B, Hkv, S, hd]
+    vc = v_cache.permute(0, 2, 1, 3).double()
+    pos = torch.arange(S, device=q.device)
+    valid = pos < offset
+    if window is not None:
+        valid = valid & ((offset - pos) <= window)
+    scores = (qg.double() @ kc.transpose(-1, -2)).float()  # [B, Hkv, G, S]
+    scores = torch.where(valid, scores, float("-inf"))
+    self_s = _sum64(qg.double() * k[:, :, None].double())  # [B, Hkv, G]
+    m = torch.maximum(scores.amax(-1), self_s)
+    e_cache = torch.exp(scores - m[..., None])
+    e_self = torch.exp(self_s - m)
+    denom = _sum64(e_cache) + e_self
+    ctx = (e_cache.double() @ vc).float() + e_self[..., None] * v[:, :, None]
+    return (ctx / denom[..., None]).reshape(B, n_heads * hd)
+
+
+def decode_layer_step_plain(
+    x, layer: int, offset: int,
+    attn_norm, ffn_norm, ada_vec,
+    sqkv, so, s13, s2, cos_p, sin_p,
+    k_cache, v_cache,
+    wqkv, wo, w13, w2,
+    *, n_heads: int, n_kv: int, head_dim: int, eps: float,
+    window: Optional[int] = None,
+):
+    """Plain PyTorch version of K7, as the JAX kernel computes it: the
+    float reductions in f64, rounded once (as the CUDA kernel).  Returns
+    (x_out [B, D] f32, k_new, v_new [B, Hkv, hd] in the cache dtype)."""
+    nq, nkv = n_heads * head_dim, n_kv * head_dim
+    hidden = w2.shape[2]
+    B = x.shape[0]
+    c, s = cos_p.float(), sin_p.float()
+    x = x.float()
+
+    def lin(h, w, sc):
+        xq, sx = _quant(h)
+        return w8_matmul_plain(xq, sx, w[layer], sc)
+
+    h = _rms(x, attn_norm.float(), eps)
+    qkv = lin(h, wqkv, sqkv)
+    q = qkv[:, :nq].reshape(B, n_heads, head_dim)
+    k = qkv[:, nq:nq + nkv].reshape(B, n_kv, head_dim)
+    v = qkv[:, nq + nkv:].reshape(B, n_kv, head_dim)
+    q = q * c + _rope_swap(q) * s
+    k = k * c + _rope_swap(k) * s
+    attn = _layer_attention_plain(q, k, v, k_cache, v_cache, offset, window,
+                                  n_kv, head_dim ** -0.5)
+    x = x + lin(attn, wo, so)
+    h = _rms(x, ffn_norm.float(), eps) * ada_vec.float()
+    up = lin(h, w13, s13)
+    gate, upv = up[:, :hidden], up[:, hidden:]
+    x = x + lin(gate * (1.0 / (1.0 + torch.exp(-gate))) * upv, w2, s2)
+    return x, k.to(k_cache.dtype), v.to(v_cache.dtype)
+
+
+def layer_smem_bytes(S: int, head_dim: int,
+                     window: Optional[int] = None) -> int:
+    """Shared memory of one K7 attention block, as the host entry sizes
+    it: the per-warp P.V partials (f64), q, k, v and one score per slot
+    the window lets a row see."""
+    span = window if window is not None and window < S else S
+    return 8 * (ATTN_THREADS // 32) * head_dim + 4 * (3 * head_dim + span)
+
+
+def check_layer_geometry(S: int, head_dim: int,
+                         window: Optional[int] = None) -> None:
+    """ValueError naming the cause when K7 cannot take a cache of S
+    slots: its score buffer lives in one block's shared memory."""
+    need = layer_smem_bytes(S, head_dim, window)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"decode_layer_step: a cache of {S} slots (window {window}) "
+            f"needs {need} bytes of shared memory per attention block, "
+            f"above the {SMEM_LIMIT} a block may hold")
+
+
+def decode_layer_step(
+    x, layer: int, offset: int,
+    attn_norm, ffn_norm, ada_vec,
+    sqkv, so, s13, s2, cos_p, sin_p,
+    k_cache, v_cache,
+    wqkv, wo, w13, w2,
+    *, n_heads: int, n_kv: int, head_dim: int, eps: float,
+    window: Optional[int] = None,
+):
+    """K7: one decoder layer of a single-token w8 decode step (JAX
+    ``decode_layer_step``, ``decode_step_pallas.py:292``).
+
+    x [B, D] f32; ``layer`` and ``offset`` ints (the query position, the
+    cache slots below it written); layer ``layer``'s attn_norm, ffn_norm,
+    ada_vec [D] and row scales sqkv [NQKV], so [D], s13 [2F], s2 [D] f32;
+    cos_p / sin_p [hd] f32 pair-expanded at ``offset``; caches
+    position-major [B, S, Hkv, hd] bf16 (this layer's slice of the
+    prefill cache, read at slots < offset only); the stacked w8 codes
+    wqkv [L, NQKV, D], wo [L, D, NQ], w13 [L, 2F, D], w2 [L, D, F] int8,
+    indexed by ``layer`` inside; ``window`` the sliding window (None: no
+    lower bound).  Returns (x_out [B, D] f32, k_new, v_new [B, Hkv, hd]
+    bf16); the caller appends them at ``offset``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (source ``csrc/decode_layer.cu``) or raise.  Each launch adds one to
+    ``decode_layer_step.launches``.
+    """
+    args = (x, layer, offset, attn_norm, ffn_norm, ada_vec, sqkv, so, s13,
+            s2, cos_p, sin_p, k_cache, v_cache, wqkv, wo, w13, w2)
+    kw = dict(n_heads=n_heads, n_kv=n_kv, head_dim=head_dim, eps=eps,
+              window=window)
+    dev = x.device
+    if dev.type == "cpu":
+        return decode_layer_step_plain(*args, **kw)
+    if dev.type != "cuda":
+        raise RuntimeError(f"decode_layer_step: unsupported device {dev}")
+
+    def need(cond: bool, msg: str) -> None:
+        if not cond:
+            raise ValueError(f"decode_layer_step: {msg}")
+
+    B, D = x.shape
+    _, S, Hkv, hd = k_cache.shape
+    L = wqkv.shape[0]
+    nq, nkvd = n_heads * head_dim, n_kv * head_dim
+    F = w2.shape[2]
+    need(isinstance(layer, int) and 0 <= layer < L,
+         f"layer must be an int in [0, {L}), got {layer!r}")
+    need(isinstance(offset, int) and 0 <= offset <= S,
+         f"offset must be an int in [0, {S}], got {offset!r}")
+    need(Hkv == n_kv and hd == head_dim,
+         f"cache {tuple(k_cache.shape)} does not match n_kv={n_kv}, "
+         f"head_dim={head_dim}")
+    need(head_dim % 2 == 0 and head_dim <= 256 and n_heads % n_kv == 0,
+         "head_dim must be even and <= 256, n_kv must divide n_heads")
+    check_layer_geometry(S, head_dim, window)
+    f32 = torch.float32
+    expect = {
+        "x": (x, f32, (B, D)),
+        "attn_norm": (attn_norm, f32, (D,)),
+        "ffn_norm": (ffn_norm, f32, (D,)),
+        "ada_vec": (ada_vec, f32, (D,)),
+        "sqkv": (sqkv, f32, (nq + 2 * nkvd,)),
+        "so": (so, f32, (D,)),
+        "s13": (s13, f32, (2 * F,)),
+        "s2": (s2, f32, (D,)),
+        "cos_p": (cos_p, f32, (head_dim,)),
+        "sin_p": (sin_p, f32, (head_dim,)),
+        "k_cache": (k_cache, torch.bfloat16, (B, S, n_kv, head_dim)),
+        "v_cache": (v_cache, torch.bfloat16, (B, S, n_kv, head_dim)),
+        "wqkv": (wqkv, torch.int8, (L, nq + 2 * nkvd, D)),
+        "wo": (wo, torch.int8, (L, D, nq)),
+        "w13": (w13, torch.int8, (L, 2 * F, D)),
+        "w2": (w2, torch.int8, (L, D, F)),
+    }
+    for name, (t, dtype, shape) in expect.items():
+        need(t is not None and t.dtype == dtype
+             and tuple(t.shape) == shape,
+             f"{name} must be {dtype} {shape}, got "
+             f"{None if t is None else (t.dtype, tuple(t.shape))}")
+        need(t.device == dev and t.is_contiguous(),
+             f"{name} must be contiguous on {dev}")
+
+    x_out = torch.empty((B, D), dtype=f32, device=dev)
+    k_new = torch.empty((B, n_kv, head_dim), dtype=torch.bfloat16,
+                        device=dev)
+    v_new = torch.empty_like(k_new)
+    xq_buf = torch.empty((B, max(D, nq, F)), dtype=torch.int8, device=dev)
+    sx_buf = torch.empty((B,), dtype=f32, device=dev)
+    qkv_buf = torch.empty((B, nq + 2 * nkvd), dtype=f32, device=dev)
+    attn_buf = torch.empty((B, nq), dtype=f32, device=dev)
+    up_buf = torch.empty((B, 2 * F), dtype=f32, device=dev)
+    fn = kernel_fn("vx_decode_layer_step",
+                   [_P, _P, _I, _I] + [_P] * 22 + [_I] * 8 + [_F, _F, _P])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = fn(
+        x.data_ptr(), x_out.data_ptr(), layer, offset, attn_norm.data_ptr(),
+        ffn_norm.data_ptr(), ada_vec.data_ptr(), sqkv.data_ptr(),
+        so.data_ptr(), s13.data_ptr(), s2.data_ptr(), cos_p.data_ptr(),
+        sin_p.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        wqkv.data_ptr(), wo.data_ptr(), w13.data_ptr(), w2.data_ptr(),
+        k_new.data_ptr(), v_new.data_ptr(), xq_buf.data_ptr(),
+        sx_buf.data_ptr(), qkv_buf.data_ptr(), attn_buf.data_ptr(),
+        up_buf.data_ptr(), B, D, S, n_heads, n_kv, head_dim, F,
+        -1 if window is None else int(window), eps, head_dim ** -0.5,
+        stream)
+    check(code, "decode_layer_step")
+    decode_layer_step.launches += 1
+    return x_out, k_new, v_new
+
+
+decode_layer_step.launches = 0

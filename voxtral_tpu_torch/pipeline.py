@@ -1,10 +1,15 @@
 """One-shot transcription pipeline: samples -> text
-(port of the ``transcribe_samples`` path of ``voxtral_tpu/pipeline.py``).
+(port of ``voxtral_tpu/pipeline.py``).
 
 resample to 16 kHz -> peak_normalize(0.95) -> chunk (<= max_mel_frames)
 -> pad (76 left / align + 17 right, bucketed) -> host numpy log-mel ->
-model transcribe (chunks of one padded length decode as one batch) ->
-decode tokens (control tokens filtered) -> join chunk texts.
+model transcribe (chunks of one padded length decode as one batch; under
+``merge_cost`` unequal chunks are padded into one batch when that is
+cheaper) -> decode tokens (control tokens filtered) -> join chunk texts.
+Beside it: word timestamps (:meth:`TranscribePipeline.
+transcribe_samples_words`) and several buffers or files decoded as
+batches (:meth:`TranscribePipeline.transcribe_samples_batched`), the
+batched one-shot path serving stands on.
 
 The log-mel always runs on the host here: the port has no device mel
 yet (ROADMAP queue 1, item 10c).  Models come from a parameter tree
@@ -56,6 +61,16 @@ class MergeCost:
     enc_per_pos_ms: float
 
 
+# Measured on the card by chip_smoke.py (phase 12, "batched one-shot
+# (w8)"): c0 / c1 the linear fit of the one-shot decode loop's wall ms
+# per position at B = 1, 2, 4, 8 rows of full-width w8 (the K1 route, the
+# 16 s chirp: 2.907, 2.963, 3.097, 3.688 ms), enc_per_pos_ms the host mel
+# + encoder + adapter of that chirp per decoder position.  NVIDIA H100
+# 80GB HBM3, 700.00 W.  Each run of the script prints its own beside it.
+DEFAULT_MERGE_COST = MergeCost(c0_ms=2.7376, c1_ms=0.1137,
+                               enc_per_pos_ms=0.7503)
+
+
 @dataclasses.dataclass
 class PipelineConfig:
     delay_tokens: float = 6.0
@@ -64,10 +79,9 @@ class PipelineConfig:
     # Decoder-length bucket granularity (pads only a file's final chunk).
     bucket_positions: int = 8
     peak_normalize: Optional[float] = 0.95
-    # None: unequal-length chunks are never merged into one batch.  The
-    # JAX pipeline's constants were measured on a TPU; none has been
-    # measured on the card yet.
-    merge_cost: Optional[MergeCost] = None
+    # The cost model that decides whether unequal chunks of one buffer
+    # are padded into one decode batch (None: never).
+    merge_cost: Optional[MergeCost] = DEFAULT_MERGE_COST
     # Speculative K-token decode (greedy, K >= 2): each decode pass
     # verifies K drafted tokens per chunk row in one weight pass, with
     # the same tokens as sequential decode; draft "ngram" or "pad".
@@ -199,47 +213,129 @@ class TranscribePipeline:
     def transcribe_samples(self, samples: np.ndarray,
                            sample_rate: int = 16000) -> str:
         """Transcribe a mono float32 sample buffer."""
-        texts = []
-        for toks in self._chunk_tokens(samples, sample_rate):
-            text = self.decode_tokens(toks).strip()
-            if text:
-                texts.append(text)
-        return " ".join(texts)
+        return self._text(self._chunk_tokens(samples, sample_rate))
 
     def transcribe_file(self, path) -> str:
         audio = load_wav(path)
         return self.transcribe_samples(audio.samples, audio.sample_rate)
 
-    def padded_chunks(self, samples: np.ndarray,
-                      sample_rate: int) -> list[AudioBuffer]:
-        """The 16 kHz chunks of a sample buffer, each padded and bucketed
-        as the model receives it (before any merge into one batch)."""
+    def transcribe_samples_words(self, samples: np.ndarray,
+                                 sample_rate: int = 16000) -> dict:
+        """Transcribe with word-level timestamps -> ``{"text": str,
+        "words": [{"word", "start", "end"}]}``, times in seconds of the
+        original audio: each word starts at its [STREAMING_WORD] marker's
+        position (160 ms each) less the decode delay, plus its chunk's
+        start (``VoxtralTokenizer.decode_words``)."""
+        chunks, padded = self._chunks(samples, sample_rate)
+        delay_s = self.pcfg.delay_tokens * 0.08
+        chunk_tokens = self._tokens_of(padded)
+        words: list[dict] = []
+        for ch, toks in zip(chunks, chunk_tokens):
+            words.extend(self.tokenizer.decode_words(
+                toks, delay_s=delay_s, offset_s=ch.start_time(16000)))
+        return {"text": self._text(chunk_tokens), "words": words}
+
+    def transcribe_file_words(self, path) -> dict:
+        audio = load_wav(path)
+        return self.transcribe_samples_words(audio.samples, audio.sample_rate)
+
+    def transcribe_files_batched(self, paths: list,
+                                 batch_size: int = 8) -> list[str]:
+        """Several files -> their texts, decoded in batches (the file
+        front of :meth:`transcribe_samples_batched`)."""
+        audios = [load_wav(p) for p in paths]
+        return self.transcribe_samples_batched(
+            [(a.samples, a.sample_rate) for a in audios],
+            batch_size=batch_size)
+
+    def transcribe_samples_batched(self, buffers: list,
+                                   batch_size: int = 8) -> list[str]:
+        """Several sample buffers (``(samples, sample_rate)`` each) ->
+        their texts.  Buffers of one padded length decode as one batch of
+        at most ``batch_size`` rows: a decode step streams the same
+        weights whatever its row count, so rows from different requests
+        share it.  Every batch is dispatched before any is fetched.  A
+        buffer longer than one chunk goes through
+        :meth:`transcribe_samples`."""
+        return [self._text(toks)
+                for toks in self.batched_chunk_tokens(buffers, batch_size)]
+
+    def batched_chunk_tokens(self, buffers: list,
+                             batch_size: int = 8) -> list[list[np.ndarray]]:
+        """The tokens behind :meth:`transcribe_samples_batched`: per
+        buffer, its chunks' token arrays."""
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        results: list[list[np.ndarray]] = [[] for _ in buffers]
+        padded: dict[int, AudioBuffer] = {}
+        for i, (samples, rate) in enumerate(buffers):
+            audio = self._audio_16k(samples, rate)
+            chunks = chunk_audio(audio.samples, self.chunk_config)
+            if len(chunks) > 1:
+                results[i] = self._chunk_tokens(audio.samples, 16000)
+                continue
+            padded[i] = self._pad(chunks[0].samples)
+        groups: dict[int, list[int]] = {}
+        for i, buf in padded.items():
+            groups.setdefault(len(buf.samples), []).append(i)
+        pending = [(part, self._dispatch_batch(
+                        [padded[i].samples for i in part]))
+                   for idxs in groups.values()
+                   for part in (idxs[lo:lo + batch_size]
+                                for lo in range(0, len(idxs), batch_size))]
+        for idxs, dev_tokens in pending:
+            for i, toks in zip(idxs, _fetch(dev_tokens)):
+                results[i] = [toks[:self._token_count(padded[i])]]
+        return results
+
+    def _chunks(self, samples: np.ndarray, sample_rate: int):
+        """(chunks, padded): the 16 kHz chunks of a sample buffer
+        (``audio.chunk_audio``) and each padded and bucketed as the model
+        receives it (before any merge into one batch)."""
+        chunks = chunk_audio(self._audio_16k(samples, sample_rate).samples,
+                             self.chunk_config)
+        if len(chunks) > 1:
+            log.info("audio exceeds %d mel frames; %d chunks",
+                     self.chunk_config.max_mel_frames, len(chunks))
+        return chunks, [self._pad(ch.samples) for ch in chunks]
+
+    def _audio_16k(self, samples: np.ndarray, sample_rate: int) -> AudioBuffer:
+        """A sample buffer resampled to 16 kHz and peak-normalized."""
         audio = AudioBuffer(np.asarray(samples, dtype=np.float32), sample_rate)
         if audio.sample_rate != 16000:
             audio = resample_to_16k(audio)
         if self.pcfg.peak_normalize is not None:
             audio.peak_normalize(self.pcfg.peak_normalize)
+        return audio
 
-        chunks = chunk_audio(audio.samples, self.chunk_config)
-        if len(chunks) > 1:
-            log.info("audio exceeds %d mel frames; %d chunks",
-                     self.chunk_config.max_mel_frames, len(chunks))
-        return [pad_audio_bucketed(AudioBuffer(ch.samples, 16000),
-                                   self.pad_config, self.pcfg.bucket_positions)
-                for ch in chunks]
+    def _pad(self, chunk: np.ndarray) -> AudioBuffer:
+        """One 16 kHz chunk padded and bucketed as the model receives it."""
+        return pad_audio_bucketed(AudioBuffer(chunk, 16000), self.pad_config,
+                                  self.pcfg.bucket_positions)
+
+    def padded_chunks(self, samples: np.ndarray,
+                      sample_rate: int) -> list[AudioBuffer]:
+        """The 16 kHz chunks of a sample buffer, each padded and bucketed
+        as the model receives it (before any merge into one batch)."""
+        return self._chunks(samples, sample_rate)[1]
+
+    def _token_count(self, padded: AudioBuffer) -> int:
+        """Decode tokens of a padded chunk: its own positions, whatever
+        longer batch it joins (decode is causal, so a chunk padded with
+        silence keeps its tokens at its real positions: trim after)."""
+        return (self.model.decoder_seq_len(
+            self.mel.num_frames(len(padded.samples))) - PREFIX_LEN)
 
     def _chunk_tokens(self, samples: np.ndarray,
                       sample_rate: int) -> list[np.ndarray]:
         """Per-chunk token arrays for a sample buffer."""
-        padded = self.padded_chunks(samples, sample_rate)
-        # True decode-token count per chunk (decode is causal: a chunk
-        # padded with silence to join a longer batch keeps its tokens at
-        # its real positions — trim after).
-        tok_counts = [
-            self.model.decoder_seq_len(self.mel.num_frames(len(p.samples)))
-            - PREFIX_LEN
-            for p in padded
-        ]
+        return self._tokens_of(self.padded_chunks(samples, sample_rate))
+
+    def _tokens_of(self, padded: list[AudioBuffer]) -> list[np.ndarray]:
+        """Per-chunk token arrays for padded chunks: chunks of one length
+        decode as one batch; unequal ones are padded into one batch when
+        :meth:`_merge_wins`; every batch is dispatched, then fetched."""
+        tok_counts = [self._token_count(p) for p in padded]
         groups: dict[int, list[int]] = {}
         for idx, p in enumerate(padded):
             groups.setdefault(len(p.samples), []).append(idx)
@@ -249,18 +345,26 @@ class TranscribePipeline:
                                          (0, target - len(p.samples))), 16000)
                       for p in padded]
             groups = {target: list(range(len(padded)))}
+            log.info("merged %d unequal chunks into one batch", len(padded))
 
+        pending = [(idxs, self._dispatch_batch(
+                        [padded[i].samples for i in idxs]))
+                   for idxs in groups.values()]
         chunk_tokens: list[np.ndarray] = [np.zeros(0, np.int32)] * len(padded)
-        for idxs in groups.values():
-            mels = np.concatenate(
-                [self.mel.compute_log_batch(padded[i].samples) for i in idxs],
-                axis=0)
-            batch_tokens = self.model.transcribe_streaming_batch(
-                mels, delay_tokens=self.pcfg.delay_tokens,
-                speculative=self.pcfg.speculative, draft=self.pcfg.draft)
-            for i, toks in zip(idxs, batch_tokens):
+        for idxs, dev_tokens in pending:
+            for i, toks in zip(idxs, _fetch(dev_tokens)):
                 chunk_tokens[i] = toks[:tok_counts[i]]
         return chunk_tokens
+
+    def _dispatch_batch(self, sample_rows: list[np.ndarray]):
+        """Queue one batch of equal-length padded sample rows: the host
+        log-mel, then the model's decode without the fetch
+        (``transcribe_streaming_batch_async``)."""
+        mels = np.concatenate(
+            [self.mel.compute_log_batch(r) for r in sample_rows], axis=0)
+        return self.model.transcribe_streaming_batch_async(
+            mels, delay_tokens=self.pcfg.delay_tokens,
+            speculative=self.pcfg.speculative, draft=self.pcfg.draft)
 
     def _merge_wins(self, groups: dict[int, list[int]],
                     tok_counts: list[int]) -> bool:
@@ -281,6 +385,19 @@ class TranscribePipeline:
     def decode_tokens(self, tokens: np.ndarray) -> str:
         """Filter control tokens (< 1000) and decode."""
         return self.tokenizer.decode([int(t) for t in tokens if t >= 1000])
+
+    def _text(self, chunk_tokens: list[np.ndarray]) -> str:
+        """The chunks' texts, stripped, the empty ones dropped, joined
+        with spaces."""
+        texts = [self.decode_tokens(toks).strip() for toks in chunk_tokens]
+        return " ".join(t for t in texts if t)
+
+
+def _fetch(tokens) -> np.ndarray:
+    """A dispatched batch's tokens on the host."""
+    if isinstance(tokens, np.ndarray):
+        return tokens
+    return tokens.cpu().numpy()
 
 
 def pad_audio_bucketed(audio: AudioBuffer, pad_config: PadConfig,
