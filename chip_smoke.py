@@ -142,6 +142,30 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              held to each chunk alone.  Phase 7 also runs the CLI's
              --audio-list with --batch-files 4 and --timestamps on the
              --model directory.
+13. mesh   — after the batched phase, on the w8 model's tree (one
+             card: every mesh's shards share it).  K1 mode (i)
+             (lm_argmax) at 1 and 8 rows, bit-equal to plain and == the
+             argmax of mode (a)'s logits; K4 attn_half_step (tp = 2
+             local shapes: 1 row at S = 151, 8 spec rows, the largest
+             one-shot cache S = 194 at offset 187) and K5 ffn_half_step
+             (1 and 8 rows) bit-equal, timed from a CUDA graph and from
+             the host; K6 lm_half_argmax on both vocab shards at 1 and 8
+             rows, then with a planted tie inside shard 0 and one across
+             the shards (the lowest global index on every row, == the
+             plain argmax over the whole table).  The 16 s chirp on a
+             tp = 2 mesh, sequential (K4 == K5 == 52 x steps, K6 == 2 x
+             steps, no K1) and speculative=8 ngram (== sequential), the
+             plain TP side on its first 8 s (== kernels), the TP tokens
+             against the single card's (ROADMAP §3's rule); two chirps on
+             dp = 2 (== the single card's batch exactly; K1 (i) launches
+             == 2 x steps) and on 2 x 2 (== tp = 2 on the batch), each
+             sequential and speculative; ``--tp 2`` on one card exits 2
+             with the JAX CLI's message.
+13b.       on two cards or more only (alone: ``mesh_cards_main``):
+             each mesh that fits with every shard on a card of its own,
+             tokens == the same mesh on card 0 (dp == the single card),
+             the peak memory per card; on four cards the CLI's ``--tp 2
+             --dp 2`` exits 0.
 9. numbers — RTF, decode ms/token, the weight stream per decode step
              against its bound, passes, peak GPU memory, the sessions'
              step ms and step RTF against the step's bound, time to first
@@ -619,21 +643,10 @@ def counted_run(pipe, sig, dev):
     (wall s, {kernel: launches}, peak GB, the chunks' tokens).  The
     warm-up (cuBLAS / cuDNN handles) is the same path one level down,
     where the tokens can be read."""
-    import torch
-
-    counters = stream_counters()
     chunks = pipe._chunk_tokens(sig, SR)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    for fn in counters.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    pipe.transcribe_samples(sig, SR)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
-    return (wall, launches, torch.cuda.max_memory_allocated(dev) / 1e9,
-            chunks)
+    _, wall, launches, peak = counted(
+        lambda: pipe.transcribe_samples(sig, SR), dev)
+    return wall, launches, peak, chunks
 
 
 def plain_tokens(plain, tok, sig, pcfg=None):
@@ -789,7 +802,8 @@ def run_w8(cfg, dev, card, sig, tok):
                k1w["spec8"][1])
     return dict(k2_err=k2_err, k2_times=k2_times, k1=k1w,
                 launches=launches, spec_runs=spec_runs, n_tok=n_tok,
-                n_steps=n_steps, model=model, plain=plain)
+                n_steps=n_steps, model=model, plain=plain, tokens=tokens,
+                margins=seq_margins)
 
 
 def report(tag, wall, enc_s, n_tok, peak, card, passes=None, n_steps=None,
@@ -1278,9 +1292,14 @@ def stream_counters():
     from voxtral_tpu_torch.ops import q4_kernel as k3
     from voxtral_tpu_torch.ops import w8_kernel as k2
 
+    from voxtral_tpu_torch.ops import decode_tp as ktp
+
     return {"w8_matmul": k2.w8_matmul, "decode_stack_step": k1.decode_stack_step,
             "decode_layer_step": k1.decode_layer_step,
-            "q4_matmul": k3.q4_matmul_packed}
+            "q4_matmul": k3.q4_matmul_packed,
+            "attn_half_step": ktp.attn_half_step,
+            "ffn_half_step": ktp.ffn_half_step,
+            "lm_half_argmax": ktp.lm_half_argmax}
 
 
 def stream_run(model, pieces, dev, keep=False, finish=True,
@@ -3022,6 +3041,576 @@ def run_dense(cfg, dev, card, sig, tok):
 # ---------------------------------------------------------------------------
 # Batched one-shot (w8): K7, the per-layer route, the merge cost
 # ---------------------------------------------------------------------------
+# Phase 13: the meshed one-shot path (tp = 2, dp = 2, 2 x 2 on one card)
+# ---------------------------------------------------------------------------
+
+MESH_PLAIN_SECS = 8.0  # the plain TP side, held as a prefix
+MESH_LAYER = 25
+# K4 at tp = 2 local shapes: (rows, S, offset); rows > 1 is one stream of
+# SPEC_K draft rows.  S = 194 at offset 187 is the largest one-shot cache.
+K4_CASES = [(1, 151, 150), (SPEC_K, 158, 143), (1, 194, 187)]
+MESH_ROWS = (1, SPEC_K)
+K6_TIES = {"inside shard 0": ((0, 1000), (0, 5000)),
+           "across the shards": ((0, 60000), (1, 10))}
+
+
+def counted(fn, dev):
+    """``fn()`` with every kernel's launch counter set to 0 just before
+    and read just after -> (its result, wall s, {kernel: launches},
+    peak GB).  ``decode_stack_step_lm_argmax`` counts K1's mode (i)
+    launches."""
+    import torch
+
+    from voxtral_tpu_torch.ops import decode_step as k1
+
+    counters = stream_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for f in counters.values():
+        f.launches = 0
+    k1.decode_stack_step.argmax_launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: f.launches for name, f in counters.items()}
+    launches["decode_stack_step_lm_argmax"] = (
+        k1.decode_stack_step.argmax_launches)
+    return out, wall, launches, torch.cuda.max_memory_allocated(dev) / 1e9
+
+
+def mesh_model(params, cfg, dev, n_data, n_model, kernels=True):
+    """A w8 model on a (data, model) mesh whose shards share the card."""
+    from voxtral_tpu_torch.models.voxtral import VoxtralModel
+    from voxtral_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(n_data, n_model, [dev] * (n_data * n_model))
+    return VoxtralModel(params, cfg, dev, kernels=kernels, mesh=mesh)
+
+
+def timed_kernel(tag, kernel, plain, moved, ops, card):
+    """Bit-equality of ``kernel()`` and ``plain()``, the device ms (CUDA
+    graph), the host-called and plain ms, the bound -> (err, (device ms,
+    plain ms, bound ms, bound by, host-called ms))."""
+    import torch
+
+    got = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    err = max((g.float() - r.float()).abs().max().item()
+              for g, r in zip(got, ref))
+    if not err == 0.0:
+        fail(f"{tag}: max_abs_err {err:.3e}: not bit-equal to the plain "
+             "version")
+    host_ms, plain_ms = in_turns(kernel, plain, 50, 2)
+    ms = graph_ms(kernel)
+    b_ms, b_by = bound(moved, ops, INT8_OPS)
+    print(f"{tag}: max_abs_err {err:.3e} (bit-equal); kernel {ms:.4f} ms on "
+          f"the device (CUDA graph), {host_ms:.4f} ms called from the host, "
+          f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
+          f"{100 * b_ms / ms:.1f} % of it) [{card}]", flush=True)
+    return err, (ms, plain_ms, b_ms, b_by, host_ms)
+
+
+def check_k4_k5(tp, dev, card):
+    """K4 and K5 alone at tp = 2 local shapes (shard 0 of the model's TP
+    stacks, layer MESH_LAYER), bit for bit -> (err, {case: times})."""
+    import torch
+
+    from voxtral_tpu_torch.ops import decode_step as k1
+    from voxtral_tpu_torch.ops import decode_tp as ktp
+
+    cfg = tp.config.language_model
+    w = {k: v[0][0] for k, v in tp.fused_tp.items()}
+    nh, nkv = cfg.n_heads // 2, cfg.n_kv_heads // 2
+    D, hd, layer = cfg.dim, cfg.head_dim, MESH_LAYER
+    vecs = (w["sqkv"][layer], w["so"][layer])
+    worst, times = 0.0, {}
+    for rows, S, off in K4_CASES:
+        gen = torch.Generator(device=dev).manual_seed(31 + rows + S)
+        kc = (torch.randn((1, nkv, S, hd), device=dev, generator=gen)
+              * 0.5).bfloat16()
+        vc = (torch.randn((1, nkv, S, hd), device=dev, generator=gen)
+              * 0.5).bfloat16()
+        x = torch.randn((rows, D), device=dev, generator=gen)
+        if rows == 1:
+            offs = off
+            c, s = k1.rope_pair_vectors(off, hd, cfg.rope_theta, device=dev)
+        else:
+            offs = torch.tensor([off], dtype=torch.int32, device=dev)
+            c, s = k1.rope_pair_vectors(
+                off + torch.arange(rows, device=dev), hd, cfg.rope_theta)
+        args = (x, layer, offs, tp._tp_norms[0][layer], *vecs, c, s, kc, vc,
+                w["wqkv"], w["wo"])
+        kw = dict(n_heads_l=nh, n_kv_l=nkv, head_dim=hd, eps=cfg.norm_eps,
+                  window=cfg.sliding_window, spec=rows)
+        wl = (w["wqkv"][layer], w["wo"][layer])
+        moved = (nbytes(*wl, *vecs, tp._tp_norms[0][layer], c, s)
+                 + 2 * nbytes(x) + 2 * off * nkv * hd * 2
+                 + 2 * rows * nkv * hd * 2)
+        err, t = timed_kernel(
+            f"K4 attn_half_step tp=2 rows={rows} S={S} offset={off}",
+            lambda: ktp.attn_half_step(*args, **kw),
+            lambda: ktp.attn_half_step_plain(*args, **kw), moved,
+            2 * rows * sum(t.numel() for t in wl), card)
+        worst, times[("K4", rows, S)] = max(worst, err), t
+    ada = k1.ada_vectors(tp.params["decoder"], tp.t_embed(6.0))
+    for rows in MESH_ROWS:
+        gen = torch.Generator(device=dev).manual_seed(41 + rows)
+        x = torch.randn((rows, D), device=dev, generator=gen)
+        args = (x, layer, tp._tp_norms[1][layer], ada[layer],
+                w["s13"][layer], w["s2"][layer], w["w13"], w["w2"])
+        wl = (w["w13"][layer], w["w2"][layer])
+        moved = nbytes(*wl, *args[2:6]) + 2 * nbytes(x)
+        err, t = timed_kernel(
+            f"K5 ffn_half_step tp=2 rows={rows}",
+            lambda: (ktp.ffn_half_step(*args, eps=cfg.norm_eps),),
+            lambda: (ktp.ffn_half_step_plain(*args, eps=cfg.norm_eps),),
+            moved, 2 * rows * sum(t.numel() for t in wl), card)
+        worst, times[("K5", rows)] = max(worst, err), t
+    return worst, times
+
+
+def check_k6(tp, dev, card):
+    """K6 alone on the model's two vocab shards at 1 and SPEC_K rows,
+    bit for bit, timed on shard 0; then two copies of the table with a
+    planted tie (K6_TIES: two equal dominant rows inside shard 0, and
+    across the shards), every row's token the lowest global index of
+    the tie, as tp_lm_head_token resolves it and as torch.argmax over
+    the whole table's plain logits finds it -> (err, {rows: times})."""
+    import torch
+
+    from voxtral_tpu_torch.ops import decode_step as k1
+    from voxtral_tpu_torch.ops import decode_tp as ktp
+    from voxtral_tpu_torch.ops.w8 import quantize_activations
+    from voxtral_tpu_torch.ops.w8_kernel import w8_matmul_plain
+
+    cfg = tp.config.language_model
+    D, eps = cfg.dim, cfg.norm_eps
+    # The model's two placed vocab shards [V_l, D] / [V_l].
+    codes, scale = tp.fused_tp["lm_codes"][0], tp.fused_tp["lm_scale"][0]
+    fnorm = tp.params["decoder"]["norm"].float().abs().contiguous()
+    vl = codes[0].shape[0]
+    top_scale = max(s.max() for s in scale) * 4
+    worst, times = 0.0, {}
+    for rows in MESH_ROWS:
+        gen = torch.Generator(device=dev).manual_seed(51 + rows)
+        x = torch.randn((rows, D), device=dev, generator=gen).abs()
+        moved = nbytes(codes[0], scale[0], fnorm) + nbytes(x) + rows * 8
+        err, t = timed_kernel(
+            f"K6 lm_half_argmax tp=2 rows={rows} (vocab shard of {vl})",
+            lambda: ktp.lm_half_argmax(x, fnorm, scale[0], codes[0],
+                                       eps=eps),
+            lambda: ktp.lm_half_argmax_plain(x, fnorm, scale[0], codes[0],
+                                             eps=eps),
+            moved, 2 * rows * vl * D, card)
+        worst, times[rows] = max(worst, err), t
+        for name, tie in K6_TIES.items():
+            c2 = [c.clone() for c in codes]
+            s2 = [s.clone() for s in scale]
+            top = torch.randint(1, 127, (D,), dtype=torch.int8, device=dev,
+                                generator=gen)
+            for shard, row in tie:
+                c2[shard][row], s2[shard][row] = top, top_scale
+            for shard in range(2):
+                got = ktp.lm_half_argmax(x, fnorm, s2[shard], c2[shard],
+                                         eps=eps)
+                torch.cuda.synchronize()
+                ref = ktp.lm_half_argmax_plain(x, fnorm, s2[shard],
+                                               c2[shard], eps=eps)
+                if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+                    fail(f"K6 with a tie {name}, shard {shard}: kernel != "
+                         "plain")
+            token = ktp.tp_lm_head_token(tp.parallel.mesh, x, fnorm, [c2],
+                                         [s2], eps=eps).tolist()
+            xq, sx = quantize_activations(k1._rms(x, fnorm, eps))
+            full = w8_matmul_plain(xq, sx, torch.cat(c2), torch.cat(s2))
+            want = min(shard * vl + row for shard, row in tie)
+            if token != [want] * rows or full.argmax(-1).tolist() != token:
+                fail(f"K6 tie {name}: tokens {token}, want {want} (plain "
+                     f"argmax {full.argmax(-1).tolist()})")
+            print(f"K6 planted tie {name} at {rows} rows: token {want} on "
+                  "every row, == the plain argmax over the whole table",
+                  flush=True)
+            del c2, s2
+    return worst, times
+
+
+def check_k1_argmax(model, dev, card):
+    """K1 mode (i) alone at 1 row (offset 235) and SPEC_K rows (one
+    stream), bit for bit against its plain version and equal to the
+    argmax of mode (a)'s logits -> (err, {rows: times})."""
+    import torch
+
+    from voxtral_tpu_torch.ops import decode_step as k1
+
+    cfg = model.config.language_model
+    fused = model.fused_decode
+    L, D, hd = cfg.n_layers, cfg.dim, cfg.head_dim
+    ada = k1.ada_vectors(model.params["decoder"], model.t_embed(6.0))
+    worst, times = 0.0, {}
+    for rows in MESH_ROWS:
+        S, off = 240 + rows - 1, 235
+        gen = torch.Generator(device=dev).manual_seed(61 + rows)
+        shape = (L, 1, cfg.n_kv_heads, S, hd)
+        kc = (torch.randn(shape, device=dev, generator=gen) * 0.5).bfloat16()
+        vc = (torch.randn(shape, device=dev, generator=gen) * 0.5).bfloat16()
+        x = torch.randn((rows, D), device=dev, generator=gen)
+        offs = torch.tensor([off], dtype=torch.int32, device=dev)
+        c, s = k1.rope_pair_vectors(off + torch.arange(rows, device=dev),
+                                    hd, cfg.rope_theta)
+        args = (x, offs, fused["attn_norm"], fused["ffn_norm"], ada,
+                fused["sqkv"], fused["so"], fused["s13"], fused["s2"], c, s,
+                kc, vc, fused["wqkv"], fused["wo"], fused["w13"],
+                fused["w2"], *lm_fold(model))
+        kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=hd,
+                  eps=cfg.norm_eps, window=cfg.sliding_window, spec=rows)
+        tag = f"K1 decode_stack_step mode (i) lm_argmax rows={rows}"
+        got = k1.decode_stack_step(*args, lm_argmax=True, **kw)
+        logits = k1.decode_stack_step(*args, **kw)[3]
+        torch.cuda.synchronize()
+        ref = k1.decode_stack_step_plain(*args, lm_argmax=True, **kw)
+        err = max((g.float() - r.float()).abs().max().item()
+                  for g, r in zip(got, ref))
+        if not err == 0.0 or got[3][:, 0].tolist() != logits.argmax(
+                -1).tolist():
+            fail(f"{tag}: max_abs_err {err:.3e}, tokens {got[3].tolist()} "
+                 f"against mode (a)'s argmax {logits.argmax(-1).tolist()}")
+        ms, plain_ms = in_turns(
+            lambda: k1.decode_stack_step(*args, lm_argmax=True, **kw),
+            lambda: k1.decode_stack_step_plain(*args, lm_argmax=True, **kw),
+            20, 1)
+        kv_read = 2 * L * cfg.n_kv_heads * off * hd * 2
+        moved = (step_weight_bytes(model) + kv_read + 2 * nbytes(x)
+                 + 2 * nbytes(got[1]) + rows * 4)
+        b_ms, b_by = bound(moved, 2 * rows * (
+            n_stack_weights(model) + lm_fold(model)[1].numel()), INT8_OPS)
+        times[rows] = (ms, plain_ms, b_ms, b_by)
+        worst = max(worst, err)
+        print(f"{tag}: bit-equal, tokens == mode (a)'s argmax; kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}; {100 * b_ms / ms:.1f} % of it) [{card}]",
+              flush=True)
+    return worst, times
+
+
+def mesh_runs(tag, model, mel2, dev, card, spec_tie_margins=None):
+    """The model's two-row batch sequentially (decode log on) and with
+    speculative=SPEC_K ngram drafts, each counted -> dict."""
+    model.measure_decode, model.decode_log = True, []
+    try:
+        seq, wall, launches, peak = counted(
+            lambda: model.transcribe_streaming_batch(mel2), dev)
+        rec = model.decode_log[-1]
+    finally:
+        model.measure_decode = False
+    spec, s_wall, s_launches, _ = counted(
+        lambda: model.transcribe_streaming_batch(mel2, speculative=SPEC_K),
+        dev)
+    passes = model.last_spec_passes
+    ms_pos = rec["seconds"] * 1e3 / rec["steps"]
+    print(f"{tag}, two 16 s chirps: sequential {wall:.3f} s (aggregate RTF "
+          f"{wall / (2 * AUDIO_SECS):.5f}, decode {ms_pos:.3f} ms per "
+          f"position), speculative K={SPEC_K} ngram {s_wall:.3f} s "
+          f"({passes} passes); peak {peak:.3f} GB; launches {launches} "
+          f"[{card}]", flush=True)
+    if spec_tie_margins is not None:
+        for r in range(len(seq)):
+            first_divergence(f"{tag} speculative row {r} vs sequential",
+                             spec[r], seq[r], spec_tie_margins[r],
+                             SPEC_MARGIN_TIE)
+    return dict(seq=seq, spec=spec, wall=wall, spec_wall=s_wall,
+                launches=launches, spec_launches=s_launches, peak=peak,
+                passes=passes, ms_pos=ms_pos, steps=rec["steps"])
+
+
+def tp_against_single(tokens, margins, ref, ref_margins):
+    """The TP tokens against the single-card w8 tokens (ROADMAP §3): up to
+    their first parting the two runs' top-2 margins differ by some g (the
+    shards' local quantization); they may part only where the single
+    card's margin is below 2 g.  -> (agreeing positions, g, margin)."""
+    n = min(len(tokens), len(ref))
+    same = np.asarray(tokens[:n]) == np.asarray(ref[:n])
+    if same.all():
+        gap = float(np.abs(margins[:n - 1] - ref_margins[:n - 1]).max())
+        return n, gap, None
+    i = int(np.argmin(same))
+    gap = float(np.abs(margins[:i] - ref_margins[:i]).max()) if i else 0.0
+    margin = float(ref_margins[i])
+    if not margin < 2 * gap:
+        fail(f"tp=2 parts from the single card at position {i} where the "
+             f"single card's top-2 margin {margin:.4e} is not below twice "
+             f"the margin gap {gap:.4e} before it")
+    return i, gap, margin
+
+
+def run_mesh_w8(model, dev, card, sig, tok, single):
+    """Phase 13: the four kernels alone, then the one-shot path on a
+    tp = 2, a dp = 2 and a 2 x 2 mesh whose shards share the card."""
+    import torch
+
+    from voxtral_tpu_torch.pipeline import PipelineConfig, TranscribePipeline
+
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "voxtral_tpu_torch.cli", "--tp", "2",
+         "--random-weights", "--dtype", "w8", "--audio", "unused.wav"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    cfg, params = model.config, model.params
+    k1i_err, k1i_times = check_k1_argmax(model, dev, card)
+    tp = mesh_model(params, cfg, dev, 1, 2)
+    k45_err, k45_times = check_k4_k5(tp, dev, card)
+    k6_err, k6_times = check_k6(tp, dev, card)
+
+    # tp = 2, the 16 s chirp, sequential (margins kept: the whole lm_head
+    # runs beside K6 for them) and speculative; kernels against plain.
+    pipe = TranscribePipeline(tp, tok)
+    tp.record_margins = True
+    try:
+        wall, launches, peak, chunks = counted_run(pipe, sig, dev)
+        tp_margins = tp.last_margins[0].copy()
+    finally:
+        tp.record_margins = False
+    tokens = chunks[0]
+    steps = len(tokens) - 1
+    if tp.last_decode_route != "tp":
+        fail(f"tp=2 route {tp.last_decode_route}")
+    want = {"attn_half_step": 2 * 26 * steps, "ffn_half_step": 2 * 26 * steps,
+            "lm_half_argmax": 2 * steps, "decode_stack_step": 0}
+    if any(launches[k] != n for k, n in want.items()):
+        fail(f"tp=2 launches {launches}, want {want}")
+    spipe = TranscribePipeline(tp, tok, PipelineConfig(speculative=SPEC_K,
+                                                       draft="ngram"))
+    s_wall, s_launches, _, s_chunks = counted_run(spipe, sig, dev)
+    passes = tp.last_spec_passes
+    if s_launches["attn_half_step"] != 2 * 26 * passes:
+        fail(f"tp=2 speculative: K4 launches {s_launches['attn_half_step']}"
+             f" != 52 x {passes} passes")
+    same_spec = first_divergence("tp=2 speculative vs sequential",
+                                 s_chunks[0], tokens, tp_margins,
+                                 SPEC_MARGIN_TIE)
+    plain = mesh_model(params, cfg, dev, 1, 2, kernels=False)
+    plain.fused_tp = tp.fused_tp
+    release()
+    head = sig[:int(MESH_PLAIN_SECS * SR)]
+    k_head = pipe._chunk_tokens(head, SR)[0]
+    p_head, p_margins = plain_tokens(plain, tok, head)
+    same_plain = first_divergence("tp=2 kernel vs plain", k_head, p_head,
+                                  p_margins, MARGIN_TIE)
+    agree, gap, part = tp_against_single(tokens, tp_margins,
+                                         single["tokens"], single["margins"])
+    parting = ("no parting" if part is None
+               else f"single-card margin at the parting {part:.4e}")
+    enc_s = encode_seconds(pipe, tp, pipe.padded_chunks(sig, SR)[0].samples)
+    print(f"tp=2 on one card: tokens == plain over {MESH_PLAIN_SECS:.0f} s "
+          f"({len(k_head)} tokens): {same_plain}; speculative == "
+          f"sequential: {same_spec} ({passes} passes); against the single "
+          f"card: the first {agree} of {len(tokens)} tokens agree, top-2 "
+          f"margin gap over them {gap:.4e}, {parting} [{card}]", flush=True)
+    report("w8 tp=2 (one card)", wall, enc_s, len(tokens), peak, card)
+    print(f"w8 tp=2 decode: {(wall - enc_s) * 1e3 / steps:.3f} ms per "
+          f"position; speculative K={SPEC_K} ngram {s_wall:.3f} s, RTF "
+          f"{s_wall / AUDIO_SECS:.5f} [{card}]", flush=True)
+    del plain, spipe
+    release()
+
+    # Two chirps: dp = 2 (== the single card's batch exactly), tp = 2
+    # and 2 x 2 (== tp = 2: a data axis adds no numerics).
+    mels = [pipe.mel.compute_log_batch(pipe.padded_chunks(s, SR)[0].samples)
+            for s in (sig, pool_signal(AUDIO_SECS, 3))]
+    mel2 = np.concatenate(mels)
+    model.record_margins = True
+    ref2 = model.transcribe_streaming_batch(mel2)
+    ref2_margins = model.last_margins
+    model.record_margins = False
+    tp.record_margins = True
+    tp2 = tp.transcribe_streaming_batch(mel2)
+    tp2_margins = tp.last_margins
+    tp.record_margins = False
+    runs = {}
+    dp = mesh_model(params, cfg, dev, 2, 1)
+    runs["dp2"] = mesh_runs("w8 dp=2 (one card)", dp, mel2, dev, card,
+                            ref2_margins)
+    if runs["dp2"]["seq"].tolist() != ref2.tolist():
+        fail("dp=2 tokens != the single card's batch")
+    if runs["dp2"]["launches"]["decode_stack_step_lm_argmax"] != 2 * runs[
+            "dp2"]["steps"]:
+        fail(f"dp=2: K1 (i) launches {runs['dp2']['launches']}")
+    del dp
+    release()
+    dptp = mesh_model(params, cfg, dev, 2, 2)
+    runs["dp2tp2"] = mesh_runs("w8 dp=2 x tp=2 (one card)", dptp, mel2, dev,
+                               card, tp2_margins)
+    if runs["dp2tp2"]["seq"].tolist() != tp2.tolist():
+        fail("2 x 2 tokens != tp=2 on the same batch")
+    if runs["dp2tp2"]["launches"]["attn_half_step"] != 4 * 26 * runs[
+            "dp2tp2"]["steps"]:
+        fail(f"2 x 2: K4 launches {runs['dp2tp2']['launches']}")
+    del dptp
+    out, err = cli.communicate(timeout=300)
+    if cli.returncode != 2 or "needs 2 devices, found 1" not in err:
+        fail(f"--tp 2 on one card: exit {cli.returncode}, {err[-300:]!r}")
+    print(f"python -m voxtral_tpu_torch.cli --tp 2 on one card: exit 2, "
+          f"{err.strip().splitlines()[-1]!r}", flush=True)
+    launches_all = {"w8_tp2_sequential": launches,
+                    "w8_tp2_speculative_ngram": s_launches,
+                    **{f"w8_{k}_sequential": r["launches"]
+                       for k, r in runs.items()},
+                    **{f"w8_{k}_speculative_ngram": r["spec_launches"]
+                       for k, r in runs.items()}}
+    del tp, pipe
+    release()
+    return dict(k1i_err=k1i_err, k1i_times=k1i_times, k45_err=k45_err,
+                k45_times=k45_times, k6_err=k6_err, k6_times=k6_times,
+                launches=launches_all, tp_wall=wall, tp_peak=peak,
+                runs=runs)
+
+
+def run_mesh_cards(params, cfg, dev, card, tok, sig):
+    """Phase 13b, on a host with two cards or more: each mesh that fits
+    with every shard on a card of its own (``make_mesh`` over the cards),
+    then the same shape with its shards sharing card 0, each model built
+    alone beside its tree.  Two chirps, sequential and speculative=SPEC_K
+    ngram: over the cards == shared, dp == the single card's batch.  Per
+    card, the peak memory of the model's build, what it holds after, and
+    the peak of the speculative run.  Then, on
+    four cards, ``python -m voxtral_tpu_torch.cli --tp 2 --dp 2`` on a wav
+    of the chirp exits 0."""
+    import torch
+
+    from voxtral_tpu_torch.audio import AudioBuffer, save_wav
+    from voxtral_tpu_torch.models.voxtral import VoxtralModel
+    from voxtral_tpu_torch.parallel import make_mesh
+    from voxtral_tpu_torch.pipeline import TranscribePipeline
+    from voxtral_tpu_torch.utils.hbm import model_hbm_bytes
+
+    cards = range(torch.cuda.device_count())
+
+    def sync_all():
+        for i in cards:
+            torch.cuda.synchronize(i)
+
+    single = VoxtralModel(params, cfg, dev)
+    pipe = TranscribePipeline(single, tok)
+    mel2 = np.concatenate([
+        pipe.mel.compute_log_batch(pipe.padded_chunks(s, SR)[0].samples)
+        for s in (sig, pool_signal(AUDIO_SECS, 3))])
+    ref2 = single.transcribe_streaming_batch(mel2)
+    del single, pipe
+    release()
+    for nd, nm in ((1, 2), (2, 1), (2, 2)):
+        n = nd * nm
+        if n > len(cards):
+            print(f"mesh {nd} x {nm} over cards of their own: not run "
+                  f"({len(cards)} cards)", flush=True)
+            continue
+        got = {}
+        for where, devices in (("own cards", None), ("card 0", [dev] * n)):
+            sync_all()
+            for i in cards:
+                torch.cuda.reset_peak_memory_stats(i)
+            model = VoxtralModel(params, cfg, dev,
+                                 mesh=make_mesh(nd, nm, devices))
+            sync_all()
+
+            def per_card(read):
+                return ", ".join(f"cuda:{i} {read(i) / 1e9:.3f}"
+                                 for i in cards)
+
+            built = per_card(torch.cuda.max_memory_allocated)
+            held = per_card(torch.cuda.memory_allocated)
+            # The decode log resets card 0's peak at its loop's start: the
+            # run's peak is read around the speculative run (the larger
+            # cache) without it.
+            model.measure_decode, model.decode_log = True, []
+            t0 = time.perf_counter()
+            seq = model.transcribe_streaming_batch(mel2)
+            sync_all()
+            wall = time.perf_counter() - t0
+            rec = model.decode_log[-1]
+            model.measure_decode = False
+            for i in cards:
+                torch.cuda.reset_peak_memory_stats(i)
+            spec = model.transcribe_streaming_batch(mel2,
+                                                    speculative=SPEC_K)
+            sync_all()
+            peaks = per_card(torch.cuda.max_memory_allocated)
+            print(f"w8 dp={nd} x tp={nm}, shards on {where} "
+                  f"({model.parallel.mesh.devices}), two 16 s chirps: "
+                  f"sequential {wall:.3f} s, decode "
+                  f"{rec['seconds'] * 1e3 / rec['steps']:.3f} ms per "
+                  f"position; speculative == sequential: "
+                  f"{spec.tolist() == seq.tolist()}; weights held "
+                  f"{model_hbm_bytes(model) / 1e9:.3f} GB over all cards; "
+                  f"GB per card: peak of the build {built}, held after it "
+                  f"{held}, peak of the speculative run {peaks} [{card}]",
+                  flush=True)
+            got[where] = (seq.tolist(), spec.tolist())
+            del model
+            release()
+        if got["own cards"] != got["card 0"]:
+            fail(f"{nd} x {nm}: tokens over cards of their own != the "
+                 "same mesh on card 0")
+        if nm == 1 and got["own cards"][0] != ref2.tolist():
+            fail(f"dp={nd} over cards of their own != the single card")
+        print(f"w8 dp={nd} x tp={nm}: tokens over cards of their own == "
+              "the mesh on card 0, sequential and speculative"
+              + (", == the single card's batch" if nm == 1 else ""),
+              flush=True)
+    if len(cards) < 4:
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = Path(tmp) / "chirp.wav"
+        save_wav(AudioBuffer(sig, SR), wav)
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "voxtral_tpu_torch.cli", "--tp", "2",
+             "--dp", "2", "--random-weights", "--dtype", "w8", "--audio",
+             str(wav)], capture_output=True, text=True, timeout=600)
+    if cli.returncode != 0:
+        fail(f"--tp 2 --dp 2 on {len(cards)} cards: exit {cli.returncode}, "
+             f"{cli.stderr[-500:]!r}")
+    print(f"python -m voxtral_tpu_torch.cli --tp 2 --dp 2 on "
+          f"{len(cards)} cards: exit 0 in {time.perf_counter() - t0:.1f} s, "
+          f"{len(cli.stdout.splitlines())} line(s) of text [{card}]",
+          flush=True)
+
+
+def mesh_cards_main() -> int:
+    """Phase 13b alone, on a host with two cards or more:
+
+        python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.mesh_cards_main())'
+
+    The build and the w8 tree (seed 0) as in the full run; the same last
+    line."""
+    import torch
+
+    from voxtral_tpu_torch import VoxtralConfig, VoxtralTokenizer
+    from voxtral_tpu_torch.convert import params_from_numpy
+    from voxtral_tpu_torch.ops import _build
+    from voxtral_tpu_torch.utils.quantize import random_w8_params
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        fail("phase 13b needs two NVIDIA GPUs or more")
+    dev = torch.device("cuda:0")
+    card = card_line()
+    print(card, flush=True)
+    lib, build_s = _build.build()
+    _build.library()
+    print(f"build: {build_s:.2f} s ({lib.name})", flush=True)
+    cfg = VoxtralConfig.voxtral()
+    params = params_from_numpy(random_w8_params(cfg, seed=0), dev)
+    t0 = time.perf_counter()
+    run_mesh_cards(params, cfg, dev, card,
+                   VoxtralTokenizer([None] * 131072, {}, 131072), chirp())
+    print(f"phase 13b: {time.perf_counter() - t0:.1f} s [{card}]",
+          flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------------------
 
 # K7 alone at full width: (layer, rows, cache slots S, offset).  S = 151
 # is a 16 s chunk's positions; the last case has the window full.
@@ -3445,6 +4034,16 @@ def main() -> int:
                              2 * st_w8["layout_noise"][1])
     release()
     phase_done("batched one-shot (w8)")
+    mesh = run_mesh_w8(w8_model, dev, card, sig, tok,
+                       {"tokens": w8["tokens"], "margins": w8["margins"]})
+    release()
+    phase_done("mesh (w8: tp=2, dp=2, 2 x 2 on one card)")
+    if torch.cuda.device_count() >= 2:
+        run_mesh_cards(w8_model.params, cfg, dev, card, tok, sig)
+        phase_done("mesh over cards of their own")
+    else:
+        print("phase 13b (a mesh over cards of their own): not run, one "
+              "card", flush=True)
     pl_w8 = run_pools_w8(w8_model, w8_plain, dev, card,
                          st_w8["layout_noise"])
     del w8_model, w8_plain
@@ -3512,7 +4111,8 @@ def main() -> int:
             "q4g_pool_unbounded_int8": pl_q4g["launches"],
             "q4_pool_generic": pl_q4["launches"], **dense["runs"],
             "w8_batched": batched["launches"],
-            "w8_batched_layer_route": batched["layer_launches"]}
+            "w8_batched_layer_route": batched["layer_launches"],
+            **mesh["launches"]}
     for path in ("w8_pool_unbounded_int8", "w8_pool_chunked_bounded",
                  "w8_pool_chunked_unbounded", "w8_pool_speculative_ngram_int8",
                  "q4g_pool_unbounded_int8", "bf16_sequential",
@@ -3523,6 +4123,15 @@ def main() -> int:
 
     if runs["w8_batched_layer_route"]["decode_layer_step"] < 1:
         fail("w8_batched_layer_route: K7 was launched no time")
+    for path, name in (("w8_tp2_sequential", "attn_half_step"),
+                       ("w8_tp2_sequential", "ffn_half_step"),
+                       ("w8_tp2_sequential", "lm_half_argmax"),
+                       ("w8_dp2tp2_speculative_ngram", "attn_half_step"),
+                       ("w8_dp2_sequential", "decode_stack_step_lm_argmax"),
+                       ("w8_dp2_speculative_ngram",
+                        "decode_stack_step_lm_argmax")):
+        if runs[path].get(name, 0) < 1:
+            fail(f"{path}: {name} was launched no time")
 
     def launches(name):
         by = {path: c[name] for path, c in runs.items() if c.get(name)}
@@ -3538,6 +4147,12 @@ def main() -> int:
     k7t = batched["k7_times"][(1, 151, 150)]
     k7t8 = batched["k7_times"][(8, 151, 150)]
     k7tw = batched["k7_times"][(1, 8400, 8300)]
+    k1i, k1i8 = mesh["k1i_times"][1], mesh["k1i_times"][SPEC_K]
+    k4 = mesh["k45_times"][("K4", 1, 151)]
+    k4s = mesh["k45_times"][("K4", SPEC_K, 158)]
+    k4l = mesh["k45_times"][("K4", 1, 194)]
+    k5, k5s = mesh["k45_times"][("K5", 1)], mesh["k45_times"][("K5", SPEC_K)]
+    k6, k6s = mesh["k6_times"][1], mesh["k6_times"][SPEC_K]
     record = {"kernels": [
         {"name": "w8_matmul", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/w8_matmul.cu",
@@ -3618,6 +4233,46 @@ def main() -> int:
          "rows8_bound_ms": k7t8[2], "window_full_ms": k7tw[0],
          "window_full_plain_ms": k7tw[1], "window_full_bound_ms": k7tw[2],
          "route_step_ms": batched["layer_ms"]},
+        {"name": "decode_stack_step_lm_argmax", "route": "cuda",
+         "source": "voxtral_tpu_torch/csrc/decode_step.cu",
+         "fold": "voxtral_tpu_torch/csrc/lm_argmax.cuh",
+         "replaces": "voxtral_tpu/ops/decode_step_pallas.py:1654",
+         "modes": ["i"],
+         "launches": launches("decode_stack_step_lm_argmax")[0],
+         "launches_by_path": launches("decode_stack_step_lm_argmax")[1],
+         "max_abs_err": mesh["k1i_err"], "ms": k1i[0], "plain_ms": k1i[1],
+         "bound_ms": k1i[2], "bound_by": k1i[3], "library_ms": None,
+         "spec_ms": k1i8[0], "spec_plain_ms": k1i8[1],
+         "spec_bound_ms": k1i8[2]},
+        {"name": "attn_half_step", "route": "cuda",
+         "source": "voxtral_tpu_torch/csrc/decode_tp.cu",
+         "replaces": "voxtral_tpu/ops/decode_tp_pallas.py:741",
+         "launches": launches("attn_half_step")[0],
+         "launches_by_path": launches("attn_half_step")[1],
+         "max_abs_err": mesh["k45_err"], "ms": k4[0], "plain_ms": k4[1],
+         "bound_ms": k4[2], "bound_by": k4[3], "library_ms": None,
+         "host_called_ms": k4[4], "spec_ms": k4s[0],
+         "spec_plain_ms": k4s[1], "spec_bound_ms": k4s[2],
+         "largest_cache_ms": k4l[0], "largest_cache_bound_ms": k4l[2]},
+        {"name": "ffn_half_step", "route": "cuda",
+         "source": "voxtral_tpu_torch/csrc/decode_tp.cu",
+         "replaces": "voxtral_tpu/ops/decode_tp_pallas.py:818",
+         "launches": launches("ffn_half_step")[0],
+         "launches_by_path": launches("ffn_half_step")[1],
+         "max_abs_err": mesh["k45_err"], "ms": k5[0], "plain_ms": k5[1],
+         "bound_ms": k5[2], "bound_by": k5[3], "library_ms": None,
+         "host_called_ms": k5[4], "rows8_ms": k5s[0],
+         "rows8_bound_ms": k5s[2]},
+        {"name": "lm_half_argmax", "route": "cuda",
+         "source": "voxtral_tpu_torch/csrc/decode_tp.cu",
+         "fold": "voxtral_tpu_torch/csrc/lm_argmax.cuh",
+         "replaces": "voxtral_tpu/ops/decode_tp_pallas.py:1349",
+         "launches": launches("lm_half_argmax")[0],
+         "launches_by_path": launches("lm_half_argmax")[1],
+         "max_abs_err": mesh["k6_err"], "ms": k6[0], "plain_ms": k6[1],
+         "bound_ms": k6[2], "bound_by": k6[3], "library_ms": None,
+         "host_called_ms": k6[4], "rows8_ms": k6s[0],
+         "rows8_bound_ms": k6s[2]},
         {"name": "q4_matmul", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/q4_matmul.cu",
          "replaces": "voxtral_tpu/ops/q4_pallas.py:150",

@@ -17,7 +17,8 @@ PKG = REPO / "voxtral_tpu_torch"
 def test_importing_the_port_leaves_jax_out():
     # A fresh interpreter: this test process already imported jax
     # (tests/conftest.py).  Importing every module of the port and
-    # running a tiny transcribe and a tiny pool on the CPU loads neither
+    # running a tiny transcribe (on one device and on a 2 x 2 mesh of
+    # CPUs) and a tiny pool on the CPU loads neither
     # jax nor any module of the JAX package voxtral_tpu.
     code = ("import sys\n"
             "import numpy as np\n"
@@ -27,6 +28,7 @@ def test_importing_the_port_leaves_jax_out():
             "import voxtral_tpu_torch.ops.q4_kernel, voxtral_tpu_torch.loaders.gguf_loader\n"
             "import voxtral_tpu_torch.loaders.safetensors_loader, voxtral_tpu_torch.hub\n"
             "import voxtral_tpu_torch.loaders.param_cache\n"
+            "import voxtral_tpu_torch.parallel, voxtral_tpu_torch.ops.decode_tp\n"
             "from voxtral_tpu_torch import VoxtralConfig\n"
             "from voxtral_tpu_torch.models.voxtral import VoxtralModel\n"
             "from voxtral_tpu_torch.utils.quantize import random_w8_params\n"
@@ -34,6 +36,11 @@ def test_importing_the_port_leaves_jax_out():
             "model = VoxtralModel.from_numpy(random_w8_params(cfg), cfg, 'cpu')\n"
             "toks = model.transcribe_streaming(np.zeros((1, 128, 640), np.float32))\n"
             "assert toks.shape == (2,), toks.shape\n"
+            "from voxtral_tpu_torch.parallel import make_mesh\n"
+            "tp = VoxtralModel.from_numpy(random_w8_params(cfg), cfg,\n"
+            "                             mesh=make_mesh(2, 2, ['cpu'] * 4))\n"
+            "assert tp.transcribe_streaming(\n"
+            "    np.zeros((1, 128, 640), np.float32)).shape == (2,)\n"
             "from voxtral_tpu_torch import StreamPool, StreamingSession\n"
             "pool = StreamPool(model, max_streams=2, max_duration_s=10,\n"
             "                  kv_dtype='int8')\n"
@@ -166,6 +173,15 @@ def test_wrappers_raise_on_a_device_they_cannot_serve():
     with pytest.raises(RuntimeError, match="unsupported device"):
         k2.w8_matmul(xq, torch.ones((1, 1), device=meta), codes,
                      torch.ones(8, device=meta))
+    from voxtral_tpu_torch.ops import decode_tp as tp
+
+    x = torch.zeros((1, 32), device=meta)
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        tp.lm_half_argmax(x, torch.ones(32, device=meta),
+                          torch.ones(8, device=meta), codes, eps=1e-5)
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        tp.ffn_half_step(x, 0, x[0], x[0], x, x[0], codes[None], codes[None],
+                         eps=1e-5)
 
 
 def test_numpy_bf16_round_trip():

@@ -138,7 +138,8 @@ def test_cli_help(capsys):
 def test_cli_refuses_what_is_not_ported(argv, capsys, wav):
     """Flags not ported exit 2 naming their ROADMAP item; the ported
     batch flags refuse what the JAX CLI refuses (``--timestamps`` with
-    ``--batch-files``, ``--audio`` with ``--audio-list``), also exit 2."""
+    ``--batch-files``, ``--audio`` with ``--audio-list``), and ``--tp`` /
+    ``--dp`` a mesh larger than the cards, also exit 2."""
     from voxtral_tpu_torch import cli
 
     rc = cli.main(["--audio", str(wav), *argv])
@@ -146,6 +147,9 @@ def test_cli_refuses_what_is_not_ported(argv, capsys, wav):
     err = capsys.readouterr().err
     if any(flag in argv for flag in cli._NOT_PORTED):
         assert "ROADMAP" in err
+    elif "--tp" in argv or "--dp" in argv:
+        # A mesh of 2 on fewer cards (none here): the JAX CLI's refusal.
+        assert "needs 2 devices, found" in err
     elif "--audio-list" in argv:
         assert "--audio conflicts with --audio-list" in err
     else:

@@ -1,0 +1,487 @@
+"""K4, K5, K6 and K1 mode (i): the port's tensor- and data-parallel decode
+pieces against the JAX package.
+
+Inputs: the tiny stacks of ``tests/test_torch_decode_step.py`` (3 layers,
+D 256, 8 query / 2 KV heads of 32, hidden 512, vocab 1024), tp = 2, so a
+shard holds 4 query heads, 1 KV head, 256 FFN rows and 512 vocab rows.
+The JAX side runs its Pallas halves in interpret mode, its mesh on the
+8-device virtual CPU mesh (``tests/conftest.py``); the port runs on the
+CPU, where every wrapper takes its plain version.
+
+* ``tp_shard_fused_weights`` / ``tp_shard_lm_head``: equal to JAX's arrays.
+* K4 ``attn_half_step``, K5 ``ffn_half_step``, K6 ``lm_half_argmax``, one
+  shard at a time, 1 row and spec rows, with a window: K1's tolerances
+  (``test_torch_decode_step.py``), 1e-5 of the largest value for the
+  partials and K6's maximum (f32 summation order; K6's norm and quant run
+  in jitted XLA, which divides by 127 as a multiplication by its
+  reciprocal, an ulp of ``sx`` away from the port's true division), one
+  bf16 ulp for k_new / v_new; K6's indices equal.
+* ``tp_decode_step`` / ``tp_lm_head_token`` on ``["cpu"] * 2`` (and a
+  2 x 2 mesh with a data axis) against JAX's ``shard_map`` on the virtual
+  mesh.  JAX scans the layers with ``lax.scan`` inside ``shard_map``;
+  that moved no rounding that matters here: x_out measured within 2.6e-7
+  of its largest value over three layers and k_new / v_new bit-equal, so
+  K1's bounds hold (1e-5, one bf16 ulp).  Tokens are equal.
+* K1 mode (i) (``lm_argmax=True``) plain against JAX's: tokens equal, and
+  equal to the argmax of mode (a)'s logits.
+* ``dp_decode_stack_step`` against the unsharded port: bit for bit.
+
+The ``cuda`` tests hold each kernel against its plain version on the
+card, bit for bit (f64 sums and ``-fmad=false``, ROADMAP §3).
+"""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from tests.test_torch_decode_step import (
+    B, D, EPS, HEAD_DIM, HIDDEN, KV_RTOL, L, N_HEADS, N_KV, S, V, X_RTOL,
+    build_inputs, params_from_numpy, to_torch,
+)
+from voxtral_tpu.ops import decode_step_pallas as jdsp
+from voxtral_tpu.ops import decode_tp_pallas as jtp
+from voxtral_tpu.parallel import make_mesh as jax_make_mesh
+from voxtral_tpu_torch.ops import decode_step as tdsp
+from voxtral_tpu_torch.ops import decode_tp as ttp
+from voxtral_tpu_torch.parallel import dp_decode_stack_step, make_mesh
+
+TP = 2
+NH_L, NKV_L = N_HEADS // TP, N_KV // TP
+
+requires_8_devices = pytest.mark.skipif(
+    len(jax.devices()) < 8, reason="needs 8 virtual devices")
+
+
+@pytest.fixture(scope="module")
+def setup():
+    """Inputs, JAX's fused and TP stacks, the port's, ADA vectors."""
+    params, t_embed, k_cache, v_cache, x, lm, final_norm = build_inputs()
+    jtree = jax.tree_util.tree_map(jnp.asarray, params)
+    jf = jdsp.fuse_decode_weights(jtree)
+    jtw = jtp.tp_shard_fused_weights(jf, N_HEADS, N_KV, HEAD_DIM, HIDDEN, TP)
+    adav = np.asarray(jdsp.ada_vectors(jtree, jnp.asarray(t_embed)))
+    tf = tdsp.fuse_decode_weights(params_from_numpy(params))
+    ttw = ttp.tp_shard_fused_weights(tf, N_HEADS, N_KV, HEAD_DIM, HIDDEN, TP)
+    return dict(params=params, k=k_cache, v=v_cache, x=x, lm=lm,
+                fnorm=final_norm, jf=jf, jtw=jtw, adav=adav, tf=tf, ttw=ttw)
+
+
+def _close(got, ref, rtol, what):
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else got
+    ref = np.asarray(jnp.asarray(ref).astype(jnp.float32))
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=rtol * np.abs(ref).max(), err_msg=what)
+
+
+def _rope(offs, spec):
+    pos = (np.asarray(offs)[:, None] + np.arange(spec)[None]).reshape(-1)
+    c, s = jax.vmap(lambda q: jdsp.rope_pair_vectors(
+        q, HEAD_DIM, theta=1e6))(jnp.asarray(pos, jnp.int32))
+    return np.asarray(c), np.asarray(s)
+
+
+def _rows(x, n):
+    return np.resize(x, (n, D)).astype(np.float32) * np.linspace(
+        0.7, 1.3, n, dtype=np.float32)[:, None]
+
+
+def test_tp_shard_fused_weights_equal_jax(setup):
+    assert set(setup["ttw"]) == set(setup["jtw"])
+    for name, ref in setup["jtw"].items():
+        got = setup["ttw"][name]
+        assert got.is_contiguous()
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref),
+                                      err_msg=name)
+
+
+def test_tp_shard_lm_head_equals_jax(setup):
+    lm = setup["lm"]
+    ref = jtp.tp_shard_lm_head({"codes": jnp.asarray(lm["codes"]),
+                                "scale": jnp.asarray(lm["scale"])}, TP)
+    got = ttp.tp_shard_lm_head({"codes": to_torch(lm["codes"]),
+                                "scale": to_torch(lm["scale"])}, TP)
+    for name in ("codes", "scale"):
+        np.testing.assert_array_equal(got[name].numpy(),
+                                      np.asarray(ref[name]))
+    with pytest.raises(ValueError, match="must divide vocab"):
+        ttp.tp_shard_lm_head({"codes": to_torch(lm["codes"]),
+                              "scale": to_torch(lm["scale"])}, 3)
+
+
+def _attn_case(setup, shard, offs, spec, window, layer=1):
+    jtw, ttw = setup["jtw"], setup["ttw"]
+    cos, sin = _rope(offs, spec)
+    x = _rows(setup["x"], len(offs) * spec)
+    heads = slice(shard * NKV_L, (shard + 1) * NKV_L)
+    streams = np.arange(len(offs)) % B
+    kc = setup["k"][layer][streams][:, heads]
+    vc = setup["v"][layer][streams][:, heads]
+    an = np.asarray(setup["jf"]["attn_norm"][layer])
+    kw = dict(n_heads_l=NH_L, n_kv_l=NKV_L, head_dim=HEAD_DIM, eps=EPS,
+              window=window, spec=spec)
+    ref = jtp.attn_half_step(
+        jnp.asarray(x), layer, jnp.asarray(offs, jnp.int32), jnp.asarray(an),
+        jtw["sqkv"][shard][layer], jtw["so"][shard][layer], jnp.asarray(cos),
+        jnp.asarray(sin), jnp.asarray(kc), jnp.asarray(vc),
+        jtw["wqkv"][shard], jtw["wo"][shard], interpret=True, **kw)
+    args = (to_torch(x), layer, torch.tensor(offs, dtype=torch.int32),
+            to_torch(an), ttw["sqkv"][shard][layer], ttw["so"][shard][layer],
+            to_torch(cos), to_torch(sin), to_torch(kc), to_torch(vc),
+            ttw["wqkv"][shard], ttw["wo"][shard])
+    return ref, args, kw
+
+
+@pytest.mark.parametrize("shard", [0, 1])
+@pytest.mark.parametrize("offs,spec,window", [
+    ([9], 1, None),        # one row
+    ([5, 11], 1, 4),       # offsets per row, the window binds
+    ([5, 11], 3, 4),       # spec rows: fresh rows i < j of the stream
+    ([12], 4, 1),          # the window drops fresh rows past j - 1
+])
+def test_attn_half_step_plain_matches_jax(setup, shard, offs, spec, window):
+    ref, args, kw = _attn_case(setup, shard, offs, spec, window)
+    got = ttp.attn_half_step(*args, **kw)
+    rows = len(offs) * spec
+    assert got[0].shape == (rows, D)
+    assert got[1].dtype == torch.bfloat16
+    assert got[1].shape == (rows, NKV_L, HEAD_DIM)
+    _close(got[0], ref[0], X_RTOL, "partial")
+    _close(got[1], ref[1], KV_RTOL, "k_new")
+    _close(got[2], ref[2], KV_RTOL, "v_new")
+
+
+@pytest.mark.parametrize("shard", [0, 1])
+@pytest.mark.parametrize("rows", [1, 6])
+def test_ffn_half_step_plain_matches_jax(setup, shard, rows):
+    jtw, ttw, layer = setup["jtw"], setup["ttw"], 2
+    x = _rows(setup["x"], rows)
+    fn = np.asarray(setup["jf"]["ffn_norm"][layer])
+    ada = setup["adav"][layer]
+    ref = jtp.ffn_half_step(
+        jnp.asarray(x), layer, jnp.asarray(fn), jnp.asarray(ada),
+        jtw["s13"][shard][layer], jtw["s2"][shard][layer], jtw["w13"][shard],
+        jtw["w2"][shard], eps=EPS, interpret=True)
+    got = ttp.ffn_half_step(
+        to_torch(x), layer, to_torch(fn), to_torch(ada),
+        ttw["s13"][shard][layer], ttw["s2"][shard][layer], ttw["w13"][shard],
+        ttw["w2"][shard], eps=EPS)
+    assert got.shape == (rows, D) and got.dtype == torch.float32
+    _close(got, ref, X_RTOL, "partial")
+
+
+def _lm_table(setup, tie_rows=()):
+    """The lm table with rows ``tie_rows`` made equal to the last one of
+    them and dominant for a positive query (a planted tie)."""
+    codes = setup["lm"]["codes"].copy()
+    scale = setup["lm"]["scale"].copy()
+    if tie_rows:
+        top = tie_rows[-1]
+        codes[top] = np.abs(codes[top]).astype(np.int8)
+        codes[top][codes[top] == 0] = 1
+        scale[top] = scale.max() * 4.0
+        for r in tie_rows[:-1]:
+            codes[r], scale[r] = codes[top], scale[top]
+    return codes, scale
+
+
+@pytest.mark.parametrize("rows", [1, 5])
+@pytest.mark.parametrize("ties,first", [((), None), ((70, 300), (70, None)),
+                                        ((100, 900), (100, 388))])
+def test_lm_half_argmax_plain_matches_jax(setup, rows, ties, first):
+    """Per shard: the maximum within 1e-5, the first local index equal;
+    (70, 300) plants a tie inside shard 0, (100, 900) one across the
+    shards (local rows 100 of shard 0 and 388 of shard 1)."""
+    codes, scale = _lm_table(setup, ties)
+    x = np.abs(_rows(setup["x"], rows))
+    fnorm = np.abs(setup["fnorm"])
+    vl = V // TP
+    for shard in range(TP):
+        part = slice(shard * vl, (shard + 1) * vl)
+        jv, ji = jtp.lm_half_argmax(
+            jnp.asarray(x), jnp.asarray(fnorm), jnp.asarray(scale[part]),
+            jnp.asarray(codes[part]), eps=EPS, interpret=True)
+        tv, ti = ttp.lm_half_argmax(
+            to_torch(x), to_torch(fnorm), to_torch(scale[part]),
+            to_torch(codes[part]), eps=EPS)
+        assert tv.shape == (rows, 1) and ti.dtype == torch.int32
+        _close(tv, jv, X_RTOL, f"max of shard {shard}")
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        if first is not None and first[shard] is not None:
+            assert ti.ravel().tolist() == [first[shard]] * rows
+
+
+def _mesh_inputs(setup, offs, spec):
+    x = _rows(setup["x"], len(offs) * spec)
+    cos, sin = _rope(offs, spec)
+    rng = np.random.default_rng(9)
+    import ml_dtypes
+    shape = (L, len(offs), N_KV, S + spec - 1, HEAD_DIM)
+    kc = (rng.normal(size=shape) * 0.4).astype(ml_dtypes.bfloat16)
+    vc = (rng.normal(size=shape) * 0.4).astype(ml_dtypes.bfloat16)
+    return x, cos, sin, kc, vc
+
+
+def _shard_cache(mesh, cache, n_data):
+    """A head-major cache [L, B, Hkv, S, hd] as the grid [d][i] of data
+    group d's streams and model shard i's KV heads."""
+    per, kl = cache.shape[1] // n_data, N_KV // TP
+    return [[cache[:, d * per:(d + 1) * per, i * kl:(i + 1) * kl]
+             .contiguous() for i in range(TP)] for d in range(n_data)]
+
+
+@requires_8_devices
+@pytest.mark.parametrize("n_data,offs,spec", [
+    (1, [9], 1),
+    (1, [5, 11], 3),
+    (2, [5, 11, 3, 14], 1),   # DP x TP: the streams split over data
+    (2, [4, 12], 2),
+])
+def test_tp_decode_step_and_token_match_jax(setup, n_data, offs, spec):
+    x, cos, sin, kc, vc = _mesh_inputs(setup, offs, spec)
+    jf, adav = setup["jf"], setup["adav"]
+    window, da = 6, ("data" if n_data > 1 else None)
+    kw = dict(n_heads=N_HEADS, n_kv=N_KV, head_dim=HEAD_DIM, eps=EPS,
+              window=window, spec=spec)
+    jmesh = jax_make_mesh(n_data, TP)
+    jx, jk, jv = jtp.tp_decode_step(
+        jmesh, jnp.asarray(x), jnp.asarray(offs, jnp.int32),
+        jf["attn_norm"], jf["ffn_norm"], jnp.asarray(adav), setup["jtw"],
+        jnp.asarray(cos), jnp.asarray(sin), jnp.asarray(kc), jnp.asarray(vc),
+        interpret=True, data_axis=da, **kw)
+    codes, scale = _lm_table(setup, (100, 900))
+    jlm = jtp.tp_shard_lm_head({"codes": jnp.asarray(codes),
+                                "scale": jnp.asarray(scale)}, TP)
+    jtok = jtp.tp_lm_head_token(jmesh, jx, jnp.asarray(setup["fnorm"]),
+                                jlm["codes"], jlm["scale"], eps=EPS,
+                                interpret=True, data_axis=da)
+
+    mesh = make_mesh(n_data, TP, ["cpu"] * (n_data * TP))
+    tf = setup["tf"]
+    k_sh = _shard_cache(mesh, to_torch(kc), n_data)
+    v_sh = _shard_cache(mesh, to_torch(vc), n_data)
+    tx, tk, tv = ttp.tp_decode_step(
+        mesh, to_torch(x), torch.tensor(offs, dtype=torch.int32),
+        tf["attn_norm"], tf["ffn_norm"], to_torch(adav),
+        ttp.place_shards(mesh, setup["ttw"]), to_torch(cos), to_torch(sin),
+        k_sh, v_sh, **kw)
+    _close(tx, jx, X_RTOL, "x_out")
+    _close(ttp.gather_kv(tk), jk, KV_RTOL, "k_new")
+    _close(ttp.gather_kv(tv), jv, KV_RTOL, "v_new")
+    tlm = ttp.place_shards(mesh, ttp.tp_shard_lm_head(
+        {"codes": to_torch(codes), "scale": to_torch(scale)}, TP))
+    ttok = ttp.tp_lm_head_token(mesh, tx, to_torch(setup["fnorm"]),
+                                tlm["codes"], tlm["scale"], eps=EPS)
+    assert ttok.dtype == torch.int32 and ttok.shape == (len(offs) * spec,)
+    np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+
+
+def test_argmax_resolve_takes_the_lowest_global_index():
+    from voxtral_tpu_torch.parallel import argmax_resolve
+
+    vals = [torch.tensor([[2.0], [1.0], [3.0]]),
+            torch.tensor([[2.0], [5.0], [1.0]])]
+    idx = [torch.tensor([[7], [0], [3]], dtype=torch.int32),
+           torch.tensor([[1], [4], [2]], dtype=torch.int32)]
+    assert argmax_resolve(vals, idx, 10).tolist() == [7, 14, 3]
+
+
+def _k1_args(setup, offs, spec, lm_codes=None, lm_scale=None):
+    x, cos, sin, kc, vc = _mesh_inputs(setup, offs, spec)
+    tf = setup["tf"]
+    codes = setup["lm"]["codes"] if lm_codes is None else lm_codes
+    scale = setup["lm"]["scale"] if lm_scale is None else lm_scale
+    return dict(x=x, cos=cos, sin=sin, kc=kc, vc=vc, codes=codes,
+                scale=scale, tf=tf)
+
+
+@pytest.mark.parametrize("offs,spec", [([9], 1), ([5, 11], 3)])
+def test_k1_lm_argmax_plain_matches_jax(setup, offs, spec):
+    a = _k1_args(setup, offs, spec, *_lm_table(setup, (100, 900)))
+    jf, adav = setup["jf"], setup["adav"]
+    kw = dict(n_heads=N_HEADS, n_kv=N_KV, head_dim=HEAD_DIM, eps=EPS,
+              window=6, spec=spec)
+    x = np.abs(a["x"])
+    ref = jdsp.decode_stack_step(
+        jnp.asarray(x), jnp.asarray(offs, jnp.int32), jf["attn_norm"],
+        jf["ffn_norm"], jnp.asarray(adav), jf["sqkv"], jf["so"], jf["s13"],
+        jf["s2"], jnp.asarray(a["cos"]), jnp.asarray(a["sin"]),
+        jnp.asarray(a["kc"]), jnp.asarray(a["vc"]), jf["wqkv"], jf["wo"],
+        jf["w13"], jf["w2"], final_norm=jnp.asarray(setup["fnorm"]),
+        lm_codes=jnp.asarray(a["codes"]), lm_scale=jnp.asarray(a["scale"]),
+        interpret=True, lm_argmax=True, **kw)
+    tf = a["tf"]
+    args = (to_torch(x), torch.tensor(offs, dtype=torch.int32),
+            tf["attn_norm"], tf["ffn_norm"], to_torch(adav), tf["sqkv"],
+            tf["so"], tf["s13"], tf["s2"], to_torch(a["cos"]),
+            to_torch(a["sin"]), to_torch(a["kc"]), to_torch(a["vc"]),
+            tf["wqkv"], tf["wo"], tf["w13"], tf["w2"],
+            to_torch(setup["fnorm"]), to_torch(a["codes"]),
+            to_torch(a["scale"]))
+    got = tdsp.decode_stack_step(*args, lm_argmax=True, **kw)
+    assert got[3].dtype == torch.int32 and got[3].shape == (len(x), 1)
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(ref[3]))
+    logits = tdsp.decode_stack_step(*args, **kw)[3]
+    assert got[3][:, 0].tolist() == logits.argmax(-1).tolist()
+    # Without the lm fold the flag is dropped, as in JAX.
+    assert len(tdsp.decode_stack_step(*args[:17], lm_argmax=True, **kw)) == 3
+
+
+def test_k1_lm_argmax_guard():
+    """Mode (i) needs the lm fold (JAX drops the flag without it) and is
+    ported for w8 tables."""
+    assert tdsp._check_lm_argmax(True, "w8", None) is False
+    assert tdsp._check_lm_argmax(True, "w8", torch.zeros(1)) is True
+    for fmt in ("g32", "bf16"):
+        with pytest.raises(ValueError, match="ported for w8"):
+            tdsp._check_lm_argmax(True, fmt, torch.zeros(1))
+
+
+@pytest.mark.parametrize("spec,lm_argmax", [(1, False), (1, True),
+                                            (2, True)])
+def test_dp_decode_stack_step_equals_unsharded(setup, spec, lm_argmax):
+    """Each data group's K1 on its rows == the whole batch's K1, bit for
+    bit (rows are independent in every op of the step)."""
+    offs = [5, 11, 3, 14]
+    a = _k1_args(setup, offs, spec)
+    tf = a["tf"]
+    kw = dict(n_heads=N_HEADS, n_kv=N_KV, head_dim=HEAD_DIM, eps=EPS,
+              window=6, spec=spec, lm_argmax=lm_argmax)
+    offs_t = torch.tensor(offs, dtype=torch.int32)
+    common = (tf["attn_norm"], tf["ffn_norm"], to_torch(setup["adav"]),
+              tf["sqkv"], tf["so"], tf["s13"], tf["s2"], to_torch(a["cos"]),
+              to_torch(a["sin"]))
+    weights = (tf["wqkv"], tf["wo"], tf["w13"], tf["w2"],
+               to_torch(setup["fnorm"]), to_torch(a["codes"]),
+               to_torch(a["scale"]))
+    kc, vc = to_torch(a["kc"]), to_torch(a["vc"])
+    ref = tdsp.decode_stack_step(to_torch(a["x"]), offs_t, *common, kc, vc,
+                                 *weights, **kw)
+    mesh = make_mesh(2, 1, ["cpu", "cpu"])
+    got = dp_decode_stack_step(
+        mesh, to_torch(a["x"]), offs_t, *common,
+        [kc[:, :2].contiguous(), kc[:, 2:].contiguous()],
+        [vc[:, :2].contiguous(), vc[:, 2:].contiguous()], *weights, **kw)
+    assert torch.equal(got[0], ref[0])
+    assert torch.equal(torch.cat(got[1], dim=1), ref[1])
+    assert torch.equal(torch.cat(got[2], dim=1), ref[2])
+    assert torch.equal(got[3], ref[3])
+    with pytest.raises(ValueError, match="not divisible by mesh axis"):
+        dp_decode_stack_step(make_mesh(3, 1, ["cpu"] * 3), to_torch(a["x"]),
+                             offs_t, *common, [kc] * 3, [vc] * 3, *weights,
+                             **kw)
+
+
+def test_check_tp_geometry():
+    ttp.check_tp_geometry(200, 128, 8192, 8, 8, 9216, 131072, 2)
+    with pytest.raises(ValueError, match="must divide"):
+        ttp.check_tp_geometry(200, 128, 8192, 1, 8, 9216, 131072, 3)
+    with pytest.raises(ValueError, match="shared memory"):
+        ttp.check_tp_geometry(80000, 128, None, 1, 8, 9216, 131072, 2)
+
+
+def test_wrappers_on_cpu_count_no_launch(setup):
+    before = (ttp.attn_half_step.launches, ttp.ffn_half_step.launches,
+              ttp.lm_half_argmax.launches)
+    ref, args, kw = _attn_case(setup, 0, [9], 1, None)
+    assert all(torch.equal(g, r) for g, r in zip(
+        ttp.attn_half_step(*args, **kw),
+        ttp.attn_half_step_plain(*args, **kw)))
+    assert (ttp.attn_half_step.launches, ttp.ffn_half_step.launches,
+            ttp.lm_half_argmax.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# On the card: each kernel against its plain version, bit for bit
+# ---------------------------------------------------------------------------
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _to(args, dev):
+    return tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
+                 for a in args)
+
+
+def _bit_equal(got, ref):
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        assert torch.equal(g, r), (g - r).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offs,spec,window", [
+    ([9], 1, None), ([5, 11], 1, 4), ([5, 11], 3, 4), ([2, 7, 9, 13], 4, 6),
+])
+def test_attn_half_step_kernel_matches_plain_on_card(setup, offs, spec,
+                                                     window):
+    dev = _card()
+    _, args, kw = _attn_case(setup, 1, offs, spec, window)
+    args = _to(args, dev)
+    before = ttp.attn_half_step.launches
+    got = ttp.attn_half_step(*args, **kw)
+    torch.cuda.synchronize()
+    assert ttp.attn_half_step.launches == before + 1
+    _bit_equal(got, ttp.attn_half_step_plain(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 12])
+def test_ffn_half_step_kernel_matches_plain_on_card(setup, rows):
+    dev = _card()
+    ttw, layer = setup["ttw"], 0
+    args = _to((to_torch(_rows(setup["x"], rows)), layer,
+                setup["tf"]["ffn_norm"][layer],
+                to_torch(setup["adav"][layer]), ttw["s13"][1][layer],
+                ttw["s2"][1][layer], ttw["w13"][1], ttw["w2"][1]), dev)
+    got = ttp.ffn_half_step(*args, eps=EPS)
+    torch.cuda.synchronize()
+    _bit_equal([got], [ttp.ffn_half_step_plain(*args, eps=EPS)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 11])
+@pytest.mark.parametrize("ties", [(), (70, 300)])
+def test_lm_half_argmax_kernel_matches_plain_on_card(setup, rows, ties):
+    dev = _card()
+    codes, scale = _lm_table(setup, ties)
+    vl = V // TP
+    args = _to((to_torch(np.abs(_rows(setup["x"], rows))),
+                to_torch(np.abs(setup["fnorm"])), to_torch(scale[:vl]),
+                to_torch(codes[:vl])), dev)
+    got = ttp.lm_half_argmax(*args, eps=EPS)
+    torch.cuda.synchronize()
+    _bit_equal(got, ttp.lm_half_argmax_plain(*args, eps=EPS))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offs,spec", [([9], 1), ([5, 11], 3),
+                                       ([1, 4, 6, 9], 4)])
+def test_k1_lm_argmax_kernel_matches_plain_on_card(setup, offs, spec):
+    dev = _card()
+    a = _k1_args(setup, offs, spec, *_lm_table(setup, (100, 900)))
+    tf = a["tf"]
+    args = _to((to_torch(np.abs(a["x"])),
+                torch.tensor(offs, dtype=torch.int32), tf["attn_norm"],
+                tf["ffn_norm"], to_torch(setup["adav"]), tf["sqkv"],
+                tf["so"], tf["s13"], tf["s2"], to_torch(a["cos"]),
+                to_torch(a["sin"]), to_torch(a["kc"]), to_torch(a["vc"]),
+                tf["wqkv"], tf["wo"], tf["w13"], tf["w2"],
+                to_torch(setup["fnorm"]), to_torch(a["codes"]),
+                to_torch(a["scale"])), dev)
+    kw = dict(n_heads=N_HEADS, n_kv=N_KV, head_dim=HEAD_DIM, eps=EPS,
+              window=6, spec=spec)
+    before = tdsp.decode_stack_step.argmax_launches
+    got = tdsp.decode_stack_step(*args, lm_argmax=True, **kw)
+    torch.cuda.synchronize()
+    assert tdsp.decode_stack_step.argmax_launches == before + 1
+    _bit_equal(got, tdsp.decode_stack_step_plain(*args, lm_argmax=True,
+                                                 **kw))
+    logits = tdsp.decode_stack_step(*args, **kw)[3]
+    assert got[3][:, 0].tolist() == logits.argmax(-1).tolist()

@@ -26,11 +26,14 @@ JAX CLI; a ``params.json`` beside the file or ``--params`` sets the
 architecture), ``--params``, ``--params-cache DIR`` (the converted tree
 of ``--model --dtype w8`` and of ``--gguf``, cached on disk),
 ``--delay``, ``--max-mel-frames``, ``--tokenizer``, ``--speculative``,
-``--draft-policy`` and ``--device`` (default ``cuda``; without a card it
+``--draft-policy``, ``--device`` (default ``cuda``; without a card it
 exits with an error, and the CPU runs the kernels' plain versions only
-when asked for with ``--device cpu``).  The other flags of
-``voxtral_tpu/cli.py`` are recognised and exit with an error naming the
-ROADMAP item that ports them.  One line of text per audio file on stdout
+when asked for with ``--device cpu``) and ``--tp`` / ``--dp`` (w8
+weights: a ``(dp, tp)`` mesh over the cards, tensor- and data-parallel
+decode; more shards than cards exit with an error, as the JAX CLI; with
+``--device cpu`` the mesh's shards share the CPU, for tests).  The
+other flags of ``voxtral_tpu/cli.py`` are recognised and exit with an
+error naming the ROADMAP item that ports them.  One line of text per audio file on stdout
 (a missing file prints an empty line and the exit code is 1); logs on
 stderr.
 """
@@ -46,8 +49,6 @@ from pathlib import Path
 # flag -> (value it takes when unset, ROADMAP item that ports it)
 _NOT_PORTED = {
     "--platform": (None, "none: the port takes --device instead"),
-    "--tp": (1, "queue 1, item 12 (parallel)"),
-    "--dp": (1, "queue 1, item 12 (parallel)"),
     "--server": (None, "queue 1, item 11b (serving)"),
 }
 
@@ -112,6 +113,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                    "PyTorch versions of the kernels)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="Tensor-parallel ways: the decoder's heads, FFN "
+                   "rows and the 131k-vocab lm_head split over the mesh's "
+                   "model axis (w8 weights; needs tp x dp cards)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="Data-parallel ways: batched chunk rows split over "
+                   "the mesh's data axis (w8 weights; needs tp x dp cards)")
     for flag, (default, _) in _NOT_PORTED.items():
         p.add_argument(flag, nargs="?", const=True, default=default,
                        help=argparse.SUPPRESS)
@@ -149,6 +157,32 @@ def main(argv: list[str] | None = None) -> int:
         return _error("--timestamps is per-file (drop --batch-files)")
     if args.gguf and not (args.tokenizer or args.random_weights):
         return _error("--gguf requires --tokenizer")
+
+    import torch
+
+    try:
+        device = torch.device(args.device)
+    except RuntimeError as exc:
+        return _error(f"--device {args.device}: {exc}")
+    if args.tp < 1 or args.dp < 1:
+        return _error("--tp/--dp must be >= 1")
+    mesh = None
+    if args.tp * args.dp > 1:
+        from voxtral_tpu_torch.parallel import make_mesh
+
+        n = args.tp * args.dp
+        if device.type == "cuda":
+            n_dev = torch.cuda.device_count()
+            if n > n_dev:
+                return _error(f"--tp {args.tp} x --dp {args.dp} needs {n} "
+                              f"devices, found {n_dev}")
+            mesh = make_mesh(args.dp, args.tp)
+        else:  # a mesh whose shards share the one device (tests)
+            mesh = make_mesh(args.dp, args.tp, [device] * n)
+        device = mesh.first
+        logging.getLogger("voxtral_tpu_torch").info(
+            "mesh: %d data x %d model over %s", args.dp, args.tp,
+            mesh.devices)
     if not (args.random_weights or args.gguf or args.model):
         return _error("no weights: pass --model DIR, --random-weights or "
                       "--gguf PATH")
@@ -159,15 +193,9 @@ def main(argv: list[str] | None = None) -> int:
     if args.speculative < 0:
         return _error("--speculative must be >= 0")
 
-    import torch
-
     from voxtral_tpu_torch.config import VoxtralConfig
     from voxtral_tpu_torch.pipeline import PipelineConfig, TranscribePipeline
 
-    try:
-        device = torch.device(args.device)
-    except RuntimeError as exc:
-        return _error(f"--device {args.device}: {exc}")
     if device.type == "cuda" and not torch.cuda.is_available():
         return _error(f"--device {args.device}: no CUDA device is available "
                       "(torch.cuda.is_available() is False); pass --device "
@@ -187,13 +215,17 @@ def main(argv: list[str] | None = None) -> int:
         cfg = (VoxtralConfig.from_file(args.params) if args.params
                else VoxtralConfig.voxtral())
         log.info("random %s weights (seed 0) on %s", args.dtype, device)
-        if args.dtype == "w8":
-            model = VoxtralModel.from_numpy(random_w8_params(cfg), cfg,
-                                            device)
-        else:
-            dtype = getattr(torch, args.dtype)
-            model = VoxtralModel(random_dense_params(cfg, 0, dtype, device),
-                                 cfg, device)
+        try:
+            if args.dtype == "w8":
+                model = VoxtralModel.from_numpy(random_w8_params(cfg), cfg,
+                                                device, mesh=mesh)
+            else:
+                dtype = getattr(torch, args.dtype)
+                model = VoxtralModel(
+                    random_dense_params(cfg, 0, dtype, device), cfg, device,
+                    mesh=mesh)
+        except ValueError as exc:  # what a mesh cannot take
+            return _error(str(exc))
         if args.tokenizer:
             tokenizer = VoxtralTokenizer.from_file(args.tokenizer)
         else:
@@ -208,7 +240,7 @@ def main(argv: list[str] | None = None) -> int:
             pipeline = TranscribePipeline.from_gguf(
                 args.gguf, args.tokenizer, pcfg, config=cfg,
                 weight_format=args.weight_format, device=device,
-                params_cache=args.params_cache)
+                params_cache=args.params_cache, mesh=mesh)
         except (ValueError, EOFError, KeyError) as exc:
             return _error(f"failed to load GGUF model: {exc}")
     else:
@@ -219,7 +251,7 @@ def main(argv: list[str] | None = None) -> int:
         try:
             pipeline = TranscribePipeline.from_model_dir(
                 model_dir, args.dtype, pcfg, params_cache=args.params_cache,
-                device=device)
+                device=device, mesh=mesh)
         except (FileNotFoundError, ValueError, KeyError) as exc:
             return _error(f"failed to load the model directory: {exc}")
 

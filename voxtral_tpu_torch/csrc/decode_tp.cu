@@ -1,0 +1,175 @@
+// K4, K5, K6: the tensor-parallel halves of a decode step, one shard's.
+//
+// Port of voxtral_tpu/ops/decode_tp_pallas.py: a decoder layer has two
+// reduction points (after WO and after W2), so under tensor parallelism
+// the layer splits there into two halves per shard, each emitting a
+// PARTIAL that the caller sums over the model axis (psum) before the
+// residual add:
+//
+//   K4 vx_attn_half_step (attn_half_step, :603-756; body _make_attn_half
+//      :294, _spec_attn :145), one shard's heads (n_heads / tp query,
+//      n_kv / tp kv heads):
+//        row_quant(norm)    rmsnorm x attn_norm, per-row int8 quant
+//        gemv qkv_l         the shard's q / k / v rows of layer ``layer``
+//        attn_step          pair RoPE, GQA attention over the shard's
+//                           local cache [Bc, n_kv_l, S, hd] (K1's block,
+//                           attn_step.cuh: offsets, window, spec rows)
+//        row_quant(plain)   int8 quant of the LOCAL attention output, with
+//                           the local row absmax (decode_tp_pallas.py:
+//                           43-47, :555)
+//        gemv wo_l          the WO partial, no residual
+//   K5 vx_ffn_half_step (ffn_half_step, :763-834; body _make_ffn_half
+//      :561), one shard's F rows:
+//        row_quant(norm, ada), gemv w13_l, row_quant(swiglu) over the
+//        local F (local absmax, :592), gemv w2_l: the W2 partial
+//   K6 vx_lm_half_argmax (lm_half_argmax, :1285-1382; body _make_lm_half
+//      :1228), one shard's vocab rows: row_quant(final norm) -- XLA's in
+//      JAX, here the row kernel -- then the lm fold of lm_argmax.cuh:
+//      (max, first local index) per row; tp_lm_head_token resolves the
+//      shards (pmax, then the lowest global index).
+//
+// The building blocks are K1's (decode_common.cuh, w8_common.cuh,
+// attn_step.cuh); the scales of wo and w2 are full-D and replicated, so a
+// partial is (float(z_l) * sx_l) * s[n] with the shard's own sx_l.
+//
+// What bounds it on the H100, at tp = 2 and full width, one row: K4 the
+// layer's local weights, 9.44 MB of wqkv_l + 6.29 MB of wo_l, and the
+// local cache; K5 28.31 + 14.16 MB of w13_l / w2_l; K6 the 201.6 MB vocab
+// shard.  Each call is a handful of launches (5 for K4, 4 for K5, 3 for
+// K6) on the current stream; a position costs 26 x (K4 + K5) calls per
+// shard from the host, the same host cost as the per-layer route (K7).
+//
+// Bit for bit with the plain versions (ops/decode_tp.py): every float
+// reduction accumulates in f64 and rounds once, and the build passes
+// -fmad=false.
+#include <cuda_bf16.h>
+#include <math.h>
+
+#include "attn_step.cuh"
+#include "decode_common.cuh"
+#include "lm_argmax.cuh"
+#include "w8_common.cuh"
+
+// All pointers are device pointers.  x, yo [B, D] f32; attn_norm [D],
+// sqkv [nq + 2 nkv], so [D] f32 (layer ``layer``'s; nq = n_heads * hd and
+// nkv = n_kv * hd the shard's); cos / sin [hd] (rope_stride 0) or
+// [B, hd] (rope_stride hd) f32, pair-expanded; kc / vc [Bc, n_kv, S, hd]
+// bf16, the shard's cache of this layer (read at slots < the offset);
+// wqkv [L, nq + 2 nkv, D] and wo [L, D, nq] int8 stacks, layer ``layer``
+// read; kn / vn [B, n_kv, hd] bf16; offs [Bc] int32 or NULL (then off0
+// for every stream); B = Bc x spec rows ordered (stream, draft slot).
+// Scratch: xq [B, max(D, nq)] int8, sx [B], qkv [B, nq + 2 nkv],
+// attn [B, nq] f32.  window < 0: no lower bound.
+extern "C" int vx_attn_half_step(
+    const void* x, void* yo, int layer, const void* attn_norm,
+    const void* sqkv, const void* so, const void* cosv, const void* sinv,
+    const void* kc, const void* vc, const void* wqkv, const void* wo,
+    void* kn, void* vn, void* xq_buf, void* sx_buf, void* qkv_buf,
+    void* attn_buf, const void* offs, int B, int D, int S, int n_heads,
+    int n_kv, int hd, int off0, int spec, int rope_stride, int window,
+    float eps, float scale, void* stream) {
+  using namespace vx;
+  if (hd > kMaxHeadDim || hd % 2 || n_kv <= 0 || n_heads % n_kv ||
+      spec < 1 || B % spec || layer < 0 ||
+      (offs == nullptr && (off0 < 0 || off0 > S)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int span = (window >= 0 && window < S) ? window : S;
+  const size_t smem =
+      sizeof(double) * (kAttnThreads / 32) * hd +
+      sizeof(float) * (4 * static_cast<size_t>(hd) + spec + span);
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        attn_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nq = n_heads * hd, nkv = n_kv * hd, nqkv = nq + 2 * nkv;
+  int8_t* xq = static_cast<int8_t*>(xq_buf);
+  float* sx = static_cast<float*>(sx_buf);
+  float* qkv = static_cast<float*>(qkv_buf);
+  float* att = static_cast<float*>(attn_buf);
+  row_quant(static_cast<const float*>(x), D, D,
+            static_cast<const float*>(attn_norm), nullptr, eps, kQuantNorm, B,
+            xq, sx, nullptr, st);
+  launch_w8_gemv(xq, sx,
+                 static_cast<const int8_t*>(wqkv) +
+                     static_cast<size_t>(layer) * nqkv * D,
+                 static_cast<const float*>(sqkv), nullptr, qkv, B, nqkv, D,
+                 st);
+  attn_step_kernel<<<dim3(n_heads, B), kAttnThreads, smem, st>>>(
+      qkv, static_cast<const float*>(cosv), static_cast<const float*>(sinv),
+      rope_stride, static_cast<const int*>(offs), off0, spec,
+      static_cast<const __nv_bfloat16*>(kc),
+      static_cast<const __nv_bfloat16*>(vc), static_cast<__nv_bfloat16*>(kn),
+      static_cast<__nv_bfloat16*>(vn), att, S, window, 0, 0, n_heads, n_kv, hd,
+      scale);
+  row_quant(att, nq, nq, nullptr, nullptr, eps, kQuantPlain, B, xq, sx,
+            nullptr, st);
+  launch_w8_gemv(xq, sx,
+                 static_cast<const int8_t*>(wo) +
+                     static_cast<size_t>(layer) * D * nq,
+                 static_cast<const float*>(so), nullptr,
+                 static_cast<float*>(yo), B, D, nq, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x, zo [B, D] f32; ffn_norm, ada [D], s13 [2F], s2 [D] f32 (layer
+// ``layer``'s; F the shard's hidden rows); w13 [L, 2F, D] (the shard's w1
+// rows, then its w3 rows) and w2 [L, D, F] int8 stacks.  Scratch:
+// xq [B, max(D, F)] int8, sx [B], up [B, 2F] f32.
+extern "C" int vx_ffn_half_step(
+    const void* x, void* zo, int layer, const void* ffn_norm,
+    const void* ada, const void* s13, const void* s2, const void* w13,
+    const void* w2, void* xq_buf, void* sx_buf, void* up_buf, int B, int D,
+    int F, float eps, void* stream) {
+  using namespace vx;
+  if (B < 1 || D < 1 || F < 1 || layer < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int8_t* xq = static_cast<int8_t*>(xq_buf);
+  float* sx = static_cast<float*>(sx_buf);
+  float* up = static_cast<float*>(up_buf);
+  row_quant(static_cast<const float*>(x), D, D,
+            static_cast<const float*>(ffn_norm),
+            static_cast<const float*>(ada), eps, kQuantNorm, B, xq, sx,
+            nullptr, st);
+  launch_w8_gemv(xq, sx,
+                 static_cast<const int8_t*>(w13) +
+                     static_cast<size_t>(layer) * 2 * F * D,
+                 static_cast<const float*>(s13), nullptr, up, B, 2 * F, D, st);
+  row_quant(up, 2 * F, F, nullptr, nullptr, eps, kQuantSwiglu, B, xq, sx,
+            nullptr, st);
+  launch_w8_gemv(xq, sx,
+                 static_cast<const int8_t*>(w2) +
+                     static_cast<size_t>(layer) * D * F,
+                 static_cast<const float*>(s2), nullptr,
+                 static_cast<float*>(zo), B, D, F, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x [B, D] f32 (the stack's output, replicated); final_norm [D] f32;
+// codes [V, D] int8 and scale [V] f32, this shard's vocab rows; vmax [B]
+// f32 and vidx [B] int32: the largest logit of each row and its first
+// LOCAL index.  Scratch: xq [B, D] int8, sx [B], tmax / tidx
+// [B, ceil(V / 32)] f32 / int32.
+extern "C" int vx_lm_half_argmax(
+    const void* x, const void* final_norm, const void* codes,
+    const void* scale, void* vmax, void* vidx, void* xq_buf, void* sx_buf,
+    void* tmax_buf, void* tidx_buf, int B, int D, int V, float eps,
+    void* stream) {
+  using namespace vx;
+  if (B < 1 || D < 1 || V < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int8_t* xq = static_cast<int8_t*>(xq_buf);
+  float* sx = static_cast<float*>(sx_buf);
+  row_quant(static_cast<const float*>(x), D, D,
+            static_cast<const float*>(final_norm), nullptr, eps, kQuantNorm,
+            B, xq, sx, nullptr, st);
+  launch_w8_argmax(xq, sx, static_cast<const int8_t*>(codes),
+                   static_cast<const float*>(scale), B, V, D,
+                   static_cast<float*>(tmax_buf), static_cast<int*>(tidx_buf),
+                   static_cast<float*>(vmax), static_cast<int*>(vidx), st);
+  return static_cast<int>(cudaGetLastError());
+}

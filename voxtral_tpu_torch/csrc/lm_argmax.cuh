@@ -1,0 +1,229 @@
+// The greedy lm fold shared by K1 mode (i) (decode_step.cu, lm_argmax)
+// and K6 (decode_tp.cu, vx_lm_half_argmax): the W8A8 lm_head over a
+// vocab range with the argmax folded in, so the [B, V] logits are never
+// written.
+//
+// Port of the running (max, first index) fold of
+// voxtral_tpu/ops/decode_step_pallas.py (lm_argmax, :1285-1300) and of
+// decode_tp_pallas.py::_make_lm_half (:1228-1279).  The TPU kernels walk
+// the vocab tiles in order in one grid and carry the fold in VMEM; CUDA
+// blocks run in no order, so the fold takes two passes:
+//
+//   pass 1  one block per tile of kLmTile vocab rows (kLmRowsPerWarp
+//           consecutive rows per warp), up to 8 activation rows: the
+//           logits y = (float(z) * sx[m]) * scale[n], the w8 GEMV's
+//           epilogue in the order of decode_tp_pallas.py:1265, reduced
+//           to the tile's (max, first index) per activation row;
+//   pass 2  one block per activation row merges the tiles: a larger
+//           value wins, and of equal values the lower index -- the same
+//           result as merging the tiles in tile order with a strictly
+//           larger value replacing the running one, i.e. torch.argmax's
+//           first index of the maximum.
+//
+// What bounds it on the H100: the table's bytes, read once (V x D int8
+// and V f32 scales: 403 MB for the whole 131072-row table, 201.6 MB for
+// a tp = 2 vocab shard); the partials are 8 bytes per tile and row.
+// More than 8 activation rows take one weight pass per group of 8 (the
+// dp4a GEMV's limit); the tensor-core GEMV of w8_common.cuh is later work.
+// Internal linkage: each translation unit has its own copy.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "w8_common.cuh"
+
+namespace vx {
+namespace {
+
+constexpr int kLmRowsPerWarp = 4;
+constexpr int kLmTile = kGemvWarps * kLmRowsPerWarp;  // vocab rows per block
+
+// Is the candidate (v, i) better than the running (bv, bi)?  i < 0: no
+// candidate.  A larger value wins; of equal values the lower index.
+__device__ __forceinline__ bool argmax_better(float v, int i, float bv,
+                                              int bi) {
+  if (i < 0) return false;
+  if (bi < 0) return true;
+  return v > bv || (v == bv && i < bi);
+}
+
+// Pass 1.  Block ``tile`` covers vocab rows [tile * kLmTile, ...); warp
+// w rows tile * kLmTile + w * kLmRowsPerWarp + r, r ascending, so a
+// strictly larger value keeps the first index within the warp and the
+// warps merge in order.  tmax / tidx [M, n_tiles]: the tile's maximum and
+// its first (global) row index per activation row.
+template <int M>
+__global__ void __launch_bounds__(32 * kGemvWarps) w8_argmax_tile_kernel(
+    const int8_t* __restrict__ xq, const float* __restrict__ sx,
+    const int8_t* __restrict__ codes, const float* __restrict__ scale, int N,
+    int K, bool vec, int n_tiles, float* __restrict__ tmax,
+    int* __restrict__ tidx) {
+  __shared__ float sv[kGemvWarps][M];
+  __shared__ int si[kGemvWarps][M];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tile = blockIdx.x;
+  float best_v[M];
+  int best_i[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    best_v[m] = -INFINITY;
+    best_i[m] = -1;
+  }
+  for (int r = 0; r < kLmRowsPerWarp; ++r) {
+    const int n = tile * kLmTile + warp * kLmRowsPerWarp + r;
+    if (n >= N) break;  // the same n on every lane
+    const int8_t* w = codes + static_cast<size_t>(n) * K;
+    int acc[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) acc[m] = 0;
+    if (vec) {
+      const int4* w4 = reinterpret_cast<const int4*>(w);
+      const int nv = K >> 4;
+      for (int i = lane; i < nv; i += 32) {
+        const int4 wv = __ldg(w4 + i);
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          const int4 xv = __ldg(
+              reinterpret_cast<const int4*>(xq + static_cast<size_t>(m) * K) +
+              i);
+          int a = acc[m];
+          a = __dp4a(wv.x, xv.x, a);
+          a = __dp4a(wv.y, xv.y, a);
+          a = __dp4a(wv.z, xv.z, a);
+          a = __dp4a(wv.w, xv.w, a);
+          acc[m] = a;
+        }
+      }
+    } else {
+      for (int k = lane; k < K; k += 32) {
+        const int wv = w[k];
+#pragma unroll
+        for (int m = 0; m < M; ++m)
+          acc[m] += wv * static_cast<int>(xq[static_cast<size_t>(m) * K + k]);
+      }
+    }
+    const float sc = scale[n];
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int z = warp_sum_int(acc[m]);  // every lane holds the sum
+      const float y = w8_epilogue(z, sx[m], sc);
+      if (best_i[m] < 0 || y > best_v[m]) {
+        best_v[m] = y;
+        best_i[m] = n;
+      }
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      sv[warp][m] = best_v[m];
+      si[warp][m] = best_i[m];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < M) {
+    const int m = threadIdx.x;
+    float v = -INFINITY;
+    int i = -1;
+    for (int wi = 0; wi < kGemvWarps; ++wi) {  // warps in row order
+      const int ci = si[wi][m];
+      if (ci >= 0 && (i < 0 || sv[wi][m] > v)) {
+        v = sv[wi][m];
+        i = ci;
+      }
+    }
+    tmax[static_cast<size_t>(m) * n_tiles + tile] = v;
+    tidx[static_cast<size_t>(m) * n_tiles + tile] = i;
+  }
+}
+
+// Pass 2: one block per activation row m over its n_tiles partials.
+// vmax (may be NULL) and vidx [M]: the row's maximum and its first index.
+__global__ void __launch_bounds__(256) argmax_merge_kernel(
+    const float* __restrict__ tmax, const int* __restrict__ tidx, int n_tiles,
+    float* __restrict__ vmax, int* __restrict__ vidx) {
+  __shared__ float wv[32];
+  __shared__ int wi[32];
+  const int m = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = (blockDim.x + 31) >> 5;
+  const float* tm = tmax + static_cast<size_t>(m) * n_tiles;
+  const int* ti = tidx + static_cast<size_t>(m) * n_tiles;
+  float v = -INFINITY;
+  int i = -1;
+  for (int t = threadIdx.x; t < n_tiles; t += blockDim.x)
+    if (argmax_better(tm[t], ti[t], v, i)) {
+      v = tm[t];
+      i = ti[t];
+    }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, o);
+    if (argmax_better(ov, oi, v, i)) {
+      v = ov;
+      i = oi;
+    }
+  }
+  if (lane == 0) {
+    wv[warp] = v;
+    wi[warp] = i;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float bv = -INFINITY;
+    int bi = -1;
+    for (int w = 0; w < nw; ++w)
+      if (argmax_better(wv[w], wi[w], bv, bi)) {
+        bv = wv[w];
+        bi = wi[w];
+      }
+    if (vmax != nullptr) vmax[m] = bv;
+    vidx[m] = bi;
+  }
+}
+
+// Tiles of the fold over N vocab rows (the partials hold M x this).
+inline int argmax_tiles(int N) { return (N + kLmTile - 1) / kLmTile; }
+
+// The fold of the W8A8 product xq [M, K] . codes [N, K]^T with row scales
+// [N]: vidx[m] = the first index of the largest logit of row m, vmax[m]
+// (NULL: not written) its value.  Scratch tmax / tidx [M, argmax_tiles(N)].
+inline void launch_w8_argmax(const int8_t* xq, const float* sx,
+                             const int8_t* codes, const float* scale, int M,
+                             int N, int K, float* tmax, int* tidx,
+                             float* vmax, int* vidx, cudaStream_t st) {
+  const bool vec = (K % 16 == 0) && aligned16(xq) && aligned16(codes);
+  const int n_tiles = argmax_tiles(N);
+  for (int m0 = 0; m0 < M; m0 += kDp4aMaxM) {
+    const int mr = (M - m0 < kDp4aMaxM) ? (M - m0) : kDp4aMaxM;
+    const int8_t* x = xq + static_cast<size_t>(m0) * K;
+    const float* s = sx + m0;
+    float* tm = tmax + static_cast<size_t>(m0) * n_tiles;
+    int* ti = tidx + static_cast<size_t>(m0) * n_tiles;
+    switch (mr) {
+#define VX_ARGMAX_CASE(MM)                                                \
+  case MM:                                                                \
+    w8_argmax_tile_kernel<MM><<<n_tiles, 32 * kGemvWarps, 0, st>>>(       \
+        x, s, codes, scale, N, K, vec, n_tiles, tm, ti);                  \
+    break;
+      VX_ARGMAX_CASE(1)
+      VX_ARGMAX_CASE(2)
+      VX_ARGMAX_CASE(3)
+      VX_ARGMAX_CASE(4)
+      VX_ARGMAX_CASE(5)
+      VX_ARGMAX_CASE(6)
+      VX_ARGMAX_CASE(7)
+      VX_ARGMAX_CASE(8)
+#undef VX_ARGMAX_CASE
+      default:
+        break;
+    }
+  }
+  argmax_merge_kernel<<<M, 256, 0, st>>>(tmax, tidx, n_tiles, vmax, vidx);
+}
+
+}  // namespace
+}  // namespace vx

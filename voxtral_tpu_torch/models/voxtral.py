@@ -1,5 +1,6 @@
 """Complete Voxtral Realtime model: greedy, sampled and speculative
-decode (port of ``voxtral_tpu/models/voxtral.py``, single device).
+decode (port of ``voxtral_tpu/models/voxtral.py``, on one device or a
+mesh).
 
 Weight routes, as the JAX model picks them (``megakernel_mode``):
 
@@ -24,7 +25,15 @@ Weight routes, as the JAX model picks them (``megakernel_mode``):
   ``models.layers.linear`` / ``decoder.lm_head`` (K3 for packed
   leaves; f32 models compute and cache in f32, as JAX's XLA step);
   speculative decode rides the sequential loop there and on the
-  per-layer route, as JAX gates it on the stack kernel.
+  per-layer route, as JAX gates it on the stack kernel;
+* a w8 model on a mesh (``VoxtralModel(mesh=)``, ``parallel/``) -> the
+  tensor-parallel step (tp > 1: per layer K4 and K5 on every model
+  shard, the partial sums added across the shards, then the greedy token
+  from K6's vocab-sharded fold; the rows split over the data axis when
+  dp > 1) or the data-parallel one (dp > 1: K1 per data group, mode (i)
+  folding the argmax), as JAX's ``parallel=`` branches
+  (``models/voxtral.py:431-495``, ``:582-680``); the encoder, adapter,
+  prefill and first token run whole on the mesh's first device.
 
 Behaviour kept from the reference:
 
@@ -77,6 +86,12 @@ from voxtral_tpu_torch.models.layers import (
 )
 from voxtral_tpu_torch.models.time_embedding import time_embedding
 from voxtral_tpu_torch.ops import decode_step as k1
+from voxtral_tpu_torch.ops import decode_tp as tpk
+from voxtral_tpu_torch.parallel import (
+    ParallelPlan,
+    dp_decode_stack_step,
+    row_groups,
+)
 from voxtral_tpu_torch.utils.hbm import HBMBudgetError, check_hbm
 
 Params = dict[str, Any]
@@ -203,15 +218,19 @@ def transcribe_streaming_fn(params: Params, mel: torch.Tensor,
                             draft: str = "ngram",
                             passes: Optional[list] = None,
                             route: str = "stack", layer_step=None,
-                            decode_stats: Optional[dict] = None
-                            ) -> torch.Tensor:
+                            decode_stats: Optional[dict] = None,
+                            mesh_step=None) -> torch.Tensor:
     """Transcription of a batch of mels -> int32 [B, S - 38].
 
     ``fused``: the stacks of :func:`ops.decode_step.fuse_decode_weights`
     or ``fuse_decode_weights_q4g`` (the K1 step), or None (the per-op
     step).  ``route`` (with fused stacks): "stack", the K1 step over a
     head-major copy of the prefill cache, or "layer", K7 per layer in the
-    prefill cache itself (w8 stacks; :func:`oneshot_plan` picks it).
+    prefill cache itself (w8 stacks; :func:`oneshot_plan` picks it), or,
+    on a mesh, "tp" / "dp": ``mesh_step(cache, slots, ada_vecs,
+    logits_too)`` cuts the prefill cache into the shards' head-major
+    caches and returns the meshed step (:func:`_tp_step`,
+    :func:`_dp_step`).
     ``mm`` / ``step`` / ``layer_step``: the linears' kernels (a
     :class:`~voxtral_tpu_torch.models.layers.Matmuls`), the K1 step and
     the K7 layer step (the kernel wrappers by default; their plain
@@ -261,7 +280,7 @@ def transcribe_streaming_fn(params: Params, mel: torch.Tensor,
         base = _decode_mark(dev)
         t0 = _clock(dev)
 
-    if fused is None:
+    if fused is None and mesh_step is None:
         tokens = _per_op_decode(dec, audio_embeds, t_embed, token, cache,
                                 rope, lm_cfg, mm, gen, temperature, top_k,
                                 margins)
@@ -273,14 +292,19 @@ def transcribe_streaming_fn(params: Params, mel: torch.Tensor,
     else:
         K = speculative
         spec = K >= 2 and temperature <= 0.0 and seq_len - PREFIX_LEN > 1
-        k_cache, v_cache = _head_major(cache, seq_len + (K - 1 if spec
-                                                         else 0))
-        del cache  # K1 reads the copy: the prefill cache goes now
-        tokens = _stack_decode(
-            fused_step_fn(dec, fused, k1.ada_vectors(dec, t_embed, mm),
-                          lm_cfg, mm, step),
-            dec, audio_embeds, token, k_cache, v_cache, lm_cfg, gen,
-            temperature, top_k, K if spec else 0, draft, margins, passes)
+        slots = seq_len + (K - 1 if spec else 0)
+        ada_vecs = k1.ada_vectors(dec, t_embed, mm)
+        if route in ("tp", "dp"):
+            run = mesh_step(cache, slots, ada_vecs,
+                            margins is not None or temperature > 0.0)
+        else:
+            run = _stack_step(
+                fused_step_fn(dec, fused, ada_vecs, lm_cfg, mm, step),
+                *_head_major(cache, slots))
+        del cache  # the steps read their copies: the prefill cache goes now
+        tokens = _stack_decode(run, dec, audio_embeds, token, slots, lm_cfg,
+                               gen, temperature, top_k, K if spec else 0,
+                               draft, margins, passes)
     if decode_stats is not None:
         decode_stats["seconds"] = _clock(dev) - t0
         if dev.type == "cuda":
@@ -318,26 +342,49 @@ def _head_major(cache, slots: int):
     return k_cache, v_cache
 
 
-def _stack_decode(run_step, dec: Params, audio_embeds: torch.Tensor,
-                  first: torch.Tensor, k_cache: torch.Tensor,
-                  v_cache: torch.Tensor, lm_cfg, gen, temperature: float,
-                  top_k: int, K: int, draft: str, margins: Optional[list],
+def _stack_step(run_step, k_cache: torch.Tensor, v_cache: torch.Tensor):
+    """The K1 route's step on the head-major caches (:func:`_head_major`):
+    ``step(x, off, cos, sin, at=None, stream=None, spec=1) -> (logits,
+    None)``, the fresh K / V appended in place (at slot ``off``, or at the
+    rows' positions ``at`` of their streams ``stream`` under spec): the
+    step reads slots below its offsets only, so the appends leave its
+    inputs as they were."""
+
+    def step(x, off, cos, sin, at=None, stream=None, spec=1):
+        _, k_new, v_new, logits = run_step(x, off, cos, sin, k_cache,
+                                           v_cache, spec=spec)
+        if spec == 1:
+            k_cache[:, :, :, off] = k_new
+            v_cache[:, :, :, off] = v_new
+        else:
+            append_rows(k_cache, k_new, at, stream)
+            append_rows(v_cache, v_new, at, stream)
+        return logits, None
+
+    return step
+
+
+def _stack_decode(step, dec: Params, audio_embeds: torch.Tensor,
+                  first: torch.Tensor, slots: int, lm_cfg, gen,
+                  temperature: float, top_k: int, K: int, draft: str,
+                  margins: Optional[list],
                   passes: Optional[list]) -> torch.Tensor:
-    """The K1 route of :func:`transcribe_streaming_fn` on the head-major
-    caches (:func:`_head_major`; a K - 1 slot tail when ``K`` >= 2 runs
-    the speculative loop, whose last pass appends K rows at slots up to
-    seq_len + K - 2): one K1 step per position, or the speculative loop.
+    """The fused routes of :func:`transcribe_streaming_fn` over caches of
+    ``slots`` slots (a K - 1 slot tail when ``K`` >= 2 runs the
+    speculative loop, whose last pass appends K rows at slots up to
+    seq_len + K - 2): one ``step`` per position (:func:`_stack_step`,
+    :func:`_tp_step`, :func:`_dp_step`: each returns the logits, the
+    greedy tokens, or both), or the speculative loop.
     -> int32 [B, n_steps + 1]."""
     dev = audio_embeds.device
     batch, seq_len = audio_embeds.shape[0], audio_embeds.shape[1]
     n_steps = seq_len - PREFIX_LEN - 1
     cos_t, sin_t = k1.rope_pair_vectors(
-        torch.arange(k_cache.shape[3], device=dev), lm_cfg.head_dim,
-        lm_cfg.rope_theta)
+        torch.arange(slots, device=dev), lm_cfg.head_dim, lm_cfg.rope_theta)
     if K >= 2:
-        return _spec_decode(run_step, dec, audio_embeds, first, k_cache,
-                            v_cache, cos_t, sin_t, K, draft == "ngram",
-                            lm_cfg.vocab_size, margins, passes)
+        return _spec_decode(step, dec, audio_embeds, first, cos_t, sin_t, K,
+                            draft == "ngram", lm_cfg.vocab_size, margins,
+                            passes)
 
     token = first
     tokens = torch.empty((batch, n_steps + 1), dtype=torch.int32, device=dev)
@@ -346,13 +393,9 @@ def _stack_decode(run_step, dec: Params, audio_embeds: torch.Tensor,
         off = PREFIX_LEN + i
         text = embed_tokens(dec, token.long()[:, None])  # [B, 1, D]
         x = (audio_embeds[:, off:off + 1, :] + text)[:, 0, :].float()
-        _, k_new, v_new, logits = run_step(x, off, cos_t[off], sin_t[off],
-                                           k_cache, v_cache)
-        # The step reads slots < off only, so appending in place at off
-        # leaves its inputs as they were.
-        k_cache[:, :, :, off] = k_new
-        v_cache[:, :, :, off] = v_new
-        token = select_token(logits, gen, temperature, top_k)
+        logits, token = step(x, off, cos_t[off], sin_t[off])
+        if token is None:
+            token = select_token(logits, gen, temperature, top_k)
         tokens[:, i + 1] = token
         if margins is not None:
             margins.append(top2_margin(logits))
@@ -486,16 +529,15 @@ def _per_op_decode(dec: Params, audio_embeds: torch.Tensor,
     return tokens
 
 
-def _spec_decode(run_step, dec: Params, audio_embeds: torch.Tensor,
-                 first: torch.Tensor, k_cache: torch.Tensor,
-                 v_cache: torch.Tensor, cos_t: torch.Tensor,
+def _spec_decode(step, dec: Params, audio_embeds: torch.Tensor,
+                 first: torch.Tensor, cos_t: torch.Tensor,
                  sin_t: torch.Tensor, K: int, ngram: bool, vocab: int,
                  margins: Optional[list],
                  passes: Optional[list]) -> torch.Tensor:
     """The speculative loop of :func:`transcribe_streaming_fn` (JAX
     ``spec_body``): per pass, draft K tokens per row, verify them in one
-    ``spec=K`` step, keep the exact-greedy prefix, append all K fresh
-    K/V rows, train the bigram table.  Each row advances by its own
+    ``spec=K`` step (which appends all K fresh K/V rows), keep the
+    exact-greedy prefix, train the bigram table.  Each row advances by its own
     accepted count; finished rows ride along with their position frozen
     and write only past their last token.  -> int32 [B, n_steps + 1]."""
     dev = audio_embeds.device
@@ -529,21 +571,21 @@ def _spec_decode(run_step, dec: Params, audio_embeds: torch.Tensor,
         text = embed_tokens(dec, drafts.long())  # [B, K, D]
         x = (inputs[rows[:, None], idx] + text).reshape(batch * K, dim)
         at = (offs[:, None] + slot).reshape(-1)  # per-row positions
-        _, k_new, v_new, logits = run_step(
-            x.float(), offs.to(torch.int32), cos_t[at], sin_t[at],
-            k_cache, v_cache, spec=K)
-        y = select_token(logits).reshape(batch, K)
+        # The step appends all K fresh rows at offs + j, in place: it
+        # read slots < offs only, and rows past the accepted count stay
+        # invisible (masked by the offsets) until later appends overwrite
+        # them.
+        logits, y = step(x.float(), offs.to(torch.int32), cos_t[at],
+                         sin_t[at], at, stream, K)
+        if y is None:
+            y = select_token(logits)
+        y = y.reshape(batch, K)
         # Exact-greedy acceptance: y[:, j] is valid iff every earlier
         # draft matched its verified token; y[:, 0] always is.
         match = (y[:, :K - 1] == drafts[:, 1:]).to(torch.int32)
         n_acc = 1 + torch.cumprod(match, dim=1).sum(dim=1)
         live = pos < n_steps
         adv = torch.where(live, torch.minimum(n_acc, n_steps - pos), 0)
-        # Append all K fresh rows at offs + j, in place: the step read
-        # slots < offs only, rows past the accepted count stay invisible
-        # (masked by the offsets) until later appends overwrite them.
-        append_rows(k_cache, k_new, at, stream)
-        append_rows(v_cache, v_new, at, stream)
         toks.scatter_(1, idx, y)
         if marg is not None:
             marg.scatter_(1, idx, top2_margin(logits).reshape(batch, K))
@@ -563,6 +605,158 @@ def _spec_decode(run_step, dec: Params, audio_embeds: torch.Tensor,
 def top2_margin(logits: torch.Tensor) -> torch.Tensor:
     top = torch.topk(logits.float(), 2, dim=-1).values
     return top[:, 0] - top[:, 1]
+
+
+# ---------------------------------------------------------------------------
+# The meshed routes (tensor and data parallelism in one process)
+# ---------------------------------------------------------------------------
+
+
+def _head_major_shards(cache, slots: int, plan: ParallelPlan,
+                       groups: list[slice]):
+    """Each shard's head-major copies [L, B_d, Hkv / tp, slots, hd] of the
+    prefilled position-major cache [L, B, S, Hkv, hd]: data group d's
+    streams and model shard i's KV heads, on ``mesh.devices[d][i]``;
+    slots past S (the speculative tail) zero.  -> (K grid, V grid)."""
+    L, _, S, n_kv, hd = cache.k.shape
+    kl = n_kv // plan.tp
+
+    def one(t, rows, i, dev):
+        out = torch.zeros((L, rows.stop - rows.start, kl, slots, hd),
+                          dtype=t.dtype, device=dev)
+        out[:, :, :, :S] = t[:, rows, :, i * kl:(i + 1) * kl].permute(
+            0, 1, 3, 2, 4).to(dev)
+        return out
+
+    return tuple([[one(t, rows, i, dev)
+                   for i, dev in enumerate(plan.mesh.devices[d])]
+                  for d, rows in enumerate(groups)]
+                 for t in (cache.k, cache.v))
+
+
+def _append_grid(grid, new, off, at, stream, groups, spec: int) -> None:
+    """Append each shard's fresh K or V ([L, rows_d, Hkv_l, hd]) into its
+    cache, in place: at slot ``off`` (spec = 1), or each row at its
+    position ``at`` in its stream (``stream``, the batch's numbering) of
+    the group."""
+    for d, g in enumerate(groups):
+        rows = slice(g.start * spec, g.stop * spec)
+        for cache, n in zip(grid[d], new[d]):
+            if spec == 1:
+                cache[:, :, :, off] = n
+            else:
+                append_rows(cache, n, at[rows].to(cache.device),
+                            (stream[rows] - g.start).to(cache.device))
+
+
+def _tp_step(model, dec: Params, ada_vecs, lm_cfg, mm, k_sh, v_sh,
+             groups, logits_too: bool, greedy: bool):
+    """The TP route's step (JAX's ``use_tp`` branches, ``models/voxtral.py:
+    431-468``, ``:634-663``): :func:`ops.decode_tp.tp_decode_step` over
+    the shards' caches, the appends, then the greedy token from the
+    vocab-sharded fold (:func:`ops.decode_tp.tp_lm_head_token`) and, for
+    sampling or the margins, the logits of the whole lm_head on the
+    mesh's first device.  Data groups split the rows when dp > 1."""
+    plan, placed, kern = model.parallel, model.fused_tp, model.kernels
+    norm, eps = dec["norm"], lm_cfg.norm_eps
+    half = tpk.lm_half_argmax if kern else tpk.lm_half_argmax_plain
+    kw = dict(n_heads=lm_cfg.n_heads, n_kv=lm_cfg.n_kv_heads,
+              head_dim=lm_cfg.head_dim, eps=eps,
+              window=lm_cfg.sliding_window,
+              attn=tpk.attn_half_step if kern else tpk.attn_half_step_plain,
+              ffn=tpk.ffn_half_step if kern else tpk.ffn_half_step_plain)
+
+    def step(x, off, cos, sin, at=None, stream=None, spec=1):
+        xo, kn, vn = tpk.tp_decode_step(
+            plan.mesh, x, off, model._tp_norms[0], model._tp_norms[1],
+            ada_vecs, placed, cos, sin, k_sh, v_sh, spec=spec, **kw)
+        _append_grid(k_sh, kn, off, at, stream, groups, spec)
+        _append_grid(v_sh, vn, off, at, stream, groups, spec)
+        token = (tpk.tp_lm_head_token(
+            plan.mesh, xo, norm, placed["lm_codes"], placed["lm_scale"],
+            eps=eps, half=half) if greedy else None)
+        logits = (lm_head(dec, rms_norm(xo, norm, eps), mm=mm)
+                  if logits_too or not greedy else None)
+        return logits, token
+
+    return step
+
+
+def _dp_step(model, ada_vecs, lm_cfg, k_g, v_g, groups, logits_too: bool,
+             greedy: bool):
+    """The DP route's step (JAX ``use_dp``, ``models/voxtral.py:482-495``,
+    ``:673-679``): :func:`parallel.dp_decode_stack_step`, each data group's
+    K1 on its rows with the lm fold, then the appends.  Greedy without
+    the margins, K1 mode (i) folds the argmax (the token, no logits);
+    otherwise the fold returns the logits."""
+    st = model._dp_stacks
+    argmax = greedy and not logits_too
+    kw = dict(n_heads=lm_cfg.n_heads, n_kv=lm_cfg.n_kv_heads,
+              head_dim=lm_cfg.head_dim, eps=lm_cfg.norm_eps,
+              window=lm_cfg.sliding_window, lm_argmax=argmax,
+              step=model._step)
+
+    def step(x, off, cos, sin, at=None, stream=None, spec=1):
+        _, kn, vn, last = dp_decode_stack_step(
+            model.parallel.mesh, x, off, st["attn_norm"], st["ffn_norm"],
+            ada_vecs, st["sqkv"], st["so"], st["s13"], st["s2"], cos, sin,
+            k_g, v_g, st["wqkv"], st["wo"], st["w13"], st["w2"],
+            st["final_norm"], st["lm_codes"], st["lm_scale"], spec=spec,
+            **kw)
+        _append_grid([[c] for c in k_g], [[n] for n in kn], off, at, stream,
+                     groups, spec)
+        _append_grid([[c] for c in v_g], [[n] for n in vn], off, at, stream,
+                     groups, spec)
+        return (None, last[:, 0]) if argmax else (last, None)
+
+    return step
+
+
+def _mesh_shard_bytes(model, plan: ParallelPlan, batch: int, seq_len: int,
+                      slots: int) -> int:
+    """Bytes of the most loaded device's caches in a meshed one-shot call:
+    the prefill cache on the mesh's first device, plus the head-major
+    copies of every shard that lives on the device (a device the mesh
+    names several times holds all its shards)."""
+    per = oneshot_cache_bytes(model, batch // plan.dp, slots) // plan.tp
+    load: dict = {}
+    for row in plan.mesh.devices:
+        for dev in row:
+            load[dev] = load.get(dev, 0) + per
+    first = plan.mesh.first
+    load[first] = load.get(first, 0) + oneshot_cache_bytes(
+        model, batch, seq_len)
+    return max(load.values())
+
+
+def _mesh_plan(model, plan: ParallelPlan, batch: int, seq_len: int,
+               spec: int):
+    """:func:`oneshot_plan`'s rung on a mesh: "tp" (tp > 1, a data axis
+    when dp > 1) or "dp", when the shard's geometry is taken (K4's
+    attention block, or K1's, at the local shard; the shard divisibility)
+    and ``check_hbm`` admits the most loaded device's caches.  Otherwise
+    it raises: a mesh never falls back to one device."""
+    lm = model.config.language_model
+    slots = seq_len + (spec - 1 if spec > 1 else 0)
+    route = "tp" if plan.tp > 1 else "dp"
+    what = (f"a one-shot batch of {batch} rows x {seq_len} positions on a "
+            f"{plan.dp} x {plan.tp} mesh")
+    try:
+        if route == "tp":
+            tpk.check_tp_geometry(slots, lm.head_dim, lm.sliding_window,
+                                  spec, lm.n_kv_heads, lm.hidden_dim,
+                                  lm.vocab_size, plan.tp)
+        else:
+            k1.check_geometry(slots, lm.head_dim, lm.sliding_window, spec)
+        check_hbm(model, _mesh_shard_bytes(model, plan, batch, seq_len,
+                                           slots),
+                  f"{what}, prefill cache + the shards' head-major copies",
+                  batch)
+    except (ValueError, HBMBudgetError) as exc:
+        raise type(exc)(f"no decode route takes {what} -- {route}: "
+                        f"{exc}") from exc
+    return route, (f"{route}: the shards' geometry is taken and their "
+                   "caches fit")
 
 
 def oneshot_cache_bytes(model, batch: int, slots: int) -> int:
@@ -586,12 +780,17 @@ def oneshot_plan(model, batch: int, seq_len: int, spec: int = 1):
     * "layer": K7 on the prefill cache itself (one copy), when K1 is
       refused, for w8 stacks (JAX's K7 is w8-only);
     * "per_op": a model without fused stacks, or q4g / bf16 stacks K1
-      refuses, when one copy fits.
+      refuses, when one copy fits;
+    * on a mesh (``model.parallel``, dp x tp > 1), "tp" or "dp" and
+      nothing else (:func:`_mesh_plan`).
 
     ``reason`` names each refusal on the way.  When even one copy does
     not fit, the last rung's exception is raised with every refusal.  No
     argument selects a rung: tests force one by replacing this function.
     """
+    plan = model.parallel
+    if plan is not None and plan.dp * plan.tp > 1:
+        return _mesh_plan(model, plan, batch, seq_len, spec)
     one = oneshot_cache_bytes(model, batch, seq_len)
     what = f"a one-shot batch of {batch} rows x {seq_len} positions"
     if model.fused_decode is None:
@@ -631,11 +830,26 @@ class VoxtralModel:
     (``None``: the card).  ``kernels=False`` runs the same path through
     the plain PyTorch versions of the kernels (for comparison on the
     card; on the CPU the kernel wrappers take the plain versions anyway).
+
+    ``mesh`` (``parallel.make_mesh``; w8 trees): the one-shot decode runs
+    tensor-parallel (tp > 1: the K4 / K5 halves per model shard and the
+    vocab-sharded K6 fold, the rows split over the data axis when dp > 1)
+    or data-parallel (dp > 1: K1 per data group), as the JAX model's
+    ``mesh=`` does (``models/voxtral.py:863-964``).  The tree lives on the
+    mesh's first device, where the encoder, adapter, prefill and first
+    token run unsharded.  Under tp > 1 the single-device stacks are
+    dropped (``fused_decode`` None, as JAX): sessions and pools on a mesh
+    are a later slice and refuse such a model.  A batch is padded with
+    zero mel rows to a multiple of dp and trimmed after (JAX
+    ``_pad_dp_rows``).
     """
 
     def __init__(self, params: Params, config: Optional[VoxtralConfig] = None,
-                 device: DeviceLike = None, *, kernels: bool = True):
+                 device: DeviceLike = None, *, kernels: bool = True,
+                 mesh=None):
         disable_tf32()
+        if mesh is not None and device is None:
+            device = mesh.first
         self.device = resolve_device(device)
         self.params = params
         self.config = config or VoxtralConfig.voxtral()
@@ -662,6 +876,7 @@ class VoxtralModel:
         elif mode == "bf16":
             self.fused_decode = k1.fuse_decode_weights_bf16(dec)
             self.decode_route = "bf16"
+        self.kernels = kernels
         self._mm = None if kernels else PLAIN
         self._step = k1.decode_stack_step if kernels \
             else k1.decode_stack_step_plain
@@ -684,6 +899,62 @@ class VoxtralModel:
         self.last_margins: Optional[np.ndarray] = None
         # Speculative passes of the last call (0: sequential decode).
         self.last_spec_passes = 0
+        # The mesh (JAX ``parallel`` / ``fused_tp``): the plan, the TP
+        # stacks placed on the shards' devices (each leaf a grid [d][i]
+        # of shard i of data group d), or the DP groups' copies of K1's
+        # stacks.
+        self.parallel: Optional[ParallelPlan] = None
+        self.fused_tp: Optional[Params] = None
+        self._dp_stacks: Optional[Params] = None
+        if mesh is not None:
+            self._attach_mesh(mesh)
+
+    def _attach_mesh(self, mesh) -> None:
+        """Build the meshed decode's weights (JAX ``VoxtralModel.__init__``
+        with ``mesh=``, ``models/voxtral.py:863-964``); ValueError for what
+        this slice's meshed path cannot take (no silent single-device
+        route)."""
+        plan = ParallelPlan(mesh)
+        self.parallel = plan
+        if self.device != mesh.first:
+            raise ValueError(f"the model's tree lives on the mesh's first "
+                             f"device {mesh.first}, not {self.device}")
+        if plan.dp * plan.tp == 1:
+            return
+        if self.decode_route != "w8":
+            raise ValueError(
+                f"a {plan.dp} x {plan.tp} mesh needs w8 weights, not "
+                f"{self.decode_route} (the q4g TP halves and meshed bf16 / "
+                "q4 paths are later slices: ROADMAP item 12)")
+        lm = self.config.language_model
+        dec = self.params["decoder"]
+        emb = dec["tok_embeddings"]["w8"]
+        fused = self.fused_decode
+        if plan.tp > 1:
+            if (lm.n_kv_heads % plan.tp or lm.hidden_dim % plan.tp
+                    or emb["codes"].shape[0] % plan.tp):
+                raise ValueError(
+                    f"tp={plan.tp} must divide n_kv={lm.n_kv_heads}, "
+                    f"hidden={lm.hidden_dim} and vocab="
+                    f"{emb['codes'].shape[0]}")
+            stacked = tpk.tp_shard_fused_weights(
+                fused, lm.n_heads, lm.n_kv_heads, lm.head_dim, lm.hidden_dim,
+                plan.tp)
+            table = tpk.tp_shard_lm_head(emb, plan.tp)
+            stacked.update(lm_codes=table["codes"], lm_scale=table["scale"])
+            # Only the placed shards are kept: on cards of their own, the
+            # first device does not hold every shard's stacks.
+            self.fused_tp = tpk.place_shards(mesh, stacked)
+            self._tp_norms = (fused["attn_norm"], fused["ffn_norm"])
+            # The single-device stacks go, as in JAX: the halves stream
+            # their own shards.
+            self.fused_decode = None
+            return
+        lm_fold = dict(final_norm=dec["norm"].float(), lm_codes=emb["codes"],
+                       lm_scale=emb["scale"])
+        self._dp_stacks = {
+            name: [t.to(row[0]) for row in mesh.devices]
+            for name, t in {**fused, **lm_fold}.items()}
 
     @classmethod
     def from_numpy(cls, tree: Params, config: Optional[VoxtralConfig] = None,
@@ -692,6 +963,8 @@ class VoxtralModel:
         ``device`` (``None``: the card)."""
         from voxtral_tpu_torch.convert import params_from_numpy
 
+        if device is None and kw.get("mesh") is not None:
+            device = kw["mesh"].first
         device = resolve_device(device)
         return cls(params_from_numpy(tree, device), config, device, **kw)
 
@@ -761,9 +1034,37 @@ class VoxtralModel:
             return np.zeros((mel.shape[0], 0), dtype=np.int32)
         return tokens.cpu().numpy()
 
+    def _pad_dp_rows(self, mel_batch: torch.Tensor):
+        """Pad the batch with zero rows to a multiple of the mesh's data
+        axis (JAX ``_pad_dp_rows``, ``models/voxtral.py:1040-1058``); the
+        padded rows' tokens are trimmed by the caller.  -> (mel, real
+        rows).  Every one-shot entry point (``transcribe_streaming``,
+        ``transcribe_streaming_batch``, ``transcribe_streaming_batch_async``)
+        comes through :meth:`_transcribe_device`, which calls this."""
+        b = mel_batch.shape[0]
+        if self.parallel is None or self.parallel.dp <= 1:
+            return mel_batch, b
+        pad = (-b) % self.parallel.dp
+        if pad == 0:
+            return mel_batch, b
+        return torch.cat([mel_batch, mel_batch.new_zeros(
+            (pad, *mel_batch.shape[1:]))]), b
+
+    def _mesh_step(self, dec: Params, lm_cfg, batch: int, cache, slots: int,
+                   ada_vecs, logits_too: bool, greedy: bool):
+        """The meshed route's step over the shards' copies of ``cache``."""
+        plan = self.parallel
+        groups = row_groups(batch, plan.dp)
+        k_sh, v_sh = _head_major_shards(cache, slots, plan, groups)
+        if plan.tp > 1:
+            return _tp_step(self, dec, ada_vecs, lm_cfg, self._mm, k_sh,
+                            v_sh, groups, logits_too, greedy)
+        return _dp_step(self, ada_vecs, lm_cfg, [g[0] for g in k_sh],
+                        [g[0] for g in v_sh], groups, logits_too, greedy)
+
     def _transcribe_device(self, mel, delay_tokens: float, **kw):
         check_draft(kw["draft"])
-        mel = self._cast_mel(mel)
+        mel, real_b = self._pad_dp_rows(self._cast_mel(mel))
         self.last_spec_passes = 0
         seq = self.decoder_seq_len(mel.shape[-1])
         if seq < PREFIX_LEN + 1:
@@ -780,12 +1081,19 @@ class VoxtralModel:
         margins = [] if self.record_margins else None
         passes: list = []
         stats: Optional[dict] = {} if self.measure_decode else None
+        mesh_step = None
+        if route in ("tp", "dp"):
+            def mesh_step(cache, slots, ada_vecs, logits_too):
+                return self._mesh_step(
+                    self.params["decoder"], self.config.language_model,
+                    mel.shape[0], cache, slots, ada_vecs, logits_too, greedy)
         with torch.no_grad():
             tokens = transcribe_streaming_fn(
                 self.params, mel, self.t_embed(delay_tokens), self.config,
                 None if route == "per_op" else self.fused_decode, self._mm,
                 self._step, margins, passes=passes, route=route,
-                layer_step=self._layer_step, decode_stats=stats, **kw)
+                layer_step=self._layer_step, decode_stats=stats,
+                mesh_step=mesh_step, **kw)[:real_b]
         if passes:
             self.last_spec_passes = passes[0]
         if stats is not None:
@@ -793,5 +1101,6 @@ class VoxtralModel:
                                         positions=seq,
                                         steps=seq - PREFIX_LEN - 1, **stats))
         if margins is not None:
-            self.last_margins = torch.stack(margins, dim=1).cpu().numpy()
+            self.last_margins = torch.stack(margins, dim=1)[:real_b].cpu(
+                ).numpy()
         return tokens

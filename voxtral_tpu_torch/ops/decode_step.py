@@ -30,8 +30,12 @@ Sc floats and shared memory no longer bounds S; (g) bf16 weights
 the segments (wq, wk, wv), the FFN's as (w1, w3)), each linear's input
 row cast to bf16 instead of quantized, bf16 x bf16 products summed in
 f32 (here f64, rounded once) with no scales, the folded lm_head over
-the dense bf16 table; combinable with every cache mode.  Source:
-``csrc/decode_step.cu`` (the GEMV of mode (g): ``csrc/bf16_gemv.cuh``).
+the dense bf16 table; combinable with every cache mode; (i)
+``lm_argmax`` (``:1285-1300``, w8): the greedy argmax folded into the
+lm_head, a running (max, first index) over vocab tiles, so the step
+returns each row's token and never writes the logits.  Source:
+``csrc/decode_step.cu`` (the GEMV of mode (g): ``csrc/bf16_gemv.cuh``;
+the fold of mode (i): ``csrc/lm_argmax.cuh``).
 
 What bounds it on the H100: the int8 weights streamed once per step —
 26 layers of wqkv / wo / w13 / w2 plus the 131072 x 3072 lm table, about
@@ -532,6 +536,7 @@ def decode_stack_step_plain(
     window: Optional[int] = None, spec: int = 1,
     ring: Optional[tuple[int, int]] = None,
     cache_chunk: Optional[int] = None,
+    lm_argmax: bool = False,
 ):
     """Plain PyTorch version of the kernel, step by step as the JAX
     kernel computes it (its spec branch for ``spec > 1``: one pass, not
@@ -551,6 +556,9 @@ def decode_stack_step_plain(
     and P.V dots (exact), k_new / v_new still bf16.  ``cache_chunk``
     (mode (f)): the online softmax over chunks; it reads the offsets'
     min and max on the host, which the kernel does on the device.
+    ``lm_argmax`` (mode (i), w8): the fourth output is the greedy token
+    [B, 1] int32, the first index of each row's largest logit, in place
+    of the logits.
     """
     B, D = x.shape
     L, S = k_cache.shape[0], k_cache.shape[3]
@@ -560,6 +568,7 @@ def decode_stack_step_plain(
     new_dtype = torch.bfloat16 if k_scales is not None else k_cache.dtype
     fmt = _weight_format(wqkv, wo, w13, w2, sqkv, so, s13, s2, lm_codes,
                          lm_scale)
+    lm_argmax = _check_lm_argmax(lm_argmax, fmt, lm_codes)
     nq, nkv = n_heads * head_dim, n_kv * head_dim
     hidden = _segs(w2)[0].shape[2]
     c, s = cos_p.float(), sin_p.float()
@@ -598,7 +607,28 @@ def decode_stack_step_plain(
     if lm_codes is None:
         return out
     h = _rms(x, final_norm.float(), eps)
-    return (*out, _linear_plain(h, lm_codes, lm_scale, fmt))
+    logits = _linear_plain(h, lm_codes, lm_scale, fmt)
+    if lm_argmax:
+        return (*out, lm_token_plain(logits))
+    return (*out, logits)
+
+
+def lm_token_plain(logits: torch.Tensor) -> torch.Tensor:
+    """Mode (i)'s fold, plainly: the first index of each row's largest
+    logit (``torch.argmax``, as JAX's running (max, first index) over the
+    vocab tiles) -> [B, 1] int32."""
+    return torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
+
+
+def _check_lm_argmax(lm_argmax: bool, fmt: str, lm_codes) -> bool:
+    """Mode (i) applies with the lm fold only (JAX drops the flag without
+    one, ``decode_step_pallas.py:1479``); ported for w8 tables."""
+    lm_argmax = bool(lm_argmax and lm_codes is not None)
+    if lm_argmax and fmt != "w8":
+        raise ValueError(
+            "lm_argmax (mode (i)) is ported for w8 stacks; the g32 and bf16 "
+            "lm folds return logits (ROADMAP)")
+    return lm_argmax
 
 
 # ---------------------------------------------------------------------------
@@ -615,6 +645,10 @@ def _require(cond: bool, msg: str) -> None:
 # block may hold 227 KB of dynamic shared memory on the H100.
 ATTN_THREADS = 256
 SMEM_LIMIT = 227 * 1024
+# Vocab rows per block of the lm fold of mode (i) and K6
+# (csrc/lm_argmax.cuh: kLmTile); the fold's partials hold one (max,
+# index) pair per tile and row.
+LM_TILE = 32
 
 
 def attn_smem_bytes(S: int, head_dim: int, window: Optional[int] = None,
@@ -749,6 +783,7 @@ def decode_stack_step(
     window: Optional[int] = None, spec: int = 1,
     ring: Optional[tuple[int, int]] = None,
     cache_chunk: Optional[int] = None,
+    lm_argmax: bool = False,
 ):
     """All decoder layers of one decode step (+ lm fold).
 
@@ -772,19 +807,23 @@ def decode_stack_step(
     :func:`quantize_kv` and appends codes and scales.
     ``cache_chunk=Sc`` (mode (f); Sc divides S, spec = 1): the attention
     walks the cache in chunks of Sc slots, so S is not bounded by shared
-    memory.
-    Returns (x_out, k_new, v_new[, logits]) like
+    memory.  ``lm_argmax=True`` (mode (i), w8, with the lm fold): the
+    greedy token [B, 1] int32 in place of the logits, which are never
+    written (``csrc/lm_argmax.cuh``).
+    Returns (x_out, k_new, v_new[, logits or token]) like
     :func:`decode_stack_step_plain`, k_new / v_new [L, B, Hkv, hd]; the
     caller appends them.
 
     CPU tensors take the plain version; CUDA tensors launch the kernels
-    or raise.
+    or raise.  Each launch adds one to ``decode_stack_step.launches``, a
+    mode (i) launch also to ``decode_stack_step.argmax_launches``.
     """
     args = (x, offset, attn_norms, ffn_norms, ada_vecs, sqkv, so, s13, s2,
             cos_p, sin_p, k_cache, v_cache, wqkv, wo, w13, w2,
             final_norm, lm_codes, lm_scale, k_scales, v_scales)
     kw = dict(n_heads=n_heads, n_kv=n_kv, head_dim=head_dim, eps=eps,
-              window=window, spec=spec, ring=ring, cache_chunk=cache_chunk)
+              window=window, spec=spec, ring=ring, cache_chunk=cache_chunk,
+              lm_argmax=lm_argmax)
     dev = x.device
     if dev.type == "cpu":
         return decode_stack_step_plain(*args, **kw)
@@ -797,6 +836,7 @@ def decode_stack_step(
     fmt = _weight_format(wqkv, wo, w13, w2, sqkv, so, s13, s2, lm_codes,
                          lm_scale)
     g32, bf16 = fmt == "g32", fmt == "bf16"
+    lm_argmax = _check_lm_argmax(lm_argmax, fmt, lm_codes)
     nq, nkvd = n_heads * head_dim, n_kv * head_dim
     F = _segs(w2)[0].shape[2]
     offs = None
@@ -890,7 +930,13 @@ def decode_stack_step(
     k_new = torch.empty((L, B, n_kv, head_dim), dtype=torch.bfloat16,
                         device=dev)
     v_new = torch.empty_like(k_new)
-    logits = torch.empty((B, V), **f32) if V else None
+    logits = torch.empty((B, V), **f32) if V and not lm_argmax else None
+    token = tmax = tidx = None
+    if lm_argmax:  # mode (i): the token and the fold's per-tile partials
+        token = torch.empty((B, 1), dtype=torch.int32, device=dev)
+        tiles = -(-V // LM_TILE)
+        tmax = torch.empty((B, tiles), **f32)
+        tidx = torch.empty((B, tiles), dtype=torch.int32, device=dev)
     # The GEMVs' input rows: int8 codes, or bf16 in mode (g).
     xq_buf = torch.empty((B, max(D, nq, F)), dtype=wdt, device=dev)
     sx_buf = torch.empty((B,), **f32)
@@ -905,34 +951,41 @@ def decode_stack_step(
         return sg[i] if i < len(sg) else None
 
     ring_head, ring_size = ring if ring is not None else (0, 0)
-    fn = kernel_fn("vx_decode_stack_step", [_P] * 34 + [_I] * 19
-                   + [_F, _F, _P])
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    qkv_b = seg(qkv_segs, 1)
-    code = fn(
-        ptr(x), ptr(x_out), ptr(attn_norms), ptr(ffn_norms), ptr(ada_vecs),
-        ptr(None if bf16 else sqkv), ptr(None if bf16 else so),
-        ptr(None if bf16 else s13), ptr(None if bf16 else s2), ptr(cos_p),
-        ptr(sin_p), ptr(k_cache), ptr(v_cache), ptr(qkv_segs[0]),
-        ptr(_segs(wo)[0]), ptr(w13_segs[0]), ptr(_segs(w2)[0]),
-        ptr(final_norm), ptr(lm_codes), ptr(None if bf16 else lm_scale),
-        ptr(k_new), ptr(v_new), ptr(logits),
-        ptr(xq_buf), ptr(sx_buf), ptr(qkv_buf), ptr(attn_buf), ptr(up_buf),
-        ptr(offs), ptr(k_scales), ptr(v_scales), ptr(qkv_b),
-        ptr(seg(qkv_segs, 2)), ptr(seg(w13_segs, 1)), B, D, L, S, n_heads,
-        n_kv, head_dim, F, V, offset, spec,
-        0 if cos_p.dim() == 1 else head_dim,
-        -1 if window is None else int(window),
-        {"w8": 0, "g32": 1, "bf16": 2}[fmt], qkv_segs[0].shape[1],
-        0 if qkv_b is None else qkv_b.shape[1], ring_head, ring_size,
-        int(cache_chunk or 0), eps, head_dim ** -0.5, stream)
+    with torch.cuda.device(dev):
+        fn = kernel_fn("vx_decode_stack_step", [_P] * 37 + [_I] * 20
+                       + [_F, _F, _P])
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        qkv_b = seg(qkv_segs, 1)
+        code = fn(
+            ptr(x), ptr(x_out), ptr(attn_norms), ptr(ffn_norms), ptr(ada_vecs),
+            ptr(None if bf16 else sqkv), ptr(None if bf16 else so),
+            ptr(None if bf16 else s13), ptr(None if bf16 else s2), ptr(cos_p),
+            ptr(sin_p), ptr(k_cache), ptr(v_cache), ptr(qkv_segs[0]),
+            ptr(_segs(wo)[0]), ptr(w13_segs[0]), ptr(_segs(w2)[0]),
+            ptr(final_norm), ptr(lm_codes), ptr(None if bf16 else lm_scale),
+            ptr(k_new), ptr(v_new), ptr(logits),
+            ptr(xq_buf), ptr(sx_buf), ptr(qkv_buf), ptr(attn_buf), ptr(up_buf),
+            ptr(offs), ptr(k_scales), ptr(v_scales), ptr(qkv_b),
+            ptr(seg(qkv_segs, 2)), ptr(seg(w13_segs, 1)), ptr(token),
+            ptr(tmax), ptr(tidx), B, D, L, S, n_heads,
+            n_kv, head_dim, F, V, offset, spec,
+            0 if cos_p.dim() == 1 else head_dim,
+            -1 if window is None else int(window),
+            {"w8": 0, "g32": 1, "bf16": 2}[fmt], qkv_segs[0].shape[1],
+            0 if qkv_b is None else qkv_b.shape[1], ring_head, ring_size,
+            int(cache_chunk or 0), int(lm_argmax), eps, head_dim ** -0.5,
+            stream)
     check(code, "decode_stack_step")
     decode_stack_step.launches += 1
     out = (x_out, k_new, v_new)
+    if lm_argmax:
+        decode_stack_step.argmax_launches += 1
+        return (*out, token)
     return out if logits is None else (*out, logits)
 
 
 decode_stack_step.launches = 0
+decode_stack_step.argmax_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1118,20 +1171,22 @@ def decode_layer_step(
     qkv_buf = torch.empty((B, nq + 2 * nkvd), dtype=f32, device=dev)
     attn_buf = torch.empty((B, nq), dtype=f32, device=dev)
     up_buf = torch.empty((B, 2 * F), dtype=f32, device=dev)
-    fn = kernel_fn("vx_decode_layer_step",
-                   [_P, _P, _I, _I] + [_P] * 22 + [_I] * 8 + [_F, _F, _P])
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = fn(
-        x.data_ptr(), x_out.data_ptr(), layer, offset, attn_norm.data_ptr(),
-        ffn_norm.data_ptr(), ada_vec.data_ptr(), sqkv.data_ptr(),
-        so.data_ptr(), s13.data_ptr(), s2.data_ptr(), cos_p.data_ptr(),
-        sin_p.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        wqkv.data_ptr(), wo.data_ptr(), w13.data_ptr(), w2.data_ptr(),
-        k_new.data_ptr(), v_new.data_ptr(), xq_buf.data_ptr(),
-        sx_buf.data_ptr(), qkv_buf.data_ptr(), attn_buf.data_ptr(),
-        up_buf.data_ptr(), B, D, S, n_heads, n_kv, head_dim, F,
-        -1 if window is None else int(window), eps, head_dim ** -0.5,
-        stream)
+    with torch.cuda.device(dev):
+        fn = kernel_fn("vx_decode_layer_step",
+                       [_P, _P, _I, _I] + [_P] * 22 + [_I] * 8 + [_F, _F, _P])
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = fn(
+            x.data_ptr(), x_out.data_ptr(), layer, offset,
+            attn_norm.data_ptr(), ffn_norm.data_ptr(), ada_vec.data_ptr(),
+            sqkv.data_ptr(),
+            so.data_ptr(), s13.data_ptr(), s2.data_ptr(), cos_p.data_ptr(),
+            sin_p.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            wqkv.data_ptr(), wo.data_ptr(), w13.data_ptr(), w2.data_ptr(),
+            k_new.data_ptr(), v_new.data_ptr(), xq_buf.data_ptr(),
+            sx_buf.data_ptr(), qkv_buf.data_ptr(), attn_buf.data_ptr(),
+            up_buf.data_ptr(), B, D, S, n_heads, n_kv, head_dim, F,
+            -1 if window is None else int(window), eps, head_dim ** -0.5,
+            stream)
     check(code, "decode_layer_step")
     decode_layer_step.launches += 1
     return x_out, k_new, v_new

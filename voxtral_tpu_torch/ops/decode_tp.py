@@ -1,0 +1,554 @@
+"""K4, K5, K6: the tensor-parallel halves of a decode step, hand-written
+CUDA for Hopper, and the mesh-level step built on them.
+
+Port of ``voxtral_tpu/ops/decode_tp_pallas.py``.  A decoder layer has
+two reduction points, after WO and after W2, where tensor-parallel
+shards must add up their partial sums; a collective cannot run inside a
+kernel, so the layer splits there into two halves per shard:
+
+* K4 :func:`attn_half_step` (``attn_half_step``, ``:603``): rms_norm,
+  W8A8 QKV of the shard's heads, RoPE, GQA attention over the shard's
+  KV heads (offsets, window and ``spec`` rows as K1), the WO partial;
+* K5 :func:`ffn_half_step` (``ffn_half_step``, ``:763``): ffn_norm x
+  ADA, W1 / W3 of the shard's F rows, SwiGLU, the W2 partial;
+* K6 :func:`lm_half_argmax` (``lm_half_argmax``, ``:1285``): the final
+  norm, the activation quant and the shard's vocab rows of the tied
+  lm_head with the (max, first index) fold, so no logits are written.
+
+:func:`tp_decode_step` runs all layers over the mesh: per layer and data
+group, K4 on every model shard, ``collectives.psum``, the residual add,
+K5, ``psum``, the add (JAX: ``xc + psum(y)``, ``:1071-1075``: the sum
+first, then the add).  :func:`tp_lm_head_token` runs K6 per shard and
+resolves the token (``collectives.argmax_resolve``).  The weights come
+from :func:`tp_shard_fused_weights` / :func:`tp_shard_lm_head`, pure
+re-slicings of K1's stacks equal to JAX's arrays (leading shard axis),
+placed on the shards' devices by :func:`place_shards`.
+
+Numerics, as JAX's: each shard quantizes its attention output and its
+SwiGLU rows with its LOCAL row absmax (``:43-47``), so a tp run is not
+bit-equal to the single-device step; the plain versions here quantize
+the same way.  Every float reduction sums in f64 and rounds once, in
+kernel and plain version alike (K1's rule), so the two agree bit for
+bit.
+
+Modes of JAX's halves not ported in this slice (ROADMAP): the head+ring
+cache, the int8 cache and the chunked cache of K4, and the g32 (q4g)
+weights of K4-K6.  ``tp_vmem_need`` / ``TP_VMEM_CAP`` are TPU-only;
+:func:`check_tp_geometry` checks what the card refuses (the attention
+block's shared memory, the shard divisibility).
+
+What bounds the kernels on the H100 at tp = 2, full width, one row:
+K4 the layer's 15.73 MB of local weights and the local cache, K5 42.47
+MB, K6 the 201.6 MB vocab shard (``csrc/decode_tp.cu``).  A position
+is 26 x (K4 + K5) wrapper calls per shard and two sums per layer from
+the host, the per-layer route's host cost: on one card a tp run shows
+correctness, not tensor parallelism's speed.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from voxtral_tpu_torch.ops._build import check, kernel_fn
+from voxtral_tpu_torch.ops.decode_step import (
+    LM_TILE,
+    SMEM_LIMIT,
+    _attention_plain,
+    _linear_plain,
+    _rms,
+    _rope_swap,
+    _spec_streams,
+    attn_smem_bytes,
+)
+from voxtral_tpu_torch.ops.w8 import quantize_activations as _quant
+from voxtral_tpu_torch.ops.w8_kernel import w8_matmul_plain
+from voxtral_tpu_torch.parallel.collectives import argmax_resolve, psum
+from voxtral_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    Mesh,
+    row_groups,
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+Params = dict
+
+
+# ---------------------------------------------------------------------------
+# Weights
+# ---------------------------------------------------------------------------
+
+
+def tp_shard_fused_weights(fused: Params, n_heads: int, n_kv: int,
+                           head_dim: int, hidden: int, tp: int) -> Params:
+    """K1's w8 stacks (``ops.decode_step.fuse_decode_weights``) resliced
+    for ``tp`` shards, with a LEADING shard axis, as JAX's
+    ``tp_shard_fused_weights`` (``decode_tp_pallas.py:837-887``):
+    wqkv [tp, L, nqkv_l, D] (each shard's q, k and v rows re-concatenated)
+    and sqkv [tp, L, nqkv_l]; wo [tp, L, D, nq_l] (row-parallel: the
+    shard's input columns) with ``so`` replicated [tp, L, D]; w13
+    [tp, L, 2 F_l, D] (its w1 rows, then its w3 rows) and s13; w2
+    [tp, L, D, F_l] with ``s2`` replicated."""
+    if n_kv % tp or hidden % tp:
+        raise ValueError(f"tp={tp} must divide n_kv={n_kv} and "
+                         f"hidden={hidden}")
+    nq, nkv = n_heads * head_dim, n_kv * head_dim
+    nq_l, nkv_l, fl = nq // tp, nkv // tp, hidden // tp
+
+    def seg(a, i, parts):
+        return torch.cat([a[:, s + i * n:s + (i + 1) * n] for s, n in parts],
+                         dim=1)
+
+    qkv = [(0, nq_l), (nq, nkv_l), (nq + nkv, nkv_l)]
+    f13 = [(0, fl), (hidden, fl)]
+    return {
+        "wqkv": torch.stack([seg(fused["wqkv"], i, qkv) for i in range(tp)]),
+        "sqkv": torch.stack([seg(fused["sqkv"], i, qkv) for i in range(tp)]),
+        "wo": torch.stack([fused["wo"][:, :, i * nq_l:(i + 1) * nq_l]
+                           for i in range(tp)]),
+        "so": torch.stack([fused["so"]] * tp),
+        "w13": torch.stack([seg(fused["w13"], i, f13) for i in range(tp)]),
+        "s13": torch.stack([seg(fused["s13"], i, f13) for i in range(tp)]),
+        "w2": torch.stack([fused["w2"][:, :, i * fl:(i + 1) * fl]
+                           for i in range(tp)]),
+        "s2": torch.stack([fused["s2"]] * tp),
+    }
+
+
+def tp_shard_lm_head(w8: Params, tp: int) -> Params:
+    """A rowwise-w8 tied table {"codes": [V, D], "scale": [V]} split on
+    the vocab axis into contiguous ascending shards: codes [tp, V/tp, D],
+    scale [tp, V/tp] (views; JAX ``tp_shard_lm_head``, ``:1186-1202``)."""
+    codes, scale = w8["codes"], w8["scale"]
+    V, D = codes.shape
+    if V % tp:
+        raise ValueError(f"tp={tp} must divide vocab={V}")
+    return {"codes": codes.reshape(tp, V // tp, D),
+            "scale": scale.reshape(tp, V // tp)}
+
+
+def place_shards(mesh: Mesh, stacked: Params) -> Params:
+    """Each leaf [tp, ...] of ``stacked`` as a grid ``[d][i]`` of shard
+    ``i`` on ``mesh.devices[d][i]`` (shard i of every data group).  Where
+    every device of the mesh is the leaf's own (shards sharing one card),
+    a shard is a view of the leaf; otherwise each is a tensor of its own,
+    so the stacked leaf can be freed."""
+    tp = mesh.shape[MODEL_AXIS]
+    devices = {dev for row in mesh.devices for dev in row}
+    out = {}
+    for name, leaf in stacked.items():
+        if leaf.shape[0] != tp:
+            raise ValueError(f"{name}: {leaf.shape[0]} shards for a mesh of "
+                             f"{tp} model shards")
+        copy = devices != {leaf.device}
+        out[name] = [[leaf[i].to(dev, copy=copy) for i, dev in enumerate(row)]
+                     for row in mesh.devices]
+    return out
+
+
+def gather_kv(parts: list) -> torch.Tensor:
+    """The grid ``[d][i]`` of per-shard k_new / v_new [L, B_d, Hkv_l, hd]
+    as one [L, B, Hkv, hd] on the first shard's device."""
+    dev = parts[0][0].device
+    return torch.cat([torch.cat([p.to(dev) for p in row], dim=2)
+                      for row in parts], dim=1)
+
+
+def check_tp_geometry(S: int, head_dim: int, window: Optional[int],
+                      spec: int, n_kv: int, hidden: int, vocab: int,
+                      tp: int) -> None:
+    """ValueError naming the cause when the TP halves cannot take this
+    geometry: ``tp`` must divide the KV heads, the FFN rows and the
+    vocabulary (JAX's shard rules), and K4's attention block holds its
+    score buffer in shared memory (K1's block: S or the window's floats,
+    the shard's head count does not matter).  Replaces JAX's
+    ``tp_vmem_need`` / ``TP_VMEM_CAP``, which budget TPU VMEM."""
+    if n_kv % tp or hidden % tp or vocab % tp:
+        raise ValueError(f"tp={tp} must divide n_kv={n_kv}, "
+                         f"hidden={hidden} and vocab={vocab}")
+    _check_attn_smem(S, head_dim, window, spec)
+
+
+def _check_attn_smem(S: int, head_dim: int, window: Optional[int],
+                     spec: int) -> None:
+    need = attn_smem_bytes(S, head_dim, window, spec)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"attn_half_step: a cache of {S} slots (window {window}, "
+            f"spec={spec}) needs {need} bytes of shared memory per "
+            f"attention block, above the {SMEM_LIMIT} a block may hold")
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def _rope_rows(cos_b, sin_b):
+    """cos / sin [hd] (every row) or [B, hd] as [..., 1, hd] against the
+    heads."""
+    c, s = cos_b.float(), sin_b.float()
+    return (c[:, None], s[:, None]) if c.dim() == 2 else (c, s)
+
+
+def attn_half_step_plain(x, layer: int, offsets, attn_norm, sqkv, so, cos_b,
+                         sin_b, k_cache_l, v_cache_l, wqkv, wo, *,
+                         n_heads_l: int, n_kv_l: int, head_dim: int,
+                         eps: float, window: Optional[int] = None,
+                         spec: int = 1):
+    """Plain PyTorch version of K4, as the JAX kernel computes it: K1's
+    layer on the shard's heads, the WO input quantized with its local
+    absmax, no residual.  -> (partial [B, D] f32, k_new, v_new [B, Hkv_l,
+    hd] in the cache dtype)."""
+    B = x.shape[0]
+    Bc = _spec_streams(B, k_cache_l.shape[0], spec)
+    nq, nkv = n_heads_l * head_dim, n_kv_l * head_dim
+    c, s = _rope_rows(cos_b, sin_b)
+    offs = torch.as_tensor(offsets, device=x.device).reshape(-1).expand(Bc)
+    h = _rms(x.float(), attn_norm.float(), eps)
+    qkv = _linear_plain(h, wqkv[layer], sqkv, "w8")
+    q = qkv[:, :nq].reshape(B, n_heads_l, head_dim)
+    k = qkv[:, nq:nq + nkv].reshape(B, n_kv_l, head_dim)
+    v = qkv[:, nq + nkv:].reshape(B, n_kv_l, head_dim)
+    q = q * c + _rope_swap(q) * s
+    k = k * c + _rope_swap(k) * s
+    attn = _attention_plain(q, k, v, k_cache_l, v_cache_l, offs, window,
+                            spec, n_kv_l, head_dim ** -0.5)
+    return (_linear_plain(attn, wo[layer], so, "w8"),
+            k.to(k_cache_l.dtype), v.to(v_cache_l.dtype))
+
+
+def ffn_half_step_plain(x, layer: int, ffn_norm, ada_vec, s13, s2, w13, w2,
+                        *, eps: float):
+    """Plain PyTorch version of K5: ffn_norm x ADA, the shard's W1 / W3,
+    SwiGLU quantized with its local absmax, the W2 partial [B, D] f32."""
+    hidden = w2.shape[2]
+    h = _rms(x.float(), ffn_norm.float(), eps) * ada_vec.float()
+    up = _linear_plain(h, w13[layer], s13, "w8")
+    gate, upv = up[:, :hidden], up[:, hidden:]
+    hmid = gate * (1.0 / (1.0 + torch.exp(-gate))) * upv
+    return _linear_plain(hmid, w2[layer], s2, "w8")
+
+
+def lm_half_argmax_plain(x, final_norm, lm_scale_l, lm_codes_l, *,
+                         eps: float):
+    """Plain PyTorch version of K6: the shard's logits (final norm, per-row
+    int8 quant, ``(float(z) * sx) * scale``) and their largest value and
+    first local index -> (max [B, 1] f32, index [B, 1] int32)."""
+    xq, sx = _quant(_rms(x.float(), final_norm.float(), eps))
+    logits = w8_matmul_plain(xq, sx, lm_codes_l, lm_scale_l)
+    idx = torch.argmax(logits, dim=-1, keepdim=True)
+    return logits.gather(1, idx), idx.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _expect(fn: str, dev, specs: dict) -> None:
+    """ValueError unless each tensor has its dtype and shape, lies on
+    ``dev`` and is contiguous."""
+    for name, (t, dtype, shape) in specs.items():
+        if t is None or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{fn}: {name} must be {dtype} {shape}, got "
+                f"{None if t is None else (t.dtype, tuple(t.shape))}")
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous on {dev}")
+
+
+def _device_of(fn: str, x: torch.Tensor) -> Optional[torch.device]:
+    """None for a CPU tensor (the plain version runs), the CUDA device
+    otherwise; RuntimeError for any other device."""
+    if x.device.type == "cpu":
+        return None
+    if x.device.type != "cuda":
+        raise RuntimeError(f"{fn}: unsupported device {x.device}")
+    return x.device
+
+
+def attn_half_step(x, layer: int, offsets, attn_norm, sqkv, so, cos_b,
+                   sin_b, k_cache_l, v_cache_l, wqkv, wo, *,
+                   n_heads_l: int, n_kv_l: int, head_dim: int, eps: float,
+                   window: Optional[int] = None, spec: int = 1):
+    """K4: one layer's attention half on this shard's heads.
+
+    x [B, D] f32 (B = streams x ``spec`` rows, ordered (stream, draft
+    slot)); ``layer`` an int; ``offsets`` the cache slots written per
+    stream, an int or an int32 tensor [streams] on x's device; layer
+    ``layer``'s attn_norm [D], sqkv [nqkv_l] and ``so`` [D] f32; cos_b /
+    sin_b [hd] or per row [B, hd] f32; this layer's LOCAL head-major
+    caches [streams, Hkv_l, S, hd] bf16 (slots < the offset read); the
+    shard's stacks wqkv [L, nqkv_l, D], wo [L, D, nq_l] int8.  Returns
+    (the WO partial [B, D] f32, k_new, v_new [B, Hkv_l, hd] bf16).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (``csrc/decode_tp.cu``) or raise.  Each launch adds one to
+    ``attn_half_step.launches``.
+    """
+    args = (x, layer, offsets, attn_norm, sqkv, so, cos_b, sin_b, k_cache_l,
+            v_cache_l, wqkv, wo)
+    kw = dict(n_heads_l=n_heads_l, n_kv_l=n_kv_l, head_dim=head_dim,
+              eps=eps, window=window, spec=spec)
+    dev = _device_of("attn_half_step", x)
+    if dev is None:
+        return attn_half_step_plain(*args, **kw)
+    B, D = x.shape
+    Bc, _, S, _ = k_cache_l.shape
+    Bc = _spec_streams(B, Bc, spec)
+    L = wqkv.shape[0]
+    nq, nkv = n_heads_l * head_dim, n_kv_l * head_dim
+    if not (isinstance(layer, int) and 0 <= layer < L):
+        raise ValueError(f"attn_half_step: layer must be an int in "
+                         f"[0, {L}), got {layer!r}")
+    if not (head_dim % 2 == 0 and head_dim <= 256
+            and n_heads_l % n_kv_l == 0):
+        raise ValueError("attn_half_step: head_dim must be even and <= 256, "
+                         "n_kv_l must divide n_heads_l")
+    _check_attn_smem(S, head_dim, window, spec)
+    offs = None
+    if isinstance(offsets, torch.Tensor):
+        _expect("attn_half_step", dev,
+                {"offsets": (offsets, torch.int32, (Bc,))})
+        offs, offsets = offsets, 0
+    if not (isinstance(offsets, int) and 0 <= offsets <= S):
+        raise ValueError(f"attn_half_step: offset must be an int in "
+                         f"[0, {S}] or a tensor, got {offsets!r}")
+    f32 = torch.float32
+    rope = (head_dim,) if cos_b.dim() == 1 else (B, head_dim)
+    _expect("attn_half_step", dev, {
+        "x": (x, f32, (B, D)), "attn_norm": (attn_norm, f32, (D,)),
+        "sqkv": (sqkv, f32, (nq + 2 * nkv,)), "so": (so, f32, (D,)),
+        "cos_b": (cos_b, f32, rope), "sin_b": (sin_b, f32, rope),
+        "k_cache_l": (k_cache_l, torch.bfloat16, (Bc, n_kv_l, S, head_dim)),
+        "v_cache_l": (v_cache_l, torch.bfloat16, (Bc, n_kv_l, S, head_dim)),
+        "wqkv": (wqkv, torch.int8, (L, nq + 2 * nkv, D)),
+        "wo": (wo, torch.int8, (L, D, nq)),
+    })
+    y = torch.empty((B, D), dtype=f32, device=dev)
+    k_new = torch.empty((B, n_kv_l, head_dim), dtype=torch.bfloat16,
+                        device=dev)
+    v_new = torch.empty_like(k_new)
+    xq = torch.empty((B, max(D, nq)), dtype=torch.int8, device=dev)
+    sx = torch.empty((B,), dtype=f32, device=dev)
+    qkv = torch.empty((B, nq + 2 * nkv), dtype=f32, device=dev)
+    att = torch.empty((B, nq), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        fn = kernel_fn("vx_attn_half_step", [_P, _P, _I] + [_P] * 16
+                       + [_I] * 10 + [_F, _F, _P])
+        code = fn(
+            x.data_ptr(), y.data_ptr(), layer, attn_norm.data_ptr(),
+            sqkv.data_ptr(), so.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(),
+            k_cache_l.data_ptr(), v_cache_l.data_ptr(), wqkv.data_ptr(),
+            wo.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), xq.data_ptr(),
+            sx.data_ptr(), qkv.data_ptr(), att.data_ptr(),
+            None if offs is None else offs.data_ptr(), B, D, S, n_heads_l,
+            n_kv_l, head_dim, offsets, spec,
+            0 if cos_b.dim() == 1 else head_dim,
+            -1 if window is None else int(window), eps, head_dim ** -0.5,
+            torch.cuda.current_stream(dev).cuda_stream)
+    check(code, "attn_half_step")
+    attn_half_step.launches += 1
+    return y, k_new, v_new
+
+
+attn_half_step.launches = 0
+
+
+def ffn_half_step(x, layer: int, ffn_norm, ada_vec, s13, s2, w13, w2, *,
+                  eps: float):
+    """K5: one layer's FFN half on this shard's F rows.
+
+    x [B, D] f32 (the residual after the attention sum); layer
+    ``layer``'s ffn_norm, ada_vec [D], s13 [2 F_l] and s2 [D] f32; the
+    shard's stacks w13 [L, 2 F_l, D], w2 [L, D, F_l] int8.  Returns the
+    W2 partial [B, D] f32.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise (``ffn_half_step.launches``).
+    """
+    dev = _device_of("ffn_half_step", x)
+    if dev is None:
+        return ffn_half_step_plain(x, layer, ffn_norm, ada_vec, s13, s2, w13,
+                                   w2, eps=eps)
+    B, D = x.shape
+    L, F = w2.shape[0], w2.shape[2]
+    if not (isinstance(layer, int) and 0 <= layer < L):
+        raise ValueError(f"ffn_half_step: layer must be an int in [0, {L}), "
+                         f"got {layer!r}")
+    f32 = torch.float32
+    _expect("ffn_half_step", dev, {
+        "x": (x, f32, (B, D)), "ffn_norm": (ffn_norm, f32, (D,)),
+        "ada_vec": (ada_vec, f32, (D,)), "s13": (s13, f32, (2 * F,)),
+        "s2": (s2, f32, (D,)), "w13": (w13, torch.int8, (L, 2 * F, D)),
+        "w2": (w2, torch.int8, (L, D, F)),
+    })
+    z = torch.empty((B, D), dtype=f32, device=dev)
+    xq = torch.empty((B, max(D, F)), dtype=torch.int8, device=dev)
+    sx = torch.empty((B,), dtype=f32, device=dev)
+    up = torch.empty((B, 2 * F), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        fn = kernel_fn("vx_ffn_half_step", [_P, _P, _I] + [_P] * 9
+                       + [_I] * 3 + [_F, _P])
+        code = fn(x.data_ptr(), z.data_ptr(), layer, ffn_norm.data_ptr(),
+                  ada_vec.data_ptr(), s13.data_ptr(), s2.data_ptr(),
+                  w13.data_ptr(), w2.data_ptr(), xq.data_ptr(), sx.data_ptr(),
+                  up.data_ptr(), B, D, F, eps,
+                  torch.cuda.current_stream(dev).cuda_stream)
+    check(code, "ffn_half_step")
+    ffn_half_step.launches += 1
+    return z
+
+
+ffn_half_step.launches = 0
+
+
+def lm_half_argmax(x, final_norm, lm_scale_l, lm_codes_l, *, eps: float):
+    """K6: this shard's greedy lm_head over its vocab rows.
+
+    x [B, D] f32 (the stack's output); final_norm [D] f32; the shard's
+    w8 table lm_codes_l [V_l, D] int8 and lm_scale_l [V_l] f32.  Returns
+    (max logit [B, 1] f32, its first LOCAL index [B, 1] int32); the
+    logits are never written.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise (``lm_half_argmax.launches``).
+    """
+    dev = _device_of("lm_half_argmax", x)
+    if dev is None:
+        return lm_half_argmax_plain(x, final_norm, lm_scale_l, lm_codes_l,
+                                    eps=eps)
+    B, D = x.shape
+    V = lm_codes_l.shape[0]
+    f32 = torch.float32
+    _expect("lm_half_argmax", dev, {
+        "x": (x, f32, (B, D)), "final_norm": (final_norm, f32, (D,)),
+        "lm_codes_l": (lm_codes_l, torch.int8, (V, D)),
+        "lm_scale_l": (lm_scale_l, f32, (V,)),
+    })
+    vmax = torch.empty((B, 1), dtype=f32, device=dev)
+    vidx = torch.empty((B, 1), dtype=torch.int32, device=dev)
+    tiles = -(-V // LM_TILE)
+    xq = torch.empty((B, D), dtype=torch.int8, device=dev)
+    sx = torch.empty((B,), dtype=f32, device=dev)
+    tmax = torch.empty((B, tiles), dtype=f32, device=dev)
+    tidx = torch.empty((B, tiles), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        fn = kernel_fn("vx_lm_half_argmax", [_P] * 10 + [_I] * 3 + [_F, _P])
+        code = fn(x.data_ptr(), final_norm.data_ptr(), lm_codes_l.data_ptr(),
+                  lm_scale_l.data_ptr(), vmax.data_ptr(), vidx.data_ptr(),
+                  xq.data_ptr(), sx.data_ptr(), tmax.data_ptr(),
+                  tidx.data_ptr(), B, D, V, eps,
+                  torch.cuda.current_stream(dev).cuda_stream)
+    check(code, "lm_half_argmax")
+    lm_half_argmax.launches += 1
+    return vmax, vidx
+
+
+lm_half_argmax.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Over the mesh
+# ---------------------------------------------------------------------------
+
+
+def tp_decode_step(
+    mesh: Mesh, x, offsets,
+    attn_norms, ffn_norms, ada_vecs, tp_w,
+    cos_b, sin_b, k_cache: list, v_cache: list,
+    *, n_heads: int, n_kv: int, head_dim: int, eps: float,
+    window: Optional[int] = None, spec: int = 1,
+    attn=attn_half_step, ffn=ffn_half_step,
+):
+    """All decoder layers of one decode step, tensor-parallel (JAX
+    ``tp_decode_step``, ``decode_tp_pallas.py:958-1107``).
+
+    ``tp_w``: :func:`place_shards` of :func:`tp_shard_fused_weights`'
+    stacks.  x [B, D] (B = streams x ``spec`` rows, ordered (stream,
+    draft slot)), ``offsets`` an int or int32 [streams], cos_b / sin_b [hd] or per row [B, hd], the norm and
+    ADA stacks [L, D] f32: replicated, moved to each shard's device (a
+    no-op on a shared card).  ``k_cache`` / ``v_cache``: the grid
+    ``[d][i]`` of the shards' head-major caches [L, streams_d, Hkv_l, S,
+    hd] on their devices (JAX takes one array the partitioner shards).
+    The streams split over the mesh's data axis (DP x TP when it is
+    longer than 1: each data group runs its rows against its own model
+    shards; the sums stay within a data group).  ``attn`` / ``ffn``: K4
+    and K5 (default) or their plain versions.
+
+    Per layer and data group: K4 on each model shard, ``psum`` of the
+    partials in shard order, the residual add, K5, ``psum``, the add.
+    Returns (x_out [B, D] f32 on x's device, k_new, v_new: the grid
+    ``[d][i]`` of [L, B_d, Hkv_l, hd] bf16 on the shards' devices, for
+    the caller's appends; :func:`gather_kv` joins them).
+    """
+    tp = mesh.shape[MODEL_AXIS]
+    n_heads_l, n_kv_l = n_heads // tp, n_kv // tp
+    B = x.shape[0]
+    if spec < 1 or B % spec:
+        raise ValueError(f"spec={spec} must divide the row count {B}")
+    kw = dict(n_heads_l=n_heads_l, n_kv_l=n_kv_l, head_dim=head_dim,
+              eps=eps, window=window, spec=spec)
+    L = attn_norms.shape[0]
+    x_out, kn, vn = [], [], []
+    groups = row_groups(B // spec, mesh.shape[DATA_AXIS], spec)
+    for d, rows in enumerate(groups):
+        devs = mesh.devices[d]
+        streams = slice(rows.start // spec, rows.stop // spec)
+        w = [{k: v[d][i] for k, v in tp_w.items()} for i in range(tp)]
+        offs = [offsets[streams].to(dev)
+                if isinstance(offsets, torch.Tensor) else offsets
+                for dev in devs]
+        rope = [(cos_b[rows].to(dev), sin_b[rows].to(dev))
+                if cos_b.dim() == 2 else (cos_b.to(dev), sin_b.to(dev))
+                for dev in devs]
+        vecs = [(attn_norms.float().to(dev), ffn_norms.float().to(dev),
+                 ada_vecs.float().to(dev)) for dev in devs]
+        xs = [x[rows].float().to(dev) for dev in devs]
+        k_rows = [[] for _ in devs]
+        v_rows = [[] for _ in devs]
+        for l in range(L):
+            ys = []
+            for i, dev in enumerate(devs):
+                y, k_l, v_l = attn(
+                    xs[i], l, offs[i], vecs[i][0][l], w[i]["sqkv"][l],
+                    w[i]["so"][l], *rope[i], k_cache[d][i][l],
+                    v_cache[d][i][l], w[i]["wqkv"], w[i]["wo"], **kw)
+                ys.append(y)
+                k_rows[i].append(k_l)
+                v_rows[i].append(v_l)
+            xs = [xi + yi for xi, yi in zip(xs, psum(ys, devs))]
+            zs = [ffn(xs[i], l, vecs[i][1][l], vecs[i][2][l],
+                      w[i]["s13"][l], w[i]["s2"][l], w[i]["w13"],
+                      w[i]["w2"], eps=eps) for i in range(tp)]
+            xs = [xi + zi for xi, zi in zip(xs, psum(zs, devs))]
+        x_out.append(xs[0].to(x.device))
+        kn.append([torch.stack(r) for r in k_rows])
+        vn.append([torch.stack(r) for r in v_rows])
+    return torch.cat(x_out), kn, vn
+
+
+def tp_lm_head_token(mesh: Mesh, x, final_norm, lm_codes_sh, lm_scale_sh,
+                     *, eps: float, half=lm_half_argmax):
+    """The greedy token from a vocab-sharded tied lm_head, [B] int32 on
+    x's device (JAX ``tp_lm_head_token``, ``:1385-1424``): K6 on each
+    model shard, then ``collectives.argmax_resolve`` (the largest value,
+    then the lowest global index: ``torch.argmax``'s first index).
+    ``lm_codes_sh`` / ``lm_scale_sh``: :func:`place_shards` of
+    :func:`tp_shard_lm_head`'s leaves.  The rows split over the data
+    axis as in :func:`tp_decode_step`.  ``half``: K6 (default) or its
+    plain version."""
+    toks = []
+    for d, rows in enumerate(row_groups(x.shape[0], mesh.shape[DATA_AXIS])):
+        vals, idxs = [], []
+        for i, dev in enumerate(mesh.devices[d]):
+            codes = lm_codes_sh[d][i]
+            v, j = half(x[rows].float().to(dev), final_norm.float().to(dev),
+                        lm_scale_sh[d][i], codes, eps=eps)
+            vals.append(v)
+            idxs.append(j)
+        toks.append(argmax_resolve(vals, idxs, codes.shape[0]).to(x.device))
+    return torch.cat(toks)

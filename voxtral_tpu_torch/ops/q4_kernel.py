@@ -186,10 +186,11 @@ def q4_matmul_packed(x: torch.Tensor, packed: torch.Tensor,
             raise ValueError(f"q4_matmul: {name} must be contiguous")
     xf = x.float().contiguous()
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    fn = kernel_fn("vx_q4_matmul", [_P] * 4 + [_I] * 3 + [_P])
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    check(fn(xf.data_ptr(), packed.data_ptr(), scales_t.data_ptr(),
-             out.data_ptr(), m, n, k, stream), "q4_matmul")
+    with torch.cuda.device(dev):
+        fn = kernel_fn("vx_q4_matmul", [_P] * 4 + [_I] * 3 + [_P])
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        check(fn(xf.data_ptr(), packed.data_ptr(), scales_t.data_ptr(),
+                 out.data_ptr(), m, n, k, stream), "q4_matmul")
     q4_matmul_packed.launches += 1
     return out
 

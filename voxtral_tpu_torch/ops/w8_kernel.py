@@ -97,11 +97,12 @@ def w8_matmul(xq: torch.Tensor, sx: torch.Tensor, codes: torch.Tensor,
     m, k = xq.shape
     n = codes.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    fn = kernel_fn("vx_w8_matmul", [_P] * 5 + [_I] * 3 + [_P])
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    check(fn(xq.data_ptr(), sx.data_ptr(), codes.data_ptr(),
-             scale.data_ptr(), out.data_ptr(), m, n, k, stream),
-          "w8_matmul")
+    with torch.cuda.device(dev):
+        fn = kernel_fn("vx_w8_matmul", [_P] * 5 + [_I] * 3 + [_P])
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        check(fn(xq.data_ptr(), sx.data_ptr(), codes.data_ptr(),
+                 scale.data_ptr(), out.data_ptr(), m, n, k, stream),
+              "w8_matmul")
     w8_matmul.launches += 1
     return out
 

@@ -110,6 +110,7 @@ class TranscribePipeline:
         pipeline_config: Optional[PipelineConfig] = None,
         params_cache=None,
         device: DeviceLike = None,
+        mesh=None,
     ) -> "TranscribePipeline":
         """SafeTensors path (JAX ``TranscribePipeline.from_model_dir``): a
         directory with consolidated.safetensors, params.json and
@@ -118,7 +119,9 @@ class TranscribePipeline:
         "w8" (requantized to rowwise int8 at load, on the host).
         ``params_cache``: a directory caching the w8 tree, so a warm
         start skips the requantization; dense dtypes bypass it, as in
-        JAX.  ``device``: ``None`` is the card."""
+        JAX.  ``device``: ``None`` is the card (the mesh's first device
+        with ``mesh``, a ``parallel.make_mesh`` grid: the model decodes
+        tensor- / data-parallel, ``VoxtralModel``'s ``mesh``)."""
         from voxtral_tpu_torch.hub import ModelPaths
         from voxtral_tpu_torch.loaders.safetensors_loader import (
             load_voxtral_params,
@@ -127,7 +130,7 @@ class TranscribePipeline:
         if dtype not in ("bfloat16", "float32", "w8"):
             raise ValueError(
                 f"dtype must be bfloat16, float32 or w8, got {dtype!r}")
-        device = resolve_device(device)
+        device = _model_device(device, mesh)
         paths = ModelPaths.from_dir(model_dir)
         cfg = VoxtralConfig.from_file(paths.params)
         t0 = time.time()
@@ -153,7 +156,7 @@ class TranscribePipeline:
                                          device=device)
         log.info("loaded safetensors weights (%s) in %.1fs on %s", dtype,
                  time.time() - t0, device)
-        return cls(VoxtralModel(params, cfg, device),
+        return cls(VoxtralModel(params, cfg, device, mesh=mesh),
                    VoxtralTokenizer.from_file(paths.tekken), pipeline_config)
 
     @classmethod
@@ -166,6 +169,7 @@ class TranscribePipeline:
         weight_format: str = "q4",
         device: DeviceLike = None,
         params_cache=None,
+        mesh=None,
     ) -> "TranscribePipeline":
         """Q4_0 GGUF path (JAX ``TranscribePipeline.from_gguf``).
 
@@ -174,11 +178,12 @@ class TranscribePipeline:
         (packed, per-op decode on K3), "q4g" (exact Q4_0, K1 mode (h)) or
         "w8" (requantized at load).  ``params_cache``: a directory caching
         the repacked / requantized tree, so a warm start skips the
-        conversion.  ``device``: ``None`` is the card.
+        conversion.  ``device``: ``None`` is the card.  ``mesh``: as in
+        :meth:`from_model_dir` (w8 only: a meshed q4 / q4g model raises).
         """
         from voxtral_tpu_torch.loaders.gguf_loader import Q4ModelLoader
 
-        device = resolve_device(device)
+        device = _model_device(device, mesh)
         gguf_path = Path(gguf_path)
         if config is None:
             sidecar = gguf_path.parent / "params.json"
@@ -200,11 +205,12 @@ class TranscribePipeline:
                                    build, device)
             cfg = loader[0].cfg if loader[0] else (
                 config or VoxtralConfig.voxtral())
-            model = VoxtralModel(params, cfg, device)
+            model = VoxtralModel(params, cfg, device, mesh=mesh)
         else:
             loader = Q4ModelLoader.from_file(gguf_path, cfg=config,
                                              weight_format=weight_format)
-            model = VoxtralModel(loader.load(device), loader.cfg, device)
+            model = VoxtralModel(loader.load(device), loader.cfg, device,
+                                 mesh=mesh)
         log.info("loaded GGUF Q4 weights (%s) in %.1fs on %s", weight_format,
                  time.time() - t0, device)
         return cls(model, VoxtralTokenizer.from_file(tokenizer_path),
@@ -391,6 +397,14 @@ class TranscribePipeline:
         with spaces."""
         texts = [self.decode_tokens(toks).strip() for toks in chunk_tokens]
         return " ".join(t for t in texts if t)
+
+
+def _model_device(device: DeviceLike, mesh):
+    """Where a loader puts the tree: ``device``, or the mesh's first
+    device when only a mesh is given (``None`` and no mesh: the card)."""
+    if device is None and mesh is not None:
+        return mesh.first
+    return resolve_device(device)
 
 
 def _fetch(tokens) -> np.ndarray:

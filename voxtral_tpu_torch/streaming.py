@@ -226,6 +226,18 @@ def _rung_refusal(model: VoxtralModel, batch: int, cache_s: int,
     return None
 
 
+def _refuse_mesh(model: VoxtralModel) -> None:
+    """Sessions and pools run on one device: a model on a mesh of more
+    than one shard (``VoxtralModel(mesh=)``, whose TP stacks replace the
+    single-device ones) is refused, not decoded on another route."""
+    plan = getattr(model, "parallel", None)
+    if plan is not None and plan.dp * plan.tp > 1:
+        raise NotImplementedError(
+            f"sessions and pools on a {plan.dp} x {plan.tp} mesh are not "
+            "ported yet (ROADMAP queue 1, item 12); use a model without a "
+            "mesh")
+
+
 def _fused_plan(model: VoxtralModel, batch: int, cache_s: int,
                 itemsize: Optional[int] = None, chunk: Optional[int] = None,
                 spec: int = 1):
@@ -367,6 +379,7 @@ class StreamPool:
                       "model": [(None, None), (None, CACHE_CHUNK)],
                       "auto": [(None, None), (1, None),
                                (1, CACHE_CHUNK)]}[kv_dtype]
+        _refuse_mesh(model)
         self.cache_int8 = False
         self._cache_chunk = None
         self._fused = None
@@ -1031,6 +1044,7 @@ class StreamingSession:
             self._max_enc = 4 * self._max_dec
             rope_positions = self._max_dec
 
+        _refuse_mesh(model)
         self._fused = model.fused_decode is not None
         if self.speculative > 1:
             if not self._fused:

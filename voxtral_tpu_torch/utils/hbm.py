@@ -36,9 +36,9 @@ def device_hbm_budget(device=None) -> Optional[int]:
 
 
 def tree_unique_bytes(*trees) -> int:
-    """Bytes of the tensor leaves across nested dicts, each underlying
-    storage counted once (fused stacks may share storage with the
-    parameter leaves they were cut from)."""
+    """Bytes of the tensor leaves across nested dicts and lists, each
+    underlying storage counted once (fused stacks may share storage with
+    the parameter leaves they were cut from)."""
     seen: set = set()
     total = 0
 
@@ -46,6 +46,9 @@ def tree_unique_bytes(*trees) -> int:
         nonlocal total
         if isinstance(node, dict):
             for v in node.values():
+                walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
                 walk(v)
         elif isinstance(node, torch.Tensor):
             st = node.untyped_storage()
@@ -61,9 +64,11 @@ def tree_unique_bytes(*trees) -> int:
 
 
 def model_hbm_bytes(model) -> int:
-    """Weights resident on the device: params + fused decode stacks."""
-    return tree_unique_bytes(model.params,
-                             getattr(model, "fused_decode", None))
+    """Weights resident on the device: params + fused decode stacks (on a
+    mesh, every shard's copy: the placed TP stacks, or the DP groups'
+    stacks; on a card the shards share, counted once)."""
+    return tree_unique_bytes(*(getattr(model, name, None) for name in (
+        "params", "fused_decode", "fused_tp", "_dp_stacks")))
 
 
 def check_hbm(model, cache_bytes: int, what: str, rows: int = 0) -> None:
