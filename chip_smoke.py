@@ -161,11 +161,49 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              == 2 x steps) and on 2 x 2 (== tp = 2 on the batch), each
              sequential and speculative; ``--tp 2`` on one card exits 2
              with the JAX CLI's message.
+13c. mesh streams — after phase 13.  First ROADMAP §3's TP rule on the
+             random w8 tree of phase 13: an unbounded session on a tp = 2
+             mesh over the 16 s chirp and a B = 4 tp = 2 pool against the
+             single card's, the speculative=8 ngram tp = 2 session against
+             the sequential one by the spec near-tie rule.  Then, on a w8
+             tree quantized on the card from the dense DENSE_SCALE tree
+             (``utils.quantize.quantize_params_w8``; the random w8 tree's
+             pooled streams emit one distinct token, this one's many), where
+             a tp = 2 stream parts from the single card at its first decoded
+             token: the plain single card with TP's quantization groups
+             (``tp_quant_groups``: the WO and W2 inputs quantized per shard)
+             as the second witness, to which the tp = 2 session (first 4 s)
+             and pool (first 5 ticks) are held by the kernel near-tie rule;
+             K4 alone
+             at tp = 2 in its cache modes (K4_MODE_CASES: (d)
+             head+ring, (e) int8 and (e) x (b) spec=8 at four streams at
+             offsets 100 / 8237 / 8241 / 16000 of S = 8238; (f) chunks of
+             512 on S = 1536 bounded, its third chunk dead, and on the
+             grown ring S = 8704, bf16 and int8), bit-equal to plain,
+             timed from a CUDA graph beside its bound; the unbounded
+             tp = 2 session over the chirp in ragged pieces, sequential
+             (K4 == K5 == 52 x positions, K6 == 2 x, no K1) and
+             speculative=8 ngram (held to sequential by the margin-gap
+             rule; the single card's own pair reported beside it), the
+             plain TP session on its first 4 s (== kernels);
+             B = 4 pools of four 6 s chirps a tick apart on the single
+             card, tp = 2 (bf16 and int8 caches), dp = 2 and 2 x 2: dp ==
+             the single card's pool and 2 x 2 == tp = 2 token for token,
+             the int8 pool against the bf16 one by ROADMAP §3's rule (five
+             distinct tokens a stream or more; g per stream, on the streams
+             that agree past their first step, at least two), tp = 2
+             against the single card as it is reported; the chunked rung
+             forced on a tp = 2 B = 2
+             pool, kernels against plain over 3 ticks; a 2 x 2 pool's
+             slot checkpointed and restored on one device, run to the
+             stream's end through the kernels and the plain versions.
 13b.       on two cards or more only (alone: ``mesh_cards_main``):
              each mesh that fits with every shard on a card of its own,
              tokens == the same mesh on card 0 (dp == the single card),
-             the peak memory per card; on four cards the CLI's ``--tp 2
-             --dp 2`` exits 0.
+             the peak memory per card; the unbounded tp = 2 session and
+             (four cards) a 2 x 2 B = 4 pool over cards of their own ==
+             the same on card 0; on four cards the CLI's ``--tp 2 --dp
+             2`` exits 0.
 9. numbers — RTF, decode ms/token, the weight stream per decode step
              against its bound, passes, peak GPU memory, the sessions'
              step ms and step RTF against the step's bound, time to first
@@ -1865,7 +1903,7 @@ def make_pool(model, streams: int, **kw):
     if streams not in POOL_STREAMS:
         fail(f"a pool of {streams} streams: K2 is held at {POOL_STREAMS}")
     pool = StreamPool(model, max_streams=streams, step_positions=P_STEP, **kw)
-    if pool._fused is not None:
+    if pool._fused is not None and model.parallel is None:
         _, bc, _, n_slots, _ = pool.dec_k.shape
         POOL_GEOMETRIES.setdefault(model.decode_route, set()).add(
             (bc, n_slots, pool._dec_ring, pool._cache_chunk, pool.cache_int8,
@@ -2051,6 +2089,7 @@ def pool_run(model, dev, signals, replace=None, max_ticks=None,
     live, done = [], []      # [session, signal, samples fed]
     queue = [(0 if together else i, sig) for i, sig in enumerate(signals)]
     steps: dict = {}         # ready rows -> [pump ms]
+    first_ms = None          # the pump that ran the pool's first init
     tick = 0
 
     def attach(signal):
@@ -2077,6 +2116,9 @@ def pool_run(model, dev, signals, replace=None, max_ticks=None,
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) * 1e3
         moved = [e[0].positions_done - b for e, b in zip(live, before)]
+        if first_ms is None and any(b == 0 and e[0].positions_done
+                                    for e, b in zip(live, before)):
+            first_ms = dt
         if moved and all(m in (0, P_STEP) for m in moved) and any(moved):
             steps.setdefault(sum(m > 0 for m in moved), []).append(dt)
         for e in [e for e in live if e[2] >= len(e[1])]:
@@ -2093,18 +2135,22 @@ def pool_run(model, dev, signals, replace=None, max_ticks=None,
                  f"{ses.positions_done} positions (overrun {ses.overrun})")
         if ses.margins and not np.isfinite(ses.margins).all():
             fail("non-finite logits in a pooled session")
-    tensors = [pool.enc_k, pool.enc_v, pool.dec_k, pool.dec_v, pool.dec_ks,
-               pool.dec_vs]
+    # The fused pools' decoder caches are shard grids (one tensor each on
+    # one device).
+    tensors = [pool.enc_k, pool.enc_v] + (
+        pool._kv.tensors() if pool._kv is not None
+        else [pool.dec_k, pool.dec_v])
     if pool._init_dec_zero is not None:
         tensors += [pool._init_dec_zero.k, pool._init_dec_zero.v]
     return dict(
         tokens=[np.asarray(s.tokens) for s in done],
         margins=[np.asarray(s.margins) for s in done],
         positions=[s.positions_done for s in done], steps=steps, wall=wall,
+        first_ms=first_ms,
         launches={n: fn.launches for n, fn in counters.items()},
         spec=pool.spec_metrics(), cache_bytes=pool.cache_bytes,
         allocated=nbytes(*tensors), int8=pool.cache_int8,
-        chunk=pool._cache_chunk, slots=pool.dec_k.shape[3],
+        chunk=pool._cache_chunk, slots=tensors[2].shape[3],
         ring=pool._dec_ring, fused=pool._fused is not None,
         peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
 
@@ -2162,9 +2208,10 @@ def pool_pair(tag, model, plain, dev, card, signals, tie=MARGIN_TIE,
     if run["cache_bytes"] != run["allocated"]:
         fail(f"{tag}: the pool allocated {run['allocated']} bytes of caches, "
              f"its admission counted {run['cache_bytes']}")
-    k1n, k2n = (run["launches"][k] for k in ("decode_stack_step", "w8_matmul"))
-    if run["fused"] and k1n < 1:
-        fail(f"{tag}: a fused pool launched K1 no time")
+    fused_n = (run["launches"]["decode_stack_step"]
+               + run["launches"]["attn_half_step"])
+    if run["fused"] and fused_n < 1:
+        fail(f"{tag}: a fused pool launched K1 or K4 no time")
     distinct = len(set(np.concatenate(run["tokens"]).tolist()))
     print(f"{tag}: {len(run['tokens'])} sessions, positions "
           f"{run['positions']}, decoder cache {run['slots']} slots "
@@ -2262,19 +2309,19 @@ def pool_vs_solo(model, dev, card, noise):
     pool = make_pool(model, 4, unbounded=True, kv_dtype="model")
     ses = StreamingSession(model, pool=pool)
     logits, embeds = [], []
-    encode, run_step = streaming._encode, pool._run_step
+    encode, decode = streaming._encode, pool._decode
 
     def kept_encode(m, x, cache, rope, ring):
         audio, cache = encode(m, x, cache, rope, ring)
         embeds.append(audio[0].float().clone())
         return audio, cache
 
-    def kept_step(*a, **kw):
-        out = run_step(*a, **kw)
-        logits.append(out[3][:1].float().clone())
+    def kept_step(*a, **kw):  # (tokens, logits, k_new, v_new)
+        out = decode(*a, **kw)
+        logits.append(out[1][:1].float().clone())
         return out
 
-    streaming._encode, pool._run_step = kept_encode, kept_step
+    streaming._encode, pool._decode = kept_encode, kept_step
     try:
         for piece in pieces:
             ses.feed(piece)
@@ -2840,41 +2887,52 @@ def check_dense_linear(dev, card) -> dict:
     return out
 
 
-def int8_against_bf16(runs, card) -> dict:
+def int8_against_bf16(runs, card, tag="dense pools",
+                      held_streams=None) -> dict:
     """The int8-cache pool held against the bf16-cache pool on the dense
     tree: each stream emits at least MIN_DISTINCT distinct tokens; the
     two agree over each slot's first step (its per-op init, bf16 in
     both); up to their first parting their top-2 margins differ by some
     amount g, and they part only where the bf16 pool's margin is below
     2 g (the int8 cache moves the logits by about g; a parting at a
-    larger margin would be a fault, not a tie)."""
-    out = {"agree": [], "first": [], "gap": [], "distinct": []}
+    larger margin would be a fault, not a tie).  ``held_streams``: a
+    stream that parts at its first cache read has no agreeing decoded
+    token to measure its g on and is reported, not held; at least that
+    many streams must agree past their first step (None: every one)."""
+    out = {"agree": [], "first": [], "gap": [], "distinct": [], "held": 0}
     for a, b, ma, mb in zip(runs["int8"]["tokens"], runs["model"]["tokens"],
                             runs["int8"]["margins"], runs["model"]["margins"]):
         n = min(len(a), len(b))
         distinct = len(set(b.tolist()))
         if distinct < MIN_DISTINCT or len(set(a.tolist())) < MIN_DISTINCT:
-            fail(f"dense pools: a stream emits {distinct} distinct tokens "
+            fail(f"{tag}: a stream emits {distinct} distinct tokens "
                  f"(int8: {len(set(a.tolist()))}) < {MIN_DISTINCT}")
         differ = np.nonzero(a[:n] != b[:n])[0]
         first = int(differ[0]) if len(differ) else n
-        gap = float(np.abs(ma[:first] - mb[:first]).max()) if first else 0.0
         if first < P_STEP:
-            fail(f"dense pools: int8 and bf16 caches part at token {first}, "
+            fail(f"{tag}: int8 and bf16 caches part at token {first}, "
                  "inside the first step (no cache read there)")
-        if first < n and not float(mb[first]) < 2 * gap:
-            fail(f"dense pools: int8 and bf16 caches part at token {first} "
-                 f"at a bf16 margin {float(mb[first]):.3e} >= 2 x the "
-                 f"margin gap before it ({gap:.3e})")
+        gap = float(np.abs(ma[:first] - mb[:first]).max())
+        if first > P_STEP or held_streams is None:
+            out["held"] += 1
+            if first < n and not float(mb[first]) < 2 * gap:
+                fail(f"{tag}: int8 and bf16 caches part at token {first} "
+                     f"at a bf16 margin {float(mb[first]):.3e} >= 2 x the "
+                     f"margin gap before it ({gap:.3e})")
         out["agree"].append(round(float((a[:n] == b[:n]).mean()), 4))
         out["first"].append(first if first < n else -1)
         out["gap"].append(gap)
         out["distinct"].append(distinct)
-    print(f"dense pools, int8 vs bf16 caches (weight scale {DENSE_SCALE}): "
+    if held_streams is not None and out["held"] < held_streams:
+        fail(f"{tag}: {out['held']} streams agree past their first step, "
+             f"fewer than {held_streams} (first partings {out['first']})")
+    print(f"{tag}, int8 vs bf16 caches (weight scale {DENSE_SCALE}): "
           f"distinct tokens per stream {out['distinct']}; token agreement "
-          f"{out['agree']}, first parting {out['first']} (-1: none), each "
-          f"at a bf16 margin below twice the top-2 margin gap before it "
-          f"({[f'{g:.3e}' for g in out['gap']]}) [{card}]", flush=True)
+          f"{out['agree']}, first parting {out['first']} (-1: none); "
+          f"{out['held']} streams agree past their first step, each "
+          f"parting at a bf16 margin below twice the top-2 margin gap "
+          f"before it ({[f'{g:.3e}' for g in out['gap']]}) [{card}]",
+          flush=True)
     return out
 
 
@@ -3324,11 +3382,14 @@ def mesh_runs(tag, model, mel2, dev, card, spec_tie_margins=None):
                 passes=passes, ms_pos=ms_pos, steps=rec["steps"])
 
 
-def tp_against_single(tokens, margins, ref, ref_margins):
+def tp_against_single(tokens, margins, ref, ref_margins,
+                      what="tp=2 parts from the single card"):
     """The TP tokens against the single-card w8 tokens (ROADMAP §3): up to
     their first parting the two runs' top-2 margins differ by some g (the
     shards' local quantization); they may part only where the single
-    card's margin is below 2 g.  -> (agreeing positions, g, margin)."""
+    card's margin is below 2 g.  -> (agreeing positions, g, margin).
+    The same rule holds a speculative run to the sequential one on a
+    tree whose streams emit many tokens (``what`` names the pair)."""
     n = min(len(tokens), len(ref))
     same = np.asarray(tokens[:n]) == np.asarray(ref[:n])
     if same.all():
@@ -3338,9 +3399,9 @@ def tp_against_single(tokens, margins, ref, ref_margins):
     gap = float(np.abs(margins[:i] - ref_margins[:i]).max()) if i else 0.0
     margin = float(ref_margins[i])
     if not margin < 2 * gap:
-        fail(f"tp=2 parts from the single card at position {i} where the "
-             f"single card's top-2 margin {margin:.4e} is not below twice "
-             f"the margin gap {gap:.4e} before it")
+        fail(f"{what} at position {i} where the reference's top-2 margin "
+             f"{margin:.4e} is not below twice the margin gap {gap:.4e} "
+             "before it")
     return i, gap, margin
 
 
@@ -3556,6 +3617,33 @@ def run_mesh_cards(params, cfg, dev, card, tok, sig):
               "the mesh on card 0, sequential and speculative"
               + (", == the single card's batch" if nm == 1 else ""),
               flush=True)
+    # Live streams over cards of their own against card 0.
+    pieces = ragged_pieces(sig)
+    signals = [pool_signal(POOL_SHORT_SECS, i) for i in range(4)]
+    for nd, nm in ((1, 2), (2, 2)):
+        if nd * nm > len(cards):
+            continue
+        got = {}
+        for where, devices in (("own cards", None), ("card 0",
+                                                     [dev] * nd * nm)):
+            model = VoxtralModel(params, cfg, dev,
+                                 mesh=make_mesh(nd, nm, devices))
+            if nd == 1:
+                run = stream_run(model, pieces, dev, unbounded=True)
+                got[where] = run["tokens"].tolist()
+            else:
+                run = pool_run(model, dev, signals, unbounded=True,
+                               kv_dtype="int8")
+                got[where] = [t.tolist() for t in run["tokens"]]
+            sync_all()
+            del model, run
+            release()
+        what = ("the unbounded tp=2 session" if nd == 1
+                else "the 2 x 2 B=4 int8 pool")
+        if got["own cards"] != got["card 0"]:
+            fail(f"{what} over cards of their own != on card 0")
+        print(f"{what} over cards of their own == on card 0 [{card}]",
+              flush=True)
     if len(cards) < 4:
         return
     with tempfile.TemporaryDirectory() as tmp:
@@ -3608,6 +3696,471 @@ def mesh_cards_main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+# ---------------------------------------------------------------------------
+# Phase 13c: live streaming on a mesh (tp = 2, dp = 2, 2 x 2 on one card)
+# ---------------------------------------------------------------------------
+
+MESH_STREAM_PLAIN_SECS = 4.0  # the plain TP session, held as a prefix
+MESH_CHUNK_PLAIN_TICKS = 3    # the plain chunked TP pool, of its 7
+MESH_CKPT_TICKS = 4           # a pooled stream's ticks before its snapshot
+MESH_POOL_SECS = 6.0          # each stream of the meshed B = 4 pools
+MESH_GROUPED_TICKS = 5        # the plain grouped single-card pool, of 8
+# Streams of four whose int8 and bf16 pools must agree past the first
+# step (their own margin gap then holds the parting).
+MESH_INT8_HELD = 2
+# K4 alone at tp = 2 in its cache modes: (tag, S, offsets, spec,
+# ring, int8, chunk, dead slots).  The session's ring is (38, 8200); the
+# chunked pools grow it to 17 chunks of 512; a bounded chunked cache of
+# 1536 slots has its third chunk dead (NaN, never read).
+K4_MODE_CASES = {
+    "d": ("(d) head+ring", 8238, POOL_OFFS, 1, (38, 8200), False, None,
+          None),
+    "e": ("(e) int8", 8238, POOL_OFFS, 1, (38, 8200), True, None, None),
+    "e_spec": ("(e) x (b) int8", 8238, [100, 8234, 8241, 16000], SPEC_K,
+               (38, 8200), True, None, None),
+    "f_bounded": ("(f) chunked", 1536, [7, 700], 1, None, False, 512,
+                  slice(1024, 1536)),
+    "f_ring": ("(f) chunked", 8704, [100, 16000], 1, (38, 8666), False, 512,
+               None),
+    "f_ring_int8": ("(f) x (e)", 8704, [100, 16000], 1, (38, 8666), True,
+                    512, None),
+}
+
+
+def check_k4_modes(tp, dev, card):
+    """K4 alone in its cache modes (K4_MODE_CASES) at tp = 2 local
+    shapes (shard 0, layer MESH_LAYER): bit for bit with its plain
+    version, timed from a CUDA graph and from the host, beside its
+    bound: the layer's local weights once and, of the local cache, the
+    slots some row sees (int8: codes and scales) -> (err, {name: times})."""
+    import torch
+
+    from voxtral_tpu_torch.models.layers import ring_k_positions
+    from voxtral_tpu_torch.ops import decode_step as k1
+    from voxtral_tpu_torch.ops import decode_tp as ktp
+
+    cfg = tp.config.language_model
+    w = {k: v[0][0] for k, v in tp.fused_tp.items()}
+    nh, nkv = cfg.n_heads // 2, cfg.n_kv_heads // 2
+    D, hd, layer, win = cfg.dim, cfg.head_dim, MESH_LAYER, cfg.sliding_window
+    vecs = (tp._tp_norms[0][layer], w["sqkv"][layer], w["so"][layer])
+    wl = (w["wqkv"][layer], w["wo"][layer])
+    worst, times = 0.0, {}
+    for name, (tag, S, offs, spec, ring, int8, chunk, dead) in \
+            K4_MODE_CASES.items():
+        bc = len(offs)
+        gen = torch.Generator(device=dev).manual_seed(71 + bc * spec + S)
+        kc = (torch.randn((bc, nkv, S, hd), device=dev, generator=gen)
+              * 0.5).bfloat16()
+        vc = (torch.randn((bc, nkv, S, hd), device=dev, generator=gen)
+              * 0.5).bfloat16()
+        scales = (None, None)
+        if int8:
+            (kc, ks), (vc, vs) = k1.quantize_kv(kc), k1.quantize_kv(vc)
+            scales = (ks, vs)
+        for t in (scales if int8 else (kc, vc)):
+            if dead is not None:
+                t[:, :, dead] = float("nan")
+        x = torch.randn((bc * spec, D), device=dev, generator=gen)
+        off = torch.tensor(offs, dtype=torch.int32, device=dev)
+        c, s = k1.rope_pair_vectors(
+            (off[:, None] + torch.arange(spec, device=dev)).reshape(-1), hd,
+            cfg.rope_theta)
+        args = (x, layer, off, vecs[0], vecs[1], vecs[2], c, s, kc, vc,
+                w["wqkv"], w["wo"], *scales)
+        kw = dict(n_heads_l=nh, n_kv_l=nkv, head_dim=hd, eps=cfg.norm_eps,
+                  window=win, spec=spec, ring=ring, cache_chunk=chunk)
+        if not all(torch.isfinite(r.float()).all()
+                   for r in ktp.attn_half_step_plain(*args, **kw)):
+            fail(f"K4 {tag}: the plain version read a dead slot")
+        seen = 0  # slots the first row of each stream sees
+        for o in offs:
+            if ring is None:
+                seen += min(o, S) - max(0, o - win)
+            else:
+                p_abs, written = ring_k_positions(*ring, o, device=dev,
+                                                  slots=S)
+                seen += int((written & (o - p_abs <= win)).sum())
+        per_slot = hd * (1 if int8 else 2) + (4 if int8 else 0)
+        kv_read = 2 * nkv * seen * per_slot
+        moved = (nbytes(*wl, *vecs, c, s) + 2 * nbytes(x) + kv_read
+                 + 2 * bc * spec * nkv * hd * 2)
+        err, t = timed_kernel(
+            f"K4 attn_half_step {tag} tp=2 S={S} ring={ring} offsets={offs} "
+            f"spec={spec} cache_chunk={chunk} ({seen} cache slots read, "
+            f"{kv_read / 1e6:.2f} MB)",
+            lambda: ktp.attn_half_step(*args, **kw),
+            lambda: ktp.attn_half_step_plain(*args, **kw), moved,
+            2 * bc * spec * sum(t.numel() for t in wl), card)
+        worst, times[name] = max(worst, err), t
+        del kc, vc, scales, args
+        torch.cuda.empty_cache()
+    return worst, times
+
+
+def tp_quant_groups(model, tp: int):
+    """Give the single card's plain K1 step TP's quantization groups: the
+    WO input (the attention output, n_heads x head_dim) and the W2 input
+    (the SwiGLU row, hidden) quantized per model shard with that shard's
+    own absmax, the shards' partial products summed in shard order as
+    ``collectives.psum`` sums them; every other linear as it was.  A tp
+    run and the single card's differ in those groups and nothing else,
+    so the plain TP step and the grouped single card agree bit for bit:
+    the second witness that a tp = 2 stream parts from the single card
+    through the local absmax alone.  -> the function that restores
+    ``ops.decode_step._linear_plain``."""
+    from voxtral_tpu_torch.ops import decode_step as k1
+
+    dim = model.config.language_model.dim
+    orig = k1._linear_plain
+
+    def grouped(h, w, scales, fmt):
+        # WO and W2 are the step's only linears onto the residual width.
+        if fmt != "w8" or w.shape[0] != dim:
+            return orig(h, w, scales, fmt)
+        n = h.shape[-1] // tp
+        parts = [orig(h[:, i * n:(i + 1) * n], w[:, i * n:(i + 1) * n],
+                      scales, fmt) for i in range(tp)]
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        return total
+
+    k1._linear_plain = grouped
+
+    def restore():
+        k1._linear_plain = orig
+
+    return restore
+
+
+def tp_launches_ok(tag, launches, steps, n_layers):
+    """A tp = 2 path's launches: K4 and K5 once per layer and shard per
+    step, K6 once per shard, no K1."""
+    want = {"attn_half_step": 2 * n_layers * steps,
+            "ffn_half_step": 2 * n_layers * steps,
+            "lm_half_argmax": 2 * steps, "decode_stack_step": 0}
+    if any(launches[k] != n for k, n in want.items()):
+        fail(f"{tag}: launches {launches}, want {want}")
+
+
+def apart(tokens, ref) -> tuple:
+    """(share of equal tokens, first differing index or -1) of two runs
+    over the shorter."""
+    n = min(len(tokens), len(ref))
+    differ = np.nonzero(np.asarray(tokens[:n]) != np.asarray(ref[:n]))[0]
+    return (round(float((np.asarray(tokens[:n]) == np.asarray(ref[:n]))
+                        .mean()), 4), int(differ[0]) if len(differ) else -1)
+
+
+def tp_rule_runs(single, tp, dev, card, sig):
+    """ROADMAP §3's TP rule for live streams, on the random w8 tree of
+    phase 13: the unbounded tp = 2 session on the 16 s chirp and a B = 4
+    tp = 2 pool against the single card's, stream by stream; the
+    speculative tp = 2 session against the sequential one by the spec
+    near-tie rule.  (On the dense-derived tree a tp = 2 stream parts
+    from the single card at its first steady token already, with no
+    agreeing decoded token to measure g on: there it is held to the
+    single card with TP's quantization groups, ``tp_quant_groups``.)"""
+    pieces = ragged_pieces(sig)
+    signals = [pool_signal(MESH_POOL_SECS, i) for i in range(4)]
+    single.record_margins = tp.record_margins = True
+    try:
+        ses = {n: stream_run(m, pieces, dev, unbounded=True)
+               for n, m in (("single", single), ("tp", tp))}
+        spec = stream_run(tp, pieces, dev, unbounded=True,
+                          speculative=SPEC_K, draft="ngram")
+        pools = {n: pool_run(m, dev, signals, unbounded=True,
+                             kv_dtype="model")
+                 for n, m in (("single", single), ("tp", tp))}
+    finally:
+        single.record_margins = tp.record_margins = False
+    # Speculative against sequential on this tree: the spec near-tie
+    # rule (ROADMAP §3).
+    same_spec = first_divergence(
+        "w8 tp=2 unbounded session speculative vs sequential (random tree)",
+        spec["tokens"], ses["tp"]["tokens"], ses["tp"]["margins"],
+        SPEC_MARGIN_TIE)
+    tp_launches_ok("w8 tp=2 session speculative (random tree)",
+                   spec["launches"], spec["spec"]["passes"],
+                   tp.config.language_model.n_layers)
+    held = [tp_against_single(ses["tp"]["tokens"], ses["tp"]["margins"],
+                              ses["single"]["tokens"],
+                              ses["single"]["margins"])]
+    held += [tp_against_single(t, m, r, rm) for t, m, r, rm in zip(
+        pools["tp"]["tokens"], pools["tp"]["margins"],
+        pools["single"]["tokens"], pools["single"]["margins"])]
+    print(f"TP rule on the random w8 tree: the unbounded tp=2 session and "
+          f"the four streams of a B=4 tp=2 pool against the single card "
+          f"(agreeing tokens, margin gap, single-card margin at a parting): "
+          f"{[(a, round(g, 4), p) for a, g, p in held]}; the speculative="
+          f"{SPEC_K} ngram tp=2 session == sequential: {same_spec} "
+          f"({spec['spec']}) [{card}]", flush=True)
+    return {"w8_mesh_stream_tp2_random_tree": ses["tp"]["launches"],
+            "w8_mesh_stream_tp2_speculative_random_tree": spec["launches"],
+            "w8_mesh_pool_tp2_random_tree": pools["tp"]["launches"]}
+
+
+def mesh_session(single, single_plain, tp, plain, dev, card, sig):
+    """The 16 s chirp in ragged pieces through an unbounded session on
+    the tp = 2 mesh, sequential and speculative=SPEC_K ngram, beside the
+    plain TP session's first MESH_STREAM_PLAIN_SECS; the single card's
+    sessions (sequential and speculative) and, over the same first
+    seconds, the plain single card with TP's quantization groups
+    (``tp_quant_groups``), to which the kernel and plain TP sessions are
+    held -> {name: run} (``single``: also the step's bound)."""
+    pieces = ragged_pieces(sig)
+    tp.record_margins = single.record_margins = True
+    try:
+        run = stream_run(tp, pieces, dev, unbounded=True)
+        spec = stream_run(tp, pieces, dev, unbounded=True,
+                          speculative=SPEC_K, draft="ngram")
+        one = stream_run(single, pieces, dev, unbounded=True)
+        one_spec = stream_run(single, pieces, dev, unbounded=True,
+                              speculative=SPEC_K, draft="ngram")
+    finally:
+        tp.record_margins = single.record_margins = False
+    pl = plain_stream(plain, pieces, dev, secs=MESH_STREAM_PLAIN_SECS,
+                      unbounded=True)
+    restore = tp_quant_groups(single_plain, 2)
+    try:
+        grouped = plain_stream(single_plain, pieces, dev,
+                               secs=MESH_STREAM_PLAIN_SECS, unbounded=True)
+    finally:
+        restore()
+    tag = "w8 tp=2 unbounded session (one card)"
+    n_layers = tp.config.language_model.n_layers
+    tp_launches_ok(tag, run["launches"], run["positions"] - 38 - P_STEP,
+                   n_layers)
+    tp_launches_ok(f"{tag} speculative", spec["launches"],
+                   spec["spec"]["passes"], n_layers)
+    n = len(pl["tokens"])
+    if len(grouped["tokens"]) != n:
+        fail(f"{tag}: the plain TP session took {n} tokens, the grouped "
+             f"single card {len(grouped['tokens'])}")
+    same_plain = first_divergence(f"{tag} kernel vs plain",
+                                  run["tokens"][:n], pl["tokens"],
+                                  pl["margins"], MARGIN_TIE)
+    # TP against the single card: the second witness.  With TP's
+    # quantization groups the single card's plain step is the plain TP
+    # step's arithmetic, so both TP sessions are held to it by the kernel
+    # near-tie rule; the single card as it is parts from them.
+    same_grouped = [first_divergence(f"{tag} {name} vs the single card "
+                                     "with TP's quantization groups",
+                                     toks[:n], grouped["tokens"],
+                                     grouped["margins"], MARGIN_TIE)
+                    for name, toks in (("kernel", run["tokens"]),
+                                       ("plain", pl["tokens"]))]
+    grouped_gap = float(np.abs(pl["margins"] - grouped["margins"]).max())
+    agree, part = apart(run["tokens"], one["tokens"])
+    part_margin = float(one["margins"][part]) if part >= 0 else None
+    # Speculative against sequential: the fresh rows' f32 (against the
+    # cache's bf16) flips int8 activation codes, which 26 layers amplify
+    # beyond SPEC_MARGIN_TIE on this tree, on the single card as on the
+    # mesh (the single card's pair below); the pair is held by the
+    # margin-gap rule here and by the spec near-tie rule on the random
+    # tree (``tp_rule_runs``).
+    spec_agree, spec_gap, spec_part = tp_against_single(
+        spec["tokens"], spec["margins"], run["tokens"], run["margins"],
+        f"{tag} speculative parts from sequential")
+    one_agree, one_part = apart(one_spec["tokens"], one["tokens"])
+    print(f"{tag}: {len(run['tokens'])} tokens "
+          f"({len(set(run['tokens'].tolist()))} distinct); kernel == plain "
+          f"over {n}: {same_plain}; kernel, plain == the single card with "
+          f"TP's quantization groups over {n}: {same_grouped} (plain "
+          f"margins differ by at most {grouped_gap:.3e}); against the "
+          f"single card as it is: agreement {agree}, first parting {part} "
+          f"(single-card margin there {part_margin}); speculative == "
+          f"sequential: {spec_part is None} (the first {spec_agree} agree, "
+          f"margin gap {spec_gap:.4e}; {spec['spec']}); the single card's "
+          f"speculative against its sequential: agreement {one_agree}, "
+          f"first parting {one_part} (margin there "
+          f"{float(one['margins'][one_part]) if one_part >= 0 else None}) "
+          f"[{card}]", flush=True)
+    report_stream(tag, run, card, single)
+    report_stream(f"{tag} speculative", spec, card, single)
+    return dict(tp=run, spec=spec, plain=pl, grouped=grouped)
+
+
+def mesh_pools(single, single_plain, tp, plain, dp, dptp, dev, card):
+    """B = 4 pools of four MESH_POOL_SECS chirps started a tick apart:
+    the single card's, tp = 2 with bf16 and int8 caches, dp = 2, 2 x 2,
+    and over MESH_GROUPED_TICKS the plain single card's with TP's
+    quantization groups, to which the tp = 2 pool is held; the chunked
+    rung forced on a tp = 2 B = 2 pool, through the kernels and the plain
+    versions -> ({name: run}, the int8 check)."""
+    signals = [pool_signal(MESH_POOL_SECS, i) for i in range(4)]
+    runs = {}
+    for name, m, kv in (("single", single, "model"), ("tp2", tp, "model"),
+                        ("tp2_int8", tp, "int8"), ("dp2", dp, "model"),
+                        ("dp2tp2", dptp, "model")):
+        m.record_margins = True
+        try:
+            runs[name] = pool_run(m, dev, signals, unbounded=True,
+                                  kv_dtype=kv)
+        finally:
+            m.record_margins = False
+        tag = f"w8 pool B=4 {name} kv_dtype={kv} (one card)"
+        report_pool(tag, runs[name], card, single)
+        print(f"{tag}: time to first text {runs[name]['first_ms']:.1f} ms "
+              f"(the pump that ran the first slot's init), caches "
+              f"{runs[name]['cache_bytes'] / 1e9:.4f} GB, peak GPU memory "
+              f"{runs[name]['peak_gb']:.3f} GB, {runs[name]['wall']:.1f} s "
+              f"[{card}]", flush=True)
+    steps = sum(len(v) for v in runs["tp2"]["steps"].values())
+    for name in ("tp2", "tp2_int8", "dp2tp2"):
+        if runs[name]["launches"]["attn_half_step"] < 1 or \
+                runs[name]["launches"]["decode_stack_step"]:
+            fail(f"pool {name}: launches {runs[name]['launches']}")
+    if runs["dp2"]["launches"]["decode_stack_step"] < 1 or \
+            runs["dp2"]["launches"]["attn_half_step"]:
+        fail(f"pool dp2: launches {runs['dp2']['launches']}")
+    if any(a.tolist() != b.tolist() for a, b in zip(
+            runs["dp2"]["tokens"], runs["single"]["tokens"])):
+        fail("dp=2 pool tokens != the single card's pool")
+    if any(a.tolist() != b.tolist() for a, b in zip(
+            runs["dp2tp2"]["tokens"], runs["tp2"]["tokens"])):
+        fail("2 x 2 pool tokens != the tp=2 pool")
+    restore = tp_quant_groups(single_plain, 2)
+    single_plain.record_margins = True
+    try:
+        grouped = pool_run(single_plain, dev, signals,
+                           max_ticks=MESH_GROUPED_TICKS, unbounded=True,
+                           kv_dtype="model")
+    finally:
+        single_plain.record_margins = False
+        restore()
+    same_grouped = held_to("w8 pool B=4 tp=2 vs the single card with TP's "
+                           "quantization groups", runs["tp2"], grouped,
+                           grouped["margins"], MARGIN_TIE)
+    parts = [apart(t, r) for t, r in zip(runs["tp2"]["tokens"],
+                                         runs["single"]["tokens"])]
+    int8 = int8_against_bf16({"int8": runs["tp2_int8"],
+                              "model": runs["tp2"]}, card,
+                             "w8 tp=2 pools (dense-derived tree)",
+                             held_streams=MESH_INT8_HELD)
+    print(f"w8 pools on one card: dp=2 == the single card's, 2 x 2 == "
+          f"tp=2, token for token; tp=2 == the plain single card with "
+          f"TP's quantization groups over its first {MESH_GROUPED_TICKS} "
+          f"ticks (kernel near-tie rule): {same_grouped}; tp=2 against "
+          f"the single card as it is, per stream (token agreement, first "
+          f"parting): {parts}; {steps} tp=2 pool steps [{card}]",
+          flush=True)
+    restore = force_chunked()
+    try:
+        short = [pool_signal(POOL_SHORT_SECS, i) for i in (5, 6)]
+        pair = pool_pair("w8 tp=2 pool B=2 chunked", tp, plain, dev, card,
+                         short, plain_ticks=MESH_CHUNK_PLAIN_TICKS,
+                         unbounded=True)
+    finally:
+        restore()
+    run = pair["run"]
+    if run["chunk"] != 512 or not run["int8"]:
+        fail(f"tp=2 chunked pool: chunk {run['chunk']}, int8 {run['int8']}")
+    report_pool("w8 tp=2 pool B=2 chunked", run, card, single)
+    runs["tp2_chunked"] = run
+    return runs, int8
+
+
+def mesh_checkpoint(single, single_plain, dptp, dev, card):
+    """A slot of a 2 x 2 pool snapshotted after MESH_CKPT_TICKS ticks
+    (its caches gathered from four shards) and restored as a solo
+    session on one device, through the kernels and through the plain
+    versions, each run to the stream's end: the tokens equal (the
+    kernel near-tie rule on the plain margins) -> launches."""
+    import torch
+
+    from voxtral_tpu_torch.streaming import StreamingSession
+
+    sig = pool_signal(POOL_SHORT_SECS, 1)
+    cut = MESH_CKPT_TICKS * TICK
+    counters = pool_counters_reset(dev)
+    pool = make_pool(dptp, 2, unbounded=True, kv_dtype="model")
+    a = StreamingSession(dptp, pool=pool)
+    StreamingSession(dptp, pool=pool).feed(
+        pool_signal(POOL_SHORT_SECS, 2)[:cut])
+    a.feed(sig[:cut])
+    state = a.state_dict()
+    if state["dec_k"].shape[3] != dptp.config.language_model.n_kv_heads:
+        fail(f"meshed checkpoint: decoder cache {state['dec_k'].shape}")
+    out = {}
+    for name, m in (("kernel", single), ("plain", single_plain)):
+        m.record_margins = True
+        try:
+            solo = StreamingSession.restore(m, state)
+            solo.feed(sig[cut:])
+            solo.finish()
+            torch.cuda.synchronize()
+        finally:
+            m.record_margins = False
+        out[name] = (np.asarray(solo.tokens), np.asarray(solo.margins))
+    launches = {n: fn.launches for n, fn in counters.items()}
+    (tok, _), (ptok, pmarg) = out["kernel"], out["plain"]
+    p0 = len(state["tokens"])
+    same = first_divergence("meshed checkpoint restored, kernel vs plain",
+                            tok[p0:], ptok[p0:], pmarg, MARGIN_TIE)
+    print(f"2 x 2 pool slot -> state_dict at position {a.positions_done} "
+          f"(caches gathered from its four shards) -> solo session on one "
+          f"device, to the stream's end ({len(tok)} tokens): kernel == "
+          f"plain: {same}; launches {launches} [{card}]", flush=True)
+    del pool, a
+    return launches
+
+
+def run_mesh_streams(w8_model, dev, card, sig):
+    """Phase 13c: K4 in its cache modes alone, then live streaming on
+    tp = 2, dp = 2 and 2 x 2 meshes whose shards share the card, on a w8
+    tree quantized from the dense DENSE_SCALE tree; the TP rule on the
+    random w8 tree (``w8_model``'s)."""
+    import torch
+
+    from voxtral_tpu_torch.models.voxtral import VoxtralModel
+    from voxtral_tpu_torch.utils.quantize import (
+        quantize_params_w8,
+        random_dense_params,
+    )
+
+    cfg = w8_model.config
+    rnd_tp = mesh_model(w8_model.params, cfg, dev, 1, 2)
+    rule = tp_rule_runs(w8_model, rnd_tp, dev, card, sig)
+    del rnd_tp
+    release()
+    t0 = time.perf_counter()
+    # A random w8 tree emits one distinct token per pooled stream; one
+    # quantized (on the card) from the dense DENSE_SCALE tree emits many,
+    # which the TP and int8 rules below need.
+    tree = quantize_params_w8(random_dense_params(
+        cfg, 0, torch.bfloat16, dev, scale=DENSE_SCALE))
+    release()
+    single = VoxtralModel(tree, cfg, dev)
+    tp = mesh_model(tree, cfg, dev, 1, 2)
+    plain = mesh_model(tree, cfg, dev, 1, 2, kernels=False)
+    plain.fused_tp = tp.fused_tp
+    release()
+    print(f"w8 tree quantized on the card from the dense tree (scale "
+          f"{DENSE_SCALE}), single-card and tp=2 models: "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    k4_err, k4_times = check_k4_modes(tp, dev, card)
+    single_plain = VoxtralModel(tree, cfg, dev, kernels=False)
+    single_plain.fused_decode = single.fused_decode
+    sessions = mesh_session(single, single_plain, tp, plain, dev, card, sig)
+    dp = mesh_model(tree, cfg, dev, 2, 1)
+    dptp = mesh_model(tree, cfg, dev, 2, 2)
+    pools, int8 = mesh_pools(single, single_plain, tp, plain, dp, dptp,
+                             dev, card)
+    ckpt = mesh_checkpoint(single, single_plain, dptp, dev, card)
+    launches = {"w8_mesh_stream_tp2": sessions["tp"]["launches"],
+                "w8_mesh_stream_tp2_speculative_ngram":
+                    sessions["spec"]["launches"],
+                **{f"w8_mesh_pool_{k}": r["launches"]
+                   for k, r in pools.items() if k != "single"},
+                "w8_mesh_checkpoint": ckpt, **rule}
+    del single, single_plain, tp, plain, dp, dptp, tree
+    release()
+    return dict(k4_err=k4_err, k4_times=k4_times, sessions=sessions,
+                pools=pools, int8=int8, launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -4038,6 +4591,10 @@ def main() -> int:
                        {"tokens": w8["tokens"], "margins": w8["margins"]})
     release()
     phase_done("mesh (w8: tp=2, dp=2, 2 x 2 on one card)")
+    mstream = run_mesh_streams(w8_model, dev, card, sig)
+    release()
+    phase_done("mesh streams (K4 cache modes, sessions and pools on "
+               "tp=2, dp=2, 2 x 2)")
     if torch.cuda.device_count() >= 2:
         run_mesh_cards(w8_model.params, cfg, dev, card, tok, sig)
         phase_done("mesh over cards of their own")
@@ -4112,7 +4669,7 @@ def main() -> int:
             "q4_pool_generic": pl_q4["launches"], **dense["runs"],
             "w8_batched": batched["launches"],
             "w8_batched_layer_route": batched["layer_launches"],
-            **mesh["launches"]}
+            **mesh["launches"], **mstream["launches"]}
     for path in ("w8_pool_unbounded_int8", "w8_pool_chunked_bounded",
                  "w8_pool_chunked_unbounded", "w8_pool_speculative_ngram_int8",
                  "q4g_pool_unbounded_int8", "bf16_sequential",
@@ -4129,7 +4686,17 @@ def main() -> int:
                        ("w8_dp2tp2_speculative_ngram", "attn_half_step"),
                        ("w8_dp2_sequential", "decode_stack_step_lm_argmax"),
                        ("w8_dp2_speculative_ngram",
-                        "decode_stack_step_lm_argmax")):
+                        "decode_stack_step_lm_argmax"),
+                       ("w8_mesh_stream_tp2", "attn_half_step"),
+                       ("w8_mesh_stream_tp2", "lm_half_argmax"),
+                       ("w8_mesh_stream_tp2_speculative_ngram",
+                        "attn_half_step"),
+                       ("w8_mesh_stream_tp2_speculative_random_tree",
+                        "attn_half_step"),
+                       ("w8_mesh_pool_tp2_int8", "attn_half_step"),
+                       ("w8_mesh_pool_tp2_chunked", "attn_half_step"),
+                       ("w8_mesh_pool_dp2", "decode_stack_step"),
+                       ("w8_mesh_pool_dp2tp2", "ffn_half_step")):
         if runs[path].get(name, 0) < 1:
             fail(f"{path}: {name} was launched no time")
 
@@ -4152,6 +4719,7 @@ def main() -> int:
     k4s = mesh["k45_times"][("K4", SPEC_K, 158)]
     k4l = mesh["k45_times"][("K4", 1, 194)]
     k5, k5s = mesh["k45_times"][("K5", 1)], mesh["k45_times"][("K5", SPEC_K)]
+    k4m = mstream["k4_times"]
     k6, k6s = mesh["k6_times"][1], mesh["k6_times"][SPEC_K]
     record = {"kernels": [
         {"name": "w8_matmul", "route": "cuda",
@@ -4249,11 +4817,17 @@ def main() -> int:
          "replaces": "voxtral_tpu/ops/decode_tp_pallas.py:741",
          "launches": launches("attn_half_step")[0],
          "launches_by_path": launches("attn_half_step")[1],
-         "max_abs_err": mesh["k45_err"], "ms": k4[0], "plain_ms": k4[1],
+         "modes": ["bounded", "b", "d", "e", "e x b", "f", "f x e"],
+         "max_abs_err": max(mesh["k45_err"], mstream["k4_err"]),
+         "ms": k4[0], "plain_ms": k4[1],
          "bound_ms": k4[2], "bound_by": k4[3], "library_ms": None,
          "host_called_ms": k4[4], "spec_ms": k4s[0],
          "spec_plain_ms": k4s[1], "spec_bound_ms": k4s[2],
-         "largest_cache_ms": k4l[0], "largest_cache_bound_ms": k4l[2]},
+         "largest_cache_ms": k4l[0], "largest_cache_bound_ms": k4l[2],
+         # K4's cache modes at tp = 2 (K4_MODE_CASES): device ms
+         # (CUDA graph), plain ms, bound ms.
+         **{f"{name}_{key}": k4m[name][i] for name in K4_MODE_CASES
+            for i, key in ((0, "ms"), (1, "plain_ms"), (2, "bound_ms"))}},
         {"name": "ffn_half_step", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/decode_tp.cu",
          "replaces": "voxtral_tpu/ops/decode_tp_pallas.py:818",

@@ -131,7 +131,7 @@ def test_dp_pads_rows_as_jax(setup, jax_tokens):
 
 
 def test_meshed_model_layout_and_refusals(setup, monkeypatch):
-    from voxtral_tpu_torch import StreamingSession
+    from voxtral_tpu_torch import StreamingSession, StreamPool
     from voxtral_tpu_torch.models import voxtral as tvx
     from voxtral_tpu_torch.utils.hbm import HBMBudgetError
     from voxtral_tpu_torch.utils.quantize import random_dense_params
@@ -144,8 +144,10 @@ def test_meshed_model_layout_and_refusals(setup, monkeypatch):
     assert tp.fused_tp["lm_codes"][0][1].shape == (640, 64)
     dp = _model(setup, 2, 1)
     assert dp.fused_decode is not None and dp.fused_tp is None
-    with pytest.raises(NotImplementedError, match="item 12"):
-        StreamingSession(tp)
+    # Sessions and pools take the meshed routes: the TP halves on a tp
+    # mesh, K1 per data group on a dp one (tests/test_torch_mesh_stream.py).
+    assert StreamingSession(tp)._tp_mesh is not None
+    assert StreamPool(dp, max_streams=2)._dp_mesh is not None
     with pytest.raises(ValueError, match="needs w8 weights"):
         tvx.VoxtralModel(random_dense_params(cfg, 0, torch.bfloat16, "cpu"),
                          cfg, mesh=make_mesh(1, 2, ["cpu"] * 2))
@@ -159,6 +161,31 @@ def test_meshed_model_layout_and_refusals(setup, monkeypatch):
     with pytest.raises(HBMBudgetError, match="no decode route takes .* "
                        "2 mesh -- tp"):
         tvx.oneshot_plan(tp, 2, 400)
+
+
+@pytest.mark.parametrize("nd,nm", [(1, 2), (2, 2)])
+def test_meshed_oneshot_admission_counts_the_first_device_whole(
+        setup, monkeypatch, nd, nm):
+    """``oneshot_plan``'s mesh rung holds the mesh's first device to its
+    whole load: its weights, its shard's head-major copy of its data
+    group's rows, and the full prefill cache, which no shard divides.
+    At one byte less the batch is refused with ``HBMBudgetError`` (a
+    count that divided the prefill cache over the shards would admit it
+    and fail out of memory in the decode)."""
+    from voxtral_tpu_torch.models import voxtral as tvx
+    from voxtral_tpu_torch.utils import hbm
+
+    model = _model(setup, nd, nm)
+    batch, seq_len = 4, 400
+    copy = tvx.oneshot_cache_bytes(model, batch // nd, seq_len) // nm
+    need = (hbm.shard_weight_bytes(model, 0, 0) + copy + hbm.WORKSPACE_BYTES
+            + tvx.oneshot_cache_bytes(model, batch, seq_len))
+    monkeypatch.setenv("VOXTRAL_HBM_BYTES", str(need))
+    assert tvx.oneshot_plan(model, batch, seq_len)[0] == "tp"
+    monkeypatch.setenv("VOXTRAL_HBM_BYTES", str(need - 1))
+    with pytest.raises(hbm.HBMBudgetError,
+                       match=r"mesh shard \(0, 0\)"):
+        tvx.oneshot_plan(model, batch, seq_len)
 
 
 def test_place_shards_views_on_a_shared_device_copies_across():

@@ -50,12 +50,29 @@ def test_quantize_w8_rowwise_matches_jax():
     _assert_trees_equal(tw8.quantize_w8_rowwise(w), jax_quantize_w8(w))
 
 
-def test_quantize_params_w8_matches_jax():
+@pytest.mark.parametrize("tensors", [False, True], ids=["numpy", "tensors"])
+def test_quantize_params_w8_matches_jax(tensors):
+    """The numpy tree, and the same tree as tensors (quantized on their
+    device, as ``chip_smoke.py`` builds its dense-derived w8 tree on the
+    card): the codes and scales of JAX's numpy pass, exactly."""
     from tests.test_torch_model import dense_params, tiny_config
 
     dense = dense_params(tiny_config(), seed=1, scale=0.1)
-    _assert_trees_equal(quantize_params_w8(dense),
+    got = quantize_params_w8(_tensor_tree(dense) if tensors else dense)
+    _assert_trees_equal(_numpy_tree(got),
                         jax_quantize_params(dense, to_device=False))
+
+
+def _tensor_tree(node):
+    if isinstance(node, dict):
+        return {k: _tensor_tree(v) for k, v in node.items()}
+    return torch.from_numpy(np.asarray(node, np.float32))
+
+
+def _numpy_tree(node):
+    if isinstance(node, dict):
+        return {k: _numpy_tree(v) for k, v in node.items()}
+    return node.numpy() if isinstance(node, torch.Tensor) else node
 
 
 def test_random_w8_params_matches_jax():

@@ -12,8 +12,12 @@
 //        row_quant(norm)    rmsnorm x attn_norm, per-row int8 quant
 //        gemv qkv_l         the shard's q / k / v rows of layer ``layer``
 //        attn_step          pair RoPE, GQA attention over the shard's
-//                           local cache [Bc, n_kv_l, S, hd] (K1's block,
-//                           attn_step.cuh: offsets, window, spec rows)
+//                           local cache [Bc, n_kv_l, S, hd] (K1's blocks,
+//                           attn_step.cuh: offsets, window, spec rows;
+//                           the head+ring mask, ring=; int8 codes with
+//                           f32 scales [Bc, n_kv_l, S], cache_q; the
+//                           chunked walk, cache_chunk: _make_attn_half
+//                           :392-420, :456-540, _spec_attn's int8 rows)
 //        row_quant(plain)   int8 quant of the LOCAL attention output, with
 //                           the local row absmax (decode_tp_pallas.py:
 //                           43-47, :555)
@@ -34,7 +38,8 @@
 //
 // What bounds it on the H100, at tp = 2 and full width, one row: K4 the
 // layer's local weights, 9.44 MB of wqkv_l + 6.29 MB of wo_l, and the
-// local cache; K5 28.31 + 14.16 MB of w13_l / w2_l; K6 the 201.6 MB vocab
+// visible slots of the local cache (bf16, or int8 codes and their
+// scales: what K1's (d) / (e) / (f) read, over half the heads); K5 28.31 + 14.16 MB of w13_l / w2_l; K6 the 201.6 MB vocab
 // shard.  Each call is a handful of launches (5 for K4, 4 for K5, 3 for
 // K6) on the current stream; a position costs 26 x (K4 + K5) calls per
 // shard from the host, the same host cost as the per-layer route (K7).
@@ -54,34 +59,59 @@
 // sqkv [nq + 2 nkv], so [D] f32 (layer ``layer``'s; nq = n_heads * hd and
 // nkv = n_kv * hd the shard's); cos / sin [hd] (rope_stride 0) or
 // [B, hd] (rope_stride hd) f32, pair-expanded; kc / vc [Bc, n_kv, S, hd]
-// bf16, the shard's cache of this layer (read at slots < the offset);
+// bf16, or int8 codes with k_scales / v_scales [Bc, n_kv, S] f32 (mode
+// (e)), the shard's cache of this layer (read at its visible slots only);
 // wqkv [L, nq + 2 nkv, D] and wo [L, D, nq] int8 stacks, layer ``layer``
-// read; kn / vn [B, n_kv, hd] bf16; offs [Bc] int32 or NULL (then off0
-// for every stream); B = Bc x spec rows ordered (stream, draft slot).
-// Scratch: xq [B, max(D, nq)] int8, sx [B], qkv [B, nq + 2 nkv],
-// attn [B, nq] f32.  window < 0: no lower bound.
+// read; kn / vn [B, n_kv, hd] bf16 (also over an int8 cache: the caller
+// quantizes them for its append); offs [Bc] int32 or NULL (then off0 for
+// every stream); B = Bc x spec rows ordered (stream, draft slot).
+// ring_size > 0: mode (d), a head+ring cache of ring_head + ring_size <=
+// S slots, the offsets absolute positions.  chunk > 0: mode (f), the
+// attention walks the cache in chunks of ``chunk`` slots (chunk divides
+// S; spec must be 1).  The blocks and their shared memory are K1's
+// (decode_step.cu).  Scratch: xq [B, max(D, nq)] int8, sx [B], qkv
+// [B, nq + 2 nkv], attn [B, nq] f32.  window < 0: no lower bound.
 extern "C" int vx_attn_half_step(
     const void* x, void* yo, int layer, const void* attn_norm,
     const void* sqkv, const void* so, const void* cosv, const void* sinv,
-    const void* kc, const void* vc, const void* wqkv, const void* wo,
-    void* kn, void* vn, void* xq_buf, void* sx_buf, void* qkv_buf,
-    void* attn_buf, const void* offs, int B, int D, int S, int n_heads,
-    int n_kv, int hd, int off0, int spec, int rope_stride, int window,
-    float eps, float scale, void* stream) {
+    const void* kc, const void* vc, const void* k_scales,
+    const void* v_scales, const void* wqkv, const void* wo, void* kn,
+    void* vn, void* xq_buf, void* sx_buf, void* qkv_buf, void* attn_buf,
+    const void* offs, int B, int D, int S, int n_heads, int n_kv, int hd,
+    int off0, int spec, int rope_stride, int window, int ring_head,
+    int ring_size, int chunk, float eps, float scale, void* stream) {
   using namespace vx;
+  const bool ring = ring_size > 0;
+  const bool kv8 = k_scales != nullptr;
   if (hd > kMaxHeadDim || hd % 2 || n_kv <= 0 || n_heads % n_kv ||
       spec < 1 || B % spec || layer < 0 ||
-      (offs == nullptr && (off0 < 0 || off0 > S)))
+      (offs == nullptr && (off0 < 0 || (!ring && off0 > S))) ||
+      (ring && (ring_head < 0 || ring_head + ring_size > S)) ||
+      (kv8 && (v_scales == nullptr || hd % 4)) ||
+      (chunk != 0 && (chunk < 0 || S % chunk || spec != 1)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int span = (window >= 0 && window < S) ? window : S;
+  // attn_step_kernel for the bf16 cache at once; attn_kv_kernel for an
+  // int8 cache and / or a chunked walk (it holds spec more floats).
+  const bool kv_kernel = kv8 || chunk > 0;
+  const int span = chunk > 0 ? chunk
+                   : (!ring && window >= 0 && window < S) ? window : S;
   const size_t smem =
       sizeof(double) * (kAttnThreads / 32) * hd +
-      sizeof(float) * (4 * static_cast<size_t>(hd) + spec + span);
+      sizeof(float) *
+          (4 * static_cast<size_t>(hd) + (kv_kernel ? 2 : 1) * spec + span);
   if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        attn_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    const cudaError_t e =
+        !kv_kernel
+            ? cudaFuncSetAttribute(attn_step_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   static_cast<int>(smem))
+        : kv8 ? cudaFuncSetAttribute(attn_kv_kernel<true>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     static_cast<int>(smem))
+              : cudaFuncSetAttribute(attn_kv_kernel<false>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -98,13 +128,30 @@ extern "C" int vx_attn_half_step(
                      static_cast<size_t>(layer) * nqkv * D,
                  static_cast<const float*>(sqkv), nullptr, qkv, B, nqkv, D,
                  st);
-  attn_step_kernel<<<dim3(n_heads, B), kAttnThreads, smem, st>>>(
-      qkv, static_cast<const float*>(cosv), static_cast<const float*>(sinv),
-      rope_stride, static_cast<const int*>(offs), off0, spec,
-      static_cast<const __nv_bfloat16*>(kc),
-      static_cast<const __nv_bfloat16*>(vc), static_cast<__nv_bfloat16*>(kn),
-      static_cast<__nv_bfloat16*>(vn), att, S, window, 0, 0, n_heads, n_kv, hd,
-      scale);
+  const float* cs = static_cast<const float*>(cosv);
+  const float* sn = static_cast<const float*>(sinv);
+  const int* of = static_cast<const int*>(offs);
+  __nv_bfloat16* KN = static_cast<__nv_bfloat16*>(kn);
+  __nv_bfloat16* VN = static_cast<__nv_bfloat16*>(vn);
+  const dim3 grid(n_heads, B);
+  if (!kv_kernel) {
+    attn_step_kernel<<<grid, kAttnThreads, smem, st>>>(
+        qkv, cs, sn, rope_stride, of, off0, spec,
+        static_cast<const __nv_bfloat16*>(kc),
+        static_cast<const __nv_bfloat16*>(vc), KN, VN, att, S, window,
+        ring_head, ring_size, n_heads, n_kv, hd, scale);
+  } else if (kv8) {
+    attn_kv_kernel<true><<<grid, kAttnThreads, smem, st>>>(
+        qkv, cs, sn, rope_stride, of, off0, B / spec, spec, kc, vc,
+        static_cast<const float*>(k_scales),
+        static_cast<const float*>(v_scales), KN, VN, att, S, window,
+        ring_head, ring_size, chunk, n_heads, n_kv, hd, scale);
+  } else {
+    attn_kv_kernel<false><<<grid, kAttnThreads, smem, st>>>(
+        qkv, cs, sn, rope_stride, of, off0, B / spec, spec, kc, vc, nullptr,
+        nullptr, KN, VN, att, S, window, ring_head, ring_size, chunk, n_heads,
+        n_kv, hd, scale);
+  }
   row_quant(att, nq, nq, nullptr, nullptr, eps, kQuantPlain, B, xq, sx,
             nullptr, st);
   launch_w8_gemv(xq, sx,

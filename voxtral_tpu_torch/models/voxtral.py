@@ -712,29 +712,13 @@ def _dp_step(model, ada_vecs, lm_cfg, k_g, v_g, groups, logits_too: bool,
     return step
 
 
-def _mesh_shard_bytes(model, plan: ParallelPlan, batch: int, seq_len: int,
-                      slots: int) -> int:
-    """Bytes of the most loaded device's caches in a meshed one-shot call:
-    the prefill cache on the mesh's first device, plus the head-major
-    copies of every shard that lives on the device (a device the mesh
-    names several times holds all its shards)."""
-    per = oneshot_cache_bytes(model, batch // plan.dp, slots) // plan.tp
-    load: dict = {}
-    for row in plan.mesh.devices:
-        for dev in row:
-            load[dev] = load.get(dev, 0) + per
-    first = plan.mesh.first
-    load[first] = load.get(first, 0) + oneshot_cache_bytes(
-        model, batch, seq_len)
-    return max(load.values())
-
-
 def _mesh_plan(model, plan: ParallelPlan, batch: int, seq_len: int,
                spec: int):
     """:func:`oneshot_plan`'s rung on a mesh: "tp" (tp > 1, a data axis
     when dp > 1) or "dp", when the shard's geometry is taken (K4's
     attention block, or K1's, at the local shard; the shard divisibility)
-    and ``check_hbm`` admits the most loaded device's caches.  Otherwise
+    and ``check_hbm`` admits each shard's caches on its own device (the
+    first also holds the prefill cache).  Otherwise
     it raises: a mesh never falls back to one device."""
     lm = model.config.language_model
     slots = seq_len + (spec - 1 if spec > 1 else 0)
@@ -748,10 +732,14 @@ def _mesh_plan(model, plan: ParallelPlan, batch: int, seq_len: int,
                                   lm.vocab_size, plan.tp)
         else:
             k1.check_geometry(slots, lm.head_dim, lm.sliding_window, spec)
-        check_hbm(model, _mesh_shard_bytes(model, plan, batch, seq_len,
-                                           slots),
+        # The shards' head-major copies (each data group's rows, split
+        # over the model shards' KV heads), and the prefill cache on the
+        # mesh's first device.
+        rows = -(-batch // plan.dp)
+        check_hbm(model, plan.dp * oneshot_cache_bytes(model, rows, slots),
                   f"{what}, prefill cache + the shards' head-major copies",
-                  batch)
+                  batch, dp=plan.dp,
+                  first_bytes=oneshot_cache_bytes(model, batch, seq_len))
     except (ValueError, HBMBudgetError) as exc:
         raise type(exc)(f"no decode route takes {what} -- {route}: "
                         f"{exc}") from exc
@@ -838,8 +826,9 @@ class VoxtralModel:
     ``mesh=`` does (``models/voxtral.py:863-964``).  The tree lives on the
     mesh's first device, where the encoder, adapter, prefill and first
     token run unsharded.  Under tp > 1 the single-device stacks are
-    dropped (``fused_decode`` None, as JAX): sessions and pools on a mesh
-    are a later slice and refuse such a model.  A batch is padded with
+    dropped (``fused_decode`` None, as JAX): sessions and pools on such a
+    model stream the placed shards (``fused_tp``; ``streaming.py``).  A
+    batch is padded with
     zero mel rows to a multiple of dp and trimmed after (JAX
     ``_pad_dp_rows``).
     """

@@ -8,7 +8,9 @@ kernel, so the layer splits there into two halves per shard:
 
 * K4 :func:`attn_half_step` (``attn_half_step``, ``:603``): rms_norm,
   W8A8 QKV of the shard's heads, RoPE, GQA attention over the shard's
-  KV heads (offsets, window and ``spec`` rows as K1), the WO partial;
+  KV heads (offsets, window and ``spec`` rows as K1; the head+ring
+  cache, the int8 cache and the chunked walk, K1's modes (d), (e) and
+  (f) over the local heads), the WO partial;
 * K5 :func:`ffn_half_step` (``ffn_half_step``, ``:763``): ffn_norm x
   ADA, W1 / W3 of the shard's F rows, SwiGLU, the W2 partial;
 * K6 :func:`lm_half_argmax` (``lm_half_argmax``, ``:1285``): the final
@@ -31,14 +33,14 @@ the same way.  Every float reduction sums in f64 and rounds once, in
 kernel and plain version alike (K1's rule), so the two agree bit for
 bit.
 
-Modes of JAX's halves not ported in this slice (ROADMAP): the head+ring
-cache, the int8 cache and the chunked cache of K4, and the g32 (q4g)
-weights of K4-K6.  ``tp_vmem_need`` / ``TP_VMEM_CAP`` are TPU-only;
-:func:`check_tp_geometry` checks what the card refuses (the attention
-block's shared memory, the shard divisibility).
+Not ported yet (ROADMAP): the g32 (q4g) weights of K4-K6.
+``tp_vmem_need`` / ``TP_VMEM_CAP`` are TPU-only; :func:`check_tp_geometry`
+checks what the card refuses (the attention block's shared memory, the
+chunk, the ring, the shard divisibility).
 
 What bounds the kernels on the H100 at tp = 2, full width, one row:
-K4 the layer's 15.73 MB of local weights and the local cache, K5 42.47
+K4 the layer's 15.73 MB of local weights and the visible slots of the
+local cache (bf16, or int8 codes and scales), K5 42.47
 MB, K6 the 201.6 MB vocab shard (``csrc/decode_tp.cu``).  A position
 is 26 x (K4 + K5) wrapper calls per shard and two sums per layer from
 the host, the per-layer route's host cost: on one card a tp run shows
@@ -55,13 +57,13 @@ import torch
 from voxtral_tpu_torch.ops._build import check, kernel_fn
 from voxtral_tpu_torch.ops.decode_step import (
     LM_TILE,
-    SMEM_LIMIT,
     _attention_plain,
+    _check_cache_mode,
     _linear_plain,
     _rms,
     _rope_swap,
     _spec_streams,
-    attn_smem_bytes,
+    check_geometry,
 )
 from voxtral_tpu_torch.ops.w8 import quantize_activations as _quant
 from voxtral_tpu_torch.ops.w8_kernel import w8_matmul_plain
@@ -162,27 +164,21 @@ def gather_kv(parts: list) -> torch.Tensor:
 
 def check_tp_geometry(S: int, head_dim: int, window: Optional[int],
                       spec: int, n_kv: int, hidden: int, vocab: int,
-                      tp: int) -> None:
+                      tp: int, ring: Optional[tuple[int, int]] = None,
+                      cache_chunk: Optional[int] = None,
+                      kv_int8: bool = False) -> None:
     """ValueError naming the cause when the TP halves cannot take this
     geometry: ``tp`` must divide the KV heads, the FFN rows and the
-    vocabulary (JAX's shard rules), and K4's attention block holds its
-    score buffer in shared memory (K1's block: S or the window's floats,
-    the shard's head count does not matter).  Replaces JAX's
-    ``tp_vmem_need`` / ``TP_VMEM_CAP``, which budget TPU VMEM."""
+    vocabulary (JAX's shard rules), and K4's attention blocks are K1's
+    (``ops.decode_step.check_geometry``: the score buffer in shared
+    memory, S or the window's floats resident, the chunk's chunked; the
+    ring within S; no spec rows on a chunked walk), whatever the shard's
+    head count.  Replaces JAX's ``tp_vmem_need`` / ``TP_VMEM_CAP``,
+    which budget TPU VMEM."""
     if n_kv % tp or hidden % tp or vocab % tp:
         raise ValueError(f"tp={tp} must divide n_kv={n_kv}, "
                          f"hidden={hidden} and vocab={vocab}")
-    _check_attn_smem(S, head_dim, window, spec)
-
-
-def _check_attn_smem(S: int, head_dim: int, window: Optional[int],
-                     spec: int) -> None:
-    need = attn_smem_bytes(S, head_dim, window, spec)
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            f"attn_half_step: a cache of {S} slots (window {window}, "
-            f"spec={spec}) needs {need} bytes of shared memory per "
-            f"attention block, above the {SMEM_LIMIT} a block may hold")
+    check_geometry(S, head_dim, window, spec, ring, cache_chunk, kv_int8)
 
 
 # ---------------------------------------------------------------------------
@@ -198,16 +194,25 @@ def _rope_rows(cos_b, sin_b):
 
 
 def attn_half_step_plain(x, layer: int, offsets, attn_norm, sqkv, so, cos_b,
-                         sin_b, k_cache_l, v_cache_l, wqkv, wo, *,
+                         sin_b, k_cache_l, v_cache_l, wqkv, wo,
+                         k_scales=None, v_scales=None, *,
                          n_heads_l: int, n_kv_l: int, head_dim: int,
                          eps: float, window: Optional[int] = None,
-                         spec: int = 1):
+                         spec: int = 1,
+                         ring: Optional[tuple[int, int]] = None,
+                         cache_chunk: Optional[int] = None):
     """Plain PyTorch version of K4, as the JAX kernel computes it: K1's
-    layer on the shard's heads, the WO input quantized with its local
-    absmax, no residual.  -> (partial [B, D] f32, k_new, v_new [B, Hkv_l,
-    hd] in the cache dtype)."""
+    layer on the shard's heads (K1's attention walk: the ring map of
+    ``models.layers.ring_k_positions``, the int8 scores and requant
+    groups, the chunks in slot order), the WO input quantized with its
+    local absmax, no residual.  JAX's guards: an int8 cache needs its
+    scales, spec rows refuse a chunked walk, the chunk divides S.
+    -> (partial [B, D] f32, k_new, v_new [B, Hkv_l, hd]: bf16 over an
+    int8 cache, else the cache dtype)."""
     B = x.shape[0]
     Bc = _spec_streams(B, k_cache_l.shape[0], spec)
+    _check_cache_mode(k_cache_l, v_cache_l, k_scales, v_scales, cache_chunk,
+                      spec, k_cache_l.shape[2])
     nq, nkv = n_heads_l * head_dim, n_kv_l * head_dim
     c, s = _rope_rows(cos_b, sin_b)
     offs = torch.as_tensor(offsets, device=x.device).reshape(-1).expand(Bc)
@@ -219,9 +224,10 @@ def attn_half_step_plain(x, layer: int, offsets, attn_norm, sqkv, so, cos_b,
     q = q * c + _rope_swap(q) * s
     k = k * c + _rope_swap(k) * s
     attn = _attention_plain(q, k, v, k_cache_l, v_cache_l, offs, window,
-                            spec, n_kv_l, head_dim ** -0.5)
-    return (_linear_plain(attn, wo[layer], so, "w8"),
-            k.to(k_cache_l.dtype), v.to(v_cache_l.dtype))
+                            spec, n_kv_l, head_dim ** -0.5, ring, k_scales,
+                            v_scales, cache_chunk)
+    new = torch.bfloat16 if k_scales is not None else k_cache_l.dtype
+    return _linear_plain(attn, wo[layer], so, "w8"), k.to(new), v.to(new)
 
 
 def ffn_half_step_plain(x, layer: int, ffn_norm, ada_vec, s13, s2, w13, w2,
@@ -275,28 +281,35 @@ def _device_of(fn: str, x: torch.Tensor) -> Optional[torch.device]:
 
 
 def attn_half_step(x, layer: int, offsets, attn_norm, sqkv, so, cos_b,
-                   sin_b, k_cache_l, v_cache_l, wqkv, wo, *,
-                   n_heads_l: int, n_kv_l: int, head_dim: int, eps: float,
-                   window: Optional[int] = None, spec: int = 1):
+                   sin_b, k_cache_l, v_cache_l, wqkv, wo, k_scales=None,
+                   v_scales=None, *, n_heads_l: int, n_kv_l: int,
+                   head_dim: int, eps: float, window: Optional[int] = None,
+                   spec: int = 1, ring: Optional[tuple[int, int]] = None,
+                   cache_chunk: Optional[int] = None):
     """K4: one layer's attention half on this shard's heads.
 
     x [B, D] f32 (B = streams x ``spec`` rows, ordered (stream, draft
     slot)); ``layer`` an int; ``offsets`` the cache slots written per
-    stream, an int or an int32 tensor [streams] on x's device; layer
-    ``layer``'s attn_norm [D], sqkv [nqkv_l] and ``so`` [D] f32; cos_b /
-    sin_b [hd] or per row [B, hd] f32; this layer's LOCAL head-major
-    caches [streams, Hkv_l, S, hd] bf16 (slots < the offset read); the
-    shard's stacks wqkv [L, nqkv_l, D], wo [L, D, nq_l] int8.  Returns
-    (the WO partial [B, D] f32, k_new, v_new [B, Hkv_l, hd] bf16).
+    stream (absolute positions on a head+ring cache), an int or an int32
+    tensor [streams] on x's device; layer ``layer``'s attn_norm [D], sqkv
+    [nqkv_l] and ``so`` [D] f32; cos_b / sin_b [hd] or per row [B, hd]
+    f32; this layer's LOCAL head-major caches [streams, Hkv_l, S, hd]
+    bf16, or int8 codes with ``k_scales`` / ``v_scales`` [streams, Hkv_l,
+    S] f32 (K1 mode (e)); the shard's stacks wqkv [L, nqkv_l, D], wo [L,
+    D, nq_l] int8.  ``ring`` = (head, size): a head+ring cache (mode
+    (d)); ``cache_chunk``: the chunked walk (mode (f), spec = 1).
+    Returns (the WO partial [B, D] f32, k_new, v_new [B, Hkv_l, hd]
+    bf16).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (``csrc/decode_tp.cu``) or raise.  Each launch adds one to
     ``attn_half_step.launches``.
     """
     args = (x, layer, offsets, attn_norm, sqkv, so, cos_b, sin_b, k_cache_l,
-            v_cache_l, wqkv, wo)
+            v_cache_l, wqkv, wo, k_scales, v_scales)
     kw = dict(n_heads_l=n_heads_l, n_kv_l=n_kv_l, head_dim=head_dim,
-              eps=eps, window=window, spec=spec)
+              eps=eps, window=window, spec=spec, ring=ring,
+              cache_chunk=cache_chunk)
     dev = _device_of("attn_half_step", x)
     if dev is None:
         return attn_half_step_plain(*args, **kw)
@@ -305,33 +318,44 @@ def attn_half_step(x, layer: int, offsets, attn_norm, sqkv, so, cos_b,
     Bc = _spec_streams(B, Bc, spec)
     L = wqkv.shape[0]
     nq, nkv = n_heads_l * head_dim, n_kv_l * head_dim
+    int8 = k_scales is not None
+    _check_cache_mode(k_cache_l, v_cache_l, k_scales, v_scales, cache_chunk,
+                      spec, S)
     if not (isinstance(layer, int) and 0 <= layer < L):
         raise ValueError(f"attn_half_step: layer must be an int in "
                          f"[0, {L}), got {layer!r}")
-    if not (head_dim % 2 == 0 and head_dim <= 256
+    if not (head_dim % (4 if int8 else 2) == 0 and head_dim <= 256
             and n_heads_l % n_kv_l == 0):
-        raise ValueError("attn_half_step: head_dim must be even and <= 256, "
-                         "n_kv_l must divide n_heads_l")
-    _check_attn_smem(S, head_dim, window, spec)
+        raise ValueError("attn_half_step: head_dim must be even (a multiple "
+                         "of 4 on an int8 cache) and <= 256, n_kv_l must "
+                         "divide n_heads_l")
+    check_geometry(S, head_dim, window, spec, ring, cache_chunk, int8)
     offs = None
     if isinstance(offsets, torch.Tensor):
         _expect("attn_half_step", dev,
                 {"offsets": (offsets, torch.int32, (Bc,))})
         offs, offsets = offsets, 0
-    if not (isinstance(offsets, int) and 0 <= offsets <= S):
+    if not (isinstance(offsets, int) and 0 <= offsets
+            and (ring is not None or offsets <= S)):
         raise ValueError(f"attn_half_step: offset must be an int in "
-                         f"[0, {S}] or a tensor, got {offsets!r}")
+                         f"[0, {S}] (any >= 0 on a ring) or a tensor, got "
+                         f"{offsets!r}")
     f32 = torch.float32
+    cdt = torch.int8 if int8 else torch.bfloat16
     rope = (head_dim,) if cos_b.dim() == 1 else (B, head_dim)
-    _expect("attn_half_step", dev, {
+    specs = {
         "x": (x, f32, (B, D)), "attn_norm": (attn_norm, f32, (D,)),
         "sqkv": (sqkv, f32, (nq + 2 * nkv,)), "so": (so, f32, (D,)),
         "cos_b": (cos_b, f32, rope), "sin_b": (sin_b, f32, rope),
-        "k_cache_l": (k_cache_l, torch.bfloat16, (Bc, n_kv_l, S, head_dim)),
-        "v_cache_l": (v_cache_l, torch.bfloat16, (Bc, n_kv_l, S, head_dim)),
+        "k_cache_l": (k_cache_l, cdt, (Bc, n_kv_l, S, head_dim)),
+        "v_cache_l": (v_cache_l, cdt, (Bc, n_kv_l, S, head_dim)),
         "wqkv": (wqkv, torch.int8, (L, nq + 2 * nkv, D)),
         "wo": (wo, torch.int8, (L, D, nq)),
-    })
+    }
+    if int8:
+        specs.update(k_scales=(k_scales, f32, (Bc, n_kv_l, S)),
+                     v_scales=(v_scales, f32, (Bc, n_kv_l, S)))
+    _expect("attn_half_step", dev, specs)
     y = torch.empty((B, D), dtype=f32, device=dev)
     k_new = torch.empty((B, n_kv_l, head_dim), dtype=torch.bfloat16,
                         device=dev)
@@ -341,18 +365,22 @@ def attn_half_step(x, layer: int, offsets, attn_norm, sqkv, so, cos_b,
     qkv = torch.empty((B, nq + 2 * nkv), dtype=f32, device=dev)
     att = torch.empty((B, nq), dtype=f32, device=dev)
     with torch.cuda.device(dev):
-        fn = kernel_fn("vx_attn_half_step", [_P, _P, _I] + [_P] * 16
-                       + [_I] * 10 + [_F, _F, _P])
+        fn = kernel_fn("vx_attn_half_step", [_P, _P, _I] + [_P] * 18
+                       + [_I] * 13 + [_F, _F, _P])
         code = fn(
             x.data_ptr(), y.data_ptr(), layer, attn_norm.data_ptr(),
             sqkv.data_ptr(), so.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(),
-            k_cache_l.data_ptr(), v_cache_l.data_ptr(), wqkv.data_ptr(),
+            k_cache_l.data_ptr(), v_cache_l.data_ptr(),
+            k_scales.data_ptr() if int8 else None,
+            v_scales.data_ptr() if int8 else None, wqkv.data_ptr(),
             wo.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), xq.data_ptr(),
             sx.data_ptr(), qkv.data_ptr(), att.data_ptr(),
             None if offs is None else offs.data_ptr(), B, D, S, n_heads_l,
             n_kv_l, head_dim, offsets, spec,
             0 if cos_b.dim() == 1 else head_dim,
-            -1 if window is None else int(window), eps, head_dim ** -0.5,
+            -1 if window is None else int(window),
+            0 if ring is None else ring[0], 0 if ring is None else ring[1],
+            cache_chunk or 0, eps, head_dim ** -0.5,
             torch.cuda.current_stream(dev).cuda_stream)
     check(code, "attn_half_step")
     attn_half_step.launches += 1
@@ -460,8 +488,11 @@ def tp_decode_step(
     mesh: Mesh, x, offsets,
     attn_norms, ffn_norms, ada_vecs, tp_w,
     cos_b, sin_b, k_cache: list, v_cache: list,
+    k_scales: Optional[list] = None, v_scales: Optional[list] = None,
     *, n_heads: int, n_kv: int, head_dim: int, eps: float,
     window: Optional[int] = None, spec: int = 1,
+    ring: Optional[tuple[int, int]] = None,
+    cache_chunk: Optional[int] = None,
     attn=attn_half_step, ffn=ffn_half_step,
 ):
     """All decoder layers of one decode step, tensor-parallel (JAX
@@ -473,25 +504,37 @@ def tp_decode_step(
     ADA stacks [L, D] f32: replicated, moved to each shard's device (a
     no-op on a shared card).  ``k_cache`` / ``v_cache``: the grid
     ``[d][i]`` of the shards' head-major caches [L, streams_d, Hkv_l, S,
-    hd] on their devices (JAX takes one array the partitioner shards).
-    The streams split over the mesh's data axis (DP x TP when it is
-    longer than 1: each data group runs its rows against its own model
-    shards; the sums stay within a data group).  ``attn`` / ``ffn``: K4
-    and K5 (default) or their plain versions.
+    hd] on their devices (JAX takes one array the partitioner shards),
+    bf16, or int8 codes with the scale grids ``k_scales`` / ``v_scales``
+    ``[d][i]`` of [L, streams_d, Hkv_l, S] f32 (k_new / v_new still come
+    back bf16, for the caller to quantize and append, JAX's contract).
+    ``ring``: the head+ring layout; ``cache_chunk``: the chunked walk
+    (spec = 1; JAX's guards, ``:1008-1017``).  The streams split over the
+    mesh's data axis (DP x TP when it is longer than 1: each data group
+    runs its rows against its own model shards; the sums stay within a
+    data group).  ``attn`` / ``ffn``: K4 and K5 (default) or their plain
+    versions.
 
     Per layer and data group: K4 on each model shard, ``psum`` of the
     partials in shard order, the residual add, K5, ``psum``, the add.
     Returns (x_out [B, D] f32 on x's device, k_new, v_new: the grid
     ``[d][i]`` of [L, B_d, Hkv_l, hd] bf16 on the shards' devices, for
-    the caller's appends; :func:`gather_kv` joins them).
+    the caller's appends; :func:`gather_kv` joins them).  ``B_d``: data
+    group d's rows (its streams x ``spec``).
     """
     tp = mesh.shape[MODEL_AXIS]
     n_heads_l, n_kv_l = n_heads // tp, n_kv // tp
     B = x.shape[0]
+    if (k_cache[0][0].dtype == torch.int8) and (k_scales is None
+                                                or v_scales is None):
+        raise ValueError("int8 KV cache needs k_scales/v_scales")
     if spec < 1 or B % spec:
         raise ValueError(f"spec={spec} must divide the row count {B}")
+    if spec > 1 and cache_chunk:
+        raise ValueError("speculative decode + cache_chunk unsupported")
     kw = dict(n_heads_l=n_heads_l, n_kv_l=n_kv_l, head_dim=head_dim,
-              eps=eps, window=window, spec=spec)
+              eps=eps, window=window, spec=spec, ring=ring,
+              cache_chunk=cache_chunk)
     L = attn_norms.shape[0]
     x_out, kn, vn = [], [], []
     groups = row_groups(B // spec, mesh.shape[DATA_AXIS], spec)
@@ -513,10 +556,13 @@ def tp_decode_step(
         for l in range(L):
             ys = []
             for i, dev in enumerate(devs):
+                scales = ((None, None) if k_scales is None else
+                          (k_scales[d][i][l], v_scales[d][i][l]))
                 y, k_l, v_l = attn(
                     xs[i], l, offs[i], vecs[i][0][l], w[i]["sqkv"][l],
                     w[i]["so"][l], *rope[i], k_cache[d][i][l],
-                    v_cache[d][i][l], w[i]["wqkv"], w[i]["wo"], **kw)
+                    v_cache[d][i][l], w[i]["wqkv"], w[i]["wo"], *scales,
+                    **kw)
                 ys.append(y)
                 k_rows[i].append(k_l)
                 v_rows[i].append(v_l)

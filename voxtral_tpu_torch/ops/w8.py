@@ -21,12 +21,24 @@ W8MatmulFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
                       torch.Tensor]
 
 
-def quantize_w8_rowwise(w_nk: np.ndarray) -> dict:
-    """f32 [N, K] -> {"w8": {codes, scale}} with symmetric rowwise scales."""
-    absmax = np.abs(w_nk).max(axis=1)
+def quantize_w8_rowwise(w_nk) -> dict:
+    """f32 [..., N, K] -> {"w8": {codes, scale}} with symmetric rowwise
+    scales: numpy in, numpy out; a tensor stays a tensor on its device
+    (the same arithmetic, the 127 divided as a tensor, as in
+    :func:`quantize_activations`)."""
+    if isinstance(w_nk, torch.Tensor):
+        w = w_nk.float()
+        absmax = w.abs().amax(dim=-1)
+        scale = absmax / torch.full_like(absmax, 127.0)
+        inv = torch.where(scale > 0, 1.0 / scale.clamp(min=1e-30),
+                          torch.zeros_like(scale))
+        codes = torch.clamp(torch.round(w * inv[..., None]), -127, 127)
+        return {"w8": {"codes": codes.to(torch.int8).contiguous(),
+                       "scale": scale.contiguous()}}
+    absmax = np.abs(w_nk).max(axis=-1)
     scale = (absmax / 127.0).astype(np.float32)
     inv = np.where(scale > 0, 1.0 / np.maximum(scale, 1e-30), 0.0)
-    codes = np.clip(np.rint(w_nk * inv[:, None]), -127, 127).astype(np.int8)
+    codes = np.clip(np.rint(w_nk * inv[..., None]), -127, 127).astype(np.int8)
     return {"w8": {"codes": codes, "scale": scale}}
 
 

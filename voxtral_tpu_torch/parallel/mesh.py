@@ -19,13 +19,13 @@ one after W2); data parallelism (the ``data`` axis) shards the batch
 rows, each data group holding the whole model (DP) or its own model
 shards (DP x TP).
 
-What runs where in this slice (the one-shot transcribe path): the
+What runs where (the one-shot path, live sessions and pools): the
 encoder, the adapter, the prefill and the first token's lm_head run
 whole, unsharded, on the mesh's first device over the whole batch; the
 decode loop then runs per shard, each data group on its rows from the
-first decoded position on.  The GSPMD-partitioned encoder / prefill, the
-sessions and pools on a mesh and ``torch.distributed`` across processes
-are later slices (ROADMAP).  ``param_shardings`` / ``shard_params`` /
+first decoded position on (a solo session on data group 0's shards).
+The GSPMD-partitioned encoder / prefill and ``torch.distributed`` across
+processes are not ported (ROADMAP).  ``param_shardings`` / ``shard_params`` /
 ``kv_cache_sharding`` exist only to drive GSPMD and are not ported.
 """
 

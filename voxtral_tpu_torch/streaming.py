@@ -42,6 +42,16 @@ chunks of ``CACHE_CHUNK`` slots (mode (f)), as the ladder of
 ``kv_dtype`` selects; ``speculative=K`` verifies K drafts per slot and
 pass.  A pool on a model with fused weights runs K1 and nothing else: a
 geometry no rung admits raises in the constructor.
+
+On a model with a mesh (``VoxtralModel(mesh=)``, w8 weights) sessions
+and pools decode meshed, as JAX's (``voxtral_tpu/streaming.py:530-620``):
+tp > 1 runs the K4 / K5 halves per model shard (the head+ring, int8 and
+chunked cache modes included) and K6's vocab-sharded greedy tokens, the
+pool's slots split over the data axis too when dp > 1; a data-parallel
+pool runs K1 per data group.  The decoder caches are then shard grids
+(:class:`_ShardedKV`); the encoder, the adapter and every stream's first
+step stay on the mesh's first device.  A solo session runs on data group
+0's shards.
 """
 
 from __future__ import annotations
@@ -74,6 +84,7 @@ from voxtral_tpu_torch.models.layers import (
     KVCache,
     conv_downsample,
     ring_slot,
+    rms_norm,
     rope_tables,
 )
 from voxtral_tpu_torch.models.voxtral import (
@@ -91,6 +102,12 @@ from voxtral_tpu_torch.models.voxtral import (
     top2_margin,
 )
 from voxtral_tpu_torch.ops import decode_step as k1
+from voxtral_tpu_torch.ops import decode_tp as tpk
+from voxtral_tpu_torch.parallel import (
+    Mesh,
+    dp_decode_stack_step,
+    row_groups,
+)
 from voxtral_tpu_torch.tokenizer import STREAMING_PAD, VoxtralTokenizer
 from voxtral_tpu_torch.utils.hbm import HBMBudgetError, check_hbm
 
@@ -202,55 +219,252 @@ def _init_step(model: VoxtralModel, P: int, mel0: np.ndarray, t_embed,
 # ---------------------------------------------------------------------------
 
 
+def _mesh_shape(model: VoxtralModel) -> tuple[int, int]:
+    """(dp, tp) of the model's mesh; (1, 1) without one."""
+    plan = model.parallel
+    return (plan.dp, plan.tp) if plan is not None else (1, 1)
+
+
+def _fused_weights(model: VoxtralModel):
+    """The stacks the fused decode streams: the placed TP shards on a
+    mesh with tp > 1 (``model.fused_tp``), else K1's (``fused_decode``,
+    which a data-parallel model keeps); None without fused weights."""
+    return model.fused_tp if _mesh_shape(model)[1] > 1 \
+        else model.fused_decode
+
+
 def _rung_refusal(model: VoxtralModel, batch: int, cache_s: int,
                   itemsize: Optional[int], chunk: Optional[int],
                   spec: int) -> Optional[str]:
-    """Why K1 cannot run ``batch`` rows over ``cache_s``-slot caches of
-    this kind, or None: the attention block's shared memory
-    (``check_geometry``; a chunked walk holds ``chunk`` scores, a
-    resident one up to ``cache_s``) and the card's memory for the rung's
-    decoder caches, scale planes and init slot (``check_hbm``)."""
+    """Why the fused decode cannot run ``batch`` rows over
+    ``cache_s``-slot caches of this kind, or None: on a mesh, a stream
+    count the data axis does not divide; the attention block's shared
+    memory (``check_geometry``, on a tp mesh with K4's shard rules,
+    ``check_tp_geometry``; a chunked walk holds ``chunk`` scores, a
+    resident one up to ``cache_s``); the card's memory for the rung's
+    decoder caches and scale planes, spread over the mesh's shards, and
+    the init slot on the first device (``check_hbm``, per shard)."""
     lm = model.config.language_model
+    dp, tp = _mesh_shape(model)
     streams = batch // spec
-    per_slot = lm.n_layers * lm.n_kv_heads * cache_s
-    nbytes = 2 * per_slot * (
-        streams * (lm.head_dim * (itemsize or 2)
-                   + (4 if itemsize == 1 else 0))
-        + lm.head_dim * 2)
+    per_slot = 2 * lm.n_layers * lm.n_kv_heads * cache_s
+    caches = per_slot * streams * (lm.head_dim * (itemsize or 2)
+                                   + (4 if itemsize == 1 else 0))
     try:
-        k1.check_geometry(cache_s, lm.head_dim, None, spec, None, chunk,
-                          itemsize == 1)
-        check_hbm(model, nbytes, f"a pool of {streams} streams", streams)
+        row_groups(streams, dp)  # JAX's refusal of an undivided batch
+        if tp > 1:
+            tpk.check_tp_geometry(cache_s, lm.head_dim, None, spec,
+                                  lm.n_kv_heads, lm.hidden_dim,
+                                  lm.vocab_size, tp, None, chunk,
+                                  itemsize == 1)
+        else:
+            k1.check_geometry(cache_s, lm.head_dim, None, spec, None, chunk,
+                              itemsize == 1)
+        check_hbm(model, caches, f"a pool of {streams} streams", streams,
+                  dp=dp, first_bytes=per_slot * lm.head_dim * 2)
     except (ValueError, HBMBudgetError) as e:
         return str(e)
     return None
 
 
-def _refuse_mesh(model: VoxtralModel) -> None:
-    """Sessions and pools run on one device: a model on a mesh of more
-    than one shard (``VoxtralModel(mesh=)``, whose TP stacks replace the
-    single-device ones) is refused, not decoded on another route."""
-    plan = getattr(model, "parallel", None)
-    if plan is not None and plan.dp * plan.tp > 1:
-        raise NotImplementedError(
-            f"sessions and pools on a {plan.dp} x {plan.tp} mesh are not "
-            "ported yet (ROADMAP queue 1, item 12); use a model without a "
-            "mesh")
-
-
 def _fused_plan(model: VoxtralModel, batch: int, cache_s: int,
                 itemsize: Optional[int] = None, chunk: Optional[int] = None,
                 spec: int = 1):
-    """K1 decode plan ({"w": the fused stacks}) for ``batch`` rows and a
-    ``cache_s``-slot cache; refused, the reason (a str,
+    """The pool's fused decode plan for ``batch`` rows and a
+    ``cache_s``-slot cache: ``{"w": the stacks}`` on one device, with
+    ``"tp"`` on a mesh with tp > 1 (the K4 / K5 halves and K6, the rows
+    split over the data axis too when dp > 1) or ``"dp"`` on a
+    data-parallel mesh (K1 per data group), as JAX's meshed plan
+    (``voxtral_tpu/streaming.py:530-620``); refused, the reason (a str,
     :func:`_rung_refusal`); None when the model carries no fused
     weights.  ``itemsize=1`` evaluates the int8 KV cache, ``chunk`` the
     chunked walk.  The pool's ladder asks it rung by rung; a test forces
     a rung by replacing it (a replacement may refuse with None)."""
-    if model.fused_decode is None:
+    w = _fused_weights(model)
+    if w is None:
         return None
     why = _rung_refusal(model, batch, cache_s, itemsize, chunk, spec)
-    return why if why else {"w": model.fused_decode}
+    if why:
+        return why
+    dp, tp = _mesh_shape(model)
+    if tp > 1:
+        return {"w": w, "tp": tp}
+    return {"w": w, "dp": dp} if dp > 1 else {"w": w}
+
+
+class _ShardedKV:
+    """The fused decoder caches of a pool or a session, head-major: a
+    grid ``[d][i]`` of [L, B_d, Hkv / tp, S, hd] tensors on
+    ``devices[d][i]`` (data group d's streams, model shard i's KV heads;
+    one device: the grid ``[[t]]`` of the whole [L, B, Hkv, S, hd]), in
+    the model's cache dtype, or int8 codes with f32 scale grids of
+    [L, B_d, Hkv / tp, S] (K1 / K4 mode (e))."""
+
+    def __init__(self, devices, streams: int, lm, slots: int, int8: bool,
+                 dtype):
+        self.devices = devices
+        self.groups = row_groups(streams, len(devices))
+        self.int8 = int8
+        heads = lm.n_kv_heads // len(devices[0])
+
+        def grid(tail, dt):
+            return [[torch.zeros((lm.n_layers, g.stop - g.start, heads,
+                                  slots, *tail), dtype=dt, device=dev)
+                     for dev in row] for g, row in zip(self.groups, devices)]
+
+        cdt = torch.int8 if int8 else dtype
+        self.k, self.v = grid((lm.head_dim,), cdt), grid((lm.head_dim,), cdt)
+        self.ks = grid((), torch.float32) if int8 else None
+        self.vs = grid((), torch.float32) if int8 else None
+
+    def exposed(self) -> tuple:
+        """(k, v, k scales, v scales): the tensors on one device, the
+        grids on a mesh."""
+        one = len(self.devices) * len(self.devices[0]) == 1
+        return tuple(g[0][0] if one and g is not None else g
+                     for g in (self.k, self.v, self.ks, self.vs))
+
+    def tensors(self) -> list:
+        return [t for g in (self.k, self.v, self.ks, self.vs)
+                if g is not None for row in g for t in row]
+
+    def append(self, k_new, v_new, slots: torch.Tensor,
+               rows: torch.Tensor) -> None:
+        """Fresh K / V in place: grids ``[d][i]`` of [L, n_d, Hkv_l, hd]
+        (data group d's rows of the step, in order), row j at slot
+        ``slots[j]`` of cache row ``rows[j]`` (the batch's numbering),
+        quantized per vector (codes and scales) on an int8 cache."""
+        at = 0
+        for d, g in enumerate(self.groups):
+            n = k_new[d][0].shape[1]
+            sl, rl = slots[at:at + n], rows[at:at + n] - g.start
+            at += n
+            for i, dev in enumerate(self.devices[d]):
+                s_i, r_i = sl.to(dev), rl.to(dev)
+                for cache, scales, new in ((self.k, self.ks, k_new),
+                                           (self.v, self.vs, v_new)):
+                    if self.int8:
+                        q, sc = k1.quantize_kv(new[d][i])
+                        append_rows(cache[d][i], q, s_i, r_i)
+                        append_scales(scales[d][i], sc, s_i, r_i)
+                    else:
+                        append_rows(cache[d][i], new[d][i], s_i, r_i)
+
+    def _locate(self, b: int) -> tuple[int, int]:
+        for d, g in enumerate(self.groups):
+            if g.start <= b < g.stop:
+                return d, b - g.start
+        raise IndexError(f"cache row {b} of {self.groups[-1].stop}")
+
+    def read(self, b: int, dev) -> tuple:
+        """Cache row ``b`` gathered from its shards, dequantized: K and V
+        [L, Hkv, S, hd] f32 on ``dev``."""
+        d, r = self._locate(b)
+        out = []
+        for cache, scales in ((self.k, self.ks), (self.v, self.vs)):
+            parts = []
+            for i in range(len(self.devices[d])):
+                t = cache[d][i][:, r].float()
+                if scales is not None:
+                    t = t * scales[d][i][:, r][..., None]
+                parts.append(t.to(dev))
+            out.append(torch.cat(parts, dim=1))
+        return tuple(out)
+
+    def write(self, b: int, k: torch.Tensor, v: torch.Tensor) -> None:
+        """Position-major k / v [L, n, Hkv, hd] (n <= S) into cache row
+        ``b``, scattered over its shards' heads, quantized per vector on
+        an int8 cache; the slots past n are zeroed."""
+        d, r = self._locate(b)
+        n = k.shape[1]
+        for i, dev in enumerate(self.devices[d]):
+            for cache, scales, new in ((self.k, self.ks, k),
+                                       (self.v, self.vs, v)):
+                c = cache[d][i]
+                h = c.shape[2]
+                part = new[:, :, i * h:(i + 1) * h].transpose(1, 2).to(dev)
+                c[:, r, :, n:] = 0
+                if scales is None:
+                    c[:, r, :, :n] = part.to(c.dtype)
+                    continue
+                q, sc = k1.quantize_kv(part)
+                c[:, r, :, :n] = q
+                scales[d][i][:, r, :, :n] = sc
+                scales[d][i][:, r, :, n:] = 0
+
+
+def _decoder(model: VoxtralModel, w, ada: torch.Tensor, kv: _ShardedKV,
+             ring, chunk: Optional[int], mesh: Optional[Mesh]):
+    """The fused decode of a pool or a session over ``kv``:
+    ``decode(x, offs, cos, sin, spec=1) -> (tokens [rows] int32, logits
+    [rows, V] or None, k_new, v_new)``, the fresh K / V as ``kv``'s
+    grids, for :meth:`_ShardedKV.append`.  On one device (``mesh``
+    None): K1 with the lm fold (logits always).  On a mesh with tp > 1:
+    :func:`ops.decode_tp.tp_decode_step` (K4 / K5 per shard, the rows
+    over the data axis) and K6's vocab-sharded tokens
+    (``tp_lm_head_token``); the whole lm_head on the first device only
+    for the top-2 margins (``model.record_margins``).  On a
+    data-parallel mesh: ``dp_decode_stack_step`` (K1 per data group),
+    its tokens from mode (i) unless the margins need the logits."""
+    dec, lm = model.params["decoder"], model.config.language_model
+    kw = dict(n_heads=lm.n_heads, n_kv=lm.n_kv_heads, head_dim=lm.head_dim,
+              eps=lm.norm_eps, window=lm.sliding_window, ring=ring,
+              cache_chunk=chunk)
+    if mesh is None:
+        run_step = fused_step_fn(dec, w, ada, lm, model._mm, model._step)
+        cache_kw = {} if chunk is None else {"cache_chunk": chunk}
+        if kv.int8:
+            cache_kw.update(k_scales=kv.ks[0][0], v_scales=kv.vs[0][0])
+
+        def decode(x, offs, cos, sin, spec=1):
+            _, kn, vn, logits = run_step(x, offs, cos, sin, kv.k[0][0],
+                                         kv.v[0][0], spec=spec, ring=ring,
+                                         **cache_kw)
+            return select_token(logits), logits, [[kn]], [[vn]]
+
+        return decode
+    norm = dec["norm"]
+    if mesh.shape["model"] > 1:
+        kern = model.kernels
+        half = tpk.lm_half_argmax if kern else tpk.lm_half_argmax_plain
+        parts = dict(attn=tpk.attn_half_step if kern
+                     else tpk.attn_half_step_plain,
+                     ffn=tpk.ffn_half_step if kern
+                     else tpk.ffn_half_step_plain)
+
+        def decode(x, offs, cos, sin, spec=1):
+            xo, kn, vn = tpk.tp_decode_step(
+                mesh, x, offs, model._tp_norms[0], model._tp_norms[1], ada,
+                w, cos, sin, kv.k, kv.v, kv.ks, kv.vs, spec=spec, **parts,
+                **kw)
+            tokens = tpk.tp_lm_head_token(mesh, xo, norm, w["lm_codes"],
+                                          w["lm_scale"], eps=lm.norm_eps,
+                                          half=half)
+            logits = (lm_head(dec, rms_norm(xo, norm, lm.norm_eps),
+                              mm=model._mm)
+                      if model.record_margins else None)
+            return tokens, logits, kn, vn
+
+        return decode
+    st = model._dp_stacks
+
+    def first(grid):
+        return None if grid is None else [row[0] for row in grid]
+
+    def decode(x, offs, cos, sin, spec=1):
+        argmax = not model.record_margins
+        _, kn, vn, last = dp_decode_stack_step(
+            mesh, x, offs, st["attn_norm"], st["ffn_norm"], ada, st["sqkv"],
+            st["so"], st["s13"], st["s2"], cos, sin, first(kv.k),
+            first(kv.v), st["wqkv"], st["wo"], st["w13"], st["w2"],
+            st["final_norm"], st["lm_codes"], st["lm_scale"], first(kv.ks),
+            first(kv.vs), spec=spec, lm_argmax=argmax, step=model._step,
+            **kw)
+        tokens = last[:, 0] if argmax else select_token(last)
+        return (tokens, None if argmax else last, [[n] for n in kn],
+                [[n] for n in vn])
+
+    return decode
 
 
 def _ring_remap(src: np.ndarray, head: int, src_size: int, dst_size: int,
@@ -283,7 +497,7 @@ def _host_f32(a) -> np.ndarray:
 
 class StreamPool:
     """Steps concurrent streaming sessions together (port of the JAX
-    ``StreamPool``, single device).
+    ``StreamPool``, on one device or a mesh).
 
     The pool owns the caches of ``max_streams`` slots; sessions attach
     to free slots (``StreamingSession(model, pool=pool)``) and their
@@ -297,9 +511,17 @@ class StreamPool:
     With fused weights (w8, q4g) the decode half is K1 with per-row
     offsets and RoPE (mode (c)), per-row ring phases (d), int8 KV (e)
     and / or the chunked cache (f) as ``kv_dtype`` and the ladder pick
-    them; the decoder caches are head-major [L, B, Hkv, S, hd].  No rung
-    admitted is an error, not a fall-back.  Models without fused weights
-    (packed q4) take the per-op step slot by slot.
+    them; the decoder caches are head-major [L, B, Hkv, S, hd].  On a
+    model with a mesh (``VoxtralModel(mesh=)``, w8) the decode half runs
+    the K4 / K5 halves and K6 (tp > 1, ``_tp_mesh``; the slots split
+    over the data axis too when dp > 1) or K1 per data group (dp > 1,
+    ``_dp_mesh``), in the same cache modes, over caches held as shard
+    grids (``dec_k`` etc. are then grids ``[d][i]`` of [L, B / dp,
+    Hkv / tp, S, hd] on the shards' devices); the encode half stays
+    batched on the mesh's first device (JAX ``streaming.py:877-905``,
+    ``:1025-1101``, ``:1162-1290``).  No rung admitted is an error, not
+    a fall-back.  Models without fused weights (packed q4) take the
+    per-op step slot by slot.
     """
 
     def __init__(
@@ -324,8 +546,10 @@ class StreamPool:
         slot (K1 ``spec=K``; rows (slot, draft) share the slot's cache),
         each slot advancing by its own accepted count; exact greedy
         tokens; resident rungs only (a chunked walk requantizes per
-        chunk, which the fresh rows cannot join).  ``unbounded=True``:
-        head+ring caches, a slot runs until the RoPE table ends."""
+        chunk, which the fresh rows cannot join); on a data-parallel
+        mesh ``max_streams`` must divide into whole streams per data
+        group.  ``unbounded=True``: head+ring caches, a slot runs until
+        the RoPE table ends."""
         check_draft(draft)
         self.model = model
         self.cfg = model.config
@@ -379,11 +603,16 @@ class StreamPool:
                       "model": [(None, None), (None, CACHE_CHUNK)],
                       "auto": [(None, None), (1, None),
                                (1, CACHE_CHUNK)]}[kv_dtype]
-        _refuse_mesh(model)
+        dp, tp = _mesh_shape(model)
+        if spec > 1 and self.B % dp:
+            raise ValueError(
+                f"speculative meshed pools need max_streams ({self.B}) "
+                f"divisible by the data axis ({dp}) so every stream's K "
+                "draft rows shard with its cache")
         self.cache_int8 = False
         self._cache_chunk = None
         self._fused = None
-        if model.fused_decode is None:
+        if _fused_weights(model) is None:
             if spec > 1:
                 raise ValueError(
                     "speculative pools need the fused K1 step (w8, q4g or "
@@ -418,26 +647,32 @@ class StreamPool:
                     "cache ladder -- " + "; ".join(refused))
         self._s_dec, self._s_enc = s_dec, s_enc
 
+        mesh = model.parallel.mesh if dp * tp > 1 else None
+        self._tp_mesh = mesh if tp > 1 and self._fused is not None else None
+        self._dp_mesh = mesh if tp == 1 and self._fused is not None else None
+
         # Admission from the exact shapes allocated below.  The caches take
         # the model's cache dtype (bf16; f32 on an f32 model's generic
-        # pool).
+        # pool).  On a mesh the decoder caches spread over the shards; the
+        # encoder caches and the init slot stay on the first device.
         cdt = model.cache_dtype
         cds = torch.empty((), dtype=cdt).element_size()
         shape_e = (enc.n_layers, self.B, s_enc, enc.n_kv_heads, enc.head_dim)
-        cache_bytes = 2 * math.prod(shape_e) * cds
+        first_bytes = 2 * math.prod(shape_e) * cds
         per_slot = 2 * lm.n_layers * lm.n_kv_heads * s_dec
         if self._fused is not None:
-            cache_bytes += per_slot * self.B * lm.head_dim * (
+            dec_bytes = per_slot * self.B * lm.head_dim * (
                 1 if self.cache_int8 else cds)
             if self.cache_int8:
-                cache_bytes += per_slot * self.B * 4
-            cache_bytes += per_slot * lm.head_dim * cds  # the init slot
+                dec_bytes += per_slot * self.B * 4
+            first_bytes += per_slot * lm.head_dim * cds  # the init slot
         else:
-            cache_bytes += per_slot * self.B * lm.head_dim * cds
-        self.cache_bytes = cache_bytes
-        check_hbm(model, cache_bytes,
+            dec_bytes = per_slot * self.B * lm.head_dim * cds
+        self.cache_bytes = first_bytes + dec_bytes
+        check_hbm(model, dec_bytes,
                   f"StreamPool(max_streams={self.B}, unbounded={unbounded}, "
-                  f"kv_dtype={kv_dtype!r})", rows=self.B)
+                  f"kv_dtype={kv_dtype!r})", rows=self.B, dp=dp,
+                  first_bytes=first_bytes)
 
         # Encoder caches [L, B, S, H, hd]: a slot is the batch-1 view
         # [:, b:b + 1] (JAX keeps [B, L, 1, S, H, hd] and vmaps).
@@ -445,24 +680,22 @@ class StreamPool:
         self.enc_v = torch.zeros(shape_e, dtype=cdt, device=dev)
         self.dec_ks = self.dec_vs = None
         self._init_dec_zero = None
+        self._kv = None
         if self._fused is not None:
-            shape_f = (lm.n_layers, self.B, lm.n_kv_heads, s_dec, lm.head_dim)
-            fdt = torch.int8 if self.cache_int8 else cdt
-            self.dec_k = torch.zeros(shape_f, dtype=fdt, device=dev)
-            self.dec_v = torch.zeros(shape_f, dtype=fdt, device=dev)
-            if self.cache_int8:
-                self.dec_ks = torch.zeros(shape_f[:4], device=dev)
-                self.dec_vs = torch.zeros(shape_f[:4], device=dev)
-            # The position-major cache every slot's init step runs in:
-            # an init writes slots [0, 38 + P) and reads nothing it did
-            # not write, so the slot is shared and the rest stays zero.
+            self._kv = _ShardedKV(mesh.devices if mesh else [[dev]], self.B,
+                                  lm, s_dec, self.cache_int8, cdt)
+            self.dec_k, self.dec_v, self.dec_ks, self.dec_vs = \
+                self._kv.exposed()
+            # The position-major cache every slot's init step runs in (on
+            # the first device): an init writes slots [0, 38 + P) and
+            # reads nothing it did not write, so the slot is shared and
+            # the rest stays zero.
             self._init_dec_zero = create_cache(lm, 1, s_dec, cdt, dev)
             with torch.no_grad():
                 ada = k1.ada_vectors(model.params["decoder"],
                                      model.t_embed(delay_tokens), model._mm)
-            self._run_step = fused_step_fn(
-                model.params["decoder"], self._fused["w"], ada, lm,
-                model._mm, model._step)
+            self._decode = _decoder(model, self._fused["w"], ada, self._kv,
+                                    self._dec_ring, self._cache_chunk, mesh)
         else:
             shape_d = (self.B, lm.n_layers, 1, s_dec, lm.n_kv_heads,
                        lm.head_dim)
@@ -546,10 +779,7 @@ class StreamPool:
         enc_k = _to_numpy(self.enc_k[:, b:b + 1])  # [L, 1, s_enc, H, hd]
         enc_v = _to_numpy(self.enc_v[:, b:b + 1])
         if self._fused is not None:
-            km, vm = self.dec_k[:, b].float(), self.dec_v[:, b].float()
-            if self.cache_int8:
-                km = km * self.dec_ks[:, b][..., None]
-                vm = vm * self.dec_vs[:, b][..., None]
+            km, vm = self._kv.read(b, self.model.device)  # [L, H, S, hd]
             dk = _to_numpy(km.transpose(1, 2)[:, None])  # [L, 1, S, H, hd]
             dv = _to_numpy(vm.transpose(1, 2)[:, None])
         else:
@@ -614,8 +844,7 @@ class StreamPool:
             return to_torch(a, dev).to(self.model.cache_dtype)
 
         if self._fused is not None:
-            self._write_fused_slot(b, to_torch(dk, dev)[:, 0],
-                                   to_torch(dv, dev)[:, 0])
+            self._kv.write(b, to_torch(dk, dev)[:, 0], to_torch(dv, dev)[:, 0])
         else:
             self.dec_k[b], self.dec_v[b] = dev16(dk), dev16(dv)
         self.enc_k[:, b:b + 1] = dev16(enc_k)
@@ -623,24 +852,6 @@ class StreamPool:
         self.prev_tok[b] = int(state["prev_token"])
         self.prev_audio[b] = to_torch(_host_f32(state["prev_audio"]),
                                       dev).to(self.model.compute_dtype)[0]
-
-    def _write_fused_slot(self, b: int, k: torch.Tensor,
-                          v: torch.Tensor) -> None:
-        """Position-major k / v [L, n, H, hd] (n <= S) into slot ``b``'s
-        head-major share of the fused caches, quantized per vector when
-        the caches are int8; slots past n are zeroed."""
-        n = k.shape[1]
-        km, vm = k.transpose(1, 2), v.transpose(1, 2)  # [L, H, n, hd]
-        for cache in (self.dec_k, self.dec_v, self.dec_ks, self.dec_vs):
-            if cache is not None:
-                cache[:, b, :, n:] = 0
-        if self.cache_int8:
-            (kq, ks), (vq, vs) = k1.quantize_kv(km), k1.quantize_kv(vm)
-            self.dec_k[:, b, :, :n], self.dec_v[:, b, :, :n] = kq, vq
-            self.dec_ks[:, b, :, :n], self.dec_vs[:, b, :, :n] = ks, vs
-        else:
-            self.dec_k[:, b, :, :n] = km.to(self.dec_k.dtype)
-            self.dec_v[:, b, :, :n] = vm.to(self.dec_v.dtype)
 
     # -- steps ---------------------------------------------------------------
 
@@ -673,8 +884,8 @@ class StreamPool:
         if self._fused is not None:
             # The init wrote slots [0, need) in both layouts (a ring's
             # head, then the start of its body).
-            self._write_fused_slot(b, dec_cache.k[:, 0, :need],
-                                   dec_cache.v[:, 0, :need])
+            self._kv.write(b, dec_cache.k[:, 0, :need],
+                           dec_cache.v[:, 0, :need])
         else:
             self.dec_k[b, :, :, need:] = 0
             self.dec_v[b, :, :, need:] = 0
@@ -811,30 +1022,6 @@ class StreamPool:
                                       self.prev_audio)
         return inputs
 
-    def _cache_kw(self) -> dict:
-        kw = {}
-        if self.cache_int8:
-            kw.update(k_scales=self.dec_ks, v_scales=self.dec_vs)
-        if self._cache_chunk is not None:
-            kw.update(cache_chunk=self._cache_chunk)
-        return kw
-
-    def _append(self, k_new: torch.Tensor, v_new: torch.Tensor,
-                slots: torch.Tensor,
-                rows: Optional[torch.Tensor] = None) -> None:
-        """Fresh K / V rows [L, n, H, hd] into the fused caches at
-        ``slots`` of cache rows ``rows``, quantized per vector (codes and
-        scales) when the caches are int8."""
-        if not self.cache_int8:
-            append_rows(self.dec_k, k_new, slots, rows)
-            append_rows(self.dec_v, v_new, slots, rows)
-            return
-        (kq, ks), (vq, vs) = k1.quantize_kv(k_new), k1.quantize_kv(v_new)
-        append_rows(self.dec_k, kq, slots, rows)
-        append_rows(self.dec_v, vq, slots, rows)
-        append_scales(self.dec_ks, ks, slots, rows)
-        append_scales(self.dec_vs, vs, slots, rows)
-
     def _slots(self, positions: torch.Tensor) -> torch.Tensor:
         if self._dec_ring is None:
             return positions
@@ -842,26 +1029,25 @@ class StreamPool:
 
     def _pool_step_fused(self, mel_wins: np.ndarray, ready: torch.Tensor,
                          dec_len: torch.Tensor) -> torch.Tensor:
-        """One pooled step: the batched encoder, then P K1 steps over all
-        B rows, each row at its own offset, RoPE position and ring
-        phase.  -> (tokens [B, P], top-2 margins [B, P] or None); a
-        masked row's are dropped by the caller."""
+        """One pooled step: the batched encoder, then P fused decode
+        steps over all B rows (K1, or the meshed route), each row at its
+        own offset, RoPE position and ring phase.  -> (tokens [B, P],
+        top-2 margins [B, P] or None); a masked row's are dropped by the
+        caller."""
         dec, lm = self.model.params["decoder"], self.cfg.language_model
         inputs = self._encode_windows(mel_wins, ready, dec_len)
         prev = self.prev_tok
+        rows = torch.arange(self.B, device=ready.device)
         tokens, margins = [], []
         for i in range(self.P):
             offs = dec_len + i  # [B] absolute positions
             text = embed_tokens(dec, prev.long()[:, None])[:, 0]
             x = (inputs[:, i] + text).float()
             cos, sin = k1.rope_pair_vectors(offs, lm.head_dim, lm.rope_theta)
-            _, k_new, v_new, logits = self._run_step(
-                x, offs, cos, sin, self.dec_k, self.dec_v,
-                ring=self._dec_ring, **self._cache_kw())
+            prev, logits, k_new, v_new = self._decode(x, offs, cos, sin)
             # The step reads visible slots only, and a row's slot(offs)
             # is not one, so the append in place is safe.
-            self._append(k_new, v_new, self._slots(offs.long()))
-            prev = select_token(logits)
+            self._kv.append(k_new, v_new, self._slots(offs.long()), rows)
             tokens.append(prev)
             if self.model.record_margins:
                 margins.append(top2_margin(logits))
@@ -906,16 +1092,15 @@ class StreamPool:
             x = (inputs[rows[:, None], idx] + text).reshape(B * K, -1)
             at = (offs[:, None] + slot).reshape(-1)
             cos, sin = k1.rope_pair_vectors(at, lm.head_dim, lm.rope_theta)
-            _, k_new, v_new, logits = self._run_step(
-                x.float(), offs.to(torch.int32), cos, sin, self.dec_k,
-                self.dec_v, spec=K, ring=self._dec_ring, **self._cache_kw())
-            y = select_token(logits).reshape(B, K)
+            y, logits, k_new, v_new = self._decode(
+                x.float(), offs.to(torch.int32), cos, sin, spec=K)
+            y = y.reshape(B, K)
             match = (y[:, :K - 1] == drafts[:, 1:]).to(torch.int32)
             n_acc = 1 + torch.cumprod(match, dim=1).sum(dim=1)
             live = ready & (pos < P)
             adv = torch.where(live, torch.minimum(n_acc, P - pos), 0)
             # All K fresh rows of every slot go in, at offs + j.
-            self._append(k_new, v_new, self._slots(at), stream)
+            self._kv.append(k_new, v_new, self._slots(at), stream)
             toks.scatter_(1, idx, y)
             if marg is not None:
                 marg.scatter_(1, idx, top2_margin(logits).reshape(B, K))
@@ -1044,8 +1229,14 @@ class StreamingSession:
             self._max_enc = 4 * self._max_dec
             rope_positions = self._max_dec
 
-        _refuse_mesh(model)
-        self._fused = model.fused_decode is not None
+        # On a mesh the stream runs on data group 0's shards: K4 / K5 / K6
+        # over its model shards (tp > 1), K1 on its device (dp > 1, tp = 1).
+        # JAX replicates the one stream over the data axis; the tokens
+        # are the same.
+        tp = _mesh_shape(model)[1]
+        self._tp_mesh = (Mesh([model.parallel.mesh.devices[0]]) if tp > 1
+                         else None)
+        self._fused = _fused_weights(model) is not None
         if self.speculative > 1:
             if not self._fused:
                 raise ValueError(
@@ -1055,18 +1246,29 @@ class StreamingSession:
                 raise ValueError(
                     f"speculative={self.speculative} must be <= "
                     f"step_positions={self.P}")
-        if self._fused:
+        spec = max(1, self.speculative)
+        if self._tp_mesh is not None:
+            tpk.check_tp_geometry(self._max_dec, lm.head_dim,
+                                  lm.sliding_window, spec, lm.n_kv_heads,
+                                  lm.hidden_dim, lm.vocab_size, tp,
+                                  self._dec_ring)
+        elif self._fused:
             # No per-op fallback: a geometry K1 cannot take is an error.
             k1.check_geometry(self._max_dec, lm.head_dim, lm.sliding_window,
-                              max(1, self.speculative), self._dec_ring)
+                              spec, self._dec_ring)
         cache_dtype = model.cache_dtype  # bf16; f32 on an f32 model
         itemsize = torch.empty((), dtype=cache_dtype).element_size()
-        self.cache_bytes = 2 * itemsize * (
-            enc.n_layers * self._max_enc * enc.n_kv_heads * enc.head_dim
-            + lm.n_layers * self._max_dec * lm.n_kv_heads * lm.head_dim)
-        check_hbm(model, self.cache_bytes,
+        dec_bytes = (2 * itemsize * lm.n_layers * self._max_dec
+                     * lm.n_kv_heads * lm.head_dim)
+        self.cache_bytes = dec_bytes + 2 * itemsize * (
+            enc.n_layers * self._max_enc * enc.n_kv_heads * enc.head_dim)
+        # On a tp mesh the shards hold the head-major decoder caches; the
+        # first device the encoder's and the init's position-major one.
+        sharded = self._tp_mesh is not None
+        check_hbm(model, dec_bytes if sharded else self.cache_bytes,
                   f"StreamingSession(unbounded={unbounded}, "
-                  f"max_duration_s={max_duration_s})", rows=1)
+                  f"max_duration_s={max_duration_s})", rows=1,
+                  first_bytes=self.cache_bytes if sharded else 0)
 
         self.enc_cache = create_encoder_cache(enc, 1, self._max_enc,
                                               cache_dtype, dev)
@@ -1076,13 +1278,11 @@ class StreamingSession:
         self._dec_rope = rope_tables(lm.head_dim, rope_positions,
                                      lm.rope_theta, device=dev)
         self._t_embed = model.t_embed(delay_tokens)
-        self._run_step = None
+        self._kv = self._decode = self._ada = None
         if self._fused:
-            dec = model.params["decoder"]
             with torch.no_grad():
-                ada = k1.ada_vectors(dec, self._t_embed, model._mm)
-            self._run_step = fused_step_fn(dec, model.fused_decode, ada, lm,
-                                           model._mm, model._step)
+                self._ada = k1.ada_vectors(model.params["decoder"],
+                                           self._t_embed, model._mm)
         self._draft_table = None
         self._spec_stats = None
         if self.speculative > 1:
@@ -1130,12 +1330,26 @@ class StreamingSession:
             self._dec_rope, self._dec_ring,
             lambda t, lg: self._record(out, t, lg))
         if self._fused:
-            # K1 reads a head-major cache: [L, 1, S, H, hd] -> [L, 1, H,
-            # S, hd], once.
             c = self.dec_cache
-            self.dec_cache = KVCache(c.k.transpose(2, 3).contiguous(),
-                                     c.v.transpose(2, 3).contiguous(),
-                                     c.length)
+            self._attach_kv(c.k[:, 0], c.v[:, 0], c.length)
+
+    def _attach_kv(self, k: torch.Tensor, v: torch.Tensor,
+                   length: int) -> None:
+        """The fused decode's head-major caches from position-major k / v
+        [L, S, H, hd] (the init's, or a checkpoint's), once: on the
+        model's device, or as the shards of data group 0 of the mesh
+        (:class:`_ShardedKV`), and the decode over them."""
+        mesh = self._tp_mesh
+        w = _fused_weights(self.model)
+        if mesh is not None:  # data group 0's shards
+            w = {name: leaf[:1] for name, leaf in w.items()}
+        self._kv = _ShardedKV(mesh.devices if mesh else [[self.model.device]],
+                              1, self.cfg.language_model, k.shape[1], False,
+                              self.model.cache_dtype)
+        self._kv.write(0, k, v)
+        self._decode = _decoder(self.model, w, self._ada, self._kv,
+                                self._dec_ring, None, mesh)
+        self.dec_cache = KVCache(*self._kv.exposed()[:2], length)
 
     def _steady_inputs(self, mel_win: np.ndarray) -> torch.Tensor:
         """Encode the step's 4P frames -> the decoder's P audio inputs
@@ -1147,28 +1361,26 @@ class StreamingSession:
         return inputs
 
     def _fused_step(self, inputs: torch.Tensor, out: list) -> None:
-        """P sequential K1 steps over the head-major cache."""
+        """P sequential fused steps (K1, or the TP halves and K6) over the
+        head-major caches."""
         dec, lm = self.model.params["decoder"], self.cfg.language_model
         c = self.dec_cache
         off0 = c.length
-        cos, sin = k1.rope_pair_vectors(
-            torch.arange(off0, off0 + self.P, device=inputs.device),
-            lm.head_dim, lm.rope_theta)
+        at = torch.arange(off0, off0 + self.P, device=inputs.device)
+        cos, sin = k1.rope_pair_vectors(at, lm.head_dim, lm.rope_theta)
+        slots = at if self._dec_ring is None else ring_slot(
+            at, *self._dec_ring)
+        row = torch.zeros(1, dtype=torch.long, device=inputs.device)
         prev = self._prev_token
         for i in range(self.P):
-            off = off0 + i
             text = embed_tokens(dec, prev.long()[:, None])[:, 0]
             x = (inputs[:, i] + text).float()
-            _, k_new, v_new, logits = self._run_step(
-                x, off, cos[i], sin[i], c.k, c.v, ring=self._dec_ring)
+            prev, logits, k_new, v_new = self._decode(x, off0 + i, cos[i],
+                                                      sin[i])
             # The step reads visible slots only, and slot(off) is not one
             # (in a ring: it holds a position outside the window), so the
             # append in place leaves the step's inputs as they were.
-            slot = off if self._dec_ring is None else ring_slot(
-                off, *self._dec_ring)
-            c.k[:, :, :, slot] = k_new
-            c.v[:, :, :, slot] = v_new
-            prev = select_token(logits)
+            self._kv.append(k_new, v_new, slots[i:i + 1], row)
             self._record(out, prev, logits)
         self.dec_cache = KVCache(c.k, c.v, off0 + self.P)
         self._prev_token = prev
@@ -1205,9 +1417,8 @@ class StreamingSession:
             x = (inputs[pos + slot] + text).float()  # [K, D] rows (0, j)
             at = off.long() + slot  # absolute positions of the K rows
             cos, sin = k1.rope_pair_vectors(at, lm.head_dim, lm.rope_theta)
-            _, k_new, v_new, logits = self._run_step(
-                x, off, cos, sin, c.k, c.v, spec=K, ring=self._dec_ring)
-            y = select_token(logits)  # [K]
+            y, logits, k_new, v_new = self._decode(x, off, cos, sin,
+                                                   spec=K)  # y: [K]
             match = (y[:K - 1] == drafts[1:]).to(torch.int32)
             n_acc = torch.minimum(1 + torch.cumprod(match, dim=0).sum(),
                                   P - pos)
@@ -1216,9 +1427,8 @@ class StreamingSession:
             # them (slots map deterministically from positions).
             slots = at if self._dec_ring is None else ring_slot(
                 at, *self._dec_ring)
-            rows = torch.zeros(K, dtype=torch.long, device=dev)
-            append_rows(c.k, k_new, slots, rows)
-            append_rows(c.v, v_new, slots, rows)
+            self._kv.append(k_new, v_new, slots,
+                            torch.zeros(K, dtype=torch.long, device=dev))
             toks[pos + slot] = y
             if marg is not None:
                 marg[pos + slot] = top2_margin(logits)
@@ -1443,7 +1653,10 @@ class StreamingSession:
             return self._pool.slot_state(self)
         dk, dv = self.dec_cache.k, self.dec_cache.v
         if self._fused and self._positions_done > 0:
-            dk, dv = dk.transpose(2, 3), dv.transpose(2, 3)  # head-major
+            # Head-major (on a mesh: gathered from the shards) ->
+            # position-major [L, 1, S, H, hd].
+            k, v = self._kv.read(0, self.model.device)
+            dk, dv = k.transpose(1, 2)[:, None], v.transpose(1, 2)[:, None]
         return {
             "version": self.CHECKPOINT_VERSION,
             "P": self.P,
@@ -1535,9 +1748,9 @@ class StreamingSession:
                               int(state["enc_len"]))
         dk, dv = cache(state["dec_k"]), cache(state["dec_v"])
         if s._fused and s._positions_done > 0:
-            dk = dk.transpose(2, 3).contiguous()  # position-major -> head
-            dv = dv.transpose(2, 3).contiguous()
-        s.dec_cache = KVCache(dk, dv, int(state["dec_len"]))
+            s._attach_kv(dk[:, 0], dv[:, 0], int(state["dec_len"]))
+        else:
+            s.dec_cache = KVCache(dk, dv, int(state["dec_len"]))
         return s
 
     def _load_host_state(self, state: dict) -> None:

@@ -214,13 +214,18 @@ def random_dense_params(cfg, seed: int = 0, dtype=torch.bfloat16,
 
 
 def quantize_params_w8(params: Params) -> Params:
-    """Quantize a dense numpy tree's linears + embeddings to rowwise int8.
+    """Quantize a dense tree's linears + embeddings to rowwise int8.
 
     Dense linears are stored [in, out] ([L, in, out] for stacks); the
     codes are [out, in] per layer, quantized along the in-features axis.
+    A numpy tree gives numpy leaves; a tree of tensors (such as
+    :func:`random_dense_params`') is quantized on its device, which at
+    full width takes seconds where numpy takes minutes.
     """
 
     def q_matrix(w_nk):
+        if isinstance(w_nk, torch.Tensor):
+            return quantize_w8_rowwise(w_nk)
         return quantize_w8_rowwise(np.asarray(w_nk, dtype=np.float32))
 
     def walk(node, parent_key: str):
@@ -234,6 +239,9 @@ def quantize_params_w8(params: Params) -> Params:
                 out[key] = q_matrix(val)  # [V, D]
             elif (key in _LINEAR_KEYS.get(parent_key, set())
                   and getattr(val, "ndim", 0) >= 2):
+                if isinstance(val, torch.Tensor):  # [L, in, out] at once
+                    out[key] = q_matrix(val.transpose(-1, -2))
+                    continue
                 w = np.asarray(val, dtype=np.float32)
                 if w.ndim == 3:  # [L, in, out] -> per-layer [out, in]
                     per = [q_matrix(w[i].T)["w8"] for i in range(w.shape[0])]
