@@ -197,6 +197,32 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              pool, kernels against plain over 3 ticks; a 2 x 2 pool's
              slot checkpointed and restored on one device, run to the
              stream's end through the kernels and the plain versions.
+13d. q4g mesh — right after the q4g one-shot phase (5), on its random
+             full-width q4g tree: K1 mode (i) over the g32 table at 1 and
+             8 rows (== the argmax of mode (h)'s logits), K4 in g32 (1
+             row, 8 spec rows; (d), (e) and (f) at four streams, windows
+             full), K5 in g32 (1 and 8 rows) and K6 on a g32 vocab shard
+             (1 and 8 rows, the planted ties), each bit-equal to plain,
+             timed from a CUDA graph and from the host beside its bound;
+             the one-shot path of phase 13 on q4g (mesh_oneshot: tp = 2
+             sequential and speculative, the plain TP side on its first
+             4 s, the TP rule against the single q4g card, or TP's
+             quantization groups when they part at the first decoded
+             token; dp = 2 == the single card, 2 x 2 == tp = 2, every
+             launch a g32 one); an unbounded tp = 2 session on 8 s, B = 4
+             tp = 2 pools on the bf16 and int8 caches and a dp = 2 pool,
+             each held to the plain versions over its first 2 ticks; a
+             2 x 2 slot restored on one device; the CLI's ``--gguf
+             --weight-format q4g`` with and without ``--tp 2`` on
+             small_gguf (with ``--device cpu`` on one card), each
+             printing the library path's line on its mesh, tp = 2 held
+             to one device with TP's quantization groups.  On the plain
+             prefix the speculative tp = 2 run is held to its plain twin,
+             and the witness (fresh_through_cache: the pass's earlier
+             fresh rows read back through the bf16 cache) to plain
+             sequential; only then may a q4g speculative row part from
+             sequential above the spec near-tie, by the margin-gap rule
+             (spec_held).
 13b.       on two cards or more only (alone: ``mesh_cards_main``):
              each mesh that fits with every shard on a card of its own,
              tokens == the same mesh on card 0 (dp == the single card),
@@ -675,6 +701,72 @@ def first_divergence(name, got, ref, margins, tie):
     return False
 
 
+def spec_held(name, spec, seq, margins, spec_margins=None):
+    """A q4g mesh's speculative tokens against its sequential ones by the
+    spec near-tie rule (first_divergence with SPEC_MARGIN_TIE).  A parting
+    above the near-tie passes only by the margin-gap rule
+    (tp_against_single) with ``spec_margins()``, the speculative run's own
+    top-2 margins: a speculative pass reads its earlier fresh rows in f32
+    where the sequential step reads them back from the bf16 cache
+    (fresh_through_cache, held in mesh_oneshot, is the witness), and on
+    the random q4g tree that moves the logits beyond the near-tie, so the
+    two may part only where the sequential margin is below twice their
+    margin gap before the parting (ROADMAP §3).  w8 meshes keep the
+    near-tie rule alone -> tokens identical."""
+    if spec.tolist() == seq.tolist():
+        return True
+    i = int(np.nonzero(spec != seq)[0][0])
+    margin = float(margins[i])
+    print(f"{name}: first token divergence at position {i}: {spec[i]} vs "
+          f"{seq[i]}, reference top-2 margin {margin:.3e} (tie threshold "
+          f"{SPEC_MARGIN_TIE})", flush=True)
+    if margin < SPEC_MARGIN_TIE:
+        return False
+    if spec_margins is None:
+        fail(f"{name}: tokens diverge at a margin above the near-tie "
+             "threshold")
+    agree, gap, part = tp_against_single(
+        spec, spec_margins(), seq, margins,
+        f"{name}: speculative parts from sequential")
+    print(f"{name}: above the near-tie; the margin-gap rule: the first "
+          f"{agree} tokens agree, margin gap over them {gap:.4e}, "
+          f"sequential margin at the parting {part:.4e}", flush=True)
+    return False
+
+
+def fresh_through_cache(attn):
+    """The witness for a speculative pass parting from the sequential
+    steps: ``attn`` (``ops.decode_step._attention_plain``) with a pass's
+    rows taken one at a time as the sequential step takes them, row j at
+    offset ``offs + j`` over the cache with the earlier rows' K / V
+    written into it through the cache's dtype (bf16), where the pass
+    reads them in f32.  Sequential calls (spec = 1) are unchanged."""
+    import torch
+
+    def one_by_one(q, k, v, k_cache, v_cache, offs, window, spec, n_kv,
+                   scale, ring=None, k_scales=None, v_scales=None,
+                   cache_chunk=None):
+        if spec == 1:
+            return attn(q, k, v, k_cache, v_cache, offs, window, spec, n_kv,
+                        scale, ring, k_scales, v_scales, cache_chunk)
+        if ring is not None or k_scales is not None or cache_chunk:
+            fail("fresh_through_cache takes a bf16 cache without a ring")
+        Bc = q.shape[0] // spec
+        kc, vc = k_cache.clone(), v_cache.clone()
+        rows = torch.arange(Bc, device=kc.device)
+        qS, kS, vS = (t.reshape(Bc, spec, *t.shape[1:]) for t in (q, k, v))
+        out = []
+        for j in range(spec):
+            out.append(attn(qS[:, j], kS[:, j], vS[:, j], kc, vc, offs + j,
+                            window, 1, n_kv, scale))
+            slot = (offs + j).long()
+            kc[rows, :, slot] = kS[:, j].to(kc.dtype)
+            vc[rows, :, slot] = vS[:, j].to(vc.dtype)
+        return torch.stack(out, dim=1).reshape(q.shape[0], -1)
+
+    return one_by_one
+
+
 def counted_run(pipe, sig, dev):
     """transcribe_samples once after a warm-up, with every kernel's
     launch counter set to 0 just before and read just after ->
@@ -1067,7 +1159,8 @@ def run_q4g(tree, cfg, dev, card, sig, tok, n_tok):
           f"GB/s; bound {step_bytes / HBM_BPS * 1e3:.4f} ms [{card}]",
           flush=True)
     return dict(k1=k1h, launches=launches, spec_launches=s_launch,
-                passes=passes, model=model, plain=plain)
+                passes=passes, model=model, plain=plain, tokens=tokens,
+                margins=margins)
 
 
 def run_q4(tree, cfg, dev, card, sig, tok):
@@ -1325,6 +1418,23 @@ def check_k1_ring(model, dev, card):
     return worst, times
 
 
+class Share:
+    """A share of a wrapper's launches (its ``attr`` counter: K1's mode
+    (i) launches, a half's g32 launches), set to 0 and read like the
+    wrapper's own ``launches``."""
+
+    def __init__(self, fn, attr: str):
+        self.fn, self.attr = fn, attr
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        setattr(self.fn, self.attr, n)
+
+
 def stream_counters():
     from voxtral_tpu_torch.ops import decode_step as k1
     from voxtral_tpu_torch.ops import q4_kernel as k3
@@ -1332,12 +1442,21 @@ def stream_counters():
 
     from voxtral_tpu_torch.ops import decode_tp as ktp
 
-    return {"w8_matmul": k2.w8_matmul, "decode_stack_step": k1.decode_stack_step,
+    step = k1.decode_stack_step
+    return {"w8_matmul": k2.w8_matmul, "decode_stack_step": step,
             "decode_layer_step": k1.decode_layer_step,
             "q4_matmul": k3.q4_matmul_packed,
             "attn_half_step": ktp.attn_half_step,
             "ffn_half_step": ktp.ffn_half_step,
-            "lm_half_argmax": ktp.lm_half_argmax}
+            "lm_half_argmax": ktp.lm_half_argmax,
+            "decode_stack_step_lm_argmax": Share(step, "argmax_launches"),
+            # The g32 (q4g) modes of K4, K5, K6 and K1 (i): their own
+            # entries of the record.
+            "attn_half_step_g32": Share(ktp.attn_half_step, "g32_launches"),
+            "ffn_half_step_g32": Share(ktp.ffn_half_step, "g32_launches"),
+            "lm_half_argmax_g32": Share(ktp.lm_half_argmax, "g32_launches"),
+            "decode_stack_step_lm_argmax_g32": Share(
+                step, "argmax_g32_launches")}
 
 
 def stream_run(model, pieces, dev, keep=False, finish=True,
@@ -3116,24 +3235,19 @@ def counted(fn, dev):
     """``fn()`` with every kernel's launch counter set to 0 just before
     and read just after -> (its result, wall s, {kernel: launches},
     peak GB).  ``decode_stack_step_lm_argmax`` counts K1's mode (i)
-    launches."""
+    launches, the ``_g32`` entries the g32 ones (stream_counters)."""
     import torch
-
-    from voxtral_tpu_torch.ops import decode_step as k1
 
     counters = stream_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     for f in counters.values():
         f.launches = 0
-    k1.decode_stack_step.argmax_launches = 0
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: f.launches for name, f in counters.items()}
-    launches["decode_stack_step_lm_argmax"] = (
-        k1.decode_stack_step.argmax_launches)
     return out, wall, launches, torch.cuda.max_memory_allocated(dev) / 1e9
 
 
@@ -3170,9 +3284,15 @@ def timed_kernel(tag, kernel, plain, moved, ops, card):
     return err, (ms, plain_ms, b_ms, b_by, host_ms)
 
 
+def g32_tag(model) -> str:
+    """" g32" for a q4g model (its halves and folds run in g32), else ""."""
+    return " g32" if model.decode_route == "q4g" else ""
+
+
 def check_k4_k5(tp, dev, card):
     """K4 and K5 alone at tp = 2 local shapes (shard 0 of the model's TP
-    stacks, layer MESH_LAYER), bit for bit -> (err, {case: times})."""
+    stacks, layer MESH_LAYER; w8 or, on a q4g model, g32), bit for bit
+    -> (err, {case: times})."""
     import torch
 
     from voxtral_tpu_torch.ops import decode_step as k1
@@ -3207,7 +3327,8 @@ def check_k4_k5(tp, dev, card):
                  + 2 * nbytes(x) + 2 * off * nkv * hd * 2
                  + 2 * rows * nkv * hd * 2)
         err, t = timed_kernel(
-            f"K4 attn_half_step tp=2 rows={rows} S={S} offset={off}",
+            f"K4 attn_half_step{g32_tag(tp)} tp=2 rows={rows} S={S} "
+            f"offset={off}",
             lambda: ktp.attn_half_step(*args, **kw),
             lambda: ktp.attn_half_step_plain(*args, **kw), moved,
             2 * rows * sum(t.numel() for t in wl), card)
@@ -3221,7 +3342,7 @@ def check_k4_k5(tp, dev, card):
         wl = (w["w13"][layer], w["w2"][layer])
         moved = nbytes(*wl, *args[2:6]) + 2 * nbytes(x)
         err, t = timed_kernel(
-            f"K5 ffn_half_step tp=2 rows={rows}",
+            f"K5 ffn_half_step{g32_tag(tp)} tp=2 rows={rows}",
             lambda: (ktp.ffn_half_step(*args, eps=cfg.norm_eps),),
             lambda: (ktp.ffn_half_step_plain(*args, eps=cfg.norm_eps),),
             moved, 2 * rows * sum(t.numel() for t in wl), card)
@@ -3235,7 +3356,9 @@ def check_k6(tp, dev, card):
     planted tie (K6_TIES: two equal dominant rows inside shard 0, and
     across the shards), every row's token the lowest global index of
     the tie, as tp_lm_head_token resolves it and as torch.argmax over
-    the whole table's plain logits finds it -> (err, {rows: times})."""
+    the whole table's plain logits finds it -> (err, {rows: times}).
+    On a q4g model the shards are g32 (f16 group scales [V_l, D/32]; a
+    planted row takes the top scale in every group)."""
     import torch
 
     from voxtral_tpu_torch.ops import decode_step as k1
@@ -3256,7 +3379,8 @@ def check_k6(tp, dev, card):
         x = torch.randn((rows, D), device=dev, generator=gen).abs()
         moved = nbytes(codes[0], scale[0], fnorm) + nbytes(x) + rows * 8
         err, t = timed_kernel(
-            f"K6 lm_half_argmax tp=2 rows={rows} (vocab shard of {vl})",
+            f"K6 lm_half_argmax{g32_tag(tp)} tp=2 rows={rows} (vocab shard "
+            f"of {vl})",
             lambda: ktp.lm_half_argmax(x, fnorm, scale[0], codes[0],
                                        eps=eps),
             lambda: ktp.lm_half_argmax_plain(x, fnorm, scale[0], codes[0],
@@ -3282,14 +3406,16 @@ def check_k6(tp, dev, card):
             token = ktp.tp_lm_head_token(tp.parallel.mesh, x, fnorm, [c2],
                                          [s2], eps=eps).tolist()
             xq, sx = quantize_activations(k1._rms(x, fnorm, eps))
-            full = w8_matmul_plain(xq, sx, torch.cat(c2), torch.cat(s2))
+            matmul = (k1.g32_matmul_plain if g32_tag(tp)
+                      else w8_matmul_plain)
+            full = matmul(xq, sx, torch.cat(c2), torch.cat(s2))
             want = min(shard * vl + row for shard, row in tie)
             if token != [want] * rows or full.argmax(-1).tolist() != token:
                 fail(f"K6 tie {name}: tokens {token}, want {want} (plain "
                      f"argmax {full.argmax(-1).tolist()})")
-            print(f"K6 planted tie {name} at {rows} rows: token {want} on "
-                  "every row, == the plain argmax over the whole table",
-                  flush=True)
+            print(f"K6{g32_tag(tp)} planted tie {name} at {rows} rows: "
+                  f"token {want} on every row, == the plain argmax over the "
+                  "whole table", flush=True)
             del c2, s2
     return worst, times
 
@@ -3297,7 +3423,8 @@ def check_k6(tp, dev, card):
 def check_k1_argmax(model, dev, card):
     """K1 mode (i) alone at 1 row (offset 235) and SPEC_K rows (one
     stream), bit for bit against its plain version and equal to the
-    argmax of mode (a)'s logits -> (err, {rows: times})."""
+    argmax of mode (a)'s logits (on a q4g model: over the g32 table,
+    mode (h)'s logits) -> (err, {rows: times})."""
     import torch
 
     from voxtral_tpu_torch.ops import decode_step as k1
@@ -3323,7 +3450,8 @@ def check_k1_argmax(model, dev, card):
                 fused["w2"], *lm_fold(model))
         kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=hd,
                   eps=cfg.norm_eps, window=cfg.sliding_window, spec=rows)
-        tag = f"K1 decode_stack_step mode (i) lm_argmax rows={rows}"
+        tag = (f"K1 decode_stack_step mode (i) lm_argmax{g32_tag(model)} "
+               f"rows={rows}")
         got = k1.decode_stack_step(*args, lm_argmax=True, **kw)
         logits = k1.decode_stack_step(*args, **kw)[3]
         torch.cuda.synchronize()
@@ -3333,28 +3461,34 @@ def check_k1_argmax(model, dev, card):
         if not err == 0.0 or got[3][:, 0].tolist() != logits.argmax(
                 -1).tolist():
             fail(f"{tag}: max_abs_err {err:.3e}, tokens {got[3].tolist()} "
-                 f"against mode (a)'s argmax {logits.argmax(-1).tolist()}")
+                 f"against the logits' argmax {logits.argmax(-1).tolist()}")
         ms, plain_ms = in_turns(
             lambda: k1.decode_stack_step(*args, lm_argmax=True, **kw),
             lambda: k1.decode_stack_step_plain(*args, lm_argmax=True, **kw),
             20, 1)
+        dev_ms = graph_ms(
+            lambda: k1.decode_stack_step(*args, lm_argmax=True, **kw), reps=5,
+            iters=4)
         kv_read = 2 * L * cfg.n_kv_heads * off * hd * 2
         moved = (step_weight_bytes(model) + kv_read + 2 * nbytes(x)
                  + 2 * nbytes(got[1]) + rows * 4)
         b_ms, b_by = bound(moved, 2 * rows * (
             n_stack_weights(model) + lm_fold(model)[1].numel()), INT8_OPS)
-        times[rows] = (ms, plain_ms, b_ms, b_by)
+        times[rows] = (ms, plain_ms, b_ms, b_by, dev_ms)
         worst = max(worst, err)
-        print(f"{tag}: bit-equal, tokens == mode (a)'s argmax; kernel "
-              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
-              f"({b_by}; {100 * b_ms / ms:.1f} % of it) [{card}]",
-              flush=True)
+        print(f"{tag}: bit-equal, tokens == the logits' argmax; kernel "
+              f"{ms:.3f} ms called from the host, {dev_ms:.3f} ms on the "
+              f"device (CUDA graph), plain {plain_ms:.3f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}; {100 * b_ms / dev_ms:.1f} % of it) "
+              f"[{card}]", flush=True)
     return worst, times
 
 
 def mesh_runs(tag, model, mel2, dev, card, spec_tie_margins=None):
     """The model's two-row batch sequentially (decode log on) and with
-    speculative=SPEC_K ngram drafts, each counted -> dict."""
+    speculative=SPEC_K ngram drafts, each counted; speculative held to
+    sequential row by row by the spec near-tie rule (first_divergence;
+    spec_held on a q4g mesh) -> dict."""
     model.measure_decode, model.decode_log = True, []
     try:
         seq, wall, launches, peak = counted(
@@ -3372,11 +3506,34 @@ def mesh_runs(tag, model, mel2, dev, card, spec_tie_margins=None):
           f"position), speculative K={SPEC_K} ngram {s_wall:.3f} s "
           f"({passes} passes); peak {peak:.3f} GB; launches {launches} "
           f"[{card}]", flush=True)
-    if spec_tie_margins is not None:
+    if spec_tie_margins is not None and model.decode_route != "q4g":
         for r in range(len(seq)):
             first_divergence(f"{tag} speculative row {r} vs sequential",
                              spec[r], seq[r], spec_tie_margins[r],
                              SPEC_MARGIN_TIE)
+    elif spec_tie_margins is not None:
+        kept = []
+
+        def spec_margins(r):
+            # The speculative batch again with its top-2 margins (the
+            # same tokens: the margins add the logits beside the folds).
+            if not kept:
+                model.record_margins = True
+                try:
+                    again = model.transcribe_streaming_batch(
+                        mel2, speculative=SPEC_K)
+                finally:
+                    model.record_margins = False
+                if again.tolist() != spec.tolist():
+                    fail(f"{tag}: speculative tokens with margins kept "
+                         "differ from the run without")
+                kept.append(model.last_margins)
+            return kept[0][r]
+
+        for r in range(len(seq)):
+            spec_held(f"{tag} speculative row {r} vs sequential", spec[r],
+                      seq[r], spec_tie_margins[r],
+                      lambda r=r: spec_margins(r))
     return dict(seq=seq, spec=spec, wall=wall, spec_wall=s_wall,
                 launches=launches, spec_launches=s_launches, peak=peak,
                 passes=passes, ms_pos=ms_pos, steps=rec["steps"])
@@ -3405,25 +3562,67 @@ def tp_against_single(tokens, margins, ref, ref_margins,
     return i, gap, margin
 
 
-def run_mesh_w8(model, dev, card, sig, tok, single):
-    """Phase 13: the four kernels alone, then the one-shot path on a
-    tp = 2, a dp = 2 and a 2 x 2 mesh whose shards share the card."""
-    import torch
+def spec_witness(fmt, plain, tok, head, spipe, p_head, p_margins, card):
+    """On the plain prefix ``head`` of a tp = 2 mesh: the kernel
+    speculative run held to the plain one by the kernel near-tie rule;
+    then the witness for speculative parting from sequential: the plain
+    speculative run with fresh_through_cache (each pass's rows one at a
+    time, the earlier rows read back through the bf16 cache) held to the
+    plain sequential run (``p_head`` / ``p_margins``) by the same rule,
+    beside where the plain speculative run as it is parts from it."""
+    from voxtral_tpu_torch.ops import decode_tp as tpk
+    from voxtral_tpu_torch.pipeline import PipelineConfig
 
+    pcfg = PipelineConfig(speculative=SPEC_K, draft="ngram")
+    ks_head = spipe._chunk_tokens(head, SR)[0]
+    ps_head, ps_margins = plain_tokens(plain, tok, head, pcfg)
+    same_k = first_divergence(f"{fmt} tp=2 speculative kernel vs plain",
+                              ks_head, ps_head, ps_margins, MARGIN_TIE)
+    attn = tpk._attention_plain
+    tpk._attention_plain = fresh_through_cache(attn)
+    try:
+        pw_head, pw_margins = plain_tokens(plain, tok, head, pcfg)
+    finally:
+        tpk._attention_plain = attn
+    same_w = first_divergence(
+        f"{fmt} tp=2 plain speculative with fresh rows through the bf16 "
+        "cache vs plain sequential", pw_head, p_head, p_margins, MARGIN_TIE)
+    n = min(len(pw_head), len(p_head))
+    differ = np.nonzero(pw_head[:n] != p_head[:n])[0]
+    n = int(differ[0]) if len(differ) else n
+    gap = float(np.abs(pw_margins[:n] - p_margins[:n]).max())
+    n = min(len(ps_head), len(p_head))
+    differ = np.nonzero(ps_head[:n] != p_head[:n])[0]
+    part = (f"parts from plain sequential at position {int(differ[0])}, "
+            f"sequential margin {float(p_margins[differ[0]]):.4e}"
+            if len(differ) else "== plain sequential")
+    print(f"{fmt} tp=2 speculative on the plain prefix ({len(p_head)} "
+          f"tokens): kernel == plain: {same_k}; plain speculative {part}; "
+          f"with fresh rows through the bf16 cache == plain sequential: "
+          f"{same_w}, top-2 margins differ by at most {gap:.3e} [{card}]",
+          flush=True)
+
+
+def mesh_oneshot(model, tp, dev, card, sig, tok, single, plain_secs,
+                 single_plain=None):
+    """The one-shot path on meshes whose shards share the card, for the
+    model's weights (``model.decode_route``: w8, or q4g with the g32
+    halves and folds): ``tp`` (tp = 2) on the 16 s chirp, sequential
+    with the top-2 margins and speculative=SPEC_K ngram (held to
+    sequential by the spec near-tie rule; on q4g after spec_witness, by
+    spec_held), through the plain versions over its first
+    ``plain_secs`` (the kernel near-tie rule), held to
+    the single card (``single``: its tokens and margins) by ROADMAP §3's
+    TP rule or, when the two part before any decoded token agrees, to
+    ``single_plain`` with TP's quantization groups over the plain
+    prefix; then two chirps at dp = 2 (== the single card's batch
+    exactly, K1 mode (i) once per position and data group) and 2 x 2
+    (== tp = 2 exactly) -> the phase's launches and runs."""
     from voxtral_tpu_torch.pipeline import PipelineConfig, TranscribePipeline
 
-    cli = subprocess.Popen(
-        [sys.executable, "-m", "voxtral_tpu_torch.cli", "--tp", "2",
-         "--random-weights", "--dtype", "w8", "--audio", "unused.wav"],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     cfg, params = model.config, model.params
-    k1i_err, k1i_times = check_k1_argmax(model, dev, card)
-    tp = mesh_model(params, cfg, dev, 1, 2)
-    k45_err, k45_times = check_k4_k5(tp, dev, card)
-    k6_err, k6_times = check_k6(tp, dev, card)
-
-    # tp = 2, the 16 s chirp, sequential (margins kept: the whole lm_head
-    # runs beside K6 for them) and speculative; kernels against plain.
+    fmt = model.decode_route
+    g32 = fmt == "q4g"
     pipe = TranscribePipeline(tp, tok)
     tp.record_margins = True
     try:
@@ -3434,41 +3633,82 @@ def run_mesh_w8(model, dev, card, sig, tok, single):
     tokens = chunks[0]
     steps = len(tokens) - 1
     if tp.last_decode_route != "tp":
-        fail(f"tp=2 route {tp.last_decode_route}")
+        fail(f"{fmt} tp=2 route {tp.last_decode_route}")
     want = {"attn_half_step": 2 * 26 * steps, "ffn_half_step": 2 * 26 * steps,
             "lm_half_argmax": 2 * steps, "decode_stack_step": 0}
+    # Every launch of a q4g mesh is a g32 one; a w8 mesh launches none.
+    want.update({f"{k}_g32": n if g32 else 0 for k, n in want.items()
+                 if k != "decode_stack_step"})
     if any(launches[k] != n for k, n in want.items()):
-        fail(f"tp=2 launches {launches}, want {want}")
+        fail(f"{fmt} tp=2 launches {launches}, want {want}")
     spipe = TranscribePipeline(tp, tok, PipelineConfig(speculative=SPEC_K,
                                                        draft="ngram"))
     s_wall, s_launches, _, s_chunks = counted_run(spipe, sig, dev)
     passes = tp.last_spec_passes
     if s_launches["attn_half_step"] != 2 * 26 * passes:
-        fail(f"tp=2 speculative: K4 launches {s_launches['attn_half_step']}"
-             f" != 52 x {passes} passes")
-    same_spec = first_divergence("tp=2 speculative vs sequential",
-                                 s_chunks[0], tokens, tp_margins,
-                                 SPEC_MARGIN_TIE)
+        fail(f"{fmt} tp=2 speculative: K4 launches "
+             f"{s_launches['attn_half_step']} != 52 x {passes} passes")
+    if not g32:
+        same_spec = first_divergence(f"{fmt} tp=2 speculative vs sequential",
+                                     s_chunks[0], tokens, tp_margins,
+                                     SPEC_MARGIN_TIE)
     plain = mesh_model(params, cfg, dev, 1, 2, kernels=False)
     plain.fused_tp = tp.fused_tp
     release()
-    head = sig[:int(MESH_PLAIN_SECS * SR)]
+    head = sig[:int(plain_secs * SR)]
     k_head = pipe._chunk_tokens(head, SR)[0]
     p_head, p_margins = plain_tokens(plain, tok, head)
-    same_plain = first_divergence("tp=2 kernel vs plain", k_head, p_head,
-                                  p_margins, MARGIN_TIE)
-    agree, gap, part = tp_against_single(tokens, tp_margins,
-                                         single["tokens"], single["margins"])
-    parting = ("no parting" if part is None
-               else f"single-card margin at the parting {part:.4e}")
+    same_plain = first_divergence(f"{fmt} tp=2 kernel vs plain", k_head,
+                                  p_head, p_margins, MARGIN_TIE)
+    if g32:
+        def spec_margins():
+            tp.record_margins = True
+            try:
+                again = spipe._chunk_tokens(sig, SR)[0]
+            finally:
+                tp.record_margins = False
+            if again.tolist() != s_chunks[0].tolist():
+                fail(f"{fmt} tp=2 speculative tokens with margins kept "
+                     "differ from the run without")
+            return tp.last_margins[0].copy()
+
+        spec_witness(fmt, plain, tok, head, spipe, p_head, p_margins, card)
+        same_spec = spec_held(f"{fmt} tp=2 speculative vs sequential",
+                              s_chunks[0], tokens, tp_margins, spec_margins)
+    n = min(len(tokens), len(single["tokens"]))
+    same = np.asarray(tokens[:n]) == np.asarray(single["tokens"][:n])
+    if same.all() or int(np.argmin(same)) > 1:
+        agree, gap, part = tp_against_single(
+            tokens, tp_margins, single["tokens"], single["margins"])
+        rule = (f"against the single card: the first {agree} of "
+                f"{len(tokens)} tokens agree, top-2 margin gap over them "
+                f"{gap:.4e}, " + ("no parting" if part is None else
+                                  f"single-card margin at the parting "
+                                  f"{part:.4e}"))
+    else:
+        # No decoded token agrees to measure the margin gap on: hold
+        # tp = 2 to the single card with TP's quantization groups.
+        if single_plain is None:
+            fail(f"{fmt} tp=2 parts from the single card at its first "
+                 "decoded token")
+        restore = tp_quant_groups(single_plain, 2)
+        try:
+            g_head, g_margins = plain_tokens(single_plain, tok, head)
+        finally:
+            restore()
+        same_g = first_divergence(
+            f"{fmt} tp=2 vs the single card with TP's quantization groups",
+            k_head, g_head, g_margins, MARGIN_TIE)
+        rule = (f"it parts from the single card at position "
+                f"{int(np.argmin(same))}; == the plain single card with TP's "
+                f"quantization groups over {plain_secs:.0f} s: {same_g}")
     enc_s = encode_seconds(pipe, tp, pipe.padded_chunks(sig, SR)[0].samples)
-    print(f"tp=2 on one card: tokens == plain over {MESH_PLAIN_SECS:.0f} s "
+    print(f"{fmt} tp=2 on one card: tokens == plain over {plain_secs:.0f} s "
           f"({len(k_head)} tokens): {same_plain}; speculative == "
-          f"sequential: {same_spec} ({passes} passes); against the single "
-          f"card: the first {agree} of {len(tokens)} tokens agree, top-2 "
-          f"margin gap over them {gap:.4e}, {parting} [{card}]", flush=True)
-    report("w8 tp=2 (one card)", wall, enc_s, len(tokens), peak, card)
-    print(f"w8 tp=2 decode: {(wall - enc_s) * 1e3 / steps:.3f} ms per "
+          f"sequential: {same_spec} ({passes} passes); {rule} [{card}]",
+          flush=True)
+    report(f"{fmt} tp=2 (one card)", wall, enc_s, len(tokens), peak, card)
+    print(f"{fmt} tp=2 decode: {(wall - enc_s) * 1e3 / steps:.3f} ms per "
           f"position; speculative K={SPEC_K} ngram {s_wall:.3f} s, RTF "
           f"{s_wall / AUDIO_SECS:.5f} [{card}]", flush=True)
     del plain, spipe
@@ -3489,41 +3729,63 @@ def run_mesh_w8(model, dev, card, sig, tok, single):
     tp.record_margins = False
     runs = {}
     dp = mesh_model(params, cfg, dev, 2, 1)
-    runs["dp2"] = mesh_runs("w8 dp=2 (one card)", dp, mel2, dev, card,
+    runs["dp2"] = mesh_runs(f"{fmt} dp=2 (one card)", dp, mel2, dev, card,
                             ref2_margins)
     if runs["dp2"]["seq"].tolist() != ref2.tolist():
-        fail("dp=2 tokens != the single card's batch")
-    if runs["dp2"]["launches"]["decode_stack_step_lm_argmax"] != 2 * runs[
-            "dp2"]["steps"]:
-        fail(f"dp=2: K1 (i) launches {runs['dp2']['launches']}")
+        fail(f"{fmt} dp=2 tokens != the single card's batch")
+    k1i = 2 * runs["dp2"]["steps"]
+    if (runs["dp2"]["launches"]["decode_stack_step_lm_argmax"] != k1i
+            or runs["dp2"]["launches"]["decode_stack_step_lm_argmax_g32"]
+            != (k1i if g32 else 0)):
+        fail(f"{fmt} dp=2: K1 (i) launches {runs['dp2']['launches']}")
     del dp
     release()
     dptp = mesh_model(params, cfg, dev, 2, 2)
-    runs["dp2tp2"] = mesh_runs("w8 dp=2 x tp=2 (one card)", dptp, mel2, dev,
-                               card, tp2_margins)
+    runs["dp2tp2"] = mesh_runs(f"{fmt} dp=2 x tp=2 (one card)", dptp, mel2,
+                               dev, card, tp2_margins)
     if runs["dp2tp2"]["seq"].tolist() != tp2.tolist():
-        fail("2 x 2 tokens != tp=2 on the same batch")
-    if runs["dp2tp2"]["launches"]["attn_half_step"] != 4 * 26 * runs[
-            "dp2tp2"]["steps"]:
-        fail(f"2 x 2: K4 launches {runs['dp2tp2']['launches']}")
+        fail(f"{fmt} 2 x 2 tokens != tp=2 on the same batch")
+    k4n = 4 * 26 * runs["dp2tp2"]["steps"]
+    if (runs["dp2tp2"]["launches"]["attn_half_step"] != k4n
+            or runs["dp2tp2"]["launches"]["attn_half_step_g32"]
+            != (k4n if g32 else 0)):
+        fail(f"{fmt} 2 x 2: K4 launches {runs['dp2tp2']['launches']}")
     del dptp
-    out, err = cli.communicate(timeout=300)
+    launches_all = {f"{fmt}_tp2_sequential": launches,
+                    f"{fmt}_tp2_speculative_ngram": s_launches,
+                    **{f"{fmt}_{k}_sequential": r["launches"]
+                       for k, r in runs.items()},
+                    **{f"{fmt}_{k}_speculative_ngram": r["spec_launches"]
+                       for k, r in runs.items()}}
+    release()
+    return dict(launches=launches_all, tp_wall=wall, tp_peak=peak,
+                runs=runs)
+
+
+def run_mesh_w8(model, dev, card, sig, tok, single):
+    """Phase 13: the four kernels alone, then the one-shot path on a
+    tp = 2, a dp = 2 and a 2 x 2 mesh whose shards share the card."""
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "voxtral_tpu_torch.cli", "--tp", "2",
+         "--random-weights", "--dtype", "w8", "--audio", "unused.wav"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    cfg, params = model.config, model.params
+    k1i_err, k1i_times = check_k1_argmax(model, dev, card)
+    tp = mesh_model(params, cfg, dev, 1, 2)
+    k45_err, k45_times = check_k4_k5(tp, dev, card)
+    k6_err, k6_times = check_k6(tp, dev, card)
+    out = mesh_oneshot(model, tp, dev, card, sig, tok, single,
+                       MESH_PLAIN_SECS)
+    del tp
+    _, err = cli.communicate(timeout=300)
     if cli.returncode != 2 or "needs 2 devices, found 1" not in err:
         fail(f"--tp 2 on one card: exit {cli.returncode}, {err[-300:]!r}")
     print(f"python -m voxtral_tpu_torch.cli --tp 2 on one card: exit 2, "
           f"{err.strip().splitlines()[-1]!r}", flush=True)
-    launches_all = {"w8_tp2_sequential": launches,
-                    "w8_tp2_speculative_ngram": s_launches,
-                    **{f"w8_{k}_sequential": r["launches"]
-                       for k, r in runs.items()},
-                    **{f"w8_{k}_speculative_ngram": r["spec_launches"]
-                       for k, r in runs.items()}}
-    del tp, pipe
     release()
     return dict(k1i_err=k1i_err, k1i_times=k1i_times, k45_err=k45_err,
                 k45_times=k45_times, k6_err=k6_err, k6_times=k6_times,
-                launches=launches_all, tp_wall=wall, tp_peak=peak,
-                runs=runs)
+                **out)
 
 
 def run_mesh_cards(params, cfg, dev, card, tok, sig):
@@ -3729,12 +3991,13 @@ K4_MODE_CASES = {
 }
 
 
-def check_k4_modes(tp, dev, card):
-    """K4 alone in its cache modes (K4_MODE_CASES) at tp = 2 local
-    shapes (shard 0, layer MESH_LAYER): bit for bit with its plain
-    version, timed from a CUDA graph and from the host, beside its
-    bound: the layer's local weights once and, of the local cache, the
-    slots some row sees (int8: codes and scales) -> (err, {name: times})."""
+def check_k4_modes(tp, dev, card, cases=None):
+    """K4 alone in its cache modes (``cases``, K4_MODE_CASES by default)
+    at tp = 2 local shapes (shard 0, layer MESH_LAYER; g32 on a q4g
+    model): bit for bit with its plain version, timed from a CUDA graph
+    and from the host, beside its bound: the layer's local weights once
+    and, of the local cache, the slots some row sees (int8: codes and
+    scales) -> (err, {name: times})."""
     import torch
 
     from voxtral_tpu_torch.models.layers import ring_k_positions
@@ -3749,7 +4012,7 @@ def check_k4_modes(tp, dev, card):
     wl = (w["wqkv"][layer], w["wo"][layer])
     worst, times = 0.0, {}
     for name, (tag, S, offs, spec, ring, int8, chunk, dead) in \
-            K4_MODE_CASES.items():
+            (cases or K4_MODE_CASES).items():
         bc = len(offs)
         gen = torch.Generator(device=dev).manual_seed(71 + bc * spec + S)
         kc = (torch.randn((bc, nkv, S, hd), device=dev, generator=gen)
@@ -3788,7 +4051,8 @@ def check_k4_modes(tp, dev, card):
         moved = (nbytes(*wl, *vecs, c, s) + 2 * nbytes(x) + kv_read
                  + 2 * bc * spec * nkv * hd * 2)
         err, t = timed_kernel(
-            f"K4 attn_half_step {tag} tp=2 S={S} ring={ring} offsets={offs} "
+            f"K4 attn_half_step{g32_tag(tp)} {tag} tp=2 S={S} ring={ring} "
+            f"offsets={offs} "
             f"spec={spec} cache_chunk={chunk} ({seen} cache slots read, "
             f"{kv_read / 1e6:.2f} MB)",
             lambda: ktp.attn_half_step(*args, **kw),
@@ -3818,11 +4082,15 @@ def tp_quant_groups(model, tp: int):
 
     def grouped(h, w, scales, fmt):
         # WO and W2 are the step's only linears onto the residual width.
-        if fmt != "w8" or w.shape[0] != dim:
+        if fmt not in ("w8", "g32") or w.shape[0] != dim:
             return orig(h, w, scales, fmt)
         n = h.shape[-1] // tp
+        # w8 row scales are the shards' alike; a g32 shard takes its own
+        # group columns.
         parts = [orig(h[:, i * n:(i + 1) * n], w[:, i * n:(i + 1) * n],
-                      scales, fmt) for i in range(tp)]
+                      scales if fmt == "w8"
+                      else scales[:, i * n // 32:(i + 1) * n // 32], fmt)
+                 for i in range(tp)]
         total = parts[0]
         for part in parts[1:]:
             total = total + part
@@ -4161,6 +4429,202 @@ def run_mesh_streams(w8_model, dev, card, sig):
     release()
     return dict(k4_err=k4_err, k4_times=k4_times, sessions=sessions,
                 pools=pools, int8=int8, launches=launches)
+
+
+# Phase 13d: q4g (exact Q4_0) on a mesh, on phase 5's full-width random
+# q4g tree.  K4 in g32 at four streams with their windows full: (d), (e)
+# and (f) over a head+ring cache (K4_MODE_CASES' layout).
+K4_G32_MODES = {
+    "d": K4_MODE_CASES["d"],
+    "e": K4_MODE_CASES["e"],
+    "f": ("(f) chunked", 8704, POOL_OFFS, 1, (38, 8666), False, 512, None),
+}
+MESH_Q4G_PLAIN_SECS = 4.0    # the plain q4g TP one-shot, held as a prefix
+MESH_Q4G_STREAM_SECS = 8.0   # the tp = 2 q4g session
+MESH_Q4G_PLAIN_TICKS = 2     # the plain side of each q4g mesh pool
+# (its four streams start together, so both ticks step all four)
+
+
+def q4g_cli_start(directory: Path) -> tuple:
+    """``--gguf ... --weight-format q4g`` on small_gguf with and without
+    ``--tp 2``, started side by side: over the cards with two or more,
+    else with ``--device cpu`` (on one card ``--tp 2`` exits 2, as the
+    JAX CLI: phase 13) -> (the processes, small_gguf's files)."""
+    import torch
+
+    files = small_gguf(directory)
+    gguf, tokenizer, params, wav = files
+    where = [] if torch.cuda.device_count() >= 2 else ["--device", "cpu"]
+    base = [sys.executable, "-m", "voxtral_tpu_torch.cli", "--gguf",
+            str(gguf), "--tokenizer", str(tokenizer), "--params", str(params),
+            "--weight-format", "q4g", "--audio", str(wav), *where]
+    procs = {extra: subprocess.Popen(
+        base + list(extra), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=Path(__file__).resolve().parent)
+        for extra in ((), ("--tp", "2"))}
+    return procs, files
+
+
+def q4g_cli_finish(procs: dict, files: tuple, card: str) -> None:
+    """Both CLI runs exit 0 with one line, the line of the library path
+    on the same device or mesh (``TranscribePipeline.from_gguf(...,
+    weight_format="q4g", mesh=)``); the tp = 2 tokens equal the one
+    device's plain step with TP's quantization groups (the kernel
+    near-tie rule on its margins; ROADMAP §3's second witness), and
+    where the one device as it is parts from tp = 2 it is reported."""
+    import torch
+
+    from voxtral_tpu_torch.audio import load_wav
+    from voxtral_tpu_torch.config import VoxtralConfig
+    from voxtral_tpu_torch.models.voxtral import VoxtralModel
+    from voxtral_tpu_torch.parallel import make_mesh
+    from voxtral_tpu_torch.pipeline import TranscribePipeline
+
+    try:
+        outs = {k: (*p.communicate(timeout=300), p.returncode)
+                for k, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    cpu = torch.cuda.device_count() < 2
+    where = "--device cpu" if cpu else "the cards"
+    for extra, (out, err, code) in outs.items():
+        if code != 0 or len(out.splitlines()) != 1:
+            fail(f"CLI --gguf --weight-format q4g {' '.join(extra)} on "
+                 f"{where}: exit {code}, {out!r}, {err[-1500:]}")
+    gguf, tokenizer, params, wav = files
+    cfg = VoxtralConfig.from_file(params)
+    dev = torch.device("cpu" if cpu else "cuda:0")
+    audio = load_wav(wav)
+    runs = {}
+    for extra, mesh in (((), None),
+                        (("--tp", "2"), make_mesh(1, 2, [dev] * 2 if cpu
+                                                  else None))):
+        pipe = TranscribePipeline.from_gguf(
+            gguf, tokenizer, config=cfg, weight_format="q4g",
+            device=None if mesh is not None else dev, mesh=mesh)
+        line = pipe.transcribe_file(wav)
+        if outs[extra][0] != line + "\n":
+            fail(f"CLI q4g {' '.join(extra)} printed {outs[extra][0]!r}, the "
+                 f"library path {line!r}")
+        runs[extra] = pipe._chunk_tokens(audio.samples, audio.sample_rate)[0]
+        if extra == ():
+            one = pipe
+    plain = VoxtralModel(one.model.params, cfg, dev, kernels=False)
+    restore = tp_quant_groups(plain, 2)
+    plain.record_margins = True
+    try:
+        g_tokens = TranscribePipeline(plain, one.tokenizer)._chunk_tokens(
+            audio.samples, audio.sample_rate)[0]
+        g_margins = plain.last_margins[0].copy()
+    finally:
+        restore()
+    tp_tokens = runs[("--tp", "2")]
+    same = first_divergence("CLI q4g tp=2 vs one device with TP's "
+                            "quantization groups", tp_tokens, g_tokens,
+                            g_margins, MARGIN_TIE)
+    print(f"CLI --gguf --weight-format q4g --tp 2 on {where}: exit 0, the "
+          f"library path's line on the tp = 2 mesh ({len(tp_tokens)} "
+          f"tokens); == one device with TP's quantization groups: {same}; "
+          f"against one device as it is: {apart(tp_tokens, runs[()])} "
+          f"(agreement, first parting) [{card}]", flush=True)
+
+
+def mesh_q4g_streams(model, single_plain, tp, dev, card, sig):
+    """Live q4g streams on meshes whose shards share the card, each run
+    through the g32 kernels and held to the plain versions over a prefix
+    (the kernel near-tie rule): an unbounded tp = 2 session on the
+    chirp's first MESH_Q4G_STREAM_SECS, B = 4 tp = 2 pools of four
+    MESH_POOL_SECS chirps started together on the bf16 and the int8
+    cache, a dp = 2 pool; a 2 x 2 pool's slot restored on one device
+    -> launches."""
+    cfg, params = model.config, model.params
+    n_layers = cfg.language_model.n_layers
+    plain = mesh_model(params, cfg, dev, 1, 2, kernels=False)
+    plain.fused_tp = tp.fused_tp
+    release()
+    pieces = ragged_pieces(sig[:int(MESH_Q4G_STREAM_SECS * SR)])
+    tp.record_margins = True
+    try:
+        run = stream_run(tp, pieces, dev, unbounded=True)
+    finally:
+        tp.record_margins = False
+    pl = plain_stream(plain, pieces, dev, secs=MESH_STREAM_PLAIN_SECS,
+                      unbounded=True)
+    tag = "q4g tp=2 unbounded session (one card)"
+    n = len(pl["tokens"])
+    same = first_divergence(f"{tag} kernel vs plain", run["tokens"][:n],
+                            pl["tokens"], pl["margins"], MARGIN_TIE)
+    tp_launches_ok(tag, run["launches"], run["positions"] - 38 - P_STEP,
+                   n_layers)
+    for name in ("attn_half_step", "ffn_half_step", "lm_half_argmax"):
+        if run["launches"][f"{name}_g32"] != run["launches"][name]:
+            fail(f"{tag}: {name} launches {run['launches']} not all g32")
+    print(f"{tag}: {len(run['tokens'])} tokens "
+          f"({len(set(run['tokens'].tolist()))} distinct); kernel == plain "
+          f"over {n}: {same} [{card}]", flush=True)
+    report_stream(tag, run, card, model)
+    launches = {"q4g_mesh_stream_tp2": run["launches"]}
+    signals = [pool_signal(MESH_POOL_SECS, i) for i in range(4)]
+    dp = mesh_model(params, cfg, dev, 2, 1)
+    dp_plain = mesh_model(params, cfg, dev, 2, 1, kernels=False)
+    dp_plain._dp_stacks = dp._dp_stacks
+    for name, m, ref, kv in (("tp2", tp, plain, "model"),
+                             ("tp2_int8", tp, plain, "int8"),
+                             ("dp2", dp, dp_plain, "model")):
+        pair = pool_pair(f"q4g pool B=4 {name} kv_dtype={kv} (one card)", m,
+                         ref, dev, card, signals,
+                         plain_ticks=MESH_Q4G_PLAIN_TICKS, together=True,
+                         unbounded=True, kv_dtype=kv)
+        got = pair["run"]["launches"]
+        key = "decode_stack_step" if name == "dp2" else "attn_half_step"
+        if got[key] < 1 or (key == "attn_half_step"
+                            and got["attn_half_step_g32"] != got[key]):
+            fail(f"q4g pool {name}: launches {got}")
+        launches[f"q4g_mesh_pool_{name}"] = got
+    del dp, dp_plain, plain
+    release()
+    dptp = mesh_model(params, cfg, dev, 2, 2)
+    launches["q4g_mesh_checkpoint"] = mesh_checkpoint(model, single_plain,
+                                                      dptp, dev, card)
+    del dptp
+    release()
+    return launches
+
+
+def run_mesh_q4g(model, single_plain, dev, card, sig, tok, single):
+    """Phase 13d: q4g on a mesh whose shards share the card, on phase 5's
+    random q4g tree (``model``, ``single_plain`` its plain twin,
+    ``single`` its tokens and margins on the chirp): K1 mode (i) over the
+    g32 table, K4 (1 row, SPEC_K rows, (d) / (e) / (f)), K5 and K6 in g32
+    alone, bit for bit; the one-shot path at tp = 2, dp = 2 and 2 x 2
+    (mesh_oneshot); live streams (mesh_q4g_streams); the CLI."""
+    with tempfile.TemporaryDirectory() as tmp:
+        procs, files = q4g_cli_start(Path(tmp))
+        try:
+            cfg, params = model.config, model.params
+            k1i_err, k1i_times = check_k1_argmax(model, dev, card)
+            tp = mesh_model(params, cfg, dev, 1, 2)
+            k45_err, k45_times = check_k4_k5(tp, dev, card)
+            k4m_err, k4m_times = check_k4_modes(tp, dev, card, K4_G32_MODES)
+            k6_err, k6_times = check_k6(tp, dev, card)
+            out = mesh_oneshot(model, tp, dev, card, sig, tok, single,
+                               MESH_Q4G_PLAIN_SECS, single_plain)
+            out["launches"].update(mesh_q4g_streams(model, single_plain, tp,
+                                                    dev, card, sig))
+            del tp
+            release()
+        except BaseException:
+            for p in procs.values():
+                p.kill()
+                p.wait()
+            raise
+        q4g_cli_finish(procs, files, card)
+    return dict(k1i_err=k1i_err, k1i_times=k1i_times,
+                k45_err=max(k45_err, k4m_err), k45_times=k45_times,
+                k4m_times=k4m_times, k6_err=k6_err, k6_times=k6_times, **out)
 
 
 # ---------------------------------------------------------------------------
@@ -4624,6 +5088,10 @@ def main() -> int:
     q4g = run_q4g(tree, cfg, dev, card, sig, tok, w8["n_tok"])
     q4g_model, q4g_plain = q4g.pop("model"), q4g.pop("plain")
     phase_done("q4g one-shot")
+    mesh_q4g = run_mesh_q4g(q4g_model, q4g_plain, dev, card, sig, tok,
+                            {k: q4g[k] for k in ("tokens", "margins")})
+    release()
+    phase_done("mesh q4g (g32 halves: tp=2, dp=2, 2 x 2 on one card)")
     st_q4g = run_stream_q4g(q4g_model, q4g_plain, dev, card)
     phase_done("q4g sessions")
     pl_q4g = run_pools_q4g(q4g_model, q4g_plain, dev, card)
@@ -4669,7 +5137,8 @@ def main() -> int:
             "q4_pool_generic": pl_q4["launches"], **dense["runs"],
             "w8_batched": batched["launches"],
             "w8_batched_layer_route": batched["layer_launches"],
-            **mesh["launches"], **mstream["launches"]}
+            **mesh["launches"], **mstream["launches"],
+            **mesh_q4g["launches"]}
     for path in ("w8_pool_unbounded_int8", "w8_pool_chunked_bounded",
                  "w8_pool_chunked_unbounded", "w8_pool_speculative_ngram_int8",
                  "q4g_pool_unbounded_int8", "bf16_sequential",
@@ -4696,12 +5165,28 @@ def main() -> int:
                        ("w8_mesh_pool_tp2_int8", "attn_half_step"),
                        ("w8_mesh_pool_tp2_chunked", "attn_half_step"),
                        ("w8_mesh_pool_dp2", "decode_stack_step"),
-                       ("w8_mesh_pool_dp2tp2", "ffn_half_step")):
+                       ("w8_mesh_pool_dp2tp2", "ffn_half_step"),
+                       ("q4g_tp2_sequential", "attn_half_step_g32"),
+                       ("q4g_tp2_sequential", "ffn_half_step_g32"),
+                       ("q4g_tp2_sequential", "lm_half_argmax_g32"),
+                       ("q4g_dp2tp2_speculative_ngram", "attn_half_step_g32"),
+                       ("q4g_dp2_sequential",
+                        "decode_stack_step_lm_argmax_g32"),
+                       ("q4g_mesh_stream_tp2", "lm_half_argmax_g32"),
+                       ("q4g_mesh_pool_tp2_int8", "attn_half_step_g32"),
+                       ("q4g_mesh_pool_dp2", "decode_stack_step")):
         if runs[path].get(name, 0) < 1:
             fail(f"{path}: {name} was launched no time")
 
     def launches(name):
         by = {path: c[name] for path, c in runs.items() if c.get(name)}
+        return sum(by.values()), by
+
+    def w8_launches(name):
+        # A wrapper's launches less its g32 ones (their own entries).
+        by = {path: c[name] - c.get(f"{name}_g32", 0)
+              for path, c in runs.items()
+              if c.get(name, 0) - c.get(f"{name}_g32", 0)}
         return sum(by.values()), by
 
     lm_shape = (1, 3072, 131072)
@@ -4721,6 +5206,12 @@ def main() -> int:
     k5, k5s = mesh["k45_times"][("K5", 1)], mesh["k45_times"][("K5", SPEC_K)]
     k4m = mstream["k4_times"]
     k6, k6s = mesh["k6_times"][1], mesh["k6_times"][SPEC_K]
+    gq = mesh_q4g
+    g1i, g1i8 = gq["k1i_times"][1], gq["k1i_times"][SPEC_K]
+    g4 = gq["k45_times"][("K4", 1, 151)]
+    g4s = gq["k45_times"][("K4", SPEC_K, 158)]
+    g5, g5s = gq["k45_times"][("K5", 1)], gq["k45_times"][("K5", SPEC_K)]
+    g6, g6s = gq["k6_times"][1], gq["k6_times"][SPEC_K]
     record = {"kernels": [
         {"name": "w8_matmul", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/w8_matmul.cu",
@@ -4806,17 +5297,17 @@ def main() -> int:
          "fold": "voxtral_tpu_torch/csrc/lm_argmax.cuh",
          "replaces": "voxtral_tpu/ops/decode_step_pallas.py:1654",
          "modes": ["i"],
-         "launches": launches("decode_stack_step_lm_argmax")[0],
-         "launches_by_path": launches("decode_stack_step_lm_argmax")[1],
+         "launches": w8_launches("decode_stack_step_lm_argmax")[0],
+         "launches_by_path": w8_launches("decode_stack_step_lm_argmax")[1],
          "max_abs_err": mesh["k1i_err"], "ms": k1i[0], "plain_ms": k1i[1],
          "bound_ms": k1i[2], "bound_by": k1i[3], "library_ms": None,
          "spec_ms": k1i8[0], "spec_plain_ms": k1i8[1],
-         "spec_bound_ms": k1i8[2]},
+         "spec_bound_ms": k1i8[2], "device_ms": k1i[4]},
         {"name": "attn_half_step", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/decode_tp.cu",
          "replaces": "voxtral_tpu/ops/decode_tp_pallas.py:741",
-         "launches": launches("attn_half_step")[0],
-         "launches_by_path": launches("attn_half_step")[1],
+         "launches": w8_launches("attn_half_step")[0],
+         "launches_by_path": w8_launches("attn_half_step")[1],
          "modes": ["bounded", "b", "d", "e", "e x b", "f", "f x e"],
          "max_abs_err": max(mesh["k45_err"], mstream["k4_err"]),
          "ms": k4[0], "plain_ms": k4[1],
@@ -4831,8 +5322,8 @@ def main() -> int:
         {"name": "ffn_half_step", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/decode_tp.cu",
          "replaces": "voxtral_tpu/ops/decode_tp_pallas.py:818",
-         "launches": launches("ffn_half_step")[0],
-         "launches_by_path": launches("ffn_half_step")[1],
+         "launches": w8_launches("ffn_half_step")[0],
+         "launches_by_path": w8_launches("ffn_half_step")[1],
          "max_abs_err": mesh["k45_err"], "ms": k5[0], "plain_ms": k5[1],
          "bound_ms": k5[2], "bound_by": k5[3], "library_ms": None,
          "host_called_ms": k5[4], "rows8_ms": k5s[0],
@@ -4841,12 +5332,58 @@ def main() -> int:
          "source": "voxtral_tpu_torch/csrc/decode_tp.cu",
          "fold": "voxtral_tpu_torch/csrc/lm_argmax.cuh",
          "replaces": "voxtral_tpu/ops/decode_tp_pallas.py:1349",
-         "launches": launches("lm_half_argmax")[0],
-         "launches_by_path": launches("lm_half_argmax")[1],
+         "launches": w8_launches("lm_half_argmax")[0],
+         "launches_by_path": w8_launches("lm_half_argmax")[1],
          "max_abs_err": mesh["k6_err"], "ms": k6[0], "plain_ms": k6[1],
          "bound_ms": k6[2], "bound_by": k6[3], "library_ms": None,
          "host_called_ms": k6[4], "rows8_ms": k6s[0],
          "rows8_bound_ms": k6s[2]},
+        # The g32 (q4g) modes of K1 (i), K4, K5 and K6 (phase 13d): ms is
+        # the device time (CUDA graph), host_called_ms the wrapper called
+        # from the host.
+        {"name": "decode_stack_step_lm_argmax_g32", "route": "cuda",
+         "source": "voxtral_tpu_torch/csrc/decode_step.cu",
+         "fold": "voxtral_tpu_torch/csrc/lm_argmax.cuh",
+         "replaces": "voxtral_tpu/ops/decode_step_pallas.py:1654",
+         "modes": ["i", "h"],
+         "launches": launches("decode_stack_step_lm_argmax_g32")[0],
+         "launches_by_path": launches("decode_stack_step_lm_argmax_g32")[1],
+         "max_abs_err": gq["k1i_err"], "ms": g1i[4], "plain_ms": g1i[1],
+         "bound_ms": g1i[2], "bound_by": g1i[3], "library_ms": None,
+         "host_called_ms": g1i[0], "spec_ms": g1i8[4],
+         "spec_plain_ms": g1i8[1], "spec_bound_ms": g1i8[2]},
+        {"name": "attn_half_step_g32", "route": "cuda",
+         "source": "voxtral_tpu_torch/csrc/decode_tp.cu",
+         "replaces": "voxtral_tpu/ops/decode_tp_pallas.py:741",
+         "modes": ["g32", "bounded", "b", "d", "e", "f"],
+         "launches": launches("attn_half_step_g32")[0],
+         "launches_by_path": launches("attn_half_step_g32")[1],
+         "max_abs_err": gq["k45_err"], "ms": g4[0], "plain_ms": g4[1],
+         "bound_ms": g4[2], "bound_by": g4[3], "library_ms": None,
+         "host_called_ms": g4[4], "spec_ms": g4s[0],
+         "spec_plain_ms": g4s[1], "spec_bound_ms": g4s[2],
+         **{f"{name}_{key}": gq["k4m_times"][name][i]
+            for name in K4_G32_MODES
+            for i, key in ((0, "ms"), (1, "plain_ms"), (2, "bound_ms"))}},
+        {"name": "ffn_half_step_g32", "route": "cuda",
+         "source": "voxtral_tpu_torch/csrc/decode_tp.cu",
+         "replaces": "voxtral_tpu/ops/decode_tp_pallas.py:818",
+         "launches": launches("ffn_half_step_g32")[0],
+         "launches_by_path": launches("ffn_half_step_g32")[1],
+         "max_abs_err": gq["k45_err"], "ms": g5[0], "plain_ms": g5[1],
+         "bound_ms": g5[2], "bound_by": g5[3], "library_ms": None,
+         "host_called_ms": g5[4], "rows8_ms": g5s[0],
+         "rows8_plain_ms": g5s[1], "rows8_bound_ms": g5s[2]},
+        {"name": "lm_half_argmax_g32", "route": "cuda",
+         "source": "voxtral_tpu_torch/csrc/decode_tp.cu",
+         "fold": "voxtral_tpu_torch/csrc/lm_argmax.cuh",
+         "replaces": "voxtral_tpu/ops/decode_tp_pallas.py:1349",
+         "launches": launches("lm_half_argmax_g32")[0],
+         "launches_by_path": launches("lm_half_argmax_g32")[1],
+         "max_abs_err": gq["k6_err"], "ms": g6[0], "plain_ms": g6[1],
+         "bound_ms": g6[2], "bound_by": g6[3], "library_ms": None,
+         "host_called_ms": g6[4], "rows8_ms": g6s[0],
+         "rows8_plain_ms": g6s[1], "rows8_bound_ms": g6s[2]},
         {"name": "q4_matmul", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/q4_matmul.cu",
          "replaces": "voxtral_tpu/ops/q4_pallas.py:150",

@@ -401,7 +401,8 @@ def test_meshed_pool_layout_and_refusals(w8, monkeypatch):
     """The shard grids of a 2 x 2 int8 pool; the spec pool's data-axis
     guard (JAX's ``test_dp_pooled_speculative_guards``,
     ``tests/test_parallel.py:805``); a batch the data axis does not
-    divide is refused rung by rung; q4g and dense meshes still raise."""
+    divide is refused rung by rung; dense meshes still raise (q4g
+    meshes: ``tests/test_torch_tp_q4g.py``)."""
     from voxtral_tpu_torch.models.voxtral import VoxtralModel
     from voxtral_tpu_torch.utils.quantize import random_dense_params
 

@@ -331,12 +331,12 @@ def test_k1_lm_argmax_plain_matches_jax(setup, offs, spec):
 
 def test_k1_lm_argmax_guard():
     """Mode (i) needs the lm fold (JAX drops the flag without it) and is
-    ported for w8 tables."""
+    ported for w8 and g32 tables; over a bf16 table it raises."""
     assert tdsp._check_lm_argmax(True, "w8", None) is False
     assert tdsp._check_lm_argmax(True, "w8", torch.zeros(1)) is True
-    for fmt in ("g32", "bf16"):
-        with pytest.raises(ValueError, match="ported for w8"):
-            tdsp._check_lm_argmax(True, fmt, torch.zeros(1))
+    assert tdsp._check_lm_argmax(True, "g32", torch.zeros(1)) is True
+    with pytest.raises(ValueError, match="ported for w8 and g32"):
+        tdsp._check_lm_argmax(True, "bf16", torch.zeros(1))
 
 
 @pytest.mark.parametrize("spec,lm_argmax", [(1, False), (1, True),

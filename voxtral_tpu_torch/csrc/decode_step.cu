@@ -57,11 +57,14 @@
 //       longer bounds S.  attn_kv_kernel<false / true>.
 //       Bytes: what bounds (e) and (f) are the visible slots' int8 codes
 //       (half the bf16 cache) and their scale planes.
-//   (i) lm_argmax (w8; :1285-1300, :1479, :1605): the greedy argmax
-//       folded into the lm_head (lm_argmax.cuh: per vocab tile the
+//   (i) lm_argmax (w8 and g32; :1285-1300, :1479, :1605): the greedy
+//       argmax folded into the lm_head (lm_argmax.cuh: per vocab tile the
 //       (max, first index), then the tiles merged), so the [B, V] logits
-//       are never written; the step returns the token of each row.  Its
-//       caller is the data-parallel greedy decode (parallel/dp_decode.py).
+//       are never written; the step returns the token of each row.  Over
+//       a g32 table the fold's logits are mode (h)'s bit for bit (the
+//       same g32_row_dots).  Its caller is the data-parallel greedy
+//       decode (parallel/dp_decode.py).  Over a bf16 table (mode (g)) it
+//       is not ported yet (ROADMAP item 12.3).
 // The TPU kernel is one pallas_call whose sequential grid carries the
 // residual across layers in VMEM.  CUDA blocks run in no order, so here
 // the step is a fixed sequence of small kernels on one stream, with the
@@ -176,7 +179,7 @@ extern "C" int vx_decode_stack_step(
       (chunk != 0 && (chunk < 0 || S % chunk || spec != 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (lm_argmax &&
-      (wfmt != kW8 || lm_codes == nullptr || token == nullptr ||
+      (bf16 || lm_codes == nullptr || token == nullptr ||
        tmax_buf == nullptr || tidx_buf == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -337,11 +340,10 @@ extern "C" int vx_decode_stack_step(
     row_quant(X, D, D, static_cast<const float*>(final_norm), nullptr, eps,
               kQuantNorm, B, xq, sx, xb, st);
     if (lm_argmax)  // mode (i): the greedy token, no logits written
-      launch_w8_argmax(xq, sx, static_cast<const int8_t*>(lm_codes),
-                       static_cast<const float*>(lm_scale), B, V, D,
-                       static_cast<float*>(tmax_buf),
-                       static_cast<int*>(tidx_buf), nullptr,
-                       static_cast<int*>(token), st);
+      launch_argmax(g32, xq, sx, static_cast<const int8_t*>(lm_codes),
+                    lm_scale, B, V, D, static_cast<float*>(tmax_buf),
+                    static_cast<int*>(tidx_buf), nullptr,
+                    static_cast<int*>(token), st);
     else if (bf16)
       gemv_bf(lm_codes, nullptr, nullptr, V, 0, 0, nullptr,
               static_cast<float*>(logits), V, D);

@@ -36,11 +36,23 @@
 // attn_step.cuh); the scales of wo and w2 are full-D and replicated, so a
 // partial is (float(z_l) * sx_l) * s[n] with the shard's own sx_l.
 //
+// Two weight formats (wfmt): 0 = w8 (int8 codes, f32 row scales [N]),
+// 1 = g32 (q4g: int8 codes = Q4_0 nibble - 8, f16 group scales
+// [N, K/32]; the g32 halves of _half_plan / _stream_factory with wg,
+// decode_tp_pallas.py:72-142, :294-352, :561-582, :1228-1279).  In g32
+// each shard holds its own K/32 scale columns of wo and w2 (row-parallel:
+// its K columns and their groups), so a partial is
+// float(sum_g z_g * s[n, g]) * sx_l over the shard's groups: the g32
+// GEMVs and the g32 fold of K1 mode (h) (w8_common.cuh,
+// lm_argmax.cuh).  Bytes: 1.0625 per weight instead of 1 + 4 / K.
+//
 // What bounds it on the H100, at tp = 2 and full width, one row: K4 the
-// layer's local weights, 9.44 MB of wqkv_l + 6.29 MB of wo_l, and the
-// visible slots of the local cache (bf16, or int8 codes and their
-// scales: what K1's (d) / (e) / (f) read, over half the heads); K5 28.31 + 14.16 MB of w13_l / w2_l; K6 the 201.6 MB vocab
-// shard.  Each call is a handful of launches (5 for K4, 4 for K5, 3 for
+// layer's local weights, 9.44 MB of wqkv_l + 6.29 MB of wo_l (16.71 MB
+// of codes and f16 group scales in g32), and the visible slots of the
+// local cache (bf16, or int8 codes and their scales: what K1's (d) /
+// (e) / (f) read, over half the heads); K5 28.31 + 14.16 MB of w13_l /
+// w2_l (45.12 MB in g32); K6 the 201.6 MB vocab shard (213.9 MB in
+// g32).  Each call is a handful of launches (5 for K4, 4 for K5, 3 for
 // K6) on the current stream; a position costs 26 x (K4 + K5) calls per
 // shard from the host, the same host cost as the per-layer route (K7).
 //
@@ -50,10 +62,44 @@
 #include <cuda_bf16.h>
 #include <math.h>
 
+#include <initializer_list>
+
 #include "attn_step.cuh"
 #include "decode_common.cuh"
 #include "lm_argmax.cuh"
 #include "w8_common.cuh"
+
+namespace {
+
+constexpr int kW8Fmt = 0, kG32Fmt = 1;
+
+// One linear of a half on the rows quantized in xq / sx: W8A8 (row
+// scales [N] f32) or g32 (group scales [N, K/32] f16).
+void half_gemv(int wfmt, const int8_t* xq, const float* sx, const int8_t* w,
+               const void* sc, float* out, int B, int N, int K,
+               cudaStream_t st) {
+  using namespace vx;
+  if (wfmt == kG32Fmt)
+    launch_g32_gemv(xq, sx, w, static_cast<const __half*>(sc), nullptr, out,
+                    B, N, K, st);
+  else
+    launch_w8_gemv(xq, sx, w, static_cast<const float*>(sc), nullptr, out, B,
+                   N, K, st);
+}
+
+// g32 needs every contraction width % 32 and 16-byte aligned code rows.
+bool g32_ok(int wfmt, std::initializer_list<int> widths,
+            std::initializer_list<const void*> codes) {
+  if (wfmt == kW8Fmt) return true;
+  if (wfmt != kG32Fmt) return false;
+  for (int k : widths)
+    if (k % 32) return false;
+  for (const void* p : codes)
+    if (!vx::aligned16(p)) return false;
+  return true;
+}
+
+}  // namespace
 
 // All pointers are device pointers.  x, yo [B, D] f32; attn_norm [D],
 // sqkv [nq + 2 nkv], so [D] f32 (layer ``layer``'s; nq = n_heads * hd and
@@ -62,7 +108,8 @@
 // bf16, or int8 codes with k_scales / v_scales [Bc, n_kv, S] f32 (mode
 // (e)), the shard's cache of this layer (read at its visible slots only);
 // wqkv [L, nq + 2 nkv, D] and wo [L, D, nq] int8 stacks, layer ``layer``
-// read; kn / vn [B, n_kv, hd] bf16 (also over an int8 cache: the caller
+// read; wfmt 1 (g32): sqkv [nq + 2 nkv, D/32] and so [D, nq/32] f16;
+// kn / vn [B, n_kv, hd] bf16 (also over an int8 cache: the caller
 // quantizes them for its append); offs [Bc] int32 or NULL (then off0 for
 // every stream); B = Bc x spec rows ordered (stream, draft slot).
 // ring_size > 0: mode (d), a head+ring cache of ring_head + ring_size <=
@@ -79,11 +126,13 @@ extern "C" int vx_attn_half_step(
     void* vn, void* xq_buf, void* sx_buf, void* qkv_buf, void* attn_buf,
     const void* offs, int B, int D, int S, int n_heads, int n_kv, int hd,
     int off0, int spec, int rope_stride, int window, int ring_head,
-    int ring_size, int chunk, float eps, float scale, void* stream) {
+    int ring_size, int chunk, int wfmt, float eps, float scale,
+    void* stream) {
   using namespace vx;
   const bool ring = ring_size > 0;
   const bool kv8 = k_scales != nullptr;
-  if (hd > kMaxHeadDim || hd % 2 || n_kv <= 0 || n_heads % n_kv ||
+  if (!g32_ok(wfmt, {D, n_heads * hd}, {wqkv, wo}) || hd > kMaxHeadDim ||
+      hd % 2 || n_kv <= 0 || n_heads % n_kv ||
       spec < 1 || B % spec || layer < 0 ||
       (offs == nullptr && (off0 < 0 || (!ring && off0 > S))) ||
       (ring && (ring_head < 0 || ring_head + ring_size > S)) ||
@@ -123,11 +172,10 @@ extern "C" int vx_attn_half_step(
   row_quant(static_cast<const float*>(x), D, D,
             static_cast<const float*>(attn_norm), nullptr, eps, kQuantNorm, B,
             xq, sx, nullptr, st);
-  launch_w8_gemv(xq, sx,
-                 static_cast<const int8_t*>(wqkv) +
-                     static_cast<size_t>(layer) * nqkv * D,
-                 static_cast<const float*>(sqkv), nullptr, qkv, B, nqkv, D,
-                 st);
+  half_gemv(wfmt, xq, sx,
+            static_cast<const int8_t*>(wqkv) +
+                static_cast<size_t>(layer) * nqkv * D,
+            sqkv, qkv, B, nqkv, D, st);
   const float* cs = static_cast<const float*>(cosv);
   const float* sn = static_cast<const float*>(sinv);
   const int* of = static_cast<const int*>(offs);
@@ -154,25 +202,26 @@ extern "C" int vx_attn_half_step(
   }
   row_quant(att, nq, nq, nullptr, nullptr, eps, kQuantPlain, B, xq, sx,
             nullptr, st);
-  launch_w8_gemv(xq, sx,
-                 static_cast<const int8_t*>(wo) +
-                     static_cast<size_t>(layer) * D * nq,
-                 static_cast<const float*>(so), nullptr,
-                 static_cast<float*>(yo), B, D, nq, st);
+  half_gemv(wfmt, xq, sx,
+            static_cast<const int8_t*>(wo) +
+                static_cast<size_t>(layer) * D * nq,
+            so, static_cast<float*>(yo), B, D, nq, st);
   return static_cast<int>(cudaGetLastError());
 }
 
 // x, zo [B, D] f32; ffn_norm, ada [D], s13 [2F], s2 [D] f32 (layer
 // ``layer``'s; F the shard's hidden rows); w13 [L, 2F, D] (the shard's w1
-// rows, then its w3 rows) and w2 [L, D, F] int8 stacks.  Scratch:
-// xq [B, max(D, F)] int8, sx [B], up [B, 2F] f32.
+// rows, then its w3 rows) and w2 [L, D, F] int8 stacks; wfmt 1 (g32):
+// s13 [2F, D/32] and s2 [D, F/32] f16.  Scratch: xq [B, max(D, F)] int8,
+// sx [B], up [B, 2F] f32.
 extern "C" int vx_ffn_half_step(
     const void* x, void* zo, int layer, const void* ffn_norm,
     const void* ada, const void* s13, const void* s2, const void* w13,
     const void* w2, void* xq_buf, void* sx_buf, void* up_buf, int B, int D,
-    int F, float eps, void* stream) {
+    int F, int wfmt, float eps, void* stream) {
   using namespace vx;
-  if (B < 1 || D < 1 || F < 1 || layer < 0)
+  if (!g32_ok(wfmt, {D, F}, {w13, w2}) || B < 1 || D < 1 || F < 1 ||
+      layer < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int8_t* xq = static_cast<int8_t*>(xq_buf);
@@ -182,41 +231,42 @@ extern "C" int vx_ffn_half_step(
             static_cast<const float*>(ffn_norm),
             static_cast<const float*>(ada), eps, kQuantNorm, B, xq, sx,
             nullptr, st);
-  launch_w8_gemv(xq, sx,
-                 static_cast<const int8_t*>(w13) +
-                     static_cast<size_t>(layer) * 2 * F * D,
-                 static_cast<const float*>(s13), nullptr, up, B, 2 * F, D, st);
+  half_gemv(wfmt, xq, sx,
+            static_cast<const int8_t*>(w13) +
+                static_cast<size_t>(layer) * 2 * F * D,
+            s13, up, B, 2 * F, D, st);
   row_quant(up, 2 * F, F, nullptr, nullptr, eps, kQuantSwiglu, B, xq, sx,
             nullptr, st);
-  launch_w8_gemv(xq, sx,
-                 static_cast<const int8_t*>(w2) +
-                     static_cast<size_t>(layer) * D * F,
-                 static_cast<const float*>(s2), nullptr,
-                 static_cast<float*>(zo), B, D, F, st);
+  half_gemv(wfmt, xq, sx,
+            static_cast<const int8_t*>(w2) +
+                static_cast<size_t>(layer) * D * F,
+            s2, static_cast<float*>(zo), B, D, F, st);
   return static_cast<int>(cudaGetLastError());
 }
 
 // x [B, D] f32 (the stack's output, replicated); final_norm [D] f32;
-// codes [V, D] int8 and scale [V] f32, this shard's vocab rows; vmax [B]
+// codes [V, D] int8 and scale [V] f32 (wfmt 1, g32: [V, D/32] f16), this
+// shard's vocab rows; vmax [B]
 // f32 and vidx [B] int32: the largest logit of each row and its first
 // LOCAL index.  Scratch: xq [B, D] int8, sx [B], tmax / tidx
 // [B, ceil(V / 32)] f32 / int32.
 extern "C" int vx_lm_half_argmax(
     const void* x, const void* final_norm, const void* codes,
     const void* scale, void* vmax, void* vidx, void* xq_buf, void* sx_buf,
-    void* tmax_buf, void* tidx_buf, int B, int D, int V, float eps,
+    void* tmax_buf, void* tidx_buf, int B, int D, int V, int wfmt, float eps,
     void* stream) {
   using namespace vx;
-  if (B < 1 || D < 1 || V < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!g32_ok(wfmt, {D}, {codes}) || B < 1 || D < 1 || V < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int8_t* xq = static_cast<int8_t*>(xq_buf);
   float* sx = static_cast<float*>(sx_buf);
   row_quant(static_cast<const float*>(x), D, D,
             static_cast<const float*>(final_norm), nullptr, eps, kQuantNorm,
             B, xq, sx, nullptr, st);
-  launch_w8_argmax(xq, sx, static_cast<const int8_t*>(codes),
-                   static_cast<const float*>(scale), B, V, D,
-                   static_cast<float*>(tmax_buf), static_cast<int*>(tidx_buf),
-                   static_cast<float*>(vmax), static_cast<int*>(vidx), st);
+  launch_argmax(wfmt == kG32Fmt, xq, sx, static_cast<const int8_t*>(codes),
+                scale, B, V, D, static_cast<float*>(tmax_buf),
+                static_cast<int*>(tidx_buf), static_cast<float*>(vmax),
+                static_cast<int*>(vidx), st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
 // The greedy lm fold shared by K1 mode (i) (decode_step.cu, lm_argmax)
-// and K6 (decode_tp.cu, vx_lm_half_argmax): the W8A8 lm_head over a
-// vocab range with the argmax folded in, so the [B, V] logits are never
-// written.
+// and K6 (decode_tp.cu, vx_lm_half_argmax): the lm_head over a vocab
+// range with the argmax folded in, so the [B, V] logits are never
+// written.  Two weight formats: W8A8 (int8 codes, f32 row scales) and
+// g32 (q4g: int8 codes = Q4_0 nibble - 8, f16 group scales [V, D/32]).
 //
 // Port of the running (max, first index) fold of
 // voxtral_tpu/ops/decode_step_pallas.py (lm_argmax, :1285-1300) and of
@@ -12,8 +13,12 @@
 //   pass 1  one block per tile of kLmTile vocab rows (kLmRowsPerWarp
 //           consecutive rows per warp), up to 8 activation rows: the
 //           logits y = (float(z) * sx[m]) * scale[n], the w8 GEMV's
-//           epilogue in the order of decode_tp_pallas.py:1265, reduced
-//           to the tile's (max, first index) per activation row;
+//           epilogue in the order of decode_tp_pallas.py:1265, or in
+//           g32 y = float(sum_g z_g * s[n, g]) * sx[m], the group sum in
+//           f64 rounded once (g32_row_dots, the g32 GEMV's own dot, so
+//           the logits are K1 mode (h)'s bit for bit; the order of
+//           _g32_matmul_tile, decode_step_pallas.py:84-123), reduced to
+//           the tile's (max, first index) per activation row;
 //   pass 2  one block per activation row merges the tiles: a larger
 //           value wins, and of equal values the lower index -- the same
 //           result as merging the tiles in tile order with a strictly
@@ -22,12 +27,14 @@
 //
 // What bounds it on the H100: the table's bytes, read once (V x D int8
 // and V f32 scales: 403 MB for the whole 131072-row table, 201.6 MB for
-// a tp = 2 vocab shard); the partials are 8 bytes per tile and row.
+// a tp = 2 vocab shard; in g32 V x D/32 f16 scales instead: 427.8 MB,
+// 213.9 MB); the partials are 8 bytes per tile and row.
 // More than 8 activation rows take one weight pass per group of 8 (the
 // dp4a GEMV's limit); the tensor-core GEMV of w8_common.cuh is later work.
 // Internal linkage: each translation unit has its own copy.
 #pragma once
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -53,11 +60,13 @@ __device__ __forceinline__ bool argmax_better(float v, int i, float bv,
 // w rows tile * kLmTile + w * kLmRowsPerWarp + r, r ascending, so a
 // strictly larger value keeps the first index within the warp and the
 // warps merge in order.  tmax / tidx [M, n_tiles]: the tile's maximum and
-// its first (global) row index per activation row.
-template <int M>
-__global__ void __launch_bounds__(32 * kGemvWarps) w8_argmax_tile_kernel(
+// its first (global) row index per activation row.  G32: ``scale`` is
+// the f16 group scales [N, K/32] (K % 32 == 0, 16-byte aligned rows),
+// else the f32 row scales [N].
+template <int M, bool G32>
+__global__ void __launch_bounds__(32 * kGemvWarps) argmax_tile_kernel(
     const int8_t* __restrict__ xq, const float* __restrict__ sx,
-    const int8_t* __restrict__ codes, const float* __restrict__ scale, int N,
+    const int8_t* __restrict__ codes, const void* __restrict__ scale, int N,
     int K, bool vec, int n_tiles, float* __restrict__ tmax,
     int* __restrict__ tidx) {
   __shared__ float sv[kGemvWarps][M];
@@ -74,43 +83,53 @@ __global__ void __launch_bounds__(32 * kGemvWarps) w8_argmax_tile_kernel(
   for (int r = 0; r < kLmRowsPerWarp; ++r) {
     const int n = tile * kLmTile + warp * kLmRowsPerWarp + r;
     if (n >= N) break;  // the same n on every lane
-    const int8_t* w = codes + static_cast<size_t>(n) * K;
-    int acc[M];
+    float y[M];
+    if constexpr (G32) {
+      double acc[M];  // every lane holds the sums
+      g32_row_dots<M>(xq, codes, static_cast<const __half*>(scale), n, K,
+                      lane, acc);
 #pragma unroll
-    for (int m = 0; m < M; ++m) acc[m] = 0;
-    if (vec) {
-      const int4* w4 = reinterpret_cast<const int4*>(w);
-      const int nv = K >> 4;
-      for (int i = lane; i < nv; i += 32) {
-        const int4 wv = __ldg(w4 + i);
+      for (int m = 0; m < M; ++m) y[m] = static_cast<float>(acc[m]) * sx[m];
+    } else {
+      const int8_t* w = codes + static_cast<size_t>(n) * K;
+      int acc[M];
 #pragma unroll
-        for (int m = 0; m < M; ++m) {
-          const int4 xv = __ldg(
-              reinterpret_cast<const int4*>(xq + static_cast<size_t>(m) * K) +
-              i);
-          int a = acc[m];
-          a = __dp4a(wv.x, xv.x, a);
-          a = __dp4a(wv.y, xv.y, a);
-          a = __dp4a(wv.z, xv.z, a);
-          a = __dp4a(wv.w, xv.w, a);
-          acc[m] = a;
+      for (int m = 0; m < M; ++m) acc[m] = 0;
+      if (vec) {
+        const int4* w4 = reinterpret_cast<const int4*>(w);
+        const int nv = K >> 4;
+        for (int i = lane; i < nv; i += 32) {
+          const int4 wv = __ldg(w4 + i);
+#pragma unroll
+          for (int m = 0; m < M; ++m) {
+            const int4 xv = __ldg(
+                reinterpret_cast<const int4*>(xq + static_cast<size_t>(m) * K) +
+                i);
+            int a = acc[m];
+            a = __dp4a(wv.x, xv.x, a);
+            a = __dp4a(wv.y, xv.y, a);
+            a = __dp4a(wv.z, xv.z, a);
+            a = __dp4a(wv.w, xv.w, a);
+            acc[m] = a;
+          }
+        }
+      } else {
+        for (int k = lane; k < K; k += 32) {
+          const int wv = w[k];
+#pragma unroll
+          for (int m = 0; m < M; ++m)
+            acc[m] += wv * static_cast<int>(xq[static_cast<size_t>(m) * K + k]);
         }
       }
-    } else {
-      for (int k = lane; k < K; k += 32) {
-        const int wv = w[k];
+      const float sc = static_cast<const float*>(scale)[n];
 #pragma unroll
-        for (int m = 0; m < M; ++m)
-          acc[m] += wv * static_cast<int>(xq[static_cast<size_t>(m) * K + k]);
-      }
+      for (int m = 0; m < M; ++m)  // every lane holds the sum
+        y[m] = w8_epilogue(warp_sum_int(acc[m]), sx[m], sc);
     }
-    const float sc = scale[n];
 #pragma unroll
     for (int m = 0; m < M; ++m) {
-      const int z = warp_sum_int(acc[m]);  // every lane holds the sum
-      const float y = w8_epilogue(z, sx[m], sc);
-      if (best_i[m] < 0 || y > best_v[m]) {
-        best_v[m] = y;
+      if (best_i[m] < 0 || y[m] > best_v[m]) {
+        best_v[m] = y[m];
         best_i[m] = n;
       }
     }
@@ -188,13 +207,15 @@ __global__ void __launch_bounds__(256) argmax_merge_kernel(
 // Tiles of the fold over N vocab rows (the partials hold M x this).
 inline int argmax_tiles(int N) { return (N + kLmTile - 1) / kLmTile; }
 
-// The fold of the W8A8 product xq [M, K] . codes [N, K]^T with row scales
-// [N]: vidx[m] = the first index of the largest logit of row m, vmax[m]
-// (NULL: not written) its value.  Scratch tmax / tidx [M, argmax_tiles(N)].
-inline void launch_w8_argmax(const int8_t* xq, const float* sx,
-                             const int8_t* codes, const float* scale, int M,
-                             int N, int K, float* tmax, int* tidx,
-                             float* vmax, int* vidx, cudaStream_t st) {
+// The fold of the product xq [M, K] . codes [N, K]^T: W8A8 with row
+// scales [N] f32 (g32 false) or g32 with group scales [N, K/32] f16 (g32
+// true: K % 32 == 0 and 16-byte aligned rows): vidx[m] = the first index
+// of the largest logit of row m, vmax[m] (NULL: not written) its value.
+// Scratch tmax / tidx [M, argmax_tiles(N)].
+inline void launch_argmax(bool g32, const int8_t* xq, const float* sx,
+                          const int8_t* codes, const void* scale, int M,
+                          int N, int K, float* tmax, int* tidx, float* vmax,
+                          int* vidx, cudaStream_t st) {
   const bool vec = (K % 16 == 0) && aligned16(xq) && aligned16(codes);
   const int n_tiles = argmax_tiles(N);
   for (int m0 = 0; m0 < M; m0 += kDp4aMaxM) {
@@ -204,10 +225,14 @@ inline void launch_w8_argmax(const int8_t* xq, const float* sx,
     float* tm = tmax + static_cast<size_t>(m0) * n_tiles;
     int* ti = tidx + static_cast<size_t>(m0) * n_tiles;
     switch (mr) {
-#define VX_ARGMAX_CASE(MM)                                                \
-  case MM:                                                                \
-    w8_argmax_tile_kernel<MM><<<n_tiles, 32 * kGemvWarps, 0, st>>>(       \
-        x, s, codes, scale, N, K, vec, n_tiles, tm, ti);                  \
+#define VX_ARGMAX_CASE(MM)                                                 \
+  case MM:                                                                 \
+    if (g32)                                                               \
+      argmax_tile_kernel<MM, true><<<n_tiles, 32 * kGemvWarps, 0, st>>>(   \
+          x, s, codes, scale, N, K, vec, n_tiles, tm, ti);                 \
+    else                                                                   \
+      argmax_tile_kernel<MM, false><<<n_tiles, 32 * kGemvWarps, 0, st>>>(  \
+          x, s, codes, scale, N, K, vec, n_tiles, tm, ti);                 \
     break;
       VX_ARGMAX_CASE(1)
       VX_ARGMAX_CASE(2)

@@ -350,23 +350,24 @@ __device__ __forceinline__ double warp_sum_f64(double v) {
   return v;
 }
 
-// g32 GEMV, M <= 8: one warp per output row n, 16-byte loads as in
-// w8_gemv_kernel.  A lane's 16 bytes are half a group: the two lanes of
-// a group add their int32 partials (a shuffle) before the scale, so each
-// group's dot is exact.  The loop runs the same trip count on every
-// lane (the shuffle needs the whole warp).
+// The g32 dots of activation rows xq [M, K] with weight row n of codes
+// [N, K] int8 and f16 group scales [N, K/32], one warp:
+// acc[m] = sum_g z_g * s[n, g], the exact int32 group dots z_g times
+// their scales (exact in f64) summed in f64, on every lane.  16-byte
+// loads as in w8_gemv_kernel; a lane's 16 bytes are half a group, so
+// the two lanes of a group add their int32 partials (a shuffle) before
+// the scale.  The loop runs the same trip count on every lane (the
+// shuffles need the whole warp).  Shared by the g32 GEMV and the g32 lm
+// fold (lm_argmax.cuh), so the fold's logits are the GEMV's bit for bit.
 template <int M>
-__global__ void __launch_bounds__(256) g32_gemv_kernel(
-    const int8_t* __restrict__ xq, const float* __restrict__ sx,
-    const int8_t* __restrict__ codes, const __half* __restrict__ gscale,
-    const float* resid, float* out, int N, int K) {
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * kGemvWarps + (threadIdx.x >> 5);
-  if (n >= N) return;  // whole warps leave together
-  const int4* w4 = reinterpret_cast<const int4*>(codes + static_cast<size_t>(n) * K);
+__device__ __forceinline__ void g32_row_dots(
+    const int8_t* __restrict__ xq, const int8_t* __restrict__ codes,
+    const __half* __restrict__ gscale, int n, int K, int lane,
+    double (&acc)[M]) {
+  const int4* w4 =
+      reinterpret_cast<const int4*>(codes + static_cast<size_t>(n) * K);
   const __half* sr = gscale + static_cast<size_t>(n) * (K / 32);
   const int4 zero = make_int4(0, 0, 0, 0);
-  double acc[M];
 #pragma unroll
   for (int m = 0; m < M; ++m) acc[m] = 0.0;
   const int nv = K >> 4;  // 16-byte chunks, two per group
@@ -391,6 +392,20 @@ __global__ void __launch_bounds__(256) g32_gemv_kernel(
   }
 #pragma unroll
   for (int m = 0; m < M; ++m) acc[m] = warp_sum_f64(acc[m]);
+}
+
+// g32 GEMV, M <= 8: one warp per output row n (g32_row_dots), the
+// epilogue float(sum) * sx[m] (+ resid).
+template <int M>
+__global__ void __launch_bounds__(256) g32_gemv_kernel(
+    const int8_t* __restrict__ xq, const float* __restrict__ sx,
+    const int8_t* __restrict__ codes, const __half* __restrict__ gscale,
+    const float* resid, float* out, int N, int K) {
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * kGemvWarps + (threadIdx.x >> 5);
+  if (n >= N) return;  // whole warps leave together
+  double acc[M];
+  g32_row_dots<M>(xq, codes, gscale, n, K, lane, acc);
   if (lane == 0) {
 #pragma unroll
     for (int m = 0; m < M; ++m) {

@@ -26,12 +26,14 @@ Weight routes, as the JAX model picks them (``megakernel_mode``):
   leaves; f32 models compute and cache in f32, as JAX's XLA step);
   speculative decode rides the sequential loop there and on the
   per-layer route, as JAX gates it on the stack kernel;
-* a w8 model on a mesh (``VoxtralModel(mesh=)``, ``parallel/``) -> the
-  tensor-parallel step (tp > 1: per layer K4 and K5 on every model
-  shard, the partial sums added across the shards, then the greedy token
-  from K6's vocab-sharded fold; the rows split over the data axis when
-  dp > 1) or the data-parallel one (dp > 1: K1 per data group, mode (i)
-  folding the argmax), as JAX's ``parallel=`` branches
+* a w8 or q4g model on a mesh (``VoxtralModel(mesh=)``, ``parallel/``)
+  -> the tensor-parallel step (tp > 1: per layer K4 and K5 on every
+  model shard, in g32 for q4g, the partial sums added across the
+  shards, then the greedy token from K6's vocab-sharded fold, or from
+  the whole lm_head on the first device when a q4g stack sits over a
+  table that is not g32; the rows split over the data axis when dp > 1)
+  or the data-parallel one (dp > 1: K1 per data group, mode (i) folding
+  the argmax over a w8 or g32 table), as JAX's ``parallel=`` branches
   (``models/voxtral.py:431-495``, ``:582-680``); the encoder, adapter,
   prefill and first token run whole on the mesh's first device.
 
@@ -653,15 +655,13 @@ def _tp_step(model, dec: Params, ada_vecs, lm_cfg, mm, k_sh, v_sh,
              groups, logits_too: bool, greedy: bool):
     """The TP route's step (JAX's ``use_tp`` branches, ``models/voxtral.py:
     431-468``, ``:634-663``): :func:`ops.decode_tp.tp_decode_step` over
-    the shards' caches, the appends, then the greedy token from the
-    vocab-sharded fold (:func:`ops.decode_tp.tp_lm_head_token`) and, for
-    sampling or the margins, the logits of the whole lm_head on the
-    mesh's first device.  Data groups split the rows when dp > 1."""
+    the shards' caches, the appends, then :func:`mesh_lm_head` (the
+    greedy token from the vocab-sharded fold, the whole lm_head on the
+    mesh's first device for sampling, the margins or a table that does
+    not fold).  Data groups split the rows when dp > 1."""
     plan, placed, kern = model.parallel, model.fused_tp, model.kernels
-    norm, eps = dec["norm"], lm_cfg.norm_eps
-    half = tpk.lm_half_argmax if kern else tpk.lm_half_argmax_plain
     kw = dict(n_heads=lm_cfg.n_heads, n_kv=lm_cfg.n_kv_heads,
-              head_dim=lm_cfg.head_dim, eps=eps,
+              head_dim=lm_cfg.head_dim, eps=lm_cfg.norm_eps,
               window=lm_cfg.sliding_window,
               attn=tpk.attn_half_step if kern else tpk.attn_half_step_plain,
               ffn=tpk.ffn_half_step if kern else tpk.ffn_half_step_plain)
@@ -672,12 +672,8 @@ def _tp_step(model, dec: Params, ada_vecs, lm_cfg, mm, k_sh, v_sh,
             ada_vecs, placed, cos, sin, k_sh, v_sh, spec=spec, **kw)
         _append_grid(k_sh, kn, off, at, stream, groups, spec)
         _append_grid(v_sh, vn, off, at, stream, groups, spec)
-        token = (tpk.tp_lm_head_token(
-            plan.mesh, xo, norm, placed["lm_codes"], placed["lm_scale"],
-            eps=eps, half=half) if greedy else None)
-        logits = (lm_head(dec, rms_norm(xo, norm, eps), mm=mm)
-                  if logits_too or not greedy else None)
-        return logits, token
+        return mesh_lm_head(model, plan.mesh, xo, placed, None, greedy,
+                            logits_too)
 
     return step
 
@@ -687,29 +683,62 @@ def _dp_step(model, ada_vecs, lm_cfg, k_g, v_g, groups, logits_too: bool,
     """The DP route's step (JAX ``use_dp``, ``models/voxtral.py:482-495``,
     ``:673-679``): :func:`parallel.dp_decode_stack_step`, each data group's
     K1 on its rows with the lm fold, then the appends.  Greedy without
-    the margins, K1 mode (i) folds the argmax (the token, no logits);
-    otherwise the fold returns the logits."""
+    the margins, K1 mode (i) folds the argmax (the token, no logits; over
+    a w8 or a g32 table); otherwise the fold returns the logits
+    (:func:`mesh_lm_head`, which also takes a table that does not fold)."""
     st = model._dp_stacks
-    argmax = greedy and not logits_too
+    fold = [st.get(k) for k in ("final_norm", "lm_codes", "lm_scale")]
     kw = dict(n_heads=lm_cfg.n_heads, n_kv=lm_cfg.n_kv_heads,
               head_dim=lm_cfg.head_dim, eps=lm_cfg.norm_eps,
-              window=lm_cfg.sliding_window, lm_argmax=argmax,
+              window=lm_cfg.sliding_window,
+              lm_argmax=greedy and not logits_too and fold[1] is not None,
               step=model._step)
 
     def step(x, off, cos, sin, at=None, stream=None, spec=1):
-        _, kn, vn, last = dp_decode_stack_step(
+        xo, kn, vn, *last = dp_decode_stack_step(
             model.parallel.mesh, x, off, st["attn_norm"], st["ffn_norm"],
             ada_vecs, st["sqkv"], st["so"], st["s13"], st["s2"], cos, sin,
-            k_g, v_g, st["wqkv"], st["wo"], st["w13"], st["w2"],
-            st["final_norm"], st["lm_codes"], st["lm_scale"], spec=spec,
-            **kw)
+            k_g, v_g, st["wqkv"], st["wo"], st["w13"], st["w2"], *fold,
+            spec=spec, **kw)
         _append_grid([[c] for c in k_g], [[n] for n in kn], off, at, stream,
                      groups, spec)
         _append_grid([[c] for c in v_g], [[n] for n in vn], off, at, stream,
                      groups, spec)
-        return (None, last[:, 0]) if argmax else (last, None)
+        return mesh_lm_head(model, model.parallel.mesh, xo, st, last,
+                            greedy, logits_too)
 
     return step
+
+
+def mesh_lm_head(model, mesh, xo: torch.Tensor, table: Params,
+                 folded: Optional[list], greedy: bool, logits_too: bool):
+    """The lm head after a meshed decode step, for the one-shot steps and
+    the streaming decoders -> (logits [rows, V] or None, greedy tokens
+    [rows] int32 or None).  ``folded``: on a data-parallel mesh, what
+    the data groups' K1 returned beside x_out (K1 mode (i)'s tokens
+    [rows, 1] int32, or the logits; empty when ``table`` has none to
+    fold); None on a tp mesh, where K6 folds the greedy token over
+    ``table``'s vocab shards.  A q4g stack over a table that is not g32
+    has no fold (JAX without ``"lm_codes"``, ``models/voxtral.py:
+    446-468``): the logits then come from the whole lm_head on the
+    mesh's first device, as they do for sampling and the margins
+    (``logits_too``), and the caller picks the token."""
+    dec, eps = model.params["decoder"], model.config.language_model.norm_eps
+    logits = token = None
+    if folded:
+        if folded[0].dtype == torch.int32:
+            token = folded[0][:, 0]
+        else:
+            logits = folded[0]
+    elif folded is None and greedy and "lm_codes" in table:
+        half = (tpk.lm_half_argmax if model.kernels
+                else tpk.lm_half_argmax_plain)
+        token = tpk.tp_lm_head_token(mesh, xo, dec["norm"],
+                                     table["lm_codes"], table["lm_scale"],
+                                     eps=eps, half=half)
+    if logits is None and (logits_too or token is None):
+        logits = lm_head(dec, rms_norm(xo, dec["norm"], eps), mm=model._mm)
+    return logits, token
 
 
 def _mesh_plan(model, plan: ParallelPlan, batch: int, seq_len: int,
@@ -819,11 +848,14 @@ class VoxtralModel:
     the plain PyTorch versions of the kernels (for comparison on the
     card; on the CPU the kernel wrappers take the plain versions anyway).
 
-    ``mesh`` (``parallel.make_mesh``; w8 trees): the one-shot decode runs
-    tensor-parallel (tp > 1: the K4 / K5 halves per model shard and the
-    vocab-sharded K6 fold, the rows split over the data axis when dp > 1)
-    or data-parallel (dp > 1: K1 per data group), as the JAX model's
-    ``mesh=`` does (``models/voxtral.py:863-964``).  The tree lives on the
+    ``mesh`` (``parallel.make_mesh``; w8 and q4g trees): the one-shot
+    decode runs tensor-parallel (tp > 1: the K4 / K5 halves per model
+    shard, in g32 for q4g, and the vocab-sharded K6 fold, the rows split
+    over the data axis when dp > 1) or data-parallel (dp > 1: K1 per data
+    group), as the JAX model's ``mesh=`` does (``models/voxtral.py:
+    863-964``).  A q4g model outside JAX's gate for the g32 halves
+    (``ops.decode_tp.check_tp_q4g``) raises: JAX decodes it through a
+    GSPMD-partitioned step the port does not have.  The tree lives on the
     mesh's first device, where the encoder, adapter, prefill and first
     token run unsharded.  Under tp > 1 the single-device stacks are
     dropped (``fused_decode`` None, as JAX): sessions and pools on such a
@@ -910,27 +942,49 @@ class VoxtralModel:
                              f"device {mesh.first}, not {self.device}")
         if plan.dp * plan.tp == 1:
             return
-        if self.decode_route != "w8":
+        if self.decode_route not in ("w8", "q4g"):
             raise ValueError(
-                f"a {plan.dp} x {plan.tp} mesh needs w8 weights, not "
-                f"{self.decode_route} (the q4g TP halves and meshed bf16 / "
-                "q4 paths are later slices: ROADMAP item 12)")
+                f"a {plan.dp} x {plan.tp} mesh needs w8 weights or q4g "
+                f"weights, not {self.decode_route} (meshed bf16 / f32 is "
+                "ROADMAP item 12.3; packed q4 decodes per op, on one "
+                "device)")
         lm = self.config.language_model
         dec = self.params["decoder"]
-        emb = dec["tok_embeddings"]["w8"]
         fused = self.fused_decode
+        q4g = self.decode_route == "q4g"
+        # The lm fold's table: w8's rowwise codes, the g32 table of a q4g
+        # model, or none (a q4g stack over a table that is not g32).
+        lm_fold = _lm_fold(dec, fused)
         if plan.tp > 1:
+            if q4g:
+                try:
+                    tpk.check_tp_q4g(lm.n_heads, lm.n_kv_heads, lm.head_dim,
+                                     lm.hidden_dim, plan.tp)
+                except ValueError as exc:
+                    raise ValueError(
+                        f"{exc}: JAX's gate for the g32 TP halves; outside "
+                        "it JAX decodes through its GSPMD-partitioned XLA "
+                        "step, which the port does not have (ROADMAP item "
+                        "12.3)") from exc
+            vocab = lm.vocab_size
             if (lm.n_kv_heads % plan.tp or lm.hidden_dim % plan.tp
-                    or emb["codes"].shape[0] % plan.tp):
+                    or vocab % plan.tp):
                 raise ValueError(
                     f"tp={plan.tp} must divide n_kv={lm.n_kv_heads}, "
-                    f"hidden={lm.hidden_dim} and vocab="
-                    f"{emb['codes'].shape[0]}")
-            stacked = tpk.tp_shard_fused_weights(
-                fused, lm.n_heads, lm.n_kv_heads, lm.head_dim, lm.hidden_dim,
-                plan.tp)
-            table = tpk.tp_shard_lm_head(emb, plan.tp)
-            stacked.update(lm_codes=table["codes"], lm_scale=table["scale"])
+                    f"hidden={lm.hidden_dim} and vocab={vocab}")
+            shard = (tpk.tp_shard_fused_weights_q4g if q4g
+                     else tpk.tp_shard_fused_weights)
+            stacked = shard(fused, lm.n_heads, lm.n_kv_heads, lm.head_dim,
+                            lm.hidden_dim, plan.tp)
+            # Without a table to fold, the greedy step takes the whole
+            # lm_head on the first device.
+            if "lm_codes" in lm_fold:
+                codes, scale = lm_fold["lm_codes"], lm_fold["lm_scale"]
+                table = (tpk.tp_shard_lm_head_q4g(codes, scale, plan.tp)
+                         if q4g else tpk.tp_shard_lm_head(
+                             {"codes": codes, "scale": scale}, plan.tp))
+                stacked.update(lm_codes=table["codes"],
+                               lm_scale=table["scale"])
             # Only the placed shards are kept: on cards of their own, the
             # first device does not hold every shard's stacks.
             self.fused_tp = tpk.place_shards(mesh, stacked)
@@ -939,8 +993,6 @@ class VoxtralModel:
             # their own shards.
             self.fused_decode = None
             return
-        lm_fold = dict(final_norm=dec["norm"].float(), lm_codes=emb["codes"],
-                       lm_scale=emb["scale"])
         self._dp_stacks = {
             name: [t.to(row[0]) for row in mesh.devices]
             for name, t in {**fused, **lm_fold}.items()}

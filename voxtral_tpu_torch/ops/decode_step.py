@@ -31,9 +31,10 @@ the segments (wq, wk, wv), the FFN's as (w1, w3)), each linear's input
 row cast to bf16 instead of quantized, bf16 x bf16 products summed in
 f32 (here f64, rounded once) with no scales, the folded lm_head over
 the dense bf16 table; combinable with every cache mode; (i)
-``lm_argmax`` (``:1285-1300``, w8): the greedy argmax folded into the
-lm_head, a running (max, first index) over vocab tiles, so the step
-returns each row's token and never writes the logits.  Source:
+``lm_argmax`` (``:1285-1300``, w8 and g32 tables; bf16 not yet): the
+greedy argmax folded into the lm_head, a running (max, first index) over
+vocab tiles, so the step returns each row's token and never writes the
+logits.  Source:
 ``csrc/decode_step.cu`` (the GEMV of mode (g): ``csrc/bf16_gemv.cuh``;
 the fold of mode (i): ``csrc/lm_argmax.cuh``).
 
@@ -556,9 +557,9 @@ def decode_stack_step_plain(
     and P.V dots (exact), k_new / v_new still bf16.  ``cache_chunk``
     (mode (f)): the online softmax over chunks; it reads the offsets'
     min and max on the host, which the kernel does on the device.
-    ``lm_argmax`` (mode (i), w8): the fourth output is the greedy token
-    [B, 1] int32, the first index of each row's largest logit, in place
-    of the logits.
+    ``lm_argmax`` (mode (i), w8 or g32): the fourth output is the greedy
+    token [B, 1] int32, the first index of each row's largest logit, in
+    place of the logits.
     """
     B, D = x.shape
     L, S = k_cache.shape[0], k_cache.shape[3]
@@ -622,12 +623,12 @@ def lm_token_plain(logits: torch.Tensor) -> torch.Tensor:
 
 def _check_lm_argmax(lm_argmax: bool, fmt: str, lm_codes) -> bool:
     """Mode (i) applies with the lm fold only (JAX drops the flag without
-    one, ``decode_step_pallas.py:1479``); ported for w8 tables."""
+    one, ``decode_step_pallas.py:1479``); ported for w8 and g32 tables."""
     lm_argmax = bool(lm_argmax and lm_codes is not None)
-    if lm_argmax and fmt != "w8":
+    if lm_argmax and fmt == "bf16":
         raise ValueError(
-            "lm_argmax (mode (i)) is ported for w8 stacks; the g32 and bf16 "
-            "lm folds return logits (ROADMAP)")
+            "lm_argmax (mode (i)) is ported for w8 and g32 stacks; the bf16 "
+            "lm fold returns logits (ROADMAP item 12.3: meshed bf16)")
     return lm_argmax
 
 
@@ -807,8 +808,8 @@ def decode_stack_step(
     :func:`quantize_kv` and appends codes and scales.
     ``cache_chunk=Sc`` (mode (f); Sc divides S, spec = 1): the attention
     walks the cache in chunks of Sc slots, so S is not bounded by shared
-    memory.  ``lm_argmax=True`` (mode (i), w8, with the lm fold): the
-    greedy token [B, 1] int32 in place of the logits, which are never
+    memory.  ``lm_argmax=True`` (mode (i), w8 or g32, with the lm fold):
+    the greedy token [B, 1] int32 in place of the logits, which are never
     written (``csrc/lm_argmax.cuh``).
     Returns (x_out, k_new, v_new[, logits or token]) like
     :func:`decode_stack_step_plain`, k_new / v_new [L, B, Hkv, hd]; the
@@ -816,7 +817,8 @@ def decode_stack_step(
 
     CPU tensors take the plain version; CUDA tensors launch the kernels
     or raise.  Each launch adds one to ``decode_stack_step.launches``, a
-    mode (i) launch also to ``decode_stack_step.argmax_launches``.
+    mode (i) launch also to ``decode_stack_step.argmax_launches`` (and,
+    over a g32 table, to ``decode_stack_step.argmax_g32_launches``).
     """
     args = (x, offset, attn_norms, ffn_norms, ada_vecs, sqkv, so, s13, s2,
             cos_p, sin_p, k_cache, v_cache, wqkv, wo, w13, w2,
@@ -980,12 +982,14 @@ def decode_stack_step(
     out = (x_out, k_new, v_new)
     if lm_argmax:
         decode_stack_step.argmax_launches += 1
+        decode_stack_step.argmax_g32_launches += g32
         return (*out, token)
     return out if logits is None else (*out, logits)
 
 
 decode_stack_step.launches = 0
 decode_stack_step.argmax_launches = 0
+decode_stack_step.argmax_g32_launches = 0
 
 
 # ---------------------------------------------------------------------------

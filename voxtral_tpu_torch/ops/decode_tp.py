@@ -26,6 +26,16 @@ from :func:`tp_shard_fused_weights` / :func:`tp_shard_lm_head`, pure
 re-slicings of K1's stacks equal to JAX's arrays (leading shard axis),
 placed on the shards' devices by :func:`place_shards`.
 
+Two weight formats, picked by the scales' rank as K1 picks mode (h):
+w8 (int8 codes, f32 row scales) and g32, the exact Q4_0 weights of a
+q4g model (int8 codes = nibble - 8 with f16 group scales [N, K/32], the
+g32 halves of ``_half_plan`` / ``_stream_factory`` with ``wg``,
+``:72-142``, and ``_make_lm_half``'s, ``:1228-1279``), from
+:func:`tp_shard_fused_weights_q4g` / :func:`tp_shard_lm_head_q4g`: the
+port's own layout (K1 mode (h)'s [L, N, K] codes), so the values equal
+JAX's shards and the arrays do not.  A row-parallel g32 shard (wo, w2)
+holds its K columns and their K/32 scale columns.
+
 Numerics, as JAX's: each shard quantizes its attention output and its
 SwiGLU rows with its LOCAL row absmax (``:43-47``), so a tp run is not
 bit-equal to the single-device step; the plain versions here quantize
@@ -33,15 +43,16 @@ the same way.  Every float reduction sums in f64 and rounds once, in
 kernel and plain version alike (K1's rule), so the two agree bit for
 bit.
 
-Not ported yet (ROADMAP): the g32 (q4g) weights of K4-K6.
 ``tp_vmem_need`` / ``TP_VMEM_CAP`` are TPU-only; :func:`check_tp_geometry`
 checks what the card refuses (the attention block's shared memory, the
-chunk, the ring, the shard divisibility).
+chunk, the ring, the shard divisibility) and, for q4g, JAX's g32 gate
+(:func:`check_tp_q4g`).
 
 What bounds the kernels on the H100 at tp = 2, full width, one row:
-K4 the layer's 15.73 MB of local weights and the visible slots of the
-local cache (bf16, or int8 codes and scales), K5 42.47
-MB, K6 the 201.6 MB vocab shard (``csrc/decode_tp.cu``).  A position
+K4 the layer's 15.73 MB of local weights (16.71 MB of g32 codes and
+scales) and the visible slots of the local cache (bf16, or int8 codes
+and scales), K5 42.47 MB (45.12 MB in g32), K6 the 201.6 MB vocab shard
+(213.9 MB in g32) (``csrc/decode_tp.cu``).  A position
 is 26 x (K4 + K5) wrapper calls per shard and two sums per layer from
 the host, the per-layer route's host cost: on one card a tp run shows
 correctness, not tensor parallelism's speed.
@@ -64,6 +75,7 @@ from voxtral_tpu_torch.ops.decode_step import (
     _rope_swap,
     _spec_streams,
     check_geometry,
+    g32_matmul_plain,
 )
 from voxtral_tpu_torch.ops.w8 import quantize_activations as _quant
 from voxtral_tpu_torch.ops.w8_kernel import w8_matmul_plain
@@ -135,6 +147,74 @@ def tp_shard_lm_head(w8: Params, tp: int) -> Params:
             "scale": scale.reshape(tp, V // tp)}
 
 
+def check_tp_q4g(n_heads: int, n_kv: int, head_dim: int, hidden: int,
+                 tp: int) -> None:
+    """ValueError naming JAX's gate for the g32 halves
+    (``decode_tp_pallas.py:910-915``, ``models/voxtral.py:880-890``):
+    ``tp`` divides n_kv and hidden, and the LOCAL contraction widths
+    nq / tp and hidden / tp are multiples of 128.  The port's layout
+    would take any multiple of 32; the gate is JAX's, so both packages
+    route the same configurations to the g32 halves (ROADMAP §3)."""
+    nq = n_heads * head_dim
+    if n_kv % tp or hidden % tp or (nq // tp) % 128 or (hidden // tp) % 128:
+        raise ValueError(
+            f"q4g TP needs tp={tp} to divide n_kv={n_kv} and hidden="
+            f"{hidden}, and local contraction dims % 128 (nq/tp={nq // tp}, "
+            f"hidden/tp={hidden // tp})")
+
+
+def tp_shard_fused_weights_q4g(fused: Params, n_heads: int, n_kv: int,
+                               head_dim: int, hidden: int,
+                               tp: int) -> Params:
+    """K1's g32 stacks (``ops.decode_step.fuse_decode_weights_q4g``: codes
+    [L, N, K] int8, f16 group scales [L, N, K/32]) resliced for ``tp``
+    shards with a LEADING shard axis, the values of JAX's
+    ``tp_shard_fused_weights_q4g`` (``decode_tp_pallas.py:890-955``) in
+    the port's layout: wqkv / sqkv and w13 / s13 column-parallel, rows
+    in the segments of :func:`tp_shard_fused_weights`; wo / so and w2 /
+    s2 row-parallel, each shard its K columns and its K/32 scale columns
+    (not replicated, unlike w8's ``so`` / ``s2``).  ValueError outside
+    :func:`check_tp_q4g`'s gate."""
+    check_tp_q4g(n_heads, n_kv, head_dim, hidden, tp)
+    nq, nkv = n_heads * head_dim, n_kv * head_dim
+    nq_l, nkv_l, fl = nq // tp, nkv // tp, hidden // tp
+
+    def seg(a, i, parts):
+        return torch.cat([a[:, s + i * n:s + (i + 1) * n] for s, n in parts],
+                         dim=1)
+
+    def cols(a, i, k_l):  # shard i's K columns (codes) or groups (scales)
+        return a[:, :, i * k_l:(i + 1) * k_l]
+
+    qkv = [(0, nq_l), (nq, nkv_l), (nq + nkv, nkv_l)]
+    f13 = [(0, fl), (hidden, fl)]
+    out = {}
+    for name, parts in (("wqkv", qkv), ("sqkv", qkv), ("w13", f13),
+                        ("s13", f13)):
+        out[name] = torch.stack([seg(fused[name], i, parts)
+                                 for i in range(tp)])
+    for codes, scales, k_l in (("wo", "so", nq_l), ("w2", "s2", fl)):
+        out[codes] = torch.stack([cols(fused[codes], i, k_l)
+                                  for i in range(tp)])
+        out[scales] = torch.stack([cols(fused[scales], i, k_l // 32)
+                                   for i in range(tp)])
+    return out
+
+
+def tp_shard_lm_head_q4g(lm_codes: torch.Tensor, lm_scale: torch.Tensor,
+                         tp: int) -> Params:
+    """A g32 tied table (codes [V, D] int8, f16 group scales [V, D/32],
+    ``fuse_decode_weights_q4g``'s ``lm_codes`` / ``lm_scale``) split on
+    the vocab axis into contiguous ascending shards: codes
+    [tp, V/tp, D], scale [tp, V/tp, D/32] (views; JAX
+    ``tp_shard_lm_head_q4g``, ``:1205-1226``)."""
+    V, D = lm_codes.shape
+    if V % tp:
+        raise ValueError(f"tp={tp} must divide vocab={V}")
+    return {"codes": lm_codes.reshape(tp, V // tp, D),
+            "scale": lm_scale.reshape(tp, V // tp, D // 32)}
+
+
 def place_shards(mesh: Mesh, stacked: Params) -> Params:
     """Each leaf [tp, ...] of ``stacked`` as a grid ``[d][i]`` of shard
     ``i`` on ``mesh.devices[d][i]`` (shard i of every data group).  Where
@@ -173,8 +253,9 @@ def check_tp_geometry(S: int, head_dim: int, window: Optional[int],
     (``ops.decode_step.check_geometry``: the score buffer in shared
     memory, S or the window's floats resident, the chunk's chunked; the
     ring within S; no spec rows on a chunked walk), whatever the shard's
-    head count.  Replaces JAX's ``tp_vmem_need`` / ``TP_VMEM_CAP``,
-    which budget TPU VMEM."""
+    head count.  Replaces JAX's ``tp_vmem_need`` / ``TP_VMEM_CAP``, which
+    budget TPU VMEM.  (A meshed q4g model passed :func:`check_tp_q4g`
+    when it was built.)"""
     if n_kv % tp or hidden % tp or vocab % tp:
         raise ValueError(f"tp={tp} must divide n_kv={n_kv}, "
                          f"hidden={hidden} and vocab={vocab}")
@@ -184,6 +265,12 @@ def check_tp_geometry(S: int, head_dim: int, window: Optional[int],
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions
 # ---------------------------------------------------------------------------
+
+
+def _fmt(scales: torch.Tensor) -> str:
+    """A half's weight format from one layer's scales: "g32" for group
+    scales [N, K/32], "w8" for row scales [N] (K1's rule, by rank)."""
+    return "g32" if scales.dim() == 2 else "w8"
 
 
 def _rope_rows(cos_b, sin_b):
@@ -205,8 +292,10 @@ def attn_half_step_plain(x, layer: int, offsets, attn_norm, sqkv, so, cos_b,
     layer on the shard's heads (K1's attention walk: the ring map of
     ``models.layers.ring_k_positions``, the int8 scores and requant
     groups, the chunks in slot order), the WO input quantized with its
-    local absmax, no residual.  JAX's guards: an int8 cache needs its
-    scales, spec rows refuse a chunked walk, the chunk divides S.
+    local absmax, no residual; W8A8 or, with group scales, g32
+    (``_linear_plain``, K1 mode (h)'s).  JAX's guards: an int8 cache
+    needs its scales, spec rows refuse a chunked walk, the chunk divides
+    S.
     -> (partial [B, D] f32, k_new, v_new [B, Hkv_l, hd]: bf16 over an
     int8 cache, else the cache dtype)."""
     B = x.shape[0]
@@ -217,7 +306,8 @@ def attn_half_step_plain(x, layer: int, offsets, attn_norm, sqkv, so, cos_b,
     c, s = _rope_rows(cos_b, sin_b)
     offs = torch.as_tensor(offsets, device=x.device).reshape(-1).expand(Bc)
     h = _rms(x.float(), attn_norm.float(), eps)
-    qkv = _linear_plain(h, wqkv[layer], sqkv, "w8")
+    fmt = _fmt(sqkv)
+    qkv = _linear_plain(h, wqkv[layer], sqkv, fmt)
     q = qkv[:, :nq].reshape(B, n_heads_l, head_dim)
     k = qkv[:, nq:nq + nkv].reshape(B, n_kv_l, head_dim)
     v = qkv[:, nq + nkv:].reshape(B, n_kv_l, head_dim)
@@ -227,28 +317,34 @@ def attn_half_step_plain(x, layer: int, offsets, attn_norm, sqkv, so, cos_b,
                             spec, n_kv_l, head_dim ** -0.5, ring, k_scales,
                             v_scales, cache_chunk)
     new = torch.bfloat16 if k_scales is not None else k_cache_l.dtype
-    return _linear_plain(attn, wo[layer], so, "w8"), k.to(new), v.to(new)
+    return _linear_plain(attn, wo[layer], so, fmt), k.to(new), v.to(new)
 
 
 def ffn_half_step_plain(x, layer: int, ffn_norm, ada_vec, s13, s2, w13, w2,
                         *, eps: float):
     """Plain PyTorch version of K5: ffn_norm x ADA, the shard's W1 / W3,
-    SwiGLU quantized with its local absmax, the W2 partial [B, D] f32."""
+    SwiGLU quantized with its local absmax, the W2 partial [B, D] f32
+    (W8A8, or g32 with group scales)."""
     hidden = w2.shape[2]
+    fmt = _fmt(s13)
     h = _rms(x.float(), ffn_norm.float(), eps) * ada_vec.float()
-    up = _linear_plain(h, w13[layer], s13, "w8")
+    up = _linear_plain(h, w13[layer], s13, fmt)
     gate, upv = up[:, :hidden], up[:, hidden:]
     hmid = gate * (1.0 / (1.0 + torch.exp(-gate))) * upv
-    return _linear_plain(hmid, w2[layer], s2, "w8")
+    return _linear_plain(hmid, w2[layer], s2, fmt)
 
 
 def lm_half_argmax_plain(x, final_norm, lm_scale_l, lm_codes_l, *,
                          eps: float):
     """Plain PyTorch version of K6: the shard's logits (final norm, per-row
-    int8 quant, ``(float(z) * sx) * scale``) and their largest value and
-    first local index -> (max [B, 1] f32, index [B, 1] int32)."""
+    int8 quant, ``(float(z) * sx) * scale``, or over a g32 shard
+    ``float(sum_g z_g * s_g) * sx``, K1 mode (h)'s lm_head) and their
+    largest value and first local index -> (max [B, 1] f32, index [B, 1]
+    int32)."""
     xq, sx = _quant(_rms(x.float(), final_norm.float(), eps))
-    logits = w8_matmul_plain(xq, sx, lm_codes_l, lm_scale_l)
+    matmul = (g32_matmul_plain if _fmt(lm_scale_l) == "g32"
+              else w8_matmul_plain)
+    logits = matmul(xq, sx, lm_codes_l, lm_scale_l)
     idx = torch.argmax(logits, dim=-1, keepdim=True)
     return logits.gather(1, idx), idx.to(torch.int32)
 
@@ -268,6 +364,19 @@ def _expect(fn: str, dev, specs: dict) -> None:
                 f"{None if t is None else (t.dtype, tuple(t.shape))}")
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{fn}: {name} must be contiguous on {dev}")
+
+
+def _g32_ready(fn: str, widths: dict, codes: dict) -> None:
+    """ValueError unless each contraction width is a multiple of 32 and
+    each tensor of codes or group scales starts 16-byte aligned (the
+    g32 GEMVs' 16-byte loads, ``csrc/w8_common.cuh``)."""
+    for name, k in widths.items():
+        if k % 32:
+            raise ValueError(f"{fn}: g32 weights need {name} % 32 == 0, "
+                             f"got {k}")
+    for name, t in codes.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{fn}: g32 {name} must start 16-byte aligned")
 
 
 def _device_of(fn: str, x: torch.Tensor) -> Optional[torch.device]:
@@ -297,13 +406,16 @@ def attn_half_step(x, layer: int, offsets, attn_norm, sqkv, so, cos_b,
     bf16, or int8 codes with ``k_scales`` / ``v_scales`` [streams, Hkv_l,
     S] f32 (K1 mode (e)); the shard's stacks wqkv [L, nqkv_l, D], wo [L,
     D, nq_l] int8.  ``ring`` = (head, size): a head+ring cache (mode
-    (d)); ``cache_chunk``: the chunked walk (mode (f), spec = 1).
+    (d)); ``cache_chunk``: the chunked walk (mode (f), spec = 1).  g32
+    weights (q4g, :func:`tp_shard_fused_weights_q4g`): sqkv [nqkv_l,
+    D/32] and ``so`` [D, nq_l/32] f16 group scales, the shard's own.
     Returns (the WO partial [B, D] f32, k_new, v_new [B, Hkv_l, hd]
     bf16).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (``csrc/decode_tp.cu``) or raise.  Each launch adds one to
-    ``attn_half_step.launches``.
+    ``attn_half_step.launches``, a g32 one also to
+    ``attn_half_step.g32_launches``.
     """
     args = (x, layer, offsets, attn_norm, sqkv, so, cos_b, sin_b, k_cache_l,
             v_cache_l, wqkv, wo, k_scales, v_scales)
@@ -343,9 +455,13 @@ def attn_half_step(x, layer: int, offsets, attn_norm, sqkv, so, cos_b,
     f32 = torch.float32
     cdt = torch.int8 if int8 else torch.bfloat16
     rope = (head_dim,) if cos_b.dim() == 1 else (B, head_dim)
+    g32 = _fmt(sqkv) == "g32"
+    sdt = torch.float16 if g32 else f32
     specs = {
         "x": (x, f32, (B, D)), "attn_norm": (attn_norm, f32, (D,)),
-        "sqkv": (sqkv, f32, (nq + 2 * nkv,)), "so": (so, f32, (D,)),
+        "sqkv": (sqkv, sdt, (nq + 2 * nkv, D // 32) if g32
+                 else (nq + 2 * nkv,)),
+        "so": (so, sdt, (D, nq // 32) if g32 else (D,)),
         "cos_b": (cos_b, f32, rope), "sin_b": (sin_b, f32, rope),
         "k_cache_l": (k_cache_l, cdt, (Bc, n_kv_l, S, head_dim)),
         "v_cache_l": (v_cache_l, cdt, (Bc, n_kv_l, S, head_dim)),
@@ -356,6 +472,9 @@ def attn_half_step(x, layer: int, offsets, attn_norm, sqkv, so, cos_b,
         specs.update(k_scales=(k_scales, f32, (Bc, n_kv_l, S)),
                      v_scales=(v_scales, f32, (Bc, n_kv_l, S)))
     _expect("attn_half_step", dev, specs)
+    if g32:
+        _g32_ready("attn_half_step", {"D": D, "nq_l": nq},
+                   {"wqkv": wqkv, "wo": wo, "sqkv": sqkv, "so": so})
     y = torch.empty((B, D), dtype=f32, device=dev)
     k_new = torch.empty((B, n_kv_l, head_dim), dtype=torch.bfloat16,
                         device=dev)
@@ -366,7 +485,7 @@ def attn_half_step(x, layer: int, offsets, attn_norm, sqkv, so, cos_b,
     att = torch.empty((B, nq), dtype=f32, device=dev)
     with torch.cuda.device(dev):
         fn = kernel_fn("vx_attn_half_step", [_P, _P, _I] + [_P] * 18
-                       + [_I] * 13 + [_F, _F, _P])
+                       + [_I] * 14 + [_F, _F, _P])
         code = fn(
             x.data_ptr(), y.data_ptr(), layer, attn_norm.data_ptr(),
             sqkv.data_ptr(), so.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(),
@@ -380,14 +499,16 @@ def attn_half_step(x, layer: int, offsets, attn_norm, sqkv, so, cos_b,
             0 if cos_b.dim() == 1 else head_dim,
             -1 if window is None else int(window),
             0 if ring is None else ring[0], 0 if ring is None else ring[1],
-            cache_chunk or 0, eps, head_dim ** -0.5,
+            cache_chunk or 0, int(g32), eps, head_dim ** -0.5,
             torch.cuda.current_stream(dev).cuda_stream)
     check(code, "attn_half_step")
     attn_half_step.launches += 1
+    attn_half_step.g32_launches += int(g32)
     return y, k_new, v_new
 
 
 attn_half_step.launches = 0
+attn_half_step.g32_launches = 0
 
 
 def ffn_half_step(x, layer: int, ffn_norm, ada_vec, s13, s2, w13, w2, *,
@@ -395,10 +516,12 @@ def ffn_half_step(x, layer: int, ffn_norm, ada_vec, s13, s2, w13, w2, *,
     """K5: one layer's FFN half on this shard's F rows.
 
     x [B, D] f32 (the residual after the attention sum); layer
-    ``layer``'s ffn_norm, ada_vec [D], s13 [2 F_l] and s2 [D] f32; the
-    shard's stacks w13 [L, 2 F_l, D], w2 [L, D, F_l] int8.  Returns the
-    W2 partial [B, D] f32.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise (``ffn_half_step.launches``).
+    ``layer``'s ffn_norm, ada_vec [D], s13 [2 F_l] and s2 [D] f32 (g32:
+    f16 group scales s13 [2 F_l, D/32], s2 [D, F_l/32]); the shard's
+    stacks w13 [L, 2 F_l, D], w2 [L, D, F_l] int8.  Returns the W2
+    partial [B, D] f32.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise (``ffn_half_step.launches``, and
+    ``ffn_half_step.g32_launches`` for g32).
     """
     dev = _device_of("ffn_half_step", x)
     if dev is None:
@@ -410,40 +533,52 @@ def ffn_half_step(x, layer: int, ffn_norm, ada_vec, s13, s2, w13, w2, *,
         raise ValueError(f"ffn_half_step: layer must be an int in [0, {L}), "
                          f"got {layer!r}")
     f32 = torch.float32
+    g32 = _fmt(s13) == "g32"
+    sdt = torch.float16 if g32 else f32
     _expect("ffn_half_step", dev, {
         "x": (x, f32, (B, D)), "ffn_norm": (ffn_norm, f32, (D,)),
-        "ada_vec": (ada_vec, f32, (D,)), "s13": (s13, f32, (2 * F,)),
-        "s2": (s2, f32, (D,)), "w13": (w13, torch.int8, (L, 2 * F, D)),
+        "ada_vec": (ada_vec, f32, (D,)),
+        "s13": (s13, sdt, (2 * F, D // 32) if g32 else (2 * F,)),
+        "s2": (s2, sdt, (D, F // 32) if g32 else (D,)),
+        "w13": (w13, torch.int8, (L, 2 * F, D)),
         "w2": (w2, torch.int8, (L, D, F)),
     })
+    if g32:
+        _g32_ready("ffn_half_step", {"D": D, "F_l": F},
+                   {"w13": w13, "w2": w2, "s13": s13, "s2": s2})
     z = torch.empty((B, D), dtype=f32, device=dev)
     xq = torch.empty((B, max(D, F)), dtype=torch.int8, device=dev)
     sx = torch.empty((B,), dtype=f32, device=dev)
     up = torch.empty((B, 2 * F), dtype=f32, device=dev)
     with torch.cuda.device(dev):
         fn = kernel_fn("vx_ffn_half_step", [_P, _P, _I] + [_P] * 9
-                       + [_I] * 3 + [_F, _P])
+                       + [_I] * 4 + [_F, _P])
         code = fn(x.data_ptr(), z.data_ptr(), layer, ffn_norm.data_ptr(),
                   ada_vec.data_ptr(), s13.data_ptr(), s2.data_ptr(),
                   w13.data_ptr(), w2.data_ptr(), xq.data_ptr(), sx.data_ptr(),
-                  up.data_ptr(), B, D, F, eps,
+                  up.data_ptr(), B, D, F, int(g32), eps,
                   torch.cuda.current_stream(dev).cuda_stream)
     check(code, "ffn_half_step")
     ffn_half_step.launches += 1
+    ffn_half_step.g32_launches += int(g32)
     return z
 
 
 ffn_half_step.launches = 0
+ffn_half_step.g32_launches = 0
 
 
 def lm_half_argmax(x, final_norm, lm_scale_l, lm_codes_l, *, eps: float):
     """K6: this shard's greedy lm_head over its vocab rows.
 
     x [B, D] f32 (the stack's output); final_norm [D] f32; the shard's
-    w8 table lm_codes_l [V_l, D] int8 and lm_scale_l [V_l] f32.  Returns
-    (max logit [B, 1] f32, its first LOCAL index [B, 1] int32); the
-    logits are never written.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise (``lm_half_argmax.launches``).
+    w8 table lm_codes_l [V_l, D] int8 and lm_scale_l [V_l] f32, or its
+    g32 table (:func:`tp_shard_lm_head_q4g`) with f16 group scales
+    lm_scale_l [V_l, D/32].  Returns (max logit [B, 1] f32, its first
+    LOCAL index [B, 1] int32); the logits are never written.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise (``lm_half_argmax.launches``, and
+    ``lm_half_argmax.g32_launches`` for g32).
     """
     dev = _device_of("lm_half_argmax", x)
     if dev is None:
@@ -452,11 +587,16 @@ def lm_half_argmax(x, final_norm, lm_scale_l, lm_codes_l, *, eps: float):
     B, D = x.shape
     V = lm_codes_l.shape[0]
     f32 = torch.float32
+    g32 = _fmt(lm_scale_l) == "g32"
     _expect("lm_half_argmax", dev, {
         "x": (x, f32, (B, D)), "final_norm": (final_norm, f32, (D,)),
         "lm_codes_l": (lm_codes_l, torch.int8, (V, D)),
-        "lm_scale_l": (lm_scale_l, f32, (V,)),
+        "lm_scale_l": ((lm_scale_l, torch.float16, (V, D // 32)) if g32
+                       else (lm_scale_l, f32, (V,))),
     })
+    if g32:
+        _g32_ready("lm_half_argmax", {"D": D},
+                   {"lm_codes_l": lm_codes_l, "lm_scale_l": lm_scale_l})
     vmax = torch.empty((B, 1), dtype=f32, device=dev)
     vidx = torch.empty((B, 1), dtype=torch.int32, device=dev)
     tiles = -(-V // LM_TILE)
@@ -465,18 +605,20 @@ def lm_half_argmax(x, final_norm, lm_scale_l, lm_codes_l, *, eps: float):
     tmax = torch.empty((B, tiles), dtype=f32, device=dev)
     tidx = torch.empty((B, tiles), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        fn = kernel_fn("vx_lm_half_argmax", [_P] * 10 + [_I] * 3 + [_F, _P])
+        fn = kernel_fn("vx_lm_half_argmax", [_P] * 10 + [_I] * 4 + [_F, _P])
         code = fn(x.data_ptr(), final_norm.data_ptr(), lm_codes_l.data_ptr(),
                   lm_scale_l.data_ptr(), vmax.data_ptr(), vidx.data_ptr(),
                   xq.data_ptr(), sx.data_ptr(), tmax.data_ptr(),
-                  tidx.data_ptr(), B, D, V, eps,
+                  tidx.data_ptr(), B, D, V, int(g32), eps,
                   torch.cuda.current_stream(dev).cuda_stream)
     check(code, "lm_half_argmax")
     lm_half_argmax.launches += 1
+    lm_half_argmax.g32_launches += int(g32)
     return vmax, vidx
 
 
 lm_half_argmax.launches = 0
+lm_half_argmax.g32_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -499,7 +641,7 @@ def tp_decode_step(
     ``tp_decode_step``, ``decode_tp_pallas.py:958-1107``).
 
     ``tp_w``: :func:`place_shards` of :func:`tp_shard_fused_weights`'
-    stacks.  x [B, D] (B = streams x ``spec`` rows, ordered (stream,
+    stacks, or of :func:`tp_shard_fused_weights_q4g`'s (the g32 halves).  x [B, D] (B = streams x ``spec`` rows, ordered (stream,
     draft slot)), ``offsets`` an int or int32 [streams], cos_b / sin_b [hd] or per row [B, hd], the norm and
     ADA stacks [L, D] f32: replicated, moved to each shard's device (a
     no-op on a shared card).  ``k_cache`` / ``v_cache``: the grid
@@ -584,7 +726,8 @@ def tp_lm_head_token(mesh: Mesh, x, final_norm, lm_codes_sh, lm_scale_sh,
     model shard, then ``collectives.argmax_resolve`` (the largest value,
     then the lowest global index: ``torch.argmax``'s first index).
     ``lm_codes_sh`` / ``lm_scale_sh``: :func:`place_shards` of
-    :func:`tp_shard_lm_head`'s leaves.  The rows split over the data
+    :func:`tp_shard_lm_head`'s leaves (or :func:`tp_shard_lm_head_q4g`'s:
+    K6 over g32 shards).  The rows split over the data
     axis as in :func:`tp_decode_step`.  ``half``: K6 (default) or its
     plain version."""
     toks = []

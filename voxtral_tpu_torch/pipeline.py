@@ -179,7 +179,9 @@ class TranscribePipeline:
         "w8" (requantized at load).  ``params_cache``: a directory caching
         the repacked / requantized tree, so a warm start skips the
         conversion.  ``device``: ``None`` is the card.  ``mesh``: as in
-        :meth:`from_model_dir` (w8 only: a meshed q4 / q4g model raises).
+        :meth:`from_model_dir` (w8 and q4g: a meshed packed-q4 model
+        raises, and so does a q4g model outside the g32 halves' gate,
+        ``ops.decode_tp.check_tp_q4g``).
         """
         from voxtral_tpu_torch.loaders.gguf_loader import Q4ModelLoader
 

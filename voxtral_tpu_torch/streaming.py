@@ -43,12 +43,14 @@ chunks of ``CACHE_CHUNK`` slots (mode (f)), as the ladder of
 pass.  A pool on a model with fused weights runs K1 and nothing else: a
 geometry no rung admits raises in the constructor.
 
-On a model with a mesh (``VoxtralModel(mesh=)``, w8 weights) sessions
-and pools decode meshed, as JAX's (``voxtral_tpu/streaming.py:530-620``):
-tp > 1 runs the K4 / K5 halves per model shard (the head+ring, int8 and
-chunked cache modes included) and K6's vocab-sharded greedy tokens, the
-pool's slots split over the data axis too when dp > 1; a data-parallel
-pool runs K1 per data group.  The decoder caches are then shard grids
+On a model with a mesh (``VoxtralModel(mesh=)``, w8 or q4g weights)
+sessions and pools decode meshed, as JAX's (``voxtral_tpu/streaming.py:
+530-620``, the ``wg`` gate ``:550-575``): tp > 1 runs the K4 / K5 halves
+per model shard (the head+ring, int8 and chunked cache modes included;
+in g32 for q4g) and K6's vocab-sharded greedy tokens (the whole lm_head
+on the first device when a q4g stack sits over a table that is not
+g32), the pool's slots split over the data axis too when dp > 1; a
+data-parallel pool runs K1 per data group.  The decoder caches are then shard grids
 (:class:`_ShardedKV`); the encoder, the adapter and every stream's first
 step stay on the mesh's first device.  A solo session runs on data group
 0's shards.
@@ -84,7 +86,6 @@ from voxtral_tpu_torch.models.layers import (
     KVCache,
     conv_downsample,
     ring_slot,
-    rms_norm,
     rope_tables,
 )
 from voxtral_tpu_torch.models.voxtral import (
@@ -95,6 +96,7 @@ from voxtral_tpu_torch.models.voxtral import (
     check_draft,
     fused_step_fn,
     make_prefix_ids,
+    mesh_lm_head,
     ngram_drafts,
     ngram_table_init,
     ngram_train,
@@ -403,9 +405,12 @@ def _decoder(model: VoxtralModel, w, ada: torch.Tensor, kv: _ShardedKV,
     :func:`ops.decode_tp.tp_decode_step` (K4 / K5 per shard, the rows
     over the data axis) and K6's vocab-sharded tokens
     (``tp_lm_head_token``); the whole lm_head on the first device only
-    for the top-2 margins (``model.record_margins``).  On a
-    data-parallel mesh: ``dp_decode_stack_step`` (K1 per data group),
-    its tokens from mode (i) unless the margins need the logits."""
+    for the top-2 margins (``model.record_margins``), or for the tokens
+    when the shards carry no table to fold (a q4g stack over a table that
+    is not g32).  On a data-parallel mesh: ``dp_decode_stack_step`` (K1
+    per data group), its tokens from mode (i) unless the margins need
+    the logits or there is no fold (then the lm_head on the first
+    device)."""
     dec, lm = model.params["decoder"], model.config.language_model
     kw = dict(n_heads=lm.n_heads, n_kv=lm.n_kv_heads, head_dim=lm.head_dim,
               eps=lm.norm_eps, window=lm.sliding_window, ring=ring,
@@ -423,10 +428,8 @@ def _decoder(model: VoxtralModel, w, ada: torch.Tensor, kv: _ShardedKV,
             return select_token(logits), logits, [[kn]], [[vn]]
 
         return decode
-    norm = dec["norm"]
     if mesh.shape["model"] > 1:
         kern = model.kernels
-        half = tpk.lm_half_argmax if kern else tpk.lm_half_argmax_plain
         parts = dict(attn=tpk.attn_half_step if kern
                      else tpk.attn_half_step_plain,
                      ffn=tpk.ffn_half_step if kern
@@ -437,13 +440,10 @@ def _decoder(model: VoxtralModel, w, ada: torch.Tensor, kv: _ShardedKV,
                 mesh, x, offs, model._tp_norms[0], model._tp_norms[1], ada,
                 w, cos, sin, kv.k, kv.v, kv.ks, kv.vs, spec=spec, **parts,
                 **kw)
-            tokens = tpk.tp_lm_head_token(mesh, xo, norm, w["lm_codes"],
-                                          w["lm_scale"], eps=lm.norm_eps,
-                                          half=half)
-            logits = (lm_head(dec, rms_norm(xo, norm, lm.norm_eps),
-                              mm=model._mm)
-                      if model.record_margins else None)
-            return tokens, logits, kn, vn
+            logits, tokens = mesh_lm_head(model, mesh, xo, w, None, True,
+                                          model.record_margins)
+            return (select_token(logits) if tokens is None else tokens,
+                    logits, kn, vn)
 
         return decode
     st = model._dp_stacks
@@ -451,18 +451,20 @@ def _decoder(model: VoxtralModel, w, ada: torch.Tensor, kv: _ShardedKV,
     def first(grid):
         return None if grid is None else [row[0] for row in grid]
 
+    fold = [st.get(k) for k in ("final_norm", "lm_codes", "lm_scale")]
+
     def decode(x, offs, cos, sin, spec=1):
-        argmax = not model.record_margins
-        _, kn, vn, last = dp_decode_stack_step(
+        argmax = not model.record_margins and fold[1] is not None
+        xo, kn, vn, *last = dp_decode_stack_step(
             mesh, x, offs, st["attn_norm"], st["ffn_norm"], ada, st["sqkv"],
             st["so"], st["s13"], st["s2"], cos, sin, first(kv.k),
-            first(kv.v), st["wqkv"], st["wo"], st["w13"], st["w2"],
-            st["final_norm"], st["lm_codes"], st["lm_scale"], first(kv.ks),
-            first(kv.vs), spec=spec, lm_argmax=argmax, step=model._step,
-            **kw)
-        tokens = last[:, 0] if argmax else select_token(last)
-        return (tokens, None if argmax else last, [[n] for n in kn],
-                [[n] for n in vn])
+            first(kv.v), st["wqkv"], st["wo"], st["w13"], st["w2"], *fold,
+            first(kv.ks), first(kv.vs), spec=spec, lm_argmax=argmax,
+            step=model._step, **kw)
+        logits, tokens = mesh_lm_head(model, mesh, xo, st, last, True,
+                                      model.record_margins)
+        return (select_token(logits) if tokens is None else tokens, logits,
+                [[n] for n in kn], [[n] for n in vn])
 
     return decode
 
@@ -512,8 +514,8 @@ class StreamPool:
     offsets and RoPE (mode (c)), per-row ring phases (d), int8 KV (e)
     and / or the chunked cache (f) as ``kv_dtype`` and the ladder pick
     them; the decoder caches are head-major [L, B, Hkv, S, hd].  On a
-    model with a mesh (``VoxtralModel(mesh=)``, w8) the decode half runs
-    the K4 / K5 halves and K6 (tp > 1, ``_tp_mesh``; the slots split
+    model with a mesh (``VoxtralModel(mesh=)``, w8 or q4g) the decode half
+    runs the K4 / K5 halves and K6 (in g32 for q4g) (tp > 1, ``_tp_mesh``; the slots split
     over the data axis too when dp > 1) or K1 per data group (dp > 1,
     ``_dp_mesh``), in the same cache modes, over caches held as shard
     grids (``dec_k`` etc. are then grids ``[d][i]`` of [L, B / dp,
