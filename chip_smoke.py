@@ -118,7 +118,19 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              voxtral_tpu_torch.cli --model DIR --dtype {bfloat16,w8}`` on
              a small SafeTensors directory the script writes (the GGUF's
              model, random dense weights), each exiting 0 with the
-             library path's text.  11c
+             library path's text.  11d (bf16 mesh, right after 11a on
+             its model): K1 mode (i) over the bf16 table alone at 1, 8
+             and 12 rows (12: two table passes, two planted ties, one
+             across a fold tile), bit-equal to plain and == the argmax of
+             mode (g)'s logits, timed from a CUDA graph and from the host
+             beside its bound; a dp = 2 mesh whose data groups share the
+             card and the stacks (no copy); two chirps sequential and
+             speculative=8 ngram (== the single card's batch exactly;
+             K1 (i) bf16 launches == 2 x positions); an unbounded session
+             on the mesh (== the single card's); B = 4 dp = 2 pools on
+             the bf16 and int8 caches (== the single card's pools
+             exactly, == plain over their first ticks); a dp pool slot
+             restored on one device.  11c
              (f32): the per-op step on the chirp's first 4 s (no kernel
              launched), RTF and peak memory.
 12. batched — after the w8 sessions, on their model: K7
@@ -223,13 +235,15 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              sequential; only then may a q4g speculative row part from
              sequential above the spec near-tie, by the margin-gap rule
              (spec_held).
-13b.       on two cards or more only (alone: ``mesh_cards_main``):
-             each mesh that fits with every shard on a card of its own,
-             tokens == the same mesh on card 0 (dp == the single card),
-             the peak memory per card; the unbounded tp = 2 session and
-             (four cards) a 2 x 2 B = 4 pool over cards of their own ==
-             the same on card 0; on four cards the CLI's ``--tp 2 --dp
-             2`` exits 0.
+13b.       on two cards or more only (alone: ``mesh_cards_main``), for
+             the w8 tree (after phase 13c), the q4g tree (after 13d) and
+             the bf16 tree (in 11d): each mesh that fits with every shard
+             on a card of its own (w8, q4g: tp = 2, dp = 2, 2 x 2; bf16:
+             dp = 2), tokens == the same mesh on card 0 (dp == the single
+             card), the peak memory per card; the unbounded tp = 2
+             session and (four cards) a 2 x 2 B = 4 pool (bf16: a dp = 2
+             pool) over cards of their own == the same on card 0; for
+             w8 on four cards the CLI's ``--tp 2 --dp 2`` exits 0.
 9. numbers — RTF, decode ms/token, the weight stream per decode step
              against its bound, passes, peak GPU memory, the sessions'
              step ms and step RTF against the step's bound, time to first
@@ -1456,7 +1470,10 @@ def stream_counters():
             "ffn_half_step_g32": Share(ktp.ffn_half_step, "g32_launches"),
             "lm_half_argmax_g32": Share(ktp.lm_half_argmax, "g32_launches"),
             "decode_stack_step_lm_argmax_g32": Share(
-                step, "argmax_g32_launches")}
+                step, "argmax_g32_launches"),
+            # K1 (i) over a bf16 table (phase 11d).
+            "decode_stack_step_lm_argmax_bf16": Share(
+                step, "argmax_bf16_launches")}
 
 
 def stream_run(model, pieces, dev, keep=False, finish=True,
@@ -3179,7 +3196,10 @@ def run_dense(cfg, dev, card, sig, tok):
     kv_check = int8_against_bf16(pools, card)
     release()
     k1g["err"] = max(k1g["err"], check_k1_pool_geometries(model, dev, card))
-    del model, plain, params, pipe, spipe
+    del pipe, spipe
+    release()
+    mesh = run_dense_mesh(model, plain, dev, card, sig, tok)
+    del model, plain, params
     release()
 
     base = torch.cuda.memory_allocated(dev)
@@ -3210,9 +3230,147 @@ def run_dense(cfg, dev, card, sig, tok):
     runs = {"bf16_sequential": launches,
             "bf16_speculative_ngram": s_launch,
             "bf16_stream_unbounded": st["launches"], **paths,
-            "f32_sequential": f_launch}
+            **mesh["launches"], "f32_sequential": f_launch}
     return dict(k1=k1g, runs=runs, linear=linear, kv_check=kv_check,
-                tree_bytes=tree_b, built_bytes=built)
+                tree_bytes=tree_b, built_bytes=built, mesh=mesh)
+
+
+# Phase 11d: bf16 on a data-parallel mesh, K1 mode (i) over the bf16 table.
+DENSE_MESH_ROWS = (1, SPEC_K, 12)  # 12 rows: two table passes, two ties
+DENSE_MESH_STREAM_SECS = 8.0       # the dp = 2 session
+DENSE_MESH_POOL_SECS = 6.0         # each stream of the B = 4 dp = 2 pools
+DENSE_MESH_PLAIN_TICKS = 2         # the plain side of each pool, a prefix
+
+
+def run_dense_mesh(model, plain, dev, card, sig, tok):
+    """Phase 11d, on phase 11a's bf16 model (``plain`` its plain twin):
+    K1 mode (i) over the bf16 table alone (check_k1_argmax at 1, SPEC_K
+    and 12 rows); a dp = 2 mesh whose data groups share the card and the
+    stacks (no copy); two chirps sequential and speculative=SPEC_K ngram
+    (== the single card's batch exactly, K1 (i) twice a position); an
+    unbounded session on the mesh (data group 0: == the single card's);
+    B = 4 dp = 2 pools of four chirps started together on the bf16 and
+    the int8 cache, each == the single card's pool exactly and held to
+    the plain versions over its first ticks; a dp pool slot restored on
+    one device.  With two cards or more, the dp = 2 mesh over cards of
+    their own (phase 13b) -> times and launches."""
+    import torch
+
+    from voxtral_tpu_torch.pipeline import TranscribePipeline
+    from voxtral_tpu_torch.utils.hbm import shard_weight_bytes, tree_unique_bytes
+
+    t0 = time.perf_counter()
+    cfg, params = model.config, model.params
+    k1i_err, k1i_times = check_k1_argmax(model, dev, card, DENSE_MESH_ROWS)
+    release()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    dp = mesh_model(params, cfg, dev, 2, 1)
+    dp_plain = mesh_model(params, cfg, dev, 2, 1, kernels=False)
+    torch.cuda.synchronize()
+    added = torch.cuda.memory_allocated(dev) - before
+    tree_b = tree_unique_bytes(params)
+    if dp.decode_route != "bf16" or dp.fused_tp is not None:
+        fail(f"bf16 dp=2: route {dp.decode_route}")
+    if not added <= 0.01 * tree_b:
+        fail(f"bf16 dp=2 on one card copied its stacks: {added} bytes "
+             f"allocated beside a {tree_b}-byte tree")
+    print(f"bf16 dp=2 on one card: two models built beside the tree with "
+          f"{added / 1e6:.3f} MB allocated (the groups share the stacks); "
+          f"admission holds data group 1 to "
+          f"{shard_weight_bytes(dp, 1, 0) / 1e9:.4f} GB of its own stacks "
+          f"[{card}]", flush=True)
+
+    pipe = TranscribePipeline(model, tok)
+    mel2 = np.concatenate([
+        pipe.mel.compute_log_batch(pipe.padded_chunks(s, SR)[0].samples)
+        for s in (sig, pool_signal(AUDIO_SECS, 3))])
+    model.record_margins = True
+    try:
+        ref2 = model.transcribe_streaming_batch(mel2)
+        ref2_margins = model.last_margins
+    finally:
+        model.record_margins = False
+    run = mesh_runs("bf16 dp=2 (one card)", dp, mel2, dev, card,
+                    ref2_margins)
+    if run["seq"].tolist() != ref2.tolist():
+        fail("bf16 dp=2 tokens != the single card's batch")
+    k1i = 2 * run["steps"]
+    for key in ("decode_stack_step_lm_argmax",
+                "decode_stack_step_lm_argmax_bf16"):
+        if run["launches"][key] != k1i:
+            fail(f"bf16 dp=2: {key} launches {run['launches'][key]} != "
+                 f"{k1i} (two a position)")
+        if run["spec_launches"][key] != 2 * run["passes"]:
+            fail(f"bf16 dp=2 speculative: {key} launches "
+                 f"{run['spec_launches'][key]} != 2 x {run['passes']} "
+                 "passes")
+    print(f"bf16 dp=2 == the single card's batch of two chirps exactly; "
+          f"K1 (i) bf16 launches {k1i} ({run['steps']} positions x 2 data "
+          f"groups), {run['spec_launches']['decode_stack_step_lm_argmax']} "
+          f"in the speculative run ({run['passes']} passes) [{card}]",
+          flush=True)
+    launches = {"bf16_dp2_sequential": run["launches"],
+                "bf16_dp2_speculative_ngram": run["spec_launches"]}
+    del pipe
+    release()
+
+    pieces = ragged_pieces(sig[:int(DENSE_MESH_STREAM_SECS * SR)])
+    ses = stream_run(dp, pieces, dev, unbounded=True)
+    one = stream_run(model, pieces, dev, unbounded=True)
+    if ses["tokens"].tolist() != one["tokens"].tolist():
+        fail("bf16 dp=2 session != the single card's session")
+    check_stream_launches("bf16 dp=2 unbounded session", ses, "bf16")
+    print(f"bf16 dp=2 unbounded session on {DENSE_MESH_STREAM_SECS:.0f} s "
+          f"(data group 0): {len(ses['tokens'])} tokens == the single "
+          f"card's [{card}]", flush=True)
+    report_stream("bf16 dp=2 session unbounded (one card)", ses, card, model)
+    launches["bf16_dp2_stream_unbounded"] = ses["launches"]
+    del ses, one
+    release()
+
+    signals = [pool_signal(DENSE_MESH_POOL_SECS, i) for i in range(4)]
+    for kv in ("model", "int8"):
+        tag = f"bf16 pool B=4 dp=2 kv_dtype={kv} (one card)"
+        kw = dict(together=True, unbounded=True, kv_dtype=kv)
+        got = pool_run(dp, dev, signals, **kw)
+        dp_plain.record_margins = True
+        try:
+            ref = pool_run(dp_plain, dev, signals,
+                           max_ticks=DENSE_MESH_PLAIN_TICKS, **kw)
+        finally:
+            dp_plain.record_margins = False
+        same = held_to(f"{tag} kernel vs plain", got, ref, ref["margins"],
+                       MARGIN_TIE)
+        single = pool_run(model, dev, signals, **kw)
+        if got["int8"] != (kv == "int8"):
+            fail(f"{tag}: the ladder picked int8 {got['int8']}")
+        if any(a.tolist() != b.tolist() for a, b in zip(got["tokens"],
+                                                        single["tokens"])):
+            fail(f"{tag}: tokens != the single card's pool")
+        n_i = got["launches"]["decode_stack_step_lm_argmax_bf16"]
+        if n_i < 1 or n_i != got["launches"]["decode_stack_step"]:
+            fail(f"{tag}: launches {got['launches']}: every K1 step a mode "
+                 "(i) one over the bf16 table")
+        print(f"{tag}: tokens == the single card's pool exactly, == plain "
+              f"over {DENSE_MESH_PLAIN_TICKS} ticks: {same}; launches "
+              f"{got['launches']}; caches {got['cache_bytes'] / 1e9:.4f} "
+              f"GB, peak GPU memory {got['peak_gb']:.3f} GB (single card "
+              f"{single['peak_gb']:.3f}) [{card}]", flush=True)
+        report_pool(tag, got, card, model)
+        launches[f"bf16_dp2_pool_{kv}"] = got["launches"]
+        del got, ref, single
+        release()
+    launches["bf16_dp2_checkpoint"] = mesh_checkpoint(model, plain, dp, dev,
+                                                      card)
+    del dp, dp_plain
+    release()
+    if torch.cuda.device_count() >= 2:
+        run_mesh_cards(params, cfg, dev, card, tok, sig)
+    print(f"phase 11d (bf16 dp=2 mesh): {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+    return dict(k1i_err=k1i_err, k1i_times=k1i_times, launches=launches,
+                ms_pos=run["ms_pos"], peak=run["peak"])
 
 
 # ---------------------------------------------------------------------------
@@ -3284,9 +3442,10 @@ def timed_kernel(tag, kernel, plain, moved, ops, card):
     return err, (ms, plain_ms, b_ms, b_by, host_ms)
 
 
-def g32_tag(model) -> str:
-    """" g32" for a q4g model (its halves and folds run in g32), else ""."""
-    return " g32" if model.decode_route == "q4g" else ""
+def fmt_tag(model) -> str:
+    """The weight format of the model's halves and folds in a tag: " g32"
+    (q4g), " bf16" (K1 (i) over the bf16 table), or "" (w8)."""
+    return {"q4g": " g32", "bf16": " bf16"}.get(model.decode_route, "")
 
 
 def check_k4_k5(tp, dev, card):
@@ -3327,7 +3486,7 @@ def check_k4_k5(tp, dev, card):
                  + 2 * nbytes(x) + 2 * off * nkv * hd * 2
                  + 2 * rows * nkv * hd * 2)
         err, t = timed_kernel(
-            f"K4 attn_half_step{g32_tag(tp)} tp=2 rows={rows} S={S} "
+            f"K4 attn_half_step{fmt_tag(tp)} tp=2 rows={rows} S={S} "
             f"offset={off}",
             lambda: ktp.attn_half_step(*args, **kw),
             lambda: ktp.attn_half_step_plain(*args, **kw), moved,
@@ -3342,7 +3501,7 @@ def check_k4_k5(tp, dev, card):
         wl = (w["w13"][layer], w["w2"][layer])
         moved = nbytes(*wl, *args[2:6]) + 2 * nbytes(x)
         err, t = timed_kernel(
-            f"K5 ffn_half_step{g32_tag(tp)} tp=2 rows={rows}",
+            f"K5 ffn_half_step{fmt_tag(tp)} tp=2 rows={rows}",
             lambda: (ktp.ffn_half_step(*args, eps=cfg.norm_eps),),
             lambda: (ktp.ffn_half_step_plain(*args, eps=cfg.norm_eps),),
             moved, 2 * rows * sum(t.numel() for t in wl), card)
@@ -3379,7 +3538,7 @@ def check_k6(tp, dev, card):
         x = torch.randn((rows, D), device=dev, generator=gen).abs()
         moved = nbytes(codes[0], scale[0], fnorm) + nbytes(x) + rows * 8
         err, t = timed_kernel(
-            f"K6 lm_half_argmax{g32_tag(tp)} tp=2 rows={rows} (vocab shard "
+            f"K6 lm_half_argmax{fmt_tag(tp)} tp=2 rows={rows} (vocab shard "
             f"of {vl})",
             lambda: ktp.lm_half_argmax(x, fnorm, scale[0], codes[0],
                                        eps=eps),
@@ -3406,25 +3565,41 @@ def check_k6(tp, dev, card):
             token = ktp.tp_lm_head_token(tp.parallel.mesh, x, fnorm, [c2],
                                          [s2], eps=eps).tolist()
             xq, sx = quantize_activations(k1._rms(x, fnorm, eps))
-            matmul = (k1.g32_matmul_plain if g32_tag(tp)
+            matmul = (k1.g32_matmul_plain if fmt_tag(tp)
                       else w8_matmul_plain)
             full = matmul(xq, sx, torch.cat(c2), torch.cat(s2))
             want = min(shard * vl + row for shard, row in tie)
             if token != [want] * rows or full.argmax(-1).tolist() != token:
                 fail(f"K6 tie {name}: tokens {token}, want {want} (plain "
                      f"argmax {full.argmax(-1).tolist()})")
-            print(f"K6{g32_tag(tp)} planted tie {name} at {rows} rows: "
+            print(f"K6{fmt_tag(tp)} planted tie {name} at {rows} rows: "
                   f"token {want} on every row, == the plain argmax over the "
                   "whole table", flush=True)
             del c2, s2
     return worst, times
 
 
-def check_k1_argmax(model, dev, card):
+def plant_ties(table, tokens) -> dict:
+    """Two ties planted in a dense table, in place: row 0's winner copied
+    33 rows away (another 32-row tile of the fold), row 1's to its
+    neighbour in its own tile -> {row: the token it must give, the lower
+    index of the pair}."""
+    want = {}
+    for row, t in enumerate(tokens[:2]):
+        dst = (t - 33 if t >= 33 else t + 33) if row == 0 else t ^ 1
+        table[dst] = table[t]
+        want[row] = min(t, dst)
+    return want
+
+
+def check_k1_argmax(model, dev, card, row_counts=MESH_ROWS):
     """K1 mode (i) alone at 1 row (offset 235) and SPEC_K rows (one
     stream), bit for bit against its plain version and equal to the
     argmax of mode (a)'s logits (on a q4g model: over the g32 table,
-    mode (h)'s logits) -> (err, {rows: times})."""
+    mode (h)'s logits; on a bf16 model over the bf16 table, mode (g)'s).
+    More than 8 rows take two table passes; there, on a bf16 model, two
+    ties are planted in a copy of the table (plant_ties), each of which
+    must give its lower index -> (err, {rows: times})."""
     import torch
 
     from voxtral_tpu_torch.ops import decode_step as k1
@@ -3434,7 +3609,7 @@ def check_k1_argmax(model, dev, card):
     L, D, hd = cfg.n_layers, cfg.dim, cfg.head_dim
     ada = k1.ada_vectors(model.params["decoder"], model.t_embed(6.0))
     worst, times = 0.0, {}
-    for rows in MESH_ROWS:
+    for rows in row_counts:
         S, off = 240 + rows - 1, 235
         gen = torch.Generator(device=dev).manual_seed(61 + rows)
         shape = (L, 1, cfg.n_kv_heads, S, hd)
@@ -3450,8 +3625,14 @@ def check_k1_argmax(model, dev, card):
                 fused["w2"], *lm_fold(model))
         kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=hd,
                   eps=cfg.norm_eps, window=cfg.sliding_window, spec=rows)
-        tag = (f"K1 decode_stack_step mode (i) lm_argmax{g32_tag(model)} "
+        tag = (f"K1 decode_stack_step mode (i) lm_argmax{fmt_tag(model)} "
                f"rows={rows}")
+        planted = {}
+        if rows > 8 and model.decode_route == "bf16":
+            tokens = k1.decode_stack_step(*args, lm_argmax=True, **kw)[3]
+            table = args[18].clone()
+            planted = plant_ties(table, tokens[:, 0].tolist())
+            args = (*args[:18], table, args[19])
         got = k1.decode_stack_step(*args, lm_argmax=True, **kw)
         logits = k1.decode_stack_step(*args, **kw)[3]
         torch.cuda.synchronize()
@@ -3462,6 +3643,8 @@ def check_k1_argmax(model, dev, card):
                 -1).tolist():
             fail(f"{tag}: max_abs_err {err:.3e}, tokens {got[3].tolist()} "
                  f"against the logits' argmax {logits.argmax(-1).tolist()}")
+        if any(got[3][r, 0].item() != t for r, t in planted.items()):
+            fail(f"{tag}: planted ties {planted}, tokens {got[3].tolist()}")
         ms, plain_ms = in_turns(
             lambda: k1.decode_stack_step(*args, lm_argmax=True, **kw),
             lambda: k1.decode_stack_step_plain(*args, lm_argmax=True, **kw),
@@ -3473,10 +3656,13 @@ def check_k1_argmax(model, dev, card):
         moved = (step_weight_bytes(model) + kv_read + 2 * nbytes(x)
                  + 2 * nbytes(got[1]) + rows * 4)
         b_ms, b_by = bound(moved, 2 * rows * (
-            n_stack_weights(model) + lm_fold(model)[1].numel()), INT8_OPS)
+            n_stack_weights(model) + lm_fold(model)[1].numel()),
+            weight_ops_peak(model))
         times[rows] = (ms, plain_ms, b_ms, b_by, dev_ms)
         worst = max(worst, err)
-        print(f"{tag}: bit-equal, tokens == the logits' argmax; kernel "
+        ties = (f", planted ties {planted} give their lower index"
+                if planted else "")
+        print(f"{tag}: bit-equal, tokens == the logits' argmax{ties}; kernel "
               f"{ms:.3f} ms called from the host, {dev_ms:.3f} ms on the "
               f"device (CUDA graph), plain {plain_ms:.3f} ms, bound "
               f"{b_ms:.4f} ms ({b_by}; {100 * b_ms / dev_ms:.1f} % of it) "
@@ -3789,15 +3975,18 @@ def run_mesh_w8(model, dev, card, sig, tok, single):
 
 
 def run_mesh_cards(params, cfg, dev, card, tok, sig):
-    """Phase 13b, on a host with two cards or more: each mesh that fits
-    with every shard on a card of its own (``make_mesh`` over the cards),
-    then the same shape with its shards sharing card 0, each model built
-    alone beside its tree.  Two chirps, sequential and speculative=SPEC_K
-    ngram: over the cards == shared, dp == the single card's batch.  Per
-    card, the peak memory of the model's build, what it holds after, and
-    the peak of the speculative run.  Then, on
-    four cards, ``python -m voxtral_tpu_torch.cli --tp 2 --dp 2`` on a wav
-    of the chirp exits 0."""
+    """Phase 13b, on a host with two cards or more, for the tree's weight
+    format (w8, q4g: tp = 2, dp = 2, 2 x 2; bf16: dp = 2): each mesh
+    that fits with every shard on a card of its own (``make_mesh`` over
+    the cards), then the same shape with its shards sharing card 0, each
+    model built alone beside its tree.  Two chirps, sequential and
+    speculative=SPEC_K ngram: over the cards == shared, dp == the single
+    card's batch.  Per card, the peak memory of the model's build, what
+    it holds after, and the peak of the speculative run.  Live streams
+    (an unbounded tp = 2 session; a B = 4 int8 pool on 2 x 2, or on
+    dp = 2 for bf16) over the cards == on card 0.  Then, for w8 on four
+    cards, ``python -m voxtral_tpu_torch.cli --tp 2 --dp 2`` on a wav of
+    the chirp exits 0."""
     import torch
 
     from voxtral_tpu_torch.audio import AudioBuffer, save_wav
@@ -3813,6 +4002,8 @@ def run_mesh_cards(params, cfg, dev, card, tok, sig):
             torch.cuda.synchronize(i)
 
     single = VoxtralModel(params, cfg, dev)
+    fmt = single.decode_route
+    dense = fmt == "bf16"  # the data axis only (ROADMAP item 12.3b)
     pipe = TranscribePipeline(single, tok)
     mel2 = np.concatenate([
         pipe.mel.compute_log_batch(pipe.padded_chunks(s, SR)[0].samples)
@@ -3820,7 +4011,7 @@ def run_mesh_cards(params, cfg, dev, card, tok, sig):
     ref2 = single.transcribe_streaming_batch(mel2)
     del single, pipe
     release()
-    for nd, nm in ((1, 2), (2, 1), (2, 2)):
+    for nd, nm in ((2, 1),) if dense else ((1, 2), (2, 1), (2, 2)):
         n = nd * nm
         if n > len(cards):
             print(f"mesh {nd} x {nm} over cards of their own: not run "
@@ -3857,7 +4048,7 @@ def run_mesh_cards(params, cfg, dev, card, tok, sig):
                                                     speculative=SPEC_K)
             sync_all()
             peaks = per_card(torch.cuda.max_memory_allocated)
-            print(f"w8 dp={nd} x tp={nm}, shards on {where} "
+            print(f"{fmt} dp={nd} x tp={nm}, shards on {where} "
                   f"({model.parallel.mesh.devices}), two 16 s chirps: "
                   f"sequential {wall:.3f} s, decode "
                   f"{rec['seconds'] * 1e3 / rec['steps']:.3f} ms per "
@@ -3871,18 +4062,19 @@ def run_mesh_cards(params, cfg, dev, card, tok, sig):
             del model
             release()
         if got["own cards"] != got["card 0"]:
-            fail(f"{nd} x {nm}: tokens over cards of their own != the "
-                 "same mesh on card 0")
+            fail(f"{fmt} {nd} x {nm}: tokens over cards of their own != "
+                 "the same mesh on card 0")
         if nm == 1 and got["own cards"][0] != ref2.tolist():
-            fail(f"dp={nd} over cards of their own != the single card")
-        print(f"w8 dp={nd} x tp={nm}: tokens over cards of their own == "
+            fail(f"{fmt} dp={nd} over cards of their own != the single "
+                 "card")
+        print(f"{fmt} dp={nd} x tp={nm}: tokens over cards of their own == "
               "the mesh on card 0, sequential and speculative"
               + (", == the single card's batch" if nm == 1 else ""),
               flush=True)
     # Live streams over cards of their own against card 0.
     pieces = ragged_pieces(sig)
     signals = [pool_signal(POOL_SHORT_SECS, i) for i in range(4)]
-    for nd, nm in ((1, 2), (2, 2)):
+    for nd, nm in ((2, 1),) if dense else ((1, 2), (2, 2)):
         if nd * nm > len(cards):
             continue
         got = {}
@@ -3900,13 +4092,13 @@ def run_mesh_cards(params, cfg, dev, card, tok, sig):
             sync_all()
             del model, run
             release()
-        what = ("the unbounded tp=2 session" if nd == 1
-                else "the 2 x 2 B=4 int8 pool")
+        what = (f"the {fmt} unbounded tp=2 session" if nd == 1
+                else f"the {fmt} {nd} x {nm} B=4 int8 pool")
         if got["own cards"] != got["card 0"]:
             fail(f"{what} over cards of their own != on card 0")
         print(f"{what} over cards of their own == on card 0 [{card}]",
               flush=True)
-    if len(cards) < 4:
+    if len(cards) < 4 or fmt != "w8":
         return
     with tempfile.TemporaryDirectory() as tmp:
         wav = Path(tmp) / "chirp.wav"
@@ -3930,14 +4122,18 @@ def mesh_cards_main() -> int:
 
         python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.mesh_cards_main())'
 
-    The build and the w8 tree (seed 0) as in the full run; the same last
-    line."""
+    The build and the trees of the full run, one after the other: w8
+    (seed 0), q4g (random_q4_tree, seed 0), bf16 (seed 0, DENSE_SCALE);
+    the same last line."""
     import torch
 
     from voxtral_tpu_torch import VoxtralConfig, VoxtralTokenizer
     from voxtral_tpu_torch.convert import params_from_numpy
     from voxtral_tpu_torch.ops import _build
-    from voxtral_tpu_torch.utils.quantize import random_w8_params
+    from voxtral_tpu_torch.utils.quantize import (
+        random_dense_params,
+        random_w8_params,
+    )
 
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         fail("phase 13b needs two NVIDIA GPUs or more")
@@ -3948,10 +4144,17 @@ def mesh_cards_main() -> int:
     _build.library()
     print(f"build: {build_s:.2f} s ({lib.name})", flush=True)
     cfg = VoxtralConfig.voxtral()
-    params = params_from_numpy(random_w8_params(cfg, seed=0), dev)
+    tok = VoxtralTokenizer([None] * 131072, {}, 131072)
     t0 = time.perf_counter()
-    run_mesh_cards(params, cfg, dev, card,
-                   VoxtralTokenizer([None] * 131072, {}, 131072), chirp())
+    for build in (lambda: params_from_numpy(random_w8_params(cfg, seed=0),
+                                            dev),
+                  lambda: params_from_numpy(random_q4_tree(cfg, seed=0), dev),
+                  lambda: random_dense_params(cfg, 0, torch.bfloat16, dev,
+                                              scale=DENSE_SCALE)):
+        params = build()
+        run_mesh_cards(params, cfg, dev, card, tok, chirp())
+        del params
+        release()
     print(f"phase 13b: {time.perf_counter() - t0:.1f} s [{card}]",
           flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4051,7 +4254,7 @@ def check_k4_modes(tp, dev, card, cases=None):
         moved = (nbytes(*wl, *vecs, c, s) + 2 * nbytes(x) + kv_read
                  + 2 * bc * spec * nkv * hd * 2)
         err, t = timed_kernel(
-            f"K4 attn_half_step{g32_tag(tp)} {tag} tp=2 S={S} ring={ring} "
+            f"K4 attn_half_step{fmt_tag(tp)} {tag} tp=2 S={S} ring={ring} "
             f"offsets={offs} "
             f"spec={spec} cache_chunk={chunk} ({seen} cache slots read, "
             f"{kv_read / 1e6:.2f} MB)",
@@ -4333,8 +4536,9 @@ def mesh_pools(single, single_plain, tp, plain, dp, dptp, dev, card):
 
 
 def mesh_checkpoint(single, single_plain, dptp, dev, card):
-    """A slot of a 2 x 2 pool snapshotted after MESH_CKPT_TICKS ticks
-    (its caches gathered from four shards) and restored as a solo
+    """A slot of a meshed pool (2 x 2, or dp = 2) snapshotted after
+    MESH_CKPT_TICKS ticks (its caches gathered from the shards) and
+    restored as a solo
     session on one device, through the kernels and through the plain
     versions, each run to the stream's end: the tokens equal (the
     kernel near-tie rule on the plain margins) -> launches."""
@@ -4369,8 +4573,10 @@ def mesh_checkpoint(single, single_plain, dptp, dev, card):
     p0 = len(state["tokens"])
     same = first_divergence("meshed checkpoint restored, kernel vs plain",
                             tok[p0:], ptok[p0:], pmarg, MARGIN_TIE)
-    print(f"2 x 2 pool slot -> state_dict at position {a.positions_done} "
-          f"(caches gathered from its four shards) -> solo session on one "
+    plan = dptp.parallel
+    print(f"{single.decode_route} {plan.dp} x {plan.tp} pool slot -> "
+          f"state_dict at position {a.positions_done} (caches gathered from "
+          f"its {plan.dp * plan.tp} shards) -> solo session on one "
           f"device, to the stream's end ({len(tok)} tokens): kernel == "
           f"plain: {same}; launches {launches} [{card}]", flush=True)
     del pool, a
@@ -5092,6 +5298,9 @@ def main() -> int:
                             {k: q4g[k] for k in ("tokens", "margins")})
     release()
     phase_done("mesh q4g (g32 halves: tp=2, dp=2, 2 x 2 on one card)")
+    if torch.cuda.device_count() >= 2:
+        run_mesh_cards(q4g_model.params, cfg, dev, card, tok, sig)
+        phase_done("q4g mesh over cards of their own")
     st_q4g = run_stream_q4g(q4g_model, q4g_plain, dev, card)
     phase_done("q4g sessions")
     pl_q4g = run_pools_q4g(q4g_model, q4g_plain, dev, card)
@@ -5174,7 +5383,15 @@ def main() -> int:
                         "decode_stack_step_lm_argmax_g32"),
                        ("q4g_mesh_stream_tp2", "lm_half_argmax_g32"),
                        ("q4g_mesh_pool_tp2_int8", "attn_half_step_g32"),
-                       ("q4g_mesh_pool_dp2", "decode_stack_step")):
+                       ("q4g_mesh_pool_dp2", "decode_stack_step"),
+                       ("bf16_dp2_sequential",
+                        "decode_stack_step_lm_argmax_bf16"),
+                       ("bf16_dp2_speculative_ngram",
+                        "decode_stack_step_lm_argmax_bf16"),
+                       ("bf16_dp2_pool_model",
+                        "decode_stack_step_lm_argmax_bf16"),
+                       ("bf16_dp2_pool_int8",
+                        "decode_stack_step_lm_argmax_bf16")):
         if runs[path].get(name, 0) < 1:
             fail(f"{path}: {name} was launched no time")
 
@@ -5183,10 +5400,13 @@ def main() -> int:
         return sum(by.values()), by
 
     def w8_launches(name):
-        # A wrapper's launches less its g32 ones (their own entries).
-        by = {path: c[name] - c.get(f"{name}_g32", 0)
-              for path, c in runs.items()
-              if c.get(name, 0) - c.get(f"{name}_g32", 0)}
+        # A wrapper's launches less its g32 and bf16 ones (their own
+        # entries).
+        def w8(c):
+            return (c.get(name, 0) - c.get(f"{name}_g32", 0)
+                    - c.get(f"{name}_bf16", 0))
+
+        by = {path: w8(c) for path, c in runs.items() if w8(c)}
         return sum(by.values()), by
 
     lm_shape = (1, 3072, 131072)
@@ -5212,6 +5432,9 @@ def main() -> int:
     g4s = gq["k45_times"][("K4", SPEC_K, 158)]
     g5, g5s = gq["k45_times"][("K5", 1)], gq["k45_times"][("K5", SPEC_K)]
     g6, g6s = gq["k6_times"][1], gq["k6_times"][SPEC_K]
+    dm = dense["mesh"]
+    b1i, b1i8 = dm["k1i_times"][1], dm["k1i_times"][SPEC_K]
+    b1i12 = dm["k1i_times"][12]
     record = {"kernels": [
         {"name": "w8_matmul", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/w8_matmul.cu",
@@ -5352,6 +5575,22 @@ def main() -> int:
          "bound_ms": g1i[2], "bound_by": g1i[3], "library_ms": None,
          "host_called_ms": g1i[0], "spec_ms": g1i8[4],
          "spec_plain_ms": g1i8[1], "spec_bound_ms": g1i8[2]},
+        # K1 (i) over the bf16 table (phase 11d): ms is the device time
+        # (CUDA graph), host_called_ms the wrapper called from the host.
+        {"name": "decode_stack_step_lm_argmax_bf16", "route": "cuda",
+         "source": "voxtral_tpu_torch/csrc/decode_step.cu",
+         "fold": "voxtral_tpu_torch/csrc/lm_argmax.cuh",
+         "replaces": "voxtral_tpu/ops/decode_step_pallas.py:1654",
+         "modes": ["i", "g"],
+         "launches": launches("decode_stack_step_lm_argmax_bf16")[0],
+         "launches_by_path": launches("decode_stack_step_lm_argmax_bf16")[1],
+         "max_abs_err": dm["k1i_err"], "ms": b1i[4], "plain_ms": b1i[1],
+         "bound_ms": b1i[2], "bound_by": b1i[3], "library_ms": None,
+         "host_called_ms": b1i[0], "spec_ms": b1i8[4],
+         "spec_plain_ms": b1i8[1], "spec_bound_ms": b1i8[2],
+         "rows12_ms": b1i12[4], "rows12_plain_ms": b1i12[1],
+         "rows12_bound_ms": b1i12[2],
+         "dp2_ms_per_position": dm["ms_pos"], "dp2_peak_gb": dm["peak"]},
         {"name": "attn_half_step_g32", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/decode_tp.cu",
          "replaces": "voxtral_tpu/ops/decode_tp_pallas.py:741",

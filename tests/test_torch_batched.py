@@ -31,6 +31,7 @@ from tests.test_torch_model import (
     dense_params,
     tiny_config,
 )
+from tests.test_torch_model import one_torch_thread  # noqa: F401  (autouse)
 from tests.test_torch_pipeline import tekken_json
 
 MEL_FRAMES = 200  # 2 s chunks: the 4.5 s buffer takes three

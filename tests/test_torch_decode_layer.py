@@ -49,6 +49,7 @@ from tests.test_torch_model import (
     test_mel,
     tiny_config,
 )
+from tests.test_torch_model import one_torch_thread  # noqa: F401  (autouse)
 from voxtral_tpu.ops import decode_step_pallas as jdsp
 from voxtral_tpu_torch import device
 from voxtral_tpu_torch.models import voxtral as tvx

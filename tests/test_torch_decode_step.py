@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from tests.test_torch_model import one_torch_thread  # noqa: F401  (autouse)
 from voxtral_tpu.ops import decode_step_pallas as jdsp
 from voxtral_tpu.ops.w8 import quantize_w8_rowwise as jax_quantize_w8
 from voxtral_tpu_torch import convert, device

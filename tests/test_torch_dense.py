@@ -43,6 +43,7 @@ from tests.test_torch_model import (
     test_mel,
     tiny_config,
 )
+from tests.test_torch_model import one_torch_thread  # noqa: F401  (autouse)
 from voxtral_tpu.ops import decode_step_pallas as jdsp
 from voxtral_tpu_torch import convert, device
 from voxtral_tpu_torch.models import layers as tl
@@ -501,13 +502,28 @@ def _noise(secs: float, seed: int) -> np.ndarray:
 SESSION_SIGNALS = (_noise(4.0, 7), _noise(3.0, 13))
 
 
+def _pool_pair(Session, Pool, model):
+    """Both signals as two streams of one B = 2 bounded pool -> tokens."""
+    pool = Pool(model, max_streams=2, step_positions=8, max_duration_s=20)
+    a = Session(model, step_positions=8, pool=pool)
+    b = Session(model, step_positions=8, pool=pool)
+    a.feed(SESSION_SIGNALS[0])
+    b.feed(SESSION_SIGNALS[1])
+    a.finish()
+    b.finish()
+    return pool, [list(a.tokens), list(b.tokens)]
+
+
 def test_bf16_session_and_pool_match_jax():
     """Bounded bf16 sessions (K1 (g)) and a B = 2 bf16 pool (K1 (g) x
     (c)) give JAX's session tokens (JAX's own bf16 test holds its fused
     session equal to its XLA one, which runs here for speed); f32
-    sessions (the per-op step, f32 caches) give JAX's f32 sessions'."""
+    sessions (the per-op step, f32 caches) give JAX's f32 sessions', and
+    a B = 2 f32 pool (the generic pool, slot by slot on the per-op step,
+    f32 caches) JAX's f32 pool's."""
     from voxtral_tpu.models.voxtral import VoxtralModel as JaxModel
     from voxtral_tpu.streaming import StreamingSession as JaxSession
+    from voxtral_tpu.streaming import StreamPool as JaxPool
     from voxtral_tpu_torch.models.voxtral import VoxtralModel
     from voxtral_tpu_torch.streaming import StreamingSession, StreamPool
 
@@ -524,6 +540,8 @@ def test_bf16_session_and_pool_match_jax():
                 js.feed(sig)
                 js.finish()
                 ref[dtype].append(list(js.tokens))
+        jpool, ref["f32_pool"] = _pool_pair(JaxSession, JaxPool, jm)
+        assert jpool.dec_k.dtype == jnp.float32
     assert len(set(ref["bf16"][0])) > 1
     for dtype in ("bf16", "f32"):
         model = VoxtralModel.from_numpy(_tree(dtype), cfg, "cpu")
@@ -536,17 +554,15 @@ def test_bf16_session_and_pool_match_jax():
             assert ses.dec_cache.k.dtype == model.cache_dtype
             assert min(ses.margins) > MIN_MARGIN
             assert ses.tokens == want, dtype
+        if dtype == "f32":
+            pool, got = _pool_pair(StreamingSession, StreamPool, model)
+            assert pool._fused is None
+            assert pool.dec_k.dtype == torch.float32
+            assert got == ref["f32_pool"]
     model = VoxtralModel.from_numpy(_tree("bf16"), cfg, "cpu")
-    pool = StreamPool(model, max_streams=2, step_positions=8,
-                      max_duration_s=20)
+    pool, got = _pool_pair(StreamingSession, StreamPool, model)
     assert pool._fused is not None and pool.dec_k.dtype == torch.bfloat16
-    a = StreamingSession(model, step_positions=8, pool=pool)
-    b = StreamingSession(model, step_positions=8, pool=pool)
-    a.feed(SESSION_SIGNALS[0])
-    b.feed(SESSION_SIGNALS[1])
-    a.finish()
-    b.finish()
-    assert [a.tokens, b.tokens] == ref["bf16"]
+    assert got == ref["bf16"]
 
 
 def test_bf16_speculative_session_gives_the_sequential_tokens():

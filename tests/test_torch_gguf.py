@@ -34,6 +34,7 @@ from voxtral_tpu.loaders.gguf import GGML_F32, GGML_Q4_0, write_gguf
 from voxtral_tpu.ops.q4 import quantize_q4_0
 
 from tests.test_torch_model import test_mel
+from tests.test_torch_model import one_torch_thread  # noqa: F401  (autouse)
 from tests.test_torch_pipeline import tekken_json
 
 MIN_MARGIN = 0.05

@@ -13,6 +13,7 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from tests.test_torch_model import one_torch_thread  # noqa: F401  (autouse)
 from voxtral_tpu.models import layers as jl
 from voxtral_tpu.utils.quantize import quantize_params_w8 as jax_quantize_w8
 from voxtral_tpu_torch.models import layers as tl

@@ -44,6 +44,19 @@ MIN_MARGIN = 0.1
 SCAN_TOL = 3e-2  # stages JAX runs under lax.scan (module docstring)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's tests, here and in every test
+    module that imports this fixture: the port's CPU paths run many small
+    ops and f64 products, which one thread runs faster than the default
+    pool, and it leaves the cores to the other test workers (whose pools
+    otherwise oversubscribe them several times over)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def tiny_config() -> VoxtralConfig:
     """2 layers, widths 64, every dim % 8 == 0, vocab % 256 == 0."""
     return VoxtralConfig(

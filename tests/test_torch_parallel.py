@@ -33,6 +33,7 @@ from tests.test_torch_model import (
     FINAL_NORM_GAIN, MIN_MARGIN, SCALE, SEED, dense_params, test_mel,
     tiny_config,
 )
+from tests.test_torch_model import one_torch_thread  # noqa: F401  (autouse)
 from voxtral_tpu_torch.parallel import make_mesh
 
 MESHES = [(1, 2), (2, 1), (2, 2)]  # (data, model)
@@ -148,7 +149,7 @@ def test_meshed_model_layout_and_refusals(setup, monkeypatch):
     # mesh, K1 per data group on a dp one (tests/test_torch_mesh_stream.py).
     assert StreamingSession(tp)._tp_mesh is not None
     assert StreamPool(dp, max_streams=2)._dp_mesh is not None
-    with pytest.raises(ValueError, match="needs w8 weights"):
+    with pytest.raises(ValueError, match="ROADMAP item 12.3b"):
         tvx.VoxtralModel(random_dense_params(cfg, 0, torch.bfloat16, "cpu"),
                          cfg, mesh=make_mesh(1, 2, ["cpu"] * 2))
     with pytest.raises(ValueError, match="tp=4 must divide n_kv=2"):
@@ -248,7 +249,7 @@ def test_cli_tp_dp_on_cpu(wav, capsys):
     assert cli.main(base + ["--tp", "0"]) == 2
     assert "--tp/--dp must be >= 1" in capsys.readouterr().err
     assert cli.main(base + ["--dtype", "bfloat16", "--tp", "2"]) == 2
-    assert "needs w8 weights" in capsys.readouterr().err
+    assert "ROADMAP item 12.3b" in capsys.readouterr().err
 
 
 @pytest.mark.cuda

@@ -27,6 +27,7 @@ from tests.test_torch_model import (
     dense_params,
     tiny_config,
 )
+from tests.test_torch_model import one_torch_thread  # noqa: F401  (autouse)
 from tests.test_torch_pipeline import tekken_json
 from voxtral_tpu_torch.config import VoxtralConfig
 from voxtral_tpu_torch.loaders import safetensors_loader as tst

@@ -34,6 +34,7 @@ from tests.test_torch_model import (
     test_mel,
     tiny_config,
 )
+from tests.test_torch_model import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

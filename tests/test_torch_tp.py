@@ -41,6 +41,7 @@ from tests.test_torch_decode_step import (
     B, D, EPS, HEAD_DIM, HIDDEN, KV_RTOL, L, N_HEADS, N_KV, S, V, X_RTOL,
     build_inputs, params_from_numpy, to_torch,
 )
+from tests.test_torch_model import one_torch_thread  # noqa: F401  (autouse)
 from voxtral_tpu.ops import decode_step_pallas as jdsp
 from voxtral_tpu.ops import decode_tp_pallas as jtp
 from voxtral_tpu.parallel import make_mesh as jax_make_mesh
@@ -330,13 +331,13 @@ def test_k1_lm_argmax_plain_matches_jax(setup, offs, spec):
 
 
 def test_k1_lm_argmax_guard():
-    """Mode (i) needs the lm fold (JAX drops the flag without it) and is
-    ported for w8 and g32 tables; over a bf16 table it raises."""
-    assert tdsp._check_lm_argmax(True, "w8", None) is False
-    assert tdsp._check_lm_argmax(True, "w8", torch.zeros(1)) is True
-    assert tdsp._check_lm_argmax(True, "g32", torch.zeros(1)) is True
-    with pytest.raises(ValueError, match="ported for w8 and g32"):
-        tdsp._check_lm_argmax(True, "bf16", torch.zeros(1))
+    """Mode (i) needs the lm fold (JAX drops the flag without it); it
+    takes any table, bf16 included."""
+    assert tdsp._check_lm_argmax(True, None) is False
+    assert tdsp._check_lm_argmax(False, torch.zeros(1)) is False
+    assert tdsp._check_lm_argmax(True, torch.zeros(1)) is True
+    assert tdsp._check_lm_argmax(True, torch.zeros(1,
+                                                   dtype=torch.bfloat16))
 
 
 @pytest.mark.parametrize("spec,lm_argmax", [(1, False), (1, True),
@@ -375,11 +376,15 @@ def test_dp_decode_stack_step_equals_unsharded(setup, spec, lm_argmax):
 
 
 def test_check_tp_geometry():
-    ttp.check_tp_geometry(200, 128, 8192, 8, 8, 9216, 131072, 2)
+    """tp divides the KV heads and the FFN rows; the vocabulary need not
+    split (the whole lm_head then runs on the first device, as JAX's)."""
+    ttp.check_tp_geometry(200, 128, 8192, 8, 8, 9216, 2)
     with pytest.raises(ValueError, match="must divide"):
-        ttp.check_tp_geometry(200, 128, 8192, 1, 8, 9216, 131072, 3)
+        ttp.check_tp_geometry(200, 128, 8192, 1, 8, 9216, 3)
+    with pytest.raises(ValueError, match="must divide"):
+        ttp.check_tp_geometry(200, 128, 8192, 1, 8, 9215, 2)
     with pytest.raises(ValueError, match="shared memory"):
-        ttp.check_tp_geometry(80000, 128, None, 1, 8, 9216, 131072, 2)
+        ttp.check_tp_geometry(80000, 128, None, 1, 8, 9216, 2)
 
 
 def test_wrappers_on_cpu_count_no_launch(setup):

@@ -38,6 +38,7 @@ from tests.test_torch_decode_step import (
 )
 from tests.test_torch_gguf import gguf_file  # noqa: F401  (a fixture)
 from tests.test_torch_model import dense_params, test_mel
+from tests.test_torch_model import one_torch_thread  # noqa: F401  (autouse)
 from tests.test_torch_tp import NH_L, NKV_L, TP, _close, _rope, _rows
 from tests.test_tp_q4g import _tp_cfg
 from voxtral_tpu.ops import decode_step_pallas as jdsp

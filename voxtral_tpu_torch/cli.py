@@ -29,10 +29,12 @@ of ``--model --dtype w8`` and of ``--gguf``, cached on disk),
 ``--draft-policy``, ``--device`` (default ``cuda``; without a card it
 exits with an error, and the CPU runs the kernels' plain versions only
 when asked for with ``--device cpu``) and ``--tp`` / ``--dp`` (w8
-weights, or ``--gguf --weight-format q4g``: a ``(dp, tp)`` mesh over the
-cards, tensor- and data-parallel
-decode; more shards than cards exit with an error, as the JAX CLI; with
-``--device cpu`` the mesh's shards share the CPU, for tests).  The
+weights, or ``--gguf --weight-format q4g``, or bf16 weights at ``--tp
+1``: a ``(dp, tp)`` mesh over the cards, tensor- and data-parallel
+decode; bf16 at ``--tp`` > 1 and float32 on any mesh exit with an error
+naming ROADMAP item 12.3b; more shards than cards exit with an error,
+as the JAX CLI; with ``--device cpu`` the mesh's shards share the CPU,
+for tests).  The
 other flags of ``voxtral_tpu/cli.py`` are recognised and exit with an
 error naming the ROADMAP item that ports them.  One line of text per audio file on stdout
 (a missing file prints an empty line and the exit code is 1); logs on
@@ -117,12 +119,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tp", type=int, default=1,
                    help="Tensor-parallel ways: the decoder's heads, FFN "
                    "rows and the 131k-vocab lm_head split over the mesh's "
-                   "model axis (w8 or q4g weights; needs tp x dp "
-                   "cards)")
+                   "model axis (w8 or q4g weights, not bf16 or float32; "
+                   "needs tp x dp cards)")
     p.add_argument("--dp", type=int, default=1,
                    help="Data-parallel ways: batched chunk rows split over "
-                   "the mesh's data axis (w8 or q4g weights; needs tp x "
-                   "dp cards)")
+                   "the mesh's data axis (w8, q4g or bf16 weights, not "
+                   "float32; needs tp x dp cards)")
     for flag, (default, _) in _NOT_PORTED.items():
         p.add_argument(flag, nargs="?", const=True, default=default,
                        help=argparse.SUPPRESS)

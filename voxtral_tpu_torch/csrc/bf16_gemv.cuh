@@ -61,6 +61,53 @@ __device__ __forceinline__ void bf16x8(const int4 v, float (&f)[8]) {
   }
 }
 
+// The dots of one warp's weight row w [K] bf16 with the activation rows
+// x [mr, K] bf16 (row stride K, mr <= R): lane-strided 16-byte loads (vec:
+// K % 8 == 0, 16-byte aligned rows) or single elements, each bf16 x bf16
+// product exact in f32, summed in f64 per lane, then across the warp
+// (warp_sum_f64): every lane holds acc[m] for m < mr.  Shared by the GEMV
+// below and by K1 mode (i)'s fold over a bf16 table (lm_argmax.cuh), so
+// the fold's logits are mode (g)'s bit for bit.
+template <int R>
+__device__ __forceinline__ void bf16_row_dots(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+    int mr, int K, bool vec, int lane, double (&acc)[R]) {
+#pragma unroll
+  for (int m = 0; m < R; ++m) acc[m] = 0.0;
+  if (vec) {
+    const int4* w4 = reinterpret_cast<const int4*>(w);
+    const int nv = K >> 3;
+    for (int i = lane; i < nv; i += 32) {
+      float wf[8];
+      bf16x8(__ldg(w4 + i), wf);
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+        if (m < mr) {
+          float xf[8];
+          bf16x8(__ldg(reinterpret_cast<const int4*>(
+                           x + static_cast<size_t>(m) * K) + i),
+                 xf);
+          double a = acc[m];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) a += static_cast<double>(wf[e] * xf[e]);
+          acc[m] = a;
+        }
+      }
+    }
+  } else {
+    for (int k = lane; k < K; k += 32) {
+      const float wv = __bfloat162float(w[k]);
+#pragma unroll
+      for (int m = 0; m < R; ++m)
+        if (m < mr)
+          acc[m] += static_cast<double>(
+              wv * __bfloat162float(x[static_cast<size_t>(m) * K + k]));
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < R; ++m) acc[m] = warp_sum_f64(acc[m]);
+}
+
 template <int R>
 __global__ void __launch_bounds__(256) bf16_gemv_kernel(
     const __nv_bfloat16* __restrict__ x, BfSegs segs, const float* resid,
@@ -72,41 +119,8 @@ __global__ void __launch_bounds__(256) bf16_gemv_kernel(
   for (int m0 = 0; m0 < M; m0 += R) {
     const int mr = min(R, M - m0);
     double acc[R];
-#pragma unroll
-    for (int m = 0; m < R; ++m) acc[m] = 0.0;
-    if (vec) {
-      // K % 8 == 0 and 16-byte aligned rows.
-      const int4* w4 = reinterpret_cast<const int4*>(w);
-      const int nv = K >> 3;
-      for (int i = lane; i < nv; i += 32) {
-        float wf[8];
-        bf16x8(__ldg(w4 + i), wf);
-#pragma unroll
-        for (int m = 0; m < R; ++m) {
-          if (m < mr) {
-            float xf[8];
-            bf16x8(__ldg(reinterpret_cast<const int4*>(
-                             x + static_cast<size_t>(m0 + m) * K) + i),
-                   xf);
-            double a = acc[m];
-#pragma unroll
-            for (int e = 0; e < 8; ++e) a += static_cast<double>(wf[e] * xf[e]);
-            acc[m] = a;
-          }
-        }
-      }
-    } else {
-      for (int k = lane; k < K; k += 32) {
-        const float wv = __bfloat162float(w[k]);
-#pragma unroll
-        for (int m = 0; m < R; ++m)
-          if (m < mr)
-            acc[m] += static_cast<double>(
-                wv * __bfloat162float(x[static_cast<size_t>(m0 + m) * K + k]));
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < R; ++m) acc[m] = warp_sum_f64(acc[m]);
+    bf16_row_dots<R>(x + static_cast<size_t>(m0) * K, w, mr, K, vec, lane,
+                     acc);
     if (lane == 0) {
 #pragma unroll
       for (int m = 0; m < R; ++m) {

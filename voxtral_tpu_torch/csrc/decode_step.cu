@@ -57,14 +57,16 @@
 //       longer bounds S.  attn_kv_kernel<false / true>.
 //       Bytes: what bounds (e) and (f) are the visible slots' int8 codes
 //       (half the bf16 cache) and their scale planes.
-//   (i) lm_argmax (w8 and g32; :1285-1300, :1479, :1605): the greedy
-//       argmax folded into the lm_head (lm_argmax.cuh: per vocab tile the
-//       (max, first index), then the tiles merged), so the [B, V] logits
-//       are never written; the step returns the token of each row.  Over
-//       a g32 table the fold's logits are mode (h)'s bit for bit (the
-//       same g32_row_dots).  Its caller is the data-parallel greedy
-//       decode (parallel/dp_decode.py).  Over a bf16 table (mode (g)) it
-//       is not ported yet (ROADMAP item 12.3).
+//   (i) lm_argmax (w8, g32 and bf16 tables; :1271-1300, :1479, :1605):
+//       the greedy argmax folded into the lm_head (lm_argmax.cuh: per
+//       vocab tile the (max, first index), then the tiles merged), so the
+//       [B, V] logits are never written; the step returns the token of
+//       each row.  Over a g32 table the fold's logits are mode (h)'s bit
+//       for bit (the same g32_row_dots), over a bf16 table mode (g)'s
+//       (the same bf16_row_dots over the bf16 rows row_quant writes, the
+//       f32-rounded logit compared), so the token is torch.argmax of that
+//       mode's logits.  Its caller is the data-parallel greedy decode
+//       (parallel/dp_decode.py).
 // The TPU kernel is one pallas_call whose sequential grid carries the
 // residual across layers in VMEM.  CUDA blocks run in no order, so here
 // the step is a fixed sequence of small kernels on one stream, with the
@@ -114,15 +116,6 @@
 #include "lm_argmax.cuh"
 #include "w8_common.cuh"
 
-namespace vx {
-namespace {
-
-// The weight format of the host entry's ``wfmt``.
-enum WeightFormat { kW8 = 0, kG32 = 1, kBf16 = 2 };
-
-}  // namespace
-}  // namespace vx
-
 // All pointers are device pointers; lm_codes == NULL skips the lm fold.
 // B rows = Bc streams x spec draft rows, ordered (stream, slot).
 // wfmt: kW8, kG32 (mode (h)) or kBf16 (mode (g)).
@@ -144,7 +137,7 @@ enum WeightFormat { kW8 = 0, kG32 = 1, kBf16 = 2 };
 // (e), the caches are int8 codes with f32 scales [L, Bc, n_kv, S].
 // chunk > 0: mode (f), the attention walks the cache in chunks of
 // ``chunk`` slots (chunk divides S; spec must be 1).  lm_argmax != 0:
-// mode (i), w8 only: the lm fold writes token [B] int32, the first index
+// mode (i), any wfmt: the lm fold writes token [B] int32, the first index
 // of each row's largest logit, instead of the logits (lm_argmax.cuh;
 // scratch tmax / tidx [B, ceil(V / 32)] f32 / int32).  The host reads no
 // offset: a pass launches without a device-to-host copy.
@@ -179,7 +172,7 @@ extern "C" int vx_decode_stack_step(
       (chunk != 0 && (chunk < 0 || S % chunk || spec != 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (lm_argmax &&
-      (bf16 || lm_codes == nullptr || token == nullptr ||
+      (lm_codes == nullptr || token == nullptr ||
        tmax_buf == nullptr || tidx_buf == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -340,8 +333,8 @@ extern "C" int vx_decode_stack_step(
     row_quant(X, D, D, static_cast<const float*>(final_norm), nullptr, eps,
               kQuantNorm, B, xq, sx, xb, st);
     if (lm_argmax)  // mode (i): the greedy token, no logits written
-      launch_argmax(g32, xq, sx, static_cast<const int8_t*>(lm_codes),
-                    lm_scale, B, V, D, static_cast<float*>(tmax_buf),
+      launch_argmax(wfmt, bf16 ? static_cast<const void*>(xb) : xq, sx,
+                    lm_codes, lm_scale, B, V, D, static_cast<float*>(tmax_buf),
                     static_cast<int*>(tidx_buf), nullptr,
                     static_cast<int*>(token), st);
     else if (bf16)

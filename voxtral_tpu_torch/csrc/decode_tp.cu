@@ -264,8 +264,8 @@ extern "C" int vx_lm_half_argmax(
   row_quant(static_cast<const float*>(x), D, D,
             static_cast<const float*>(final_norm), nullptr, eps, kQuantNorm,
             B, xq, sx, nullptr, st);
-  launch_argmax(wfmt == kG32Fmt, xq, sx, static_cast<const int8_t*>(codes),
-                scale, B, V, D, static_cast<float*>(tmax_buf),
+  launch_argmax(wfmt == kG32Fmt ? kG32 : kW8, xq, sx, codes, scale, B, V, D,
+                static_cast<float*>(tmax_buf),
                 static_cast<int*>(tidx_buf), static_cast<float*>(vmax),
                 static_cast<int*>(vidx), st);
   return static_cast<int>(cudaGetLastError());

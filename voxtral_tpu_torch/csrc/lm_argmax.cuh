@@ -1,8 +1,9 @@
 // The greedy lm fold shared by K1 mode (i) (decode_step.cu, lm_argmax)
 // and K6 (decode_tp.cu, vx_lm_half_argmax): the lm_head over a vocab
 // range with the argmax folded in, so the [B, V] logits are never
-// written.  Two weight formats: W8A8 (int8 codes, f32 row scales) and
-// g32 (q4g: int8 codes = Q4_0 nibble - 8, f16 group scales [V, D/32]).
+// written.  Three weight formats: W8A8 (int8 codes, f32 row scales), g32
+// (q4g: int8 codes = Q4_0 nibble - 8, f16 group scales [V, D/32]) and
+// bf16 (K1 mode (g)'s dense table, no scales; K1 only).
 //
 // Port of the running (max, first index) fold of
 // voxtral_tpu/ops/decode_step_pallas.py (lm_argmax, :1285-1300) and of
@@ -17,8 +18,14 @@
 //           g32 y = float(sum_g z_g * s[n, g]) * sx[m], the group sum in
 //           f64 rounded once (g32_row_dots, the g32 GEMV's own dot, so
 //           the logits are K1 mode (h)'s bit for bit; the order of
-//           _g32_matmul_tile, decode_step_pallas.py:84-123), reduced to
-//           the tile's (max, first index) per activation row;
+//           _g32_matmul_tile, decode_step_pallas.py:84-123), or in bf16
+//           y = float(sum_k x[m, k] * w[n, k]) over the bf16 rows that
+//           row_quant writes, the exact products summed in f64 and
+//           rounded once (bf16_row_dots, mode (g)'s GEMV's own dot, so
+//           the logits and the token are mode (g)'s and torch.argmax's
+//           of them bit for bit; wq8=False, decode_step_pallas.py:
+//           1271-1300), reduced to the tile's (max, first index) per
+//           activation row;
 //   pass 2  one block per activation row merges the tiles: a larger
 //           value wins, and of equal values the lower index -- the same
 //           result as merging the tiles in tile order with a strictly
@@ -28,7 +35,9 @@
 // What bounds it on the H100: the table's bytes, read once (V x D int8
 // and V f32 scales: 403 MB for the whole 131072-row table, 201.6 MB for
 // a tp = 2 vocab shard; in g32 V x D/32 f16 scales instead: 427.8 MB,
-// 213.9 MB); the partials are 8 bytes per tile and row.
+// 213.9 MB; in bf16 V x D x 2 bytes: 805.3 MB for the whole table, the
+// same bytes as mode (g)'s GEMV less its [B, V] f32 logits write); the
+// partials are 8 bytes per tile and row.
 // More than 8 activation rows take one weight pass per group of 8 (the
 // dp4a GEMV's limit); the tensor-core GEMV of w8_common.cuh is later work.
 // Internal linkage: each translation unit has its own copy.
@@ -39,10 +48,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16_gemv.cuh"
 #include "w8_common.cuh"
 
 namespace vx {
 namespace {
+
+// The weight format of a step or a fold (the host entries' ``wfmt``).
+enum WeightFormat { kW8 = 0, kG32 = 1, kBf16 = 2 };
 
 constexpr int kLmRowsPerWarp = 4;
 constexpr int kLmTile = kGemvWarps * kLmRowsPerWarp;  // vocab rows per block
@@ -60,13 +73,15 @@ __device__ __forceinline__ bool argmax_better(float v, int i, float bv,
 // w rows tile * kLmTile + w * kLmRowsPerWarp + r, r ascending, so a
 // strictly larger value keeps the first index within the warp and the
 // warps merge in order.  tmax / tidx [M, n_tiles]: the tile's maximum and
-// its first (global) row index per activation row.  G32: ``scale`` is
-// the f16 group scales [N, K/32] (K % 32 == 0, 16-byte aligned rows),
-// else the f32 row scales [N].
-template <int M, bool G32>
+// its first (global) row index per activation row.  Fmt kW8: ``x`` the
+// int8 rows with their scales ``sx``, ``table`` int8 codes, ``scale`` the
+// f32 row scales [N]; kG32: ``scale`` the f16 group scales [N, K/32]
+// (K % 32 == 0, 16-byte aligned rows); kBf16: ``x`` the bf16 rows,
+// ``table`` bf16 [N, K], no scales (sx, scale unused).
+template <int M, int Fmt>
 __global__ void __launch_bounds__(32 * kGemvWarps) argmax_tile_kernel(
-    const int8_t* __restrict__ xq, const float* __restrict__ sx,
-    const int8_t* __restrict__ codes, const void* __restrict__ scale, int N,
+    const void* __restrict__ x, const float* __restrict__ sx,
+    const void* __restrict__ table, const void* __restrict__ scale, int N,
     int K, bool vec, int n_tiles, float* __restrict__ tmax,
     int* __restrict__ tidx) {
   __shared__ float sv[kGemvWarps][M];
@@ -84,14 +99,26 @@ __global__ void __launch_bounds__(32 * kGemvWarps) argmax_tile_kernel(
     const int n = tile * kLmTile + warp * kLmRowsPerWarp + r;
     if (n >= N) break;  // the same n on every lane
     float y[M];
-    if constexpr (G32) {
+    if constexpr (Fmt == kBf16) {
       double acc[M];  // every lane holds the sums
-      g32_row_dots<M>(xq, codes, static_cast<const __half*>(scale), n, K,
+      bf16_row_dots<M>(static_cast<const __nv_bfloat16*>(x),
+                       static_cast<const __nv_bfloat16*>(table) +
+                           static_cast<size_t>(n) * K,
+                       M, K, vec, lane, acc);
+#pragma unroll
+      for (int m = 0; m < M; ++m) y[m] = static_cast<float>(acc[m]);
+    } else if constexpr (Fmt == kG32) {
+      double acc[M];  // every lane holds the sums
+      g32_row_dots<M>(static_cast<const int8_t*>(x),
+                      static_cast<const int8_t*>(table),
+                      static_cast<const __half*>(scale), n, K,
                       lane, acc);
 #pragma unroll
       for (int m = 0; m < M; ++m) y[m] = static_cast<float>(acc[m]) * sx[m];
     } else {
-      const int8_t* w = codes + static_cast<size_t>(n) * K;
+      const int8_t* xq = static_cast<const int8_t*>(x);
+      const int8_t* w = static_cast<const int8_t*>(table) +
+                        static_cast<size_t>(n) * K;
       int acc[M];
 #pragma unroll
       for (int m = 0; m < M; ++m) acc[m] = 0;
@@ -207,32 +234,39 @@ __global__ void __launch_bounds__(256) argmax_merge_kernel(
 // Tiles of the fold over N vocab rows (the partials hold M x this).
 inline int argmax_tiles(int N) { return (N + kLmTile - 1) / kLmTile; }
 
-// The fold of the product xq [M, K] . codes [N, K]^T: W8A8 with row
-// scales [N] f32 (g32 false) or g32 with group scales [N, K/32] f16 (g32
-// true: K % 32 == 0 and 16-byte aligned rows): vidx[m] = the first index
-// of the largest logit of row m, vmax[m] (NULL: not written) its value.
-// Scratch tmax / tidx [M, argmax_tiles(N)].
-inline void launch_argmax(bool g32, const int8_t* xq, const float* sx,
-                          const int8_t* codes, const void* scale, int M,
-                          int N, int K, float* tmax, int* tidx, float* vmax,
+// The fold of the product x [M, K] . table [N, K]^T (``fmt``): W8A8, int8
+// rows xq with scales sx and codes with row scales [N] f32 (kW8); g32,
+// codes with group scales [N, K/32] f16 (kG32: K % 32 == 0 and 16-byte
+// aligned rows); bf16 rows and a bf16 table, no scales (kBf16):
+// vidx[m] = the first index of the largest logit of row m, vmax[m] (NULL:
+// not written) its value.  Scratch tmax / tidx [M, argmax_tiles(N)].
+inline void launch_argmax(int fmt, const void* xq, const float* sx,
+                          const void* table, const void* scale, int M, int N,
+                          int K, float* tmax, int* tidx, float* vmax,
                           int* vidx, cudaStream_t st) {
-  const bool vec = (K % 16 == 0) && aligned16(xq) && aligned16(codes);
+  const bool bf16 = fmt == kBf16;
+  const size_t row_bytes = static_cast<size_t>(K) * (bf16 ? 2 : 1);
+  const bool vec = (K % (bf16 ? 8 : 16) == 0) && aligned16(xq) &&
+                   aligned16(table);
   const int n_tiles = argmax_tiles(N);
   for (int m0 = 0; m0 < M; m0 += kDp4aMaxM) {
     const int mr = (M - m0 < kDp4aMaxM) ? (M - m0) : kDp4aMaxM;
-    const int8_t* x = xq + static_cast<size_t>(m0) * K;
-    const float* s = sx + m0;
+    const void* x = static_cast<const char*>(xq) + m0 * row_bytes;
+    const float* s = sx == nullptr ? nullptr : sx + m0;
     float* tm = tmax + static_cast<size_t>(m0) * n_tiles;
     int* ti = tidx + static_cast<size_t>(m0) * n_tiles;
     switch (mr) {
 #define VX_ARGMAX_CASE(MM)                                                 \
   case MM:                                                                 \
-    if (g32)                                                               \
-      argmax_tile_kernel<MM, true><<<n_tiles, 32 * kGemvWarps, 0, st>>>(   \
-          x, s, codes, scale, N, K, vec, n_tiles, tm, ti);                 \
+    if (fmt == kG32)                                                       \
+      argmax_tile_kernel<MM, kG32><<<n_tiles, 32 * kGemvWarps, 0, st>>>(   \
+          x, s, table, scale, N, K, vec, n_tiles, tm, ti);                 \
+    else if (bf16)                                                         \
+      argmax_tile_kernel<MM, kBf16><<<n_tiles, 32 * kGemvWarps, 0, st>>>(  \
+          x, s, table, scale, N, K, vec, n_tiles, tm, ti);                 \
     else                                                                   \
-      argmax_tile_kernel<MM, false><<<n_tiles, 32 * kGemvWarps, 0, st>>>(  \
-          x, s, codes, scale, N, K, vec, n_tiles, tm, ti);                 \
+      argmax_tile_kernel<MM, kW8><<<n_tiles, 32 * kGemvWarps, 0, st>>>(    \
+          x, s, table, scale, N, K, vec, n_tiles, tm, ti);                 \
     break;
       VX_ARGMAX_CASE(1)
       VX_ARGMAX_CASE(2)

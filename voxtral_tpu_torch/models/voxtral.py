@@ -26,16 +26,20 @@ Weight routes, as the JAX model picks them (``megakernel_mode``):
   leaves; f32 models compute and cache in f32, as JAX's XLA step);
   speculative decode rides the sequential loop there and on the
   per-layer route, as JAX gates it on the stack kernel;
-* a w8 or q4g model on a mesh (``VoxtralModel(mesh=)``, ``parallel/``)
-  -> the tensor-parallel step (tp > 1: per layer K4 and K5 on every
-  model shard, in g32 for q4g, the partial sums added across the
-  shards, then the greedy token from K6's vocab-sharded fold, or from
-  the whole lm_head on the first device when a q4g stack sits over a
-  table that is not g32; the rows split over the data axis when dp > 1)
-  or the data-parallel one (dp > 1: K1 per data group, mode (i) folding
-  the argmax over a w8 or g32 table), as JAX's ``parallel=`` branches
-  (``models/voxtral.py:431-495``, ``:582-680``); the encoder, adapter,
-  prefill and first token run whole on the mesh's first device.
+* a w8 or q4g model, or a bf16 one at tp = 1, on a mesh
+  (``VoxtralModel(mesh=)``, ``parallel/``) -> the tensor-parallel step
+  (tp > 1: per layer K4 and K5 on every model shard, in g32 for q4g,
+  the partial sums added across the shards, then the greedy token from
+  K6's vocab-sharded fold, or from the whole lm_head on the first
+  device when a q4g stack sits over a table that is not g32 or a
+  vocabulary tp does not split; the rows split over the data axis when
+  dp > 1) or the data-parallel one (dp >
+  1: K1 per data group, mode (i) folding the argmax over a w8, g32 or
+  bf16 table), as JAX's ``parallel=`` branches (``models/voxtral.py:
+  431-495``, ``:582-680``; JAX sends a meshed bf16 model down its
+  GSPMD-partitioned XLA step, ``:824-826``: the same tokens by another
+  route); the encoder, adapter, prefill and first token run whole on the
+  mesh's first device.
 
 Behaviour kept from the reference:
 
@@ -758,7 +762,7 @@ def _mesh_plan(model, plan: ParallelPlan, batch: int, seq_len: int,
         if route == "tp":
             tpk.check_tp_geometry(slots, lm.head_dim, lm.sliding_window,
                                   spec, lm.n_kv_heads, lm.hidden_dim,
-                                  lm.vocab_size, plan.tp)
+                                  plan.tp)
         else:
             k1.check_geometry(slots, lm.head_dim, lm.sliding_window, spec)
         # The shards' head-major copies (each data group's rows, split
@@ -835,6 +839,19 @@ def oneshot_plan(model, batch: int, seq_len: int, spec: int = 1):
     return route, "; ".join(refused)
 
 
+def _per_group(t, mesh):
+    """One copy of a replicated stack per data group, on the group's
+    device (``mesh.devices[d][0]``): ``.to`` is the tensor itself on the
+    device it lies on, so groups sharing a card share the stacks; a tuple
+    of segments (mode (g)'s qkv and w13) becomes one tuple per group;
+    None (mode (g)'s scale keys) stays None."""
+    if t is None:
+        return None
+    if isinstance(t, tuple):
+        return [tuple(seg.to(row[0]) for seg in t) for row in mesh.devices]
+    return [t.to(row[0]) for row in mesh.devices]
+
+
 class VoxtralModel:
     """Parameter tree + config on one device: greedy, sampled and
     speculative decode.
@@ -848,17 +865,18 @@ class VoxtralModel:
     the plain PyTorch versions of the kernels (for comparison on the
     card; on the CPU the kernel wrappers take the plain versions anyway).
 
-    ``mesh`` (``parallel.make_mesh``; w8 and q4g trees): the one-shot
-    decode runs tensor-parallel (tp > 1: the K4 / K5 halves per model
-    shard, in g32 for q4g, and the vocab-sharded K6 fold, the rows split
-    over the data axis when dp > 1) or data-parallel (dp > 1: K1 per data
-    group), as the JAX model's ``mesh=`` does (``models/voxtral.py:
-    863-964``).  A q4g model outside JAX's gate for the g32 halves
-    (``ops.decode_tp.check_tp_q4g``) raises: JAX decodes it through a
-    GSPMD-partitioned step the port does not have.  The tree lives on the
-    mesh's first device, where the encoder, adapter, prefill and first
-    token run unsharded.  Under tp > 1 the single-device stacks are
-    dropped (``fused_decode`` None, as JAX): sessions and pools on such a
+    ``mesh`` (``parallel.make_mesh``; w8 and q4g trees, bf16 at tp = 1):
+    the one-shot decode runs tensor-parallel (tp > 1: the K4 / K5 halves
+    per model shard, in g32 for q4g, and the vocab-sharded K6 fold, the
+    rows split over the data axis when dp > 1) or data-parallel (dp > 1:
+    K1 per data group, each group's stacks on its device), as the JAX
+    model's ``mesh=`` does (``models/voxtral.py:863-964``).  A q4g model
+    outside JAX's gate for the g32 halves (``ops.decode_tp.check_tp_q4g``),
+    bf16 at tp > 1 and f32 on any mesh raise: JAX decodes them through a
+    GSPMD-partitioned step the port does not have (ROADMAP item 12.3b).
+    The tree lives on the mesh's first device, where the encoder,
+    adapter, prefill and first token run unsharded.  Under tp > 1 the
+    single-device stacks are dropped (``fused_decode`` None, as JAX): sessions and pools on such a
     model stream the placed shards (``fused_tp``; ``streaming.py``).  A
     batch is padded with
     zero mel rows to a multiple of dp and trimmed after (JAX
@@ -942,12 +960,19 @@ class VoxtralModel:
                              f"device {mesh.first}, not {self.device}")
         if plan.dp * plan.tp == 1:
             return
-        if self.decode_route not in ("w8", "q4g"):
+        route = self.decode_route
+        if route not in ("w8", "q4g") and not (route == "bf16"
+                                               and plan.tp == 1):
+            dense = route == "bf16" or self.compute_dtype == torch.float32
+            what = ("bf16 weights at tp > 1" if route == "bf16" else
+                    "f32 weights" if dense else f"{route} weights")
             raise ValueError(
-                f"a {plan.dp} x {plan.tp} mesh needs w8 weights or q4g "
-                f"weights, not {self.decode_route} (meshed bf16 / f32 is "
-                "ROADMAP item 12.3; packed q4 decodes per op, on one "
-                "device)")
+                f"a {plan.dp} x {plan.tp} mesh takes w8 or q4g weights, or "
+                f"bf16 at tp = 1, not {what}: "
+                + ("JAX decodes a dense model on such a mesh through its "
+                   "GSPMD-partitioned XLA step, which the port does not "
+                   "have (ROADMAP item 12.3b)" if dense else
+                   "packed q4 decodes per op, on one device"))
         lm = self.config.language_model
         dec = self.params["decoder"]
         fused = self.fused_decode
@@ -965,20 +990,20 @@ class VoxtralModel:
                         f"{exc}: JAX's gate for the g32 TP halves; outside "
                         "it JAX decodes through its GSPMD-partitioned XLA "
                         "step, which the port does not have (ROADMAP item "
-                        "12.3)") from exc
-            vocab = lm.vocab_size
-            if (lm.n_kv_heads % plan.tp or lm.hidden_dim % plan.tp
-                    or vocab % plan.tp):
+                        "12.3b)") from exc
+            if lm.n_kv_heads % plan.tp or lm.hidden_dim % plan.tp:
                 raise ValueError(
-                    f"tp={plan.tp} must divide n_kv={lm.n_kv_heads}, "
-                    f"hidden={lm.hidden_dim} and vocab={vocab}")
+                    f"tp={plan.tp} must divide n_kv={lm.n_kv_heads} and "
+                    f"hidden={lm.hidden_dim}")
             shard = (tpk.tp_shard_fused_weights_q4g if q4g
                      else tpk.tp_shard_fused_weights)
             stacked = shard(fused, lm.n_heads, lm.n_kv_heads, lm.head_dim,
                             lm.hidden_dim, plan.tp)
-            # Without a table to fold, the greedy step takes the whole
-            # lm_head on the first device.
-            if "lm_codes" in lm_fold:
+            # Without a table to fold, or with a vocabulary tp does not
+            # split (JAX's ``V % tp`` gate, ``models/voxtral.py:934``,
+            # ``:946``), the greedy step takes the whole lm_head on the
+            # first device.
+            if "lm_codes" in lm_fold and lm.vocab_size % plan.tp == 0:
                 codes, scale = lm_fold["lm_codes"], lm_fold["lm_scale"]
                 table = (tpk.tp_shard_lm_head_q4g(codes, scale, plan.tp)
                          if q4g else tpk.tp_shard_lm_head(
@@ -994,8 +1019,8 @@ class VoxtralModel:
             self.fused_decode = None
             return
         self._dp_stacks = {
-            name: [t.to(row[0]) for row in mesh.devices]
-            for name, t in {**fused, **lm_fold}.items()}
+            name: _per_group(t, mesh) for name, t in {**fused,
+                                                      **lm_fold}.items()}
 
     @classmethod
     def from_numpy(cls, tree: Params, config: Optional[VoxtralConfig] = None,

@@ -31,10 +31,12 @@ the segments (wq, wk, wv), the FFN's as (w1, w3)), each linear's input
 row cast to bf16 instead of quantized, bf16 x bf16 products summed in
 f32 (here f64, rounded once) with no scales, the folded lm_head over
 the dense bf16 table; combinable with every cache mode; (i)
-``lm_argmax`` (``:1285-1300``, w8 and g32 tables; bf16 not yet): the
-greedy argmax folded into the lm_head, a running (max, first index) over
-vocab tiles, so the step returns each row's token and never writes the
-logits.  Source:
+``lm_argmax`` (``:1271-1300``, over a w8, g32 or bf16 table): the greedy
+argmax folded into the lm_head, a running (max, first index) over vocab
+tiles, so the step returns each row's token and never writes the
+logits; over each table the fold compares the logits of that weight
+mode bit for bit (the same row dots), so its token is ``torch.argmax``
+of them.  Source:
 ``csrc/decode_step.cu`` (the GEMV of mode (g): ``csrc/bf16_gemv.cuh``;
 the fold of mode (i): ``csrc/lm_argmax.cuh``).
 
@@ -322,16 +324,18 @@ def g32_matmul_plain(xq: torch.Tensor, sx: torch.Tensor, codes: torch.Tensor,
     """Plain version of the kernel's group-32 GEMV: xq [M, K] int8, sx
     [M, 1], codes [N, K] int8, scales [N, K/32] f16 -> [M, N] f32 =
     float(sum_g z_g * s_g) * sx, the exact group dots z_g and the sum
-    over the groups in f64 (rounded once, as the kernel)."""
+    over the groups in f64 (rounded once, as the kernel).  Each group dot
+    is an integer below 32 x 127 x 8 < 2^24, so the f32 product computes
+    it exactly, in any order (TF32 too: 8-bit codes fit its mantissa)."""
     m, k = xq.shape
     n, g = codes.shape[0], k // 32
-    xg = xq.double().reshape(m, g, 32).transpose(0, 1)  # [G, M, 32]
+    xg = xq.float().reshape(m, g, 32).transpose(0, 1)  # [G, M, 32]
     out = []
     for n0 in range(0, n, _G32_CHUNK):  # bounds the [G, M, chunk] product
-        cg = codes[n0:n0 + _G32_CHUNK].double().reshape(-1, g, 32)
+        cg = codes[n0:n0 + _G32_CHUNK].float().reshape(-1, g, 32)
         z = torch.bmm(xg, cg.permute(1, 2, 0))  # [G, M, chunk], exact
         s = scales[n0:n0 + _G32_CHUNK].double().T[:, None, :]
-        out.append((z * s).sum(dim=0).float())
+        out.append((z.double() * s).sum(dim=0).float())
     return torch.cat(out, dim=1) * sx.reshape(-1, 1).float()
 
 
@@ -557,9 +561,9 @@ def decode_stack_step_plain(
     and P.V dots (exact), k_new / v_new still bf16.  ``cache_chunk``
     (mode (f)): the online softmax over chunks; it reads the offsets'
     min and max on the host, which the kernel does on the device.
-    ``lm_argmax`` (mode (i), w8 or g32): the fourth output is the greedy
-    token [B, 1] int32, the first index of each row's largest logit, in
-    place of the logits.
+    ``lm_argmax`` (mode (i), any weight mode): the fourth output is the
+    greedy token [B, 1] int32, the first index of each row's largest
+    logit, in place of the logits.
     """
     B, D = x.shape
     L, S = k_cache.shape[0], k_cache.shape[3]
@@ -569,7 +573,7 @@ def decode_stack_step_plain(
     new_dtype = torch.bfloat16 if k_scales is not None else k_cache.dtype
     fmt = _weight_format(wqkv, wo, w13, w2, sqkv, so, s13, s2, lm_codes,
                          lm_scale)
-    lm_argmax = _check_lm_argmax(lm_argmax, fmt, lm_codes)
+    lm_argmax = _check_lm_argmax(lm_argmax, lm_codes)
     nq, nkv = n_heads * head_dim, n_kv * head_dim
     hidden = _segs(w2)[0].shape[2]
     c, s = cos_p.float(), sin_p.float()
@@ -621,15 +625,10 @@ def lm_token_plain(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1, keepdim=True).to(torch.int32)
 
 
-def _check_lm_argmax(lm_argmax: bool, fmt: str, lm_codes) -> bool:
+def _check_lm_argmax(lm_argmax: bool, lm_codes) -> bool:
     """Mode (i) applies with the lm fold only (JAX drops the flag without
-    one, ``decode_step_pallas.py:1479``); ported for w8 and g32 tables."""
-    lm_argmax = bool(lm_argmax and lm_codes is not None)
-    if lm_argmax and fmt == "bf16":
-        raise ValueError(
-            "lm_argmax (mode (i)) is ported for w8 and g32 stacks; the bf16 "
-            "lm fold returns logits (ROADMAP item 12.3: meshed bf16)")
-    return lm_argmax
+    one, ``decode_step_pallas.py:1479``), over a w8, g32 or bf16 table."""
+    return bool(lm_argmax and lm_codes is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -808,9 +807,9 @@ def decode_stack_step(
     :func:`quantize_kv` and appends codes and scales.
     ``cache_chunk=Sc`` (mode (f); Sc divides S, spec = 1): the attention
     walks the cache in chunks of Sc slots, so S is not bounded by shared
-    memory.  ``lm_argmax=True`` (mode (i), w8 or g32, with the lm fold):
-    the greedy token [B, 1] int32 in place of the logits, which are never
-    written (``csrc/lm_argmax.cuh``).
+    memory.  ``lm_argmax=True`` (mode (i), with the lm fold, over any
+    table): the greedy token [B, 1] int32 in place of the logits, which
+    are never written (``csrc/lm_argmax.cuh``).
     Returns (x_out, k_new, v_new[, logits or token]) like
     :func:`decode_stack_step_plain`, k_new / v_new [L, B, Hkv, hd]; the
     caller appends them.
@@ -818,7 +817,8 @@ def decode_stack_step(
     CPU tensors take the plain version; CUDA tensors launch the kernels
     or raise.  Each launch adds one to ``decode_stack_step.launches``, a
     mode (i) launch also to ``decode_stack_step.argmax_launches`` (and,
-    over a g32 table, to ``decode_stack_step.argmax_g32_launches``).
+    over a g32 or a bf16 table, to ``decode_stack_step.argmax_g32_launches``
+    or ``decode_stack_step.argmax_bf16_launches``).
     """
     args = (x, offset, attn_norms, ffn_norms, ada_vecs, sqkv, so, s13, s2,
             cos_p, sin_p, k_cache, v_cache, wqkv, wo, w13, w2,
@@ -838,7 +838,7 @@ def decode_stack_step(
     fmt = _weight_format(wqkv, wo, w13, w2, sqkv, so, s13, s2, lm_codes,
                          lm_scale)
     g32, bf16 = fmt == "g32", fmt == "bf16"
-    lm_argmax = _check_lm_argmax(lm_argmax, fmt, lm_codes)
+    lm_argmax = _check_lm_argmax(lm_argmax, lm_codes)
     nq, nkvd = n_heads * head_dim, n_kv * head_dim
     F = _segs(w2)[0].shape[2]
     offs = None
@@ -983,6 +983,7 @@ def decode_stack_step(
     if lm_argmax:
         decode_stack_step.argmax_launches += 1
         decode_stack_step.argmax_g32_launches += g32
+        decode_stack_step.argmax_bf16_launches += bf16
         return (*out, token)
     return out if logits is None else (*out, logits)
 
@@ -990,6 +991,7 @@ def decode_stack_step(
 decode_stack_step.launches = 0
 decode_stack_step.argmax_launches = 0
 decode_stack_step.argmax_g32_launches = 0
+decode_stack_step.argmax_bf16_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -243,22 +243,24 @@ def gather_kv(parts: list) -> torch.Tensor:
 
 
 def check_tp_geometry(S: int, head_dim: int, window: Optional[int],
-                      spec: int, n_kv: int, hidden: int, vocab: int,
-                      tp: int, ring: Optional[tuple[int, int]] = None,
+                      spec: int, n_kv: int, hidden: int, tp: int,
+                      ring: Optional[tuple[int, int]] = None,
                       cache_chunk: Optional[int] = None,
                       kv_int8: bool = False) -> None:
     """ValueError naming the cause when the TP halves cannot take this
-    geometry: ``tp`` must divide the KV heads, the FFN rows and the
-    vocabulary (JAX's shard rules), and K4's attention blocks are K1's
+    geometry: ``tp`` must divide the KV heads and the FFN rows (JAX's
+    shard rules; a vocabulary tp does not divide keeps the whole lm_head
+    on the mesh's first device, as JAX's, ``models/voxtral.py:934-946``),
+    and K4's attention blocks are K1's
     (``ops.decode_step.check_geometry``: the score buffer in shared
     memory, S or the window's floats resident, the chunk's chunked; the
     ring within S; no spec rows on a chunked walk), whatever the shard's
     head count.  Replaces JAX's ``tp_vmem_need`` / ``TP_VMEM_CAP``, which
     budget TPU VMEM.  (A meshed q4g model passed :func:`check_tp_q4g`
     when it was built.)"""
-    if n_kv % tp or hidden % tp or vocab % tp:
-        raise ValueError(f"tp={tp} must divide n_kv={n_kv}, "
-                         f"hidden={hidden} and vocab={vocab}")
+    if n_kv % tp or hidden % tp:
+        raise ValueError(f"tp={tp} must divide n_kv={n_kv} and "
+                         f"hidden={hidden}")
     check_geometry(S, head_dim, window, spec, ring, cache_chunk, kv_int8)
 
 

@@ -21,12 +21,15 @@ from voxtral_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, row_groups
 
 def _on(t, d: int, dev: torch.device):
     """Data group ``d``'s copy of a replicated operand: the list's entry
-    when one copy per group is given, else ``t`` moved to ``dev`` (itself
-    where it already lies there); a tuple (segments) stays as it is."""
-    if t is None or isinstance(t, tuple):
-        return t
+    when one copy per group is given (a tensor, or a tuple of segments),
+    else ``t`` moved to ``dev`` (itself where it already lies there), a
+    tuple of segments (mode (g)'s qkv and w13) segment by segment."""
+    if t is None:
+        return None
     if isinstance(t, list):
         return t[d]
+    if isinstance(t, tuple):
+        return tuple(seg.to(dev) for seg in t)
     return t.to(dev)
 
 
@@ -54,10 +57,10 @@ def dp_decode_stack_step(
     tensor per data group, [L, streams / dp, Hkv, S, hd] on its device,
     where the group's cache lives (the JAX caller passes one array the
     partitioner splits; a row slice of a torch cache is not contiguous).
-    Weights, norms, scales and the lm table are replicated: a tensor (moved
-    to each group's device, a no-op on a shared card) or a list with one
-    copy per group.  ``step``: K1's wrapper (default) or its plain version.
-    Zero collectives.
+    Weights, norms, scales and the lm table are replicated: a tensor or a
+    tuple of segments (moved to each group's device, a no-op on a shared
+    card) or a list with one copy per group.  ``step``: K1's wrapper
+    (default) or its plain version.  Zero collectives.
 
     Returns (x_out [B, D] on x's device, k_new, v_new: one [L, B_d, Hkv,
     hd] per data group on its device, for the caller's appends[, logits

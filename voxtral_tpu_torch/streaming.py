@@ -43,15 +43,16 @@ chunks of ``CACHE_CHUNK`` slots (mode (f)), as the ladder of
 pass.  A pool on a model with fused weights runs K1 and nothing else: a
 geometry no rung admits raises in the constructor.
 
-On a model with a mesh (``VoxtralModel(mesh=)``, w8 or q4g weights)
-sessions and pools decode meshed, as JAX's (``voxtral_tpu/streaming.py:
-530-620``, the ``wg`` gate ``:550-575``): tp > 1 runs the K4 / K5 halves
+On a model with a mesh (``VoxtralModel(mesh=)``: w8 or q4g weights,
+or bf16 at tp = 1) sessions and pools decode meshed, as JAX's
+(``voxtral_tpu/streaming.py:530-620``, the ``wg`` gate ``:550-575``): tp > 1 runs the K4 / K5 halves
 per model shard (the head+ring, int8 and chunked cache modes included;
 in g32 for q4g) and K6's vocab-sharded greedy tokens (the whole lm_head
 on the first device when a q4g stack sits over a table that is not
 g32), the pool's slots split over the data axis too when dp > 1; a
-data-parallel pool runs K1 per data group.  The decoder caches are then shard grids
-(:class:`_ShardedKV`); the encoder, the adapter and every stream's first
+data-parallel pool runs K1 per data group (in mode (g) on bf16 weights,
+its greedy tokens from mode (i) over the bf16 table).  The decoder
+caches are then shard grids (:class:`_ShardedKV`); the encoder, the adapter and every stream's first
 step stay on the mesh's first device.  A solo session runs on data group
 0's shards.
 """
@@ -256,9 +257,8 @@ def _rung_refusal(model: VoxtralModel, batch: int, cache_s: int,
         row_groups(streams, dp)  # JAX's refusal of an undivided batch
         if tp > 1:
             tpk.check_tp_geometry(cache_s, lm.head_dim, None, spec,
-                                  lm.n_kv_heads, lm.hidden_dim,
-                                  lm.vocab_size, tp, None, chunk,
-                                  itemsize == 1)
+                                  lm.n_kv_heads, lm.hidden_dim, tp, None,
+                                  chunk, itemsize == 1)
         else:
             k1.check_geometry(cache_s, lm.head_dim, None, spec, None, chunk,
                               itemsize == 1)
@@ -1252,8 +1252,7 @@ class StreamingSession:
         if self._tp_mesh is not None:
             tpk.check_tp_geometry(self._max_dec, lm.head_dim,
                                   lm.sliding_window, spec, lm.n_kv_heads,
-                                  lm.hidden_dim, lm.vocab_size, tp,
-                                  self._dec_ring)
+                                  lm.hidden_dim, tp, self._dec_ring)
         elif self._fused:
             # No per-op fallback: a geometry K1 cannot take is an error.
             k1.check_geometry(self._max_dec, lm.head_dim, lm.sliding_window,

@@ -79,7 +79,8 @@ def shard_weight_bytes(model, d: int, i: int) -> int:
              else ())
     seen = {_storage_key(t) for t in _leaves(trees)}
     own = [leaf[d][i] for leaf in (model.fused_tp or {}).values()]
-    own += [leaf[d] for leaf in (model._dp_stacks or {}).values()]
+    own += [leaf[d] for leaf in (model._dp_stacks or {}).values()
+            if leaf is not None]
     return tree_unique_bytes(*trees) + sum(
         t.numel() * t.element_size() for t in _leaves(own)
         if _storage_key(t) not in seen)
