@@ -332,6 +332,112 @@ LAYOUT_NOISE_FACTOR = 3.0
 SPEC_K = 8
 
 
+# Each attention-mode check's time with the earlier attention (one block
+# per (row, query head) walking every slot), as this script measured it
+# at the commit before the cluster walk, on an NVIDIA H100 80GB HBM3 at
+# 700.00 W, keyed by the check's tag: printed, marked as recorded, beside
+# the cluster walk's time of this run (K1 step ms; K4 device ms).  A
+# record of a removed kernel, to go once the comparison has been read.
+PER_ROW_WALK_MS = {
+    'K1 decode_stack_step [w8] spec=1 streams=1 rows=1 S=240 offsets 235..235':
+        2.982,
+    'K1 decode_stack_step [w8] spec=8 streams=1 rows=8 S=247 offsets 235..235':
+        3.977,
+    'K1 decode_stack_step [w8] spec=8 streams=8 rows=64 S=247 offsets 150..235':
+        16.832,
+    'K1 decode_stack_step [w8] spec=1 streams=4 rows=4 S=240 offsets 60..235':
+        3.211,
+    'K1 mode (d) [w8] ring=(38, 8200) S=8238 offset=100 spec=1':
+        6.832,
+    'K1 mode (d) [w8] ring=(38, 8200) S=8238 offset=16000 spec=1':
+        25.682,
+    'K1 mode (d) [w8] ring=(38, 8200) S=8238 offset=16000 spec=8':
+        32.87,
+    'K4 attn_half_step tp=2 rows=1 S=151 offset=150':
+        0.0269,
+    'K4 attn_half_step tp=2 rows=8 S=158 offset=143':
+        0.0349,
+    'K4 attn_half_step tp=2 rows=1 S=194 offset=187':
+        0.0296,
+    'K4 attn_half_step (d) head+ring tp=2 S=8238 ring=(38, 8200) offsets=[100, 8237, 8241, 16000] spec=1 cache_chunk=None (24676 cache slots read, 50.54 MB)':
+        0.913,
+    'K4 attn_half_step (e) int8 tp=2 S=8238 ring=(38, 8200) offsets=[100, 8237, 8241, 16000] spec=1 cache_chunk=None (24676 cache slots read, 26.06 MB)':
+        0.6132,
+    'K4 attn_half_step (e) x (b) int8 tp=2 S=8238 ring=(38, 8200) offsets=[100, 8234, 8241, 16000] spec=8 cache_chunk=None (24676 cache slots read, 26.06 MB)':
+        1.1204,
+    'K4 attn_half_step (f) chunked tp=2 S=1536 ring=None offsets=[7, 700] spec=1 cache_chunk=512 (707 cache slots read, 1.45 MB)':
+        0.0708,
+    'K4 attn_half_step (f) chunked tp=2 S=8704 ring=(38, 8666) offsets=[100, 16000] spec=1 cache_chunk=512 (8292 cache slots read, 16.98 MB)':
+        0.7329,
+    'K4 attn_half_step (f) x (e) tp=2 S=8704 ring=(38, 8666) offsets=[100, 16000] spec=1 cache_chunk=512 (8292 cache slots read, 8.76 MB)':
+        0.4496,
+    'K1 (c) x (d) bf16 [w8] S=8238 ring=(38, 8200) offsets=[100, 8237, 8241, 16000] spec=1 cache_chunk=None':
+        25.918,
+    'K1 (e) int8 KV [w8] S=8238 ring=(38, 8200) offsets=[100, 8237, 8241, 16000] spec=1 cache_chunk=None':
+        18.731,
+    'K1 (e) x (b) int8 KV [w8] S=8238 ring=(38, 8200) offsets=[100, 8234, 8241, 16000] spec=8 cache_chunk=None':
+        57.144,
+    'K1 (f) bf16 [w8] S=1536 ring=None offsets=[7, 700] spec=1 cache_chunk=512':
+        4.372,
+    'K1 (f) x (e) [w8] S=1536 ring=None offsets=[7, 700] spec=1 cache_chunk=512':
+        4.018,
+    'K1 (f) bf16 [w8] S=8704 ring=(38, 8666) offsets=[100, 16000] spec=1 cache_chunk=512':
+        24.288,
+    'K1 (f) x (e) [w8] S=8704 ring=(38, 8666) offsets=[100, 16000] spec=1 cache_chunk=512':
+        19.776,
+    'K1 decode_stack_step [bf16] spec=1 streams=1 rows=1 S=240 offsets 235..235':
+        4.208,
+    'K1 decode_stack_step [bf16] spec=8 streams=1 rows=8 S=247 offsets 235..235':
+        12.963,
+    'K1 decode_stack_step [bf16] spec=8 streams=8 rows=64 S=247 offsets 150..235':
+        113.635,
+    'K1 decode_stack_step [bf16] spec=1 streams=4 rows=4 S=240 offsets 60..235':
+        7.348,
+    'K1 (g) x (d) [bf16] S=8238 ring=(38, 8200) offsets=[16000] spec=1 cache_chunk=None':
+        26.814,
+    'K1 (g) x (e) x (c) [bf16] S=8238 ring=(38, 8200) offsets=[100, 8237, 8241, 16000] spec=1 cache_chunk=None':
+        22.598,
+    'K1 (g) x (f) [bf16] S=1536 ring=None offsets=[7, 700] spec=1 cache_chunk=512':
+        6.234,
+    'K1 decode_stack_step [q4g] spec=1 streams=1 rows=1 S=240 offsets 235..235':
+        3.084,
+    'K1 decode_stack_step [q4g] spec=8 streams=1 rows=8 S=247 offsets 235..235':
+        4.652,
+    'K1 decode_stack_step [q4g] spec=8 streams=8 rows=64 S=247 offsets 150..235':
+        20.129,
+    'K1 decode_stack_step [q4g] spec=1 streams=4 rows=4 S=240 offsets 60..235':
+        3.446,
+    'K4 attn_half_step g32 tp=2 rows=1 S=151 offset=150':
+        0.0266,
+    'K4 attn_half_step g32 tp=2 rows=8 S=158 offset=143':
+        0.0405,
+    'K4 attn_half_step g32 tp=2 rows=1 S=194 offset=187':
+        0.0289,
+    'K4 attn_half_step g32 (d) head+ring tp=2 S=8238 ring=(38, 8200) offsets=[100, 8237, 8241, 16000] spec=1 cache_chunk=None (24676 cache slots read, 50.54 MB)':
+        0.918,
+    'K4 attn_half_step g32 (e) int8 tp=2 S=8238 ring=(38, 8200) offsets=[100, 8237, 8241, 16000] spec=1 cache_chunk=None (24676 cache slots read, 26.06 MB)':
+        0.637,
+    'K4 attn_half_step g32 (f) chunked tp=2 S=8704 ring=(38, 8666) offsets=[100, 8237, 8241, 16000] spec=1 cache_chunk=512 (24676 cache slots read, 50.54 MB)':
+        0.8631,
+    'K1 mode (d) [q4g] ring=(38, 8200) S=8238 offset=100 spec=1':
+        6.883,
+    'K1 mode (d) [q4g] ring=(38, 8200) S=8238 offset=16000 spec=1':
+        25.642,
+    'K1 mode (d) [q4g] ring=(38, 8200) S=8238 offset=16000 spec=8':
+        33.4,
+    'K1 (e) x (h) int8 KV [q4g] S=8238 ring=(38, 8200) offsets=[100, 8237, 8241, 16000] spec=1 cache_chunk=None':
+        18.953,
+}
+
+
+def per_row_walk(tag: str) -> str:
+    """"; earlier per-row walk x ms (recorded)" for a tag PER_ROW_WALK_MS
+    holds, else ""."""
+    ms = PER_ROW_WALK_MS.get(tag)
+    return ("" if ms is None
+            else f"; earlier per-row walk {ms} ms (recorded, not this run)")
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     raise SystemExit(1)
@@ -455,15 +561,12 @@ def pool_k2_shapes(cfg, streams: int) -> list:
             (ma, a.output_dim, a.output_dim)]
 
 
-def check_k2(cfg, dev, card):
-    """K2 at the main path's shapes -> (max abs err, {shape: (ms, plain
-    ms, library ms or None)})."""
-    import torch
-
-    from voxtral_tpu_torch.ops import w8_kernel as k2
-
+def k2_shapes(cfg) -> list:
+    """(M, K, N) of every K2 launch shape ``check_k2`` holds and times
+    (``benches/torch_k2_times.py`` times the same list)."""
     # (M, K, N): lm_head after prefill; prefill wq; encoder w1 and w2
-    # (608 positions for 16 s); adapter w1 (152 positions); ADA w0 / w2.
+    # (608 positions for 16 s); adapter w1 (152 positions); ADA w0 / w2;
+    # the encoder's wq / wk / wv and wo at 608 positions.
     # Then the live session's: a steady step's encoder at its 32 new
     # frames (wq / wk / wv, wo, w1 / w3, w2) and adapter at P = 8 rows
     # (w1, w2); the first step's encoder head (152 frames) and adapter
@@ -472,7 +575,7 @@ def check_k2(cfg, dev, card):
     # builds (``make_pool`` refuses another).
     shapes = [(1, 3072, 131072), (38, 3072, 4096), (608, 1280, 5120),
               (608, 5120, 1280), (152, 5120, 3072), (1, 3072, 32),
-              (1, 32, 3072),
+              (1, 32, 3072), (608, 1280, 2048), (608, 2048, 1280),
               (32, 1280, 2048), (32, 2048, 1280), (32, 1280, 5120),
               (32, 5120, 1280), (8, 5120, 3072), (8, 3072, 3072),
               (152, 1280, 5120), (38, 5120, 3072), (1, 3072, 4096),
@@ -481,8 +584,24 @@ def check_k2(cfg, dev, card):
     for streams in POOL_STREAMS:
         shapes += [sh for sh in pool_k2_shapes(cfg, streams)
                    if sh not in shapes]
+    return shapes
+
+
+def check_k2(cfg, dev, card):
+    """K2 at the main path's shapes -> (max abs err, {shape: (device ms,
+    plain ms, library ms or None, bound ms, bound by, route, GEMV ms or
+    None, host-called ms)}).  Kernel, library call and GEMV route are
+    timed on the device (CUDA graph), the wrapper also from the host.
+    Each line names the route ``k2_plan`` gave the shape; at 16 < M <= 64
+    rows the GEMV is timed beside the tensor-core GEMM (the plan's choice
+    there rests on these times)."""
+    import torch
+
+    from voxtral_tpu_torch.ops import w8_kernel as k2
+
+    shapes = k2_shapes(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
-    worst, times = 0.0, {}
+    worst, times, above = 0.0, {}, []
     for m, k, n in shapes:
         xq = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=dev,
                            generator=gen)
@@ -499,29 +618,54 @@ def check_k2(cfg, dev, card):
             fail(f"K2 w8_matmul {m}x{k}x{n}: error {rel:.3e} of max > "
                  f"{K2_RTOL}")
         worst = max(worst, err)
-        ms, plain_ms = in_turns(lambda: k2.w8_matmul(xq, sx, codes, scale),
-                                lambda: k2.w8_matmul_plain(xq, sx, codes,
-                                                           scale), 20, 3)
+        host_ms, plain_ms = in_turns(
+            lambda: k2.w8_matmul(xq, sx, codes, scale),
+            lambda: k2.w8_matmul_plain(xq, sx, codes, scale), 20, 3)
+        ms = graph_ms(lambda: k2.w8_matmul(xq, sx, codes, scale))
+        route, splits = k2.w8_matmul_route(xq, codes)
+        path = (f"{k2.ROUTE_NAMES[route]}"
+                + (f", K in {splits} slices" if splits > 1 else ""))
+        gemv_ms = None
+        if route != k2.ROUTE_GEMV and m <= 64:
+            alt = k2.w8_matmul_on(k2.ROUTE_GEMV, xq, sx, codes, scale)
+            torch.cuda.synchronize()
+            if not torch.equal(alt, ref):
+                fail(f"K2 w8_matmul {m}x{k}x{n}: the GEMV route is not "
+                     "bit-equal to the plain version")
+            gemv_ms = graph_ms(lambda: k2.w8_matmul_on(k2.ROUTE_GEMV, xq,
+                                                       sx, codes, scale))
+            path += f"; the GEMV route {gemv_ms:.4f} ms"
         # The library call computing the same function: cuBLAS's int8 GEMM
-        # (torch._int_mm, exact int32) + the same f32 epilogue.  It
-        # refuses M <= 16 (and K or N not % 8).
+        # (torch._int_mm, exact int32) + the same f32 epilogue, its
+        # device time as the kernel's.  It refuses M <= 16 (and K or N
+        # not % 8).
         try:
-            lib_ms = cuda_ms(lambda: torch._int_mm(xq, codes.T).float()
-                             * sx * scale, 20)
+            lib_ms = graph_ms(lambda: torch._int_mm(xq, codes.T).float()
+                              * sx * scale)
             lib = f"{lib_ms:.4f} ms"
         except (RuntimeError, NotImplementedError) as exc:
             lib_ms = None
             lib = f"refused ({str(exc).splitlines()[0][:80]})"
+        if lib_ms is not None and m > 16 and ms > lib_ms:
+            above.append(f"{m}x{k}x{n} ({ms:.4f} > {lib_ms:.4f} ms)")
         out = m * n * 4
         b_ms, b_by = bound(nbytes(xq, sx, codes, scale) + out, 2 * m * n * k,
                            INT8_OPS)
-        times[(m, k, n)] = (ms, plain_ms, lib_ms, b_ms, b_by)
+        times[(m, k, n)] = (ms, plain_ms, lib_ms, b_ms, b_by, path, gemv_ms,
+                            host_ms)
         gbs = (m * k + n * k) / ms / 1e6
         print(f"K2 w8_matmul M={m} K={k} N={n}: max_abs_err {err:.3e} "
-              f"(bit-equal {torch.equal(got, ref)}), kernel {ms:.4f} ms "
-              f"({gbs:.1f} GB/s of int8 operands), plain {plain_ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}), torch._int_mm {lib} [{card}]",
-              flush=True)
+              f"(bit-equal {torch.equal(got, ref)}), kernel {ms:.4f} ms on "
+              f"the device (CUDA graph; {gbs:.1f} GB/s of int8 operands), "
+              f"{host_ms:.4f} ms called from the host, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"torch._int_mm + epilogue {lib} on the device; path {path} "
+              f"[{card}]", flush=True)
+    n_lib = sum(1 for (m, _, _), t in times.items()
+                if m > 16 and t[2] is not None)
+    print(f"K2 above 16 rows, device times: at or below torch._int_mm + "
+          f"epilogue at {n_lib - len(above)} of {n_lib} shapes; above at "
+          f"{', '.join(above) or 'none'} [{card}]", flush=True)
     return worst, times
 
 
@@ -673,10 +817,11 @@ def check_k1(model, dev, card, offs, spec, iters, plain_iters):
     n_weights = n_stack_weights(model)
     b_ms, b_by = bound(moved, 2 * bc * spec * (n_weights + n_vocab * D),
                        weight_ops_peak(model))
-    print(f"{tag} S={S} offsets {offl[0]}..{offl[-1]}: kernel {ms:.3f} ms, "
+    tag = f"{tag} S={S} offsets {offl[0]}..{offl[-1]}"
+    print(f"{tag}: kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms; weights {wbytes / 1e9:.4f} GB/pass -> "
           f"{wbytes / ms / 1e6:.1f} GB/s; bound {b_ms:.4f} ms ({b_by}; "
-          f"{100 * b_ms / ms:.1f} % of it) [{card}]", flush=True)
+          f"{100 * b_ms / ms:.1f} % of it){per_row_walk(tag)} [{card}]", flush=True)
     return worst, ms, plain_ms, b_ms, b_by
 
 
@@ -1427,7 +1572,8 @@ def check_k1_ring(model, dev, card):
         print(f"{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
               f"{seen} cache slots read ({kv_read / 1e9:.4f} GB) + weights "
               f"{wbytes / 1e9:.4f} GB; bound {b_ms:.4f} ms ({b_by}; "
-              f"{100 * b_ms / ms:.1f} % of it) [{card}]", flush=True)
+              f"{100 * b_ms / ms:.1f} % of it){per_row_walk(tag)} [{card}]",
+              flush=True)
     del kc, vc
     return worst, times
 
@@ -2126,10 +2272,108 @@ def kv_step_case(model, dev, card, tag, S, offs, spec, ring, int8, chunk,
     print(f"{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; {seen} cache "
           f"slots read ({kv_read / 1e9:.4f} GB) + weights "
           f"{wbytes / 1e9:.4f} GB; bound {b_ms:.4f} ms ({b_by}; "
-          f"{100 * b_ms / ms:.1f} % of it) [{card}]", flush=True)
+          f"{100 * b_ms / ms:.1f} % of it){per_row_walk(tag)} [{card}]", flush=True)
     del kc, vc, kw, args
     torch.cuda.empty_cache()
     return worst, ms, plain_ms, b_ms, b_by
+
+
+# The attention yardstick's streams, every window full: one stream, and
+# four at the pools' ring phases.
+YARD_OFFS = {1: [16000], 4: [8246, 12006, 16000, 16318]}
+
+
+def attention_yardstick(model, dev, card):
+    """The attention block alone (``ops.decode_step.attention_block``, the
+    launch K1 and K4 make per layer), one layer at full width under mode
+    (d) with the window full, at one and four streams: bit-equal to its
+    plain version, its device time (CUDA graph) beside its bound (the
+    visible K / V once) and beside torch's scaled_dot_product_attention
+    over the same visible bf16 K / V (GQA expanded to the query heads, a
+    boolean mask, the gather done before the timing).  SDPA is a yardstick
+    only: the port never calls it.  Also prints the library's plan
+    (``kernel_attn_plan``) at every geometry of this script's attention
+    checks, and fails where it finds none.
+    -> {streams: (ms, sdpa ms, bound ms, bound by)}."""
+    import torch
+
+    from voxtral_tpu_torch.models.layers import ring_k_positions
+    from voxtral_tpu_torch.ops import decode_step as k1
+
+    cfg = model.config.language_model
+    nh, nkv, hd, win = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                        cfg.sliding_window)
+    ring, S = ring_geometry(cfg)
+    for streams, heads, kvh, spec, span, int8 in (
+            (1, nh, nkv, 1, S, False), (1, nh, nkv, SPEC_K, S, False),
+            (4, nh, nkv, 1, S, False), (4, nh, nkv, 1, S, True),
+            (4, nh, nkv, SPEC_K, S, True), (1, nh, nkv, 1, 240, False),
+            (8, nh, nkv, SPEC_K, 247, False), (4, nh // 2, nkv // 2, 1, S,
+                                                False),
+            (4, nh // 2, nkv // 2, SPEC_K, S, True),
+            (1, nh // 2, nkv // 2, 1, 151, False)):
+        plan = k1.kernel_attn_plan(streams, heads, kvh, spec, hd, span, int8)
+        if plan[0] == 0:
+            fail(f"no cluster plan fits streams={streams} heads={heads}/"
+                 f"{kvh} spec={spec} span={span} int8={int8}")
+        print(f"attention plan streams={streams} heads={heads}/{kvh} "
+              f"spec={spec} span={span} int8={int8}: cluster {plan[0]}, "
+              f"{plan[1]} query vectors a cluster, {plan[2]} cluster(s) a "
+              f"kv head, {plan[3]} slots a block, {plan[4]} bytes of shared "
+              f"memory", flush=True)
+    out = {}
+    for streams, offs in YARD_OFFS.items():
+        gen = torch.Generator(device=dev).manual_seed(90 + streams)
+        qkv = torch.randn((streams, (nh + 2 * nkv) * hd), device=dev,
+                          generator=gen)
+        kc = (torch.randn((streams, nkv, S, hd), device=dev, generator=gen)
+              * 0.5).bfloat16()
+        vc = (torch.randn((streams, nkv, S, hd), device=dev, generator=gen)
+              * 0.5).bfloat16()
+        off = torch.tensor(offs, dtype=torch.int32, device=dev)
+        c, s = k1.rope_pair_vectors(off, hd, cfg.rope_theta)
+        kw = dict(n_heads=nh, n_kv=nkv, head_dim=hd, window=win, ring=ring)
+        tag = (f"attention block alone (d) window full, {streams} "
+               f"stream(s), S={S} ring={ring} offsets={offs}")
+        got = k1.attention_block(qkv, c, s, kc, vc, off, **kw)
+        torch.cuda.synchronize()
+        ref = k1.attention_block_plain(qkv, c, s, kc, vc, off, **kw)
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            fail(f"{tag}: not bit-equal to the plain version")
+        ms = graph_ms(lambda: k1.attention_block(qkv, c, s, kc, vc, off,
+                                                 **kw))
+        vis = []
+        for o in offs:
+            p_abs, written = ring_k_positions(*ring, o, device=dev, slots=S)
+            vis.append(torch.nonzero(written & (o - p_abs <= win))
+                       .flatten())
+        n = max(len(v) for v in vis)
+        kx = torch.zeros((streams, nh, n, hd), dtype=torch.bfloat16,
+                         device=dev)
+        vx = torch.zeros_like(kx)
+        mask = torch.zeros((streams, 1, 1, n), dtype=torch.bool, device=dev)
+        for b, idx in enumerate(vis):
+            kx[b, :, :len(idx)] = kc[b][:, idx].repeat_interleave(
+                nh // nkv, dim=0)
+            vx[b, :, :len(idx)] = vc[b][:, idx].repeat_interleave(
+                nh // nkv, dim=0)
+            mask[b, :, :, :len(idx)] = True
+        q = qkv[:, :nh * hd].reshape(streams, nh, 1, hd).bfloat16()
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        sdpa_ms = graph_ms(lambda: sdpa(q, kx, vx, attn_mask=mask))
+        seen = sum(len(v) for v in vis)
+        b_ms, b_by = bound(2 * nkv * seen * hd * 2 + nbytes(qkv, c, s)
+                           + nbytes(*got), 4 * nh * seen * hd, BF16_FLOPS)
+        out[streams] = (ms, sdpa_ms, b_ms, b_by)
+        print(f"{tag}: bit-equal; kernel {ms:.4f} ms per layer on the "
+              f"device (CUDA graph), torch scaled_dot_product_attention "
+              f"{sdpa_ms:.4f} ms over the gathered visible K / V (GQA "
+              f"expanded, bool mask; yardstick only), bound {b_ms:.4f} ms "
+              f"({b_by}; {100 * b_ms / ms:.1f} % of it) [{card}]",
+              flush=True)
+        del kc, vc, kx, vx
+        torch.cuda.empty_cache()
+    return out
 
 
 def check_k1_pool_modes(model, dev, card):
@@ -2152,6 +2396,7 @@ def check_k1_pool_modes(model, dev, card):
     out = {name: kv_step_case(model, dev, card, *case)
            for name, case in cases.items()}
     out["err"] = max(v[0] for v in out.values())
+    out["yard"] = attention_yardstick(model, dev, card)
     # (streams, S, ring, chunk, int8, spec) of each, as POOL_GEOMETRIES
     # keys them.
     out["held"] = {(len(c[2]), c[1], c[4], c[6], c[5], c[3])
@@ -3438,7 +3683,7 @@ def timed_kernel(tag, kernel, plain, moved, ops, card):
     print(f"{tag}: max_abs_err {err:.3e} (bit-equal); kernel {ms:.4f} ms on "
           f"the device (CUDA graph), {host_ms:.4f} ms called from the host, "
           f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
-          f"{100 * b_ms / ms:.1f} % of it) [{card}]", flush=True)
+          f"{100 * b_ms / ms:.1f} % of it){per_row_walk(tag)} [{card}]", flush=True)
     return err, (ms, plain_ms, b_ms, b_by, host_ms)
 
 
@@ -5444,8 +5689,14 @@ def main() -> int:
          "max_abs_err": w8["k2_err"], "ms": k2t[0], "plain_ms": k2t[1],
          "bound_ms": k2t[3], "bound_by": k2t[4], "library_ms": k2t[2],
          "library": "torch._int_mm + epilogue (refuses M <= 16)",
+         "host_called_ms": k2t[7],
          "prefill_ms": w8["k2_times"][(38, 3072, 4096)][0],
-         "prefill_library_ms": w8["k2_times"][(38, 3072, 4096)][2]},
+         "prefill_library_ms": w8["k2_times"][(38, 3072, 4096)][2],
+         # Every shape: (kernel ms, torch._int_mm + epilogue ms or None).
+         "shapes_ms": {f"{m}x{k}x{n}": [round(t[0], 5),
+                                         None if t[2] is None
+                                         else round(t[2], 5)]
+                       for (m, k, n), t in w8["k2_times"].items()}},
         {"name": "decode_stack_step", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/decode_step.cu",
          "replaces": "voxtral_tpu/ops/decode_step_pallas.py:1654",
@@ -5490,6 +5741,11 @@ def main() -> int:
          "f_bounded_bound_ms": pk["f_bounded"][3],
          "f_bounded_int8_ms": pk["f_bounded_int8"][1],
          "f_bounded_int8_bound_ms": pk["f_bounded_int8"][3],
+         # The attention block alone, one layer under (d), window full:
+         # device ms, torch's scaled_dot_product_attention over the same
+         # visible K / V (yardstick), bound ms; one and four streams.
+         **{f"attn_d{n}_{key}": pk["yard"][n][i] for n in YARD_OFFS
+            for i, key in ((0, "ms"), (1, "library_ms"), (2, "bound_ms"))},
          # Mode (g), bf16 weights: 1 row (a), spec=8 at 8 and 64 rows,
          # 4 rows (c); under (d) at offset 16000 (S = 8238), (e) at the
          # four ring phases, (f) bounded S = 1536.

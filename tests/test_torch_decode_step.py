@@ -952,3 +952,79 @@ def test_decode_stack_step_kv_kernel_matches_plain_on_card(
                                             == torch.bfloat16 else 0)
                                    * r.abs().max().item())
     assert torch.equal(got[3].argmax(-1), ref[3].argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# The cluster walk (csrc/attn_step.cuh) at caches long enough to split
+# ---------------------------------------------------------------------------
+#
+# A head+ring cache of 640 slots spans 10 tiles of 64, so a cluster
+# takes up to 10 blocks (4 at the 256-slot window of a bounded cache),
+# each a piece: the merge of maxima, denominators, P.V partials and int8
+# absmax across blocks is exercised, with the window full (bounded) and
+# at four ring phases (offset below the head, the ring filling, wrapped,
+# wrapped again).
+
+BIG_S, BIG_RING, BIG_WINDOW = 640, (40, 600), 256
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offs,spec,ring,int8", [
+    ([600, 640], 1, None, False),                      # window full
+    ([30, 300, 660, 1500], 1, BIG_RING, False),        # (c) x (d)
+    ([30, 300, 660, 1500], 1, BIG_RING, True),         # (e)
+    ([30, 296, 660, 1500], 4, BIG_RING, True),         # (e) x (b)
+    ([600, 636], 4, None, True),                       # (e) x (b) bounded
+])
+def test_decode_stack_step_cluster_kernel_matches_plain_on_card(
+        inputs, offs, spec, ring, int8):
+    """K1's cluster attention over a long cache, bit-equal to the plain
+    version (torch.equal on every output)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    args = list(_ring_card_args(inputs, offs, spec))
+    dev = args[0].device
+    g = torch.Generator(device=dev).manual_seed(5 + len(offs) * spec)
+    shape = (L, len(offs), N_KV, BIG_S, HEAD_DIM)
+    kc = (torch.randn(shape, device=dev, generator=g) * 0.4).bfloat16()
+    vc = (torch.randn(shape, device=dev, generator=g) * 0.4).bfloat16()
+    kw = dict(n_heads=N_HEADS, n_kv=N_KV, head_dim=HEAD_DIM, eps=EPS,
+              window=BIG_WINDOW, spec=spec, ring=ring)
+    if int8:
+        (kc, ks), (vc, vs) = tdsp.quantize_kv(kc), tdsp.quantize_kv(vc)
+        kw.update(k_scales=ks, v_scales=vs)
+    args[11], args[12] = kc, vc
+    span = tdsp.attn_span(BIG_S, BIG_WINDOW, ring)
+    assert tdsp.kernel_attn_plan(len(offs), N_HEADS, N_KV, spec, HEAD_DIM,
+                                 span, int8)[0] > 1  # split over blocks
+    got = tdsp.decode_stack_step(*args, **kw)
+    ref = tdsp.decode_stack_step_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for g_, r in zip(got, ref):
+        assert torch.isfinite(r.float()).all()
+        assert torch.equal(g_, r), (g_.float() - r.float()).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streams,spec,int8", [
+    (1, 1, False), (4, 1, True), (1, 8, False), (4, 8, True), (8, 8, False),
+])
+@pytest.mark.parametrize("n_heads,n_kv,head_dim", [(32, 8, 128),
+                                                   (16, 4, 128)])
+def test_cluster_plan_fits_every_admitted_span_on_card(
+        streams, spec, int8, n_heads, n_kv, head_dim):
+    """The library's cluster plan (attn_step.cuh::attn_plan) fits a block
+    at the longest span check_geometry admits (the full width's heads,
+    and K4's at tp = 2), and check_geometry refuses one slot more."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernel library builds there")
+    fresh = (2 if int8 else 1) * spec
+    span = ((tdsp.SMEM_LIMIT - 8 * (tdsp.ATTN_THREADS // 32) * head_dim)
+            // 4 - 4 * head_dim - fresh)
+    tdsp.check_geometry(span, head_dim, spec=spec, kv_int8=int8)
+    with pytest.raises(ValueError, match="shared memory"):
+        tdsp.check_geometry(span + 1, head_dim, spec=spec, kv_int8=int8)
+    cluster, rv, n_vg, piece, smem = tdsp.kernel_attn_plan(
+        streams, n_heads, n_kv, spec, head_dim, span, int8)
+    assert cluster > 0 and smem <= tdsp.SMEM_LIMIT
+    assert rv * n_vg >= spec * n_heads // n_kv and cluster * piece >= span

@@ -490,3 +490,37 @@ def test_k1_lm_argmax_kernel_matches_plain_on_card(setup, offs, spec):
                                                  **kw))
     logits = tdsp.decode_stack_step(*args, **kw)[3]
     assert got[3][:, 0].tolist() == logits.argmax(-1).tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offs,spec,ring,int8", [
+    ([600, 640], 1, None, False),                  # window full
+    ([30, 300, 660, 1500], 1, (40, 600), False),   # (d), four ring phases
+    ([30, 300, 660, 1500], 1, (40, 600), True),    # (e)
+    ([30, 296, 660, 1500], 4, (40, 600), True),    # (e) x (b)
+])
+def test_attn_half_step_cluster_kernel_matches_plain_on_card(
+        setup, offs, spec, ring, int8):
+    """K4 through the cluster attention over a 640-slot local cache (the
+    slots split over up to 10 blocks of 64-slot tiles, 4 at the bounded
+    cache's 256-slot window), bit-equal to its plain version."""
+    dev = _card()
+    _, args, kw = _attn_case(setup, 0, [9], 1, None)
+    bc, S = len(offs), 640
+    g = torch.Generator(device="cpu").manual_seed(3 + bc * spec)
+    x = torch.randn((bc * spec, D), generator=g) * 0.5
+    off = torch.tensor(offs, dtype=torch.int32)
+    pos = (off[:, None] + torch.arange(spec)).reshape(-1)
+    c, s = tdsp.rope_pair_vectors(pos, HEAD_DIM)
+    kc = (torch.randn((bc, NKV_L, S, HEAD_DIM), generator=g) * 0.4).bfloat16()
+    vc = (torch.randn((bc, NKV_L, S, HEAD_DIM), generator=g) * 0.4).bfloat16()
+    scales = ()
+    if int8:
+        (kc, ks), (vc, vs) = tdsp.quantize_kv(kc), tdsp.quantize_kv(vc)
+        scales = (ks, vs)
+    args = _to((x, args[1], off, *args[3:6], c, s, kc, vc, *args[10:12],
+                *scales), dev)
+    kw = dict(kw, window=256, spec=spec, ring=ring)
+    got = ttp.attn_half_step(*args, **kw)
+    torch.cuda.synchronize()
+    _bit_equal(got, ttp.attn_half_step_plain(*args, **kw))

@@ -170,3 +170,70 @@ def test_w8_matmul_kernel_matches_plain_on_card(m, k, n):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, k2.w8_matmul_plain(xq, sx, codes, scale),
                                rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("m,k,n,aligned,route,splits", [
+    (1, 3072, 131072, True, k2.ROUTE_GEMV, 1),      # lm_head: a weight stream
+    (16, 3072, 3072, True, k2.ROUTE_GEMV, 1),       # 16 rows: still the GEMV
+    (17, 256, 100, True, k2.ROUTE_WGMMA64, 1),      # too little K to split
+    (64, 5120, 1280, True, k2.ROUTE_WGMMA64, 8),    # 10 tiles: K in 8 slices
+    (65, 5120, 1280, True, k2.ROUTE_WGMMA128, 8),
+    (608, 5120, 1280, True, k2.ROUTE_WGMMA128, 2),  # 50 tiles
+    (608, 1280, 5120, True, k2.ROUTE_WGMMA128, 1),  # 200 tiles: no split
+    (152, 5120, 3072, True, k2.ROUTE_WGMMA128, 2),
+    (128, 5120, 1280, True, k2.ROUTE_WGMMA128, 8),
+    (17, 96, 136, True, k2.ROUTE_WGMMA64, 1),       # K below one 128-byte box
+    (65, 1056, 200, True, k2.ROUTE_WGMMA128, 2),    # K % 128 != 0, split
+    (130, 1000, 200, True, k2.ROUTE_GEMV, 1),       # K % 32 != 0
+    (608, 5120, 1280, False, k2.ROUTE_GEMV, 1),     # rows not 16-byte aligned
+])
+def test_k2_plan_routes_by_shape(m, k, n, aligned, route, splits):
+    """K2 picks its route and K split from the shape before the launch:
+    the GEMVs up to 16 rows and where the tiles cannot take the shape,
+    the tensor-core GEMM above; slices only while tiles x slices fit the
+    SMs, each slice at least 4 K blocks and none empty."""
+    got = k2.k2_plan(m, n, k, aligned)
+    assert got == (route, splits)
+    if route != k2.ROUTE_GEMV:
+        kb = -(-k // 128)
+        per = -(-kb // splits)
+        assert (splits - 1) * per < kb                # no empty slice
+        assert splits == 1 or k2._tiles(m, n, route) * splits <= k2.N_SMS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [
+    (17, 5120, 100),    # 64-row tiles, N ragged, K in slices
+    (65, 5120, 130),    # 128-row tiles, M and N ragged
+    (130, 1280, 300),   # three N tiles, no split
+    (608, 5120, 1280),  # the one-shot encoder's w2
+    (608, 1280, 2048),  # its wq / wk / wv
+    (128, 5120, 1280),  # the B = 4 pool's w2: K in 8 slices
+    # K % 128 != 0: the last 128-byte K box runs past K, zero-filled by
+    # TMA (a partial final stage; alone below 128).
+    (17, 96, 136),      # one partial box
+    (65, 1056, 200),    # the last of 2 slices ends in a partial box
+    (130, 4128, 300),   # 7 slices of 5 boxes, the last partial
+    (130, 1000, 200),   # K % 32 != 0: the GEMV route
+])
+def test_w8_wgmma_matches_plain_on_card(m, k, n):
+    """K2's tensor-core GEMM (and the GEMV where it cannot take the shape)
+    bit-equal to the plain version; at 16 < M <= 64 the GEMV route too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(m * 3 + n)
+    xq = torch.randint(-127, 128, (m, k), dtype=torch.int8, generator=g).to(dev)
+    codes = torch.randint(-127, 128, (n, k), dtype=torch.int8, generator=g).to(dev)
+    sx = (torch.rand((m, 1), generator=g) * 0.1 + 1e-3).to(dev)
+    scale = (torch.rand((n,), generator=g) * 1e-2 + 1e-4).to(dev)
+    route, _ = k2.w8_matmul_route(xq, codes)
+    assert (route == k2.ROUTE_GEMV) == (k % 32 != 0)
+    ref = k2.w8_matmul_plain(xq, sx, codes, scale)
+    got = k2.w8_matmul(xq, sx, codes, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref), (got - ref).abs().max()
+    if route == k2.ROUTE_WGMMA64:
+        alt = k2.w8_matmul_on(k2.ROUTE_GEMV, xq, sx, codes, scale)
+        torch.cuda.synchronize()
+        assert torch.equal(alt, ref)

@@ -1,17 +1,71 @@
 // The attention blocks of one decode step over a head-major cache,
 // shared by K1 (decode_step.cu) and K4 (decode_tp.cu: the attention half
 // of a tensor-parallel shard, which runs them over the shard's local
-// heads with n_heads / n_kv of the shard): attn_step_kernel for a bf16
-// cache read at once (modes (a)-(d)), attn_kv_kernel for an int8 cache
-// and / or a chunked walk (modes (e), (f), each with (b)-(d) as JAX
-// allows).  Internal linkage: each translation unit has its own copy.
-// See decode_step.cu for the rounding points the blocks share with the
-// plain versions.
+// heads with n_heads / n_kv of the shard), both through
+// prepare_attention() once a step and launch_attention() a layer:
+//   * attn_cluster_kernel: modes (a)-(e) and their (b) / (c) / (g)
+//     combinations, over a bf16 or an int8 cache;
+//   * attn_chunk_kernel: mode (f), the chunked walk (bf16 or int8).
+// Internal linkage: each translation unit has its own copy.  See
+// decode_step.cu for the rounding points the blocks share with the
+// plain versions (ops/decode_step.py::_attention_plain).
+//
+// attn_cluster_kernel replaces the attention of the Pallas kernels
+// decode_step_pallas.py::_make_stack_kernel (:783-1180, build_valid /
+// scores_of / ctx_of) and decode_tp_pallas.py::_make_attn_half.  What
+// bounds it on the H100: the bytes of the visible cache slots (K and V,
+// 2 x 256 bytes a slot and kv head in bf16, half in int8; 0.87 GB a step
+// for one unbounded stream at full window, 0.26 ms of HBM) and, for many
+// query rows, the f64 multiply-adds of the exact sums.  In practice a
+// block's chain of dependent steps (tile waits, barriers, the products
+// and the cluster merges, with 8 warps an SM) keeps it several times
+// above both.  An earlier design
+// ran one block per (row, query head) walking all S slots alone: 32
+// blocks for one stream on 132 SMs, every K/V row read G = 4 times, one
+// thread per slot reading rows 256 bytes apart, and every ring slot
+// walked, written or not.  This one:
+//   * one thread-block cluster per (stream, kv head, group of query
+//     vectors), C blocks (up to 16) splitting the stream's visible slot
+//     range into C contiguous pieces;
+//   * each block serves every query vector of its group (the G query
+//     heads of the kv head times its draft rows), so a K/V row is read
+//     from HBM once per stream when the group holds them all;
+//   * K then V tiles of kTileSlots rows staged in shared memory by
+//     16-byte cp.async in a ring of kAttnStages tiles, rows padded so a
+//     warp's fragment loads fall on distinct banks;
+//   * the dot products on the f64 tensor cores (mma.m8n8k4): the scores
+//     as (8 query vectors x 4 dims) . (4 dims x 8 slots), P.V as (8
+//     vectors x 4 slots) . (4 slots x 8 dims), every cache value turned
+//     to f64 once a block;
+//   * only the slots that can be visible are walked: bounded
+//     [max(0, off + j_lo - window), min(off, S)); head+ring the written
+//     slots [0, min(off, head)) and [head, head + min(size, off - head)),
+//     with the per-slot window test of ring_visible;
+//   * the softmax's cross-block terms go through distributed shared
+//     memory (cluster.sync(), map_shared_rank): the f32 max (over the
+//     cache, fresh and self scores), in mode (e) the absmax of weights x
+//     v scales that sets the row's requant group, and the partial sums,
+//     which block 0 adds in block order (f64 denominators and P.V; in
+//     int8 the P.V sums are exact integers) before it adds the fresh and self
+//     terms in f32 in the order of the per-row walk, rounds once, and
+//     writes the output and k_new / v_new.
+// Why the split keeps bit-equality: every product the walk sums is
+// exact (bf16(q) x bf16 k and a bf16 weight x bf16 v in f64, or int8 x
+// int8); the sums are f64 (exact integers in int8), each rounded to f32
+// once, so the order of the slices, the tensor cores and the lanes only
+// moves f64 round-off far below the f32 rounding (the plain version
+// already sums in torch's f64 bmm order); max and absmax do not depend
+// on order.  The rounding points
+// stay where the per-row walk had them: expf(s - m) with the global m,
+// round_bf16 of the weight, and the requant's rintf with the row's se.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <math.h>
+#include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 #include "decode_common.cuh"
@@ -19,6 +73,7 @@
 namespace vx {
 namespace {
 
+namespace cg = cooperative_groups;
 
 // Mode (d): is head+ring cache slot ``slot`` visible to draft row j of a
 // stream at offset ``off``?  Written (a head slot below the offset, or
@@ -39,199 +94,735 @@ __device__ __forceinline__ bool ring_visible(int slot, int off, int j,
   return written && (window < 0 || off + j - p_abs <= window);
 }
 
-// One block per (query head h, row r); kv head jh = h / G.  Row r is
-// draft slot j = r % spec of stream b = r / spec (spec = 1: one row per
-// stream, the sequential step).  qkv [B, nq + 2 nkv] f32 holds the
-// un-roped projections of every row; the cache is head-major
-// [Bc, n_kv, S, hd] bf16 for this layer, one row per stream.  The query
-// of row r sits at position off + j, off = offs[b] (read on the device;
-// offs == NULL: the scalar off0 for every stream).  It attends
-//   * the cache slots [max(0, off + j - window), min(off, S));
-//   * the fresh K/V of rows i < j of its stream (j - i <= window), k_i
-//     RoPE'd with row i's vectors, in f32 (JAX: _make_stack_kernel's
-//     spec branch);
-//   * itself.
-// cos / sin: row r's vectors at cosv + r * rope_stride (rope_stride 0:
-// one [hd] pair for every row).  Scores: one thread per cache slot;
-// fresh scores: one warp per fresh row; P.V: one warp per slot (strided
-// over the warps), a lane per pair of head dims, one coalesced row load
-// per slot.  Dynamic shared memory: the per-warp P.V partial sums
-// (nw x hd doubles), q (scaled f32 and its bf16 rounding), k, v, the
-// spec fresh scores / weights and up to ``span`` cache scores / softmax
-// weights (span = the most slots a row can see, sized on the host from
-// S and the window, so no host offset is needed; S in mode (d), whose
-// walk covers every slot and skips the invisible ones).
-__global__ void __launch_bounds__(kAttnThreads) attn_step_kernel(
-    const float* __restrict__ qkv, const float* __restrict__ cosv,
-    const float* __restrict__ sinv, int rope_stride,
-    const int* __restrict__ offs, int off0, int spec,
-    const __nv_bfloat16* __restrict__ kc, const __nv_bfloat16* __restrict__ vc,
-    __nv_bfloat16* __restrict__ kn, __nv_bfloat16* __restrict__ vn,
-    float* __restrict__ attn, int S, int window, int ring_head,
-    int ring_size, int n_heads, int n_kv, int hd, float scale) {
-  extern __shared__ double smem_d[];
-  __shared__ float red[32];
-  __shared__ double red_d[32];
-  __shared__ float self_sh;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int nw = nt >> 5;
-  double* part = smem_d;                                 // [nw * hd]
-  float* qf = reinterpret_cast<float*>(smem_d + nw * hd);  // [hd] scaled q
-  float* qb = qf + hd;                                   // [hd] bf16(q)
-  float* kf = qb + hd;                                   // [hd] roped k
-  float* vf = kf + hd;                                   // [hd] v
-  float* fs = vf + hd;                                   // [spec] fresh
-  float* sc = fs + spec;                                 // [span]
-  const int h = blockIdx.x, r = blockIdx.y;
-  const int b = r / spec, j = r - b * spec;
-  const int G = n_heads / n_kv, jh = h / G;
-  const int nq = n_heads * hd, nkv = n_kv * hd, ld = nq + 2 * nkv;
-  const int off = offs != nullptr ? offs[b] : off0;
-  const bool ring = ring_size > 0;
-  const int lo = ring ? 0 : (window >= 0 ? max(0, off + j - window) : 0);
-  const int n = ring ? S : max(min(off, S) - lo, 0);
-  auto visible = [&](int t) {
-    return !ring ||
-           ring_visible(lo + t, off, j, window, ring_head, ring_size);
+constexpr int kMaxVec = 32;      // query vectors a cluster serves
+constexpr int kMaxCluster = 16;  // blocks a cluster (non-portable above 8)
+constexpr int kTileSlots = 64;   // cache rows per staged tile
+constexpr int kAttnStages = 3;   // staged tiles in the ring
+constexpr int kClusterBlocks = 128;  // blocks a launch aims at (132 SMs)
+constexpr size_t kSmemTarget = 113 * 1024;  // two blocks an SM
+constexpr size_t kSmemMax = 227 * 1024;
+
+__host__ __device__ constexpr int ceil_div(int a, int b) {
+  return (a + b - 1) / b;
+}
+__host__ __device__ constexpr size_t align16(size_t x) {
+  return (x + 15) & ~static_cast<size_t>(15);
+}
+
+// Shared memory of one cluster block, and how its warps split the
+// work; the host sizes the launch with it, the device finds its arrays.
+// rv: query vectors a cluster serves; piece: score slots a block holds.
+// The dot products run on the f64 tensor cores (mma.m8n8k4, 8-row tiles
+// of query vectors, n8 rows): the scores over 16-dim blocks (nblk), one
+// warp per 8 slots of a tile, P.V over 32-dim groups (n_dg) with the
+// tile's slots split over ksp warps.
+struct AttnLayout {
+  int row_bytes, chunk, stride;  // a cache row, its cp.async pieces, padded
+  int n8, nblk, qs, n_dg, ksp;
+  size_t o_qp, o_qq, o_sq, o_sc, o_ksv, o_small, o_fs, o_fk, total;
+  __host__ __device__ AttnLayout(int hd, int rv, int piece, int spec,
+                                 bool int8) {
+    const int esize = int8 ? 1 : 2;
+    row_bytes = hd * esize;
+    chunk = row_bytes % 16 == 0 ? 16 : 4;
+    // The inner loops read up to ceil(hd / 32) * 32 values a row; rows of
+    // 8 mod 32 words put the 8-byte (bf16) and 4-byte (int8) fragment
+    // loads of a warp on distinct banks.
+    int words = ceil_div(ceil_div(hd, 32) * 32 * esize, 4);
+    words += ((8 - words % 32) + 32) % 32;
+    stride = 4 * words;
+    n8 = ceil_div(rv, 8) * 8;
+    nblk = ceil_div(hd, 16);
+    qs = 16 * nblk + 4;
+    n_dg = ceil_div(hd, 32);
+    ksp = n_dg >= 8 ? 1 : 8 / n_dg;
+    // The tile ring, which block 0 also uses to stage the group's q and
+    // the stream's fresh rows (k, then v and the int8 codes).
+    size_t o = static_cast<size_t>(kAttnStages) * kTileSlots * stride;
+    const size_t stage_q = sizeof(float) * static_cast<size_t>(rv + spec) * hd;
+    const size_t stage_v =
+        sizeof(float) * (static_cast<size_t>(2 * spec) * hd + rv * spec);
+    if (o < stage_q) o = stage_q;
+    if (o < stage_v) o = stage_v;
+    o = align16(o);
+    o_qp = o;  // q as doubles [n8][qs] (permuted), later the P.V partial
+    const size_t qp = sizeof(double) * static_cast<size_t>(n8) * qs;
+    const size_t pv = sizeof(double) * static_cast<size_t>(n8) * hd;
+    o += align16(qp > pv ? qp : pv);
+    o_qq = o;  // int8: q's codes [rv][hd]
+    o += int8 ? align16(static_cast<size_t>(rv) * hd) : 0;
+    o_sq = o;  // int8: q's scale per vector
+    o += align16(sizeof(float) * rv);
+    o_sc = o;  // scores, then weights (bf16) or requant codes (int8)
+    o += align16(sizeof(float) * static_cast<size_t>(rv) * piece);
+    o_ksv = o;  // int8: the piece's k and v scales [2][piece]
+    o += int8 ? align16(2 * sizeof(float) * static_cast<size_t>(piece)) : 0;
+    o_small = o;  // per vector: den (f64), then 7 f32 arrays
+    o += align16(sizeof(double) * kMaxVec + 7 * sizeof(float) * kMaxVec);
+    o_fs = o;  // block 0: fresh scores, then weights [rv][spec]
+    o += align16(sizeof(float) * static_cast<size_t>(rv) * spec);
+    o_fk = o;  // block 0, int8: fresh rows' k / v scales and k codes
+    o += int8 ? align16(2 * sizeof(float) * spec +
+                        static_cast<size_t>(spec) * hd)
+              : 0;
+    total = o;
+  }
+};
+
+// The launch shape of attn_cluster_kernel: ``cluster`` blocks per
+// cluster, ``rv`` query vectors per cluster, ``n_vg`` clusters per
+// (stream, kv head), ``piece`` score slots per block.
+struct AttnPlan {
+  int cluster, rv, n_vg, piece;
+  size_t smem;
+};
+
+// Chosen from the shape alone (the offsets stay on the device): the
+// largest vector group (all of a stream's G x spec query vectors, at
+// most kMaxVec) that still makes about kClusterBlocks blocks with
+// clusters no wider than the span's tiles, and the cluster size that
+// brings the launch to that many, whose block fits kSmemTarget; failing
+// that the kSmemMax a block may hold.  cluster == 0: nothing fits.
+inline AttnPlan attn_plan(int streams, int n_heads, int n_kv, int spec,
+                          int hd, int span, bool int8) {
+  const int R = spec * (n_heads / n_kv);
+  for (size_t limit : {kSmemTarget, kSmemMax}) {
+    for (int rv = R < kMaxVec ? R : kMaxVec;; rv = ceil_div(rv, 2)) {
+      const int n_vg = ceil_div(R, rv);
+      const int units = streams * n_kv * n_vg;
+      const int tiles = ceil_div(span > 0 ? span : 1, kTileSlots);
+      const int c_max = tiles < kMaxCluster ? tiles : kMaxCluster;
+      // Too few blocks (a short span caps the cluster): smaller groups.
+      if (rv > 1 && units * c_max < kClusterBlocks) continue;
+      int c0 = ceil_div(kClusterBlocks, units);
+      c0 = c0 < 1 ? 1 : (c0 > c_max ? c_max : c0);
+      for (int c = c0; c <= kMaxCluster; ++c) {
+        const int piece = ceil_div(span > 0 ? span : 1, c);
+        const size_t smem = AttnLayout(hd, rv, piece, spec, int8).total;
+        if (smem <= limit) return AttnPlan{c, rv, n_vg, piece, smem};
+      }
+      if (rv == 1) break;
+    }
+  }
+  return AttnPlan{0, 0, 0, 0, 0};
+}
+
+// The arguments of attn_cluster_kernel.  qkv [B, nq + 2 nkv] f32, the
+// un-roped projections of every row (B = streams x spec rows, ordered
+// (stream b, draft slot j)); cos / sin [hd] (rope_stride 0) or [B, hd];
+// offs [streams] int32 or NULL (then off0); caches [streams, n_kv, S,
+// hd] bf16, or int8 with ks / vs [streams, n_kv, S] f32; kn / vn [B, n_kv,
+// hd] bf16; attn [B, nq] f32.
+struct AttnArgs {
+  const float* qkv;
+  const float* cosv;
+  const float* sinv;
+  int rope_stride;
+  const int* offs;
+  int off0, spec;
+  const void* kc;
+  const void* vc;
+  const float* ks;
+  const float* vs;
+  __nv_bfloat16* kn;
+  __nv_bfloat16* vn;
+  float* attn;
+  int S, window, ring_head, ring_size, n_heads, n_kv, hd;
+  float scale;
+  int rv, n_vg, piece;
+};
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float to_code(float v) {
+  return fminf(fmaxf(rintf(v), -127.0f), 127.0f);
+}
+
+// D (8 x 8, f64) += A (8 x 4) . B (4 x 8) on the f64 tensor cores: lane
+// (g, t) = (lane / 4, lane % 4) holds a = A[g][t], b = B[t][g] and
+// c = D[g][2 t], D[g][2 t + 1].
+__device__ __forceinline__ void dmma(double (&c)[2], double a, double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, "
+      "{%0, %1};\n"
+      : "+d"(c[0]), "+d"(c[1])
+      : "d"(a), "d"(b));
+}
+
+// Four consecutive cache values at p (bf16 or int8) as doubles, exact;
+// the values at index d0 + j >= hd read as 0.
+template <bool kInt8>
+__device__ __forceinline__ void load4(const unsigned char* p, int d0, int hd,
+                                      double (&x)[4]) {
+  if (d0 >= hd) {
+    x[0] = x[1] = x[2] = x[3] = 0.0;
+    return;
+  }
+  if constexpr (kInt8) {
+    const int w = *reinterpret_cast<const int*>(p);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      x[j] = static_cast<double>(static_cast<int8_t>(w >> (8 * j)));
+  } else {
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    x[0] = __uint_as_float(w.x << 16);
+    x[1] = __uint_as_float(w.x & 0xffff0000u);
+    x[2] = __uint_as_float(w.y << 16);
+    x[3] = __uint_as_float(w.y & 0xffff0000u);
+  }
+#pragma unroll
+  for (int j = 1; j < 4; ++j)
+    if (d0 + j >= hd) x[j] = 0.0;
+}
+
+// The sum (in rank order) and the max of one value over the cluster's
+// blocks, through distributed shared memory, every load issued first.
+__device__ __forceinline__ double ranks_sum(const cg::cluster_group& cl,
+                                            double* p, int C) {
+  double v[kMaxCluster];
+#pragma unroll
+  for (int q = 0; q < kMaxCluster; ++q)
+    v[q] = q < C ? *cl.map_shared_rank(p, q) : 0.0;
+  double s = 0.0;
+#pragma unroll
+  for (int q = 0; q < kMaxCluster; ++q)
+    if (q < C) s += v[q];
+  return s;
+}
+
+__device__ __forceinline__ float ranks_max(const cg::cluster_group& cl,
+                                           float* p, int C) {
+  float m = -INFINITY;
+  float v[kMaxCluster];
+#pragma unroll
+  for (int q = 0; q < kMaxCluster; ++q)
+    v[q] = q < C ? *cl.map_shared_rank(p, q) : -INFINITY;
+#pragma unroll
+  for (int q = 0; q < kMaxCluster; ++q) m = fmaxf(m, v[q]);
+  return m;
+}
+
+// Pair RoPE of element d of a projection row (the prologue's arithmetic).
+__device__ __forceinline__ float rope_at(const float* x, const float* cr,
+                                         const float* sr, int d) {
+  return x[d] * cr[d] + x[d ^ 1] * sr[d];
+}
+
+// One cluster per (stream b, kv head jh, vector group vg): grid (C,
+// streams x n_kv x n_vg), cluster (C, 1, 1), kAttnThreads threads.
+// Query vector v of the group is global vector v0 + v = j * G + g: draft
+// row j, query head jh * G + g.
+template <bool kInt8, int kMt>
+__global__ void __launch_bounds__(kAttnThreads) attn_cluster_kernel(
+    const AttnArgs a) {
+  constexpr int kStages = kAttnStages;
+  using cache_t = typename std::conditional<kInt8, int8_t, __nv_bfloat16>::type;
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = static_cast<int>(cl.num_blocks());
+  const int rank = static_cast<int>(cl.block_rank());
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hd = a.hd, spec = a.spec;
+  const AttnLayout L(hd, a.rv, a.piece, spec, kInt8);
+  unsigned char* tiles = smem;
+  double* qp = reinterpret_cast<double*>(smem + L.o_qp);
+  double* pvp = qp;  // after the scores: the block's P.V partial [n8][hd]
+  int8_t* qq = reinterpret_cast<int8_t*>(smem + L.o_qq);
+  float* sq = reinterpret_cast<float*>(smem + L.o_sq);
+  float* sc = reinterpret_cast<float*>(smem + L.o_sc);
+  int* sci = reinterpret_cast<int*>(sc);  // int8: the requant codes
+  float* kss = reinterpret_cast<float*>(smem + L.o_ksv);  // int8 [piece]
+  float* vss = kss + a.piece;
+  double* den_loc = reinterpret_cast<double*>(smem + L.o_small);
+  float* m_loc = reinterpret_cast<float*>(den_loc + kMaxVec);
+  float* m_g = m_loc + kMaxVec;
+  float* ea_loc = m_g + kMaxVec;
+  float* se = ea_loc + kMaxVec;
+  float* self_s = se + kMaxVec;
+  float* e_self = self_s + kMaxVec;
+  float* den_f = e_self + kMaxVec;
+  float* fs = reinterpret_cast<float*>(smem + L.o_fs);
+  float* fks = reinterpret_cast<float*>(smem + L.o_fk);
+  float* fvs = fks + spec;
+  int8_t* fkq = reinterpret_cast<int8_t*>(fvs + spec);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = kAttnThreads / 32;
+  const int G = a.n_heads / a.n_kv;
+  const int nq = a.n_heads * hd, nkv = a.n_kv * hd, ld = nq + 2 * nkv;
+  const int vg = blockIdx.y % a.n_vg, bjh = blockIdx.y / a.n_vg;
+  const int jh = bjh % a.n_kv, b = bjh / a.n_kv;
+  const int v0 = vg * a.rv, nv = min(a.rv, spec * G - v0);
+  const int j_lo = v0 / G, j_hi = (v0 + nv - 1) / G;
+  const int off = a.offs != nullptr ? a.offs[b] : a.off0;
+  const bool ring = a.ring_size > 0;
+  const int window = a.window;
+
+  // The stream's walk: the slots some vector of the group can see.
+  int lo, hi;
+  if (ring) {
+    lo = 0;
+    hi = off < a.ring_head ? off
+                           : a.ring_head + min(a.ring_size, off - a.ring_head);
+  } else {
+    lo = window >= 0 ? max(0, off + j_lo - window) : 0;
+    hi = min(off, a.S);
+  }
+  const int n = max(hi - lo, 0);
+  const int len = ceil_div(n, C);
+  const int p0 = lo + min(rank * len, n);
+  const int pn = min(len, lo + n - p0);
+
+  auto vec_j = [&](int v) { return (v0 + v) / G; };
+  auto vec_h = [&](int v) { return jh * G + (v0 + v) % G; };
+  auto row_of = [&](int j) { return b * spec + j; };
+  auto fresh = [&](int j, int i) { return window < 0 || j - i <= window; };
+  auto visible = [&](int slot, int j) {
+    if (ring)
+      return ring_visible(slot, off, j, window, a.ring_head, a.ring_size);
+    return slot < off && slot < a.S && (window < 0 || off + j - slot <= window);
   };
-  rope_row(qkv, cosv, sinv, rope_stride, r, h, jh, G, n_heads, n_kv, hd, scale,
-           qf, qb, kf, vf, kn, vn);
+  auto cs = [&](int r) { return a.cosv + static_cast<size_t>(r) * a.rope_stride; };
+  auto sn = [&](int r) { return a.sinv + static_cast<size_t>(r) * a.rope_stride; };
+  auto q_at = [&](int r, int h, int d) {
+    return rope_at(a.qkv + static_cast<size_t>(r) * ld + static_cast<size_t>(h) * hd,
+                   cs(r), sn(r), d) *
+           a.scale;
+  };
+  auto k_at = [&](int r, int d) {
+    return rope_at(a.qkv + static_cast<size_t>(r) * ld + nq +
+                       static_cast<size_t>(jh) * hd,
+                   cs(r), sn(r), d);
+  };
+  auto v_at = [&](int r, int d) {
+    return a.qkv[static_cast<size_t>(r) * ld + nq + nkv +
+                 static_cast<size_t>(jh) * hd + d];
+  };
+
+  // 1. The group's query vectors: bf16(q), or q's int8 codes with the
+  // scale sq = max(absmax, 1e-8) / 127, as doubles in the tensor-core A
+  // layout: qp[v][16 b + 4 j + t] = q[v][16 b + 4 t + j] (rows past nv
+  // and dims past hd zero), so lane t's four values of a 16-dim block
+  // pair with the four consecutive cache values it loads.
+  if constexpr (kInt8) {
+    for (int v = warp; v < nv; v += nwarps) {
+      const int r = row_of(vec_j(v)), h = vec_h(v);
+      float qa = 0.0f;
+      for (int d = lane; d < hd; d += 32) qa = fmaxf(qa, fabsf(q_at(r, h, d)));
+      const float s = fmaxf(warp_max(qa), 1e-8f) / 127.0f;
+      for (int d = lane; d < hd; d += 32)
+        qq[v * hd + d] = static_cast<int8_t>(to_code(q_at(r, h, d) / s));
+      if (lane == 0) sq[v] = s;
+    }
+    __syncthreads();
+  }
+  for (int i = tid; i < L.n8 * L.qs; i += kAttnThreads) {
+    const int v = i / L.qs, e = i - v * L.qs;
+    const int d = 16 * (e / 16) + 4 * (e % 4) + (e % 16) / 4;
+    double q = 0.0;
+    if (v < nv && e < 16 * L.nblk && d < hd) {
+      if constexpr (kInt8)
+        q = static_cast<double>(qq[v * hd + d]);
+      else
+        q = static_cast<double>(round_bf16(q_at(row_of(vec_j(v)), vec_h(v), d)));
+    }
+    qp[i] = q;
+  }
   __syncthreads();
 
-  const size_t head = (static_cast<size_t>(b) * n_kv + jh) * S;
-  const __nv_bfloat16* kbase = kc + head * hd;
-  const __nv_bfloat16* vbase = vc + head * hd;
-  // Cache scores: bf16(q) . k over slots lo..lo+n-1, f64 sums; -inf for
-  // a slot the ring mask hides (weight 0, never loaded).
-  for (int t = tid; t < n; t += nt) {
-    if (!visible(t)) {
-      sc[t] = -INFINITY;
-      continue;
+  // Staged walk over this block's piece [p0, p0 + pn) of a cache plane:
+  // tile ti (kTileSlots rows) lands in buffer ti % kStages, kStages - 1
+  // tiles ahead of the one in use; tile_ready(ti) waits for tile ti, then
+  // (every thread past tile ti - 1) issues tile ti + kStages - 1 into its
+  // buffer.
+  const size_t plane = (static_cast<size_t>(b) * a.n_kv + jh) * a.S;
+  const int nt = ceil_div(pn, kTileSlots);
+  auto load_tile = [&](const cache_t* base, int ti) {
+    const int t0 = ti * kTileSlots, rows = min(kTileSlots, pn - t0);
+    const int per = L.row_bytes / L.chunk;
+    unsigned char* dst = tiles + (ti % kStages) * kTileSlots * L.stride;
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(
+        base + (plane + p0 + t0) * hd);
+    for (int i = tid; i < rows * per; i += kAttnThreads) {
+      const int rr = i / per, cc = i - rr * per;
+      cp_async(dst + rr * L.stride + cc * L.chunk,
+               src + static_cast<size_t>(rr) * L.row_bytes + cc * L.chunk,
+               L.chunk);
     }
-    const __nv_bfloat162* kr = reinterpret_cast<const __nv_bfloat162*>(
-        kbase + static_cast<size_t>(lo + t) * hd);
-    double p = 0.0;
-#pragma unroll 8
-    for (int d2 = 0; d2 < hd / 2; ++d2) {
-      const float2 kv = __bfloat1622float2(kr[d2]);
-      p += static_cast<double>(qb[2 * d2]) * kv.x;
-      p += static_cast<double>(qb[2 * d2 + 1]) * kv.y;
+    cp_async_commit();
+  };
+  auto tile_ready = [&](const cache_t* base, int ti) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (ti + kStages - 1 < nt)
+      load_tile(base, ti + kStages - 1);
+    else
+      cp_async_commit();  // an empty group keeps the wait count uniform
+    return tiles + (ti % kStages) * kTileSlots * L.stride;
+  };
+  auto prologue = [&](const cache_t* base) {
+    for (int ti = 0; ti < kStages - 1; ++ti) {
+      if (ti < nt)
+        load_tile(base, ti);
+      else
+        cp_async_commit();
     }
-    sc[t] = static_cast<float>(p);
-  }
-  // Fresh scores: the unrounded f32 q against k_i of rows i < j, RoPE'd
-  // with row i's vectors; -inf past the window (never weighted).
-  for (int i = warp; i < j; i += nw) {
-    const int ri = r - j + i;
-    const float* ki = qkv + static_cast<size_t>(ri) * ld + nq +
-                      static_cast<size_t>(jh) * hd;
-    const float* ci = cosv + static_cast<size_t>(ri) * rope_stride;
-    const float* si = sinv + static_cast<size_t>(ri) * rope_stride;
-    double p = 0.0;
-    for (int d = lane; d < hd; d += 32) {
-      const float k = ki[d] * ci[d] + ki[d ^ 1] * si[d];
-      p += static_cast<double>(qf[d]) * k;
+  };
+  const cache_t* kplane = static_cast<const cache_t*>(a.kc);
+  const cache_t* vplane = static_cast<const cache_t*>(a.vc);
+
+  // 2. Scores of the piece, masked to -inf where a vector cannot see the
+  // slot: bf16(q) . k, or float(qq . kq) * sq * ks, the exact products
+  // summed in f64 on the tensor cores.  Warp w takes the 8 slots 8 w ..
+  // 8 w + 7 of a tile over every 8-vector tile, one accumulator per step
+  // of a 16-dim block (four independent chains, added at the end).
+  if constexpr (kInt8) {  // the piece's scales, one coalesced pass
+    for (int i = tid; i < pn; i += kAttnThreads) {
+      kss[i] = a.ks[plane + p0 + i];
+      vss[i] = a.vs[plane + p0 + i];
     }
-    p = warp_sum_d(p);
-    if (lane == 0)
-      fs[i] = (window < 0 || j - i <= window) ? static_cast<float>(p)
-                                              : -INFINITY;
   }
-  // Self score: the unrounded f32 q and k.
-  if (warp == 0) {
-    double p = 0.0;
-    for (int d = lane; d < hd; d += 32)
-      p += static_cast<double>(qf[d]) * kf[d];
-    p = warp_sum_d(p);
-    if (lane == 0) self_sh = static_cast<float>(p);
-  }
-  __syncthreads();
-  // Softmax: f32 max over cache, self and fresh scores; f64 sum of the
-  // cache weights, then the fresh weights and the self weight added in
-  // f32 in that order; bf16 cache weights for P.V.
-  const float self_s = self_sh;
-  float m = self_s;
-  for (int t = tid; t < n; t += nt) m = fmaxf(m, sc[t]);
-  for (int i = tid; i < j; i += nt) m = fmaxf(m, fs[i]);
-  m = block_max(m, red);
-  double s = 0.0;
-  for (int t = tid; t < n; t += nt) {
-    const float e = expf(sc[t] - m);
-    s += e;
-    sc[t] = round_bf16(e);
-  }
-  s = block_sum_d(s, red_d);  // its barriers order the fs reads above
-  for (int i = tid; i < j; i += nt) fs[i] = expf(fs[i] - m);  // e_i
-  __syncthreads();
-  auto fresh = [&](int i) { return window < 0 || j - i <= window; };
-  const float e_self = expf(self_s - m);
-  float den = static_cast<float>(s);
-  for (int i = 0; i < j; ++i)
-    if (fresh(i)) den = den + fs[i];
-  den = den + e_self;
-  // P.V over the cache (bf16 weights x bf16 v, f64 sums), then the
-  // fresh terms e_i * v_i and the self term, in f32.
-  constexpr int kPairs = kMaxHeadDim / 64;  // bf16 pairs per lane
-  double acc2[kPairs][2];
+  const int g = lane >> 2, tg = lane & 3;
+  const int n_mt = L.n8 / 8;
+  constexpr int esize = kInt8 ? 1 : 2;
+  prologue(kplane);
+  for (int ti = 0; ti < nt; ++ti) {
+    const unsigned char* tile = tile_ready(kplane, ti);
+    const int tn = min(kTileSlots, pn - ti * kTileSlots);
+    if (8 * warp < tn) {
+      double c[kMt][4][2];
 #pragma unroll
-  for (int c = 0; c < kPairs; ++c) acc2[c][0] = acc2[c][1] = 0.0;
-#pragma unroll 4
-  for (int t = warp; t < n; t += nw) {
-    if (!visible(t)) continue;  // weight 0: adds nothing
-    const __nv_bfloat162* vr = reinterpret_cast<const __nv_bfloat162*>(
-        vbase + static_cast<size_t>(lo + t) * hd);
-    const double w = sc[t];
+      for (int mt = 0; mt < kMt; ++mt)
 #pragma unroll
-    for (int c = 0; c < kPairs; ++c) {
-      const int d2 = lane + 32 * c;
-      if (d2 < hd / 2) {
-        const float2 v2 = __bfloat1622float2(vr[d2]);
-        acc2[c][0] += w * v2.x;
-        acc2[c][1] += w * v2.y;
+        for (int j = 0; j < 4; ++j) c[mt][j][0] = c[mt][j][1] = 0.0;
+      const unsigned char* krow = tile + (8 * warp + g) * L.stride;
+#pragma unroll 2
+      for (int blk = 0; blk < L.nblk; ++blk) {
+        const int d0 = 16 * blk + 4 * tg;
+        double x[4];
+        load4<kInt8>(krow + d0 * esize, d0, hd, x);
+#pragma unroll
+        for (int mt = 0; mt < kMt; ++mt) {
+          if (mt >= n_mt) break;
+          const double* qa = qp + (8 * mt + g) * L.qs + 16 * blk + tg;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) dmma(c[mt][j], qa[4 * j], x[j]);
+        }
+      }
+      // Lane (g, tg) holds vector 8 mt + g at slots 8 w + 2 tg + i.
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt) {
+        if (mt >= n_mt) break;
+        const int v = 8 * mt + g;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int t = 8 * warp + 2 * tg + i;
+          if (v >= nv || t >= tn) continue;
+          const double z = (c[mt][0][i] + c[mt][1][i]) + (c[mt][2][i] + c[mt][3][i]);
+          const int tl = ti * kTileSlots + t, slot = p0 + tl;
+          float s;
+          if constexpr (kInt8)
+            s = (static_cast<float>(z) * sq[v]) * kss[tl];
+          else
+            s = static_cast<float>(z);
+          sc[v * a.piece + tl] = visible(slot, vec_j(v)) ? s : -INFINITY;
+        }
       }
     }
   }
-#pragma unroll
-  for (int c = 0; c < kPairs; ++c) {
-    const int d2 = lane + 32 * c;
-    if (d2 < hd / 2) {
-      part[warp * hd + 2 * d2] = acc2[c][0];
-      part[warp * hd + 2 * d2 + 1] = acc2[c][1];
+  __syncthreads();
+
+  // Block 0: the self score (the unrounded f32 q and k, f64 sum) and the
+  // fresh scores of rows i < j (bf16: the f32 q against k_i RoPE'd with
+  // row i's vectors; int8: float(qq . kq_i) * sq * ks_i, k_i through bf16
+  // and the per-vector quantization, as the sequential step reads it
+  // back), -inf past the window.  The group's scaled q and the stream's
+  // rows 0 .. j_hi (RoPE'd k) are staged in the free tile ring first;
+  // one warp per (vector, row i <= j).
+  if (rank == 0) {
+    float* qf = reinterpret_cast<float*>(tiles);  // [nv][hd]
+    float* kf = qf + nv * hd;                     // [j_hi + 1][hd]
+    for (int i = tid; i < nv * hd; i += kAttnThreads) {
+      const int v = i / hd, d = i - v * hd;
+      qf[i] = q_at(row_of(vec_j(v)), vec_h(v), d);
+    }
+    for (int i = tid; i < (j_hi + 1) * hd; i += kAttnThreads)
+      kf[i] = k_at(row_of(i / hd), i % hd);
+    __syncthreads();
+    if constexpr (kInt8) {
+      for (int i = warp; i < j_hi; i += nwarps) {
+        float ka = 0.0f, va = 0.0f;
+        for (int d = lane; d < hd; d += 32) {
+          ka = fmaxf(ka, fabsf(round_bf16(kf[i * hd + d])));
+          va = fmaxf(va, fabsf(round_bf16(v_at(row_of(i), d))));
+        }
+        const float ksf = fmaxf(warp_max(ka), 1e-8f) / 127.0f;
+        const float vsf = fmaxf(warp_max(va), 1e-8f) / 127.0f;
+        for (int d = lane; d < hd; d += 32)
+          fkq[i * hd + d] = static_cast<int8_t>(to_code(round_bf16(kf[i * hd + d]) / ksf));
+        if (lane == 0) {
+          fks[i] = ksf;
+          fvs[i] = vsf;
+        }
+      }
+      __syncthreads();
+    }
+    for (int it = warp; it < nv * spec; it += nwarps) {
+      const int v = it / spec, i = it - v * spec, j = vec_j(v);
+      if (i > j) continue;
+      float s;
+      if (i == j || !kInt8) {
+        double p = 0.0;
+        for (int d = lane; d < hd; d += 32)
+          p += static_cast<double>(qf[v * hd + d]) * kf[i * hd + d];
+        s = static_cast<float>(warp_sum_d(p));
+      } else {
+        int p = 0;
+        for (int d = lane; d < hd; d += 32)
+          p += static_cast<int>(fkq[i * hd + d]) * static_cast<int>(qq[v * hd + d]);
+        s = (static_cast<float>(warp_sum_i(p)) * sq[v]) * fks[i];
+      }
+      if (lane == 0) {
+        if (i == j)
+          self_s[v] = s;
+        else
+          fs[v * spec + i] = fresh(j, i) ? s : -INFINITY;
+      }
     }
   }
   __syncthreads();
-  for (int d = tid; d < hd; d += nt) {
-    double acc = 0.0;
-    for (int wi = 0; wi < nw; ++wi) acc += part[wi * hd + d];
-    float ctx = static_cast<float>(acc);
-    for (int i = 0; i < j; ++i) {
-      if (!fresh(i)) continue;
-      const float vi = qkv[static_cast<size_t>(r - j + i) * ld + nq + nkv +
-                           static_cast<size_t>(jh) * hd + d];
-      ctx = ctx + fs[i] * vi;
+  // The block's max per vector (block 0: with the self and fresh scores).
+  for (int v = warp; v < nv; v += nwarps) {
+    float mx = -INFINITY;
+    for (int t = lane; t < pn; t += 32) mx = fmaxf(mx, sc[v * a.piece + t]);
+    mx = warp_max(mx);
+    if (lane == 0) {
+      if (rank == 0) {
+        mx = fmaxf(mx, self_s[v]);
+        for (int i = 0; i < vec_j(v); ++i) mx = fmaxf(mx, fs[v * spec + i]);
+      }
+      m_loc[v] = mx;
     }
-    ctx = ctx + e_self * vf[d];
-    attn[static_cast<size_t>(r) * nq + static_cast<size_t>(h) * hd + d] =
-        ctx / den;
   }
+
+  // 3. The global max through distributed shared memory.
+  cl.sync();
+  for (int v = tid; v < nv; v += kAttnThreads)
+    m_g[v] = ranks_max(cl, m_loc + v, C);
+  __syncthreads();
+
+  // 4. Weights e = expf(s - m): their f64 sum per vector; bf16: the
+  // weight rounded to bf16; int8: e x vs, and its absmax.
+  for (int v = warp; v < nv; v += nwarps) {
+    const float m = m_g[v];
+    double s = 0.0;
+    float ea = 0.0f;
+    for (int t = lane; t < pn; t += 32) {
+      float* x = sc + v * a.piece + t;
+      const float e = expf(*x - m);
+      s += e;
+      if constexpr (kInt8) {
+        const float ew = *x != -INFINITY ? e * vss[t] : 0.0f;
+        ea = fmaxf(ea, fabsf(ew));
+        *x = ew;
+      } else {
+        *x = round_bf16(e);
+      }
+    }
+    s = warp_sum_d(s);
+    ea = warp_max(ea);
+    if (lane == 0) {
+      den_loc[v] = s;
+      ea_loc[v] = ea;
+    }
+  }
+  if (rank == 0) {
+    for (int v = tid; v < nv; v += kAttnThreads)
+      e_self[v] = expf(self_s[v] - m_g[v]);
+    for (int it = tid; it < nv * spec; it += kAttnThreads) {
+      const int v = it / spec, i = it - v * spec;
+      if (i < vec_j(v)) fs[it] = expf(fs[it] - m_g[v]);  // e_i
+    }
+  }
+  __syncthreads();
+  if constexpr (kInt8) {
+    // The requant group of each vector: the cache slots of every block
+    // and the fresh rows, se = max(absmax, 1e-30) / 127.
+    if (rank == 0)
+      for (int v = tid; v < nv; v += kAttnThreads) {
+        float ea = ea_loc[v];
+        for (int i = 0; i < vec_j(v); ++i)
+          if (fresh(vec_j(v), i)) ea = fmaxf(ea, fabsf(fs[v * spec + i] * fvs[i]));
+        ea_loc[v] = ea;
+      }
+    cl.sync();
+    for (int v = tid; v < nv; v += kAttnThreads)
+      se[v] = fmaxf(fmaxf(ranks_max(cl, ea_loc + v, C), 0.0f), 1e-30f) / 127.0f;
+    __syncthreads();
+    for (int i = tid; i < nv * pn; i += kAttnThreads) {
+      const int v = i / pn, t = i - v * pn;
+      sci[v * a.piece + t] = static_cast<int>(to_code(sc[v * a.piece + t] / se[v]));
+    }
+    __syncthreads();
+  }
+
+  // 5. P.V over the piece on the tensor cores: bf16 weight x bf16 v, or
+  // int8 code x int8 v, exact products summed in f64 (exact integers in
+  // int8).  Warp w takes the 32-dim group w % n_dg (lane g: dims 4 g ..
+  // 4 g + 3 of it, one per 8-dim output tile) and the slot steps s = w /
+  // n_dg, + ksp, ... of each tile (4 slots a step), over every 8-vector
+  // tile; the ksp partials are added in order afterwards.  The weights
+  // (A) come from the score buffer: 0 past the piece or the group.
+  const int dg = warp % L.n_dg, kq = warp / L.n_dg;
+  double acc[kMt][4][2];
+#pragma unroll
+  for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[mt][j][0] = acc[mt][j][1] = 0.0;
+  prologue(vplane);
+  for (int ti = 0; ti < nt; ++ti) {
+    const unsigned char* tile = tile_ready(vplane, ti);
+    const int tn = min(kTileSlots, pn - ti * kTileSlots);
+    if (kq < L.ksp) {
+      const int d0 = 32 * dg + 4 * g;
+#pragma unroll 2
+      for (int st = kq; 4 * st < tn; st += L.ksp) {
+        const int t = 4 * st + tg;
+        double x[4];
+        load4<kInt8>(tile + t * L.stride + d0 * esize, t < tn ? d0 : hd, hd, x);
+#pragma unroll
+        for (int mt = 0; mt < kMt; ++mt) {
+          if (mt >= n_mt) break;
+          const int v = 8 * mt + g;
+          double av = 0.0;
+          if (v < nv && t < tn) {
+            const int at = v * a.piece + ti * kTileSlots + t;
+            av = kInt8 ? static_cast<double>(sci[at]) : static_cast<double>(sc[at]);
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) dmma(acc[mt][j], av, x[j]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // The partials of the ksp slot steps, added in order: lane (g, tg)
+  // holds vector 8 mt + g, dims 32 dg + 4 (2 tg + i) + j.
+  for (int r = 0; r < L.ksp; ++r) {
+    if (kq == r) {
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt) {
+        if (mt >= n_mt) break;
+        const int v = 8 * mt + g;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int d = 32 * dg + 4 * (2 * tg + i) + j;
+            if (v < nv && d < hd) {
+              double* o = pvp + v * hd + d;
+              *o = (r == 0 ? 0.0 : *o) + acc[mt][j][i];
+            }
+          }
+      }
+    }
+    __syncthreads();
+  }
+
+  // 6. Block 0 adds the blocks' partials in block order, rounds once,
+  // adds the fresh and self terms in f32 as the per-row walk did, and
+  // writes the output, then k_new / v_new of the rows whose head 0 is in
+  // this group.  The stream's v rows 0 .. j_hi are staged in the free
+  // tile ring, and in int8 the fresh terms' codes (each a function of the
+  // row and the dim, or of the vector and the row) once each.
+  cl.sync();
+  if (rank == 0) {
+    float* vf = reinterpret_cast<float*>(tiles);  // [j_hi + 1][hd]
+    float* vq = vf + (j_hi + 1) * hd;             // int8: [j_hi][hd]
+    float* eq = vq + j_hi * hd;                   // int8: [nv][spec]
+    for (int i = tid; i < (j_hi + 1) * hd; i += kAttnThreads)
+      vf[i] = v_at(row_of(i / hd), i % hd);
+    __syncthreads();
+    if constexpr (kInt8) {
+      for (int i = tid; i < j_hi * hd; i += kAttnThreads)
+        vq[i] = to_code(round_bf16(vf[i]) / fvs[i / hd]);
+      for (int it = tid; it < nv * spec; it += kAttnThreads) {
+        const int v = it / spec, f = it - v * spec;
+        if (f < vec_j(v)) eq[it] = to_code((fs[it] * fvs[f]) / se[v]);
+      }
+    }
+    for (int v = tid; v < nv; v += kAttnThreads) {
+      float den = static_cast<float>(ranks_sum(cl, den_loc + v, C));
+      const int j = vec_j(v);
+      for (int i = 0; i < j; ++i)
+        if (fresh(j, i)) den = den + fs[v * spec + i];
+      den_f[v] = den + e_self[v];
+    }
+    __syncthreads();
+    for (int i = tid; i < nv * hd; i += kAttnThreads) {
+      const int v = i / hd, d = i - v * hd;
+      const double s = ranks_sum(cl, pvp + i, C);
+      const int j = vec_j(v), r = row_of(j);
+      float ctx;
+      if constexpr (kInt8) {
+        ctx = static_cast<float>(s) * se[v];
+        for (int f = 0; f < j; ++f)
+          if (fresh(j, f))
+            ctx = ctx + (eq[v * spec + f] * vq[f * hd + d]) * se[v];
+      } else {
+        ctx = static_cast<float>(s);
+        for (int f = 0; f < j; ++f)
+          if (fresh(j, f)) ctx = ctx + fs[v * spec + f] * vf[f * hd + d];
+      }
+      ctx = ctx + e_self[v] * vf[j * hd + d];
+      a.attn[static_cast<size_t>(r) * nq + static_cast<size_t>(vec_h(v)) * hd + d] =
+          ctx / den_f[v];
+    }
+    for (int i = tid; i < (j_hi - j_lo + 1) * hd; i += kAttnThreads) {
+      const int j = j_lo + i / hd, d = i % hd;
+      if (j * G < v0 || j * G >= v0 + nv) continue;
+      const size_t o = (static_cast<size_t>(row_of(j)) * a.n_kv + jh) * hd + d;
+      a.kn[o] = __float2bfloat16(k_at(row_of(j), d));
+      a.vn[o] = __float2bfloat16(vf[j * hd + d]);
+    }
+  }
+  cl.sync();  // no block leaves while block 0 reads its shared memory
 }
 
-// Modes (e) and (f): the attention block over an int8 cache (kInt8: codes
-// with one f32 scale per cached vector, ks / vs [Bc, n_kv, S] for this
-// layer) and / or walked in chunks of ``chunk`` slots (chunk > 0, spec = 1;
-// chunk == 0: the whole span at once, as attn_step_kernel).  Grid, rows,
-// RoPE, offsets, window and ring mask as attn_step_kernel.
+// Mode (f): the attention walked in chunks of ``chunk`` slots (spec = 1),
+// over a bf16 cache or an int8 one (kInt8: codes with one f32 scale per
+// cached vector, ks / vs [Bc, n_kv, S] for this layer), one block per
+// (query head h, row r), grid (n_heads, B).  Its carry is sequential by
+// the JAX kernel's definition (bf16 weights round against the running
+// max, the int8 requant group is per chunk), so chunks are not split
+// over blocks; redesigning it for Hopper is ROADMAP work.
 //
 // int8 (scores_of / ctx_of, decode_step_pallas.py:1045-1080): the scaled
 // q is quantized per query head, sq = max(absmax, 1e-8) / 127; the score
 // of slot t is float(qq . kcodes[t]) * sq * ks[t]; the self score stays
 // the f32 q . k.  The softmax weights e[t] * vs[t] are requantized with
-// se = max(absmax, 1e-30) / 127 (one group per row, or per chunk) and
-// ctx = float(eq . vcodes) * se.  With spec > 1 (:831-929) the fresh rows
-// i < j read as the sequential step would read them back: through bf16
-// and the per-vector quantization, their weights in the cache's requant
-// group.  Every dot is an integer sum, exact in any order.
+// se = max(absmax, 1e-30) / 127 (one group per chunk) and
+// ctx = float(eq . vcodes) * se.  Every dot is an integer sum, exact in
+// any order.
 //
 // Chunked (:1085-1180): (m, den, ctx) start at (-1e30, 0, 0); per chunk
 // m_new = max(m, max s), alpha = exp(m - m_new), e = exp(s - m_new),
@@ -240,11 +831,11 @@ __global__ void __launch_bounds__(kAttnThreads) attn_step_kernel(
 // walked (bounded: from max(min_off - window, 0) / chunk to
 // ceil(max_off / chunk); ring: from 0 to ceil(min(max_off, head + size)
 // / chunk)); a chunk this row sees nothing of leaves its carry as it was.
-// Dynamic shared memory: P.V partials (nw x hd doubles), q, its bf16
-// rounding or int8 codes, k, v, fresh scores and fresh v scales (spec
-// each), and ``span`` scores (the chunk, or as attn_step_kernel).
+// Dynamic shared memory (chunk_smem_bytes): P.V partials (nw x hd
+// doubles), q, its bf16 rounding or int8 codes, k, v, 2 spec floats
+// (unused) and the chunk's scores.
 template <bool kInt8>
-__global__ void __launch_bounds__(kAttnThreads) attn_kv_kernel(
+__global__ void __launch_bounds__(kAttnThreads) attn_chunk_kernel(
     const float* __restrict__ qkv, const float* __restrict__ cosv,
     const float* __restrict__ sinv, int rope_stride,
     const int* __restrict__ offs, int off0, int n_streams, int spec,
@@ -266,14 +857,13 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kv_kernel(
   float* qb = qf + hd;             // [hd] bf16(q), or hd int8 codes of q
   float* kf = qb + hd;             // [hd] roped k
   float* vf = kf + hd;             // [hd] v
-  float* fs = vf + hd;             // [spec] fresh scores, then weights
-  float* fvs = fs + spec;          // [spec] fresh v scales (int8)
-  float* sc = fvs + spec;          // [span]
+  float* sc = vf + hd + 2 * spec;  // [chunk] (2 spec floats of the host's
+                                   // layout unused: no fresh rows here)
   const int8_t* qq = reinterpret_cast<const int8_t*>(qb);
   const int h = blockIdx.x, r = blockIdx.y;
   const int b = r / spec, j = r - b * spec;
   const int G = n_heads / n_kv, jh = h / G;
-  const int nq = n_heads * hd, nkv = n_kv * hd, ld = nq + 2 * nkv;
+  const int nq = n_heads * hd;
   const int off = offs != nullptr ? offs[b] : off0;
   const bool ring = ring_size > 0;
   rope_row(qkv, cosv, sinv, rope_stride, r, h, jh, G, n_heads, n_kv, hd, scale,
@@ -411,163 +1001,187 @@ __global__ void __launch_bounds__(kAttnThreads) attn_kv_kernel(
   }
   float* out = attn + static_cast<size_t>(r) * nq + static_cast<size_t>(h) * hd;
 
-  if (chunk > 0) {
-    // Mode (f).  The chunk range is the whole batch's.
-    int mn = off0, mx = off0;
-    if (offs != nullptr) {
-      mn = mx = offs[0];
-      for (int i = 1; i < n_streams; ++i) {
-        mn = min(mn, offs[i]);
-        mx = max(mx, offs[i]);
-      }
+  // Mode (f).  The chunk range is the whole batch's.
+  int mn = off0, mx = off0;
+  if (offs != nullptr) {
+    mn = mx = offs[0];
+    for (int i = 1; i < n_streams; ++i) {
+      mn = min(mn, offs[i]);
+      mx = max(mx, offs[i]);
     }
-    const int used = ring ? min(mx, ring_head + ring_size) : mx;
-    const int lo_pos = (!ring && window >= 0) ? max(mn - window, 0) : 0;
-    const int c_lo = lo_pos / chunk;
-    const int n_used = min((used + chunk - 1) / chunk, S / chunk);
-    float m = -1e30f, den = 0.0f, ctx = 0.0f;  // ctx: dim tid (tid < hd)
-    for (int c = c_lo; c < n_used; ++c) {
-      const int base = c * chunk;
-      float cm = -INFINITY;
-      for (int t = tid; t < chunk; t += nt) {
-        const float s = visible(base + t) ? score(base + t) : -INFINITY;
-        sc[t] = s;
-        cm = fmaxf(cm, s);
-      }
-      const float m_new = fmaxf(m, block_max(cm, red));
-      const float alpha = expf(m - m_new);
-      double s = 0.0;
-      float ea = 0.0f;
-      for (int t = tid; t < chunk; t += nt) {
-        const bool vis = sc[t] != -INFINITY;
-        const float e = expf(sc[t] - m_new);
-        s += e;
-        if constexpr (kInt8) {
-          const float ew = vis ? e * vsb[base + t] : 0.0f;
-          ea = fmaxf(ea, fabsf(ew));
-          sc[t] = ew;
-        } else {
-          sc[t] = round_bf16(e);
-        }
-      }
-      s = block_sum_d(s, red_d);
-      den = den * alpha + static_cast<float>(s);
-      float se = 1.0f;
+  }
+  const int used = ring ? min(mx, ring_head + ring_size) : mx;
+  const int lo_pos = (!ring && window >= 0) ? max(mn - window, 0) : 0;
+  const int c_lo = lo_pos / chunk;
+  const int n_used = min((used + chunk - 1) / chunk, S / chunk);
+  float m = -1e30f, den = 0.0f, ctx = 0.0f;  // ctx: dim tid (tid < hd)
+  for (int c = c_lo; c < n_used; ++c) {
+    const int base = c * chunk;
+    float cm = -INFINITY;
+    for (int t = tid; t < chunk; t += nt) {
+      const float s = visible(base + t) ? score(base + t) : -INFINITY;
+      sc[t] = s;
+      cm = fmaxf(cm, s);
+    }
+    const float m_new = fmaxf(m, block_max(cm, red));
+    const float alpha = expf(m - m_new);
+    double s = 0.0;
+    float ea = 0.0f;
+    for (int t = tid; t < chunk; t += nt) {
+      const bool vis = sc[t] != -INFINITY;
+      const float e = expf(sc[t] - m_new);
+      s += e;
       if constexpr (kInt8) {
-        se = fmaxf(block_max(ea, red), 1e-30f) / 127.0f;
-        for (int t = tid; t < chunk; t += nt) sc[t] = to_code(sc[t] / se);
-        __syncthreads();
+        const float ew = vis ? e * vsb[base + t] : 0.0f;
+        ea = fmaxf(ea, fabsf(ew));
+        sc[t] = ew;
+      } else {
+        sc[t] = round_bf16(e);
       }
-      pv(base, chunk);
-      if (tid < hd) {
-        const float p = pv_sum(tid);
-        ctx = ctx * alpha + (kInt8 ? p * se : p);
-      }
-      m = m_new;
-      __syncthreads();  // sc and part are rewritten by the next chunk
     }
-    __syncthreads();  // self_sh
-    const float self_s = self_sh;
-    const float m_f = fmaxf(m, self_s);
-    const float alpha = expf(m - m_f);
-    const float e_self = expf(self_s - m_f);
-    den = den * alpha + e_self;
-    if (tid < hd) out[tid] = (ctx * alpha + e_self * vf[tid]) / den;
-    return;
+    s = block_sum_d(s, red_d);
+    den = den * alpha + static_cast<float>(s);
+    float se = 1.0f;
+    if constexpr (kInt8) {
+      se = fmaxf(block_max(ea, red), 1e-30f) / 127.0f;
+      for (int t = tid; t < chunk; t += nt) sc[t] = to_code(sc[t] / se);
+      __syncthreads();
+    }
+    pv(base, chunk);
+    if (tid < hd) {
+      const float p = pv_sum(tid);
+      ctx = ctx * alpha + (kInt8 ? p * se : p);
+    }
+    m = m_new;
+    __syncthreads();  // sc and part are rewritten by the next chunk
   }
-
-  // Mode (e), the whole span at once (chunk == 0; kInt8 only).
-  const int lo = ring ? 0 : (window >= 0 ? max(0, off + j - window) : 0);
-  const int n = ring ? S : max(min(off, S) - lo, 0);
-  for (int t = tid; t < n; t += nt)
-    sc[t] = visible(lo + t) ? score(lo + t) : -INFINITY;
-  auto fresh = [&](int i) { return window < 0 || j - i <= window; };
-  // Fresh rows i < j, one warp each: k_i RoPE'd with row i's vectors,
-  // through bf16 and the per-vector quantization; the score is
-  // float(qq . kq_i) * sq * ks_i.  v_i's scale is kept for the weights.
-  constexpr int kPer = kMaxHeadDim / 32;
-  for (int i = warp; i < j; i += nw) {
-    const int ri = r - j + i;
-    const float* rowi = qkv + static_cast<size_t>(ri) * ld;
-    const float* ki = rowi + nq + static_cast<size_t>(jh) * hd;
-    const float* vi = rowi + nq + nkv + static_cast<size_t>(jh) * hd;
-    const float* ci = cosv + static_cast<size_t>(ri) * rope_stride;
-    const float* si = sinv + static_cast<size_t>(ri) * rope_stride;
-    float kb[kPer];
-    float ka = 0.0f, va = 0.0f;
-#pragma unroll
-    for (int c = 0; c < kPer; ++c) {
-      const int d = lane + 32 * c;
-      kb[c] = 0.0f;
-      if (d < hd) {
-        kb[c] = round_bf16(ki[d] * ci[d] + ki[d ^ 1] * si[d]);
-        ka = fmaxf(ka, fabsf(kb[c]));
-        va = fmaxf(va, fabsf(round_bf16(vi[d])));
-      }
-    }
-    const float ksf = fmaxf(warp_max(ka), 1e-8f) / 127.0f;
-    const float vsf = fmaxf(warp_max(va), 1e-8f) / 127.0f;
-    int dot = 0;
-#pragma unroll
-    for (int c = 0; c < kPer; ++c) {
-      const int d = lane + 32 * c;
-      if (d < hd)
-        dot += static_cast<int>(to_code(kb[c] / ksf)) *
-               static_cast<int>(qq[d]);
-    }
-    dot = warp_sum_i(dot);
-    if (lane == 0) {
-      fs[i] = fresh(i) ? (static_cast<float>(dot) * sq) * ksf : -INFINITY;
-      fvs[i] = vsf;
-    }
-  }
-  __syncthreads();
-  // Softmax: f32 max over cache, self and fresh scores; f64 sum of the
-  // cache weights, then the fresh weights and the self weight in f32;
-  // the weights times their v scales requantized in one group.
+  __syncthreads();  // self_sh
   const float self_s = self_sh;
-  float m = self_s;
-  for (int t = tid; t < n; t += nt) m = fmaxf(m, sc[t]);
-  for (int i = tid; i < j; i += nt) m = fmaxf(m, fs[i]);
-  m = block_max(m, red);
-  double s = 0.0;
-  float ea = 0.0f;
-  for (int t = tid; t < n; t += nt) {
-    const bool vis = sc[t] != -INFINITY;
-    const float e = expf(sc[t] - m);
-    s += e;
-    const float ew = vis ? e * vsb[lo + t] : 0.0f;
-    ea = fmaxf(ea, fabsf(ew));
-    sc[t] = ew;
+  const float m_f = fmaxf(m, self_s);
+  const float alpha = expf(m - m_f);
+  const float e_self = expf(self_s - m_f);
+  den = den * alpha + e_self;
+  if (tid < hd) out[tid] = (ctx * alpha + e_self * vf[tid]) / den;
+}
+
+// What one layer's attention launch needs (K1 per layer, K4 per call).
+// B = streams x spec rows; chunk > 0: mode (f).  The rest as AttnArgs.
+struct AttnLaunch {
+  const float* qkv;
+  const float* cosv;
+  const float* sinv;
+  int rope_stride;
+  const int* offs;
+  int off0, B, spec;
+  const void* kc;
+  const void* vc;
+  const float* ks;
+  const float* vs;
+  __nv_bfloat16* kn;
+  __nv_bfloat16* vn;
+  float* attn;
+  int S, window, ring_head, ring_size, chunk, n_heads, n_kv, hd;
+  float scale;
+};
+
+// The most slots one row can see at once: the chunk in mode (f), the
+// window on a bounded cache, else all S.
+inline int attn_span(int S, int window, int ring_size, int chunk) {
+  if (chunk > 0) return chunk;
+  return (ring_size == 0 && window >= 0 && window < S) ? window : S;
+}
+
+// Shared memory of attn_chunk_kernel's block: the per-warp P.V partials,
+// q, its bf16 rounding or codes, k, v, 2 spec floats and the chunk's
+// scores.
+inline size_t chunk_smem_bytes(int hd, int spec, int chunk) {
+  return sizeof(double) * (kAttnThreads / 32) * hd +
+         sizeof(float) * (4 * static_cast<size_t>(hd) + 2 * spec + chunk);
+}
+
+// One step's attention launch, sized before its first layer: the
+// kernel of the geometry, its plan (the cluster walk) or shared memory
+// (mode (f)), with the kernel's attributes already set.  K1 prepares once
+// a step and launches it on every layer.
+struct AttnPrep {
+  void (*cluster)(const AttnArgs);
+  decltype(&attn_chunk_kernel<true>) chunk;
+  AttnPlan pl;
+  size_t smem;
+};
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// Sizes the attention of a geometry and sets its kernel's attributes;
+// cudaErrorInvalidValue when the geometry does not fit a block.
+inline cudaError_t prepare_attention(int B, int spec, int n_heads, int n_kv,
+                                     int hd, int S, int window, int ring_size,
+                                     int chunk, bool kv8, AttnPrep* out) {
+  *out = AttnPrep{};
+  if (chunk > 0) {
+    out->smem = chunk_smem_bytes(hd, spec, chunk);
+    if (out->smem > kSmemMax) return cudaErrorInvalidValue;
+    out->chunk = kv8 ? attn_chunk_kernel<true> : attn_chunk_kernel<false>;
+    return set_smem(out->chunk, out->smem);
   }
-  s = block_sum_d(s, red_d);  // its barriers order the fs reads above
-  for (int i = tid; i < j; i += nt) fs[i] = expf(fs[i] - m);  // e_i
-  ea = block_max(ea, red);    // and its barriers the fs writes
-  const float e_self = expf(self_s - m);
-  float den = static_cast<float>(s);
-  for (int i = 0; i < j; ++i) {
-    if (!fresh(i)) continue;
-    den = den + fs[i];
-    ea = fmaxf(ea, fabsf(fs[i] * fvs[i]));
+  out->pl = attn_plan(B / spec, n_heads, n_kv, spec, hd,
+                      attn_span(S, window, ring_size, 0), kv8);
+  if (out->pl.cluster == 0) return cudaErrorInvalidValue;
+  out->smem = out->pl.smem;
+  // Query-vector tiles of 8 (the accumulators a lane keeps): 1, 2 or 4.
+  const int n_mt = ceil_div(out->pl.rv, 8);
+  auto pick = [&](auto mt) {
+    constexpr int kMt = decltype(mt)::value;
+    return kv8 ? attn_cluster_kernel<true, kMt>
+               : attn_cluster_kernel<false, kMt>;
+  };
+  out->cluster = n_mt == 1   ? pick(std::integral_constant<int, 1>())
+                 : n_mt == 2 ? pick(std::integral_constant<int, 2>())
+                             : pick(std::integral_constant<int, 4>());
+  cudaError_t e = set_smem(out->cluster, out->smem);
+  if (e == cudaSuccess && out->pl.cluster > 8)
+    e = cudaFuncSetAttribute(out->cluster,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+// One layer's attention on the current stream, as ``pr`` prepared it:
+// the chunked walk, one block per (row, query head), or the cluster walk,
+// one launch either way.
+inline cudaError_t launch_attention(const AttnLaunch& p, const AttnPrep& pr,
+                                    cudaStream_t st) {
+  if (pr.chunk != nullptr) {
+    pr.chunk<<<dim3(p.n_heads, p.B), kAttnThreads, pr.smem, st>>>(
+        p.qkv, p.cosv, p.sinv, p.rope_stride, p.offs, p.off0, p.B / p.spec,
+        p.spec, p.kc, p.vc, p.ks, p.vs, p.kn, p.vn, p.attn, p.S, p.window,
+        p.ring_head, p.ring_size, p.chunk, p.n_heads, p.n_kv, p.hd, p.scale);
+    return cudaGetLastError();
   }
-  den = den + e_self;
-  const float se = fmaxf(ea, 1e-30f) / 127.0f;
-  for (int t = tid; t < n; t += nt) sc[t] = to_code(sc[t] / se);
-  __syncthreads();
-  pv(lo, n);
-  for (int d = tid; d < hd; d += nt) {
-    float ctx = pv_sum(d) * se;
-    for (int i = 0; i < j; ++i) {
-      if (!fresh(i)) continue;
-      const float vi = round_bf16(
-          qkv[static_cast<size_t>(r - j + i) * ld + nq + nkv +
-              static_cast<size_t>(jh) * hd + d]);
-      const float eqi = to_code((fs[i] * fvs[i]) / se);
-      ctx = ctx + (eqi * to_code(vi / fvs[i])) * se;
-    }
-    ctx = ctx + e_self * vf[d];
-    out[d] = ctx / den;
-  }
+  const AttnPlan& pl = pr.pl;
+  const AttnArgs a{p.qkv,  p.cosv,   p.sinv,      p.rope_stride, p.offs,
+                   p.off0, p.spec,   p.kc,        p.vc,          p.ks,
+                   p.vs,   p.kn,     p.vn,        p.attn,        p.S,
+                   p.window, p.ring_head, p.ring_size, p.n_heads, p.n_kv,
+                   p.hd,   p.scale,  pl.rv,       pl.n_vg,       pl.piece};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(pl.cluster, p.B / p.spec * p.n_kv * pl.n_vg, 1);
+  cfg.blockDim = dim3(kAttnThreads, 1, 1);
+  cfg.dynamicSmemBytes = pr.smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = pl.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, pr.cluster, a);
 }
 
 }  // namespace

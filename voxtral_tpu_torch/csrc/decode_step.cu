@@ -17,12 +17,12 @@
 //       [0, head) hold positions [0, head) for good, ring slot r holds
 //       the largest position head + r + size * c below the offset
 //       (build_valid's ring branch, :1020-1042; spec rows :813-829).
-//       The block walks all S slots in slot order, computes each slot's
+//       The attention walks the written slots only ([0, min(off, head))
+//       and [head, head + min(size, off - head))), computes each slot's
 //       (absolute position, written) exactly as build_valid and as the
-//       plain version does, and scores / loads only the visible ones
-//       (written, and within the window of the row's absolute query
-//       position); the score buffer holds S floats.  Combines with every
-//       other mode: the mask reads offs[b] per stream.
+//       plain version does, and masks each by the window of the row's
+//       absolute query position.  Combines with every other mode: the
+//       mask reads offs[b] per stream.
 //   (h) g32 (q4g) weights: int8 codes (Q4_0 nibble - 8) with f16 group
 //       scales [N, K/32] in place of the w8 row scales, for the four
 //       stacks and the lm fold (_g32_mask_codes / _g32_matmul_tile,
@@ -36,7 +36,8 @@
 //       q is quantized per query head, the scores are integer dots
 //       (__dp4a) times sq * ks[t], the softmax weights times vs[t] are
 //       requantized in one group per row (cache slots and fresh rows
-//       together) and P.V is an integer dot again: attn_kv_kernel<true>.
+//       together) and P.V is an integer dot again:
+//       attn_cluster_kernel<true>.
 //   (g) bf16 weights (wfmt 2; wq8=False, :558, :667-677, :742-752, the
 //       lm fold :1274-1281): the dense {"nt": w} leaves of
 //       fuse_decode_weights_bf16, [L, N, K] bf16, streamed as they are
@@ -54,7 +55,7 @@
 //       the running max and the int8 requant group is per chunk, so the
 //       carry is sequential: one block per (row, head) walks its chunks.
 //       The score buffer holds Sc floats, not S, so shared memory no
-//       longer bounds S.  attn_kv_kernel<false / true>.
+//       longer bounds S.  attn_chunk_kernel<false / true>.
 //       Bytes: what bounds (e) and (f) are the visible slots' int8 codes
 //       (half the bf16 cache) and their scale planes.
 //   (i) lm_argmax (w8, g32 and bf16 tables; :1271-1300, :1479, :1605):
@@ -74,10 +75,13 @@
 //
 //   row_quant(norm)      rmsnorm x attn_norm, per-row int8 quant
 //   gemv qkv             W8A8 or g32 GEMV (w8_common.cuh)
-//   attn_step            pair RoPE, GQA attention over the bf16 cache
-//                        slots [max(0, off + j - window), off), the fresh
-//                        rows i < j of the stream and the row itself, one
-//                        block per (row, query head); k_new / v_new
+//   attention            pair RoPE, GQA attention over the cache slots
+//                        [max(0, off + j - window), off), the fresh rows
+//                        i < j of the stream and the row itself: one
+//                        thread-block cluster per (stream, kv head) that
+//                        splits the slots over its blocks and serves every
+//                        query head and draft row of the stream
+//                        (attn_step.cuh); k_new / v_new
 //   row_quant(plain)     int8 quant of the attention output
 //   gemv wo (+ x)        residual fused into the epilogue
 //   row_quant(norm, ada) rmsnorm x ffn_norm x ADA vector, int8 quant
@@ -171,6 +175,12 @@ extern "C" int vx_decode_stack_step(
   if ((kv8 && (v_scales == nullptr || hd % 4)) ||
       (chunk != 0 && (chunk < 0 || S % chunk || spec != 1)))
     return static_cast<int>(cudaErrorInvalidValue);
+  // The attention's plan and kernel attributes, once for all layers.
+  AttnPrep prep;
+  const cudaError_t pe = prepare_attention(B, spec, n_heads, n_kv, hd, S,
+                                           window, ring_size, chunk, kv8,
+                                           &prep);
+  if (pe != cudaSuccess) return static_cast<int>(pe);
   if (lm_argmax &&
       (lm_codes == nullptr || token == nullptr ||
        tmax_buf == nullptr || tidx_buf == nullptr))
@@ -185,31 +195,6 @@ extern "C" int vx_decode_stack_step(
         (rest > 0) != (wqkv_c != nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  // attn_step_kernel for the bf16 cache at once; attn_kv_kernel for an
-  // int8 cache and / or a chunked walk (it holds spec more floats).
-  const bool kv_kernel = kv8 || chunk > 0;
-  const int span = chunk > 0 ? chunk
-                   : (!ring && window >= 0 && window < S) ? window : S;
-  const size_t smem =
-      sizeof(double) * (kAttnThreads / 32) * hd +
-      sizeof(float) *
-          (4 * static_cast<size_t>(hd) + (kv_kernel ? 2 : 1) * spec + span);
-  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    cudaError_t e =
-        !kv_kernel
-            ? cudaFuncSetAttribute(attn_step_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(smem))
-        : kv8 ? cudaFuncSetAttribute(attn_kv_kernel<true>,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     static_cast<int>(smem))
-              : cudaFuncSetAttribute(attn_kv_kernel<false>,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-
   float* X = static_cast<float*>(xo);
   int8_t* xq = static_cast<int8_t*>(xq_buf);
   // Mode (g): the rows go to the GEMVs as bf16, in the same scratch.
@@ -265,8 +250,6 @@ extern "C" int vx_decode_stack_step(
              static_cast<size_t>(l) * N * (K / 32);
     return static_cast<const float*>(base) + static_cast<size_t>(l) * N;
   };
-  const __nv_bfloat16* KC = static_cast<const __nv_bfloat16*>(kc);
-  const __nv_bfloat16* VC = static_cast<const __nv_bfloat16*>(vc);
   __nv_bfloat16* KN = static_cast<__nv_bfloat16*>(kn);
   __nv_bfloat16* VN = static_cast<__nv_bfloat16*>(vn);
 
@@ -282,32 +265,25 @@ extern "C" int vx_decode_stack_step(
     else
       gemv(wlayer(wqkv, l, nqkv, D), layer_scales(sqkv, l, nqkv, D), nullptr,
            qkv, nqkv, D);
-    const float* cs = static_cast<const float*>(cosv);
-    const float* sn = static_cast<const float*>(sinv);
-    const int* of = static_cast<const int*>(offs);
-    const dim3 grid(n_heads, B);
-    if (!kv_kernel) {
-      attn_step_kernel<<<grid, kAttnThreads, smem, st>>>(
-          qkv, cs, sn, rope_stride, of, off0, spec, KC + l * cache_layer,
-          VC + l * cache_layer, KN + l * new_layer, VN + l * new_layer, att, S,
-          window, ring_head, ring_size, n_heads, n_kv, hd, scale);
-    } else if (kv8) {
-      const size_t scale_layer = static_cast<size_t>(Bc) * n_kv * S;
-      attn_kv_kernel<true><<<grid, kAttnThreads, smem, st>>>(
-          qkv, cs, sn, rope_stride, of, off0, Bc, spec,
-          static_cast<const int8_t*>(kc) + l * cache_layer,
-          static_cast<const int8_t*>(vc) + l * cache_layer,
-          static_cast<const float*>(k_scales) + l * scale_layer,
-          static_cast<const float*>(v_scales) + l * scale_layer,
-          KN + l * new_layer, VN + l * new_layer, att, S, window, ring_head,
-          ring_size, chunk, n_heads, n_kv, hd, scale);
-    } else {
-      attn_kv_kernel<false><<<grid, kAttnThreads, smem, st>>>(
-          qkv, cs, sn, rope_stride, of, off0, Bc, spec, KC + l * cache_layer,
-          VC + l * cache_layer, nullptr, nullptr, KN + l * new_layer,
-          VN + l * new_layer, att, S, window, ring_head, ring_size, chunk,
-          n_heads, n_kv, hd, scale);
-    }
+    const size_t scale_layer = static_cast<size_t>(Bc) * n_kv * S;
+    const int esize = kv8 ? 1 : 2;  // bytes per cached value
+    const size_t cache_off = static_cast<size_t>(esize) * l * cache_layer;
+    AttnLaunch at{qkv,
+                  static_cast<const float*>(cosv),
+                  static_cast<const float*>(sinv),
+                  rope_stride,
+                  static_cast<const int*>(offs),
+                  off0, B, spec,
+                  static_cast<const char*>(kc) + cache_off,
+                  static_cast<const char*>(vc) + cache_off,
+                  kv8 ? static_cast<const float*>(k_scales) + l * scale_layer
+                      : nullptr,
+                  kv8 ? static_cast<const float*>(v_scales) + l * scale_layer
+                      : nullptr,
+                  KN + l * new_layer, VN + l * new_layer, att, S, window,
+                  ring_head, ring_size, chunk, n_heads, n_kv, hd, scale};
+    const cudaError_t ae = launch_attention(at, prep, st);
+    if (ae != cudaSuccess) return static_cast<int>(ae);
     row_quant(att, nq, nq, nullptr, nullptr, eps, kQuantPlain, B, xq, sx, xb,
               st);
     if (bf16)
@@ -344,4 +320,60 @@ extern "C" int vx_decode_stack_step(
       gemv(lm_codes, lm_scale, nullptr, static_cast<float*>(logits), V, D);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The attention of one layer alone, as K1 launches it per layer (a
+// comparison entry: the card tests and chip_smoke.py's yardstick against
+// scaled_dot_product_attention time and check the block without the
+// GEMVs around it).  qkv [B, nq + 2 nkv] f32 un-roped; the other
+// arguments as vx_decode_stack_step's, the caches and scales one layer's.
+extern "C" int vx_attn_block(const void* qkv, const void* cosv,
+                             const void* sinv, const void* kc, const void* vc,
+                             const void* k_scales, const void* v_scales,
+                             void* kn, void* vn, void* attn, const void* offs,
+                             int B, int S, int n_heads, int n_kv, int hd,
+                             int off0, int spec, int rope_stride, int window,
+                             int ring_head, int ring_size, int chunk,
+                             float scale, void* stream) {
+  using namespace vx;
+  const bool kv8 = k_scales != nullptr;
+  if (hd > kMaxHeadDim || hd % 2 || n_kv <= 0 || n_heads % n_kv || spec < 1 ||
+      B % spec || (kv8 && (v_scales == nullptr || hd % 4)) ||
+      (ring_size > 0 && (ring_head < 0 || ring_head + ring_size > S)) ||
+      (chunk != 0 && (chunk < 0 || S % chunk || spec != 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  AttnPrep prep;
+  const cudaError_t pe = prepare_attention(B, spec, n_heads, n_kv, hd, S,
+                                           window, ring_size, chunk, kv8,
+                                           &prep);
+  if (pe != cudaSuccess) return static_cast<int>(pe);
+  const AttnLaunch at{static_cast<const float*>(qkv),
+                      static_cast<const float*>(cosv),
+                      static_cast<const float*>(sinv), rope_stride,
+                      static_cast<const int*>(offs), off0, B, spec, kc, vc,
+                      static_cast<const float*>(k_scales),
+                      static_cast<const float*>(v_scales),
+                      static_cast<__nv_bfloat16*>(kn),
+                      static_cast<__nv_bfloat16*>(vn),
+                      static_cast<float*>(attn), S, window, ring_head,
+                      ring_size, chunk, n_heads, n_kv, hd, scale};
+  const cudaError_t e =
+      launch_attention(at, prep, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The cluster walk's launch shape for a geometry (attn_step.cuh::
+// attn_plan): out = {cluster, vectors per cluster, clusters per (stream,
+// kv head), score slots per block, shared memory bytes}.
+extern "C" int vx_attn_plan(int streams, int n_heads, int n_kv, int spec,
+                            int hd, int span, int int8, long long* out) {
+  const vx::AttnPlan p =
+      vx::attn_plan(streams, n_heads, n_kv, spec, hd, span, int8 != 0);
+  out[0] = p.cluster;
+  out[1] = p.rv;
+  out[2] = p.n_vg;
+  out[3] = p.piece;
+  out[4] = static_cast<long long>(p.smem);
+  return 0;
 }

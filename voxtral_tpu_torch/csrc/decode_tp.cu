@@ -11,9 +11,10 @@
 //      n_kv / tp kv heads):
 //        row_quant(norm)    rmsnorm x attn_norm, per-row int8 quant
 //        gemv qkv_l         the shard's q / k / v rows of layer ``layer``
-//        attn_step          pair RoPE, GQA attention over the shard's
-//                           local cache [Bc, n_kv_l, S, hd] (K1's blocks,
-//                           attn_step.cuh: offsets, window, spec rows;
+//        attention          pair RoPE, GQA attention over the shard's
+//                           local cache [Bc, n_kv_l, S, hd] (K1's launch,
+//                           attn_step.cuh: one cluster per (stream, local
+//                           kv head), offsets, window, spec rows;
 //                           the head+ring mask, ring=; int8 codes with
 //                           f32 scales [Bc, n_kv_l, S], cache_q; the
 //                           chunked walk, cache_chunk: _make_attn_half
@@ -115,9 +116,10 @@ bool g32_ok(int wfmt, std::initializer_list<int> widths,
 // ring_size > 0: mode (d), a head+ring cache of ring_head + ring_size <=
 // S slots, the offsets absolute positions.  chunk > 0: mode (f), the
 // attention walks the cache in chunks of ``chunk`` slots (chunk divides
-// S; spec must be 1).  The blocks and their shared memory are K1's
-// (decode_step.cu).  Scratch: xq [B, max(D, nq)] int8, sx [B], qkv
-// [B, nq + 2 nkv], attn [B, nq] f32.  window < 0: no lower bound.
+// S; spec must be 1).  The attention launch is K1's (attn_step.cuh::
+// prepare_attention / launch_attention).  Scratch: xq [B, max(D, nq)]
+// int8, sx [B], qkv [B, nq + 2 nkv], attn [B, nq] f32.  window < 0: no
+// lower bound.
 extern "C" int vx_attn_half_step(
     const void* x, void* yo, int layer, const void* attn_norm,
     const void* sqkv, const void* so, const void* cosv, const void* sinv,
@@ -139,30 +141,11 @@ extern "C" int vx_attn_half_step(
       (kv8 && (v_scales == nullptr || hd % 4)) ||
       (chunk != 0 && (chunk < 0 || S % chunk || spec != 1)))
     return static_cast<int>(cudaErrorInvalidValue);
-  // attn_step_kernel for the bf16 cache at once; attn_kv_kernel for an
-  // int8 cache and / or a chunked walk (it holds spec more floats).
-  const bool kv_kernel = kv8 || chunk > 0;
-  const int span = chunk > 0 ? chunk
-                   : (!ring && window >= 0 && window < S) ? window : S;
-  const size_t smem =
-      sizeof(double) * (kAttnThreads / 32) * hd +
-      sizeof(float) *
-          (4 * static_cast<size_t>(hd) + (kv_kernel ? 2 : 1) * spec + span);
-  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        !kv_kernel
-            ? cudaFuncSetAttribute(attn_step_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(smem))
-        : kv8 ? cudaFuncSetAttribute(attn_kv_kernel<true>,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     static_cast<int>(smem))
-              : cudaFuncSetAttribute(attn_kv_kernel<false>,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  AttnPrep prep;
+  const cudaError_t pe = prepare_attention(B, spec, n_heads, n_kv, hd, S,
+                                           window, ring_size, chunk, kv8,
+                                           &prep);
+  if (pe != cudaSuccess) return static_cast<int>(pe);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nq = n_heads * hd, nkv = n_kv * hd, nqkv = nq + 2 * nkv;
   int8_t* xq = static_cast<int8_t*>(xq_buf);
@@ -176,30 +159,16 @@ extern "C" int vx_attn_half_step(
             static_cast<const int8_t*>(wqkv) +
                 static_cast<size_t>(layer) * nqkv * D,
             sqkv, qkv, B, nqkv, D, st);
-  const float* cs = static_cast<const float*>(cosv);
-  const float* sn = static_cast<const float*>(sinv);
-  const int* of = static_cast<const int*>(offs);
-  __nv_bfloat16* KN = static_cast<__nv_bfloat16*>(kn);
-  __nv_bfloat16* VN = static_cast<__nv_bfloat16*>(vn);
-  const dim3 grid(n_heads, B);
-  if (!kv_kernel) {
-    attn_step_kernel<<<grid, kAttnThreads, smem, st>>>(
-        qkv, cs, sn, rope_stride, of, off0, spec,
-        static_cast<const __nv_bfloat16*>(kc),
-        static_cast<const __nv_bfloat16*>(vc), KN, VN, att, S, window,
-        ring_head, ring_size, n_heads, n_kv, hd, scale);
-  } else if (kv8) {
-    attn_kv_kernel<true><<<grid, kAttnThreads, smem, st>>>(
-        qkv, cs, sn, rope_stride, of, off0, B / spec, spec, kc, vc,
-        static_cast<const float*>(k_scales),
-        static_cast<const float*>(v_scales), KN, VN, att, S, window,
-        ring_head, ring_size, chunk, n_heads, n_kv, hd, scale);
-  } else {
-    attn_kv_kernel<false><<<grid, kAttnThreads, smem, st>>>(
-        qkv, cs, sn, rope_stride, of, off0, B / spec, spec, kc, vc, nullptr,
-        nullptr, KN, VN, att, S, window, ring_head, ring_size, chunk, n_heads,
-        n_kv, hd, scale);
-  }
+  const AttnLaunch at{qkv, static_cast<const float*>(cosv),
+                      static_cast<const float*>(sinv), rope_stride,
+                      static_cast<const int*>(offs), off0, B, spec, kc, vc,
+                      static_cast<const float*>(k_scales),
+                      static_cast<const float*>(v_scales),
+                      static_cast<__nv_bfloat16*>(kn),
+                      static_cast<__nv_bfloat16*>(vn), att, S, window,
+                      ring_head, ring_size, chunk, n_heads, n_kv, hd, scale};
+  const cudaError_t ae = launch_attention(at, prep, st);
+  if (ae != cudaSuccess) return static_cast<int>(ae);
   row_quant(att, nq, nq, nullptr, nullptr, eps, kQuantPlain, B, xq, sx,
             nullptr, st);
   half_gemv(wfmt, xq, sx,

@@ -1,5 +1,5 @@
-// W8A8 product device code shared by K2 (w8_matmul.cu) and K1
-// (decode_step.cu):
+// W8A8 product device code shared by K2 (w8_matmul.cu), K1
+// (decode_step.cu), K4 / K5 (decode_tp.cu) and K7 (decode_layer.cu):
 //
 //   out[m, n] = (float(sum_k xq[m, k] * codes[n, k]) * sx[m]) * scale[n]
 //               (+ resid[m, n])
@@ -11,7 +11,9 @@
 // reference (ops/w8.py, w8_pallas.py::_w8_kernel), so kernel and plain
 // versions agree to the last bit.
 //
-// Three paths:
+// The GEMVs (K2 takes them up to 16 rows and where its tensor-core GEMM
+// cannot take the shape, w8_matmul.cu; the decode steps for every row
+// count they run):
 //  * GEMV, M <= 8 (decode): one warp per output row n, 16-byte loads of
 //    the weight row, __dp4a (four int8 products per instruction); bound
 //    by the bytes of weights streamed from HBM.
@@ -22,8 +24,8 @@
 //    would do 64 integer products per weight byte on the CUDA cores
 //    (~3.7 ms of dp4a instructions per 3.4 GB decode step); the tensor cores
 //    keep it a weight stream.
-//  * GEMM (M > 64: encoder, adapter): 64 x 64 output tiles, 64-byte K
-//    steps through shared memory, 4 x 4 dp4a outputs per thread.
+//  * Above 64 rows (or unaligned rows): the dp4a GEMV in groups of 8
+//    rows, one weight pass per group.
 //
 // K1 mode (h) (q4g weights) runs the same GEMVs on group-32 codes: codes
 // [N, K] int8 (the Q4_0 nibble - 8), f16 group scales [N, K/32], and
@@ -34,7 +36,7 @@
 // groups in f64 (each z_g * s exact), rounded once: the order of the JAX
 // kernel's _g32_matmul_tile (the group sum, then * sx).  Needs K % 32 == 0
 // and 16-byte aligned rows.
-// Everything here has internal linkage, so both translation units may
+// Everything here has internal linkage, so every translation unit may
 // include it.
 #pragma once
 
@@ -49,7 +51,6 @@ constexpr int kGemvWarps = 8;   // output rows per 256-thread GEMV block
 constexpr int kDp4aMaxM = 8;    // activation rows of the dp4a GEMV
 constexpr int kGemvMaxM = 64;   // activation rows served by one weight pass
 constexpr int kMmaWarps = 4;    // n8 tiles per 128-thread mma GEMV block
-constexpr int kTile = 64;       // GEMM tile (rows, cols, K bytes)
 
 __device__ __forceinline__ int warp_sum_int(int v) {
 #pragma unroll
@@ -197,90 +198,6 @@ __global__ void __launch_bounds__(32 * kMmaWarps) w8_gemv_mma_kernel(
         out[o] = y;
       }
     }
-}
-
-// 16 bytes of row r starting at byte k, packed into 4 words (zeros past
-// the matrix edge), written to shared memory.
-__device__ __forceinline__ void load_chunk16(const int8_t* __restrict__ src,
-                                             int rows, int K, int r, int k,
-                                             bool vec, int* dst) {
-  if (vec && r < rows && k < K) {  // vec: K % 16 == 0, chunk fully inside
-    const int4 v =
-        __ldg(reinterpret_cast<const int4*>(src + static_cast<size_t>(r) * K + k));
-    dst[0] = v.x;
-    dst[1] = v.y;
-    dst[2] = v.z;
-    dst[3] = v.w;
-    return;
-  }
-#pragma unroll
-  for (int w = 0; w < 4; ++w) {
-    uint32_t packed = 0u;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int kk = k + 4 * w + b;
-      const uint32_t byte =
-          (r < rows && kk < K)
-              ? static_cast<uint32_t>(static_cast<uint8_t>(
-                    src[static_cast<size_t>(r) * K + kk]))
-              : 0u;
-      packed |= byte << (8 * b);
-    }
-    dst[w] = static_cast<int>(packed);
-  }
-}
-
-__global__ void __launch_bounds__(256) w8_gemm_kernel(
-    const int8_t* __restrict__ xq, const float* __restrict__ sx,
-    const int8_t* __restrict__ codes, const float* __restrict__ scale,
-    const float* resid, float* out, int M, int N, int K, bool vec) {
-  // Rows of 16 words (64 bytes) padded to 17 so the column reads of the
-  // inner loop fall on distinct banks.
-  __shared__ int As[kTile][17];
-  __shared__ int Bs[kTile][17];
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  const int lr = tid >> 2, lw = (tid & 3) * 4;  // loader row, word offset
-  int acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += kTile) {
-    load_chunk16(xq, M, K, m0 + lr, k0 + lw * 4, vec, &As[lr][lw]);
-    load_chunk16(codes, N, K, n0 + lr, k0 + lw * 4, vec, &Bs[lr][lw]);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < 16; ++kk) {
-      int a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[ty + 16 * i][kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[tx + 16 * j][kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-    const float s = sx[m];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= N) continue;
-      float y = w8_epilogue(acc[i][j], s, scale[n]);
-      const size_t o = static_cast<size_t>(m) * N + n;
-      if (resid != nullptr) y = resid[o] + y;
-      out[o] = y;
-    }
-  }
 }
 
 inline bool aligned16(const void* p) {
@@ -547,26 +464,6 @@ inline void launch_g32_gemv(const int8_t* xq, const float* sx,
         break;
     }
   }
-}
-
-inline void launch_w8_gemm(const int8_t* xq, const float* sx,
-                           const int8_t* codes, const float* scale,
-                           const float* resid, float* out, int M, int N,
-                           int K, cudaStream_t st) {
-  const bool vec = (K % 16 == 0) && aligned16(xq) && aligned16(codes);
-  const dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
-  w8_gemm_kernel<<<grid, 256, 0, st>>>(xq, sx, codes, scale, resid, out, M,
-                                       N, K, vec);
-}
-
-inline void launch_w8_matmul(const int8_t* xq, const float* sx,
-                             const int8_t* codes, const float* scale,
-                             const float* resid, float* out, int M, int N,
-                             int K, cudaStream_t st) {
-  if (M <= kGemvMaxM)
-    launch_w8_gemv(xq, sx, codes, scale, resid, out, M, N, K, st);
-  else
-    launch_w8_gemm(xq, sx, codes, scale, resid, out, M, N, K, st);
 }
 
 }  // namespace

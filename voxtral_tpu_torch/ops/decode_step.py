@@ -43,14 +43,20 @@ the fold of mode (i): ``csrc/lm_argmax.cuh``).
 What bounds it on the H100: the int8 weights streamed once per step —
 26 layers of wqkv / wo / w13 / w2 plus the 131072 x 3072 lm table, about
 3.4 GB at full width (3.64 GB with g32 scales, 6.86 GB of bf16 in mode
-(g)), shared by every row of the step (up to 64 rows per weight pass).  The simple design: a fixed sequence of kernels on
+(g)), shared by every row of the step (up to 64 rows per weight pass).  The design: a fixed sequence of kernels on
 the current stream (row norm + int8 quant, W8A8 GEMV with 16-byte loads
-— ``__dp4a`` up to 8 rows, int8 tensor-core ``mma`` up to 64 — one RoPE
-+ GQA attention block per (row, query head), residual adds fused into
-the GEMV epilogue) — 9 launches per layer + 2, no cross-block carry.
-The attention blocks read the offsets on the device, so a step launches
-without a host sync.  One call of the wrapper is one step and counts as
-one launch in ``decode_stack_step.launches``.
+— ``__dp4a`` up to 8 rows, int8 tensor-core ``mma`` up to 64 — the RoPE
++ GQA attention, residual adds fused into the GEMV epilogue) — 9
+launches per layer + 2, no cross-block carry.  The attention of modes
+(a)-(e) is one thread-block cluster per (stream, kv head): its blocks
+split the visible slots, serve every query head and draft row of the
+stream (one read of each K/V row), and merge max, denominators and P.V
+through distributed shared memory (``csrc/attn_step.cuh``,
+:func:`attention_split_plain` states its arithmetic); mode (f) keeps a
+block per (row, query head) walking its chunks in order.  The blocks
+read the offsets on the device, so a step launches without a host
+sync.  One call of the wrapper is one step and counts as one launch in
+``decode_stack_step.launches``.
 
 With a full window the attention reads as many bytes as the weights at
 four streams (0.87 GB of bf16 cache per stream and step); mode (e)
@@ -529,6 +535,137 @@ def _attention_plain(q, k, v, k_cache, v_cache, offs, window, spec, n_kv,
     return torch.stack(rows, dim=1).reshape(B, n_heads * hd)
 
 
+def attention_split_plain(q, k, v, k_cache, v_cache, offs, window, spec,
+                          n_kv, scale, cluster: int, ring=None,
+                          k_scales=None, v_scales=None):
+    """What the cluster walk of K1 / K4 computes (``csrc/attn_step.cuh``
+    ``attn_cluster_kernel``), written plainly: the arguments of
+    :func:`_attention_plain` (no chunked walk), and ``cluster`` = C.
+
+    For each stream b and kv head, over all G x spec query vectors at
+    once: the slots some row can see ([max(0, off - window), min(off,
+    S)) bounded; the written head and ring slots on a head+ring cache)
+    cut into C contiguous pieces of ceil(n / C) slots (pieces past the
+    end empty); per piece the masked scores, their max (piece 0 also the
+    self and fresh scores), and after the global max the f64 sum of
+    expf(s - m) and the P.V partial (bf16 weights x bf16 v in f64, or,
+    int8, the weights x v scales requantized with the group's se from
+    the pieces' absmax and the fresh rows', int8 x int8); the partials
+    added in piece order, each rounded once, then the fresh and self
+    terms in f32 as :func:`_attention_plain` adds them.  Nothing on the
+    main path calls it; ``tests/test_torch_attn_split.py`` holds it to
+    :func:`_attention_plain` bit for bit.  -> [B, H * hd]."""
+    B, n_heads, hd = q.shape
+    Bc, S = B // spec, k_cache.shape[2]
+    G = n_heads // n_kv
+    int8 = k_scales is not None
+    qs = q * scale
+    if int8:
+        kqf, ksf = _absmax_codes(k.to(torch.bfloat16).float(), 1e-8)
+        vqf, vsf = _absmax_codes(v.to(torch.bfloat16).float(), 1e-8)
+    out = torch.empty((B, n_heads, hd), dtype=torch.float32,
+                      device=q.device)
+    js = torch.arange(spec, device=q.device).repeat_interleave(G)  # [V]
+    for b in range(Bc):
+        off = int(offs[b])
+        if ring is None:
+            lo = max(0, off - window) if window is not None else 0
+            hi = min(off, S)
+        else:
+            head, size = ring
+            lo, hi = 0, off if off < head else head + min(size, off - head)
+        n = max(hi - lo, 0)
+        slots = torch.arange(lo, lo + n, device=q.device)
+        if ring is None:
+            p_abs, written = slots, slots < off
+        else:
+            p_abs, written = ring_k_positions(*ring, off, device=q.device,
+                                              slots=S)
+            p_abs, written = p_abs[lo:lo + n], written[lo:lo + n]
+        vis = written[None, :].expand(spec * G, n)
+        if window is not None:
+            vis = vis & ((off + js[:, None] - p_abs[None, :]) <= window)
+        rows = b * spec + js  # [V]
+        for jh in range(n_kv):
+            heads = jh * G + torch.arange(G, device=q.device).repeat(spec)
+            qv = qs[rows, heads]  # [V, hd] f32
+            kc = k_cache[b, jh, lo:lo + n].double()
+            vc = v_cache[b, jh, lo:lo + n].double()
+            if int8:
+                qq, sq = _absmax_codes(qv, 1e-8)
+                sc = ((qq.double() @ kc.T).float() * sq
+                      * k_scales[b, jh, lo:lo + n])
+            else:
+                sc = (qv.to(torch.bfloat16).double() @ kc.T).float()
+            sc = torch.where(vis, sc, float("-inf"))
+            s_self = _sum64(qv.double() * k[rows, jh].double())
+            fresh = torch.full((spec * G, spec), float("-inf"),
+                               device=q.device)
+            for vi in range(spec * G):
+                j = int(js[vi])
+                for i in range(j):
+                    if window is not None and j - i > window:
+                        continue
+                    ri = b * spec + i
+                    if int8:
+                        z = _sum64(qq[vi].double() * kqf[ri, jh].double())
+                        fresh[vi, i] = z * sq[vi, 0] * ksf[ri, jh, 0]
+                    else:
+                        fresh[vi, i] = _sum64(qv[vi].double()
+                                              * k[ri, jh].double())
+            ln = -(-n // cluster)
+            pieces = [slice(min(c * ln, n), min(c * ln + ln, n))
+                      for c in range(cluster)]
+            m_piece = [sc[:, p].amax(-1) if p.stop > p.start else
+                       torch.full_like(s_self, float("-inf"))
+                       for p in pieces]
+            m_piece[0] = torch.maximum(
+                torch.maximum(m_piece[0], s_self), fresh.amax(-1))
+            m = m_piece[0]
+            for mp in m_piece[1:]:
+                m = torch.maximum(m, mp)
+            e = torch.exp(sc - m[:, None])
+            e_fresh = torch.exp(fresh - m[:, None])  # 0 where not fresh
+            e_self = torch.exp(s_self - m)
+            dens = [e[:, p].double().sum(-1) for p in pieces]
+            if int8:
+                vs = v_scales[b, jh, lo:lo + n]
+                ew = torch.where(vis, e * vs, torch.zeros_like(e))
+                ea = torch.stack([ew[:, p].abs().amax(-1) if p.stop > p.start
+                                  else torch.zeros_like(s_self)
+                                  for p in pieces]).amax(0)
+                ewf = e_fresh * vsf[b * spec:(b + 1) * spec, jh, 0]
+                ea = torch.maximum(ea, ewf.abs().amax(-1))
+                se = torch.clamp(ea, min=1e-30) / torch.full_like(ea, 127.0)
+                w = torch.clamp(torch.round(ew / se[:, None]), -127, 127)
+            else:
+                w = e.to(torch.bfloat16)
+            pvs = [w[:, p].double() @ vc[p] for p in pieces]
+            den, pv = dens[0], pvs[0]
+            for d_, p_ in zip(dens[1:], pvs[1:]):
+                den, pv = den + d_, pv + p_
+            den, ctx = den.float(), pv.float()
+            if int8:
+                ctx = ctx * se[:, None]
+            for vi in range(spec * G):
+                j = int(js[vi])
+                for i in range(j):
+                    if window is not None and j - i > window:
+                        continue
+                    ri = b * spec + i
+                    den[vi] = den[vi] + e_fresh[vi, i]
+                    if int8:
+                        eqi = torch.clamp(torch.round(ewf[vi, i] / se[vi]),
+                                          -127, 127)
+                        ctx[vi] = ctx[vi] + eqi * vqf[ri, jh] * se[vi]
+                    else:
+                        ctx[vi] = ctx[vi] + e_fresh[vi, i] * v[ri, jh]
+            den = den + e_self
+            ctx = ctx + e_self[:, None] * v[rows, jh]
+            out[rows, heads] = ctx / den[:, None]
+    return out.reshape(B, n_heads * hd)
+
+
 def decode_stack_step_plain(
     x, offset,
     attn_norms, ffn_norms, ada_vecs,
@@ -641,7 +778,7 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"decode_stack_step: {msg}")
 
 
-# The attention block's shape (csrc/decode_step.cu): 256 threads, and a
+# The attention blocks' shape (csrc/attn_step.cuh): 256 threads, and a
 # block may hold 227 KB of dynamic shared memory on the H100.
 ATTN_THREADS = 256
 SMEM_LIMIT = 227 * 1024
@@ -651,22 +788,44 @@ SMEM_LIMIT = 227 * 1024
 LM_TILE = 32
 
 
+def kernel_attn_plan(streams: int, n_heads: int, n_kv: int, spec: int,
+                     head_dim: int, span: int, kv_int8: bool) -> tuple:
+    """(cluster, vectors, groups, piece, bytes) of the cluster walk at a
+    geometry, from the built library (``vx_attn_plan``,
+    attn_step.cuh::attn_plan): blocks a cluster, query vectors a
+    cluster, clusters per (stream, kv head), score slots a block and a
+    block's shared memory; (0, 0, 0, 0, 0) when nothing fits."""
+    out = (ctypes.c_longlong * 5)()
+    fn = kernel_fn("vx_attn_plan", [_I] * 7 + [ctypes.c_void_p])
+    fn(streams, n_heads, n_kv, spec, head_dim, span, int(kv_int8),
+       ctypes.cast(out, ctypes.c_void_p))
+    return tuple(int(x) for x in out)
+
+
+def attn_span(S: int, window: Optional[int] = None,
+              ring: Optional[tuple[int, int]] = None,
+              cache_chunk: Optional[int] = None) -> int:
+    """The most cache slots one row sees at once: the chunk in mode (f),
+    the window on a bounded cache, else all S."""
+    if cache_chunk:
+        return cache_chunk
+    return S if ring is not None or window is None or window >= S else window
+
+
 def attn_smem_bytes(S: int, head_dim: int, window: Optional[int] = None,
                     spec: int = 1,
                     ring: Optional[tuple[int, int]] = None,
                     cache_chunk: Optional[int] = None,
                     kv_int8: bool = False) -> int:
-    """Shared memory of one attention block, as the host entry sizes it:
-    the per-warp P.V partials (f64), q, bf16(q) (or its int8 codes), k,
-    v, the spec fresh scores (and fresh v scales in the int8 / chunked
-    kernel) and one score per cache slot a pass may hold: the chunk in
-    mode (f), else the window on a bounded cache and all S slots on a
-    head+ring cache."""
-    if cache_chunk:
-        span = cache_chunk
-    else:
-        span = (S if ring is not None or window is None or window >= S
-                else window)
+    """Shared memory :func:`check_geometry` holds an attention block to:
+    a block per (row, query head) with the per-warp P.V partials (f64),
+    q, bf16(q) (or its int8 codes), k, v, the spec fresh scores (and
+    fresh v scales in the int8 / chunked walk) and one score per slot of
+    the span.  Mode (f)'s chunked walk is that block.  The cluster walk
+    of modes (a)-(e) holds the span's scores over up to 16 blocks, sized
+    by the library's plan (:func:`kernel_attn_plan`), and fits wherever
+    this does."""
+    span = attn_span(S, window, ring, cache_chunk)
     fresh = (2 if cache_chunk or kv_int8 else 1) * spec
     return 8 * (ATTN_THREADS // 32) * head_dim + 4 * (4 * head_dim + fresh
                                                       + span)
@@ -690,9 +849,11 @@ def check_geometry(S: int, head_dim: int, window: Optional[int] = None,
                    cache_chunk: Optional[int] = None,
                    kv_int8: bool = False) -> None:
     """ValueError naming the cause when the kernel cannot take a cache of
-    S slots: its score buffer lives in one block's shared memory (S or
-    the window's floats; ``cache_chunk`` floats in mode (f), whatever
-    S)."""
+    S slots: the span's scores (S or the window's floats; ``cache_chunk``
+    floats in mode (f), whatever S) in one block's shared memory,
+    :func:`attn_smem_bytes`.  The cluster walk of modes (a)-(e) could
+    take longer spans; admitting them moves rungs of ``oneshot_plan`` and
+    ``_fused_plan``, which waits for its own change (ROADMAP)."""
     _check_chunk(S, cache_chunk, spec)
     need = attn_smem_bytes(S, head_dim, window, spec, ring, cache_chunk,
                            kv_int8)
@@ -992,6 +1153,102 @@ decode_stack_step.launches = 0
 decode_stack_step.argmax_launches = 0
 decode_stack_step.argmax_g32_launches = 0
 decode_stack_step.argmax_bf16_launches = 0
+
+
+def attention_block_plain(qkv, cos_p, sin_p, k_cache, v_cache, offset, *,
+                          n_heads: int, n_kv: int, head_dim: int,
+                          window: Optional[int] = None, spec: int = 1,
+                          ring: Optional[tuple[int, int]] = None,
+                          k_scales=None, v_scales=None,
+                          cache_chunk: Optional[int] = None):
+    """One layer's attention of the plain step (its RoPE, then
+    :func:`_attention_plain`): qkv [B, nq + 2 nkv] f32 un-roped, cos_p /
+    sin_p [hd] or [B, hd], caches [Bc, Hkv, S, hd] of one layer (int8 with
+    ``k_scales`` / ``v_scales`` [Bc, Hkv, S]).  -> (attn [B, nq] f32,
+    k_new, v_new [B, Hkv, hd] bf16)."""
+    B = qkv.shape[0]
+    nq, nkv = n_heads * head_dim, n_kv * head_dim
+    c, s = cos_p.float(), sin_p.float()
+    if c.dim() == 2:
+        c, s = c[:, None], s[:, None]
+    q = qkv[:, :nq].reshape(B, n_heads, head_dim)
+    k = qkv[:, nq:nq + nkv].reshape(B, n_kv, head_dim)
+    v = qkv[:, nq + nkv:].reshape(B, n_kv, head_dim)
+    q = q * c + _rope_swap(q) * s
+    k = k * c + _rope_swap(k) * s
+    Bc = B // spec
+    offs = torch.as_tensor(offset, device=qkv.device).reshape(-1).expand(Bc)
+    attn = _attention_plain(q, k, v, k_cache, v_cache, offs, window, spec,
+                            n_kv, head_dim ** -0.5, ring, k_scales, v_scales,
+                            cache_chunk)
+    return attn, k.to(torch.bfloat16), v.to(torch.bfloat16)
+
+
+def attention_block(qkv, cos_p, sin_p, k_cache, v_cache, offset, *,
+                    n_heads: int, n_kv: int, head_dim: int,
+                    window: Optional[int] = None, spec: int = 1,
+                    ring: Optional[tuple[int, int]] = None,
+                    k_scales=None, v_scales=None,
+                    cache_chunk: Optional[int] = None):
+    """The attention of one layer alone, launched as K1 and K4 launch it
+    inside their steps (``csrc/attn_step.cuh``: the cluster walk, or the
+    chunked walk in mode (f)); arguments and result as
+    :func:`attention_block_plain`, ``offset`` an int or an int32 device
+    tensor [Bc].  Not on the main path: the card tests and
+    ``chip_smoke.py`` check and time the block with it.  CPU tensors
+    take the plain version; each launch adds one to
+    ``attention_block.launches``."""
+    kw = dict(n_heads=n_heads, n_kv=n_kv, head_dim=head_dim, window=window,
+              spec=spec, ring=ring, k_scales=k_scales, v_scales=v_scales,
+              cache_chunk=cache_chunk)
+    dev = qkv.device
+    if dev.type == "cpu":
+        return attention_block_plain(qkv, cos_p, sin_p, k_cache, v_cache,
+                                     offset, **kw)
+    B = qkv.shape[0]
+    Bc, Hkv, S, hd = k_cache.shape
+    _spec_streams(B, Bc, spec)
+    _check_cache_mode(k_cache, v_cache, k_scales, v_scales, cache_chunk,
+                      spec, S)
+    kv_int8 = k_scales is not None
+    check_geometry(S, head_dim, window, spec, ring, cache_chunk, kv_int8)
+    _require(Hkv == n_kv and hd == head_dim
+             and qkv.shape[1] == (n_heads + 2 * n_kv) * head_dim,
+             "qkv / cache shapes do not match the heads")
+    offs = None
+    if isinstance(offset, torch.Tensor):
+        _require(offset.dtype == torch.int32 and offset.shape == (Bc,),
+                 "an offset tensor must be int32 (Bc,)")
+        offs, offset = offset, 0
+    for t in (qkv, cos_p, sin_p, k_cache, v_cache, k_scales, v_scales, offs):
+        _require(t is None or (t.device == dev and t.is_contiguous()),
+                 f"every tensor must be contiguous on {dev}")
+    attn = torch.empty((B, n_heads * head_dim), dtype=torch.float32,
+                       device=dev)
+    k_new = torch.empty((B, n_kv, head_dim), dtype=torch.bfloat16,
+                        device=dev)
+    v_new = torch.empty_like(k_new)
+    ring_head, ring_size = ring if ring is not None else (0, 0)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        fn = kernel_fn("vx_attn_block", [_P] * 11 + [_I] * 12 + [_F, _P])
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = fn(ptr(qkv), ptr(cos_p), ptr(sin_p), ptr(k_cache),
+                  ptr(v_cache), ptr(k_scales), ptr(v_scales), ptr(k_new),
+                  ptr(v_new), ptr(attn), ptr(offs), B, S, n_heads, n_kv,
+                  head_dim, offset, spec,
+                  0 if cos_p.dim() == 1 else head_dim,
+                  -1 if window is None else int(window), ring_head,
+                  ring_size, int(cache_chunk or 0), head_dim ** -0.5, stream)
+    check(code, "attention_block")
+    attention_block.launches += 1
+    return attn, k_new, v_new
+
+
+attention_block.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -10,15 +10,19 @@ first-token lm_head; here it runs every w8 linear of the model (encoder,
 adapter, prefill, ADA vectors, lm_head), since CUDA PyTorch has no
 int8 x int8 -> int32 matmul.  Source: ``csrc/w8_matmul.cu``.
 
-What bounds it on the H100: at decode shapes (M <= 64) the bytes of int8
-weights streamed from HBM (the 131072 x 3072 lm_head is 403 MB per
-call); the kernel is a GEMV that reads each weight byte once with
-16-byte loads — a warp per output row with ``__dp4a`` up to 8 rows, a
-warp per 8 output rows with int8 tensor-core ``mma.sync`` above (the
-38-row prefill, speculative rows).  At encoder shapes (M in the
-hundreds) the integer dot rate: the kernel is a 64 x 64 shared-memory
-tiled ``__dp4a`` GEMM; tensor cores there (``mma.sync`` / ``wgmma``)
-are later work.
+What bounds it on the H100: up to 16 rows (decode, the ADA vectors,
+the lm_head) the bytes of int8 weights streamed from HBM (the 131072 x
+3072 lm_head is 403 MB per call); the kernel is a GEMV that reads each
+weight byte once with 16-byte loads (a warp per output row with
+``__dp4a`` up to 8 rows, a warp per 8 output rows with int8 tensor-core
+``mma.sync`` above).  Above 16 rows (encoder, adapter, prefill) the
+int8 operation count and the operands' bytes, a few microseconds each:
+a Hopper GEMM with ``wgmma`` m64n128k32 int8 tiles fed by TMA loads
+through an mbarrier ring, and an exact split-K where the output tiles
+are fewer than the SMs (the K slices of a tile form a cluster and add
+their int32 tiles in slice order through distributed shared memory).
+:func:`k2_plan` picks the route and the split from the shape, before
+the launch.
 """
 
 from __future__ import annotations
@@ -31,6 +35,17 @@ from voxtral_tpu_torch.ops._build import check, kernel_fn
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+# K2's routes (csrc/w8_matmul.cu): the GEMVs of csrc/w8_common.cuh, the
+# tensor-core GEMM with 64- or 128-row output tiles (128 columns each).
+ROUTE_GEMV, ROUTE_WGMMA64, ROUTE_WGMMA128 = 0, 1, 2
+ROUTE_NAMES = {ROUTE_GEMV: "GEMV", ROUTE_WGMMA64: "wgmma 64x128",
+               ROUTE_WGMMA128: "wgmma 128x128"}
+GEMM_MIN_ROWS = 16    # up to this many rows the product is a weight stream
+N_SMS = 132           # H100 SXM
+MAX_SLICES = 8        # K slices of one tile: a portable cluster
+_BK = _BN = 128       # K bytes per pipeline stage, output columns per tile
+_MIN_KB_PER_SLICE = 4  # a K slice walks at least 512 bytes of K
 
 # Exact integer products through float32: each partial sum over a chunk
 # of <= 1024 int8 x int8 products is an integer below 1024 * 127**2 <
@@ -76,35 +91,94 @@ def _check_operands(xq, sx, codes, scale):
         raise ValueError(f"w8_matmul: operands on several devices {devs}")
 
 
-def w8_matmul(xq: torch.Tensor, sx: torch.Tensor, codes: torch.Tensor,
-              scale: torch.Tensor) -> torch.Tensor:
-    """xq [M, K] i8, sx [M, 1] f32, codes [N, K] i8, scale [N] f32
-    -> [M, N] f32.
+def _tiles(m: int, n: int, route: int) -> int:
+    bm = 64 if route == ROUTE_WGMMA64 else 128
+    return -(-m // bm) * -(-n // _BN)
 
-    CPU tensors take :func:`w8_matmul_plain`; CUDA tensors launch the
-    kernel (and count the launch in ``w8_matmul.launches``) or raise.
-    """
-    _check_operands(xq, sx, codes, scale)
+
+def k2_plan(m: int, n: int, k: int, aligned: bool = True) -> tuple:
+    """(route, K slices) of K2 at M x K x N, from the shape alone.
+
+    Up to :data:`GEMM_MIN_ROWS` rows, K % 32 != 0 or rows not 16-byte
+    aligned (``aligned`` False): the GEMVs.  Else the tensor-core GEMM,
+    64-row tiles up to 64 rows and 128-row tiles above, its K cut into as
+    many slices (at most 8, one cluster a tile) as keep the tiles x
+    slices within the SMs, each slice at least 512 bytes of K, all slices
+    the same length but the last."""
+    if m <= GEMM_MIN_ROWS or k % 32 or not aligned:
+        return ROUTE_GEMV, 1
+    route = ROUTE_WGMMA64 if m <= 64 else ROUTE_WGMMA128
+    kb = -(-k // _BK)
+    splits = max(1, min(N_SMS // _tiles(m, n, route),
+                        kb // _MIN_KB_PER_SLICE, MAX_SLICES))
+    per = -(-kb // splits)
+    return route, -(-kb // per)
+
+
+def _aligned(*ts) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def _launch(xq, sx, codes, scale, route: int, splits: int) -> torch.Tensor:
+    """Launch K2 on ``route`` with ``splits`` K slices and count the
+    launch."""
+    m, k = xq.shape
+    n = codes.shape[0]
     dev = xq.device
-    if dev.type == "cpu":
-        return w8_matmul_plain(xq, sx, codes, scale)
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        fn = kernel_fn("vx_w8_matmul", [_P] * 5 + [_I] * 5 + [_P])
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        check(fn(xq.data_ptr(), sx.data_ptr(), codes.data_ptr(),
+                 scale.data_ptr(), out.data_ptr(), m, n, k, route, splits,
+                 stream),
+              "w8_matmul")
+    w8_matmul.launches += 1
+    return out
+
+
+def _check_cuda(xq, sx, codes, scale) -> None:
+    dev = xq.device
     if dev.type != "cuda":
         raise RuntimeError(f"w8_matmul: unsupported device {dev}")
     for name, t in (("xq", xq), ("sx", sx), ("codes", codes),
                     ("scale", scale)):
         if not t.is_contiguous():
             raise ValueError(f"w8_matmul: {name} must be contiguous")
-    m, k = xq.shape
-    n = codes.shape[0]
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        fn = kernel_fn("vx_w8_matmul", [_P] * 5 + [_I] * 3 + [_P])
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        check(fn(xq.data_ptr(), sx.data_ptr(), codes.data_ptr(),
-                 scale.data_ptr(), out.data_ptr(), m, n, k, stream),
-              "w8_matmul")
-    w8_matmul.launches += 1
-    return out
+
+
+def w8_matmul(xq: torch.Tensor, sx: torch.Tensor, codes: torch.Tensor,
+              scale: torch.Tensor) -> torch.Tensor:
+    """xq [M, K] i8, sx [M, 1] f32, codes [N, K] i8, scale [N] f32
+    -> [M, N] f32.
+
+    CPU tensors take :func:`w8_matmul_plain`; CUDA tensors launch the
+    kernel on the route :func:`k2_plan` gives the shape (and count the
+    launch in ``w8_matmul.launches``) or raise.
+    """
+    _check_operands(xq, sx, codes, scale)
+    if xq.device.type == "cpu":
+        return w8_matmul_plain(xq, sx, codes, scale)
+    _check_cuda(xq, sx, codes, scale)
+    return _launch(xq, sx, codes, scale,
+                   *w8_matmul_route(xq, codes))
+
+
+def w8_matmul_route(xq: torch.Tensor, codes: torch.Tensor) -> tuple:
+    """(route, K slices) :func:`w8_matmul` launches for these operands."""
+    return k2_plan(xq.shape[0], codes.shape[0], xq.shape[1],
+                   _aligned(xq, codes))
+
+
+def w8_matmul_on(route: int, xq: torch.Tensor, sx: torch.Tensor,
+                 codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """K2 on a route the caller names, one K slice (``chip_smoke.py``
+    times the GEMV beside the GEMM at 16 < M <= 64 rows with it); the
+    launch counts as any other.  The C entry refuses a GEMM route the
+    shape cannot take."""
+    _check_operands(xq, sx, codes, scale)
+    _check_cuda(xq, sx, codes, scale)
+    return _launch(xq, sx, codes, scale, route, 1)
 
 
 w8_matmul.launches = 0
