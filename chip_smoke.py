@@ -16,7 +16,12 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              K1 decode_stack_step (26 layers + lm fold) in mode (a) at one
              row, mode (b) spec=8 at 1 and 8 streams (8 and 64 rows,
              distinct per-stream offsets) and mode (c) (an offset per
-             row, 4 rows).  Main path: TranscribePipeline.
+             row, 4 rows), each timed on the device (a CUDA graph of the
+             step) and called from the host.  The step's device time by
+             launch class (k1_breakdown: row_quant, each GEMV, the
+             attention, the lm head) at one row (mode (a), mode (g)) and
+             at 8 bf16 rows runs last, after phase 7: the profiler slows
+             the host side of what follows it.  Main path: TranscribePipeline.
              transcribe_samples on a 16 s chirp, sequential and
              speculative (PipelineConfig(speculative=8), draft "ngram"
              and "pad"), each run with the launch counters set to 0 just
@@ -288,6 +293,7 @@ SR = 16000
 HBM_BPS = 3.35e12
 INT8_OPS = 1979e12
 BF16_FLOPS = 989e12
+F64_TC_FLOPS = 67e12  # the f64 tensor cores (DMMA)
 
 # K2: the int32 sum is exact and both versions apply (z * sx) * scale in
 # f32, so they must agree to the last bit; the bound is the one the port
@@ -330,112 +336,6 @@ LAYOUT_LAYER_RTOL = 2 ** -7
 # noise's largest logit difference.
 LAYOUT_NOISE_FACTOR = 3.0
 SPEC_K = 8
-
-
-# Each attention-mode check's time with the earlier attention (one block
-# per (row, query head) walking every slot), as this script measured it
-# at the commit before the cluster walk, on an NVIDIA H100 80GB HBM3 at
-# 700.00 W, keyed by the check's tag: printed, marked as recorded, beside
-# the cluster walk's time of this run (K1 step ms; K4 device ms).  A
-# record of a removed kernel, to go once the comparison has been read.
-PER_ROW_WALK_MS = {
-    'K1 decode_stack_step [w8] spec=1 streams=1 rows=1 S=240 offsets 235..235':
-        2.982,
-    'K1 decode_stack_step [w8] spec=8 streams=1 rows=8 S=247 offsets 235..235':
-        3.977,
-    'K1 decode_stack_step [w8] spec=8 streams=8 rows=64 S=247 offsets 150..235':
-        16.832,
-    'K1 decode_stack_step [w8] spec=1 streams=4 rows=4 S=240 offsets 60..235':
-        3.211,
-    'K1 mode (d) [w8] ring=(38, 8200) S=8238 offset=100 spec=1':
-        6.832,
-    'K1 mode (d) [w8] ring=(38, 8200) S=8238 offset=16000 spec=1':
-        25.682,
-    'K1 mode (d) [w8] ring=(38, 8200) S=8238 offset=16000 spec=8':
-        32.87,
-    'K4 attn_half_step tp=2 rows=1 S=151 offset=150':
-        0.0269,
-    'K4 attn_half_step tp=2 rows=8 S=158 offset=143':
-        0.0349,
-    'K4 attn_half_step tp=2 rows=1 S=194 offset=187':
-        0.0296,
-    'K4 attn_half_step (d) head+ring tp=2 S=8238 ring=(38, 8200) offsets=[100, 8237, 8241, 16000] spec=1 cache_chunk=None (24676 cache slots read, 50.54 MB)':
-        0.913,
-    'K4 attn_half_step (e) int8 tp=2 S=8238 ring=(38, 8200) offsets=[100, 8237, 8241, 16000] spec=1 cache_chunk=None (24676 cache slots read, 26.06 MB)':
-        0.6132,
-    'K4 attn_half_step (e) x (b) int8 tp=2 S=8238 ring=(38, 8200) offsets=[100, 8234, 8241, 16000] spec=8 cache_chunk=None (24676 cache slots read, 26.06 MB)':
-        1.1204,
-    'K4 attn_half_step (f) chunked tp=2 S=1536 ring=None offsets=[7, 700] spec=1 cache_chunk=512 (707 cache slots read, 1.45 MB)':
-        0.0708,
-    'K4 attn_half_step (f) chunked tp=2 S=8704 ring=(38, 8666) offsets=[100, 16000] spec=1 cache_chunk=512 (8292 cache slots read, 16.98 MB)':
-        0.7329,
-    'K4 attn_half_step (f) x (e) tp=2 S=8704 ring=(38, 8666) offsets=[100, 16000] spec=1 cache_chunk=512 (8292 cache slots read, 8.76 MB)':
-        0.4496,
-    'K1 (c) x (d) bf16 [w8] S=8238 ring=(38, 8200) offsets=[100, 8237, 8241, 16000] spec=1 cache_chunk=None':
-        25.918,
-    'K1 (e) int8 KV [w8] S=8238 ring=(38, 8200) offsets=[100, 8237, 8241, 16000] spec=1 cache_chunk=None':
-        18.731,
-    'K1 (e) x (b) int8 KV [w8] S=8238 ring=(38, 8200) offsets=[100, 8234, 8241, 16000] spec=8 cache_chunk=None':
-        57.144,
-    'K1 (f) bf16 [w8] S=1536 ring=None offsets=[7, 700] spec=1 cache_chunk=512':
-        4.372,
-    'K1 (f) x (e) [w8] S=1536 ring=None offsets=[7, 700] spec=1 cache_chunk=512':
-        4.018,
-    'K1 (f) bf16 [w8] S=8704 ring=(38, 8666) offsets=[100, 16000] spec=1 cache_chunk=512':
-        24.288,
-    'K1 (f) x (e) [w8] S=8704 ring=(38, 8666) offsets=[100, 16000] spec=1 cache_chunk=512':
-        19.776,
-    'K1 decode_stack_step [bf16] spec=1 streams=1 rows=1 S=240 offsets 235..235':
-        4.208,
-    'K1 decode_stack_step [bf16] spec=8 streams=1 rows=8 S=247 offsets 235..235':
-        12.963,
-    'K1 decode_stack_step [bf16] spec=8 streams=8 rows=64 S=247 offsets 150..235':
-        113.635,
-    'K1 decode_stack_step [bf16] spec=1 streams=4 rows=4 S=240 offsets 60..235':
-        7.348,
-    'K1 (g) x (d) [bf16] S=8238 ring=(38, 8200) offsets=[16000] spec=1 cache_chunk=None':
-        26.814,
-    'K1 (g) x (e) x (c) [bf16] S=8238 ring=(38, 8200) offsets=[100, 8237, 8241, 16000] spec=1 cache_chunk=None':
-        22.598,
-    'K1 (g) x (f) [bf16] S=1536 ring=None offsets=[7, 700] spec=1 cache_chunk=512':
-        6.234,
-    'K1 decode_stack_step [q4g] spec=1 streams=1 rows=1 S=240 offsets 235..235':
-        3.084,
-    'K1 decode_stack_step [q4g] spec=8 streams=1 rows=8 S=247 offsets 235..235':
-        4.652,
-    'K1 decode_stack_step [q4g] spec=8 streams=8 rows=64 S=247 offsets 150..235':
-        20.129,
-    'K1 decode_stack_step [q4g] spec=1 streams=4 rows=4 S=240 offsets 60..235':
-        3.446,
-    'K4 attn_half_step g32 tp=2 rows=1 S=151 offset=150':
-        0.0266,
-    'K4 attn_half_step g32 tp=2 rows=8 S=158 offset=143':
-        0.0405,
-    'K4 attn_half_step g32 tp=2 rows=1 S=194 offset=187':
-        0.0289,
-    'K4 attn_half_step g32 (d) head+ring tp=2 S=8238 ring=(38, 8200) offsets=[100, 8237, 8241, 16000] spec=1 cache_chunk=None (24676 cache slots read, 50.54 MB)':
-        0.918,
-    'K4 attn_half_step g32 (e) int8 tp=2 S=8238 ring=(38, 8200) offsets=[100, 8237, 8241, 16000] spec=1 cache_chunk=None (24676 cache slots read, 26.06 MB)':
-        0.637,
-    'K4 attn_half_step g32 (f) chunked tp=2 S=8704 ring=(38, 8666) offsets=[100, 8237, 8241, 16000] spec=1 cache_chunk=512 (24676 cache slots read, 50.54 MB)':
-        0.8631,
-    'K1 mode (d) [q4g] ring=(38, 8200) S=8238 offset=100 spec=1':
-        6.883,
-    'K1 mode (d) [q4g] ring=(38, 8200) S=8238 offset=16000 spec=1':
-        25.642,
-    'K1 mode (d) [q4g] ring=(38, 8200) S=8238 offset=16000 spec=8':
-        33.4,
-    'K1 (e) x (h) int8 KV [q4g] S=8238 ring=(38, 8200) offsets=[100, 8237, 8241, 16000] spec=1 cache_chunk=None':
-        18.953,
-}
-
-
-def per_row_walk(tag: str) -> str:
-    """"; earlier per-row walk x ms (recorded)" for a tag PER_ROW_WALK_MS
-    holds, else ""."""
-    ms = PER_ROW_WALK_MS.get(tag)
-    return ("" if ms is None
-            else f"; earlier per-row walk {ms} ms (recorded, not this run)")
 
 
 def fail(msg: str) -> None:
@@ -746,9 +646,66 @@ def n_stack_weights(model) -> int:
 
 
 def weight_ops_peak(model) -> float:
-    """The peak rate of the step's products: bf16 in mode (g), int8
-    otherwise."""
-    return BF16_FLOPS if model.decode_route == "bf16" else INT8_OPS
+    """The peak rate of the step's products: mode (g)'s exact bf16
+    products are summed on the f64 tensor cores, the others are int8."""
+    return F64_TC_FLOPS if model.decode_route == "bf16" else INT8_OPS
+
+
+# The launch classes of a K1 step (kernel name fragment -> class), and the
+# step's GEMVs in launch order: four a layer, then the lm head or fold.
+K1_CLASSES = (("row_quant", "row_quant"), ("attn", "attention"),
+              ("argmax_merge", "lm fold merge"))
+K1_GEMVS = ("qkv", "wo", "w13", "w2")
+
+
+def k1_breakdown(fn, n_layers: int, steps: int = 3) -> dict:
+    """Device ms of one K1 step ``fn`` by launch class, summed over the
+    step (``torch.profiler``, ``steps`` eager steps): row_quant, each
+    GEMV shape (by launch order), the attention, the lm head or fold and
+    its merge; beside them the step in a CUDA graph and the idle share
+    (graph ms less the kernels' sum, over graph ms).  A kernel launched
+    early (programmatic dependent launch) counts its wait too, so time
+    ``fn`` in plain stream order (ops.decode_step.K1_PDL = False) for
+    each class's own time.  {"error": ...} when the profiler saw no
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    evts = sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    if not evts:
+        return {"error": "the profiler saw no device time"}
+    per_step = 4 * n_layers + 1
+    out, n_gemv = {}, 0
+    for e in evts:
+        name = e.name
+        cls = next((c for frag, c in K1_CLASSES if frag in name), None)
+        if cls is None and "emcpy" in name:
+            cls = "memcpy"
+        if cls is None and ("gemv" in name or "stream" in name
+                            or "argmax_tile" in name):
+            i = n_gemv % per_step
+            cls = ("lm head or fold" if i == per_step - 1
+                   else f"gemv {K1_GEMVS[i % 4]}")
+            n_gemv += 1
+        cls = cls or f"other {name[:40]}"
+        us = e.time_range.end - e.time_range.start
+        out[cls] = out.get(cls, 0.0) + us / 1e3 / steps
+    total = sum(out.values())
+    g_ms = graph_ms(fn, reps=10, iters=5)
+    return {"classes_ms": {k: round(v, 4) for k, v in sorted(out.items())},
+            "kernel_sum_ms": round(total, 4), "graph_ms": round(g_ms, 4),
+            "idle_share": round((g_ms - total) / g_ms, 4),
+            "gemv_launches_per_step": n_gemv / steps}
 
 
 def step_weight_bytes(model) -> int:
@@ -766,8 +723,9 @@ def check_k1(model, dev, card, offs, spec, iters, plain_iters):
     over len(offs) streams x ``spec`` rows against the plain version.
     ``offs`` an int: mode (a), one stream at that scalar offset, cache
     S = 240; a list: an int32 device offset per stream and RoPE per row,
-    cache S = 240 + spec - 1.  -> (max abs err, ms, plain ms, bound ms,
-    bound by)."""
+    cache S = 240 + spec - 1.  Timed on the device (a CUDA graph of the
+    step) and from the host (a loop of calls).  -> (max abs err, device
+    ms, plain ms, bound ms, bound by, host-called ms)."""
     import torch
 
     from voxtral_tpu_torch.ops import decode_step as k1
@@ -804,9 +762,11 @@ def check_k1(model, dev, card, offs, spec, iters, plain_iters):
     torch.cuda.synchronize()
     ref = k1.decode_stack_step_plain(*args, **kw)
     worst = compare(tag, got, ref, (K1_RTOL, KV_RTOL, KV_RTOL, K1_RTOL))
-    ms, plain_ms = in_turns(lambda: k1.decode_stack_step(*args, **kw),
-                            lambda: k1.decode_stack_step_plain(*args, **kw),
-                            iters, plain_iters)
+    call = lambda: k1.decode_stack_step(*args, **kw)  # noqa: E731
+    host_ms, plain_ms = in_turns(
+        call, lambda: k1.decode_stack_step_plain(*args, **kw), iters,
+        plain_iters)
+    ms = graph_ms(call, reps=10, iters=5)
     wbytes = step_weight_bytes(model)
     # What the step must move: its weights once, the cache slots below
     # each stream's offset, x in and out, k/v new, logits out.
@@ -818,11 +778,48 @@ def check_k1(model, dev, card, offs, spec, iters, plain_iters):
     b_ms, b_by = bound(moved, 2 * bc * spec * (n_weights + n_vocab * D),
                        weight_ops_peak(model))
     tag = f"{tag} S={S} offsets {offl[0]}..{offl[-1]}"
-    print(f"{tag}: kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms; weights {wbytes / 1e9:.4f} GB/pass -> "
-          f"{wbytes / ms / 1e6:.1f} GB/s; bound {b_ms:.4f} ms ({b_by}; "
-          f"{100 * b_ms / ms:.1f} % of it){per_row_walk(tag)} [{card}]", flush=True)
-    return worst, ms, plain_ms, b_ms, b_by
+    print(f"{tag}: kernel {ms:.3f} ms on the device (CUDA graph), "
+          f"{host_ms:.3f} ms called from the host, plain {plain_ms:.3f} ms; "
+          f"weights {wbytes / 1e9:.4f} GB/pass -> {wbytes / ms / 1e6:.1f} "
+          f"GB/s; bound {b_ms:.4f} ms ({b_by}; {100 * b_ms / ms:.1f} % of "
+          f"it) [{card}]", flush=True)
+    return worst, ms, plain_ms, b_ms, b_by, host_ms
+
+
+def run_k1_breakdowns(dev, card) -> None:
+    """K1's step by launch class at full width (k1_breakdown): mode (a)
+    at one row, mode (g) at one and SPEC_K rows, on the random stacks of
+    benches/torch_k1_times.py, each profiled in plain stream order (the
+    classes' own times) and timed in a CUDA graph both ways.  Run last:
+    the profiler's tracing stays with the process and slows the host
+    side of whatever follows."""
+    import importlib.util
+
+    from voxtral_tpu_torch import VoxtralConfig
+    from voxtral_tpu_torch.ops import decode_step as k1
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_k1_times",
+        Path(__file__).resolve().parent / "benches" / "torch_k1_times.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    lm = VoxtralConfig.voxtral().language_model
+    for fmt, cases in (("w8", ((235, 1),)),
+                       ("bf16", ((235, 1), ([235], SPEC_K)))):
+        w = bench.stacks(fmt, lm, dev)
+        for offs, spec_k in cases:
+            pos, kw = bench.step_args(w, lm, dev, offs, spec_k, seed=7)
+            call = lambda: k1.decode_stack_step(*pos, **kw)  # noqa: E731
+            k1.K1_PDL = False
+            b = k1_breakdown(call, lm.n_layers)
+            k1.K1_PDL = True
+            b["graph_ms_pdl"] = round(graph_ms(call, reps=10, iters=5), 4)
+            print(f"K1 step breakdown [{fmt}] rows={pos[0].shape[0]} (device "
+                  f"ms by launch class, plain stream order; graph_ms_pdl: "
+                  f"the step as launched): {json.dumps(b)} [{card}]",
+                  flush=True)
+        del w
+        release()
 
 
 def check_k1_modes(model, dev, card):
@@ -832,9 +829,10 @@ def check_k1_modes(model, dev, card):
     spread = [150 + round(i * 85 / 7) for i in range(8)]  # 150 .. 235
     spec64 = check_k1(model, dev, card, spread, SPEC_K, 10, 1)
     rows4 = check_k1(model, dev, card, [60, 120, 180, 235], 1, 20, 1)
-    print(f"K1 step ms [{model.decode_route}] [{card}]: 1 row {one[1]:.3f}, "
-          f"spec={SPEC_K} 8 rows {spec8[1]:.3f}, 64 rows {spec64[1]:.3f}; 4 "
-          f"rows with per-row offsets {rows4[1]:.3f}", flush=True)
+    print(f"K1 step ms on the device (CUDA graph) [{model.decode_route}] "
+          f"[{card}]: 1 row {one[1]:.3f}, spec={SPEC_K} 8 rows "
+          f"{spec8[1]:.3f}, 64 rows {spec64[1]:.3f}; 4 rows with per-row "
+          f"offsets {rows4[1]:.3f}", flush=True)
     return {"one": one, "spec8": spec8, "spec64": spec64, "rows4": rows4,
             "err": max(one[0], spec8[0], spec64[0], rows4[0])}
 
@@ -1569,10 +1567,11 @@ def check_k1_ring(model, dev, card):
         b_ms, b_by = bound(moved, 2 * spec * (n_weights + n_vocab * D),
                            weight_ops_peak(model))
         times[(off, spec)] = (ms, plain_ms, b_ms, b_by)
-        print(f"{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
+        print(f"{tag}: kernel {ms:.3f} ms called from the host, plain "
+              f"{plain_ms:.3f} ms; "
               f"{seen} cache slots read ({kv_read / 1e9:.4f} GB) + weights "
               f"{wbytes / 1e9:.4f} GB; bound {b_ms:.4f} ms ({b_by}; "
-              f"{100 * b_ms / ms:.1f} % of it){per_row_walk(tag)} [{card}]",
+              f"{100 * b_ms / ms:.1f} % of it) [{card}]",
               flush=True)
     del kc, vc
     return worst, times
@@ -2269,10 +2268,11 @@ def kv_step_case(model, dev, card, tag, S, offs, spec, ring, int8, chunk,
     n_weights = n_stack_weights(model)
     b_ms, b_by = bound(moved, 2 * bc * spec * (n_weights + n_vocab * D),
                        weight_ops_peak(model))
-    print(f"{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; {seen} cache "
+    print(f"{tag}: kernel {ms:.3f} ms called from the host, plain "
+          f"{plain_ms:.3f} ms; {seen} cache "
           f"slots read ({kv_read / 1e9:.4f} GB) + weights "
           f"{wbytes / 1e9:.4f} GB; bound {b_ms:.4f} ms ({b_by}; "
-          f"{100 * b_ms / ms:.1f} % of it){per_row_walk(tag)} [{card}]", flush=True)
+          f"{100 * b_ms / ms:.1f} % of it) [{card}]", flush=True)
     del kc, vc, kw, args
     torch.cuda.empty_cache()
     return worst, ms, plain_ms, b_ms, b_by
@@ -3683,7 +3683,7 @@ def timed_kernel(tag, kernel, plain, moved, ops, card):
     print(f"{tag}: max_abs_err {err:.3e} (bit-equal); kernel {ms:.4f} ms on "
           f"the device (CUDA graph), {host_ms:.4f} ms called from the host, "
           f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
-          f"{100 * b_ms / ms:.1f} % of it){per_row_walk(tag)} [{card}]", flush=True)
+          f"{100 * b_ms / ms:.1f} % of it) [{card}]", flush=True)
     return err, (ms, plain_ms, b_ms, b_by, host_ms)
 
 
@@ -5565,6 +5565,8 @@ def main() -> int:
     # -- 7. gguf -------------------------------------------------------------
     run_gguf_cli(dev, card)
     phase_done("gguf")
+    run_k1_breakdowns(dev, card)
+    phase_done("K1 breakdown")
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "voxtral_tpu"))
@@ -5699,6 +5701,7 @@ def main() -> int:
                        for (m, k, n), t in w8["k2_times"].items()}},
         {"name": "decode_stack_step", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/decode_step.cu",
+         "stream": "voxtral_tpu_torch/csrc/k1_stream.cuh",
          "replaces": "voxtral_tpu/ops/decode_step_pallas.py:1654",
          "modes": ["a", "b", "c", "d", "e", "f", "g", "h"],
          "launches": launches("decode_stack_step")[0],
@@ -5706,9 +5709,11 @@ def main() -> int:
          "max_abs_err": max(k1a["err"], k1h["err"], st_w8["k1_err"],
                             st_q4g["k1_err"], pk["err"], pl_q4g["err"],
                             kg["err"]),
+         # K1 step ms on the device (a CUDA graph of the step); beside
+         # them "host_called_ms", the same steps called from the host.
          "ms": k1a["one"][1], "plain_ms": k1a["one"][2],
          "bound_ms": k1a["one"][3], "bound_by": k1a["one"][4],
-         "library_ms": None,
+         "library_ms": None, "host_called_ms": k1a["one"][5],
          "spec_ms": k1a["spec8"][1], "spec_plain_ms": k1a["spec8"][2],
          "spec64_ms": k1a["spec64"][1], "spec64_plain_ms": k1a["spec64"][2],
          "h_ms": k1h["one"][1], "h_plain_ms": k1h["one"][2],

@@ -1028,3 +1028,121 @@ def test_cluster_plan_fits_every_admitted_span_on_card(
         streams, n_heads, n_kv, spec, head_dim, span, int8)
     assert cluster > 0 and smem <= tdsp.SMEM_LIMIT
     assert rv * n_vg >= spec * n_heads // n_kv and cluster * piece >= span
+
+
+# ---------------------------------------------------------------------------
+# K1's chain of programmatic dependent launches and its weight stream
+# ---------------------------------------------------------------------------
+
+
+def _card_stacks(fmt, dev, seed=0):
+    """Random fused stacks of this module's geometry in one weight format,
+    made on the card: w8 codes + f32 row scales, g32 codes + f16 group
+    scales, or dense bf16 (qkv and w13 in segments), with a table."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    nq, nkv = N_HEADS * HEAD_DIM, N_KV * HEAD_DIM
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, dtype=torch.int8, device=dev,
+                             generator=gen)
+
+    def scales(n, k, lead=(L,)):
+        if fmt == "g32":
+            return (torch.rand((*lead, n, k // 32), device=dev, generator=gen)
+                    * 2e-3 + 1e-4).half()
+        return torch.rand((*lead, n), device=dev, generator=gen) * 4e-3 + 1e-4
+
+    def dense(*shape):
+        return (torch.randn(shape, device=dev, generator=gen) * 0.05).bfloat16()
+
+    def norm(*shape):
+        return 1 + 0.1 * torch.randn(shape, device=dev, generator=gen)
+
+    w = {"attn_norm": norm(L, D), "ffn_norm": norm(L, D), "ada": norm(L, D),
+         "final_norm": norm(D)}
+    if fmt == "bf16":
+        w.update(wqkv=(dense(L, nq, D), dense(L, nkv, D), dense(L, nkv, D)),
+                 wo=dense(L, D, nq), w13=(dense(L, HIDDEN, D),
+                                          dense(L, HIDDEN, D)),
+                 w2=dense(L, D, HIDDEN), sqkv=None, so=None, s13=None,
+                 s2=None, lm=dense(V, D), lm_scale=None)
+        return w
+    w.update(wqkv=codes(L, nq + 2 * nkv, D), sqkv=scales(nq + 2 * nkv, D),
+             wo=codes(L, D, nq), so=scales(D, nq),
+             w13=codes(L, 2 * HIDDEN, D), s13=scales(2 * HIDDEN, D),
+             w2=codes(L, D, HIDDEN), s2=scales(D, HIDDEN),
+             lm=codes(V, D), lm_scale=scales(V, D, lead=()))
+    return w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["w8", "g32", "bf16"])
+@pytest.mark.parametrize("streams,spec", [(1, 1), (1, 8), (8, 8)],
+                         ids=["1-row", "8-rows", "64-rows"])
+@pytest.mark.parametrize("pdl", [True, False], ids=["pdl", "plain-order"])
+def test_k1_launch_chain_matches_plain_on_card(fmt, streams, spec, pdl):
+    """The whole step, its kernels launched as programmatic dependent
+    launches (each waits for its predecessor before it touches the
+    activations) or in plain stream order, bit-equal to the plain version
+    in every weight format at 1, 8 and 64 rows, logits and tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    dev = torch.device("cuda")
+    w = _card_stacks(fmt, dev, seed=streams * spec)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    shape = (L, streams, N_KV, S + spec - 1, HEAD_DIM)
+    kc = (torch.randn(shape, device=dev, generator=gen) * 0.4).bfloat16()
+    vc = (torch.randn(shape, device=dev, generator=gen) * 0.4).bfloat16()
+    x = torch.randn((streams * spec, D), device=dev, generator=gen) * 0.5
+    offs = torch.arange(streams, dtype=torch.int32, device=dev) % (S - 1) + 1
+    pos = (offs[:, None] + torch.arange(spec, device=dev)).reshape(-1)
+    c, s = tdsp.rope_pair_vectors(pos, HEAD_DIM, device=dev)
+    args = (x, offs, w["attn_norm"], w["ffn_norm"], w["ada"], w["sqkv"],
+            w["so"], w["s13"], w["s2"], c, s, kc, vc, w["wqkv"], w["wo"],
+            w["w13"], w["w2"], w["final_norm"], w["lm"], w["lm_scale"])
+    kw = dict(n_heads=N_HEADS, n_kv=N_KV, head_dim=HEAD_DIM, eps=EPS,
+              window=8, spec=spec)
+    old = tdsp.K1_PDL
+    tdsp.K1_PDL = pdl
+    try:
+        got = tdsp.decode_stack_step(*args, **kw)
+        tok = tdsp.decode_stack_step(*args, lm_argmax=True, **kw)[3]
+        torch.cuda.synchronize()
+    finally:
+        tdsp.K1_PDL = old
+    ref = tdsp.decode_stack_step_plain(*args, **kw)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert torch.equal(tok, tdsp.lm_token_plain(ref[3]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["w8", "g32"])
+@pytest.mark.parametrize("k", [256, 3072])
+def test_k1_w8_g32_rows_do_not_depend_on_the_row_count_on_card(fmt, k):
+    """The w8 and g32 GEMVs and folds K1 launches: row i of an M-row call
+    equals its 1-row call for every M up to 8 (g32: the f64 group sums run
+    in one order there), and the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(k)
+    n = 300
+    x = torch.randint(-127, 128, (8, k), dtype=torch.int8, device=dev,
+                      generator=gen)
+    w = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=dev,
+                      generator=gen)
+    sx = torch.rand(8, device=dev, generator=gen) * 1e-2 + 1e-4
+    sc = ((torch.rand((n, k // 32), device=dev, generator=gen) * 1e-3
+           + 1e-5).half() if fmt == "g32"
+          else torch.rand(n, device=dev, generator=gen) * 1e-3 + 1e-5)
+    ones = torch.cat([tdsp.k1_linear(x[i:i + 1], w, sc, sx[i:i + 1])
+                      for i in range(8)])
+    toks = torch.cat([tdsp.k1_linear(x[i:i + 1], w, sc, sx[i:i + 1],
+                                     lm_argmax=True) for i in range(8)])
+    torch.cuda.synchronize()
+    assert torch.equal(ones, tdsp.k1_linear_plain(x, w, sc, sx))
+    for m in range(1, 9):
+        assert torch.equal(tdsp.k1_linear(x[:m], w, sc, sx[:m]), ones[:m])
+        assert torch.equal(tdsp.k1_linear(x[:m], w, sc, sx[:m],
+                                          lm_argmax=True), toks[:m])

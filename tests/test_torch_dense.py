@@ -583,3 +583,58 @@ def test_bf16_speculative_session_gives_the_sequential_tokens():
         ses.finish()
         assert ses.tokens == seq.tokens, draft
         assert ses.spec_metrics()["passes"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# K1's weight stream on the card (csrc/k1_stream.cuh)
+# ---------------------------------------------------------------------------
+
+STREAM_ROWS = (1, 2, 8, 12, 64)
+
+
+def _card_bf16(rng, dev, *shape, scale=1.0):
+    return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+        np.float32)).bfloat16().to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(200, 3072), (96, 4096), (64, 9216),
+                                 (48, 256)])
+def test_k1_bf16_rows_do_not_depend_on_the_row_count_on_card(n, k):
+    """Mode (g)'s GEMV on the card: row i of an M-row call equals its
+    1-row call bit for bit for M in {1, 2, 8, 12, 64} (one row takes
+    bf16_row_dots, more the f64 tensor cores), each equal to the plain
+    version; a ragged last group (n % 16 != 0) included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(n + k)
+    x = _card_bf16(rng, dev, 64, k)
+    w = _card_bf16(rng, dev, n, k, scale=0.02)
+    ones = torch.cat([tdsp.k1_linear(x[i:i + 1], w) for i in range(64)])
+    torch.cuda.synchronize()
+    assert torch.equal(ones, tdsp.bf16_matmul_plain(x, w))
+    for m in STREAM_ROWS:
+        assert torch.equal(tdsp.k1_linear(x[:m], w), ones[:m]), m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,offset", [(100, 0), (3072, 1), (264, 3)],
+                         ids=["k%8", "unaligned", "unaligned-k%128"])
+@pytest.mark.parametrize("m", [1, 8])
+def test_k1_bf16_odd_shapes_match_plain_on_card(k, offset, m):
+    """bf16 shapes the stream does not take (K % 8 != 0, rows that are not
+    16-byte aligned) go to bf16_row_dots and still equal the plain
+    version, as GEMV and as fold."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(k + m)
+    x = _card_bf16(rng, dev, m, k)
+    w = _card_bf16(rng, dev, 70 * k + offset, 1, scale=0.02)
+    w = w.reshape(-1)[offset:].reshape(70, k)  # rows offset from 16 bytes
+    got = tdsp.k1_linear(x, w)
+    tok = tdsp.k1_linear(x, w, lm_argmax=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tdsp.bf16_matmul_plain(x, w))
+    assert torch.equal(tok, tdsp.lm_token_plain(got))

@@ -562,3 +562,31 @@ def test_dp_bf16_model_kernels_match_plain_on_card():
     pools = [_pool(StreamingSession, StreamPool, m, kv_dtype="int8")[1]
              for m in (kern, plain, one)]
     assert pools[0] == pools[1] == pools[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3072, 256])
+def test_k1_bf16_fold_tokens_do_not_depend_on_the_row_count_on_card(k):
+    """K1 (i)'s fold over a bf16 table on the card: the token of row i of
+    an M-row call equals its 1-row call's for M in {1, 2, 8, 12, 64} (one
+    table pass each), and the argmax of the GEMV's logits; ties planted
+    across and within the fold's groups give the lower index."""
+    dev = _card()
+    rng = np.random.default_rng(k)
+    x = torch.from_numpy(rng.normal(size=(64, k)).astype(
+        np.float32)).bfloat16().to(dev)
+    table = torch.from_numpy((rng.normal(size=(4099, k)) * 0.02).astype(
+        np.float32)).bfloat16().to(dev)
+    first = tdsp.k1_linear(x[:2], table).argmax(-1).tolist()
+    table[(first[0] + 33) % 4099] = table[first[0]]  # another group
+    table[first[1] ^ 1] = table[first[1]]           # its own group
+    ones = torch.cat([tdsp.k1_linear(x[i:i + 1], table, lm_argmax=True)
+                      for i in range(64)])
+    logits = tdsp.k1_linear(x, table)
+    torch.cuda.synchronize()
+    assert ones[:, 0].tolist() == logits.argmax(-1).tolist()
+    assert ones[0, 0].item() == min(first[0], (first[0] + 33) % 4099)
+    assert ones[1, 0].item() == min(first[1], first[1] ^ 1)
+    for m in (1, 2, 8, 12, 64):
+        got = tdsp.k1_linear(x[:m], table, lm_argmax=True)
+        assert torch.equal(got, ones[:m]), m

@@ -337,6 +337,8 @@ __global__ void __launch_bounds__(kAttnThreads) attn_cluster_kernel(
     const AttnArgs a) {
   constexpr int kStages = kAttnStages;
   using cache_t = typename std::conditional<kInt8, int8_t, __nv_bfloat16>::type;
+  pdl_trigger();
+  pdl_wait();
   cg::cluster_group cl = cg::this_cluster();
   const int C = static_cast<int>(cl.num_blocks());
   const int rank = static_cast<int>(cl.block_rank());
@@ -849,6 +851,8 @@ __global__ void __launch_bounds__(kAttnThreads) attn_chunk_kernel(
   __shared__ float red[32];
   __shared__ double red_d[32];
   __shared__ float self_sh;
+  pdl_trigger();
+  pdl_wait();
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int nw = nt >> 5;
@@ -1153,16 +1157,16 @@ inline cudaError_t prepare_attention(int B, int spec, int n_heads, int n_kv,
 
 // One layer's attention on the current stream, as ``pr`` prepared it:
 // the chunked walk, one block per (row, query head), or the cluster walk,
-// one launch either way.
+// one launch either way (``pdl``: a programmatic dependent launch, as K1
+// launches its step).
 inline cudaError_t launch_attention(const AttnLaunch& p, const AttnPrep& pr,
-                                    cudaStream_t st) {
-  if (pr.chunk != nullptr) {
-    pr.chunk<<<dim3(p.n_heads, p.B), kAttnThreads, pr.smem, st>>>(
+                                    cudaStream_t st, bool pdl = false) {
+  if (pr.chunk != nullptr)
+    return launch_pdl(
+        pr.chunk, dim3(p.n_heads, p.B), dim3(kAttnThreads), pr.smem, st, pdl,
         p.qkv, p.cosv, p.sinv, p.rope_stride, p.offs, p.off0, p.B / p.spec,
         p.spec, p.kc, p.vc, p.ks, p.vs, p.kn, p.vn, p.attn, p.S, p.window,
         p.ring_head, p.ring_size, p.chunk, p.n_heads, p.n_kv, p.hd, p.scale);
-    return cudaGetLastError();
-  }
   const AttnPlan& pl = pr.pl;
   const AttnArgs a{p.qkv,  p.cosv,   p.sinv,      p.rope_stride, p.offs,
                    p.off0, p.spec,   p.kc,        p.vc,          p.ks,
@@ -1174,13 +1178,15 @@ inline cudaError_t launch_attention(const AttnLaunch& p, const AttnPrep& pr,
   cfg.blockDim = dim3(kAttnThreads, 1, 1);
   cfg.dynamicSmemBytes = pr.smem;
   cfg.stream = st;
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = pl.cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = pdl ? 2 : 1;
   return cudaLaunchKernelEx(&cfg, pr.cluster, a);
 }
 

@@ -114,6 +114,8 @@ __global__ void __launch_bounds__(256) bf16_gemv_kernel(
     float* out, int M, int N, int K, bool vec) {
   const int lane = threadIdx.x & 31;
   const int n = blockIdx.x * kGemvWarps + (threadIdx.x >> 5);
+  pdl_trigger();  // K1's one-row path launches it ahead of its predecessor
+  pdl_wait();
   if (n >= N) return;  // whole warps leave together
   const __nv_bfloat16* w = seg_row(segs, n, K);
   for (int m0 = 0; m0 < M; m0 += R) {

@@ -11,6 +11,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "w8_common.cuh"
+
 namespace vx {
 namespace {
 
@@ -112,6 +114,8 @@ __global__ void __launch_bounds__(kQuantThreads) row_quant_kernel(
     __nv_bfloat16* __restrict__ xb) {
   __shared__ float red[32];
   __shared__ double red_d[32];
+  pdl_trigger();
+  pdl_wait();
   const int b = blockIdx.x;
   const float* xr = x + static_cast<size_t>(b) * ldx;
   float inv = 1.0f;
@@ -157,12 +161,12 @@ __global__ void __launch_bounds__(kQuantThreads) row_quant_kernel(
   if (threadIdx.x == 0) sx[b] = s;
 }
 
-inline void row_quant(const float* x, int ldx, int K, const float* w,
-                      const float* ada, float eps, int mode, int B,
-                      int8_t* xq, float* sx, __nv_bfloat16* xb,
-                      cudaStream_t st) {
-  row_quant_kernel<<<B, kQuantThreads, 0, st>>>(x, ldx, K, w, ada, eps, mode,
-                                                xq, sx, xb);
+inline cudaError_t row_quant(const float* x, int ldx, int K, const float* w,
+                             const float* ada, float eps, int mode, int B,
+                             int8_t* xq, float* sx, __nv_bfloat16* xb,
+                             cudaStream_t st, bool pdl = false) {
+  return launch_pdl(row_quant_kernel, dim3(B), dim3(kQuantThreads), 0, st,
+                    pdl, x, ldx, K, w, ada, eps, mode, xq, sx, xb);
 }
 
 }  // namespace

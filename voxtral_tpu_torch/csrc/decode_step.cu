@@ -43,8 +43,9 @@
 //       fuse_decode_weights_bf16, [L, N, K] bf16, streamed as they are
 //       (the qkv phase in up to three segments wq / wk / wv, the FFN's in
 //       w1 / w3), no scales.  row_quant writes the norm / ADA / SwiGLU row
-//       as bf16 instead of int8 codes, and the bf16 GEMV of bf16_gemv.cuh
-//       sums the exact bf16 x bf16 products in f64.  The attention
+//       as bf16 instead of int8 codes, and the exact bf16 x bf16
+//       products are summed in f64: on the f64 tensor cores from 2 rows
+//       (k1_stream.cuh), by bf16_row_dots (bf16_gemv.cuh) at one.  The attention
 //       kernels are the same, so (g) combines with (b)-(f).  Bytes: 2 per
 //       weight, 6.86 GB per step at full width with the lm table.
 //   (f) chunked cache (chunk = Sc > 0, spec = 1; :1085-1180): an online
@@ -74,7 +75,8 @@
 // residual in a [B, D] f32 buffer in HBM; per layer:
 //
 //   row_quant(norm)      rmsnorm x attn_norm, per-row int8 quant
-//   gemv qkv             W8A8 or g32 GEMV (w8_common.cuh)
+//   gemv qkv             the weight stream (k1_stream.cuh) or a GEMV of
+//                        w8_common.cuh / bf16_gemv.cuh, as planned
 //   attention            pair RoPE, GQA attention over the cache slots
 //                        [max(0, off + j - window), off), the fresh rows
 //                        i < j of the stream and the row itself: one
@@ -89,13 +91,17 @@
 //   row_quant(swiglu)    silu(gate) * up, int8 quant
 //   gemv w2 (+ x)
 //
-// then row_quant(final norm) and the lm_head GEMV (mode (g): bf16 rows and
-// the bf16 GEMV in the same places).  9 launches per layer
-// + 2.  What bounds it on the H100: the int8 weights streamed per step
-// (3.4 GB at full width, lm_head included); the GEMVs read each weight
-// byte once with 16-byte loads for up to 64 rows (spec: 8 streams x
-// K = 8), everything else is a few KB per launch.  Launch gaps and the
-// unfused epilogues are later work (CUDA graph, persistent kernel).
+// then row_quant(final norm) and the lm_head GEMV or fold (mode (g):
+// bf16 rows and the bf16 GEMVs in the same places).  9 launches per layer
+// + 2.  A one-row step and a step the weight stream takes go out as
+// programmatic dependent launches: each kernel may start while its
+// predecessor runs and waits (pdl_wait) before it touches the
+// activations, and the GEMVs fetch their first weights before that
+// wait.  What bounds it on the H100: the weights streamed per step
+// (3.43 GB w8 at full width, lm_head included; 6.86 GB bf16); the GEMVs
+// read each weight byte once for up to 64 rows (spec: 8 streams x K = 8),
+// everything else is a few KB per launch, but row_quant (one block a
+// row) and the attention hold the weight stream up between GEMVs.
 //
 // Rounding points follow the JAX kernel: q is scaled in f32 and cast to
 // bf16 for the cache scores; the self score and the fresh scores use the
@@ -117,6 +123,7 @@
 #include "attn_step.cuh"
 #include "bf16_gemv.cuh"
 #include "decode_common.cuh"
+#include "k1_stream.cuh"
 #include "lm_argmax.cuh"
 #include "w8_common.cuh"
 
@@ -142,9 +149,13 @@
 // chunk > 0: mode (f), the attention walks the cache in chunks of
 // ``chunk`` slots (chunk divides S; spec must be 1).  lm_argmax != 0:
 // mode (i), any wfmt: the lm fold writes token [B] int32, the first index
-// of each row's largest logit, instead of the logits (lm_argmax.cuh;
-// scratch tmax / tidx [B, ceil(V / 32)] f32 / int32).  The host reads no
-// offset: a pass launches without a device-to-host copy.
+// of each row's largest logit, instead of the logits (lm_argmax.cuh or
+// the stream's fold; scratch tmax / tidx [B, ceil(V / 8)] f32 / int32).
+// plan (host memory, ops/decode_step.py::k1_stream_plans): {kc, stages,
+// grid} of the weight stream for qkv, wo, w13, w2 and the lm table (kc 0:
+// the earlier GEMV), then plan[15] != 0 to launch the step's kernels as
+// programmatic dependent launches.  The host reads no offset: a pass
+// launches without a device-to-host copy.
 extern "C" int vx_decode_stack_step(
     const void* x, void* xo, const void* attn_norms, const void* ffn_norms,
     const void* ada, const void* sqkv, const void* so, const void* s13,
@@ -159,11 +170,11 @@ extern "C" int vx_decode_stack_step(
     int n_kv, int hd, int F, int V, int off0, int spec, int rope_stride,
     int window, int wfmt, int nqkv_a, int nqkv_b, int ring_head,
     int ring_size, int chunk, int lm_argmax, float eps, float scale,
-    void* stream) {
+    const int* plan, void* stream) {
   using namespace vx;
   const bool ring = ring_size > 0;
   if (hd > kMaxHeadDim || hd % 2 || n_kv <= 0 || n_heads % n_kv ||
-      spec < 1 || B % spec ||
+      spec < 1 || B % spec || L < 1 || plan == nullptr ||
       (offs == nullptr && (off0 < 0 || (!ring && off0 > S))) ||
       (ring && (ring_head < 0 || ring_head + ring_size > S)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -214,57 +225,74 @@ extern "C" int vx_decode_stack_step(
     return static_cast<const char*>(base) +
            wsize * static_cast<size_t>(l) * N * K;
   };
-  // Mode (g): one linear of layer l over up to three [L, n_i, K] bf16
-  // segments (n0, n1 rows; the last takes the rest of N).
-  auto gemv_bf = [&](const void* s0, const void* s1, const void* s2, int n0,
-                     int n1, int l, const float* resid, float* out, int N,
-                     int K) {
-    BfSegs sg;
-    sg.n0 = n0;
-    sg.n1 = n1;
-    sg.w[0] = static_cast<const __nv_bfloat16*>(wlayer(s0, l, n0, K));
-    sg.w[1] = static_cast<const __nv_bfloat16*>(wlayer(s1, l, n1, K));
-    sg.w[2] = static_cast<const __nv_bfloat16*>(
-        wlayer(s2, l, N - n0 - n1, K));
-    launch_bf16_gemv(xb, sg, resid, out, B, N, K, st);
-  };
+  // The weight stream's plan of each linear (qkv, wo, w13, w2, lm; from
+  // ops/decode_step.py::stream_plan, once a step): kc == 0 keeps the
+  // earlier GEMVs for a shape the stream does not take.
+  StreamPlan sp[5];
+  // plan[15] != 0: the step's kernels go out as programmatic dependent
+  // launches; 0: in plain stream order.
+  const bool pdl = plan[15] != 0;
+  const int kdim[5] = {D, nq, D, F, D};
+  for (int i = 0; i < 5; ++i) {
+    sp[i] = StreamPlan{plan[3 * i], plan[3 * i + 1], plan[3 * i + 2]};
+    const cudaError_t e = prepare_stream(wfmt, B, kdim[i], sp[i]);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   const int qa = bf16 ? nqkv_a : nqkv, qb = bf16 ? nqkv_b : 0;
   const int fa = (bf16 && w13_b != nullptr) ? F : 2 * F;
-  // One linear of the step on the rows quantized in xq / sx: W8A8 (row
-  // scales [N] f32) or g32 (group scales [N, K/32] f16, mode (h)).
-  auto gemv = [&](const void* Wv, const void* Sc, const float* resid,
-                  float* out, int N, int K) {
-    const int8_t* W = static_cast<const int8_t*>(Wv);
+  // One linear of layer l (``lin`` indexes sp) over the rows row_quant
+  // wrote: the stream (a programmatic dependent launch) or, where its
+  // plan says so, the earlier GEMVs.  Mode (g) passes up to three
+  // [L, n_i, K] bf16 segments (n0, n1 rows; the last takes the rest of
+  // N); w8 / g32 one stack with its row (w8, [L, N] f32) or group (g32,
+  // [L, N, K/32] f16) scales.
+  auto linear = [&](int lin, const void* s0, const void* s1, const void* s2,
+                    int n0, int n1, const void* sc, int l, const float* resid,
+                    float* out, int N, int K) -> cudaError_t {
+    const void* w0 = wlayer(s0, l, n0, K);
+    const void* w1 = wlayer(s1, l, n1, K);
+    const void* w2 = wlayer(s2, l, N - n0 - n1, K);
+    const void* scl = nullptr;
     if (g32)
-      launch_g32_gemv(xq, sx, W, static_cast<const __half*>(Sc), resid, out,
-                      B, N, K, st);
-    else
-      launch_w8_gemv(xq, sx, W, static_cast<const float*>(Sc), resid, out, B,
-                     N, K, st);
-  };
-  // Layer l's scales of an [L, N] (w8) or [L, N, K/32] (g32) stack.
-  auto layer_scales = [&](const void* base, int l, int N,
-                          int K) -> const void* {
-    if (g32)
-      return static_cast<const __half*>(base) +
-             static_cast<size_t>(l) * N * (K / 32);
-    return static_cast<const float*>(base) + static_cast<size_t>(l) * N;
+      scl = static_cast<const __half*>(sc) +
+            static_cast<size_t>(l) * N * (K / 32);
+    else if (!bf16)
+      scl = static_cast<const float*>(sc) + static_cast<size_t>(l) * N;
+    const float* scf = g32 ? nullptr : static_cast<const float*>(scl);
+    const void* xrow = bf16 ? static_cast<const void*>(xb) : xq;
+    const StreamSegs sg{{static_cast<const char*>(w0),
+                         static_cast<const char*>(w1),
+                         static_cast<const char*>(w2)},
+                        n0, n1};
+    if (sp[lin].kc > 0 && stream_aligned(xrow, sg)) {
+      const StreamArgs a{xrow, sx, sg, scf, resid, out, nullptr, nullptr,
+                         B, N, K, 0, 0};
+      return launch_stream(wfmt, sp[lin], a, st, pdl);
+    }
+    return launch_gemv_ahead(wfmt, xrow, sx, sg, scl, resid, out, B, N, K,
+                             st, pdl);
   };
   __nv_bfloat16* KN = static_cast<__nv_bfloat16*>(kn);
   __nv_bfloat16* VN = static_cast<__nv_bfloat16*>(vn);
 
-  cudaMemcpyAsync(X, x, sizeof(float) * static_cast<size_t>(B) * D,
-                  cudaMemcpyDeviceToDevice, st);
+  // Every launch of the step is a programmatic dependent launch: each
+  // kernel waits for its predecessor before it touches the activations,
+  // and the stream's GEMVs fetch their first weight tiles before that.
+  // Layer 0 reads x itself (its wo GEMV adds x into xo), so no copy
+  // node sits in the chain.
+  const float* Xin = static_cast<const float*>(x);
   const size_t cache_layer = static_cast<size_t>(Bc) * n_kv * S * hd;
   const size_t new_layer = static_cast<size_t>(B) * n_kv * hd;
+#define VX_TRY(call)                              \
+  do {                                            \
+    const cudaError_t e_ = (call);                \
+    if (e_ != cudaSuccess) return static_cast<int>(e_); \
+  } while (0)
   for (int l = 0; l < L; ++l) {
-    row_quant(X, D, D, an + static_cast<size_t>(l) * D, nullptr, eps,
-              kQuantNorm, B, xq, sx, xb, st);
-    if (bf16)
-      gemv_bf(wqkv, wqkv_b, wqkv_c, qa, qb, l, nullptr, qkv, nqkv, D);
-    else
-      gemv(wlayer(wqkv, l, nqkv, D), layer_scales(sqkv, l, nqkv, D), nullptr,
-           qkv, nqkv, D);
+    VX_TRY(row_quant(Xin, D, D, an + static_cast<size_t>(l) * D, nullptr,
+                     eps, kQuantNorm, B, xq, sx, xb, st, pdl));
+    VX_TRY(linear(0, wqkv, bf16 ? wqkv_b : nullptr, bf16 ? wqkv_c : nullptr,
+                  qa, qb, sqkv, l, nullptr, qkv, nqkv, D));
     const size_t scale_layer = static_cast<size_t>(Bc) * n_kv * S;
     const int esize = kv8 ? 1 : 2;  // bytes per cached value
     const size_t cache_off = static_cast<size_t>(esize) * l * cache_layer;
@@ -282,43 +310,52 @@ extern "C" int vx_decode_stack_step(
                       : nullptr,
                   KN + l * new_layer, VN + l * new_layer, att, S, window,
                   ring_head, ring_size, chunk, n_heads, n_kv, hd, scale};
-    const cudaError_t ae = launch_attention(at, prep, st);
-    if (ae != cudaSuccess) return static_cast<int>(ae);
-    row_quant(att, nq, nq, nullptr, nullptr, eps, kQuantPlain, B, xq, sx, xb,
-              st);
-    if (bf16)
-      gemv_bf(wo, nullptr, nullptr, D, 0, l, X, X, D, nq);
-    else
-      gemv(wlayer(wo, l, D, nq), layer_scales(so, l, D, nq), X, X, D, nq);
-    row_quant(X, D, D, fn + static_cast<size_t>(l) * D,
-              av + static_cast<size_t>(l) * D, eps, kQuantNorm, B, xq, sx, xb,
-              st);
-    if (bf16)
-      gemv_bf(w13, w13_b, nullptr, fa, 2 * F - fa, l, nullptr, up, 2 * F, D);
-    else
-      gemv(wlayer(w13, l, 2 * F, D), layer_scales(s13, l, 2 * F, D), nullptr,
-           up, 2 * F, D);
-    row_quant(up, 2 * F, F, nullptr, nullptr, eps, kQuantSwiglu, B, xq, sx, xb,
-              st);
-    if (bf16)
-      gemv_bf(w2, nullptr, nullptr, D, 0, l, X, X, D, F);
-    else
-      gemv(wlayer(w2, l, D, F), layer_scales(s2, l, D, F), X, X, D, F);
+    VX_TRY(launch_attention(at, prep, st, pdl));
+    VX_TRY(row_quant(att, nq, nq, nullptr, nullptr, eps, kQuantPlain, B, xq,
+                     sx, xb, st, pdl));
+    VX_TRY(linear(1, wo, nullptr, nullptr, D, 0, so, l, Xin, X, D, nq));
+    Xin = X;
+    VX_TRY(row_quant(X, D, D, fn + static_cast<size_t>(l) * D,
+                     av + static_cast<size_t>(l) * D, eps, kQuantNorm, B, xq,
+                     sx, xb, st, pdl));
+    VX_TRY(linear(2, w13, bf16 ? w13_b : nullptr, nullptr, fa, 2 * F - fa,
+                  s13, l, nullptr, up, 2 * F, D));
+    VX_TRY(row_quant(up, 2 * F, F, nullptr, nullptr, eps, kQuantSwiglu, B, xq,
+                     sx, xb, st, pdl));
+    VX_TRY(linear(3, w2, nullptr, nullptr, D, 0, s2, l, X, X, D, F));
   }
   if (lm_codes != nullptr) {
-    row_quant(X, D, D, static_cast<const float*>(final_norm), nullptr, eps,
-              kQuantNorm, B, xq, sx, xb, st);
-    if (lm_argmax)  // mode (i): the greedy token, no logits written
-      launch_argmax(wfmt, bf16 ? static_cast<const void*>(xb) : xq, sx,
-                    lm_codes, lm_scale, B, V, D, static_cast<float*>(tmax_buf),
+    VX_TRY(row_quant(X, D, D, static_cast<const float*>(final_norm), nullptr,
+                     eps, kQuantNorm, B, xq, sx, xb, st, pdl));
+    const void* xrow = bf16 ? static_cast<const void*>(xb) : xq;
+    const StreamSegs sg{{static_cast<const char*>(lm_codes), nullptr, nullptr},
+                        V, 0};
+    if (lm_argmax && sp[4].kc > 0 && stream_aligned(xrow, sg)) {
+      // Mode (i) on the stream: the fold's partials a group of rows, then
+      // the merge.
+      const int groups = (V + stream_fmt(wfmt).rows - 1) /
+                         stream_fmt(wfmt).rows;
+      const StreamArgs a{xrow, sx, sg, static_cast<const float*>(lm_scale),
+                         nullptr, nullptr,
+                         static_cast<float*>(tmax_buf),
+                         static_cast<int*>(tidx_buf), B, V, D, 0, 0};
+      VX_TRY(launch_stream(wfmt, sp[4], a, st, pdl));
+      VX_TRY(launch_pdl(argmax_merge_kernel, dim3(B), dim3(256), 0, st, pdl,
+                        static_cast<const float*>(tmax_buf),
+                        static_cast<const int*>(tidx_buf), groups,
+                        static_cast<float*>(nullptr),
+                        static_cast<int*>(token)));
+    } else if (lm_argmax) {  // mode (i) on the earlier fold
+      launch_argmax(wfmt, xrow, sx, lm_codes, lm_scale, B, V, D,
+                    static_cast<float*>(tmax_buf),
                     static_cast<int*>(tidx_buf), nullptr,
-                    static_cast<int*>(token), st);
-    else if (bf16)
-      gemv_bf(lm_codes, nullptr, nullptr, V, 0, 0, nullptr,
-              static_cast<float*>(logits), V, D);
-    else
-      gemv(lm_codes, lm_scale, nullptr, static_cast<float*>(logits), V, D);
+                    static_cast<int*>(token), st, pdl);
+    } else {
+      VX_TRY(linear(4, lm_codes, nullptr, nullptr, V, 0, lm_scale, 0, nullptr,
+                    static_cast<float*>(logits), V, D));
+    }
   }
+#undef VX_TRY
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -376,4 +413,60 @@ extern "C" int vx_attn_plan(int streams, int n_heads, int n_kv, int spec,
   out[3] = p.piece;
   out[4] = static_cast<long long>(p.smem);
   return 0;
+}
+
+// One linear of K1's weight stream alone, as a step launches it (the card
+// tests and benches/torch_k1_times.py): out [M, N] = x . w^T with the
+// format's epilogue (+ resid, may be NULL), or, with token != NULL, the
+// fold: token [M] int32 the first index of each row's largest value
+// (scratch tmax / tidx [M, ceil(N / 8)]).  w in up to three segments
+// (n0, n1 rows; w8 and g32 one, n0 = N), scale as in
+// vx_decode_stack_step; plan = {kc, stages, grid} of
+// ops/decode_step.py::stream_plan, kc == 0 taking the earlier GEMV or
+// fold.  Launched plainly (no predecessor to overlap).
+extern "C" int vx_k1_linear(int fmt, const void* x, const void* sx,
+                            const void* w0, const void* w1, const void* w2,
+                            int n0, int n1, const void* scale,
+                            const void* resid, void* out, void* tmax,
+                            void* tidx, void* token, int M, int N, int K,
+                            const int* plan, void* stream) {
+  using namespace vx;
+  if ((fmt != kW8 && fmt != kG32 && fmt != kBf16) || M < 1 || N < 1 ||
+      plan == nullptr || (token == nullptr) == (out == nullptr) ||
+      (token != nullptr && (tmax == nullptr || tidx == nullptr)) ||
+      (fmt != kBf16 && (w1 != nullptr || w2 != nullptr || n0 != N)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const StreamPlan p{plan[0], plan[1], plan[2]};
+  cudaError_t e = prepare_stream(fmt, M, K, p);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const StreamSegs sg{{static_cast<const char*>(w0),
+                       static_cast<const char*>(w1),
+                       static_cast<const char*>(w2)},
+                      n0, n1};
+  const float* sxf = static_cast<const float*>(sx);
+  const float* rf = static_cast<const float*>(resid);
+  float* of = static_cast<float*>(out);
+  if (p.kc > 0 && stream_aligned(x, sg)) {
+    const StreamArgs a{x, sxf, sg, static_cast<const float*>(scale), rf, of,
+                       static_cast<float*>(tmax), static_cast<int*>(tidx),
+                       M, N, K, 0, 0};
+    e = launch_stream(fmt, p, a, st, false);
+    if (e == cudaSuccess && token != nullptr) {
+      const int groups = (N + stream_fmt(fmt).rows - 1) / stream_fmt(fmt).rows;
+      argmax_merge_kernel<<<M, 256, 0, st>>>(
+          static_cast<const float*>(tmax), static_cast<const int*>(tidx),
+          groups, nullptr, static_cast<int*>(token));
+    }
+  } else if (token != nullptr) {
+    if (fmt == kBf16 && (w1 != nullptr || w2 != nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    launch_argmax(fmt, x, sxf, w0, scale, M, N, K, static_cast<float*>(tmax),
+                  static_cast<int*>(tidx), nullptr, static_cast<int*>(token),
+                  st);
+  } else {
+    e = launch_gemv_ahead(fmt, x, sxf, sg, scale, rf, of, M, N, K, st, false);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }

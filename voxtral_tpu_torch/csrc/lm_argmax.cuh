@@ -88,6 +88,8 @@ __global__ void __launch_bounds__(32 * kGemvWarps) argmax_tile_kernel(
   __shared__ int si[kGemvWarps][M];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int tile = blockIdx.x;
+  pdl_trigger();
+  pdl_wait();
   float best_v[M];
   int best_i[M];
 #pragma unroll
@@ -192,6 +194,8 @@ __global__ void __launch_bounds__(256) argmax_merge_kernel(
     float* __restrict__ vmax, int* __restrict__ vidx) {
   __shared__ float wv[32];
   __shared__ int wi[32];
+  pdl_trigger();
+  pdl_wait();
   const int m = blockIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = (blockDim.x + 31) >> 5;
@@ -243,7 +247,7 @@ inline int argmax_tiles(int N) { return (N + kLmTile - 1) / kLmTile; }
 inline void launch_argmax(int fmt, const void* xq, const float* sx,
                           const void* table, const void* scale, int M, int N,
                           int K, float* tmax, int* tidx, float* vmax,
-                          int* vidx, cudaStream_t st) {
+                          int* vidx, cudaStream_t st, bool pdl = false) {
   const bool bf16 = fmt == kBf16;
   const size_t row_bytes = static_cast<size_t>(K) * (bf16 ? 2 : 1);
   const bool vec = (K % (bf16 ? 8 : 16) == 0) && aligned16(xq) &&
@@ -258,15 +262,11 @@ inline void launch_argmax(int fmt, const void* xq, const float* sx,
     switch (mr) {
 #define VX_ARGMAX_CASE(MM)                                                 \
   case MM:                                                                 \
-    if (fmt == kG32)                                                       \
-      argmax_tile_kernel<MM, kG32><<<n_tiles, 32 * kGemvWarps, 0, st>>>(   \
-          x, s, table, scale, N, K, vec, n_tiles, tm, ti);                 \
-    else if (bf16)                                                         \
-      argmax_tile_kernel<MM, kBf16><<<n_tiles, 32 * kGemvWarps, 0, st>>>(  \
-          x, s, table, scale, N, K, vec, n_tiles, tm, ti);                 \
-    else                                                                   \
-      argmax_tile_kernel<MM, kW8><<<n_tiles, 32 * kGemvWarps, 0, st>>>(    \
-          x, s, table, scale, N, K, vec, n_tiles, tm, ti);                 \
+    launch_pdl(fmt == kG32 ? argmax_tile_kernel<MM, kG32>                  \
+               : bf16      ? argmax_tile_kernel<MM, kBf16>                 \
+                           : argmax_tile_kernel<MM, kW8>,                  \
+               dim3(n_tiles), dim3(32 * kGemvWarps), 0, st, pdl, x, s,     \
+               table, scale, N, K, vec, n_tiles, tm, ti);                  \
     break;
       VX_ARGMAX_CASE(1)
       VX_ARGMAX_CASE(2)
@@ -281,7 +281,9 @@ inline void launch_argmax(int fmt, const void* xq, const float* sx,
         break;
     }
   }
-  argmax_merge_kernel<<<M, 256, 0, st>>>(tmax, tidx, n_tiles, vmax, vidx);
+  launch_pdl(argmax_merge_kernel, dim3(M), dim3(256), 0, st, pdl,
+             static_cast<const float*>(tmax), static_cast<const int*>(tidx),
+             n_tiles, vmax, vidx);
 }
 
 }  // namespace

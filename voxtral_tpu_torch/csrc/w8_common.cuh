@@ -52,6 +52,41 @@ constexpr int kDp4aMaxM = 8;    // activation rows of the dp4a GEMV
 constexpr int kGemvMaxM = 64;   // activation rows served by one weight pass
 constexpr int kMmaWarps = 4;    // n8 tiles per 128-thread mma GEMV block
 
+// Programmatic dependent launch (sm_90).  A kernel launched with
+// launch_pdl may start while its predecessor in the stream still runs:
+// pdl_wait() returns once the predecessor has completed and its writes
+// are visible (at once in a grid launched without the attribute), so
+// everything a kernel reads or writes that a predecessor touches comes
+// after it; pdl_trigger() lets the successor launch.  K1 launches its
+// whole step this way (decode_step.cu); K2 / K4 / K5 / K7 launch
+// plainly.
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void pdl_trigger() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Launches kernel<<<grid, block, smem, st>>>(args...), with the
+// programmatic-serialization attribute when ``pdl``.
+template <typename... Params, typename... Args>
+cudaError_t launch_pdl(void (*kernel)(Params...), dim3 grid, dim3 block,
+                       size_t smem, cudaStream_t st, bool pdl,
+                       Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}
+
 __device__ __forceinline__ int warp_sum_int(int v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -62,37 +97,56 @@ __device__ __forceinline__ float w8_epilogue(int acc, float sx, float sc) {
   return (static_cast<float>(acc) * sx) * sc;
 }
 
-template <int M>
+// PRE > 0 (K1, launched ahead of its predecessor): the first PRE of the
+// lane's 16-byte weight pieces come into registers before pdl_wait, so
+// they stream while the previous launch ends.  The int32 sums are exact,
+// so the order of the pieces does not matter.
+template <int M, int PRE = 0>
 __global__ void __launch_bounds__(256) w8_gemv_kernel(
     const int8_t* __restrict__ xq, const float* __restrict__ sx,
     const int8_t* __restrict__ codes, const float* __restrict__ scale,
     const float* resid, float* out, int N, int K, bool vec) {
   const int lane = threadIdx.x & 31;
   const int n = blockIdx.x * kGemvWarps + (threadIdx.x >> 5);
+  const int8_t* w = codes + static_cast<size_t>(n < N ? n : 0) * K;
+  const int4* w4 = reinterpret_cast<const int4*>(w);
+  const int nv = K >> 4;
+  int4 pre[PRE > 0 ? PRE : 1];
+  if constexpr (PRE > 0) {
+#pragma unroll
+    for (int j = 0; j < PRE; ++j) {
+      const int i = lane + 32 * j;
+      pre[j] = (vec && n < N && i < nv) ? __ldg(w4 + i)
+                                        : make_int4(0, 0, 0, 0);
+    }
+  }
+  pdl_trigger();
+  pdl_wait();
   if (n >= N) return;
-  const int8_t* w = codes + static_cast<size_t>(n) * K;
   int acc[M];
 #pragma unroll
   for (int m = 0; m < M; ++m) acc[m] = 0;
+  // The dot of one 16-byte piece i (16 weights) with each row.
+  auto dot = [&](const int4 wv, int i) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int4 xv = __ldg(
+          reinterpret_cast<const int4*>(xq + static_cast<size_t>(m) * K) + i);
+      int a = acc[m];
+      a = __dp4a(wv.x, xv.x, a);
+      a = __dp4a(wv.y, xv.y, a);
+      a = __dp4a(wv.z, xv.z, a);
+      a = __dp4a(wv.w, xv.w, a);
+      acc[m] = a;
+    }
+  };
   if (vec) {
     // K % 16 == 0 and 16-byte aligned rows: one int4 (16 weights) per
     // lane per iteration, neighbouring lanes on neighbouring addresses.
-    const int4* w4 = reinterpret_cast<const int4*>(w);
-    const int nv = K >> 4;
-    for (int i = lane; i < nv; i += 32) {
-      const int4 wv = __ldg(w4 + i);
 #pragma unroll
-      for (int m = 0; m < M; ++m) {
-        const int4 xv = __ldg(
-            reinterpret_cast<const int4*>(xq + static_cast<size_t>(m) * K) + i);
-        int a = acc[m];
-        a = __dp4a(wv.x, xv.x, a);
-        a = __dp4a(wv.y, xv.y, a);
-        a = __dp4a(wv.z, xv.z, a);
-        a = __dp4a(wv.w, xv.w, a);
-        acc[m] = a;
-      }
-    }
+    for (int j = 0; j < PRE; ++j)
+      if (lane + 32 * j < nv) dot(pre[j], lane + 32 * j);
+    for (int i = lane + 32 * PRE; i < nv; i += 32) dot(__ldg(w4 + i), i);
   } else {
     for (int k = lane; k < K; k += 32) {
       const int wv = w[k];
@@ -276,11 +330,33 @@ __device__ __forceinline__ double warp_sum_f64(double v) {
 // the scale.  The loop runs the same trip count on every lane (the
 // shuffles need the whole warp).  Shared by the g32 GEMV and the g32 lm
 // fold (lm_argmax.cuh), so the fold's logits are the GEMV's bit for bit.
-template <int M>
+// PRE > 0: the first PRE rounds' pieces and scales come preloaded in pw
+// / ps (g32_preload, before pdl_wait); the sums run in the same order.
+template <int PRE>
+__device__ __forceinline__ void g32_preload(const int8_t* __restrict__ codes,
+                                            const __half* __restrict__ gscale,
+                                            int n, int K, int lane,
+                                            int4 (&pw)[PRE > 0 ? PRE : 1],
+                                            double (&ps)[PRE > 0 ? PRE : 1]) {
+  const int4* w4 =
+      reinterpret_cast<const int4*>(codes + static_cast<size_t>(n) * K);
+  const __half* sr = gscale + static_cast<size_t>(n) * (K / 32);
+  const int nv = K >> 4;
+#pragma unroll
+  for (int j = 0; j < PRE; ++j) {
+    const int i = 32 * j + lane;
+    const bool in = i < nv;
+    pw[j] = in ? __ldg(w4 + i) : make_int4(0, 0, 0, 0);
+    ps[j] = in ? static_cast<double>(__half2float(sr[i >> 1])) : 0.0;
+  }
+}
+
+template <int M, int PRE = 0>
 __device__ __forceinline__ void g32_row_dots(
     const int8_t* __restrict__ xq, const int8_t* __restrict__ codes,
     const __half* __restrict__ gscale, int n, int K, int lane,
-    double (&acc)[M]) {
+    double (&acc)[M], const int4 (&pw)[PRE > 0 ? PRE : 1],
+    const double (&ps)[PRE > 0 ? PRE : 1]) {
   const int4* w4 =
       reinterpret_cast<const int4*>(codes + static_cast<size_t>(n) * K);
   const __half* sr = gscale + static_cast<size_t>(n) * (K / 32);
@@ -288,11 +364,10 @@ __device__ __forceinline__ void g32_row_dots(
 #pragma unroll
   for (int m = 0; m < M; ++m) acc[m] = 0.0;
   const int nv = K >> 4;  // 16-byte chunks, two per group
-  for (int base = 0; base < nv; base += 32) {
+  // Round ``base``: lane's piece i = base + lane with its group scale s.
+  auto step = [&](int base, const int4 wv, const double s) {
     const int i = base + lane;
     const bool in = i < nv;  // nv is even: both lanes of a group agree
-    const int4 wv = in ? __ldg(w4 + i) : zero;
-    const double s = in ? static_cast<double>(__half2float(sr[i >> 1])) : 0.0;
 #pragma unroll
     for (int m = 0; m < M; ++m) {
       const int4 xv =
@@ -306,23 +381,48 @@ __device__ __forceinline__ void g32_row_dots(
       a += __shfl_xor_sync(0xffffffffu, a, 1);  // the group's exact dot
       if ((lane & 1) == 0) acc[m] += static_cast<double>(a) * s;
     }
+  };
+#pragma unroll
+  for (int j = 0; j < PRE; ++j)
+    if (32 * j < nv) step(32 * j, pw[j], ps[j]);
+  for (int base = 32 * PRE; base < nv; base += 32) {
+    const int i = base + lane;
+    const bool in = i < nv;
+    step(base, in ? __ldg(w4 + i) : zero,
+          in ? static_cast<double>(__half2float(sr[i >> 1])) : 0.0);
   }
 #pragma unroll
   for (int m = 0; m < M; ++m) acc[m] = warp_sum_f64(acc[m]);
 }
 
+template <int M>
+__device__ __forceinline__ void g32_row_dots(
+    const int8_t* __restrict__ xq, const int8_t* __restrict__ codes,
+    const __half* __restrict__ gscale, int n, int K, int lane,
+    double (&acc)[M]) {
+  const int4 pw[1] = {make_int4(0, 0, 0, 0)};
+  const double ps[1] = {0.0};
+  g32_row_dots<M, 0>(xq, codes, gscale, n, K, lane, acc, pw, ps);
+}
+
 // g32 GEMV, M <= 8: one warp per output row n (g32_row_dots), the
 // epilogue float(sum) * sx[m] (+ resid).
-template <int M>
+template <int M, int PRE = 0>
 __global__ void __launch_bounds__(256) g32_gemv_kernel(
     const int8_t* __restrict__ xq, const float* __restrict__ sx,
     const int8_t* __restrict__ codes, const __half* __restrict__ gscale,
     const float* resid, float* out, int N, int K) {
   const int lane = threadIdx.x & 31;
   const int n = blockIdx.x * kGemvWarps + (threadIdx.x >> 5);
+  int4 pw[PRE > 0 ? PRE : 1];  // as w8_gemv_kernel's PRE
+  double ps[PRE > 0 ? PRE : 1];
+  if constexpr (PRE > 0) g32_preload<PRE>(codes, gscale, n < N ? n : 0, K,
+                                          lane, pw, ps);
+  pdl_trigger();
+  pdl_wait();
   if (n >= N) return;  // whole warps leave together
   double acc[M];
-  g32_row_dots<M>(xq, codes, gscale, n, K, lane, acc);
+  g32_row_dots<M, PRE>(xq, codes, gscale, n, K, lane, acc, pw, ps);
   if (lane == 0) {
 #pragma unroll
     for (int m = 0; m < M; ++m) {

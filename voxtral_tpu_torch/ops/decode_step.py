@@ -37,17 +37,24 @@ tiles, so the step returns each row's token and never writes the
 logits; over each table the fold compares the logits of that weight
 mode bit for bit (the same row dots), so its token is ``torch.argmax``
 of them.  Source:
-``csrc/decode_step.cu`` (the GEMV of mode (g): ``csrc/bf16_gemv.cuh``;
-the fold of mode (i): ``csrc/lm_argmax.cuh``).
+``csrc/decode_step.cu`` (the weight stream: ``csrc/k1_stream.cuh``;
+the one-row GEMV of mode (g): ``csrc/bf16_gemv.cuh``; the fold of mode
+(i): ``csrc/lm_argmax.cuh`` or the stream's).
 
 What bounds it on the H100: the int8 weights streamed once per step —
 26 layers of wqkv / wo / w13 / w2 plus the 131072 x 3072 lm table, about
 3.4 GB at full width (3.64 GB with g32 scales, 6.86 GB of bf16 in mode
-(g)), shared by every row of the step (up to 64 rows per weight pass).  The design: a fixed sequence of kernels on
-the current stream (row norm + int8 quant, W8A8 GEMV with 16-byte loads
-— ``__dp4a`` up to 8 rows, int8 tensor-core ``mma`` up to 64 — the RoPE
-+ GQA attention, residual adds fused into the GEMV epilogue) — 9
-launches per layer + 2, no cross-block carry.  The attention of modes
+(g)), shared by every row of the step (up to 64 rows per weight pass).
+The design: a fixed sequence of kernels on the current stream (row norm
++ int8 quant, the weight stream of each linear, the RoPE + GQA
+attention, residual adds fused into the GEMV epilogue) — 9 launches per
+layer + 2, no cross-block carry.  :func:`stream_plan` picks each
+linear's GEMV: the weight stream (persistent blocks, a cp.async ring per
+warp, bf16 products on the f64 tensor cores; :func:`bf16_dots_split_plain`
+states its summation order) for bf16 from 2 rows and w8 above 32, else
+``__dp4a`` (up to 8 rows), int8 tensor-core ``mma`` (up to 64) or
+``bf16_row_dots`` (one bf16 row).  A one-row step and a stream step go
+out as programmatic dependent launches (:data:`K1_PDL`).  The attention of modes
 (a)-(e) is one thread-block cluster per (stream, kv head): its blocks
 split the visible slots, serve every query head and draft row of the
 stream (one read of each K/V row), and merge max, denominators and P.V
@@ -75,7 +82,8 @@ module holds beside the kernels: :func:`fuse_decode_weights`, :func:`fuse_decode
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -356,6 +364,37 @@ def bf16_matmul_plain(xb: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     xd = xb.double()
     return torch.cat([(xd @ w[n0:n0 + _G32_CHUNK].double().T).float()
                       for n0 in range(0, w.shape[0], _G32_CHUNK)], dim=1)
+
+
+def bf16_dots_split_plain(xb: torch.Tensor, w: torch.Tensor,
+                          kc: Optional[int] = None) -> torch.Tensor:
+    """Mode (g)'s GEMV in the summation order of K1's weight stream
+    (``csrc/k1_stream.cuh``): xb [M, K] bf16, w [N, K] bf16 -> [M, N] f32.
+    K splits into STREAM_PARTS parts and each part into chunks of ``kc``
+    elements (default: :func:`stream_chunk` of K); every chunk's exact
+    bf16 x bf16 products are summed in f64, the chunks of a part added
+    in k order, the parts in part order, and the sum rounds once to f32.
+    The kernel sums each chunk in (step, slot) order inside the f64
+    tensor cores; the value differs from :func:`bf16_matmul_plain`'s
+    only by f64 round-off, and the row count enters nowhere."""
+    m, k = xb.shape
+    kc = kc or stream_chunk("bf16", k)
+    if not kc:
+        raise ValueError(f"the weight stream does not take K = {k}")
+    xd = xb.double()
+    total = None
+    part_k = k // STREAM_PARTS
+    for p in range(STREAM_PARTS):
+        part = None
+        for k0 in range(p * part_k, (p + 1) * part_k, kc):
+            cols = []
+            for n0 in range(0, w.shape[0], _G32_CHUNK):
+                wc = w[n0:n0 + _G32_CHUNK, k0:k0 + kc].double()
+                cols.append(xd[:, k0:k0 + kc] @ wc.T)
+            chunk = torch.cat(cols, dim=1)
+            part = chunk if part is None else part + chunk
+        total = part if total is None else total + part
+    return total.float()
 
 
 def _segs(w) -> tuple:
@@ -788,6 +827,124 @@ SMEM_LIMIT = 227 * 1024
 LM_TILE = 32
 
 
+# K1's weight stream (csrc/k1_stream.cuh): a block of STREAM_PARTS warps
+# splits K into parts, each warp streaming its part of a group of output
+# rows in chunks of kc elements through a ring of shared-memory stages.
+STREAM_PARTS = 4
+STREAM_MAX_M = 64            # activation rows of one pass over the weights
+STREAM_MAX_STAGES = 4
+STREAM_BLOCK_SMEM = 232448   # the most shared memory a block may take
+STREAM_SM_SMEM = 233472      # an SM's, 1 KB of it held back per block
+# Per weight format: element bytes, output rows a group, activation rows
+# an mma tile, k elements a step (kc's multiple), bytes of a partial sum,
+# and the most bytes of one weight row a chunk holds.
+STREAM_FMT = {"w8": (1, 8, 16, 64, 4, 1024), "bf16": (2, 16, 8, 32, 8, 512)}
+STREAM_RING_ROWS = 8         # bf16 activation rows a ring slot stages
+
+
+class StreamPlan(NamedTuple):
+    """One linear's launch: chunk kc (elements), ring stages, persistent
+    grid, a block's shared memory and the blocks an SM holds."""
+    kc: int
+    stages: int
+    grid: int
+    smem: int
+    blocks_per_sm: int
+
+
+def stream_chunk(fmt: str, k: int) -> int:
+    """The chunk kc of a K part, or 0 where the stream does not take K:
+    the fewest chunks of at most the format's chunk bytes that split the
+    part into whole steps.  It depends on the format and K alone, so a
+    row's sum runs in the same order whatever the row count."""
+    esize, _, _, align, _, most = STREAM_FMT[fmt]
+    if k % (STREAM_PARTS * align):
+        return 0
+    part = k // STREAM_PARTS
+    for n in range(-(-part * esize // most), part // align + 1):
+        if part % n == 0 and (part // n) % align == 0:
+            return part // n
+    return 0
+
+
+def stream_smem(fmt: str, mt: int, kc: int, stages: int) -> int:
+    """A block's shared memory (csrc/k1_stream.cuh::StreamLayout): the
+    warps' rings (weight rows, then up to STREAM_RING_ROWS bf16
+    activation rows), two buffers of partial sums, the fold's values."""
+    esize, rows, mrows, _, vsize, _ = STREAM_FMT[fmt]
+    mp = mt * mrows
+    staged = mt * 8 if fmt == "bf16" and mt * 8 <= STREAM_RING_ROWS else 0
+    stage = -(-(rows + staged) * kc * esize // 128) * 128
+    return (STREAM_PARTS * stages * stage + 2 * STREAM_PARTS * rows * mp
+            * vsize + rows * mp * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def stream_plan(fmt: str, m: int, n: int, k: int,
+                sms: int) -> Optional[StreamPlan]:
+    """The weight stream's launch of one [n, k] linear over m rows on a
+    card of ``sms`` SMs, or None where the earlier GEMVs of
+    w8_common.cuh / bf16_gemv.cuh run it: a k the stream does not take;
+    one bf16 row (bf16_row_dots: one warp per output row, no padding to
+    the 8-row tile); w8 up to 32 rows and g32 at any count, where the
+    dp4a and mma GEMVs measured faster on the H100
+    (benches/torch_k1_times.py).  As many blocks an SM as the kernel's
+    registers allow (4 up to 4 row tiles, else 2) while rings of at
+    least two stages fit; at most STREAM_MAX_STAGES stages; the grid
+    holds every group of rows or fills the card."""
+    if fmt not in STREAM_FMT or m < (2 if fmt == "bf16" else 33) or n < 1:
+        return None
+    kc = stream_chunk(fmt, k)
+    if not kc:
+        return None
+    rows, mrows = STREAM_FMT[fmt][1], STREAM_FMT[fmt][2]
+    mt = -(-min(m, STREAM_MAX_M) // mrows)
+    fixed = stream_smem(fmt, mt, kc, 0)
+    per_stage = stream_smem(fmt, mt, kc, 1) - fixed
+    most = 4 if mt <= 4 else 2  # the kernel's register budget
+    for bps in range(most, 0, -1):
+        budget = min(STREAM_SM_SMEM // bps - 1024, STREAM_BLOCK_SMEM)
+        stages = min(STREAM_MAX_STAGES, (budget - fixed) // per_stage)
+        if stages >= 2 or (bps == 1 and stages >= 1):
+            grid = min(-(-n // rows), sms * bps)
+            return StreamPlan(kc, stages, grid,
+                              stream_smem(fmt, mt, kc, stages), bps)
+    return None
+
+
+# Whether K1 launches the kernels of a one-row step, or of a step the
+# weight stream takes (bf16 from 2 rows, w8 above 32), as programmatic
+# dependent launches (True); other steps, and every step with False
+# (benches/torch_k1_times.py --pdl 0), go in plain stream order.
+K1_PDL = True
+
+
+def k1_stream_plans(fmt: str, m: int, dim: int, nq: int, nqkv: int,
+                    hidden: int, vocab: int, sms: int) -> list:
+    """The step's plans (kc, stages, grid) of qkv, wo, w13, w2 and the lm
+    table, flat; (0, 0, 0) for a linear the stream does not take or the
+    lm table when there is none."""
+    out = []
+    for n, k in ((nqkv, dim), (dim, nq), (2 * hidden, dim), (dim, hidden),
+                 (vocab, dim)):
+        p = stream_plan(fmt, m, n, k, sms) if n else None
+        out += [p.kc, p.stages, p.grid] if p else [0, 0, 0]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _card_index(dev: torch.device) -> int:
+    return torch.cuda.current_device() if dev.index is None else dev.index
+
+
+def _plan_array(plans: list):
+    return (ctypes.c_int * len(plans))(*plans)
+
+
 def kernel_attn_plan(streams: int, n_heads: int, n_kv: int, spec: int,
                      head_dim: int, span: int, kv_int8: bool) -> tuple:
     """(cluster, vectors, groups, piece, bytes) of the cluster walk at a
@@ -1097,7 +1254,7 @@ def decode_stack_step(
     token = tmax = tidx = None
     if lm_argmax:  # mode (i): the token and the fold's per-tile partials
         token = torch.empty((B, 1), dtype=torch.int32, device=dev)
-        tiles = -(-V // LM_TILE)
+        tiles = -(-V // 8)  # the stream's groups of 8 or 16 rows, LM_TILE
         tmax = torch.empty((B, tiles), **f32)
         tidx = torch.empty((B, tiles), dtype=torch.int32, device=dev)
     # The GEMVs' input rows: int8 codes, or bf16 in mode (g).
@@ -1114,9 +1271,14 @@ def decode_stack_step(
         return sg[i] if i < len(sg) else None
 
     ring_head, ring_size = ring if ring is not None else (0, 0)
+    plans = k1_stream_plans(fmt, B, D, nq, nq + 2 * nkvd, F, V,
+                            _sm_count(_card_index(dev)))
+    # Early launches where they measured faster: one row, or a step the
+    # weight stream takes.
+    plans = _plan_array(plans + [int(K1_PDL and (B == 1 or any(plans)))])
     with torch.cuda.device(dev):
         fn = kernel_fn("vx_decode_stack_step", [_P] * 37 + [_I] * 20
-                       + [_F, _F, _P])
+                       + [_F, _F, _P, _P])
         stream = torch.cuda.current_stream(dev).cuda_stream
         qkv_b = seg(qkv_segs, 1)
         code = fn(
@@ -1137,7 +1299,7 @@ def decode_stack_step(
             {"w8": 0, "g32": 1, "bf16": 2}[fmt], qkv_segs[0].shape[1],
             0 if qkv_b is None else qkv_b.shape[1], ring_head, ring_size,
             int(cache_chunk or 0), int(lm_argmax), eps, head_dim ** -0.5,
-            stream)
+            plans, stream)
     check(code, "decode_stack_step")
     decode_stack_step.launches += 1
     out = (x_out, k_new, v_new)
@@ -1153,6 +1315,82 @@ decode_stack_step.launches = 0
 decode_stack_step.argmax_launches = 0
 decode_stack_step.argmax_g32_launches = 0
 decode_stack_step.argmax_bf16_launches = 0
+
+
+def k1_linear_plain(x, w, scale=None, sx=None, resid=None,
+                    lm_argmax: bool = False) -> torch.Tensor:
+    """Plain version of :func:`k1_linear`: the step's linear in its
+    weight format (w8: :func:`w8_matmul_plain`; g32:
+    :func:`g32_matmul_plain`; bf16: :func:`bf16_matmul_plain` over the
+    segments) plus ``resid``, or the first index of each row's largest
+    value [M, 1] int32."""
+    if x.dtype == torch.bfloat16:
+        y = torch.cat([bf16_matmul_plain(x, t) for t in _segs(w)], dim=1)
+    elif scale.dtype == torch.float16:
+        y = g32_matmul_plain(x, sx.reshape(-1, 1), w, scale)
+    else:
+        y = w8_matmul_plain(x, sx, w, scale)
+    if lm_argmax:
+        return lm_token_plain(y)
+    return y if resid is None else resid + y
+
+
+def k1_linear(x, w, scale=None, sx=None, resid=None,
+              lm_argmax: bool = False) -> torch.Tensor:
+    """One linear of K1's weight stream alone, launched as the step
+    launches it (``vx_k1_linear``: the stream of ``csrc/k1_stream.cuh``
+    where :func:`stream_plan` takes the shape, else the earlier GEMV or
+    fold).  x [M, K] int8 with row scales sx [M] f32 against w8 codes
+    w [N, K] int8 (scale [N] f32) or g32 codes (scale [N, K/32] f16), or
+    x [M, K] bf16 against bf16 weights w [N, K] (or a tuple of segments,
+    [n_i, K] each).  -> [M, N] f32 (+ resid [M, N]) or, ``lm_argmax``,
+    the token [M, 1] int32.  CPU tensors take :func:`k1_linear_plain`;
+    each launch adds one to ``k1_linear.launches``."""
+    if x.device.type == "cpu":
+        return k1_linear_plain(x, w, scale, sx, resid, lm_argmax)
+    segs = _segs(w)
+    bf16 = x.dtype == torch.bfloat16
+    fmt = "bf16" if bf16 else ("g32" if scale.dtype == torch.float16
+                               else "w8")
+    M, K = x.shape
+    N = sum(t.shape[0] for t in segs)
+    dev = x.device
+    for t in (x, sx, scale, resid, *segs):
+        if t is not None and (t.device != dev or not t.is_contiguous()):
+            raise ValueError("k1_linear: contiguous tensors on one device")
+    if len(segs) > 3 or (not bf16 and len(segs) > 1):
+        raise ValueError("k1_linear: bf16 takes up to three segments, "
+                         "w8 / g32 one")
+    p = stream_plan(fmt, M, N, K, _sm_count(_card_index(dev)))
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = token = tmax = tidx = None
+    if lm_argmax:
+        token = torch.empty((M, 1), dtype=torch.int32, device=dev)
+        tmax = torch.empty((M, -(-N // 8)), **f32)
+        tidx = torch.empty((M, -(-N // 8)), dtype=torch.int32, device=dev)
+    else:
+        out = torch.empty((M, N), **f32)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        fn = kernel_fn("vx_k1_linear", [_I] + [_P] * 13 + [_I] * 3
+                       + [_P, _P])
+        code = fn({"w8": 0, "g32": 1, "bf16": 2}[fmt], ptr(x), ptr(sx),
+                  ptr(segs[0]), ptr(segs[1]) if len(segs) > 1 else None,
+                  ptr(segs[2]) if len(segs) > 2 else None,
+                  segs[0].shape[0], segs[1].shape[0] if len(segs) > 1 else 0,
+                  ptr(scale), ptr(resid), ptr(out), ptr(tmax), ptr(tidx),
+                  ptr(token), M, N, K,
+                  _plan_array([p.kc, p.stages, p.grid] if p else [0, 0, 0]),
+                  torch.cuda.current_stream(dev).cuda_stream)
+    check(code, "k1_linear")
+    k1_linear.launches += 1
+    return token if lm_argmax else out
+
+
+k1_linear.launches = 0
 
 
 def attention_block_plain(qkv, cos_p, sin_p, k_cache, v_cache, offset, *,
