@@ -32,6 +32,7 @@ from tests.test_torch_decode_step import (
     D,
     EPS,
     HEAD_DIM,
+    HIDDEN,
     KV_RTOL,
     L,
     N_HEADS,
@@ -152,6 +153,148 @@ def test_decode_layer_step_kernel_matches_plain_on_card(inputs, rows, window):
     ref = tdsp.decode_layer_step_plain(*targs, window=window, **KW)
     torch.cuda.synchronize()
     assert tdsp.decode_layer_step.launches == before + 1
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r), (g - r).abs().max().item()
+
+
+# K7's split walk: spans of visible slots (with pieces of at least 64
+# slots), the window's edge, a span whose scores leave shared memory.
+SPLIT_PIECE = 64
+
+
+@pytest.mark.parametrize("pieces", [1, 2, 3, 7, 8])
+@pytest.mark.parametrize("offset,window", [(0, None), (1, None), (65, None),
+                                           (129, 100), (300, 64), (413, None),
+                                           (412, 8192)])
+def test_layer_attention_split_plain_equals_unsplit(offset, window, pieces):
+    """The split walk's arithmetic, stated plainly, equals the unsplit
+    attention bit for bit for every cut: spans 0 and 1, one past a piece
+    boundary, the window's edge, the longest one-shot chunk (413)."""
+    gen = torch.Generator().manual_seed(offset + pieces)
+    B, S = 2, 420
+    q = torch.randn((B, N_HEADS, HEAD_DIM), generator=gen)
+    k = torch.randn((B, N_KV, HEAD_DIM), generator=gen)
+    v = torch.randn((B, N_KV, HEAD_DIM), generator=gen)
+    kc = torch.randn((B, S, N_KV, HEAD_DIM), generator=gen).bfloat16()
+    vc = torch.randn((B, S, N_KV, HEAD_DIM), generator=gen).bfloat16()
+    args = (q, k, v, kc, vc, offset, window, N_KV, HEAD_DIM ** -0.5)
+    ref = tdsp._layer_attention_plain(*args)
+    got = tdsp.layer_attention_split_plain(*args, pieces)
+    assert torch.equal(got, ref)
+
+
+PLAN_CASES = [(151, 150, 8192), (413, 412, 8192), (8400, 8300, 8192),
+              (16, 0, None), (50000, 49999, None)]
+
+
+@pytest.mark.parametrize("S,offset,window", PLAN_CASES)
+def test_layer_attn_plan_covers_the_span(S, offset, window):
+    """The plan's pieces cover the visible span, at most 8 of them, none
+    empty but where the span is, and about K7_BLOCKS blocks a call."""
+    lo = max(0, offset - window) if window is not None else 0
+    n = max(min(offset, S) - lo, 0)
+    for rows in (1, 8, 64):
+        pieces, piece = tdsp.layer_attn_plan(S, offset, window, rows, 8)
+        assert 1 <= pieces <= tdsp.K7_MAX_PIECES and pieces * piece >= n
+        assert pieces == 1 or (pieces - 1) * piece < n
+        assert pieces * rows * 8 <= max(tdsp.K7_BLOCKS, rows * 8)
+
+
+def _card_layer(rows, S, seed, dev, F=HIDDEN):
+    """Random tiny-width K7 inputs at a cache of S slots on the card:
+    x, the layer's vectors and scales, RoPE at ``offset`` later, caches,
+    w8 stacks of L layers (FFN width F)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    nq, nkv = N_HEADS * HEAD_DIM, N_KV * HEAD_DIM
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, device=dev, generator=gen) * scale
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, dtype=torch.int8, device=dev,
+                             generator=gen)
+
+    small = [1 + 0.1 * rnd(D), 1 + 0.1 * rnd(D), 1 + 0.1 * rnd(D),
+             rnd(nq + 2 * nkv).abs() * 1e-3 + 1e-4,
+             rnd(D).abs() * 1e-3 + 1e-4, rnd(2 * F).abs() * 1e-3 + 1e-4,
+             rnd(D).abs() * 1e-3 + 1e-4]
+    caches = [(rnd(rows, S, N_KV, HEAD_DIM) * 0.5).bfloat16() for _ in "kv"]
+    stacks = [codes(L, nq + 2 * nkv, D), codes(L, D, nq), codes(L, 2 * F, D),
+              codes(L, D, F)]
+    return rnd(rows, D), small, caches, stacks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,S,offset,window", [
+    (1, 80, 0, None), (1, 80, 1, None), (2, 80, 65, None),
+    (1, 200, 129, None), (3, 200, 193, None), (2, 300, 257, 200),
+    (1, 300, 299, 64), (1, 413, 412, 8192), (3, 413, 412, 8192),
+    (9, 413, 412, 8192), (8, 151, 150, 8192), (1, 2000, 1999, 1500)])
+@pytest.mark.parametrize("pdl", [True, False])
+def test_decode_layer_step_spans_on_card(rows, S, offset, window, pdl,
+                                         monkeypatch):
+    """K7 bit-equal to plain over visible spans 0 and 1, one past each
+    64-slot piece boundary, the window's edge (window < offset), 3 and 9
+    rows (9: the GEMV's tensor-core path) at S = 413, 8 rows, and a span
+    cut into the largest cluster; with and without programmatic
+    dependent launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    monkeypatch.setattr(tdsp, "K7_PIECE_SLOTS", SPLIT_PIECE)
+    monkeypatch.setattr(tdsp, "K7_BLOCKS", 1024)
+    monkeypatch.setattr(tdsp, "K7_PDL", pdl)
+    dev = torch.device("cuda")
+    x, small, (kc, vc), stacks = _card_layer(rows, S, offset + rows, dev)
+    c, s = tdsp.rope_pair_vectors(offset, HEAD_DIM, 1e6, device=dev)
+    args = (x, L - 1, offset, *small, c, s, kc, vc, *stacks)
+    got = tdsp.decode_layer_step(*args, window=window, **KW)
+    ref = tdsp.decode_layer_step_plain(*args, window=window, **KW)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r), (g - r).abs().max().item()
+
+
+@pytest.mark.cuda
+def test_decode_layer_step_wide_ffn_on_card():
+    """An FFN row wider than row_quant keeps in registers (9472 > 9216:
+    its tail instantiation, which recomputes the values past them) gives
+    the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    dev = torch.device("cuda")
+    x, small, (kc, vc), stacks = _card_layer(2, 80, 11, dev, F=9472)
+    c, s = tdsp.rope_pair_vectors(40, HEAD_DIM, 1e6, device=dev)
+    args = (x, L - 1, 40, *small, c, s, kc, vc, *stacks)
+    got = tdsp.decode_layer_step(*args, **KW)
+    ref = tdsp.decode_layer_step_plain(*args, **KW)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r), (g - r).abs().max().item()
+
+
+@pytest.mark.cuda
+def test_decode_layer_step_scores_in_scratch_on_card(monkeypatch):
+    """A span whose scores leave a block's shared memory (the plan's
+    scratch buffer) gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    # At full width (32 query heads, 8 kv heads, head_dim 128) the
+    # library's layout puts a block's scores in the scratch only at the
+    # longest span; at the one-shot spans they stay in shared memory.
+    for S, offset, window in PLAN_CASES:
+        _, piece = tdsp.layer_attn_plan(S, offset, window, 1, 8)
+        assert (tdsp.layer_attn_scratch(32, 8, 128, piece) > 0) == (
+            S == 50000), (S, piece)
+    dev = torch.device("cuda")
+    S, offset = 40000, 39990
+    _, piece = tdsp.layer_attn_plan(S, offset, None, 1, N_KV)
+    assert tdsp.layer_attn_scratch(N_HEADS, N_KV, HEAD_DIM, piece) > 0
+    x, small, (kc, vc), stacks = _card_layer(1, S, 5, dev)
+    c, s = tdsp.rope_pair_vectors(offset, HEAD_DIM, 1e6, device=dev)
+    args = (x, 0, offset, *small, c, s, kc, vc, *stacks)
+    got = tdsp.decode_layer_step(*args, **KW)
+    ref = tdsp.decode_layer_step_plain(*args, **KW)
+    torch.cuda.synchronize()
     for g, r in zip(got, ref):
         assert torch.equal(g, r), (g - r).abs().max().item()
 

@@ -7,9 +7,10 @@ what the CUDA kernel runs (on the CPU the wrapper takes it) and is held
 against the JAX Pallas kernel in interpret mode.
 
 Tolerances, as a share of the largest |y|: both sides multiply the same
-bf16 operands exactly; JAX sums them in f32, the port in f64 rounded
-once, so what is left is f32 summation order over K <= 1280 terms:
-1e-5 (measured below 1e-6).  The same holds for the dequant and blocked
+bf16 operands exactly; JAX sums them in f32, the port in f32 within each
+group of 32 (by packed rows of 8) and in f64 over the groups, rounded
+once, so what is left is
+f32 summation order over K <= 1280 terms: 1e-5 (measured below 1e-6).  The same holds for the dequant and blocked
 paths, which both sides compute as f32 matmuls of the same bf16 values.
 """
 
@@ -227,27 +228,141 @@ def test_k3_gate_and_guards():
                             packed.to(meta), scales.to(meta))
 
 
+def test_q4_matmul_plain_pins_f32_group_sums():
+    """The stated order: each packed row's 8 exact products summed in f32
+    in k order, a group's four row sums in f32 in row order, the groups
+    and the offset corrections in f64, rounded once.  Held against a
+    numpy loop that says just that, on inputs spread over 20 binades,
+    where summing everything in f64 (the order before) gives other
+    values."""
+    import ml_dtypes
+
+    rng = np.random.default_rng(21)
+    m, n, k = 2, 128, 256
+    x = (rng.normal(size=(m, k)) * 2.0 ** rng.uniform(-20, 0, size=(m, k))
+         ).astype(np.float32)
+    codes = rng.integers(-8, 8, size=(n, k)).astype(np.int8)
+    scales = (rng.uniform(1e-3, 4e-3, size=(n, k // 32))
+              * rng.choice([-1, 1], size=(n, k // 32))).astype(np.float16)
+    packed, scales_t = k3.pack_codes(codes), k3.transpose_scales(scales)
+    s32 = scales_t.astype(np.float32)  # [K/32, N], bf16 values
+    xb = x.astype(ml_dtypes.bfloat16).astype(np.float32)
+    w = ((codes.T.astype(np.float32) + 8) * np.repeat(s32, 32, axis=0)
+         ).astype(ml_dtypes.bfloat16).astype(np.float32)  # [K, N]
+    xb8 = (x.reshape(m, -1, 32).astype(np.float64).sum(-1)
+           .astype(np.float32) * np.float32(8)).astype(np.float64)
+    want = np.zeros((m, n), np.float32)
+    every64 = np.zeros((m, n), np.float32)
+    for i in range(m):
+        tot = np.zeros(n)
+        for g in range(k // 32):
+            rows = []
+            for r in range(4):
+                rs = np.zeros(n, np.float32)
+                for j in range(8):
+                    kk = 32 * g + 8 * r + j
+                    rs = rs + np.float32(xb[i, kk]) * w[kk]
+                rows.append(rs)
+            gs = ((rows[0] + rows[1]) + rows[2]) + rows[3]
+            tot += gs.astype(np.float64) - xb8[i, g] * s32[g].astype(
+                np.float64)
+        want[i] = tot.astype(np.float32)
+        every64[i] = (xb[i].astype(np.float64) @ w.astype(np.float64)
+                      - xb8[i] @ s32.astype(np.float64)).astype(np.float32)
+    got = k3.q4_matmul_plain(torch.from_numpy(x), torch.from_numpy(packed),
+                             to_torch(scales_t, "cpu"))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want != every64).any()
+
+
+def _card_q4(m, n, k, seed):
+    dev = torch.device("cuda")
+    w = _weights(n, k, seed=seed)
+    _, packed = _leaves(w)
+    tp = {key: to_torch(v, dev) for key, v in packed.items()}
+    x = torch.from_numpy(np.random.default_rng(m + seed).normal(
+        size=(m, k)).astype(np.float32)).to(dev)
+    return x, tp["codes_packed"], tp["scales_t"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(1024, 3072), (3072, 9216), (131072, 3072),
+                                 (384, 2304), (128, 256), (4096, 4096)])
+@pytest.mark.parametrize("m", [1, 2, 5, 8])
+def test_k3_plan_fits_and_fills(m, n, k):
+    """Every plan (the library's, csrc/q4_matmul.cu::q4_plan) launches
+    and gives the plain version's bits: at most 8 warps a block and 8
+    blocks a cluster, whole column tiles; and where the shape has the
+    columns, it keeps 3 warps an SM or more."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the plan is the CUDA library's")
+    tw, kw, splits = k3.k3_plan(m, n, k)
+    assert tw * kw <= k3.MAX_WARPS and 1 <= splits <= k3.MAX_SPLITS
+    assert n % (k3.TILE_COLS * tw) == 0
+    warps = n // k3.TILE_COLS * kw * splits
+    if n * k >= 3072 * 3072:
+        assert warps >= 3 * k3.SM_COUNT
+    assert kw * splits <= k // 32  # every part has a group
+    # Random words (any int32 is eight valid nibbles) and bf16 scales of
+    # both signs, made on the card: the lm_head's table is 403 MB.
+    gen = torch.Generator(device="cuda").manual_seed(m)
+    packed = torch.randint(-2 ** 31, 2 ** 31 - 1, (k // 8, n),
+                           dtype=torch.int32, device="cuda", generator=gen)
+    scales = (torch.randn((k // 32, n), device="cuda", generator=gen)
+              * 2e-3).bfloat16()
+    x = torch.randn((m, k), device="cuda", generator=gen)
+    got = k3.q4_matmul_on((tw, kw, splits), x, packed, scales)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k3.q4_matmul_plain(x, packed, scales))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,n,k", [(1, 128, 256), (8, 256, 512),
                                    (5, 384, 2304), (3, 1280, 1024)])
 def test_q4_matmul_kernel_matches_plain_on_card(m, n, k):
     """Runs on the card only (the kernel has no CPU mode): bit-equal to
-    the plain version (both sum in f64 and round once)."""
+    the plain version (the same f32 group sums in k order, the groups in
+    f64, rounded once)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    dev = torch.device("cuda")
-    w = _weights(n, k, seed=m)
-    _, packed = _leaves(w)
-    tp = {key: to_torch(v, dev) for key, v in packed.items()}
-    x = torch.from_numpy(np.random.default_rng(m).normal(size=(m, k))
-                         .astype(np.float32)).to(dev)
+    x, packed, scales = _card_q4(m, n, k, seed=m)
     before = k3.q4_matmul_packed.launches
-    got = k3.q4_matmul_packed(x, tp["codes_packed"], tp["scales_t"])
+    got = k3.q4_matmul_packed(x, packed, scales)
     torch.cuda.synchronize()
     assert k3.q4_matmul_packed.launches == before + 1
-    ref = k3.q4_matmul_plain(x, tp["codes_packed"], tp["scales_t"])
-    torch.testing.assert_close(got, ref, rtol=0,
-                               atol=1e-6 * ref.abs().max().item())
+    ref = k3.q4_matmul_plain(x, packed, scales)
+    assert torch.equal(got, ref), (got - ref).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(1024, 3072), (3072, 9216), (384, 2304)])
+@pytest.mark.parametrize("m", [1, 2, 5, 8])
+def test_q4_matmul_decoder_shapes_on_card(m, n, k):
+    """The decoder's narrowest and deepest linears and a shape whose
+    K / 32 = 72 groups the plan's 64 parts do not divide: bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    x, packed, scales = _card_q4(m, n, k, seed=7)
+    got = k3.q4_matmul_packed(x, packed, scales)
+    torch.cuda.synchronize()
+    ref = k3.q4_matmul_plain(x, packed, scales)
+    assert torch.equal(got, ref), (got - ref).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [(1, 1, 1), (2, 4, 3), (1, 8, 5),
+                                  (4, 2, 1), (1, 2, 7)])
+def test_q4_matmul_any_plan_on_card(plan):
+    """Other plans than k3_plan's (blocks of 1 to 8 warps, clusters of
+    1 to 7, group counts no part count divides) give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    for m in (1, 8):
+        x, packed, scales = _card_q4(m, 512, 2304, seed=9)
+        got = k3.q4_matmul_on(plan, x, packed, scales)
+        torch.cuda.synchronize()
+        ref = k3.q4_matmul_plain(x, packed, scales)
+        assert torch.equal(got, ref), (plan, m)
 
 
 @pytest.mark.parametrize("pack", [True, False])

@@ -1,9 +1,10 @@
-// Device code shared by K1 (decode_step.cu) and K7 (decode_layer.cu):
+// Device code shared by K1 (decode_step.cu), K4 / K5 (decode_tp.cu) and
+// K7 (decode_layer.cu):
 // the f64 / f32 block reductions, the pair RoPE prologue of an attention
 // block and the row kernel that norms, gates and int8-quantizes one
 // activation row per block (row_quant).  Everything has internal
-// linkage, so both translation units may include it; see decode_step.cu
-// for the rounding rules the two kernels share with their plain versions.
+// linkage, so every translation unit may include it; see decode_step.cu
+// for the rounding rules the kernels share with their plain versions.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -18,7 +19,8 @@ namespace {
 
 enum QuantMode { kQuantPlain = 0, kQuantNorm = 1, kQuantSwiglu = 2 };
 
-constexpr int kQuantThreads = 1024;
+constexpr int kQuantThreads = 512;  // row_quant: a block a row
+constexpr int kQuantRegs = 18;      // values of the row a thread keeps
 constexpr int kAttnThreads = 256;
 constexpr int kMaxHeadDim = 256;  // P.V: up to 4 bf16 pairs per lane
 
@@ -106,7 +108,13 @@ __device__ __forceinline__ void rope_row(
 //   kQuantNorm:   h = (x * (1 / sqrt(mean(x^2) + eps))) * w   (* ada),
 //                 mean(x^2) summed in f64
 //   kQuantSwiglu: h = (g * sigmoid(g)) * u, g = x[:K], u = x[K:2K]
-// h is recomputed in each pass (the same operations, the same values).
+// One pass over the row: thread t keeps h at k = t + j kQuantThreads,
+// j < kQuantRegs, in registers (every decoder width: K <= 9216).  TAIL
+// (wider rows only: the loops cost about 1 us a launch on the H100 even
+// where they do not run) recomputes h at any k past them where a later
+// step needs it, by the same operations.  The norm weights, which no
+// predecessor writes, come in before pdl_wait.
+template <bool TAIL>
 __global__ void __launch_bounds__(kQuantThreads) row_quant_kernel(
     const float* __restrict__ x, int ldx, int K, const float* __restrict__ w,
     const float* __restrict__ ada, float eps, int mode,
@@ -114,26 +122,64 @@ __global__ void __launch_bounds__(kQuantThreads) row_quant_kernel(
     __nv_bfloat16* __restrict__ xb) {
   __shared__ float red[32];
   __shared__ double red_d[32];
+  const int b = blockIdx.x, t = threadIdx.x;
+  const int kreg = kQuantRegs * kQuantThreads;  // the values in registers
+  float wv[kQuantRegs], av[kQuantRegs];
+  if (mode == kQuantNorm) {
+#pragma unroll
+    for (int j = 0; j < kQuantRegs; ++j) {
+      const int k = t + j * kQuantThreads;
+      wv[j] = k < K ? w[k] : 0.0f;
+      av[j] = ada != nullptr && k < K ? ada[k] : 0.0f;
+    }
+  }
   pdl_trigger();
   pdl_wait();
-  const int b = blockIdx.x;
   const float* xr = x + static_cast<size_t>(b) * ldx;
+  float h[kQuantRegs], u[kQuantRegs];
+#pragma unroll
+  for (int j = 0; j < kQuantRegs; ++j) {
+    const int k = t + j * kQuantThreads;
+    h[j] = k < K ? xr[k] : 0.0f;
+    u[j] = (mode == kQuantSwiglu && k < K) ? xr[K + k] : 0.0f;
+  }
   float inv = 1.0f;
   if (mode == kQuantNorm) {
     double ss = 0.0;
-    for (int k = threadIdx.x; k < K; k += blockDim.x) {
-      const double v = xr[k];
-      ss += v * v;
+#pragma unroll
+    for (int j = 0; j < kQuantRegs; ++j) {
+      const double v = h[j];
+      ss += v * v;  // zero past K
+    }
+    if constexpr (TAIL) {
+      for (int k = t + kreg; k < K; k += kQuantThreads) {
+        const double v = xr[k];
+        ss += v * v;
+      }
     }
     ss = block_sum_d(ss, red_d);
     const float var = static_cast<float>(ss / static_cast<double>(K));
     inv = 1.0f / sqrtf(var + eps);
+#pragma unroll
+    for (int j = 0; j < kQuantRegs; ++j) {
+      float v = (h[j] * inv) * wv[j];
+      if (ada != nullptr) v = v * av[j];
+      h[j] = v;
+    }
+  } else if (mode == kQuantSwiglu) {
+#pragma unroll
+    for (int j = 0; j < kQuantRegs; ++j) {
+      const float g = h[j];
+      const float sig = 1.0f / (1.0f + expf(-g));
+      h[j] = (g * sig) * u[j];
+    }
   }
-  auto value = [&](int k) -> float {
+  // h at a k past the registers.
+  auto far = [&](int k) -> float {
     if (mode == kQuantNorm) {
-      float h = (xr[k] * inv) * w[k];
-      if (ada != nullptr) h = h * ada[k];
-      return h;
+      float v = (xr[k] * inv) * w[k];
+      if (ada != nullptr) v = v * ada[k];
+      return v;
     }
     if (mode == kQuantSwiglu) {
       const float g = xr[k];
@@ -144,29 +190,51 @@ __global__ void __launch_bounds__(kQuantThreads) row_quant_kernel(
   };
   if (xb != nullptr) {
     __nv_bfloat16* o = xb + static_cast<size_t>(b) * K;
-    for (int k = threadIdx.x; k < K; k += blockDim.x)
-      o[k] = __float2bfloat16(value(k));
+#pragma unroll
+    for (int j = 0; j < kQuantRegs; ++j) {
+      const int k = t + j * kQuantThreads;
+      if (k < K) o[k] = __float2bfloat16(h[j]);
+    }
+    if constexpr (TAIL) {
+      for (int k = t + kreg; k < K; k += kQuantThreads)
+        o[k] = __float2bfloat16(far(k));
+    }
     return;
   }
   float amax = 0.0f;
-  for (int k = threadIdx.x; k < K; k += blockDim.x)
-    amax = fmaxf(amax, fabsf(value(k)));
+#pragma unroll
+  for (int j = 0; j < kQuantRegs; ++j)
+    if (t + j * kQuantThreads < K) amax = fmaxf(amax, fabsf(h[j]));
+  if constexpr (TAIL) {
+    for (int k = t + kreg; k < K; k += kQuantThreads)
+      amax = fmaxf(amax, fabsf(far(k)));
+  }
   amax = block_max(amax, red);
   const float s = fmaxf(amax, 1e-8f) / 127.0f;
   int8_t* q = xq + static_cast<size_t>(b) * K;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    const float c = fminf(fmaxf(rintf(value(k) / s), -127.0f), 127.0f);
-    q[k] = static_cast<int8_t>(c);
+  auto code = [&](float v) {
+    return static_cast<int8_t>(fminf(fmaxf(rintf(v / s), -127.0f), 127.0f));
+  };
+#pragma unroll
+  for (int j = 0; j < kQuantRegs; ++j) {
+    const int k = t + j * kQuantThreads;
+    if (k < K) q[k] = code(h[j]);
   }
-  if (threadIdx.x == 0) sx[b] = s;
+  if constexpr (TAIL) {
+    for (int k = t + kreg; k < K; k += kQuantThreads) q[k] = code(far(k));
+  }
+  if (t == 0) sx[b] = s;
 }
 
 inline cudaError_t row_quant(const float* x, int ldx, int K, const float* w,
                              const float* ada, float eps, int mode, int B,
                              int8_t* xq, float* sx, __nv_bfloat16* xb,
                              cudaStream_t st, bool pdl = false) {
-  return launch_pdl(row_quant_kernel, dim3(B), dim3(kQuantThreads), 0, st,
-                    pdl, x, ldx, K, w, ada, eps, mode, xq, sx, xb);
+  if (K > kQuantRegs * kQuantThreads)
+    return launch_pdl(row_quant_kernel<true>, dim3(B), dim3(kQuantThreads), 0,
+                      st, pdl, x, ldx, K, w, ada, eps, mode, xq, sx, xb);
+  return launch_pdl(row_quant_kernel<false>, dim3(B), dim3(kQuantThreads), 0,
+                    st, pdl, x, ldx, K, w, ada, eps, mode, xq, sx, xb);
 }
 
 }  // namespace

@@ -14,11 +14,12 @@
 // The GEMVs (K2 takes them up to 16 rows and where its tensor-core GEMM
 // cannot take the shape, w8_matmul.cu; the decode steps for every row
 // count they run):
-//  * GEMV, M <= 8 (decode): one warp per output row n, 16-byte loads of
-//    the weight row, __dp4a (four int8 products per instruction); bound
-//    by the bytes of weights streamed from HBM.
+//  * GEMV, M <= 8 (decode): one warp per output row n (or R rows),
+//    16-byte loads of the weight row, __dp4a (four int8 products per
+//    instruction); bound by the bytes of weights streamed from HBM.
 //  * GEMV, 8 < M <= 64 (speculative decode: streams x K draft rows;
-//    prefill): one warp per 8 output rows, int8 tensor-core
+//    prefill): a block of four warps per 8 output rows, K split over the
+//    warps, int8 tensor-core
 //    mma.m16n8k32 over up to four 16-row tiles of activations, so ONE
 //    pass over the weights serves all M rows.  At M = 64 a dp4a GEMV
 //    would do 64 integer products per weight byte on the CUDA cores
@@ -50,16 +51,17 @@ namespace {
 constexpr int kGemvWarps = 8;   // output rows per 256-thread GEMV block
 constexpr int kDp4aMaxM = 8;    // activation rows of the dp4a GEMV
 constexpr int kGemvMaxM = 64;   // activation rows served by one weight pass
-constexpr int kMmaWarps = 4;    // n8 tiles per 128-thread mma GEMV block
+constexpr int kMmaWarps = 4;    // n8 tiles per 128-thread g32 mma GEMV block
+constexpr int kMmaSplit = 4;    // K parts (warps) of the w8 mma GEMV block
 
 // Programmatic dependent launch (sm_90).  A kernel launched with
 // launch_pdl may start while its predecessor in the stream still runs:
 // pdl_wait() returns once the predecessor has completed and its writes
 // are visible (at once in a grid launched without the attribute), so
 // everything a kernel reads or writes that a predecessor touches comes
-// after it; pdl_trigger() lets the successor launch.  K1 launches its
-// whole step this way (decode_step.cu); K2 / K4 / K5 / K7 launch
-// plainly.
+// after it; pdl_trigger() lets the successor launch.  K1 and K7
+// launch their chains this way (decode_step.cu, decode_layer.cu); K2 /
+// K4 / K5 launch plainly.
 __device__ __forceinline__ void pdl_wait() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
@@ -97,47 +99,63 @@ __device__ __forceinline__ float w8_epilogue(int acc, float sx, float sc) {
   return (static_cast<float>(acc) * sx) * sc;
 }
 
-// PRE > 0 (K1, launched ahead of its predecessor): the first PRE of the
-// lane's 16-byte weight pieces come into registers before pdl_wait, so
-// they stream while the previous launch ends.  The int32 sums are exact,
-// so the order of the pieces does not matter.
-template <int M, int PRE = 0>
+// PRE > 0 (K1 and K7, launched ahead of their predecessor): the first
+// PRE of the lane's 16-byte weight pieces come into registers before
+// pdl_wait, so they stream while the previous launch ends.  R > 1 (K7 at
+// 1 to 4 rows): each warp on R output rows, so every 16-byte piece of an
+// activation row, loaded once, meets R weight rows and 1 / R of the
+// blocks go out.  The int32 sums are exact, so neither the order of the
+// pieces nor R moves a bit.
+template <int M, int PRE = 0, int R = 1>
 __global__ void __launch_bounds__(256) w8_gemv_kernel(
     const int8_t* __restrict__ xq, const float* __restrict__ sx,
     const int8_t* __restrict__ codes, const float* __restrict__ scale,
     const float* resid, float* out, int N, int K, bool vec) {
   const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * kGemvWarps + (threadIdx.x >> 5);
-  const int8_t* w = codes + static_cast<size_t>(n < N ? n : 0) * K;
-  const int4* w4 = reinterpret_cast<const int4*>(w);
+  const int n0 = (blockIdx.x * kGemvWarps + (threadIdx.x >> 5)) * R;
+  const int8_t* w[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    w[r] = codes + static_cast<size_t>(n0 + r < N ? n0 + r : 0) * K;
+  auto piece = [&](int r, int i) {
+    return __ldg(reinterpret_cast<const int4*>(w[r]) + i);
+  };
+  const int4 zero = make_int4(0, 0, 0, 0);
   const int nv = K >> 4;
-  int4 pre[PRE > 0 ? PRE : 1];
+  int4 pre[PRE > 0 ? PRE : 1][R];
   if constexpr (PRE > 0) {
 #pragma unroll
-    for (int j = 0; j < PRE; ++j) {
-      const int i = lane + 32 * j;
-      pre[j] = (vec && n < N && i < nv) ? __ldg(w4 + i)
-                                        : make_int4(0, 0, 0, 0);
-    }
+    for (int j = 0; j < PRE; ++j)
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int i = lane + 32 * j;
+        pre[j][r] = (vec && n0 + r < N && i < nv) ? piece(r, i) : zero;
+      }
   }
   pdl_trigger();
   pdl_wait();
-  if (n >= N) return;
-  int acc[M];
+  if (n0 >= N) return;  // whole warps leave together
+  int acc[M][R];
 #pragma unroll
-  for (int m = 0; m < M; ++m) acc[m] = 0;
-  // The dot of one 16-byte piece i (16 weights) with each row.
-  auto dot = [&](const int4 wv, int i) {
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[m][r] = 0;
+  // The dot of one 16-byte piece i (16 weights) of each weight row with
+  // each activation row.
+  auto dot = [&](const int4 (&wv)[R], int i) {
 #pragma unroll
     for (int m = 0; m < M; ++m) {
       const int4 xv = __ldg(
           reinterpret_cast<const int4*>(xq + static_cast<size_t>(m) * K) + i);
-      int a = acc[m];
-      a = __dp4a(wv.x, xv.x, a);
-      a = __dp4a(wv.y, xv.y, a);
-      a = __dp4a(wv.z, xv.z, a);
-      a = __dp4a(wv.w, xv.w, a);
-      acc[m] = a;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        int a = acc[m][r];
+        a = __dp4a(wv[r].x, xv.x, a);
+        a = __dp4a(wv[r].y, xv.y, a);
+        a = __dp4a(wv[r].z, xv.z, a);
+        a = __dp4a(wv[r].w, xv.w, a);
+        acc[m][r] = a;
+      }
     }
   };
   if (vec) {
@@ -146,25 +164,40 @@ __global__ void __launch_bounds__(256) w8_gemv_kernel(
 #pragma unroll
     for (int j = 0; j < PRE; ++j)
       if (lane + 32 * j < nv) dot(pre[j], lane + 32 * j);
-    for (int i = lane + 32 * PRE; i < nv; i += 32) dot(__ldg(w4 + i), i);
+    for (int i = lane + 32 * PRE; i < nv; i += 32) {
+      int4 wv[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) wv[r] = n0 + r < N ? piece(r, i) : zero;
+      dot(wv, i);
+    }
   } else {
     for (int k = lane; k < K; k += 32) {
-      const int wv = w[k];
 #pragma unroll
-      for (int m = 0; m < M; ++m)
-        acc[m] += wv * static_cast<int>(xq[static_cast<size_t>(m) * K + k]);
+      for (int r = 0; r < R; ++r) {
+        const int wv = n0 + r < N ? w[r][k] : 0;
+#pragma unroll
+        for (int m = 0; m < M; ++m)
+          acc[m][r] += wv * static_cast<int>(xq[static_cast<size_t>(m) * K + k]);
+      }
     }
   }
 #pragma unroll
-  for (int m = 0; m < M; ++m) acc[m] = warp_sum_int(acc[m]);
-  if (lane == 0) {
-    const float sc = scale[n];
+  for (int m = 0; m < M; ++m)
 #pragma unroll
-    for (int m = 0; m < M; ++m) {
-      float y = w8_epilogue(acc[m], sx[m], sc);
-      const size_t o = static_cast<size_t>(m) * N + n;
-      if (resid != nullptr) y = resid[o] + y;
-      out[o] = y;
+    for (int r = 0; r < R; ++r) acc[m][r] = warp_sum_int(acc[m][r]);
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int n = n0 + r;
+      if (n >= N) continue;
+      const float sc = scale[n];
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        float y = w8_epilogue(acc[m][r], sx[m], sc);
+        const size_t o = static_cast<size_t>(m) * N + n;
+        if (resid != nullptr) y = resid[o] + y;
+        out[o] = y;
+      }
     }
   }
 }
@@ -181,26 +214,31 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], int a0, int a1, int a2,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-// GEMV over M <= 16 * MT activation rows: one warp per 8 output rows
-// n0..n0+7.  The K axis is walked in 64-byte steps; lane (g, t) (g =
-// lane / 4, t = lane % 4) loads 16 bytes at k = 64 s + 16 t of weight row
-// n0 + g and of activation rows 16 i + g and 16 i + g + 8, and feeds them
-// to two m16n8k32 products.  Which real k a fragment slot holds only has
-// to agree between A and B (a dot product is order-free), so each lane's
-// 16 contiguous bytes fill its two 4-byte slots of two products, and
-// every weight byte is read once with a 16-byte load.  The int32 sums
-// are exact, so the result equals the dp4a paths' bit for bit.  Needs
-// K % 64 == 0 and 16-byte aligned rows; rows past M read zeros and are
-// not written.
+// GEMV over M <= 16 * MT activation rows: a block of kMmaSplit warps
+// per 8 output rows n0..n0+7, each warp on its own 1 / kMmaSplit of K,
+// so a 9-64 row step keeps four times the loads in flight and streams
+// its weights about as fast as the dp4a GEMV streams one row's.  The K
+// axis is walked in 64-byte steps; lane (g, t) (g = lane / 4, t = lane %
+// 4) loads 16 bytes at k = 64 s + 16 t of weight row n0 + g and of
+// activation rows 16 i + g and 16 i + g + 8, and feeds them to two
+// m16n8k32 products.  Which real k a fragment slot holds only has to
+// agree between A and B (a dot product is order-free), so each lane's 16
+// contiguous bytes fill its two 4-byte slots of two products, and every
+// weight byte is read once with a 16-byte load.  The warps' int32
+// partials are added in shared memory; the sums are exact, so the result
+// equals the dp4a paths' bit for bit.  Needs K % 64 == 0 and 16-byte
+// aligned rows; rows past M read zeros and are not written.
 template <int MT>
-__global__ void __launch_bounds__(32 * kMmaWarps) w8_gemv_mma_kernel(
+__global__ void __launch_bounds__(32 * kMmaSplit) w8_gemv_mma_kernel(
     const int8_t* __restrict__ xq, const float* __restrict__ sx,
     const int8_t* __restrict__ codes, const float* __restrict__ scale,
     const float* resid, float* out, int M, int N, int K) {
-  const int lane = threadIdx.x & 31;
+  __shared__ int part[kMmaSplit][MT * 4][32];
+  pdl_trigger();
+  pdl_wait();
+  const int lane = threadIdx.x & 31, kp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int n0 = (blockIdx.x * kMmaWarps + (threadIdx.x >> 5)) * 8;
-  if (n0 >= N) return;  // whole warps leave together
+  const int n0 = blockIdx.x * 8;
   const int n = n0 + g;
   const int4 zero = make_int4(0, 0, 0, 0);
   const int4* w4 = reinterpret_cast<const int4*>(
@@ -221,9 +259,11 @@ __global__ void __launch_bounds__(32 * kMmaWarps) w8_gemv_mma_kernel(
   for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0;
-  const int nv = K >> 4;  // 16-byte chunks per row; nv % 4 == 0
+  const int steps = K >> 6;  // 64-byte steps of a row
+  const int s0 = kp * steps / kMmaSplit, s1 = (kp + 1) * steps / kMmaSplit;
 #pragma unroll 4
-  for (int c = t; c < nv; c += 4) {  // the same trip count on every lane
+  for (int st = s0; st < s1; ++st) {  // the same trip count on every lane
+    const int c = 4 * st + t;
     const int4 w = n < N ? __ldg(w4 + c) : zero;
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
@@ -233,6 +273,17 @@ __global__ void __launch_bounds__(32 * kMmaWarps) w8_gemv_mma_kernel(
       mma_s8(acc[i], lo.z, hi.z, lo.w, hi.w, w.z, w.w);
     }
   }
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part[kp][4 * i + e][lane] = acc[i][e];
+  __syncthreads();
+  if (kp != 0) return;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      for (int q = 1; q < kMmaSplit; ++q) acc[i][e] += part[q][4 * i + e][lane];
   // Accumulator layout: acc[i][2 h + e] = row 16 i + 8 h + g,
   // column n0 + 2 t + e.
 #pragma unroll
@@ -261,30 +312,29 @@ inline bool aligned16(const void* p) {
 // GEMV: up to kGemvMaxM activation rows per pass over the weights
 // (dp4a up to 8 rows, int8 mma above).  Shapes the mma path does not
 // take (K % 64 != 0, unaligned rows) and M > kGemvMaxM run the dp4a
-// GEMV in groups of 8 rows, one weight pass per group.
-inline void launch_w8_gemv(const int8_t* xq, const float* sx,
-                           const int8_t* codes, const float* scale,
-                           const float* resid, float* out, int M, int N,
-                           int K, cudaStream_t st) {
+// GEMV in groups of 8 rows, one weight pass per group.  ``pdl``: each
+// launch a programmatic dependent one (K7's chain).
+inline cudaError_t launch_w8_gemv(const int8_t* xq, const float* sx,
+                                  const int8_t* codes, const float* scale,
+                                  const float* resid, float* out, int M,
+                                  int N, int K, cudaStream_t st,
+                                  bool pdl = false) {
   const bool vec = (K % 16 == 0) && aligned16(xq) && aligned16(codes);
   if (M > kDp4aMaxM && M <= kGemvMaxM && vec && K % 64 == 0) {
-    const dim3 grid((N + 8 * kMmaWarps - 1) / (8 * kMmaWarps));
-    const dim3 block(32 * kMmaWarps);
+    const dim3 grid((N + 7) / 8), block(32 * kMmaSplit);
     switch ((M + 15) / 16) {
 #define VX_MMA_CASE(MT)                                                 \
   case MT:                                                              \
-    w8_gemv_mma_kernel<MT><<<grid, block, 0, st>>>(xq, sx, codes, scale, \
-                                                   resid, out, M, N, K); \
-    break;
+    return launch_pdl(w8_gemv_mma_kernel<MT>, grid, block, 0, st, pdl,  \
+                      xq, sx, codes, scale, resid, out, M, N, K);
       VX_MMA_CASE(1)
       VX_MMA_CASE(2)
       VX_MMA_CASE(3)
       VX_MMA_CASE(4)
 #undef VX_MMA_CASE
       default:
-        break;
+        return cudaErrorInvalidValue;
     }
-    return;
   }
   const dim3 grid((N + kGemvWarps - 1) / kGemvWarps);
   const dim3 block(32 * kGemvWarps);
@@ -294,11 +344,12 @@ inline void launch_w8_gemv(const int8_t* xq, const float* sx,
     const float* s = sx + m0;
     const float* r = resid ? resid + static_cast<size_t>(m0) * N : nullptr;
     float* o = out + static_cast<size_t>(m0) * N;
+    cudaError_t e = cudaErrorInvalidValue;
     switch (mr) {
-#define VX_GEMV_CASE(MM)                                                   \
-  case MM:                                                                 \
-    w8_gemv_kernel<MM><<<grid, block, 0, st>>>(x, s, codes, scale, r, o, N, \
-                                               K, vec);                    \
+#define VX_GEMV_CASE(MM)                                                \
+  case MM:                                                              \
+    e = launch_pdl(w8_gemv_kernel<MM>, grid, block, 0, st, pdl, x, s,   \
+                   codes, scale, r, o, N, K, vec);                      \
     break;
       VX_GEMV_CASE(1)
       VX_GEMV_CASE(2)
@@ -312,7 +363,9 @@ inline void launch_w8_gemv(const int8_t* xq, const float* sx,
       default:
         break;
     }
+    if (e != cudaSuccess) return e;
   }
+  return cudaSuccess;
 }
 
 __device__ __forceinline__ double warp_sum_f64(double v) {
@@ -435,7 +488,8 @@ __global__ void __launch_bounds__(256) g32_gemv_kernel(
 }
 
 // g32 GEMV over M <= 16 * MT rows with int8 tensor-core mma, one warp per
-// 8 output rows as in w8_gemv_mma_kernel, but each m16n8k32 product is
+// 8 output rows (all of K) with w8_gemv_mma_kernel's fragments, but each
+// m16n8k32 product is
 // exactly one group: lane (g, t) loads the 8 bytes at 32 grp + 8 t of
 // weight row n0 + g and of activation rows 16 i + g, 16 i + g + 8, so a
 // product's 32 k slots are the group's 32 bytes.  Its int32 fragment

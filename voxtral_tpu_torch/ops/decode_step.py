@@ -73,7 +73,11 @@ Also here, K7 (:func:`decode_layer_step`, ``csrc/decode_layer.cu``): one
 decoder layer of the w8 step over the position-major prefill cache
 [B, S, Hkv, hd] with a scalar offset (JAX ``decode_layer_step``), which
 the one-shot path's per-layer route calls once per layer and position
-(``models.voxtral.oneshot_plan``); and the host-side preparation the JAX
+(``models.voxtral.oneshot_plan``): nine programmatic dependent launches
+(:data:`K7_PDL`), the attention a block or a cluster per (row, kv head)
+serving its query heads (:func:`layer_attn_plan`;
+:func:`layer_attention_split_plain` states the split walk's
+arithmetic); and the host-side preparation the JAX
 module holds beside the kernels: :func:`fuse_decode_weights`, :func:`fuse_decode_weights_q4g`,
 :func:`fuse_decode_weights_bf16`, :func:`megakernel_mode`, :func:`q4g_geometry_ok`, :func:`ada_vectors`,
 :func:`rope_pair_vectors` and :func:`quantize_kv`.
@@ -1520,6 +1524,56 @@ def _layer_attention_plain(q, k, v, k_cache, v_cache, offset: int, window,
     return (ctx / denom[..., None]).reshape(B, n_heads * hd)
 
 
+def layer_attention_split_plain(q, k, v, k_cache, v_cache, offset: int,
+                                window, n_kv: int, scale: float,
+                                pieces: int) -> torch.Tensor:
+    """What K7's attention (``csrc/decode_layer.cu`` ``attn_group_kernel``)
+    computes, written plainly: the arguments of
+    :func:`_layer_attention_plain` and ``pieces`` = P, the blocks of the
+    cluster that walks each (row, kv head).
+
+    The visible slots [max(0, offset - window), min(offset, S)) are cut
+    into P contiguous pieces of ceil(n / P) slots (pieces past the end
+    empty).  Per piece: the scores (f32 q x bf16 k in f64, rounded to
+    f32) and their max; the max over every piece and the self score; per
+    piece the f64 sum of expf(s - m) and the P.V partial (f32 weights x
+    bf16 v in f64); the partials added in piece order and rounded once,
+    then the self term in f32 as :func:`_layer_attention_plain` adds it.
+    Nothing here rounds where the unsplit walk does not, and the f64 sums
+    of exact products do not depend on their order, so the result equals
+    :func:`_layer_attention_plain` bit for bit for every P."""
+    B, n_heads, hd = q.shape
+    S = k_cache.shape[1]
+    G = n_heads // n_kv
+    lo = max(0, offset - window) if window is not None else 0
+    hi = min(offset, S)
+    n = max(hi - lo, 0)
+    piece = -(-n // pieces) if n else 0
+    qg = (q * scale).reshape(B, n_kv, G, hd).double()
+    self_s = _sum64(qg * k[:, :, None].double())  # [B, Hkv, G]
+    kc = k_cache.permute(0, 2, 1, 3).double()  # [B, Hkv, S, hd]
+    vc = v_cache.permute(0, 2, 1, 3).double()
+    bounds = [(min(lo + r * piece, hi), min(lo + (r + 1) * piece, hi))
+              for r in range(pieces)]
+    scores = [(qg @ kc[:, :, a:b].transpose(-1, -2)).float()
+              for a, b in bounds]
+    m = self_s
+    for sc in scores:
+        if sc.shape[-1]:
+            m = torch.maximum(m, sc.amax(-1))
+    den = torch.zeros_like(self_s, dtype=torch.float64)
+    ctx = torch.zeros((B, n_kv, G, hd), dtype=torch.float64,
+                      device=q.device)
+    for (a, b), sc in zip(bounds, scores):
+        e = torch.exp(sc - m[..., None]).double()
+        den = den + e.sum(dim=-1)
+        ctx = ctx + e @ vc[:, :, a:b]
+    e_self = torch.exp(self_s - m)
+    out = ((ctx.float() + e_self[..., None] * v[:, :, None])
+           / (den.float() + e_self)[..., None])
+    return out.reshape(B, n_heads * hd)
+
+
 def decode_layer_step_plain(
     x, layer: int, offset: int,
     attn_norm, ffn_norm, ada_vec,
@@ -1580,6 +1634,48 @@ def check_layer_geometry(S: int, head_dim: int,
             f"above the {SMEM_LIMIT} a block may hold")
 
 
+# K7's attention (csrc/decode_layer.cu): the fewest visible slots a
+# block takes before the walk is cut over a cluster, the attention blocks
+# a call aims at (rows x kv heads x pieces), and the largest cluster.
+K7_PIECE_SLOTS = 32
+K7_BLOCKS = 128
+K7_MAX_PIECES = 8
+K7_PDL = True   # False: the layer's launches in plain stream order
+
+
+def layer_attn_plan(S: int, offset: int, window: Optional[int], rows: int,
+                    n_kv: int) -> tuple:
+    """(pieces, piece) of K7's attention at one call: the visible slots
+    cut into ``pieces`` blocks of ``piece`` slots, one cluster per (row,
+    kv head): at most 8, at most K7_BLOCKS / (rows x n_kv), and no piece
+    below K7_PIECE_SLOTS slots (one block where the span is short).
+    Tuned on the H100 at layer 25's shapes
+    (``benches/torch_k3_k7_times.py``)."""
+    lo = max(0, offset - window) if window is not None else 0
+    n = max(min(offset, S) - lo, 0)
+    pieces = max(1, min(K7_MAX_PIECES, -(-n // K7_PIECE_SLOTS),
+                        K7_BLOCKS // (rows * n_kv)))
+    return pieces, -(-n // pieces)
+
+
+@functools.lru_cache(maxsize=4096)
+def layer_attn_scratch(n_heads: int, n_kv: int, head_dim: int,
+                       piece: int) -> int:
+    """Bytes a block of K7's attention needs outside shared memory for
+    its scores and softmax weights at ``piece`` slots a block, 0 where
+    they fit: from the built library (``vx_layer_attn_scratch``, the
+    layout of ``csrc/decode_layer.cu::attn_geometry``)."""
+    out = ctypes.c_longlong()
+    fn = kernel_fn("vx_layer_attn_scratch", [_I] * 3 + [ctypes.c_void_p])
+    code = fn(n_heads // n_kv, head_dim, piece,
+              ctypes.cast(ctypes.byref(out), ctypes.c_void_p))
+    check(code, "layer_attn_scratch")
+    if out.value < 0:
+        raise ValueError(f"decode_layer_step: no attention layout fits "
+                         f"G={n_heads // n_kv} head_dim={head_dim}")
+    return out.value
+
+
 def decode_layer_step(
     x, layer: int, offset: int,
     attn_norm, ffn_norm, ada_vec,
@@ -1604,7 +1700,10 @@ def decode_layer_step(
     bf16); the caller appends them at ``offset``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (source ``csrc/decode_layer.cu``) or raise.  Each launch adds one to
+    (source ``csrc/decode_layer.cu``: nine launches, programmatic
+    dependent ones unless :data:`K7_PDL` is False; the attention a block
+    or a cluster per (row, kv head) as :func:`layer_attn_plan` cuts the
+    visible slots) or raise.  Each call adds one to
     ``decode_layer_step.launches``.
     """
     args = (x, layer, offset, attn_norm, ffn_norm, ada_vec, sqkv, so, s13,
@@ -1633,8 +1732,10 @@ def decode_layer_step(
     need(Hkv == n_kv and hd == head_dim,
          f"cache {tuple(k_cache.shape)} does not match n_kv={n_kv}, "
          f"head_dim={head_dim}")
-    need(head_dim % 2 == 0 and head_dim <= 256 and n_heads % n_kv == 0,
-         "head_dim must be even and <= 256, n_kv must divide n_heads")
+    need(head_dim % 16 == 0 and 512 % head_dim == 0
+         and n_heads % n_kv == 0 and n_heads // n_kv in (1, 2, 4, 8),
+         "head_dim must be 16, 32, 64, 128 or 256 and n_kv must divide "
+         "n_heads in groups of 1, 2, 4 or 8")
     check_layer_geometry(S, head_dim, window)
     f32 = torch.float32
     expect = {
@@ -1662,6 +1763,8 @@ def decode_layer_step(
              f"{None if t is None else (t.dtype, tuple(t.shape))}")
         need(t.device == dev and t.is_contiguous(),
              f"{name} must be contiguous on {dev}")
+    need(k_cache.data_ptr() % 16 == 0 and v_cache.data_ptr() % 16 == 0,
+         "the caches must be 16-byte aligned")
 
     x_out = torch.empty((B, D), dtype=f32, device=dev)
     k_new = torch.empty((B, n_kv, head_dim), dtype=torch.bfloat16,
@@ -1672,9 +1775,15 @@ def decode_layer_step(
     qkv_buf = torch.empty((B, nq + 2 * nkvd), dtype=f32, device=dev)
     attn_buf = torch.empty((B, nq), dtype=f32, device=dev)
     up_buf = torch.empty((B, 2 * F), dtype=f32, device=dev)
+    pieces, piece = layer_attn_plan(S, offset, window, B, n_kv)
     with torch.cuda.device(dev):
+        scratch = layer_attn_scratch(n_heads, n_kv, head_dim, piece)
+        scores_buf = (torch.empty((B * n_kv * pieces * scratch,),
+                                  dtype=torch.uint8, device=dev)
+                      if scratch else None)
         fn = kernel_fn("vx_decode_layer_step",
-                       [_P, _P, _I, _I] + [_P] * 22 + [_I] * 8 + [_F, _F, _P])
+                       [_P, _P, _I, _I] + [_P] * 23 + [_I] * 8 + [_F, _F]
+                       + [_I] * 3 + [_P])
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(
             x.data_ptr(), x_out.data_ptr(), layer, offset,
@@ -1685,9 +1794,11 @@ def decode_layer_step(
             wqkv.data_ptr(), wo.data_ptr(), w13.data_ptr(), w2.data_ptr(),
             k_new.data_ptr(), v_new.data_ptr(), xq_buf.data_ptr(),
             sx_buf.data_ptr(), qkv_buf.data_ptr(), attn_buf.data_ptr(),
-            up_buf.data_ptr(), B, D, S, n_heads, n_kv, head_dim, F,
+            up_buf.data_ptr(),
+            None if scores_buf is None else scores_buf.data_ptr(),
+            B, D, S, n_heads, n_kv, head_dim, F,
             -1 if window is None else int(window), eps, head_dim ** -0.5,
-            stream)
+            pieces, piece, int(K7_PDL), stream)
     check(code, "decode_layer_step")
     decode_layer_step.launches += 1
     return x_out, k_new, v_new

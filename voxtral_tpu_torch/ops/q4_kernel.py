@@ -25,17 +25,22 @@ scales are the ``q4g`` format's (K1 mode (h)).  Source:
 
 What bounds it on the H100: the packed weights streamed from HBM, 0.5625
 bytes per weight with the scales (1.93 GB per full-width decode step,
-0.576 ms at 3.35 TB/s).  The simple design: a block of 8 warps per 32
-output columns, each lane one column (a warp reads 128 contiguous bytes
-of a packed row), the warps splitting K by groups of 32; x staged in
-shared memory in K chunks, rounded to bf16 there; the float sums in f64
-(exact products, rounded once) so kernel and plain version agree bit
-for bit.
+0.576 ms at 3.35 TB/s); at 8 rows the f32 FFMAs.  The design: a warp per
+128 output columns, each lane loading 16 bytes of a packed row (four
+columns) several groups ahead; the nibbles turned into bf16(nib * s) two
+at a time by one bf16x2 FMA; K split over the warps of a block and over
+a thread-block cluster (:func:`k3_plan`) so that every shape fills the
+card, the partials merged in a fixed order.  Each packed row's 8
+products are summed in f32 in k order, a group's four row sums in f32,
+and the groups (with the offset correction) in f64, rounded once
+(:func:`q4_matmul_plain` states the same order), so kernel and plain
+version agree bit for bit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -46,6 +51,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 MAX_ROWS = 8  # rows of x per launch (ops.q4.DECODE_MAX_ROWS)
+TILE_COLS = 128  # output columns of a warp
+MAX_WARPS = 8    # warps of a block
+MAX_SPLITS = 8   # blocks of a cluster along K
+SM_COUNT = 132   # the H100 SXM's; the wrapper asks the card
+_N_CHUNK = 32768  # columns of the plain version's working set
 
 
 # ---------------------------------------------------------------------------
@@ -131,16 +141,68 @@ def q4_packed_dequant_full(q4: dict, dtype=torch.bfloat16) -> torch.Tensor:
 
 def q4_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
                     scales_t: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, at its rounding points, sums
-    in f64 rounded once to f32.  x [M, K] -> [M, N] f32."""
+    """Plain PyTorch version of the kernel, at its rounding points and in
+    its summation order.  x [M, K] -> [M, N] f32:
+
+        R[m, g, r, n] = the f32 sum, k = 32 g + 8 r .. 32 g + 8 r + 7 in
+                     order, of the exact products bf16(x[m, k]) *
+                     bf16(nib[k, n] * s[g, n]) (packed row 4 g + r)
+        G[m, g, n] = ((R_0 + R_1) + R_2) + R_3 in f32
+        xb8[m, g]  = 8 * f32(the f64 sum of x[m, 32 g .. 32 g + 31])
+        y[m, n]    = f32(sum_g (G[m, g, n] - xb8[m, g] * s[g, n])) in f64
+
+    The f64 group sum is exact while the terms stay within about 2^21 of
+    one another, so its order does not matter; the f32 sums are the only
+    order-dependent rounding and are stated as the kernel's (the JAX
+    kernel sums the whole dot in f32 on the MXU).  Eight sequential
+    steps over the four rows at once, then three adds: the launches of
+    this version on the card are what its time is made of."""
     m, k = x.shape
+    g = k // 32
     xf = x.float()
-    w = _unpack_planes(packed).to(torch.bfloat16) * torch.repeat_interleave(
-        scales_t, 32, dim=0).to(torch.bfloat16)  # bf16 [K, N]
-    main = (xf.to(torch.bfloat16).double() @ w.double()).float()
-    xb8 = xf.reshape(m, k // 32, 32).double().sum(dim=-1).float() * 8.0
-    corr = (xb8.double() @ scales_t.double()).float()
-    return main - corr
+    xb4 = xf.to(torch.bfloat16).float().reshape(m, g, 4, 8)
+    xb8 = (xf.reshape(m, g, 32).double().sum(dim=-1).float() * 8.0).double()
+    shifts = torch.arange(0, 32, 4, dtype=torch.int32, device=x.device)
+    cols = []
+    for n0 in range(0, packed.shape[1], _N_CHUNK):
+        sc = scales_t[:, n0:n0 + _N_CHUNK]
+        # Nibble j of word i is k = 8 i + j: [K/8, 8, n] -> [G, 32, n].
+        nib = (packed[:, None, n0:n0 + _N_CHUNK] >> shifts[:, None]) & 0xF
+        w = (nib.reshape(g, 32, -1).to(torch.bfloat16)
+             * sc[:, None, :].to(torch.bfloat16)).float()
+        w = w.reshape(g, 4, 8, -1)  # [G, packed row, k in the row, n]
+        rs = torch.zeros((m, g, 4, w.shape[-1]), dtype=torch.float32,
+                         device=x.device)
+        for j in range(8):
+            # The exact products added in k order, in f32: a product of
+            # two bf16 values is exact, so addcmul rounds only the add.
+            torch.addcmul(rs, xb4[:, :, :, j, None], w[None, :, :, j, :],
+                          out=rs)
+        gs = ((rs[:, :, 0] + rs[:, :, 1]) + rs[:, :, 2]) + rs[:, :, 3]
+        terms = gs.double() - xb8[:, :, None] * sc.double()[None]
+        cols.append(terms.sum(dim=1).float())
+    return torch.cat(cols, dim=1)
+
+
+def k3_plan(m: int, n: int, k: int, sms: int = SM_COUNT) -> tuple:
+    """(tw, kw, splits) of a K3 launch, from the built library
+    (``vx_q4_plan``, ``csrc/q4_matmul.cu::q4_plan``, which also owns the
+    shared-memory layout it must fit): blocks of tw x kw warps, tw column
+    tiles of 128 each walked by kw warps over disjoint groups of K, and a
+    cluster of ``splits`` blocks along K, sized so that every shape fills
+    ``sms`` SMs.  ValueError where no plan fits."""
+    out = (ctypes.c_int * 4)()
+    code = _plan_entry()(m, n, k, sms, ctypes.cast(out, ctypes.c_void_p))
+    if code:
+        raise ValueError(f"q4_matmul: no plan for M={m} N={n} K={k} (a "
+                         f"block's slice of x does not fit its shared "
+                         f"memory, or the shape is not the kernel's)")
+    return out[0], out[1], out[2]
+
+
+@functools.lru_cache(maxsize=1)
+def _plan_entry():
+    return kernel_fn("vx_q4_plan", [_I] * 4 + [_P])
 
 
 def _check_operands(x, packed, scales_t):
@@ -166,8 +228,8 @@ def q4_matmul_packed(x: torch.Tensor, packed: torch.Tensor,
     scales_t [K/32, N] bf16 -> [M, N] f32.
 
     CPU tensors take :func:`q4_matmul_plain`; CUDA tensors launch the
-    kernel (and count the launch in ``q4_matmul_packed.launches``) or
-    raise.
+    kernel on :func:`k3_plan`'s plan (and count the launch in
+    ``q4_matmul_packed.launches``) or raise.
     """
     _check_operands(x, packed, scales_t)
     dev = x.device
@@ -176,23 +238,69 @@ def q4_matmul_packed(x: torch.Tensor, packed: torch.Tensor,
     if dev.type != "cuda":
         raise RuntimeError(f"q4_matmul: unsupported device {dev}")
     m, k = x.shape
+    return q4_matmul_on(_plan(m, packed.shape[1], k, dev), x, packed,
+                        scales_t)
+
+
+q4_matmul_packed.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_at(m: int, n: int, k: int, sms: int) -> tuple:
+    return k3_plan(m, n, k, sms)
+
+
+def _plan(m: int, n: int, k: int, dev: torch.device) -> tuple:
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return _plan_at(m, n, k, _sm_count(index))
+
+
+def q4_matmul_on(plan: tuple, x: torch.Tensor, packed: torch.Tensor,
+                 scales_t: torch.Tensor) -> torch.Tensor:
+    """K3 on CUDA tensors with a given plan (tw, kw, splits): the launch
+    :func:`q4_matmul_packed` makes with :func:`k3_plan`'s, or any other
+    (tests, tuning).  Counts in ``q4_matmul_packed.launches``."""
+    m, k = x.shape
     n = packed.shape[1]
+    dev = x.device
     if not (1 <= m <= MAX_ROWS and k % 256 == 0 and n % 128 == 0):
         raise ValueError(f"q4_matmul: the kernel takes 1..{MAX_ROWS} rows, "
                          f"K % 256 == 0 and N % 128 == 0; got M={m} K={k} "
                          f"N={n}")
-    for name, t in (("packed", packed), ("scales_t", scales_t)):
-        if not t.is_contiguous():
-            raise ValueError(f"q4_matmul: {name} must be contiguous")
-    xf = x.float().contiguous()
+    if not (packed.is_contiguous() and scales_t.is_contiguous()):
+        raise ValueError("q4_matmul: packed and scales_t must be contiguous")
+    if packed.data_ptr() % 16 or scales_t.data_ptr() % 8:
+        raise ValueError("q4_matmul: packed must be 16-byte and scales_t "
+                         "8-byte aligned")
+    tw, kw, splits = plan
+    if (tw * kw > MAX_WARPS or not 1 <= splits <= MAX_SPLITS
+            or n % (TILE_COLS * tw)):
+        raise ValueError(f"q4_matmul: plan {plan} does not take M={m} "
+                         f"N={n} K={k}")
+    xf = x if x.dtype == torch.float32 and x.is_contiguous() else (
+        x.float().contiguous())
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        fn = kernel_fn("vx_q4_matmul", [_P] * 4 + [_I] * 3 + [_P])
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        check(fn(xf.data_ptr(), packed.data_ptr(), scales_t.data_ptr(),
-                 out.data_ptr(), m, n, k, stream), "q4_matmul")
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        code = _launch(xf, packed, scales_t, out, m, n, k, plan, dev)
+    else:
+        with torch.cuda.device(dev):
+            code = _launch(xf, packed, scales_t, out, m, n, k, plan, dev)
+    check(code, "q4_matmul")
     q4_matmul_packed.launches += 1
     return out
 
 
-q4_matmul_packed.launches = 0
+def _launch(xf, packed, scales_t, out, m, n, k, plan, dev) -> int:
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return _entry()(xf.data_ptr(), packed.data_ptr(), scales_t.data_ptr(),
+                    out.data_ptr(), m, n, k, *plan, stream)
+
+
+@functools.lru_cache(maxsize=1)
+def _entry():
+    return kernel_fn("vx_q4_matmul", [_P] * 4 + [_I] * 6 + [_P])
