@@ -79,7 +79,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              (e) int8 KV on the same rows and with spec=8 (32 rows), mode
              (f) ``cache_chunk=512`` bounded (S = 1536, its third chunk
              dead and NaN-poisoned) and on the grown ring (S = 8704),
-             bf16 and int8.  Then pools, each through the kernels and
+             bf16 and int8, (f) also on the device alone (CUDA graph);
+             the attention block alone under (d) and (f) beside its
+             bound and SDPA.  Then pools, each through the kernels and
              through the plain versions (those stopped after some ticks
              and held as a prefix), tokens equal slot by slot: B = 4
              unbounded with bf16 and with int8 caches (four 14 s chirps
@@ -2200,8 +2202,9 @@ def kv_step_case(model, dev, card, tag, S, offs, spec, ring, int8, chunk,
     (e), the chunked walk (f) -- against the plain version, timed in
     turns, with its bound: the weights, and of the cache only the slots
     some row sees (int8: codes and their scales).  ``dead``: a slot slice
-    holding NaN, which must not be read.  -> (max abs err, ms, plain ms,
-    bound ms, bound by); only the error when not ``timed``."""
+    holding NaN, which must not be read.  -> (max abs err, host-called
+    ms, plain ms, bound ms, bound by, device ms from a CUDA graph in mode
+    (f), else None); only the error when not ``timed``."""
     import torch
 
     from voxtral_tpu_torch.models.layers import ring_k_positions
@@ -2252,6 +2255,9 @@ def kv_step_case(model, dev, card, tag, S, offs, spec, ring, int8, chunk,
     ms, plain_ms = in_turns(lambda: k1.decode_stack_step(*args, **kw),
                             lambda: k1.decode_stack_step_plain(*args, **kw),
                             iters, 1)
+    # Mode (f) also on the device alone (CUDA graph).
+    dev_ms = (graph_ms(lambda: k1.decode_stack_step(*args, **kw), reps=10,
+                       iters=5) if chunk else None)
     # Slots the step must read: per stream, those its first row sees.
     seen = 0
     for o in offs:
@@ -2269,14 +2275,101 @@ def kv_step_case(model, dev, card, tag, S, offs, spec, ring, int8, chunk,
     n_weights = n_stack_weights(model)
     b_ms, b_by = bound(moved, 2 * bc * spec * (n_weights + n_vocab * D),
                        weight_ops_peak(model))
-    print(f"{tag}: kernel {ms:.3f} ms called from the host, plain "
+    on_dev = ("" if dev_ms is None else
+              f"{dev_ms:.3f} ms on the device (CUDA graph; "
+              f"{100 * b_ms / dev_ms:.1f} % of the bound), ")
+    print(f"{tag}: kernel {on_dev}{ms:.3f} ms called from the host, plain "
           f"{plain_ms:.3f} ms; {seen} cache "
           f"slots read ({kv_read / 1e9:.4f} GB) + weights "
           f"{wbytes / 1e9:.4f} GB; bound {b_ms:.4f} ms ({b_by}; "
           f"{100 * b_ms / ms:.1f} % of it) [{card}]", flush=True)
     del kc, vc, kw, args
     torch.cuda.empty_cache()
-    return worst, ms, plain_ms, b_ms, b_by
+    return worst, ms, plain_ms, b_ms, b_by, dev_ms
+
+
+def sdpa_visible_ms(qkv, kc, vc, vis, nh: int) -> float:
+    """Device ms (CUDA graph) of torch's scaled_dot_product_attention
+    over each stream's visible bf16 K / V (``vis``: slot indices per
+    stream of kc / vc [streams, n_kv, S, hd]), GQA expanded to the ``nh``
+    query heads and padded to the longest under a boolean mask, the
+    gather done before the timing.  A yardstick the port never calls."""
+    import torch
+
+    streams, nkv, _, hd = kc.shape
+    n = max(len(v) for v in vis)
+    kx = torch.zeros((streams, nh, n, hd), dtype=torch.bfloat16,
+                     device=kc.device)
+    vx = torch.zeros_like(kx)
+    mask = torch.zeros((streams, 1, 1, n), dtype=torch.bool,
+                       device=kc.device)
+    for b, idx in enumerate(vis):
+        kx[b, :, :len(idx)] = kc[b][:, idx].repeat_interleave(nh // nkv,
+                                                              dim=0)
+        vx[b, :, :len(idx)] = vc[b][:, idx].repeat_interleave(nh // nkv,
+                                                              dim=0)
+        mask[b, :, :, :len(idx)] = True
+    q = qkv[:, :nh * hd].reshape(streams, nh, 1, hd).bfloat16()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return graph_ms(lambda: sdpa(q, kx, vx, attn_mask=mask))
+
+
+def chunk_block_case(lm, dev, offs, int8: bool, seed: int):
+    """The attention block alone (``ops.decode_step.attention_block``)
+    in mode (f), chunk 512, one layer at full width on the chunked pools'
+    grown ring (17 chunks of 512 slots), bf16 or int8 cache: held to its
+    plain version with torch.equal, then its device ms (CUDA graph), the
+    device ms of scaled_dot_product_attention over the same visible K / V
+    in bf16 (int8: the codes times their scales; a yardstick only: it
+    computes neither the per-chunk rounding nor the int8 groups), and
+    its bound (the visible K / V, and their scales, read once).
+    -> (ms, sdpa ms, bound ms, bound by, visible slots), or None when
+    not bit-equal."""
+    import torch
+
+    from voxtral_tpu_torch.models.layers import ring_k_positions
+    from voxtral_tpu_torch.ops import decode_step as k1
+
+    nh, nkv, hd, win = lm.n_heads, lm.n_kv_heads, lm.head_dim, \
+        lm.sliding_window
+    ring, _ = ring_geometry(lm)
+    S = 8704
+    ring = (ring[0], S - ring[0])
+    streams = len(offs)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn((streams, (nh + 2 * nkv) * hd), device=dev,
+                      generator=gen)
+    kc = (torch.randn((streams, nkv, S, hd), device=dev, generator=gen)
+          * 0.5).bfloat16()
+    vc = (torch.randn((streams, nkv, S, hd), device=dev, generator=gen)
+          * 0.5).bfloat16()
+    off = torch.tensor(offs, dtype=torch.int32, device=dev)
+    c, s = k1.rope_pair_vectors(off, hd, lm.rope_theta)
+    kw = dict(n_heads=nh, n_kv=nkv, head_dim=hd, window=win, ring=ring,
+              cache_chunk=512)
+    kb, vb = kc, vc
+    if int8:
+        (kc, ks), (vc, vs) = k1.quantize_kv(kc), k1.quantize_kv(vc)
+        kw.update(k_scales=ks, v_scales=vs)
+        kb = (kc.float() * ks[..., None]).bfloat16()
+        vb = (vc.float() * vs[..., None]).bfloat16()
+    got = k1.attention_block(qkv, c, s, kc, vc, off, **kw)
+    torch.cuda.synchronize()
+    ref = k1.attention_block_plain(qkv, c, s, kc, vc, off, **kw)
+    if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+        return None
+    ms = graph_ms(lambda: k1.attention_block(qkv, c, s, kc, vc, off, **kw))
+    vis = []
+    for o in offs:
+        p_abs, written = ring_k_positions(*ring, o, device=dev, slots=S)
+        vis.append(torch.nonzero(written & (o - p_abs <= win)).flatten())
+    sdpa_ms = sdpa_visible_ms(qkv, kb, vb, vis, nh)
+    seen = sum(len(v) for v in vis)
+    per_slot = hd * (1 if int8 else 2) + (4 if int8 else 0)
+    b_ms, b_by = bound(2 * nkv * seen * per_slot + nbytes(qkv, c, s)
+                       + nbytes(*got), 4 * nh * seen * hd,
+                       INT8_OPS if int8 else BF16_FLOPS)
+    return ms, sdpa_ms, b_ms, b_by, seen
 
 
 # The attention yardstick's streams, every window full: one stream, and
@@ -2348,20 +2441,7 @@ def attention_yardstick(model, dev, card):
             p_abs, written = ring_k_positions(*ring, o, device=dev, slots=S)
             vis.append(torch.nonzero(written & (o - p_abs <= win))
                        .flatten())
-        n = max(len(v) for v in vis)
-        kx = torch.zeros((streams, nh, n, hd), dtype=torch.bfloat16,
-                         device=dev)
-        vx = torch.zeros_like(kx)
-        mask = torch.zeros((streams, 1, 1, n), dtype=torch.bool, device=dev)
-        for b, idx in enumerate(vis):
-            kx[b, :, :len(idx)] = kc[b][:, idx].repeat_interleave(
-                nh // nkv, dim=0)
-            vx[b, :, :len(idx)] = vc[b][:, idx].repeat_interleave(
-                nh // nkv, dim=0)
-            mask[b, :, :, :len(idx)] = True
-        q = qkv[:, :nh * hd].reshape(streams, nh, 1, hd).bfloat16()
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        sdpa_ms = graph_ms(lambda: sdpa(q, kx, vx, attn_mask=mask))
+        sdpa_ms = sdpa_visible_ms(qkv, kc, vc, vis, nh)
         seen = sum(len(v) for v in vis)
         b_ms, b_by = bound(2 * nkv * seen * hd * 2 + nbytes(qkv, c, s)
                            + nbytes(*got), 4 * nh * seen * hd, BF16_FLOPS)
@@ -2372,8 +2452,33 @@ def attention_yardstick(model, dev, card):
               f"expanded, bool mask; yardstick only), bound {b_ms:.4f} ms "
               f"({b_by}; {100 * b_ms / ms:.1f} % of it) [{card}]",
               flush=True)
-        del kc, vc, kx, vx
+        del kc, vc
         torch.cuda.empty_cache()
+    return out
+
+
+# The (f) attention block's cases on the grown ring: (offsets, int8).
+YARD_F = {"bf16_1": ([16000], False), "bf16_2": ([100, 16000], False),
+          "int8_2": ([100, 16000], True)}
+
+
+def chunk_yardstick(lm, dev, card) -> dict:
+    """The attention block alone in mode (f) (``chunk_block_case``) at
+    YARD_F's cases -> {name: (ms, sdpa ms, bound ms, bound by)}."""
+    out = {}
+    for i, (name, (offs, int8)) in enumerate(YARD_F.items()):
+        tag = (f"attention block alone (f) cache_chunk=512, ring grown to "
+               f"8704 slots, {'int8' if int8 else 'bf16'}, offsets={offs}")
+        r = chunk_block_case(lm, dev, offs, int8, seed=95 + i)
+        if r is None:
+            fail(f"{tag}: not bit-equal to the plain version")
+        ms, sdpa_ms, b_ms, b_by, seen = r
+        out[name] = (ms, sdpa_ms, b_ms, b_by)
+        print(f"{tag}: bit-equal; kernel {ms:.4f} ms per layer on the "
+              f"device (CUDA graph), torch scaled_dot_product_attention "
+              f"{sdpa_ms:.4f} ms over the {seen} visible slots' K / V in "
+              f"bf16 (yardstick only), bound {b_ms:.4f} ms ({b_by}; "
+              f"{100 * b_ms / ms:.1f} % of it) [{card}]", flush=True)
     return out
 
 
@@ -2398,6 +2503,7 @@ def check_k1_pool_modes(model, dev, card):
            for name, case in cases.items()}
     out["err"] = max(v[0] for v in out.values())
     out["yard"] = attention_yardstick(model, dev, card)
+    out["yard_f"] = chunk_yardstick(model.config.language_model, dev, card)
     # (streams, S, ring, chunk, int8, spec) of each, as POOL_GEOMETRIES
     # keys them.
     out["held"] = {(len(c[2]), c[1], c[4], c[6], c[5], c[3])
@@ -5752,6 +5858,15 @@ def main() -> int:
          "f_bounded_bound_ms": pk["f_bounded"][3],
          "f_bounded_int8_ms": pk["f_bounded_int8"][1],
          "f_bounded_int8_bound_ms": pk["f_bounded_int8"][3],
+         # The same four (f) steps on the device alone (CUDA graph); the
+         # f_* above are called from the host.
+         **{f"{name}_device_ms": pk[name][5]
+            for name in ("f_ring", "f_ring_int8", "f_bounded",
+                         "f_bounded_int8")},
+         # The attention block alone in mode (f), one layer on the grown
+         # ring (YARD_F): device ms, SDPA over the visible K / V, bound.
+         **{f"attn_f_{n}_{key}": pk["yard_f"][n][i] for n in YARD_F
+            for i, key in ((0, "ms"), (1, "library_ms"), (2, "bound_ms"))},
          # The attention block alone, one layer under (d), window full:
          # device ms, torch's scaled_dot_product_attention over the same
          # visible K / V (yardstick), bound ms; one and four streams.
@@ -5807,9 +5922,10 @@ def main() -> int:
          "spec_plain_ms": k4s[1], "spec_bound_ms": k4s[2],
          "largest_cache_ms": k4l[0], "largest_cache_bound_ms": k4l[2],
          # K4's cache modes at tp = 2 (K4_MODE_CASES): device ms
-         # (CUDA graph), plain ms, bound ms.
+         # (CUDA graph), plain ms, bound ms, host-called ms.
          **{f"{name}_{key}": k4m[name][i] for name in K4_MODE_CASES
-            for i, key in ((0, "ms"), (1, "plain_ms"), (2, "bound_ms"))}},
+            for i, key in ((0, "ms"), (1, "plain_ms"), (2, "bound_ms"),
+                           (4, "host_called_ms"))}},
         {"name": "ffn_half_step", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/decode_tp.cu",
          "replaces": "voxtral_tpu/ops/decode_tp_pallas.py:818",

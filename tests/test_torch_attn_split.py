@@ -79,3 +79,101 @@ def test_split_walk_equals_plain_attention(ring, int8, spec, cluster):
         kw["k_scales"], kw["v_scales"])
     assert torch.isfinite(ref).all()
     assert torch.equal(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# Mode (f): the chunked walk over a cluster
+# ---------------------------------------------------------------------------
+#
+# ``attention_chunk_split_plain`` states mode (f)'s cluster walk: each
+# stream's own visible slots (not the batch's chunk range), tile-aligned
+# pieces, per-chunk maxima and their prefix max, per-chunk int8 groups
+# over the pieces, f64 partials added in piece order, the f32 fold in
+# chunk order.  A tile of 4 slots splits these short caches into pieces
+# as the kernel's 64-slot tile splits the full-width ones; the offsets
+# leave chunks of the batch's range that some stream sees nothing of.
+
+
+def _chunk_ref(kw, chunk):
+    return k1._attention_plain(
+        kw["q"], kw["k"], kw["v"], kw["k_cache"], kw["v_cache"], kw["offs"],
+        kw["window"], 1, N_KV, kw["scale"], kw["ring"], kw["k_scales"],
+        kw["v_scales"], chunk)
+
+
+def _chunk_split(kw, chunk, cluster, tile=4, round_chunks=None):
+    return k1.attention_chunk_split_plain(
+        kw["q"], kw["k"], kw["v"], kw["k_cache"], kw["v_cache"], kw["offs"],
+        kw["window"], N_KV, kw["scale"], chunk, cluster, kw["ring"],
+        kw["k_scales"], kw["v_scales"], round_chunks, tile)
+
+
+def _poison(kw, slots, value=float("nan")):
+    """Slots no stream's row reaches set to ``value`` in the arrays the
+    walk multiplies (the caches over bf16, the scales over int8)."""
+    if kw["k_scales"] is not None:
+        kw["k_scales"][:, :, slots] = value
+        kw["v_scales"][:, :, slots] = value
+    else:
+        kw["k_cache"][:, :, slots] = value
+        kw["v_cache"][:, :, slots] = value
+
+
+@pytest.mark.parametrize("case", [
+    # (ring, int8, chunk, cluster, tile, round_chunks, S, offsets, dead)
+    *[(r, i8, ch, c, 4, None, S, None, None)
+      for r in (False, True) for i8 in (False, True)
+      for ch in (4, 8, S) for c in (1, 2, 3, 8)],
+    # Rounds of one and two chunks (the walk of a span longer than a
+    # cluster's shared memory holds).
+    *[(r, i8, 4, 2, 4, rc, S, None, None)
+      for r in (False, True) for i8 in (False, True) for rc in (1, 2)],
+    # Dead chunks outside the batch's range hold NaN: trailing (offsets
+    # 7 / 5 / 6), leading (every window starts at slot 8 or later), past
+    # the ring's end.
+    *[(r, i8, 4, 3, 4, None, S, offs, dead)
+      for r, offs, dead in ((False, [7, 5, 6], slice(8, 24)),
+                            (False, [20, 24, 22], slice(0, 8)),
+                            (True, [30, 50, 9], None))
+      for i8 in (False, True)],
+    # The kernel's own 64-slot tile over a longer cache.
+    *[(False, i8, ch, c, 64, None, 192, [60, 150, 192], None)
+      for i8 in (False, True) for ch, c in ((8, 2), (64, 3))],
+], ids=lambda c: (f"{'ring' if c[0] else 'bounded'}-"
+                  f"{'int8' if c[1] else 'bf16'}-chunk{c[2]}-C{c[3]}-"
+                  f"tile{c[4]}-rounds{c[5]}-S{c[6]}"
+                  + ("-poisoned" if c[8] is not None or c[7] is not None
+                     else "")))
+def test_chunk_split_walk_equals_plain_attention(case):
+    ring, int8, chunk, cluster, tile, rounds, s_len, offs, dead = case
+    kw = _chunk_case(ring, int8, s_len, offs)
+    if dead is not None:
+        _poison(kw, dead)
+    if ring and offs is not None:
+        _poison(kw, slice(sum(RING), s_len))  # never written
+    ref = _chunk_ref(kw, chunk)
+    got = _chunk_split(kw, chunk, cluster, tile, rounds)
+    assert torch.isfinite(ref).all()
+    assert torch.equal(got, ref)
+
+
+def _chunk_case(ring: bool, int8: bool, s_len: int, offs=None):
+    """``_case`` over a cache of ``s_len`` slots (a head+ring cache keeps
+    RING and holds unwritten slots past its end) at ``offs``."""
+    global S
+    saved = S
+    try:
+        S = s_len
+        kw = _case(ring, int8, 1, seed=3)
+    finally:
+        S = saved
+    if offs is not None:
+        kw["offs"] = torch.tensor(offs, dtype=torch.int32)
+        n = len(offs)
+        for key in ("q", "k", "v", "k_cache", "v_cache", "k_scales",
+                    "v_scales"):
+            if kw[key] is not None:
+                t = kw[key]
+                reps = -(-n // t.shape[0])
+                kw[key] = t.repeat(reps, *[1] * (t.dim() - 1))[:n].clone()
+    return kw

@@ -1005,6 +1005,124 @@ def test_decode_stack_step_cluster_kernel_matches_plain_on_card(
         assert torch.equal(g_, r), (g_.float() - r.float()).abs().max()
 
 
+# Mode (f) on the cluster walk: (offsets, ring, window, int8, chunk).
+# Over BIG_S = 640 slots a cluster takes up to 10 blocks of one 64-slot
+# tile each (7 at a window of 400): chunks of 128 and 160 straddle the
+# pieces (160 off the tiles' edges), chunks of 8 put many in one piece,
+# one chunk of 640 spans the whole cluster; dead slots past the window's
+# reach hold NaN.
+CHUNK_CLUSTER_CASES = [
+    ([600, 640], None, 400, False, 128),
+    ([600, 640], None, 400, True, 160),
+    ([30, 300, 660, 1500], BIG_RING, BIG_WINDOW, False, 8),
+    ([30, 300, 660, 1500], BIG_RING, BIG_WINDOW, True, 8),
+    ([30, 300, 660, 1500], BIG_RING, BIG_WINDOW, False, 640),
+    ([30, 300, 660, 1500], BIG_RING, BIG_WINDOW, True, 640),
+    ([30, 300, 660, 1500], BIG_RING, BIG_WINDOW, True, 160),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offs,ring,window,int8,chunk", CHUNK_CLUSTER_CASES)
+def test_decode_stack_step_chunked_cluster_kernel_matches_plain_on_card(
+        inputs, offs, ring, window, int8, chunk):
+    """K1 mode (f) over a long cache, split over a cluster's blocks
+    (chunks across blocks, many chunks in a piece, one chunk over the
+    cluster), bit-equal to the plain version (torch.equal on every
+    output); the bounded cases' slots below every window are NaN."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    args = list(_ring_card_args(inputs, offs, 1))
+    dev = args[0].device
+    g = torch.Generator(device=dev).manual_seed(7 + chunk)
+    shape = (L, len(offs), N_KV, BIG_S, HEAD_DIM)
+    kc = (torch.randn(shape, device=dev, generator=g) * 0.4).bfloat16()
+    vc = (torch.randn(shape, device=dev, generator=g) * 0.4).bfloat16()
+    kw = dict(n_heads=N_HEADS, n_kv=N_KV, head_dim=HEAD_DIM, eps=EPS,
+              window=window, ring=ring, cache_chunk=chunk)
+    dead = slice(0, 128) if ring is None else None  # below 600 - 400
+    if int8:
+        (kc, ks), (vc, vs) = tdsp.quantize_kv(kc), tdsp.quantize_kv(vc)
+        if dead is not None:
+            ks[..., dead] = float("nan")
+            vs[..., dead] = float("nan")
+        kw.update(k_scales=ks, v_scales=vs)
+    elif dead is not None:
+        kc[..., dead, :] = float("nan")
+        vc[..., dead, :] = float("nan")
+    args[11], args[12] = kc, vc
+    span = tdsp.attn_span(BIG_S, window, ring)
+    assert tdsp.kernel_chunk_plan(len(offs), N_HEADS, N_KV, HEAD_DIM, span,
+                                  chunk, int8)[0] > 1  # split over blocks
+    got = tdsp.decode_stack_step(*args, **kw)
+    ref = tdsp.decode_stack_step_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for g_, r in zip(got, ref):
+        assert torch.isfinite(r.float()).all()
+        assert torch.equal(g_, r), (g_.float() - r.float()).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_chunked_block_in_rounds_matches_plain_on_card(int8):
+    """The (f) attention block alone at the full width's heads over a
+    head+ring cache of 131072 slots in chunks of 32768: a span longer
+    than a cluster holds in one round, so the walk runs in rounds of
+    chunks; bit-equal to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    dev = torch.device("cuda")
+    nh, nkv, hd, S, chunk = 32, 8, 128, 131072, 32768
+    ring = (38, S - 38)
+    plan = tdsp.kernel_chunk_plan(1, nh, nkv, hd, S, chunk, int8)
+    assert plan[0] > 1 and plan[4] < -(-S // chunk) + 1  # rounds
+    g = torch.Generator(device=dev).manual_seed(11)
+    qkv = torch.randn((1, (nh + 2 * nkv) * hd), device=dev, generator=g)
+    kc = (torch.randn((1, nkv, S, hd), device=dev, generator=g)
+          * 0.5).bfloat16()
+    vc = (torch.randn((1, nkv, S, hd), device=dev, generator=g)
+          * 0.5).bfloat16()
+    off = torch.tensor([S + 5000], dtype=torch.int32, device=dev)
+    c, s = tdsp.rope_pair_vectors(off, hd)
+    kw = dict(n_heads=nh, n_kv=nkv, head_dim=hd, window=S - 2000,
+              ring=ring, cache_chunk=chunk)
+    if int8:
+        (kc, ks), (vc, vs) = tdsp.quantize_kv(kc), tdsp.quantize_kv(vc)
+        kw.update(k_scales=ks, v_scales=vs)
+    got = tdsp.attention_block(qkv, c, s, kc, vc, off, **kw)
+    ref = tdsp.attention_block_plain(qkv, c, s, kc, vc, off, **kw)
+    torch.cuda.synchronize()
+    for g_, r in zip(got, ref):
+        assert torch.isfinite(r).all()
+        assert torch.equal(g_, r), (g_.float() - r.float()).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streams,int8", [(1, False), (2, True), (8, False)])
+@pytest.mark.parametrize("n_heads,n_kv,head_dim", [(32, 8, 128),
+                                                   (16, 4, 128), (8, 2, 256)])
+def test_chunk_plan_fits_every_admitted_chunk_on_card(
+        streams, int8, n_heads, n_kv, head_dim):
+    """Mode (f)'s plan (attn_step.cuh::chunk_plan) fits a block at the
+    longest chunk check_geometry admits, over a cache of four such
+    chunks and over the full width's grown ring, and covers the span."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernel library builds there")
+    most = ((tdsp.SMEM_LIMIT - 8 * (tdsp.ATTN_THREADS // 32) * head_dim)
+            // 4 - 4 * head_dim - 2)
+    for S, chunk in ((4 * most, most), (8704, 512), (1536, 512)):
+        tdsp.check_geometry(S, head_dim, None, 1, (38, S - 38),
+                            cache_chunk=chunk, kv_int8=int8)
+        cluster, rv, n_vg, piece, kround, nrec, smem = tdsp.kernel_chunk_plan(
+            streams, n_heads, n_kv, head_dim, S, chunk, int8)
+        assert cluster > 0 and smem <= tdsp.SMEM_LIMIT
+        assert rv * n_vg >= n_heads // n_kv
+        assert cluster * piece >= min(kround * chunk, S) and nrec >= 1
+    with pytest.raises(ValueError, match="shared memory"):
+        tdsp.check_geometry(4 * most + 4, head_dim, None, 1,
+                            (38, 4 * most - 34), cache_chunk=most + 1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("streams,spec,int8", [
     (1, 1, False), (4, 1, True), (1, 8, False), (4, 8, True), (8, 8, False),

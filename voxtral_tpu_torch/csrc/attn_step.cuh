@@ -5,7 +5,12 @@
 // prepare_attention() once a step and launch_attention() a layer:
 //   * attn_cluster_kernel: modes (a)-(e) and their (b) / (c) / (g)
 //     combinations, over a bf16 or an int8 cache;
-//   * attn_chunk_kernel: mode (f), the chunked walk (bf16 or int8).
+//   * attn_chunk_kernel: mode (f), the chunked online softmax (bf16 or
+//     int8), on the same cluster walk: the chunks' running max is a
+//     prefix max the blocks form from each other's piece maxima before
+//     any expf, and the blocks fold the chunks' f64 sums in chunk order.
+// Both launch as one cluster per (stream, kv head, group of query
+// vectors), as the library's plan (attn_plan / chunk_plan) sizes them.
 // Internal linkage: each translation unit has its own copy.  See
 // decode_step.cu for the rounding points the blocks share with the
 // plain versions (ops/decode_step.py::_attention_plain).
@@ -99,6 +104,11 @@ constexpr int kMaxCluster = 16;  // blocks a cluster (non-portable above 8)
 constexpr int kTileSlots = 64;   // cache rows per staged tile
 constexpr int kAttnStages = 3;   // staged tiles in the ring
 constexpr int kClusterBlocks = 128;  // blocks a launch aims at (132 SMs)
+// Spec rows over spans of at most this many tiles: clusters of one tile
+// a block (benches/torch_chunk_times.py measured K4 and K1 at 8 rows over
+// 158 slots faster that way than with fewer, longer pieces, and slower with one
+// block a vector group).
+constexpr int kShortTiles = 3;
 constexpr size_t kSmemTarget = 113 * 1024;  // two blocks an SM
 constexpr size_t kSmemMax = 227 * 1024;
 
@@ -182,7 +192,8 @@ struct AttnPlan {
 // most kMaxVec) that still makes about kClusterBlocks blocks with
 // clusters no wider than the span's tiles, and the cluster size that
 // brings the launch to that many, whose block fits kSmemTarget; failing
-// that the kSmemMax a block may hold.  cluster == 0: nothing fits.
+// that the kSmemMax a block may hold; spec rows over a span of at most
+// kShortTiles tiles take a block a tile.  cluster == 0: nothing fits.
 inline AttnPlan attn_plan(int streams, int n_heads, int n_kv, int spec,
                           int hd, int span, bool int8) {
   const int R = spec * (n_heads / n_kv);
@@ -196,6 +207,7 @@ inline AttnPlan attn_plan(int streams, int n_heads, int n_kv, int spec,
       if (rv > 1 && units * c_max < kClusterBlocks) continue;
       int c0 = ceil_div(kClusterBlocks, units);
       c0 = c0 < 1 ? 1 : (c0 > c_max ? c_max : c0);
+      if (spec > 1 && tiles <= kShortTiles) c0 = c_max;
       for (int c = c0; c <= kMaxCluster; ++c) {
         const int piece = ceil_div(span > 0 ? span : 1, c);
         const size_t smem = AttnLayout(hd, rv, piece, spec, int8).total;
@@ -230,6 +242,7 @@ struct AttnArgs {
   int S, window, ring_head, ring_size, n_heads, n_kv, hd;
   float scale;
   int rv, n_vg, piece;
+  int chunk, kround, nrec;  // mode (f) (attn_chunk_kernel) only
 };
 
 __device__ __forceinline__ void cp_async(void* dst, const void* src,
@@ -812,260 +825,659 @@ __global__ void __launch_bounds__(kAttnThreads) attn_cluster_kernel(
 
 // Mode (f): the attention walked in chunks of ``chunk`` slots (spec = 1),
 // over a bf16 cache or an int8 one (kInt8: codes with one f32 scale per
-// cached vector, ks / vs [Bc, n_kv, S] for this layer), one block per
-// (query head h, row r), grid (n_heads, B).  Its carry is sequential by
-// the JAX kernel's definition (bf16 weights round against the running
-// max, the int8 requant group is per chunk), so chunks are not split
-// over blocks; redesigning it for Hopper is ROADMAP work.
+// cached vector, ks / vs [Bc, n_kv, S] for this layer), as the JAX
+// kernel's chunked branch (decode_step_pallas.py:1085-1180) defines it:
+// (m, den, ctx) start at (-1e30, 0, 0); per chunk m_new = max(m, max s),
+// alpha = expf(m - m_new), e = expf(s - m_new) (rounded to bf16 for P.V,
+// or, int8, e x vs requantized in one group per chunk, se = max(absmax,
+// 1e-30) / 127), den = den alpha + sum e, ctx = ctx alpha + P.V(chunk);
+// the self term merges last.  The int8 scores and codes are those of the
+// cluster walk above (scores_of / ctx_of, :1045-1080).
 //
-// int8 (scores_of / ctx_of, decode_step_pallas.py:1045-1080): the scaled
-// q is quantized per query head, sq = max(absmax, 1e-8) / 127; the score
-// of slot t is float(qq . kcodes[t]) * sq * ks[t]; the self score stays
-// the f32 q . k.  The softmax weights e[t] * vs[t] are requantized with
-// se = max(absmax, 1e-30) / 127 (one group per chunk) and
-// ctx = float(eq . vcodes) * se.  Every dot is an integer sum, exact in
-// any order.
-//
-// Chunked (:1085-1180): (m, den, ctx) start at (-1e30, 0, 0); per chunk
-// m_new = max(m, max s), alpha = exp(m - m_new), e = exp(s - m_new),
-// den = den * alpha + sum e, ctx = ctx * alpha + P.V(chunk); the self
-// term merges last.  Chunks c_lo .. n_used - 1 of the whole batch are
-// walked (bounded: from max(min_off - window, 0) / chunk to
-// ceil(max_off / chunk); ring: from 0 to ceil(min(max_off, head + size)
-// / chunk)); a chunk this row sees nothing of leaves its carry as it was.
-// Dynamic shared memory (chunk_smem_bytes): P.V partials (nw x hd
-// doubles), q, its bf16 rounding or int8 codes, k, v, 2 spec floats
-// (unused) and the chunk's scores.
-template <bool kInt8>
+// Only the max of that carry is sequential, and it is a prefix max: after
+// chunk c, m_c = max(-1e30, every visible score of a slot before the
+// chunk's end), whatever the order it is taken in.  Given m_c, a chunk's
+// weights, its requant group, its f64 denominator and P.V sum depend on
+// no other chunk; the f32 fold over the chunks, in chunk order, is a few
+// operations a chunk.  So the walk runs as the cluster walk does:
+//   * one thread-block cluster per (stream, kv head, group of query
+//     heads), C blocks (up to 16); a block serves every query head of its
+//     group, so a K / V row leaves HBM once per stream;
+//   * the stream's own visible slots are walked ([max(0, off - window),
+//     min(off, S)) bounded, the written head and ring slots of a head+ring
+//     cache), not the batch's chunk range (JAX :1106-1119): a chunk a row
+//     sees nothing of is an identity in the fold (alpha 1, sums 0), so
+//     skipping it changes no bit;
+//   * those slots, in rounds of ``kround`` whole chunks (one round unless
+//     a span is too long for the cluster's shared memory), are cut into C
+//     contiguous pieces of whole kTileSlots tiles; K then V tiles go
+//     through the cp.async ring, the dots on the f64 tensor cores as in
+//     attn_cluster_kernel (the exact products summed in f64);
+//   * each block takes its piece's max M and the max F of its first
+//     chunk's slots; after cluster.sync() it reads every block's (M, F)
+//     through distributed shared memory and forms m_c for each chunk it
+//     holds: the earlier pieces' M (and earlier rounds'), its own chunks
+//     in order, and for its last chunk the later pieces' F;
+//   * per chunk and piece: expf(s - m_c), the bf16 weight or e x vs, the
+//     f64 denominator; int8: the chunk's absmax over the blocks that
+//     share it (a second exchange) sets se_c, then the codes; the P.V
+//     partial per chunk on the tensor cores, kept with m_c, se_c and the
+//     denominator in a record a chunk;
+//   * each block folds a slice of the dims (and every denominator): a
+//     chunk's records added in block order, rounded once to f32 (int8:
+//     times se_c), all chunks at once into the free tile ring, then the
+//     chunks in chunk order with exactly the plain version's f32
+//     operations, the self term last, and writes its slice of the output
+//     (and of k_new / v_new).
+// ops/decode_step.py::attention_chunk_split_plain states this walk and
+// the CPU tests hold it bit for bit to the plain version.  What bounds it
+// on the H100: the visible slots' K / V (and scales) once, as the
+// cluster walk; the records and the fold add a few KB and microseconds.
+
+// Shared memory of one block of the chunked walk: the tile ring, q as
+// doubles (AttnLayout's), the piece's scores (then weights or codes) and
+// int8 scales, per-vector values, ``nrec`` chunk records (f64 den [rv],
+// f64 P.V [rv][hd], f32 m, absmax and se [rv] each) and the f32 carry
+// (den per vector, the context [rv][hd]).  After the P.V pass the tile
+// ring stages the fold's values.
+struct ChunkLayout {
+  AttnLayout base;
+  size_t o_rec, rec_bytes, o_ctx, total;
+  __host__ __device__ ChunkLayout(int hd, int rv, int piece, int nrec,
+                                  bool int8)
+      : base(hd, rv, piece, 0, int8) {
+    rec_bytes = align16(sizeof(double) * static_cast<size_t>(rv) * (hd + 1) +
+                        3 * sizeof(float) * rv);
+    o_rec = base.o_fs;  // no fresh rows in mode (f)
+    o_ctx = o_rec + static_cast<size_t>(nrec) * rec_bytes;
+    total = o_ctx + align16(sizeof(float) * (kMaxVec +
+                                             static_cast<size_t>(rv) * hd));
+  }
+};
+
+// The chunked walk's launch shape, AttnPlan's fields and: ``kround``
+// chunks a round, ``nrec`` chunk records a block.
+struct ChunkPlan {
+  AttnPlan pl;
+  int kround, nrec;
+};
+
+// Chosen from the shape alone: every query head of a kv head in one group
+// (split only where a block would not fit), about kClusterBlocks blocks
+// in clusters no wider than the span's tiles, as attn_plan, and one round
+// of every chunk a row can touch where its pieces fit kSmemTarget
+// (failing that kSmemMax), else rounds of fewer chunks.  cluster == 0:
+// nothing fits.
+inline ChunkPlan chunk_plan(int streams, int n_heads, int n_kv, int hd,
+                            int span, int chunk, bool int8) {
+  const int G = n_heads / n_kv;
+  const long long sp = span > 0 ? span : 1;
+  const int tiles = static_cast<int>(ceil_div(static_cast<int>(sp),
+                                              kTileSlots));
+  const int k_all = static_cast<int>((sp + chunk - 1) / chunk) + 1;
+  for (size_t limit : {kSmemTarget, kSmemMax}) {
+    for (int rv = G < kMaxVec ? G : kMaxVec;; rv = ceil_div(rv, 2)) {
+      const int n_vg = ceil_div(G, rv);
+      const int units = streams * n_kv * n_vg;
+      const int c_max = tiles < kMaxCluster ? tiles : kMaxCluster;
+      int c0 = ceil_div(kClusterBlocks, units);
+      c0 = c0 < 1 ? 1 : (c0 > c_max ? c_max : c0);
+      for (int K = k_all;; K = ceil_div(K, 2)) {
+        const long long rslots = static_cast<long long>(K) * chunk;
+        const int rs = static_cast<int>(rslots < sp ? rslots : sp);
+        for (int c = c0; c <= c_max; ++c) {
+          const int piece = ceil_div(ceil_div(rs, c), kTileSlots) * kTileSlots;
+          const int nr = (piece - 1) / chunk + 2;
+          const int nrec = nr < K ? nr : K;
+          const size_t smem = ChunkLayout(hd, rv, piece, nrec, int8).total;
+          if (smem <= limit)
+            return ChunkPlan{AttnPlan{c, rv, n_vg, piece, smem}, K, nrec};
+        }
+        if (K == 1) break;
+      }
+      if (rv == 1) break;
+    }
+  }
+  return ChunkPlan{AttnPlan{0, 0, 0, 0, 0}, 0, 0};
+}
+
+// One cluster per (stream b, kv head jh, vector group vg): grid (C,
+// streams x n_kv x n_vg), cluster (C, 1, 1), kAttnThreads threads.  Query
+// vector v of the group is query head jh * G + v0 + v of row b.
+template <bool kInt8, int kMt>
 __global__ void __launch_bounds__(kAttnThreads) attn_chunk_kernel(
-    const float* __restrict__ qkv, const float* __restrict__ cosv,
-    const float* __restrict__ sinv, int rope_stride,
-    const int* __restrict__ offs, int off0, int n_streams, int spec,
-    const void* __restrict__ kc_, const void* __restrict__ vc_,
-    const float* __restrict__ ks, const float* __restrict__ vs,
-    __nv_bfloat16* __restrict__ kn, __nv_bfloat16* __restrict__ vn,
-    float* __restrict__ attn, int S, int window, int ring_head, int ring_size,
-    int chunk, int n_heads, int n_kv, int hd, float scale) {
+    const AttnArgs a) {
+  constexpr int kStages = kAttnStages;
   using cache_t = typename std::conditional<kInt8, int8_t, __nv_bfloat16>::type;
-  extern __shared__ double smem_d[];
-  __shared__ float red[32];
-  __shared__ double red_d[32];
-  __shared__ float self_sh;
   pdl_trigger();
   pdl_wait();
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int nw = nt >> 5;
-  double* part = smem_d;                                   // [nw * hd]
-  float* qf = reinterpret_cast<float*>(smem_d + nw * hd);  // [hd] scaled q
-  float* qb = qf + hd;             // [hd] bf16(q), or hd int8 codes of q
-  float* kf = qb + hd;             // [hd] roped k
-  float* vf = kf + hd;             // [hd] v
-  float* sc = vf + hd + 2 * spec;  // [chunk] (2 spec floats of the host's
-                                   // layout unused: no fresh rows here)
-  const int8_t* qq = reinterpret_cast<const int8_t*>(qb);
-  const int h = blockIdx.x, r = blockIdx.y;
-  const int b = r / spec, j = r - b * spec;
-  const int G = n_heads / n_kv, jh = h / G;
-  const int nq = n_heads * hd;
-  const int off = offs != nullptr ? offs[b] : off0;
-  const bool ring = ring_size > 0;
-  rope_row(qkv, cosv, sinv, rope_stride, r, h, jh, G, n_heads, n_kv, hd, scale,
-           qf, kInt8 ? nullptr : qb, kf, vf, kn, vn);
-  __syncthreads();
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = static_cast<int>(cl.num_blocks());
+  const int rank = static_cast<int>(cl.block_rank());
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hd = a.hd, chunk = a.chunk;
+  const ChunkLayout CL(hd, a.rv, a.piece, a.nrec, kInt8);
+  const AttnLayout& L = CL.base;
+  unsigned char* tiles = smem;
+  double* qp = reinterpret_cast<double*>(smem + L.o_qp);
+  int8_t* qq = reinterpret_cast<int8_t*>(smem + L.o_qq);
+  float* sq = reinterpret_cast<float*>(smem + L.o_sq);
+  float* sc = reinterpret_cast<float*>(smem + L.o_sc);
+  int* sci = reinterpret_cast<int*>(sc);  // int8: the requant codes
+  float* kss = reinterpret_cast<float*>(smem + L.o_ksv);  // int8 [piece]
+  float* vss = kss + a.piece;
+  // Per vector: the piece's max M and its first chunk's max F (read by
+  // the other blocks), the max before the piece and of the later pieces
+  // its last chunk reaches, the running max through the rounds so far
+  // (m_base; m_old before this round), the fold's running max within a
+  // round, the self score, the carried denominator; the carried context
+  // of this block's slice of dims.
+  float* m_loc = reinterpret_cast<float*>(smem + L.o_small);
+  float* f_loc = m_loc + kMaxVec;
+  float* m_pre = f_loc + kMaxVec;
+  float* m_post = m_pre + kMaxVec;
+  float* m_base = m_post + kMaxVec;
+  float* m_old = m_base + kMaxVec;
+  float* m_fold = m_old + kMaxVec;
+  float* s_self = m_fold + kMaxVec;
+  float* den_run = reinterpret_cast<float*>(smem + CL.o_ctx);  // [kMaxVec]
+  float* ctx_run = den_run + kMaxVec;                          // [rv][hd]
+  const int rv = a.rv;
+  // Record k: this block's slots of its k-th chunk of the round.
+  auto rec = [&](unsigned char* base, int k) {
+    return base + CL.o_rec + static_cast<size_t>(k) * CL.rec_bytes;
+  };
+  auto r_den = [&](unsigned char* r) { return reinterpret_cast<double*>(r); };
+  auto r_pv = [&](unsigned char* r) {
+    return reinterpret_cast<double*>(r) + rv;
+  };
+  auto r_m = [&](unsigned char* r) {
+    return reinterpret_cast<float*>(r + sizeof(double) * rv * (hd + 1));
+  };
+  auto r_ea = [&](unsigned char* r) { return r_m(r) + rv; };
+  auto r_se = [&](unsigned char* r) { return r_m(r) + 2 * rv; };
 
-  float sq = 1.0f;
-  if constexpr (kInt8) {
-    float qa = 0.0f;
-    for (int d = tid; d < hd; d += nt) qa = fmaxf(qa, fabsf(qf[d]));
-    qa = block_max(qa, red);
-    sq = fmaxf(qa, 1e-8f) / 127.0f;
-    int8_t* qw = reinterpret_cast<int8_t*>(qb);
-    for (int d = tid; d < hd; d += nt)
-      qw[d] = static_cast<int8_t>(
-          fminf(fmaxf(rintf(qf[d] / sq), -127.0f), 127.0f));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = kAttnThreads / 32;
+  const int G = a.n_heads / a.n_kv;
+  const int nq = a.n_heads * hd, nkv = a.n_kv * hd, ld = nq + 2 * nkv;
+  const int vg = blockIdx.y % a.n_vg, bjh = blockIdx.y / a.n_vg;
+  const int jh = bjh % a.n_kv, b = bjh / a.n_kv;
+  const int v0 = vg * rv, nv = min(rv, G - v0);
+  const int off = a.offs != nullptr ? a.offs[b] : a.off0;
+  const bool ring = a.ring_size > 0;
+  const int window = a.window;
+
+  // The stream's visible slots [lo, hi) and the chunks they touch.
+  int lo, hi;
+  if (ring) {
+    lo = 0;
+    hi = off < a.ring_head ? off
+                           : a.ring_head + min(a.ring_size, off - a.ring_head);
+  } else {
+    lo = window >= 0 ? max(0, off - window) : 0;
+    hi = min(off, a.S);
+  }
+  const int c_beg = lo / chunk;
+  const int c_end = hi > lo ? ceil_div(hi, chunk) : c_beg;
+
+  auto vec_h = [&](int v) { return jh * G + v0 + v; };
+  auto visible = [&](int slot) {
+    if (ring) return ring_visible(slot, off, 0, window, a.ring_head, a.ring_size);
+    return slot < off && slot < a.S && (window < 0 || off - slot <= window);
+  };
+  const float* cs = a.cosv + static_cast<size_t>(b) * a.rope_stride;
+  const float* sn = a.sinv + static_cast<size_t>(b) * a.rope_stride;
+  const float* row = a.qkv + static_cast<size_t>(b) * ld;
+  auto q_at = [&](int h, int d) {
+    return rope_at(row + static_cast<size_t>(h) * hd, cs, sn, d) * a.scale;
+  };
+  auto k_at = [&](int d) {
+    return rope_at(row + nq + static_cast<size_t>(jh) * hd, cs, sn, d);
+  };
+  auto v_at = [&](int d) {
+    return row[nq + nkv + static_cast<size_t>(jh) * hd + d];
+  };
+
+  // 1. The group's query vectors as attn_cluster_kernel stages them:
+  // bf16(q), or q's int8 codes with sq = max(absmax, 1e-8) / 127, as
+  // doubles in the tensor-core A layout; the self score (the unrounded
+  // f32 q and k, f64 sum) and the carry (-1e30, 0, 0).  Each block
+  // folds and writes the dims [d_lo, d_hi) of every vector.
+  if constexpr (kInt8) {  // one read of q: a lane keeps its dims
+    constexpr int kPer = kMaxHeadDim / 32;
+    for (int v = warp; v < nv; v += nwarps) {
+      const int h = vec_h(v);
+      float qv[kPer];
+      float qa = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int d = lane + 32 * j;
+        qv[j] = d < hd ? q_at(h, d) : 0.0f;
+        qa = fmaxf(qa, fabsf(qv[j]));
+      }
+      const float s = fmaxf(warp_max(qa), 1e-8f) / 127.0f;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int d = lane + 32 * j;
+        if (d < hd) qq[v * hd + d] = static_cast<int8_t>(to_code(qv[j] / s));
+      }
+      if (lane == 0) sq[v] = s;
+    }
     __syncthreads();
   }
-  const size_t head = (static_cast<size_t>(b) * n_kv + jh) * S;
-  const cache_t* kbase = static_cast<const cache_t*>(kc_) + head * hd;
-  const cache_t* vbase = static_cast<const cache_t*>(vc_) + head * hd;
-  const float* ksb = kInt8 ? ks + head : nullptr;
-  const float* vsb = kInt8 ? vs + head : nullptr;
-
-  // Is cache slot ``slot`` visible to this row (written, and within the
-  // window of the query at off + j)?
-  auto visible = [&](int slot) {
-    if (ring) return ring_visible(slot, off, j, window, ring_head, ring_size);
-    return slot < off && slot < S &&
-           (window < 0 || off + j - slot <= window);
-  };
-  // The score of a visible slot.
-  auto score = [&](int slot) -> float {
-    if constexpr (kInt8) {
-      const int* kr = reinterpret_cast<const int*>(
-          kbase + static_cast<size_t>(slot) * hd);
-      const int* qi = reinterpret_cast<const int*>(qq);
-      int acc = 0;
-#pragma unroll 8
-      for (int w = 0; w < hd / 4; ++w) acc = __dp4a(kr[w], qi[w], acc);
-      return (static_cast<float>(acc) * sq) * ksb[slot];
+  for (int i = tid; i < L.n8 * L.qs; i += kAttnThreads) {
+    const int v = i / L.qs, e = i - v * L.qs;
+    const int d = 16 * (e / 16) + 4 * (e % 4) + (e % 16) / 4;
+    double q = 0.0;
+    if (v < nv && e < 16 * L.nblk && d < hd) {
+      if constexpr (kInt8)
+        q = static_cast<double>(qq[v * hd + d]);
+      else
+        q = static_cast<double>(round_bf16(q_at(vec_h(v), d)));
     }
-    const __nv_bfloat162* kr = reinterpret_cast<const __nv_bfloat162*>(
-        kbase + static_cast<size_t>(slot) * hd);
-    double p = 0.0;
-#pragma unroll 8
-    for (int d2 = 0; d2 < hd / 2; ++d2) {
-      const float2 kv = __bfloat1622float2(kr[d2]);
-      p += static_cast<double>(qb[2 * d2]) * kv.x;
-      p += static_cast<double>(qb[2 * d2 + 1]) * kv.y;
-    }
-    return static_cast<float>(p);
-  };
-  // P.V over slots base .. base + n - 1 with the weights sc[0 .. n): bf16
-  // weights x bf16 v in f64, or int8 codes x int8 v in int32 (exact);
-  // one warp per slot, per-warp partial sums into part, then
-  // __syncthreads.  A weight of 0 adds nothing and loads nothing.
-  constexpr int kWords = kMaxHeadDim / (kInt8 ? 128 : 64);  // per lane
-  auto pv = [&](int base, int n) {
-    double accd[kInt8 ? 1 : kWords][2];
-    int acci[kInt8 ? kWords : 1][4];
-#pragma unroll
-    for (int c = 0; c < kWords; ++c) {
-      if constexpr (kInt8) {
-        acci[c][0] = acci[c][1] = acci[c][2] = acci[c][3] = 0;
-      } else {
-        accd[c][0] = accd[c][1] = 0.0;
-      }
-    }
-#pragma unroll 4
-    for (int t = warp; t < n; t += nw) {
-      const float w = sc[t];
-      if (w == 0.0f) continue;
-      if constexpr (kInt8) {
-        const int wi = static_cast<int>(w);
-        const int* vr = reinterpret_cast<const int*>(
-            vbase + static_cast<size_t>(base + t) * hd);
-#pragma unroll
-        for (int c = 0; c < kWords; ++c) {
-          const int w4 = lane + 32 * c;
-          if (w4 < hd / 4) {
-            const int word = vr[w4];
-            acci[c][0] += wi * static_cast<int8_t>(word & 0xff);
-            acci[c][1] += wi * static_cast<int8_t>((word >> 8) & 0xff);
-            acci[c][2] += wi * static_cast<int8_t>((word >> 16) & 0xff);
-            acci[c][3] += wi * static_cast<int8_t>((word >> 24) & 0xff);
-          }
-        }
-      } else {
-        const __nv_bfloat162* vr = reinterpret_cast<const __nv_bfloat162*>(
-            vbase + static_cast<size_t>(base + t) * hd);
-        const double wd = w;
-#pragma unroll
-        for (int c = 0; c < kWords; ++c) {
-          const int d2 = lane + 32 * c;
-          if (d2 < hd / 2) {
-            const float2 v2 = __bfloat1622float2(vr[d2]);
-            accd[c][0] += wd * v2.x;
-            accd[c][1] += wd * v2.y;
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < kWords; ++c) {
-      const int w4 = lane + 32 * c;
-      if constexpr (kInt8) {
-        if (w4 < hd / 4)
-          for (int k = 0; k < 4; ++k)
-            part[warp * hd + 4 * w4 + k] = static_cast<double>(acci[c][k]);
-      } else if (w4 < hd / 2) {
-        part[warp * hd + 2 * w4] = accd[c][0];
-        part[warp * hd + 2 * w4 + 1] = accd[c][1];
-      }
-    }
-    __syncthreads();
-  };
-  // Thread d's P.V sum over the warps, rounded once to f32.
-  auto pv_sum = [&](int d) -> float {
-    double acc = 0.0;
-    for (int wi = 0; wi < nw; ++wi) acc += part[wi * hd + d];
-    return static_cast<float>(acc);
-  };
-  auto to_code = [](float v) {
-    return fminf(fmaxf(rintf(v), -127.0f), 127.0f);
-  };
-
-  // Self score: the unrounded f32 q and k.
-  if (warp == 0) {
+    qp[i] = q;
+  }
+  const int d_lo = min(rank * ceil_div(hd, C), hd);
+  const int d_hi = min(d_lo + ceil_div(hd, C), hd);
+  for (int v = warp; v < nv; v += nwarps) {
     double p = 0.0;
     for (int d = lane; d < hd; d += 32)
-      p += static_cast<double>(qf[d]) * kf[d];
+      p += static_cast<double>(q_at(vec_h(v), d)) * k_at(d);
     p = warp_sum_d(p);
-    if (lane == 0) self_sh = static_cast<float>(p);
+    if (lane == 0) {
+      s_self[v] = static_cast<float>(p);
+      m_base[v] = -1e30f;
+      den_run[v] = 0.0f;
+    }
   }
-  float* out = attn + static_cast<size_t>(r) * nq + static_cast<size_t>(h) * hd;
+  for (int i = tid; i < nv * hd; i += kAttnThreads) ctx_run[i] = 0.0f;
+  __syncthreads();
 
-  // Mode (f).  The chunk range is the whole batch's.
-  int mn = off0, mx = off0;
-  if (offs != nullptr) {
-    mn = mx = offs[0];
-    for (int i = 1; i < n_streams; ++i) {
-      mn = min(mn, offs[i]);
-      mx = max(mx, offs[i]);
-    }
-  }
-  const int used = ring ? min(mx, ring_head + ring_size) : mx;
-  const int lo_pos = (!ring && window >= 0) ? max(mn - window, 0) : 0;
-  const int c_lo = lo_pos / chunk;
-  const int n_used = min((used + chunk - 1) / chunk, S / chunk);
-  float m = -1e30f, den = 0.0f, ctx = 0.0f;  // ctx: dim tid (tid < hd)
-  for (int c = c_lo; c < n_used; ++c) {
-    const int base = c * chunk;
-    float cm = -INFINITY;
-    for (int t = tid; t < chunk; t += nt) {
-      const float s = visible(base + t) ? score(base + t) : -INFINITY;
-      sc[t] = s;
-      cm = fmaxf(cm, s);
-    }
-    const float m_new = fmaxf(m, block_max(cm, red));
-    const float alpha = expf(m - m_new);
-    double s = 0.0;
-    float ea = 0.0f;
-    for (int t = tid; t < chunk; t += nt) {
-      const bool vis = sc[t] != -INFINITY;
-      const float e = expf(sc[t] - m_new);
-      s += e;
-      if constexpr (kInt8) {
-        const float ew = vis ? e * vsb[base + t] : 0.0f;
-        ea = fmaxf(ea, fabsf(ew));
-        sc[t] = ew;
-      } else {
-        sc[t] = round_bf16(e);
+  const size_t plane = (static_cast<size_t>(b) * a.n_kv + jh) * a.S;
+  const cache_t* kplane = static_cast<const cache_t*>(a.kc);
+  const cache_t* vplane = static_cast<const cache_t*>(a.vc);
+  const int g = lane >> 2, tg = lane & 3;
+  const int n_mt = L.n8 / 8;
+  constexpr int esize = kInt8 ? 1 : 2;
+  const int dg = warp % L.n_dg, kq = warp / L.n_dg;
+
+  for (int ca = c_beg; ca < c_end; ca += a.kround) {
+    // The round's slots [ra, rb), cut into C pieces of whole tiles.
+    const int cb = min(ca + a.kround, c_end);
+    const int ra = max(lo, ca * chunk), rb = min(hi, cb * chunk);
+    const int len = ceil_div(ceil_div(rb - ra, C), kTileSlots) * kTileSlots;
+    auto pstart = [&](int q) { return min(ra + q * len, rb); };
+    const int p0 = pstart(rank), pn = pstart(rank + 1) - p0;
+    const int c_first = p0 / chunk;
+    const int nk = pn > 0 ? (p0 + pn - 1) / chunk - c_first + 1 : 0;
+    const int nt = ceil_div(pn, kTileSlots);
+    // Does block q's piece hold slots of chunk c?
+    auto holds = [&](int q, int c) {
+      const int s0 = pstart(q), s1 = pstart(q + 1);
+      return s1 > s0 && s0 < (c + 1) * chunk && s1 > c * chunk;
+    };
+
+    // Staged walk over the piece, as attn_cluster_kernel's.
+    auto load_tile = [&](const cache_t* base, int ti) {
+      const int t0 = ti * kTileSlots, rows = min(kTileSlots, pn - t0);
+      const int per = L.row_bytes / L.chunk;
+      unsigned char* dst = tiles + (ti % kStages) * kTileSlots * L.stride;
+      const unsigned char* src = reinterpret_cast<const unsigned char*>(
+          base + (plane + p0 + t0) * hd);
+      for (int i = tid; i < rows * per; i += kAttnThreads) {
+        const int rr = i / per, cc = i - rr * per;
+        cp_async(dst + rr * L.stride + cc * L.chunk,
+                 src + static_cast<size_t>(rr) * L.row_bytes + cc * L.chunk,
+                 L.chunk);
+      }
+      cp_async_commit();
+    };
+    auto tile_ready = [&](const cache_t* base, int ti) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();
+      if (ti + kStages - 1 < nt)
+        load_tile(base, ti + kStages - 1);
+      else
+        cp_async_commit();
+      return tiles + (ti % kStages) * kTileSlots * L.stride;
+    };
+    auto prologue = [&](const cache_t* base) {
+      for (int ti = 0; ti < kStages - 1; ++ti) {
+        if (ti < nt)
+          load_tile(base, ti);
+        else
+          cp_async_commit();
+      }
+    };
+
+    // 2. Scores of the piece, -inf where the row cannot see the slot
+    // (int8: the piece's scales read while the first tiles land).
+    prologue(kplane);
+    if constexpr (kInt8) {
+      for (int i = tid; i < pn; i += kAttnThreads) {
+        kss[i] = a.ks[plane + p0 + i];
+        vss[i] = a.vs[plane + p0 + i];
       }
     }
-    s = block_sum_d(s, red_d);
-    den = den * alpha + static_cast<float>(s);
-    float se = 1.0f;
+    for (int ti = 0; ti < nt; ++ti) {
+      const unsigned char* tile = tile_ready(kplane, ti);
+      const int tn = min(kTileSlots, pn - ti * kTileSlots);
+      if (8 * warp < tn) {
+        double c[kMt][4][2];
+#pragma unroll
+        for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) c[mt][j][0] = c[mt][j][1] = 0.0;
+        const unsigned char* krow = tile + (8 * warp + g) * L.stride;
+#pragma unroll 2
+        for (int blk = 0; blk < L.nblk; ++blk) {
+          const int d0 = 16 * blk + 4 * tg;
+          double x[4];
+          load4<kInt8>(krow + d0 * esize, d0, hd, x);
+#pragma unroll
+          for (int mt = 0; mt < kMt; ++mt) {
+            if (mt >= n_mt) break;
+            const double* qa = qp + (8 * mt + g) * L.qs + 16 * blk + tg;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) dmma(c[mt][j], qa[4 * j], x[j]);
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < kMt; ++mt) {
+          if (mt >= n_mt) break;
+          const int v = 8 * mt + g;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int t = 8 * warp + 2 * tg + i;
+            if (v >= nv || t >= tn) continue;
+            const double z = (c[mt][0][i] + c[mt][1][i]) + (c[mt][2][i] + c[mt][3][i]);
+            const int tl = ti * kTileSlots + t;
+            float s;
+            if constexpr (kInt8)
+              s = (static_cast<float>(z) * sq[v]) * kss[tl];
+            else
+              s = static_cast<float>(z);
+            sc[v * a.piece + tl] = visible(p0 + tl) ? s : -INFINITY;
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // 3. The piece's max M and its first chunk's max F, then every
+    // block's through distributed shared memory: the max before this
+    // piece (earlier rounds and pieces), and of the later pieces that
+    // reach into this piece's last chunk (their first chunk's slots).
+    const int f_end = min(pn, (c_first + 1) * chunk - p0);
+    for (int v = warp; v < nv; v += nwarps) {
+      float mx = -INFINITY, fx = -INFINITY;
+      for (int t = lane; t < pn; t += 32) {
+        const float s = sc[v * a.piece + t];
+        mx = fmaxf(mx, s);
+        if (t < f_end) fx = fmaxf(fx, s);
+      }
+      mx = warp_max(mx);
+      fx = warp_max(fx);
+      if (lane == 0) {
+        m_loc[v] = mx;
+        f_loc[v] = fx;
+      }
+    }
+    cl.sync();
+    const int last_end = (c_first + nk) * chunk;  // end of the last chunk
+    for (int v = tid; v < nv; v += kAttnThreads) {
+      float pre = m_base[v], post = -INFINITY, all = m_base[v];
+      for (int q = 0; q < C; ++q) {
+        const float mq = *cl.map_shared_rank(m_loc + v, q);
+        all = fmaxf(all, mq);
+        if (q < rank) pre = fmaxf(pre, mq);
+        if (q > rank && nk > 0 && pstart(q) < last_end &&
+            pstart(q + 1) > pstart(q))
+          post = fmaxf(post, *cl.map_shared_rank(f_loc + v, q));
+      }
+      m_pre[v] = pre;
+      m_post[v] = post;
+      m_old[v] = m_base[v];
+      m_base[v] = all;  // the max through this round
+    }
+    __syncthreads();
+
+    // 4. Per chunk of the piece: its max, then the running max m_c in
+    // chunk order (the last chunk also over the later pieces').
+    for (int it = warp; it < nv * nk; it += nwarps) {
+      const int v = it / nk, k = it - v * nk;
+      const int s0 = max(p0, (c_first + k) * chunk) - p0;
+      const int s1 = min(p0 + pn, (c_first + k + 1) * chunk) - p0;
+      float mx = -INFINITY;
+      for (int t = s0 + lane; t < s1; t += 32) mx = fmaxf(mx, sc[v * a.piece + t]);
+      mx = warp_max(mx);
+      if (lane == 0) r_m(rec(smem, k))[v] = mx;
+    }
+    __syncthreads();
+    for (int v = tid; v < nv; v += kAttnThreads) {
+      float run = m_pre[v];
+      for (int k = 0; k < nk; ++k) {
+        float* m = r_m(rec(smem, k)) + v;
+        run = fmaxf(run, *m);
+        if (k == nk - 1) run = fmaxf(run, m_post[v]);
+        *m = run;
+      }
+    }
+    __syncthreads();
+
+    // 5. e = expf(s - m_c): its f64 sum per chunk; bf16: the weight
+    // rounded to bf16; int8: e x vs (0 where the row cannot see the
+    // slot) and its absmax.
+    for (int it = warp; it < nv * nk; it += nwarps) {
+      const int v = it / nk, k = it - v * nk;
+      unsigned char* r = rec(smem, k);
+      const float m = r_m(r)[v];
+      const int s0 = max(p0, (c_first + k) * chunk) - p0;
+      const int s1 = min(p0 + pn, (c_first + k + 1) * chunk) - p0;
+      double s = 0.0;
+      float ea = 0.0f;
+      for (int t = s0 + lane; t < s1; t += 32) {
+        float* x = sc + v * a.piece + t;
+        const float e = expf(*x - m);
+        s += e;
+        if constexpr (kInt8) {
+          const float ew = *x != -INFINITY ? e * vss[t] : 0.0f;
+          ea = fmaxf(ea, fabsf(ew));
+          *x = ew;
+        } else {
+          *x = round_bf16(e);
+        }
+      }
+      s = warp_sum_d(s);
+      ea = warp_max(ea);
+      if (lane == 0) {
+        r_den(r)[v] = s;
+        r_ea(r)[v] = ea;
+      }
+    }
     if constexpr (kInt8) {
-      se = fmaxf(block_max(ea, red), 1e-30f) / 127.0f;
-      for (int t = tid; t < chunk; t += nt) sc[t] = to_code(sc[t] / se);
+      // Each chunk's requant group over the blocks that hold its slots,
+      // se = max(absmax, 1e-30) / 127, then the codes.
+      cl.sync();
+      for (int it = tid; it < nv * nk; it += kAttnThreads) {
+        const int v = it / nk, k = it - v * nk, c = c_first + k;
+        unsigned char* r = rec(smem, k);
+        float ea = r_ea(r)[v];
+        for (int q = 0; q < C; ++q) {
+          if (q == rank || !holds(q, c)) continue;
+          unsigned char* rq = rec(cl.map_shared_rank(smem, q),
+                                  c - pstart(q) / chunk);
+          ea = fmaxf(ea, r_ea(rq)[v]);
+        }
+        r_se(r)[v] = fmaxf(fmaxf(ea, 0.0f), 1e-30f) / 127.0f;
+      }
       __syncthreads();
+      for (int i = tid; i < nv * pn; i += kAttnThreads) {
+        const int v = i / pn, t = i - v * pn;
+        const float se = r_se(rec(smem, (p0 + t) / chunk - c_first))[v];
+        sci[v * a.piece + t] = static_cast<int>(to_code(sc[v * a.piece + t] / se));
+      }
     }
-    pv(base, chunk);
-    if (tid < hd) {
-      const float p = pv_sum(tid);
-      ctx = ctx * alpha + (kInt8 ? p * se : p);
+    __syncthreads();
+
+    // 6. P.V per chunk over the piece on the tensor cores, as
+    // attn_cluster_kernel's: warp w takes the 32-dim group w % n_dg and
+    // the slot steps w / n_dg, + ksp, ...; the weights of slots outside
+    // the chunk read as 0.  At the chunk's last slot in the piece the ksp
+    // partials go to its record, added in order.
+    double acc[kMt][4][2];
+    auto clear = [&]() {
+#pragma unroll
+      for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[mt][j][0] = acc[mt][j][1] = 0.0;
+    };
+    clear();
+    prologue(vplane);
+    for (int ti = 0; ti < nt; ++ti) {
+      const unsigned char* tile = tile_ready(vplane, ti);
+      const int t0 = ti * kTileSlots;
+      const int tn = min(kTileSlots, pn - t0);
+      for (int a0 = t0; a0 < t0 + tn;) {
+        const int k = (p0 + a0) / chunk - c_first;
+        const int c_stop = (c_first + k + 1) * chunk - p0;
+        const int a1 = min(t0 + tn, c_stop);
+        if (kq < L.ksp) {
+          const int d0 = 32 * dg + 4 * g;
+#pragma unroll 2
+          for (int st = (a0 - t0) / 4 + kq; 4 * st < a1 - t0; st += L.ksp) {
+            const int t = 4 * st + tg;
+            const bool in = t0 + t >= a0 && t0 + t < a1;
+            double x[4];
+            load4<kInt8>(tile + t * L.stride + d0 * esize, t < tn ? d0 : hd,
+                         hd, x);
+#pragma unroll
+            for (int mt = 0; mt < kMt; ++mt) {
+              if (mt >= n_mt) break;
+              const int v = 8 * mt + g;
+              double av = 0.0;
+              if (v < nv && in) {
+                const int at = v * a.piece + t0 + t;
+                av = kInt8 ? static_cast<double>(sci[at])
+                           : static_cast<double>(sc[at]);
+              }
+#pragma unroll
+              for (int j = 0; j < 4; ++j) dmma(acc[mt][j], av, x[j]);
+            }
+          }
+        }
+        if (a1 == c_stop || a1 == pn) {  // the chunk's last slot here
+          double* pv = r_pv(rec(smem, k));
+          for (int r = 0; r < L.ksp; ++r) {
+            if (kq == r) {
+#pragma unroll
+              for (int mt = 0; mt < kMt; ++mt) {
+                if (mt >= n_mt) break;
+                const int v = 8 * mt + g;
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+#pragma unroll
+                  for (int i = 0; i < 2; ++i) {
+                    const int d = 32 * dg + 4 * (2 * tg + i) + j;
+                    if (v < nv && d < hd) {
+                      double* o = pv + v * hd + d;
+                      *o = (r == 0 ? 0.0 : *o) + acc[mt][j][i];
+                    }
+                  }
+              }
+            }
+            __syncthreads();
+          }
+          clear();
+        }
+        a0 = a1;
+      }
     }
-    m = m_new;
-    __syncthreads();  // sc and part are rewritten by the next chunk
+
+    // 7. The fold, each block over its slice of dims (every block also
+    // carries the denominators): for a batch of the round's chunks that
+    // fits the free tile ring, first every (chunk, vector, dim) at once --
+    // the chunk's records added in block order (f64), rounded once
+    // (int8: times se_c), with m_c beside them -- then each (vector, dim)
+    // in chunk order: acc = acc alpha + value, alpha = expf(m_{c-1} -
+    // m_c), in f32 as the plain version.
+    cl.sync();
+    cp_async_wait<0>();
+    {
+      float* stage = reinterpret_cast<float*>(tiles);
+      const int w = d_hi - d_lo + 1;  // the slice's dims and the den
+      const int per = nv * (w + 1);   // a chunk's values and its m_c
+      const int nb = static_cast<int>(L.o_qp / (sizeof(float) * per));
+      auto holder = [&](int pos) { return (pos - ra) / len; };
+      for (int c0 = ca; c0 < cb; c0 += nb) {
+        const int c1 = min(c0 + nb, cb);
+        for (int i = tid; i < (c1 - c0) * nv * w; i += kAttnThreads) {
+          const int c = c0 + i / (nv * w), r = i % (nv * w);
+          const int v = r / w, e = r - v * w, d = d_lo + e;
+          const int qa = holder(max(c * chunk, ra));
+          const int qb = holder(min((c + 1) * chunk, rb) - 1);
+          double s = 0.0;
+          float se = 1.0f, m_c = 0.0f;
+          for (int q = qa; q <= qb; ++q) {
+            unsigned char* rq = rec(cl.map_shared_rank(smem, q),
+                                    c - pstart(q) / chunk);
+            if (q == qa) {
+              m_c = r_m(rq)[v];
+              se = r_se(rq)[v];
+            }
+            s += d < d_hi ? r_pv(rq)[v * hd + d] : r_den(rq)[v];
+          }
+          float p = static_cast<float>(s);
+          if (kInt8 && d < d_hi) p = p * se;
+          float* st = stage + (c - c0) * per + v * (w + 1);
+          st[e] = p;
+          if (e == 0) st[w] = m_c;
+        }
+        __syncthreads();
+        for (int i = tid; i < nv * w; i += kAttnThreads) {
+          const int v = i / w, e = i - v * w, d = d_lo + e;
+          float m = c0 == ca ? m_old[v] : m_fold[v];
+          float* carry = d < d_hi ? ctx_run + v * hd + d : den_run + v;
+          float acc_f = *carry;
+          for (int c = c0; c < c1; ++c) {
+            const float* st = stage + (c - c0) * per + v * (w + 1);
+            const float m_c = st[w];
+            const float alpha = expf(m - m_c);
+            acc_f = acc_f * alpha + st[e];
+            m = m_c;
+          }
+          *carry = acc_f;
+        }
+        __syncthreads();
+        for (int v = tid; v < nv; v += kAttnThreads)
+          m_fold[v] = stage[(c1 - 1 - c0) * per + v * (w + 1) + w];
+        __syncthreads();
+      }
+    }
+    cl.sync();  // the records are rewritten by the next round
   }
-  __syncthreads();  // self_sh
-  const float self_s = self_sh;
-  const float m_f = fmaxf(m, self_s);
-  const float alpha = expf(m - m_f);
-  const float e_self = expf(self_s - m_f);
-  den = den * alpha + e_self;
-  if (tid < hd) out[tid] = (ctx * alpha + e_self * vf[tid]) / den;
+
+  // 8. Each block, over its slice of dims: the self term last and the
+  // output; k_new / v_new (the group holding the kv head's first query
+  // head writes them).
+  for (int i = tid; i < nv * (d_hi - d_lo); i += kAttnThreads) {
+    const int v = i / (d_hi - d_lo), d = d_lo + i % (d_hi - d_lo);
+    const float m = m_base[v], ss = s_self[v];
+    const float m_f = fmaxf(m, ss);
+    const float alpha = expf(m - m_f);
+    const float e_self = expf(ss - m_f);
+    const float den = den_run[v] * alpha + e_self;
+    const float ctx = ctx_run[v * hd + d] * alpha + e_self * v_at(d);
+    a.attn[static_cast<size_t>(b) * nq + static_cast<size_t>(vec_h(v)) * hd + d] =
+        ctx / den;
+  }
+  if (v0 == 0)
+    for (int d = d_lo + tid; d < d_hi; d += kAttnThreads) {
+      const size_t o = (static_cast<size_t>(b) * a.n_kv + jh) * hd + d;
+      a.kn[o] = __float2bfloat16(k_at(d));
+      a.vn[o] = __float2bfloat16(v_at(d));
+    }
 }
 
 // What one layer's attention launch needs (K1 per layer, K4 per call).
@@ -1088,30 +1500,20 @@ struct AttnLaunch {
   float scale;
 };
 
-// The most slots one row can see at once: the chunk in mode (f), the
-// window on a bounded cache, else all S.
-inline int attn_span(int S, int window, int ring_size, int chunk) {
-  if (chunk > 0) return chunk;
+// The most cache slots one row sees: the window on a bounded cache, else
+// all S (mode (f) walks them in chunks, the same span).
+inline int attn_span(int S, int window, int ring_size) {
   return (ring_size == 0 && window >= 0 && window < S) ? window : S;
 }
 
-// Shared memory of attn_chunk_kernel's block: the per-warp P.V partials,
-// q, its bf16 rounding or codes, k, v, 2 spec floats and the chunk's
-// scores.
-inline size_t chunk_smem_bytes(int hd, int spec, int chunk) {
-  return sizeof(double) * (kAttnThreads / 32) * hd +
-         sizeof(float) * (4 * static_cast<size_t>(hd) + 2 * spec + chunk);
-}
-
 // One step's attention launch, sized before its first layer: the
-// kernel of the geometry, its plan (the cluster walk) or shared memory
-// (mode (f)), with the kernel's attributes already set.  K1 prepares once
-// a step and launches it on every layer.
+// kernel of the geometry (the cluster walk, or the chunked walk in mode
+// (f)) and its plan, with the kernel's attributes already set.  K1
+// prepares once a step and launches it on every layer.
 struct AttnPrep {
-  void (*cluster)(const AttnArgs);
-  decltype(&attn_chunk_kernel<true>) chunk;
+  void (*kernel)(const AttnArgs);
   AttnPlan pl;
-  size_t smem;
+  int kround, nrec;  // mode (f)
 };
 
 template <typename Kernel>
@@ -1128,55 +1530,51 @@ inline cudaError_t prepare_attention(int B, int spec, int n_heads, int n_kv,
                                      int hd, int S, int window, int ring_size,
                                      int chunk, bool kv8, AttnPrep* out) {
   *out = AttnPrep{};
+  const int span = attn_span(S, window, ring_size);
   if (chunk > 0) {
-    out->smem = chunk_smem_bytes(hd, spec, chunk);
-    if (out->smem > kSmemMax) return cudaErrorInvalidValue;
-    out->chunk = kv8 ? attn_chunk_kernel<true> : attn_chunk_kernel<false>;
-    return set_smem(out->chunk, out->smem);
+    const ChunkPlan cp = chunk_plan(B, n_heads, n_kv, hd, span, chunk, kv8);
+    out->pl = cp.pl;
+    out->kround = cp.kround;
+    out->nrec = cp.nrec;
+  } else {
+    out->pl = attn_plan(B / spec, n_heads, n_kv, spec, hd, span, kv8);
   }
-  out->pl = attn_plan(B / spec, n_heads, n_kv, spec, hd,
-                      attn_span(S, window, ring_size, 0), kv8);
   if (out->pl.cluster == 0) return cudaErrorInvalidValue;
-  out->smem = out->pl.smem;
   // Query-vector tiles of 8 (the accumulators a lane keeps): 1, 2 or 4.
   const int n_mt = ceil_div(out->pl.rv, 8);
   auto pick = [&](auto mt) {
     constexpr int kMt = decltype(mt)::value;
+    if (chunk > 0)
+      return kv8 ? attn_chunk_kernel<true, kMt> : attn_chunk_kernel<false, kMt>;
     return kv8 ? attn_cluster_kernel<true, kMt>
                : attn_cluster_kernel<false, kMt>;
   };
-  out->cluster = n_mt == 1   ? pick(std::integral_constant<int, 1>())
-                 : n_mt == 2 ? pick(std::integral_constant<int, 2>())
-                             : pick(std::integral_constant<int, 4>());
-  cudaError_t e = set_smem(out->cluster, out->smem);
+  out->kernel = n_mt == 1   ? pick(std::integral_constant<int, 1>())
+                : n_mt == 2 ? pick(std::integral_constant<int, 2>())
+                            : pick(std::integral_constant<int, 4>());
+  cudaError_t e = set_smem(out->kernel, out->pl.smem);
   if (e == cudaSuccess && out->pl.cluster > 8)
-    e = cudaFuncSetAttribute(out->cluster,
+    e = cudaFuncSetAttribute(out->kernel,
                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return e;
 }
 
-// One layer's attention on the current stream, as ``pr`` prepared it:
-// the chunked walk, one block per (row, query head), or the cluster walk,
-// one launch either way (``pdl``: a programmatic dependent launch, as K1
+// One layer's attention on the current stream, as ``pr`` prepared it: one
+// cluster launch (``pdl``: a programmatic dependent launch, as K1
 // launches its step).
 inline cudaError_t launch_attention(const AttnLaunch& p, const AttnPrep& pr,
                                     cudaStream_t st, bool pdl = false) {
-  if (pr.chunk != nullptr)
-    return launch_pdl(
-        pr.chunk, dim3(p.n_heads, p.B), dim3(kAttnThreads), pr.smem, st, pdl,
-        p.qkv, p.cosv, p.sinv, p.rope_stride, p.offs, p.off0, p.B / p.spec,
-        p.spec, p.kc, p.vc, p.ks, p.vs, p.kn, p.vn, p.attn, p.S, p.window,
-        p.ring_head, p.ring_size, p.chunk, p.n_heads, p.n_kv, p.hd, p.scale);
   const AttnPlan& pl = pr.pl;
   const AttnArgs a{p.qkv,  p.cosv,   p.sinv,      p.rope_stride, p.offs,
                    p.off0, p.spec,   p.kc,        p.vc,          p.ks,
                    p.vs,   p.kn,     p.vn,        p.attn,        p.S,
                    p.window, p.ring_head, p.ring_size, p.n_heads, p.n_kv,
-                   p.hd,   p.scale,  pl.rv,       pl.n_vg,       pl.piece};
+                   p.hd,   p.scale,  pl.rv,       pl.n_vg,       pl.piece,
+                   p.chunk, pr.kround, pr.nrec};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(pl.cluster, p.B / p.spec * p.n_kv * pl.n_vg, 1);
   cfg.blockDim = dim3(kAttnThreads, 1, 1);
-  cfg.dynamicSmemBytes = pr.smem;
+  cfg.dynamicSmemBytes = pl.smem;
   cfg.stream = st;
   cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1187,7 +1585,7 @@ inline cudaError_t launch_attention(const AttnLaunch& p, const AttnPrep& pr,
   attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = pdl ? 2 : 1;
-  return cudaLaunchKernelEx(&cfg, pr.cluster, a);
+  return cudaLaunchKernelEx(&cfg, pr.kernel, a);
 }
 
 }  // namespace

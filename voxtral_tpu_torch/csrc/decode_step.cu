@@ -50,13 +50,19 @@
 //       weight, 6.86 GB per step at full width with the lm table.
 //   (f) chunked cache (chunk = Sc > 0, spec = 1; :1085-1180): an online
 //       softmax over chunks of Sc slots in slot order, carrying
-//       (m, denom, ctx); only the chunks c_lo .. n_used - 1 that some
-//       row of the batch can see are visited (the offsets' min / max are
-//       read by every block on the device).  bf16 weights round against
-//       the running max and the int8 requant group is per chunk, so the
-//       carry is sequential: one block per (row, head) walks its chunks.
-//       The score buffer holds Sc floats, not S, so shared memory no
-//       longer bounds S.  attn_chunk_kernel<false / true>.
+//       (m, denom, ctx); bf16 weights round against the running max and
+//       the int8 requant group is per chunk.  Only the max is carried in
+//       order, and it is a prefix max: attn_chunk_kernel<false / true>
+//       walks each stream's own visible slots as the cluster walk does
+//       (one cluster per stream and kv head, every query head of it a
+//       block, the K / V rows once), forms each chunk's running max from
+//       every block's piece maxima through distributed shared memory
+//       before any expf, keeps per chunk its f64 sums (and int8 group)
+//       and folds the chunks in chunk order in f32, each block over a
+//       slice of the dims, exactly the plain version's operations.  A chunk a row sees nothing of
+//       is an identity in the fold, so the row's chunks stand for the
+//       batch's range (:1106-1119).  Shared memory does not bound S: a
+//       span longer than the cluster holds runs in rounds of chunks.
 //       Bytes: what bounds (e) and (f) are the visible slots' int8 codes
 //       (half the bf16 cache) and their scale planes.
 //   (i) lm_argmax (w8, g32 and bf16 tables; :1271-1300, :1479, :1605):
@@ -412,6 +418,26 @@ extern "C" int vx_attn_plan(int streams, int n_heads, int n_kv, int spec,
   out[2] = p.n_vg;
   out[3] = p.piece;
   out[4] = static_cast<long long>(p.smem);
+  return 0;
+}
+
+// Mode (f)'s chunked walk's launch shape (attn_step.cuh::chunk_plan):
+// out = {cluster, vectors per cluster, clusters per (stream, kv head),
+// score slots per block, chunks a round, chunk records per block, shared
+// memory bytes}.
+extern "C" int vx_attn_chunk_plan(int streams, int n_heads, int n_kv, int hd,
+                                  int span, int chunk, int int8,
+                                  long long* out) {
+  if (chunk < 1 || n_kv < 1 || n_heads % n_kv) return 1;
+  const vx::ChunkPlan p =
+      vx::chunk_plan(streams, n_heads, n_kv, hd, span, chunk, int8 != 0);
+  out[0] = p.pl.cluster;
+  out[1] = p.pl.rv;
+  out[2] = p.pl.n_vg;
+  out[3] = p.pl.piece;
+  out[4] = p.kround;
+  out[5] = p.nrec;
+  out[6] = static_cast<long long>(p.pl.smem);
   return 0;
 }
 

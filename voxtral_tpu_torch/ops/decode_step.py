@@ -59,8 +59,11 @@ out as programmatic dependent launches (:data:`K1_PDL`).  The attention of modes
 split the visible slots, serve every query head and draft row of the
 stream (one read of each K/V row), and merge max, denominators and P.V
 through distributed shared memory (``csrc/attn_step.cuh``,
-:func:`attention_split_plain` states its arithmetic); mode (f) keeps a
-block per (row, query head) walking its chunks in order.  The blocks
+:func:`attention_split_plain` states its arithmetic); mode (f) runs on
+the same walk, the chunks' running max formed from the blocks' piece
+maxima before any exponential and the chunks folded in order, each
+block over a slice of the dims (:func:`attention_chunk_split_plain`).
+The blocks
 read the offsets on the device, so a step launches without a host
 sync.  One call of the wrapper is one step and counts as one launch in
 ``decode_stack_step.launches``.
@@ -709,6 +712,191 @@ def attention_split_plain(q, k, v, k_cache, v_cache, offs, window, spec,
     return out.reshape(B, n_heads * hd)
 
 
+# Cache rows a staged tile of the attention kernels holds (attn_step.cuh:
+# kTileSlots); mode (f)'s pieces are whole tiles.
+ATTN_TILE = 64
+
+
+def _chunk_walk_pieces(lo: int, hi: int, chunk: int, cluster: int,
+                      round_chunks: int, tile: int = ATTN_TILE) -> list:
+    """The chunked cluster walk's partition of one stream's visible slots
+    [lo, hi) (``csrc/attn_step.cuh`` ``attn_chunk_kernel``): rounds of
+    ``round_chunks`` whole chunks of ``chunk`` slots, each round's slots
+    cut into ``cluster`` contiguous pieces of ceil(n / C) slots rounded up
+    to whole tiles of ``tile`` slots (the kernel's ATTN_TILE; pieces past
+    the end empty).
+    -> [(round's first chunk, its end chunk, [(piece start, end)] * C)]."""
+    rounds = []
+    if hi <= lo:
+        return rounds
+    c_end = -(-hi // chunk)
+    for ca in range(lo // chunk, c_end, round_chunks):
+        cb = min(ca + round_chunks, c_end)
+        ra, rb = max(lo, ca * chunk), min(hi, cb * chunk)
+        ln = -(-(-(-(rb - ra) // cluster)) // tile) * tile
+        rounds.append((ca, cb, [(min(ra + i * ln, rb),
+                                 min(ra + (i + 1) * ln, rb))
+                                for i in range(cluster)]))
+    return rounds
+
+
+def attention_chunk_split_plain(q, k, v, k_cache, v_cache, offs, window,
+                                n_kv, scale, cache_chunk: int, cluster: int,
+                                ring=None, k_scales=None, v_scales=None,
+                                round_chunks: Optional[int] = None,
+                                tile: int = ATTN_TILE):
+    """What mode (f)'s cluster walk of K1 / K4 computes (``csrc/
+    attn_step.cuh`` ``attn_chunk_kernel``), written plainly: the
+    arguments of :func:`_attention_plain` with spec = 1 and its chunked
+    branch (``cache_chunk``), ``cluster`` = C blocks, ``round_chunks``
+    chunks a round (default: all of a stream's in one round), pieces in
+    whole tiles of ``tile`` slots (a smaller tile splits a short cache).
+
+    Per stream and kv head, over its G query heads at once, and only over
+    the stream's own visible slots ([max(0, off - window), min(off, S))
+    bounded, the written slots [0, min(off, head + size)) of a head+ring
+    cache; :func:`_chunk_walk_pieces` cuts them): per piece the masked
+    scores, their max M and the max F of its first chunk's slots.  A
+    chunk's running max m_c is the max of -1e30 and every visible slot
+    before the chunk's end, in any order: a piece forms it from the
+    pieces before it (their M; earlier rounds' through the carry), its
+    own chunks in order and, for its last chunk, the later pieces that
+    chunk reaches (their F).  Given m_c each chunk's e = expf(s - m_c),
+    its bf16 weights or (int8) its requant group se_c from the absmax of
+    its pieces' weights x v scales, its f64 denominator and P.V partial
+    per piece, are independent of the other chunks.  The partials are
+    added in piece order and rounded once, then folded in chunk order in
+    f32 exactly as :func:`_attention_plain`: alpha = expf(m_{c-1} -
+    m_c), den = den alpha + den_c, ctx = ctx alpha + pv_c; the self term
+    last.  A chunk the row sees nothing of is an identity in that fold
+    (alpha 1, sums 0), so walking the stream's chunks and not the
+    batch's (JAX ``:1106-1119``) changes no bit.  Nothing on the main
+    path calls it; ``tests/test_torch_attn_split.py`` holds it to
+    :func:`_attention_plain` bit for bit.  -> [B, H * hd]."""
+    B, n_heads, hd = q.shape
+    S, chunk = k_cache.shape[2], cache_chunk
+    G = n_heads // n_kv
+    int8 = k_scales is not None
+    ninf = float("-inf")
+    qs = q * scale
+    out = torch.empty((B, n_heads, hd), dtype=torch.float32,
+                      device=q.device)
+    for b in range(B):
+        off = int(offs[b])
+        if ring is None:
+            lo = max(0, off - window) if window is not None else 0
+            hi = min(off, S)
+            p_abs = torch.arange(S, device=q.device)
+            vis = p_abs < off
+        else:
+            head, size = ring
+            lo, hi = 0, off if off < head else head + min(size, off - head)
+            p_abs, vis = ring_k_positions(*ring, off, device=q.device,
+                                          slots=S)
+        if window is not None:
+            vis = vis & ((off - p_abs) <= window)
+        n_chunks = -(-hi // chunk) - lo // chunk if hi > lo else 0
+        rounds = _chunk_walk_pieces(lo, hi, chunk, cluster,
+                                   round_chunks or max(n_chunks, 1), tile)
+        for jh in range(n_kv):
+            heads = jh * G + torch.arange(G, device=q.device)
+            qv = qs[b, heads]  # [G, hd] f32
+            if int8:
+                qq, sq = _absmax_codes(qv, 1e-8)
+            s_self = _sum64(qv.double() * k[b, jh].double())
+            m_base = torch.full_like(s_self, -1e30)
+            m, den = m_base, torch.zeros_like(s_self)
+            ctx = torch.zeros_like(qv)
+            for ca, cb, pieces in rounds:
+                # Scores, then each piece's M and F.
+                sc, mx, fx = [], [], []
+                for p0, p1 in pieces:
+                    kc = k_cache[b, jh, p0:p1].double()
+                    if int8:
+                        s_ = ((qq.double() @ kc.T).float() * sq
+                              * k_scales[b, jh, p0:p1])
+                    else:
+                        s_ = (qv.to(torch.bfloat16).double() @ kc.T).float()
+                    s_ = torch.where(vis[p0:p1], s_, ninf)
+                    sc.append(s_)
+                    if p1 > p0:
+                        first_end = min(p1, (p0 // chunk + 1) * chunk)
+                        mx.append(s_.amax(-1))
+                        fx.append(s_[:, :first_end - p0].amax(-1))
+                    else:
+                        mx.append(torch.full_like(s_self, ninf))
+                        fx.append(torch.full_like(s_self, ninf))
+                # Per piece and chunk: m_c, then e, the f64 denominator,
+                # the weights (int8: e x vs and its absmax).
+                rec = []  # per piece: {chunk: [m, den, w, ea, (s0, s1)]}
+                for i, (p0, p1) in enumerate(pieces):
+                    rec.append({})
+                    if p1 <= p0:
+                        continue
+                    run = m_base
+                    for mq in mx[:i]:
+                        run = torch.maximum(run, mq)
+                    c_first, c_last = p0 // chunk, (p1 - 1) // chunk
+                    for c in range(c_first, c_last + 1):
+                        s0, s1 = max(p0, c * chunk), min(p1, (c + 1) * chunk)
+                        seg = sc[i][:, s0 - p0:s1 - p0]
+                        run = torch.maximum(run, seg.amax(-1))
+                        if c == c_last:
+                            for j2 in range(i + 1, len(pieces)):
+                                q0, q1 = pieces[j2]
+                                if q1 > q0 and q0 < (c + 1) * chunk:
+                                    run = torch.maximum(run, fx[j2])
+                        e = torch.exp(seg - run[:, None])
+                        d_ = e.double().sum(-1)
+                        if int8:
+                            w_ = torch.where(vis[s0:s1],
+                                             e * v_scales[b, jh, s0:s1],
+                                             torch.zeros_like(e))
+                            ea = w_.abs().amax(-1)
+                        else:
+                            w_, ea = e.to(torch.bfloat16), None
+                        rec[i][c] = [run, d_, w_, ea, (s0, s1)]
+                # int8: each chunk's group over its pieces, then the codes;
+                # the P.V partials.
+                for c in range(ca, cb):
+                    owners = [r_[c] for r_ in rec if c in r_]
+                    se = None
+                    if int8:
+                        ea = owners[0][3]
+                        for o in owners[1:]:
+                            ea = torch.maximum(ea, o[3])
+                        se = (torch.clamp(ea, min=1e-30)
+                              / torch.full_like(ea, 127.0))
+                    for o in owners:
+                        s0, s1 = o[4]
+                        w_ = o[2]
+                        if int8:
+                            w_ = torch.clamp(torch.round(w_ / se[:, None]),
+                                             -127, 127)
+                        o.append(w_.double() @ v_cache[b, jh, s0:s1].double())
+                    # The fold: partials in piece order, rounded once.
+                    d_, pv = owners[0][1], owners[0][5]
+                    for o in owners[1:]:
+                        d_, pv = d_ + o[1], pv + o[5]
+                    den_c, pv_c = d_.float(), pv.float()
+                    if int8:
+                        pv_c = pv_c * se[:, None]
+                    m_c = owners[0][0]
+                    alpha = torch.exp(m - m_c)
+                    den = den * alpha + den_c
+                    ctx = ctx * alpha[:, None] + pv_c
+                    m = m_c
+                for mq in mx:
+                    m_base = torch.maximum(m_base, mq)
+            m_f = torch.maximum(m, s_self)
+            alpha = torch.exp(m - m_f)
+            e_self = torch.exp(s_self - m_f)
+            den = den * alpha + e_self
+            ctx = ctx * alpha[:, None] + e_self[:, None] * v[b, jh]
+            out[b, heads] = ctx / den[:, None]
+    return out.reshape(B, n_heads * hd)
+
+
 def decode_stack_step_plain(
     x, offset,
     attn_norms, ffn_norms, ada_vecs,
@@ -963,6 +1151,26 @@ def kernel_attn_plan(streams: int, n_heads: int, n_kv: int, spec: int,
     return tuple(int(x) for x in out)
 
 
+def kernel_chunk_plan(streams: int, n_heads: int, n_kv: int, head_dim: int,
+                      span: int, cache_chunk: int, kv_int8: bool) -> tuple:
+    """(cluster, vectors, groups, piece, round chunks, records, bytes) of
+    mode (f)'s chunked walk at a geometry, from the built library
+    (``vx_attn_chunk_plan``, attn_step.cuh::chunk_plan): blocks a
+    cluster, query vectors a cluster, clusters per (stream, kv head),
+    score slots a block, chunks a round, chunk records a block and a
+    block's shared memory; ``span`` the most slots a row sees
+    (:func:`attn_span` without the chunk); cluster 0 when nothing
+    fits."""
+    out = (ctypes.c_longlong * 7)()
+    fn = kernel_fn("vx_attn_chunk_plan", [_I] * 7 + [ctypes.c_void_p])
+    code = fn(streams, n_heads, n_kv, head_dim, span, cache_chunk,
+              int(kv_int8), ctypes.cast(out, ctypes.c_void_p))
+    if code:
+        raise ValueError(f"no chunk plan for cache_chunk={cache_chunk}, "
+                         f"heads {n_heads} / {n_kv}")
+    return tuple(int(x) for x in out)
+
+
 def attn_span(S: int, window: Optional[int] = None,
               ring: Optional[tuple[int, int]] = None,
               cache_chunk: Optional[int] = None) -> int:
@@ -982,10 +1190,11 @@ def attn_smem_bytes(S: int, head_dim: int, window: Optional[int] = None,
     a block per (row, query head) with the per-warp P.V partials (f64),
     q, bf16(q) (or its int8 codes), k, v, the spec fresh scores (and
     fresh v scales in the int8 / chunked walk) and one score per slot of
-    the span.  Mode (f)'s chunked walk is that block.  The cluster walk
-    of modes (a)-(e) holds the span's scores over up to 16 blocks, sized
-    by the library's plan (:func:`kernel_attn_plan`), and fits wherever
-    this does."""
+    the span (mode (f): the chunk).  The cluster walks hold the span's
+    scores over up to 16 blocks, sized by the library's plans
+    (:func:`kernel_attn_plan`; mode (f) :func:`kernel_chunk_plan`, in
+    rounds of chunks where a span is longer than a cluster holds), and
+    fit wherever this does."""
     span = attn_span(S, window, ring, cache_chunk)
     fresh = (2 if cache_chunk or kv_int8 else 1) * spec
     return 8 * (ATTN_THREADS // 32) * head_dim + 4 * (4 * head_dim + fresh
@@ -1433,8 +1642,8 @@ def attention_block(qkv, cos_p, sin_p, k_cache, v_cache, offset, *,
                     k_scales=None, v_scales=None,
                     cache_chunk: Optional[int] = None):
     """The attention of one layer alone, launched as K1 and K4 launch it
-    inside their steps (``csrc/attn_step.cuh``: the cluster walk, or the
-    chunked walk in mode (f)); arguments and result as
+    inside their steps (``csrc/attn_step.cuh``: the cluster walk, in mode
+    (f) over chunks); arguments and result as
     :func:`attention_block_plain`, ``offset`` an int or an int32 device
     tensor [Bc].  Not on the main path: the card tests and
     ``chip_smoke.py`` check and time the block with it.  CPU tensors
