@@ -20,8 +20,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              step) and called from the host.  The step's device time by
              launch class (k1_breakdown: row_quant, each GEMV, the
              attention, the lm head) at one row (mode (a), mode (g)) and
-             at 8 bf16 rows runs last, after phase 7: the profiler slows
-             the host side of what follows it.  Main path: TranscribePipeline.
+             at 8 bf16 rows runs last, after phase 7, with K4's and K5's
+             calls by launch class at 1 and 8 rows (run_tp_breakdowns):
+             the profiler slows the host side of what follows it.  Main path: TranscribePipeline.
              transcribe_samples on a 16 s chirp, sequential and
              speculative (PipelineConfig(speculative=8), draft "ngram"
              and "pad"), each run with the launch counters set to 0 just
@@ -167,9 +168,9 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              (lm_argmax) at 1 and 8 rows, bit-equal to plain and == the
              argmax of mode (a)'s logits; K4 attn_half_step (tp = 2
              local shapes: 1 row at S = 151, 8 spec rows, the largest
-             one-shot cache S = 194 at offset 187) and K5 ffn_half_step
-             (1 and 8 rows) bit-equal, timed from a CUDA graph and from
-             the host; K6 lm_half_argmax on both vocab shards at 1 and 8
+             one-shot cache S = 194 at offset 187, four streams of a row
+             as a B = 4 pool steps them) and K5 ffn_half_step (1, 4 and 8
+             rows) bit-equal, timed from a CUDA graph and from the host; K6 lm_half_argmax on both vocab shards at 1 and 8
              rows, then with a planted tie inside shard 0 and one across
              the shards (the lowest global index on every row, == the
              plain argmax over the whole table).  The 16 s chirp on a
@@ -220,8 +221,8 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 13d. q4g mesh — right after the q4g one-shot phase (5), on its random
              full-width q4g tree: K1 mode (i) over the g32 table at 1 and
              8 rows (== the argmax of mode (h)'s logits), K4 in g32 (1
-             row, 8 spec rows; (d), (e) and (f) at four streams, windows
-             full), K5 in g32 (1 and 8 rows) and K6 on a g32 vocab shard
+             row, 8 spec rows, four streams; (d), (e) and (f) at four
+             streams, windows full), K5 in g32 (1, 4 and 8 rows) and K6 on a g32 vocab shard
              (1 and 8 rows, the planted ties), each bit-equal to plain,
              timed from a CUDA graph and from the host beside its bound;
              the one-shot path of phase 13 on q4g (mesh_oneshot: tp = 2
@@ -399,12 +400,13 @@ def graph_ms(fn, reps: int = 20, iters: int = 10) -> float:
 
 
 def in_turns(kernel_fn, plain_fn, iters: int, plain_iters: int):
-    """(kernel ms, plain ms), timed plain, kernel, kernel, plain."""
-    p1 = cuda_ms(plain_fn, plain_iters)
+    """(kernel ms, plain ms), timed kernel, plain, kernel: the plain
+    version, a yardstick many times slower (no check reads its time),
+    once between the kernel's two."""
     k1 = cuda_ms(kernel_fn, iters)
+    p = cuda_ms(plain_fn, plain_iters)
     k2 = cuda_ms(kernel_fn, iters)
-    p2 = cuda_ms(plain_fn, plain_iters)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    return (k1 + k2) / 2, p
 
 
 def bound(nbytes: float, ops: float, peak_ops: float):
@@ -823,6 +825,176 @@ def run_k1_breakdowns(dev, card) -> None:
                   flush=True)
         del w
         release()
+
+
+# K4 / K5 by launch class (run_tp_breakdowns): name -> (half, rows, S,
+# offset); K4's rows are one stream's spec rows over a bounded cache.
+TP_BREAKDOWN = {"K4 w8 1 row S=151": ("K4", 1, 151, 150),
+                "K4 w8 8 rows S=158": ("K4", 8, 158, 143),
+                "K5 w8 1 rows": ("K5", 1, 0, 0),
+                "K5 w8 8 rows": ("K5", 8, 0, 0)}
+TP_STACK_LAYER = 25  # the layer of tp_stacks the breakdown reads
+
+
+def tp_stacks(fmt: str, cfg, dev, seed: int = 0) -> dict:
+    """Random local stacks of one shard at tp = 2, cfg.n_layers layers:
+    wqkv [L, nqkv_l, D], wo [L, D, nq_l], w13 [L, 2 F_l, D], w2 [L, D,
+    F_l] int8 codes, one layer's scales (f32 rows, or f16 groups in
+    g32), the norms and the ADA vector.  Shared with
+    benches/torch_tp_times.py."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    L, D = cfg.n_layers, cfg.dim
+    nq = cfg.n_heads // 2 * cfg.head_dim
+    nkv = cfg.n_kv_heads // 2 * cfg.head_dim
+    fl = cfg.hidden_dim // 2
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, dtype=torch.int8, device=dev,
+                             generator=gen)
+
+    def scales(n, k):
+        if fmt == "g32":
+            return (torch.rand((n, k // 32), device=dev, generator=gen)
+                    * 2e-3 + 1e-4).half()
+        return torch.rand((n,), device=dev, generator=gen) * 4e-4 + 1e-5
+
+    def vec():
+        return 1 + 0.1 * torch.randn((D,), device=dev, generator=gen)
+
+    nqkv = nq + 2 * nkv
+    return {"wqkv": codes(L, nqkv, D), "sqkv": scales(nqkv, D),
+            "wo": codes(L, D, nq), "so": scales(D, nq),
+            "w13": codes(L, 2 * fl, D), "s13": scales(2 * fl, D),
+            "w2": codes(L, D, fl), "s2": scales(D, fl),
+            "attn_norm": vec(), "ffn_norm": vec(), "ada": vec()}
+
+
+TP_CLASSES = (("row_quant", "row"), ("attn", "attention"),
+              ("emcpy", "memcpy"))
+
+
+def tp_breakdown(fn, kern: str, steps: int = 5) -> dict:
+    """Device ms of one K4 / K5 call ``fn`` by launch class, summed over
+    the call (``steps`` eager calls under ``torch.profiler``): the row
+    kernels, the attention, the GEMVs by their order in a call (K4: qkv
+    before the attention, wo after it; K5: w13, then w2).  A kernel
+    launched ahead of its predecessor counts its wait too.  Shared with
+    benches/torch_tp_times.py."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    evts = sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    if not evts:
+        return {"error": "the profiler saw no device time"}
+    out, launches, n_gemv, after = {}, 0, 0, False
+    for e in evts:
+        cls = next((c for frag, c in TP_CLASSES if frag in e.name), None)
+        if cls == "attention":
+            after = True
+        elif cls is None:
+            if kern == "K4":
+                cls, after = ("gemv wo" if after else "gemv qkv"), False
+            else:
+                cls = ("gemv w13", "gemv w2")[n_gemv % 2]
+                n_gemv += 1
+        launches += 1
+        us = e.time_range.end - e.time_range.start
+        out[cls] = out.get(cls, 0.0) + us / 1e3 / steps
+    return {"classes_ms": {k: round(v, 5) for k, v in sorted(out.items())},
+            "kernel_sum_ms": round(sum(out.values()), 5),
+            "launches_per_call": launches / steps,
+            "names": sorted({e.name[:60] for e in evts})}
+
+
+def tp_breakdown_case(name: str, w: dict, cfg, dev, seed: int):
+    """(kernel call, plain call, bytes moved, int8 operations) of the
+    TP_BREAKDOWN case ``name`` on the stacks ``w``."""
+    import torch
+
+    from voxtral_tpu_torch.ops import decode_step as k1
+    from voxtral_tpu_torch.ops import decode_tp as ktp
+
+    kern, rows, S, off = TP_BREAKDOWN[name]
+    layer, D, hd = TP_STACK_LAYER, cfg.dim, cfg.head_dim
+    nh, nkv = cfg.n_heads // 2, cfg.n_kv_heads // 2
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((rows, D), device=dev, generator=gen)
+    if kern == "K5":
+        pos = (x, layer, w["ffn_norm"], w["ada"], w["s13"], w["s2"],
+               w["w13"], w["w2"])
+        wl = (w["w13"][layer], w["w2"][layer])
+        return (lambda: (ktp.ffn_half_step(*pos, eps=cfg.norm_eps),),
+                lambda: (ktp.ffn_half_step_plain(*pos, eps=cfg.norm_eps),),
+                nbytes(*wl, *pos[2:6]) + 2 * nbytes(x),
+                2 * rows * sum(t.numel() for t in wl))
+    kc = (torch.randn((1, nkv, S, hd), device=dev, generator=gen)
+          * 0.5).bfloat16()
+    vc = (torch.randn((1, nkv, S, hd), device=dev, generator=gen)
+          * 0.5).bfloat16()
+    if rows == 1:
+        offs = off
+        c, s = k1.rope_pair_vectors(off, hd, cfg.rope_theta, device=dev)
+    else:
+        offs = torch.tensor([off], dtype=torch.int32, device=dev)
+        c, s = k1.rope_pair_vectors(off + torch.arange(rows, device=dev),
+                                    hd, cfg.rope_theta)
+    pos = (x, layer, offs, w["attn_norm"], w["sqkv"], w["so"], c, s, kc, vc,
+           w["wqkv"], w["wo"])
+    kw = dict(n_heads_l=nh, n_kv_l=nkv, head_dim=hd, eps=cfg.norm_eps,
+              window=cfg.sliding_window, spec=rows)
+    wl = (w["wqkv"][layer], w["wo"][layer])
+    moved = (nbytes(*wl, w["sqkv"], w["so"], w["attn_norm"], c, s)
+             + 2 * nbytes(x) + 2 * off * nkv * hd * 2
+             + 2 * rows * nkv * hd * 2)
+    return (lambda: ktp.attn_half_step(*pos, **kw),
+            lambda: ktp.attn_half_step_plain(*pos, **kw), moved,
+            2 * rows * sum(t.numel() for t in wl))
+
+
+def run_tp_breakdowns(dev, card) -> None:
+    """K4's and K5's calls by launch class at tp = 2 and full width
+    (TP_BREAKDOWN, on tp_stacks): each held bit-equal to its plain
+    version, profiled in plain stream order (ops.decode_tp.TP_PDL =
+    False: the classes' own times) and timed in a CUDA graph both ways.
+    Run last, with K1's (the profiler stays with the process)."""
+    import torch
+
+    from voxtral_tpu_torch import VoxtralConfig
+    from voxtral_tpu_torch.ops import decode_tp as ktp
+
+    lm = VoxtralConfig.voxtral().language_model
+    w = tp_stacks("w8", lm, dev)
+    for i, name in enumerate(TP_BREAKDOWN):
+        half, plain, moved, ops = tp_breakdown_case(name, w, lm, dev, 70 + i)
+        got, ref = half(), plain()
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+            fail(f"{name}: not bit-equal to the plain version")
+        ktp.TP_PDL = False
+        try:
+            b = tp_breakdown(half, TP_BREAKDOWN[name][0])
+            b["graph_ms_plain_order"] = round(graph_ms(half), 4)
+        finally:
+            ktp.TP_PDL = True
+        b["graph_ms"] = round(graph_ms(half), 4)
+        b["bound_ms"] = round(bound(moved, ops, INT8_OPS)[0], 4)
+        print(f"{name.split()[0]} call breakdown [{name}] (device ms by "
+              f"launch class, plain stream order; graph_ms: the call as "
+              f"launched): {json.dumps(b)} [{card}]", flush=True)
+    del w
+    release()
 
 
 def check_k1_modes(model, dev, card):
@@ -3733,9 +3905,12 @@ def run_dense_mesh(model, plain, dev, card, sig, tok):
 
 MESH_PLAIN_SECS = 8.0  # the plain TP side, held as a prefix
 MESH_LAYER = 25
-# K4 at tp = 2 local shapes: (rows, S, offset); rows > 1 is one stream of
-# SPEC_K draft rows.  S = 194 at offset 187 is the largest one-shot cache.
-K4_CASES = [(1, 151, 150), (SPEC_K, 158, 143), (1, 194, 187)]
+# K4 at tp = 2 local shapes: (streams, rows a stream, S, offset of the
+# first stream; the others 30 slots apart).  S = 194 at offset 187 is the
+# largest one-shot cache; four streams of a row, a B = 4 pool's step.
+K4_CASES = [(1, 1, 151, 150), (1, SPEC_K, 158, 143), (1, 1, 194, 187),
+            (4, 1, 151, 150)]
+K5_ROWS = (1, 4, SPEC_K)
 MESH_ROWS = (1, SPEC_K)
 K6_TIES = {"inside shard 0": ((0, 1000), (0, 5000)),
            "across the shards": ((0, 60000), (1, 10))}
@@ -3815,37 +3990,41 @@ def check_k4_k5(tp, dev, card):
     D, hd, layer = cfg.dim, cfg.head_dim, MESH_LAYER
     vecs = (w["sqkv"][layer], w["so"][layer])
     worst, times = 0.0, {}
-    for rows, S, off in K4_CASES:
+    for streams, spec, S, off in K4_CASES:
+        rows = streams * spec
         gen = torch.Generator(device=dev).manual_seed(31 + rows + S)
-        kc = (torch.randn((1, nkv, S, hd), device=dev, generator=gen)
+        kc = (torch.randn((streams, nkv, S, hd), device=dev, generator=gen)
               * 0.5).bfloat16()
-        vc = (torch.randn((1, nkv, S, hd), device=dev, generator=gen)
+        vc = (torch.randn((streams, nkv, S, hd), device=dev, generator=gen)
               * 0.5).bfloat16()
         x = torch.randn((rows, D), device=dev, generator=gen)
         if rows == 1:
             offs = off
             c, s = k1.rope_pair_vectors(off, hd, cfg.rope_theta, device=dev)
         else:
-            offs = torch.tensor([off], dtype=torch.int32, device=dev)
+            offs = off - 30 * torch.arange(streams, dtype=torch.int32,
+                                           device=dev)
             c, s = k1.rope_pair_vectors(
-                off + torch.arange(rows, device=dev), hd, cfg.rope_theta)
+                (offs[:, None] + torch.arange(spec, device=dev)).reshape(-1),
+                hd, cfg.rope_theta)
         args = (x, layer, offs, tp._tp_norms[0][layer], *vecs, c, s, kc, vc,
                 w["wqkv"], w["wo"])
         kw = dict(n_heads_l=nh, n_kv_l=nkv, head_dim=hd, eps=cfg.norm_eps,
-                  window=cfg.sliding_window, spec=rows)
+                  window=cfg.sliding_window, spec=spec)
         wl = (w["wqkv"][layer], w["wo"][layer])
+        seen = sum(off - 30 * i for i in range(streams))
         moved = (nbytes(*wl, *vecs, tp._tp_norms[0][layer], c, s)
-                 + 2 * nbytes(x) + 2 * off * nkv * hd * 2
+                 + 2 * nbytes(x) + 2 * seen * nkv * hd * 2
                  + 2 * rows * nkv * hd * 2)
         err, t = timed_kernel(
-            f"K4 attn_half_step{fmt_tag(tp)} tp=2 rows={rows} S={S} "
-            f"offset={off}",
+            f"K4 attn_half_step{fmt_tag(tp)} tp=2 rows={rows} "
+            f"({streams} stream(s) x {spec}) S={S} offset={off}",
             lambda: ktp.attn_half_step(*args, **kw),
             lambda: ktp.attn_half_step_plain(*args, **kw), moved,
             2 * rows * sum(t.numel() for t in wl), card)
         worst, times[("K4", rows, S)] = max(worst, err), t
     ada = k1.ada_vectors(tp.params["decoder"], tp.t_embed(6.0))
-    for rows in MESH_ROWS:
+    for rows in K5_ROWS:
         gen = torch.Generator(device=dev).manual_seed(41 + rows)
         x = torch.randn((rows, D), device=dev, generator=gen)
         args = (x, layer, tp._tp_norms[1][layer], ada[layer],
@@ -5677,7 +5856,8 @@ def main() -> int:
     run_gguf_cli(dev, card)
     phase_done("gguf")
     run_k1_breakdowns(dev, card)
-    phase_done("K1 breakdown")
+    run_tp_breakdowns(dev, card)
+    phase_done("K1, K4 and K5 breakdowns")
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "voxtral_tpu"))
@@ -5783,6 +5963,7 @@ def main() -> int:
     k4s = mesh["k45_times"][("K4", SPEC_K, 158)]
     k4l = mesh["k45_times"][("K4", 1, 194)]
     k5, k5s = mesh["k45_times"][("K5", 1)], mesh["k45_times"][("K5", SPEC_K)]
+    k44, k54 = mesh["k45_times"][("K4", 4, 151)], mesh["k45_times"][("K5", 4)]
     k4m = mstream["k4_times"]
     k6, k6s = mesh["k6_times"][1], mesh["k6_times"][SPEC_K]
     gq = mesh_q4g
@@ -5790,6 +5971,7 @@ def main() -> int:
     g4 = gq["k45_times"][("K4", 1, 151)]
     g4s = gq["k45_times"][("K4", SPEC_K, 158)]
     g5, g5s = gq["k45_times"][("K5", 1)], gq["k45_times"][("K5", SPEC_K)]
+    g44, g54 = gq["k45_times"][("K4", 4, 151)], gq["k45_times"][("K5", 4)]
     g6, g6s = gq["k6_times"][1], gq["k6_times"][SPEC_K]
     dm = dense["mesh"]
     b1i, b1i8 = dm["k1i_times"][1], dm["k1i_times"][SPEC_K]
@@ -5921,6 +6103,8 @@ def main() -> int:
          "host_called_ms": k4[4], "spec_ms": k4s[0],
          "spec_plain_ms": k4s[1], "spec_bound_ms": k4s[2],
          "largest_cache_ms": k4l[0], "largest_cache_bound_ms": k4l[2],
+         "rows4_ms": k44[0], "rows4_plain_ms": k44[1],
+         "rows4_bound_ms": k44[2],
          # K4's cache modes at tp = 2 (K4_MODE_CASES): device ms
          # (CUDA graph), plain ms, bound ms, host-called ms.
          **{f"{name}_{key}": k4m[name][i] for name in K4_MODE_CASES
@@ -5934,7 +6118,8 @@ def main() -> int:
          "max_abs_err": mesh["k45_err"], "ms": k5[0], "plain_ms": k5[1],
          "bound_ms": k5[2], "bound_by": k5[3], "library_ms": None,
          "host_called_ms": k5[4], "rows8_ms": k5s[0],
-         "rows8_bound_ms": k5s[2]},
+         "rows8_bound_ms": k5s[2], "rows4_ms": k54[0],
+         "rows4_plain_ms": k54[1], "rows4_bound_ms": k54[2]},
         {"name": "lm_half_argmax", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/decode_tp.cu",
          "fold": "voxtral_tpu_torch/csrc/lm_argmax.cuh",
@@ -5985,6 +6170,8 @@ def main() -> int:
          "bound_ms": g4[2], "bound_by": g4[3], "library_ms": None,
          "host_called_ms": g4[4], "spec_ms": g4s[0],
          "spec_plain_ms": g4s[1], "spec_bound_ms": g4s[2],
+         "rows4_ms": g44[0], "rows4_plain_ms": g44[1],
+         "rows4_bound_ms": g44[2],
          **{f"{name}_{key}": gq["k4m_times"][name][i]
             for name in K4_G32_MODES
             for i, key in ((0, "ms"), (1, "plain_ms"), (2, "bound_ms"))}},
@@ -5996,7 +6183,9 @@ def main() -> int:
          "max_abs_err": gq["k45_err"], "ms": g5[0], "plain_ms": g5[1],
          "bound_ms": g5[2], "bound_by": g5[3], "library_ms": None,
          "host_called_ms": g5[4], "rows8_ms": g5s[0],
-         "rows8_plain_ms": g5s[1], "rows8_bound_ms": g5s[2]},
+         "rows8_plain_ms": g5s[1], "rows8_bound_ms": g5s[2],
+         "rows4_ms": g54[0], "rows4_plain_ms": g54[1],
+         "rows4_bound_ms": g54[2]},
         {"name": "lm_half_argmax_g32", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/decode_tp.cu",
          "fold": "voxtral_tpu_torch/csrc/lm_argmax.cuh",

@@ -398,6 +398,72 @@ def test_wrappers_on_cpu_count_no_launch(setup):
             ttp.lm_half_argmax.launches) == before
 
 
+@pytest.mark.parametrize("fmt", ["w8", "g32"])
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 5, 8, 9, 32])
+def test_tp_gemv_plan_bits(fmt, rows):
+    """Every linear gets launch bits the kernel knows; the fused GEMV only
+    for wo and w2 at one w8 row, two weight rows a warp only in w8 up to
+    2 rows, the tensor-core route only for wo at 8 w8 rows, the SwiGLU in
+    the GEMV's epilogue only for w13 (w8 up to 8 rows, g32 at 2-4); the
+    first linear of each half goes ahead of the residual add."""
+    known = (ttp.PLAN_FUSED | ttp.PLAN_PAIR | ttp.PLAN_MMA | ttp.PLAN_AHEAD
+             | ttp.PLAN_GEMV_AHEAD | ttp.PLAN_SWIGLU)
+    plans = {lin: ttp.tp_gemv_plan(fmt, rows, lin)
+             for lin in ttp.TP_LINEARS}
+    for lin, plan in plans.items():
+        assert plan & ~known == 0
+        w8 = fmt == "w8"
+        assert bool(plan & ttp.PLAN_FUSED) == (
+            lin in ("wo", "w2") and w8 and rows == 1)
+        assert not plan & ttp.PLAN_PAIR or (w8 and rows <= 2)
+        assert bool(plan & ttp.PLAN_MMA) == (lin == "wo" and w8 and rows == 8)
+        gated = rows <= 8 if w8 else 2 <= rows <= 4
+        assert bool(plan & ttp.PLAN_SWIGLU) == (lin == "w13" and gated)
+        assert plan & ttp.PLAN_GEMV_AHEAD or plan & ttp.PLAN_FUSED
+    for lin in ("qkv", "w13"):
+        assert plans[lin] & ttp.PLAN_AHEAD
+
+
+@pytest.mark.parametrize("bad", [("w4", 1, "qkv"), ("w8", 0, "qkv"),
+                                 ("g32", 1, "lm")])
+def test_tp_gemv_plan_refuses(bad):
+    fmt, rows, lin = bad
+    with pytest.raises(ValueError):
+        ttp.tp_gemv_plan(fmt, rows, lin)
+
+
+@pytest.mark.parametrize("fmt", ["w8", "g32"])
+def test_tp_gemv_plan_reaches_every_route(fmt):
+    """At the row counts the card tests run (1, 2, 3, 4, 8) the rule picks
+    every route tp_linear keeps for the format (w8: the fused GEMV, two
+    weight rows a warp, the tensor-core GEMV; both: the gated w13, the
+    row kernel ahead or after its predecessor), so holding the chosen
+    plans to the plain version on the card covers them all."""
+    seen = {ttp.tp_gemv_plan(fmt, rows, lin) for rows in (1, 2, 3, 4, 8)
+            for lin in ttp.TP_LINEARS}
+    flags = [ttp.PLAN_AHEAD, ttp.PLAN_GEMV_AHEAD, ttp.PLAN_SWIGLU]
+    if fmt == "w8":
+        flags += [ttp.PLAN_FUSED, ttp.PLAN_PAIR, ttp.PLAN_MMA]
+    for flag in flags:
+        assert any(plan & flag for plan in seen)
+    assert ttp.PLAN_GEMV_AHEAD in seen  # the row kernel after its predecessor
+    assert any(plan & ttp.PLAN_SWIGLU == 0 and plan & ttp.PLAN_AHEAD
+               for plan in seen)
+
+
+def test_tp_scratch_is_kept_per_device_stream_and_shape():
+    """The halves' scratch: one allocation per (device, stream, shape),
+    handed back on the next call of that shape."""
+    f32 = torch.float32
+    specs = (((2, 8), torch.int8), ((2,), f32))
+    a = ttp._scratch(torch.device("cpu"), 0, ("K5", 2, 8, 4), specs)
+    assert [t.shape for t in a] == [(2, 8), (2,)]
+    assert ttp._scratch(torch.device("cpu"), 0, ("K5", 2, 8, 4), specs) is a
+    b = ttp._scratch(torch.device("cpu"), 1, ("K5", 2, 8, 4), specs)
+    c = ttp._scratch(torch.device("cpu"), 0, ("K5", 3, 8, 4), specs)
+    assert b is not a and c is not a
+
+
 # ---------------------------------------------------------------------------
 # On the card: each kernel against its plain version, bit for bit
 # ---------------------------------------------------------------------------
@@ -524,3 +590,135 @@ def test_attn_half_step_cluster_kernel_matches_plain_on_card(
     got = ttp.attn_half_step(*args, **kw)
     torch.cuda.synchronize()
     _bit_equal(got, ttp.attn_half_step_plain(*args, **kw))
+
+
+# -- full width: the chain and plain stream order, every row count and mode --
+
+# Voxtral Mini 4B's decoder at tp = 2: a shard's 16 query and 4 kv heads
+# of 128, D 3072, 4608 of the 9216 hidden rows.
+FULL_D, FULL_NH_L, FULL_NKV_L, FULL_HD, FULL_F_L = 3072, 16, 4, 128, 4608
+FULL_LAYER = 1
+# mode -> (S, ring, int8, chunk); the offsets per row count below.
+FULL_MODES = {"bounded": (194, None, False, None),
+              "ring": (640, (40, 600), False, None),
+              "int8": (640, (40, 600), True, None),
+              "chunk": (1536, None, False, 512)}
+FULL_OFFS = {"bounded": [187, 150, 120, 60, 30, 9, 100, 170],
+             "ring": [30, 300, 660, 1500, 639, 641, 100, 1000],
+             "chunk": [7, 700, 1100, 1536, 512, 1024, 300, 900]}
+
+
+def full_width_stacks(fmt: str, dev, seed: int = 0) -> dict:
+    """Random local stacks of one tp = 2 shard at full width, two layers
+    (layer FULL_LAYER read): int8 codes with f32 row scales (w8) or f16
+    group scales (g32), the norms and an ADA vector."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nq, nkv = FULL_NH_L * FULL_HD, FULL_NKV_L * FULL_HD
+    nqkv = nq + 2 * nkv
+
+    def codes(*shape):
+        return torch.randint(-127, 128, (2, *shape), dtype=torch.int8,
+                             device=dev, generator=g)
+
+    def scales(n, k):
+        if fmt == "g32":
+            return (torch.rand((n, k // 32), device=dev, generator=g)
+                    * 2e-3 + 1e-4).half()
+        return torch.rand((n,), device=dev, generator=g) * 4e-4 + 1e-5
+
+    def vec():
+        return 1 + 0.1 * torch.randn((FULL_D,), device=dev, generator=g)
+
+    return {"wqkv": codes(nqkv, FULL_D), "sqkv": scales(nqkv, FULL_D),
+            "wo": codes(FULL_D, nq), "so": scales(FULL_D, nq),
+            "w13": codes(2 * FULL_F_L, FULL_D),
+            "s13": scales(2 * FULL_F_L, FULL_D),
+            "w2": codes(FULL_D, FULL_F_L), "s2": scales(FULL_D, FULL_F_L),
+            "attn_norm": vec(), "ffn_norm": vec(), "ada": vec()}
+
+
+def full_k4_case(w: dict, rows: int, mode: str, dev):
+    """K4's arguments at ``rows`` rows in cache ``mode``: one stream per
+    row (spec 1; rows 1 with a scalar offset), and at 8 rows on the
+    bounded and ring caches one and two streams of spec rows."""
+    S, ring, int8, chunk = FULL_MODES[mode]
+    spec = 1
+    if rows == 8 and mode != "chunk":
+        spec = 8 if mode == "bounded" else 2
+    streams = rows // spec
+    offs = FULL_OFFS["ring" if mode == "int8" else mode][:streams]
+    if mode == "bounded" and spec > 1:
+        offs = [S - spec]
+    g = torch.Generator(device=dev).manual_seed(11 * rows + len(mode))
+    shape = (streams, FULL_NKV_L, S, FULL_HD)
+    kc = (torch.randn(shape, device=dev, generator=g) * 0.5).bfloat16()
+    vc = (torch.randn(shape, device=dev, generator=g) * 0.5).bfloat16()
+    scales = (None, None)
+    if int8:
+        (kc, ks), (vc, vs) = tdsp.quantize_kv(kc), tdsp.quantize_kv(vc)
+        scales = (ks, vs)
+    x = torch.randn((rows, FULL_D), device=dev, generator=g)
+    if rows == 1:
+        off = offs[0]
+        c, s = tdsp.rope_pair_vectors(off, FULL_HD, device=dev)
+    else:
+        off = torch.tensor(offs, dtype=torch.int32, device=dev)
+        c, s = tdsp.rope_pair_vectors(
+            (off[:, None] + torch.arange(spec, device=dev)).reshape(-1),
+            FULL_HD)
+    args = (x, FULL_LAYER, off, w["attn_norm"], w["sqkv"], w["so"], c, s, kc, vc, w["wqkv"], w["wo"], *scales)
+    kw = dict(n_heads_l=FULL_NH_L, n_kv_l=FULL_NKV_L, head_dim=FULL_HD,
+              eps=EPS, window=256, spec=spec, ring=ring, cache_chunk=chunk)
+    return args, kw
+
+
+def chain_equals_plain(call, ref, monkeypatch):
+    """``call()`` bit-equal to ``ref`` as the chain of programmatic
+    dependent launches on the chosen plans, then in plain stream order."""
+    for pdl in (True, False):
+        monkeypatch.setattr(ttp, "TP_PDL", pdl)
+        got = call()
+        torch.cuda.synchronize()
+        _bit_equal(got, ref)
+
+
+@pytest.fixture(scope="module")
+def full_w8():
+    return full_width_stacks("w8", _card())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(FULL_MODES))
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 8])
+def test_attn_half_step_full_width_on_card(full_w8, rows, mode, monkeypatch):
+    """K4 at full width (w8), every row count a template takes, every
+    cache mode, on the chosen plans (the one-row fused GEMV, the row
+    route with one and two weight rows a warp, the tensor-core route,
+    launches ahead or in order: test_tp_gemv_plan_reaches_every_route)
+    as a chain and in plain stream order: bit for bit with the plain
+    version, one launch counted a call."""
+    args, kw = full_k4_case(full_w8, rows, mode, _card())
+    ref = ttp.attn_half_step_plain(*args, **kw)
+    before = ttp.attn_half_step.launches
+    chain_equals_plain(lambda: ttp.attn_half_step(*args, **kw), ref,
+                       monkeypatch)
+    assert ttp.attn_half_step.launches == before + 2
+
+
+def full_k5_args(w: dict, rows: int, dev):
+    g = torch.Generator(device=dev).manual_seed(5 + rows)
+    x = torch.randn((rows, FULL_D), device=dev, generator=g)
+    return (x, FULL_LAYER, w["ffn_norm"], w["ada"], w["s13"], w["s2"],
+            w["w13"], w["w2"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 8])
+def test_ffn_half_step_full_width_on_card(full_w8, rows, monkeypatch):
+    """K5 at full width (w8) and every row count a template takes, on the
+    chosen plans as a chain and in plain stream order: bit for bit with
+    the plain version."""
+    args = full_k5_args(full_w8, rows, _card())
+    ref = [ttp.ffn_half_step_plain(*args, eps=EPS)]
+    chain_equals_plain(lambda: [ttp.ffn_half_step(*args, eps=EPS)], ref,
+                       monkeypatch)

@@ -39,7 +39,10 @@ from tests.test_torch_decode_step import (
 from tests.test_torch_gguf import gguf_file  # noqa: F401  (a fixture)
 from tests.test_torch_model import dense_params, test_mel
 from tests.test_torch_model import one_torch_thread  # noqa: F401  (autouse)
-from tests.test_torch_tp import NH_L, NKV_L, TP, _close, _rope, _rows
+from tests.test_torch_tp import (
+    EPS as FULL_EPS, FULL_MODES, NH_L, NKV_L, TP, _close, _rope, _rows,
+    chain_equals_plain, full_k4_case, full_k5_args, full_width_stacks,
+)
 from tests.test_tp_q4g import _tp_cfg
 from voxtral_tpu.ops import decode_step_pallas as jdsp
 from voxtral_tpu.ops import decode_tp_pallas as jtp
@@ -988,3 +991,37 @@ def test_q4g_meshed_kernels_match_plain_on_card(model_setup, nd, nm):
     if nm == 1:
         one = VoxtralModel.from_numpy(tree, cfg, dev)
         assert one.transcribe_streaming_batch(mel2).tolist() == seq.tolist()
+
+
+@pytest.fixture(scope="module")
+def full_g32():
+    return full_width_stacks("g32", _card())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(FULL_MODES))
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 8])
+def test_attn_half_step_g32_full_width_on_card(full_g32, rows, mode,
+                                               monkeypatch):
+    """K4 over g32 weights at full width, every row count a template
+    takes, every cache mode, on the chosen plans as a chain and in plain
+    stream order: bit for bit with the plain version, each call a g32
+    launch."""
+    args, kw = full_k4_case(full_g32, rows, mode, _card())
+    ref = ttp.attn_half_step_plain(*args, **kw)
+    before = ttp.attn_half_step.g32_launches
+    chain_equals_plain(lambda: ttp.attn_half_step(*args, **kw), ref,
+                       monkeypatch)
+    assert ttp.attn_half_step.g32_launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 8])
+def test_ffn_half_step_g32_full_width_on_card(full_g32, rows, monkeypatch):
+    """K5 over g32 weights at full width, every row count a template
+    takes, on the chosen plans as a chain and in plain stream order: bit
+    for bit."""
+    args = full_k5_args(full_g32, rows, _card())
+    ref = [ttp.ffn_half_step_plain(*args, eps=FULL_EPS)]
+    chain_equals_plain(lambda: [ttp.ffn_half_step(*args, eps=FULL_EPS)],
+                       ref, monkeypatch)

@@ -67,10 +67,11 @@ __device__ __forceinline__ void bf16x8(const int4 v, float (&f)[8]) {
 // product exact in f32, summed in f64 per lane, then across the warp
 // (warp_sum_f64): every lane holds acc[m] for m < mr.  Shared by the GEMV
 // below and by K1 mode (i)'s fold over a bf16 table (lm_argmax.cuh), so
-// the fold's logits are mode (g)'s bit for bit.
+// the fold's logits are mode (g)'s bit for bit.  x is read with __ldg: a
+// caller after pdl_wait passes it through after_wait (w8_common.cuh).
 template <int R>
 __device__ __forceinline__ void bf16_row_dots(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+    const __nv_bfloat16* x, const __nv_bfloat16* __restrict__ w,
     int mr, int K, bool vec, int lane, double (&acc)[R]) {
 #pragma unroll
   for (int m = 0; m < R; ++m) acc[m] = 0.0;
@@ -110,12 +111,13 @@ __device__ __forceinline__ void bf16_row_dots(
 
 template <int R>
 __global__ void __launch_bounds__(256) bf16_gemv_kernel(
-    const __nv_bfloat16* __restrict__ x, BfSegs segs, const float* resid,
+    const __nv_bfloat16* x, BfSegs segs, const float* resid,
     float* out, int M, int N, int K, bool vec) {
   const int lane = threadIdx.x & 31;
   const int n = blockIdx.x * kGemvWarps + (threadIdx.x >> 5);
   pdl_trigger();  // K1's one-row path launches it ahead of its predecessor
   pdl_wait();
+  x = after_wait(x);  // bf16_row_dots reads it with __ldg
   if (n >= N) return;  // whole warps leave together
   const __nv_bfloat16* w = seg_row(segs, n, K);
   for (int m0 = 0; m0 < M; m0 += R) {

@@ -1,10 +1,12 @@
-// Device code shared by K1 (decode_step.cu), K4 / K5 (decode_tp.cu) and
-// K7 (decode_layer.cu):
+// Device code shared by K1 (decode_step.cu), K4 / K5 (decode_tp.cu,
+// tp_gemv.cu) and K7 (decode_layer.cu):
 // the f64 / f32 block reductions, the pair RoPE prologue of an attention
-// block and the row kernel that norms, gates and int8-quantizes one
-// activation row per block (row_quant).  Everything has internal
-// linkage, so every translation unit may include it; see decode_step.cu
-// for the rounding rules the kernels share with their plain versions.
+// block, the row kernel that norms, gates and int8-quantizes one
+// activation row per block (row_quant) and its gate, scale and codes
+// (quant_swiglu, quant_scale, quant_code), which K4 / K5's GEMVs share.
+// Everything has internal linkage, so every translation unit may include
+// it; see decode_step.cu for the rounding rules the kernels share with
+// their plain versions.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -74,7 +76,7 @@ __device__ __forceinline__ float round_bf16(float v) {
 // memory (qf, kf; qb = bf16(q) when given), v into vf, and k_new / v_new
 // as bf16 (one writer per kv head).  The caller synchronizes.
 __device__ __forceinline__ void rope_row(
-    const float* __restrict__ qkv, const float* __restrict__ cosv,
+    const float* qkv, const float* __restrict__ cosv,
     const float* __restrict__ sinv, int rope_stride, int r, int h, int jh,
     int G, int n_heads, int n_kv, int hd, float scale, float* qf, float* qb,
     float* kf, float* vf, __nv_bfloat16* __restrict__ kn,
@@ -101,6 +103,24 @@ __device__ __forceinline__ void rope_row(
   }
 }
 
+// SwiGLU of one gate value g and up value u; the scale of a row from its
+// absmax, and the code of one value: every kernel that gates or
+// quantizes an activation row forms them here (row_quant_kernel, K5's w13
+// GEMV and K4's wo GEMV in tp_gemv.cu), so they agree bit for bit
+// wherever they are made.
+__device__ __forceinline__ float quant_swiglu(float g, float u) {
+  const float sig = 1.0f / (1.0f + expf(-g));
+  return (g * sig) * u;
+}
+
+__device__ __forceinline__ float quant_scale(float amax) {
+  return fmaxf(amax, 1e-8f) / 127.0f;
+}
+
+__device__ __forceinline__ int8_t quant_code(float v, float s) {
+  return static_cast<int8_t>(fminf(fmaxf(rintf(v / s), -127.0f), 127.0f));
+}
+
 // One block per row b: h = f(x[b]) of width K, then xq[b] = int8 codes,
 // sx[b] = max(absmax(h), 1e-8) / 127 with round-half-even of h / sx; or,
 // with ``xb`` (mode (g)), xb[b] = bf16(h) and no quantization.
@@ -116,7 +136,7 @@ __device__ __forceinline__ void rope_row(
 // predecessor writes, come in before pdl_wait.
 template <bool TAIL>
 __global__ void __launch_bounds__(kQuantThreads) row_quant_kernel(
-    const float* __restrict__ x, int ldx, int K, const float* __restrict__ w,
+    const float* x, int ldx, int K, const float* __restrict__ w,
     const float* __restrict__ ada, float eps, int mode,
     int8_t* __restrict__ xq, float* __restrict__ sx,
     __nv_bfloat16* __restrict__ xb) {
@@ -168,11 +188,7 @@ __global__ void __launch_bounds__(kQuantThreads) row_quant_kernel(
     }
   } else if (mode == kQuantSwiglu) {
 #pragma unroll
-    for (int j = 0; j < kQuantRegs; ++j) {
-      const float g = h[j];
-      const float sig = 1.0f / (1.0f + expf(-g));
-      h[j] = (g * sig) * u[j];
-    }
+    for (int j = 0; j < kQuantRegs; ++j) h[j] = quant_swiglu(h[j], u[j]);
   }
   // h at a k past the registers.
   auto far = [&](int k) -> float {
@@ -181,11 +197,7 @@ __global__ void __launch_bounds__(kQuantThreads) row_quant_kernel(
       if (ada != nullptr) v = v * ada[k];
       return v;
     }
-    if (mode == kQuantSwiglu) {
-      const float g = xr[k];
-      const float sig = 1.0f / (1.0f + expf(-g));
-      return (g * sig) * xr[K + k];
-    }
+    if (mode == kQuantSwiglu) return quant_swiglu(xr[k], xr[K + k]);
     return xr[k];
   };
   if (xb != nullptr) {
@@ -210,11 +222,9 @@ __global__ void __launch_bounds__(kQuantThreads) row_quant_kernel(
       amax = fmaxf(amax, fabsf(far(k)));
   }
   amax = block_max(amax, red);
-  const float s = fmaxf(amax, 1e-8f) / 127.0f;
+  const float s = quant_scale(amax);
   int8_t* q = xq + static_cast<size_t>(b) * K;
-  auto code = [&](float v) {
-    return static_cast<int8_t>(fminf(fmaxf(rintf(v / s), -127.0f), 127.0f));
-  };
+  auto code = [&](float v) { return quant_code(v, s); };
 #pragma unroll
   for (int j = 0; j < kQuantRegs; ++j) {
     const int k = t + j * kQuantThreads;

@@ -134,7 +134,7 @@ inline GroupGeo attn_geometry(int G, int hd, int piece) {
 // when they do not fit shared memory (geometry.global).
 template <int G>
 __global__ void __launch_bounds__(kAttnThreads) attn_group_kernel(
-    const float* __restrict__ qkv, const float* __restrict__ cosv,
+    const float* qkv, const float* __restrict__ cosv,
     const float* __restrict__ sinv, int off,
     const __nv_bfloat16* __restrict__ kc, const __nv_bfloat16* __restrict__ vc,
     __nv_bfloat16* __restrict__ kn, __nv_bfloat16* __restrict__ vn,

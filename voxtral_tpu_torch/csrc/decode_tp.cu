@@ -9,7 +9,7 @@
 //   K4 vx_attn_half_step (attn_half_step, :603-756; body _make_attn_half
 //      :294, _spec_attn :145), one shard's heads (n_heads / tp query,
 //      n_kv / tp kv heads):
-//        row_quant(norm)    rmsnorm x attn_norm, per-row int8 quant
+//        quant(norm)        rmsnorm x attn_norm, per-row int8 quant
 //        gemv qkv_l         the shard's q / k / v rows of layer ``layer``
 //        attention          pair RoPE, GQA attention over the shard's
 //                           local cache [Bc, n_kv_l, S, hd] (K1's launch,
@@ -19,14 +19,14 @@
 //                           f32 scales [Bc, n_kv_l, S], cache_q; the
 //                           chunked walk, cache_chunk: _make_attn_half
 //                           :392-420, :456-540, _spec_attn's int8 rows)
-//        row_quant(plain)   int8 quant of the LOCAL attention output, with
+//        quant(plain)       int8 quant of the LOCAL attention output, with
 //                           the local row absmax (decode_tp_pallas.py:
 //                           43-47, :555)
 //        gemv wo_l          the WO partial, no residual
 //   K5 vx_ffn_half_step (ffn_half_step, :763-834; body _make_ffn_half
 //      :561), one shard's F rows:
-//        row_quant(norm, ada), gemv w13_l, row_quant(swiglu) over the
-//        local F (local absmax, :592), gemv w2_l: the W2 partial
+//        quant(norm, ada), gemv w13_l, quant(swiglu) over the local F
+//        (local absmax, :592), gemv w2_l: the W2 partial
 //   K6 vx_lm_half_argmax (lm_half_argmax, :1285-1382; body _make_lm_half
 //      :1228), one shard's vocab rows: row_quant(final norm) -- XLA's in
 //      JAX, here the row kernel -- then the lm fold of lm_argmax.cuh:
@@ -47,15 +47,27 @@
 // GEMVs and the g32 fold of K1 mode (h) (w8_common.cuh,
 // lm_argmax.cuh).  Bytes: 1.0625 per weight instead of 1 + 4 / K.
 //
+// K4 and K5 are each one chain of programmatic dependent launches (pdl):
+// a kernel may start while its predecessor runs and touches nothing the
+// predecessor writes before pdl_wait.  A quant(...) step and the GEMV
+// after it are one launch or two, as the linear's plan says (tp_gemv.cu:
+// the GEMV quantizes its row in its prologue, or follows the row
+// kernel), and K5's w13 may put the SwiGLU in its epilogue, so w2's row
+// needs no gate; the GEMVs load their first weights before the wait.
+// The attention is K1's cluster launch, in stream order after the qkv
+// GEMV (launched ahead it measured slower on the H100).  At one w8 row
+// K4 is 4 launches and K5 3; the plans come from
+// ops/decode_tp.py::tp_gemv_plan.  K6 stays plain: its fold
+// (lm_argmax.cuh) is at 75 % of its bytes' bound at one row.
+//
 // What bounds it on the H100, at tp = 2 and full width, one row: K4 the
 // layer's local weights, 9.44 MB of wqkv_l + 6.29 MB of wo_l (16.71 MB
 // of codes and f16 group scales in g32), and the visible slots of the
 // local cache (bf16, or int8 codes and their scales: what K1's (d) /
 // (e) / (f) read, over half the heads); K5 28.31 + 14.16 MB of w13_l /
 // w2_l (45.12 MB in g32); K6 the 201.6 MB vocab shard (213.9 MB in
-// g32).  Each call is a handful of launches (5 for K4, 4 for K5, 3 for
-// K6) on the current stream; a position costs 26 x (K4 + K5) calls per
-// shard from the host, the same host cost as the per-layer route (K7).
+// g32).  A position costs 26 x (K4 + K5) calls per shard from the host,
+// the same host cost as the per-layer route (K7).
 //
 // Bit for bit with the plain versions (ops/decode_tp.py): every float
 // reduction accumulates in f64 and rounds once, and the build passes
@@ -70,23 +82,21 @@
 #include "lm_argmax.cuh"
 #include "w8_common.cuh"
 
+namespace vx {
+// One linear of a half (tp_gemv.cu).
+cudaError_t tp_linear(int wfmt, int plan, int qm, const float* x, int ldx,
+                      int K, const float* w, const float* ada, float eps,
+                      int8_t* xq, float* sx, const int8_t* codes,
+                      const void* scale, float* out, int M, int N,
+                      bool gated, cudaStream_t st, bool pdl);
+// Whether it runs w13 with the SwiGLU in its epilogue (tp_gemv.cu).
+bool tp_swiglu_fits(int wfmt, int plan, int M, int K, const void* codes,
+                    const void* xq);
+}  // namespace vx
+
 namespace {
 
 constexpr int kW8Fmt = 0, kG32Fmt = 1;
-
-// One linear of a half on the rows quantized in xq / sx: W8A8 (row
-// scales [N] f32) or g32 (group scales [N, K/32] f16).
-void half_gemv(int wfmt, const int8_t* xq, const float* sx, const int8_t* w,
-               const void* sc, float* out, int B, int N, int K,
-               cudaStream_t st) {
-  using namespace vx;
-  if (wfmt == kG32Fmt)
-    launch_g32_gemv(xq, sx, w, static_cast<const __half*>(sc), nullptr, out,
-                    B, N, K, st);
-  else
-    launch_w8_gemv(xq, sx, w, static_cast<const float*>(sc), nullptr, out, B,
-                   N, K, st);
-}
 
 // g32 needs every contraction width % 32 and 16-byte aligned code rows.
 bool g32_ok(int wfmt, std::initializer_list<int> widths,
@@ -119,7 +129,9 @@ bool g32_ok(int wfmt, std::initializer_list<int> widths,
 // S; spec must be 1).  The attention launch is K1's (attn_step.cuh::
 // prepare_attention / launch_attention).  Scratch: xq [B, max(D, nq)]
 // int8, sx [B], qkv [B, nq + 2 nkv], attn [B, nq] f32.  window < 0: no
-// lower bound.
+// lower bound.  plan_qkv / plan_wo: the two linears' plans (tp_gemv.cu);
+// pdl 1: the linears' launches go ahead as their plans say (0: plain
+// stream order).
 extern "C" int vx_attn_half_step(
     const void* x, void* yo, int layer, const void* attn_norm,
     const void* sqkv, const void* so, const void* cosv, const void* sinv,
@@ -129,7 +141,7 @@ extern "C" int vx_attn_half_step(
     const void* offs, int B, int D, int S, int n_heads, int n_kv, int hd,
     int off0, int spec, int rope_stride, int window, int ring_head,
     int ring_size, int chunk, int wfmt, float eps, float scale,
-    void* stream) {
+    int plan_qkv, int plan_wo, int pdl, void* stream) {
   using namespace vx;
   const bool ring = ring_size > 0;
   const bool kv8 = k_scales != nullptr;
@@ -152,13 +164,12 @@ extern "C" int vx_attn_half_step(
   float* sx = static_cast<float*>(sx_buf);
   float* qkv = static_cast<float*>(qkv_buf);
   float* att = static_cast<float*>(attn_buf);
-  row_quant(static_cast<const float*>(x), D, D,
-            static_cast<const float*>(attn_norm), nullptr, eps, kQuantNorm, B,
-            xq, sx, nullptr, st);
-  half_gemv(wfmt, xq, sx,
-            static_cast<const int8_t*>(wqkv) +
-                static_cast<size_t>(layer) * nqkv * D,
-            sqkv, qkv, B, nqkv, D, st);
+  cudaError_t e = tp_linear(
+      wfmt, plan_qkv, kQuantNorm, static_cast<const float*>(x), D, D,
+      static_cast<const float*>(attn_norm), nullptr, eps, xq, sx,
+      static_cast<const int8_t*>(wqkv) + static_cast<size_t>(layer) * nqkv * D,
+      sqkv, qkv, B, nqkv, false, st, pdl != 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const AttnLaunch at{qkv, static_cast<const float*>(cosv),
                       static_cast<const float*>(sinv), rope_stride,
                       static_cast<const int*>(offs), off0, B, spec, kc, vc,
@@ -167,14 +178,14 @@ extern "C" int vx_attn_half_step(
                       static_cast<__nv_bfloat16*>(kn),
                       static_cast<__nv_bfloat16*>(vn), att, S, window,
                       ring_head, ring_size, chunk, n_heads, n_kv, hd, scale};
-  const cudaError_t ae = launch_attention(at, prep, st);
-  if (ae != cudaSuccess) return static_cast<int>(ae);
-  row_quant(att, nq, nq, nullptr, nullptr, eps, kQuantPlain, B, xq, sx,
-            nullptr, st);
-  half_gemv(wfmt, xq, sx,
-            static_cast<const int8_t*>(wo) +
-                static_cast<size_t>(layer) * D * nq,
-            so, static_cast<float*>(yo), B, D, nq, st);
+  e = launch_attention(at, prep, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = tp_linear(wfmt, plan_wo, kQuantPlain, att, nq, nq, nullptr, nullptr,
+                eps, xq, sx,
+                static_cast<const int8_t*>(wo) +
+                    static_cast<size_t>(layer) * D * nq,
+                so, static_cast<float*>(yo), B, D, false, st, pdl != 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -182,12 +193,16 @@ extern "C" int vx_attn_half_step(
 // ``layer``'s; F the shard's hidden rows); w13 [L, 2F, D] (the shard's w1
 // rows, then its w3 rows) and w2 [L, D, F] int8 stacks; wfmt 1 (g32):
 // s13 [2F, D/32] and s2 [D, F/32] f16.  Scratch: xq [B, max(D, F)] int8,
-// sx [B], up [B, 2F] f32.
+// sx [B], up [B, 2F] f32 (the w13 outputs, or h = SwiGLU of them in its
+// first B x F where plan_w13 puts the gate in w13's epilogue).
+// plan_w13 / plan_w2: the two linears' plans; pdl 1: their launches go
+// ahead as the plans say (0: plain stream order).
 extern "C" int vx_ffn_half_step(
     const void* x, void* zo, int layer, const void* ffn_norm,
     const void* ada, const void* s13, const void* s2, const void* w13,
     const void* w2, void* xq_buf, void* sx_buf, void* up_buf, int B, int D,
-    int F, int wfmt, float eps, void* stream) {
+    int F, int wfmt, float eps, int plan_w13, int plan_w2, int pdl,
+    void* stream) {
   using namespace vx;
   if (!g32_ok(wfmt, {D, F}, {w13, w2}) || B < 1 || D < 1 || F < 1 ||
       layer < 0)
@@ -196,20 +211,20 @@ extern "C" int vx_ffn_half_step(
   int8_t* xq = static_cast<int8_t*>(xq_buf);
   float* sx = static_cast<float*>(sx_buf);
   float* up = static_cast<float*>(up_buf);
-  row_quant(static_cast<const float*>(x), D, D,
-            static_cast<const float*>(ffn_norm),
-            static_cast<const float*>(ada), eps, kQuantNorm, B, xq, sx,
-            nullptr, st);
-  half_gemv(wfmt, xq, sx,
-            static_cast<const int8_t*>(w13) +
-                static_cast<size_t>(layer) * 2 * F * D,
-            s13, up, B, 2 * F, D, st);
-  row_quant(up, 2 * F, F, nullptr, nullptr, eps, kQuantSwiglu, B, xq, sx,
-            nullptr, st);
-  half_gemv(wfmt, xq, sx,
-            static_cast<const int8_t*>(w2) +
-                static_cast<size_t>(layer) * D * F,
-            s2, static_cast<float*>(zo), B, D, F, st);
+  const int8_t* w13_l =
+      static_cast<const int8_t*>(w13) + static_cast<size_t>(layer) * 2 * F * D;
+  const bool gated = tp_swiglu_fits(wfmt, plan_w13, B, D, w13_l, xq);
+  cudaError_t e = tp_linear(
+      wfmt, plan_w13, kQuantNorm, static_cast<const float*>(x), D, D,
+      static_cast<const float*>(ffn_norm), static_cast<const float*>(ada),
+      eps, xq, sx, w13_l, s13, up, B, 2 * F, gated, st, pdl != 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = tp_linear(wfmt, plan_w2, gated ? kQuantPlain : kQuantSwiglu, up,
+                gated ? F : 2 * F, F, nullptr, nullptr, eps, xq, sx,
+                static_cast<const int8_t*>(w2) +
+                    static_cast<size_t>(layer) * D * F,
+                s2, static_cast<float*>(zo), B, D, false, st, pdl != 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 

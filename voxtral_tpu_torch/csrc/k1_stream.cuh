@@ -269,6 +269,7 @@ __global__ void __launch_bounds__(kStreamThreads, stream_min_blocks<MT>())
   };
   for (int q = 0; q < S - 1; ++q) issue(q, false);
   pdl_wait();  // x, sx, resid and out belong to the previous launches
+  xrow = after_wait(xrow);  // the rows' loads below stay after the wait
   if (AR > 0) {  // the activation rows of the chunks issued ahead
     for (int q = 0; q < min(S - 1, total); ++q) {
       const size_t k0b = static_cast<size_t>(part * part_k + (q % nc) * kc) *
@@ -316,7 +317,7 @@ __global__ void __launch_bounds__(kStreamThreads, stream_min_blocks<MT>())
     __syncwarp();  // every lane's pieces of chunk q have landed
     const unsigned char* st = ring + (q % S) * ly.stage;
     if constexpr (Fmt == kW8) {
-      const int8_t* xq = static_cast<const int8_t*>(a.x);
+      const int8_t* xq = reinterpret_cast<const int8_t*>(xrow);
       const int steps = kc / 64;
       // This lane's activation fragments at step s (rows 16 i + g and
       // 16 i + 8 + g, 16 bytes at k0 + 64 s + 16 t), one step ahead.
@@ -354,7 +355,7 @@ __global__ void __launch_bounds__(kStreamThreads, stream_min_blocks<MT>())
         }
       }
     } else {
-      const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(a.x);
+      const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(xrow);
       const __nv_bfloat16* ws = reinterpret_cast<const __nv_bfloat16*>(st);
       const int steps = kc / 32;
       // Activation fragments of step s (8 bf16 at k0 + 32 s + 8 t of row

@@ -80,7 +80,7 @@ __device__ __forceinline__ bool argmax_better(float v, int i, float bv,
 // ``table`` bf16 [N, K], no scales (sx, scale unused).
 template <int M, int Fmt>
 __global__ void __launch_bounds__(32 * kGemvWarps) argmax_tile_kernel(
-    const void* __restrict__ x, const float* __restrict__ sx,
+    const void* x, const float* sx,
     const void* __restrict__ table, const void* __restrict__ scale, int N,
     int K, bool vec, int n_tiles, float* __restrict__ tmax,
     int* __restrict__ tidx) {
@@ -90,6 +90,7 @@ __global__ void __launch_bounds__(32 * kGemvWarps) argmax_tile_kernel(
   const int tile = blockIdx.x;
   pdl_trigger();
   pdl_wait();
+  x = after_wait(x);  // the rows' __ldg loads stay after the wait
   float best_v[M];
   int best_i[M];
 #pragma unroll
@@ -190,7 +191,7 @@ __global__ void __launch_bounds__(32 * kGemvWarps) argmax_tile_kernel(
 // Pass 2: one block per activation row m over its n_tiles partials.
 // vmax (may be NULL) and vidx [M]: the row's maximum and its first index.
 __global__ void __launch_bounds__(256) argmax_merge_kernel(
-    const float* __restrict__ tmax, const int* __restrict__ tidx, int n_tiles,
+    const float* tmax, const int* tidx, int n_tiles,
     float* __restrict__ vmax, int* __restrict__ vidx) {
   __shared__ float wv[32];
   __shared__ int wi[32];

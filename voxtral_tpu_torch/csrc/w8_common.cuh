@@ -59,11 +59,29 @@ constexpr int kMmaSplit = 4;    // K parts (warps) of the w8 mma GEMV block
 // pdl_wait() returns once the predecessor has completed and its writes
 // are visible (at once in a grid launched without the attribute), so
 // everything a kernel reads or writes that a predecessor touches comes
-// after it; pdl_trigger() lets the successor launch.  K1 and K7
-// launch their chains this way (decode_step.cu, decode_layer.cu); K2 /
-// K4 / K5 launch plainly.
+// after it; pdl_trigger() lets the successor launch.  K1, K4 / K5 and
+// K7 launch their chains this way (decode_step.cu, decode_tp.cu with
+// tp_gemv.cu, decode_layer.cu); K2 launches plainly.  What a predecessor
+// writes (activation rows, their scales, residuals) is read with plain
+// loads through pointers that are not __restrict__, never with __ldg:
+// the compiler may treat a read-only load as invariant over the kernel
+// and hoist it above the wait (seen on the H100: a GEMV read the
+// attention's output before the attention ended).  A loop that wants
+// __ldg's read-only path takes its pointer from after_wait instead (the
+// GEMVs here, the folds and K1's stream do).
 __device__ __forceinline__ void pdl_wait() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// ``p`` as the output of an empty asm that stays after pdl_wait (both
+// volatile, with memory clobbers): every load through the result, __ldg
+// included, depends on it, so none is scheduled above the wait.  Call
+// it after pdl_wait.
+template <class T>
+__device__ __forceinline__ const T* after_wait(const T* p) {
+  unsigned long long v = reinterpret_cast<unsigned long long>(p);
+  asm volatile("" : "+l"(v)::"memory");
+  return reinterpret_cast<const T*>(v);
 }
 
 __device__ __forceinline__ void pdl_trigger() {
@@ -108,7 +126,7 @@ __device__ __forceinline__ float w8_epilogue(int acc, float sx, float sc) {
 // pieces nor R moves a bit.
 template <int M, int PRE = 0, int R = 1>
 __global__ void __launch_bounds__(256) w8_gemv_kernel(
-    const int8_t* __restrict__ xq, const float* __restrict__ sx,
+    const int8_t* xq, const float* sx,
     const int8_t* __restrict__ codes, const float* __restrict__ scale,
     const float* resid, float* out, int N, int K, bool vec) {
   const int lane = threadIdx.x & 31;
@@ -134,6 +152,7 @@ __global__ void __launch_bounds__(256) w8_gemv_kernel(
   }
   pdl_trigger();
   pdl_wait();
+  xq = after_wait(xq);  // the __ldg loads of the rows stay after the wait
   if (n0 >= N) return;  // whole warps leave together
   int acc[M][R];
 #pragma unroll
@@ -230,12 +249,13 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], int a0, int a1, int a2,
 // aligned rows; rows past M read zeros and are not written.
 template <int MT>
 __global__ void __launch_bounds__(32 * kMmaSplit) w8_gemv_mma_kernel(
-    const int8_t* __restrict__ xq, const float* __restrict__ sx,
+    const int8_t* xq, const float* sx,
     const int8_t* __restrict__ codes, const float* __restrict__ scale,
     const float* resid, float* out, int M, int N, int K) {
   __shared__ int part[kMmaSplit][MT * 4][32];
   pdl_trigger();
   pdl_wait();
+  xq = after_wait(xq);
   const int lane = threadIdx.x & 31, kp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int n0 = blockIdx.x * 8;
@@ -404,9 +424,11 @@ __device__ __forceinline__ void g32_preload(const int8_t* __restrict__ codes,
   }
 }
 
+// xq is read with __ldg: a caller after pdl_wait passes it through
+// after_wait.
 template <int M, int PRE = 0>
 __device__ __forceinline__ void g32_row_dots(
-    const int8_t* __restrict__ xq, const int8_t* __restrict__ codes,
+    const int8_t* xq, const int8_t* __restrict__ codes,
     const __half* __restrict__ gscale, int n, int K, int lane,
     double (&acc)[M], const int4 (&pw)[PRE > 0 ? PRE : 1],
     const double (&ps)[PRE > 0 ? PRE : 1]) {
@@ -424,7 +446,8 @@ __device__ __forceinline__ void g32_row_dots(
 #pragma unroll
     for (int m = 0; m < M; ++m) {
       const int4 xv =
-          in ? __ldg(reinterpret_cast<const int4*>(xq + static_cast<size_t>(m) * K) + i)
+          in ? __ldg(reinterpret_cast<const int4*>(
+                         xq + static_cast<size_t>(m) * K) + i)
              : zero;
       int a = 0;
       a = __dp4a(wv.x, xv.x, a);
@@ -450,7 +473,7 @@ __device__ __forceinline__ void g32_row_dots(
 
 template <int M>
 __device__ __forceinline__ void g32_row_dots(
-    const int8_t* __restrict__ xq, const int8_t* __restrict__ codes,
+    const int8_t* xq, const int8_t* __restrict__ codes,
     const __half* __restrict__ gscale, int n, int K, int lane,
     double (&acc)[M]) {
   const int4 pw[1] = {make_int4(0, 0, 0, 0)};
@@ -462,7 +485,7 @@ __device__ __forceinline__ void g32_row_dots(
 // epilogue float(sum) * sx[m] (+ resid).
 template <int M, int PRE = 0>
 __global__ void __launch_bounds__(256) g32_gemv_kernel(
-    const int8_t* __restrict__ xq, const float* __restrict__ sx,
+    const int8_t* xq, const float* sx,
     const int8_t* __restrict__ codes, const __half* __restrict__ gscale,
     const float* resid, float* out, int N, int K) {
   const int lane = threadIdx.x & 31;
@@ -473,6 +496,7 @@ __global__ void __launch_bounds__(256) g32_gemv_kernel(
                                           lane, pw, ps);
   pdl_trigger();
   pdl_wait();
+  xq = after_wait(xq);  // g32_row_dots reads it with __ldg
   if (n >= N) return;  // whole warps leave together
   double acc[M];
   g32_row_dots<M, PRE>(xq, codes, gscale, n, K, lane, acc, pw, ps);
@@ -496,9 +520,12 @@ __global__ void __launch_bounds__(256) g32_gemv_kernel(
 // (fresh each group) takes the group's scale before the f64 sum.
 template <int MT>
 __global__ void __launch_bounds__(32 * kMmaWarps) g32_gemv_mma_kernel(
-    const int8_t* __restrict__ xq, const float* __restrict__ sx,
+    const int8_t* xq, const float* sx,
     const int8_t* __restrict__ codes, const __half* __restrict__ gscale,
     const float* resid, float* out, int M, int N, int K) {
+  pdl_trigger();
+  pdl_wait();
+  xq = after_wait(xq);
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int n0 = (blockIdx.x * kMmaWarps + (threadIdx.x >> 5)) * 8;
@@ -568,28 +595,28 @@ __global__ void __launch_bounds__(32 * kMmaWarps) g32_gemv_mma_kernel(
 
 // g32 GEMV: the row counts of launch_w8_gemv (mma for 8 < M <= 64, dp4a
 // in groups of 8 rows otherwise).  Needs K % 32 == 0, aligned rows.
-inline void launch_g32_gemv(const int8_t* xq, const float* sx,
-                            const int8_t* codes, const __half* gscale,
-                            const float* resid, float* out, int M, int N,
-                            int K, cudaStream_t st) {
+// ``pdl``: each launch a programmatic dependent one (K4 / K5's chains).
+inline cudaError_t launch_g32_gemv(const int8_t* xq, const float* sx,
+                                   const int8_t* codes, const __half* gscale,
+                                   const float* resid, float* out, int M,
+                                   int N, int K, cudaStream_t st,
+                                   bool pdl = false) {
   if (M > kDp4aMaxM && M <= kGemvMaxM) {
     const dim3 grid((N + 8 * kMmaWarps - 1) / (8 * kMmaWarps));
     const dim3 block(32 * kMmaWarps);
     switch ((M + 15) / 16) {
-#define VX_G32_MMA_CASE(MT)                                             \
-  case MT:                                                              \
-    g32_gemv_mma_kernel<MT><<<grid, block, 0, st>>>(xq, sx, codes, gscale, \
-                                                    resid, out, M, N, K); \
-    break;
+#define VX_G32_MMA_CASE(MT)                                                \
+  case MT:                                                                 \
+    return launch_pdl(g32_gemv_mma_kernel<MT>, grid, block, 0, st, pdl, xq, \
+                      sx, codes, gscale, resid, out, M, N, K);
       VX_G32_MMA_CASE(1)
       VX_G32_MMA_CASE(2)
       VX_G32_MMA_CASE(3)
       VX_G32_MMA_CASE(4)
 #undef VX_G32_MMA_CASE
       default:
-        break;
+        return cudaErrorInvalidValue;
     }
-    return;
   }
   const dim3 grid((N + kGemvWarps - 1) / kGemvWarps);
   const dim3 block(32 * kGemvWarps);
@@ -599,11 +626,12 @@ inline void launch_g32_gemv(const int8_t* xq, const float* sx,
     const float* s = sx + m0;
     const float* r = resid ? resid + static_cast<size_t>(m0) * N : nullptr;
     float* o = out + static_cast<size_t>(m0) * N;
+    cudaError_t e = cudaErrorInvalidValue;
     switch (mr) {
-#define VX_G32_CASE(MM)                                                    \
-  case MM:                                                                 \
-    g32_gemv_kernel<MM><<<grid, block, 0, st>>>(x, s, codes, gscale, r, o, \
-                                                N, K);                     \
+#define VX_G32_CASE(MM)                                                   \
+  case MM:                                                                \
+    e = launch_pdl(g32_gemv_kernel<MM>, grid, block, 0, st, pdl, x, s,    \
+                   codes, gscale, r, o, N, K);                            \
     break;
       VX_G32_CASE(1)
       VX_G32_CASE(2)
@@ -617,7 +645,9 @@ inline void launch_g32_gemv(const int8_t* xq, const float* sx,
       default:
         break;
     }
+    if (e != cudaSuccess) return e;
   }
+  return cudaSuccess;
 }
 
 }  // namespace

@@ -48,6 +48,14 @@ checks what the card refuses (the attention block's shared memory, the
 chunk, the ring, the shard divisibility) and, for q4g, JAX's g32 gate
 (:func:`check_tp_q4g`).
 
+K4 and K5 each go out as one chain of programmatic dependent launches
+(:data:`TP_PDL`); where each linear quantizes its input rows (in its
+GEMV's prologue, or a row kernel before it), whether K5's w13 puts the
+SwiGLU in its epilogue and which GEMV each runs is
+:func:`tp_gemv_plan`'s, per weight format, row count and linear
+(``csrc/tp_gemv.cu``).  The scratch of a call is kept per device,
+stream and shape (:func:`_scratch`).
+
 What bounds the kernels on the H100 at tp = 2, full width, one row:
 K4 the layer's 15.73 MB of local weights (16.71 MB of g32 codes and
 scales) and the visible slots of the local cache (bf16, or int8 codes
@@ -61,6 +69,7 @@ correctness, not tensor parallelism's speed.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -355,12 +364,102 @@ def lm_half_argmax_plain(x, final_norm, lm_scale_l, lm_codes_l, *,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
+# Whether K4 and K5 launch their kernels as programmatic dependent
+# launches (True), or in plain stream order (False: the same kernels, for
+# a breakdown by launch class, benches/torch_tp_times.py --breakdown).
+TP_PDL = True
+
+# Plan bits of one linear of K4 / K5 (csrc/tp_gemv.cu::tp_linear).
+PLAN_FUSED = 1       # the GEMV quantizes its input rows itself
+PLAN_PAIR = 2        # two weight rows a warp (w8, up to 2 rows)
+PLAN_MMA = 4         # the split-K int8 tensor-core GEMV (w8, up to 16 rows)
+PLAN_AHEAD = 8       # the linear's first launch goes ahead of its predecessor
+PLAN_GEMV_AHEAD = 16  # the GEMV after a row kernel goes ahead of it
+PLAN_SWIGLU = 32     # w13 puts the SwiGLU in its epilogue (w8 up to 8
+                     # rows, g32 up to 4)
+# The linears of the halves, in launch order: K4's, then K5's.
+TP_LINEARS = ("qkv", "wo", "w13", "w2")
+
+
+def tp_gemv_plan(fmt: str, rows: int, linear: str) -> int:
+    """The plan bits of one linear of K4 / K5 (csrc/tp_gemv.cu): weight
+    format ``fmt`` ("w8" / "g32"), ``rows`` activation rows, ``linear``
+    one of TP_LINEARS (its shard's shape: wqkv_l 3072 x 3072, wo_l 3072 x
+    2048, w13_l 9216 x 3072, w2_l 3072 x 4608 at tp = 2).  From the sweep of
+    benches/torch_tp_times.py --plans on the H100 (PERF.md):
+
+    * qkv and w13 follow a PyTorch kernel (the residual add): the row
+      kernel and the GEMV both go ahead; w13 in w8 up to 8 rows and in
+      g32 at 2-4 rows puts the SwiGLU in its epilogue (a warp on a gate
+      row and its up row), so w2's row needs no gate (g32 at 1 and 8
+      rows measured slower so);
+    * at one w8 row wo and w2 quantize their input row themselves, their
+      weights streaming under the attention or w13; wo takes two weight
+      rows a warp there and at 2 rows, the split-K tensor-core GEMV at 8;
+      w2 after a gated w13 launches its row kernel ahead;
+    * otherwise wo and w2 start their row kernel after the predecessor
+      ends and launch the GEMV ahead of it.
+
+    K4's attention stays in stream order after the qkv GEMV (launched
+    ahead, as K1 launches it, it measured slower).  The kernel library
+    keeps only the routes this rule returns; the sweep lives in the
+    bench.
+    """
+    if fmt not in ("w8", "g32") or linear not in TP_LINEARS or rows < 1:
+        raise ValueError(f"tp_gemv_plan: no plan for {fmt} {linear} at "
+                         f"{rows} rows")
+    ahead = PLAN_AHEAD | PLAN_GEMV_AHEAD
+    w8 = fmt == "w8"
+    if linear == "qkv":
+        return ahead
+    gated = rows <= 8 if w8 else 2 <= rows <= 4
+    if linear == "w13":
+        return ahead | (PLAN_SWIGLU if gated else 0)
+    if w8 and rows == 1:
+        return PLAN_FUSED | PLAN_AHEAD | (PLAN_PAIR if linear == "wo" else 0)
+    if w8 and linear == "wo" and rows in (2, 8):
+        return ahead | (PLAN_PAIR if rows == 2 else PLAN_MMA)
+    if linear == "w2" and gated:
+        return ahead
+    return PLAN_GEMV_AHEAD
+
+
+# Scratch buffers of the halves, one set per (device, stream, shape):
+# the kernels of one stream run in order, so a call may reuse the
+# previous call's scratch.  A CUDA graph captured on a stream keeps that
+# stream's set, so the graphs captured on one stream share it: replay
+# one of them at a time.
+_SCRATCH: dict = {}
+
+
+def _scratch(dev, stream: int, key: tuple, specs: tuple) -> tuple:
+    """The tensors of ``specs`` ((shape, dtype), ...) for ``key`` on
+    ``dev`` / ``stream``, allocated once.  Safe in stream order only:
+    two CUDA graphs captured on one stream hold the same tensors, so
+    they must not replay at once."""
+    got = _SCRATCH.get((dev, stream, key))
+    if got is None:
+        got = tuple(torch.empty(shape, dtype=dt, device=dev)
+                    for shape, dt in specs)
+        _SCRATCH[(dev, stream, key)] = got
+    return got
+
+
+@functools.cache
+def _entry(name: str):
+    """The C entry points of the halves, their ctypes signatures set."""
+    sigs = {"vx_attn_half_step": [_P, _P, _I] + [_P] * 18 + [_I] * 14
+            + [_F, _F] + [_I] * 3 + [_P],
+            "vx_ffn_half_step": [_P, _P, _I] + [_P] * 9 + [_I] * 4
+            + [_F] + [_I] * 3 + [_P]}
+    return kernel_fn(name, sigs[name])
+
 
 def _expect(fn: str, dev, specs: dict) -> None:
     """ValueError unless each tensor has its dtype and shape, lies on
     ``dev`` and is contiguous."""
     for name, (t, dtype, shape) in specs.items():
-        if t is None or t.dtype != dtype or tuple(t.shape) != shape:
+        if t is None or t.dtype != dtype or t.shape != shape:
             raise ValueError(
                 f"{fn}: {name} must be {dtype} {shape}, got "
                 f"{None if t is None else (t.dtype, tuple(t.shape))}")
@@ -477,18 +576,16 @@ def attn_half_step(x, layer: int, offsets, attn_norm, sqkv, so, cos_b,
     if g32:
         _g32_ready("attn_half_step", {"D": D, "nq_l": nq},
                    {"wqkv": wqkv, "wo": wo, "sqkv": sqkv, "so": so})
+    fmt = "g32" if g32 else "w8"
     y = torch.empty((B, D), dtype=f32, device=dev)
-    k_new = torch.empty((B, n_kv_l, head_dim), dtype=torch.bfloat16,
-                        device=dev)
-    v_new = torch.empty_like(k_new)
-    xq = torch.empty((B, max(D, nq)), dtype=torch.int8, device=dev)
-    sx = torch.empty((B,), dtype=f32, device=dev)
-    qkv = torch.empty((B, nq + 2 * nkv), dtype=f32, device=dev)
-    att = torch.empty((B, nq), dtype=f32, device=dev)
+    k_new, v_new = torch.empty((2, B, n_kv_l, head_dim),
+                               dtype=torch.bfloat16, device=dev).unbind(0)
     with torch.cuda.device(dev):
-        fn = kernel_fn("vx_attn_half_step", [_P, _P, _I] + [_P] * 18
-                       + [_I] * 14 + [_F, _F, _P])
-        code = fn(
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        xq, sx, qkv, att = _scratch(dev, stream, ("K4", B, D, nq, nkv), (
+            ((B, max(D, nq)), torch.int8), ((B,), f32),
+            ((B, nq + 2 * nkv), f32), ((B, nq), f32)))
+        code = _entry("vx_attn_half_step")(
             x.data_ptr(), y.data_ptr(), layer, attn_norm.data_ptr(),
             sqkv.data_ptr(), so.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(),
             k_cache_l.data_ptr(), v_cache_l.data_ptr(),
@@ -502,7 +599,8 @@ def attn_half_step(x, layer: int, offsets, attn_norm, sqkv, so, cos_b,
             -1 if window is None else int(window),
             0 if ring is None else ring[0], 0 if ring is None else ring[1],
             cache_chunk or 0, int(g32), eps, head_dim ** -0.5,
-            torch.cuda.current_stream(dev).cuda_stream)
+            tp_gemv_plan(fmt, B, "qkv"), tp_gemv_plan(fmt, B, "wo"),
+            int(TP_PDL), stream)
     check(code, "attn_half_step")
     attn_half_step.launches += 1
     attn_half_step.g32_launches += int(g32)
@@ -548,18 +646,19 @@ def ffn_half_step(x, layer: int, ffn_norm, ada_vec, s13, s2, w13, w2, *,
     if g32:
         _g32_ready("ffn_half_step", {"D": D, "F_l": F},
                    {"w13": w13, "w2": w2, "s13": s13, "s2": s2})
+    fmt = "g32" if g32 else "w8"
     z = torch.empty((B, D), dtype=f32, device=dev)
-    xq = torch.empty((B, max(D, F)), dtype=torch.int8, device=dev)
-    sx = torch.empty((B,), dtype=f32, device=dev)
-    up = torch.empty((B, 2 * F), dtype=f32, device=dev)
     with torch.cuda.device(dev):
-        fn = kernel_fn("vx_ffn_half_step", [_P, _P, _I] + [_P] * 9
-                       + [_I] * 4 + [_F, _P])
-        code = fn(x.data_ptr(), z.data_ptr(), layer, ffn_norm.data_ptr(),
-                  ada_vec.data_ptr(), s13.data_ptr(), s2.data_ptr(),
-                  w13.data_ptr(), w2.data_ptr(), xq.data_ptr(), sx.data_ptr(),
-                  up.data_ptr(), B, D, F, int(g32), eps,
-                  torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        xq, sx, up = _scratch(dev, stream, ("K5", B, D, F), (
+            ((B, max(D, F)), torch.int8), ((B,), f32), ((B, 2 * F), f32)))
+        code = _entry("vx_ffn_half_step")(
+            x.data_ptr(), z.data_ptr(), layer, ffn_norm.data_ptr(),
+            ada_vec.data_ptr(), s13.data_ptr(), s2.data_ptr(),
+            w13.data_ptr(), w2.data_ptr(), xq.data_ptr(), sx.data_ptr(),
+            up.data_ptr(), B, D, F, int(g32), eps,
+            tp_gemv_plan(fmt, B, "w13"), tp_gemv_plan(fmt, B, "w2"),
+            int(TP_PDL), stream)
     check(code, "ffn_half_step")
     ffn_half_step.launches += 1
     ffn_half_step.g32_launches += int(g32)
