@@ -23,10 +23,16 @@ over each table) one ``decode_stack_step`` is held bit-equal to
 Beside the bf16 cases, ``torch.matmul`` of the bf16 operands at the
 step's GEMV shapes (f32 sums in hardware order, bf16 out), summed over a
 step: a yardstick of the bytes, not the same function (no single PyTorch
-call sums the products in f64).  ``--breakdown`` adds, for modes (a) at 1
-row and (g) at 1 and 8 rows, the device time of each launch class summed
+call sums the products in f64).  ``--breakdown`` adds, for the cases of
+``BREAKDOWN``, the device time of each launch class summed
 over a step (``chip_smoke.k1_breakdown``: ``torch.profiler``, in plain
-stream order where the tree launches ahead).
+stream order where the tree launches ahead; its ``gemv_launches_per_step``
+counts the lm fold's table passes too).  ``--plans`` times each g32
+case once more on each g32 route, every linear of the step on the
+earlier GEMVs and folds or on the weight stream
+(``chip_smoke.g32_routes_ms``, trees with ``decode_step.STREAM_MIN_ROWS``),
+each held bit-equal first: the sweep behind the rule's g32 row
+threshold.
 
 Prints the card's name and power limit, then one JSON object a case.
 Exits non-zero without a CUDA device or when a case is not bit-equal.
@@ -52,7 +58,12 @@ CASES = {
     "(b) w8 64 rows": ("w8", SPREAD, 8, False),
     "(c) w8 4 rows": ("w8", ROWS4, 1, False),
     "(h) g32 1 row": ("g32", 235, 1, False),
+    "(h) g32 2 rows": ("g32", [235], 2, False),
+    "(h) x (c) g32 4 rows": ("g32", ROWS4, 1, False),
+    "(h) g32 5 rows": ("g32", [235], 5, False),
+    "(h) g32 6 rows": ("g32", [235], 6, False),
     "(h) g32 8 rows": ("g32", [235], 8, False),
+    "(h) g32 64 rows": ("g32", SPREAD, 8, False),
     "(g) bf16 1 row": ("bf16", 235, 1, False),
     "(g) x (c) bf16 4 rows": ("bf16", ROWS4, 1, False),
     "(g) bf16 8 rows": ("bf16", [235], 8, False),
@@ -67,7 +78,8 @@ CASES = {
     "(i) bf16 8 rows": ("bf16", [235], 8, True),
     "(i) bf16 12 rows": ("bf16", [235], 12, True),
 }
-BREAKDOWN = ("(a) w8 1 row", "(g) bf16 1 row", "(g) bf16 8 rows")
+BREAKDOWN = ("(a) w8 1 row", "(g) bf16 1 row", "(g) bf16 8 rows",
+             "(h) g32 8 rows", "(i) g32 12 rows")
 
 
 def stacks(fmt: str, cfg, dev, seed: int = 0) -> dict:
@@ -173,6 +185,8 @@ def main() -> int:
                         BREAKDOWN))
     ap.add_argument("--only", nargs="*", default=None,
                     help="case names to run (default: all)")
+    ap.add_argument("--plans", action="store_true",
+                    help="time the g32 cases on each g32 route")
     ap.add_argument("--pdl", type=int, default=None, choices=(0, 1),
                     help="decode_step.K1_PDL for a tree that has it: 1 "
                          "programmatic dependent launches, 0 plain stream "
@@ -249,6 +263,8 @@ def main() -> int:
                 line["breakdown"] = cs.k1_breakdown(call, cfg.n_layers)
                 if pdl is not None:
                     k1.K1_PDL = pdl
+            if args.plans and fmt == "g32" and hasattr(k1, "STREAM_MIN_ROWS"):
+                line["plans"] = cs.g32_routes_ms(call, ref, reps=10, iters=5)
             print(json.dumps(line), flush=True)
             del got, ref, pos
         del w

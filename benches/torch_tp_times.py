@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""K4's and K5's times at full width, tp = 2, for one tree of the PyTorch
+"""K4's, K5's and K6's times at full width, tp = 2, for one tree of the PyTorch
 port, on one GPU.
 
     python3 benches/torch_tp_times.py [--root DIR] [--label NAME]
@@ -12,8 +12,9 @@ parent, unpacked with ``git archive``) run in one call in turns are timed
 by one yardstick.  The weights are random local stacks of one shard at
 tp = 2 (16 query and 4 kv heads, 4608 hidden rows), 26 layers made on
 the card from a seed, layer 25 read: w8 codes with f32 row scales, or
-g32 codes with f16 group scales.  Per case (``CASES``) one
-``attn_half_step`` (K4) or ``ffn_half_step`` (K5) is held bit-equal to
+g32 codes with f16 group scales; K6 reads a random vocab shard of 65536
+rows (``lm_shard``).  Per case (``CASES``) one ``attn_half_step`` (K4),
+``ffn_half_step`` (K5) or ``lm_half_argmax`` (K6) is held bit-equal to
 its plain version (``torch.equal``), then timed
 
 * on the device: 20 calls captured in a CUDA graph, the graph replayed
@@ -28,14 +29,18 @@ The cases: K4 at 1 row over S = 151 and 194 bounded slots, 8 spec rows
 over 158, four streams of one row over 151 (a B = 4 pool's step), and
 the four-stream cache modes of ``chip_smoke.K4_MODE_CASES`` ((d)
 head+ring, (e) int8, (f) chunked bounded and on the grown ring); K5 at
-1, 4 and 8 rows; each in w8 and g32.  ``--breakdown`` adds, per case,
+1, 4 and 8 rows; K6 at 1, 2, 5 and 8 rows; each in w8 and g32.
+``--breakdown`` adds, per case,
 the device ms of each launch class summed over a call
 (``torch.profiler``: the row kernels, the GEMVs by launch order, the
 attention), in plain stream order where the tree has the switch
 (``ops.decode_tp.TP_PDL``), and the call in a CUDA graph both ways.
 ``--plans`` times each case at 1-8 rows once more under each plan of
 ``PLANS`` forced on ``ops.decode_tp.tp_gemv_plan`` (trees that have it;
-by ``graph_ms_add``): the sweep behind that rule.  It sweeps the routes
+by ``graph_ms_add``): the sweep behind that rule; and each g32 K6 case
+on its two routes (the fold of ``csrc/lm_argmax.cuh``, K1's weight
+stream; ``chip_smoke.g32_routes_ms``, trees with
+``ops.decode_step.STREAM_MIN_ROWS``).  It sweeps the routes
 the kernel library keeps; a plan bit the shape cannot take runs the row
 route, so such a plan times the same kernels as another.
 
@@ -83,6 +88,31 @@ for _fmt in ("w8", "g32"):
     for _rows in (1, 4, 8):
         CASES[f"K5 {_fmt} {_rows} rows"] = ("K5", _fmt, 0, 0, _rows, None,
                                             False, None, None)
+    for _rows in (1, 2, 5, 8):
+        CASES[f"K6 {_fmt} {_rows} rows"] = ("K6", _fmt, 0, 0, _rows, None,
+                                            False, None, None)
+VOCAB_SHARD = 65536  # K6's rows: half of the 131072-row table at tp = 2
+
+
+def lm_shard(fmt: str, cfg, dev, seed: int = 5) -> dict:
+    """A random vocab shard of VOCAB_SHARD rows on the card: int8 codes
+    (g32: the Q4_0 range [-8, 7]) with f32 row scales or f16 group
+    scales, and a final norm."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    D = cfg.dim
+    lo, hi = (-8, 8) if fmt == "g32" else (-127, 128)
+    codes = torch.randint(lo, hi, (VOCAB_SHARD, D), dtype=torch.int8,
+                          device=dev, generator=gen)
+    if fmt == "g32":
+        scale = (torch.rand((VOCAB_SHARD, D // 32), device=dev,
+                            generator=gen) * 2e-3 + 1e-4).half()
+    else:
+        scale = torch.rand((VOCAB_SHARD,), device=dev,
+                           generator=gen) * 4e-4 + 1e-5
+    norm = 1 + 0.1 * torch.randn((D,), device=dev, generator=gen).abs()
+    return {"lm_codes": codes, "lm_scale": scale, "final_norm": norm}
 
 
 def load(name: str, path: Path):
@@ -104,6 +134,14 @@ def case_call(cs, ck, name: str, w: dict, cfg, dev, ktp, seed: int):
     D, hd = cfg.dim, cfg.head_dim
     nh, nkv = cfg.n_heads // TP, cfg.n_kv_heads // TP
     gen = torch.Generator(device=dev).manual_seed(seed)
+    if kern == "K6":
+        x = torch.randn((spec, D), device=dev, generator=gen)
+        pos = (x, w["final_norm"], w["lm_scale"], w["lm_codes"])
+        moved = cs.nbytes(*pos[1:]) + cs.nbytes(x) + spec * 8
+        ops = 2 * spec * w["lm_codes"].numel()
+        return (lambda: ktp.lm_half_argmax(*pos, eps=cfg.norm_eps),
+                lambda: ktp.lm_half_argmax_plain(*pos, eps=cfg.norm_eps),
+                moved, ops, x)
     if kern == "K5":
         x = torch.randn((spec, D), device=dev, generator=gen)
         pos = (x, LAYER, w["ffn_norm"], w["ada"], w["s13"], w["s2"],
@@ -146,6 +184,7 @@ def run(cs, cfg, dev, card, label, names, want_breakdown,
         want_plans) -> bool:
     import torch
 
+    from voxtral_tpu_torch.ops import decode_step as k1
     from voxtral_tpu_torch.ops import decode_tp as ktp
 
     ck = load("torch_chunk_times", REPO / "benches" / "torch_chunk_times.py")
@@ -155,17 +194,21 @@ def run(cs, cfg, dev, card, label, names, want_breakdown,
         if not todo:
             continue
         w = cs.tp_stacks(fmt, cfg, dev)
+        if any(CASES[n][0] == "K6" for n in todo):
+            w.update(lm_shard(fmt, cfg, dev))
         for i, name in enumerate(todo):
             kern, _, S, offs, spec = CASES[name][:5]
             half, plain, moved, ops, x = case_call(cs, ck, name, w, cfg, dev,
                                                    ktp, seed=70 + i)
             res = torch.empty_like(x)
 
-            def call(half=half, x=x, res=res):
+            def call(half=half, x=x, res=res, kern=kern):
                 # The half, then the residual add a decode step puts
-                # after it (a PyTorch kernel between two halves).
+                # after it (a PyTorch kernel between two halves; none
+                # after K6).
                 out = half()
-                torch.add(x, out[0], out=res)
+                if kern != "K6":
+                    torch.add(x, out[0], out=res)
                 return out
 
             got = call()
@@ -192,7 +235,11 @@ def run(cs, cfg, dev, card, label, names, want_breakdown,
                 line["breakdown"] = cs.tp_breakdown(half, kern)
                 if pdl is not None:
                     ktp.TP_PDL = pdl
-            if want_plans and hasattr(ktp, "tp_gemv_plan") and \
+            if want_plans and kern == "K6":
+                if fmt == "g32" and hasattr(k1, "STREAM_MIN_ROWS"):
+                    line["plans"] = cs.g32_routes_ms(call, ref,
+                                                     ("fold", "stream"))
+            elif want_plans and hasattr(ktp, "tp_gemv_plan") and \
                     got[0].shape[0] <= 8:
                 line["plans"] = sweep(cs, ktp, call, plain, kern)
             print(json.dumps(line), flush=True)
@@ -257,7 +304,7 @@ def main() -> int:
     ap.add_argument("--root", type=Path, default=REPO,
                     help="tree to import voxtral_tpu_torch from")
     ap.add_argument("--label", default="tree", help="name in each line")
-    ap.add_argument("--only", choices=("k4", "k5"), default=None,
+    ap.add_argument("--only", choices=("k4", "k5", "k6"), default=None,
                     help="one kernel's cases (default: both)")
     ap.add_argument("--case", nargs="*", default=None,
                     help="case names to run (default: all)")

@@ -38,7 +38,11 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              device (a CUDA graph of 20 calls) and called from the host.
 5. q4g     — full-width random Q4_0 weights, unpacked (codes + f16 group
              scales): K1 mode (h) against its plain version at 1 row,
-             spec=8 at 8 and 64 rows and mode (c) at 4 rows; the main
+             spec=8 at 8 and 64 rows and mode (c) at 4 rows; K1's g32
+             weight stream alone (k1_linear) on layer 0's four linears and
+             the lm table at 2, 8 and 64 rows and its fold at 12 rows,
+             bit for bit against g32_matmul_plain, the lm table timed
+             beside its bound (check_g32_stream); the main
              path sequential and with speculative=8 + ngram drafts
              (tokens == plain path; spec == sequential; K1 launches ==
              steps, then passes).
@@ -176,7 +180,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              plain argmax over the whole table).  The 16 s chirp on a
              tp = 2 mesh, sequential (K4 == K5 == 52 x steps, K6 == 2 x
              steps, no K1) and speculative=8 ngram (== sequential), the
-             plain TP side on its first 8 s (== kernels), the TP tokens
+             plain TP side on its first 6 s (== kernels), the TP tokens
              against the single card's (ROADMAP §3's rule); two chirps on
              dp = 2 (== the single card's batch exactly; K1 (i) launches
              == 2 x steps) and on 2 x 2 (== tp = 2 on the batch), each
@@ -274,6 +278,7 @@ line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import subprocess
@@ -298,6 +303,7 @@ HBM_BPS = 3.35e12
 INT8_OPS = 1979e12
 BF16_FLOPS = 989e12
 F64_TC_FLOPS = 67e12  # the f64 tensor cores (DMMA)
+F64_FLOPS = 34e12     # f64 outside the tensor cores (an fma is two)
 
 # K2: the int32 sum is exact and both versions apply (z * sx) * scale in
 # f32, so they must agree to the last bit; the bound is the one the port
@@ -1436,6 +1442,7 @@ def run_q4g(tree, cfg, dev, card, sig, tok, n_tok):
     plain.fused_decode = model.fused_decode
     torch.cuda.synchronize()
     k1h = check_k1_modes(model, dev, card)
+    k1h["stream"] = check_g32_stream(model, dev, card)
 
     pipe = TranscribePipeline(model, tok)
     wall, launches, peak, chunks = counted_run(pipe, sig, dev)
@@ -1493,6 +1500,138 @@ def run_q4g(tree, cfg, dev, card, sig, tok, n_tok):
     return dict(k1=k1h, launches=launches, spec_launches=s_launch,
                 passes=passes, model=model, plain=plain, tokens=tokens,
                 margins=margins)
+
+
+@contextlib.contextmanager
+def g32_stream_from(rows: int):
+    """Inside the block, ops.decode_step's g32 stream is taken from
+    ``rows`` rows (``STREAM_MIN_ROWS["g32"]``, the plan cache cleared on
+    the way in and out).  Shared with benches/torch_k1_times.py and
+    benches/torch_tp_times.py."""
+    from voxtral_tpu_torch.ops import decode_step as k1
+
+    rule = k1.STREAM_MIN_ROWS["g32"]
+    k1.STREAM_MIN_ROWS["g32"] = rows
+    k1.stream_plan.cache_clear()
+    try:
+        yield
+    finally:
+        k1.STREAM_MIN_ROWS["g32"] = rule
+        k1.stream_plan.cache_clear()
+
+
+def g32_routes_ms(call, ref, names=("gemv", "stream"), **graph_kw) -> dict:
+    """Device ms of ``call`` on each g32 route, the earlier kernels
+    (``names[0]``: the stream never) and the stream from one row
+    (``names[1]``), each held bit-equal to ``ref`` first: {route: ms, or
+    "not bit-equal"}.  The sweep behind ``STREAM_MIN_ROWS["g32"]``."""
+    import torch
+
+    from voxtral_tpu_torch.ops import decode_step as k1
+
+    out = {}
+    for name, rows in zip(names, (k1.STREAM_MAX_M + 1, 1)):
+        with g32_stream_from(rows):
+            got = call()
+            torch.cuda.synchronize()
+            out[name] = (graph_ms(call, **graph_kw)
+                         if all(torch.equal(g, r) for g, r in zip(got, ref))
+                         else "not bit-equal")
+    return out
+
+
+# K1's g32 weight stream alone (check_g32_stream): the row counts of its
+# linears, and of its fold over the lm table (12: two 8-row tiles, one
+# table pass).
+G32_STREAM_ROWS = (2, SPEC_K, 64)
+G32_FOLD_ROWS = 12
+
+
+def check_g32_stream(model, dev, card) -> dict:
+    """K1's g32 weight stream alone (``k1_linear``, as the step launches
+    it) on the q4g model's layer-0 linears (qkv, wo, w13, w2) and its lm
+    table at G32_STREAM_ROWS rows, each bit for bit against
+    ``k1_linear_plain`` (the stream's plan checked to take the shape);
+    the lm table timed beside its plain version and its bound; then the
+    fold over the lm table at G32_FOLD_ROWS rows (one pass: 12 <= 64),
+    the token == the plain argmax.  Below ``STREAM_MIN_ROWS["g32"]`` rows
+    (the main path's dp4a GEMV there) the stream is forced for the check.
+    -> {rows: times, "fold": times, "err": 0.0}."""
+    import torch
+
+    from voxtral_tpu_torch.ops import decode_step as k1
+
+    fused = model.fused_decode
+    _, lm_codes, lm_scale = lm_fold(model)
+    linears = {name: (fused[name][0], fused[s][0]) for name, s in
+               (("wqkv", "sqkv"), ("wo", "so"), ("w13", "s13"),
+                ("w2", "s2"))}
+    linears["lm table"] = (lm_codes, lm_scale)
+    sms = k1._sm_count(dev.index or 0)
+    out = {"err": 0.0}
+    with g32_stream_from(min(k1.STREAM_MIN_ROWS["g32"],
+                             min(G32_STREAM_ROWS))):
+        _g32_stream_cases(k1, linears, lm_codes, lm_scale, sms, dev, card,
+                          out)
+    print(f"K1 g32 stream bounds (bytes, int8 and f64 operations) [{card}]: "
+          + ", ".join(f"{r} rows {out[r][2]:.4f} ms ({out[r][3]})"
+                      for r in G32_STREAM_ROWS)
+          + f", fold {out['fold'][2]:.4f} ms", flush=True)
+    return out
+
+
+def _g32_stream_cases(k1, linears, lm_codes, lm_scale, sms, dev, card,
+                      out) -> None:
+    """check_g32_stream's cases, into ``out``."""
+    import torch
+
+    def operands(rows, k, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randint(-127, 128, (rows, k), dtype=torch.int8,
+                          device=dev, generator=gen)
+        sx = torch.rand(rows, device=dev, generator=gen) * 1e-2 + 1e-4
+        return x, sx
+
+    def bound_of(rows, w, sc, n_out):
+        # (bytes, int8 operations, the bound over bytes, the int8 and the
+        # f64 operations: an int32 -> f64 add and an fma a group).
+        moved = nbytes(w, sc) + rows * (w.shape[1] + 4) + n_out
+        groups = rows * w.shape[0] * (w.shape[1] // 32)
+        ops = 2 * rows * w.numel()
+        return moved, ops, max(bound(moved, ops, INT8_OPS),
+                               bound(moved, 3 * groups, F64_FLOPS))
+
+    for rows in G32_STREAM_ROWS:
+        for name, (w, sc) in linears.items():
+            if k1.stream_plan("g32", rows, *w.shape, sms) is None:
+                fail(f"K1 g32 stream: no plan for {name} {tuple(w.shape)} "
+                     f"at {rows} rows")
+            x, sx = operands(rows, w.shape[1], rows)
+            got = k1.k1_linear(x, w, sc, sx)
+            torch.cuda.synchronize()
+            if not torch.equal(got, k1.k1_linear_plain(x, w, sc, sx)):
+                fail(f"K1 g32 stream {name} at {rows} rows: not bit-equal "
+                     "to g32_matmul_plain")
+        x, sx = operands(rows, lm_codes.shape[1], rows)
+        moved, ops, (b_ms, b_by) = bound_of(rows, lm_codes, lm_scale,
+                                            rows * lm_codes.shape[0] * 4)
+        _, t = timed_kernel(
+            f"K1 g32 weight stream (k1_stream.cuh) rows={rows} lm table "
+            f"{tuple(lm_codes.shape)} (layer 0's linears bit-equal too)",
+            lambda: (k1.k1_linear(x, lm_codes, lm_scale, sx),),
+            lambda: (k1.k1_linear_plain(x, lm_codes, lm_scale, sx),),
+            moved, ops, card)
+        out[rows] = (t[0], t[1], b_ms, b_by, t[4])
+    rows = G32_FOLD_ROWS
+    x, sx = operands(rows, lm_codes.shape[1], rows)
+    moved, ops, (b_ms, b_by) = bound_of(rows, lm_codes, lm_scale, rows * 4)
+    _, t = timed_kernel(
+        f"K1 g32 stream fold rows={rows} over the lm table (one pass)",
+        lambda: (k1.k1_linear(x, lm_codes, lm_scale, sx, lm_argmax=True),),
+        lambda: (k1.lm_token_plain(k1.k1_linear_plain(x, lm_codes, lm_scale,
+                                                      sx)),),
+        moved, ops, card)
+    out["fold"] = (t[0], t[1], b_ms, b_by, t[4])
 
 
 def run_q4(tree, cfg, dev, card, sig, tok):
@@ -1791,6 +1930,12 @@ def stream_counters():
             "lm_half_argmax_g32": Share(ktp.lm_half_argmax, "g32_launches"),
             "decode_stack_step_lm_argmax_g32": Share(
                 step, "argmax_g32_launches"),
+            # K1's g32 steps on the weight stream and K6's g32 folds on
+            # it (from 5 rows): their own entries of the record.
+            "decode_stack_step_g32_stream": Share(step,
+                                                  "g32_stream_launches"),
+            "lm_half_argmax_g32_stream": Share(ktp.lm_half_argmax,
+                                               "stream_launches"),
             # K1 (i) over a bf16 table (phase 11d).
             "decode_stack_step_lm_argmax_bf16": Share(
                 step, "argmax_bf16_launches")}
@@ -3903,7 +4048,7 @@ def run_dense_mesh(model, plain, dev, card, sig, tok):
 # Phase 13: the meshed one-shot path (tp = 2, dp = 2, 2 x 2 on one card)
 # ---------------------------------------------------------------------------
 
-MESH_PLAIN_SECS = 8.0  # the plain TP side, held as a prefix
+MESH_PLAIN_SECS = 6.0  # the plain TP side, held as a prefix
 MESH_LAYER = 25
 # K4 at tp = 2 local shapes: (streams, rows a stream, S, offset of the
 # first stream; the others 30 slots apart).  S = 194 at offset 187 is the
@@ -5919,6 +6064,12 @@ def main() -> int:
                        ("q4g_dp2tp2_speculative_ngram", "attn_half_step_g32"),
                        ("q4g_dp2_sequential",
                         "decode_stack_step_lm_argmax_g32"),
+                       ("q4g_speculative_ngram",
+                        "decode_stack_step_g32_stream"),
+                       ("q4g_stream_speculative_pad",
+                        "decode_stack_step_g32_stream"),
+                       ("q4g_tp2_speculative_ngram",
+                        "lm_half_argmax_g32_stream"),
                        ("q4g_mesh_stream_tp2", "lm_half_argmax_g32"),
                        ("q4g_mesh_pool_tp2_int8", "attn_half_step_g32"),
                        ("q4g_mesh_pool_dp2", "decode_stack_step"),
@@ -5950,6 +6101,7 @@ def main() -> int:
     lm_shape = (1, 3072, 131072)
     k2t = w8["k2_times"][lm_shape]
     k1a, k1h = w8["k1"], q4g["k1"]
+    gs = k1h["stream"]
     d_t, hd_t = st_w8["k1_times"], st_q4g["k1_times"]
     k3t = k3_times[(1, 131072, 3072)]
     k7t413 = batched["k7_times"][(1, 413, 412)]
@@ -6196,6 +6348,35 @@ def main() -> int:
          "bound_ms": g6[2], "bound_by": g6[3], "library_ms": None,
          "host_called_ms": g6[4], "rows8_ms": g6s[0],
          "rows8_plain_ms": g6s[1], "rows8_bound_ms": g6s[2]},
+        # K1's g32 weight stream (from 5 rows, every linear and the lm
+        # fold of a q4g step) alone on the lm table: ms the device time
+        # (CUDA graph) at SPEC_K rows, rows{2,64}_ms, fold12_ms; launches
+        # the q4g K1 steps that took it.
+        {"name": "k1_stream_g32", "route": "cuda",
+         "source": "voxtral_tpu_torch/csrc/k1_stream.cuh",
+         "replaces": "voxtral_tpu/ops/decode_step_pallas.py:1654",
+         "modes": ["h", "i"],
+         "launches": launches("decode_stack_step_g32_stream")[0],
+         "launches_by_path": launches("decode_stack_step_g32_stream")[1],
+         "max_abs_err": gs["err"], "ms": gs[SPEC_K][0],
+         "plain_ms": gs[SPEC_K][1], "bound_ms": gs[SPEC_K][2],
+         "bound_by": gs[SPEC_K][3], "library_ms": None,
+         "host_called_ms": gs[SPEC_K][4],
+         **{f"rows{r}_{key}": gs[r][i] for r in G32_STREAM_ROWS
+            if r != SPEC_K
+            for i, key in ((0, "ms"), (1, "plain_ms"), (2, "bound_ms"))},
+         "fold12_ms": gs["fold"][0], "fold12_plain_ms": gs["fold"][1],
+         "fold12_bound_ms": gs["fold"][2]},
+        # K6's g32 fold on K1's weight stream (from 5 rows; phase 13d at
+        # SPEC_K rows, the planted ties included).
+        {"name": "lm_half_argmax_g32_stream", "route": "cuda",
+         "source": "voxtral_tpu_torch/csrc/k1_stream.cuh",
+         "replaces": "voxtral_tpu/ops/decode_tp_pallas.py:1349",
+         "launches": launches("lm_half_argmax_g32_stream")[0],
+         "launches_by_path": launches("lm_half_argmax_g32_stream")[1],
+         "max_abs_err": gq["k6_err"], "ms": g6s[0], "plain_ms": g6s[1],
+         "bound_ms": g6s[2], "bound_by": g6s[3], "library_ms": None,
+         "host_called_ms": g6s[4]},
         {"name": "q4_matmul", "route": "cuda",
          "source": "voxtral_tpu_torch/csrc/q4_matmul.cu",
          "replaces": "voxtral_tpu/ops/q4_pallas.py:150",

@@ -464,9 +464,11 @@ def test_megakernel_mode_and_q4g_geometry_match_jax(q4g_params):
         assert tdsp.q4g_geometry_ok(lm) == jdsp.q4g_geometry_ok(lm), dims
 
 
-def _g32_jax_and_port(q4g_params, inputs, offs, spec, window, ring=None):
+def _g32_jax_and_port(q4g_params, inputs, offs, spec, window, ring=None,
+                      lm_argmax=False):
     """(JAX interpret-mode outputs, port outputs) of one g32 step with the
-    g32 lm fold; offs None: mode (a), a scalar offset."""
+    g32 lm fold (``lm_argmax``: mode (i), the token); offs None: mode (a),
+    a scalar offset."""
     _, t_embed, k_cache, v_cache, _, _, _ = inputs
     offsets = [7] if offs is None else offs
     bc = len(offsets)
@@ -493,7 +495,8 @@ def _g32_jax_and_port(q4g_params, inputs, offs, spec, window, ring=None):
         jnp.asarray(sin), jnp.asarray(kc), jnp.asarray(vc),
         jf["wqkv"], jf["wo"], jf["w13"], jf["w2"],
         final_norm=jtree["norm"], lm_codes=jf["lm_codes"],
-        lm_scale=jf["lm_scale"], interpret=True, spec=spec, ring=ring, **kw)
+        lm_scale=jf["lm_scale"], interpret=True, spec=spec, ring=ring,
+        lm_argmax=lm_argmax, **kw)
     tp = params_from_numpy(q4g_params)
     tf = tdsp.fuse_decode_weights_q4g(tp)
     toff = (offsets[0] if offs is None
@@ -504,8 +507,39 @@ def _g32_jax_and_port(q4g_params, inputs, offs, spec, window, ring=None):
         tf["s2"], to_torch(cos), to_torch(sin), to_torch(kc), to_torch(vc),
         tf["wqkv"], tf["wo"], tf["w13"], tf["w2"],
         final_norm=tp["norm"], lm_codes=tf["lm_codes"],
-        lm_scale=tf["lm_scale"], spec=spec, ring=ring, **kw)
+        lm_scale=tf["lm_scale"], spec=spec, ring=ring, lm_argmax=lm_argmax,
+        **kw)
     return ref, got
+
+
+@pytest.mark.parametrize("offs,spec", [
+    ([5, 11], 1),                    # 2 rows
+    ([5, 11], 4),                    # 8 rows
+    ([5, 11, 7], 4),                 # 12 rows: two 8-row tiles
+    ([2, 3, 4, 5, 6, 7, 8, 8], 8),   # 64 rows: one weight pass
+], ids=["2 rows", "8 rows", "12 rows", "64 rows"])
+@pytest.mark.parametrize("lm_argmax", [False, True], ids=["h", "i"])
+def test_decode_stack_step_g32_plain_matches_jax_past_one_row(
+        q4g_params, inputs, offs, spec, lm_argmax):
+    """Modes (h) and (i) over g32 weights at the row counts the weight
+    stream takes on the card (2, 8, 12, 64): the plain version the
+    stream is held to against JAX's interpret-mode step, x_out and the
+    logits within G32_RTOL, the token equal."""
+    (jx, _, _, jlast), (tx, _, _, tlast) = _g32_jax_and_port(
+        q4g_params, inputs, offs, spec, None, lm_argmax=lm_argmax)
+    rows = len(offs) * spec
+    jx = np.asarray(jx)
+    assert tx.shape == (rows, D)
+    np.testing.assert_allclose(tx.numpy(), jx, rtol=0,
+                               atol=G32_RTOL * np.abs(jx).max())
+    if lm_argmax:
+        assert tlast.shape == (rows, 1) and tlast.dtype == torch.int32
+        np.testing.assert_array_equal(tlast.numpy().ravel(),
+                                      np.asarray(jlast).ravel())
+    else:
+        jlast = np.asarray(jlast)
+        np.testing.assert_allclose(tlast.numpy(), jlast, rtol=0,
+                                   atol=G32_RTOL * np.abs(jlast).max())
 
 
 @pytest.mark.parametrize("offs,spec,window", [

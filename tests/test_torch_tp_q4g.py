@@ -260,7 +260,7 @@ def _g32_table(tie_rows):
             (jdsp._g32_codes(codes), jdsp._g32_scales(scales)))
 
 
-@pytest.mark.parametrize("rows", [1, 5])
+@pytest.mark.parametrize("rows", [1, 5, 8])
 @pytest.mark.parametrize("ties,first", [((), None), ((100, 300), (100, 108))])
 def test_lm_half_argmax_g32_plain_matches_jax(setup, rows, ties, first):
     """Per shard: the maximum within 1e-5, the first local index equal,

@@ -26,7 +26,10 @@
 //   (h) g32 (q4g) weights: int8 codes (Q4_0 nibble - 8) with f16 group
 //       scales [N, K/32] in place of the w8 row scales, for the four
 //       stacks and the lm fold (_g32_mask_codes / _g32_matmul_tile,
-//       :84-123): the group-32 GEMVs of w8_common.cuh.  The JAX layouts
+//       :84-123): from 5 rows the weight stream's g32 form (k1_stream.cuh:
+//       one int8 mma a group and 16 weight rows, the group sums in f64,
+//       one weight pass up to 64 rows), below that the group-32 dp4a GEMV
+//       of w8_common.cuh.  The JAX layouts
 //       [L, SB, N, 128] / [L, 4 SB, 1, N] f32 exist for Mosaic; here the
 //       codes keep the w8 layout [L, N, K] and the scales stay f16
 //       (1.0625 instead of 1.125 bytes per weight, the same values).
@@ -70,7 +73,8 @@
 //       vocab tile the (max, first index), then the tiles merged), so the
 //       [B, V] logits are never written; the step returns the token of
 //       each row.  Over a g32 table the fold's logits are mode (h)'s bit
-//       for bit (the same g32_row_dots), over a bf16 table mode (g)'s
+//       for bit (the same dot: the stream's from 5 rows, g32_row_dots
+//       below), over a bf16 table mode (g)'s
 //       (the same bf16_row_dots over the bf16 rows row_quant writes, the
 //       f32-rounded logit compared), so the token is torch.argmax of that
 //       mode's logits.  Its caller is the data-parallel greedy decode
@@ -264,14 +268,13 @@ extern "C" int vx_decode_stack_step(
             static_cast<size_t>(l) * N * (K / 32);
     else if (!bf16)
       scl = static_cast<const float*>(sc) + static_cast<size_t>(l) * N;
-    const float* scf = g32 ? nullptr : static_cast<const float*>(scl);
     const void* xrow = bf16 ? static_cast<const void*>(xb) : xq;
     const StreamSegs sg{{static_cast<const char*>(w0),
                          static_cast<const char*>(w1),
                          static_cast<const char*>(w2)},
                         n0, n1};
-    if (sp[lin].kc > 0 && stream_aligned(xrow, sg)) {
-      const StreamArgs a{xrow, sx, sg, scf, resid, out, nullptr, nullptr,
+    if (sp[lin].kc > 0 && stream_aligned(xrow, sg, g32 ? scl : nullptr)) {
+      const StreamArgs a{xrow, sx, sg, scl, resid, out, nullptr, nullptr,
                          B, N, K, 0, 0};
       return launch_stream(wfmt, sp[lin], a, st, pdl);
     }
@@ -336,13 +339,13 @@ extern "C" int vx_decode_stack_step(
     const void* xrow = bf16 ? static_cast<const void*>(xb) : xq;
     const StreamSegs sg{{static_cast<const char*>(lm_codes), nullptr, nullptr},
                         V, 0};
-    if (lm_argmax && sp[4].kc > 0 && stream_aligned(xrow, sg)) {
+    if (lm_argmax && sp[4].kc > 0 &&
+        stream_aligned(xrow, sg, g32 ? lm_scale : nullptr)) {
       // Mode (i) on the stream: the fold's partials a group of rows, then
       // the merge.
       const int groups = (V + stream_fmt(wfmt).rows - 1) /
                          stream_fmt(wfmt).rows;
-      const StreamArgs a{xrow, sx, sg, static_cast<const float*>(lm_scale),
-                         nullptr, nullptr,
+      const StreamArgs a{xrow, sx, sg, lm_scale, nullptr, nullptr,
                          static_cast<float*>(tmax_buf),
                          static_cast<int*>(tidx_buf), B, V, D, 0, 0};
       VX_TRY(launch_stream(wfmt, sp[4], a, st, pdl));
@@ -473,8 +476,8 @@ extern "C" int vx_k1_linear(int fmt, const void* x, const void* sx,
   const float* sxf = static_cast<const float*>(sx);
   const float* rf = static_cast<const float*>(resid);
   float* of = static_cast<float*>(out);
-  if (p.kc > 0 && stream_aligned(x, sg)) {
-    const StreamArgs a{x, sxf, sg, static_cast<const float*>(scale), rf, of,
+  if (p.kc > 0 && stream_aligned(x, sg, fmt == kG32 ? scale : nullptr)) {
+    const StreamArgs a{x, sxf, sg, scale, rf, of,
                        static_cast<float*>(tmax), static_cast<int*>(tidx),
                        M, N, K, 0, 0};
     e = launch_stream(fmt, p, a, st, false);

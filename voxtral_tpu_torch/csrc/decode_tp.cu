@@ -29,9 +29,12 @@
 //        (local absmax, :592), gemv w2_l: the W2 partial
 //   K6 vx_lm_half_argmax (lm_half_argmax, :1285-1382; body _make_lm_half
 //      :1228), one shard's vocab rows: row_quant(final norm) -- XLA's in
-//      JAX, here the row kernel -- then the lm fold of lm_argmax.cuh:
-//      (max, first local index) per row; tp_lm_head_token resolves the
-//      shards (pmax, then the lowest global index).
+//      JAX, here the row kernel -- then the lm fold: over a g32 shard
+//      from 5 rows the fold of K1's weight stream (k1_stream.cuh: one
+//      table pass, one int8 mma a group and 16 rows, then
+//      argmax_merge_kernel), else lm_argmax.cuh's; (max, first local
+//      index) per row; tp_lm_head_token resolves the shards (pmax, then
+//      the lowest global index).
 //
 // The building blocks are K1's (decode_common.cuh, w8_common.cuh,
 // attn_step.cuh); the scales of wo and w2 are full-D and replicated, so a
@@ -57,8 +60,11 @@
 // The attention is K1's cluster launch, in stream order after the qkv
 // GEMV (launched ahead it measured slower on the H100).  At one w8 row
 // K4 is 4 launches and K5 3; the plans come from
-// ops/decode_tp.py::tp_gemv_plan.  K6 stays plain: its fold
-// (lm_argmax.cuh) is at 75 % of its bytes' bound at one row.
+// ops/decode_tp.py::tp_gemv_plan.  K6 launches its row kernel and
+// lm_argmax.cuh's fold plainly (at one row 75 % of its bytes' bound);
+// where it takes the stream's fold (g32, ops/decode_tp.py::
+// lm_stream_plan) the fold and its merge go as programmatic dependent
+// launches, the fold's first weight chunks loading under the row kernel.
 //
 // What bounds it on the H100, at tp = 2 and full width, one row: K4 the
 // layer's local weights, 9.44 MB of wqkv_l + 6.29 MB of wo_l (16.71 MB
@@ -79,6 +85,7 @@
 
 #include "attn_step.cuh"
 #include "decode_common.cuh"
+#include "k1_stream.cuh"
 #include "lm_argmax.cuh"
 #include "w8_common.cuh"
 
@@ -232,23 +239,49 @@ extern "C" int vx_ffn_half_step(
 // codes [V, D] int8 and scale [V] f32 (wfmt 1, g32: [V, D/32] f16), this
 // shard's vocab rows; vmax [B]
 // f32 and vidx [B] int32: the largest logit of each row and its first
-// LOCAL index.  Scratch: xq [B, D] int8, sx [B], tmax / tidx
-// [B, ceil(V / 32)] f32 / int32.
+// LOCAL index.  plan (host memory): {kc, stages, grid} of the weight
+// stream's fold over the shard (ops/decode_tp.py::lm_stream_plan; kc 0:
+// lm_argmax.cuh's fold).  Scratch: xq [B, D] int8, sx [B], tmax / tidx
+// [B, ceil(V / 16)] f32 / int32.
 extern "C" int vx_lm_half_argmax(
     const void* x, const void* final_norm, const void* codes,
     const void* scale, void* vmax, void* vidx, void* xq_buf, void* sx_buf,
     void* tmax_buf, void* tidx_buf, int B, int D, int V, int wfmt, float eps,
-    void* stream) {
+    const int* plan, void* stream) {
   using namespace vx;
-  if (!g32_ok(wfmt, {D}, {codes}) || B < 1 || D < 1 || V < 1)
+  if (!g32_ok(wfmt, {D}, {codes}) || B < 1 || D < 1 || V < 1 ||
+      plan == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int fmt = wfmt == kG32Fmt ? kG32 : kW8;
+  const StreamPlan p{plan[0], plan[1], plan[2]};
+  cudaError_t e = prepare_stream(fmt, B, D, p);
+  if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int8_t* xq = static_cast<int8_t*>(xq_buf);
   float* sx = static_cast<float*>(sx_buf);
-  row_quant(static_cast<const float*>(x), D, D,
-            static_cast<const float*>(final_norm), nullptr, eps, kQuantNorm,
-            B, xq, sx, nullptr, st);
-  launch_argmax(wfmt == kG32Fmt ? kG32 : kW8, xq, sx, codes, scale, B, V, D,
+  e = row_quant(static_cast<const float*>(x), D, D,
+                static_cast<const float*>(final_norm), nullptr, eps,
+                kQuantNorm, B, xq, sx, nullptr, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const StreamSegs sg{{static_cast<const char*>(codes), nullptr, nullptr},
+                      V, 0};
+  if (p.kc > 0) {  // the stream's fold: a group's partials, then the merge
+    if (!stream_aligned(xq, sg, fmt == kG32 ? scale : nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const StreamArgs a{xq, sx, sg, scale, nullptr, nullptr,
+                       static_cast<float*>(tmax_buf),
+                       static_cast<int*>(tidx_buf), B, V, D, 0, 0};
+    e = launch_stream(fmt, p, a, st, true);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    e = launch_pdl(argmax_merge_kernel, dim3(B), dim3(256), 0, st, true,
+                   static_cast<const float*>(tmax_buf),
+                   static_cast<const int*>(tidx_buf),
+                   (V + stream_fmt(fmt).rows - 1) / stream_fmt(fmt).rows,
+                   static_cast<float*>(vmax), static_cast<int*>(vidx));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(cudaGetLastError());
+  }
+  launch_argmax(fmt, xq, sx, codes, scale, B, V, D,
                 static_cast<float*>(tmax_buf),
                 static_cast<int*>(tidx_buf), static_cast<float*>(vmax),
                 static_cast<int*>(vidx), st);

@@ -1,9 +1,11 @@
 // K1's weight stream: the GEMVs and the lm fold of one decode step
-// (decode_step.cu) over dense bf16 weights from 2 to 64 rows, and over
-// w8 weights above 32 rows, in one pass over the weights (more rows: one
-// pass per 64).  One bf16 row, w8 up to 32 rows and every g32 step keep
-// the GEMVs of w8_common.cuh / bf16_gemv.cuh, which measured faster there
-// (ops/decode_step.py::stream_plan routes; launch_gemv_ahead below).
+// (decode_step.cu) over dense bf16 weights from 2 rows, g32 (q4g) weights
+// from 5 and w8 weights above 32, in one pass over the weights up to 64
+// rows (more rows: one pass per 64); K6 (decode_tp.cu) folds a g32 vocab
+// shard on it from 5 rows.  Fewer rows keep the GEMVs and folds of
+// w8_common.cuh / bf16_gemv.cuh / lm_argmax.cuh, which measured faster
+// there (ops/decode_step.py::stream_plan routes; launch_gemv_ahead
+// below).
 //
 // Port of the weight stream of voxtral_tpu/ops/decode_step_pallas.py::
 // decode_stack_step: the w8 tiles (:742-752), the dense bf16 stream
@@ -17,23 +19,31 @@
 //   out[m, n] = epilogue(sum_k x[m, k] * w[n, k])  (+ resid[m, n])
 //
 // with the epilogues of w8_common.cuh / bf16_gemv.cuh: w8
-// (float(z) * sx[m]) * scale[n], z the exact int32 dot; bf16
+// (float(z) * sx[m]) * scale[n], z the exact int32 dot; g32
+// float(sum_g z_g * s[n, g]) * sx[m], z_g the exact int32 dot of group g
+// (32 k) and each z_g * s exact in f64, summed in f64; bf16
 // float(sum_k x * w), each bf16 x bf16 product exact in f64 and the sum
 // in f64.  Or, with ``tmax`` (mode (i)), the fold: per group of output
 // rows and per activation row the largest value and its first index,
 // merged by argmax_merge_kernel (lm_argmax.cuh) -- the logits the GEMV
 // writes, so the token is torch.argmax of them.
 //
-// Layout of the work.  Output rows come in groups of R (w8 8, bf16 16);
+// Layout of the work.  Output rows come in groups of R (w8 8, bf16 and
+// g32 16);
 // a block of kStreamParts warps takes groups blockIdx.x, + gridDim.x,
 // ... and splits K into kStreamParts parts, one per warp.  Each warp
 // streams its part of each of its groups in chunks of kc elements (R
 // rows x kc) through its own ring of ``stages`` shared-memory slots,
 // filled by 16-byte cp.async spread over its lanes, one copy group per
 // chunk; before pdl_wait it issues its first ``stages`` - 1 chunks.  Up
-// to 8 bf16 rows, the chunk's activation rows ride in the same slot
-// (copied after the wait): read from L2 for every group they cost as
-// much as the products.  At a group's end the warps' partial sums meet
+// to 8 bf16 or g32 rows, the chunk's activation rows ride in the same
+// slot (copied after the wait): read from L2 for every group they cost
+// as much as the products.  A g32 slot also holds the group's f16 scales
+// of the chunk (R rows x kc / 32), its rows lie kc + 32 bytes apart (the
+// 8-byte fragment loads of rows g, a half-warp's, fall in distinct
+// banks), and its copies take every lane, two rows a warp instruction:
+// the copies' instructions, not their bytes, set a warp's pace (measured,
+// PERF.md).  At a group's end the warps' partial sums meet
 // in shared memory and are added in part order (0, 1, 2, 3), then the
 // epilogue writes the group.
 //
@@ -43,6 +53,19 @@
 //  * w8: int8 mma.m16n8k32, A = 16 activation rows, B = the group's 8
 //    weight rows; lane (g, t) brings 16 bytes at k = 64 s + 16 t (the
 //    permutation of w8_gemv_mma_kernel), exact int32.
+//  * g32: int8 mma.m16n8k32 with each product exactly one group (the
+//    k-slot permutation of w8_common.cuh::g32_gemv_mma_kernel), A = the
+//    group's 16 weight rows, B = 8 activation rows: lane (g, t) brings
+//    the 8 bytes at k = 32 s + 8 t of weight rows g and 8 + g and of
+//    activation row 8 i + g, so a fragment slot holds the same k for
+//    every row.  The int32 fragment (fresh each group) turns into
+//    doubles exactly (the 2^52 + 2^51 bias and one f64 add: the f64 pipe
+//    runs twice the conversion unit's rate), and each element takes its
+//    weight row's scale in one f64 fma (the product exact, so fma == mul
+//    + add); at one row tile the even and odd groups go to the two
+//    chains.  A = the weights serves 16 output rows per activation
+//    fragment: half the activation loads of A = 16 activation rows, and
+//    no idle tensor-core rows below 9 rows.
 //  * bf16: the f64 tensor cores, mma.m16n8k8.f64 (sm_90): A = the
 //    group's 16 weight rows, B = 8 activation rows.  Lane (g, t) brings 8
 //    bf16 of rows g and 8 + g at k = 32 s + 8 t; product h (0..3) takes
@@ -51,8 +74,13 @@
 //    pass (bf16 -> f32 by a shift, f32 -> f64 exact), not once per
 //    (weight, row) as bf16_row_dots does.
 //
-// Summation order (bf16, where f64 round-off could show after the
-// rounding to f32): within a part, chunk by chunk in k order, each mma
+// Summation order (g32: each z_g * s has at most 26 significant bits,
+// so a row's f64 sum over its K / 32 groups is exact, in any order,
+// while the row's scales span fewer than about 18 binades: the kernel's
+// order -- even and odd groups, chunks, parts -- and g32_matmul_plain's
+// give the same sum, rounded once to f32; past that span they may round
+// differently.  bf16, where f64 round-off could show after the rounding
+// to f32): within a part, chunk by chunk in k order, each mma
 // adding its 8 exact products to its chain; acc + acc2; then the parts
 // in order.  It depends on K and the chunk kc only (stream_chunk in
 // ops/decode_step.py takes kc from the format and K), never on the row
@@ -64,8 +92,10 @@
 // the products' exponents span fewer than 53 - 16 - log2(K) bits, as in
 // every checked shape, every order gives the exact sum and the same f32.
 //
-// What bounds it on the H100: the weight bytes (3.43 GB w8, 6.86 GB bf16
-// a step) at 3.35 TB/s; in bf16 also the f64 pipe: the tensor cores, 2 x
+// What bounds it on the H100: the weight bytes (3.43 GB w8, 3.64 GB g32
+// with its scales, 6.86 GB bf16 a step) at 3.35 TB/s; in g32 also the f64
+// pipe, two f64 operations per (activation row, weight row, group), 13.7
+// G at 64 rows (0.8 ms); in bf16 the f64 pipe: the tensor cores, 2 x
 // M x 3.43 G flops a step at 67 TFLOP/s (0.82 ms at 8 rows, 6.55 ms at
 // 64), and the f32 -> f64 conversions (16 per clock and SM: once per
 // weight, plus once per activation element per group).
@@ -87,7 +117,7 @@ constexpr int kStreamParts = 4;                  // K parts: warps a block
 constexpr int kStreamThreads = 32 * kStreamParts;
 constexpr int kStreamMaxM = 64;                  // rows of one pass
 constexpr int kStreamMaxStages = 4;
-constexpr int kStreamRingRows = 8;               // bf16 rows staged in a slot
+constexpr int kStreamRingRows = 8;  // bf16 / g32 rows staged in a slot
 constexpr size_t kStreamSmemMax = 232448;        // a block's most (227 KB)
 
 // The geometry of a weight format: element bytes, output rows a group,
@@ -98,26 +128,43 @@ struct StreamFmt {
 };
 
 __host__ __device__ constexpr StreamFmt stream_fmt(int fmt) {
-  return fmt == kBf16 ? StreamFmt{2, 16, 8, 32, 8}
-                      : StreamFmt{1, 8, 16, 64, 4};
+  return fmt == kBf16   ? StreamFmt{2, 16, 8, 32, 8}
+         : fmt == kG32  ? StreamFmt{1, 16, 8, 256, 8}
+                        : StreamFmt{1, 8, 16, 64, 4};
 }
 
-// Activation rows a slot holds: bf16 passes of up to kStreamRingRows
-// rows stage theirs (mt tiles of 8), larger ones read them from L2.
+// Activation rows a slot holds: bf16 and g32 passes of up to
+// kStreamRingRows rows stage theirs (mt tiles of 8), larger ones read
+// them from L2.
 __host__ __device__ constexpr int stream_ring_rows(int fmt, int mt) {
-  return fmt == kBf16 && mt * 8 <= kStreamRingRows ? mt * 8 : 0;
+  return fmt != kW8 && mt * 8 <= kStreamRingRows ? mt * 8 : 0;
+}
+
+// Bytes between two rows of a slot (g32: padded against bank conflicts)
+// and the f16 scales a slot holds after its rows (g32: kc / 32 a weight
+// row).
+constexpr int kStreamG32Pad = 32;
+
+__host__ __device__ constexpr int stream_wstride(int fmt, int kc) {
+  return kc * stream_fmt(fmt).esize + (fmt == kG32 ? kStreamG32Pad : 0);
+}
+
+__host__ __device__ constexpr int stream_scale_bytes(int fmt, int kc) {
+  return fmt == kG32 ? stream_fmt(fmt).rows * (kc / 16) : 0;
 }
 
 // The block's shared memory: the warps' rings (weights, then the staged
-// activation rows), two buffers of the warps' partial sums, the fold's
-// values.  The same formula as ops/decode_step.py::stream_smem.
+// activation rows, then g32's scales), two buffers of the warps' partial
+// sums, the fold's values.  The same formula as
+// ops/decode_step.py::stream_smem.
 struct StreamLayout {
   size_t stage, o_merge, o_ys, smem;
   __host__ __device__ StreamLayout(int fmt, int mt, int kc, int stages) {
     const StreamFmt f = stream_fmt(fmt);
     const size_t mp = static_cast<size_t>(mt) * f.mrows;
-    stage = static_cast<size_t>(f.rows + stream_ring_rows(fmt, mt)) * kc *
-            f.esize;
+    stage = static_cast<size_t>(f.rows + stream_ring_rows(fmt, mt)) *
+                stream_wstride(fmt, kc) +
+            stream_scale_bytes(fmt, kc);
     stage = (stage + 127) / 128 * 128;
     o_merge = kStreamParts * stages * stage;
     o_ys = o_merge + 2 * kStreamParts * f.rows * mp * f.vsize;
@@ -134,10 +181,10 @@ struct StreamSegs {
 };
 
 struct StreamArgs {
-  const void* x;        // [M, K] int8 (w8) or bf16
-  const float* sx;      // [M] row scales (w8)
+  const void* x;        // [M, K] int8 (w8, g32) or bf16
+  const float* sx;      // [M] row scales (w8, g32)
   StreamSegs segs;      // the weights
-  const float* scale;   // w8: [N]; bf16: unused
+  const void* scale;    // w8: [N] f32; g32: [N, K/32] f16; bf16: unused
   const float* resid;   // [M, N] or NULL (may alias out)
   float* out;           // [M, N] (NULL in the fold)
   float* tmax;          // the fold: [M, groups] maxima, or NULL
@@ -190,6 +237,26 @@ __device__ __forceinline__ void stream_dmma16(double (&c)[4], double a0,
       : "d"(a0), "d"(a1), "d"(a2), "d"(a3), "d"(b0), "d"(b1));
 }
 
+// An int32 as an exact double without the conversion unit: the bits of
+// 2^52 + 2^51 + 2^31 + z less that bias (one f64 add).
+__device__ __forceinline__ double int_f64(int z) {
+  return __hiloint2double(0x43380000, z ^ static_cast<int>(0x80000000u)) -
+         6755401588539392.0;
+}
+
+// An f16 as an exact double: normal values by their bits, the rest
+// (zero, subnormal, infinity, NaN) through f32.
+__device__ __forceinline__ double f16_f64(__half h) {
+  const unsigned u = __half_as_ushort(h);
+  const unsigned e = u & 0x7c00u;
+  if (e == 0 || e == 0x7c00u)
+    return static_cast<double>(__half2float(h));
+  return __hiloint2double(
+      static_cast<int>(((u & 0x8000u) << 16) |
+                       (((u & 0x7fffu) << 10) + 0x3F000000u)),
+      0);
+}
+
 // The e-th bf16 of a 16-byte fragment as an exact double.
 __device__ __forceinline__ double bf16_f64(const int4& v, int e) {
   const uint32_t w = reinterpret_cast<const uint32_t*>(&v)[e >> 1];
@@ -211,10 +278,10 @@ __global__ void __launch_bounds__(kStreamThreads, stream_min_blocks<MT>())
   constexpr int R = F.rows, MP = MT * F.mrows;
   constexpr int AR = stream_ring_rows(Fmt, MT);  // staged activation rows
   // Fragment accumulators [MT][4] in two chains, acc and acc2 (the
-  // first and second half of each step's products, so the mma latencies
-  // overlap), added at the group's end: w8 int32, rows 16 i + 8 h + g and
-  // columns 2 t + e of the group's 8; bf16 f64, weight rows g + 8 h,
-  // activation rows 8 i + 2 t + e.
+  // first and second half of each step's products, g32 the even and odd
+  // groups, so the latencies overlap), added at the group's end: w8
+  // int32, rows 16 i + 8 h + g and columns 2 t + e of the group's 8;
+  // bf16 and g32 f64, weight rows g + 8 h, activation rows 8 i + 2 t + e.
   using acc_t = typename std::conditional<Fmt == kW8, int, double>::type;
   constexpr int NA = 4;
   pdl_trigger();  // what the next launch touches, it waits for
@@ -234,13 +301,39 @@ __global__ void __launch_bounds__(kStreamThreads, stream_min_blocks<MT>())
   const size_t row_bytes = static_cast<size_t>(K) * F.esize;
   const int chunk_bytes = kc * F.esize;
   const int row16 = chunk_bytes / 16;  // 16-byte pieces of a chunk row
+  const int wst = stream_wstride(Fmt, kc);  // a row's bytes in a slot
+  const char* gsc = static_cast<const char*>(a.scale);  // g32: [N, K/32]
   const char* xrow = static_cast<const char*>(a.x);
   // Chunk q of this warp: group blockIdx.x + (q / nc) * gridDim.x, k
   // elements part * part_k + (q % nc) * kc, into slot q % S; each row's
   // pieces spread over the lanes.  ``acts``: also the activation rows
   // the slot stages (only after pdl_wait).  One copy group a chunk.
   auto issue = [&](int q, bool acts) {
-    if (q < total) {
+    if (Fmt == kG32 && q < total) {
+      // 16-byte piece j of the chunk (kc = 256, prepare_stream: 16 a
+      // row, two rows a warp instruction): the weight rows, the
+      // activation rows (after the wait), then one piece of scales a
+      // weight row.
+      const int grp = blockIdx.x + (q / nc) * gridDim.x;
+      const size_t k0 = static_cast<size_t>(part * part_k + (q % nc) * kc);
+      const int nv = min(R, a.N - grp * R);
+      const int na = acts ? min(M, AR) : 0;
+      unsigned char* slot = ring + (q % S) * ly.stage;
+      const char* w0 = stream_row(a.segs, grp * R, row_bytes) + k0;
+      for (int j = lane; j < 16 * (nv + na) + nv; j += 32) {
+        const int r = j >> 4, p = j & 15;
+        if (r < nv)
+          stream_cp16(slot + r * wst + 16 * p, w0 + r * row_bytes + 16 * p);
+        else if (r < nv + na)
+          stream_cp16(slot + (R + r - nv) * wst + 16 * p,
+                      xrow + (r - nv) * row_bytes + k0 + 16 * p);
+        else
+          stream_cp16(slot + (R + AR) * wst + (j - 16 * (nv + na)) * 16,
+                      gsc + static_cast<size_t>(grp * R + j -
+                                                16 * (nv + na)) *
+                                (K / 16) + k0 / 16);
+      }
+    } else if (q < total) {
       const int grp = blockIdx.x + (q / nc) * gridDim.x;
       const size_t k0b = static_cast<size_t>(part * part_k + (q % nc) * kc) *
                          F.esize;
@@ -257,12 +350,12 @@ __global__ void __launch_bounds__(kStreamThreads, stream_min_blocks<MT>())
             flat ? first + r * row_bytes
                  : stream_row(a.segs, grp * R + r, row_bytes) + k0b;
         for (int o = lane; o < row16; o += 32)
-          stream_cp16(slot + r * chunk_bytes + 16 * o, src + 16 * o);
+          stream_cp16(slot + r * wst + 16 * o, src + 16 * o);
       }
       if (acts)
         for (int m = 0; m < min(M, AR); ++m)
           for (int o = lane; o < row16; o += 32)
-            stream_cp16(slot + (R + m) * chunk_bytes + 16 * o,
+            stream_cp16(slot + (R + m) * wst + 16 * o,
                         xrow + m * row_bytes + k0b + 16 * o);
     }
     stream_commit();  // an empty group keeps the wait count uniform
@@ -277,7 +370,7 @@ __global__ void __launch_bounds__(kStreamThreads, stream_min_blocks<MT>())
       unsigned char* slot = ring + (q % S) * ly.stage;
       for (int m = 0; m < min(M, AR); ++m)
         for (int o = lane; o < row16; o += 32)
-          *reinterpret_cast<int4*>(slot + (R + m) * chunk_bytes + 16 * o) =
+          *reinterpret_cast<int4*>(slot + (R + m) * wst + 16 * o) =
               __ldg(reinterpret_cast<const int4*>(xrow + m * row_bytes + k0b +
                                                   16 * o));
     }
@@ -307,7 +400,8 @@ __global__ void __launch_bounds__(kStreamThreads, stream_min_blocks<MT>())
         const int idx = threadIdx.x + kStreamThreads * u;
         const int n = idx / mv, m = idx % mv, nn = grp * R + n;
         const bool in = idx < R * mv && nn < a.N;
-        pre_s[u] = (Fmt == kW8 && in) ? a.scale[nn] : 0.0f;
+        pre_s[u] = (Fmt == kW8 && in)
+                       ? static_cast<const float*>(a.scale)[nn] : 0.0f;
         pre_r[u] = (a.resid != nullptr && in)
                        ? a.resid[static_cast<size_t>(m) * a.N + nn] : 0.0f;
       }
@@ -353,6 +447,58 @@ __global__ void __launch_bounds__(kStreamThreads, stream_min_blocks<MT>())
             hi[i] = nhi[i];
           }
         }
+      }
+    } else if constexpr (Fmt == kG32) {
+      const int8_t* xq = reinterpret_cast<const int8_t*>(xrow);
+      const __half* scs =
+          reinterpret_cast<const __half*>(st + (R + AR) * wst);
+      const int gpr = kc / 32;  // groups of the chunk (an even count)
+      // Activation fragments of group s (8 bytes at k0 + 32 s + 8 t of
+      // row 8 i + g): from the slot, or from L2 one group ahead.
+      int2 xa[MT], xb[MT];
+      auto load = [&](int s, int2 (&v)[MT]) {
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const int m = 8 * i + g;
+          if (m >= M)
+            v[i] = make_int2(0, 0);
+          else if (AR > 0)
+            v[i] = *reinterpret_cast<const int2*>(st + (R + m) * wst +
+                                                  32 * s + 8 * t);
+          else
+            v[i] = __ldg(reinterpret_cast<const int2*>(
+                xq + static_cast<size_t>(m) * K + k0 + 32 * s + 8 * t));
+        }
+      };
+      // Group s into the chain ``c``: weight rows g, 8 + g of the slot,
+      // their scales, one mma a row tile, four f64 fmas.
+      auto group = [&](int s, acc_t (&c)[MT][NA], const int2 (&cur)[MT],
+                       int2 (&nxt)[MT]) {
+        const int2 w0 = *reinterpret_cast<const int2*>(st + g * wst +
+                                                       32 * s + 8 * t);
+        const int2 w1 = *reinterpret_cast<const int2*>(st + (8 + g) * wst +
+                                                       32 * s + 8 * t);
+        const double s0 = f16_f64(scs[g * gpr + s]);
+        const double s1 = f16_f64(scs[(8 + g) * gpr + s]);
+        if (s + 1 < gpr) load(s + 1, nxt);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          int d[4] = {0, 0, 0, 0};
+          mma_s8(d, w0.x, w1.x, w0.y, w1.y, cur[i].x, cur[i].y);
+          c[i][0] = fma(int_f64(d[0]), s0, c[i][0]);
+          c[i][1] = fma(int_f64(d[1]), s0, c[i][1]);
+          c[i][2] = fma(int_f64(d[2]), s1, c[i][2]);
+          c[i][3] = fma(int_f64(d[3]), s1, c[i][3]);
+        }
+      };
+      // One row tile: even and odd groups in two chains, so the fmas'
+      // latencies overlap; more tiles give that overlap in one chain
+      // (fewer registers).
+      acc_t (&odd)[MT][NA] = MT == 1 ? acc2 : acc;
+      load(0, xa);
+      for (int s = 0; s < gpr; s += 2) {
+        group(s, acc, xa, xb);
+        group(s + 1, odd, xb, xa);
       }
     } else {
       const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(xrow);
@@ -427,7 +573,7 @@ __global__ void __launch_bounds__(kStreamThreads, stream_min_blocks<MT>())
     for (int i = 0; i < MT; ++i)
 #pragma unroll
       for (int e = 0; e < NA; ++e) {
-        if constexpr (Fmt == kBf16)
+        if constexpr (Fmt != kW8)
           mine_p[(8 * (e >> 1) + g) * MP + 8 * i + 2 * t + (e & 1)] =
               acc[i][e] + acc2[i][e];
         else
@@ -447,6 +593,8 @@ __global__ void __launch_bounds__(kStreamThreads, stream_min_blocks<MT>())
       float y;
       if constexpr (Fmt == kW8)
         y = w8_epilogue(v, a.sx[m], pre_s[u]);
+      else if constexpr (Fmt == kG32)
+        y = static_cast<float>(v) * a.sx[m];
       else
         y = static_cast<float>(v);
       if (a.tmax != nullptr) {
@@ -475,7 +623,7 @@ __global__ void __launch_bounds__(kStreamThreads, stream_min_blocks<MT>())
 }
 
 // The kernel of a (format, row tiles) pair: w8 up to 4 tiles of 16 rows,
-// bf16 up to 8 of 8.
+// bf16 and g32 up to 8 of 8.
 template <int Fmt>
 auto stream_kernel(int mt) -> decltype(&k1_stream_kernel<Fmt, 1>) {
   switch (mt) {
@@ -485,7 +633,7 @@ auto stream_kernel(int mt) -> decltype(&k1_stream_kernel<Fmt, 1>) {
     case 4: return k1_stream_kernel<Fmt, 4>;
     default: break;
   }
-  if constexpr (Fmt == kBf16) {
+  if constexpr (Fmt != kW8) {
     switch (mt) {
       case 5: return k1_stream_kernel<Fmt, 5>;
       case 6: return k1_stream_kernel<Fmt, 6>;
@@ -499,6 +647,7 @@ auto stream_kernel(int mt) -> decltype(&k1_stream_kernel<Fmt, 1>) {
 
 inline auto stream_kernel_of(int fmt, int mt) -> void (*)(const StreamArgs) {
   if (fmt == kBf16) return stream_kernel<kBf16>(mt);
+  if (fmt == kG32) return stream_kernel<kG32>(mt);
   if (fmt == kW8) return stream_kernel<kW8>(mt);
   return nullptr;
 }
@@ -521,8 +670,9 @@ inline int stream_mt(int fmt, int m) {
 inline cudaError_t prepare_stream(int fmt, int M, int K, const StreamPlan& p) {
   if (p.kc == 0) return cudaSuccess;
   const StreamFmt f = stream_fmt(fmt);
-  if ((fmt != kW8 && fmt != kBf16) || K % kStreamParts ||
+  if ((fmt != kW8 && fmt != kG32 && fmt != kBf16) || K % kStreamParts ||
       (K / kStreamParts) % p.kc || p.kc % f.align || p.stages < 1 ||
+      (fmt == kG32 && p.kc != f.align) ||
       p.stages > kStreamMaxStages || p.grid < 1)
     return cudaErrorInvalidValue;
   for (int m0 = 0; m0 < M; m0 += kStreamMaxM) {
@@ -540,9 +690,10 @@ inline cudaError_t prepare_stream(int fmt, int M, int K, const StreamPlan& p) {
 }
 
 // Whether the stream takes these pointers: 16-byte aligned rows (the
-// 16-byte copies and fragments).
-inline bool stream_aligned(const void* x, const StreamSegs& s) {
-  bool ok = aligned16(x);
+// 16-byte copies and fragments) and g32 scales.
+inline bool stream_aligned(const void* x, const StreamSegs& s,
+                           const void* scale = nullptr) {
+  bool ok = aligned16(x) && (scale == nullptr || aligned16(scale));
   for (int i = 0; i < 3; ++i)
     if (s.w[i] != nullptr) ok = ok && aligned16(s.w[i]);
   return ok;

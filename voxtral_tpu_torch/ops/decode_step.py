@@ -51,8 +51,10 @@ attention, residual adds fused into the GEMV epilogue) — 9 launches per
 layer + 2, no cross-block carry.  :func:`stream_plan` picks each
 linear's GEMV: the weight stream (persistent blocks, a cp.async ring per
 warp, bf16 products on the f64 tensor cores; :func:`bf16_dots_split_plain`
-states its summation order) for bf16 from 2 rows and w8 above 32, else
-``__dp4a`` (up to 8 rows), int8 tensor-core ``mma`` (up to 64) or
+states its summation order) for bf16 from 2 rows, g32 from 5 (one
+int8 mma a group, f64 group sums) and w8 above 32
+(:data:`STREAM_MIN_ROWS`), else ``__dp4a`` (up to 8 rows), int8
+tensor-core ``mma`` (up to 64) or
 ``bf16_row_dots`` (one bf16 row).  A one-row step and a stream step go
 out as programmatic dependent launches (:data:`K1_PDL`).  The attention of modes
 (a)-(e) is one thread-block cluster per (stream, kv head): its blocks
@@ -347,7 +349,13 @@ def g32_matmul_plain(xq: torch.Tensor, sx: torch.Tensor, codes: torch.Tensor,
     float(sum_g z_g * s_g) * sx, the exact group dots z_g and the sum
     over the groups in f64 (rounded once, as the kernel).  Each group dot
     is an integer below 32 x 127 x 8 < 2^24, so the f32 product computes
-    it exactly, in any order (TF32 too: 8-bit codes fit its mantissa)."""
+    it exactly, in any order (TF32 too: 8-bit codes fit its mantissa).
+    Each z_g * s_g has at most 26 significant bits, so a row's f64 sum is
+    exact in any order while its scales span fewer than about 18
+    binades: then K1's weight stream (``csrc/k1_stream.cuh``: even and
+    odd groups in two chains, chunk by chunk, the K parts in order) and
+    the one-row GEMV (``g32_row_dots``) give this sum bit for bit.  Past
+    that span the orders may round differently."""
     m, k = xq.shape
     n, g = codes.shape[0], k // 32
     xg = xq.float().reshape(m, g, 32).transpose(0, 1)  # [G, M, 32]
@@ -1028,10 +1036,18 @@ STREAM_MAX_STAGES = 4
 STREAM_BLOCK_SMEM = 232448   # the most shared memory a block may take
 STREAM_SM_SMEM = 233472      # an SM's, 1 KB of it held back per block
 # Per weight format: element bytes, output rows a group, activation rows
-# an mma tile, k elements a step (kc's multiple), bytes of a partial sum,
-# and the most bytes of one weight row a chunk holds.
-STREAM_FMT = {"w8": (1, 8, 16, 64, 4, 1024), "bf16": (2, 16, 8, 32, 8, 512)}
-STREAM_RING_ROWS = 8         # bf16 activation rows a ring slot stages
+# an mma tile, k elements a step (kc's multiple; g32: a row's scales of a
+# chunk in one 16-byte copy), bytes of a partial sum, and the most bytes
+# of one weight row a chunk holds.
+STREAM_FMT = {"w8": (1, 8, 16, 64, 4, 1024), "bf16": (2, 16, 8, 32, 8, 512),
+              "g32": (1, 16, 8, 256, 8, 256)}
+STREAM_RING_ROWS = 8         # bf16 / g32 activation rows a slot stages
+STREAM_G32_PAD = 32          # bytes after each g32 weight row of a slot
+# The fewest rows a step's linear takes the stream with, per format: below
+# them the GEMVs of w8_common.cuh / bf16_gemv.cuh and lm_argmax.cuh's
+# fold measured faster on the H100 (benches/torch_k1_times.py --plans,
+# benches/torch_tp_times.py --plans for K6's g32 fold).
+STREAM_MIN_ROWS = {"w8": 33, "bf16": 2, "g32": 5}
 
 
 class StreamPlan(NamedTuple):
@@ -1061,12 +1077,16 @@ def stream_chunk(fmt: str, k: int) -> int:
 
 def stream_smem(fmt: str, mt: int, kc: int, stages: int) -> int:
     """A block's shared memory (csrc/k1_stream.cuh::StreamLayout): the
-    warps' rings (weight rows, then up to STREAM_RING_ROWS bf16
-    activation rows), two buffers of partial sums, the fold's values."""
+    warps' rings (weight rows, then up to STREAM_RING_ROWS bf16 or g32
+    activation rows, g32's rows padded by STREAM_G32_PAD, then g32's f16
+    group scales), two buffers of partial sums, the fold's values."""
     esize, rows, mrows, _, vsize, _ = STREAM_FMT[fmt]
     mp = mt * mrows
-    staged = mt * 8 if fmt == "bf16" and mt * 8 <= STREAM_RING_ROWS else 0
-    stage = -(-(rows + staged) * kc * esize // 128) * 128
+    g32 = fmt == "g32"
+    staged = mt * 8 if fmt != "w8" and mt * 8 <= STREAM_RING_ROWS else 0
+    stage = ((rows + staged) * (kc * esize + (STREAM_G32_PAD if g32 else 0))
+             + (rows * kc // 16 if g32 else 0))
+    stage = -(-stage // 128) * 128
     return (STREAM_PARTS * stages * stage + 2 * STREAM_PARTS * rows * mp
             * vsize + rows * mp * 4)
 
@@ -1077,14 +1097,17 @@ def stream_plan(fmt: str, m: int, n: int, k: int,
     """The weight stream's launch of one [n, k] linear over m rows on a
     card of ``sms`` SMs, or None where the earlier GEMVs of
     w8_common.cuh / bf16_gemv.cuh run it: a k the stream does not take;
-    one bf16 row (bf16_row_dots: one warp per output row, no padding to
-    the 8-row tile); w8 up to 32 rows and g32 at any count, where the
-    dp4a and mma GEMVs measured faster on the H100
+    fewer rows than STREAM_MIN_ROWS: one bf16 row (bf16_row_dots: one
+    warp per output row, no padding to the 8-row tile), g32 up to 4 rows
+    (the dp4a GEMV, its one-row form loading its weights before the wait)
+    and w8 up to 32 rows, where the dp4a and mma GEMVs measured faster on
+    the H100
     (benches/torch_k1_times.py).  As many blocks an SM as the kernel's
     registers allow (4 up to 4 row tiles, else 2) while rings of at
-    least two stages fit; at most STREAM_MAX_STAGES stages; the grid
+    least two stages fit (g32: more warps an SM, not deeper rings,
+    measured faster); at most STREAM_MAX_STAGES stages; the grid
     holds every group of rows or fills the card."""
-    if fmt not in STREAM_FMT or m < (2 if fmt == "bf16" else 33) or n < 1:
+    if fmt not in STREAM_FMT or m < STREAM_MIN_ROWS[fmt] or n < 1:
         return None
     kc = stream_chunk(fmt, k)
     if not kc:
@@ -1105,8 +1128,8 @@ def stream_plan(fmt: str, m: int, n: int, k: int,
 
 
 # Whether K1 launches the kernels of a one-row step, or of a step the
-# weight stream takes (bf16 from 2 rows, w8 above 32), as programmatic
-# dependent launches (True); other steps, and every step with False
+# weight stream takes (STREAM_MIN_ROWS), as programmatic dependent
+# launches (True); other steps, and every step with False
 # (benches/torch_k1_times.py --pdl 0), go in plain stream order.
 K1_PDL = True
 
@@ -1349,7 +1372,9 @@ def decode_stack_step(
     or raise.  Each launch adds one to ``decode_stack_step.launches``, a
     mode (i) launch also to ``decode_stack_step.argmax_launches`` (and,
     over a g32 or a bf16 table, to ``decode_stack_step.argmax_g32_launches``
-    or ``decode_stack_step.argmax_bf16_launches``).
+    or ``decode_stack_step.argmax_bf16_launches``); a g32 step whose
+    linears take the weight stream (``csrc/k1_stream.cuh``) also to
+    ``decode_stack_step.g32_stream_launches``.
     """
     args = (x, offset, attn_norms, ffn_norms, ada_vecs, sqkv, so, s13, s2,
             cos_p, sin_p, k_cache, v_cache, wqkv, wo, w13, w2,
@@ -1488,7 +1513,8 @@ def decode_stack_step(
                             _sm_count(_card_index(dev)))
     # Early launches where they measured faster: one row, or a step the
     # weight stream takes.
-    plans = _plan_array(plans + [int(K1_PDL and (B == 1 or any(plans)))])
+    streamed = any(plans)
+    plans = _plan_array(plans + [int(K1_PDL and (B == 1 or streamed))])
     with torch.cuda.device(dev):
         fn = kernel_fn("vx_decode_stack_step", [_P] * 37 + [_I] * 20
                        + [_F, _F, _P, _P])
@@ -1515,6 +1541,7 @@ def decode_stack_step(
             plans, stream)
     check(code, "decode_stack_step")
     decode_stack_step.launches += 1
+    decode_stack_step.g32_stream_launches += g32 and streamed
     out = (x_out, k_new, v_new)
     if lm_argmax:
         decode_stack_step.argmax_launches += 1
@@ -1528,6 +1555,7 @@ decode_stack_step.launches = 0
 decode_stack_step.argmax_launches = 0
 decode_stack_step.argmax_g32_launches = 0
 decode_stack_step.argmax_bf16_launches = 0
+decode_stack_step.g32_stream_launches = 0
 
 
 def k1_linear_plain(x, w, scale=None, sx=None, resid=None,

@@ -76,15 +76,18 @@ import torch
 
 from voxtral_tpu_torch.ops._build import check, kernel_fn
 from voxtral_tpu_torch.ops.decode_step import (
-    LM_TILE,
     _attention_plain,
+    _card_index,
     _check_cache_mode,
     _linear_plain,
+    _plan_array,
     _rms,
     _rope_swap,
+    _sm_count,
     _spec_streams,
     check_geometry,
     g32_matmul_plain,
+    stream_plan,
 )
 from voxtral_tpu_torch.ops.w8 import quantize_activations as _quant
 from voxtral_tpu_torch.ops.w8_kernel import w8_matmul_plain
@@ -669,6 +672,16 @@ ffn_half_step.launches = 0
 ffn_half_step.g32_launches = 0
 
 
+def lm_stream_plan(fmt: str, rows: int, V: int, D: int, sms: int) -> list:
+    """K6's fold route: [kc, stages, grid] of K1's weight stream over a
+    g32 vocab shard of V rows (``stream_plan``: from STREAM_MIN_ROWS
+    ["g32"] rows, where it measured faster than lm_argmax.cuh's fold,
+    benches/torch_tp_times.py --plans), else [0, 0, 0] (that fold: w8,
+    or fewer rows)."""
+    p = stream_plan(fmt, rows, V, D, sms) if fmt == "g32" else None
+    return [p.kc, p.stages, p.grid] if p else [0, 0, 0]
+
+
 def lm_half_argmax(x, final_norm, lm_scale_l, lm_codes_l, *, eps: float):
     """K6: this shard's greedy lm_head over its vocab rows.
 
@@ -678,8 +691,9 @@ def lm_half_argmax(x, final_norm, lm_scale_l, lm_codes_l, *, eps: float):
     lm_scale_l [V_l, D/32].  Returns (max logit [B, 1] f32, its first
     LOCAL index [B, 1] int32); the logits are never written.  CPU
     tensors take the plain version; CUDA tensors launch the kernel or
-    raise (``lm_half_argmax.launches``, and
-    ``lm_half_argmax.g32_launches`` for g32).
+    raise (``lm_half_argmax.launches``; ``lm_half_argmax.g32_launches``
+    for g32, ``lm_half_argmax.stream_launches`` for a fold on K1's
+    weight stream, :func:`lm_stream_plan`).
     """
     dev = _device_of("lm_half_argmax", x)
     if dev is None:
@@ -700,26 +714,32 @@ def lm_half_argmax(x, final_norm, lm_scale_l, lm_codes_l, *, eps: float):
                    {"lm_codes_l": lm_codes_l, "lm_scale_l": lm_scale_l})
     vmax = torch.empty((B, 1), dtype=f32, device=dev)
     vidx = torch.empty((B, 1), dtype=torch.int32, device=dev)
-    tiles = -(-V // LM_TILE)
+    plan = lm_stream_plan("g32" if g32 else "w8", B, V, D,
+                          _sm_count(_card_index(dev)))
+    tiles = -(-V // 16)  # the stream's groups of 16 rows (or LM_TILE's)
     xq = torch.empty((B, D), dtype=torch.int8, device=dev)
     sx = torch.empty((B,), dtype=f32, device=dev)
     tmax = torch.empty((B, tiles), dtype=f32, device=dev)
     tidx = torch.empty((B, tiles), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        fn = kernel_fn("vx_lm_half_argmax", [_P] * 10 + [_I] * 4 + [_F, _P])
+        fn = kernel_fn("vx_lm_half_argmax",
+                       [_P] * 10 + [_I] * 4 + [_F, _P, _P])
         code = fn(x.data_ptr(), final_norm.data_ptr(), lm_codes_l.data_ptr(),
                   lm_scale_l.data_ptr(), vmax.data_ptr(), vidx.data_ptr(),
                   xq.data_ptr(), sx.data_ptr(), tmax.data_ptr(),
                   tidx.data_ptr(), B, D, V, int(g32), eps,
+                  _plan_array(plan),
                   torch.cuda.current_stream(dev).cuda_stream)
     check(code, "lm_half_argmax")
     lm_half_argmax.launches += 1
     lm_half_argmax.g32_launches += int(g32)
+    lm_half_argmax.stream_launches += int(plan[0] > 0)
     return vmax, vidx
 
 
 lm_half_argmax.launches = 0
 lm_half_argmax.g32_launches = 0
+lm_half_argmax.stream_launches = 0
 
 
 # ---------------------------------------------------------------------------
