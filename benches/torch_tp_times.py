@@ -58,7 +58,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 
-LAYER = 25  # chip_smoke.TP_STACK_LAYER
+LAYER = 25  # chip_smoke.MESH_LAYER
 TP = 2
 # name -> (kernel, format, S, offsets: an int (one stream, scalar offset)
 # or a list (an offset tensor per stream), spec, ring, int8, chunk, dead

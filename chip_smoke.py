@@ -17,18 +17,16 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              row, mode (b) spec=8 at 1 and 8 streams (8 and 64 rows,
              distinct per-stream offsets) and mode (c) (an offset per
              row, 4 rows), each timed on the device (a CUDA graph of the
-             step) and called from the host.  The step's device time by
-             launch class (k1_breakdown: row_quant, each GEMV, the
-             attention, the lm head) at one row (mode (a), mode (g)) and
-             at 8 bf16 rows runs last, after phase 7, with K4's and K5's
-             calls by launch class at 1 and 8 rows (run_tp_breakdowns):
-             the profiler slows the host side of what follows it.  Main path: TranscribePipeline.
+             step) and called from the host.  (The step's and K4's / K5's
+             device time by launch class: benches/torch_k1_times.py
+             --breakdown and benches/torch_tp_times.py, on this script's
+             k1_breakdown / tp_breakdown.)  Main path: TranscribePipeline.
              transcribe_samples on a 16 s chirp, sequential and
              speculative (PipelineConfig(speculative=8), draft "ngram"
              and "pad"), each run with the launch counters set to 0 just
              before and read just after, tokens held against the same
              pipelines through the plain versions on the chirp's first
-             8 s (near-tie rule; the pad-draft pair on its first 3 s, a
+             6 s (near-tie rule; the pad-draft pair on its first 3 s, a
              pass per token being slow there), every speculative
              pass one K1 launch; then three mels (x, 0.9 x,
              1.1 x) with speculative=4 against the sequential batch.
@@ -63,7 +61,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              at a short history; a 40 s chirp fed in ragged pieces to a
              bounded (120 s) and an unbounded session, tokens against
              the same sessions through the plain versions (over the
-             first 8 s of each, and the unbounded one from its kernel
+             first 6 s of each, and the unbounded one from its kernel
              twin's checkpoint at 28 s to 38 s, past the encoder ring's
              wrap: the streams are causal), bounded
              against unbounded and the unbounded session against the
@@ -257,6 +255,19 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
              session and (four cards) a 2 x 2 B = 4 pool (bf16: a dp = 2
              pool) over cards of their own == the same on card 0; for
              w8 on four cards the CLI's ``--tp 2 --dp 2`` exits 0.
+14. serving — after the w8 pools, on their model (run_serving_w8):
+             ``voxtral_tpu_torch.serving.make_server(pool_streams=4,
+             pool_unbounded=True, state_dir=..., prewarm=True)`` on
+             127.0.0.1, driven over HTTP: /transcribe_pcm of the 16 s
+             chirp against transcribe_samples (K1 / K2 launches equal),
+             two concurrent /transcribe uploads in one batch,
+             ?timestamps=1 words, four concurrent /stream sessions (held
+             to a direct StreamPool of the same pieces), the SSE route, a
+             stream drained and resumed by a second server, and the 503
+             admission of a solo session; any other status or an ERROR
+             record on the server's logger fails the run.  It prints the
+             request and feed round trips beside the library's wall and
+             the pool's step, the SSE time to first delta, peak memory.
 9. numbers — RTF, decode ms/token, the weight stream per decode step
              against its bound, passes, peak GPU memory, the sessions'
              step ms and step RTF against the step's bound, time to first
@@ -281,6 +292,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -290,9 +302,9 @@ from pathlib import Path
 import numpy as np
 
 AUDIO_SECS = 16.0
-W8_PLAIN_SECS = 8.0   # the w8 plain-path one-shot runs (sequential, ngram)
+W8_PLAIN_SECS = 6.0   # the w8 plain-path one-shot runs (sequential, ngram)
 PAD_PLAIN_SECS = 3.0  # the plain-path pad-draft speculative run (w8)
-Q4G_PLAIN_SECS = 8.0  # the q4g plain paths (sequential, spec), a prefix
+Q4G_PLAIN_SECS = 6.0  # the q4g plain paths (sequential, spec), a prefix
 Q4_SECS = 4.0         # the packed-q4 one-shot (per-op, host-bound)
 SR = 16000
 
@@ -797,51 +809,6 @@ def check_k1(model, dev, card, offs, spec, iters, plain_iters):
     return worst, ms, plain_ms, b_ms, b_by, host_ms
 
 
-def run_k1_breakdowns(dev, card) -> None:
-    """K1's step by launch class at full width (k1_breakdown): mode (a)
-    at one row, mode (g) at one and SPEC_K rows, on the random stacks of
-    benches/torch_k1_times.py, each profiled in plain stream order (the
-    classes' own times) and timed in a CUDA graph both ways.  Run last:
-    the profiler's tracing stays with the process and slows the host
-    side of whatever follows."""
-    import importlib.util
-
-    from voxtral_tpu_torch import VoxtralConfig
-    from voxtral_tpu_torch.ops import decode_step as k1
-
-    spec = importlib.util.spec_from_file_location(
-        "torch_k1_times",
-        Path(__file__).resolve().parent / "benches" / "torch_k1_times.py")
-    bench = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(bench)
-    lm = VoxtralConfig.voxtral().language_model
-    for fmt, cases in (("w8", ((235, 1),)),
-                       ("bf16", ((235, 1), ([235], SPEC_K)))):
-        w = bench.stacks(fmt, lm, dev)
-        for offs, spec_k in cases:
-            pos, kw = bench.step_args(w, lm, dev, offs, spec_k, seed=7)
-            call = lambda: k1.decode_stack_step(*pos, **kw)  # noqa: E731
-            k1.K1_PDL = False
-            b = k1_breakdown(call, lm.n_layers)
-            k1.K1_PDL = True
-            b["graph_ms_pdl"] = round(graph_ms(call, reps=10, iters=5), 4)
-            print(f"K1 step breakdown [{fmt}] rows={pos[0].shape[0]} (device "
-                  f"ms by launch class, plain stream order; graph_ms_pdl: "
-                  f"the step as launched): {json.dumps(b)} [{card}]",
-                  flush=True)
-        del w
-        release()
-
-
-# K4 / K5 by launch class (run_tp_breakdowns): name -> (half, rows, S,
-# offset); K4's rows are one stream's spec rows over a bounded cache.
-TP_BREAKDOWN = {"K4 w8 1 row S=151": ("K4", 1, 151, 150),
-                "K4 w8 8 rows S=158": ("K4", 8, 158, 143),
-                "K5 w8 1 rows": ("K5", 1, 0, 0),
-                "K5 w8 8 rows": ("K5", 8, 0, 0)}
-TP_STACK_LAYER = 25  # the layer of tp_stacks the breakdown reads
-
-
 def tp_stacks(fmt: str, cfg, dev, seed: int = 0) -> dict:
     """Random local stacks of one shard at tp = 2, cfg.n_layers layers:
     wqkv [L, nqkv_l, D], wo [L, D, nq_l], w13 [L, 2 F_l, D], w2 [L, D,
@@ -922,85 +889,6 @@ def tp_breakdown(fn, kern: str, steps: int = 5) -> dict:
             "kernel_sum_ms": round(sum(out.values()), 5),
             "launches_per_call": launches / steps,
             "names": sorted({e.name[:60] for e in evts})}
-
-
-def tp_breakdown_case(name: str, w: dict, cfg, dev, seed: int):
-    """(kernel call, plain call, bytes moved, int8 operations) of the
-    TP_BREAKDOWN case ``name`` on the stacks ``w``."""
-    import torch
-
-    from voxtral_tpu_torch.ops import decode_step as k1
-    from voxtral_tpu_torch.ops import decode_tp as ktp
-
-    kern, rows, S, off = TP_BREAKDOWN[name]
-    layer, D, hd = TP_STACK_LAYER, cfg.dim, cfg.head_dim
-    nh, nkv = cfg.n_heads // 2, cfg.n_kv_heads // 2
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn((rows, D), device=dev, generator=gen)
-    if kern == "K5":
-        pos = (x, layer, w["ffn_norm"], w["ada"], w["s13"], w["s2"],
-               w["w13"], w["w2"])
-        wl = (w["w13"][layer], w["w2"][layer])
-        return (lambda: (ktp.ffn_half_step(*pos, eps=cfg.norm_eps),),
-                lambda: (ktp.ffn_half_step_plain(*pos, eps=cfg.norm_eps),),
-                nbytes(*wl, *pos[2:6]) + 2 * nbytes(x),
-                2 * rows * sum(t.numel() for t in wl))
-    kc = (torch.randn((1, nkv, S, hd), device=dev, generator=gen)
-          * 0.5).bfloat16()
-    vc = (torch.randn((1, nkv, S, hd), device=dev, generator=gen)
-          * 0.5).bfloat16()
-    if rows == 1:
-        offs = off
-        c, s = k1.rope_pair_vectors(off, hd, cfg.rope_theta, device=dev)
-    else:
-        offs = torch.tensor([off], dtype=torch.int32, device=dev)
-        c, s = k1.rope_pair_vectors(off + torch.arange(rows, device=dev),
-                                    hd, cfg.rope_theta)
-    pos = (x, layer, offs, w["attn_norm"], w["sqkv"], w["so"], c, s, kc, vc,
-           w["wqkv"], w["wo"])
-    kw = dict(n_heads_l=nh, n_kv_l=nkv, head_dim=hd, eps=cfg.norm_eps,
-              window=cfg.sliding_window, spec=rows)
-    wl = (w["wqkv"][layer], w["wo"][layer])
-    moved = (nbytes(*wl, w["sqkv"], w["so"], w["attn_norm"], c, s)
-             + 2 * nbytes(x) + 2 * off * nkv * hd * 2
-             + 2 * rows * nkv * hd * 2)
-    return (lambda: ktp.attn_half_step(*pos, **kw),
-            lambda: ktp.attn_half_step_plain(*pos, **kw), moved,
-            2 * rows * sum(t.numel() for t in wl))
-
-
-def run_tp_breakdowns(dev, card) -> None:
-    """K4's and K5's calls by launch class at tp = 2 and full width
-    (TP_BREAKDOWN, on tp_stacks): each held bit-equal to its plain
-    version, profiled in plain stream order (ops.decode_tp.TP_PDL =
-    False: the classes' own times) and timed in a CUDA graph both ways.
-    Run last, with K1's (the profiler stays with the process)."""
-    import torch
-
-    from voxtral_tpu_torch import VoxtralConfig
-    from voxtral_tpu_torch.ops import decode_tp as ktp
-
-    lm = VoxtralConfig.voxtral().language_model
-    w = tp_stacks("w8", lm, dev)
-    for i, name in enumerate(TP_BREAKDOWN):
-        half, plain, moved, ops = tp_breakdown_case(name, w, lm, dev, 70 + i)
-        got, ref = half(), plain()
-        torch.cuda.synchronize()
-        if not all(torch.equal(g, r) for g, r in zip(got, ref)):
-            fail(f"{name}: not bit-equal to the plain version")
-        ktp.TP_PDL = False
-        try:
-            b = tp_breakdown(half, TP_BREAKDOWN[name][0])
-            b["graph_ms_plain_order"] = round(graph_ms(half), 4)
-        finally:
-            ktp.TP_PDL = True
-        b["graph_ms"] = round(graph_ms(half), 4)
-        b["bound_ms"] = round(bound(moved, ops, INT8_OPS)[0], 4)
-        print(f"{name.split()[0]} call breakdown [{name}] (device ms by "
-              f"launch class, plain stream order; graph_ms: the call as "
-              f"launched): {json.dumps(b)} [{card}]", flush=True)
-    del w
-    release()
 
 
 def check_k1_modes(model, dev, card):
@@ -1697,7 +1585,7 @@ STREAM_SECS = 40.0     # w8: past the encoder ring's wrap (~32 s)
 # steps), and the unbounded one's second stretch, restored from the
 # kernel session's checkpoint at WRAP_FROM_SECS, through the encoder
 # ring's wrap to PLAIN_WRAP_SECS.
-PLAIN_BOUNDED_SECS = PLAIN_UNBOUNDED_SECS = 8.0
+PLAIN_BOUNDED_SECS = PLAIN_UNBOUNDED_SECS = 6.0
 WRAP_FROM_SECS, PLAIN_WRAP_SECS = 28.0, 38.0
 Q4G_STREAM_SECS = 20.0
 Q4G_PLAIN_STREAM_SECS = 10.0  # the q4g session's plain twin, as a prefix
@@ -5321,7 +5209,7 @@ K4_G32_MODES = {
     "e": K4_MODE_CASES["e"],
     "f": ("(f) chunked", 8704, POOL_OFFS, 1, (38, 8666), False, 512, None),
 }
-MESH_Q4G_PLAIN_SECS = 4.0    # the plain q4g TP one-shot, held as a prefix
+MESH_Q4G_PLAIN_SECS = 3.0    # the plain q4g TP one-shot, held as a prefix
 MESH_Q4G_STREAM_SECS = 8.0   # the tp = 2 q4g session
 MESH_Q4G_PLAIN_TICKS = 2     # the plain side of each q4g mesh pool
 # (its four streams start together, so both ticks step all four)
@@ -5891,6 +5779,441 @@ def run_batched_w8(model, plain, dev, card, layout_tie):
 
 
 # ---------------------------------------------------------------------------
+# Phase 14: the HTTP server (voxtral_tpu_torch.serving) on the w8 model
+
+
+SERVE_PAIR_SECS = 4.0     # the two concurrent /transcribe uploads
+SERVE_STREAM_SECS = 5.12  # each of the four /stream sessions (4 ticks)
+SERVE_SSE_SECS = 3.0      # the SSE upload, fed by the server in 1 s slices
+SERVE_DRAIN_TICK = 2      # feeds before the drained stream's snapshot
+
+
+def serve_call(addr, method, path, body=None, headers=None, want=200):
+    """One request; any status but ``want`` fails the run -> (body, s)."""
+    import http.client
+
+    conn = http.client.HTTPConnection(*addr[:2], timeout=600)
+    t0 = time.perf_counter()
+    conn.request(method, path, body=body, headers=headers or {})
+    resp = conn.getresponse()
+    data = resp.read()
+    dt = time.perf_counter() - t0
+    conn.close()
+    if resp.status != want:
+        fail(f"serving: {method} {path} answered {resp.status} (expected "
+             f"{want}): {data[:300]!r}")
+    return data, dt
+
+
+def wav_body(sig: np.ndarray) -> bytes:
+    import io
+
+    from scipy.io import wavfile
+
+    buf = io.BytesIO()
+    wavfile.write(buf, SR, sig.astype(np.float32))
+    return buf.getvalue()
+
+
+def sse_request(addr, sig: np.ndarray) -> tuple:
+    """POST the OpenAI route with stream=true -> (events, seconds to the
+    first delta event, seconds to the end)."""
+    import http.client
+
+    boundary = "voxtralsmoke"
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+            "filename=\"a.wav\"\r\nContent-Type: application/octet-stream"
+            "\r\n\r\n").encode() + wav_body(sig) + (
+        f"\r\n--{boundary}\r\nContent-Disposition: form-data; "
+        f"name=\"stream\"\r\n\r\ntrue\r\n--{boundary}--\r\n").encode()
+    conn = http.client.HTTPConnection(*addr[:2], timeout=600)
+    t0 = time.perf_counter()
+    conn.request("POST", "/v1/audio/transcriptions", body=body, headers={
+        "Content-Type": f"multipart/form-data; boundary={boundary}"})
+    resp = conn.getresponse()
+    if resp.status != 200:
+        fail(f"serving: SSE answered {resp.status}: {resp.read()[:300]!r}")
+    events, first = [], None
+    for line in resp:
+        if line.startswith(b"data: "):
+            events.append(json.loads(line[6:]))
+            if first is None and events[-1]["type"].endswith(".delta"):
+                first = time.perf_counter() - t0
+    conn.close()
+    return events, first, time.perf_counter() - t0
+
+
+def held_tokens(tag, got, ref, margins, tie) -> bool:
+    """first_divergence on two sessions' token lists of one length."""
+    if len(got) != len(ref):
+        fail(f"{tag}: {len(got)} tokens against {len(ref)}")
+    return first_divergence(tag, np.asarray(got), np.asarray(ref), margins,
+                            tie)
+
+
+def run_serving_w8(model, dev, card, layout_tie):
+    """Phase 14: ``serving.make_server(pool_streams=4,
+    pool_unbounded=True, state_dir=..., prewarm=True)`` on the full-width
+    w8 model, driven over HTTP on 127.0.0.1: /transcribe_pcm of the 16 s
+    chirp against transcribe_samples (kernel near-tie rule; K1 / K2
+    launches equal), two concurrent /transcribe uploads coalesced into
+    one batch (each held to its buffer alone by the batched-run rule),
+    ?timestamps=1 words == transcribe_samples_words, four concurrent
+    /stream sessions fed in 1.28 s pieces (each held to a direct
+    StreamPool run of the same pieces; every slot free after), the SSE
+    route (deltas join to the done text; held to a solo session of the
+    same 1 s slices by the layout rule), a stream drained mid-way and
+    resumed by a second server on the same state_dir (== the
+    uninterrupted stream), and admission: with the pool's slots taken,
+    503 through check_hbm under a budget that holds one solo session's
+    caches beside the pool's.  Any other status, or an
+    ERROR record on the server's logger (a swallowed pump failure),
+    fails the run."""
+    import logging
+    import threading
+
+    import torch
+
+    from voxtral_tpu_torch.pipeline import TranscribePipeline
+    from voxtral_tpu_torch.serving import server as srv
+    from voxtral_tpu_torch.streaming import (
+        StreamingSession,
+        StreamPool,
+        solo_cache_bytes,
+    )
+    from voxtral_tpu_torch.utils import hbm
+
+    tag = "serving (w8, pool of 4 unbounded)"
+    tok = text_tokenizer()
+    pipe = TranscribePipeline(model, tok)
+    errors = []
+
+    class Errors(logging.Handler):
+        def emit(self, record):
+            errors.append(self.format(record))
+
+    slog = logging.getLogger("voxtral_tpu_torch.serving")
+    catch = Errors(logging.ERROR)
+    slog.addHandler(catch)
+    made = []  # every session the servers' routes made, in order
+    new_session = srv._new_session
+
+    def recorded(state):
+        made.append(new_session(state))
+        return made[-1]
+
+    srv._new_session = recorded
+    tmp = tempfile.TemporaryDirectory()
+    servers = []
+
+    def start(**kw):
+        s = srv.make_server(pipe, "127.0.0.1", 0, pool_streams=4,
+                            pool_unbounded=True, state_dir=tmp.name, **kw)
+        servers.append(s)
+        threading.Thread(target=s.serve_forever, daemon=True).start()
+        return s
+
+    def metrics(addr) -> dict:
+        out = {}
+        for line in serve_call(addr, "GET", "/metrics")[0].decode().split(
+                "\n"):
+            if line and not line.startswith("#"):
+                name, _, val = line.rpartition(" ")
+                out[name] = float(val)
+        return out
+
+    def reset():
+        counters = stream_counters()
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        return counters
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        server = start(prewarm=True)
+        addr = server.server_address
+        boot = time.perf_counter() - t0
+        health = json.loads(serve_call(addr, "GET", "/healthz")[0])
+        if health["backend"] != dev.type or set(health["prewarm"]) != {
+                "full_chunk_s", "short_bucket_s", "session_s"}:
+            fail(f"{tag}: /healthz {health}")
+        # The prewarm's full chunk (30 s) runs K1 (a) over at most the
+        # S = 240 slots check_k1 holds it at (phase 3).
+        full = pipe.padded_chunks(np.zeros(
+            pipe.pcfg.max_mel_frames * 160 + 1600, np.float32), SR)[0]
+        s30 = model.decoder_seq_len(pipe.mel.num_frames(len(full.samples)))
+        if s30 > 240:
+            fail(f"{tag}: the prewarm's chunk takes K1 to S = {s30}, past "
+                 "the S = 240 check_k1 holds")
+
+        # /transcribe_pcm of the chirp against transcribe_samples.
+        sig = chirp()
+        model.record_margins = True
+        try:
+            ref = pipe._chunk_tokens(sig, SR)[0]
+            ref_m = model.last_margins[0].copy()
+        finally:
+            model.record_margins = False
+        counters = reset()
+        t0 = time.perf_counter()
+        lib_text = pipe.transcribe_samples(sig, SR)
+        torch.cuda.synchronize()
+        lib_wall = time.perf_counter() - t0
+        lib_launch = {n: fn.launches for n, fn in counters.items()}
+        seen, text_of = [], pipe._text
+        pipe._text = lambda chunks: (seen.append(chunks), text_of(chunks))[1]
+        counters = reset()
+        try:
+            data, wall = serve_call(addr, "POST", "/transcribe_pcm?rate=16000",
+                                    sig.tobytes())
+        finally:
+            del pipe._text
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in counters.items()}
+        reply = json.loads(data)
+        same = first_divergence(f"{tag}: /transcribe_pcm vs "
+                                "transcribe_samples", seen[0][0], ref, ref_m,
+                                MARGIN_TIE)
+        if same and reply["text"] != lib_text:
+            fail(f"{tag}: /transcribe_pcm text differs from the library's")
+        for k in ("decode_stack_step", "w8_matmul"):
+            if launches[k] != lib_launch[k] or not launches[k]:
+                fail(f"{tag}: /transcribe_pcm {k} launches {launches[k]}, "
+                     f"the library run's {lib_launch[k]}")
+        out["transcribe_launches"] = launches
+        print(f"{tag}: boot with prewarm {boot:.2f} s (report "
+              f"{health['prewarm']}; its 30 s chunk S={s30}); "
+              f"/transcribe_pcm of the 16 s chirp: {wall:.3f} s round trip "
+              f"against {lib_wall:.3f} s for transcribe_samples, tokens == "
+              f"the library's: {same}, K1 {launches['decode_stack_step']} / "
+              f"K2 {launches['w8_matmul']} launches as the library's "
+              f"[{card}]", flush=True)
+
+        # ?timestamps=1 words against transcribe_samples_words.
+        data, _ = serve_call(addr, "POST", "/transcribe?timestamps=1",
+                             wav_body(sig))
+        words = pipe.transcribe_samples_words(sig, SR)
+        if json.loads(data)["words"] != words["words"]:
+            fail(f"{tag}: ?timestamps=1 words differ from "
+                 "transcribe_samples_words")
+
+        # Two concurrent /transcribe uploads: one batched decode.
+        bufs = [pool_signal(SERVE_PAIR_SECS, i) for i in (0, 1)]
+        alone, alone_m = [], []
+        model.record_margins = True
+        try:
+            for b in bufs:
+                alone.append(pipe._chunk_tokens(b, SR)[0])
+                alone_m.append(model.last_margins[0].copy())
+        finally:
+            model.record_margins = False
+        batched = pipe.batched_chunk_tokens
+        for attempt in range(3):
+            rows = []
+            pipe.batched_chunk_tokens = lambda buffers, batch_size=8: (
+                rows.append((buffers, batched(buffers, batch_size))),
+                rows[-1][1])[1]
+            before = metrics(addr).get("voxtral_transcribe_coalesced_total",
+                                       0)
+            replies = [None, None]
+
+            def post(i):
+                replies[i] = serve_call(addr, "POST", "/transcribe",
+                                        wav_body(bufs[i]))
+
+            threads = [threading.Thread(target=post, args=(i,))
+                       for i in (0, 1)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            del pipe.batched_chunk_tokens
+            grew = metrics(addr).get("voxtral_transcribe_coalesced_total",
+                                     0) - before
+            if grew >= 2:
+                break
+        else:
+            fail(f"{tag}: two concurrent /transcribe uploads were never "
+                 "coalesced into one batch")
+        buffers, toks = next(r for r in rows if len(r[0]) == 2)
+        pair_same = []
+        for (samples, _), chunks in zip(buffers, toks):
+            i = next(i for i, b in enumerate(bufs)
+                     if np.array_equal(samples, b))
+            pair_same.append(first_divergence(
+                f"{tag}: coalesced /transcribe buffer {i} vs alone",
+                chunks[0], alone[i], alone_m[i], layout_tie))
+        pair_wall = max(r[1] for r in replies)
+
+        # Four concurrent /stream sessions, 1.28 s pieces.
+        sigs = [pool_signal(SERVE_STREAM_SECS, i) for i in range(4)]
+        n_ticks = -(-len(sigs[0]) // TICK)
+        model.record_margins = True
+        counters = reset()
+        sids = [json.loads(serve_call(addr, "POST", "/stream/start")[0])[
+            "session"] for _ in sigs]
+        stream_sessions = made[-4:]
+        feeds, finals = [], [None] * 4
+
+        def drive(i):
+            for k in range(n_ticks):
+                _, dt = serve_call(addr, "POST", f"/stream/{sids[i]}/feed",
+                                   sigs[i][k * TICK:(k + 1) * TICK].tobytes())
+                feeds.append(dt)
+            finals[i] = json.loads(serve_call(
+                addr, "POST", f"/stream/{sids[i]}/finish")[0])
+
+        threads = [threading.Thread(target=drive, args=(i,))
+                   for i in range(4)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        streams_wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        out["stream_launches"] = {n: fn.launches
+                                  for n, fn in counters.items()}
+        if server.state.pool.free_slots != 4 or metrics(addr)[
+                "voxtral_pool_free_slots"] != 4:
+            fail(f"{tag}: pool slots not all free after the streams finished")
+        # The same pieces through a StreamPool of the same arguments.
+        pool = StreamPool(model, max_streams=4, step_positions=P_STEP,
+                          unbounded=True)
+        direct = [StreamingSession(model, tok, pool=pool) for _ in sigs]
+        step_ms = []
+        for k in range(n_ticks):
+            for ses, s in zip(direct, sigs):
+                ses.feed(s[k * TICK:(k + 1) * TICK], pump=False)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            pool.pump()
+            torch.cuda.synchronize()
+            if k:  # the first tick runs the four slots' init steps
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+        for ses in direct:
+            ses.finish()
+        model.record_margins = False
+        exact = []
+        for i, (got, ref_s) in enumerate(zip(stream_sessions, direct)):
+            if got.tokens == ref_s.tokens:
+                exact.append(True)
+                if finals[i]["text"] != ref_s.text:
+                    fail(f"{tag}: stream {i} text differs from the direct "
+                         "pool's")
+                continue
+            exact.append(False)
+            held_tokens(f"{tag}: /stream {i} vs a direct StreamPool",
+                        got.tokens, ref_s.tokens, ref_s.margins, layout_tie)
+        del pool, direct
+
+        # The SSE route against a solo session of the same 1 s slices.
+        sse_sig = pool_signal(SERVE_SSE_SECS, 5)
+        model.record_margins = True
+        try:
+            events, first_s, sse_s = sse_request(addr, sse_sig)
+            sse_ses = made[-1]
+            solo = StreamingSession(model, tok, unbounded=True)
+            for lo in range(0, len(sse_sig), SR):
+                solo.feed(sse_sig[lo:lo + SR])
+            solo.finish()
+        finally:
+            model.record_margins = False
+        if (events[-1]["type"] != "transcript.text.done"
+                or "".join(e["delta"] for e in events[:-1])
+                != events[-1]["text"]):
+            fail(f"{tag}: SSE deltas do not join to the done text")
+        sse_same = held_tokens(f"{tag}: SSE (pooled) vs a solo session",
+                               sse_ses.tokens, solo.tokens, solo.margins,
+                               layout_tie)
+        if sse_same and events[-1]["text"] != solo.text:
+            fail(f"{tag}: SSE text differs from the solo session's")
+
+        # A stream drained mid-way, resumed by a second server.
+        sid = json.loads(serve_call(addr, "POST", "/stream/start")[0])[
+            "session"]
+        for k in range(SERVE_DRAIN_TICK):
+            serve_call(addr, "POST", f"/stream/{sid}/feed",
+                       sigs[0][k * TICK:(k + 1) * TICK].tobytes())
+        server.shutdown()
+        server.server_close()
+        if server.drain() != 1:
+            fail(f"{tag}: drain did not snapshot the live stream")
+        server2 = start()
+        addr2 = server2.server_address
+        resumed = server2.state.sessions.get(sid)
+        if resumed is None or resumed._pool is None:
+            fail(f"{tag}: the drained stream was not resumed into the pool")
+        for k in range(SERVE_DRAIN_TICK, n_ticks):
+            serve_call(addr2, "POST", f"/stream/{sid}/feed",
+                       sigs[0][k * TICK:(k + 1) * TICK].tobytes())
+        done = json.loads(serve_call(addr2, "POST",
+                                     f"/stream/{sid}/finish")[0])
+        if resumed.tokens != stream_sessions[0].tokens or (
+                done["text"] != finals[0]["text"]):
+            fail(f"{tag}: the resumed stream's tokens differ from the "
+                 "uninterrupted stream's")
+        if metrics(addr2)["voxtral_sessions_restored_total"] != 1:
+            fail(f"{tag}: voxtral_sessions_restored_total != 1")
+
+        # Admission: with the pool's slots taken, 503 through check_hbm
+        # under a budget with room for one solo session's caches beside
+        # the pool's.
+        state = server2.state
+        for _ in range(4):
+            serve_call(addr2, "POST", "/stream/start")
+        one = solo_cache_bytes(model, state.step_positions)
+        budget = (hbm.model_hbm_bytes(model) + state.pool.cache_bytes
+                  + hbm.WORKSPACE_BYTES + one + one // 2)
+        os.environ["VOXTRAL_HBM_BYTES"] = str(budget)
+        try:
+            serve_call(addr2, "POST", "/stream/start")
+            refusal = json.loads(serve_call(addr2, "POST", "/stream/start",
+                                            want=503)[0])["error"]
+        finally:
+            del os.environ["VOXTRAL_HBM_BYTES"]
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        if errors:
+            fail(f"{tag}: the server logged errors: {errors[:3]}")
+    finally:
+        srv._new_session = new_session
+        slog.removeHandler(catch)
+        model.record_margins = False
+        for s in servers:
+            s.shutdown()
+            s.server_close()
+        tmp.cleanup()
+    feeds_ms = np.asarray(feeds) * 1e3
+    print(f"{tag}: two concurrent /transcribe of {SERVE_PAIR_SECS:.0f} s in "
+          f"one batch ({pair_wall:.3f} s), tokens == each alone: {pair_same}"
+          f"; ?timestamps=1 words == transcribe_samples_words; four "
+          f"concurrent /stream sessions of {SERVE_STREAM_SECS} s in "
+          f"{len(feeds)} feeds of 1.28 s ({streams_wall:.2f} s): feed round "
+          f"trip median {np.median(feeds_ms):.1f} ms, max "
+          f"{feeds_ms.max():.1f} ms, against the direct pool's step at four "
+          f"ready rows {np.median(step_ms):.1f} ms (median, max "
+          f"{max(step_ms):.1f}); tokens == the direct StreamPool's exactly: "
+          f"{exact}; K1 {out['stream_launches']['decode_stack_step']} / K2 "
+          f"{out['stream_launches']['w8_matmul']} launches; SSE of "
+          f"{SERVE_SSE_SECS:.0f} s: first delta after "
+          + ("none (no text)" if first_s is None else f"{first_s:.3f} s")
+          + f", done after {sse_s:.3f} s, tokens == a solo session's: "
+          f"{sse_same}; "
+          f"drained at feed {SERVE_DRAIN_TICK} and resumed by a second "
+          f"server: tokens == the uninterrupted stream's; with four pooled "
+          f"sessions and a budget of {budget / 1e9:.3f} GB (room for one "
+          f"solo session's {one / 1e9:.3f} GB of caches) the second solo "
+          f"session 503 ({refusal[:60]}...); peak {peak:.3f} GB [{card}]",
+          flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -5953,9 +6276,13 @@ def main() -> int:
               "card", flush=True)
     pl_w8 = run_pools_w8(w8_model, w8_plain, dev, card,
                          st_w8["layout_noise"])
-    del w8_model, w8_plain
     release()
     phase_done("w8 pools")
+    serving = run_serving_w8(w8_model, dev, card,
+                             2 * st_w8["layout_noise"][1])
+    del w8_model, w8_plain
+    release()
+    phase_done("serving (w8)")
 
     # -- 11. dense weights (bf16 on K1 (g), the CLI's --model, f32) ---------
     dense = run_dense(cfg, dev, card, sig, tok)
@@ -6000,9 +6327,6 @@ def main() -> int:
     # -- 7. gguf -------------------------------------------------------------
     run_gguf_cli(dev, card)
     phase_done("gguf")
-    run_k1_breakdowns(dev, card)
-    run_tp_breakdowns(dev, card)
-    phase_done("K1, K4 and K5 breakdowns")
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "voxtral_tpu"))
@@ -6030,7 +6354,9 @@ def main() -> int:
             "w8_batched": batched["launches"],
             "w8_batched_layer_route": batched["layer_launches"],
             **mesh["launches"], **mstream["launches"],
-            **mesh_q4g["launches"]}
+            **mesh_q4g["launches"],
+            "w8_serving_transcribe": serving["transcribe_launches"],
+            "w8_serving_streams": serving["stream_launches"]}
     for path in ("w8_pool_unbounded_int8", "w8_pool_chunked_bounded",
                  "w8_pool_chunked_unbounded", "w8_pool_speculative_ngram_int8",
                  "q4g_pool_unbounded_int8", "bf16_sequential",
@@ -6039,6 +6365,9 @@ def main() -> int:
         if runs[path]["decode_stack_step"] < 1:
             fail(f"{path}: K1 (modes (e) / (f) / (g)) was launched no time")
 
+    for path in ("w8_serving_transcribe", "w8_serving_streams"):
+        if min(runs[path]["decode_stack_step"], runs[path]["w8_matmul"]) < 1:
+            fail(f"{path}: K1 or K2 was launched no time")
     if runs["w8_batched_layer_route"]["decode_layer_step"] < 1:
         fail("w8_batched_layer_route: K7 was launched no time")
     for path, name in (("w8_tp2_sequential", "attn_half_step"),

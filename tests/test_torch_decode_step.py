@@ -464,18 +464,25 @@ def test_megakernel_mode_and_q4g_geometry_match_jax(q4g_params):
         assert tdsp.q4g_geometry_ok(lm) == jdsp.q4g_geometry_ok(lm), dims
 
 
+def _g32_rows(bc: int, spec: int) -> np.ndarray:
+    """The step's input rows for ``bc`` streams of ``spec`` rows."""
+    rng = np.random.default_rng(17 + bc * spec)
+    return (rng.normal(size=(bc * spec, D)) * 0.5).astype(np.float32)
+
+
 def _g32_jax_and_port(q4g_params, inputs, offs, spec, window, ring=None,
-                      lm_argmax=False):
+                      lm_argmax=False, x=None, idx=None):
     """(JAX interpret-mode outputs, port outputs) of one g32 step with the
     g32 lm fold (``lm_argmax``: mode (i), the token); offs None: mode (a),
-    a scalar offset."""
+    a scalar offset.  ``x`` / ``idx`` replace the input rows and the
+    streams' cache copies (default: :func:`_g32_rows`, stream b on cache
+    b % B)."""
     _, t_embed, k_cache, v_cache, _, _, _ = inputs
     offsets = [7] if offs is None else offs
     bc = len(offsets)
-    idx = np.arange(bc) % B
+    idx = np.arange(bc) % B if idx is None else np.asarray(idx)
     kc, vc = k_cache[:, idx], v_cache[:, idx]
-    rng = np.random.default_rng(17 + bc * spec)
-    x = (rng.normal(size=(bc * spec, D)) * 0.5).astype(np.float32)
+    x = _g32_rows(bc, spec) if x is None else x
     pos = (np.asarray(offsets)[:, None] + np.arange(spec)[None]).reshape(-1)
     cos, sin = jax.vmap(lambda q: jdsp.rope_pair_vectors(
         q, HEAD_DIM, theta=1e6))(jnp.asarray(pos, jnp.int32))
@@ -512,21 +519,62 @@ def _g32_jax_and_port(q4g_params, inputs, offs, spec, window, ring=None,
     return ref, got
 
 
-@pytest.mark.parametrize("offs,spec", [
-    ([5, 11], 1),                    # 2 rows
-    ([5, 11], 4),                    # 8 rows
-    ([5, 11, 7], 4),                 # 12 rows: two 8-row tiles
-    ([2, 3, 4, 5, 6, 7, 8, 8], 8),   # 64 rows: one weight pass
-], ids=["2 rows", "8 rows", "12 rows", "64 rows"])
+def _resolve_tie(monkeypatch, call: int, row: int, col: int) -> list:
+    """Replace the step's row quantization so that its ``call``-th call
+    (0-based, in the plain step's order: per layer qkv, wo, w13, w2)
+    rounds an exact tie (a code of k + 0.5) away from zero instead of to
+    even, after checking that the only exact tie of that call is at
+    (``row``, ``col``).  Returns the list of calls made."""
+    quant = tdsp._quant
+    calls = []
+
+    def resolved(h):
+        xq, sx = quant(h)
+        if len(calls) == call:
+            r = h.float() / sx
+            tie = (r - r.floor()) == 0.5
+            assert tie.nonzero().tolist() == [[row, col]]
+            up = torch.sign(r) * torch.ceil(r.abs())
+            xq = torch.where(tie, up, xq.float()).to(torch.int8)
+        calls.append(len(calls))
+        return xq, sx
+
+    monkeypatch.setattr(tdsp, "_quant", resolved)
+    return calls
+
+
+@pytest.mark.parametrize("offs,spec,tie", [
+    ([5, 11], 1, None),                    # 2 rows
+    ([5, 11], 4, None),                    # 8 rows
+    ([5, 11, 7], 4, None),                 # 12 rows: two 8-row tiles
+    ([2, 3, 4, 5, 6, 7, 8, 8], 8, None),   # 64 rows: one weight pass
+    # 64 rows, eight streams at offsets 1..8: the int8 code of layer 2's
+    # qkv input, row 2, element 196 is an exact tie (50.5) on the port's
+    # side, and JAX's input there is one f32 ulp above it (code 51).
+    ([1, 2, 3, 4, 5, 6, 7, 8], 8, (8, 2, 196)),
+], ids=["2 rows", "8 rows", "12 rows", "64 rows", "64 rows from offset 1"])
 @pytest.mark.parametrize("lm_argmax", [False, True], ids=["h", "i"])
 def test_decode_stack_step_g32_plain_matches_jax_past_one_row(
-        q4g_params, inputs, offs, spec, lm_argmax):
+        q4g_params, inputs, offs, spec, tie, lm_argmax, monkeypatch):
     """Modes (h) and (i) over g32 weights at the row counts the weight
     stream takes on the card (2, 8, 12, 64): the plain version the
     stream is held to against JAX's interpret-mode step, x_out and the
-    logits within G32_RTOL, the token equal."""
+    logits within G32_RTOL, the token equal.
+
+    At offsets 1..8 the two sides part at one rounding tie, not at the
+    spec rows' offsets, masks or fresh rows: each stream alone gives the
+    same rows as in the batch on both sides, and the layer inputs agree
+    to an ulp up to the tie.  Layer 1's output, row 2, lands on an exact
+    int8 tie of layer 2's row quantization on the port's side (f64 sums
+    rounded once) and one ulp above it on JAX's (f32 sums); round-half-
+    to-even gives codes 50 and 51.  The case resolves that one tie as
+    JAX's input does, after checking it is the only exact tie of that
+    call, and holds the rest to the same tolerance."""
+    calls = _resolve_tie(monkeypatch, *tie) if tie else None
     (jx, _, _, jlast), (tx, _, _, tlast) = _g32_jax_and_port(
         q4g_params, inputs, offs, spec, None, lm_argmax=lm_argmax)
+    if tie:
+        assert len(calls) > tie[0]  # the resolved call was made
     rows = len(offs) * spec
     jx = np.asarray(jx)
     assert tx.shape == (rows, D)
@@ -540,6 +588,25 @@ def test_decode_stack_step_g32_plain_matches_jax_past_one_row(
         jlast = np.asarray(jlast)
         np.testing.assert_allclose(tlast.numpy(), jlast, rtol=0,
                                    atol=G32_RTOL * np.abs(jlast).max())
+
+
+def test_g32_parting_at_offsets_1_to_8_is_one_stream_and_one_tie(
+        q4g_params, inputs):
+    """Where the 64-row case from offset 1 parts without the tie's
+    resolution: only rows 2-7 of stream 0 (row 2 holds the tie, rows 3-7
+    attend to its fresh K / V), and stream 0 alone, on the same rows and
+    cache, gives the rows it gives in the batch on each side: the
+    parting is that stream's values, not the batch's offsets."""
+    offs = [1, 2, 3, 4, 5, 6, 7, 8]
+    (jx, _, _, _), (tx, _, _, _) = _g32_jax_and_port(
+        q4g_params, inputs, offs, 8, None)
+    jx, tx = np.asarray(jx), tx.numpy()
+    apart = np.abs(tx - jx).max(-1) > G32_RTOL * np.abs(jx).max()
+    assert np.flatnonzero(apart).tolist() == [2, 3, 4, 5, 6, 7]
+    (j1, _, _, _), (t1, _, _, _) = _g32_jax_and_port(
+        q4g_params, inputs, [1], 8, None, x=_g32_rows(8, 8)[:8], idx=[0])
+    np.testing.assert_array_equal(np.asarray(j1), jx[:8])
+    np.testing.assert_array_equal(t1.numpy(), tx[:8])
 
 
 @pytest.mark.parametrize("offs,spec,window", [

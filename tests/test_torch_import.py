@@ -16,7 +16,8 @@ PKG = REPO / "voxtral_tpu_torch"
 
 def test_importing_the_port_leaves_jax_out():
     # A fresh interpreter: this test process already imported jax
-    # (tests/conftest.py).  Importing every module of the port and
+    # (tests/conftest.py).  Importing every module of the port (the
+    # server, the client, wer and profiling too) and
     # running a tiny transcribe (on one device and on a 2 x 2 mesh of
     # CPUs) and a tiny pool on the CPU loads neither
     # jax nor any module of the JAX package voxtral_tpu.
@@ -28,6 +29,8 @@ def test_importing_the_port_leaves_jax_out():
             "import voxtral_tpu_torch.ops.q4_kernel, voxtral_tpu_torch.loaders.gguf_loader\n"
             "import voxtral_tpu_torch.loaders.safetensors_loader, voxtral_tpu_torch.hub\n"
             "import voxtral_tpu_torch.loaders.param_cache\n"
+            "import voxtral_tpu_torch.serving, voxtral_tpu_torch.client\n"
+            "import voxtral_tpu_torch.utils.wer, voxtral_tpu_torch.utils.profiling\n"
             "import voxtral_tpu_torch.parallel, voxtral_tpu_torch.ops.decode_tp\n"
             "from voxtral_tpu_torch import VoxtralConfig\n"
             "from voxtral_tpu_torch.models.voxtral import VoxtralModel\n"

@@ -133,13 +133,15 @@ def test_cli_help(capsys):
 @pytest.mark.parametrize("argv", [
     ["--batch-files", "8", "--timestamps"], ["--tp", "2"],
     ["--timestamps", "--tp", "2"], ["--audio-list", "list.txt"],
-    ["--server", "http://localhost:1"], ["--dp", "2"], ["--platform", "cpu"],
+    ["--server", "http://localhost:1", "--random-weights"], ["--dp", "2"],
+    ["--platform", "cpu"],
 ])
 def test_cli_refuses_what_is_not_ported(argv, capsys, wav):
     """Flags not ported exit 2 naming their ROADMAP item; the ported
     batch flags refuse what the JAX CLI refuses (``--timestamps`` with
-    ``--batch-files``, ``--audio`` with ``--audio-list``), and ``--tp`` /
-    ``--dp`` a mesh larger than the cards, also exit 2."""
+    ``--batch-files``, ``--audio`` with ``--audio-list``, ``--server``
+    with local weights), and ``--tp`` / ``--dp`` a mesh larger than the
+    cards, also exit 2."""
     from voxtral_tpu_torch import cli
 
     rc = cli.main(["--audio", str(wav), *argv])
@@ -147,6 +149,8 @@ def test_cli_refuses_what_is_not_ported(argv, capsys, wav):
     err = capsys.readouterr().err
     if any(flag in argv for flag in cli._NOT_PORTED):
         assert "ROADMAP" in err
+    elif "--server" in argv:
+        assert "--random-weights conflicts with --server" in err
     elif "--tp" in argv or "--dp" in argv:
         # A mesh of 2 on fewer cards (none here): the JAX CLI's refusal.
         assert "needs 2 devices, found" in err

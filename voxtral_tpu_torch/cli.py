@@ -12,6 +12,8 @@ Usage:
     python -m voxtral_tpu_torch.cli --model DIR --dtype w8 \
         --audio-list files.txt --batch-files 8
     python -m voxtral_tpu_torch.cli --model DIR --timestamps --audio x.wav
+    python -m voxtral_tpu_torch.cli --server http://127.0.0.1:8080 \
+        --audio x.wav
 
 Ported so far: ``--audio`` (repeatable) or ``--audio-list FILE`` (one
 path per line; the two conflict), ``--batch-files N`` (decode the files
@@ -34,11 +36,13 @@ weights, or ``--gguf --weight-format q4g``, or bf16 weights at ``--tp
 decode; bf16 at ``--tp`` > 1 and float32 on any mesh exit with an error
 naming ROADMAP item 12.3b; more shards than cards exit with an error,
 as the JAX CLI; with ``--device cpu`` the mesh's shards share the CPU,
-for tests).  The
-other flags of ``voxtral_tpu/cli.py`` are recognised and exit with an
-error naming the ROADMAP item that ports them.  One line of text per audio file on stdout
-(a missing file prints an empty line and the exit code is 1); logs on
-stderr.
+for tests) and ``--server URL`` (transcribe through a running server,
+:mod:`voxtral_tpu_torch.serving`, with no weights here; not with
+``--gguf``, ``--random-weights``, ``--batch-files``, ``--tp`` or
+``--dp``, as the JAX CLI).  ``--platform`` of ``voxtral_tpu/cli.py`` is
+recognised and exits with an error: the port takes ``--device``.  One
+line of text per audio file on stdout (a missing file prints an empty
+line and the exit code is 1); logs on stderr.
 """
 
 from __future__ import annotations
@@ -52,7 +56,6 @@ from pathlib import Path
 # flag -> (value it takes when unset, ROADMAP item that ports it)
 _NOT_PORTED = {
     "--platform": (None, "none: the port takes --device instead"),
-    "--server": (None, "queue 1, item 11b (serving)"),
 }
 
 
@@ -121,6 +124,11 @@ def build_parser() -> argparse.ArgumentParser:
                    "rows and the 131k-vocab lm_head split over the mesh's "
                    "model axis (w8 or q4g weights, not bf16 or float32; "
                    "needs tp x dp cards)")
+    p.add_argument("--server", metavar="URL",
+                   help="Transcribe through a running server "
+                   "(http://host:port, voxtral-serve-torch or the JAX "
+                   "package's) instead of loading weights here; with "
+                   "--audio / --audio-list and --timestamps")
     p.add_argument("--dp", type=int, default=1,
                    help="Data-parallel ways: batched chunk rows split over "
                    "the mesh's data axis (w8, q4g or bf16 weights, not "
@@ -135,6 +143,139 @@ def build_parser() -> argparse.ArgumentParser:
 def _error(msg: str) -> int:
     print(f"error: {msg}", file=sys.stderr)
     return 2
+
+
+class ArgError(Exception):
+    """A refused argument or a model that cannot load: the message goes
+    to stderr and the exit code is 2."""
+
+
+def device_and_mesh(args):
+    """(device, mesh or None) of ``--device``, ``--tp`` and ``--dp``."""
+    import torch
+
+    try:
+        device = torch.device(args.device)
+    except RuntimeError as exc:
+        raise ArgError(f"--device {args.device}: {exc}") from None
+    if args.tp < 1 or args.dp < 1:
+        raise ArgError("--tp/--dp must be >= 1")
+    if args.tp * args.dp == 1:
+        return device, None
+    from voxtral_tpu_torch.parallel import make_mesh
+
+    n = args.tp * args.dp
+    if device.type == "cuda":
+        n_dev = torch.cuda.device_count()
+        if n > n_dev:
+            raise ArgError(f"--tp {args.tp} x --dp {args.dp} needs {n} "
+                           f"devices, found {n_dev}")
+        mesh = make_mesh(args.dp, args.tp)
+    else:  # a mesh whose shards share the one device (tests)
+        mesh = make_mesh(args.dp, args.tp, [device] * n)
+    logging.getLogger("voxtral_tpu_torch").info(
+        "mesh: %d data x %d model over %s", args.dp, args.tp, mesh.devices)
+    return mesh.first, mesh
+
+
+def load_pipeline(args, pcfg, device, mesh):
+    """The pipeline of ``--random-weights`` (in ``--dtype``), ``--gguf``
+    (in ``--weight-format``) or ``--model`` (in ``--dtype``) on
+    ``device`` / ``mesh``; the CLI's and the server's."""
+    import torch
+
+    from voxtral_tpu_torch.config import VoxtralConfig
+    from voxtral_tpu_torch.pipeline import TranscribePipeline
+
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise ArgError(f"--device {args.device}: no CUDA device is available "
+                       "(torch.cuda.is_available() is False); pass --device "
+                       "cpu to run the plain PyTorch versions on the CPU")
+    if args.random_weights:
+        from voxtral_tpu_torch.models.voxtral import VoxtralModel
+        from voxtral_tpu_torch.tokenizer import VoxtralTokenizer
+        from voxtral_tpu_torch.utils.quantize import (
+            random_dense_params,
+            random_w8_params,
+        )
+
+        cfg = (VoxtralConfig.from_file(args.params) if args.params
+               else VoxtralConfig.voxtral())
+        logging.getLogger("voxtral_tpu_torch").info(
+            "random %s weights (seed 0) on %s", args.dtype, device)
+        try:
+            if args.dtype == "w8":
+                model = VoxtralModel.from_numpy(random_w8_params(cfg), cfg,
+                                                device, mesh=mesh)
+            else:
+                dtype = getattr(torch, args.dtype)
+                model = VoxtralModel(
+                    random_dense_params(cfg, 0, dtype, device), cfg, device,
+                    mesh=mesh)
+        except ValueError as exc:  # what a mesh cannot take
+            raise ArgError(str(exc)) from None
+        if args.tokenizer:
+            tokenizer = VoxtralTokenizer.from_file(args.tokenizer)
+        else:
+            tokenizer = VoxtralTokenizer(
+                [None] * 131072, {1: "<s>", 32: "[STREAMING_PAD]"}, 131072)
+        return TranscribePipeline(model, tokenizer, pcfg)
+    if args.gguf:
+        if not Path(args.gguf).exists():
+            raise ArgError(f"GGUF file not found: {args.gguf}")
+        cfg = VoxtralConfig.from_file(args.params) if args.params else None
+        try:
+            return TranscribePipeline.from_gguf(
+                args.gguf, args.tokenizer, pcfg, config=cfg,
+                weight_format=args.weight_format, device=device,
+                params_cache=args.params_cache, mesh=mesh)
+        except (ValueError, EOFError, KeyError) as exc:
+            raise ArgError(f"failed to load GGUF model: {exc}") from None
+    model_dir = Path(args.model)
+    if not (model_dir / "consolidated.safetensors").exists():
+        raise ArgError(f"model not found at {model_dir} (expected "
+                       "consolidated.safetensors)")
+    try:
+        return TranscribePipeline.from_model_dir(
+            model_dir, args.dtype, pcfg, params_cache=args.params_cache,
+            device=device, mesh=mesh)
+    except (FileNotFoundError, ValueError, KeyError) as exc:
+        raise ArgError(
+            f"failed to load the model directory: {exc}") from None
+
+
+def _run_remote(args, audio_paths: list[str]) -> int:
+    """--server mode: a thin client over :mod:`voxtral_tpu_torch.client`
+    (stdlib HTTP; no model, no card) with the same per-file output and
+    exit codes as local decoding."""
+    from voxtral_tpu_torch.client import ServerError, VoxtralClient
+
+    try:
+        client = VoxtralClient(args.server)
+    except ValueError as e:
+        return _error(str(e))
+    status = 0
+    for path in audio_paths:
+        if not Path(path).exists():
+            print(f"error: audio file not found: {path}", file=sys.stderr)
+            status = 1
+            print("")
+            continue
+        try:
+            result = client.transcribe(path, timestamps=args.timestamps)
+        except (ServerError, OSError) as e:
+            print(f"error: transcription failed for {path}: {e}",
+                  file=sys.stderr)
+            status = 1
+            print("")
+            continue
+        if args.timestamps:
+            print(json.dumps({"file": str(path), "text": result["text"],
+                              "words": result.get("words", [])}),
+                  flush=True)
+        else:
+            print(result["text"], flush=True)
+    return status
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -163,31 +304,22 @@ def main(argv: list[str] | None = None) -> int:
     if args.gguf and not (args.tokenizer or args.random_weights):
         return _error("--gguf requires --tokenizer")
 
-    import torch
+    if args.server:
+        if not audio_paths:
+            return _error("no audio files specified (--audio or --audio-list)")
+        for flag, given in (("--gguf", args.gguf),
+                            ("--random-weights", args.random_weights),
+                            ("--batch-files", args.batch_files > 0),
+                            ("--tp", args.tp > 1), ("--dp", args.dp > 1)):
+            if given:
+                return _error(f"{flag} conflicts with --server (decode "
+                              "configuration lives on the serving host)")
+        return _run_remote(args, audio_paths)
 
     try:
-        device = torch.device(args.device)
-    except RuntimeError as exc:
-        return _error(f"--device {args.device}: {exc}")
-    if args.tp < 1 or args.dp < 1:
-        return _error("--tp/--dp must be >= 1")
-    mesh = None
-    if args.tp * args.dp > 1:
-        from voxtral_tpu_torch.parallel import make_mesh
-
-        n = args.tp * args.dp
-        if device.type == "cuda":
-            n_dev = torch.cuda.device_count()
-            if n > n_dev:
-                return _error(f"--tp {args.tp} x --dp {args.dp} needs {n} "
-                              f"devices, found {n_dev}")
-            mesh = make_mesh(args.dp, args.tp)
-        else:  # a mesh whose shards share the one device (tests)
-            mesh = make_mesh(args.dp, args.tp, [device] * n)
-        device = mesh.first
-        logging.getLogger("voxtral_tpu_torch").info(
-            "mesh: %d data x %d model over %s", args.dp, args.tp,
-            mesh.devices)
+        device, mesh = device_and_mesh(args)
+    except ArgError as exc:
+        return _error(str(exc))
     if not (args.random_weights or args.gguf or args.model):
         return _error("no weights: pass --model DIR, --random-weights or "
                       "--gguf PATH")
@@ -198,67 +330,15 @@ def main(argv: list[str] | None = None) -> int:
     if args.speculative < 0:
         return _error("--speculative must be >= 0")
 
-    from voxtral_tpu_torch.config import VoxtralConfig
-    from voxtral_tpu_torch.pipeline import PipelineConfig, TranscribePipeline
+    from voxtral_tpu_torch.pipeline import PipelineConfig
 
-    if device.type == "cuda" and not torch.cuda.is_available():
-        return _error(f"--device {args.device}: no CUDA device is available "
-                      "(torch.cuda.is_available() is False); pass --device "
-                      "cpu to run the plain PyTorch versions on the CPU")
     pcfg = PipelineConfig(
         delay_tokens=args.delay, max_mel_frames=args.max_mel_frames,
         speculative=args.speculative, draft=args.draft_policy)
-    log = logging.getLogger("voxtral_tpu_torch")
-    if args.random_weights:
-        from voxtral_tpu_torch.models.voxtral import VoxtralModel
-        from voxtral_tpu_torch.tokenizer import VoxtralTokenizer
-        from voxtral_tpu_torch.utils.quantize import (
-            random_dense_params,
-            random_w8_params,
-        )
-
-        cfg = (VoxtralConfig.from_file(args.params) if args.params
-               else VoxtralConfig.voxtral())
-        log.info("random %s weights (seed 0) on %s", args.dtype, device)
-        try:
-            if args.dtype == "w8":
-                model = VoxtralModel.from_numpy(random_w8_params(cfg), cfg,
-                                                device, mesh=mesh)
-            else:
-                dtype = getattr(torch, args.dtype)
-                model = VoxtralModel(
-                    random_dense_params(cfg, 0, dtype, device), cfg, device,
-                    mesh=mesh)
-        except ValueError as exc:  # what a mesh cannot take
-            return _error(str(exc))
-        if args.tokenizer:
-            tokenizer = VoxtralTokenizer.from_file(args.tokenizer)
-        else:
-            tokenizer = VoxtralTokenizer(
-                [None] * 131072, {1: "<s>", 32: "[STREAMING_PAD]"}, 131072)
-        pipeline = TranscribePipeline(model, tokenizer, pcfg)
-    elif args.gguf:
-        if not Path(args.gguf).exists():
-            return _error(f"GGUF file not found: {args.gguf}")
-        cfg = VoxtralConfig.from_file(args.params) if args.params else None
-        try:
-            pipeline = TranscribePipeline.from_gguf(
-                args.gguf, args.tokenizer, pcfg, config=cfg,
-                weight_format=args.weight_format, device=device,
-                params_cache=args.params_cache, mesh=mesh)
-        except (ValueError, EOFError, KeyError) as exc:
-            return _error(f"failed to load GGUF model: {exc}")
-    else:
-        model_dir = Path(args.model)
-        if not (model_dir / "consolidated.safetensors").exists():
-            return _error(f"model not found at {model_dir} (expected "
-                          "consolidated.safetensors)")
-        try:
-            pipeline = TranscribePipeline.from_model_dir(
-                model_dir, args.dtype, pcfg, params_cache=args.params_cache,
-                device=device, mesh=mesh)
-        except (FileNotFoundError, ValueError, KeyError) as exc:
-            return _error(f"failed to load the model directory: {exc}")
+    try:
+        pipeline = load_pipeline(args, pcfg, device, mesh)
+    except ArgError as exc:
+        return _error(str(exc))
 
     if args.batch_files > 0:
         present = [p for p in audio_paths if Path(p).exists()]

@@ -99,6 +99,7 @@ from voxtral_tpu_torch.parallel import (
     row_groups,
 )
 from voxtral_tpu_torch.utils.hbm import HBMBudgetError, check_hbm
+from voxtral_tpu_torch.utils.profiling import span
 
 Params = dict[str, Any]
 
@@ -1044,8 +1045,9 @@ class VoxtralModel:
         return torch.as_tensor(mel, device=self.device).to(self.compute_dtype)
 
     def encode_audio(self, mel) -> torch.Tensor:
-        return encode_audio_fn(self.params, self._cast_mel(mel), self.config,
-                               self._mm)
+        with span("encode_audio", mel_frames=int(mel.shape[-1])):
+            return encode_audio_fn(self.params, self._cast_mel(mel),
+                                   self.config, self._mm)
 
     def decoder_seq_len(self, mel_frames: int) -> int:
         """Decoder positions for a mel length: floor(floor(T/4)/4) on even T."""
@@ -1065,9 +1067,13 @@ class VoxtralModel:
         per pass (``draft`` "ngram" or "pad"): the same tokens, fewer
         passes when the drafts hit.
         """
-        return self._transcribe(mel, delay_tokens, temperature=temperature,
-                                top_k=top_k, seed=seed,
-                                speculative=speculative, draft=draft)[0]
+        seq = self.decoder_seq_len(mel.shape[-1])
+        with span("transcribe_streaming", mel_frames=int(mel.shape[-1]),
+                  tokens=seq - PREFIX_LEN):
+            return self._transcribe(mel, delay_tokens,
+                                    temperature=temperature, top_k=top_k,
+                                    seed=seed, speculative=speculative,
+                                    draft=draft)[0]
 
     def transcribe_streaming_batch(self, mel_batch, delay_tokens: float = 6.0,
                                    speculative: int = 0,

@@ -29,6 +29,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Optional, Sequence
@@ -118,9 +119,20 @@ def build() -> tuple[Path, float]:
     return lib, time.perf_counter() - t0
 
 
-@functools.lru_cache(maxsize=1)
+_LIBRARY_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The built kernel library, loaded once per process."""
+    """The built kernel library, loaded once per process.  The first
+    call builds it; threads that ask meanwhile (a server's handlers and
+    its pump thread) wait for that one build instead of each running
+    ``nvcc``."""
+    with _LIBRARY_LOCK:
+        return _load_library()
+
+
+@functools.lru_cache(maxsize=1)
+def _load_library() -> ctypes.CDLL:
     path, _ = build()
     return ctypes.CDLL(str(path))
 

@@ -44,6 +44,7 @@ from voxtral_tpu_torch.config import VoxtralConfig
 from voxtral_tpu_torch.device import DeviceLike, resolve_device
 from voxtral_tpu_torch.models.voxtral import PREFIX_LEN, VoxtralModel
 from voxtral_tpu_torch.tokenizer import VoxtralTokenizer
+from voxtral_tpu_torch.utils.profiling import span
 
 log = logging.getLogger("voxtral_tpu_torch")
 
@@ -221,7 +222,9 @@ class TranscribePipeline:
     def transcribe_samples(self, samples: np.ndarray,
                            sample_rate: int = 16000) -> str:
         """Transcribe a mono float32 sample buffer."""
-        return self._text(self._chunk_tokens(samples, sample_rate))
+        chunk_tokens = self._chunk_tokens(samples, sample_rate)
+        with span("decode_tokens", chunks=len(chunk_tokens)):
+            return self._text(chunk_tokens)
 
     def transcribe_file(self, path) -> str:
         audio = load_wav(path)
@@ -291,9 +294,10 @@ class TranscribePipeline:
                    for idxs in groups.values()
                    for part in (idxs[lo:lo + batch_size]
                                 for lo in range(0, len(idxs), batch_size))]
-        for idxs, dev_tokens in pending:
-            for i, toks in zip(idxs, _fetch(dev_tokens)):
-                results[i] = [toks[:self._token_count(padded[i])]]
+        with span("transcribe_fetch", groups=len(pending)):
+            for idxs, dev_tokens in pending:
+                for i, toks in zip(idxs, _fetch(dev_tokens)):
+                    results[i] = [toks[:self._token_count(padded[i])]]
         return results
 
     def _chunks(self, samples: np.ndarray, sample_rate: int):
@@ -359,20 +363,24 @@ class TranscribePipeline:
                         [padded[i].samples for i in idxs]))
                    for idxs in groups.values()]
         chunk_tokens: list[np.ndarray] = [np.zeros(0, np.int32)] * len(padded)
-        for idxs, dev_tokens in pending:
-            for i, toks in zip(idxs, _fetch(dev_tokens)):
-                chunk_tokens[i] = toks[:tok_counts[i]]
+        with span("transcribe_fetch", groups=len(pending)):
+            for idxs, dev_tokens in pending:
+                for i, toks in zip(idxs, _fetch(dev_tokens)):
+                    chunk_tokens[i] = toks[:tok_counts[i]]
         return chunk_tokens
 
     def _dispatch_batch(self, sample_rows: list[np.ndarray]):
         """Queue one batch of equal-length padded sample rows: the host
         log-mel, then the model's decode without the fetch
         (``transcribe_streaming_batch_async``)."""
-        mels = np.concatenate(
-            [self.mel.compute_log_batch(r) for r in sample_rows], axis=0)
-        return self.model.transcribe_streaming_batch_async(
-            mels, delay_tokens=self.pcfg.delay_tokens,
-            speculative=self.pcfg.speculative, draft=self.pcfg.draft)
+        n = len(sample_rows)
+        with span("mel", chunks=n, samples=len(sample_rows[0])):
+            mels = np.concatenate(
+                [self.mel.compute_log_batch(r) for r in sample_rows], axis=0)
+        with span("transcribe_dispatch", batch=n, mel_frames=mels.shape[-1]):
+            return self.model.transcribe_streaming_batch_async(
+                mels, delay_tokens=self.pcfg.delay_tokens,
+                speculative=self.pcfg.speculative, draft=self.pcfg.draft)
 
     def _merge_wins(self, groups: dict[int, list[int]],
                     tok_counts: list[int]) -> bool:

@@ -113,6 +113,7 @@ from voxtral_tpu_torch.parallel import (
 )
 from voxtral_tpu_torch.tokenizer import STREAMING_PAD, VoxtralTokenizer
 from voxtral_tpu_torch.utils.hbm import HBMBudgetError, check_hbm
+from voxtral_tpu_torch.utils.profiling import span
 
 MEL_HOP = 160
 MEL_MARGIN = 4  # STFT frames of margin so window-interior frames are exact
@@ -948,8 +949,10 @@ class StreamPool:
                     return
                 continue
 
+            n_ready = sum(ready)
             if self._fused is None:
-                self._pool_step(ready, pending)
+                with span("pool_step", ready=n_ready, fused=False):
+                    self._pool_step(ready, pending)
             else:
                 n_mels = self.cfg.audio.num_mel_bins
                 mel_wins = np.zeros((self.B, n_mels, 16 * self.P + 8),
@@ -961,18 +964,20 @@ class StreamPool:
                             for s in self.sessions]
                 else:
                     done = [self.max_dec] * self.B  # the sacrificial slots
-                for b, sess in enumerate(self.sessions):
-                    if ready[b]:
-                        p0 = sess._positions_done
-                        mel_wins[b] = sess._mel_window(
-                            16 * p0 - MEL_MARGIN,
-                            16 * (p0 + self.P) + MEL_MARGIN)[0]
-                        done[b] = p0
+                with span("pool_mel", ready=n_ready):
+                    for b, sess in enumerate(self.sessions):
+                        if ready[b]:
+                            p0 = sess._positions_done
+                            mel_wins[b] = sess._mel_window(
+                                16 * p0 - MEL_MARGIN,
+                                16 * (p0 + self.P) + MEL_MARGIN)[0]
+                            done[b] = p0
                 dec_len = torch.tensor(done, dtype=torch.int32, device=dev)
                 step = (self._pool_step_spec if self.speculative > 1
                         else self._pool_step_fused)
-                tokens, margins = step(
-                    mel_wins, torch.tensor(ready, device=dev), dec_len)
+                with span("pool_step", ready=n_ready, fused=True):
+                    tokens, margins = step(
+                        mel_wins, torch.tensor(ready, device=dev), dec_len)
                 for b, sess in enumerate(self.sessions):
                     if ready[b]:
                         pending.append((sess, tokens[b], None if margins
@@ -1133,6 +1138,45 @@ class StreamPool:
         }
 
 
+def session_geometry(cfg, step_positions: int, max_duration_s: float,
+                     unbounded: bool) -> tuple:
+    """(decoder ring, encoder ring, decoder slots, encoder slots) of a
+    solo session's caches; the rings are (head, size), None when
+    bounded."""
+    if not unbounded:
+        max_dec = int(max_duration_s * 6.25) + PREFIX_LEN + 2 * step_positions
+        return None, None, max_dec, 4 * max_dec
+    # Ring sizes: the window + one write granule (the decoder writes P
+    # positions per step, the encoder 4P frames), the encoder ring
+    # rounded to its granule so no write wraps.
+    lm, enc = cfg.language_model, cfg.audio_encoder
+    gran = 4 * step_positions
+    dec_ring = (PREFIX_LEN, lm.sliding_window + step_positions)
+    enc_ring = (4 * PREFIX_LEN, -(-(enc.sliding_window + gran) // gran) * gran)
+    return dec_ring, enc_ring, sum(dec_ring), sum(enc_ring)
+
+
+def _session_cache_bytes(model: VoxtralModel, max_dec: int,
+                         max_enc: int) -> tuple[int, int]:
+    """(decoder cache bytes, all cache bytes) of a solo session."""
+    lm, enc = model.config.language_model, model.config.audio_encoder
+    itemsize = torch.empty((), dtype=model.cache_dtype).element_size()
+    dec_bytes = 2 * itemsize * lm.n_layers * max_dec * lm.n_kv_heads * (
+        lm.head_dim)
+    return dec_bytes, dec_bytes + 2 * itemsize * (
+        enc.n_layers * max_enc * enc.n_kv_heads * enc.head_dim)
+
+
+def solo_cache_bytes(model: VoxtralModel, step_positions: int = 8,
+                     max_duration_s: float = 120.0,
+                     unbounded: bool = False) -> int:
+    """The cache bytes a solo ``StreamingSession(model, ...)`` of these
+    arguments allocates (its ``cache_bytes``), without making one."""
+    _, _, max_dec, max_enc = session_geometry(
+        model.config, step_positions, max_duration_s, unbounded)
+    return _session_cache_bytes(model, max_dec, max_enc)[1]
+
+
 class StreamingSession:
     """Incremental transcription over a live 16 kHz mono stream, on the
     model's device: solo (batch 1, its own caches) or, with ``pool=``,
@@ -1213,23 +1257,11 @@ class StreamingSession:
             return
         lm, enc = self.cfg.language_model, self.cfg.audio_encoder
         dev = model.device
-        if unbounded:
-            # Ring sizes: the window + one write granule (the decoder
-            # writes P positions per step, the encoder 4P frames), the
-            # encoder ring rounded to its granule so no write wraps.
-            gran = 4 * self.P
-            self._dec_ring = (PREFIX_LEN, lm.sliding_window + self.P)
-            self._enc_ring = (4 * PREFIX_LEN,
-                              -(-(enc.sliding_window + gran) // gran) * gran)
-            self._max_dec = sum(self._dec_ring)
-            self._max_enc = sum(self._enc_ring)
-            rope_positions = DECODER_ROPE_MAX_SEQ
-        else:
-            self._dec_ring = self._enc_ring = None
-            self._max_dec = (int(max_duration_s * 6.25) + PREFIX_LEN
-                             + 2 * self.P)
-            self._max_enc = 4 * self._max_dec
-            rope_positions = self._max_dec
+        (self._dec_ring, self._enc_ring, self._max_dec,
+         self._max_enc) = session_geometry(self.cfg, self.P, max_duration_s,
+                                           unbounded)
+        rope_positions = (DECODER_ROPE_MAX_SEQ if unbounded
+                          else self._max_dec)
 
         # On a mesh the stream runs on data group 0's shards: K4 / K5 / K6
         # over its model shards (tp > 1), K1 on its device (dp > 1, tp = 1).
@@ -1258,11 +1290,8 @@ class StreamingSession:
             k1.check_geometry(self._max_dec, lm.head_dim, lm.sliding_window,
                               spec, self._dec_ring)
         cache_dtype = model.cache_dtype  # bf16; f32 on an f32 model
-        itemsize = torch.empty((), dtype=cache_dtype).element_size()
-        dec_bytes = (2 * itemsize * lm.n_layers * self._max_dec
-                     * lm.n_kv_heads * lm.head_dim)
-        self.cache_bytes = dec_bytes + 2 * itemsize * (
-            enc.n_layers * self._max_enc * enc.n_kv_heads * enc.head_dim)
+        dec_bytes, self.cache_bytes = _session_cache_bytes(
+            model, self._max_dec, self._max_enc)
         # On a tp mesh the shards hold the head-major decoder caches; the
         # first device the encoder's and the init's position-major one.
         sharded = self._tp_mesh is not None
